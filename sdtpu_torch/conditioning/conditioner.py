@@ -1,0 +1,99 @@
+"""Prompt → conditioning tensors for FLUX (counterpart of
+``sdtpu/conditioning/conditioner.py``: ``tokenize_with_weights``,
+``apply_token_weights``, ``SDCondition``, ``FluxConditioner``).
+
+Tokenizers and the webui prompt parser are shared with ``sdtpu``; the
+encoders are this package's CLIP and T5.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sdtpu.conditioning.prompt_parser import parse_prompt_attention
+from sdtpu_torch.models.clip import CLIPTextConfig, clip_text_forward
+from sdtpu_torch.models.t5 import T5Config, t5_encoder_forward
+
+CHUNK_LEN = 77
+RAW_CHUNK = 75
+
+
+def tokenize_with_weights(tokenizer, text: str, pad_token_id: int,
+                          encode=None) -> Tuple[np.ndarray, np.ndarray]:
+    """→ (tokens [n_chunks*77], weights [n_chunks*77]) int32/float32: chunks
+    of 75 raw tokens wrapped in BOS/EOS and padded to 77; BREAK pads the raw
+    stream to a chunk boundary."""
+    encode = encode or tokenizer.encode
+    raw_tokens: List[int] = []
+    raw_weights: List[float] = []
+    for span, weight in parse_prompt_attention(text):
+        if span == "BREAK" and weight == -1.0:
+            pad = (RAW_CHUNK - (len(raw_tokens) % RAW_CHUNK)) % RAW_CHUNK
+            raw_tokens.extend([tokenizer.eos_token_id] * pad)
+            raw_weights.extend([1.0] * pad)
+            continue
+        ids = encode(span)
+        raw_tokens.extend(ids)
+        raw_weights.extend([weight] * len(ids))
+
+    tokens: List[int] = []
+    weights: List[float] = []
+    offset = 0
+    while True:
+        take = min(RAW_CHUNK, len(raw_tokens) - offset)
+        chunk = [tokenizer.bos_token_id] + raw_tokens[offset:offset + take] + [tokenizer.eos_token_id]
+        cw = [1.0] + raw_weights[offset:offset + take] + [1.0]
+        pad = CHUNK_LEN - len(chunk)
+        chunk += [pad_token_id] * pad
+        cw += [1.0] * pad
+        tokens.extend(chunk)
+        weights.extend(cw)
+        offset += take
+        if offset >= len(raw_tokens):
+            break
+    return np.asarray(tokens, dtype=np.int32), np.asarray(weights, dtype=np.float32)
+
+
+def apply_token_weights(hidden: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Mean-preserving per-chunk scaling. hidden [n_chunks, 77, C],
+    weights [n_chunks, 77]."""
+    original_mean = hidden.mean(dim=(1, 2), keepdim=True)
+    weighted = hidden * weights[:, :, None].to(hidden.dtype)
+    new_mean = weighted.mean(dim=(1, 2), keepdim=True)
+    scale = torch.where(new_mean != 0.0, original_mean / new_mean, torch.ones_like(new_mean))
+    return weighted * scale
+
+
+@dataclasses.dataclass
+class SDCondition:
+    c_crossattn: Optional[torch.Tensor] = None  # [B, L, C]
+    c_vector: Optional[torch.Tensor] = None  # [B, adm]
+
+
+class FluxConditioner:
+    """FLUX: the CLIP-L pooled vector and the T5 token sequence."""
+
+    def __init__(self, clip_tokenizer, t5_tokenizer, clip_l_params, clip_l_cfg: CLIPTextConfig,
+                 t5_params, t5_cfg: T5Config, t5_seq_len: int = 256, device="cpu"):
+        self.clip_tokenizer = clip_tokenizer
+        self.t5_tokenizer = t5_tokenizer
+        self.pl, self.cl = clip_l_params, clip_l_cfg
+        self.pt, self.ct = t5_params, t5_cfg
+        self.t5_seq_len = t5_seq_len
+        self.device = torch.device(device)
+
+    def get_learned_condition(self, text: str, clip_skip: int = -1, **kw) -> SDCondition:
+        tokens, _ = tokenize_with_weights(self.clip_tokenizer, text, self.clip_tokenizer.eos_token_id)
+        ids = torch.from_numpy(tokens[:CHUNK_LEN][None].astype(np.int64)).to(self.device)
+        if self.t5_tokenizer is not None:
+            t5_ids, _ = self.t5_tokenizer.pad(
+                self.t5_tokenizer.encode(text, add_eos=True), self.t5_seq_len)
+        else:
+            t5_ids = [0] * self.t5_seq_len
+        t5_ids = torch.tensor([t5_ids], dtype=torch.int64, device=self.device)
+        _, pooled = clip_text_forward(self.pl, ids, self.cl, clip_skip=-1, return_pooled=True)
+        h_t5 = t5_encoder_forward(self.pt, t5_ids, self.ct)
+        return SDCondition(c_crossattn=h_t5, c_vector=pooled)

@@ -1,0 +1,83 @@
+"""Pipeline construction (counterpart of ``sdtpu/factory.py``:
+``create_pipeline`` and its ``_create_flux_pipeline``).
+
+FLUX is built from given params (this package's tensors, e.g. bridged with
+``sdtpu_torch.weights.from_jax_params``) or from random weights drawn on the
+target device.  Full-width random weights come in the memory classes of the
+JAX FLUX bench: the DiT as per-row int8 ``QuantTensor``s (q8_0), T5-XXL as
+packed 4-bit ``Q4Tensor``s (q4_0), CLIP-L and the VAE dense.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from sdtpu.config import SDVersion
+from sdtpu.tokenizers.clip import CLIPTokenizer
+from sdtpu_torch.conditioning.conditioner import FluxConditioner
+from sdtpu_torch.diffusion.denoiser import FluxFlowDenoiser
+from sdtpu_torch.models import clip as clip_mod
+from sdtpu_torch.models import flux as flux_mod
+from sdtpu_torch.models import t5 as t5_mod
+from sdtpu_torch.models import vae as vae_mod
+from sdtpu_torch.pipeline import DiffusionPipeline
+from sdtpu_torch.weights import synthesize
+
+# synthesis memory class and seed offset per module at full width
+FULL_QUANT = {"diffusion": "q8_0", "t5": "q4_0", "clip_l": None, "vae": None}
+SEED_OFFSET = {"diffusion": 1, "t5": 2, "clip_l": 3, "vae": 4}
+
+
+def flux_configs(small: bool):
+    """→ (dit, clip_l, t5, vae) configs and the T5 sequence length; the small
+    set is the JAX factory's small FLUX config."""
+    if small:
+        dit_cfg = flux_mod.FluxConfig(
+            in_channels=16, hidden_size=64, num_heads=2, depth=2, depth_single=2,
+            axes_dim=(8, 12, 12), context_in_dim=96, vec_in_dim=48, guidance_embed=True)
+        clip_l_cfg = dataclasses.replace(clip_mod.CLIP_L_CONFIG, hidden_size=48,
+                                         intermediate_size=96, num_layers=2, num_heads=4)
+        t5_cfg = t5_mod.T5Config(vocab_size=256, d_model=96, d_kv=16, d_ff=128, num_layers=2,
+                                 num_heads=4)
+        vae_cfg = vae_mod.VAEConfig(base_channels=32, channel_mult=(1, 2, 2, 2), num_res_blocks=1,
+                                    z_channels=4, scale_factor=0.3611, shift_factor=0.1159)
+        return dit_cfg, clip_l_cfg, t5_cfg, vae_cfg, 32
+    return (flux_mod.FLUX_DEV_CONFIG, clip_mod.CLIP_L_CONFIG, t5_mod.T5_XXL_CONFIG,
+            vae_mod.FLUX_VAE_CONFIG, 256)
+
+
+def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] = None,
+                    rng_type: str = "cuda", dtype: torch.dtype = torch.float32,
+                    small: bool = False, seed: int = 0, t5_tokenizer=None,
+                    device="cpu") -> DiffusionPipeline:
+    """params: dict with keys 'diffusion', 'clip_l', 't5', 'vae'; a missing
+    module gets random weights drawn on ``device`` (dense for the small
+    config, the bench's memory classes at full width)."""
+    if version != SDVersion.FLUX:
+        raise NotImplementedError(f"{version} is not ported yet; the port runs FLUX txt2img")
+    params = params or {}
+    dit_cfg, clip_l_cfg, t5_cfg, vae_cfg, t5_seq = flux_configs(small)
+    specs = {"diffusion": flux_mod.param_specs(dit_cfg), "t5": t5_mod.param_specs(t5_cfg),
+             "clip_l": clip_mod.param_specs(clip_l_cfg), "vae": vae_mod.param_specs(vae_cfg)}
+    mods = {}
+    for name, spec in specs.items():
+        mods[name] = params.get(name) or synthesize(
+            spec, quant=None if small else FULL_QUANT[name], seed=seed + SEED_OFFSET[name],
+            device=device, dtype=dtype)
+
+    conditioner = FluxConditioner(CLIPTokenizer(), t5_tokenizer, mods["clip_l"], clip_l_cfg,
+                                  mods["t5"], t5_cfg, t5_seq_len=t5_seq, device=device)
+
+    def diffusion_fn(p, x, t, ctx, y, guidance=None):
+        return flux_mod.flux_forward(p, x, t, ctx, y, guidance=guidance, cfg=dit_cfg)
+
+    def vae_decode_fn(p, z):
+        return vae_mod.vae_decode(p, z, vae_cfg)
+
+    return DiffusionPipeline(
+        version=SDVersion.FLUX, diffusion_params=mods["diffusion"], diffusion_fn=diffusion_fn,
+        conditioner=conditioner, vae_params=mods["vae"], vae_decode_fn=vae_decode_fn,
+        denoiser=FluxFlowDenoiser(), rng_type=rng_type, latent_channels=vae_cfg.z_channels,
+        compute_dtype=dtype, uses_distilled_guidance=dit_cfg.guidance_embed, device=device)

@@ -1,0 +1,113 @@
+"""AutoencoderKL decoder (counterpart of ``sdtpu/models/vae.py``, decode side).
+
+Params are keyed by CompVis ``first_stage_model`` names
+(``decoder.up.N.block.M.…``); activations are NHWC.  The mid-block attention
+is single-head over every latent position (D = 512 at FLUX width).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from sdtpu_torch.ops import attention, conv2d, group_norm, silu
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    in_channels: int = 3
+    z_channels: int = 4
+    base_channels: int = 128
+    channel_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    scale_factor: float = 0.18215
+    shift_factor: float = 0.0
+
+
+FLUX_VAE_CONFIG = VAEConfig(z_channels=16, scale_factor=0.3611, shift_factor=0.1159)
+
+
+def param_specs(cfg: VAEConfig) -> dict:
+    """name → (shape, init) of the decoder half of ``init_vae_params``."""
+    specs = {}
+
+    def conv(name, out_c, in_c, k=3):
+        specs[f"{name}.weight"] = ((out_c, in_c, k, k), "normal")
+        specs[f"{name}.bias"] = ((out_c,), "zeros")
+
+    def norm(name, ch):
+        specs[f"{name}.weight"] = ((ch,), "ones")
+        specs[f"{name}.bias"] = ((ch,), "zeros")
+
+    def res(pre, in_c, out_c):
+        norm(f"{pre}.norm1", in_c)
+        conv(f"{pre}.conv1", out_c, in_c)
+        norm(f"{pre}.norm2", out_c)
+        conv(f"{pre}.conv2", out_c, out_c)
+        if in_c != out_c:
+            conv(f"{pre}.nin_shortcut", out_c, in_c, k=1)
+
+    conv("post_quant_conv", cfg.z_channels, cfg.z_channels, k=1)
+    ch = cfg.base_channels * cfg.channel_mult[-1]
+    conv("decoder.conv_in", ch, cfg.z_channels)
+    res("decoder.mid.block_1", ch, ch)
+    norm("decoder.mid.attn_1.norm", ch)
+    for nm in ("q", "k", "v", "proj_out"):
+        conv(f"decoder.mid.attn_1.{nm}", ch, ch, k=1)
+    res("decoder.mid.block_2", ch, ch)
+    for i in reversed(range(len(cfg.channel_mult))):
+        out_c = cfg.base_channels * cfg.channel_mult[i]
+        for j in range(cfg.num_res_blocks + 1):
+            res(f"decoder.up.{i}.block.{j}", ch, out_c)
+            ch = out_c
+        if i != 0:
+            conv(f"decoder.up.{i}.upsample.conv", ch, ch)
+    norm("decoder.norm_out", ch)
+    conv("decoder.conv_out", cfg.in_channels, ch)
+    return specs
+
+
+def _resnet(p, pre: str, x: torch.Tensor) -> torch.Tensor:
+    out_ch = p[f"{pre}.conv1.weight"].shape[0]
+    h = silu(group_norm(x, p[f"{pre}.norm1.weight"], p[f"{pre}.norm1.bias"], eps=1e-6))
+    h = conv2d(h, p[f"{pre}.conv1.weight"], p[f"{pre}.conv1.bias"])
+    h = silu(group_norm(h, p[f"{pre}.norm2.weight"], p[f"{pre}.norm2.bias"], eps=1e-6))
+    h = conv2d(h, p[f"{pre}.conv2.weight"], p[f"{pre}.conv2.bias"])
+    if x.shape[-1] != out_ch:
+        x = conv2d(x, p[f"{pre}.nin_shortcut.weight"], p[f"{pre}.nin_shortcut.bias"], padding=0)
+    return x + h
+
+
+def _attn(p, pre: str, x: torch.Tensor) -> torch.Tensor:
+    """Single-head spatial self-attention with 1x1-conv projections."""
+    b, hh, ww, c = x.shape
+    h = group_norm(x, p[f"{pre}.norm.weight"], p[f"{pre}.norm.bias"], eps=1e-6)
+
+    def proj(nm):
+        return conv2d(h, p[f"{pre}.{nm}.weight"], p[f"{pre}.{nm}.bias"], padding=0).reshape(
+            b, 1, hh * ww, c)
+
+    o = attention(proj("q"), proj("k"), proj("v")).reshape(b, hh, ww, c)
+    return x + conv2d(o, p[f"{pre}.proj_out.weight"], p[f"{pre}.proj_out.bias"], padding=0)
+
+
+def vae_decode(p, z: torch.Tensor, cfg: VAEConfig = FLUX_VAE_CONFIG) -> torch.Tensor:
+    """z: scaled latent [B,h,w,zc] → image [B,8h,8w,3] in [-1,1]."""
+    z = z / cfg.scale_factor + cfg.shift_factor
+    if "post_quant_conv.weight" in p:
+        z = conv2d(z, p["post_quant_conv.weight"], p["post_quant_conv.bias"], padding=0)
+    h = conv2d(z, p["decoder.conv_in.weight"], p["decoder.conv_in.bias"])
+    h = _resnet(p, "decoder.mid.block_1", h)
+    h = _attn(p, "decoder.mid.attn_1", h)
+    h = _resnet(p, "decoder.mid.block_2", h)
+    for i in reversed(range(len(cfg.channel_mult))):
+        for j in range(cfg.num_res_blocks + 1):
+            h = _resnet(p, f"decoder.up.{i}.block.{j}", h)
+        if i != 0:
+            # nearest 2x: repeat along H, then along W
+            h = h.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+            h = conv2d(h, p[f"decoder.up.{i}.upsample.conv.weight"],
+                       p[f"decoder.up.{i}.upsample.conv.bias"])
+    h = silu(group_norm(h, p["decoder.norm_out.weight"], p["decoder.norm_out.bias"], eps=1e-6))
+    return conv2d(h, p["decoder.conv_out.weight"], p["decoder.conv_out.bias"])

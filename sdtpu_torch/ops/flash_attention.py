@@ -1,0 +1,69 @@
+"""Flash attention: the hand-written Hopper kernel and its plain version.
+
+Counterpart of ``sdtpu/ops/flash_attention.py``.  CUDA tensors run the kernel
+in ``csrc/flash_attention.cu``; CPU tensors run ``plain_attention``, the same
+math in plain PyTorch (the XLA softmax-attention of ``sdtpu/ops/attention.py``:
+f32 scores, probabilities cast to q's dtype before P.V).
+
+Layout [B, H, L, D]; the optional mask is an additive bias broadcastable to
+[Lq, Lk] (shared across batch and heads).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build
+
+SUPPORTED_HEAD_DIMS = (64, 128, 512)
+
+
+def plain_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q.k^T * scale + mask) . v with f32 scores; output in q's dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = logits + mask.float()
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs.to(q.dtype), v.to(q.dtype))
+
+
+def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B,H,Lq,D], k/v: [B,H,Lk,D] → [B,H,Lq,D] in q.dtype.
+
+    k and v are cast to q's dtype first, as on the TPU.  CUDA tensors launch
+    the kernel (bf16 or f32, D in SUPPORTED_HEAD_DIMS) or raise."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    k = k.to(q.dtype)
+    v = v.to(q.dtype)
+    if q.device.type == "cpu":
+        return plain_attention(q, k, v, mask=mask, scale=scale)
+    if q.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"flash_attention: unsupported dtype {q.dtype}")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if b * h > 65535:
+        raise ValueError("flash_attention: batch*heads exceeds the grid limit")
+    bias = None
+    if mask is not None:
+        if mask.dim() > 2 and any(s != 1 for s in mask.shape[:-2]):
+            raise ValueError("flash_attention: mask must broadcast as [Lq, Lk]")
+        bias = mask.reshape(mask.shape[-2], mask.shape[-1]).float().expand(lq, lk).contiguous()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    _build.check_cuda("flash_attention", q, k, v, out, *([] if bias is None else [bias]))
+    _build.launch(
+        "sdtpu_flash_attention", _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), _build.ptr(bias), out.data_ptr(), b * h, lq, lk, d, float(scale),
+        _build.stream_ptr(q),
+    )
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

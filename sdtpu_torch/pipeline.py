@@ -1,0 +1,189 @@
+"""FLUX txt2img pipeline (counterpart of the FLUX txt2img part of
+``sdtpu/pipeline.py``: ``DiffusionPipeline.generate``, ``txt2img``,
+``set_vae_tiling`` and the tiled decode).
+
+Takes the shared ``sdtpu.config.GenerationParams``.  The initial noise comes
+from the shared ``sdtpu.rng`` (Philox / MT19937 in numpy), drawn per batch
+item exactly as the JAX pipeline draws it, so both packages start from the
+same latent.  Phase wall-clock times of the last call land in
+``last_timings`` (``cond``, ``sample``, ``decode``, ``total``, ``steps``);
+each phase ends in a device synchronize.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from sdtpu.config import GenerationParams, SDVersion
+from sdtpu.rng import create_rng
+from sdtpu_torch.diffusion.guidance import cfg_combine
+from sdtpu_torch.diffusion.samplers import sample
+from sdtpu_torch.diffusion.schedule import get_sigmas
+from sdtpu_torch.models.tiling import tiled_decode
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    images: np.ndarray  # [B, H, W, 3] uint8
+    latents: np.ndarray  # [B, h, w, zc] float32 (pre-decode)
+    seeds: list
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _tile(x: torch.Tensor, bc: int) -> torch.Tensor:
+    return x.repeat((bc,) + (1,) * (x.dim() - 1))
+
+
+class DiffusionPipeline:
+    """Conditioner + diffusion backbone + VAE on one device.
+
+    diffusion_fn(params, x, t, context, y, guidance=None) → model output in
+    x's layout (NHWC latents)."""
+
+    def __init__(self, version: SDVersion, diffusion_params, diffusion_fn: Callable, conditioner,
+                 vae_params, vae_decode_fn: Callable, denoiser, rng_type: str = "cuda",
+                 latent_channels: int = 4, compute_dtype: torch.dtype = torch.float32,
+                 uses_distilled_guidance: bool = False, device="cpu"):
+        self.version = version
+        self.diffusion_params = diffusion_params
+        self.diffusion_fn = diffusion_fn
+        self.conditioner = conditioner
+        self.vae_params = vae_params
+        self.vae_decode_fn = vae_decode_fn
+        self.denoiser = denoiser
+        self.rng_type = rng_type
+        self.latent_channels = latent_channels
+        self.scale_factor = 8  # VAE pixels per latent
+        self.compute_dtype = compute_dtype
+        self.uses_distilled_guidance = uses_distilled_guidance
+        self.device = torch.device(device)
+        self._vae_tiling = False
+        self._vae_tile = 64
+        self._vae_overlap = 8
+        self.last_timings: Dict[str, float] = {}
+
+    def set_vae_tiling(self, enabled: bool = True, tile_size: int = 64, overlap: int = 8) -> None:
+        """Spatial VAE tiling: decode runs tile-wise with feathered blending;
+        tile and overlap in latent units."""
+        self._vae_tiling = enabled
+        self._vae_tile = tile_size
+        self._vae_overlap = overlap
+
+    def _vae_dtype(self) -> torch.dtype:
+        for v in self.vae_params.values():
+            if v.is_floating_point():
+                return v.dtype
+        return self.compute_dtype
+
+    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """Scaled latents [B,h,w,zc] → image [B,8h,8w,3] in [-1,1], float32."""
+        vae_dtype = self._vae_dtype()
+
+        def run(z):
+            return self.vae_decode_fn(self.vae_params, z.to(vae_dtype))
+
+        if self._vae_tiling:
+            return tiled_decode(run, latents, tile=self._vae_tile, overlap=self._vae_overlap,
+                                scale_factor=self.scale_factor)
+        return run(latents).float()
+
+    def txt2img(self, gp: GenerationParams) -> GenerationResult:
+        return self.generate(gp)
+
+    def _model_fn(self, ctx_c, ctx_u, y_c, y_u, cfg_scale: float, guidance, b: int):
+        denoiser = self.denoiser
+        has_uncond = ctx_u is not None
+        dev = self.device
+
+        def model_fn(xt, sigma, i):
+            c_skip, c_out, c_in = denoiser.get_scalings_torch(sigma)
+            t = denoiser.sigma_to_t_torch(sigma)
+            x_in = (xt * c_in).to(self.compute_dtype)
+            if has_uncond:
+                x_both = torch.cat([x_in, x_in], dim=0)
+                ctx = torch.cat([ctx_c, ctx_u], dim=0)
+                y = torch.cat([y_c, y_u], dim=0)
+                g = torch.cat([guidance, guidance], dim=0) if guidance is not None else None
+                tt = t.reshape(1).expand(2 * b).to(torch.float32)
+                out = self.diffusion_fn(self.diffusion_params, x_both, tt, ctx, y,
+                                        guidance=g).float()
+                den_both = c_skip * torch.cat([xt, xt], dim=0) + c_out * out
+                den_cond, den_uncond = den_both[:b], den_both[b:]
+                pred = cfg_combine(den_cond, den_uncond, None,
+                                   torch.tensor(cfg_scale, dtype=torch.float32, device=dev))
+            else:
+                tt = t.reshape(1).expand(b).to(torch.float32)
+                out = self.diffusion_fn(self.diffusion_params, x_in, tt, ctx_c, y_c,
+                                        guidance=guidance).float()
+                pred = c_skip * xt + c_out * out
+                den_uncond = pred
+            return pred, den_uncond
+
+        return model_fn
+
+    @torch.inference_mode()
+    def generate(self, gp: GenerationParams) -> GenerationResult:
+        """FLUX txt2img for one GenerationParams: conditioning → flow Euler
+        sampling (CFG when cfg_scale != 1) → (tiled) VAE decode."""
+        if gp.custom_sigmas:
+            raise NotImplementedError("custom sigmas are not ported yet")
+        t0 = time.time()
+        dev = self.device
+        w, h = gp.width, gp.height
+        lh, lw = h // self.scale_factor, w // self.scale_factor
+        bc = gp.batch_count
+        has_uncond = gp.cfg_scale != 1.0
+
+        tc0 = time.time()
+        cond = self.conditioner.get_learned_condition(gp.prompt, clip_skip=gp.clip_skip)
+        uncond = (self.conditioner.get_learned_condition(gp.negative_prompt, clip_skip=gp.clip_skip)
+                  if has_uncond else None)
+        _sync(dev)
+        t_cond = time.time() - tc0
+        ctx_c = _tile(cond.c_crossattn, bc)
+        ctx_u = _tile(uncond.c_crossattn, bc) if uncond is not None else None
+        y_c = _tile(cond.c_vector, bc)
+        y_u = _tile(uncond.c_vector, bc) if uncond is not None else None
+
+        sigmas = get_sigmas(self.denoiser, gp.sample_steps, scheduler=gp.schedule,
+                            image_seq_len=(lh // 2) * (lw // 2))
+        steps = len(sigmas) - 1
+
+        seeds = [gp.seed + i for i in range(bc)]
+        shape = (lh, lw, self.latent_channels)
+        init_noise = np.empty((bc,) + shape, dtype=np.float32)
+        for bi, s in enumerate(seeds):
+            init_noise[bi] = create_rng(self.rng_type, s).randn_shape(shape)
+        x0 = np.zeros((bc,) + shape, dtype=np.float32)
+        x = np.asarray(self.denoiser.noise_scaling(np.float32(sigmas[0]), init_noise, x0),
+                       dtype=np.float32)
+
+        guidance = None
+        if self.uses_distilled_guidance:
+            guidance = torch.full((bc,), gp.guidance, dtype=torch.float32, device=dev)
+
+        ts0 = time.time()
+        model_fn = self._model_fn(ctx_c, ctx_u, y_c, y_u, gp.cfg_scale, guidance, bc)
+        latents = sample(model_fn, torch.from_numpy(x).to(dev), sigmas, method=gp.sample_method)
+        latents = self.denoiser.inverse_noise_scaling(
+            torch.tensor(sigmas[-1], device=dev), latents).float()
+        _sync(dev)
+        t1 = time.time()
+
+        imgs = self.decode(latents).cpu().numpy()
+        lat_np = latents.cpu().numpy()
+        images = np.clip((imgs + 1.0) * 127.5, 0, 255).round().astype(np.uint8)
+        t2 = time.time()
+        self.last_timings = {
+            "cond": t_cond, "sample": t1 - ts0, "decode": t2 - t1,
+            "total": t2 - t0, "steps": steps,
+        }
+        return GenerationResult(images=images, latents=lat_np, seeds=seeds)

@@ -1,0 +1,186 @@
+"""The port's quantized matmuls against ``sdtpu.ops.quant``.
+
+* W8A8: the plain version accumulates exactly (float64 products of int8
+  values) and applies the float32 epilogue in the JAX order (acc·s_x, then
+  ·s_w), so it is held BIT-EQUAL to ``quant_matmul_w8a8`` in its XLA form and
+  through the Pallas kernel forced on and interpreted.
+* 4-bit: the JAX split-half layout is repacked into the port's layout by
+  value (nibbles are integers: exact), and the plain matmul is held to
+  ``q4_matmul`` (XLA form and forced-interpreted kernel) at float32 sum-order
+  tolerance (rtol 1e-5 / atol 1e-5).
+"""
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import sdtpu.ops.attention  # noqa: F401 — registers the module
+import sdtpu.ops.quant as jq
+from sdtpu.ops.basic import linear as jlinear
+from sdtpu_torch.ops import quant as tq
+from sdtpu_torch.ops.basic import linear
+from sdtpu_torch.weights import from_jax_params, repack_q4
+
+# sdtpu.ops re-exports a function named `attention`; fetch the module itself
+att = sys.modules["sdtpu.ops.attention"]
+
+
+@pytest.fixture
+def tpu_branch_interpret(monkeypatch):
+    """Force the TPU kernel branch but execute pallas_call interpreted."""
+    monkeypatch.setattr(att, "_FORCE_PLATFORM", "tpu")
+    orig = pl.pallas_call
+
+    def patched(*a, **kw):
+        kw["interpret"] = True
+        kw.pop("compiler_params", None)
+        kw.pop("cost_estimate", None)
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(jq.pl, "pallas_call", patched)
+    monkeypatch.delenv("SDTPU_DISABLE_QUANT_KERNEL", raising=False)
+
+
+def _x(rng, shape, dtype):
+    x = rng.standard_normal(shape).astype(np.float32)
+    x[..., 0, :] = 0.0  # one all-zero row: scale 1
+    return x if dtype == "f32" else np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def _port_x(x, dtype):
+    t = torch.from_numpy(np.array(x))
+    return t if dtype == "f32" else t.to(torch.bfloat16)
+
+
+def _jax_x(x, dtype):
+    a = jnp.asarray(x)
+    return a if dtype == "f32" else a.astype(jnp.bfloat16)
+
+
+def _as_np(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantize_activations_bit_equal(dtype):
+    rng = np.random.default_rng(0)
+    x = _x(rng, (3, 7, 96), dtype) * 5
+    q_j, s_j = jq.quantize_activations(_jax_x(x, dtype))
+    q_t, s_t = tq.quantize_activations(_port_x(x, dtype))
+    np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+
+
+def test_quantize_per_channel_bit_equal():
+    rng = np.random.default_rng(1)
+    w = rng.standard_normal((40, 64)).astype(np.float32) * 0.05
+    w[3] = 0.0
+    want = jq.quantize_per_channel(w)
+    got = tq.quantize_per_channel(torch.from_numpy(w))
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+    np.testing.assert_array_equal(tq.dequantize(got, torch.float32).numpy(),
+                                  np.asarray(jq.dequantize(want, jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(1, 64, 48), (37, 96, 80), (5, 256, 24)])
+def test_w8a8_plain_bit_equal_to_xla_form(dtype, m, k, n):
+    rng = np.random.default_rng(2)
+    x = _x(rng, (m, k), dtype)
+    w = rng.standard_normal((n, k)).astype(np.float32) * 0.02
+    qj = jq.quantize_per_channel(w)
+    qt = from_jax_params({"w": qj})["w"]
+    want = jq.quant_matmul_w8a8(_jax_x(x, dtype), qj)
+    got = tq.quant_matmul_w8a8(_port_x(x, dtype), qt)
+    assert got.dtype == (torch.float32 if dtype == "f32" else torch.bfloat16)
+    np.testing.assert_array_equal(_as_np(got), _as_np(want))
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (640, 384, 256),    # ragged M/N (the kernel pads both)
+    (1280, 256, 2048),  # two K steps: int32 accumulation across the grid
+])
+def test_w8a8_plain_bit_equal_to_pallas_kernel(tpu_branch_interpret, monkeypatch, m, n, k):
+    monkeypatch.setenv("SDTPU_W8A8_KERNEL", "1")
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.standard_normal((n, k)).astype(np.float32) * 0.02
+    qj = jq.quantize_per_channel(w)
+    want = np.asarray(jq.quant_matmul_w8a8(jnp.asarray(x), qj))
+    got = tq.quant_matmul_w8a8(torch.from_numpy(x), from_jax_params({"w": qj})["w"])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_linear_dispatches_quant_tensor_to_w8a8():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 3, 64)).astype(np.float32)
+    w = rng.standard_normal((32, 64)).astype(np.float32) * 0.05
+    b = rng.standard_normal((32,)).astype(np.float32)
+    qj = jq.quantize_per_channel(w)
+    want = jq.quant_matmul_w8a8(jnp.asarray(x), qj) + jnp.asarray(b)
+    got = linear(torch.from_numpy(x), from_jax_params({"w": qj})["w"], torch.from_numpy(b))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n,k,block_k", [(48, 1024, 512), (40, 700, 512), (24, 96, 512)])
+def test_q4_repack_by_value(n, k, block_k):
+    """Repacked 4-bit weights dequantize to exactly the JAX values."""
+    rng = np.random.default_rng(5)
+    w = rng.standard_normal((n, k)).astype(np.float32) * 0.05
+    qj = jq.quantize_q4(w, block_k=block_k)
+    qt = from_jax_params({"w": qj})["w"]
+    assert qt.shape == (n, k) and qt.packed.dtype == torch.uint8
+    want = np.asarray(jq.dequantize_q4(qj, jnp.float32))
+    np.testing.assert_array_equal(tq.dequantize_q4(qt, torch.float32).numpy(), want)
+
+
+def test_q4_quantize_matches_jax_values():
+    rng = np.random.default_rng(6)
+    w = rng.standard_normal((16, 200)).astype(np.float32) * 0.05
+    want = np.asarray(jq.dequantize_q4(jq.quantize_q4(w), jnp.float32))
+    got = tq.dequantize_q4(tq.quantize_q4(torch.from_numpy(w)), torch.float32).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_repack_q4_reads_fields_directly():
+    rng = np.random.default_rng(7)
+    qj = jq.quantize_q4(rng.standard_normal((8, 512)).astype(np.float32))
+    a = repack_q4(np.asarray(qj.packed), np.asarray(qj.scale), qj.k, qj.block_k, qj.group)
+    b = from_jax_params({"w": qj})["w"]
+    assert torch.equal(a.packed, b.packed) and torch.equal(a.scale, b.scale)
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 512, 40), (70, 1024, 96)])
+def test_q4_plain_matches_xla_form(m, k, n):
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    qj = jq.quantize_q4(rng.standard_normal((n, k)).astype(np.float32) * 0.05)
+    want = np.asarray(jq.q4_matmul(jnp.asarray(x), qj))
+    got = tq.q4_matmul(torch.from_numpy(x), from_jax_params({"w": qj})["w"]).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_q4_plain_matches_pallas_kernel(tpu_branch_interpret):
+    rng = np.random.default_rng(9)
+    m, k, n = 100, 1024, 384
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    qj = jq.quantize_q4(rng.standard_normal((n, k)).astype(np.float32) * 0.05)
+    want = np.asarray(jq.q4_matmul(jnp.asarray(x), qj))
+    got = tq.q4_matmul(torch.from_numpy(x), from_jax_params({"w": qj})["w"]).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_linear_dispatches_q4_tensor():
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 4, 512)).astype(np.float32)
+    qj = jq.quantize_q4(rng.standard_normal((24, 512)).astype(np.float32) * 0.05)
+    want = np.asarray(jlinear(jnp.asarray(x), qj))
+    got = linear(torch.from_numpy(x), from_jax_params({"w": qj})["w"]).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
