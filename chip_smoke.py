@@ -1,22 +1,40 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``sdtpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--profile table.txt]
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. the card's name and power limit (nvidia-smi); no CUDA device → exit 2;
   2. build the hand-written kernels from ``sdtpu_torch/csrc`` (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes of the FLUX.1-dev txt2img path, with a stated tolerance, and the
-     time of both (CUDA events, after warm-up);
+     shapes of the FLUX.1-dev txt2img path (the group-dequant and W8A16
+     kernels at the W8A8 shapes, the 4-bit kernel at groups 64, 32 and 16),
+     with a stated tolerance, and the time of both (CUDA events, after
+     warm-up);
   4. a small-input reference check: T5, CLIP, one DiT forward and a VAE
      decode at kernel-shaped small widths, on the card (kernels, bf16)
      against the same weights on the CPU (plain versions, float32);
-  5. the main path: ``sdtpu_torch.factory.create_pipeline`` at full
-     FLUX.1-dev width (int8 DiT, 4-bit T5-XXL, bf16 CLIP-L and VAE) with
-     random weights drawn on the card, VAE tiling on, answering three
-     txt2img requests through ``generate`` (one with CFG and a batch of
-     two); every kernel's launch count must rise during them.
+  5. the GGUF loader at full FLUX.1-dev width and cut depth: a DiT of one
+     double and one single block written by ``save_gguf`` (q8_0, q4_0 and
+     q4_1 tensors; q6_k and q4_k blocks added from random raw blocks),
+     loaded with ``load_model_bundle(keep_quant=True)`` and staged by
+     ``sdtpu_torch.loader.diffusion_to_device`` with and without q8_0
+     promotion; one DiT forward of each staging against the same forward on
+     the blocks' dense dequantized values; then the file loaded again by
+     ``sdtpu_torch.loader.load_flux_diffusion`` (blocks kept), built into a
+     pipeline by ``create_pipeline(params=...)`` and answering one 512²
+     request through ``generate``;
+  6. main path 1: ``sdtpu_torch.factory.create_pipeline`` at full FLUX.1-dev
+     width (int8 DiT, 4-bit T5-XXL, bf16 CLIP-L and VAE) with random weights
+     drawn on the card, VAE tiling on, answering three txt2img requests
+     through ``generate`` (one with CFG and a batch of two);
+  7. one more request on that pipeline with ``SDTPU_QUANT_MODE=w8a16`` (the
+     DiT's int8 linears through the W8A16 kernel);
+  8. main path 2: the same pipeline with the DiT in the ``q8_0_gguf`` class
+     (group-32 int8 blocks drawn on the card, the footprint of a q8_0 GGUF
+     kept in its blocks), answering a 512² and a 1024² request.
+Every path of phases 5-8 sets the kernels' launch counts to 0 before it runs
+and reads them after: each kernel that path runs must have launched.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -24,7 +42,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -32,11 +52,17 @@ import time
 from pathlib import Path
 
 DEVICE = "cuda"
+ROOT = Path(__file__).resolve().parent
 
+GQ_SRC = "sdtpu_torch/csrc/gq_matmul.cu"
 KERNEL_INFO = {
     "flash_attention": ("sdtpu_torch/csrc/flash_attention.cu", "sdtpu/ops/flash_attention.py:51"),
     "w8a8_matmul": ("sdtpu_torch/csrc/w8a8_matmul.cu", "sdtpu/ops/quant.py:416"),
     "q4_matmul": ("sdtpu_torch/csrc/q4_matmul.cu", "sdtpu/ops/quant.py:845"),
+    "gq_matmul": (GQ_SRC, "sdtpu/ops/quant.py:616"),
+    "gq_matmul_ws": (GQ_SRC, "sdtpu/ops/quant.py:652"),
+    "gq_zero_matmul": (GQ_SRC, "sdtpu/ops/quant.py:687"),
+    "w8a16_matmul": (GQ_SRC, "sdtpu/ops/quant.py:525"),
 }
 
 # W8A8 at FLUX.1-dev shapes (M tokens, K in, N out): 4352 = 4096 img + 256 txt
@@ -47,6 +73,9 @@ W8A8_CASES = [
     (1, 3072, 9216), (1, 256, 3072), (1, 768, 3072), (256, 4096, 3072), (4096, 64, 3072),
     (4096, 3072, 64),
 ]
+# group 16 (q3_k / q6_k blocks) at two of them; float32 parity at one
+GQ16_CASES = [(4352, 3072, 12288), (1, 3072, 18432)]
+GQ_F32_CASES = [(1280, 3072, 3072)]
 # (B, H, Lq, Lk, D, dtype, bias) — FLUX joint attention at 1024² and 512²,
 # CLIP-L with its causal mask, the VAE mid-block per 64-latent tile, and
 # float32 parity cases.
@@ -59,6 +88,7 @@ FLASH_CASES = [
 ]
 # T5-XXL (M = 256 tokens per prompt): q/k/v/o, wi_0/wi_1, wo; one ragged case.
 Q4_CASES = [(256, 4096, 4096), (256, 4096, 10240), (256, 10240, 4096), (77, 640, 1001)]
+Q4_GROUPS = (64, 32, 16)
 
 # Why each tolerance:
 #   W8A8: both sides accumulate exactly and share the epilogue order → bit-equal.
@@ -69,10 +99,15 @@ Q4_CASES = [(256, 4096, 4096), (256, 4096, 10240), (256, 10240, 4096), (77, 640,
 #     mask) have |out| up to ~4, where one bf16 ulp is already 1.6e-2.
 #   flash f32: float32 throughout (TF32 off); only summation order and exp2
 #     against exp differ → 1e-4.
-#   q4: identical bf16 weights; float32 sums in another order can move the
-#     final bf16 rounding by an ulp → 2^-6 of the largest |output|.
+#   q4, group-dequant, W8A16: identical bf16 weights (the group forms and the
+#     4-bit kernel round q·s (− z) once, in float32, as the plain version
+#     does; W8A16 widens q exactly and scales the float32 sum, the plain
+#     version scales the weight before its bf16 rounding, 2^-9 apart);
+#     float32 sums in another order can move the final bf16 rounding by an
+#     ulp → 2^-6 of the largest |output|.  Group-dequant float32: 1e-5 of it.
 FLASH_TOL = {"bf16": 2e-2, "f32": 1e-4}
 Q4_REL_TOL = 2.0 ** -6
+GQ_REL_TOL = {"bf16": 2.0 ** -6, "f32": 1e-5}
 #   reference check (relative L2 of each output): the card runs bf16, the
 #     CPU float32, so this is no precision check; it catches errors of order
 #     one.  Sound readings: 4.5e-3 to 1.5e-2 on the card, 5e-3 to 2e-2 for
@@ -84,6 +119,55 @@ Q4_REL_TOL = 2.0 ** -6
 #     scale index reads nothing (synthesized scales are constant); the kernel
 #     checks above, with random scales at the slice's shapes, catch those.
 REF_REL_TOL = 0.04
+#   loader check (relative L2 of the DiT output of each staging against the
+#     dense forward on the same dequantized values, both bf16 on the card):
+#     the kept blocks give the kernels the dense forward's bf16 weights, so
+#     only float32 sum order differs (read 6.7e-5); the promoted staging also
+#     re-quantizes the q8_0 weights per row and the activations per token
+#     (W8A8, read 3.2e-2).  A wrong scale, zero or nibble in any linear is an
+#     error of order one in its output.
+LOADER_REL_TOL = {"keep_blocks": 1e-3, "promote_q8": 0.06}
+
+# The GGUF written by the loader phase: q8_0 by default; the txt stream of
+# the double block in q4_0 (→ 4-bit, group 32) and its img MLP in q4_1
+# (→ affine group 32); two single-block weights replaced after loading by
+# k-quant blocks built from random raw blocks (q6_k → symmetric group 16,
+# q4_k → affine group 32).
+LOADER_TYPE_RULES = [(r"^double_blocks\.0\.txt_", "q4_0"), (r"^double_blocks\.0\.img_mlp\.", "q4_1")]
+LOADER_KQUANT = {"single_blocks.0.linear1.weight": "q6_k", "single_blocks.0.linear2.weight": "q4_k"}
+
+# The kernels each path runs; its window must launch every one of them.
+PATH_KERNELS = {
+    "gguf_loader": ("flash_attention", "w8a8_matmul", "q4_matmul", "gq_matmul", "gq_matmul_ws",
+                    "gq_zero_matmul"),
+    "gguf_file": ("flash_attention", "q4_matmul", "gq_matmul", "gq_matmul_ws", "gq_zero_matmul"),
+    "int8": ("flash_attention", "w8a8_matmul", "q4_matmul"),
+    "w8a16": ("flash_attention", "w8a16_matmul", "q4_matmul"),
+    "q8_0_gguf": ("flash_attention", "gq_matmul", "gq_matmul_ws", "q4_matmul"),
+}
+# ... and none of these (the mode switch and the memory class hold)
+PATH_IDLE = {"w8a16": ("w8a8_matmul",), "q8_0_gguf": ("w8a8_matmul", "w8a16_matmul"),
+             "gguf_file": ("w8a8_matmul", "w8a16_matmul")}
+
+INT8_REQUESTS = [
+    dict(prompt="a photograph of an astronaut riding a horse", width=512, height=512,
+         sample_steps=4, cfg_scale=1.0, guidance=3.5, seed=42),
+    dict(prompt="a red fox in fresh snow, golden hour", negative_prompt="blurry", width=512,
+         height=512, sample_steps=4, cfg_scale=3.0, guidance=3.5, seed=7, batch_count=2),
+    dict(prompt="a lighthouse on a cliff above a stormy sea", width=1024, height=1024,
+         sample_steps=2, cfg_scale=1.0, guidance=3.5, seed=3),
+]
+W8A16_REQUESTS = [dict(prompt="a paper boat on a puddle after rain", width=512, height=512,
+                       sample_steps=2, cfg_scale=1.0, guidance=3.5, seed=21)]
+# the 1+1-block DiT loaded from the loader phase's file
+GGUF_FILE_REQUESTS = [dict(prompt="a lantern on a wooden table", width=512, height=512,
+                           sample_steps=2, cfg_scale=1.0, guidance=3.5, seed=11)]
+GGUF_REQUESTS = [
+    dict(prompt="a photograph of an astronaut riding a horse", width=512, height=512,
+         sample_steps=4, cfg_scale=1.0, guidance=3.5, seed=42),
+    dict(prompt="a lighthouse on a cliff above a stormy sea", width=1024, height=1024,
+         sample_steps=2, cfg_scale=1.0, guidance=3.5, seed=3),
+]
 
 
 def card_line() -> str:
@@ -113,6 +197,21 @@ def iters_for(flops: float) -> int:
 def _record(results, case) -> None:
     results.append(case)
     print("kernel " + json.dumps(case), flush=True)
+
+
+def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, **extra):
+    """Record one kernel case: max |error| against the plain version, within
+    ``tol_rel`` of the largest |output|, and both times."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = tol_rel * want.float().abs().max().item()
+    ms = time_ms(fn, it)
+    plain_ms = time_ms(plain, max(3, it // 4))
+    _record(results, dict(kernel=name, shape=list(shape), **extra, max_abs_err=err, tol=tol,
+                          ok=bool(err <= tol and torch.isfinite(got).all()), ms=ms,
+                          plain_ms=plain_ms))
 
 
 def check_w8a8(results):
@@ -178,26 +277,76 @@ def check_q4(results):
     from sdtpu_torch.weights import Q4_SCALE
 
     g = torch.Generator(device=DEVICE).manual_seed(3)
-    for m, k, n in Q4_CASES:
+    for group in Q4_GROUPS:
+        for m, k, n in Q4_CASES:
+            x = torch.randn((m, k), generator=g, device=DEVICE, dtype=torch.bfloat16)
+            kp = -(-k // quant.Q4_K_MULTIPLE) * quant.Q4_K_MULTIPLE
+            qt = quant.Q4Tensor(
+                packed=torch.randint(0, 256, (n, kp // 2), generator=g, device=DEVICE,
+                                     dtype=torch.uint8),
+                scale=torch.rand((n, kp // group), generator=g, device=DEVICE) * Q4_SCALE
+                + Q4_SCALE / 2,
+                k=k, group=group)
+            _compare(results, "q4_matmul", (m, k, n), quant.q4_matmul(x, qt),
+                     quant.q4_matmul_plain(x, qt), Q4_REL_TOL,
+                     lambda: quant.q4_matmul(x, qt), lambda: quant.q4_matmul_plain(x, qt),
+                     iters_for(2.0 * m * n * k), group=group)
+            del x, qt
+
+
+def _random_group_weight(g, n, k, group, affine):
+    import torch
+
+    from sdtpu_torch.ops import quant
+
+    kp = -(-k // group) * group
+    return quant.GroupQuantTensor(
+        q=torch.randint(-127, 128, (n, kp), generator=g, device=DEVICE, dtype=torch.int8),
+        scale=torch.rand((n, kp // group), generator=g, device=DEVICE) * 4e-4 + 1e-5,
+        zero=torch.rand((n, kp // group), generator=g, device=DEVICE) * 1e-2 if affine else None,
+        k=k, group=group)
+
+
+def check_group_quant(results):
+    """gq and gq_ws at the W8A8 shapes (group 32) and two shapes at group 16;
+    gq_zero at the W8A8 shapes; float32 parity at one shape; all with random
+    scales (and zeros), so a wrong group index shows."""
+    import torch
+
+    from sdtpu_torch.ops import quant
+
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    plan = [(s, 32, "bf16", form) for s in W8A8_CASES for form in ("gq_matmul", "gq_matmul_ws")]
+    plan += [(s, 16, "bf16", form) for s in GQ16_CASES for form in ("gq_matmul", "gq_matmul_ws")]
+    plan += [(s, 32, "bf16", "gq_zero_matmul") for s in W8A8_CASES]
+    plan += [(s, 32, "f32", form) for s in GQ_F32_CASES for form in ("gq_matmul", "gq_zero_matmul")]
+    for (m, k, n), group, dt, form in plan:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x = torch.randn((m, k), generator=g, device=DEVICE, dtype=dtype)
+        qt = _random_group_weight(g, n, k, group, affine=form == "gq_zero_matmul")
+        fn = getattr(quant, form)
+        _compare(results, form, (m, k, n), fn(x, qt), quant.group_quant_matmul_plain(x, qt),
+                 GQ_REL_TOL[dt], lambda: fn(x, qt), lambda: quant.group_quant_matmul_plain(x, qt),
+                 iters_for(2.0 * m * n * k), group=group, dtype=dt)
+        del x, qt
+
+
+def check_w8a16(results):
+    import torch
+
+    from sdtpu_torch.ops import quant
+
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    for m, k, n in W8A8_CASES:
         x = torch.randn((m, k), generator=g, device=DEVICE, dtype=torch.bfloat16)
-        kp = -(-k // quant.Q4_GROUP) * quant.Q4_GROUP
-        qt = quant.Q4Tensor(
-            packed=torch.randint(0, 256, (n, kp // 2), generator=g, device=DEVICE,
-                                 dtype=torch.uint8),
-            scale=torch.rand((n, kp // quant.Q4_GROUP), generator=g, device=DEVICE) * Q4_SCALE
-            + Q4_SCALE / 2,
-            k=k)
-        got = quant.q4_matmul(x, qt)
-        want = quant.q4_matmul_plain(x, qt)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = Q4_REL_TOL * want.float().abs().max().item()
-        it = iters_for(2.0 * m * n * k)
-        ms = time_ms(lambda: quant.q4_matmul(x, qt), it)
-        plain_ms = time_ms(lambda: quant.q4_matmul_plain(x, qt), it)
-        _record(results, dict(kernel="q4_matmul", shape=[m, k, n], max_abs_err=err, tol=tol,
-                            ok=bool(err <= tol), ms=ms, plain_ms=plain_ms))
-        del x, qt, got, want
+        qt = quant.QuantTensor(
+            q=torch.randint(-127, 128, (n, k), generator=g, device=DEVICE, dtype=torch.int8),
+            scale=torch.rand((n,), generator=g, device=DEVICE) * 4e-4 + 1e-5)
+        _compare(results, "w8a16_matmul", (m, k, n), quant.w8a16_matmul(x, qt),
+                 quant.w8a16_matmul_plain(x, qt), GQ_REL_TOL["bf16"],
+                 lambda: quant.w8a16_matmul(x, qt), lambda: quant.w8a16_matmul_plain(x, qt),
+                 iters_for(2.0 * m * n * k))
+        del x, qt
 
 
 def _rel(a, b) -> float:
@@ -274,37 +423,204 @@ def reference_check():
     return out
 
 
-def run_pipeline(card: str):
+def _windowed(wrappers, path, run):
+    """Run one path with every launch count set to 0 first; each kernel the
+    path runs must have launched, and none it must not."""
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = run()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"launches {path} " + json.dumps(counts), flush=True)
+    idle = [n for n in PATH_KERNELS[path] if counts[n] == 0]
+    stray = [n for n in PATH_IDLE.get(path, ()) if counts[n] != 0]
+    if idle or stray:
+        raise RuntimeError(f"path {path}: kernels not launched {idle}, launched in error {stray}")
+    return out, counts
+
+
+def _kquant_blocks(type_name: str, shape, seed: int):
+    """A HostQuant of random raw k-quant blocks: integer payload random,
+    f16 block scales small enough that the values look like weights."""
+    import numpy as np
+
+    from sdtpu.io import gguf
+
+    ggml_type = {"q6_k": gguf.GGML_Q6_K, "q4_k": gguf.GGML_Q4_K}[type_name]
+    f16_spans = {"q6_k": [(208, 210)], "q4_k": [(0, 2), (2, 4)]}[type_name]
+    block_elems, block_bytes = gguf.BLOCK_INFO[ggml_type]
+    n_elems = shape[0] * shape[1]
+    nb = n_elems // block_elems
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, size=(nb, block_bytes), dtype=np.uint8)
+    for lo, hi in f16_spans:
+        d = (np.abs(rng.standard_normal(nb)) * 2e-5).astype(np.float16)
+        raw[:, lo:hi] = d.view(np.uint8).reshape(nb, 2)
+    return gguf.extract_blocks(raw.reshape(-1), ggml_type, n_elems, tuple(shape))
+
+
+def loader_check(wrappers, card: str):
+    """Phase 5: the GGUF keep-quant loader at full width, depth cut to one
+    double and one single block."""
     import numpy as np
     import torch
 
-    from sdtpu.config import GenerationParams, SDVersion
+    from sdtpu.io.gguf import save_gguf
+    from sdtpu.io.model_loader import load_model_bundle
+    from sdtpu_torch.loader import diffusion_to_device, load_flux_diffusion
+    from sdtpu_torch.models import flux as flux_mod
+    from sdtpu_torch.ops.quant import GroupQuantTensor, Q4Tensor, QuantTensor
+    from sdtpu_torch.weights import WEIGHT_STD
+
+    cfg = dataclasses.replace(flux_mod.FLUX_DEV_CONFIG, depth=1, depth_single=1)
+    specs = flux_mod.param_specs(cfg)
+    n_params = sum(int(np.prod(s)) for s, _ in specs.values())
+    print(f"loader: FLUX.1-dev width, depth cut from 19 + 38 to 1 + 1 blocks ({n_params / 1e9:.3f} B "
+          "params): the GGUF is written from a float32 source, which at full depth would take "
+          "48 GB of host memory", flush=True)
+    t0 = time.time()
+    rng = np.random.default_rng(0)
+    src = {}
+    for name, (shape, init) in specs.items():
+        if init == "normal":
+            src[name] = rng.standard_normal(shape, dtype=np.float32) * np.float32(WEIGHT_STD)
+        else:
+            src[name] = (np.ones if init == "ones" else np.zeros)(shape, dtype=np.float32)
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "flux_dev_1+1.gguf"
+    save_gguf(str(path), src, out_type="q8_0", type_rules=LOADER_TYPE_RULES)
+    del src
+    write_s = time.time() - t0
+    t0 = time.time()
+    d = load_model_bundle(diffusion_model_path=str(path), keep_quant=True).diffusion
+    for i, (name, type_name) in enumerate(LOADER_KQUANT.items()):
+        d[name] = _kquant_blocks(type_name, specs[name][0], seed=10 + i)
+    types = {}
+    for v in d.values():
+        tn = getattr(v, "type_name", "dense")
+        types[tn] = types.get(tn, 0) + 1
+    load_s = time.time() - t0
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    x = torch.randn((1, 64, 64, 16), generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    ctx = torch.randn((1, 256, cfg.context_in_dim), generator=gen, device=DEVICE,
+                      dtype=torch.bfloat16)
+    y = torch.randn((1, cfg.vec_in_dim), generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    t = torch.tensor([0.7], device=DEVICE)
+    gd = torch.tensor([3.5], device=DEVICE)
+
+    def forward(p):
+        with torch.inference_mode():
+            out = flux_mod.flux_forward(p, x, t, ctx, y, guidance=gd, cfg=cfg)
+        torch.cuda.synchronize()
+        return out
+
+    dense = {k: torch.tensor(np.asarray(v), dtype=torch.bfloat16, device=DEVICE)
+             for k, v in d.items()}
+    want = forward(dense)
+    del dense
+    stagings = {}
+    t0 = time.time()
+    for label, promote in (("promote_q8", True), ("keep_blocks", False)):
+        stagings[label] = diffusion_to_device(d, torch.bfloat16, DEVICE, promote_q8=promote)
+    torch.cuda.synchronize()
+    stage_s = time.time() - t0
+
+    def kind(v):
+        if isinstance(v, QuantTensor):
+            return "QuantTensor"
+        if isinstance(v, Q4Tensor):
+            return f"Q4Tensor g{v.group}"
+        if isinstance(v, GroupQuantTensor):
+            return f"GroupQuantTensor {'affine' if v.zero is not None else 'symmetric'} g{v.group}"
+        return "dense"
+
+    classes = {label: {} for label in stagings}
+    for label, p in stagings.items():
+        for v in p.values():
+            classes[label][kind(v)] = classes[label].get(kind(v), 0) + 1
+    seen = {c for cl in classes.values() for c in cl}
+    needed = {"QuantTensor", "Q4Tensor g32", "GroupQuantTensor symmetric g32",
+              "GroupQuantTensor symmetric g16", "GroupQuantTensor affine g32"}
+    if not needed <= seen:
+        raise RuntimeError(f"loader: classes {sorted(needed - seen)} missing from {classes}")
+
+    outs, counts = _windowed(wrappers, "gguf_loader",
+                             lambda: {label: forward(p) for label, p in stagings.items()})
+    report = {"card": card, "params": n_params, "file_bytes": path.stat().st_size,
+              "gguf_types": types, "classes": classes, "write_s": write_s, "load_s": load_s,
+              "stage_s": stage_s, "checks": {}}
+    for label, got in outs.items():
+        rel = _rel(got, want)
+        ok = bool(torch.isfinite(got).all()) and got.shape == want.shape
+        report["checks"][label] = dict(rel_l2=rel, tol=LOADER_REL_TOL[label],
+                                       ok=ok and rel <= LOADER_REL_TOL[label])
+    print("loader " + json.dumps(report), flush=True)
+    if not all(c["ok"] for c in report["checks"].values()):
+        raise RuntimeError(f"loader check failed: {report['checks']}")
+    del stagings, outs, want, d
+    gc.collect()
+
+    t0 = time.time()
+    params = load_flux_diffusion(str(path), dtype=torch.bfloat16, device=DEVICE, promote_q8=False)
+    torch.cuda.synchronize()
+    report["load_flux_diffusion_s"] = time.time() - t0
+    path.unlink()
+    pipe, _ = build_pipeline(card, params, "gguf_file 1+1 blocks, kept")
+    report["requests"], request_counts = _windowed(
+        wrappers, "gguf_file", lambda: answer(pipe, GGUF_FILE_REQUESTS, card, "gguf_file"))
+    del pipe, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, counts, request_counts
+
+
+def gguf_block_dit() -> dict:
+    """Full-depth FLUX.1-dev DiT weights in the ``q8_0_gguf`` memory class,
+    drawn on the card (the seed the factory gives a DiT it synthesizes)."""
+    import torch
+
+    from sdtpu_torch.models import flux as flux_mod
+    from sdtpu_torch.weights import synthesize
+
+    return synthesize(flux_mod.param_specs(flux_mod.FLUX_DEV_CONFIG), quant="q8_0_gguf", seed=1,
+                      device=DEVICE, dtype=torch.bfloat16)
+
+
+def build_pipeline(card: str, diffusion, label: str):
+    """A full-width FLUX.1-dev pipeline around the given DiT params (None:
+    the factory draws the int8 DiT); T5-XXL (4-bit), CLIP-L and the VAE drawn
+    on the card."""
+    import torch
+
+    from sdtpu.config import SDVersion
     from sdtpu_torch.factory import create_pipeline
     from sdtpu_torch.weights import weight_bytes
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    pipe = create_pipeline(SDVersion.FLUX, dtype=torch.bfloat16, device=DEVICE, seed=0)
+    pipe = create_pipeline(SDVersion.FLUX, params={"diffusion": diffusion}, dtype=torch.bfloat16,
+                           device=DEVICE, seed=0)
     pipe.set_vae_tiling(True)
     torch.cuda.synchronize()
     build_s = time.time() - t0
     wb = {"diffusion": weight_bytes(pipe.diffusion_params),
           "t5": weight_bytes(pipe.conditioner.pt), "clip_l": weight_bytes(pipe.conditioner.pl),
           "vae": weight_bytes(pipe.vae_params)}
-    print(f"pipeline: full-width FLUX.1-dev built in {build_s:.2f} s on {card}; weight bytes "
-          + json.dumps(wb))
-    requests = [
-        GenerationParams(prompt="a photograph of an astronaut riding a horse", width=512,
-                         height=512, sample_steps=4, cfg_scale=1.0, guidance=3.5, seed=42,
-                         sample_method="euler"),
-        GenerationParams(prompt="a red fox in fresh snow, golden hour", negative_prompt="blurry",
-                         width=512, height=512, sample_steps=4, cfg_scale=3.0, guidance=3.5,
-                         seed=7, batch_count=2, sample_method="euler"),
-        GenerationParams(prompt="a lighthouse on a cliff above a stormy sea", width=1024,
-                         height=1024, sample_steps=2, cfg_scale=1.0, guidance=3.5, seed=3,
-                         sample_method="euler"),
-    ]
+    print(f"pipeline: full-width FLUX.1-dev, DiT {label}, built in {build_s:.2f} s on "
+          f"{card}; weight bytes " + json.dumps(wb), flush=True)
+    return pipe, {"diffusion": label, "build_s": build_s, "weight_bytes": wb}
+
+
+def answer(pipe, requests, card: str, label: str):
+    import numpy as np
+    import torch
+
+    from sdtpu.config import GenerationParams
+
     reports = []
-    for gp in requests:
+    for kw in requests:
+        gp = GenerationParams(sample_method="euler", **kw)
         torch.cuda.reset_peak_memory_stats()
         res = pipe.generate(gp)
         peak = torch.cuda.max_memory_allocated()
@@ -317,23 +633,28 @@ def run_pipeline(card: str):
         if img.std() == 0 or lat.std() == 0:
             raise RuntimeError("constant image or latents")
         tm = pipe.last_timings
-        rep = {"size": [gp.width, gp.height], "batch": bc, "cfg_scale": gp.cfg_scale,
-               "steps": tm["steps"], "seed": gp.seed,
+        rep = {"path": label, "size": [gp.width, gp.height], "batch": bc,
+               "cfg_scale": gp.cfg_scale, "steps": tm["steps"], "seed": gp.seed,
                "timings_s": {k: tm[k] for k in ("cond", "sample", "decode", "total")},
                "denoise_steps_per_s": tm["steps"] / tm["sample"], "peak_mem_bytes": peak,
                "image_std": float(img.std()), "card": card}
-        print("request " + json.dumps(rep))
+        print("request " + json.dumps(rep), flush=True)
         reports.append(rep)
-    return pipe, requests[-1], build_s, wb, reports
+    return reports
 
 
-def profile_request(pipe, gp, path: str, card: str) -> dict:
+def profile_request(pipe, request: dict, table: str, label: str, card: str) -> dict:
     """One more request under torch.profiler: device time by kernel name, and
     the device's busy share of the request's wall time (a union of kernel
     intervals, so overlapping kernels count once)."""
-    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from sdtpu.config import GenerationParams
+
+    gp = GenerationParams(sample_method="euler", **request)
+    path = Path(table)
+    path = path.with_name(f"{path.stem}.{label}{path.suffix}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -355,7 +676,7 @@ def profile_request(pipe, gp, path: str, card: str) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    summary = {"card": card, "size": [gp.width, gp.height], "steps": gp.sample_steps,
+    summary = {"path": label, "card": card, "size": [gp.width, gp.height], "steps": gp.sample_steps,
                "wall_s": wall_s, "timings_s": dict(pipe.last_timings),
                "device_busy_s": busy_us / 1e6, "device_busy_share": busy_us / 1e6 / wall_s,
                "kernels": [{"name": n[:90], "ms": v[0] / 1e3, "count": v[1]} for n, v in top[:25]]}
@@ -367,8 +688,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measured number to this JSON file")
     ap.add_argument("--profile", metavar="TABLE",
-                    help="after the main path, profile one more 1024² request and write the "
-                         "profiler's table to this file")
+                    help="after each main path, profile one more 1024² request and write the "
+                         "profiler's tables to TABLE with .int8 / .q8_0_gguf before its suffix")
     args = ap.parse_args()
 
     import torch
@@ -390,6 +711,10 @@ def main() -> int:
     _build.library()
     build_s = time.time() - t0
     print(f"build: {build_s:.1f} s → {_build.build_dir()}")
+    spills = [ln for ln in (_build.build_dir() / "build.log").read_text().splitlines()
+              if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill")]
+    print(f"ptxas: {len(spills)} kernel(s) with a stack frame or spills" + "".join(
+        "\n  " + ln.strip() for ln in spills))
 
     if args.out:
         shutil.copy(_build.build_dir() / "build.log", Path(args.out).with_suffix(".build.log"))
@@ -398,6 +723,8 @@ def main() -> int:
     check_w8a8(cases)
     check_flash(cases)
     check_q4(cases)
+    check_group_quant(cases)
+    check_w8a16(cases)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise RuntimeError(f"{len(bad)} kernel case(s) disagree with the plain version: {bad}")
@@ -408,34 +735,67 @@ def main() -> int:
         raise RuntimeError(f"small-input reference check failed: {ref}")
 
     wrappers = {"flash_attention": flash_attention.flash_attention,
-                "w8a8_matmul": quant.quant_matmul_w8a8, "q4_matmul": quant.q4_matmul}
-    for fn in wrappers.values():
-        fn.launches = 0
-    pipe, last_gp, pipe_build_s, wb, reports = run_pipeline(card)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    print("launches " + json.dumps(launches))
-    idle = [n for n, c in launches.items() if c == 0]
-    if idle:
-        raise RuntimeError(f"kernels not launched by the main path: {idle}")
-    prof = profile_request(pipe, last_gp, args.profile, card) if args.profile else None
+                "w8a8_matmul": quant.quant_matmul_w8a8, "q4_matmul": quant.q4_matmul,
+                "gq_matmul": quant.gq_matmul, "gq_matmul_ws": quant.gq_matmul_ws,
+                "gq_zero_matmul": quant.gq_zero_matmul, "w8a16_matmul": quant.w8a16_matmul}
+    launches = {}
+    loader, launches["gguf_loader"], launches["gguf_file"] = loader_check(wrappers, card)
+
+    pipes, reports = [], []
+    pipe, info = build_pipeline(card, None, "q8_0")
+    pipes.append(info)
+    rep, launches["int8"] = _windowed(wrappers, "int8",
+                                      lambda: answer(pipe, INT8_REQUESTS, card, "int8"))
+    reports += rep
+    prof = {}
+    if args.profile:
+        prof["int8"] = profile_request(pipe, INT8_REQUESTS[-1], args.profile, "int8", card)
+    previous = os.environ.get("SDTPU_QUANT_MODE")
+    os.environ["SDTPU_QUANT_MODE"] = "w8a16"
+    try:
+        rep, launches["w8a16"] = _windowed(wrappers, "w8a16",
+                                           lambda: answer(pipe, W8A16_REQUESTS, card, "w8a16"))
+    finally:
+        if previous is None:
+            del os.environ["SDTPU_QUANT_MODE"]
+        else:
+            os.environ["SDTPU_QUANT_MODE"] = previous
+    reports += rep
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pipe, info = build_pipeline(card, gguf_block_dit(), "q8_0_gguf")
+    pipes.append(info)
+    rep, launches["q8_0_gguf"] = _windowed(wrappers, "q8_0_gguf",
+                                           lambda: answer(pipe, GGUF_REQUESTS, card, "q8_0_gguf"))
+    reports += rep
+    if args.profile:
+        prof["q8_0_gguf"] = profile_request(pipe, GGUF_REQUESTS[-1], args.profile, "q8_0_gguf",
+                                            card)
     del pipe
 
-    headline = {"flash_attention": [1, 24, 4352, 4352, 128], "w8a8_matmul": [4352, 3072, 12288],
-                "q4_matmul": [256, 4096, 10240]}
+    headline = {"flash_attention": ([1, 24, 4352, 4352, 128], {}),
+                "w8a8_matmul": ([4352, 3072, 12288], {}),
+                "q4_matmul": ([256, 4096, 10240], {"group": 64})}
+    for name in ("gq_matmul", "gq_matmul_ws", "gq_zero_matmul"):
+        headline[name] = ([4352, 3072, 12288], {"group": 32, "dtype": "bf16"})
+    headline["w8a16_matmul"] = ([4352, 3072, 12288], {})
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         mine = [c for c in cases if c["kernel"] == name]
-        head = next(c for c in mine if c["shape"] == headline[name])
+        shape, extra = headline[name]
+        head = next(c for c in mine if c["shape"] == shape
+                    and all(c.get(k) == v for k, v in extra.items()))
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name],
+                        "launches": sum(c[name] for c in launches.values()),
                         "max_abs_err": max(c["max_abs_err"] for c in mine),
                         "ms": head["ms"], "plain_ms": head["plain_ms"]})
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s, "cases": cases, "reference": ref,
-                       "pipeline_build_s": pipe_build_s, "weight_bytes": wb,
-                       "requests": reports, "launches": launches, "kernels": kernels,
-                       "profile": prof}, f, indent=1)
+                       "loader": loader, "pipelines": pipes, "requests": reports,
+                       "launches": launches, "kernels": kernels, "profile": prof}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,15 @@
 // Packed 4-bit weight matmul for Hopper: out[m, n] = sum_k x[m, k] * w[n, k]
-// with w[n, k] = (nibble(n, k) - 8) * scale[n, k / 64], dequantized to bf16.
+// with w[n, k] = (nibble(n, k) - 8) * scale[n, k / G], dequantized to bf16,
+// for scale groups G = 64 (the q4_0 class the bench synthesizes), 32 (a q4_0
+// GGUF's own blocks) and 16 (q3_k-class blocks).
 //
 // Replaces the TPU kernel `_q4_matmul_kernel` (sdtpu/ops/quant.py:845).  The
 // port stores 4-bit weights in its own layout, chosen for this kernel (the
 // TPU's split-half layout served Mosaic's sublane tiling): packed uint8
 // [N, Kp/2] row-major, byte j of a row holding k = 2j in the low nibble and
-// k = 2j + 1 in the high nibble, and f32 scales [N, Kp/64].  A 64-wide K
-// tile is exactly one scale group, so each weight row of a tile needs one
-// scale.
+// k = 2j + 1 in the high nibble, and f32 scales [N, Kp/G], Kp a multiple of
+// 64.  Each thread unpacks 32 k of one weight row, which lie in one group for
+// G = 64 or 32 and in two for G = 16, so it reads one or two scales.
 //
 // What bounds it on the card: at T5-XXL's shapes (M = 256 per prompt,
 // K x N = 4096 x 4096, 4096 x 10240, 10240 x 4096) the weight read is 0.5
@@ -23,10 +25,11 @@
 namespace sdtpu {
 namespace {
 
-constexpr int kBM = 64, kBN = 128, kBK = 64;  // kBK is the scale group
+constexpr int kBM = 64, kBN = 128, kBK = 64;
 constexpr int kRow = kBK + 8;                 // bf16 row padding: 144-byte rows
 constexpr int kThreads = 256;  // 8 warps: 2 along M (32 rows) x 4 along N (32 cols)
 
+template <int G>
 __global__ void __launch_bounds__(kThreads)
 q4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
                const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
@@ -38,7 +41,7 @@ q4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
   const int g = lane >> 2, tq = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int groups = kp / kBK;
+  const int groups = kp / G;
 
   float acc[2][4][4];
 #pragma unroll
@@ -64,10 +67,15 @@ q4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
       if (n0 + r < n) {
         const uint4 pk = *reinterpret_cast<const uint4*>(
             packed + (size_t)(n0 + r) * (kp / 2) + k0 / 2 + half * 16);
-        const float sc = scale[(size_t)(n0 + r) * groups + k0 / kBK];
+        // byte i holds k = kb + 2i and kb + 2i + 1
+        const int kb = k0 + half * 32;
+        const float* srow = scale + (size_t)(n0 + r) * groups + kb / G;
+        const float s0 = srow[0];
+        const float s1 = G == 16 ? srow[1] : s0;
         const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&pk);
 #pragma unroll
         for (int i = 0; i < 16; ++i) {
+          const float sc = i < 8 ? s0 : s1;
           const float lo = static_cast<float>(static_cast<int>(bytes[i] & 0xF) - 8);
           const float hi = static_cast<float>(static_cast<int>(bytes[i] >> 4) - 8);
           *reinterpret_cast<uint32_t*>(dst + 2 * i) = pack_bf16x2(lo * sc, hi * sc);
@@ -126,16 +134,19 @@ q4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
 }  // namespace
 }  // namespace sdtpu
 
-// x bf16 [m, k]; packed uint8 [n, kp/2]; scale f32 [n, kp/64] -> out bf16
-// [m, n].  Needs k <= kp, k % 8 == 0, kp % 64 == 0 and group == 64.
+// x bf16 [m, k]; packed uint8 [n, kp/2]; scale f32 [n, kp/group] -> out
+// bf16 [m, n].  Needs k <= kp, k % 8 == 0, kp % 64 == 0 and group 16, 32 or 64.
 extern "C" int sdtpu_q4_matmul(const void* x, const void* packed, const void* scale,
                                void* out, int m, int n, int k, int kp, int group,
                                void* stream) {
   using namespace sdtpu;
-  if (m <= 0 || n <= 0 || k <= 0 || k > kp || k % 8 || kp % kBK || group != kBK)
+  if (m <= 0 || n <= 0 || k <= 0 || k > kp || k % 8 || kp % kBK ||
+      (group != 16 && group != 32 && group != 64))
     return cudaErrorInvalidValue;
   dim3 grid(ceil_div(n, kBN), ceil_div(m, kBM));
-  q4_gemm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = group == 16 ? q4_gemm_kernel<16>
+                : group == 32 ? q4_gemm_kernel<32> : q4_gemm_kernel<64>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
       static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), m, n, k, kp);
   return cudaGetLastError();

@@ -5,7 +5,8 @@ FLUX is built from given params (this package's tensors, e.g. bridged with
 ``sdtpu_torch.weights.from_jax_params``) or from random weights drawn on the
 target device.  Full-width random weights come in the memory classes of the
 JAX FLUX bench: the DiT as per-row int8 ``QuantTensor``s (q8_0), T5-XXL as
-packed 4-bit ``Q4Tensor``s (q4_0), CLIP-L and the VAE dense.
+packed 4-bit ``Q4Tensor``s (q4_0), CLIP-L and the VAE dense.  A given DiT
+runs at the depth its params hold (a checkpoint cut to fewer blocks).
 """
 from __future__ import annotations
 
@@ -48,6 +49,10 @@ def flux_configs(small: bool):
             vae_mod.FLUX_VAE_CONFIG, 256)
 
 
+def _blocks(p: dict, prefix: str) -> int:
+    return len({name.split(".")[1] for name in p if name.startswith(prefix + ".")})
+
+
 def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] = None,
                     rng_type: str = "cuda", dtype: torch.dtype = torch.float32,
                     small: bool = False, seed: int = 0, t5_tokenizer=None,
@@ -66,6 +71,9 @@ def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] 
         mods[name] = params.get(name) or synthesize(
             spec, quant=None if small else FULL_QUANT[name], seed=seed + SEED_OFFSET[name],
             device=device, dtype=dtype)
+    if params.get("diffusion"):
+        dit_cfg = dataclasses.replace(dit_cfg, depth=_blocks(params["diffusion"], "double_blocks"),
+                                      depth_single=_blocks(params["diffusion"], "single_blocks"))
 
     conditioner = FluxConditioner(CLIPTokenizer(), t5_tokenizer, mods["clip_l"], clip_l_cfg,
                                   mods["t5"], t5_cfg, t5_seq_len=t5_seq, device=device)

@@ -40,6 +40,13 @@ SIGNATURES = {
     "sdtpu_w8a8_matmul": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, packed, scale, out, m, n, k, kp, group, stream
     "sdtpu_q4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # dtype, x, q, scale, out, m, n, k, kp, group, stream
+    "sdtpu_gq_matmul": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "sdtpu_gq_matmul_ws": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # dtype, x, q, scale, zero, out, m, n, k, kp, group, stream
+    "sdtpu_gq_zero_matmul": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, q, scale, out, m, n, k, stream
+    "sdtpu_w8a16_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

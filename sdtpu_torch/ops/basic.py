@@ -16,16 +16,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .quant import Q4Tensor, QuantTensor, q4_matmul, quant_matmul_w8a8
+from .quant import (GroupQuantTensor, Q4Tensor, QuantTensor, group_quant_matmul, q4_matmul,
+                    quant_matmul)
 
 
 def linear(x: torch.Tensor, weight, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x: [..., in], weight: [out, in] (dense, int8 QuantTensor, or packed
-    4-bit Q4Tensor) → [..., out]."""
+    """x: [..., in], weight: [out, in] (dense, int8 QuantTensor, packed 4-bit
+    Q4Tensor, or GGUF-block GroupQuantTensor) → [..., out]."""
     if isinstance(weight, Q4Tensor):
         y = q4_matmul(x, weight)
+    elif isinstance(weight, GroupQuantTensor):
+        y = group_quant_matmul(x, weight)
     elif isinstance(weight, QuantTensor):
-        y = quant_matmul_w8a8(x, weight)
+        y = quant_matmul(x, weight)
     else:
         y = F.linear(x, weight.to(x.dtype))
     if bias is not None:

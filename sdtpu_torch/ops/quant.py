@@ -1,28 +1,49 @@
 """Quantized weights and their matmuls (counterpart of ``sdtpu/ops/quant.py``).
 
-Two memory classes, as on the TPU:
+Three memory classes, as on the TPU:
 
 * ``QuantTensor`` -- per-row int8 weight [out, in] with f32 scales [out]
-  (the q8_0 class).  ``linear`` runs it as W8A8: dynamic per-token int8
-  activations, int32 accumulation, f32 epilogue (``quant_matmul_w8a8``).
-* ``Q4Tensor`` -- packed 4-bit weight with f32 scales per group of 64 along K
-  (the q4_0 class), run by ``q4_matmul``.
+  (the q8_0 class).  ``quant_matmul`` runs it as W8A8 (dynamic per-token
+  int8 activations, int32 accumulation, f32 epilogue; ``quant_matmul_w8a8``)
+  by default, or as W8A16 (``w8a16_matmul``: bf16 activations, the int8
+  weight widened in the tile, the row scale in the epilogue) when
+  ``SDTPU_QUANT_MODE`` names another mode.
+* ``Q4Tensor`` -- packed 4-bit weight with f32 scales per group of 16, 32
+  or 64 along K (the q4_0 / q3_k class), run by ``q4_matmul``.
+* ``GroupQuantTensor`` -- int8 weight on a GGUF checkpoint's own block grid:
+  f32 scales (and, for the affine types, zeros) per group of 16 or 32 along
+  K, run by ``group_quant_matmul``.
+
+``from_host_quant`` and ``host_params_to_device`` stage a GGUF's
+``sdtpu.io.gguf.HostQuant`` blocks onto a device without an f32 round trip.
 
 Each matmul launches its Hopper kernel (``csrc/w8a8_matmul.cu``,
-``csrc/q4_matmul.cu``) for CUDA tensors and runs its plain version for CPU
-tensors.  The plain W8A8 accumulates exactly (float64 products of int8
-values, exact far below 2**53), so kernel and plain version are bit-equal.
+``csrc/q4_matmul.cu``, ``csrc/gq_matmul.cu``) for CUDA tensors and runs its
+plain version for CPU tensors.  The plain W8A8 accumulates exactly (float64
+products of int8 values, exact far below 2**53), so kernel and plain version
+are bit-equal.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+import math
+import os
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import _build
 
 Q4_GROUP = 64
+Q4_GROUPS = (16, 32, 64)
+Q4_K_MULTIPLE = 64  # the 4-bit kernel's K tile: packed rows are padded to it
+Q4_MIN_K = 512  # symmetric 4-bit-range blocks with K >= this pack to Q4Tensor (JAX block_k)
+GQ_GROUPS = (16, 32)
+# group_quant_matmul: symmetric bf16 calls with at least this many rows take
+# the weight-stationary kernel (FLUX image tokens); M = 1 (modulation),
+# M = 256 (text tokens) and affine weights take the tile-per-block kernel
+GQ_WS_MIN_M = 512
 
 
 class QuantTensor(NamedTuple):
@@ -43,7 +64,8 @@ class Q4Tensor:
     packed: uint8 [N, Kp/2] -- byte j of a row holds k = 2j in the low nibble
       and k = 2j + 1 in the high nibble (values are nibble - 8).
     scale:  f32 [N, Kp/group] -- symmetric per-(row, K-group) scales.
-    Kp is k padded to a multiple of the group; padded weights are zero.
+    Kp is k padded to a multiple of 64 (the kernel's K tile); padded weights
+    are zero.
     """
 
     packed: torch.Tensor
@@ -56,10 +78,39 @@ class Q4Tensor:
         return (self.packed.shape[0], self.k)
 
 
+@dataclasses.dataclass(frozen=True)
+class GroupQuantTensor:
+    """int8 weight on a GGUF checkpoint's block grid, logical shape [N, k].
+
+    q:     int8 [N, Kp]          (Kp = k padded to a multiple of ``group``)
+    scale: f32  [N, Kp / group]
+    zero:  f32  [N, Kp / group] or None
+
+    value[n, j] = q[n, j] · scale[n, j // group] − zero[n, j // group]
+
+    The JAX package stores the transpose ([Kp, N]) for Mosaic; rows of K
+    are what the Hopper kernel reads, as for the other classes.
+    """
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    zero: Optional[torch.Tensor]
+    k: int
+    group: int = 32
+
+    @property
+    def shape(self):
+        return (self.q.shape[0], self.k)
+
+
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
     # true division by a tensor: dividing a CUDA tensor by a Python number
     # multiplies by its reciprocal, which is not bit-equal to x / s
     return a / a.new_tensor(b)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def quantize_per_channel(w: torch.Tensor) -> QuantTensor:
@@ -76,20 +127,26 @@ def dequantize(qt: QuantTensor, dtype=torch.bfloat16) -> torch.Tensor:
     return (qt.q.float() * qt.scale[:, None]).to(dtype)
 
 
+def _pack_nibbles(q: torch.Tensor) -> torch.Tensor:
+    """int [N, Kp] in [-8, 7] → uint8 [N, Kp/2], even k in the low nibble."""
+    u = (q.to(torch.int16) + 8)
+    return (u[:, 0::2] | (u[:, 1::2] << 4)).to(torch.uint8).contiguous()
+
+
 def quantize_q4(w: torch.Tensor, group: int = Q4_GROUP) -> Q4Tensor:
     """float [N, K] → packed 4-bit with per-group scales (amax / 7)."""
+    if group not in Q4_GROUPS:
+        raise ValueError(f"quantize_q4: group {group} not in {Q4_GROUPS}")
     w = w.float()
     n, k = w.shape
-    kp = -(-k // group) * group
+    kp = _round_up(k, Q4_K_MULTIPLE)
     if kp != k:
         w = torch.nn.functional.pad(w, (0, kp - k))
     g = w.reshape(n, kp // group, group)
     scale = _div(g.abs().amax(dim=2), 7.0)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
-    q = torch.clamp(torch.round(g / scale[:, :, None]), -8, 7).to(torch.int16) + 8
-    q = q.reshape(n, kp)
-    packed = (q[:, 0::2] | (q[:, 1::2] << 4)).to(torch.uint8)
-    return Q4Tensor(packed=packed.contiguous(), scale=scale.contiguous(), k=k, group=group)
+    q = torch.clamp(torch.round(g / scale[:, :, None]), -8, 7).reshape(n, kp)
+    return Q4Tensor(packed=_pack_nibbles(q), scale=scale.contiguous(), k=k, group=group)
 
 
 def dequantize_q4(qt: Q4Tensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -99,6 +156,116 @@ def dequantize_q4(qt: Q4Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     q = torch.stack([(p & 0xF) - 8, (p >> 4) - 8], dim=-1).reshape(n, -1)
     s = qt.scale.repeat_interleave(qt.group, dim=1)
     return (q.float() * s)[:, : qt.k].to(dtype)
+
+
+def quantize_group(w: torch.Tensor, group: int = 32) -> GroupQuantTensor:
+    """float [N, K] → symmetric int8 with per-(row, K-group) scales on the
+    ggml q8_0 grid (amax / 127 per group), as ``sdtpu.ops.quant.quantize_group``."""
+    w = w.float()
+    n, k = w.shape
+    kp = _round_up(k, group)
+    if kp != k:
+        w = torch.nn.functional.pad(w, (0, kp - k))
+    g = w.reshape(n, kp // group, group)
+    scale = _div(g.abs().amax(dim=2), 127.0)
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(g / scale[:, :, None]), -127, 127).to(torch.int8)
+    return GroupQuantTensor(q=q.reshape(n, kp), scale=scale.contiguous(), zero=None, k=k,
+                            group=group)
+
+
+def dequantize_group(qt: GroupQuantTensor, dtype=torch.float32) -> torch.Tensor:
+    """→ dense logical [N, k]: q·scale − zero in float32, then one rounding."""
+    w = qt.q.float() * qt.scale.repeat_interleave(qt.group, dim=1)
+    if qt.zero is not None:
+        w = w - qt.zero.repeat_interleave(qt.group, dim=1)
+    return w[:, : qt.k].to(dtype)
+
+
+# ----------------------------------------------------------- GGUF staging
+
+
+def _host_tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
+def from_host_quant(h, device="cpu"):
+    """``sdtpu.io.gguf.HostQuant`` (a checkpoint's own blocks) → ``Q4Tensor``
+    or ``GroupQuantTensor`` on ``device``, with the checkpoint's integers and
+    scales unchanged.
+
+    As in the JAX package: symmetric blocks whose values fit [−8, 7] (q4_0,
+    q3_k) with K >= 512 pack to 4 bits; everything else keeps int8 with its
+    group scales (and zeros for the affine types)."""
+    n, k = h.shape
+    group = h.group
+    if k % group:
+        raise ValueError(f"K={k} not a multiple of group={group}")
+    q = h.unpack_q().reshape(n, k)  # element order, whatever ggml's packing was
+    scale = h.scale.reshape(n, k // group)
+    if h.zero is None and group in Q4_GROUPS and k >= Q4_MIN_K and q.min() >= -8 and q.max() <= 7:
+        kp = _round_up(k, Q4_K_MULTIPLE)
+        if kp != k:
+            q = np.pad(q, ((0, 0), (0, kp - k)))
+            scale = np.pad(scale, ((0, 0), (0, (kp - k) // group)), constant_values=1.0)
+        packed = _pack_nibbles(torch.from_numpy(np.ascontiguousarray(q)))
+        return Q4Tensor(packed=packed.to(device), scale=_host_tensor(scale, device), k=k,
+                        group=group)
+    zero = None if h.zero is None else _host_tensor(h.zero.reshape(n, k // group), device)
+    return GroupQuantTensor(q=_host_tensor(q, device), scale=_host_tensor(scale, device),
+                            zero=zero, k=k, group=group)
+
+
+def _rowwise_requant_dev(q: torch.Tensor, s: torch.Tensor, group: int):
+    """int8 [n, k] on group scales [n, k/group] → per-row int8 and scales,
+    with the math of ``sdtpu.ops.quant._rowwise_requant_dev``."""
+    n, k = q.shape
+    w = q.float().reshape(n, k // group, group) * s[:, :, None]
+    amax = w.abs().reshape(n, -1).amax(dim=1)
+    rs = torch.where(amax == 0, torch.ones_like(amax), _div(amax, 127.0))
+    qr = torch.clamp(torch.round(w.reshape(n, k) / rs[:, None]), -127, 127)
+    return qr.to(torch.int8), rs
+
+
+def rowwise_requant_from_host_quant(h, device="cpu") -> QuantTensor:
+    """q8_0 ``HostQuant`` → per-row ``QuantTensor``, re-quantized on ``device``
+    (the host uploads only the checkpoint's int8 payload and group scales)."""
+    n, k = h.shape
+    q = _host_tensor(h.q.reshape(n, k), device)
+    s = _host_tensor(h.scale.reshape(n, k // h.group).astype(np.float32), device)
+    qr, rs = _rowwise_requant_dev(q, s, h.group)
+    return QuantTensor(q=qr, scale=rs)
+
+
+def host_params_to_device(params: dict, device="cpu", min_size: int = 1 << 16,
+                          skip_patterns: tuple = ("embed", "norm"),
+                          rowwise: bool = False) -> dict:
+    """Stage a param dict holding ``HostQuant`` entries: large 2-D linear
+    weights keep their checkpoint blocks on ``device`` (``GroupQuantTensor`` /
+    ``Q4Tensor``), or, with ``rowwise``, q8_0 blocks are re-quantized per row
+    onto the W8A8 path; other ``HostQuant``s come back dequantized as numpy
+    float32, and every other entry as it was.  The eligibility rule is
+    ``sdtpu.ops.quant.host_params_to_device``'s."""
+    from sdtpu.io.gguf import _parallel_map
+
+    def stage_one(item):
+        name, v = item
+        if type(v).__name__ != "HostQuant":
+            return name, v
+        if (v.ndim == 2 and v.size >= min_size and name.endswith(".weight")
+                and not any(s in name for s in skip_patterns)):
+            if rowwise and v.type_name == "q8_0":
+                return name, rowwise_requant_from_host_quant(v, device)
+            return name, from_host_quant(v, device)
+        return name, np.asarray(v)
+
+    return dict(_parallel_map(stage_one, list(params.items())))
+
+
+# ------------------------------------------------------------------- W8A8
 
 
 def quantize_activations(x: torch.Tensor):
@@ -150,6 +317,51 @@ def quant_matmul_w8a8(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
 quant_matmul_w8a8.launches = 0
 
 
+# ------------------------------------------------------------------ W8A16
+
+
+def w8a16_matmul_plain(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+    """Plain version of the W8A16 kernel: dequantize to x.dtype, then x·Wᵀ."""
+    return torch.matmul(x, dequantize(qt, x.dtype).T)
+
+
+def w8a16_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+    """W8A16: bf16 x [..., K] × int8 weight [N, K] → [..., N] in bf16.
+
+    out[m, n] = (Σ_k x[m, k]·q[n, k]) · s[n], the sum in float32."""
+    if x.device.type == "cpu":
+        return w8a16_matmul_plain(x, qt)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"w8a16_matmul: the kernel takes bf16 activations, got {x.dtype}")
+    k = x.shape[-1]
+    n = qt.q.shape[0]
+    if k % 16 or qt.q.shape[1] != k:
+        raise ValueError(f"w8a16_matmul: K={k} must match the weight and be a multiple of 16")
+    x2 = x.reshape(-1, k).contiguous()
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    _build.check_cuda("w8a16_matmul", x2, qt.q, qt.scale, out)
+    _build.launch("sdtpu_w8a16_matmul", x2.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(),
+                  out.data_ptr(), m, n, k, _build.stream_ptr(x))
+    w8a16_matmul.launches += 1
+    return out.reshape(*x.shape[:-1], n)
+
+
+w8a16_matmul.launches = 0
+
+
+def quant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+    """x [..., K] × per-row int8 weight → [..., N].  ``SDTPU_QUANT_MODE``,
+    read at each call as in the JAX package: ``w8a8`` (the default) runs
+    W8A8, any other value W8A16."""
+    if os.environ.get("SDTPU_QUANT_MODE", "w8a8") == "w8a8":
+        return quant_matmul_w8a8(x, qt)
+    return w8a16_matmul(x, qt)
+
+
+# ------------------------------------------------------------------ 4-bit
+
+
 def q4_matmul_plain(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
     """Plain version of the 4-bit kernel: dequantize to x.dtype, then x·Wᵀ."""
     return torch.matmul(x, dequantize_q4(qt, x.dtype).T)
@@ -163,7 +375,8 @@ def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
         raise ValueError(f"q4_matmul: the kernel takes bf16 activations, got {x.dtype}")
     k = x.shape[-1]
     n, kp = qt.packed.shape[0], qt.packed.shape[1] * 2
-    if k != qt.k or k % 8 or qt.group != Q4_GROUP or kp % Q4_GROUP:
+    if (k != qt.k or k % 8 or k > kp or qt.group not in Q4_GROUPS or kp % Q4_K_MULTIPLE
+            or qt.scale.shape != (n, kp // qt.group)):
         raise ValueError(f"q4_matmul: unsupported shape K={k}, Kp={kp}, group={qt.group}")
     x2 = x.reshape(-1, k).contiguous()
     m = x2.shape[0]
@@ -176,3 +389,84 @@ def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
 
 
 q4_matmul.launches = 0
+
+
+# ------------------------------------------------------------- group quant
+
+
+def group_quant_matmul_plain(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
+    """Plain version of the group-dequant kernels: dequantize to x.dtype,
+    then x·Wᵀ."""
+    return torch.matmul(x, dequantize_group(qt, x.dtype).T)
+
+
+def _gq_launch(name: str, wrapper, x: torch.Tensor, qt: GroupQuantTensor, dtypes) -> torch.Tensor:
+    """Check what the group-dequant kernels take, allocate the output and
+    launch ``name`` (the zero point is passed when the weight has one);
+    raises on anything the kernel does not take."""
+    if x.dtype not in dtypes:
+        raise ValueError(f"{wrapper.__name__}: unsupported dtype {x.dtype}")
+    k = x.shape[-1]
+    n, kp = qt.q.shape
+    zero = () if qt.zero is None else (qt.zero,)
+    if (k != qt.k or k % 8 or k > kp or qt.group not in GQ_GROUPS or kp % qt.group
+            or any(t.shape != (n, kp // qt.group) for t in (qt.scale, *zero))):
+        raise ValueError(f"{wrapper.__name__}: unsupported shape K={k}, Kp={kp}, group={qt.group}")
+    x2 = x.reshape(-1, k).contiguous()
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    tensors = (x2, qt.q, qt.scale, *zero, out)
+    _build.check_cuda(wrapper.__name__, *tensors)
+    _build.launch(name, _build.DTYPE_CODES[x.dtype], *(t.data_ptr() for t in tensors),
+                  m, n, k, kp, qt.group, _build.stream_ptr(x))
+    wrapper.launches += 1
+    return out.reshape(*x.shape[:-1], n)
+
+
+def gq_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
+    """Symmetric group-dequant matmul, one output tile per block; bf16 or
+    float32 x [..., K] → [..., N] in x.dtype."""
+    if x.device.type == "cpu":
+        return group_quant_matmul_plain(x, qt)
+    if qt.zero is not None:
+        raise ValueError("gq_matmul: affine weights go to gq_zero_matmul")
+    return _gq_launch("sdtpu_gq_matmul", gq_matmul, x, qt, tuple(_build.DTYPE_CODES))
+
+
+def gq_matmul_ws(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
+    """Weight-stationary symmetric group-dequant matmul: each dequantized
+    weight tile serves a chunk of M tiles.  bf16 x [..., K] → [..., N]."""
+    if x.device.type == "cpu":
+        return group_quant_matmul_plain(x, qt)
+    if qt.zero is not None:
+        raise ValueError("gq_matmul_ws: takes symmetric weights only")
+    return _gq_launch("sdtpu_gq_matmul_ws", gq_matmul_ws, x, qt, (torch.bfloat16,))
+
+
+def gq_zero_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
+    """Affine group-dequant matmul (value = q·scale − zero); bf16 or float32
+    x [..., K] → [..., N] in x.dtype."""
+    if x.device.type == "cpu":
+        return group_quant_matmul_plain(x, qt)
+    if qt.zero is None:
+        raise ValueError("gq_zero_matmul: needs a zero point")
+    return _gq_launch("sdtpu_gq_zero_matmul", gq_zero_matmul, x, qt, tuple(_build.DTYPE_CODES))
+
+
+gq_matmul.launches = gq_matmul_ws.launches = gq_zero_matmul.launches = 0
+
+
+def group_quant_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
+    """x [..., K] × group-quant int8 weight (logical [N, K]) → [..., N].
+
+    Affine weights take ``gq_zero_matmul``; symmetric bf16 calls of at least
+    ``GQ_WS_MIN_M`` rows take the weight-stationary ``gq_matmul_ws``; the
+    rest ``gq_matmul``."""
+    if x.device.type == "cpu":
+        return group_quant_matmul_plain(x, qt)
+    if qt.zero is not None:
+        return gq_zero_matmul(x, qt)
+    m = math.prod(x.shape[:-1])
+    if x.dtype == torch.bfloat16 and m >= GQ_WS_MIN_M:
+        return gq_matmul_ws(x, qt)
+    return gq_matmul(x, qt)

@@ -2,16 +2,18 @@
 full-width weights drawn on the device.
 
 ``from_jax_params`` turns a checkpoint-named ``sdtpu`` param dict (leaves as
-numpy/jnp arrays, ``QuantTensor`` or ``Q4Tensor``) into this package's, so
-the tests run both packages on identical weights.  The JAX ``Q4Tensor``
-split-half layout is repacked exactly into this package's layout (nibbles
-are integers).
+numpy/jnp arrays, ``QuantTensor``, ``Q4Tensor`` or ``GroupQuantTensor``) into
+this package's, so the tests run both packages on identical weights.  The
+JAX ``Q4Tensor`` split-half layout and the transposed ``GroupQuantTensor``
+are repacked exactly into this package's layouts (integers and scales are
+moved, never recomputed).
 
 ``synthesize`` draws random weights with a ``torch.Generator`` on the target
 device, in the memory classes of the JAX bench synthesis
 (``sdtpu/utils/device_init.py``): large 2-D weights as int8 ``QuantTensor``
-(q8_0) or packed 4-bit ``Q4Tensor`` (q4_0) with constant scales sized so
-dequantized values have std ~0.02; embeddings and tensors under 2**16
+(q8_0), group-32 int8 ``GroupQuantTensor`` (q8_0_gguf, a q8_0 GGUF kept in
+its blocks) or packed 4-bit ``Q4Tensor`` (q4_0) with constant scales sized
+so dequantized values have std ~0.02; embeddings and tensors under 2**16
 elements stay dense.
 """
 from __future__ import annotations
@@ -21,13 +23,15 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from sdtpu_torch.ops.quant import Q4_GROUP, Q4Tensor, QuantTensor
+from sdtpu_torch.ops.quant import (Q4_GROUP, Q4_K_MULTIPLE, GroupQuantTensor, Q4Tensor,
+                                   QuantTensor)
 
 WEIGHT_STD = 0.02
 # rms of uniform int8 in [-127, 127) is ~73.3; of centered nibbles ~4.6
 Q8_SCALE = WEIGHT_STD / 73.3
 Q4_SCALE = WEIGHT_STD / 4.6
 MIN_QUANT_ELEMS = 1 << 16
+GGUF_GROUP = 32  # ggml q8_0 block size
 # name fragments that stay dense (gathered, not matmul'd)
 EMBEDDING_HINTS = ("shared.weight", "embed", "wte", "token_embedding", "pos_emb", "position")
 
@@ -43,6 +47,11 @@ def _to_torch(a, device, dtype=None) -> torch.Tensor:
     return t.to(device)
 
 
+def _transposed(a, device, dtype=None) -> torch.Tensor:
+    """A JAX [Kp, N] field → this package's contiguous [N, Kp]."""
+    return _to_torch(np.ascontiguousarray(np.asarray(a).T), device, dtype)
+
+
 def repack_q4(packed, scale, k: int, block_k: int, group: int, device="cpu") -> Q4Tensor:
     """JAX ``Q4Tensor`` fields (packed uint8 [Kp/2, N] split-half per
     ``block_k`` tile, scale f32 [Kp/group, N]) → this package's layout."""
@@ -51,7 +60,7 @@ def repack_q4(packed, scale, k: int, block_k: int, group: int, device="cpu") -> 
     kp, n = packed.shape[0] * 2, packed.shape[1]
     p = packed.reshape(kp // block_k, block_k // 2, n)
     nib = np.concatenate([p & 0xF, p >> 4], axis=1).reshape(kp, n)  # [Kp, N] in k order
-    kq = -(-k // group) * group
+    kq = -(-k // Q4_K_MULTIPLE) * Q4_K_MULTIPLE  # <= the JAX Kp, a multiple of block_k
     nib = np.ascontiguousarray(nib[:kq].T)  # [N, Kq]
     ours = (nib[:, 0::2] | (nib[:, 1::2] << 4)).astype(np.uint8)
     return Q4Tensor(
@@ -72,6 +81,12 @@ def from_jax_params(params: dict, device="cpu", dtype: Optional[torch.dtype] = N
                                     scale=_to_torch(v.scale, device, torch.float32))
         elif kind == "Q4Tensor":
             out[name] = repack_q4(v.packed, v.scale, v.k, v.block_k, v.group, device)
+        elif kind == "GroupQuantTensor":
+            f32 = torch.float32
+            out[name] = GroupQuantTensor(
+                q=_transposed(v.q, device), scale=_transposed(v.scale, device, f32),
+                zero=None if v.zero is None else _transposed(v.zero, device, f32),
+                k=v.k, group=v.group)
         else:
             out[name] = _to_torch(v, device, dtype)
     return out
@@ -86,9 +101,10 @@ def synthesize(specs: Dict[str, tuple], quant: Optional[str] = None, seed: int =
                device="cpu", dtype: torch.dtype = torch.bfloat16) -> dict:
     """name → (shape, init) specs → random tensors drawn on ``device``.
 
-    quant: None (all dense), "q8_0" (eligible weights → int8 QuantTensor)
-    or "q4_0" (eligible weights → packed 4-bit Q4Tensor)."""
-    if quant not in (None, "q8_0", "q4_0"):
+    quant: None (all dense), "q8_0" (eligible weights → int8 QuantTensor),
+    "q8_0_gguf" (→ group-32 int8 GroupQuantTensor, the footprint of a q8_0
+    GGUF kept in its blocks) or "q4_0" (→ packed 4-bit Q4Tensor)."""
+    if quant not in (None, "q8_0", "q8_0_gguf", "q4_0"):
         raise ValueError(f"unsupported synthesis quant mode {quant!r}")
     device = torch.device(device)
     g = torch.Generator(device=device)
@@ -101,8 +117,16 @@ def synthesize(specs: Dict[str, tuple], quant: Optional[str] = None, seed: int =
                 q = torch.randint(-127, 127, (n, k), generator=g, device=device, dtype=torch.int8)
                 out[name] = QuantTensor(
                     q=q, scale=torch.full((n,), Q8_SCALE, dtype=torch.float32, device=device))
+            elif quant == "q8_0_gguf":
+                kp = -(-k // GGUF_GROUP) * GGUF_GROUP
+                q = torch.randint(-127, 127, (n, kp), generator=g, device=device,
+                                  dtype=torch.int8)
+                out[name] = GroupQuantTensor(
+                    q=q, scale=torch.full((n, kp // GGUF_GROUP), Q8_SCALE, dtype=torch.float32,
+                                          device=device),
+                    zero=None, k=k, group=GGUF_GROUP)
             else:
-                kp = -(-k // Q4_GROUP) * Q4_GROUP
+                kp = -(-k // Q4_K_MULTIPLE) * Q4_K_MULTIPLE
                 packed = torch.randint(0, 256, (n, kp // 2), generator=g, device=device,
                                        dtype=torch.uint8)
                 out[name] = Q4Tensor(
@@ -120,10 +144,16 @@ def synthesize(specs: Dict[str, tuple], quant: Optional[str] = None, seed: int =
 
 
 def weight_bytes(params: dict) -> int:
-    """Bytes of device memory a param dict holds."""
+    """Bytes of device memory a param dict holds, scales and zeros included."""
     total = 0
     for v in params.values():
-        for t in (v.q, v.scale) if isinstance(v, QuantTensor) else \
-                (v.packed, v.scale) if isinstance(v, Q4Tensor) else (v,):
-            total += t.numel() * t.element_size()
+        if isinstance(v, QuantTensor):
+            parts = (v.q, v.scale)
+        elif isinstance(v, Q4Tensor):
+            parts = (v.packed, v.scale)
+        elif isinstance(v, GroupQuantTensor):
+            parts = (v.q, v.scale) + (() if v.zero is None else (v.zero,))
+        else:
+            parts = (v,)
+        total += sum(t.numel() * t.element_size() for t in parts)
     return total

@@ -69,6 +69,96 @@ def test_q4_kernel_matches_plain(cuda, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("group", [16, 32, 64])
+@pytest.mark.parametrize("m,k,n", [(1, 64, 2), (5, 200, 77), (65, 1024, 129)])
+def test_q4_kernel_groups_match_plain(cuda, group, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(n + group)
+    x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
+    qt = quant.quantize_q4(torch.randn((n, k), generator=g, device=cuda) * 0.02, group=group)
+    before = quant.q4_matmul.launches
+    got = quant.q4_matmul(x, qt)
+    assert quant.q4_matmul.launches == before + 1
+    want = quant.q4_matmul_plain(x, qt)
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -6 * want.float().abs().max().item()
+
+
+def _group_weight(g, n, k, group, affine, device):
+    """Random int8 blocks with random scales (and zeros): every group differs."""
+    kp = -(-k // group) * group
+    q = torch.randint(-127, 128, (n, kp), generator=g, device=device, dtype=torch.int8)
+    scale = torch.rand((n, kp // group), generator=g, device=device) * 4e-4 + 1e-5
+    zero = torch.rand((n, kp // group), generator=g, device=device) * 1e-2 if affine else None
+    return quant.GroupQuantTensor(q=q, scale=scale, zero=zero, k=k, group=group)
+
+
+def _close(got, want, dtype):
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    return err <= (2 ** -6 if dtype == torch.bfloat16 else 1e-5) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,dtype", [  # the weight-stationary kernel takes bf16 only
+    ("gq_matmul", torch.bfloat16), ("gq_matmul", torch.float32), ("gq_matmul_ws", torch.bfloat16),
+    ("gq_zero_matmul", torch.bfloat16), ("gq_zero_matmul", torch.float32)])
+@pytest.mark.parametrize("group", [16, 32])
+@pytest.mark.parametrize("m,k,n", [(1, 32, 8), (3, 48, 130), (129, 272, 257), (600, 1040, 64)])
+def test_group_quant_kernels_match_plain(cuda, form, dtype, group, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m * group)
+    x = torch.randn((m, k), generator=g, device=cuda, dtype=dtype)
+    qt = _group_weight(g, n, k, group, form == "gq_zero_matmul", cuda)
+    fn = getattr(quant, form)
+    before = fn.launches
+    got = fn(x, qt)
+    assert fn.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert _close(got, quant.group_quant_matmul_plain(x, qt), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 16, 8), (3, 48, 130), (129, 272, 257), (300, 1040, 64)])
+def test_w8a16_kernel_matches_plain(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
+    qt = quant.QuantTensor(
+        q=torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8),
+        scale=torch.rand((n,), generator=g, device=cuda) * 4e-4 + 1e-5)
+    before = quant.w8a16_matmul.launches
+    got = quant.w8a16_matmul(x, qt)
+    assert quant.w8a16_matmul.launches == before + 1
+    assert _close(got, quant.w8a16_matmul_plain(x, qt), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,dtype,affine,form", [
+    (1, torch.bfloat16, False, "gq_matmul"),        # modulation linears
+    (256, torch.bfloat16, False, "gq_matmul"),      # text tokens
+    (1024, torch.bfloat16, False, "gq_matmul_ws"),  # image tokens
+    (1024, torch.float32, False, "gq_matmul"),
+    (1024, torch.bfloat16, True, "gq_zero_matmul"),
+])
+def test_group_quant_matmul_chooses_the_kernel_by_shape(cuda, m, dtype, affine, form):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qt = _group_weight(g, 96, 128, 32, affine, cuda)
+    x = torch.randn((m, 128), generator=g, device=cuda, dtype=dtype)
+    counts = {f: getattr(quant, f).launches for f in ("gq_matmul", "gq_matmul_ws", "gq_zero_matmul")}
+    quant.group_quant_matmul(x, qt)
+    for f, c in counts.items():
+        assert getattr(quant, f).launches == c + (f == form)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_reads_the_mode_at_each_call(cuda, monkeypatch):
+    qt = quant.quantize_per_channel(torch.randn((64, 128), device=cuda))
+    x = torch.randn((4, 128), device=cuda, dtype=torch.bfloat16)
+    w8a8, w8a16 = quant.quant_matmul_w8a8.launches, quant.w8a16_matmul.launches
+    quant.quant_matmul(x, qt)
+    monkeypatch.setenv("SDTPU_QUANT_MODE", "w8a16")
+    quant.quant_matmul(x, qt)
+    assert (quant.quant_matmul_w8a8.launches, quant.w8a16_matmul.launches) == (w8a8 + 1, w8a16 + 1)
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.randn((1, 1, 8, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
@@ -81,6 +171,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q4 = quant.quantize_q4(torch.randn((8, 64), device=cuda))
     with pytest.raises(ValueError):
         quant.q4_matmul(torch.randn((2, 64), device=cuda), q4)  # float32 activations
+    gq = quant.quantize_group(torch.randn((8, 64), device=cuda))
+    with pytest.raises(ValueError):
+        quant.gq_matmul_ws(torch.randn((600, 64), device=cuda), gq)  # float32 activations
+    with pytest.raises(ValueError):
+        quant.gq_zero_matmul(torch.randn((2, 64), device=cuda), gq)  # no zero point
+    with pytest.raises(ValueError):  # group 64 is no GGUF block size
+        quant.gq_matmul(torch.randn((2, 64), device=cuda), quant.quantize_group(
+            torch.randn((8, 64), device=cuda), group=64))
+    with pytest.raises(ValueError):
+        quant.w8a16_matmul(torch.randn((2, 32), device=cuda), quant.quantize_per_channel(
+            torch.randn((8, 32), device=cuda)))  # float32 activations
 
 
 def test_cpu_tensors_run_the_plain_versions_without_launching():
@@ -96,4 +197,21 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     assert torch.equal(quant.q4_matmul(x4, q4), quant.q4_matmul_plain(x4, q4))
     assert counts == (fa.flash_attention.launches, quant.quant_matmul_w8a8.launches,
                       quant.q4_matmul.launches)
+    assert _build.library.cache_info().currsize == 0
+
+
+def test_cpu_tensors_run_the_group_and_w8a16_plain_versions_without_launching():
+    wrappers = (quant.gq_matmul, quant.gq_matmul_ws, quant.gq_zero_matmul, quant.w8a16_matmul)
+    counts = [f.launches for f in wrappers]
+    x = torch.randn((600, 64))
+    gq = quant.quantize_group(torch.randn((8, 64)))
+    gz = quant.GroupQuantTensor(q=gq.q, scale=gq.scale, zero=gq.scale * 3, k=64, group=32)
+    want, want_z = quant.group_quant_matmul_plain(x, gq), quant.group_quant_matmul_plain(x, gz)
+    assert not torch.equal(want, want_z)
+    for f in (quant.gq_matmul, quant.gq_matmul_ws, quant.group_quant_matmul):
+        assert torch.equal(f(x, gq), want)
+    assert torch.equal(quant.gq_zero_matmul(x, gz), want_z)
+    qt = quant.quantize_per_channel(torch.randn((8, 64)))
+    assert torch.equal(quant.w8a16_matmul(x, qt), quant.w8a16_matmul_plain(x, qt))
+    assert [f.launches for f in wrappers] == counts
     assert _build.library.cache_info().currsize == 0

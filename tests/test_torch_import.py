@@ -76,7 +76,7 @@ def test_binding_table_matches_kernel_sources():
         assert entries[name] == len(argtypes), name
 
 
-@pytest.mark.parametrize("stem", ["flash_attention", "w8a8_matmul", "q4_matmul"])
+@pytest.mark.parametrize("stem", ["flash_attention", "w8a8_matmul", "q4_matmul", "gq_matmul"])
 def test_kernel_source_names_the_tpu_kernel_it_replaces(stem):
     head = (PKG / "csrc" / f"{stem}.cu").read_text()[:3000]
     assert "Replaces the TPU kernel" in head
@@ -88,5 +88,10 @@ def test_source_hash_keys_the_build():
 
     assert _build.source_hash() == _build.source_hash()
     assert {p.name for p in _build.sources()} >= {"flash_attention.cu", "w8a8_matmul.cu",
-                                                  "q4_matmul.cu", "common.cuh"}
+                                                  "q4_matmul.cu", "gq_matmul.cu", "common.cuh"}
     assert _build.build_dir().parent == REPO / "build" / "sdtpu_torch_kernels"
+
+
+def test_the_gguf_loader_is_among_the_checked_modules():
+    assert {"sdtpu_torch.loader", "sdtpu_torch.ops.quant"} <= set(_modules())
+    assert "sdtpu_gq_matmul_ws" in _c_entry_points()

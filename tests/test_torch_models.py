@@ -32,7 +32,7 @@ from sdtpu_torch.models import flux as tflux
 from sdtpu_torch.models import t5 as tt5
 from sdtpu_torch.models import tiling as ttiling
 from sdtpu_torch.models import vae as tvae
-from sdtpu_torch.ops.quant import Q4Tensor, QuantTensor
+from sdtpu_torch.ops.quant import GroupQuantTensor, Q4Tensor, QuantTensor
 from sdtpu_torch.weights import _quantizable, from_jax_params, synthesize
 
 SMALL = flux_configs(small=True)
@@ -89,6 +89,8 @@ def test_param_specs_match_jax_init_at_full_width(module):
     (jflux.init_flux_params, jflux.FLUX_DEV_CONFIG, "q8_0",
      tflux.param_specs(tflux.FLUX_DEV_CONFIG), QuantTensor),
     (jt5.init_t5_params, jt5.T5_XXL_CONFIG, "q4_0", tt5.param_specs(tt5.T5_XXL_CONFIG), Q4Tensor),
+    (jflux.init_flux_params, jflux.FLUX_DEV_CONFIG, "q8_0_gguf",
+     tflux.param_specs(tflux.FLUX_DEV_CONFIG), GroupQuantTensor),
 ])
 def test_memory_classes_match_jax_synthesis(init_fn, jcfg, mode, specs, cls):
     """The same weights are quantized as in the JAX bench synthesis."""
@@ -103,14 +105,16 @@ def test_synthesize_memory_classes_and_statistics():
                                          num_layers=1, num_heads=8))
     q4 = synthesize(specs, quant="q4_0", seed=0, dtype=torch.float32)
     q8 = synthesize(specs, quant="q8_0", seed=0, dtype=torch.float32)
+    gg = synthesize(specs, quant="q8_0_gguf", seed=0, dtype=torch.float32)
     name = "encoder.block.0.layer.1.DenseReluDense.wi_0.weight"
     assert isinstance(q4[name], Q4Tensor) and isinstance(q8[name], QuantTensor)
-    assert q4[name].shape == q8[name].shape == (512, 256)
+    assert isinstance(gg[name], GroupQuantTensor) and gg[name].group == 32
+    assert q4[name].shape == q8[name].shape == gg[name].shape == (512, 256)
     assert isinstance(q4["shared.weight"], torch.Tensor)  # embeddings stay dense
     assert torch.equal(q4["encoder.final_layer_norm.weight"], torch.ones(256))
-    from sdtpu_torch.ops.quant import dequantize, dequantize_q4
+    from sdtpu_torch.ops.quant import dequantize, dequantize_group, dequantize_q4
     for w in (dequantize_q4(q4[name], torch.float32), dequantize(q8[name], torch.float32),
-              q4["shared.weight"]):
+              dequantize_group(gg[name]), q4["shared.weight"]):
         assert 0.015 < w.std().item() < 0.025  # ~N(0, 0.02) statistics
 
 
@@ -236,3 +240,16 @@ def test_unported_pieces_raise():
         tflux.check_supported(tflux.FluxConfig(is_chroma=True))
     with pytest.raises(ValueError):
         get_sigmas(FluxFlowDenoiser(), 4, scheduler="karras")
+
+
+def test_weight_bytes_counts_group_scales_and_zeros():
+    from sdtpu_torch.ops.quant import GroupQuantTensor
+    from sdtpu_torch.weights import weight_bytes
+
+    q = torch.zeros((8, 64), dtype=torch.int8)
+    s = torch.ones((8, 2))
+    sym = GroupQuantTensor(q=q, scale=s, zero=None, k=64, group=32)
+    affine = GroupQuantTensor(q=q, scale=s, zero=s.clone(), k=64, group=32)
+    assert weight_bytes({"a": sym}) == 8 * 64 + 8 * 2 * 4
+    assert weight_bytes({"a": sym, "b": affine, "c": torch.zeros(3, dtype=torch.bfloat16)}) == \
+        2 * (8 * 64 + 8 * 2 * 4) + 8 * 2 * 4 + 6

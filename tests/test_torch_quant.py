@@ -7,7 +7,8 @@
 * 4-bit: the JAX split-half layout is repacked into the port's layout by
   value (nibbles are integers: exact), and the plain matmul is held to
   ``q4_matmul`` (XLA form and forced-interpreted kernel) at float32 sum-order
-  tolerance (rtol 1e-5 / atol 1e-5).
+  tolerance (rtol 1e-5 / atol 1e-5); groups 16 and 32 (a q3_k or q4_0 GGUF's
+  own blocks) stage from ``HostQuant`` as the JAX package stages them.
 """
 import sys
 
@@ -19,6 +20,7 @@ from jax.experimental import pallas as pl
 
 import sdtpu.ops.attention  # noqa: F401 — registers the module
 import sdtpu.ops.quant as jq
+from sdtpu.io.gguf import BLOCK_INFO, GGML_Q3_K, GGML_Q4_0, extract_blocks, quantize_q4_0
 from sdtpu.ops.basic import linear as jlinear
 from sdtpu_torch.ops import quant as tq
 from sdtpu_torch.ops.basic import linear
@@ -184,3 +186,50 @@ def test_linear_dispatches_q4_tensor():
     got = linear(torch.from_numpy(x), from_jax_params({"w": qj})["w"]).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
+
+
+def _q4_class_blocks(ggml_type, n, k, seed):
+    """A q4_0 HostQuant quantized from random weights, or a q3_k one from
+    random blocks (ggml has no q3_k quantizer here)."""
+    rng = np.random.default_rng(seed)
+    if ggml_type == GGML_Q4_0:
+        raw = quantize_q4_0(rng.standard_normal((n, k)).astype(np.float32) * 0.05)
+    else:
+        _, block_bytes = BLOCK_INFO[ggml_type]
+        nb = n * k // 256
+        raw = rng.integers(0, 256, size=(nb, block_bytes), dtype=np.uint8)
+        raw[:, 108:110] = (rng.standard_normal(nb) * 0.01).astype(np.float16).view(np.uint8).reshape(nb, 2)
+        raw = raw.reshape(-1)
+    return extract_blocks(raw, ggml_type, n * k, (n, k))
+
+
+@pytest.mark.parametrize("ggml_type,group", [(GGML_Q4_0, 32), (GGML_Q3_K, 16)])
+@pytest.mark.parametrize("k", [512, 1536])
+def test_q4_from_host_quant_keeps_the_checkpoint_group(ggml_type, group, k):
+    """A q4_0 GGUF tensor with K >= 512 stages to a group-32 Q4Tensor (q3_k:
+    group 16), and linear matches the JAX package's on the same blocks."""
+    h = _q4_class_blocks(ggml_type, 40, k, seed=k)
+    got = tq.from_host_quant(h)
+    want = jq.from_host_quant(h)
+    assert isinstance(got, tq.Q4Tensor) and type(want).__name__ == "Q4Tensor"
+    assert got.group == want.group == group and got.shape == (40, k)
+    assert got.packed.shape == (40, k // 2) and got.scale.shape == (40, k // group)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((3, 7, k)).astype(np.float32)
+    b = rng.standard_normal((40,)).astype(np.float32)
+    np.testing.assert_allclose(
+        linear(torch.from_numpy(x), got, torch.from_numpy(b)).numpy(),
+        np.asarray(jlinear(jnp.asarray(x), want, jnp.asarray(b))), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("group", [16, 32])
+def test_q4_small_groups_quantize_and_repack_like_jax(group):
+    rng = np.random.default_rng(group)
+    w = rng.standard_normal((24, 600)).astype(np.float32) * 0.05  # K padded to 640
+    qj = jq.quantize_q4(w, group=group)
+    want = np.asarray(jq.dequantize_q4(qj, jnp.float32))
+    bridged = from_jax_params({"w": qj})["w"]
+    assert bridged.group == group and bridged.packed.shape == (24, 320)
+    np.testing.assert_array_equal(tq.dequantize_q4(bridged, torch.float32).numpy(), want)
+    ours = tq.quantize_q4(torch.from_numpy(w), group=group)
+    np.testing.assert_array_equal(tq.dequantize_q4(ours, torch.float32).numpy(), want)
