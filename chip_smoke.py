@@ -10,7 +10,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      shapes of the FLUX.1-dev txt2img path (the group-dequant and W8A16
      kernels at the W8A8 shapes, the 4-bit kernel at groups 64, 32 and 16),
      with a stated tolerance, and the time of both (CUDA events, after
-     warm-up);
+     warm-up); beside them each case's bound (the larger of its operations
+     over the card's peak for their type and its bytes over the memory
+     rate) and, where one PyTorch call computes the same function
+     (``scaled_dot_product_attention`` for flash, ``torch._int_mm`` for the
+     W8A8 GEMM at M > 16), that call's time;
   4. a small-input reference check: T5, CLIP, one DiT forward and a VAE
      decode at kernel-shaped small widths, on the card (kernels, bf16)
      against the same weights on the CPU (plain versions, float32);
@@ -170,6 +174,25 @@ GGUF_REQUESTS = [
 ]
 
 
+# Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
+# sheet): tensor-core bf16 and int8, float32 outside the tensor cores; HBM3.
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(ops: float, nbytes: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the peak for their type and the bytes (each input read once, each output
+    written once) over the memory rate."""
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
@@ -199,9 +222,10 @@ def _record(results, case) -> None:
     print("kernel " + json.dumps(case), flush=True)
 
 
-def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, **extra):
+def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, bnd, **extra):
     """Record one kernel case: max |error| against the plain version, within
-    ``tol_rel`` of the largest |output|, and both times."""
+    ``tol_rel`` of the largest |output|, both times and the bound ``bnd``;
+    none of the forms it covers has a one-call PyTorch equivalent."""
     import torch
 
     torch.cuda.synchronize()
@@ -211,7 +235,7 @@ def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, **extra):
     plain_ms = time_ms(plain, max(3, it // 4))
     _record(results, dict(kernel=name, shape=list(shape), **extra, max_abs_err=err, tol=tol,
                           ok=bool(err <= tol and torch.isfinite(got).all()), ms=ms,
-                          plain_ms=plain_ms))
+                          plain_ms=plain_ms, **bnd, library_ms=None))
 
 
 def check_w8a8(results):
@@ -234,14 +258,25 @@ def check_w8a8(results):
         it = iters_for(2.0 * m * n * k)
         ms = time_ms(lambda: quant.quant_matmul_w8a8(x, qt), it)
         plain_ms = time_ms(lambda: quant.quant_matmul_w8a8_plain(x, qt), max(3, it // 4))
+        # the library's int8 GEMM on the same int8 operands (M > 16 only):
+        # the GEMM part of the function, without the row quantize and epilogue
+        library_ms = None
+        if m > 16:
+            xq, _ = quant.quantize_activations(x)
+            wt = qt.q.t()
+            library_ms = time_ms(lambda: torch._int_mm(xq, wt), it)
+            del xq
         ok = bool(torch.equal(got, want))
         _record(results, dict(kernel="w8a8_matmul", shape=[m, k, n], max_abs_err=err, tol=0.0,
-                            ok=ok, ms=ms, plain_ms=plain_ms))
+                            ok=ok, ms=ms, plain_ms=plain_ms,
+                            **bound(2.0 * m * n * k, nbytes(x, qt.q, qt.scale, got), "int8"),
+                            library_ms=library_ms))
         del x, qt, got, want
 
 
 def check_flash(results):
     import torch
+    import torch.nn.functional as F
 
     from sdtpu_torch.ops import flash_attention as fa
 
@@ -260,13 +295,17 @@ def check_flash(results):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = FLASH_TOL[dt] * (max(1.0, want.float().abs().max().item()) if dt == "bf16" else 1.0)
-        it = iters_for(4.0 * b * h * lq * lk * d)
+        ops = 4.0 * b * h * lq * lk * d
+        it = iters_for(ops)
         ms = time_ms(lambda: fa.flash_attention(q, k, v, mask=mask), it)
         plain_ms = time_ms(lambda: fa.plain_attention(q, k, v, mask=mask), it)
+        lib_mask = None if mask is None else mask.to(dtype)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask), it)
         _record(results, dict(kernel="flash_attention", shape=[b, h, lq, lk, d], dtype=dt,
                             bias=bias, max_abs_err=err, tol=tol,
                             ok=bool(err <= tol and torch.isfinite(got).all()),
-                            ms=ms, plain_ms=plain_ms))
+                            ms=ms, plain_ms=plain_ms,
+                            **bound(ops, nbytes(q, k, v, mask, got), dt), library_ms=library_ms))
         del q, k, v, got, want
 
 
@@ -287,10 +326,13 @@ def check_q4(results):
                 scale=torch.rand((n, kp // group), generator=g, device=DEVICE) * Q4_SCALE
                 + Q4_SCALE / 2,
                 k=k, group=group)
-            _compare(results, "q4_matmul", (m, k, n), quant.q4_matmul(x, qt),
+            got = quant.q4_matmul(x, qt)
+            _compare(results, "q4_matmul", (m, k, n), got,
                      quant.q4_matmul_plain(x, qt), Q4_REL_TOL,
                      lambda: quant.q4_matmul(x, qt), lambda: quant.q4_matmul_plain(x, qt),
-                     iters_for(2.0 * m * n * k), group=group)
+                     iters_for(2.0 * m * n * k),
+                     bound(2.0 * m * n * k, nbytes(x, qt.packed, qt.scale, got), "bf16"),
+                     group=group)
             del x, qt
 
 
@@ -325,9 +367,12 @@ def check_group_quant(results):
         x = torch.randn((m, k), generator=g, device=DEVICE, dtype=dtype)
         qt = _random_group_weight(g, n, k, group, affine=form == "gq_zero_matmul")
         fn = getattr(quant, form)
-        _compare(results, form, (m, k, n), fn(x, qt), quant.group_quant_matmul_plain(x, qt),
+        got = fn(x, qt)
+        _compare(results, form, (m, k, n), got, quant.group_quant_matmul_plain(x, qt),
                  GQ_REL_TOL[dt], lambda: fn(x, qt), lambda: quant.group_quant_matmul_plain(x, qt),
-                 iters_for(2.0 * m * n * k), group=group, dtype=dt)
+                 iters_for(2.0 * m * n * k),
+                 bound(2.0 * m * n * k, nbytes(x, qt.q, qt.scale, qt.zero, got), dt),
+                 group=group, dtype=dt)
         del x, qt
 
 
@@ -342,10 +387,12 @@ def check_w8a16(results):
         qt = quant.QuantTensor(
             q=torch.randint(-127, 128, (n, k), generator=g, device=DEVICE, dtype=torch.int8),
             scale=torch.rand((n,), generator=g, device=DEVICE) * 4e-4 + 1e-5)
-        _compare(results, "w8a16_matmul", (m, k, n), quant.w8a16_matmul(x, qt),
+        got = quant.w8a16_matmul(x, qt)
+        _compare(results, "w8a16_matmul", (m, k, n), got,
                  quant.w8a16_matmul_plain(x, qt), GQ_REL_TOL["bf16"],
                  lambda: quant.w8a16_matmul(x, qt), lambda: quant.w8a16_matmul_plain(x, qt),
-                 iters_for(2.0 * m * n * k))
+                 iters_for(2.0 * m * n * k),
+                 bound(2.0 * m * n * k, nbytes(x, qt.q, qt.scale, got), "bf16"))
         del x, qt
 
 
@@ -443,7 +490,7 @@ def _kquant_blocks(type_name: str, shape, seed: int):
     f16 block scales small enough that the values look like weights."""
     import numpy as np
 
-    from sdtpu.io import gguf
+    from sdtpu_torch.io import gguf
 
     ggml_type = {"q6_k": gguf.GGML_Q6_K, "q4_k": gguf.GGML_Q4_K}[type_name]
     f16_spans = {"q6_k": [(208, 210)], "q4_k": [(0, 2), (2, 4)]}[type_name]
@@ -464,8 +511,8 @@ def loader_check(wrappers, card: str):
     import numpy as np
     import torch
 
-    from sdtpu.io.gguf import save_gguf
-    from sdtpu.io.model_loader import load_model_bundle
+    from sdtpu_torch.io.gguf import save_gguf
+    from sdtpu_torch.io.model_loader import load_model_bundle
     from sdtpu_torch.loader import diffusion_to_device, load_flux_diffusion
     from sdtpu_torch.models import flux as flux_mod
     from sdtpu_torch.ops.quant import GroupQuantTensor, Q4Tensor, QuantTensor
@@ -593,7 +640,7 @@ def build_pipeline(card: str, diffusion, label: str):
     on the card."""
     import torch
 
-    from sdtpu.config import SDVersion
+    from sdtpu_torch.config import SDVersion
     from sdtpu_torch.factory import create_pipeline
     from sdtpu_torch.weights import weight_bytes
 
@@ -616,7 +663,7 @@ def answer(pipe, requests, card: str, label: str):
     import numpy as np
     import torch
 
-    from sdtpu.config import GenerationParams
+    from sdtpu_torch.config import GenerationParams
 
     reports = []
     for kw in requests:
@@ -650,7 +697,7 @@ def profile_request(pipe, request: dict, table: str, label: str, card: str) -> d
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from sdtpu.config import GenerationParams
+    from sdtpu_torch.config import GenerationParams
 
     gp = GenerationParams(sample_method="euler", **request)
     path = Path(table)
@@ -790,7 +837,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": sum(c[name] for c in launches.values()),
                         "max_abs_err": max(c["max_abs_err"] for c in mine),
-                        "ms": head["ms"], "plain_ms": head["plain_ms"]})
+                        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                        "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s, "cases": cases, "reference": ref,

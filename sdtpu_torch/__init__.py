@@ -1,15 +1,19 @@
 """sdtpu_torch — the PyTorch/CUDA port of sdtpu for NVIDIA Hopper GPUs.
 
 The JAX package ``sdtpu`` stays the reference; this package mirrors its
-layout (ops/, models/, conditioning/, diffusion/, pipeline.py, factory.py)
-and is held against it by the tests.  The slice ported so far runs FLUX.1
-txt2img.  Every TPU kernel on that path is a hand-written Hopper kernel in
-``csrc/`` (flash attention, the W8A8 int8 matmul, the packed 4-bit matmul),
-launched for CUDA tensors; CPU tensors run each kernel's plain PyTorch
-version.
+layout (ops/, models/, conditioning/, diffusion/, io/, tokenizers/,
+pipeline.py, factory.py) and is held against it by the tests.  The slice
+ported so far runs FLUX.1 txt2img, from random weights or a GGUF /
+safetensors DiT.  Every TPU kernel on that path is a hand-written Hopper
+kernel in ``csrc/`` (flash attention; the W8A8, packed 4-bit, group-dequant
+and W8A16 matmuls), launched for CUDA tensors; CPU tensors run each
+kernel's plain PyTorch version.
 
-Host code that never touches JAX is shared with ``sdtpu`` rather than
-copied: the config types, the Philox/MT19937 noise, the tokenizers and the
-prompt parser.  This package never imports ``jax``.
+The package stands alone: it imports nothing of ``sdtpu`` and never imports
+``jax``.  Its host layer (config types, Philox / torch-CPU noise, CLIP
+tokenizer, prompt parser, GGUF and safetensors readers, the FLUX model
+loader) is its own copy of the JAX package's, under the same names.  Entry
+points run on the card (``device="cuda"``) unless the caller asks for the
+CPU, as the tests do.
 """
 __version__ = "0.1.0"

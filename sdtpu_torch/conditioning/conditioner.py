@@ -2,8 +2,8 @@
 ``sdtpu/conditioning/conditioner.py``: ``tokenize_with_weights``,
 ``apply_token_weights``, ``SDCondition``, ``FluxConditioner``).
 
-Tokenizers and the webui prompt parser are shared with ``sdtpu``; the
-encoders are this package's CLIP and T5.
+The tokenizers, the webui prompt parser and the encoders are this
+package's own.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from sdtpu.conditioning.prompt_parser import parse_prompt_attention
+from sdtpu_torch.conditioning.prompt_parser import parse_prompt_attention
 from sdtpu_torch.models.clip import CLIPTextConfig, clip_text_forward
 from sdtpu_torch.models.t5 import T5Config, t5_encoder_forward
 
@@ -77,7 +77,7 @@ class FluxConditioner:
     """FLUX: the CLIP-L pooled vector and the T5 token sequence."""
 
     def __init__(self, clip_tokenizer, t5_tokenizer, clip_l_params, clip_l_cfg: CLIPTextConfig,
-                 t5_params, t5_cfg: T5Config, t5_seq_len: int = 256, device="cpu"):
+                 t5_params, t5_cfg: T5Config, t5_seq_len: int = 256, device="cuda"):
         self.clip_tokenizer = clip_tokenizer
         self.t5_tokenizer = t5_tokenizer
         self.pl, self.cl = clip_l_params, clip_l_cfg

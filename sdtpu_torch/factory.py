@@ -15,15 +15,15 @@ from typing import Optional
 
 import torch
 
-from sdtpu.config import SDVersion
-from sdtpu.tokenizers.clip import CLIPTokenizer
 from sdtpu_torch.conditioning.conditioner import FluxConditioner
+from sdtpu_torch.config import SDVersion
 from sdtpu_torch.diffusion.denoiser import FluxFlowDenoiser
 from sdtpu_torch.models import clip as clip_mod
 from sdtpu_torch.models import flux as flux_mod
 from sdtpu_torch.models import t5 as t5_mod
 from sdtpu_torch.models import vae as vae_mod
 from sdtpu_torch.pipeline import DiffusionPipeline
+from sdtpu_torch.tokenizers.clip import CLIPTokenizer
 from sdtpu_torch.weights import synthesize
 
 # synthesis memory class and seed offset per module at full width
@@ -56,7 +56,7 @@ def _blocks(p: dict, prefix: str) -> int:
 def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] = None,
                     rng_type: str = "cuda", dtype: torch.dtype = torch.float32,
                     small: bool = False, seed: int = 0, t5_tokenizer=None,
-                    device="cpu") -> DiffusionPipeline:
+                    device="cuda") -> DiffusionPipeline:
     """params: dict with keys 'diffusion', 'clip_l', 't5', 'vae'; a missing
     module gets random weights drawn on ``device`` (dense for the small
     config, the bench's memory classes at full width)."""

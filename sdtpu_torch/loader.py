@@ -1,8 +1,9 @@
 """FLUX diffusion weights from a GGUF checkpoint, kept in its quantized blocks
-(counterpart of ``sdtpu/cli.py``'s ``_diffusion_to_device`` around the shared
-``sdtpu.io.model_loader.load_model_bundle(..., keep_quant=True)``).
+(counterpart of ``sdtpu/cli.py``'s ``_diffusion_to_device`` around
+``load_model_bundle(..., keep_quant=True)``, here this package's own
+``sdtpu_torch.io.model_loader``).
 
-    params = load_flux_diffusion("flux1-dev-q4_0.gguf", device="cuda")
+    params = load_flux_diffusion("flux1-dev-q4_0.gguf")  # on the card
     pipe = create_pipeline(SDVersion.FLUX, params={"diffusion": params}, ...)
 
 The promotion rule is the CLI's default: q8_0 blocks are re-quantized per
@@ -16,12 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdtpu.config import SDVersion
-from sdtpu.io.model_loader import load_model_bundle
+from sdtpu_torch.io.model_loader import load_model_bundle
 from sdtpu_torch.ops.quant import GroupQuantTensor, Q4Tensor, QuantTensor, host_params_to_device
 
 
-def diffusion_to_device(d: dict, dtype: torch.dtype = torch.bfloat16, device="cpu",
+def diffusion_to_device(d: dict, dtype: torch.dtype = torch.bfloat16, device="cuda",
                         promote_q8: bool = True, min_size: int = 1 << 16) -> dict:
     """A diffusion param dict holding ``HostQuant`` blocks → this package's
     tensors on ``device``; 2-D weights under ``min_size`` elements go dense."""
@@ -35,12 +35,10 @@ def diffusion_to_device(d: dict, dtype: torch.dtype = torch.bfloat16, device="cp
     return out
 
 
-def load_flux_diffusion(path: str, dtype: torch.dtype = torch.bfloat16, device="cpu",
+def load_flux_diffusion(path: str, dtype: torch.dtype = torch.bfloat16, device="cuda",
                         promote_q8: bool = True) -> dict:
     """A FLUX diffusion-model checkpoint (GGUF or safetensors) → its params on
-    ``device``, quantized GGUF blocks kept as they are."""
+    ``device``, quantized GGUF blocks kept as they are; any other model
+    raises ``NotImplementedError``."""
     bundle = load_model_bundle(diffusion_model_path=path, keep_quant=True)
-    if bundle.version != SDVersion.FLUX:
-        raise NotImplementedError(f"{path} holds a {bundle.version.value} model; "
-                                  "the port loads FLUX")
     return diffusion_to_device(bundle.diffusion, dtype, device, promote_q8)

@@ -1,8 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
 The sources in ``sdtpu_torch/csrc`` are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
-``ctypes``.  The build happens on first use, into
+(``sm_90a``), one ``nvcc`` per source, all started together, and linked into
+one shared library with a plain C interface, loaded with ``ctypes``.  The build happens on first use, into
 ``build/sdtpu_torch_kernels/<hash>/`` beside the package, keyed on a hash of
 the sources and flags, so a second process reuses it.  Nothing here runs at
 import time: the CPU tests import every module of the port.
@@ -24,7 +24,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sdtpu_torch_kernel
 LIB_NAME = "libsdtpu_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
 # dtype codes of the C entry points (csrc/common.cuh, enum DType)
@@ -78,15 +78,35 @@ def _nvcc() -> str:
 
 
 def build(out_dir: Path) -> Path:
-    """Compile every ``csrc/*.cu`` into ``out_dir/LIB_NAME``; the compiler's
-    output (ptxas register and spill counts) goes to ``out_dir/build.log``."""
+    """Compile every ``csrc/*.cu`` into ``out_dir/LIB_NAME``: one ``nvcc -c``
+    per source, run in parallel, then one link.  The compilers' output
+    (ptxas register and spill counts) goes to ``out_dir/build.log``."""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n{res.stderr[-6000:]}")
+    tag = os.getpid()
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [out_dir / f"{p.stem}.{tag}.o" for p in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for p, o in zip(srcs, objs)]
+    logs, failed = [], []
+    for p, proc in zip(srcs, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {p.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{p.name} (code {proc.returncode}):\n{out[-6000:]}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        logs.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append(f"link (code {res.returncode}):\n{res.stderr[-6000:]}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    (out_dir / "build.log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     lib = out_dir / LIB_NAME
     os.replace(tmp, lib)
     return lib

@@ -15,7 +15,8 @@ Three memory classes, as on the TPU:
   K, run by ``group_quant_matmul``.
 
 ``from_host_quant`` and ``host_params_to_device`` stage a GGUF's
-``sdtpu.io.gguf.HostQuant`` blocks onto a device without an f32 round trip.
+``sdtpu_torch.io.gguf.HostQuant`` blocks onto a device without an f32 round
+trip.
 
 Each matmul launches its Hopper kernel (``csrc/w8a8_matmul.cu``,
 ``csrc/q4_matmul.cu``, ``csrc/gq_matmul.cu``) for CUDA tensors and runs its
@@ -32,6 +33,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from sdtpu_torch.io.gguf import _parallel_map
 
 from . import _build
 
@@ -192,8 +195,8 @@ def _host_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def from_host_quant(h, device="cpu"):
-    """``sdtpu.io.gguf.HostQuant`` (a checkpoint's own blocks) → ``Q4Tensor``
+def from_host_quant(h, device="cuda"):
+    """``sdtpu_torch.io.gguf.HostQuant`` (a checkpoint's own blocks) → ``Q4Tensor``
     or ``GroupQuantTensor`` on ``device``, with the checkpoint's integers and
     scales unchanged.
 
@@ -230,7 +233,7 @@ def _rowwise_requant_dev(q: torch.Tensor, s: torch.Tensor, group: int):
     return qr.to(torch.int8), rs
 
 
-def rowwise_requant_from_host_quant(h, device="cpu") -> QuantTensor:
+def rowwise_requant_from_host_quant(h, device="cuda") -> QuantTensor:
     """q8_0 ``HostQuant`` → per-row ``QuantTensor``, re-quantized on ``device``
     (the host uploads only the checkpoint's int8 payload and group scales)."""
     n, k = h.shape
@@ -240,7 +243,7 @@ def rowwise_requant_from_host_quant(h, device="cpu") -> QuantTensor:
     return QuantTensor(q=qr, scale=rs)
 
 
-def host_params_to_device(params: dict, device="cpu", min_size: int = 1 << 16,
+def host_params_to_device(params: dict, device="cuda", min_size: int = 1 << 16,
                           skip_patterns: tuple = ("embed", "norm"),
                           rowwise: bool = False) -> dict:
     """Stage a param dict holding ``HostQuant`` entries: large 2-D linear
@@ -249,8 +252,6 @@ def host_params_to_device(params: dict, device="cpu", min_size: int = 1 << 16,
     onto the W8A8 path; other ``HostQuant``s come back dequantized as numpy
     float32, and every other entry as it was.  The eligibility rule is
     ``sdtpu.ops.quant.host_params_to_device``'s."""
-    from sdtpu.io.gguf import _parallel_map
-
     def stage_one(item):
         name, v = item
         if type(v).__name__ != "HostQuant":

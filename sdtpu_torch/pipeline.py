@@ -2,10 +2,11 @@
 ``sdtpu/pipeline.py``: ``DiffusionPipeline.generate``, ``txt2img``,
 ``set_vae_tiling`` and the tiled decode).
 
-Takes the shared ``sdtpu.config.GenerationParams``.  The initial noise comes
-from the shared ``sdtpu.rng`` (Philox / MT19937 in numpy), drawn per batch
-item exactly as the JAX pipeline draws it, so both packages start from the
-same latent.  Phase wall-clock times of the last call land in
+Takes this package's ``sdtpu_torch.config.GenerationParams`` (the fields
+and defaults of the JAX package's).  The initial noise comes from
+``sdtpu_torch.rng`` (Philox in numpy, or torch's CPU generator), drawn per batch item
+exactly as the JAX pipeline draws it, so both packages start from the same
+latent.  Phase wall-clock times of the last call land in
 ``last_timings`` (``cond``, ``sample``, ``decode``, ``total``, ``steps``);
 each phase ends in a device synchronize.
 """
@@ -18,12 +19,12 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from sdtpu.config import GenerationParams, SDVersion
-from sdtpu.rng import create_rng
+from sdtpu_torch.config import GenerationParams, SDVersion
 from sdtpu_torch.diffusion.guidance import cfg_combine
 from sdtpu_torch.diffusion.samplers import sample
 from sdtpu_torch.diffusion.schedule import get_sigmas
 from sdtpu_torch.models.tiling import tiled_decode
+from sdtpu_torch.rng import create_rng
 
 
 @dataclasses.dataclass
@@ -51,7 +52,7 @@ class DiffusionPipeline:
     def __init__(self, version: SDVersion, diffusion_params, diffusion_fn: Callable, conditioner,
                  vae_params, vae_decode_fn: Callable, denoiser, rng_type: str = "cuda",
                  latent_channels: int = 4, compute_dtype: torch.dtype = torch.float32,
-                 uses_distilled_guidance: bool = False, device="cpu"):
+                 uses_distilled_guidance: bool = False, device="cuda"):
         self.version = version
         self.diffusion_params = diffusion_params
         self.diffusion_fn = diffusion_fn

@@ -52,7 +52,7 @@ def _transposed(a, device, dtype=None) -> torch.Tensor:
     return _to_torch(np.ascontiguousarray(np.asarray(a).T), device, dtype)
 
 
-def repack_q4(packed, scale, k: int, block_k: int, group: int, device="cpu") -> Q4Tensor:
+def repack_q4(packed, scale, k: int, block_k: int, group: int, device="cuda") -> Q4Tensor:
     """JAX ``Q4Tensor`` fields (packed uint8 [Kp/2, N] split-half per
     ``block_k`` tile, scale f32 [Kp/group, N]) → this package's layout."""
     packed = np.asarray(packed)
@@ -69,7 +69,7 @@ def repack_q4(packed, scale, k: int, block_k: int, group: int, device="cpu") -> 
         k=int(k), group=int(group))
 
 
-def from_jax_params(params: dict, device="cpu", dtype: Optional[torch.dtype] = None) -> dict:
+def from_jax_params(params: dict, device="cuda", dtype: Optional[torch.dtype] = None) -> dict:
     """Checkpoint-named JAX-package params → this package's.  Float leaves
     are cast to ``dtype`` when given; quantized leaves keep their integers
     and float32 scales."""
@@ -98,7 +98,7 @@ def _quantizable(name: str, shape, init: str) -> bool:
 
 
 def synthesize(specs: Dict[str, tuple], quant: Optional[str] = None, seed: int = 0,
-               device="cpu", dtype: torch.dtype = torch.bfloat16) -> dict:
+               device="cuda", dtype: torch.dtype = torch.bfloat16) -> dict:
     """name → (shape, init) specs → random tensors drawn on ``device``.
 
     quant: None (all dense), "q8_0" (eligible weights → int8 QuantTensor),

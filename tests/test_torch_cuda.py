@@ -58,6 +58,48 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, lq, lk, d, bias):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(128, 256, 256), (129, 272, 257), (4352, 3072, 384),
+                                   (4352, 64, 3072), (256, 64, 1040)])
+def test_w8a8_wgmma_kernel_bit_equal(cuda, m, k, n):
+    """M >= 128 takes the TMA + wgmma kernel: edge tiles in M, N and K come
+    from TMA's zero fill, K = 64 is half a 128-byte stage."""
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
+    x[0] = 0  # the amax = 0 row
+    qt = quant.QuantTensor(
+        q=torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8),
+        scale=torch.rand((n,), generator=g, device=cuda) * 4e-4 + 1e-5)
+    before = quant.quant_matmul_w8a8.launches
+    got = quant.quant_matmul_w8a8(x, qt)
+    assert quant.quant_matmul_w8a8.launches == before + 1
+    assert torch.equal(got, quant.quant_matmul_w8a8_plain(x, qt))
+    x32 = x.float()
+    assert torch.equal(quant.quant_matmul_w8a8(x32, qt), quant.quant_matmul_w8a8_plain(x32, qt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,lq,lk,d,bias", [
+    ((1, 24), 200, 300, 128, False), ((2, 3), 129, 127, 128, True), ((1, 24), 1280, 1000, 128, False),
+    ((2, 12), 77, 77, 64, True), ((1, 4), 150, 129, 64, False), ((3, 2), 257, 385, 64, True)])
+def test_flash_wgmma_kernel_ragged_edges(cuda, bh, lq, lk, d, bias):
+    """bf16 D 64/128 takes the TMA + wgmma kernel: Lq and Lk off the 128-row
+    tiles (TMA's zero fill, the last key tile masked), with and without the
+    dense bias."""
+    g = torch.Generator(device=cuda).manual_seed(lq + lk)
+    q = torch.randn((*bh, lq, d), generator=g, device=cuda, dtype=torch.bfloat16)
+    k, v = (torch.randn((*bh, lk, d), generator=g, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    mask = torch.randn((lq, lk), generator=g, device=cuda) if bias else None
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, mask=mask)
+    assert fa.flash_attention.launches == before + 1
+    want = fa.plain_attention(q, k, v, mask=mask)
+    assert torch.isfinite(got).all()
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(1, 64, 2), (5, 200, 77), (65, 1024, 129)])
 def test_q4_kernel_matches_plain(cuda, m, k, n):
     g = torch.Generator(device=cuda).manual_seed(n)

@@ -12,13 +12,14 @@ matmuls, host-block staging, per-row requant, and the slice end to end.
 * (d) ``rowwise_requant_from_host_quant``: bit-equal.
 * (e) ``from_jax_params`` of a ``GroupQuantTensor``: by value.
 * (f) the small FLUX DiT written with ``save_gguf`` as q8_0 and as q4_1,
-  loaded with ``load_model_bundle(keep_quant=True)``, staged by both
-  packages (``min_size=1`` so the small widths quantize) and run through both
+  loaded with each package's ``load_model_bundle(keep_quant=True)``, staged
+  by both packages (``min_size=1`` so the small widths quantize) and run through both
   pipelines from one seed: latents at the golden tolerance, rtol = atol = 5e-4;
   and a file cut to one double and one single block, through
   ``load_flux_diffusion`` and ``create_pipeline(params=...)``, against the
   JAX DiT run at that depth.
 """
+import dataclasses
 import sys
 
 import jax.numpy as jnp
@@ -30,13 +31,15 @@ from jax.experimental import pallas as pl
 import sdtpu.ops.attention  # noqa: F401 — registers the module
 import sdtpu.models.flux as jflux
 import sdtpu.ops.quant as jq
-from sdtpu.config import GenerationParams, SDVersion
+import sdtpu.config as jconfig
 from sdtpu.factory import create_pipeline as jax_create_pipeline
 from sdtpu.io.gguf import (BLOCK_INFO, EXTRACT_FNS, GGML_Q2_K, GGML_Q3_K, GGML_Q4_0, GGML_Q4_1,
                            GGML_Q4_K, GGML_Q5_0, GGML_Q5_1, GGML_Q5_K, GGML_Q6_K, GGML_Q8_0,
                            extract_blocks, save_gguf)
-from sdtpu.io.model_loader import load_model_bundle
+from sdtpu.io.model_loader import load_model_bundle as jax_load_model_bundle
+from sdtpu_torch.config import GenerationParams, SDVersion
 from sdtpu_torch.factory import create_pipeline
+from sdtpu_torch.io.model_loader import load_model_bundle
 from sdtpu_torch.loader import diffusion_to_device, load_flux_diffusion
 from sdtpu_torch.ops import quant as tq
 from sdtpu_torch.weights import from_jax_params
@@ -80,7 +83,7 @@ def test_group_quant_matmul_matches_xla_form(group, affine, m, k, n):
     qj = _jax_group_tensor(rng, n, k, group, affine)
     x = rng.standard_normal((2, m, k)).astype(np.float32)
     want = np.asarray(jq.group_quant_matmul(jnp.asarray(x), qj))
-    got = tq.group_quant_matmul(torch.from_numpy(x), from_jax_params({"w": qj})["w"])
+    got = tq.group_quant_matmul(torch.from_numpy(x), from_jax_params({"w": qj}, device="cpu")["w"])
     assert got.shape == (2, m, n)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
@@ -97,7 +100,7 @@ def test_group_quant_matmul_matches_pallas_kernels(tpu_branch_interpret, monkeyp
     qj = _jax_group_tensor(rng, n, k, group, affine=form == "gq_zero")
     x = rng.standard_normal((m, k)).astype(np.float32)
     want = np.asarray(jq.group_quant_matmul(jnp.asarray(x), qj, block_m=128, ws_block_n=128))
-    got = tq.group_quant_matmul(torch.from_numpy(x), from_jax_params({"w": qj})["w"])
+    got = tq.group_quant_matmul(torch.from_numpy(x), from_jax_params({"w": qj}, device="cpu")["w"])
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
@@ -108,7 +111,7 @@ def test_w8a16_matches_pallas_kernel(tpu_branch_interpret, monkeypatch):
     x = rng.standard_normal((m, k)).astype(np.float32)
     qj = jq.quantize_per_channel(rng.standard_normal((n, k)).astype(np.float32) * 0.02)
     want = np.asarray(jq.quant_matmul(jnp.asarray(x), qj))
-    got = tq.quant_matmul(torch.from_numpy(x), from_jax_params({"w": qj})["w"])
+    got = tq.quant_matmul(torch.from_numpy(x), from_jax_params({"w": qj}, device="cpu")["w"])
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
@@ -156,7 +159,7 @@ def test_from_host_quant_matches_jax_by_value(ggml_type, k):
     group 16) to Q4Tensor; K = 256 keeps them int8."""
     h = _host_quant(ggml_type, 6, k, seed=ggml_type)
     want = jq.from_host_quant(h)
-    got = tq.from_host_quant(h)
+    got = tq.from_host_quant(h, device="cpu")
     assert type(got).__name__ == type(want).__name__
     assert (got.k, got.group) == (want.k, want.group) == (k, h.group)
     assert (getattr(got, "zero", None) is None) == (h.zero is None)
@@ -167,14 +170,14 @@ def test_from_host_quant_matches_jax_by_value(ggml_type, k):
 def test_from_host_quant_refuses_a_ragged_group():
     h = extract_blocks(np.zeros(34 * 3, np.uint8), GGML_Q8_0, 96, (2, 48))  # K = 48, group 32
     with pytest.raises(ValueError):
-        tq.from_host_quant(h)
+        tq.from_host_quant(h, device="cpu")
 
 
 def test_rowwise_requant_bit_equal():
     h = _host_quant(GGML_Q8_0, 12, 512, seed=1)
     h.q[:512] = 0  # an all-zero row: scale 1
     want = jq.rowwise_requant_from_host_quant(h)
-    got = tq.rowwise_requant_from_host_quant(h)
+    got = tq.rowwise_requant_from_host_quant(h, device="cpu")
     np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
     np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
 
@@ -186,7 +189,7 @@ def test_from_jax_params_group_quant_by_value(affine):
         qj = _jax_group_tensor(rng, 24, 96, 16, affine=True)
     else:
         qj = jq.quantize_group(rng.standard_normal((24, 100)).astype(np.float32))  # K padded
-    got = from_jax_params({"w": qj})["w"]
+    got = from_jax_params({"w": qj}, device="cpu")["w"]
     assert isinstance(got, tq.GroupQuantTensor) and got.shape == qj.shape
     assert got.q.is_contiguous() and got.q.shape == (24, np.asarray(qj.q).shape[0])
     np.testing.assert_array_equal(_dense(got), _dense(qj))
@@ -207,7 +210,7 @@ def test_quantize_group_matches_jax():
 
 @pytest.fixture(scope="module")
 def small_flux():
-    jp = jax_create_pipeline(SDVersion.FLUX, small=True, seed=0)
+    jp = jax_create_pipeline(jconfig.SDVersion.FLUX, small=True, seed=0)
     dense = {k: np.asarray(v) for k, v in jp.diffusion_params.items()}
     return jp, dense
 
@@ -231,8 +234,9 @@ def _classes(params):
                                               ("q4_1", "GroupQuantTensor")])
 def test_gguf_flux_pipeline_matches_jax(small_flux, gguf_files, qtype, want_class):
     jp, _ = small_flux
+    dj = jax_load_model_bundle(diffusion_model_path=gguf_files[qtype], keep_quant=True).diffusion
     d = load_model_bundle(diffusion_model_path=gguf_files[qtype], keep_quant=True).diffusion
-    staged_j = jq.host_params_to_device(d, min_size=1, rowwise=False)
+    staged_j = jq.host_params_to_device(dj, min_size=1, rowwise=False)
     staged_t = diffusion_to_device(d, torch.float32, "cpu", promote_q8=False, min_size=1)
     assert _classes(staged_t) == {k: ("Tensor" if type(v).__name__ == "ndarray" else
                                       type(v).__name__) for k, v in staged_j.items()}
@@ -247,19 +251,21 @@ def test_gguf_flux_pipeline_matches_jax(small_flux, gguf_files, qtype, want_clas
     original = jp.diffusion_params
     jp.diffusion_params = jparams
     try:
-        want = jp.generate(gp)
+        want = jp.generate(jconfig.GenerationParams(**dataclasses.asdict(gp)))
     finally:
         jp.diffusion_params = original
-    tp = create_pipeline(SDVersion.FLUX, small=True, params={
-        "diffusion": staged_t, "clip_l": from_jax_params(jp.conditioner.pl),
-        "t5": from_jax_params(jp.conditioner.pt), "vae": from_jax_params(jp.vae_params)})
+    tp = create_pipeline(SDVersion.FLUX, small=True, device="cpu", params={
+        "diffusion": staged_t, "clip_l": from_jax_params(jp.conditioner.pl, device="cpu"),
+        "t5": from_jax_params(jp.conditioner.pt, device="cpu"),
+        "vae": from_jax_params(jp.vae_params, device="cpu")})
     got = tp.generate(gp)
     np.testing.assert_allclose(got.latents, want.latents, rtol=5e-4, atol=5e-4)
 
 
 def test_q8_promotion_matches_jax_rowwise(gguf_files):
+    dj = jax_load_model_bundle(diffusion_model_path=gguf_files["q8_0"], keep_quant=True).diffusion
     d = load_model_bundle(diffusion_model_path=gguf_files["q8_0"], keep_quant=True).diffusion
-    staged_j = jq.host_params_to_device(d, min_size=1, rowwise=True)
+    staged_j = jq.host_params_to_device(dj, min_size=1, rowwise=True)
     staged_t = diffusion_to_device(d, torch.float32, "cpu", promote_q8=True, min_size=1)
     rows = [k for k, v in staged_t.items() if isinstance(v, tq.QuantTensor)]
     assert len(rows) > 30
@@ -271,10 +277,10 @@ def test_q8_promotion_matches_jax_rowwise(gguf_files):
 def test_load_flux_diffusion_defaults(gguf_files):
     """The loader's full-size eligibility (2**16 elements) leaves the small
     DiT dense, in the requested dtype; q8_0 is promoted by default."""
-    p = load_flux_diffusion(gguf_files["q4_1"], dtype=torch.bfloat16)
+    p = load_flux_diffusion(gguf_files["q4_1"], dtype=torch.bfloat16, device="cpu")
     assert all(isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16 for v in p.values())
     d = load_model_bundle(diffusion_model_path=gguf_files["q8_0"], keep_quant=True).diffusion
-    staged = diffusion_to_device(d, min_size=1)
+    staged = diffusion_to_device(d, device="cpu", min_size=1)
     assert isinstance(staged["double_blocks.0.img_mlp.0.weight"], tq.QuantTensor)
     assert staged["double_blocks.0.img_mlp.0.bias"].dtype == torch.bfloat16
 
@@ -287,21 +293,22 @@ def test_cut_depth_file_through_load_flux_diffusion(small_flux, tmp_path):
     path = str(tmp_path / "flux_small_1+1.gguf")
     save_gguf(path, cut, out_type="q8_0")
     jparams = {k: jnp.asarray(np.asarray(v), jnp.float32) for k, v in
-               load_model_bundle(diffusion_model_path=path, keep_quant=True).diffusion.items()}
+               jax_load_model_bundle(diffusion_model_path=path, keep_quant=True).diffusion.items()}
     cfg = jflux.FluxConfig(in_channels=16, hidden_size=64, num_heads=2, depth=1, depth_single=1,
                            axes_dim=(8, 12, 12), context_in_dim=96, vec_in_dim=48,
                            guidance_embed=True)
-    jp1 = jax_create_pipeline(SDVersion.FLUX, small=True, seed=0, params={
+    jp1 = jax_create_pipeline(jconfig.SDVersion.FLUX, small=True, seed=0, params={
         "diffusion": jparams, "clip_l": jp.conditioner.pl, "t5": jp.conditioner.pt,
         "vae": jp.vae_params})
     jp1.diffusion_fn = lambda p, x, t, ctx, y, guidance=None, **_: jflux.flux_forward(
         p, x, t, ctx, y, guidance=guidance, cfg=cfg)
     gp = GenerationParams(prompt="a red fox", width=64, height=64, sample_steps=2,
                           cfg_scale=1.0, guidance=3.5, seed=13, sample_method="euler")
-    want = jp1.generate(gp)
-    tp = create_pipeline(SDVersion.FLUX, small=True, params={
-        "diffusion": load_flux_diffusion(path, dtype=torch.float32),
-        "clip_l": from_jax_params(jp.conditioner.pl), "t5": from_jax_params(jp.conditioner.pt),
-        "vae": from_jax_params(jp.vae_params)})
+    want = jp1.generate(jconfig.GenerationParams(**dataclasses.asdict(gp)))
+    tp = create_pipeline(SDVersion.FLUX, small=True, device="cpu", params={
+        "diffusion": load_flux_diffusion(path, dtype=torch.float32, device="cpu"),
+        "clip_l": from_jax_params(jp.conditioner.pl, device="cpu"),
+        "t5": from_jax_params(jp.conditioner.pt, device="cpu"),
+        "vae": from_jax_params(jp.vae_params, device="cpu")})
     got = tp.generate(gp)
     np.testing.assert_allclose(got.latents, want.latents, rtol=5e-4, atol=5e-4)

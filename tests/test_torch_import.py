@@ -1,9 +1,11 @@
-"""The PyTorch port imports without JAX, and builds nothing at import.
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+and builds nothing at import.
 
-Every module of ``sdtpu_torch`` is imported in a fresh interpreter whose
-``sys.meta_path`` refuses ``jax`` and ``jaxlib``; the CUDA binding's table of
-C entry points is checked against the kernel sources, since the kernels
-themselves compile only where ``nvcc`` is installed.
+Every module of ``sdtpu_torch``, and ``chip_smoke.py``, is imported in a
+fresh interpreter whose ``sys.meta_path`` refuses ``jax``, ``jaxlib`` and
+``sdtpu`` (the JAX package; ``sdtpu_torch`` is another name); the CUDA
+binding's table of C entry points is checked against the kernel sources,
+since the kernels themselves compile only where ``nvcc`` is installed.
 """
 import pathlib
 import re
@@ -15,6 +17,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "sdtpu_torch"
+REFUSED = ("jax", "jaxlib", "sdtpu")
 
 
 def _modules():
@@ -32,16 +35,16 @@ def test_every_module_imports_with_jax_blocked():
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
 
-        class BlockJax(importlib.abc.MetaPathFinder):
+        class Refuse(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib"):
-                    raise ImportError(f"jax is blocked: {{name}}")
+                if name.split(".")[0] in {REFUSED!r}:
+                    raise ImportError(f"refused: {{name}}")
                 return None
 
-        sys.meta_path.insert(0, BlockJax())
-        for mod in {_modules()!r}:
+        sys.meta_path.insert(0, Refuse())
+        for mod in {_modules()!r} + ["chip_smoke"]:
             importlib.import_module(mod)
-        assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+        assert not any(m.split(".")[0] in {REFUSED!r} for m in sys.modules)
         from sdtpu_torch.ops import _build
         assert _build.library.cache_info().currsize == 0  # nothing built at import
         print("ok", len({_modules()!r}))
@@ -53,9 +56,20 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_no_jax_import_in_port_sources():
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
-    offenders = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|sdtpu)\b(?!_)", re.M)
+    sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]
+    offenders = [str(p) for p in sources if pat.search(p.read_text())]
     assert offenders == []
+    assert pat.search("from sdtpu.io import gguf") and pat.search("  import jax.numpy as jnp")
+    assert not pat.search("from sdtpu_torch.io import gguf")
+
+
+def test_tokenizer_data_is_the_ports_own():
+    from sdtpu_torch.tokenizers import clip
+
+    data = PKG / "tokenizers" / "data" / "clip_merges.txt.gz"
+    assert data.is_file()
+    assert "sdtpu_torch" in clip.__file__ and "sdtpu/" not in clip.__file__
 
 
 def _c_entry_points():

@@ -103,9 +103,9 @@ def test_memory_classes_match_jax_synthesis(init_fn, jcfg, mode, specs, cls):
 def test_synthesize_memory_classes_and_statistics():
     specs = tt5.param_specs(tt5.T5Config(vocab_size=256, d_model=256, d_kv=32, d_ff=512,
                                          num_layers=1, num_heads=8))
-    q4 = synthesize(specs, quant="q4_0", seed=0, dtype=torch.float32)
-    q8 = synthesize(specs, quant="q8_0", seed=0, dtype=torch.float32)
-    gg = synthesize(specs, quant="q8_0_gguf", seed=0, dtype=torch.float32)
+    q4 = synthesize(specs, quant="q4_0", seed=0, dtype=torch.float32, device="cpu")
+    q8 = synthesize(specs, quant="q8_0", seed=0, dtype=torch.float32, device="cpu")
+    gg = synthesize(specs, quant="q8_0_gguf", seed=0, dtype=torch.float32, device="cpu")
     name = "encoder.block.0.layer.1.DenseReluDense.wi_0.weight"
     assert isinstance(q4[name], Q4Tensor) and isinstance(q8[name], QuantTensor)
     assert isinstance(gg[name], GroupQuantTensor) and gg[name].group == 32
@@ -141,7 +141,7 @@ def test_flux_forward_matches(quant):
     jp = jflux.init_flux_params(jcfg, seed=0)
     if quant:  # per-row int8 weights: W8A8 in the port, bit-equal per linear
         jp = quantize_params(jp, min_size=1 << 12)
-    tp = from_jax_params(jp)
+    tp = from_jax_params(jp, device="cpu")
     x, t, ctx, y, g = _flux_inputs(1, dit)
     fwd = jax.jit(lambda p, x, t, c, y, g: jflux.flux_forward(p, x, t, c, y, guidance=g, cfg=jcfg))
     if quant:  # JAX's CPU dispatch would dequantize int8 linears (W8A16): pin W8A8
@@ -162,7 +162,7 @@ def test_flux_forward_matches(quant):
 def test_clip_text_forward_matches():
     cfg = SMALL[1]
     jp = jclip.init_clip_params(jclip.CLIPTextConfig(**dataclasses.asdict(cfg)), 0)
-    tp = from_jax_params(jp)
+    tp = from_jax_params(jp, device="cpu")
     ids = np.random.default_rng(2).integers(0, 1000, (2, 77)).astype(np.int32)
     ids[0, 9] = ids[1, 30] = cfg.eos_token_id
     jcfg = jclip.CLIPTextConfig(**dataclasses.asdict(cfg))
@@ -186,7 +186,7 @@ def test_t5_encoder_matches(q4):
     if q4:
         jp = quantize_params(jp, min_size=1 << 12, skip_patterns=("shared",), bits=4)
         assert any(type(v).__name__ == "Q4Tensor" for v in jp.values())
-    tp = from_jax_params(jp)
+    tp = from_jax_params(jp, device="cpu")
     ids = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
     mask = np.ones((2, 32), np.int32)
     mask[1, 20:] = 0
@@ -203,7 +203,7 @@ def vae_pair():
     cfg = SMALL[3]
     jcfg = jvae.VAEConfig(**dataclasses.asdict(cfg))
     jp = jvae.init_vae_params(jcfg, seed=0)
-    return cfg, jcfg, jp, from_jax_params(jp)
+    return cfg, jcfg, jp, from_jax_params(jp, device="cpu")
 
 
 def test_vae_decode_matches(vae_pair):

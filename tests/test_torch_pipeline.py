@@ -2,20 +2,24 @@
 JAX pipeline and its golden latents.
 
 Weights come from ``sdtpu.factory.create_pipeline(SDVersion.FLUX, small=True,
-seed=0)`` through ``from_jax_params``; the noise comes from the shared
-``sdtpu.rng``.  The golden case is ``tests/test_golden_latents.py``'s
+seed=0)`` through ``from_jax_params``; the noise comes from the port's own
+``sdtpu_torch.rng``.  Each package gets its own ``SDVersion`` and
+``GenerationParams`` (the same fields), and the port runs on the CPU.  The
+golden case is ``tests/test_golden_latents.py``'s
 ``_generate`` (64², 3 Euler steps, cfg 4.0, so the CFG path runs), held at
 its own rtol = atol = 5e-4.  Decoded images may differ by one uint8 level
 where a float32 pixel sits on a rounding boundary.
 """
+import dataclasses
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from sdtpu.config import GenerationParams, SDVersion
+import sdtpu.config as jconfig
 from sdtpu.factory import create_pipeline as jax_create_pipeline
+from sdtpu_torch.config import GenerationParams, SDVersion
 from sdtpu_torch.factory import create_pipeline
 from sdtpu_torch.weights import from_jax_params
 
@@ -24,12 +28,12 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "flux_euler.npz")
 
 @pytest.fixture(scope="module")
 def pipes():
-    jp = jax_create_pipeline(SDVersion.FLUX, small=True, seed=0)
-    params = {"diffusion": from_jax_params(jp.diffusion_params),
-              "clip_l": from_jax_params(jp.conditioner.pl),
-              "t5": from_jax_params(jp.conditioner.pt),
-              "vae": from_jax_params(jp.vae_params)}
-    return jp, create_pipeline(SDVersion.FLUX, params=params, small=True)
+    jp = jax_create_pipeline(jconfig.SDVersion.FLUX, small=True, seed=0)
+    params = {"diffusion": from_jax_params(jp.diffusion_params, device="cpu"),
+              "clip_l": from_jax_params(jp.conditioner.pl, device="cpu"),
+              "t5": from_jax_params(jp.conditioner.pt, device="cpu"),
+              "vae": from_jax_params(jp.vae_params, device="cpu")}
+    return jp, create_pipeline(SDVersion.FLUX, params=params, small=True, device="cpu")
 
 
 def _gp(**kw):
@@ -37,6 +41,11 @@ def _gp(**kw):
                 sample_steps=3, cfg_scale=4.0, seed=11, sample_method="euler")
     base.update(kw)
     return GenerationParams(**base)
+
+
+def _jgp(gp):
+    """The same request as the JAX package's GenerationParams."""
+    return jconfig.GenerationParams(**dataclasses.asdict(gp))
 
 
 def test_reproduces_flux_golden_latents(pipes):
@@ -52,7 +61,7 @@ def test_reproduces_flux_golden_latents(pipes):
 def test_images_match_jax_pipeline(pipes):
     jp, tp = pipes
     gp = _gp()
-    want, got = jp.generate(gp), tp.generate(gp)
+    want, got = jp.generate(_jgp(gp)), tp.generate(gp)
     assert got.images.shape == want.images.shape == (1, 64, 64, 3)
     assert got.images.dtype == np.uint8 and got.seeds == want.seeds
     assert np.abs(got.images.astype(int) - want.images.astype(int)).max() <= 1
@@ -65,7 +74,7 @@ def test_images_match_jax_pipeline(pipes):
 def test_latents_match_jax_pipeline(pipes, kw):
     jp, tp = pipes
     gp = _gp(**kw)
-    want, got = jp.generate(gp), tp.generate(gp)
+    want, got = jp.generate(_jgp(gp)), tp.generate(gp)
     np.testing.assert_allclose(got.latents, want.latents, rtol=5e-4, atol=5e-4)
     assert got.seeds == want.seeds
 
@@ -76,7 +85,7 @@ def test_tiled_decode_matches_jax_pipeline(pipes):
     jp.set_vae_tiling(True, tile_size=8, overlap=2)
     tp.set_vae_tiling(True, tile_size=8, overlap=2)
     try:
-        want, got = jp.generate(gp), tp.generate(gp)
+        want, got = jp.generate(_jgp(gp)), tp.generate(gp)
     finally:
         jp.set_vae_tiling(False)
         tp.set_vae_tiling(False)
@@ -113,12 +122,13 @@ def test_token_weighting_matches_jax():
     import jax.numpy as jnp
 
     from sdtpu.conditioning import conditioner as jc
-    from sdtpu.tokenizers.clip import CLIPTokenizer
+    from sdtpu.tokenizers.clip import CLIPTokenizer as JCLIPTokenizer
     from sdtpu_torch.conditioning import conditioner as tc
+    from sdtpu_torch.tokenizers.clip import CLIPTokenizer
 
-    tok = CLIPTokenizer()
+    jtok, tok = JCLIPTokenizer(), CLIPTokenizer()
     text = "a (photo:1.4) of a [cat] BREAK " + "word " * 90
-    tj, wj = jc.tokenize_with_weights(tok, text, tok.eos_token_id)
+    tj, wj = jc.tokenize_with_weights(jtok, text, jtok.eos_token_id)
     tt, wt = tc.tokenize_with_weights(tok, text, tok.eos_token_id)
     np.testing.assert_array_equal(tt, tj)
     np.testing.assert_array_equal(wt, wj)
@@ -131,7 +141,7 @@ def test_token_weighting_matches_jax():
 
 def test_synthesized_small_pipeline_runs():
     """Random weights drawn by the port itself (no JAX params)."""
-    tp = create_pipeline(SDVersion.FLUX, small=True, seed=3)
+    tp = create_pipeline(SDVersion.FLUX, small=True, seed=3, device="cpu")
     res = tp.generate(_gp(cfg_scale=1.0, sample_steps=2))
     assert res.images.shape == (1, 64, 64, 3) and np.isfinite(res.latents).all()
     assert res.images.std() > 0
@@ -142,4 +152,4 @@ def test_unported_requests_raise(pipes):
     with pytest.raises(NotImplementedError):
         tp.generate(_gp(sample_method="dpm++2m"))
     with pytest.raises(NotImplementedError):
-        create_pipeline(SDVersion.SD1, small=True)
+        create_pipeline(SDVersion.SD1, small=True, device="cpu")

@@ -97,7 +97,7 @@ def test_w8a8_plain_bit_equal_to_xla_form(dtype, m, k, n):
     x = _x(rng, (m, k), dtype)
     w = rng.standard_normal((n, k)).astype(np.float32) * 0.02
     qj = jq.quantize_per_channel(w)
-    qt = from_jax_params({"w": qj})["w"]
+    qt = from_jax_params({"w": qj}, device="cpu")["w"]
     want = jq.quant_matmul_w8a8(_jax_x(x, dtype), qj)
     got = tq.quant_matmul_w8a8(_port_x(x, dtype), qt)
     assert got.dtype == (torch.float32 if dtype == "f32" else torch.bfloat16)
@@ -115,7 +115,7 @@ def test_w8a8_plain_bit_equal_to_pallas_kernel(tpu_branch_interpret, monkeypatch
     w = rng.standard_normal((n, k)).astype(np.float32) * 0.02
     qj = jq.quantize_per_channel(w)
     want = np.asarray(jq.quant_matmul_w8a8(jnp.asarray(x), qj))
-    got = tq.quant_matmul_w8a8(torch.from_numpy(x), from_jax_params({"w": qj})["w"])
+    got = tq.quant_matmul_w8a8(torch.from_numpy(x), from_jax_params({"w": qj}, device="cpu")["w"])
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -126,7 +126,7 @@ def test_linear_dispatches_quant_tensor_to_w8a8():
     b = rng.standard_normal((32,)).astype(np.float32)
     qj = jq.quantize_per_channel(w)
     want = jq.quant_matmul_w8a8(jnp.asarray(x), qj) + jnp.asarray(b)
-    got = linear(torch.from_numpy(x), from_jax_params({"w": qj})["w"], torch.from_numpy(b))
+    got = linear(torch.from_numpy(x), from_jax_params({"w": qj}, device="cpu")["w"], torch.from_numpy(b))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -136,7 +136,7 @@ def test_q4_repack_by_value(n, k, block_k):
     rng = np.random.default_rng(5)
     w = rng.standard_normal((n, k)).astype(np.float32) * 0.05
     qj = jq.quantize_q4(w, block_k=block_k)
-    qt = from_jax_params({"w": qj})["w"]
+    qt = from_jax_params({"w": qj}, device="cpu")["w"]
     assert qt.shape == (n, k) and qt.packed.dtype == torch.uint8
     want = np.asarray(jq.dequantize_q4(qj, jnp.float32))
     np.testing.assert_array_equal(tq.dequantize_q4(qt, torch.float32).numpy(), want)
@@ -153,8 +153,8 @@ def test_q4_quantize_matches_jax_values():
 def test_repack_q4_reads_fields_directly():
     rng = np.random.default_rng(7)
     qj = jq.quantize_q4(rng.standard_normal((8, 512)).astype(np.float32))
-    a = repack_q4(np.asarray(qj.packed), np.asarray(qj.scale), qj.k, qj.block_k, qj.group)
-    b = from_jax_params({"w": qj})["w"]
+    a = repack_q4(np.asarray(qj.packed), np.asarray(qj.scale), qj.k, qj.block_k, qj.group, device="cpu")
+    b = from_jax_params({"w": qj}, device="cpu")["w"]
     assert torch.equal(a.packed, b.packed) and torch.equal(a.scale, b.scale)
 
 
@@ -164,7 +164,7 @@ def test_q4_plain_matches_xla_form(m, k, n):
     x = rng.standard_normal((m, k)).astype(np.float32)
     qj = jq.quantize_q4(rng.standard_normal((n, k)).astype(np.float32) * 0.05)
     want = np.asarray(jq.q4_matmul(jnp.asarray(x), qj))
-    got = tq.q4_matmul(torch.from_numpy(x), from_jax_params({"w": qj})["w"]).numpy()
+    got = tq.q4_matmul(torch.from_numpy(x), from_jax_params({"w": qj}, device="cpu")["w"]).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
@@ -174,7 +174,7 @@ def test_q4_plain_matches_pallas_kernel(tpu_branch_interpret):
     x = rng.standard_normal((m, k)).astype(np.float32)
     qj = jq.quantize_q4(rng.standard_normal((n, k)).astype(np.float32) * 0.05)
     want = np.asarray(jq.q4_matmul(jnp.asarray(x), qj))
-    got = tq.q4_matmul(torch.from_numpy(x), from_jax_params({"w": qj})["w"]).numpy()
+    got = tq.q4_matmul(torch.from_numpy(x), from_jax_params({"w": qj}, device="cpu")["w"]).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
@@ -183,7 +183,7 @@ def test_linear_dispatches_q4_tensor():
     x = rng.standard_normal((2, 4, 512)).astype(np.float32)
     qj = jq.quantize_q4(rng.standard_normal((24, 512)).astype(np.float32) * 0.05)
     want = np.asarray(jlinear(jnp.asarray(x), qj))
-    got = linear(torch.from_numpy(x), from_jax_params({"w": qj})["w"]).numpy()
+    got = linear(torch.from_numpy(x), from_jax_params({"w": qj}, device="cpu")["w"]).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
@@ -209,7 +209,7 @@ def test_q4_from_host_quant_keeps_the_checkpoint_group(ggml_type, group, k):
     """A q4_0 GGUF tensor with K >= 512 stages to a group-32 Q4Tensor (q3_k:
     group 16), and linear matches the JAX package's on the same blocks."""
     h = _q4_class_blocks(ggml_type, 40, k, seed=k)
-    got = tq.from_host_quant(h)
+    got = tq.from_host_quant(h, device="cpu")
     want = jq.from_host_quant(h)
     assert isinstance(got, tq.Q4Tensor) and type(want).__name__ == "Q4Tensor"
     assert got.group == want.group == group and got.shape == (40, k)
@@ -228,7 +228,7 @@ def test_q4_small_groups_quantize_and_repack_like_jax(group):
     w = rng.standard_normal((24, 600)).astype(np.float32) * 0.05  # K padded to 640
     qj = jq.quantize_q4(w, group=group)
     want = np.asarray(jq.dequantize_q4(qj, jnp.float32))
-    bridged = from_jax_params({"w": qj})["w"]
+    bridged = from_jax_params({"w": qj}, device="cpu")["w"]
     assert bridged.group == group and bridged.packed.shape == (24, 320)
     np.testing.assert_array_equal(tq.dequantize_q4(bridged, torch.float32).numpy(), want)
     ours = tq.quantize_q4(torch.from_numpy(w), group=group)
