@@ -9,12 +9,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the FLUX.1-dev txt2img path (the group-dequant and W8A16
      kernels at the W8A8 shapes, the 4-bit kernel at groups 64, 32 and 16),
-     with a stated tolerance, and the time of both (CUDA events, after
+     with a stated tolerance (at flash D 512 also two faults emulated on
+     the same inputs, which must exceed it), and the time of both (CUDA events, after
      warm-up); beside them each case's bound (the larger of its operations
      over the card's peak for their type and its bytes over the memory
      rate) and, where one PyTorch call computes the same function
      (``scaled_dot_product_attention`` for flash, ``torch._int_mm`` for the
-     W8A8 GEMM at M > 16), that call's time;
+     W8A8 GEMM at M > 16, ``torch._weight_int4pack_mm`` for the 4-bit
+     matmul at groups 32 and 64, ``torch._weight_int8pack_mm`` for W8A16),
+     that call's time, after its output was checked against the plain
+     version (a call that is refused or disagrees records null and why);
   4. a small-input reference check: T5, CLIP, one DiT forward and a VAE
      decode at kernel-shaped small widths, on the card (kernels, bf16)
      against the same weights on the CPU (plain versions, float32);
@@ -32,8 +36,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      width (int8 DiT, 4-bit T5-XXL, bf16 CLIP-L and VAE) with random weights
      drawn on the card, VAE tiling on, answering three txt2img requests
      through ``generate`` (one with CFG and a batch of two);
-  7. one more request on that pipeline with ``SDTPU_QUANT_MODE=w8a16`` (the
-     DiT's int8 linears through the W8A16 kernel);
+  7. two more requests on that pipeline (512² and 1024²) with
+     ``SDTPU_QUANT_MODE=w8a16`` (the DiT's int8 linears through the W8A16
+     kernel);
   8. main path 2: the same pipeline with the DiT in the ``q8_0_gguf`` class
      (group-32 int8 blocks drawn on the card, the footprint of a q8_0 GGUF
      kept in its blocks), answering a 512² and a 1024² request.
@@ -59,8 +64,10 @@ DEVICE = "cuda"
 ROOT = Path(__file__).resolve().parent
 
 GQ_SRC = "sdtpu_torch/csrc/gq_matmul.cu"
+FLASH_SRC = "sdtpu_torch/csrc/flash_attention.cu"
 KERNEL_INFO = {
-    "flash_attention": ("sdtpu_torch/csrc/flash_attention.cu", "sdtpu/ops/flash_attention.py:51"),
+    "flash_attention": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
+    "flash_attention_d512": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "w8a8_matmul": ("sdtpu_torch/csrc/w8a8_matmul.cu", "sdtpu/ops/quant.py:416"),
     "q4_matmul": ("sdtpu_torch/csrc/q4_matmul.cu", "sdtpu/ops/quant.py:845"),
     "gq_matmul": (GQ_SRC, "sdtpu/ops/quant.py:616"),
@@ -70,12 +77,15 @@ KERNEL_INFO = {
 }
 
 # W8A8 at FLUX.1-dev shapes (M tokens, K in, N out): 4352 = 4096 img + 256 txt
-# tokens at 1024², M = 1 for the modulation linears, the embedders and head.
+# tokens at 1024², M = 1 for the modulation linears, the embedders and head;
+# M = 127, 128 and 129 at the wgmma kernels' threshold (127 takes the
+# mma.sync forms), M = 1024 the 512² request's image tokens.
 W8A8_CASES = [
     (4352, 3072, 9216), (4352, 3072, 3072), (4352, 3072, 12288), (4352, 12288, 3072),
     (4352, 3072, 21504), (4352, 15360, 3072), (1280, 3072, 21504), (1, 3072, 18432),
     (1, 3072, 9216), (1, 256, 3072), (1, 768, 3072), (256, 4096, 3072), (4096, 64, 3072),
-    (4096, 3072, 64),
+    (4096, 3072, 64), (127, 3072, 12288), (128, 3072, 12288), (129, 3072, 12288),
+    (1024, 3072, 12288),
 ]
 # group 16 (q3_k / q6_k blocks) at two of them; float32 parity at one
 GQ16_CASES = [(4352, 3072, 12288), (1, 3072, 18432)]
@@ -97,10 +107,11 @@ Q4_GROUPS = (64, 32, 16)
 # Why each tolerance:
 #   W8A8: both sides accumulate exactly and share the epilogue order → bit-equal.
 #   flash bf16: P is rounded to bf16 before P.V in both, but the kernel
-#     normalises after the product and the plain version before it, so the
-#     two differ by a few bf16 roundings (2^-9 relative each) of the output:
-#     2e-2 times max(1, max |out|) — rows that see few keys (CLIP's causal
-#     mask) have |out| up to ~4, where one bf16 ulp is already 1.6e-2.
+#     normalises after the product and the plain version before it; each
+#     rounds its output to bf16 once, so the two differ by about one bf16
+#     ulp of the largest |out| (at most 2^-7 of it) → 2e-2 of the largest
+#     |out|.  At D 512 each case also reads two faults emulated on its
+#     inputs (FLASH_FAULTS), and each must exceed the limit.
 #   flash f32: float32 throughout (TF32 off); only summation order and exp2
 #     against exp differ → 1e-4.
 #   q4, group-dequant, W8A16: identical bf16 weights (the group forms and the
@@ -110,8 +121,18 @@ Q4_GROUPS = (64, 32, 16)
 #     float32 sums in another order can move the final bf16 rounding by an
 #     ulp → 2^-6 of the largest |output|.  Group-dequant float32: 1e-5 of it.
 FLASH_TOL = {"bf16": 2e-2, "f32": 1e-4}
+#   the D 512 faults, in plain PyTorch on the case's inputs: the last 32-key
+#     tile of the first key split dropped, and the split-keys combine without
+#     its 2^(m_s - M) rescale (where the launcher splits the keys).
+FLASH_FAULTS = ("drop_key_tile", "combine_unscaled")
 Q4_REL_TOL = 2.0 ** -6
 GQ_REL_TOL = {"bf16": 2.0 ** -6, "f32": 1e-5}
+#   library yardsticks (``_weight_int4pack_mm``, ``_weight_int8pack_mm``): they
+#     take their scales in bf16, 2^-9 relative off the float32 ones per group
+#     or row, so their output is checked at 2^-5 of the largest |output|
+#     before it is timed; a wrong nibble order or scale layout errs by O(1).
+LIBRARY_REL_TOL = 2.0 ** -5
+GQ_NO_LIBRARY = "no one-call PyTorch equivalent: no call takes int8 weights with per-group scales"
 #   reference check (relative L2 of each output): the card runs bf16, the
 #     CPU float32, so this is no precision check; it catches errors of order
 #     one.  Sound readings: 4.5e-3 to 1.5e-2 on the card, 5e-3 to 2e-2 for
@@ -141,13 +162,16 @@ LOADER_TYPE_RULES = [(r"^double_blocks\.0\.txt_", "q4_0"), (r"^double_blocks\.0\
 LOADER_KQUANT = {"single_blocks.0.linear1.weight": "q6_k", "single_blocks.0.linear2.weight": "q4_k"}
 
 # The kernels each path runs; its window must launch every one of them.
+# (The loader's forward decodes no image, so it runs no D 512 attention.)
 PATH_KERNELS = {
     "gguf_loader": ("flash_attention", "w8a8_matmul", "q4_matmul", "gq_matmul", "gq_matmul_ws",
                     "gq_zero_matmul"),
-    "gguf_file": ("flash_attention", "q4_matmul", "gq_matmul", "gq_matmul_ws", "gq_zero_matmul"),
-    "int8": ("flash_attention", "w8a8_matmul", "q4_matmul"),
-    "w8a16": ("flash_attention", "w8a16_matmul", "q4_matmul"),
-    "q8_0_gguf": ("flash_attention", "gq_matmul", "gq_matmul_ws", "q4_matmul"),
+    "gguf_file": ("flash_attention", "flash_attention_d512", "q4_matmul", "gq_matmul",
+                  "gq_matmul_ws", "gq_zero_matmul"),
+    "int8": ("flash_attention", "flash_attention_d512", "w8a8_matmul", "q4_matmul"),
+    "w8a16": ("flash_attention", "flash_attention_d512", "w8a16_matmul", "q4_matmul"),
+    "q8_0_gguf": ("flash_attention", "flash_attention_d512", "gq_matmul", "gq_matmul_ws",
+                  "q4_matmul"),
 }
 # ... and none of these (the mode switch and the memory class hold)
 PATH_IDLE = {"w8a16": ("w8a8_matmul",), "q8_0_gguf": ("w8a8_matmul", "w8a16_matmul"),
@@ -161,8 +185,12 @@ INT8_REQUESTS = [
     dict(prompt="a lighthouse on a cliff above a stormy sea", width=1024, height=1024,
          sample_steps=2, cfg_scale=1.0, guidance=3.5, seed=3),
 ]
-W8A16_REQUESTS = [dict(prompt="a paper boat on a puddle after rain", width=512, height=512,
-                       sample_steps=2, cfg_scale=1.0, guidance=3.5, seed=21)]
+W8A16_REQUESTS = [
+    dict(prompt="a paper boat on a puddle after rain", width=512, height=512, sample_steps=2,
+         cfg_scale=1.0, guidance=3.5, seed=21),
+    dict(prompt="a lighthouse on a cliff above a stormy sea", width=1024, height=1024,
+         sample_steps=2, cfg_scale=1.0, guidance=3.5, seed=3),
+]
 # the 1+1-block DiT loaded from the loader phase's file
 GGUF_FILE_REQUESTS = [dict(prompt="a lantern on a wooden table", width=512, height=512,
                            sample_steps=2, cfg_scale=1.0, guidance=3.5, seed=11)]
@@ -222,10 +250,38 @@ def _record(results, case) -> None:
     print("kernel " + json.dumps(case), flush=True)
 
 
-def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, bnd, **extra):
+def _refused(e: Exception) -> str:
+    return "refused: " + (str(e).strip().splitlines() or ["?"])[0][:200]
+
+
+def _yardstick(call, want):
+    """A one-call library equivalent, run once and held to the plain
+    version's output ``want`` at LIBRARY_REL_TOL before it may be timed:
+    (call, None), or (None, why) where the call is refused or disagrees."""
+    import torch
+
+    try:
+        got = call()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, _refused(e)
+    if got.shape != want.shape:
+        return None, f"refused: output shape {list(got.shape)}, not {list(want.shape)}"
+    err = (got.float() - want.float()).abs().max().item()
+    tol = LIBRARY_REL_TOL * want.float().abs().max().item()
+    if not err <= tol:
+        print(f"yardstick disagrees with the plain version: max |err| {err:.4g} > {tol:.4g}",
+              flush=True)
+        return None, f"disagrees with the plain version: max |err| {err:.4g} > {tol:.4g}"
+    return call, None
+
+
+def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, bnd, library=None,
+             library_note=None, **extra):
     """Record one kernel case: max |error| against the plain version, within
-    ``tol_rel`` of the largest |output|, both times and the bound ``bnd``;
-    none of the forms it covers has a one-call PyTorch equivalent."""
+    ``tol_rel`` of the largest |output|, both times, the bound ``bnd`` and,
+    where ``library`` is a checked one-call equivalent, its time (else null
+    and ``library_note`` says why)."""
     import torch
 
     torch.cuda.synchronize()
@@ -233,9 +289,11 @@ def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, bnd, **ext
     tol = tol_rel * want.float().abs().max().item()
     ms = time_ms(fn, it)
     plain_ms = time_ms(plain, max(3, it // 4))
+    library_ms = time_ms(library, it) if library is not None else None
+    note = {} if library_note is None else {"library_note": library_note}
     _record(results, dict(kernel=name, shape=list(shape), **extra, max_abs_err=err, tol=tol,
                           ok=bool(err <= tol and torch.isfinite(got).all()), ms=ms,
-                          plain_ms=plain_ms, **bnd, library_ms=None))
+                          plain_ms=plain_ms, **bnd, library_ms=library_ms, **note))
 
 
 def check_w8a8(results):
@@ -274,6 +332,38 @@ def check_w8a8(results):
         del x, qt, got, want
 
 
+def _d512_faults(q, k, v, mask, want) -> dict:
+    """max |error| against ``want`` of the FLASH_FAULTS, computed in plain
+    PyTorch (float32 scores, P rounded to bf16 as the kernel does) with the
+    key splits and 32-key tiles the D 512 launcher uses for this shape."""
+    import torch
+
+    from sdtpu_torch.ops import _build
+
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    ws = _build.query("sdtpu_flash_workspace_bytes", 0, b * h, lq, lk, d)
+    splits = max(1, ws // (b * h * lq * (d + 2) * 4))
+    ntiles = -(-lk // 32)
+    keys = -(-ntiles // splits) * 32  # keys of each split but the last
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d ** -0.5
+    if mask is not None:
+        s = s + mask.float()
+    drop = s.clone()
+    drop[..., keys - 32:keys] = float("-inf")
+    p = torch.softmax(drop, dim=-1).to(q.dtype)
+    out = {"splits": splits, "drop_key_tile": (torch.matmul(p, v).float() - want.float()).abs().max().item()}
+    if splits > 1:
+        o = l = 0
+        for i in range(0, lk, keys):
+            si = s[..., i:i + keys]
+            pi = torch.exp(si - si.amax(dim=-1, keepdim=True))
+            o = o + torch.matmul(pi.to(q.dtype), v[..., i:i + keys, :]).float()
+            l = l + pi.sum(dim=-1, keepdim=True)
+        out["combine_unscaled"] = (o / l - want.float()).abs().max().item()
+    return out
+
+
 def check_flash(results):
     import torch
     import torch.nn.functional as F
@@ -294,19 +384,41 @@ def check_flash(results):
         want = fa.plain_attention(q, k, v, mask=mask)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        tol = FLASH_TOL[dt] * (max(1.0, want.float().abs().max().item()) if dt == "bf16" else 1.0)
+        tol = FLASH_TOL[dt] * (want.float().abs().max().item() if dt == "bf16" else 1.0)
+        name = "flash_attention_d512" if (d, dt) == (512, "bf16") else "flash_attention"
+        faults = _d512_faults(q, k, v, mask, want) if name == "flash_attention_d512" else {}
+        caught = all(faults[f] > tol for f in FLASH_FAULTS if f in faults)
         ops = 4.0 * b * h * lq * lk * d
         it = iters_for(ops)
         ms = time_ms(lambda: fa.flash_attention(q, k, v, mask=mask), it)
         plain_ms = time_ms(lambda: fa.plain_attention(q, k, v, mask=mask), it)
         lib_mask = None if mask is None else mask.to(dtype)
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask), it)
-        _record(results, dict(kernel="flash_attention", shape=[b, h, lq, lk, d], dtype=dt,
-                            bias=bias, max_abs_err=err, tol=tol,
-                            ok=bool(err <= tol and torch.isfinite(got).all()),
+        extra = {"faults": faults} if faults else {}
+        _record(results, dict(kernel=name, shape=[b, h, lq, lk, d], dtype=dt,
+                            bias=bias, max_abs_err=err, tol=tol, **extra,
+                            ok=bool(err <= tol and caught and torch.isfinite(got).all()),
                             ms=ms, plain_ms=plain_ms,
                             **bound(ops, nbytes(q, k, v, mask, got), dt), library_ms=library_ms))
         del q, k, v, got, want
+
+
+def _int4pack_library(x, qt, want):
+    """``torch._weight_int4pack_mm`` on the same nibbles and scales, checked:
+    tinygemm computes (nibble - 8) * scale + zero, so the zeros are 0; it
+    packs the even k in the high nibble, the port in the low one."""
+    import torch
+
+    if qt.group not in (32, 64):
+        return None, f"group {qt.group}: _weight_int4pack_mm takes groups 32 to 256"
+    p = qt.packed
+    try:
+        w = torch._convert_weight_to_int4pack(((p & 0x0F) << 4) | (p >> 4), 8)
+    except RuntimeError as e:
+        return None, _refused(e)
+    s = qt.scale.t()
+    sz = torch.stack([s, torch.zeros_like(s)], dim=-1).to(torch.bfloat16).contiguous()
+    return _yardstick(lambda: torch._weight_int4pack_mm(x, w, qt.group, sz), want)
 
 
 def check_q4(results):
@@ -327,13 +439,14 @@ def check_q4(results):
                 + Q4_SCALE / 2,
                 k=k, group=group)
             got = quant.q4_matmul(x, qt)
-            _compare(results, "q4_matmul", (m, k, n), got,
-                     quant.q4_matmul_plain(x, qt), Q4_REL_TOL,
+            want = quant.q4_matmul_plain(x, qt)
+            library, note = _int4pack_library(x, qt, want)
+            _compare(results, "q4_matmul", (m, k, n), got, want, Q4_REL_TOL,
                      lambda: quant.q4_matmul(x, qt), lambda: quant.q4_matmul_plain(x, qt),
                      iters_for(2.0 * m * n * k),
                      bound(2.0 * m * n * k, nbytes(x, qt.packed, qt.scale, got), "bf16"),
-                     group=group)
-            del x, qt
+                     library=library, library_note=note, group=group)
+            del x, qt, got, want, library
 
 
 def _random_group_weight(g, n, k, group, affine):
@@ -372,7 +485,7 @@ def check_group_quant(results):
                  GQ_REL_TOL[dt], lambda: fn(x, qt), lambda: quant.group_quant_matmul_plain(x, qt),
                  iters_for(2.0 * m * n * k),
                  bound(2.0 * m * n * k, nbytes(x, qt.q, qt.scale, qt.zero, got), dt),
-                 group=group, dtype=dt)
+                 library_note=GQ_NO_LIBRARY, group=group, dtype=dt)
         del x, qt
 
 
@@ -388,12 +501,15 @@ def check_w8a16(results):
             q=torch.randint(-127, 128, (n, k), generator=g, device=DEVICE, dtype=torch.int8),
             scale=torch.rand((n,), generator=g, device=DEVICE) * 4e-4 + 1e-5)
         got = quant.w8a16_matmul(x, qt)
-        _compare(results, "w8a16_matmul", (m, k, n), got,
-                 quant.w8a16_matmul_plain(x, qt), GQ_REL_TOL["bf16"],
+        want = quant.w8a16_matmul_plain(x, qt)
+        s16 = qt.scale.to(torch.bfloat16)
+        library, note = _yardstick(lambda: torch._weight_int8pack_mm(x, qt.q, s16), want)
+        _compare(results, "w8a16_matmul", (m, k, n), got, want, GQ_REL_TOL["bf16"],
                  lambda: quant.w8a16_matmul(x, qt), lambda: quant.w8a16_matmul_plain(x, qt),
                  iters_for(2.0 * m * n * k),
-                 bound(2.0 * m * n * k, nbytes(x, qt.q, qt.scale, got), "bf16"))
-        del x, qt
+                 bound(2.0 * m * n * k, nbytes(x, qt.q, qt.scale, got), "bf16"),
+                 library=library, library_note=note)
+        del x, qt, got, want, library
 
 
 def _rel(a, b) -> float:
@@ -473,10 +589,10 @@ def reference_check():
 def _windowed(wrappers, path, run):
     """Run one path with every launch count set to 0 first; each kernel the
     path runs must have launched, and none it must not."""
-    for fn in wrappers.values():
-        fn.launches = 0
+    for fn, attr in wrappers.values():
+        setattr(fn, attr, 0)
     out = run()
-    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts = {name: getattr(fn, attr) for name, (fn, attr) in wrappers.items()}
     print(f"launches {path} " + json.dumps(counts), flush=True)
     idle = [n for n in PATH_KERNELS[path] if counts[n] == 0]
     stray = [n for n in PATH_IDLE.get(path, ()) if counts[n] != 0]
@@ -669,7 +785,9 @@ def answer(pipe, requests, card: str, label: str):
     for kw in requests:
         gp = GenerationParams(sample_method="euler", **kw)
         torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_stats()
         res = pipe.generate(gp)
+        after = torch.cuda.memory_stats()
         peak = torch.cuda.max_memory_allocated()
         img, lat = res.images, res.latents
         bc = gp.batch_count
@@ -684,6 +802,10 @@ def answer(pipe, requests, card: str, label: str):
                "cfg_scale": gp.cfg_scale, "steps": tm["steps"], "seed": gp.seed,
                "timings_s": {k: tm[k] for k in ("cond", "sample", "decode", "total")},
                "denoise_steps_per_s": tm["steps"] / tm["sample"], "peak_mem_bytes": peak,
+               # the caching allocator during the request: cudaMalloc calls
+               # and retries (each frees the cache and synchronizes)
+               "new_segments": after.get("num_device_alloc", 0) - before.get("num_device_alloc", 0),
+               "alloc_retries": after.get("num_alloc_retries", 0) - before.get("num_alloc_retries", 0),
                "image_std": float(img.std()), "card": card}
         print("request " + json.dumps(rep), flush=True)
         reports.append(rep)
@@ -736,7 +858,8 @@ def main() -> int:
     ap.add_argument("--out", help="also write every measured number to this JSON file")
     ap.add_argument("--profile", metavar="TABLE",
                     help="after each main path, profile one more 1024² request and write the "
-                         "profiler's tables to TABLE with .int8 / .q8_0_gguf before its suffix")
+                         "profiler's tables to TABLE with .int8 / .w8a16 / .q8_0_gguf before its "
+                         "suffix")
     args = ap.parse_args()
 
     import torch
@@ -781,10 +904,14 @@ def main() -> int:
     if not all(r["ok"] for r in ref.values()):
         raise RuntimeError(f"small-input reference check failed: {ref}")
 
-    wrappers = {"flash_attention": flash_attention.flash_attention,
-                "w8a8_matmul": quant.quant_matmul_w8a8, "q4_matmul": quant.q4_matmul,
-                "gq_matmul": quant.gq_matmul, "gq_matmul_ws": quant.gq_matmul_ws,
-                "gq_zero_matmul": quant.gq_zero_matmul, "w8a16_matmul": quant.w8a16_matmul}
+    # each kernel's launch counter: (wrapper, attribute); the D 512 kernel is
+    # counted apart by the flash wrapper
+    wrappers = {"flash_attention": (flash_attention.flash_attention, "launches"),
+                "flash_attention_d512": (flash_attention.flash_attention, "launches_d512")}
+    for name, fn in (("w8a8_matmul", quant.quant_matmul_w8a8), ("q4_matmul", quant.q4_matmul),
+                     ("gq_matmul", quant.gq_matmul), ("gq_matmul_ws", quant.gq_matmul_ws),
+                     ("gq_zero_matmul", quant.gq_zero_matmul), ("w8a16_matmul", quant.w8a16_matmul)):
+        wrappers[name] = (fn, "launches")
     launches = {}
     loader, launches["gguf_loader"], launches["gguf_file"] = loader_check(wrappers, card)
 
@@ -802,6 +929,8 @@ def main() -> int:
     try:
         rep, launches["w8a16"] = _windowed(wrappers, "w8a16",
                                            lambda: answer(pipe, W8A16_REQUESTS, card, "w8a16"))
+        if args.profile:
+            prof["w8a16"] = profile_request(pipe, W8A16_REQUESTS[-1], args.profile, "w8a16", card)
     finally:
         if previous is None:
             del os.environ["SDTPU_QUANT_MODE"]
@@ -823,6 +952,7 @@ def main() -> int:
     del pipe
 
     headline = {"flash_attention": ([1, 24, 4352, 4352, 128], {}),
+                "flash_attention_d512": ([1, 1, 4096, 4096, 512], {}),
                 "w8a8_matmul": ([4352, 3072, 12288], {}),
                 "q4_matmul": ([256, 4096, 10240], {"group": 64})}
     for name in ("gq_matmul", "gq_matmul_ws", "gq_zero_matmul"):
@@ -834,7 +964,8 @@ def main() -> int:
         shape, extra = headline[name]
         head = next(c for c in mine if c["shape"] == shape
                     and all(c.get(k) == v for k, v in extra.items()))
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+        kernels.append({"name": name, "shape": shape, "route": "cuda", "source": src,
+                        "replaces": replaces,
                         "launches": sum(c[name] for c in launches.values()),
                         "max_abs_err": max(c["max_abs_err"] for c in mine),
                         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

@@ -29,12 +29,29 @@
 // the last tile.  The dense f32 [Lq, Lk] bias (CLIP's causal mask) is a
 // template parameter, so the unbiased FLUX path has no per-score branch.
 //
-// bf16, D = 512 (the VAE mid-block): `flash_bf16_kernel`, the first form:
-// synchronous tile loads, mma.sync m16n8k16, 4 warps x 16 query rows, fixed
-// at D = 512; a register accumulator of 16 x 512 per warp does not fit, so
-// the grid gains a third axis that tiles the output head dim into 128-wide
-// slices, each block recomputing the scores over the full D.  Its redesign
-// is queued.
+// bf16, D = 512 (the VAE mid-block, one head over a 64 x 64 latent tile,
+// Lq = Lk = 4096): `flash_d512_kernel`, replacing the same four TPU kernels
+// at that head dim.  What bounds it: 4 * 4096^2 * 512 = 34.4 GFLOP per
+// tile, 0.0347 ms at 989 TFLOP/s (NVIDIA H100 SXM data sheet, 700 W),
+// against 0.0050 ms of bytes -- compute bound, so both products go to
+// wgmma.  A 64-row Q tile's 64 x 512 f32 accumulator does not fit one
+// warpgroup, so the block's two consumer warpgroups split the head dim:
+// each computes a partial S = Q K^T over its 256 columns (wgmma m64n32k16,
+// Q and K K-major from TMA), the halves are summed through a 64 x 32 f32
+// swap buffer in shared memory under one named barrier, each runs the
+// same online softmax on the full S, and O[:, half] += P V runs with P from
+// registers and the warpgroup's 256-column V half read MN-major (wgmma
+// m64n256k16, transpose bit).  The scores are computed once per key tile:
+// the first form recomputed them for each of four 128-wide output slices.
+// Shared memory (bytes): Q 65,536 + two K stages and two V stages of 32
+// keys 131,072 + swap buffer (two tiles in flight x two halves) 32,768 +
+// 1 KB alignment + barriers = 230,472 of the 232,448 a block may have; K
+// and V have rings of their own, so the next K tile loads under P V.  The
+// VAE call gives 64 blocks for 132 SMs, so the keys are split (the launcher
+// picks the count that minimises the grid's waves: two there, one at Lq =
+// 16384): each split writes its f32 accumulator, max and sum, and
+// `flash_d512_combine_kernel` merges them.  Ragged edges, the last-tile
+// mask, the bias template and the exp2 units are as in the D 64/128 kernel.
 //
 // The f32 kernel is the parity variant: plain FMA arithmetic, one thread per
 // query row, Q stored transposed in shared memory.  It is slow by design.
@@ -42,184 +59,13 @@
 
 #include <math.h>
 
+#include <algorithm>
+
 namespace sdtpu {
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegBig = -1e30f;
-
-// ------------------------------------------- bf16 D 512: mma.sync, first form
-
-constexpr int kBQ = 64;    // query rows per block: 4 warps x 16 rows
-constexpr int kBK = 64;    // keys per tile
-constexpr int kPad = 8;    // bf16 row padding (16 bytes): conflict-free fragments
-constexpr int kThreads = 128;
-constexpr int kD512 = 512;  // head dim
-constexpr int kDV = 128;    // output head-dim slice per block (grid z: kD512 / kDV)
-constexpr int kBf16Smem = (kBQ * (kD512 + kPad) + kBK * (kD512 + kPad) + kDV * (kBK + kPad)) * 2;
-
-__global__ void __launch_bounds__(kThreads)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const float* __restrict__ bias,
-                  __nv_bfloat16* __restrict__ o, int lq, int lk,
-                  float scale_log2) {
-  constexpr int D = kD512, DV = kDV;
-  constexpr int QS = D + kPad;   // row stride of the Q and K tiles
-  constexpr int VS = kBK + kPad; // row stride of the transposed V tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + kBQ * QS;
-  __nv_bfloat16* vt = ks + kBK * QS;  // [DV][VS]: V tile transposed
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int q0 = blockIdx.x * kBQ;
-  const size_t bh = blockIdx.y;
-  const int d0 = blockIdx.z * DV;
-  const __nv_bfloat16* qb = q + bh * lq * D;
-  const __nv_bfloat16* kb = k + bh * lk * D;
-  const __nv_bfloat16* vb = v + bh * lk * D;
-
-  constexpr int CH = D / 8;  // 16-byte chunks per Q/K row
-  for (int c = tid; c < kBQ * CH; c += kThreads) {
-    const int r = c / CH, col = (c % CH) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < lq) val = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * D + col);
-    *reinterpret_cast<uint4*>(qs + r * QS + col) = val;
-  }
-
-  float acc[DV / 8][4];
-#pragma unroll
-  for (int j = 0; j < DV / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m_run[2] = {kNegBig, kNegBig};
-  float l_run[2] = {0.f, 0.f};
-  const int row_w = warp * 16 + g;  // this thread's rows: row_w and row_w + 8
-
-  for (int kt = 0; kt < lk; kt += kBK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int c = tid; c < kBK * CH; c += kThreads) {
-      const int r = c / CH, col = (c % CH) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (kt + r < lk) val = *reinterpret_cast<const uint4*>(kb + (size_t)(kt + r) * D + col);
-      *reinterpret_cast<uint4*>(ks + r * QS + col) = val;
-    }
-    constexpr int CHV = DV / 8;
-    for (int c = tid; c < kBK * CHV; c += kThreads) {
-      const int r = c / CHV, col = (c % CHV) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (kt + r < lk)
-        val = *reinterpret_cast<const uint4*>(vb + (size_t)(kt + r) * D + d0 + col);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vt[(col + i) * VS + r] = e[i];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys, f32.
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D; kk += 16) {
-      const __nv_bfloat16* qa = qs + row_w * QS + kk + tq * 2;
-      const uint32_t a[4] = {ld_u32(qa), ld_u32(qa + 8 * QS), ld_u32(qa + 8),
-                             ld_u32(qa + 8 * QS + 8)};
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        const __nv_bfloat16* kp = ks + (j * 8 + g) * QS + kk + tq * 2;
-        const uint32_t b[2] = {ld_u32(kp), ld_u32(kp + 8)};
-        mma_bf16_16816(s[j], a, b);
-      }
-    }
-
-    // Scale into log2 units, add the bias, mask keys past Lk.
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt + j * 8 + tq * 2 + (e & 1);
-        const int qrow = q0 + row_w + ((e & 2) ? 8 : 0);
-        float x = s[j][e] * scale_log2;
-        if (key >= lk) {
-          x = -INFINITY;
-        } else if (bias != nullptr && qrow < lq) {
-          x += bias[(size_t)qrow * lk + key] * kLog2e;
-        }
-        s[j][e] = x;
-      }
-    }
-
-    // Online softmax; a row's 64 scores are spread over the 4 threads of a quad.
-    float m_new[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) m_new[e >> 1] = fmaxf(m_new[e >> 1], s[j][e]);
-    float alpha[2], rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
-      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
-      alpha[h] = exp2f(m_run[h] - m_new[h]);
-      m_run[h] = m_new[h];
-    }
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m_new[e >> 1]);
-        s[j][e] = p;
-        rsum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
-      rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
-      l_run[h] = l_run[h] * alpha[h] + rsum[h];
-    }
-#pragma unroll
-    for (int j = 0; j < DV / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
-
-    // acc += P V: the S accumulator layout of two adjacent 8-key tiles is the
-    // A-operand layout of one 16-key step, so P never leaves registers.
-#pragma unroll
-    for (int kc = 0; kc < kBK / 16; ++kc) {
-      const uint32_t a[4] = {pack_bf16x2(s[2 * kc][0], s[2 * kc][1]),
-                             pack_bf16x2(s[2 * kc][2], s[2 * kc][3]),
-                             pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                             pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int jd = 0; jd < DV / 8; ++jd) {
-        const __nv_bfloat16* vp = vt + (jd * 8 + g) * VS + kc * 16 + tq * 2;
-        const uint32_t b[2] = {ld_u32(vp), ld_u32(vp + 8)};
-        mma_bf16_16816(acc[jd], a, b);
-      }
-    }
-  }
-
-  __nv_bfloat16* ob = o + bh * lq * D;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int qrow = q0 + row_w + h * 8;
-    if (qrow >= lq) continue;
-#pragma unroll
-    for (int jd = 0; jd < DV / 8; ++jd) {
-      const int col = d0 + jd * 8 + tq * 2;
-      __nv_bfloat162 pair = __floats2bfloat162_rn(acc[jd][2 * h] / l_run[h],
-                                                  acc[jd][2 * h + 1] / l_run[h]);
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qrow * D + col) = pair;
-    }
-  }
-}
 
 // --------------------------------------------- bf16 D 64/128: TMA + wgmma
 
@@ -416,6 +262,306 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
   }
 }
 
+// ----------------------------------------------- bf16 D 512: TMA + wgmma
+
+constexpr int kXQ = 64;        // query rows per block: one wgmma M tile, shared by both consumers
+constexpr int kXK = 32;        // keys per K/V tile
+constexpr int kXStages = 2;    // K and V ring depth
+constexpr int kXD = 512;       // head dim
+constexpr int kXHalf = kXD / 2;               // head-dim columns per consumer warpgroup
+constexpr int kXQBlock = kXQ * kColBytes;     // one 64-column block of the Q tile: 8 KB
+constexpr int kXKVBlock = kXK * kColBytes;    // one 64-column block of a K or V tile: 4 KB
+constexpr int kXKVBytes = (kXD / 64) * kXKVBlock;  // one K or V tile: 32 KB
+constexpr int kXSwapFloats = (kXK / 2) * 128;      // one warpgroup's partial S, 16 floats a thread
+constexpr int kXSmem = 1024 + (kXD / 64) * kXQBlock + 2 * kXStages * kXKVBytes +
+                       2 * 2 * kXSwapFloats * 4 + (1 + 4 * kXStages) * 8;
+static_assert(kXSmem <= 232448, "D 512 flash: shared memory over the 227 KB a block may use");
+constexpr int kXMaxSplits = 16;
+
+// A block owns a 64-row Q tile of one batch*head and the key tiles
+// [t_begin, t_end) of its split (blockIdx.z).  Warpgroup 0 owns head-dim
+// columns 0-255 and warpgroup 1 columns 256-511, both for the partial
+// scores and for the output.  With one split the block writes the
+// normalised bf16 output; with several it writes its f32 accumulator and
+// its running max / sum for the combine kernel.
+template <bool kBias>
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_d512_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap, const float* __restrict__ bias,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ part_o,
+                  float* __restrict__ part_ml, int lq, int lk, int tiles_per_split,
+                  float scale_log2) {
+  constexpr int CB = kXD / 64;  // column blocks per row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_base = (raw + 1023) & ~1023u;  // swizzle atoms: 1 KB aligned
+  const uint32_t k_base = q_base + CB * kXQBlock;
+  const uint32_t v_base = k_base + kXStages * kXKVBytes;
+  const uint32_t swap_base = v_base + kXStages * kXKVBytes;
+  const uint32_t bars = swap_base + 2 * 2 * kXSwapFloats * 4;
+  float* swap = reinterpret_cast<float*>(smem_raw + (swap_base - raw));
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + kXStages + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (1 + 2 * kXStages + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * kXStages + s); };
+
+  const int wg = threadIdx.x >> 7;
+  const int q0 = blockIdx.x * kXQ;
+  const int bh = blockIdx.y;
+  const int ntiles = (lk + kXK - 1) / kXK;
+  const int t_begin = blockIdx.z * tiles_per_split;
+  const int count = min(ntiles, t_begin + tiles_per_split) - t_begin;  // >= 1 by the launcher
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kXStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 8);  // the consumers' eight warps
+      mbar_init(v_empty(s), 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread issues every load; K and V have rings of their
+    // own, so the next K tile streams in while this tile's P V runs
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, CB * kXQBlock);
+      for (int cb = 0; cb < CB; ++cb) tma_load_3d(q_base + cb * kXQBlock, &qmap, q_full, cb * 64, q0, bh);
+      for (int i = 0; i < count; ++i) {
+        const int s = i % kXStages;
+        const uint32_t free_par = ((i / kXStages) & 1) ^ 1;
+        const int key0 = (t_begin + i) * kXK;
+        mbar_wait(k_empty(s), free_par);
+        mbar_expect_tx(k_full(s), kXKVBytes);
+        for (int cb = 0; cb < CB; ++cb)
+          tma_load_3d(k_base + s * kXKVBytes + cb * kXKVBlock, &kmap, k_full(s), cb * 64, key0, bh);
+        mbar_wait(v_empty(s), free_par);
+        mbar_expect_tx(v_full(s), kXKVBytes);
+        for (int cb = 0; cb < CB; ++cb)
+          tma_load_3d(v_base + s * kXKVBytes + cb * kXKVBlock, &vmap, v_full(s), cb * 64, key0, bh);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    const int wtid = threadIdx.x & 127;
+    const int row_w = warp * 16 + g;  // this thread's rows in the tile: row_w, row_w + 8
+
+    // acc[4j + e]: row row_w (+8 for e >= 2), column wg * 256 + 8j + 2tq (+1 for odd e)
+    float acc[kXHalf / 2];
+#pragma unroll
+    for (int i = 0; i < kXHalf / 2; ++i) acc[i] = 0.f;
+    float m_run[2] = {kNegBig, kNegBig};
+    float l_run[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+
+    for (int i = 0; i < count; ++i) {
+      const int s = i % kXStages;
+      const uint32_t par = (i / kXStages) & 1;
+      const int kt = (t_begin + i) * kXK;
+
+      // this warpgroup's half of S = Q K^T: 64 rows x 32 keys over its 256
+      // head-dim columns, as sc[4j + e] like acc
+      float sc[kXK / 2];
+      mbar_wait(k_full(s), par);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kXHalf / 16; ++kk) {
+        const int cb = wg * (kXHalf / 64) + kk / 4;
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_m64n32k16_bf16_ss(sc, smem_desc_sw128(q_base + cb * kXQBlock + off, 16, 1024),
+                                smem_desc_sw128(k_base + s * kXKVBytes + cb * kXKVBlock + off, 16, 1024),
+                                kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(k_empty(s));
+
+      // the two halves meet in shared memory: each warpgroup adds the other's
+      // partial (a + b == b + a, so both hold the same S, bit for bit).  The
+      // swap buffer alternates with the tile, so one barrier a tile suffices.
+      float* mine = swap + ((i & 1) * 2 + wg) * kXSwapFloats;
+      const float* other = swap + ((i & 1) * 2 + (wg ^ 1)) * kXSwapFloats;
+#pragma unroll
+      for (int r = 0; r < kXK / 2; ++r) mine[r * 128 + wtid] = sc[r];
+      named_bar_sync(1, 256);
+#pragma unroll
+      for (int r = 0; r < kXK / 2; ++r) sc[r] += other[r * 128 + wtid];
+
+      // scale into log2 units; the bias and the Lk edge where they apply
+#pragma unroll
+      for (int r = 0; r < kXK / 2; ++r) sc[r] *= scale_log2;
+      if constexpr (kBias) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int qrow = q0 + row_w + 8 * h;
+          if (qrow >= lq) continue;
+          const float* brow = bias + static_cast<size_t>(qrow) * lk;
+#pragma unroll
+          for (int j = 0; j < kXK / 8; ++j) {
+            const int key = kt + j * 8 + 2 * tq;
+            if (key < lk) sc[4 * j + 2 * h] += brow[key] * kLog2e;
+            if (key + 1 < lk) sc[4 * j + 2 * h + 1] += brow[key + 1] * kLog2e;
+          }
+        }
+      }
+      if (kt + kXK > lk) {
+#pragma unroll
+        for (int j = 0; j < kXK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (kt + j * 8 + 2 * tq + (e & 1) >= lk) sc[4 * j + e] = -INFINITY;
+      }
+
+      // online softmax; a row's 32 scores are spread over the 4 threads of a quad
+      float m_new[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int j = 0; j < kXK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) m_new[e >> 1] = fmaxf(m_new[e >> 1], sc[4 * j + e]);
+      float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+        m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+        alpha[h] = exp2f(m_run[h] - m_new[h]);
+        m_run[h] = m_new[h];
+      }
+      uint32_t pa[kXK / 16][4];
+#pragma unroll
+      for (int j = 0; j < kXK / 8; ++j) {
+        const float p0 = exp2f(sc[4 * j + 0] - m_new[0]), p1 = exp2f(sc[4 * j + 1] - m_new[0]);
+        const float p2 = exp2f(sc[4 * j + 2] - m_new[1]), p3 = exp2f(sc[4 * j + 3] - m_new[1]);
+        rsum[0] += p0 + p1;
+        rsum[1] += p2 + p3;
+        pa[j / 2][(j & 1) * 2 + 0] = pack_bf16x2(p0, p1);
+        pa[j / 2][(j & 1) * 2 + 1] = pack_bf16x2(p2, p3);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
+        rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
+        l_run[h] = l_run[h] * alpha[h] + rsum[h];
+      }
+#pragma unroll
+      for (int r = 0; r < kXHalf / 2; ++r) acc[r] *= alpha[(r >> 1) & 1];
+
+      // O += P V over this warpgroup's 256 columns: B = the V tile's four
+      // column blocks, read MN-major (head dim contiguous), `lbo` apart
+      mbar_wait(v_full(s), par);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kXK / 16; ++kc) {
+        const uint64_t dv = smem_desc_sw128(
+            v_base + s * kXKVBytes + wg * (kXHalf / 64) * kXKVBlock + kc * 16 * kColBytes, kXKVBlock, 1024);
+        wgmma_m64n256k16_bf16_rs<1>(acc, pa[kc], dv, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(v_empty(s));
+    }
+
+    const size_t bh_rows = static_cast<size_t>(bh) * lq;
+    const int col0 = wg * kXHalf + 2 * tq;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qrow = q0 + row_w + 8 * h;
+      if (qrow >= lq) continue;
+      if (part_o == nullptr) {
+        const float inv = 1.f / l_run[h];
+        __nv_bfloat16* orow = o + (bh_rows + qrow) * kXD;
+#pragma unroll
+        for (int j = 0; j < kXHalf / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col0 + j * 8) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+      } else {
+        const size_t prow = static_cast<size_t>(blockIdx.z) * gridDim.y * lq + bh_rows + qrow;
+        float* orow = part_o + prow * kXD;
+#pragma unroll
+        for (int j = 0; j < kXHalf / 8; ++j)
+          *reinterpret_cast<float2*>(orow + col0 + j * 8) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        if (wg == 0 && tq == 0) {
+          part_ml[2 * prow] = m_run[h];
+          part_ml[2 * prow + 1] = l_run[h];
+        }
+      }
+    }
+  }
+}
+
+// The split-keys combine: o = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s,
+// M the largest m_s.  One block per output row, four columns a thread.
+__global__ void __launch_bounds__(128)
+flash_d512_combine_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml,
+                          __nv_bfloat16* __restrict__ o, int rows, int splits) {
+  const size_t row = blockIdx.x;
+  const int c = threadIdx.x * 4;
+  float mx = kNegBig;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part_ml[2 * (s * static_cast<size_t>(rows) + row)]);
+  float l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const size_t prow = s * static_cast<size_t>(rows) + row;
+    const float w = exp2f(part_ml[2 * prow] - mx);
+    l += w * part_ml[2 * prow + 1];
+    const float4 p = *reinterpret_cast<const float4*>(part_o + prow * kXD + c);
+    acc.x += w * p.x;
+    acc.y += w * p.y;
+    acc.z += w * p.z;
+    acc.w += w * p.w;
+  }
+  const float inv = 1.f / l;
+  __nv_bfloat16* orow = o + row * kXD + c;
+  *reinterpret_cast<__nv_bfloat162*>(orow) = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
+  *reinterpret_cast<__nv_bfloat162*>(orow + 2) = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
+}
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 132;
+    return v;
+  }();
+  return n;
+}
+
+// Key splits for D 512: the fewest that minimise the waves of the grid
+// (ceil(blocks * s / SMs) / s), at least one key tile a split.  The VAE's
+// [1, 4096] call has 64 Q tiles on 132 SMs and takes two; Lq = 16384 takes one.
+int d512_splits(int bh, int lq, int lk) {
+  const long long blocks = static_cast<long long>(ceil_div(lq, kXQ)) * bh;
+  const int ntiles = ceil_div(lk, kXK);
+  const int sms = sm_count();
+  int best = 1;
+  double best_cost = static_cast<double>((blocks + sms - 1) / sms);
+  for (int s = 2; s <= std::min(kXMaxSplits, ntiles); ++s) {
+    const double cost = static_cast<double>((blocks * s + sms - 1) / sms) / s;
+    if (cost < best_cost - 1e-9) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  const int per = ceil_div(ntiles, best);
+  return ceil_div(ntiles, per);  // every split gets at least one tile
+}
+
+size_t d512_workspace_bytes(int bh, int lq, int lk) {
+  const int splits = d512_splits(bh, lq, lk);
+  if (splits == 1) return 0;
+  return static_cast<size_t>(splits) * bh * lq * (kXD + 2) * sizeof(float);
+}
+
 // ----------------------------------------------------------------- f32
 
 constexpr int kFQ = 64;   // query rows per block, one per thread
@@ -512,17 +658,37 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-cudaError_t launch_bf16_d512(const void* q, const void* k, const void* v,
-                             const float* bias, void* o, int bh, int lq, int lk,
-                             float scale_log2, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kBf16Smem);
+template <bool kBias>
+cudaError_t launch_d512(const void* q, const void* k, const void* v, const float* bias, void* o,
+                        void* workspace, int bh, int lq, int lk, float scale_log2,
+                        cudaStream_t stream) {
+  const int splits = d512_splits(bh, lq, lk);
+  if (splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const int lens[3] = {lq, lk, lk};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t dims[3] = {kXD, static_cast<cuuint64_t>(lens[i]), static_cast<cuuint64_t>(bh)};
+    const cuuint64_t strides[2] = {kXD * 2ull, static_cast<cuuint64_t>(lens[i]) * kXD * 2ull};
+    const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(i == 0 ? kXQ : kXK), 1};
+    cudaError_t err =
+        make_tensor_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptrs[i], dims, strides, box);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = flash_d512_kernel<kBias>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kXSmem);
   if (err != cudaSuccess) return err;
-  dim3 grid(ceil_div(lq, kBQ), bh, kD512 / kDV);
-  flash_bf16_kernel<<<grid, kThreads, kBf16Smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), bias, static_cast<__nv_bfloat16*>(o),
-      lq, lk, scale_log2);
+  const int ntiles = ceil_div(lk, kXK);
+  float* part_o = splits > 1 ? static_cast<float*>(workspace) : nullptr;
+  float* part_ml = splits > 1 ? part_o + static_cast<size_t>(splits) * bh * lq * kXD : nullptr;
+  dim3 grid(ceil_div(lq, kXQ), bh, splits);
+  kernel<<<grid, kWThreads, kXSmem, stream>>>(maps[0], maps[1], maps[2], bias,
+                                              static_cast<__nv_bfloat16*>(o), part_o, part_ml, lq,
+                                              lk, ceil_div(ntiles, splits), scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  flash_d512_combine_kernel<<<bh * lq, 128, 0, stream>>>(part_o, part_ml,
+                                                        static_cast<__nv_bfloat16*>(o), bh * lq, splits);
   return cudaGetLastError();
 }
 
@@ -576,10 +742,19 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace sdtpu
 
+// Bytes of f32 scratch the call needs (bf16 D 512 with its keys split; 0
+// otherwise).  The caller allocates it and passes it as `workspace`.
+extern "C" long long sdtpu_flash_workspace_bytes(int dtype, int bh, int lq, int lk, int d) {
+  using namespace sdtpu;
+  if (dtype != kBF16 || d != kXD || bh <= 0 || lq <= 0 || lk <= 0) return 0;
+  return static_cast<long long>(d512_workspace_bytes(bh, lq, lk));
+}
+
 // q, k, v, o: contiguous [bh, L, d] in `dtype`; bias: dense f32 [lq, lk] or
-// null.  `scale` is the plain softmax scale (log2(e) is folded in here).
+// null; workspace: sdtpu_flash_workspace_bytes of f32 scratch, or null when
+// that is 0.  `scale` is the plain softmax scale (log2(e) is folded in here).
 extern "C" int sdtpu_flash_attention(int dtype, const void* q, const void* k,
-                                     const void* v, const float* bias, void* o,
+                                     const void* v, const float* bias, void* o, void* workspace,
                                      int bh, int lq, int lk, int d, float scale,
                                      void* stream) {
   using namespace sdtpu;
@@ -590,7 +765,9 @@ extern "C" int sdtpu_flash_attention(int dtype, const void* q, const void* k,
     switch (d) {
       case 64: return launch_bf16_wgmma<64>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
       case 128: return launch_bf16_wgmma<128>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
-      case 512: return launch_bf16_d512(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
+      case 512:
+        if (bias != nullptr) return launch_d512<true>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
+        return launch_d512<false>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
     }
   } else if (dtype == kF32) {
     switch (d) {

@@ -2,11 +2,13 @@
 // with the weight kept int8 in device memory and widened tile by tile.
 //
 // Replaces the TPU kernels
-//   `_gq_matmul_kernel`      (sdtpu/ops/quant.py:616) -> gq_gemm_kernel<kGroup, G, 1>
-//   `_gq_matmul_ws_kernel`   (sdtpu/ops/quant.py:652) -> gq_gemm_kernel<kGroup, G, kWsTiles>
-//   `_gq_zero_matmul_kernel` (sdtpu/ops/quant.py:687) -> gq_gemm_kernel<kGroupZero, G, 1>
-//   `_q_matmul_kernel`       (sdtpu/ops/quant.py:525) -> gq_gemm_kernel<kRowScale, 1, 1>
-// and, for float32 activations, the parity kernel gq_gemm_f32_kernel.
+//   `_gq_matmul_kernel`      (sdtpu/ops/quant.py:616) -> sdtpu_gq_matmul
+//   `_gq_matmul_ws_kernel`   (sdtpu/ops/quant.py:652) -> sdtpu_gq_matmul_ws
+//   `_gq_zero_matmul_kernel` (sdtpu/ops/quant.py:687) -> sdtpu_gq_zero_matmul
+//   `_q_matmul_kernel`       (sdtpu/ops/quant.py:525) -> sdtpu_w8a16_matmul
+// each through `gq_wgmma_kernel<Mode, G>` for bf16 activations with M >=
+// kGqMinM rows, `gq_gemm_kernel<Mode, G>` below that, and, for float32
+// activations, the parity kernel `gq_gemm_f32_kernel`.
 //
 // Weights are int8 [N, Kp] rows (the port's layout; the TPU stored the
 // transpose for Mosaic).  The group forms carry f32 scales [N, Kp/G] on a
@@ -17,22 +19,41 @@
 // exactly to bf16 and applies its per-row scale to the f32 sum in the
 // epilogue (acc * s[n], as the TPU kernel does).  The TPU's affine kernel
 // factored the zero term as (group sums of x) . zero to keep the MXU busy;
-// here the zero is subtracted per element while the tile is dequantized.
+// here the zero is subtracted per element while the tile is widened.
 //
-// What bounds it on the card: at FLUX's large M (1024-4352 tokens) the
-// product is compute bound on paper, but this simple form loads each tile
-// synchronously (global -> registers -> shared, then a barrier) before the
-// mma.sync m16n8k16 work on it, so it is bound by load latency, not by the
-// tensor cores and not by the dequant: the tile-per-block form widens each
-// weight tile once per 64-row M tile, and the weight-stationary form
-// (Tiles = kWsTiles) widens it once per kWsTiles M tiles into shared memory
-// and runs those M tiles through it, their accumulators held in registers.  No
-// scratch grows with M (the TPU kernel's full-M VMEM accumulator is not
-// copied).  On the H100 the two forms measure the same at FLUX's shapes
-// (PERF.md); cp.async/TMA pipelining and wgmma are the later work.  At M = 1
-// (modulation linears) the product is bound by reading the int8 weight.  x
-// is row-major [M, K] with K a multiple of 8; rows, columns and K past the
-// edge are zero-filled.
+// What bounds it on the card: 2*M*N*K operations on the bf16 tensor cores
+// (989 TFLOP/s, NVIDIA H100 SXM data sheet at 700 W): 0.332 ms at
+// 4352x3072->12288, where its 176 MB (x, int8 weight, scales, bf16 out)
+// take 0.053 ms at 3.35 TB/s, so at FLUX's large M (1024-4352 tokens) the
+// product is compute bound; at M = 1 (modulation linears) it is bound by
+// reading the weight.
+//
+// Large M: `gq_wgmma_kernel`, the operands swapped as in CUTLASS's Hopper
+// mixed-input GEMM.  A block computes outT[n, m] for 128 weight rows x 256
+// x rows: a producer warp TMA-loads the int8 weight tile ([128 x 64 bytes],
+// 64-byte swizzle, so the widening reads are free of bank conflicts) and
+// the bf16 x tile ([256 x 64], 128-byte swizzle) into a four-stage ring
+// under full/empty mbarriers, and cp.asyncs the stage's f32 scales (and
+// zeros) beside them, counted on the same barrier.  Each of two consumer
+// warpgroups reads its 64 weight rows from shared memory straight into the
+// wgmma register-A layout, widens them there (q * s (- z) in f32, one bf16
+// rounding) and issues wgmma.m64n256k16 with A from registers and B = the x
+// tile K-major: the widened weight never returns to shared memory, and the
+// widening of stage k+1 runs while stage k's wgmma are in flight (the A
+// fragments are double-buffered).  The epilogue writes the transposed
+// accumulator to out[m, n] (kRowScale: * scale[n] in f32 first).  This form
+// was chosen over widening into a swizzled bf16 shared tile for wgmma SS
+// because the int8 stage is half a bf16 one (a deeper ring in the same
+// shared memory) and the widened tile costs no shared-memory traffic.  Each
+// block reads its weight tile once per 256 x rows, so the TPU's
+// weight-stationary variant has nothing left to save: its entry launches
+// the same kernels.  No scratch grows with M.
+//
+// Small M (M < kGqMinM: M = 1 modulation, a few text tokens at most) and
+// every float32 call: the first form, tiles loaded synchronously (global ->
+// registers -> shared, then a barrier) and mma.sync m16n8k16.  x is
+// row-major [M, K] with K a multiple of 8; rows, columns and K past the edge
+// are zero-filled.
 #include "common.cuh"
 
 namespace sdtpu {
@@ -41,7 +62,6 @@ namespace {
 constexpr int kBM = 64, kBN = 128, kBK = 64;
 constexpr int kRow = kBK + 8;  // bf16 row padding: 144-byte rows
 constexpr int kThreads = 256;  // 8 warps: 2 along M (32 rows) x 4 along N (32 cols)
-constexpr int kWsTiles = 2;    // M tiles a weight-stationary block runs per weight tile
 
 // How a weight tile is widened.
 enum WMode : int { kGroup = 0, kGroupZero = 1, kRowScale = 2 };
@@ -171,40 +191,32 @@ __device__ __forceinline__ void store_tile(const float (&acc)[2][4][4], __nv_bfl
       }
 }
 
-// A block owns kBN columns and Tiles consecutive 64-row M tiles.  Per K step
-// it widens the weight tile once, loads the M tiles' x tiles beside it, and
-// runs each through it.  Tiles = 1 is the tile-per-block form; Tiles =
-// kWsTiles is the weight-stationary one, its accumulators in registers (118
-// a thread, two blocks an SM).
-template <int Mode, int G, int Tiles>
+// The small-M form: a block owns a 64 x kBN output tile.  Per K step it
+// widens the weight tile into shared memory, loads the x tile beside it and
+// runs mma.sync over both.
+template <int Mode, int G>
 __global__ void __launch_bounds__(kThreads)
 gq_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
                const float* __restrict__ scale, const float* __restrict__ zero,
                __nv_bfloat16* __restrict__ out, int m, int n, int k, int kp) {
-  __shared__ __align__(16) __nv_bfloat16 xs[Tiles * kBM * kRow];
+  __shared__ __align__(16) __nv_bfloat16 xs[kBM * kRow];
   __shared__ __align__(16) __nv_bfloat16 ws[kBN * kRow];
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * (kBM * Tiles), n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
 
-  float acc[Tiles][2][4][4];
-#pragma unroll
-  for (int t = 0; t < Tiles; ++t) zero_acc(acc[t]);
+  float acc[2][4][4];
+  zero_acc(acc);
   for (int k0 = 0; k0 < kp; k0 += kBK) {
     load_w_tile<Mode, G>(ws, q, scale, zero, n, kp, n0, k0, tid);
-#pragma unroll
-    for (int t = 0; t < Tiles; ++t) load_x_tile(xs + t * kBM * kRow, x, m, k, m0 + t * kBM, k0, tid);
+    load_x_tile(xs, x, m, k, m0, k0, tid);
     __syncthreads();
-#pragma unroll
-    for (int t = 0; t < Tiles; ++t) mma_tile(acc[t], xs + t * kBM * kRow, ws, wm, wn, g, tq);
+    mma_tile(acc, xs, ws, wm, wn, g, tq);
     __syncthreads();
   }
-#pragma unroll
-  for (int t = 0; t < Tiles; ++t)
-    if (m0 + t * kBM < m)
-      store_tile<Mode>(acc[t], out, scale, m, n, m0 + t * kBM, n0, wm, wn, g, tq);
+  store_tile<Mode>(acc, out, scale, m, n, m0, n0, wm, wn, g, tq);
 }
 
 // float32 activations (the parity form): plain FMA, one 64 x 64 tile per
@@ -281,12 +293,226 @@ gq_gemm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
     }
 }
 
+// ------------------------------------------------------- large M: wgmma
+
+constexpr int kGqMinM = 128;    // bf16 calls with at least this many rows take the wgmma kernel
+constexpr int kGqBN = 128;      // weight rows per block: two consumer warpgroups x 64 (wgmma M)
+constexpr int kGqBM = 256;      // x rows per block (wgmma N)
+constexpr int kGqBK = 64;       // K per stage: 64 int8 bytes a weight row, 128 bytes an x row
+constexpr int kGqStages = 4;
+constexpr int kGqThreads = 384;  // warpgroups 0-1: consumers; 2: producer (its first warp)
+constexpr int kGqXTile = kGqBM * kGqBK * 2;    // 32 KB, 128-byte swizzle
+constexpr int kGqWTile = kGqBN * kGqBK;        // 8 KB, 64-byte swizzle
+constexpr int kGqSTile = kGqBN * (kGqBK / 16) * 4;  // f32 scales (or zeros) of one stage, G >= 16
+constexpr int kGqSmem = 1024 + kGqStages * (kGqXTile + kGqWTile + 2 * kGqSTile) + 2 * kGqStages * 8;
+static_assert(kGqSmem <= 232448, "gq wgmma: shared memory over the 227 KB a block may use");
+
+// One weight row's 16-bit pair at byte `col` of a stage's [kGqBN x 64] int8
+// tile, as TMA wrote it with the 64-byte swizzle: the 16-byte chunk index
+// (bits 4-5) is XORed with bits 7-8 of the offset, i.e. with (row / 2) % 4.
+// The eight rows one warp-wide load reads (g = 0..7, four lanes a row)
+// then fall in eight different 16-byte bank groups: no conflicts.
+__device__ __forceinline__ uint32_t w_pair_offset(int row, int col) {
+  return row * kGqBK + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15);
+}
+
+// outT[n, m] = W[n, :] . x[m, :] for a kGqBN x kGqBM tile, W widened in
+// registers (the wgmma A operand) and x read from shared memory (B,
+// K-major), so the widened weight never goes back to shared memory.
+template <int Mode, int G>
+__global__ void __launch_bounds__(kGqThreads, 1)
+gq_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                const float* __restrict__ scale, const float* __restrict__ zero,
+                __nv_bfloat16* __restrict__ out, int m, int n, int kp) {
+  constexpr int GPS = Mode == kRowScale ? 0 : kGqBK / G;  // scale groups a row per stage
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t x_base = (raw + 1023) & ~1023u;  // swizzle atoms: 1 KB aligned
+  const uint32_t w_base = x_base + kGqStages * kGqXTile;
+  const uint32_t s_base = w_base + kGqStages * kGqWTile;
+  const uint32_t z_base = s_base + kGqStages * kGqSTile;
+  const uint32_t bars = z_base + kGqStages * kGqSTile;
+  const uint8_t* smem = smem_raw - raw;  // generic pointer of shared address 0
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kGqStages + s); };
+
+  // blocks walk the M tiles of one weight band before the next band, so the
+  // ~132 blocks in flight share a band of ~8 x 128 weight rows and all of x
+  const int num_m = (m + kGqBM - 1) / kGqBM;
+  const int m0 = (blockIdx.x % num_m) * kGqBM, n0 = (blockIdx.x / num_m) * kGqBN;
+  const int ktiles = (kp + kGqBK - 1) / kGqBK;
+  const int groups = GPS ? kp / G : 0;
+
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGqStages; ++s) {
+      // the TMA arrival, plus one cp.async arrival per producer lane
+      mbar_init(full(s), 1 + (GPS ? 32 : 0));
+      mbar_init(empty(s), 8);  // the consumers' eight warps
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: the first warp; lane 0 issues the TMA loads of the x and
+    // weight tiles, all lanes cp.async the stage's scales (and zeros), whose
+    // row stride need not be the 16 bytes a TMA map wants
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 256 + 32) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % kGqStages;
+        mbar_wait(empty(s), ((kt / kGqStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full(s), kGqXTile + kGqWTile);
+          tma_load_2d(x_base + s * kGqXTile, &xmap, full(s), kt * kGqBK, m0);
+          tma_load_2d(w_base + s * kGqWTile, &wmap, full(s), kt * kGqBK, n0);
+        }
+        if constexpr (GPS > 0) {
+          for (int idx = lane; idx < kGqBN * GPS; idx += 32) {
+            const int row = n0 + idx / GPS, grp = kt * GPS + idx % GPS;
+            const bool valid = row < n && grp < groups;
+            const size_t off = valid ? static_cast<size_t>(row) * groups + grp : 0;
+            cp_async_4(s_base + s * kGqSTile + idx * 4, scale + off, valid);
+            if constexpr (Mode == kGroupZero) cp_async_4(z_base + s * kGqSTile + idx * 4, zero + off, valid);
+          }
+          cp_async_mbar_arrive(full(s));
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, tq = lane & 3;
+    const int r0 = wg * 64 + warp * 16 + g;  // this thread's weight rows in the tile: r0, r0 + 8
+
+    // The stage's weight tile widened into the register-A layout of four
+    // k16 steps: a[kk] = {(r0, 2tq..+1), (r0+8, 2tq..+1), (r0, 2tq+8..+9),
+    // (r0+8, 2tq+8..+9)} of K columns 16kk.., each q * scale (- zero) in f32
+    // (no fma contraction, as the plain version) rounded once to bf16.
+    auto widen = [&](uint32_t (&a)[4][4], int s) {
+      const uint8_t* wt = smem + w_base + s * kGqWTile;
+      const float* sc = reinterpret_cast<const float*>(smem + s_base + s * kGqSTile);
+      const float* zc = reinterpret_cast<const float*>(smem + z_base + s * kGqSTile);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int row = r0 + 8 * rr;
+            const uint32_t v = *reinterpret_cast<const uint16_t*>(wt + w_pair_offset(row, 16 * kk + 8 * h + 2 * tq));
+            float lo = static_cast<float>(static_cast<int8_t>(v & 0xff));
+            float hi = static_cast<float>(static_cast<int8_t>(v >> 8));
+            if constexpr (GPS > 0) {
+              const int gi = row * GPS + (16 * kk) / G;
+              lo = __fmul_rn(lo, sc[gi]);
+              hi = __fmul_rn(hi, sc[gi]);
+              if constexpr (Mode == kGroupZero) {
+                lo = __fsub_rn(lo, zc[gi]);
+                hi = __fsub_rn(hi, zc[gi]);
+              }
+            }
+            a[kk][2 * h + rr] = pack_bf16x2(lo, hi);
+          }
+    };
+
+    // acc[4j + e]: weight row r0 (+8 for e >= 2), x row 8j + 2tq (+1 for odd e)
+    float acc[kGqBM / 2];
+#pragma unroll
+    for (int i = 0; i < kGqBM / 2; ++i) acc[i] = 0.f;
+    uint32_t a0[4][4], a1[4][4];
+
+    // One K stage: issue its four wgmma on `cur`, then, while they run,
+    // free the stage before it and widen the next stage into `nxt` (whose
+    // previous wgmma group is complete after wait<1>).
+    auto step = [&](uint32_t (&cur)[4][4], uint32_t (&nxt)[4][4], int kt) {
+      const int s = kt % kGqStages;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n256k16_bf16_rs<0>(acc, cur[kk], smem_desc_sw128(x_base + s * kGqXTile + kk * 32, 16, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(nxt[kk]);
+      if (kt > 0 && lane == 0) mbar_arrive(empty((kt - 1) % kGqStages));
+      if (kt + 1 < ktiles) {
+        const int s1 = (kt + 1) % kGqStages;
+        mbar_wait(full(s1), ((kt + 1) / kGqStages) & 1);
+        widen(nxt, s1);
+      }
+    };
+
+    mbar_wait(full(0), 0);
+    widen(a0, 0);
+    for (int kt = 0; kt < ktiles; kt += 2) {
+      step(a0, a1, kt);
+      if (kt + 1 < ktiles) step(a1, a0, kt + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(a0[kk]);
+      fence_regs(a1[kk]);
+    }
+
+    // epilogue: out[m, n] = acc (kRowScale: * scale[n] in f32)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int nn = n0 + r0 + 8 * h;
+      if (nn >= n) continue;
+      const float rs = Mode == kRowScale ? scale[nn] : 1.f;
+#pragma unroll
+      for (int j = 0; j < kGqBM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int mm = m0 + 8 * j + 2 * tq + e;
+          if (mm >= m) continue;
+          float v = acc[4 * j + 2 * h + e];
+          if (Mode == kRowScale) v = __fmul_rn(v, rs);
+          out[static_cast<size_t>(mm) * n + nn] = __float2bfloat16_rn(v);
+        }
+    }
+  }
+}
+
+template <int Mode>
+cudaError_t launch_gq_wgmma(const void* x, const void* q, const float* scale, const float* zero,
+                            void* out, int m, int n, int k, int kp, int group, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(m)};
+  const cuuint64_t xstrides[1] = {static_cast<cuuint64_t>(k) * 2};
+  const cuuint32_t xbox[2] = {kGqBK, kGqBM};
+  cudaError_t err = make_tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xdims, xstrides, xbox);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(kp), static_cast<cuuint64_t>(n)};
+  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(kp)};
+  const cuuint32_t wbox[2] = {kGqBK, kGqBN};
+  err = make_tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, wdims, wstrides, wbox,
+                        CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != cudaSuccess) return err;
+  auto kernel = group == 16 ? gq_wgmma_kernel<Mode, 16> : gq_wgmma_kernel<Mode, 32>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGqSmem);
+  if (err != cudaSuccess) return err;
+  const int blocks = ceil_div(n, kGqBN) * ceil_div(m, kGqBM);
+  kernel<<<blocks, kGqThreads, kGqSmem, stream>>>(xmap, wmap, scale, zero,
+                                                  static_cast<__nv_bfloat16*>(out), m, n, kp);
+  return cudaGetLastError();
+}
+
 bool group_shape_ok(int m, int n, int k, int kp, int group) {
   return m > 0 && n > 0 && k > 0 && k % 8 == 0 && k <= kp && (group == 16 || group == 32) &&
          kp % group == 0;
 }
 
-template <int Mode, int Tiles = 1>
+// bf16 with M >= kGqMinM: the wgmma kernel; smaller bf16 M: the mma.sync
+// form; float32: the parity kernel.  The choice is by shape only: a refused
+// launch is returned, never retried on another kernel.
+template <int Mode>
 cudaError_t launch_group(int dtype, const void* x, const void* q, const void* scale,
                          const void* zero, void* out, int m, int n, int k, int kp, int group,
                          void* stream) {
@@ -295,12 +521,14 @@ cudaError_t launch_group(int dtype, const void* x, const void* q, const void* sc
   const int8_t* qi = static_cast<const int8_t*>(q);
   const float* sc = static_cast<const float*>(scale);
   const float* zr = static_cast<const float*>(zero);
-  if (dtype == kBF16) {
-    auto kernel = group == 16 ? gq_gemm_kernel<Mode, 16, Tiles> : gq_gemm_kernel<Mode, 32, Tiles>;
-    kernel<<<dim3(ceil_div(n, kBN), ceil_div(m, kBM * Tiles)), kThreads, 0, s>>>(
+  if (dtype == kBF16 && m >= kGqMinM) {
+    return launch_gq_wgmma<Mode>(x, q, sc, zr, out, m, n, k, kp, group, s);
+  } else if (dtype == kBF16) {
+    auto kernel = group == 16 ? gq_gemm_kernel<Mode, 16> : gq_gemm_kernel<Mode, 32>;
+    kernel<<<dim3(ceil_div(n, kBN), ceil_div(m, kBM)), kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), qi, sc, zr, static_cast<__nv_bfloat16*>(out), m,
         n, k, kp);
-  } else if (dtype == kF32 && Tiles == 1) {
+  } else if (dtype == kF32) {
     auto kernel = group == 16 ? gq_gemm_f32_kernel<Mode, 16> : gq_gemm_f32_kernel<Mode, 32>;
     kernel<<<dim3(ceil_div(n, kFBN), ceil_div(m, kFBM)), kThreads, 0, s>>>(
         static_cast<const float*>(x), qi, sc, zr, static_cast<float*>(out), m, n, k, kp);
@@ -330,13 +558,15 @@ extern "C" int sdtpu_gq_zero_matmul(int dtype, const void* x, const void* q, con
   return launch_group<kGroupZero>(dtype, x, q, scale, zero, out, m, n, k, kp, group, stream);
 }
 
-// Weight-stationary form of sdtpu_gq_matmul; bf16 only.
+// The weight-stationary entry (`_gq_matmul_ws_kernel`'s counterpart); bf16
+// only.  Every wgmma block already reads each weight tile once per 256 x
+// rows, so it launches the same kernels as sdtpu_gq_matmul.
 extern "C" int sdtpu_gq_matmul_ws(int dtype, const void* x, const void* q, const void* scale,
                                   void* out, int m, int n, int k, int kp, int group,
                                   void* stream) {
   using namespace sdtpu;
-  return launch_group<kGroup, kWsTiles>(dtype, x, q, scale, nullptr, out, m, n, k, kp, group,
-                                        stream);
+  if (dtype != kBF16) return cudaErrorInvalidValue;
+  return launch_group<kGroup>(dtype, x, q, scale, nullptr, out, m, n, k, kp, group, stream);
 }
 
 // W8A16: x bf16 [m, k]; q int8 [n, k]; scale f32 [n] -> out bf16 [m, n],
@@ -345,8 +575,11 @@ extern "C" int sdtpu_w8a16_matmul(const void* x, const void* q, const void* scal
                                   int m, int n, int k, void* stream) {
   using namespace sdtpu;
   if (m <= 0 || n <= 0 || k <= 0 || k % 16) return cudaErrorInvalidValue;
-  gq_gemm_kernel<kRowScale, 1, 1><<<dim3(ceil_div(n, kBN), ceil_div(m, kBM)), kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m >= kGqMinM)
+    return launch_gq_wgmma<kRowScale>(x, q, static_cast<const float*>(scale), nullptr, out, m, n, k,
+                                      k, 32, s);
+  gq_gemm_kernel<kRowScale, 1><<<dim3(ceil_div(n, kBN), ceil_div(m, kBM)), kThreads, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
       static_cast<const float*>(scale), nullptr, static_cast<__nv_bfloat16*>(out), m, n, k, k);
   return cudaGetLastError();

@@ -32,8 +32,8 @@ DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    # dtype, q, k, v, bias, out, bh, lq, lk, d, scale, stream
-    "sdtpu_flash_attention": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # dtype, q, k, v, bias, out, workspace, bh, lq, lk, d, scale, stream
+    "sdtpu_flash_attention": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # dtype, x, xq, sx, m, k, stream
     "sdtpu_w8a8_quantize_rows": (_I, _P, _P, _P, _I, _I, _P),
     # out_dtype, xq, wq, sx, sw, out, m, n, k, stream
@@ -47,6 +47,11 @@ SIGNATURES = {
     "sdtpu_gq_zero_matmul": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, q, scale, out, m, n, k, stream
     "sdtpu_w8a16_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
+}
+# entry points that return a value rather than a cudaError_t
+QUERIES = {
+    # dtype, bh, lq, lk, d -> bytes of f32 scratch
+    "sdtpu_flash_workspace_bytes": ((_I, _I, _I, _I, _I), ctypes.c_longlong),
 }
 
 
@@ -123,6 +128,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+    for name, (argtypes, restype) in QUERIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
     lib.sdtpu_error_string.argtypes = [ctypes.c_int]
     lib.sdtpu_error_string.restype = ctypes.c_char_p
     return lib
@@ -135,6 +144,11 @@ def launch(name: str, *args) -> None:
     if err != 0:
         msg = lib.sdtpu_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def query(name: str, *args) -> int:
+    """Call one C entry point of ``QUERIES`` and return its value."""
+    return getattr(library(), name)(*args)
 
 
 def stream_ptr(t: torch.Tensor) -> int:

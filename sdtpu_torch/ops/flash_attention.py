@@ -56,14 +56,22 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.
         bias = mask.reshape(mask.shape[-2], mask.shape[-1]).float().expand(lq, lk).contiguous()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    _build.check_cuda("flash_attention", q, k, v, out, *([] if bias is None else [bias]))
+    code = _build.DTYPE_CODES[q.dtype]
+    d512 = d == 512 and q.dtype == torch.bfloat16  # the VAE's kernel
+    ws = None
+    if d512:  # f32 scratch for the partial outputs of a key split, sized by the library
+        ws_bytes = _build.query("sdtpu_flash_workspace_bytes", code, b * h, lq, lk, d)
+        ws = torch.empty((ws_bytes // 4,), dtype=torch.float32, device=q.device) if ws_bytes else None
+    _build.check_cuda("flash_attention", q, k, v, out, *(t for t in (bias, ws) if t is not None))
     _build.launch(
-        "sdtpu_flash_attention", _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), _build.ptr(bias), out.data_ptr(), b * h, lq, lk, d, float(scale),
+        "sdtpu_flash_attention", code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _build.ptr(bias), out.data_ptr(), _build.ptr(ws), b * h, lq, lk, d, float(scale),
         _build.stream_ptr(q),
     )
     flash_attention.launches += 1
+    if d512:  # counted apart as well
+        flash_attention.launches_d512 += 1
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = flash_attention.launches_d512 = 0

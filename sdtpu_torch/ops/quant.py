@@ -43,9 +43,9 @@ Q4_GROUPS = (16, 32, 64)
 Q4_K_MULTIPLE = 64  # the 4-bit kernel's K tile: packed rows are padded to it
 Q4_MIN_K = 512  # symmetric 4-bit-range blocks with K >= this pack to Q4Tensor (JAX block_k)
 GQ_GROUPS = (16, 32)
-# group_quant_matmul: symmetric bf16 calls with at least this many rows take
-# the weight-stationary kernel (FLUX image tokens); M = 1 (modulation),
-# M = 256 (text tokens) and affine weights take the tile-per-block kernel
+# group_quant_matmul: symmetric bf16 calls with at least this many rows go
+# through gq_matmul_ws (FLUX image tokens); M = 1 (modulation), M = 256 (text
+# tokens) through gq_matmul, affine weights through gq_zero_matmul
 GQ_WS_MIN_M = 512
 
 
@@ -435,8 +435,11 @@ def gq_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
 
 
 def gq_matmul_ws(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
-    """Weight-stationary symmetric group-dequant matmul: each dequantized
-    weight tile serves a chunk of M tiles.  bf16 x [..., K] → [..., N]."""
+    """Symmetric group-dequant matmul, the counterpart of the TPU's
+    weight-stationary ``_gq_matmul_ws_kernel``; bf16 x [..., K] → [..., N].
+    It launches the same kernels as ``gq_matmul`` (each block of the
+    large-M kernel already reads its weight tile once per 256 rows) and keeps
+    its own entry and launch count."""
     if x.device.type == "cpu":
         return group_quant_matmul_plain(x, qt)
     if qt.zero is not None:
@@ -461,8 +464,9 @@ def group_quant_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
     """x [..., K] × group-quant int8 weight (logical [N, K]) → [..., N].
 
     Affine weights take ``gq_zero_matmul``; symmetric bf16 calls of at least
-    ``GQ_WS_MIN_M`` rows take the weight-stationary ``gq_matmul_ws``; the
-    rest ``gq_matmul``."""
+    ``GQ_WS_MIN_M`` rows take ``gq_matmul_ws``, the rest ``gq_matmul``.  The
+    two symmetric entries launch the same kernels, so the split decides only
+    which count goes up."""
     if x.device.type == "cpu":
         return group_quant_matmul_plain(x, qt)
     if qt.zero is not None:
