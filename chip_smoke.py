@@ -8,7 +8,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   2. build the hand-written kernels from ``sdtpu_torch/csrc`` (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the FLUX.1-dev txt2img path (the group-dequant and W8A16
-     kernels at the W8A8 shapes, the 4-bit kernel at groups 64, 32 and 16),
+     kernels at the W8A8 shapes, the 4-bit kernel at T5-XXL's shapes at
+     groups 64, 32 and 16 and at the q4_0 DiT's shapes at group 32),
      with a stated tolerance (at flash D 512 also two faults emulated on
      the same inputs, which must exceed it), and the time of both (CUDA events, after
      warm-up); beside them each case's bound (the larger of its operations
@@ -41,9 +42,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      kernel);
   8. main path 2: the same pipeline with the DiT in the ``q8_0_gguf`` class
      (group-32 int8 blocks drawn on the card, the footprint of a q8_0 GGUF
-     kept in its blocks), answering a 512² and a 1024² request.
-Every path of phases 5-8 sets the kernels' launch counts to 0 before it runs
-and reads them after: each kernel that path runs must have launched.
+     kept in its blocks), answering a 512² and a 1024² request;
+  9. main path 3: the same pipeline with the DiT in the ``q4_0`` class
+     (packed 4-bit blocks on a q4_0 GGUF's group-32 grid, drawn on the card),
+     answering a 512² and a 1024² request.
+Every path of phases 5-9 sets the kernels' launch counts to 0 before it runs
+and reads them after: each kernel that path runs must have launched.  The
+4-bit kernel's TMA + wgmma form (M >= 128) is counted apart as well, as
+``q4_matmul_wgmma``.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -65,11 +71,13 @@ ROOT = Path(__file__).resolve().parent
 
 GQ_SRC = "sdtpu_torch/csrc/gq_matmul.cu"
 FLASH_SRC = "sdtpu_torch/csrc/flash_attention.cu"
+Q4_SRC = "sdtpu_torch/csrc/q4_matmul.cu"
 KERNEL_INFO = {
     "flash_attention": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "flash_attention_d512": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "w8a8_matmul": ("sdtpu_torch/csrc/w8a8_matmul.cu", "sdtpu/ops/quant.py:416"),
-    "q4_matmul": ("sdtpu_torch/csrc/q4_matmul.cu", "sdtpu/ops/quant.py:845"),
+    "q4_matmul": (Q4_SRC, "sdtpu/ops/quant.py:845"),
+    "q4_matmul_wgmma": (Q4_SRC, "sdtpu/ops/quant.py:845"),
     "gq_matmul": (GQ_SRC, "sdtpu/ops/quant.py:616"),
     "gq_matmul_ws": (GQ_SRC, "sdtpu/ops/quant.py:652"),
     "gq_zero_matmul": (GQ_SRC, "sdtpu/ops/quant.py:687"),
@@ -100,9 +108,20 @@ FLASH_CASES = [
     (1, 24, 1280, 1280, 128, "f32", None), (2, 12, 77, 77, 64, "f32", "causal"),
     (1, 1, 1024, 1024, 512, "f32", "random"),
 ]
-# T5-XXL (M = 256 tokens per prompt): q/k/v/o, wi_0/wi_1, wo; one ragged case.
-Q4_CASES = [(256, 4096, 4096), (256, 4096, 10240), (256, 10240, 4096), (77, 640, 1001)]
-Q4_GROUPS = (64, 32, 16)
+# (M, K, N, group) of the 4-bit kernel.  T5-XXL (M = 256 tokens per prompt:
+# q/k/v/o, wi_0/wi_1, wo) and one ragged case at groups 64, 32 and 16; the
+# q4_0 DiT at group 32 (a q4_0 GGUF's blocks): its MLP and linear2 widths at
+# the 1024² request's 4352 tokens (the double blocks run the image's 4096 and
+# the text's 256 apart), linear1 at the 512² request's 1280, img_in (K = 64),
+# the wgmma threshold's edges (127 takes the mma.sync form) and an M = 1
+# modulation linear; groups 16 and 64 at one shape.
+Q4_T5_SHAPES = [(256, 4096, 4096), (256, 4096, 10240), (256, 10240, 4096), (77, 640, 1001)]
+Q4_DIT_SHAPES = [(4352, 3072, 12288), (4352, 12288, 3072), (4352, 15360, 3072),
+                 (1280, 3072, 21504), (4096, 64, 3072), (127, 3072, 12288), (128, 3072, 12288),
+                 (129, 3072, 12288), (1, 3072, 18432)]
+Q4_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES] + [(*s, 32) for s in Q4_DIT_SHAPES]
+            + [(4352, 3072, 12288, g) for g in (16, 64)])
+Q4_DIT_GROUP = 32
 
 # Why each tolerance:
 #   W8A8: both sides accumulate exactly and share the epilogue order → bit-equal.
@@ -163,19 +182,22 @@ LOADER_KQUANT = {"single_blocks.0.linear1.weight": "q6_k", "single_blocks.0.line
 
 # The kernels each path runs; its window must launch every one of them.
 # (The loader's forward decodes no image, so it runs no D 512 attention.)
+# (Every path makes 4-bit calls of M >= 128 rows, T5's 256 tokens at least.)
+Q4 = ("q4_matmul", "q4_matmul_wgmma")
 PATH_KERNELS = {
-    "gguf_loader": ("flash_attention", "w8a8_matmul", "q4_matmul", "gq_matmul", "gq_matmul_ws",
+    "gguf_loader": ("flash_attention", "w8a8_matmul", *Q4, "gq_matmul", "gq_matmul_ws",
                     "gq_zero_matmul"),
-    "gguf_file": ("flash_attention", "flash_attention_d512", "q4_matmul", "gq_matmul",
-                  "gq_matmul_ws", "gq_zero_matmul"),
-    "int8": ("flash_attention", "flash_attention_d512", "w8a8_matmul", "q4_matmul"),
-    "w8a16": ("flash_attention", "flash_attention_d512", "w8a16_matmul", "q4_matmul"),
-    "q8_0_gguf": ("flash_attention", "flash_attention_d512", "gq_matmul", "gq_matmul_ws",
-                  "q4_matmul"),
+    "gguf_file": ("flash_attention", "flash_attention_d512", *Q4, "gq_matmul", "gq_matmul_ws",
+                  "gq_zero_matmul"),
+    "int8": ("flash_attention", "flash_attention_d512", "w8a8_matmul", *Q4),
+    "w8a16": ("flash_attention", "flash_attention_d512", "w8a16_matmul", *Q4),
+    "q8_0_gguf": ("flash_attention", "flash_attention_d512", "gq_matmul", "gq_matmul_ws", *Q4),
+    "q4_0": ("flash_attention", "flash_attention_d512", *Q4),
 }
 # ... and none of these (the mode switch and the memory class hold)
 PATH_IDLE = {"w8a16": ("w8a8_matmul",), "q8_0_gguf": ("w8a8_matmul", "w8a16_matmul"),
-             "gguf_file": ("w8a8_matmul", "w8a16_matmul")}
+             "gguf_file": ("w8a8_matmul", "w8a16_matmul"),
+             "q4_0": ("w8a8_matmul", "w8a16_matmul", "gq_matmul", "gq_matmul_ws", "gq_zero_matmul")}
 
 INT8_REQUESTS = [
     dict(prompt="a photograph of an astronaut riding a horse", width=512, height=512,
@@ -422,31 +444,34 @@ def _int4pack_library(x, qt, want):
 
 
 def check_q4(results):
+    """Each Q4_CASES shape with random packed bytes and random scales (a
+    wrong nibble or group index shows); ``tile_rows`` is the x-row tile the
+    launcher gave the wgmma form (0: the mma.sync form)."""
     import torch
 
-    from sdtpu_torch.ops import quant
+    from sdtpu_torch.ops import _build, quant
     from sdtpu_torch.weights import Q4_SCALE
 
     g = torch.Generator(device=DEVICE).manual_seed(3)
-    for group in Q4_GROUPS:
-        for m, k, n in Q4_CASES:
-            x = torch.randn((m, k), generator=g, device=DEVICE, dtype=torch.bfloat16)
-            kp = -(-k // quant.Q4_K_MULTIPLE) * quant.Q4_K_MULTIPLE
-            qt = quant.Q4Tensor(
-                packed=torch.randint(0, 256, (n, kp // 2), generator=g, device=DEVICE,
-                                     dtype=torch.uint8),
-                scale=torch.rand((n, kp // group), generator=g, device=DEVICE) * Q4_SCALE
-                + Q4_SCALE / 2,
-                k=k, group=group)
-            got = quant.q4_matmul(x, qt)
-            want = quant.q4_matmul_plain(x, qt)
-            library, note = _int4pack_library(x, qt, want)
-            _compare(results, "q4_matmul", (m, k, n), got, want, Q4_REL_TOL,
-                     lambda: quant.q4_matmul(x, qt), lambda: quant.q4_matmul_plain(x, qt),
-                     iters_for(2.0 * m * n * k),
-                     bound(2.0 * m * n * k, nbytes(x, qt.packed, qt.scale, got), "bf16"),
-                     library=library, library_note=note, group=group)
-            del x, qt, got, want, library
+    for m, k, n, group in Q4_CASES:
+        x = torch.randn((m, k), generator=g, device=DEVICE, dtype=torch.bfloat16)
+        kp = -(-k // quant.Q4_K_MULTIPLE) * quant.Q4_K_MULTIPLE
+        qt = quant.Q4Tensor(
+            packed=torch.randint(0, 256, (n, kp // 2), generator=g, device=DEVICE,
+                                 dtype=torch.uint8),
+            scale=torch.rand((n, kp // group), generator=g, device=DEVICE) * Q4_SCALE
+            + Q4_SCALE / 2,
+            k=k, group=group)
+        got = quant.q4_matmul(x, qt)
+        want = quant.q4_matmul_plain(x, qt)
+        library, note = _int4pack_library(x, qt, want)
+        _compare(results, "q4_matmul", (m, k, n), got, want, Q4_REL_TOL,
+                 lambda: quant.q4_matmul(x, qt), lambda: quant.q4_matmul_plain(x, qt),
+                 iters_for(2.0 * m * n * k),
+                 bound(2.0 * m * n * k, nbytes(x, qt.packed, qt.scale, got), "bf16"),
+                 library=library, library_note=note, group=group,
+                 tile_rows=_build.query("sdtpu_q4_tile_rows", m, n))
+        del x, qt, got, want, library
 
 
 def _random_group_weight(g, n, k, group, affine):
@@ -750,6 +775,18 @@ def gguf_block_dit() -> dict:
                       device=DEVICE, dtype=torch.bfloat16)
 
 
+def q4_block_dit() -> dict:
+    """Full-depth FLUX.1-dev DiT weights in the ``q4_0`` memory class on a
+    q4_0 GGUF's group-32 block grid, drawn on the card (the DiT's seed)."""
+    import torch
+
+    from sdtpu_torch.models import flux as flux_mod
+    from sdtpu_torch.weights import synthesize
+
+    return synthesize(flux_mod.param_specs(flux_mod.FLUX_DEV_CONFIG), quant="q4_0", seed=1,
+                      device=DEVICE, dtype=torch.bfloat16, group=Q4_DIT_GROUP)
+
+
 def build_pipeline(card: str, diffusion, label: str):
     """A full-width FLUX.1-dev pipeline around the given DiT params (None:
     the factory draws the int8 DiT); T5-XXL (4-bit), CLIP-L and the VAE drawn
@@ -858,8 +895,8 @@ def main() -> int:
     ap.add_argument("--out", help="also write every measured number to this JSON file")
     ap.add_argument("--profile", metavar="TABLE",
                     help="after each main path, profile one more 1024² request and write the "
-                         "profiler's tables to TABLE with .int8 / .w8a16 / .q8_0_gguf before its "
-                         "suffix")
+                         "profiler's tables to TABLE with .int8 / .w8a16 / .q8_0_gguf / .q4_0 "
+                         "before its suffix")
     args = ap.parse_args()
 
     import torch
@@ -904,10 +941,11 @@ def main() -> int:
     if not all(r["ok"] for r in ref.values()):
         raise RuntimeError(f"small-input reference check failed: {ref}")
 
-    # each kernel's launch counter: (wrapper, attribute); the D 512 kernel is
-    # counted apart by the flash wrapper
+    # each kernel's launch counter: (wrapper, attribute); the D 512 kernel and
+    # the 4-bit wgmma form are counted apart by their wrappers
     wrappers = {"flash_attention": (flash_attention.flash_attention, "launches"),
-                "flash_attention_d512": (flash_attention.flash_attention, "launches_d512")}
+                "flash_attention_d512": (flash_attention.flash_attention, "launches_d512"),
+                "q4_matmul_wgmma": (quant.q4_matmul, "launches_wgmma")}
     for name, fn in (("w8a8_matmul", quant.quant_matmul_w8a8), ("q4_matmul", quant.q4_matmul),
                      ("gq_matmul", quant.gq_matmul), ("gq_matmul_ws", quant.gq_matmul_ws),
                      ("gq_zero_matmul", quant.gq_zero_matmul), ("w8a16_matmul", quant.w8a16_matmul)):
@@ -950,17 +988,32 @@ def main() -> int:
         prof["q8_0_gguf"] = profile_request(pipe, GGUF_REQUESTS[-1], args.profile, "q8_0_gguf",
                                             card)
     del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pipe, info = build_pipeline(card, q4_block_dit(), f"q4_0 g{Q4_DIT_GROUP}")
+    pipes.append(info)
+    rep, launches["q4_0"] = _windowed(wrappers, "q4_0",
+                                      lambda: answer(pipe, GGUF_REQUESTS, card, "q4_0"))
+    reports += rep
+    if launches["q4_0"]["q4_matmul"] <= launches["q4_0"]["q4_matmul_wgmma"]:
+        raise RuntimeError("path q4_0: no 4-bit launch took the mma.sync form (the M = 1 linears)")
+    if args.profile:
+        prof["q4_0"] = profile_request(pipe, GGUF_REQUESTS[-1], args.profile, "q4_0", card)
+    del pipe
 
     headline = {"flash_attention": ([1, 24, 4352, 4352, 128], {}),
                 "flash_attention_d512": ([1, 1, 4096, 4096, 512], {}),
                 "w8a8_matmul": ([4352, 3072, 12288], {}),
-                "q4_matmul": ([256, 4096, 10240], {"group": 64})}
+                "q4_matmul": ([256, 4096, 10240], {"group": 64}),
+                "q4_matmul_wgmma": ([4352, 3072, 12288], {"group": 32})}
     for name in ("gq_matmul", "gq_matmul_ws", "gq_zero_matmul"):
         headline[name] = ([4352, 3072, 12288], {"group": 32, "dtype": "bf16"})
     headline["w8a16_matmul"] = ([4352, 3072, 12288], {})
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
-        mine = [c for c in cases if c["kernel"] == name]
+        mine = [c for c in cases if c["kernel"] == name or (  # the wgmma form's own cases
+            name == "q4_matmul_wgmma" and c["kernel"] == "q4_matmul" and c["tile_rows"])]
         shape, extra = headline[name]
         head = next(c for c in mine if c["shape"] == shape
                     and all(c.get(k) == v for k, v in extra.items()))

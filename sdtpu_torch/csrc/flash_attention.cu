@@ -236,9 +236,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
       for (int kc = 0; kc < kWK / 16; ++kc) {
         const uint64_t dv = smem_desc_sw128(v_base + s * kKVBytes + kc * 16 * kColBytes, kKVBlock, 1024);
         if constexpr (D == 128) {
-          wgmma_m64n128k16_bf16_rs_tb(acc, pa[kc], dv, 1);
+          wgmma_m64n128k16_bf16_rs<1>(acc, pa[kc], dv, 1);
         } else {
-          wgmma_m64n64k16_bf16_rs_tb(acc, pa[kc], dv, 1);
+          wgmma_m64n64k16_bf16_rs<1>(acc, pa[kc], dv, 1);
         }
       }
       wgmma_commit();
@@ -523,17 +523,6 @@ flash_d512_combine_kernel(const float* __restrict__ part_o, const float* __restr
   __nv_bfloat16* orow = o + row * kXD + c;
   *reinterpret_cast<__nv_bfloat162*>(orow) = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
   *reinterpret_cast<__nv_bfloat162*>(orow + 2) = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
-}
-
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 132;
-    return v;
-  }();
-  return n;
 }
 
 // Key splits for D 512: the fewest that minimise the waves of the grid

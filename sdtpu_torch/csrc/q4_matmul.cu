@@ -1,26 +1,74 @@
 // Packed 4-bit weight matmul for Hopper: out[m, n] = sum_k x[m, k] * w[n, k]
-// with w[n, k] = (nibble(n, k) - 8) * scale[n, k / G], dequantized to bf16,
-// for scale groups G = 64 (the q4_0 class the bench synthesizes), 32 (a q4_0
-// GGUF's own blocks) and 16 (q3_k-class blocks).
+// with w[n, k] = (nibble(n, k) - 8) * scale[n, k / G], each weight computed in
+// f32 and rounded once to bf16, for scale groups G = 64 (the q4_0 class the
+// bench synthesizes), 32 (a q4_0 GGUF's own blocks) and 16 (q3_k-class
+// blocks).
 //
-// Replaces the TPU kernel `_q4_matmul_kernel` (sdtpu/ops/quant.py:845).  The
-// port stores 4-bit weights in its own layout, chosen for this kernel (the
-// TPU's split-half layout served Mosaic's sublane tiling): packed uint8
-// [N, Kp/2] row-major, byte j of a row holding k = 2j in the low nibble and
-// k = 2j + 1 in the high nibble, and f32 scales [N, Kp/G], Kp a multiple of
-// 64.  Each thread unpacks 32 k of one weight row, which lie in one group for
-// G = 64 or 32 and in two for G = 16, so it reads one or two scales.
+// Replaces the TPU kernel `_q4_matmul_kernel` (sdtpu/ops/quant.py:845), through
+// `q4_wgmma_kernel<G, BM>` for M >= kQ4MinM rows and `q4_gemm_kernel<G>`
+// below that.  The port stores 4-bit weights in its own layout, chosen for
+// these kernels (the TPU's split-half layout served Mosaic's sublane tiling):
+// packed uint8 [N, Kp/2] row-major, byte j of a row holding k = 2j in the low
+// nibble and k = 2j + 1 in the high nibble, and f32 scales [N, Kp/G], Kp a
+// multiple of 64.  x is bf16 [M, K] with K a multiple of 8; rows, columns and
+// K past the edge are zero-filled.
 //
-// What bounds it on the card: at T5-XXL's shapes (M = 256 per prompt,
-// K x N = 4096 x 4096, 4096 x 10240, 10240 x 4096) the weight read is 0.5
-// byte per element and the tile work is small, so the kernel is bound by
-// the dequantize step and by latency more than by the tensor cores.  The
-// weight never exists in device memory at 16 bits: each block unpacks its
-// 128 x 64 tile into shared memory as bf16 (f32 multiply, then one rounding,
-// as the TPU does) and runs mma.sync m16n8k16 with f32 accumulation.  Simple
-// synchronous tile loads; pipelining is later work.  x is bf16 with K a
-// multiple of 8; rows, columns and K past the edge are zero-filled.
+// What bounds it on the card (NVIDIA H100 SXM data sheet, 700 W): 2*M*N*K
+// operations at 989 TFLOP/s bf16, e.g. 0.332 ms at the FLUX DiT's
+// 4352x3072->12288 and 0.0217 ms at T5-XXL's 256x4096->10240; at M = 1 it is
+// the packed bytes and the f32 scales at 3.35 TB/s, 0.0106 ms for a
+// 3072->18432 modulation linear at group 32.  So every M >= 128 call is
+// compute bound and the design's job is to keep the tensor cores fed while
+// the nibbles are widened.
+//
+// Large M: `q4_wgmma_kernel`, the structure of gq_matmul.cu's
+// `gq_wgmma_kernel` (operands swapped as in CUTLASS's Hopper mixed-input
+// GEMM), written on its own: that mainloop shared by both through one
+// template, the widening its policy, timed W8A16 0.5-1.4 % and group 16
+// 1.8 % slower at FLUX's large-M shapes in one chip call against this form
+// (sdtpu_torch/tools/time_dequant.py; NVIDIA H100 80GB HBM3, 700.00 W).
+// A block computes outT[n, m] for 128 weight rows x BM x rows.  A producer warp
+// TMA-loads the packed tile ([128 rows x 32 bytes] = 64 k, unswizzled) and
+// the bf16 x tile ([BM rows x 64 k], 128-byte swizzle) into a ring of stages
+// under full/empty mbarriers, and cp.asyncs the stage's f32 scales beside
+// them, counted on the same barrier (a scale row is Kp/G x 4 bytes, not
+// always the 16-byte multiple a TMA map needs: 40 bytes at K = 640, G = 64).
+// Each of two consumer warpgroups builds the wgmma register-A fragments of
+// its 64 weight rows straight from the packed bytes: the pair (k, k + 1) of
+// an A register is exactly one packed byte, so one byte widens into one
+// bf16x2 register ((nibble - 8) exact in f32 via the 2^23 trick, __fmul_rn by
+// the group's scale, one bf16x2 rounding: bit-equal to the plain version).
+// A thread needs byte tq of each 4-byte word of its rows r0 and r0 + 8, and
+// reads each row as two 16-byte loads; a 16-byte shared load is served an
+// eighth of the warp at a time, and those eight lanes read two adjacent
+// 32-byte rows, 64 contiguous bytes, so the unswizzled tile reads without
+// bank conflicts.  wgmma.m64nBMk16 then runs with A from registers and B =
+// the x tile K-major; the widened weight never goes to shared or device
+// memory, and stage k + 1 is widened while stage k's wgmma are in flight (A
+// fragments double-buffered and pinned with fence_regs).  The epilogue
+// writes the transposed accumulator to out[m, n].
+//
+// Filling the card: T5's M = 256 at N = 4096 gives only 32 blocks of 128 x
+// 256 on 132 SMs, so BM (the wgmma N) is a template parameter, 256, 128 or
+// 64, and the launcher picks the tile whose grid costs least, counted as
+// waves x (BM + 64): the 64 stands for the per-stage widening, which does not
+// shrink with BM.  T5's 4096-wide outputs at M = 256 take BM = 64 (128
+// blocks); its 10240-wide output and the DiT's large M take BM = 256.  This
+// was chosen over split K, which needs a reduction pass and f32 scratch.
+// Shared memory: 1 KB alignment + stages x (x tile BM x 128 B, packed 4 KB,
+// scales 2 KB) + barriers: 4 stages at BM = 256 (156,736 B), 8 at BM = 128
+// (181,376 B) and at BM = 64 (115,840 B), all under the 227 KB a block may use.
+// Blocks raster the M tiles of one weight band before the next band, so the
+// blocks in flight share a band of the weight and all of x in L2.
+//
+// Small M (M < kQ4MinM: the DiT's M = 1 modulation linears, a few text
+// tokens): `q4_gemm_kernel`, the first form.  Each block unpacks its 128 x 64
+// weight tile into shared memory as bf16 (f32 multiply, then one rounding)
+// beside a 64-row x tile and runs mma.sync m16n8k16 with f32 accumulation;
+// tiles are loaded synchronously.
 #include "common.cuh"
+
+#include <climits>
 
 namespace sdtpu {
 namespace {
@@ -131,11 +179,250 @@ q4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
       }
 }
 
+// ------------------------------------------------------- large M: wgmma
+
+constexpr int kQ4MinM = 128;     // calls with at least this many rows take the wgmma kernel
+constexpr int kQ4BN = 128;       // weight rows per block: two consumer warpgroups x 64 (wgmma M)
+constexpr int kQ4BK = 64;        // K per stage: 32 packed bytes a weight row, 128 bytes an x row
+constexpr int kQ4Threads = 384;  // warpgroups 0-1: consumers; 2: producer (its first warp)
+constexpr int kQ4WTile = kQ4BN * kQ4BK / 2;         // 4 KB, unswizzled 32-byte rows
+constexpr int kQ4STile = kQ4BN * (kQ4BK / 16) * 4;  // f32 scales of one stage, G >= 16
+__host__ __device__ constexpr int q4_stages(int bm) { return bm == 256 ? 4 : 8; }
+__host__ __device__ constexpr int q4_x_tile(int bm) { return bm * kQ4BK * 2; }  // 128-byte swizzle
+constexpr int q4_smem(int bm) {
+  return 1024 + q4_stages(bm) * (q4_x_tile(bm) + kQ4WTile + kQ4STile) + 2 * q4_stages(bm) * 8;
+}
+static_assert(q4_smem(256) <= 232448 && q4_smem(128) <= 232448 && q4_smem(64) <= 232448,
+              "q4 wgmma: shared memory over the 227 KB a block may use");
+
+// acc += W_tile . x_tile^T for one k16 step, wgmma N = BM
+template <int BM>
+__device__ __forceinline__ void wgmma_q4_step(float (&acc)[BM / 2], const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  if constexpr (BM == 256) {
+    wgmma_m64n256k16_bf16_rs<0>(acc, a, desc_b, 1);
+  } else if constexpr (BM == 128) {
+    wgmma_m64n128k16_bf16_rs<0>(acc, a, desc_b, 1);
+  } else {
+    wgmma_m64n64k16_bf16_rs<0>(acc, a, desc_b, 1);
+  }
+}
+
+// (nibble - 8) as an exact f32: 2^23 + nibble has the nibble in its low
+// mantissa bits, and subtracting 2^23 + 8 is exact.
+__device__ __forceinline__ float nibble_f32(uint32_t nib) {
+  return __fsub_rn(__uint_as_float(0x4B000000u | nib), 8388616.f);
+}
+
+// outT[n, m] = W[n, :] . x[m, :] for a kQ4BN x BM tile, W widened in
+// registers from the packed nibbles (the wgmma A operand) and x read from
+// shared memory (B, K-major).
+template <int G, int BM>
+__global__ void __launch_bounds__(kQ4Threads, 1)
+q4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int m, int n,
+                int kp) {
+  constexpr int kStages = q4_stages(BM);
+  constexpr int kXTile = q4_x_tile(BM);
+  constexpr int GPS = kQ4BK / G;  // scale groups a row per stage: 4, 2 or 1
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t x_base = (raw + 1023) & ~1023u;  // swizzle atoms: 1 KB aligned
+  const uint32_t w_base = x_base + kStages * kXTile;
+  const uint32_t s_base = w_base + kStages * kQ4WTile;
+  const uint32_t bars = s_base + kStages * kQ4STile;
+  const uint8_t* smem = smem_raw - raw;  // generic pointer of shared address 0
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+
+  const int num_m = (m + BM - 1) / BM;
+  const int m0 = (blockIdx.x % num_m) * BM, n0 = (blockIdx.x / num_m) * kQ4BN;
+  const int ktiles = kp / kQ4BK;
+  const int groups = kp / G;
+
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1 + 32);  // the TMA arrival, plus one cp.async arrival per producer lane
+      mbar_init(empty(s), 8);      // the consumers' eight warps
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: the first warp; lane 0 issues the TMA loads of the x and
+    // packed tiles, all lanes cp.async the stage's scales
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 256 + 32) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(empty(s), ((kt / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full(s), kXTile + kQ4WTile);
+          tma_load_2d(x_base + s * kXTile, &xmap, full(s), kt * kQ4BK, m0);
+          tma_load_2d(w_base + s * kQ4WTile, &wmap, full(s), kt * (kQ4BK / 2), n0);
+        }
+        for (int idx = lane; idx < kQ4BN * GPS; idx += 32) {
+          const int row = n0 + idx / GPS, grp = kt * GPS + idx % GPS;
+          const bool valid = row < n && grp < groups;
+          const size_t off = valid ? static_cast<size_t>(row) * groups + grp : 0;
+          cp_async_4(s_base + s * kQ4STile + idx * 4, scale + off, valid);
+        }
+        cp_async_mbar_arrive(full(s));
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, tq = lane & 3;
+    const int r0 = wg * 64 + warp * 16 + g;  // this thread's weight rows in the tile: r0, r0 + 8
+
+    // The stage's packed tile widened into the register-A layout of four k16
+    // steps: a[kk] = {(r0, 2tq..+1), (r0+8, 2tq..+1), (r0, 2tq+8..+9),
+    // (r0+8, 2tq+8..+9)} of K columns 16kk..; pair (2tq + 8h) of step kk is
+    // byte tq of the row's word 2kk + h.
+    auto widen = [&](uint32_t (&a)[4][4], int s) {
+      const uint8_t* wt = smem + w_base + s * kQ4WTile;
+      const float* sc = reinterpret_cast<const float*>(smem + s_base + s * kQ4STile);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = r0 + 8 * rr;
+        const uint4 c0 = *reinterpret_cast<const uint4*>(wt + row * (kQ4BK / 2));
+        const uint4 c1 = *reinterpret_cast<const uint4*>(wt + row * (kQ4BK / 2) + 16);
+        const uint32_t words[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float s = sc[row * GPS + (16 * kk) / G];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t b = (words[2 * kk + h] >> (8 * tq)) & 0xFF;
+            a[kk][2 * h + rr] = pack_bf16x2(__fmul_rn(nibble_f32(b & 0xF), s),
+                                            __fmul_rn(nibble_f32(b >> 4), s));
+          }
+        }
+      }
+    };
+
+    // acc[4j + e]: weight row r0 (+8 for e >= 2), x row 8j + 2tq (+1 for odd e)
+    float acc[BM / 2];
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+    uint32_t a0[4][4], a1[4][4];
+
+    // One K stage: issue its four wgmma on `cur`, then, while they run,
+    // free the stage before it and widen the next stage into `nxt` (whose
+    // previous wgmma group is complete after wait<1>).
+    auto step = [&](uint32_t (&cur)[4][4], uint32_t (&nxt)[4][4], int kt) {
+      const int s = kt % kStages;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_q4_step<BM>(acc, cur[kk], smem_desc_sw128(x_base + s * kXTile + kk * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(nxt[kk]);
+      if (kt > 0 && lane == 0) mbar_arrive(empty((kt - 1) % kStages));
+      if (kt + 1 < ktiles) {
+        const int s1 = (kt + 1) % kStages;
+        mbar_wait(full(s1), ((kt + 1) / kStages) & 1);
+        widen(nxt, s1);
+      }
+    };
+
+    mbar_wait(full(0), 0);
+    widen(a0, 0);
+    for (int kt = 0; kt < ktiles; kt += 2) {
+      step(a0, a1, kt);
+      if (kt + 1 < ktiles) step(a1, a0, kt + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(a0[kk]);
+      fence_regs(a1[kk]);
+    }
+
+    // epilogue: out[m, n] = acc
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int nn = n0 + r0 + 8 * h;
+      if (nn >= n) continue;
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int mm = m0 + 8 * j + 2 * tq + e;
+          if (mm < m) out[static_cast<size_t>(mm) * n + nn] = __float2bfloat16_rn(acc[4 * j + 2 * h + e]);
+        }
+    }
+  }
+}
+
+// x rows per wgmma block: of 256, 128 and 64, the tile whose grid costs
+// least, counted as waves x (BM + 64); a tie keeps the larger tile.
+int q4_tile_rows(int m, int n) {
+  const long long sms = sm_count();
+  const int tiles[3] = {256, 128, 64};
+  int best = 256;
+  long long best_cost = LLONG_MAX;
+  for (int bm : tiles) {
+    const long long blocks = static_cast<long long>(ceil_div(n, kQ4BN)) * ceil_div(m, bm);
+    const long long cost = (blocks + sms - 1) / sms * (bm + 64);
+    if (cost < best_cost) {
+      best = bm;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <int BM>
+cudaError_t launch_q4_tile(const CUtensorMap& xmap, const CUtensorMap& wmap, const float* scale,
+                           __nv_bfloat16* out, int m, int n, int kp, int group, cudaStream_t stream) {
+  auto kernel = group == 16   ? q4_wgmma_kernel<16, BM>
+                : group == 32 ? q4_wgmma_kernel<32, BM>
+                              : q4_wgmma_kernel<64, BM>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, q4_smem(BM));
+  if (err != cudaSuccess) return err;
+  const int blocks = ceil_div(n, kQ4BN) * ceil_div(m, BM);
+  kernel<<<blocks, kQ4Threads, q4_smem(BM), stream>>>(xmap, wmap, scale, out, m, n, kp);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_q4_wgmma(const void* x, const void* packed, const float* scale, void* out,
+                            int m, int n, int k, int kp, int group, cudaStream_t stream) {
+  const int bm = q4_tile_rows(m, n);
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(m)};
+  const cuuint64_t xstrides[1] = {static_cast<cuuint64_t>(k) * 2};
+  const cuuint32_t xbox[2] = {kQ4BK, static_cast<cuuint32_t>(bm)};
+  cudaError_t err = make_tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xdims, xstrides, xbox);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(kp / 2), static_cast<cuuint64_t>(n)};
+  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(kp / 2)};
+  const cuuint32_t wbox[2] = {kQ4BK / 2, kQ4BN};
+  err = make_tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, packed, wdims, wstrides, wbox,
+                        CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  if (bm == 256) return launch_q4_tile<256>(xmap, wmap, scale, o, m, n, kp, group, stream);
+  if (bm == 128) return launch_q4_tile<128>(xmap, wmap, scale, o, m, n, kp, group, stream);
+  return launch_q4_tile<64>(xmap, wmap, scale, o, m, n, kp, group, stream);
+}
+
 }  // namespace
 }  // namespace sdtpu
 
 // x bf16 [m, k]; packed uint8 [n, kp/2]; scale f32 [n, kp/group] -> out
 // bf16 [m, n].  Needs k <= kp, k % 8 == 0, kp % 64 == 0 and group 16, 32 or 64.
+// M >= kQ4MinM takes the wgmma kernel, smaller M the mma.sync form: the choice
+// is by shape only, and a refused launch is returned, never retried on the
+// other kernel.
 extern "C" int sdtpu_q4_matmul(const void* x, const void* packed, const void* scale,
                                void* out, int m, int n, int k, int kp, int group,
                                void* stream) {
@@ -143,11 +430,21 @@ extern "C" int sdtpu_q4_matmul(const void* x, const void* packed, const void* sc
   if (m <= 0 || n <= 0 || k <= 0 || k > kp || k % 8 || kp % kBK ||
       (group != 16 && group != 32 && group != 64))
     return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m >= kQ4MinM)
+    return launch_q4_wgmma(x, packed, static_cast<const float*>(scale), out, m, n, k, kp, group, s);
   dim3 grid(ceil_div(n, kBN), ceil_div(m, kBM));
   auto kernel = group == 16 ? q4_gemm_kernel<16>
                 : group == 32 ? q4_gemm_kernel<32> : q4_gemm_kernel<64>;
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
       static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), m, n, k, kp);
   return cudaGetLastError();
+}
+
+// The x rows per block `sdtpu_q4_matmul` gives the wgmma kernel at this
+// shape (0 below kQ4MinM, where the mma.sync form runs).
+extern "C" long long sdtpu_q4_tile_rows(int m, int n) {
+  using namespace sdtpu;
+  return m >= kQ4MinM && n > 0 ? q4_tile_rows(m, n) : 0;
 }

@@ -52,6 +52,8 @@ SIGNATURES = {
 QUERIES = {
     # dtype, bh, lq, lk, d -> bytes of f32 scratch
     "sdtpu_flash_workspace_bytes": ((_I, _I, _I, _I, _I), ctypes.c_longlong),
+    # m, n -> x rows per block of the 4-bit wgmma kernel (0: the mma.sync form)
+    "sdtpu_q4_tile_rows": ((_I, _I), ctypes.c_longlong),
 }
 
 

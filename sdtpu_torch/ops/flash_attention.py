@@ -6,7 +6,9 @@ math in plain PyTorch (the XLA softmax-attention of ``sdtpu/ops/attention.py``:
 f32 scores, probabilities cast to q's dtype before P.V).
 
 Layout [B, H, L, D]; the optional mask is an additive bias broadcastable to
-[Lq, Lk] (shared across batch and heads).
+[Lq, Lk] (shared across batch and heads).  ``flash_supported`` states what
+the kernel takes, as the reference's does; ``ops.attention`` routes the rest
+to ``plain_attention``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,16 @@ def plain_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.
     return torch.matmul(probs.to(q.dtype), v.to(q.dtype))
 
 
+def flash_supported(q, k, v, mask) -> bool:
+    """The kernel's constraints, the reference's rule: 4-D [B,H,L,D]; a mask
+    must broadcast as [Lq, Lk] (every leading dim 1)."""
+    if q.dim() != 4:
+        return False
+    if mask is not None and mask.dim() > 2 and any(d != 1 for d in mask.shape[:-2]):
+        return False
+    return True
+
+
 def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,H,Lq,D], k/v: [B,H,Lk,D] → [B,H,Lq,D] in q.dtype.
 
@@ -49,10 +61,10 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.
         raise ValueError(f"flash_attention: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
     if b * h > 65535:
         raise ValueError("flash_attention: batch*heads exceeds the grid limit")
+    if not flash_supported(q, k, v, mask):
+        raise ValueError("flash_attention: mask must broadcast as [Lq, Lk]")
     bias = None
     if mask is not None:
-        if mask.dim() > 2 and any(s != 1 for s in mask.shape[:-2]):
-            raise ValueError("flash_attention: mask must broadcast as [Lq, Lk]")
         bias = mask.reshape(mask.shape[-2], mask.shape[-1]).float().expand(lq, lk).contiguous()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)

@@ -42,6 +42,7 @@ Q4_GROUP = 64
 Q4_GROUPS = (16, 32, 64)
 Q4_K_MULTIPLE = 64  # the 4-bit kernel's K tile: packed rows are padded to it
 Q4_MIN_K = 512  # symmetric 4-bit-range blocks with K >= this pack to Q4Tensor (JAX block_k)
+Q4_WGMMA_MIN_M = 128  # q4_matmul calls with at least this many rows run the wgmma kernel (kQ4MinM)
 GQ_GROUPS = (16, 32)
 # group_quant_matmul: symmetric bf16 calls with at least this many rows go
 # through gq_matmul_ws (FLUX image tokens); M = 1 (modulation), M = 256 (text
@@ -369,7 +370,10 @@ def q4_matmul_plain(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
 
 
 def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
-    """x [..., K] × packed 4-bit weight (logical [N, K]) → [..., N] in x.dtype."""
+    """x [..., K] × packed 4-bit weight (logical [N, K]) → [..., N] in x.dtype.
+
+    Calls of at least ``Q4_WGMMA_MIN_M`` rows run the TMA + wgmma kernel and
+    are counted in ``launches_wgmma`` as well as ``launches``."""
     if x.device.type == "cpu":
         return q4_matmul_plain(x, qt)
     if x.dtype != torch.bfloat16:
@@ -386,10 +390,12 @@ def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
     _build.launch("sdtpu_q4_matmul", x2.data_ptr(), qt.packed.data_ptr(), qt.scale.data_ptr(),
                   out.data_ptr(), m, n, k, kp, qt.group, _build.stream_ptr(x))
     q4_matmul.launches += 1
+    if m >= Q4_WGMMA_MIN_M:
+        q4_matmul.launches_wgmma += 1
     return out.reshape(*x.shape[:-1], n)
 
 
-q4_matmul.launches = 0
+q4_matmul.launches = q4_matmul.launches_wgmma = 0
 
 
 # ------------------------------------------------------------- group quant

@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Time the dequantizing matmuls (4-bit, group-dequant, affine, W8A16) at
+``chip_smoke.py``'s shapes with whichever checkout's package ``PYTHONPATH``
+names, so checkouts can be compared on one card in one session, in turns.
+
+    PYTHONPATH=<checkout> python3 <this checkout>/sdtpu_torch/tools/time_dequant.py \
+        [--label name] [--out results.json]
+
+Cases: ``q4_matmul`` at ``Q4_CASES``; ``gq_matmul`` (group 32, and group 16
+at ``GQ16_CASES``), ``gq_zero_matmul`` and ``w8a16_matmul`` at the
+``W8A8_CASES`` of at least 128 rows (their TMA + wgmma form).  The shapes,
+tolerances, input draws and timing are ``chip_smoke.py``'s, loaded from this
+script's own checkout; the kernels come from the package on ``PYTHONPATH``
+(built from that checkout's sources).  Each case is held to its plain
+version, then timed with CUDA events after warm-up.  One ``kernel {...}``
+line per case, then a summary line.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[2] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--label", default="")
+    ap.add_argument("--out", help="also write every number to this JSON file")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_dequant: no CUDA device", file=sys.stderr)
+        return 2
+    cs = _chip_smoke()
+    import sdtpu_torch
+    from sdtpu_torch.ops import _build, quant
+    from sdtpu_torch.weights import Q4_SCALE
+
+    card = cs.card_line()
+    print(f"{card}; package {Path(sdtpu_torch.__file__).parent}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    _build.library()
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    big = [s for s in cs.W8A8_CASES if s[0] >= 128]
+    plan = [("q4_matmul", s[:3], s[3]) for s in cs.Q4_CASES]
+    plan += [(form, s, 32) for s in big for form in ("gq_matmul", "gq_zero_matmul", "w8a16_matmul")]
+    plan += [("gq_matmul", s, 16) for s in cs.GQ16_CASES if s[0] >= 128]
+    cases = []
+    for form, (m, k, n), group in plan:
+        x = torch.randn((m, k), generator=g, device="cuda", dtype=torch.bfloat16)
+        if form == "q4_matmul":
+            kp = -(-k // quant.Q4_K_MULTIPLE) * quant.Q4_K_MULTIPLE
+            qt = quant.Q4Tensor(
+                packed=torch.randint(0, 256, (n, kp // 2), generator=g, device="cuda", dtype=torch.uint8),
+                scale=torch.rand((n, kp // group), generator=g, device="cuda") * Q4_SCALE + Q4_SCALE / 2,
+                k=k, group=group)
+            fn, plain, rel = quant.q4_matmul, quant.q4_matmul_plain, cs.Q4_REL_TOL
+        elif form == "w8a16_matmul":
+            qt = quant.QuantTensor(
+                q=torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8),
+                scale=torch.rand((n,), generator=g, device="cuda") * 4e-4 + 1e-5)
+            fn, plain, rel = quant.w8a16_matmul, quant.w8a16_matmul_plain, cs.GQ_REL_TOL["bf16"]
+        else:
+            qt = cs._random_group_weight(g, n, k, group, affine=form == "gq_zero_matmul")
+            fn, plain, rel = getattr(quant, form), quant.group_quant_matmul_plain, cs.GQ_REL_TOL["bf16"]
+        got, want = fn(x, qt), plain(x, qt)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = rel * want.float().abs().max().item()
+        ms = cs.time_ms(lambda: fn(x, qt), cs.iters_for(2.0 * m * n * k))
+        case = dict(label=args.label, kernel=form, shape=[m, k, n], group=group, ms=ms,
+                    max_abs_err=err, tol=tol, ok=bool(err <= tol), card=card)
+        print("kernel " + json.dumps(case), flush=True)
+        cases.append(case)
+        del x, qt, got, want
+    summary = {"label": args.label, "card": card, "cases": len(cases),
+               "ok": all(c["ok"] for c in cases)}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({**summary, "kernels": cases}, f, indent=1)
+    print(json.dumps(summary))
+    return 0 if summary["ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

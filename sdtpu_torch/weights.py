@@ -12,7 +12,8 @@ moved, never recomputed).
 device, in the memory classes of the JAX bench synthesis
 (``sdtpu/utils/device_init.py``): large 2-D weights as int8 ``QuantTensor``
 (q8_0), group-32 int8 ``GroupQuantTensor`` (q8_0_gguf, a q8_0 GGUF kept in
-its blocks) or packed 4-bit ``Q4Tensor`` (q4_0) with constant scales sized
+its blocks) or packed 4-bit ``Q4Tensor`` (q4_0, scale group 64 by default
+as in the bench, 32 for a q4_0 GGUF's block grid) with constant scales sized
 so dequantized values have std ~0.02; embeddings and tensors under 2**16
 elements stay dense.
 """
@@ -23,8 +24,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from sdtpu_torch.ops.quant import (Q4_GROUP, Q4_K_MULTIPLE, GroupQuantTensor, Q4Tensor,
-                                   QuantTensor)
+from sdtpu_torch.ops.quant import (Q4_GROUP, Q4_GROUPS, Q4_K_MULTIPLE, GroupQuantTensor,
+                                   Q4Tensor, QuantTensor)
 
 WEIGHT_STD = 0.02
 # rms of uniform int8 in [-127, 127) is ~73.3; of centered nibbles ~4.6
@@ -98,14 +99,19 @@ def _quantizable(name: str, shape, init: str) -> bool:
 
 
 def synthesize(specs: Dict[str, tuple], quant: Optional[str] = None, seed: int = 0,
-               device="cuda", dtype: torch.dtype = torch.bfloat16) -> dict:
+               device="cuda", dtype: torch.dtype = torch.bfloat16,
+               group: int = Q4_GROUP) -> dict:
     """name → (shape, init) specs → random tensors drawn on ``device``.
 
     quant: None (all dense), "q8_0" (eligible weights → int8 QuantTensor),
     "q8_0_gguf" (→ group-32 int8 GroupQuantTensor, the footprint of a q8_0
-    GGUF kept in its blocks) or "q4_0" (→ packed 4-bit Q4Tensor)."""
+    GGUF kept in its blocks) or "q4_0" (→ packed 4-bit Q4Tensor with scales
+    per ``group`` weights along K, the counterpart of ``synthesize_params(...,
+    group=...)``).  The packed bytes drawn do not depend on ``group``."""
     if quant not in (None, "q8_0", "q8_0_gguf", "q4_0"):
         raise ValueError(f"unsupported synthesis quant mode {quant!r}")
+    if group not in Q4_GROUPS:
+        raise ValueError(f"synthesize: group {group} not in {Q4_GROUPS}")
     device = torch.device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -131,9 +137,9 @@ def synthesize(specs: Dict[str, tuple], quant: Optional[str] = None, seed: int =
                                        dtype=torch.uint8)
                 out[name] = Q4Tensor(
                     packed=packed,
-                    scale=torch.full((n, kp // Q4_GROUP), Q4_SCALE, dtype=torch.float32,
+                    scale=torch.full((n, kp // group), Q4_SCALE, dtype=torch.float32,
                                      device=device),
-                    k=k)
+                    k=k, group=group)
         elif init == "normal":
             out[name] = torch.randn(shape, generator=g, device=device, dtype=dtype).mul_(WEIGHT_STD)
         elif init == "ones":

@@ -15,6 +15,7 @@ import torch
 from sdtpu_torch.ops import _build
 from sdtpu_torch.ops import flash_attention as fa
 from sdtpu_torch.ops import quant
+from sdtpu_torch.ops.attention import attention
 
 
 @pytest.fixture
@@ -128,6 +129,77 @@ def test_q4_kernel_groups_match_plain(cuda, group, m, k, n):
     assert (got.float() - want.float()).abs().max().item() <= 2 ** -6 * want.float().abs().max().item()
 
 
+# M >= 128 takes the TMA + wgmma 4-bit kernel: M at the threshold and one
+# past it, T5's 256 tokens, FLUX's 4352; N off the 128-row weight tile; K off
+# the 64-wide K tile (Kp > K, the padded nibbles random) and K = 64 (one
+# stage); between them the launcher picks each x-row tile (64, 128, 256)
+Q4_WGMMA_SHAPES = [(128, 256, 200), (129, 272, 257), (128, 3072, 12288), (256, 4096, 4096),
+                   (256, 1040, 10240), (4352, 3072, 384), (4352, 64, 3072), (4352, 1040, 130)]
+
+
+def _q4_weight(g, n, k, group, device):
+    """Random packed bytes (padding included) with random scales: every
+    nibble and group differs."""
+    kp = -(-k // quant.Q4_K_MULTIPLE) * quant.Q4_K_MULTIPLE
+    return quant.Q4Tensor(
+        packed=torch.randint(0, 256, (n, kp // 2), generator=g, device=device, dtype=torch.uint8),
+        scale=torch.rand((n, kp // group), generator=g, device=device) * 4e-3 + 1e-3, k=k,
+        group=group)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [16, 32, 64])
+@pytest.mark.parametrize("m,k,n", Q4_WGMMA_SHAPES)
+def test_q4_wgmma_kernel_matches_plain(cuda, group, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m + k + group)
+    x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
+    qt = _q4_weight(g, n, k, group, cuda)
+    before = (quant.q4_matmul.launches, quant.q4_matmul.launches_wgmma)
+    got = quant.q4_matmul(x, qt)
+    assert (quant.q4_matmul.launches, quant.q4_matmul.launches_wgmma) == (before[0] + 1, before[1] + 1)
+    want = quant.q4_matmul_plain(x, qt)
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -6 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_q4_tile_choice_by_shape(cuda):
+    """The launcher's x-row tile is a function of the shape alone; the card
+    tests' shapes reach every tile, and M < 128 takes the mma.sync form."""
+    tiles = {_build.query("sdtpu_q4_tile_rows", m, n) for m, _, n in Q4_WGMMA_SHAPES}
+    assert tiles == {64, 128, 256}
+    assert _build.query("sdtpu_q4_tile_rows", quant.Q4_WGMMA_MIN_M - 1, 4096) == 0
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qt = _q4_weight(g, 256, 512, 32, cuda)
+    before = (quant.q4_matmul.launches, quant.q4_matmul.launches_wgmma)
+    quant.q4_matmul(torch.randn((quant.Q4_WGMMA_MIN_M - 1, 512), device=cuda, dtype=torch.bfloat16), qt)
+    assert (quant.q4_matmul.launches, quant.q4_matmul.launches_wgmma) == (before[0] + 1, before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_shape,flash", [((2, 3, 40, 56), False), ((2, 1, 40, 56), False),
+                                              ((1, 3, 40, 56), False), ((1, 1, 40, 56), True),
+                                              ((40, 56), True)])
+def test_attention_routes_masks_as_the_reference(cuda, mask_shape, flash):
+    """A mask whose leading dims are not all 1 goes to the plain attention,
+    as the reference sends it to XLA; one that broadcasts as [Lq, Lk]
+    launches the kernel.  flash_attention itself still refuses the former."""
+    g = torch.Generator(device=cuda).manual_seed(len(mask_shape))
+    q = torch.randn((2, 3, 40, 64), generator=g, device=cuda, dtype=torch.bfloat16)
+    k, v = (torch.randn((2, 3, 56, 64), generator=g, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    mask = torch.randn(mask_shape, generator=g, device=cuda)
+    before = fa.flash_attention.launches
+    got = attention(q, k, v, mask=mask)
+    assert fa.flash_attention.launches == before + flash
+    want = fa.plain_attention(q, k, v, mask=mask)
+    if flash:
+        assert (got.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
+    else:
+        assert torch.equal(got, want)
+        with pytest.raises(ValueError):
+            fa.flash_attention(q, k, v, mask=mask)
+
+
 def _group_weight(g, n, k, group, affine, device):
     """Random int8 blocks with random scales (and zeros): every group differs."""
     kp = -(-k // group) * group
@@ -238,7 +310,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 def test_cpu_tensors_run_the_plain_versions_without_launching():
     counts = (fa.flash_attention.launches, quant.quant_matmul_w8a8.launches,
-              quant.q4_matmul.launches)
+              quant.q4_matmul.launches, quant.q4_matmul.launches_wgmma)
     q = torch.randn((1, 2, 8, 64))
     assert torch.equal(fa.flash_attention(q, q, q), fa.plain_attention(q, q, q))
     x = torch.randn((3, 32))
@@ -247,8 +319,10 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     q4 = quant.quantize_q4(torch.randn((8, 64)))
     x4 = torch.randn((3, 64))
     assert torch.equal(quant.q4_matmul(x4, q4), quant.q4_matmul_plain(x4, q4))
+    x4 = torch.randn((quant.Q4_WGMMA_MIN_M, 64))  # the wgmma form's M, on the CPU
+    assert torch.equal(quant.q4_matmul(x4, q4), quant.q4_matmul_plain(x4, q4))
     assert counts == (fa.flash_attention.launches, quant.quant_matmul_w8a8.launches,
-                      quant.q4_matmul.launches)
+                      quant.q4_matmul.launches, quant.q4_matmul.launches_wgmma)
     assert _build.library.cache_info().currsize == 0
 
 

@@ -106,15 +106,21 @@ def test_synthesize_memory_classes_and_statistics():
     q4 = synthesize(specs, quant="q4_0", seed=0, dtype=torch.float32, device="cpu")
     q8 = synthesize(specs, quant="q8_0", seed=0, dtype=torch.float32, device="cpu")
     gg = synthesize(specs, quant="q8_0_gguf", seed=0, dtype=torch.float32, device="cpu")
+    q4g = synthesize(specs, quant="q4_0", seed=0, dtype=torch.float32, device="cpu", group=32)
     name = "encoder.block.0.layer.1.DenseReluDense.wi_0.weight"
     assert isinstance(q4[name], Q4Tensor) and isinstance(q8[name], QuantTensor)
+    # the group sets the scale grid only: the nibbles drawn are the same
+    assert q4[name].group == 64 and q4g[name].group == 32 and q4g[name].scale.shape == (512, 8)
+    assert torch.equal(q4g[name].packed, q4[name].packed)
+    with pytest.raises(ValueError):
+        synthesize(specs, quant="q4_0", device="cpu", group=128)
     assert isinstance(gg[name], GroupQuantTensor) and gg[name].group == 32
     assert q4[name].shape == q8[name].shape == gg[name].shape == (512, 256)
     assert isinstance(q4["shared.weight"], torch.Tensor)  # embeddings stay dense
     assert torch.equal(q4["encoder.final_layer_norm.weight"], torch.ones(256))
     from sdtpu_torch.ops.quant import dequantize, dequantize_group, dequantize_q4
-    for w in (dequantize_q4(q4[name], torch.float32), dequantize(q8[name], torch.float32),
-              dequantize_group(gg[name]), q4["shared.weight"]):
+    for w in (dequantize_q4(q4[name], torch.float32), dequantize_q4(q4g[name], torch.float32),
+              dequantize(q8[name], torch.float32), dequantize_group(gg[name]), q4["shared.weight"]):
         assert 0.015 < w.std().item() < 0.025  # ~N(0, 0.02) statistics
 
 
@@ -134,17 +140,34 @@ def _flux_inputs(seed, dit, b=2, hw=8, l_txt=12):
     return x, t, ctx, y, g
 
 
-@pytest.mark.parametrize("quant", [False, True])
+def _q4_params(params: dict, group: int, min_size: int) -> dict:
+    """The JAX package's ``quantize_q4`` at ``group`` on every large 2-D
+    weight (``quantize_params(bits=4)``'s rule, which fixes group 64)."""
+    from sdtpu.ops.quant import quantize_q4
+
+    return {k: quantize_q4(np.asarray(v), group=group)
+            if np.ndim(v) == 2 and np.size(v) >= min_size and k.endswith(".weight") else v
+            for k, v in params.items()}
+
+
+@pytest.mark.parametrize("quant", [False, True, "q4_0"])
 def test_flux_forward_matches(quant):
+    """Dense, per-row int8 and q4_0 (4-bit at group 32, a q4_0 GGUF's
+    grid; both sides dequantize the same nibbles and scales in float32)."""
     dit = SMALL[0]
     jcfg = jflux.FluxConfig(**dataclasses.asdict(dit))
     jp = jflux.init_flux_params(jcfg, seed=0)
-    if quant:  # per-row int8 weights: W8A8 in the port, bit-equal per linear
+    if quant == "q4_0":
+        jp = _q4_params(jp, group=32, min_size=1 << 12)
+        assert sum(type(v).__name__ == "Q4Tensor" for v in jp.values()) > 10
+    elif quant:  # per-row int8 weights: W8A8 in the port, bit-equal per linear
         jp = quantize_params(jp, min_size=1 << 12)
     tp = from_jax_params(jp, device="cpu")
+    if quant == "q4_0":
+        assert {v.group for v in tp.values() if isinstance(v, Q4Tensor)} == {32}
     x, t, ctx, y, g = _flux_inputs(1, dit)
     fwd = jax.jit(lambda p, x, t, c, y, g: jflux.flux_forward(p, x, t, c, y, guidance=g, cfg=jcfg))
-    if quant:  # JAX's CPU dispatch would dequantize int8 linears (W8A16): pin W8A8
+    if quant is True:  # JAX's CPU dispatch would dequantize int8 linears (W8A16): pin W8A8
         import unittest.mock
 
         from sdtpu.ops import quant as jq

@@ -19,9 +19,11 @@ import torch
 from sdtpu.ops import basic as jb
 from sdtpu.ops.attention import attention as jattention
 from sdtpu.ops.flash_attention import flash_attention as jflash
+from sdtpu.ops.flash_attention import flash_supported as jflash_supported
 from sdtpu_torch.ops import basic as tb
 from sdtpu_torch.ops.attention import attention as tattention
 from sdtpu_torch.ops.flash_attention import flash_attention as tflash
+from sdtpu_torch.ops.flash_attention import flash_supported as tflash_supported
 from sdtpu_torch.ops.flash_attention import plain_attention
 
 
@@ -161,3 +163,44 @@ def test_plain_attention_casts_probabilities_to_q_dtype():
     got = plain_attention(q, k, v)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
+
+
+# (q shape, mask shape): no mask, [Lq, Lk], [1, 1, Lq, Lk] (the kernel's),
+# then leading dims that are not 1 and a 3-D q (the reference's XLA route)
+ROUTES = [((2, 3, 24, 16), None), ((2, 3, 24, 16), (24, 28)), ((2, 3, 24, 16), (1, 1, 24, 28)),
+          ((2, 3, 24, 16), (2, 1, 24, 28)), ((2, 3, 24, 16), (2, 3, 24, 28)),
+          ((2, 3, 24, 16), (1, 3, 24, 28)), ((6, 24, 16), None), ((6, 24, 16), (24, 28))]
+
+
+def _route_inputs(q_shape, mask_shape):
+    rng = np.random.default_rng(len(q_shape) + (0 if mask_shape is None else sum(mask_shape)))
+    kv_shape = (*q_shape[:-2], 28, q_shape[-1])
+    q = rng.standard_normal(q_shape, dtype=np.float32)
+    k, v = (rng.standard_normal(kv_shape, dtype=np.float32) for _ in range(2))
+    mask = None if mask_shape is None else rng.standard_normal(mask_shape, dtype=np.float32)
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("q_shape,mask_shape", ROUTES)
+def test_flash_supported_matches_reference(q_shape, mask_shape):
+    q, k, v, mask = _route_inputs(q_shape, mask_shape)
+    want = jflash_supported(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            None if mask is None else jnp.asarray(mask))
+    got = tflash_supported(_t(q), _t(k), _t(v), None if mask is None else _t(mask))
+    assert got is want
+    assert got == (len(q_shape) == 4 and (mask_shape is None or all(d == 1 for d in mask_shape[:-2])))
+
+
+@pytest.mark.parametrize("q_shape,mask_shape", [r for r in ROUTES if len(r[0]) == 4])
+def test_attention_route_equals_plain_attention(q_shape, mask_shape):
+    """Whatever route a mask takes, ``attention`` computes the plain softmax
+    attention (on the card the kernel's shapes go to flash, the rest to the
+    plain version, as the reference sends them to XLA); the reference
+    agrees."""
+    q, k, v, mask = _route_inputs(q_shape, mask_shape)
+    tm = None if mask is None else _t(mask)
+    got = tattention(_t(q), _t(k), _t(v), mask=tm)
+    assert torch.equal(got, plain_attention(_t(q), _t(k), _t(v), mask=tm))
+    want = jattention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      mask=None if mask is None else jnp.asarray(mask))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
