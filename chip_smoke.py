@@ -9,7 +9,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the FLUX.1-dev txt2img path (the group-dequant and W8A16
      kernels at the W8A8 shapes, the 4-bit kernel at T5-XXL's shapes at
-     groups 64, 32 and 16 and at the q4_0 DiT's shapes at group 32),
+     groups 64, 32 and 16 and at the q4_0 DiT's shapes at group 32, its
+     M <= 8 GEMV also at groups 16 and 64),
      with a stated tolerance (at flash D 512 also two faults emulated on
      the same inputs, which must exceed it), and the time of both (CUDA events, after
      warm-up); beside them each case's bound (the larger of its operations
@@ -48,8 +49,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      answering a 512² and a 1024² request.
 Every path of phases 5-9 sets the kernels' launch counts to 0 before it runs
 and reads them after: each kernel that path runs must have launched.  The
-4-bit kernel's TMA + wgmma form (M >= 128) is counted apart as well, as
-``q4_matmul_wgmma``.
+4-bit kernel's TMA + wgmma form (M >= 128) and its weight-streaming GEMV
+(M <= 8) are counted apart as well, as ``q4_matmul_wgmma`` and
+``q4_matmul_gemv``; the ``q4_0`` path must run its M = 1 linears through
+the GEMV and no call through the ``mma.sync`` form.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -78,6 +81,7 @@ KERNEL_INFO = {
     "w8a8_matmul": ("sdtpu_torch/csrc/w8a8_matmul.cu", "sdtpu/ops/quant.py:416"),
     "q4_matmul": (Q4_SRC, "sdtpu/ops/quant.py:845"),
     "q4_matmul_wgmma": (Q4_SRC, "sdtpu/ops/quant.py:845"),
+    "q4_matmul_gemv": (Q4_SRC, "sdtpu/ops/quant.py:845"),
     "gq_matmul": (GQ_SRC, "sdtpu/ops/quant.py:616"),
     "gq_matmul_ws": (GQ_SRC, "sdtpu/ops/quant.py:652"),
     "gq_zero_matmul": (GQ_SRC, "sdtpu/ops/quant.py:687"),
@@ -113,14 +117,20 @@ FLASH_CASES = [
 # q4_0 DiT at group 32 (a q4_0 GGUF's blocks): its MLP and linear2 widths at
 # the 1024² request's 4352 tokens (the double blocks run the image's 4096 and
 # the text's 256 apart), linear1 at the 512² request's 1280, img_in (K = 64),
-# the wgmma threshold's edges (127 takes the mma.sync form) and an M = 1
-# modulation linear; groups 16 and 64 at one shape.
+# the wgmma threshold's edges (127 takes the mma.sync form); the GEMV's M = 1
+# linears (double-block and single-block modulation, the embedders' 256- and
+# 768-wide inputs and their 3072-wide second layers), the double block's
+# modulation at M = 2, 4 and 8 (batch, CFG) and at M = 9 (the first
+# mma.sync row); groups 16 and 64 at one large-M and one M = 1 shape.
 Q4_T5_SHAPES = [(256, 4096, 4096), (256, 4096, 10240), (256, 10240, 4096), (77, 640, 1001)]
 Q4_DIT_SHAPES = [(4352, 3072, 12288), (4352, 12288, 3072), (4352, 15360, 3072),
                  (1280, 3072, 21504), (4096, 64, 3072), (127, 3072, 12288), (128, 3072, 12288),
-                 (129, 3072, 12288), (1, 3072, 18432)]
+                 (129, 3072, 12288), (1, 3072, 18432), (1, 3072, 9216), (1, 3072, 3072),
+                 (1, 256, 3072), (1, 768, 3072), (2, 3072, 18432), (4, 3072, 18432),
+                 (8, 3072, 18432), (9, 3072, 18432)]
 Q4_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES] + [(*s, 32) for s in Q4_DIT_SHAPES]
-            + [(4352, 3072, 12288, g) for g in (16, 64)])
+            + [(s, 3072, n, g) for g in (16, 64) for s, n in ((4352, 12288), (1, 18432))])
+Q4_FORMS = ("gemv", "mma", "wgmma")  # sdtpu_q4_form's codes
 Q4_DIT_GROUP = 32
 
 # Why each tolerance:
@@ -182,22 +192,30 @@ LOADER_KQUANT = {"single_blocks.0.linear1.weight": "q6_k", "single_blocks.0.line
 
 # The kernels each path runs; its window must launch every one of them.
 # (The loader's forward decodes no image, so it runs no D 512 attention.)
-# (Every path makes 4-bit calls of M >= 128 rows, T5's 256 tokens at least.)
+# (Every path makes 4-bit calls of M >= 128 rows, T5's 256 tokens at least.
+# The GEMV runs where a DiT linear of M = 1 is 4-bit: the q4_0 DiT's
+# modulation and embedders, and the loader file's q4_0 txt_mod.  Elsewhere
+# T5, at 256 rows a prompt, is the only 4-bit model.)
 Q4 = ("q4_matmul", "q4_matmul_wgmma")
 PATH_KERNELS = {
-    "gguf_loader": ("flash_attention", "w8a8_matmul", *Q4, "gq_matmul", "gq_matmul_ws",
-                    "gq_zero_matmul"),
-    "gguf_file": ("flash_attention", "flash_attention_d512", *Q4, "gq_matmul", "gq_matmul_ws",
-                  "gq_zero_matmul"),
+    "gguf_loader": ("flash_attention", "w8a8_matmul", *Q4, "q4_matmul_gemv", "gq_matmul",
+                    "gq_matmul_ws", "gq_zero_matmul"),
+    "gguf_file": ("flash_attention", "flash_attention_d512", *Q4, "q4_matmul_gemv", "gq_matmul",
+                  "gq_matmul_ws", "gq_zero_matmul"),
     "int8": ("flash_attention", "flash_attention_d512", "w8a8_matmul", *Q4),
     "w8a16": ("flash_attention", "flash_attention_d512", "w8a16_matmul", *Q4),
     "q8_0_gguf": ("flash_attention", "flash_attention_d512", "gq_matmul", "gq_matmul_ws", *Q4),
-    "q4_0": ("flash_attention", "flash_attention_d512", *Q4),
+    "q4_0": ("flash_attention", "flash_attention_d512", *Q4, "q4_matmul_gemv"),
 }
 # ... and none of these (the mode switch and the memory class hold)
-PATH_IDLE = {"w8a16": ("w8a8_matmul",), "q8_0_gguf": ("w8a8_matmul", "w8a16_matmul"),
+PATH_IDLE = {"int8": ("q4_matmul_gemv",), "w8a16": ("w8a8_matmul", "q4_matmul_gemv"),
+             "q8_0_gguf": ("w8a8_matmul", "w8a16_matmul", "q4_matmul_gemv"),
              "gguf_file": ("w8a8_matmul", "w8a16_matmul"),
              "q4_0": ("w8a8_matmul", "w8a16_matmul", "gq_matmul", "gq_matmul_ws", "gq_zero_matmul")}
+# The q4_0 DiT's M = 1 linears per forward: 2 x 19 double-block and 38
+# single-block modulations, the final adaLN and the three embedders' two
+# layers each; one forward a denoise step at cfg_scale 1.
+Q4_M1_PER_STEP = 2 * 19 + 38 + 1 + 3 * 2
 
 INT8_REQUESTS = [
     dict(prompt="a photograph of an astronaut riding a horse", width=512, height=512,
@@ -445,8 +463,9 @@ def _int4pack_library(x, qt, want):
 
 def check_q4(results):
     """Each Q4_CASES shape with random packed bytes and random scales (a
-    wrong nibble or group index shows); ``tile_rows`` is the x-row tile the
-    launcher gave the wgmma form (0: the mma.sync form)."""
+    wrong nibble or group index shows); ``form`` is the form the library
+    ran (``Q4_FORMS``) and ``tile_rows`` the x-row tile the launcher gave the
+    wgmma form (0: another form)."""
     import torch
 
     from sdtpu_torch.ops import _build, quant
@@ -470,6 +489,7 @@ def check_q4(results):
                  iters_for(2.0 * m * n * k),
                  bound(2.0 * m * n * k, nbytes(x, qt.packed, qt.scale, got), "bf16"),
                  library=library, library_note=note, group=group,
+                 form=Q4_FORMS[_build.query("sdtpu_q4_form", m)],
                  tile_rows=_build.query("sdtpu_q4_tile_rows", m, n))
         del x, qt, got, want, library
 
@@ -942,10 +962,11 @@ def main() -> int:
         raise RuntimeError(f"small-input reference check failed: {ref}")
 
     # each kernel's launch counter: (wrapper, attribute); the D 512 kernel and
-    # the 4-bit wgmma form are counted apart by their wrappers
+    # the 4-bit wgmma form and GEMV are counted apart by their wrappers
     wrappers = {"flash_attention": (flash_attention.flash_attention, "launches"),
                 "flash_attention_d512": (flash_attention.flash_attention, "launches_d512"),
-                "q4_matmul_wgmma": (quant.q4_matmul, "launches_wgmma")}
+                "q4_matmul_wgmma": (quant.q4_matmul, "launches_wgmma"),
+                "q4_matmul_gemv": (quant.q4_matmul, "launches_gemv")}
     for name, fn in (("w8a8_matmul", quant.quant_matmul_w8a8), ("q4_matmul", quant.q4_matmul),
                      ("gq_matmul", quant.gq_matmul), ("gq_matmul_ws", quant.gq_matmul_ws),
                      ("gq_zero_matmul", quant.gq_zero_matmul), ("w8a16_matmul", quant.w8a16_matmul)):
@@ -996,8 +1017,12 @@ def main() -> int:
     rep, launches["q4_0"] = _windowed(wrappers, "q4_0",
                                       lambda: answer(pipe, GGUF_REQUESTS, card, "q4_0"))
     reports += rep
-    if launches["q4_0"]["q4_matmul"] <= launches["q4_0"]["q4_matmul_wgmma"]:
-        raise RuntimeError("path q4_0: no 4-bit launch took the mma.sync form (the M = 1 linears)")
+    q4c = launches["q4_0"]
+    m1_calls = Q4_M1_PER_STEP * sum(r["sample_steps"] for r in GGUF_REQUESTS)
+    mma_calls = q4c["q4_matmul"] - q4c["q4_matmul_wgmma"] - q4c["q4_matmul_gemv"]
+    if q4c["q4_matmul_gemv"] != m1_calls or mma_calls:
+        raise RuntimeError(f"path q4_0: {q4c['q4_matmul_gemv']} GEMV launches, not the {m1_calls} "
+                           f"M = 1 linears, and {mma_calls} mma.sync launches, not 0")
     if args.profile:
         prof["q4_0"] = profile_request(pipe, GGUF_REQUESTS[-1], args.profile, "q4_0", card)
     del pipe
@@ -1006,14 +1031,15 @@ def main() -> int:
                 "flash_attention_d512": ([1, 1, 4096, 4096, 512], {}),
                 "w8a8_matmul": ([4352, 3072, 12288], {}),
                 "q4_matmul": ([256, 4096, 10240], {"group": 64}),
-                "q4_matmul_wgmma": ([4352, 3072, 12288], {"group": 32})}
+                "q4_matmul_wgmma": ([4352, 3072, 12288], {"group": 32}),
+                "q4_matmul_gemv": ([1, 3072, 18432], {"group": 32})}
     for name in ("gq_matmul", "gq_matmul_ws", "gq_zero_matmul"):
         headline[name] = ([4352, 3072, 12288], {"group": 32, "dtype": "bf16"})
     headline["w8a16_matmul"] = ([4352, 3072, 12288], {})
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
-        mine = [c for c in cases if c["kernel"] == name or (  # the wgmma form's own cases
-            name == "q4_matmul_wgmma" and c["kernel"] == "q4_matmul" and c["tile_rows"])]
+        mine = [c for c in cases if c["kernel"] == name or (  # the wgmma form's and GEMV's own cases
+            c["kernel"] == "q4_matmul" and name == f"q4_matmul_{c['form']}")]
         shape, extra = headline[name]
         head = next(c for c in mine if c["shape"] == shape
                     and all(c.get(k) == v for k, v in extra.items()))

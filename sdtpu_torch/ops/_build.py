@@ -52,8 +52,10 @@ SIGNATURES = {
 QUERIES = {
     # dtype, bh, lq, lk, d -> bytes of f32 scratch
     "sdtpu_flash_workspace_bytes": ((_I, _I, _I, _I, _I), ctypes.c_longlong),
-    # m, n -> x rows per block of the 4-bit wgmma kernel (0: the mma.sync form)
+    # m, n -> x rows per block of the 4-bit wgmma kernel (0: another form runs)
     "sdtpu_q4_tile_rows": ((_I, _I), ctypes.c_longlong),
+    # m -> the 4-bit form for m rows: 0 the GEMV, 1 the mma.sync form, 2 the wgmma kernel
+    "sdtpu_q4_form": ((_I,), ctypes.c_longlong),
 }
 
 

@@ -43,6 +43,7 @@ Q4_GROUPS = (16, 32, 64)
 Q4_K_MULTIPLE = 64  # the 4-bit kernel's K tile: packed rows are padded to it
 Q4_MIN_K = 512  # symmetric 4-bit-range blocks with K >= this pack to Q4Tensor (JAX block_k)
 Q4_WGMMA_MIN_M = 128  # q4_matmul calls with at least this many rows run the wgmma kernel (kQ4MinM)
+Q4_GEMV_MAX_M = 8  # q4_matmul calls with at most this many rows run the GEMV (kQ4GemvMaxM)
 GQ_GROUPS = (16, 32)
 # group_quant_matmul: symmetric bf16 calls with at least this many rows go
 # through gq_matmul_ws (FLUX image tokens); M = 1 (modulation), M = 256 (text
@@ -372,8 +373,11 @@ def q4_matmul_plain(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
 def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
     """x [..., K] × packed 4-bit weight (logical [N, K]) → [..., N] in x.dtype.
 
-    Calls of at least ``Q4_WGMMA_MIN_M`` rows run the TMA + wgmma kernel and
-    are counted in ``launches_wgmma`` as well as ``launches``."""
+    Three forms, chosen by the row count M alone: calls of at most
+    ``Q4_GEMV_MAX_M`` rows run the weight-streaming GEMV (counted in
+    ``launches_gemv``), calls of at least ``Q4_WGMMA_MIN_M`` rows the TMA +
+    wgmma kernel (``launches_wgmma``), the rest the ``mma.sync`` form; every
+    launch counts in ``launches``."""
     if x.device.type == "cpu":
         return q4_matmul_plain(x, qt)
     if x.dtype != torch.bfloat16:
@@ -390,12 +394,14 @@ def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
     _build.launch("sdtpu_q4_matmul", x2.data_ptr(), qt.packed.data_ptr(), qt.scale.data_ptr(),
                   out.data_ptr(), m, n, k, kp, qt.group, _build.stream_ptr(x))
     q4_matmul.launches += 1
-    if m >= Q4_WGMMA_MIN_M:
+    if m <= Q4_GEMV_MAX_M:
+        q4_matmul.launches_gemv += 1
+    elif m >= Q4_WGMMA_MIN_M:
         q4_matmul.launches_wgmma += 1
     return out.reshape(*x.shape[:-1], n)
 
 
-q4_matmul.launches = q4_matmul.launches_wgmma = 0
+q4_matmul.launches = q4_matmul.launches_wgmma = q4_matmul.launches_gemv = 0
 
 
 # ------------------------------------------------------------- group quant

@@ -162,6 +162,49 @@ def test_q4_wgmma_kernel_matches_plain(cuda, group, m, k, n):
     assert (got.float() - want.float()).abs().max().item() <= 2 ** -6 * want.float().abs().max().item()
 
 
+# M <= 8 takes the weight-streaming GEMV: N off the 16-row block (2, 77,
+# 130), K off the 64-wide K tile (200, the padded nibbles random), a row of
+# Kp / 2 = 544 bytes whose last 64-byte segment is half past the row (1040;
+# at K = 64 the only segment is), the DiT's modulation widths, and a K whose
+# x rows would not fit shared memory whole (15360)
+Q4_GEMV_SHAPES = [(64, 2), (200, 77), (1040, 130), (3072, 3072), (3072, 18432), (15360, 3072)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [16, 32, 64])
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+@pytest.mark.parametrize("k,n", Q4_GEMV_SHAPES)
+def test_q4_gemv_kernel_matches_plain(cuda, group, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n + group)
+    x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
+    qt = _q4_weight(g, n, k, group, cuda)
+    counts = ("launches", "launches_gemv", "launches_wgmma")
+    before = [getattr(quant.q4_matmul, c) for c in counts]
+    got = quant.q4_matmul(x, qt)
+    assert [getattr(quant.q4_matmul, c) for c in counts] == [before[0] + 1, before[1] + 1, before[2]]
+    want = quant.q4_matmul_plain(x, qt)
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -6 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_q4_form_by_rows(cuda):
+    """The library picks the form by M alone (0 the GEMV, 1 mma.sync, 2
+    wgmma), and the wrapper counts the form the library ran."""
+    edges = (1, quant.Q4_GEMV_MAX_M, quant.Q4_GEMV_MAX_M + 1, quant.Q4_WGMMA_MIN_M - 1,
+             quant.Q4_WGMMA_MIN_M)
+    assert [_build.query("sdtpu_q4_form", m) for m in edges] == [0, 0, 1, 1, 2]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qt = _q4_weight(g, 256, 512, 32, cuda)
+    for m in edges:
+        x = torch.randn((m, 512), generator=g, device=cuda, dtype=torch.bfloat16)
+        before = (quant.q4_matmul.launches_gemv, quant.q4_matmul.launches_wgmma)
+        quant.q4_matmul(x, qt)
+        form = _build.query("sdtpu_q4_form", m)
+        assert (quant.q4_matmul.launches_gemv, quant.q4_matmul.launches_wgmma) == (
+            before[0] + (form == 0), before[1] + (form == 2))
+
+
 @pytest.mark.cuda
 def test_q4_tile_choice_by_shape(cuda):
     """The launcher's x-row tile is a function of the shape alone; the card
@@ -310,7 +353,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 def test_cpu_tensors_run_the_plain_versions_without_launching():
     counts = (fa.flash_attention.launches, quant.quant_matmul_w8a8.launches,
-              quant.q4_matmul.launches, quant.q4_matmul.launches_wgmma)
+              quant.q4_matmul.launches, quant.q4_matmul.launches_wgmma,
+              quant.q4_matmul.launches_gemv)
     q = torch.randn((1, 2, 8, 64))
     assert torch.equal(fa.flash_attention(q, q, q), fa.plain_attention(q, q, q))
     x = torch.randn((3, 32))
@@ -321,8 +365,11 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     assert torch.equal(quant.q4_matmul(x4, q4), quant.q4_matmul_plain(x4, q4))
     x4 = torch.randn((quant.Q4_WGMMA_MIN_M, 64))  # the wgmma form's M, on the CPU
     assert torch.equal(quant.q4_matmul(x4, q4), quant.q4_matmul_plain(x4, q4))
+    x4 = torch.randn((1, 64))  # the GEMV's M, on the CPU
+    assert torch.equal(quant.q4_matmul(x4, q4), quant.q4_matmul_plain(x4, q4))
     assert counts == (fa.flash_attention.launches, quant.quant_matmul_w8a8.launches,
-                      quant.q4_matmul.launches, quant.q4_matmul.launches_wgmma)
+                      quant.q4_matmul.launches, quant.q4_matmul.launches_wgmma,
+                      quant.q4_matmul.launches_gemv)
     assert _build.library.cache_info().currsize == 0
 
 

@@ -158,11 +158,14 @@ def test_repack_q4_reads_fields_directly():
     assert torch.equal(a.packed, b.packed) and torch.equal(a.scale, b.scale)
 
 
-@pytest.mark.parametrize("m,k,n", [(3, 512, 40), (70, 1024, 96)])
-def test_q4_plain_matches_xla_form(m, k, n):
+@pytest.mark.parametrize("m,k,n,group", [
+    pytest.param(3, 512, 40, 64, id="3-512-40"), pytest.param(70, 1024, 96, 64, id="70-1024-96"),
+    # one modulation row at the DiT's K on a q4_0 GGUF's group-32 grid (the GEMV's case)
+    pytest.param(1, 3072, 48, 32, id="1-3072-48-g32")])
+def test_q4_plain_matches_xla_form(m, k, n, group):
     rng = np.random.default_rng(8)
     x = rng.standard_normal((m, k)).astype(np.float32)
-    qj = jq.quantize_q4(rng.standard_normal((n, k)).astype(np.float32) * 0.05)
+    qj = jq.quantize_q4(rng.standard_normal((n, k)).astype(np.float32) * 0.05, group=group)
     want = np.asarray(jq.q4_matmul(jnp.asarray(x), qj))
     got = tq.q4_matmul(torch.from_numpy(x), from_jax_params({"w": qj}, device="cpu")["w"]).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
