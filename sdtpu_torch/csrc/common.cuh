@@ -47,6 +47,16 @@ __device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// 16 bytes of a weight that is read once (the GEMVs' stream): through the
+// non-coherent path, cached in L2 only.
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -60,6 +70,194 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 }
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// ------------------------------------------------------------------------
+// Weight-streaming GEMV for few rows of x (M <= kGemvMaxM = 8: the DiT's
+// modulation and embedder linears, whose M is the batch, doubled under
+// CFG): out[m, n] = sum_k x[m, k] * w[n, k], w a quantized weight read once.
+// Its bound is the weight's bytes, so its job is to keep enough 16-byte
+// loads in flight while the widening overlaps them.  The 4-bit form
+// (q4_matmul.cu) and the int8 forms (gq_matmul.cu) differ only in the
+// widening policy W and in their warp count and batch depth.
+//
+// A block owns 16 weight rows (the mma.sync M) and all of K; each of its
+// warps takes a contiguous run of 64-byte row segments.  Each lane loads 16
+// bytes of its rows g and g + 8 per segment straight into registers
+// (ld.global.nc, not kept in L1; no shared memory, no TMA), Unroll segments
+// a batch, and issues the next batch's loads before it widens the current
+// one.  The mma's K is relabelled so that a lane's own bytes are its own A
+// fragment: each 4-byte word j of its 16 feeds W::kKPerByte k16 steps, and
+// its B fragment is the x values at the same k, 8 bytes of x row g a step
+// (x rows are the mma's N = 8; rows past M are zero).  A dot product does not
+// care which physical k a fragment slot holds as long as A and B agree, so
+// no shuffle and no shared memory is needed.  x is read through L1, where it
+// stays (at most 8 x 15360 bf16).  Each warp's 16 x 8 f32 partial goes to
+// shared memory and one pass sums the warps in warp order: deterministic, no
+// workspace, no atomics, one launch.
+//
+// The policy W gives:
+//   kKPerByte      weights a byte (2: packed nibbles, 1: int8);
+//   kGroupScale    a f32 scale a row and group of G weights, passed to widen;
+//   kSumScale      a f32 scale a row, multiplying the f32 sum (G unused);
+//   kZeroWord      a word whose weights are all zero (rows past N, bytes past
+//                  the row's end; their scale is 0 as well);
+//   widen(w, s, r) one word (4 kKPerByte weights) -> 2 kKPerByte bf16x2
+//                  registers, r[i] holding the word's weights 2i and 2i + 1.
+constexpr int kGemvMaxM = 8;   // x rows: the mma's N
+constexpr int kGemvRows = 16;  // weight rows per block: the mma's M
+constexpr int kGemvSeg = 64;   // bytes of a weight row per segment: 16 a lane
+
+// out[m, n0 + r] for the block's 16 weight rows and all M <= 8 x rows.  w is
+// [n, kp / kKPerByte] bytes; scale [n, kp / G] (kGroupScale) or [n]
+// (kSumScale); x [m, k] with k <= kp and k % 8 == 0.
+template <class W, int G, int Warps, int Unroll>
+__device__ __forceinline__ void weight_gemv(const __nv_bfloat16* __restrict__ x,
+                                            const uint8_t* __restrict__ w,
+                                            const float* __restrict__ scale,
+                                            __nv_bfloat16* __restrict__ out, int m, int n, int k,
+                                            int kp) {
+  static_assert(Warps * 32 >= kGemvMaxM * kGemvRows, "gemv: one thread per output");
+  constexpr int kKB = W::kKPerByte;
+  constexpr int kSegK = kGemvSeg * kKB;  // k per segment
+  constexpr int kLaneK = 16 * kKB;       // k per lane and segment
+  // scales a lane needs per row and segment (its k lie in one group unless
+  // the group is smaller than its k), and a row's scales per segment
+  constexpr int kLaneScales = !W::kGroupScale ? 0 : kLaneK > G ? kLaneK / G : 1;
+  constexpr int kSegScales = W::kGroupScale ? kSegK / G : 0;
+  __shared__ float part[Warps][kGemvMaxM][kGemvRows];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int n0 = blockIdx.x * kGemvRows;
+  const int row_bytes = kp / kKB;
+  const int segs = (row_bytes + kGemvSeg - 1) / kGemvSeg;
+  // warp w owns segments [seg0, seg1): a contiguous run of each row
+  const int per = (segs + Warps - 1) / Warps;
+  const int seg0 = min(segs, warp * per), seg1 = min(segs, seg0 + per);
+  // This lane's weight rows n0 + g and n0 + g + 8 (a row past N reads
+  // nothing) and x row g (a row past M gives zero B fragments), at the
+  // warp's first segment: 16 bytes at 16 tq, k from kLaneK tq.
+  const bool live0 = n0 + g < n, live1 = n0 + g + 8 < n, xlive = g < m;
+  const size_t row0 = live0 ? n0 + g : 0, row1 = live1 ? n0 + g + 8 : 0;
+  const int kl = seg0 * kSegK + kLaneK * tq;
+  const uint8_t* wp0 = w + row0 * row_bytes + seg0 * kGemvSeg + 16 * tq;
+  const uint8_t* wp1 = w + row1 * row_bytes + seg0 * kGemvSeg + 16 * tq;
+  const float* sp0 = scale + (W::kGroupScale ? row0 * (kp / G) + kl / G : 0);
+  const float* sp1 = scale + (W::kGroupScale ? row1 * (kp / G) + kl / G : 0);
+  const __nv_bfloat16* xp = x + (xlive ? g : 0) * static_cast<size_t>(k) + kl;
+  const bool rows_full = n0 + kGemvRows <= n;
+
+  // One batch: segments s .. s + Unroll - 1 of the warp's run, every load
+  // issued before any is used.  `full`: every row lies inside N and every x
+  // inside K, so nothing is checked.  Otherwise a lane's 16 bytes past the
+  // row's end (the last segment of a row whose length is not a multiple of
+  // 64 bytes) or past N are kZeroWord with scale 0, exactly zero, and x past
+  // K or M is zero.
+  constexpr int kScaleSlots = kLaneScales > 0 ? kLaneScales : 1;
+  using Batch = uint4[Unroll][2];                // [segment][row g, g + 8]
+  using Scales = float[Unroll][2][kScaleSlots];  // [segment][row][group]
+  auto batch_full = [&](int s) {
+    return rows_full && (s + Unroll) * kSegK <= k && s + Unroll <= seg1;
+  };
+  auto load = [&](int s, Batch& wb, Scales& sb, bool full) {
+    const int d = s - seg0;
+    const uint4 zero = make_uint4(W::kZeroWord, W::kZeroWord, W::kZeroWord, W::kZeroWord);
+#pragma unroll
+    for (int u = 0; u < Unroll; ++u) {
+      const int seg = s + u;
+      const bool in = full || (seg < seg1 && seg * kGemvSeg + 16 * tq < row_bytes);
+      const bool in0 = full || (in && live0), in1 = full || (in && live1);
+      wb[u][0] = in0 ? ld_stream(wp0 + (d + u) * kGemvSeg) : zero;
+      wb[u][1] = in1 ? ld_stream(wp1 + (d + u) * kGemvSeg) : zero;
+#pragma unroll
+      for (int i = 0; i < kLaneScales; ++i) {
+        sb[u][0][i] = in0 ? __ldg(sp0 + (d + u) * kSegScales + i) : 0.f;
+        sb[u][1][i] = in1 ? __ldg(sp1 + (d + u) * kSegScales + i) : 0.f;
+      }
+    }
+  };
+
+  // acc[c]: rows (g, g + 8) x x rows (2tq, 2tq + 1), the mma's C fragment;
+  // two chains (even and odd k16 steps), summed at the end
+  float acc[2][4] = {};
+  auto compute = [&](int s, const Batch& wb, const Scales& sb, bool full) {
+    const int d = s - seg0;
+#pragma unroll
+    for (int u = 0; u < Unroll; ++u) {
+      if (s + u >= seg1) break;  // the same for the whole warp
+      // the lane's 16 bytes hold k = kx .. kx + kLaneK - 1
+      const int kx = (s + u) * kSegK + kLaneK * tq;
+      const __nv_bfloat16* xu = xp + (d + u) * kSegK;
+      uint32_t xw[kLaneK / 2];  // x at those k, bf16x2
+#pragma unroll
+      for (int j = 0; j < kLaneK / 8; ++j) {
+        const uint4 v = xlive && (full || kx + 8 * j < k)
+                            ? __ldg(reinterpret_cast<const uint4*>(xu + 8 * j))
+                            : make_uint4(0, 0, 0, 0);
+        xw[4 * j] = v.x, xw[4 * j + 1] = v.y, xw[4 * j + 2] = v.z, xw[4 * j + 3] = v.w;
+      }
+      const uint32_t w0[4] = {wb[u][0].x, wb[u][0].y, wb[u][0].z, wb[u][0].w};
+      const uint32_t w1[4] = {wb[u][1].x, wb[u][1].y, wb[u][1].z, wb[u][1].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // word j: k = kx + 4 kKB j ..; k16 step t takes its weights 4t .. 4t
+        // + 3, (4t, 4t + 1) in the fragment's slots 2tq.., (4t + 2, 4t + 3)
+        // in slots 2tq + 8..
+        const int si = j * kLaneScales / 4;
+        uint32_t a0[2 * kKB], a1[2 * kKB];
+        W::widen(w0[j], W::kGroupScale ? sb[u][0][si] : 1.f, a0);
+        W::widen(w1[j], W::kGroupScale ? sb[u][1][si] : 1.f, a1);
+#pragma unroll
+        for (int t = 0; t < kKB; ++t) {
+          const uint32_t a[4] = {a0[2 * t], a1[2 * t], a0[2 * t + 1], a1[2 * t + 1]};
+          const uint32_t b[2] = {xw[2 * (j * kKB + t)], xw[2 * (j * kKB + t) + 1]};
+          mma_bf16_16816(acc[(j * kKB + t) & 1], a, b);
+        }
+      }
+    }
+  };
+
+  // Software pipeline: the next batch's loads are in flight while this one
+  // is widened.
+  Batch wv;
+  Scales sc;
+  bool full = batch_full(seg0);
+  if (seg0 < seg1) load(seg0, wv, sc, full);
+  for (int s = seg0; s < seg1; s += Unroll) {
+    Batch cw;
+    Scales csc;
+#pragma unroll
+    for (int u = 0; u < Unroll; ++u)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        cw[u][r] = wv[u][r];
+#pragma unroll
+        for (int i = 0; i < kLaneScales; ++i) csc[u][r][i] = sc[u][r][i];
+      }
+    const bool cfull = full;
+    const int next = s + Unroll;
+    if (next < seg1) {
+      full = batch_full(next);
+      if (full) load(next, wv, sc, true); else load(next, wv, sc, false);
+    }
+    if (cfull) compute(s, cw, csc, true); else compute(s, cw, csc, false);
+  }
+
+  part[warp][2 * tq][g] = acc[0][0] + acc[1][0];
+  part[warp][2 * tq + 1][g] = acc[0][1] + acc[1][1];
+  part[warp][2 * tq][g + 8] = acc[0][2] + acc[1][2];
+  part[warp][2 * tq + 1][g + 8] = acc[0][3] + acc[1][3];
+  __syncthreads();
+  if (threadIdx.x < kGemvMaxM * kGemvRows) {
+    const int mm = threadIdx.x / kGemvRows, r = threadIdx.x % kGemvRows;
+    if (mm < m && n0 + r < n) {
+      float sum = 0.f;
+#pragma unroll
+      for (int wp = 0; wp < Warps; ++wp) sum += part[wp][mm][r];
+      if constexpr (W::kSumScale) sum = __fmul_rn(sum, scale[n0 + r]);
+      out[static_cast<size_t>(mm) * n + n0 + r] = __float2bfloat16_rn(sum);
+    }
+  }
+}
 
 // ------------------------------------------------------------------------
 // Hopper (sm_90a): mbarrier, TMA and wgmma as inline PTX.

@@ -6,8 +6,11 @@
 //   `_gq_matmul_ws_kernel`   (sdtpu/ops/quant.py:652) -> sdtpu_gq_matmul_ws
 //   `_gq_zero_matmul_kernel` (sdtpu/ops/quant.py:687) -> sdtpu_gq_zero_matmul
 //   `_q_matmul_kernel`       (sdtpu/ops/quant.py:525) -> sdtpu_w8a16_matmul
-// each through `gq_wgmma_kernel<Mode, G>` for bf16 activations with M >=
-// kGqMinM rows, `gq_gemm_kernel<Mode, G>` below that, and, for float32
+// each through a form chosen by dtype, mode and the row count M alone
+// (`gq_form`, exported as sdtpu_gq_form): `gq_wgmma_kernel<Mode, G>` for
+// bf16 activations with M >= kGqMinM rows, `gq_gemv_kernel<Mode, G>` for
+// bf16 with M <= kGqGemvMaxM in the group and W8A16 modes,
+// `gq_gemm_kernel<Mode, G>` for the rest of bf16, and, for float32
 // activations, the parity kernel `gq_gemm_f32_kernel`.
 //
 // Weights are int8 [N, Kp] rows (the port's layout; the TPU stored the
@@ -49,11 +52,33 @@
 // weight-stationary variant has nothing left to save: its entry launches
 // the same kernels.  No scratch grows with M.
 //
-// Small M (M < kGqMinM: M = 1 modulation, a few text tokens at most) and
-// every float32 call: the first form, tiles loaded synchronously (global ->
-// registers -> shared, then a barrier) and mma.sync m16n8k16.  x is
-// row-major [M, K] with K a multiple of 8; rows, columns and K past the edge
-// are zero-filled.
+// Few rows (M <= kGqGemvMaxM = 8), group and W8A16 modes:
+// `gq_gemv_kernel`, common.cuh's weight-streaming `weight_gemv` with an int8
+// widening (about three instructions a weight: a byte permute under 2^23
+// and an exact subtract give q in f32, __fmul_rn by the scale for kGroup,
+// half a bf16x2 pack), half the 4-bit form's per streamed byte.  Its bound
+// is the int8 bytes (and, for kGroup, the f32 scales: 1.125 bytes a weight
+// at G = 32), 0.0169 ms for a 3072->18432 W8A16 modulation linear.  A
+// lane's 16 bytes lie in one scale group (G = 16 or 32): one f32 scale a
+// lane and row.  Four warps of two-segment batches won on the card over
+// the DiT's mix a step, 38 launches each at 3072->18432 and 3072->9216, on
+// the device clock (sdtpu_torch/tools/time_dequant.py on trees differing in
+// these two constants, in turns, before the GEMVs shared one template;
+// NVIDIA H100 80GB HBM3, 700.00 W): 1.46 ms for kGroup and 1.60 for
+// kRowScale, against 1.68 / 1.49 for eight warps of two segments, 1.80 /
+// 1.69 for eight warps of one (the 4-bit form's choice), 1.98 / 1.53 for
+// four warps of one and 1.66 / 1.73 for four warps of four.  Unlike the
+// 4-bit form, deeper batches pay: the widening costs half as much per
+// streamed byte.  The rest is how whole 16-row blocks fill the SMs' slots:
+// in the shared template kGroup takes 96 registers (5 blocks of 128 threads
+// an SM) and kRowScale 80 (6; 72 and 7 in its own kernel, which ran
+// 3072->18432 in 0.0288 ms against 0.0261 now, and 3072->9216 alike).
+//
+// The rest of bf16 below kGqMinM (M 9-127, and the affine mode at any small
+// M) and every float32 call: the first form, tiles loaded synchronously
+// (global -> registers -> shared, then a barrier) and mma.sync m16n8k16.  x
+// is row-major [M, K] with K a multiple of 8; rows, columns and K past the
+// edge are zero-filled.
 #include "common.cuh"
 
 namespace sdtpu {
@@ -504,14 +529,74 @@ cudaError_t launch_gq_wgmma(const void* x, const void* q, const float* scale, co
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- M <= 8: GEMV
+
+constexpr int kGqGemvMaxM = kGemvMaxM;  // bf16 calls with at most this many rows take the GEMV
+constexpr int kGqGemvWarps = 4;         // warps per block, splitting K
+constexpr int kGqGemvUnroll = 2;        // segments a batch: a warp's loads run a batch ahead
+
+// weight_gemv's policy for int8: four weights (k .. k + 3, bytes 0-3 of w)
+// -> the bf16x2 registers (k, k + 1) and (k + 2, k + 3).  Each q is exact in
+// f32: the byte made offset binary (q + 128) and permuted under the exponent
+// of 2^23, then 2^23 + 128 subtracted.  kGroup multiplies by the group's
+// scale in f32 (__fmul_rn: no contraction), so the one bf16 rounding gives
+// the plain version's weight; kRowScale's q is exact in bf16, and the f32
+// sum is multiplied by scale[n].
+template <int Mode>
+struct WidenI8 {
+  static_assert(Mode == kGroup || Mode == kRowScale, "gq gemv: the affine mode keeps mma.sync");
+  static constexpr int kKPerByte = 1;
+  static constexpr bool kGroupScale = Mode == kGroup, kSumScale = Mode == kRowScale;
+  static constexpr uint32_t kZeroWord = 0;
+  static __device__ __forceinline__ void widen(uint32_t w, float s, uint32_t (&r)[2]) {
+    const uint32_t u = w ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[i] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u | i)), 8388736.f);
+      if constexpr (kGroupScale) f[i] = __fmul_rn(f[i], s);
+    }
+    r[0] = pack_bf16x2(f[0], f[1]);
+    r[1] = pack_bf16x2(f[2], f[3]);
+  }
+};
+
+// kGroup: scale f32 [n, kp / G]; kRowScale (G unused): scale f32 [n].
+template <int Mode, int G>
+__global__ void __launch_bounds__(kGqGemvWarps * 32)
+gq_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+               const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int m, int n,
+               int k, int kp) {
+  weight_gemv<WidenI8<Mode>, G, kGqGemvWarps, kGqGemvUnroll>(
+      x, reinterpret_cast<const uint8_t*>(q), scale, out, m, n, k, kp);
+}
+
+template <int Mode, int G>
+cudaError_t launch_gq_gemv(const void* x, const void* q, const float* scale, void* out, int m,
+                           int n, int k, int kp, cudaStream_t stream) {
+  gq_gemv_kernel<Mode, G><<<ceil_div(n, kGemvRows), kGqGemvWarps * 32, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q), scale,
+      static_cast<__nv_bfloat16*>(out), m, n, k, kp);
+  return cudaGetLastError();
+}
+
+// The form a call of m rows takes, by shape alone: 0 the GEMV (bf16, M <=
+// kGqGemvMaxM, not affine), 1 the mma.sync form, 2 the wgmma kernel (bf16,
+// M >= kGqMinM), 3 the float32 parity kernel; -1 a dtype no kernel takes.
+int gq_form(int dtype, int mode, int m) {
+  if (dtype == kF32) return 3;
+  if (dtype != kBF16) return -1;
+  if (m <= kGqGemvMaxM && mode != kGroupZero) return 0;
+  return m >= kGqMinM ? 2 : 1;
+}
+
 bool group_shape_ok(int m, int n, int k, int kp, int group) {
   return m > 0 && n > 0 && k > 0 && k % 8 == 0 && k <= kp && (group == 16 || group == 32) &&
          kp % group == 0;
 }
 
-// bf16 with M >= kGqMinM: the wgmma kernel; smaller bf16 M: the mma.sync
-// form; float32: the parity kernel.  The choice is by shape only: a refused
-// launch is returned, never retried on another kernel.
+// The form gq_form names, by shape only: a refused launch is returned,
+// never retried on another kernel.
 template <int Mode>
 cudaError_t launch_group(int dtype, const void* x, const void* q, const void* scale,
                          const void* zero, void* out, int m, int n, int k, int kp, int group,
@@ -521,14 +606,20 @@ cudaError_t launch_group(int dtype, const void* x, const void* q, const void* sc
   const int8_t* qi = static_cast<const int8_t*>(q);
   const float* sc = static_cast<const float*>(scale);
   const float* zr = static_cast<const float*>(zero);
-  if (dtype == kBF16 && m >= kGqMinM) {
+  const int form = gq_form(dtype, Mode, m);
+  if constexpr (Mode != kGroupZero) {
+    if (form == 0)
+      return group == 16 ? launch_gq_gemv<Mode, 16>(x, q, sc, out, m, n, k, kp, s)
+                         : launch_gq_gemv<Mode, 32>(x, q, sc, out, m, n, k, kp, s);
+  }
+  if (form == 2) {
     return launch_gq_wgmma<Mode>(x, q, sc, zr, out, m, n, k, kp, group, s);
-  } else if (dtype == kBF16) {
+  } else if (form == 1) {
     auto kernel = group == 16 ? gq_gemm_kernel<Mode, 16> : gq_gemm_kernel<Mode, 32>;
     kernel<<<dim3(ceil_div(n, kBN), ceil_div(m, kBM)), kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), qi, sc, zr, static_cast<__nv_bfloat16*>(out), m,
         n, k, kp);
-  } else if (dtype == kF32) {
+  } else if (form == 3) {
     auto kernel = group == 16 ? gq_gemm_f32_kernel<Mode, 16> : gq_gemm_f32_kernel<Mode, 32>;
     kernel<<<dim3(ceil_div(n, kFBN), ceil_div(m, kFBM)), kThreads, 0, s>>>(
         static_cast<const float*>(x), qi, sc, zr, static_cast<float*>(out), m, n, k, kp);
@@ -570,17 +661,26 @@ extern "C" int sdtpu_gq_matmul_ws(int dtype, const void* x, const void* q, const
 }
 
 // W8A16: x bf16 [m, k]; q int8 [n, k]; scale f32 [n] -> out bf16 [m, n],
-// out = (sum_k x * q) * scale[n].  Needs k % 16 == 0.
+// out = (sum_k x * q) * scale[n].  Needs k % 16 == 0.  The form is
+// gq_form's for kRowScale.
 extern "C" int sdtpu_w8a16_matmul(const void* x, const void* q, const void* scale, void* out,
                                   int m, int n, int k, void* stream) {
   using namespace sdtpu;
   if (m <= 0 || n <= 0 || k <= 0 || k % 16) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m >= kGqMinM)
-    return launch_gq_wgmma<kRowScale>(x, q, static_cast<const float*>(scale), nullptr, out, m, n, k,
-                                      k, 32, s);
+  const float* sc = static_cast<const float*>(scale);
+  const int form = gq_form(kBF16, kRowScale, m);
+  if (form == 0) return launch_gq_gemv<kRowScale, 1>(x, q, sc, out, m, n, k, k, s);
+  if (form == 2) return launch_gq_wgmma<kRowScale>(x, q, sc, nullptr, out, m, n, k, k, 32, s);
   gq_gemm_kernel<kRowScale, 1><<<dim3(ceil_div(n, kBN), ceil_div(m, kBM)), kThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), nullptr, static_cast<__nv_bfloat16*>(out), m, n, k, k);
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q), sc, nullptr,
+      static_cast<__nv_bfloat16*>(out), m, n, k, k);
   return cudaGetLastError();
+}
+
+// The form a call takes: dtype (0 bf16, 1 f32), mode (0 group, 1 affine,
+// 2 W8A16's row scale) and m rows -> 0 the GEMV, 1 the mma.sync form, 2 the
+// wgmma kernel, 3 the float32 kernel (-1: no kernel takes the dtype).
+extern "C" long long sdtpu_gq_form(int dtype, int mode, int m) {
+  return sdtpu::gq_form(dtype, mode, m);
 }

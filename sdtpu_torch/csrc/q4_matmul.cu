@@ -63,30 +63,15 @@
 // Blocks raster the M tiles of one weight band before the next band, so the
 // blocks in flight share a band of the weight and all of x in L2.
 //
-// Few rows (M <= kQ4GemvMaxM = 8: the DiT's modulation and embedder linears,
-// whose M is the batch, doubled under CFG): `q4_gemv_kernel`, which streams
-// the weight once.  Its bound is the packed bytes and f32 scales (0.625 bytes
-// a weight at G = 32), so its job is to keep enough 16-byte loads in flight
-// while the widening, about four instructions a weight, overlaps them.  A
-// block owns 16 weight rows (the mma.sync M) and all of K; each of its warps
-// takes a contiguous run of 64-byte row segments.  Each lane loads 16 bytes
-// of its rows g and g + 8 per segment straight into registers (ld.global.nc,
-// not kept in L1; no shared memory, no TMA), one segment a batch, and
-// issues the next batch's loads before it widens the current one.  The
-// mma's K is relabelled so that a lane's own bytes are its own A fragment:
-// byte 2s and 2s + 1 of its 16 feed k16 step s, and its B fragment is the x
-// values at the same four k, one 8-byte piece of x row g (x rows are the
-// mma's N = 8; rows past M are zero).  A dot product does not care which
-// physical k a fragment slot holds as long as A and B agree, so no shuffle
-// and no shared memory is needed.  x is read through L1, where it stays (at
-// most 8 x 15360 bf16).  Each warp's 16 x 8 f32 partial goes to shared memory
-// and one pass sums the warps in warp order: deterministic, no workspace, no
-// atomics, one launch.  Eight warps of one-segment batches (80 registers,
-// three blocks an SM) measured faster on the card than four warps of 2-6
-// segments, than segments taken in turn by the warps and than a
-// shared-memory ring fed by bulk async copies from a producer warp: the
-// widening costs about as much issue time as the stream takes, so warps
-// that can hide it matter more than deep batches.
+// Few rows (M <= kQ4GemvMaxM = 8): `q4_gemv_kernel`, common.cuh's
+// weight-streaming `weight_gemv` with the nibble widening of the wgmma form
+// (about four instructions a weight).  Its bound is the packed bytes and f32
+// scales (0.625 bytes a weight at G = 32).  Eight warps of one-segment
+// batches (80 registers, three blocks an SM) measured faster on the card
+// than four warps of 2-6 segments, than segments taken in turn by the warps
+// and than a shared-memory ring fed by bulk async copies from a producer
+// warp: the widening costs about as much issue time as the stream takes, so
+// warps that can hide it matter more than deep batches.
 
 // Between them (8 < M < kQ4MinM): `q4_gemm_kernel`, the first form.  Each
 // block unpacks its 128 x 64 weight tile into shared memory as bf16 (f32
@@ -443,166 +428,37 @@ cudaError_t launch_q4_wgmma(const void* x, const void* packed, const float* scal
 
 // ------------------------------------------------------- M <= 8: GEMV
 
-constexpr int kQ4GemvMaxM = 8;    // calls with at most this many rows take the GEMV (the mma's N)
-constexpr int kQ4GemvRows = 16;   // weight rows per block: the mma's M
-constexpr int kQ4GemvWarps = 8;   // warps per block, splitting K
-constexpr int kQ4GemvUnroll = 1;  // segments a batch: a warp's loads run a batch ahead
-constexpr int kQ4GemvSeg = 64;    // bytes of a weight row per segment (128 k): 16 a lane
-static_assert(kQ4GemvWarps * 32 >= kQ4GemvMaxM * kQ4GemvRows, "q4 gemv: one thread per output");
+constexpr int kQ4GemvMaxM = kGemvMaxM;  // calls with at most this many rows take the GEMV
+constexpr int kQ4GemvWarps = 8;         // warps per block, splitting K
+constexpr int kQ4GemvUnroll = 1;        // segments a batch: a warp's loads run a batch ahead
 
-// 16 bytes of the weight, read once: cached in L2 only.
-__device__ __forceinline__ uint4 ld_stream(const uint8_t* p) {
-  uint4 v;
-  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p));
-  return v;
-}
-
-// One packed word, bytes b0..b3 (k = 2i in the low nibble of b_i), → four
-// bf16x2 registers, r[i] = ((low, high) nibble of b_i - 8) * s: each
-// (nibble - 8) exact in f32 (the 2^23 trick of nibble_f32, one byte_perm a
-// weight), __fmul_rn by the scale, one bf16 rounding, as q4_wgmma_kernel.
-__device__ __forceinline__ void widen_word(uint32_t w, float s, uint32_t (&r)[4]) {
-  const uint32_t lo = w & 0x0F0F0F0Fu, hi = (w >> 4) & 0x0F0F0F0Fu;
+// weight_gemv's policy for packed nibbles: one word, bytes b0..b3 (k = 2i in
+// the low nibble of b_i), -> four bf16x2 registers, r[i] = ((low, high)
+// nibble of b_i - 8) * s: each (nibble - 8) exact in f32 (the 2^23 trick of
+// nibble_f32, one byte_perm a weight), __fmul_rn by the scale, one bf16
+// rounding, as q4_wgmma_kernel.  Nibble 8 is q = 0.
+struct WidenQ4 {
+  static constexpr int kKPerByte = 2;
+  static constexpr bool kGroupScale = true, kSumScale = false;
+  static constexpr uint32_t kZeroWord = 0x88888888u;
+  static __device__ __forceinline__ void widen(uint32_t w, float s, uint32_t (&r)[4]) {
+    const uint32_t lo = w & 0x0F0F0F0Fu, hi = (w >> 4) & 0x0F0F0F0Fu;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t sel = 0x7440u | i;  // byte i of the nibbles, two zero bytes, then 0x4B
-    const float a = __fsub_rn(__uint_as_float(__byte_perm(lo, 0x4B000000u, sel)), 8388616.f);
-    const float b = __fsub_rn(__uint_as_float(__byte_perm(hi, 0x4B000000u, sel)), 8388616.f);
-    r[i] = pack_bf16x2(__fmul_rn(a, s), __fmul_rn(b, s));
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t sel = 0x7440u | i;  // byte i of the nibbles, two zero bytes, then 0x4B
+      const float a = __fsub_rn(__uint_as_float(__byte_perm(lo, 0x4B000000u, sel)), 8388616.f);
+      const float b = __fsub_rn(__uint_as_float(__byte_perm(hi, 0x4B000000u, sel)), 8388616.f);
+      r[i] = pack_bf16x2(__fmul_rn(a, s), __fmul_rn(b, s));
+    }
   }
-}
+};
 
-// out[m, n0 + r] for the block's 16 weight rows and all M <= 8 x rows.
 template <int G>
 __global__ void __launch_bounds__(kQ4GemvWarps * 32)
 q4_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
                const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int m, int n,
                int k, int kp) {
-  constexpr int kSegK = 2 * kQ4GemvSeg;  // k per segment
-  constexpr int kSegScales = kSegK / G;  // scales of a row per segment
-  __shared__ float part[kQ4GemvWarps][kQ4GemvMaxM][kQ4GemvRows];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int n0 = blockIdx.x * kQ4GemvRows;
-  const int row_bytes = kp / 2;
-  const int segs = (row_bytes + kQ4GemvSeg - 1) / kQ4GemvSeg;
-  // warp w owns segments [seg0, seg1): a contiguous run of each row
-  const int per = (segs + kQ4GemvWarps - 1) / kQ4GemvWarps;
-  const int seg0 = min(segs, warp * per), seg1 = min(segs, seg0 + per);
-  // This lane's weight rows n0 + g and n0 + g + 8 (a row past N reads
-  // nothing) and x row g (a row past M gives zero B fragments), at the
-  // warp's first segment: 16 bytes at 16 tq, k from 32 tq.
-  const bool live0 = n0 + g < n, live1 = n0 + g + 8 < n, xlive = g < m;
-  const size_t row0 = live0 ? n0 + g : 0, row1 = live1 ? n0 + g + 8 : 0;
-  const uint8_t* wp0 = packed + row0 * row_bytes + seg0 * kQ4GemvSeg + 16 * tq;
-  const uint8_t* wp1 = packed + row1 * row_bytes + seg0 * kQ4GemvSeg + 16 * tq;
-  const float* sp0 = scale + row0 * (kp / G) + (seg0 * kSegK + 32 * tq) / G;
-  const float* sp1 = scale + row1 * (kp / G) + (seg0 * kSegK + 32 * tq) / G;
-  const __nv_bfloat16* xp = x + (xlive ? g : 0) * static_cast<size_t>(k) + seg0 * kSegK + 32 * tq;
-  const bool rows_full = n0 + kQ4GemvRows <= n;
-
-  // One batch: segments s .. s + kQ4GemvUnroll - 1 of the warp's run, every
-  // load issued before any is used.  `full`: every lane's bytes lie inside
-  // Kp / 2, every row inside N and every x inside K, so nothing is checked.
-  // Otherwise a lane's slice past Kp (the last segment of a row whose Kp / 2
-  // is an odd multiple of 32 bytes) or past N is nibble 8 with scale 0,
-  // exactly zero, and x past K or M is zero.
-  using Batch = uint4[kQ4GemvUnroll][2];      // [segment][row g, g + 8]
-  using Scales = float[kQ4GemvUnroll][2][2];  // [segment][row][bytes 0-7, 8-15]
-  auto batch_full = [&](int s) {
-    return rows_full && (s + kQ4GemvUnroll) * kSegK <= k && s + kQ4GemvUnroll <= seg1;
-  };
-  auto load = [&](int s, Batch& wb, Scales& sb, bool full) {
-    const int d = s - seg0;
-#pragma unroll
-    for (int u = 0; u < kQ4GemvUnroll; ++u) {
-      const int seg = s + u;
-      const bool in = full || (seg < seg1 && seg * kQ4GemvSeg + 16 * tq < row_bytes);
-      const bool in0 = full || (in && live0), in1 = full || (in && live1);
-      const uint4 zero = make_uint4(0x88888888u, 0x88888888u, 0x88888888u, 0x88888888u);
-      wb[u][0] = in0 ? ld_stream(wp0 + (d + u) * kQ4GemvSeg) : zero;
-      wb[u][1] = in1 ? ld_stream(wp1 + (d + u) * kQ4GemvSeg) : zero;
-      sb[u][0][0] = in0 ? __ldg(sp0 + (d + u) * kSegScales) : 0.f;
-      sb[u][1][0] = in1 ? __ldg(sp1 + (d + u) * kSegScales) : 0.f;
-      sb[u][0][1] = G == 16 ? (in0 ? __ldg(sp0 + (d + u) * kSegScales + 1) : 0.f) : sb[u][0][0];
-      sb[u][1][1] = G == 16 ? (in1 ? __ldg(sp1 + (d + u) * kSegScales + 1) : 0.f) : sb[u][1][0];
-    }
-  };
-
-  // acc[h]: rows (g, g + 8) x x rows (2tq, 2tq + 1), the mma's C fragment;
-  // two chains (h: the low and high half of each word), summed at the end
-  float acc[2][4] = {};
-  auto compute = [&](int s, const Batch& wb, const Scales& sb, bool full) {
-    const int d = s - seg0;
-#pragma unroll
-    for (int u = 0; u < kQ4GemvUnroll; ++u) {
-      if (s + u >= seg1) break;  // the same for the whole warp
-      // the lane's 16 bytes hold k = kx .. kx + 31
-      const int kx = (s + u) * kSegK + 32 * tq;
-      const __nv_bfloat16* xu = xp + (d + u) * kSegK;
-      uint4 xv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        xv[j] = xlive && (full || kx + 8 * j < k) ? __ldg(reinterpret_cast<const uint4*>(xu + 8 * j))
-                                                 : make_uint4(0, 0, 0, 0);
-      const uint32_t w0[4] = {wb[u][0].x, wb[u][0].y, wb[u][0].z, wb[u][0].w};
-      const uint32_t w1[4] = {wb[u][1].x, wb[u][1].y, wb[u][1].z, wb[u][1].w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // word j: k = kx + 8j .. + 7; bytes 0-1 are k16 step 2j, bytes 2-3 step 2j + 1
-        uint32_t a0[4], a1[4];
-        widen_word(w0[j], sb[u][0][j / 2], a0);
-        widen_word(w1[j], sb[u][1][j / 2], a1);
-        const uint32_t lo_a[4] = {a0[0], a1[0], a0[1], a1[1]}, lo_b[2] = {xv[j].x, xv[j].y};
-        const uint32_t hi_a[4] = {a0[2], a1[2], a0[3], a1[3]}, hi_b[2] = {xv[j].z, xv[j].w};
-        mma_bf16_16816(acc[0], lo_a, lo_b);
-        mma_bf16_16816(acc[1], hi_a, hi_b);
-      }
-    }
-  };
-
-  // Software pipeline: the next batch's loads are in flight while this one
-  // is widened.
-  Batch w;
-  Scales sc;
-  bool full = batch_full(seg0);
-  if (seg0 < seg1) load(seg0, w, sc, full);
-  for (int s = seg0; s < seg1; s += kQ4GemvUnroll) {
-    Batch cw;
-    Scales csc;
-#pragma unroll
-    for (int u = 0; u < kQ4GemvUnroll; ++u)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        cw[u][r] = w[u][r];
-        csc[u][r][0] = sc[u][r][0];
-        csc[u][r][1] = sc[u][r][1];
-      }
-    const bool cfull = full;
-    const int next = s + kQ4GemvUnroll;
-    if (next < seg1) {
-      full = batch_full(next);
-      if (full) load(next, w, sc, true); else load(next, w, sc, false);
-    }
-    if (cfull) compute(s, cw, csc, true); else compute(s, cw, csc, false);
-  }
-
-  part[warp][2 * tq][g] = acc[0][0] + acc[1][0];
-  part[warp][2 * tq + 1][g] = acc[0][1] + acc[1][1];
-  part[warp][2 * tq][g + 8] = acc[0][2] + acc[1][2];
-  part[warp][2 * tq + 1][g + 8] = acc[0][3] + acc[1][3];
-  __syncthreads();
-  if (threadIdx.x < kQ4GemvMaxM * kQ4GemvRows) {
-    const int mm = threadIdx.x / kQ4GemvRows, r = threadIdx.x % kQ4GemvRows;
-    if (mm < m && n0 + r < n) {
-      float sum = 0.f;
-#pragma unroll
-      for (int wp = 0; wp < kQ4GemvWarps; ++wp) sum += part[wp][mm][r];
-      out[static_cast<size_t>(mm) * n + n0 + r] = __float2bfloat16_rn(sum);
-    }
-  }
+  weight_gemv<WidenQ4, G, kQ4GemvWarps, kQ4GemvUnroll>(x, packed, scale, out, m, n, k, kp);
 }
 
 cudaError_t launch_q4_gemv(const void* x, const void* packed, const float* scale, void* out,
@@ -610,7 +466,7 @@ cudaError_t launch_q4_gemv(const void* x, const void* packed, const float* scale
   auto kernel = group == 16   ? q4_gemv_kernel<16>
                 : group == 32 ? q4_gemv_kernel<32>
                               : q4_gemv_kernel<64>;
-  kernel<<<ceil_div(n, kQ4GemvRows), kQ4GemvWarps * 32, 0, stream>>>(
+  kernel<<<ceil_div(n, kGemvRows), kQ4GemvWarps * 32, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed), scale,
       static_cast<__nv_bfloat16*>(out), m, n, k, kp);
   return cudaGetLastError();

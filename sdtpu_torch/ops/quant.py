@@ -45,6 +45,13 @@ Q4_MIN_K = 512  # symmetric 4-bit-range blocks with K >= this pack to Q4Tensor (
 Q4_WGMMA_MIN_M = 128  # q4_matmul calls with at least this many rows run the wgmma kernel (kQ4MinM)
 Q4_GEMV_MAX_M = 8  # q4_matmul calls with at most this many rows run the GEMV (kQ4GemvMaxM)
 GQ_GROUPS = (16, 32)
+# symmetric group-dequant and W8A16 bf16 calls with at most this many rows run
+# the GEMV (kGqGemvMaxM), those with at least GQ_WGMMA_MIN_M the wgmma kernel
+# (kGqMinM), the rest the mma.sync form; the library's codes for the weight's
+# mode (csrc/gq_matmul.cu, enum WMode), which ``sdtpu_gq_form`` takes
+GQ_GEMV_MAX_M = 8
+GQ_WGMMA_MIN_M = 128
+GQ_MODE_GROUP, GQ_MODE_AFFINE, GQ_MODE_ROW_SCALE = 0, 1, 2
 # group_quant_matmul: symmetric bf16 calls with at least this many rows go
 # through gq_matmul_ws (FLUX image tokens); M = 1 (modulation), M = 256 (text
 # tokens) through gq_matmul, affine weights through gq_zero_matmul
@@ -328,10 +335,19 @@ def w8a16_matmul_plain(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     return torch.matmul(x, dequantize(qt, x.dtype).T)
 
 
+def _count_form(wrapper, m: int) -> None:
+    """Count a bf16 launch of ``m`` rows of ``gq_matmul`` or ``w8a16_matmul``
+    apart by the form the library runs for it (``sdtpu_gq_form``, by shape):
+    the GEMV (``launches_gemv``) or the ``mma.sync`` form (``launches_mma``)."""
+    wrapper.launches_gemv += m <= GQ_GEMV_MAX_M
+    wrapper.launches_mma += GQ_GEMV_MAX_M < m < GQ_WGMMA_MIN_M
+
+
 def w8a16_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """W8A16: bf16 x [..., K] × int8 weight [N, K] → [..., N] in bf16.
 
-    out[m, n] = (Σ_k x[m, k]·q[n, k]) · s[n], the sum in float32."""
+    out[m, n] = (Σ_k x[m, k]·q[n, k]) · s[n], the sum in float32.  Calls of
+    at most ``GQ_GEMV_MAX_M`` rows run the weight-streaming GEMV."""
     if x.device.type == "cpu":
         return w8a16_matmul_plain(x, qt)
     if x.dtype != torch.bfloat16:
@@ -347,10 +363,11 @@ def w8a16_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     _build.launch("sdtpu_w8a16_matmul", x2.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(),
                   out.data_ptr(), m, n, k, _build.stream_ptr(x))
     w8a16_matmul.launches += 1
+    _count_form(w8a16_matmul, m)
     return out.reshape(*x.shape[:-1], n)
 
 
-w8a16_matmul.launches = 0
+w8a16_matmul.launches = w8a16_matmul.launches_gemv = w8a16_matmul.launches_mma = 0
 
 
 def quant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
@@ -438,12 +455,16 @@ def _gq_launch(name: str, wrapper, x: torch.Tensor, qt: GroupQuantTensor, dtypes
 
 def gq_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
     """Symmetric group-dequant matmul, one output tile per block; bf16 or
-    float32 x [..., K] → [..., N] in x.dtype."""
+    float32 x [..., K] → [..., N] in x.dtype.  bf16 calls of at most
+    ``GQ_GEMV_MAX_M`` rows run the weight-streaming GEMV."""
     if x.device.type == "cpu":
         return group_quant_matmul_plain(x, qt)
     if qt.zero is not None:
         raise ValueError("gq_matmul: affine weights go to gq_zero_matmul")
-    return _gq_launch("sdtpu_gq_matmul", gq_matmul, x, qt, tuple(_build.DTYPE_CODES))
+    out = _gq_launch("sdtpu_gq_matmul", gq_matmul, x, qt, tuple(_build.DTYPE_CODES))
+    if x.dtype == torch.bfloat16:
+        _count_form(gq_matmul, x.numel() // x.shape[-1])
+    return out
 
 
 def gq_matmul_ws(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
@@ -469,7 +490,8 @@ def gq_zero_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
     return _gq_launch("sdtpu_gq_zero_matmul", gq_zero_matmul, x, qt, tuple(_build.DTYPE_CODES))
 
 
-gq_matmul.launches = gq_matmul_ws.launches = gq_zero_matmul.launches = 0
+gq_matmul.launches = gq_matmul.launches_gemv = gq_matmul.launches_mma = 0
+gq_matmul_ws.launches = gq_zero_matmul.launches = 0
 
 
 def group_quant_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:

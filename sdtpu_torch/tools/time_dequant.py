@@ -8,12 +8,16 @@ names, so checkouts can be compared on one card in one session, in turns.
 
 Cases: ``q4_matmul`` at ``Q4_CASES``; ``gq_matmul`` (group 32, and group 16
 at ``GQ16_CASES``), ``gq_zero_matmul`` and ``w8a16_matmul`` at the
-``W8A8_CASES`` of at least 128 rows (their TMA + wgmma form).  The shapes,
-tolerances, input draws and timing are ``chip_smoke.py``'s, loaded from this
-script's own checkout; the kernels come from the package on ``PYTHONPATH``
-(built from that checkout's sources).  Each case is held to its plain
-version, then timed with CUDA events after warm-up.  One ``kernel {...}``
-line per case, then a summary line.
+``W8A8_CASES`` of at least 128 rows (their TMA + wgmma form); then
+``gq_matmul`` (groups 32 and 16) and ``w8a16_matmul`` at the cases of at
+most ``GQ_GEMV_MAX_M`` rows (their GEMV).  The shapes, tolerances,
+input draws and timing are ``chip_smoke.py``'s, loaded from this script's
+own checkout; the kernels come from the package on ``PYTHONPATH`` (built
+from that checkout's sources).  Each case is held to its plain version,
+then timed with CUDA events after warm-up, and a case of at most
+``GQ_GEMV_MAX_M`` rows also on the device clock (``device_ms``: the
+CUDA-event time reads the Python wrapper's launch rate there).  One
+``kernel {...}`` line per case, then a summary line.
 """
 from __future__ import annotations
 
@@ -59,6 +63,9 @@ def main() -> int:
     plan = [("q4_matmul", s[:3], s[3]) for s in cs.Q4_CASES]
     plan += [(form, s, 32) for s in big for form in ("gq_matmul", "gq_zero_matmul", "w8a16_matmul")]
     plan += [("gq_matmul", s, 16) for s in cs.GQ16_CASES if s[0] >= 128]
+    small = [s for s in cs.W8A8_CASES if s[0] <= quant.GQ_GEMV_MAX_M]
+    plan += [(form, s, 32) for s in small for form in ("gq_matmul", "w8a16_matmul")]
+    plan += [("gq_matmul", s, 16) for s in cs.GQ16_CASES if s[0] <= quant.GQ_GEMV_MAX_M]
     cases = []
     for form, (m, k, n), group in plan:
         x = torch.randn((m, k), generator=g, device="cuda", dtype=torch.bfloat16)
@@ -80,8 +87,10 @@ def main() -> int:
         got, want = fn(x, qt), plain(x, qt)
         err = (got.float() - want.float()).abs().max().item()
         tol = rel * want.float().abs().max().item()
-        ms = cs.time_ms(lambda: fn(x, qt), cs.iters_for(2.0 * m * n * k))
-        case = dict(label=args.label, kernel=form, shape=[m, k, n], group=group, ms=ms,
+        it = cs.iters_for(2.0 * m * n * k)
+        ms = cs.time_ms(lambda: fn(x, qt), it)
+        dev = {"device_ms": cs.device_ms(lambda: fn(x, qt), it)} if m <= quant.GQ_GEMV_MAX_M else {}
+        case = dict(label=args.label, kernel=form, shape=[m, k, n], group=group, ms=ms, **dev,
                     max_abs_err=err, tol=tol, ok=bool(err <= tol), card=card)
         print("kernel " + json.dumps(case), flush=True)
         cases.append(case)

@@ -296,6 +296,95 @@ def test_w8a16_kernel_matches_plain(cuda, m, k, n):
     assert _close(got, quant.w8a16_matmul_plain(x, qt), torch.bfloat16)
 
 
+# M <= 8 takes the weight-streaming GEMV (symmetric groups and W8A16): N off
+# the 16-row block (2, 77, 130); K = 64, one segment; K = 272, whose Kp = 288
+# at group 32 leaves x short of the weight row; K = 1040, whose last 64-byte
+# segment lies partly past Kp; the DiT's modulation widths; and K = 15360
+GQ_GEMV_SHAPES = [(64, 2), (272, 77), (1040, 130), (3072, 3072), (3072, 18432), (15360, 3072)]
+
+
+def _gemv_counts(fn):
+    return [fn.launches, fn.launches_gemv, fn.launches_mma]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [16, 32])
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+@pytest.mark.parametrize("k,n", GQ_GEMV_SHAPES)
+def test_gq_gemv_kernel_matches_plain(cuda, group, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n + group)
+    x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
+    qt = _group_weight(g, n, k, group, False, cuda)
+    before = _gemv_counts(quant.gq_matmul)
+    got = quant.gq_matmul(x, qt)
+    assert _gemv_counts(quant.gq_matmul) == [before[0] + 1, before[1] + 1, before[2]]
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert _close(got, quant.group_quant_matmul_plain(x, qt), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+@pytest.mark.parametrize("k,n", GQ_GEMV_SHAPES)
+def test_w8a16_gemv_kernel_matches_plain(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
+    qt = quant.QuantTensor(
+        q=torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8),
+        scale=torch.rand((n,), generator=g, device=cuda) * 4e-4 + 1e-5)
+    before = _gemv_counts(quant.w8a16_matmul)
+    got = quant.w8a16_matmul(x, qt)
+    assert _gemv_counts(quant.w8a16_matmul) == [before[0] + 1, before[1] + 1, before[2]]
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert _close(got, quant.w8a16_matmul_plain(x, qt), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(3072, 18432), (3072, 9216)])
+def test_gq_gemv_rounds_as_often_to_nearest_as_the_plain_version(cuda, k, n):
+    """The GEMV sums K in another order than the plain version's single
+    matmul (split among warps, regrouped 16-k steps), so at M = 1 an output
+    may round to the other neighbouring bf16.  It must round to the bf16
+    nearest the exact sum at least as often as the plain version does: a
+    less accurate sum would do so less often."""
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randn((1, k), generator=g, device=cuda, dtype=torch.bfloat16)
+    qt = _group_weight(g, n, k, 32, False, cuda)
+    w = quant.dequantize_group(qt, torch.bfloat16)
+    nearest = (x.double() @ w.double().T).float().to(torch.bfloat16)
+    got, want = quant.gq_matmul(x, qt), quant.group_quant_matmul_plain(x, qt)
+    hit_got = (got == nearest).double().mean().item()
+    hit_want = (want == nearest).double().mean().item()
+    print(f"gq GEMV 1x{k}->{n}: nearest bf16 {hit_got:.4f} (plain {hit_want:.4f}), "
+          f"outputs that differ from the plain version {(got != want).double().mean().item():.4f}")
+    assert hit_got >= hit_want
+
+
+@pytest.mark.cuda
+def test_gq_form_by_rows(cuda):
+    """The library picks the group-dequant form by dtype, mode and M alone
+    (0 the GEMV, 1 mma.sync, 2 wgmma, 3 float32); the affine mode keeps
+    mma.sync at small M.  gq_matmul and w8a16_matmul count the form the
+    library ran."""
+    edges = (1, quant.GQ_GEMV_MAX_M, quant.GQ_GEMV_MAX_M + 1, quant.GQ_WGMMA_MIN_M - 1,
+             quant.GQ_WGMMA_MIN_M)
+    for mode in (quant.GQ_MODE_GROUP, quant.GQ_MODE_ROW_SCALE):
+        assert [_build.query("sdtpu_gq_form", 0, mode, m) for m in edges] == [0, 0, 1, 1, 2]
+    assert _build.query("sdtpu_gq_form", 0, quant.GQ_MODE_AFFINE, 1) == 1
+    assert _build.query("sdtpu_gq_form", 1, quant.GQ_MODE_GROUP, 1) == 3
+    g = torch.Generator(device=cuda).manual_seed(0)
+    gq = _group_weight(g, 256, 512, 32, False, cuda)
+    w8 = quant.quantize_per_channel(torch.randn((256, 512), generator=g, device=cuda) * 0.02)
+    for m in edges:
+        x = torch.randn((m, 512), generator=g, device=cuda, dtype=torch.bfloat16)
+        for fn, qt, mode in ((quant.gq_matmul, gq, quant.GQ_MODE_GROUP),
+                             (quant.w8a16_matmul, w8, quant.GQ_MODE_ROW_SCALE)):
+            before = _gemv_counts(fn)
+            fn(x, qt)
+            form = _build.query("sdtpu_gq_form", 0, mode, m)
+            assert _gemv_counts(fn) == [before[0] + 1, before[1] + (form == 0),
+                                        before[2] + (form == 1)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,dtype,affine,form", [
     (1, torch.bfloat16, False, "gq_matmul"),        # modulation linears
@@ -325,8 +414,18 @@ def test_quant_matmul_reads_the_mode_at_each_call(cuda, monkeypatch):
     assert (quant.quant_matmul_w8a8.launches, quant.w8a16_matmul.launches) == (w8a8 + 1, w8a16 + 1)
 
 
+def _all_launch_counts():
+    """Every wrapper's launch counts, the forms counted apart included."""
+    wrappers = (fa.flash_attention, quant.quant_matmul_w8a8, quant.q4_matmul, quant.gq_matmul,
+                quant.gq_matmul_ws, quant.gq_zero_matmul, quant.w8a16_matmul)
+    return {(f.__name__, a): getattr(f, a) for f in wrappers for a in dir(f)
+            if a.startswith("launches")}
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    counts = _all_launch_counts()
+    assert ("gq_matmul", "launches_gemv") in counts and ("w8a16_matmul", "launches_gemv") in counts
     q = torch.randn((1, 1, 8, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)  # head dim 32 has no kernel
@@ -349,6 +448,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         quant.w8a16_matmul(torch.randn((2, 32), device=cuda), quant.quantize_per_channel(
             torch.randn((8, 32), device=cuda)))  # float32 activations
+    assert _all_launch_counts() == counts  # nothing refused was counted
 
 
 def test_cpu_tensors_run_the_plain_versions_without_launching():
@@ -374,8 +474,12 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
 
 
 def test_cpu_tensors_run_the_group_and_w8a16_plain_versions_without_launching():
-    wrappers = (quant.gq_matmul, quant.gq_matmul_ws, quant.gq_zero_matmul, quant.w8a16_matmul)
-    counts = [f.launches for f in wrappers]
+    counts = _all_launch_counts()
+    x1 = torch.randn((1, 64))  # the GEMV's M, on the CPU
+    gq1 = quant.quantize_group(torch.randn((8, 64)))
+    assert torch.equal(quant.gq_matmul(x1, gq1), quant.group_quant_matmul_plain(x1, gq1))
+    qt1 = quant.quantize_per_channel(torch.randn((8, 64)))
+    assert torch.equal(quant.w8a16_matmul(x1, qt1), quant.w8a16_matmul_plain(x1, qt1))
     x = torch.randn((600, 64))
     gq = quant.quantize_group(torch.randn((8, 64)))
     gz = quant.GroupQuantTensor(q=gq.q, scale=gq.scale, zero=gq.scale * 3, k=64, group=32)
@@ -386,5 +490,5 @@ def test_cpu_tensors_run_the_group_and_w8a16_plain_versions_without_launching():
     assert torch.equal(quant.gq_zero_matmul(x, gz), want_z)
     qt = quant.quantize_per_channel(torch.randn((8, 64)))
     assert torch.equal(quant.w8a16_matmul(x, qt), quant.w8a16_matmul_plain(x, qt))
-    assert [f.launches for f in wrappers] == counts
+    assert _all_launch_counts() == counts
     assert _build.library.cache_info().currsize == 0

@@ -4,9 +4,11 @@ matmuls, host-block staging, per-row requant, and the slice end to end.
 * (a) ``group_quant_matmul`` (groups 16 and 32, symmetric and affine) is held
   to the JAX XLA form and to the Pallas kernels run interpreted
   (``_gq_matmul_kernel``, ``_gq_matmul_ws_kernel`` with ``SDTPU_GQ_WS=1`` and a
-  small ``block_m``, ``_gq_zero_matmul_kernel``) at rtol = atol = 1e-5 in f32.
+  small ``block_m``, ``_gq_zero_matmul_kernel``) at ``TOL``, rtol = atol =
+  1e-5 in f32 (float32 sums in another order, far inside it); the XLA form
+  also at one and two rows of K = 3072, the shape of the card's GEMV.
 * (b) W8A16 ``quant_matmul`` (``SDTPU_QUANT_MODE=w8a16``) against
-  ``_q_matmul_kernel`` interpreted, same tolerance.
+  ``_q_matmul_kernel`` interpreted, at ``TOL``, also at one row of K = 3072.
 * (c) ``from_host_quant`` for every ggml type with an extractor: the same
   class, group and values as the JAX staging of the same blocks.
 * (d) ``rowwise_requant_from_host_quant``: bit-equal.
@@ -77,7 +79,9 @@ def _jax_group_tensor(rng, n, k, group, affine):
 
 @pytest.mark.parametrize("group", [16, 32])
 @pytest.mark.parametrize("affine", [False, True])
-@pytest.mark.parametrize("m,k,n", [(5, 256, 48), (70, 1024, 136)])
+# (1, 3072, 48): the modulation linears' K at M = 1, the shape the card's
+# GEMV takes (x carries a batch of two, so two rows)
+@pytest.mark.parametrize("m,k,n", [(5, 256, 48), (70, 1024, 136), (1, 3072, 48)])
 def test_group_quant_matmul_matches_xla_form(group, affine, m, k, n):
     rng = np.random.default_rng(group + m)
     qj = _jax_group_tensor(rng, n, k, group, affine)
@@ -104,10 +108,12 @@ def test_group_quant_matmul_matches_pallas_kernels(tpu_branch_interpret, monkeyp
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-def test_w8a16_matches_pallas_kernel(tpu_branch_interpret, monkeypatch):
+# (300, 1024, 640): two M tiles, two K steps, two N tiles; (1, 3072, 640):
+# one row at the modulation linears' K, the shape the card's GEMV takes
+@pytest.mark.parametrize("m,k,n", [(300, 1024, 640), (1, 3072, 640)])
+def test_w8a16_matches_pallas_kernel(tpu_branch_interpret, monkeypatch, m, k, n):
     monkeypatch.setenv("SDTPU_QUANT_MODE", "w8a16")
     rng = np.random.default_rng(3)
-    m, k, n = 300, 1024, 640  # two M tiles, two K steps, two N tiles
     x = rng.standard_normal((m, k)).astype(np.float32)
     qj = jq.quantize_per_channel(rng.standard_normal((n, k)).astype(np.float32) * 0.02)
     want = np.asarray(jq.quant_matmul(jnp.asarray(x), qj))
