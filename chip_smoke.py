@@ -58,11 +58,15 @@ and reads them after: each kernel that path runs must have launched.  The
 (M <= 8) are counted apart as well, as ``q4_matmul_wgmma`` and
 ``q4_matmul_gemv``; the ``q4_0`` path must run its M = 1 linears through
 the GEMV and no call through the ``mma.sync`` form.
-The group-dequant and W8A16 wrappers count their weight-streaming GEMV
-(M <= 8) and their ``mma.sync`` form apart (``gq_matmul_gemv``,
-``gq_matmul_mma``, ``w8a16_matmul_gemv``, ``w8a16_matmul_mma``): the
-``w8a16`` and ``q8_0_gguf`` paths, like ``q4_0``, must run every M = 1
-linear of the DiT through the GEMV and no call through the ``mma.sync`` form.
+The W8A8, group-dequant and W8A16 wrappers count their weight-streaming
+GEMV (M <= 8) and their ``mma.sync`` form apart (``w8a8_matmul_gemv``,
+``w8a8_matmul_mma``, ``gq_matmul_gemv``, ``gq_matmul_mma``,
+``w8a16_matmul_gemv``, ``w8a16_matmul_mma``): the ``int8``, ``w8a16`` and
+``q8_0_gguf`` paths, like ``q4_0``, must run every DiT linear of M <= 8 (M =
+1, or 4 under CFG with a batch of two) through the GEMV and no call through
+the ``mma.sync`` form.  The W8A8 GEMV quantizes x in its one launch, so its
+cases' ``device_ms`` (one kernel a call) also shows that no row-quantize
+launch runs in front of it.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -82,13 +86,15 @@ from pathlib import Path
 DEVICE = "cuda"
 ROOT = Path(__file__).resolve().parent
 
+W8A8_SRC = "sdtpu_torch/csrc/w8a8_matmul.cu"
 GQ_SRC = "sdtpu_torch/csrc/gq_matmul.cu"
 FLASH_SRC = "sdtpu_torch/csrc/flash_attention.cu"
 Q4_SRC = "sdtpu_torch/csrc/q4_matmul.cu"
 KERNEL_INFO = {
     "flash_attention": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "flash_attention_d512": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
-    "w8a8_matmul": ("sdtpu_torch/csrc/w8a8_matmul.cu", "sdtpu/ops/quant.py:416"),
+    "w8a8_matmul": (W8A8_SRC, "sdtpu/ops/quant.py:416"),
+    "w8a8_matmul_gemv": (W8A8_SRC, "sdtpu/ops/quant.py:416"),
     "q4_matmul": (Q4_SRC, "sdtpu/ops/quant.py:845"),
     "q4_matmul_wgmma": (Q4_SRC, "sdtpu/ops/quant.py:845"),
     "q4_matmul_gemv": (Q4_SRC, "sdtpu/ops/quant.py:845"),
@@ -104,8 +110,8 @@ KERNEL_INFO = {
 # tokens at 1024², M = 1 for the modulation linears, the embedders and head;
 # M = 127, 128 and 129 at the wgmma kernels' threshold (127 takes the
 # mma.sync forms), M = 1024 the 512² request's image tokens; the double
-# block's modulation at M = 2, 4 and 8 (batch, CFG: the group-dequant and
-# W8A16 GEMV's rows) and M = 9 (their first mma.sync row).
+# block's modulation at M = 2, 4 and 8 (batch, CFG: the GEMVs' rows) and M =
+# 9 (the first mma.sync row).
 W8A8_CASES = [
     (4352, 3072, 9216), (4352, 3072, 3072), (4352, 3072, 12288), (4352, 12288, 3072),
     (4352, 3072, 21504), (4352, 15360, 3072), (1280, 3072, 21504), (1, 3072, 18432),
@@ -147,10 +153,12 @@ Q4_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES] + [(*s, 32) fo
             + [(s, 3072, n, g) for g in (16, 64) for s, n in ((4352, 12288), (1, 18432))])
 Q4_FORMS = ("gemv", "mma", "wgmma")  # sdtpu_q4_form's codes
 GQ_FORMS = ("gemv", "mma", "wgmma", "f32")  # sdtpu_gq_form's codes
+W8A8_FORMS = ("gemv", "mma", "wgmma")  # sdtpu_w8a8_form's codes
 Q4_DIT_GROUP = 32
 
 # Why each tolerance:
-#   W8A8: both sides accumulate exactly and share the epilogue order → bit-equal.
+#   W8A8: both sides quantize x with the same arithmetic, accumulate exactly
+#     and share the epilogue order → bit-equal (tolerance 0).
 #   flash bf16: P is rounded to bf16 before P.V in both, but the kernel
 #     normalises after the product and the plain version before it; each
 #     rounds its output to bf16 once, so the two differ by about one bf16
@@ -228,11 +236,11 @@ LOADER_KQUANT = {"single_blocks.0.linear1.weight": "q6_k", "single_blocks.0.line
 # prompt, is the only 4-bit model.)
 Q4 = ("q4_matmul", "q4_matmul_wgmma")
 PATH_KERNELS = {
-    "gguf_loader": ("flash_attention", "w8a8_matmul", *Q4, "q4_matmul_gemv", "gq_matmul",
-                    "gq_matmul_gemv", "gq_matmul_ws", "gq_zero_matmul"),
+    "gguf_loader": ("flash_attention", "w8a8_matmul", "w8a8_matmul_gemv", *Q4, "q4_matmul_gemv",
+                    "gq_matmul", "gq_matmul_gemv", "gq_matmul_ws", "gq_zero_matmul"),
     "gguf_file": ("flash_attention", "flash_attention_d512", *Q4, "q4_matmul_gemv", "gq_matmul",
                   "gq_matmul_gemv", "gq_matmul_ws", "gq_zero_matmul"),
-    "int8": ("flash_attention", "flash_attention_d512", "w8a8_matmul", *Q4),
+    "int8": ("flash_attention", "flash_attention_d512", "w8a8_matmul", "w8a8_matmul_gemv", *Q4),
     "w8a16": ("flash_attention", "flash_attention_d512", "w8a16_matmul", "w8a16_matmul_gemv", *Q4),
     "q8_0_gguf": ("flash_attention", "flash_attention_d512", "gq_matmul", "gq_matmul_gemv",
                   "gq_matmul_ws", *Q4),
@@ -240,13 +248,15 @@ PATH_KERNELS = {
 }
 # ... and none of these (the mode switch and the memory class hold)
 PATH_IDLE = {"int8": ("q4_matmul_gemv", "gq_matmul_gemv", "w8a16_matmul_gemv"),
-             "w8a16": ("w8a8_matmul", "q4_matmul_gemv", "gq_matmul_gemv"),
-             "q8_0_gguf": ("w8a8_matmul", "w8a16_matmul", "q4_matmul_gemv"),
+             "w8a16": ("w8a8_matmul", "w8a8_matmul_gemv", "q4_matmul_gemv", "gq_matmul_gemv"),
+             "q8_0_gguf": ("w8a8_matmul", "w8a8_matmul_gemv", "w8a16_matmul", "q4_matmul_gemv"),
              "gguf_file": ("w8a8_matmul", "w8a16_matmul"),
-             "q4_0": ("w8a8_matmul", "w8a16_matmul", "gq_matmul", "gq_matmul_ws", "gq_zero_matmul")}
+             "q4_0": ("w8a8_matmul", "w8a8_matmul_gemv", "w8a16_matmul", "gq_matmul",
+                      "gq_matmul_ws", "gq_zero_matmul")}
 # The FLUX.1-dev DiT's M = 1 linears per forward: 2 x 19 double-block and 38
 # single-block modulations, the final adaLN and the three embedders' two
-# layers each; one forward a denoise step at cfg_scale 1.  The q4_0,
+# layers each; one forward a denoise step (under CFG one forward of the
+# doubled batch: M = 4 for the int8 path's batch of two).  The int8, q4_0,
 # q8_0_gguf and w8a16 paths run each of them through their class's GEMV.
 DIT_M1_PER_STEP = 2 * 19 + 38 + 1 + 3 * 2
 
@@ -314,27 +324,41 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """The mean device time of the one kernel ``fn`` launches: one warm-up
-    call, then ``iters`` calls traced by torch.profiler, averaged over the
-    launches it recorded (it may drop some of a short run's; at most
-    ``iters``, all of one kernel)."""
+def device_kernels(fn, iters: int) -> list:
+    """(name, µs) of each device kernel that ``iters`` calls of ``fn``
+    launched, from torch.profiler, after one warm-up call.  It may drop some
+    of a short run's launches, and now and then returns no kernel at all (2
+    of ~170 traces of 50 calls on an H100 in the GEMV sweep of
+    sdtpu_torch/tools/time_dequant.py): an empty trace is taken again, at
+    most twice."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    names = {e.name for e in kernels}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    return kernels
+
+
+def device_ms(fn, iters: int) -> float:
+    """The mean device time of the one kernel ``fn`` launches, over the
+    launches ``device_kernels`` recorded of ``iters`` calls (at most
+    ``iters``, all of one kernel)."""
+    kernels = device_kernels(fn, iters)
+    names = {n for n, _ in kernels}
     if not kernels or len(kernels) > iters or len(names) != 1:
         raise RuntimeError(f"device_ms: {len(kernels)} device kernels traced in {iters} calls: "
                            f"{sorted(n[:60] for n in names)}")
-    return sum(e.time_range.elapsed_us() for e in kernels) / len(kernels) / 1e3
+    return sum(us for _, us in kernels) / len(kernels) / 1e3
 
 
 def iters_for(flops: float) -> int:
@@ -378,8 +402,9 @@ def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, bnd, libra
     plain version, within ``tol_rel`` of the largest |output|, both times,
     at the GEMVs' M (at most ``quant.GQ_GEMV_MAX_M`` rows, where the
     CUDA-event time reads the wrapper's launch rate) also the kernel's
-    device time, the bound ``bnd`` and, where ``library`` is a checked
-    one-call equivalent, its time (else null and ``library_note`` says why)."""
+    device time (``device_ms``: one kernel a call), the bound ``bnd`` and,
+    where ``library`` is a one-call equivalent, its time (else null and
+    ``library_note`` says why)."""
     import torch
 
     from sdtpu_torch.ops import quant
@@ -399,39 +424,43 @@ def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, bnd, libra
 
 
 def check_w8a8(results):
+    """Each W8A8_CASES shape, bit-equal to the plain version, with an
+    all-zero x row (at M = 1 a second call on an all-zero x); ``form`` is the
+    form the library ran (``W8A8_FORMS``).  The yardstick ``torch._int_mm``
+    runs the GEMM alone on the same int8 operands, unchecked (no row
+    quantize, no epilogue); it refuses M <= 16, and its refusal is the
+    case's ``library_note``."""
     import torch
 
-    from sdtpu_torch.ops import quant
+    from sdtpu_torch.ops import _build, quant
 
     g = torch.Generator(device=DEVICE).manual_seed(1)
     for m, k, n in W8A8_CASES:
         x = torch.randn((m, k), generator=g, device=DEVICE, dtype=torch.bfloat16)
-        if m > 1:
-            x[0] = 0  # the amax = 0 row
         qt = quant.QuantTensor(
             q=torch.randint(-127, 127, (n, k), generator=g, device=DEVICE, dtype=torch.int8),
             scale=torch.rand((n,), generator=g, device=DEVICE) * 4e-4 + 1e-5)
-        got = quant.quant_matmul_w8a8(x, qt)
-        want = quant.quant_matmul_w8a8_plain(x, qt)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        it = iters_for(2.0 * m * n * k)
-        ms = time_ms(lambda: quant.quant_matmul_w8a8(x, qt), it)
-        plain_ms = time_ms(lambda: quant.quant_matmul_w8a8_plain(x, qt), max(3, it // 4))
-        # the library's int8 GEMM on the same int8 operands (M > 16 only):
-        # the GEMM part of the function, without the row quantize and epilogue
-        library_ms = None
-        if m > 16:
-            xq, _ = quant.quantize_activations(x)
-            wt = qt.q.t()
-            library_ms = time_ms(lambda: torch._int_mm(xq, wt), it)
-            del xq
-        ok = bool(torch.equal(got, want))
-        _record(results, dict(kernel="w8a8_matmul", shape=[m, k, n], max_abs_err=err, tol=0.0,
-                            ok=ok, ms=ms, plain_ms=plain_ms,
-                            **bound(2.0 * m * n * k, nbytes(x, qt.q, qt.scale, got), "int8"),
-                            library_ms=library_ms))
-        del x, qt, got, want
+        if m == 1:
+            xs = (x, torch.zeros_like(x))  # the amax = 0 row: a call of its own
+        else:
+            x[0] = 0  # the amax = 0 row
+            xs = (x,)
+        got = torch.cat([quant.quant_matmul_w8a8(v, qt) for v in xs])
+        want = torch.cat([quant.quant_matmul_w8a8_plain(v, qt) for v in xs])
+        xq, _ = quant.quantize_activations(x)
+        wt = qt.q.t()
+        library, note = lambda: torch._int_mm(xq, wt), None
+        try:
+            library()
+        except RuntimeError as e:
+            library, note = None, _refused(e)
+        _compare(results, "w8a8_matmul", (m, k, n), got, want, 0.0,
+                 lambda: quant.quant_matmul_w8a8(x, qt), lambda: quant.quant_matmul_w8a8_plain(x, qt),
+                 iters_for(2.0 * m * n * k),
+                 bound(2.0 * m * n * k, nbytes(x, qt.q, qt.scale, got[:m]), "int8"),
+                 library=library, library_note=note,
+                 form=W8A8_FORMS[_build.query("sdtpu_w8a8_form", m, k)])
+        del x, xs, xq, qt, got, want, library
 
 
 def _d512_faults(q, k, v, mask, want) -> dict:
@@ -625,7 +654,8 @@ def check_w8a16(results):
 
 def _check_m1_linears(path: str, gemv: int, mma: int, requests) -> None:
     """A path's GEMV ran every M = 1 linear of the DiT (DIT_M1_PER_STEP a
-    step) and its mma.sync form ran nothing."""
+    step, M = 4 under CFG with a batch of two) and its mma.sync form ran
+    nothing."""
     want = DIT_M1_PER_STEP * sum(r["sample_steps"] for r in requests)
     if gemv != want or mma:
         raise RuntimeError(f"path {path}: {gemv} GEMV launches, not the {want} M = 1 linears, "
@@ -1055,10 +1085,12 @@ def main() -> int:
         raise RuntimeError(f"small-input reference check failed: {ref}")
 
     # each kernel's launch counter: (wrapper, attribute); the D 512 kernel,
-    # the 4-bit wgmma form and the GEMVs (and the group-dequant and W8A16
-    # mma.sync forms) are counted apart by their wrappers
+    # the 4-bit wgmma form and the GEMVs (and the W8A8, group-dequant and
+    # W8A16 mma.sync forms) are counted apart by their wrappers
     wrappers = {"flash_attention": (flash_attention.flash_attention, "launches"),
                 "flash_attention_d512": (flash_attention.flash_attention, "launches_d512"),
+                "w8a8_matmul_gemv": (quant.quant_matmul_w8a8, "launches_gemv"),
+                "w8a8_matmul_mma": (quant.quant_matmul_w8a8, "launches_mma"),
                 "q4_matmul_wgmma": (quant.q4_matmul, "launches_wgmma"),
                 "q4_matmul_gemv": (quant.q4_matmul, "launches_gemv"),
                 "gq_matmul_gemv": (quant.gq_matmul, "launches_gemv"),
@@ -1077,6 +1109,8 @@ def main() -> int:
     pipes.append(info)
     rep, launches["int8"] = _windowed(wrappers, "int8",
                                       lambda: answer(pipe, INT8_REQUESTS, card, "int8"))
+    _check_m1_linears("int8", launches["int8"]["w8a8_matmul_gemv"],
+                      launches["int8"]["w8a8_matmul_mma"], INT8_REQUESTS)
     reports += rep
     prof = {}
     if args.profile:
@@ -1130,6 +1164,7 @@ def main() -> int:
     headline = {"flash_attention": ([1, 24, 4352, 4352, 128], {}),
                 "flash_attention_d512": ([1, 1, 4096, 4096, 512], {}),
                 "w8a8_matmul": ([4352, 3072, 12288], {}),
+                "w8a8_matmul_gemv": ([1, 3072, 18432], {}),
                 "q4_matmul": ([256, 4096, 10240], {"group": 64}),
                 "q4_matmul_wgmma": ([4352, 3072, 12288], {"group": 32}),
                 "q4_matmul_gemv": ([1, 3072, 18432], {"group": 32})}

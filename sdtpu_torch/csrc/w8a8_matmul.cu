@@ -25,11 +25,36 @@
 // flight while the next stage is awaited.  Edge tiles come from TMA's zero
 // fill: no padding copies.
 //
-// Small M (M < kWgmmaMinM: modulation at M = 1, a few text tokens):
+// Few rows (M <= kW8a8GemvMaxM = 8: the DiT's modulation and embedder
+// linears, M = 1, or 4 under CFG with a batch of two): `w8a8_gemv_kernel`,
+// one launch that quantizes x itself.  Its bound is the int8 weight read
+// once (0.0169 ms at 3072->18432).  A block owns 16 weight rows (the
+// mma.sync M) and all of K, its warps contiguous runs of 64-byte segments;
+// each lane streams 16 bytes of its rows g and g + 8 a segment into
+// registers (`ld_stream`, a batch of segments ahead), and K is relabelled
+// so that those bytes are its own s8 A fragment as they lie: per k32 step
+// two 4-byte words of row g and two of row g + 8, no widening at all.  The
+// B fragment is x row g, int8, at the same k: one 16-byte shared-memory read
+// a segment.  The block's first batch of weight loads is issued before its
+// prologue, which quantizes the M x rows into shared memory with
+// `quantize_rows_kernel`'s arithmetic (amax, __fdiv_rn, rintf, clamp), so
+// every block computes the same bytes and s_x and no int8 copy of x exists
+// in device memory.  The int32 warp partials are summed in shared memory
+// (exact in any order) and the epilogue is the GEMMs' (acc * s_x, then *
+// s_w, each __fmul_rn): bit-equal to the plain version whatever the split.
+// It is a kernel of its own beside common.cuh's `weight_gemv` (the 4-bit and
+// group-dequant GEMVs), sharing its constants and helpers: W8A8 differs in
+// every phase that template has (x from shared memory after an in-block
+// prologue, int32 accumulators, a per-row s_x and the output type in the
+// epilogue), and folding those in as policies would change the code the
+// other two GEMVs were tuned with.
+//
+// M 9-127 (no request path sends such M; T5 and the DiT's text run 256
+// rows), and M <= 8 with K > kW8a8GemvMaxK (x would not fit shared memory):
 // `w8a8_gemm_kernel`, the first form: 128x64-byte tiles loaded
-// synchronously into padded shared memory, mma.sync m16n8k32.  A skinny-M
-// kernel (split K, weight streaming) is later work.  Either way K must be a
-// multiple of 16 (16-byte loads; TMA's 16-byte global strides).
+// synchronously into padded shared memory, mma.sync m16n8k32.  `w8a8_form`
+// (exported as sdtpu_w8a8_form) names the form by shape alone.  Every form
+// needs K a multiple of 16 (16-byte loads; TMA's 16-byte global strides).
 #include "common.cuh"
 
 #include <math.h>
@@ -289,6 +314,228 @@ cudaError_t launch_w8a8_wgmma(const int8_t* xq, const int8_t* wq, const float* s
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- M <= 8: GEMV
+
+constexpr int kW8a8GemvMaxM = kGemvMaxM;  // calls with at most this many rows take the GEMV ...
+constexpr int kW8a8GemvMaxK = 16384;      // ... if K is at most this: 8 x rows in 131 KB of shared
+constexpr int kW8a8GemvWarps = 8;         // warps per block, splitting K
+constexpr int kW8a8GemvUnroll = 2;        // segments a batch: a warp's loads run a batch ahead
+// Eight warps of two-segment batches won on the card over the DiT's mix a
+// step, 38 launches each at 1x3072->18432 and 1x3072->9216, on the device
+// clock (sdtpu_torch/tools/time_dequant.py on trees differing in these two
+// constants, in turns; NVIDIA H100 80GB HBM3, 700.00 W): 1.335 ms, against
+// 1.425 for four warps of two (the group-dequant GEMV's choice), 1.442 for four of four
+// and 1.460 for eight of four.  With no widening left the mainloop only
+// streams, and eight warps also halve each thread's share of the prologue.
+
+// Bytes between two quantized x rows in shared memory: K padded so that
+// rows lie 64 bytes apart modulo 128.  A quarter-warp's 16-byte reads cover
+// 64 bytes of each of two rows (g, g + 1), which then fall in disjoint banks.
+__host__ __device__ __forceinline__ int gemv_x_stride(int k) { return k + (192 - k % 128) % 128; }
+
+// A 16-byte load of x -> its 16 / sizeof(T) values in f32 (exact).
+__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x), f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z), f[3] = __uint_as_float(v.w);
+}
+
+// x [m, k] (bf16 or f32), wq int8 [n, k], sw f32 [n] -> out [m, n] in T;
+// m <= 8, k % 16 == 0, m * gemv_x_stride(k) bytes of dynamic shared memory.
+template <typename T, int Warps, int Unroll>
+__global__ void __launch_bounds__(Warps * 32)
+w8a8_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
+                 const float* __restrict__ sw, T* __restrict__ out, int m, int n, int k) {
+  constexpr int kThreads = Warps * 32;
+  constexpr int kVec = 16 / sizeof(T);  // x values a 16-byte load
+  static_assert(kThreads >= kGemvMaxM * kGemvRows, "w8a8 gemv: one thread per output");
+  extern __shared__ __align__(16) int8_t xs[];  // [m][gemv_x_stride(k)], x quantized
+  __shared__ int part[Warps][kGemvMaxM][kGemvRows];
+  __shared__ float red[Warps][kGemvMaxM];
+  __shared__ float sx[kGemvMaxM];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int n0 = blockIdx.x * kGemvRows;
+  const int stride = gemv_x_stride(k);
+  const int segs = (k + kGemvSeg - 1) / kGemvSeg;
+  // warp w owns segments [seg0, seg1): a contiguous run of each row
+  const int per = (segs + Warps - 1) / Warps;
+  const int seg0 = min(segs, warp * per), seg1 = min(segs, seg0 + per);
+  // This lane's weight rows n0 + g and n0 + g + 8 (a row past N reads
+  // nothing) and quantized x row g (a row past M gives zero B fragments):
+  // 16 bytes at 16 tq of each segment.
+  const bool live0 = n0 + g < n, live1 = n0 + g + 8 < n, xlive = g < m;
+  const size_t row0 = live0 ? n0 + g : 0, row1 = live1 ? n0 + g + 8 : 0;
+  const int8_t* wp0 = wq + row0 * k + 16 * tq;
+  const int8_t* wp1 = wq + row1 * k + 16 * tq;
+  const int8_t* xp = xs + (xlive ? g : 0) * stride + 16 * tq;
+  const bool rows_full = n0 + kGemvRows <= n;
+
+  // One batch: segments s .. s + Unroll - 1 of the warp's run, every load
+  // issued before any is used.  `full`: every row lies inside N and every
+  // segment inside K, so nothing is checked.  Otherwise a lane's 16 bytes
+  // past K (K % 64 != 0: the last segment is partial; K % 16 == 0, so a
+  // lane's bytes are all in or all out) or past N read as zero words.
+  using Batch = uint4[Unroll][2];  // [segment][row g, g + 8]
+  auto batch_full = [&](int s) {
+    return rows_full && (s + Unroll) * kGemvSeg <= k && s + Unroll <= seg1;
+  };
+  auto load = [&](int s, Batch& wb, bool full) {
+#pragma unroll
+    for (int u = 0; u < Unroll; ++u) {
+      const int seg = s + u;
+      const bool in = full || (seg < seg1 && seg * kGemvSeg + 16 * tq < k);
+      wb[u][0] = full || (in && live0) ? ld_stream(wp0 + seg * kGemvSeg) : make_uint4(0, 0, 0, 0);
+      wb[u][1] = full || (in && live1) ? ld_stream(wp1 + seg * kGemvSeg) : make_uint4(0, 0, 0, 0);
+    }
+  };
+  Batch wv;
+  bool full = batch_full(seg0);
+  if (seg0 < seg1) {
+    if (full) load(seg0, wv, true); else load(seg0, wv, false);
+  }
+
+  // Prologue, while those loads are in flight: s_x[r] = amax_k |x[r, k]| /
+  // 127 (1 where amax is 0) and x / s_x rounded half to even, clamped to
+  // +-127, into shared memory.  m is the same for the whole block, so the
+  // shuffles below run in whole warps.
+  const int chunks = k / kVec;
+  float amax[kGemvMaxM];
+#pragma unroll
+  for (int r = 0; r < kGemvMaxM; ++r) amax[r] = 0.f;
+  for (int c = tid; c < chunks; c += kThreads) {
+#pragma unroll
+    for (int r = 0; r < kGemvMaxM; ++r) {
+      if (r >= m) break;
+      float f[kVec];
+      unpack16(__ldg(reinterpret_cast<const uint4*>(x + static_cast<size_t>(r) * k) + c), f);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) amax[r] = fmaxf(amax[r], fabsf(f[i]));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kGemvMaxM; ++r) {
+    if (r >= m) break;
+    float a = amax[r];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+    if (lane == 0) red[warp][r] = a;
+  }
+  __syncthreads();
+  if (tid < m) {
+    float a = red[0][tid];
+#pragma unroll
+    for (int w = 1; w < Warps; ++w) a = fmaxf(a, red[w][tid]);
+    sx[tid] = a == 0.f ? 1.f : __fdiv_rn(a, 127.f);
+  }
+  __syncthreads();
+  for (int c = tid; c < chunks; c += kThreads) {
+#pragma unroll
+    for (int r = 0; r < kGemvMaxM; ++r) {
+      if (r >= m) break;
+      float f[kVec];
+      unpack16(__ldg(reinterpret_cast<const uint4*>(x + static_cast<size_t>(r) * k) + c), f);
+      const float s = sx[r];
+      uint32_t q[kVec / 4];
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        const float v = fminf(fmaxf(rintf(__fdiv_rn(f[i], s)), -127.f), 127.f);  // half to even
+        const uint32_t b = static_cast<uint32_t>(static_cast<int>(v)) & 0xffu;
+        q[i / 4] = i % 4 ? q[i / 4] | (b << (8 * (i % 4))) : b;
+      }
+      int8_t* dst = xs + r * stride + c * kVec;
+      if constexpr (kVec == 8) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(q[0], q[1]);
+      } else {
+        *reinterpret_cast<uint32_t*>(dst) = q[0];
+      }
+    }
+  }
+  __syncthreads();
+
+  // acc[c]: rows (g, g + 8) x x rows (2tq, 2tq + 1), the mma's C fragment;
+  // two chains (the two k32 steps of a segment)
+  int acc[2][4] = {};
+  auto compute = [&](int s, const Batch& wb, bool full) {
+#pragma unroll
+    for (int u = 0; u < Unroll; ++u) {
+      const int seg = s + u;
+      if (seg >= seg1) break;  // the same for the whole warp
+      // the lane's 16 bytes hold k = 64 seg + 16 tq .. + 15; word j feeds
+      // k32 step j / 2, in the fragment's slots 4tq.. (even j) or 4tq + 16..
+      const uint4 xv = xlive && (full || seg * kGemvSeg + 16 * tq < k)
+                           ? *reinterpret_cast<const uint4*>(xp + seg * kGemvSeg)
+                           : make_uint4(0, 0, 0, 0);
+      const uint32_t a0[4] = {wb[u][0].x, wb[u][1].x, wb[u][0].y, wb[u][1].y};
+      const uint32_t b0[2] = {xv.x, xv.y};
+      mma_s8_16832(acc[0], a0, b0);
+      const uint32_t a1[4] = {wb[u][0].z, wb[u][1].z, wb[u][0].w, wb[u][1].w};
+      const uint32_t b1[2] = {xv.z, xv.w};
+      mma_s8_16832(acc[1], a1, b1);
+    }
+  };
+
+  // Software pipeline: the next batch's loads are in flight while this one
+  // is multiplied.
+  for (int s = seg0; s < seg1; s += Unroll) {
+    Batch cw;
+#pragma unroll
+    for (int u = 0; u < Unroll; ++u) cw[u][0] = wv[u][0], cw[u][1] = wv[u][1];
+    const bool cfull = full;
+    const int next = s + Unroll;
+    if (next < seg1) {
+      full = batch_full(next);
+      if (full) load(next, wv, true); else load(next, wv, false);
+    }
+    if (cfull) compute(s, cw, true); else compute(s, cw, false);
+  }
+
+  part[warp][2 * tq][g] = acc[0][0] + acc[1][0];
+  part[warp][2 * tq + 1][g] = acc[0][1] + acc[1][1];
+  part[warp][2 * tq][g + 8] = acc[0][2] + acc[1][2];
+  part[warp][2 * tq + 1][g + 8] = acc[0][3] + acc[1][3];
+  __syncthreads();
+  if (tid < kGemvMaxM * kGemvRows) {
+    const int mm = tid / kGemvRows, r = tid % kGemvRows;
+    if (mm < m && n0 + r < n) {
+      int sum = 0;
+#pragma unroll
+      for (int w = 0; w < Warps; ++w) sum += part[w][mm][r];
+      const float v = __fmul_rn(__fmul_rn(__int2float_rn(sum), sx[mm]), sw[n0 + r]);
+      out[static_cast<size_t>(mm) * n + n0 + r] = from_f32<T>(v);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_w8a8_gemv(const void* x, const int8_t* wq, const float* sw, void* out, int m,
+                             int n, int k, cudaStream_t stream) {
+  auto kernel = w8a8_gemv_kernel<T, kW8a8GemvWarps, kW8a8GemvUnroll>;
+  const int smem = m * gemv_x_stride(k);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<ceil_div(n, kGemvRows), kW8a8GemvWarps * 32, smem, stream>>>(
+      static_cast<const T*>(x), wq, sw, static_cast<T*>(out), m, n, k);
+  return cudaGetLastError();
+}
+
+// The form a call of m rows and K = k takes, by shape alone: 0 the GEMV, 1
+// the mma.sync form, 2 the wgmma kernel.
+int w8a8_form(int m, int k) {
+  if (m <= kW8a8GemvMaxM && k <= kW8a8GemvMaxK) return 0;
+  return m >= kWgmmaMinM ? 2 : 1;
+}
+
 }  // namespace
 }  // namespace sdtpu
 
@@ -311,27 +558,36 @@ extern "C" int sdtpu_w8a8_quantize_rows(int dtype, const void* x, void* xq, void
   return cudaGetLastError();
 }
 
-// xq int8 [m, k], wq int8 [n, k], sx f32 [m], sw f32 [n] -> out [m, n] in
-// `out_dtype`.  k must be a multiple of 16 and the pointers 16-byte aligned.
-// M >= kWgmmaMinM takes the wgmma kernel, smaller M the mma.sync one.
-extern "C" int sdtpu_w8a8_matmul(int out_dtype, const void* xq, const void* wq,
-                                 const void* sx, const void* sw, void* out, int m,
-                                 int n, int k, void* stream) {
+// x [m, k] in `dtype` (bf16 or f32), wq int8 [n, k], sw f32 [n] -> out
+// [m, n] in `dtype`.  k must be a multiple of 16 and the pointers 16-byte
+// aligned.  The form is w8a8_form's: the GEMV quantizes x itself (xq and sx
+// are not read and may be null); the other forms read xq int8 [m, k] and sx
+// f32 [m], which sdtpu_w8a8_quantize_rows wrote from x.  A refused launch
+// is returned, never retried in another form.
+extern "C" int sdtpu_w8a8_matmul(int dtype, const void* x, const void* xq, const void* wq,
+                                 const void* sx, const void* sw, void* out, int m, int n, int k,
+                                 void* stream) {
   using namespace sdtpu;
   if (m <= 0 || n <= 0 || k <= 0 || k % 16) return cudaErrorInvalidValue;
+  if (dtype != kBF16 && dtype != kF32) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* a = static_cast<const int8_t*>(xq);
   const int8_t* b = static_cast<const int8_t*>(wq);
   const float* fx = static_cast<const float*>(sx);
   const float* fw = static_cast<const float*>(sw);
-  if (out_dtype != kBF16 && out_dtype != kF32) return cudaErrorInvalidValue;
-  if (m >= kWgmmaMinM) {
-    if (out_dtype == kBF16)
+  const int form = w8a8_form(m, k);
+  if (form == 0) {
+    if (dtype == kBF16) return launch_w8a8_gemv<__nv_bfloat16>(x, b, fw, out, m, n, k, s);
+    return launch_w8a8_gemv<float>(x, b, fw, out, m, n, k, s);
+  }
+  if (a == nullptr || fx == nullptr) return cudaErrorInvalidValue;
+  if (form == 2) {
+    if (dtype == kBF16)
       return launch_w8a8_wgmma(a, b, fx, fw, static_cast<__nv_bfloat16*>(out), m, n, k, s);
     return launch_w8a8_wgmma(a, b, fx, fw, static_cast<float*>(out), m, n, k, s);
   }
   dim3 grid(ceil_div(n, kBN), ceil_div(m, kBM));
-  if (out_dtype == kBF16) {
+  if (dtype == kBF16) {
     w8a8_gemm_kernel<<<grid, kThreads, 0, s>>>(a, b, fx, fw,
                                                static_cast<__nv_bfloat16*>(out), m, n, k);
   } else {
@@ -339,3 +595,7 @@ extern "C" int sdtpu_w8a8_matmul(int out_dtype, const void* xq, const void* wq,
   }
   return cudaGetLastError();
 }
+
+// The form a call of m rows and K = k takes: 0 the GEMV, 1 the mma.sync
+// form, 2 the wgmma kernel.
+extern "C" long long sdtpu_w8a8_form(int m, int k) { return sdtpu::w8a8_form(m, k); }

@@ -36,8 +36,8 @@ SIGNATURES = {
     "sdtpu_flash_attention": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # dtype, x, xq, sx, m, k, stream
     "sdtpu_w8a8_quantize_rows": (_I, _P, _P, _P, _I, _I, _P),
-    # out_dtype, xq, wq, sx, sw, out, m, n, k, stream
-    "sdtpu_w8a8_matmul": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # dtype, x, xq, wq, sx, sw, out, m, n, k, stream
+    "sdtpu_w8a8_matmul": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, packed, scale, out, m, n, k, kp, group, stream
     "sdtpu_q4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # dtype, x, q, scale, out, m, n, k, kp, group, stream
@@ -54,6 +54,8 @@ QUERIES = {
     "sdtpu_flash_workspace_bytes": ((_I, _I, _I, _I, _I), ctypes.c_longlong),
     # m, n -> x rows per block of the 4-bit wgmma kernel (0: another form runs)
     "sdtpu_q4_tile_rows": ((_I, _I), ctypes.c_longlong),
+    # m, k -> the W8A8 form: 0 the GEMV, 1 the mma.sync form, 2 the wgmma kernel
+    "sdtpu_w8a8_form": ((_I, _I), ctypes.c_longlong),
     # m -> the 4-bit form for m rows: 0 the GEMV, 1 the mma.sync form, 2 the wgmma kernel
     "sdtpu_q4_form": ((_I,), ctypes.c_longlong),
     # dtype, mode (0 group, 1 affine, 2 W8A16), m -> the group-dequant form:

@@ -44,6 +44,13 @@ Q4_K_MULTIPLE = 64  # the 4-bit kernel's K tile: packed rows are padded to it
 Q4_MIN_K = 512  # symmetric 4-bit-range blocks with K >= this pack to Q4Tensor (JAX block_k)
 Q4_WGMMA_MIN_M = 128  # q4_matmul calls with at least this many rows run the wgmma kernel (kQ4MinM)
 Q4_GEMV_MAX_M = 8  # q4_matmul calls with at most this many rows run the GEMV (kQ4GemvMaxM)
+# W8A8 calls with at most this many rows and K at most W8A8_GEMV_MAX_K run
+# the GEMV (kW8a8GemvMaxM, kW8a8GemvMaxK: x is quantized into shared memory),
+# those with at least W8A8_WGMMA_MIN_M the wgmma kernel (kWgmmaMinM), the
+# rest the mma.sync form
+W8A8_GEMV_MAX_M = 8
+W8A8_GEMV_MAX_K = 16384
+W8A8_WGMMA_MIN_M = 128
 GQ_GROUPS = (16, 32)
 # symmetric group-dequant and W8A16 bf16 calls with at most this many rows run
 # the GEMV (kGqGemvMaxM), those with at least GQ_WGMMA_MIN_M the wgmma kernel
@@ -299,7 +306,13 @@ def quant_matmul_w8a8_plain(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
 def quant_matmul_w8a8(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """W8A8: x [..., K] × int8 weight [N, K] → [..., N] in x.dtype.
 
-    out[m, n] = (Σ_k xq[m, k]·wq[n, k]) · s_x[m] · s_w[n]"""
+    out[m, n] = (Σ_k xq[m, k]·wq[n, k]) · s_x[m] · s_w[n].  The library
+    picks the form by shape (``sdtpu_w8a8_form``): calls of at most
+    ``W8A8_GEMV_MAX_M`` rows run the weight-streaming GEMV, which quantizes
+    x itself in its one launch (counted in ``launches_gemv``); the others
+    quantize x per row first (``sdtpu_w8a8_quantize_rows``) and run the
+    ``mma.sync`` form (``launches_mma``) or, from ``W8A8_WGMMA_MIN_M`` rows,
+    the wgmma kernel.  Every call counts in ``launches``."""
     if x.device.type == "cpu":
         return quant_matmul_w8a8_plain(x, qt)
     if x.dtype not in _build.DTYPE_CODES:
@@ -310,21 +323,28 @@ def quant_matmul_w8a8(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
         raise ValueError(f"quant_matmul_w8a8: K={k} must match the weight and be a multiple of 16")
     x2 = x.reshape(-1, k).contiguous()
     m = x2.shape[0]
-    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    gemv = m <= W8A8_GEMV_MAX_M and k <= W8A8_GEMV_MAX_K
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    _build.check_cuda("quant_matmul_w8a8", x2, qt.q, qt.scale, xq, sx, out)
     code = _build.DTYPE_CODES[x.dtype]
     stream = _build.stream_ptr(x)
-    _build.launch("sdtpu_w8a8_quantize_rows", code, x2.data_ptr(), xq.data_ptr(),
-                  sx.data_ptr(), m, k, stream)
-    _build.launch("sdtpu_w8a8_matmul", code, xq.data_ptr(), qt.q.data_ptr(), sx.data_ptr(),
-                  qt.scale.data_ptr(), out.data_ptr(), m, n, k, stream)
+    if gemv:
+        xq = sx = None
+        _build.check_cuda("quant_matmul_w8a8", x2, qt.q, qt.scale, out)
+    else:
+        xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+        sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+        _build.check_cuda("quant_matmul_w8a8", x2, qt.q, qt.scale, xq, sx, out)
+        _build.launch("sdtpu_w8a8_quantize_rows", code, x2.data_ptr(), xq.data_ptr(),
+                      sx.data_ptr(), m, k, stream)
+    _build.launch("sdtpu_w8a8_matmul", code, x2.data_ptr(), _build.ptr(xq), qt.q.data_ptr(),
+                  _build.ptr(sx), qt.scale.data_ptr(), out.data_ptr(), m, n, k, stream)
     quant_matmul_w8a8.launches += 1
+    quant_matmul_w8a8.launches_gemv += gemv
+    quant_matmul_w8a8.launches_mma += not gemv and m < W8A8_WGMMA_MIN_M
     return out.reshape(*x.shape[:-1], n)
 
 
-quant_matmul_w8a8.launches = 0
+quant_matmul_w8a8.launches = quant_matmul_w8a8.launches_gemv = quant_matmul_w8a8.launches_mma = 0
 
 
 # ------------------------------------------------------------------ W8A16

@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
-"""Time the dequantizing matmuls (4-bit, group-dequant, affine, W8A16) at
-``chip_smoke.py``'s shapes with whichever checkout's package ``PYTHONPATH``
-names, so checkouts can be compared on one card in one session, in turns.
+"""Time the quantized matmuls (4-bit, group-dequant, affine, W8A16, W8A8)
+at ``chip_smoke.py``'s shapes with whichever checkout's package
+``PYTHONPATH`` names, so checkouts can be compared on one card in one
+call, in turns.
 
     PYTHONPATH=<checkout> python3 <this checkout>/sdtpu_torch/tools/time_dequant.py \
-        [--label name] [--out results.json]
+        [--label name] [--kernels w8a8_matmul,...] [--out results.json]
 
 Cases: ``q4_matmul`` at ``Q4_CASES``; ``gq_matmul`` (group 32, and group 16
-at ``GQ16_CASES``), ``gq_zero_matmul`` and ``w8a16_matmul`` at the
-``W8A8_CASES`` of at least 128 rows (their TMA + wgmma form); then
-``gq_matmul`` (groups 32 and 16) and ``w8a16_matmul`` at the cases of at
-most ``GQ_GEMV_MAX_M`` rows (their GEMV).  The shapes, tolerances,
-input draws and timing are ``chip_smoke.py``'s, loaded from this script's
-own checkout; the kernels come from the package on ``PYTHONPATH`` (built
-from that checkout's sources).  Each case is held to its plain version,
-then timed with CUDA events after warm-up, and a case of at most
-``GQ_GEMV_MAX_M`` rows also on the device clock (``device_ms``: the
-CUDA-event time reads the Python wrapper's launch rate there).  One
-``kernel {...}`` line per case, then a summary line.
+at ``GQ16_CASES``), ``gq_zero_matmul``, ``w8a16_matmul`` and
+``quant_matmul_w8a8`` at the ``W8A8_CASES`` of at least 128 rows (their
+TMA + wgmma form); then ``gq_matmul`` (groups 32 and 16), ``w8a16_matmul``
+and ``quant_matmul_w8a8`` at the cases of at most ``GQ_GEMV_MAX_M`` rows
+(their GEMVs).  ``--kernels`` keeps the cases of the named wrappers only.
+The shapes, tolerances, input draws and timing are ``chip_smoke.py``'s,
+loaded from this script's own checkout; the kernels come from the package
+on ``PYTHONPATH`` (built from that checkout's sources).  Each case is held
+to its plain version (W8A8 bit-equal), then timed with CUDA events after
+warm-up, and a case of at most ``GQ_GEMV_MAX_M`` rows also on the device
+clock (``device_ms``: the CUDA-event time reads the Python wrapper's launch
+rate there), as the sum over the kernels a call launches of each one's mean
+device time, so that a W8A8 call that quantizes x in a launch of its own
+counts both.  One ``kernel {...}`` line per case, then a summary line.
 """
 from __future__ import annotations
 
@@ -36,9 +40,23 @@ def _chip_smoke():
     return mod
 
 
+def device_ms_sum(cs, fn, iters: int) -> float:
+    """The device time of one call of ``fn``, summed over the kernels it
+    launches: each kernel's mean over the launches ``chip_smoke.py``'s
+    ``device_kernels`` recorded of ``iters`` calls."""
+    by_name = {}
+    for name, us in cs.device_kernels(fn, iters):
+        by_name.setdefault(name, []).append(us)
+    if not by_name or any(len(v) > iters for v in by_name.values()):
+        raise RuntimeError(f"device_ms_sum: {[(n[:60], len(v)) for n, v in by_name.items()]} "
+                           f"device kernels traced in {iters} calls")
+    return sum(sum(v) / len(v) for v in by_name.values()) / 1e3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--label", default="")
+    ap.add_argument("--kernels", help="comma-separated wrapper names: time only their cases")
     ap.add_argument("--out", help="also write every number to this JSON file")
     args = ap.parse_args()
 
@@ -61,11 +79,14 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(3)
     big = [s for s in cs.W8A8_CASES if s[0] >= 128]
     plan = [("q4_matmul", s[:3], s[3]) for s in cs.Q4_CASES]
-    plan += [(form, s, 32) for s in big for form in ("gq_matmul", "gq_zero_matmul", "w8a16_matmul")]
+    plan += [(form, s, 32) for s in big
+             for form in ("gq_matmul", "gq_zero_matmul", "w8a16_matmul", "quant_matmul_w8a8")]
     plan += [("gq_matmul", s, 16) for s in cs.GQ16_CASES if s[0] >= 128]
     small = [s for s in cs.W8A8_CASES if s[0] <= quant.GQ_GEMV_MAX_M]
-    plan += [(form, s, 32) for s in small for form in ("gq_matmul", "w8a16_matmul")]
+    plan += [(form, s, 32) for s in small for form in ("gq_matmul", "w8a16_matmul", "quant_matmul_w8a8")]
     plan += [("gq_matmul", s, 16) for s in cs.GQ16_CASES if s[0] <= quant.GQ_GEMV_MAX_M]
+    if args.kernels:
+        plan = [p for p in plan if p[0] in args.kernels.split(",")]
     cases = []
     for form, (m, k, n), group in plan:
         x = torch.randn((m, k), generator=g, device="cuda", dtype=torch.bfloat16)
@@ -76,11 +97,12 @@ def main() -> int:
                 scale=torch.rand((n, kp // group), generator=g, device="cuda") * Q4_SCALE + Q4_SCALE / 2,
                 k=k, group=group)
             fn, plain, rel = quant.q4_matmul, quant.q4_matmul_plain, cs.Q4_REL_TOL
-        elif form == "w8a16_matmul":
+        elif form in ("w8a16_matmul", "quant_matmul_w8a8"):
             qt = quant.QuantTensor(
                 q=torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8),
                 scale=torch.rand((n,), generator=g, device="cuda") * 4e-4 + 1e-5)
-            fn, plain, rel = quant.w8a16_matmul, quant.w8a16_matmul_plain, cs.GQ_REL_TOL["bf16"]
+            fn, plain = getattr(quant, form), getattr(quant, f"{form}_plain")
+            rel = 0.0 if form == "quant_matmul_w8a8" else cs.GQ_REL_TOL["bf16"]
         else:
             qt = cs._random_group_weight(g, n, k, group, affine=form == "gq_zero_matmul")
             fn, plain, rel = getattr(quant, form), quant.group_quant_matmul_plain, cs.GQ_REL_TOL["bf16"]
@@ -89,7 +111,7 @@ def main() -> int:
         tol = rel * want.float().abs().max().item()
         it = cs.iters_for(2.0 * m * n * k)
         ms = cs.time_ms(lambda: fn(x, qt), it)
-        dev = {"device_ms": cs.device_ms(lambda: fn(x, qt), it)} if m <= quant.GQ_GEMV_MAX_M else {}
+        dev = {"device_ms": device_ms_sum(cs, lambda: fn(x, qt), it)} if m <= quant.GQ_GEMV_MAX_M else {}
         case = dict(label=args.label, kernel=form, shape=[m, k, n], group=group, ms=ms, **dev,
                     max_abs_err=err, tol=tol, ok=bool(err <= tol), card=card)
         print("kernel " + json.dumps(case), flush=True)

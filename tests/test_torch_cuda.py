@@ -27,18 +27,108 @@ def cuda():
     return torch.device("cuda")
 
 
+def _gemv_counts(fn):
+    return [fn.launches, fn.launches_gemv, fn.launches_mma]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(1, 16, 8), (3, 48, 130), (129, 272, 257), (300, 1040, 64)])
+@pytest.mark.parametrize("m,k,n", [(1, 16, 8), (3, 48, 130), (9, 48, 130), (9, 3072, 18432),
+                                   (129, 272, 257), (300, 1040, 64)])
 def test_w8a8_kernel_bit_equal(cuda, m, k, n):
+    """Each form, bf16 and float32 x: the GEMV (M <= 8), mma.sync (M = 9,
+    its first row) and wgmma; the wrapper counts the form the library ran."""
     g = torch.Generator(device=cuda).manual_seed(m)
     x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
     qt = quant.quantize_per_channel(torch.randn((n, k), generator=g, device=cuda) * 0.02)
-    before = quant.quant_matmul_w8a8.launches
-    got = quant.quant_matmul_w8a8(x, qt)
-    assert quant.quant_matmul_w8a8.launches == before + 1
-    assert torch.equal(got, quant.quant_matmul_w8a8_plain(x, qt))
-    x32 = x.float()
-    assert torch.equal(quant.quant_matmul_w8a8(x32, qt), quant.quant_matmul_w8a8_plain(x32, qt))
+    form = _build.query("sdtpu_w8a8_form", m, k)
+    for xd in (x, x.float()):
+        before = _gemv_counts(quant.quant_matmul_w8a8)
+        got = quant.quant_matmul_w8a8(xd, qt)
+        assert _gemv_counts(quant.quant_matmul_w8a8) == [before[0] + 1, before[1] + (form == 0),
+                                                         before[2] + (form == 1)]
+        assert torch.equal(got, quant.quant_matmul_w8a8_plain(xd, qt))
+
+
+def _w8a8_gemv_inputs(g, m, k, dtype, device):
+    """x [m, k] for the W8A8 GEMV: all random; then with an all-zero row
+    (amax 0, so s_x = 1 and every q is 0) and a row of amax exactly 127 (s_x
+    = 1) whose other values lie at j + 0.5, so x / s_x rounds half to even
+    both ways (exact in bf16).  At M = 1 each special row is a call of its own."""
+    def ties():
+        row = torch.randint(-127, 127, (k,), generator=g, device=device).to(dtype) + 0.5
+        row[0] = 127.0
+        return row
+
+    x = torch.randn((m, k), generator=g, device=device, dtype=dtype)
+    if m == 1:
+        return [x, torch.zeros_like(x), ties()[None]]
+    special = torch.randn((m, k), generator=g, device=device, dtype=dtype)
+    special[0] = 0
+    special[-1] = ties()
+    return [x, special]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+@pytest.mark.parametrize("k", [16, 272, 1040, 3072])
+@pytest.mark.parametrize("n", [2, 77, 130, 18432])
+def test_w8a8_gemv_kernel_bit_equal(cuda, dtype, m, k, n):
+    """M <= 8 runs the weight-streaming GEMV, which quantizes x itself:
+    bit-equal to the plain version.  K = 16 is a quarter segment, 272 and
+    1040 end in a partial 64-byte segment; N off the 16-row block (2, 77,
+    130) and the DiT's widest modulation (18432)."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    qt = quant.QuantTensor(
+        q=torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8),
+        scale=torch.rand((n,), generator=g, device=cuda) * 4e-4 + 1e-5)
+    for x in _w8a8_gemv_inputs(g, m, k, dtype, cuda):
+        before = _gemv_counts(quant.quant_matmul_w8a8)
+        got = quant.quant_matmul_w8a8(x, qt)
+        assert _gemv_counts(quant.quant_matmul_w8a8) == [before[0] + 1, before[1] + 1, before[2]]
+        assert got.dtype == dtype and got.shape == (m, n)
+        assert torch.equal(got, quant.quant_matmul_w8a8_plain(x, qt))
+
+
+@pytest.mark.cuda
+def test_w8a8_gemv_is_one_kernel(cuda):
+    """The GEMV quantizes x in its own launch: a torch.profiler trace of one
+    M = 1 call holds one device kernel, no row quantize in front."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((1, 3072), generator=g, device=cuda, dtype=torch.bfloat16)
+    qt = quant.quantize_per_channel(torch.randn((3072, 3072), generator=g, device=cuda) * 0.02)
+    quant.quant_matmul_w8a8(x, qt)  # builds the library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        quant.quant_matmul_w8a8(x, qt)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "w8a8_gemv_kernel" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+def test_w8a8_form_by_shape(cuda):
+    """The library picks the W8A8 form by M and K alone (0 the GEMV, 1
+    mma.sync, 2 wgmma): the GEMV up to W8A8_GEMV_MAX_M rows and
+    W8A8_GEMV_MAX_K columns, where its x rows still fit shared memory."""
+    edges = (1, quant.W8A8_GEMV_MAX_M, quant.W8A8_GEMV_MAX_M + 1, quant.W8A8_WGMMA_MIN_M - 1,
+             quant.W8A8_WGMMA_MIN_M)
+    assert [_build.query("sdtpu_w8a8_form", m, 3072) for m in edges] == [0, 0, 1, 1, 2]
+    kmax = quant.W8A8_GEMV_MAX_K
+    assert [_build.query("sdtpu_w8a8_form", 8, k) for k in (kmax, kmax + 16)] == [0, 1]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for m, k in [(1, 256), (8, 256), (9, 256), (127, 256), (128, 256), (8, kmax), (8, kmax + 16)]:
+        x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
+        qt = quant.quantize_per_channel(torch.randn((32, k), generator=g, device=cuda) * 0.02)
+        form = _build.query("sdtpu_w8a8_form", m, k)
+        before = _gemv_counts(quant.quant_matmul_w8a8)
+        got = quant.quant_matmul_w8a8(x, qt)
+        assert _gemv_counts(quant.quant_matmul_w8a8) == [before[0] + 1, before[1] + (form == 0),
+                                                         before[2] + (form == 1)]
+        assert torch.equal(got, quant.quant_matmul_w8a8_plain(x, qt))
 
 
 @pytest.mark.cuda
@@ -303,10 +393,6 @@ def test_w8a16_kernel_matches_plain(cuda, m, k, n):
 GQ_GEMV_SHAPES = [(64, 2), (272, 77), (1040, 130), (3072, 3072), (3072, 18432), (15360, 3072)]
 
 
-def _gemv_counts(fn):
-    return [fn.launches, fn.launches_gemv, fn.launches_mma]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", [16, 32])
 @pytest.mark.parametrize("m", [1, 2, 5, 8])
@@ -425,7 +511,8 @@ def _all_launch_counts():
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     counts = _all_launch_counts()
-    assert ("gq_matmul", "launches_gemv") in counts and ("w8a16_matmul", "launches_gemv") in counts
+    assert all((f, "launches_gemv") in counts
+               for f in ("quant_matmul_w8a8", "gq_matmul", "w8a16_matmul"))
     q = torch.randn((1, 1, 8, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)  # head dim 32 has no kernel

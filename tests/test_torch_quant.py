@@ -104,6 +104,34 @@ def test_w8a8_plain_bit_equal_to_xla_form(dtype, m, k, n):
     np.testing.assert_array_equal(_as_np(got), _as_np(want))
 
 
+def _ties_row(rng, k):
+    """amax exactly 127 (s_x = 1), the other values at j + 0.5: x / s_x
+    rounds half to even both ways (exact in bf16)."""
+    row = rng.integers(-127, 127, size=k).astype(np.float32) + np.float32(0.5)
+    row[0] = 127.0
+    return row
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 2, 8])
+@pytest.mark.parametrize("k", [256, 272, 768])
+def test_w8a8_plain_bit_equal_to_xla_form_at_gemv_shapes(dtype, m, k):
+    """The rows the card's GEMV takes (M <= 8; K 256 and 768 are the DiT's
+    embedder widths, 272 ends in a partial 64-byte segment): an all-zero row
+    and a row of half-integer ties, each its own call at M = 1."""
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal((48, k)).astype(np.float32) * 0.02
+    qj = jq.quantize_per_channel(w)
+    qt = from_jax_params({"w": qj}, device="cpu")["w"]
+    zero_row = _x(rng, (m, k), dtype)  # row 0 all zero
+    ties = np.array(_x(rng, (m, k), dtype))
+    ties[-1] = _ties_row(rng, k)
+    for x in (zero_row, ties):
+        want = jq.quant_matmul_w8a8(_jax_x(x, dtype), qj)
+        got = tq.quant_matmul_w8a8(_port_x(x, dtype), qt)
+        np.testing.assert_array_equal(_as_np(got), _as_np(want))
+
+
 @pytest.mark.parametrize("m,n,k", [
     (640, 384, 256),    # ragged M/N (the kernel pads both)
     (1280, 256, 2048),  # two K steps: int32 accumulation across the grid
