@@ -51,8 +51,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      kept in its blocks), answering a 512² and a 1024² request;
   9. main path 3: the same pipeline with the DiT in the ``q4_0`` class
      (packed 4-bit blocks on a q4_0 GGUF's group-32 grid, drawn on the card),
-     answering a 512² and a 1024² request.
-Every path of phases 5-9 sets the kernels' launch counts to 0 before it runs
+     answering a 512² and a 1024² request;
+ 10. main path 4, the default dtype: ``create_pipeline(SDVersion.FLUX,
+     device="cuda", seed=0)`` with no dtype argument, so float32 throughout
+     (int8 DiT through W8A8 with float32 x, 4-bit T5-XXL through the 4-bit
+     kernel's float32 form, CLIP-L and the VAE in float32, every attention
+     through the float32 flash kernel), answering a 512² and a 1024² request
+     (path ``f32``), then a 512² request with ``SDTPU_QUANT_MODE=w8a16``
+     (path ``f32_w8a16``: the W8A16 kernel's float32 form).
+Every path of phases 5-10 sets the kernels' launch counts to 0 before it runs
 and reads them after: each kernel that path runs must have launched.  The
 4-bit kernel's TMA + wgmma form (M >= 128) and its weight-streaming GEMV
 (M <= 8) are counted apart as well, as ``q4_matmul_wgmma`` and
@@ -67,6 +74,10 @@ GEMV (M <= 8) and their ``mma.sync`` form apart (``w8a8_matmul_gemv``,
 the ``mma.sync`` form.  The W8A8 GEMV quantizes x in its one launch, so its
 cases' ``device_ms`` (one kernel a call) also shows that no row-quantize
 launch runs in front of it.
+The float32 forms of flash, the 4-bit and the W8A16 matmuls are counted
+apart (``flash_attention_f32``, ``q4_matmul_f32``, ``w8a16_matmul_f32``):
+the float32 paths run every launch of those wrappers in them and no bf16
+form, the bf16 paths none of them.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -93,17 +104,20 @@ Q4_SRC = "sdtpu_torch/csrc/q4_matmul.cu"
 KERNEL_INFO = {
     "flash_attention": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "flash_attention_d512": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
+    "flash_attention_f32": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "w8a8_matmul": (W8A8_SRC, "sdtpu/ops/quant.py:416"),
     "w8a8_matmul_gemv": (W8A8_SRC, "sdtpu/ops/quant.py:416"),
     "q4_matmul": (Q4_SRC, "sdtpu/ops/quant.py:845"),
     "q4_matmul_wgmma": (Q4_SRC, "sdtpu/ops/quant.py:845"),
     "q4_matmul_gemv": (Q4_SRC, "sdtpu/ops/quant.py:845"),
+    "q4_matmul_f32": (Q4_SRC, "sdtpu/ops/quant.py:845"),
     "gq_matmul": (GQ_SRC, "sdtpu/ops/quant.py:616"),
     "gq_matmul_ws": (GQ_SRC, "sdtpu/ops/quant.py:652"),
     "gq_zero_matmul": (GQ_SRC, "sdtpu/ops/quant.py:687"),
     "w8a16_matmul": (GQ_SRC, "sdtpu/ops/quant.py:525"),
     "gq_matmul_gemv": (GQ_SRC, "sdtpu/ops/quant.py:616"),
     "w8a16_matmul_gemv": (GQ_SRC, "sdtpu/ops/quant.py:525"),
+    "w8a16_matmul_f32": (GQ_SRC, "sdtpu/ops/quant.py:525"),
 }
 
 # W8A8 at FLUX.1-dev shapes (M tokens, K in, N out): 4352 = 4096 img + 256 txt
@@ -124,14 +138,15 @@ W8A8_CASES = [
 GQ16_CASES = [(4352, 3072, 12288), (1, 3072, 18432)]
 GQ_F32_CASES = [(1280, 3072, 3072)]
 # (B, H, Lq, Lk, D, dtype, bias) — FLUX joint attention at 1024² and 512²,
-# CLIP-L with its causal mask, the VAE mid-block per 64-latent tile, and
-# float32 parity cases.
+# CLIP-L with its causal mask, the VAE mid-block per 64-latent tile, in bf16
+# and in float32 (the default pipeline's dtype), and a biased D 512 case.
 FLASH_CASES = [
     (1, 24, 4352, 4352, 128, "bf16", None), (1, 24, 1280, 1280, 128, "bf16", None),
     (2, 12, 77, 77, 64, "bf16", "causal"), (1, 1, 4096, 4096, 512, "bf16", None),
     (1, 2, 300, 200, 512, "bf16", "random"),
-    (1, 24, 1280, 1280, 128, "f32", None), (2, 12, 77, 77, 64, "f32", "causal"),
-    (1, 1, 1024, 1024, 512, "f32", "random"),
+    (1, 24, 1280, 1280, 128, "f32", None), (1, 24, 4352, 4352, 128, "f32", None),
+    (2, 12, 77, 77, 64, "f32", "causal"), (1, 1, 1024, 1024, 512, "f32", "random"),
+    (1, 1, 4096, 4096, 512, "f32", None),
 ]
 # (M, K, N, group) of the 4-bit kernel.  T5-XXL (M = 256 tokens per prompt:
 # q/k/v/o, wi_0/wi_1, wo) and one ragged case at groups 64, 32 and 16; the
@@ -151,7 +166,17 @@ Q4_DIT_SHAPES = [(4352, 3072, 12288), (4352, 12288, 3072), (4352, 15360, 3072),
                  (8, 3072, 18432), (9, 3072, 18432)]
 Q4_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES] + [(*s, 32) for s in Q4_DIT_SHAPES]
             + [(s, 3072, n, g) for g in (16, 64) for s, n in ((4352, 12288), (1, 18432))])
-Q4_FORMS = ("gemv", "mma", "wgmma")  # sdtpu_q4_form's codes
+# the float32 form (the default pipeline's T5-XXL): T5's shapes at groups 64,
+# 32 and 16, and a 4096-wide T5 linear at M = 1, 9 and 128 (the bf16 forms'
+# rows: GEMV, mma.sync, wgmma)
+Q4_F32_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES]
+                + [(m, 4096, 4096, 64) for m in (1, 9, 128)])
+# W8A16's float32 form (the default pipeline under SDTPU_QUANT_MODE=w8a16):
+# a modulation linear (M = 1), the bf16 forms' first mma.sync and wgmma rows,
+# the 1024² request's 4352 tokens, and a ragged shape
+W8A16_F32_CASES = [(1, 3072, 18432), (9, 3072, 18432), (128, 3072, 12288), (4352, 3072, 12288),
+                   (300, 1040, 130)]
+Q4_FORMS = ("gemv", "mma", "wgmma", "f32")  # sdtpu_q4_form's codes
 GQ_FORMS = ("gemv", "mma", "wgmma", "f32")  # sdtpu_gq_form's codes
 W8A8_FORMS = ("gemv", "mma", "wgmma")  # sdtpu_w8a8_form's codes
 Q4_DIT_GROUP = 32
@@ -165,15 +190,21 @@ Q4_DIT_GROUP = 32
 #     ulp of the largest |out| (at most 2^-7 of it) → 2e-2 of the largest
 #     |out|.  At D 512 each case also reads two faults emulated on its
 #     inputs (FLASH_FAULTS), and each must exceed the limit.
-#   flash f32: float32 throughout (TF32 off); only summation order and exp2
-#     against exp differ → 1e-4.
+#   flash f32: the kernel runs both products in 3xTF32 (each operand split
+#     into two tf32 terms, three products, float32 sums: ~2^-21 of each
+#     product), the plain version in float32 (TF32 off); summation order and
+#     exp2 against exp differ too → FLASH_TOL["f32"] of the largest |out|.
+#     Each f32 case also reads the one-pass TF32 fault (q, k, v and the
+#     probabilities rounded to tf32 in plain PyTorch), which must exceed it.
 #   q4, group-dequant, W8A16: identical bf16 weights (the group forms and the
 #     4-bit kernel round q·s (− z) once, in float32, as the plain version
 #     does; W8A16 widens q exactly and scales the float32 sum, the plain
 #     version scales the weight before its bf16 rounding, 2^-9 apart);
 #     float32 sums in another order can move the final bf16 rounding by an
-#     ulp → 2^-6 of the largest |output|.  Group-dequant float32: 1e-5 of it.
-FLASH_TOL = {"bf16": 2e-2, "f32": 1e-4}
+#     ulp → 2^-6 of the largest |output|.  The float32 forms (group-dequant,
+#     4-bit, W8A16): the same float32 weights as the plain version, float32
+#     sums in another order → 1e-5 of it.
+FLASH_TOL = {"bf16": 2e-2, "f32": 2e-5}
 #   the D 512 faults, in plain PyTorch on the case's inputs: the last 32-key
 #     tile of the first key split dropped, and the split-keys combine without
 #     its 2^(m_s - M) rescale (where the launcher splits the keys).
@@ -197,6 +228,13 @@ GQ_NO_LIBRARY = "no one-call PyTorch equivalent: no call takes int8 weights with
 #     scale index reads nothing (synthesized scales are constant); the kernel
 #     checks above, with random scales at the slice's shapes, catch those.
 REF_REL_TOL = 0.04
+#   the same check with the card in float32 (TF32 off, flash in 3xTF32): a
+#     precision check.  Both sides compute in float32 and differ in
+#     summation order and, in the DiT, in W8A8's activation quantization
+#     (an input that lands on the other side of a rounding tie moves one
+#     int8 step).  Sound readings on an H100: CLIP 4.1e-7, T5 1.5e-6, the
+#     DiT 1.2e-5, the VAE 6.3e-6; the limit is 8x the largest.
+REF_F32_REL_TOL = 1e-4
 #   loader check, at each of LOADER_SEEDS' inputs.  The kept blocks give the
 #     kernels the dense forward's bf16 weights, so their forward differs from
 #     the dense bf16 one only in how each sum is ordered and rounded; the
@@ -245,14 +283,34 @@ PATH_KERNELS = {
     "q8_0_gguf": ("flash_attention", "flash_attention_d512", "gq_matmul", "gq_matmul_gemv",
                   "gq_matmul_ws", *Q4),
     "q4_0": ("flash_attention", "flash_attention_d512", *Q4, "q4_matmul_gemv"),
+    # the default dtype, float32: W8A8 takes float32 x in its own forms (its
+    # GEMV at M = 1), the 4-bit, W8A16 and flash kernels their float32 forms
+    "f32": ("flash_attention", "flash_attention_f32", "w8a8_matmul", "w8a8_matmul_gemv",
+            "q4_matmul", "q4_matmul_f32"),
+    "f32_w8a16": ("flash_attention", "flash_attention_f32", "w8a16_matmul", "w8a16_matmul_f32",
+                  "q4_matmul", "q4_matmul_f32"),
 }
-# ... and none of these (the mode switch and the memory class hold)
-PATH_IDLE = {"int8": ("q4_matmul_gemv", "gq_matmul_gemv", "w8a16_matmul_gemv"),
-             "w8a16": ("w8a8_matmul", "w8a8_matmul_gemv", "q4_matmul_gemv", "gq_matmul_gemv"),
-             "q8_0_gguf": ("w8a8_matmul", "w8a8_matmul_gemv", "w8a16_matmul", "q4_matmul_gemv"),
-             "gguf_file": ("w8a8_matmul", "w8a16_matmul"),
+# ... and none of these (the mode switch, the memory class and the dtype
+# hold: the bf16 paths run no float32 form, the float32 paths no bf16 one;
+# F32_PATHS also check that every launch of the flash, 4-bit and W8A16
+# wrappers was a float32 one)
+F32_FORMS = ("flash_attention_f32", "q4_matmul_f32", "w8a16_matmul_f32")
+F32_IDLE = ("flash_attention_d512", "q4_matmul_wgmma", "q4_matmul_gemv", "w8a16_matmul_gemv",
+              "w8a16_matmul_mma", "gq_matmul", "gq_matmul_ws", "gq_zero_matmul")
+PATH_IDLE = {"int8": ("q4_matmul_gemv", "gq_matmul_gemv", "w8a16_matmul_gemv", *F32_FORMS),
+             "w8a16": ("w8a8_matmul", "w8a8_matmul_gemv", "q4_matmul_gemv", "gq_matmul_gemv",
+                       *F32_FORMS),
+             "q8_0_gguf": ("w8a8_matmul", "w8a8_matmul_gemv", "w8a16_matmul", "q4_matmul_gemv",
+                           *F32_FORMS),
+             "gguf_loader": F32_FORMS,
+             "gguf_file": ("w8a8_matmul", "w8a16_matmul", *F32_FORMS),
              "q4_0": ("w8a8_matmul", "w8a8_matmul_gemv", "w8a16_matmul", "gq_matmul",
-                      "gq_matmul_ws", "gq_zero_matmul")}
+                      "gq_matmul_ws", "gq_zero_matmul", *F32_FORMS),
+             "f32": ("w8a16_matmul", *F32_IDLE),
+             "f32_w8a16": ("w8a8_matmul", "w8a8_matmul_gemv", *F32_IDLE)}
+F32_PATHS = {"f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
+             "f32_w8a16": (("flash_attention", "flash_attention_f32"),
+                           ("q4_matmul", "q4_matmul_f32"), ("w8a16_matmul", "w8a16_matmul_f32"))}
 # The FLUX.1-dev DiT's M = 1 linears per forward: 2 x 19 double-block and 38
 # single-block modulations, the final adaLN and the three embedders' two
 # layers each; one forward a denoise step (under CFG one forward of the
@@ -277,6 +335,16 @@ W8A16_REQUESTS = [
 # the 1+1-block DiT loaded from the loader phase's file
 GGUF_FILE_REQUESTS = [dict(prompt="a lantern on a wooden table", width=512, height=512,
                            sample_steps=2, cfg_scale=1.0, guidance=3.5, seed=11)]
+# the default-dtype (float32) pipeline: a 512² and a 1024² request, then a
+# 512² one under SDTPU_QUANT_MODE=w8a16 (W8A16's float32 form: roughly a
+# second or more a step at FFMA rates)
+F32_REQUESTS = [
+    dict(prompt="a paper boat on a puddle after rain", width=512, height=512, sample_steps=2,
+         cfg_scale=1.0, guidance=3.5, seed=21),
+    dict(prompt="a lighthouse on a cliff above a stormy sea", width=1024, height=1024,
+         sample_steps=2, cfg_scale=1.0, guidance=3.5, seed=3),
+]
+F32_W8A16_REQUESTS = [F32_REQUESTS[0]]
 GGUF_REQUESTS = [
     dict(prompt="a photograph of an astronaut riding a horse", width=512, height=512,
          sample_steps=4, cfg_scale=1.0, guidance=3.5, seed=42),
@@ -495,6 +563,29 @@ def _d512_faults(q, k, v, mask, want) -> dict:
     return out
 
 
+def _tf32_round(t):
+    """float32 → the nearest tf32 (10 explicit mantissa bits, ties away from
+    zero), as cvt.rna.tf32.f32 rounds."""
+    import torch
+
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _one_pass_tf32_fault(q, k, v, mask, want) -> dict:
+    """max |error| against ``want`` of flash in one TF32 pass, emulated in
+    plain PyTorch: q, k, v and the probabilities rounded to tf32, the sums in
+    float32."""
+    import torch
+
+    qr, kr, vr = (_tf32_round(t) for t in (q, k, v))
+    s = torch.matmul(qr, kr.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if mask is not None:
+        s = s + mask
+    p = _tf32_round(torch.softmax(s, dim=-1))
+    return {"one_pass_tf32": (torch.matmul(p, vr) - want).abs().max().item()}
+
+
 def check_flash(results):
     import torch
     import torch.nn.functional as F
@@ -515,10 +606,14 @@ def check_flash(results):
         want = fa.plain_attention(q, k, v, mask=mask)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        tol = FLASH_TOL[dt] * (want.float().abs().max().item() if dt == "bf16" else 1.0)
-        name = "flash_attention_d512" if (d, dt) == (512, "bf16") else "flash_attention"
-        faults = _d512_faults(q, k, v, mask, want) if name == "flash_attention_d512" else {}
-        caught = all(faults[f] > tol for f in FLASH_FAULTS if f in faults)
+        tol = FLASH_TOL[dt] * want.float().abs().max().item()
+        if dt == "f32":
+            name, faults = "flash_attention_f32", _one_pass_tf32_fault(q, k, v, mask, want)
+        elif d == 512:
+            name, faults = "flash_attention_d512", _d512_faults(q, k, v, mask, want)
+        else:
+            name, faults = "flash_attention", {}
+        caught = all(faults[f] > tol for f in (*FLASH_FAULTS, "one_pass_tf32") if f in faults)
         ops = 4.0 * b * h * lq * lk * d
         it = iters_for(ops)
         ms = time_ms(lambda: fa.flash_attention(q, k, v, mask=mask), it)
@@ -553,18 +648,21 @@ def _int4pack_library(x, qt, want):
 
 
 def check_q4(results):
-    """Each Q4_CASES shape with random packed bytes and random scales (a
-    wrong nibble or group index shows); ``form`` is the form the library
-    ran (``Q4_FORMS``) and ``tile_rows`` the x-row tile the launcher gave the
-    wgmma form (0: another form)."""
+    """Each Q4_CASES shape in bf16 and each Q4_F32_CASES shape in float32,
+    with random packed bytes and random scales (a wrong nibble or group index
+    shows); ``form`` is the form the library ran (``Q4_FORMS``) and
+    ``tile_rows`` the x-row tile the launcher gave the wgmma form (0: another
+    form)."""
     import torch
 
     from sdtpu_torch.ops import _build, quant
     from sdtpu_torch.weights import Q4_SCALE
 
     g = torch.Generator(device=DEVICE).manual_seed(3)
-    for m, k, n, group in Q4_CASES:
-        x = torch.randn((m, k), generator=g, device=DEVICE, dtype=torch.bfloat16)
+    plan = [(*c, "bf16") for c in Q4_CASES] + [(*c, "f32") for c in Q4_F32_CASES]
+    for m, k, n, group, dt in plan:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x = torch.randn((m, k), generator=g, device=DEVICE, dtype=dtype)
         kp = -(-k // quant.Q4_K_MULTIPLE) * quant.Q4_K_MULTIPLE
         qt = quant.Q4Tensor(
             packed=torch.randint(0, 256, (n, kp // 2), generator=g, device=DEVICE,
@@ -575,13 +673,14 @@ def check_q4(results):
         got = quant.q4_matmul(x, qt)
         want = quant.q4_matmul_plain(x, qt)
         library, note = _int4pack_library(x, qt, want)
-        _compare(results, "q4_matmul", (m, k, n), got, want, Q4_REL_TOL,
+        _compare(results, "q4_matmul", (m, k, n), got, want,
+                 Q4_REL_TOL if dt == "bf16" else GQ_REL_TOL["f32"],
                  lambda: quant.q4_matmul(x, qt), lambda: quant.q4_matmul_plain(x, qt),
                  iters_for(2.0 * m * n * k),
-                 bound(2.0 * m * n * k, nbytes(x, qt.packed, qt.scale, got), "bf16"),
-                 library=library, library_note=note, group=group,
-                 form=Q4_FORMS[_build.query("sdtpu_q4_form", m)],
-                 tile_rows=_build.query("sdtpu_q4_tile_rows", m, n))
+                 bound(2.0 * m * n * k, nbytes(x, qt.packed, qt.scale, got), dt),
+                 library=library, library_note=note, group=group, dtype=dt,
+                 form=Q4_FORMS[_build.query("sdtpu_q4_form", _build.DTYPE_CODES[dtype], m)],
+                 tile_rows=_build.query("sdtpu_q4_tile_rows", m, n) if dt == "bf16" else 0)
         del x, qt, got, want, library
 
 
@@ -629,26 +728,32 @@ def check_group_quant(results):
 
 
 def check_w8a16(results):
+    """W8A16 at the W8A8 shapes in bf16 and at W8A16_F32_CASES in float32;
+    the yardstick ``torch._weight_int8pack_mm`` takes x as it is (a refusal
+    is the case's ``library_note``)."""
     import torch
 
     from sdtpu_torch.ops import _build, quant
 
     g = torch.Generator(device=DEVICE).manual_seed(5)
-    for m, k, n in W8A8_CASES:
-        x = torch.randn((m, k), generator=g, device=DEVICE, dtype=torch.bfloat16)
+    plan = [(c, "bf16") for c in W8A8_CASES] + [(c, "f32") for c in W8A16_F32_CASES]
+    for (m, k, n), dt in plan:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x = torch.randn((m, k), generator=g, device=DEVICE, dtype=dtype)
         qt = quant.QuantTensor(
             q=torch.randint(-127, 128, (n, k), generator=g, device=DEVICE, dtype=torch.int8),
             scale=torch.rand((n,), generator=g, device=DEVICE) * 4e-4 + 1e-5)
         got = quant.w8a16_matmul(x, qt)
         want = quant.w8a16_matmul_plain(x, qt)
-        s16 = qt.scale.to(torch.bfloat16)
-        library, note = _yardstick(lambda: torch._weight_int8pack_mm(x, qt.q, s16), want)
-        _compare(results, "w8a16_matmul", (m, k, n), got, want, GQ_REL_TOL["bf16"],
+        s_lib = qt.scale.to(dtype)
+        library, note = _yardstick(lambda: torch._weight_int8pack_mm(x, qt.q, s_lib), want)
+        _compare(results, "w8a16_matmul", (m, k, n), got, want, GQ_REL_TOL[dt],
                  lambda: quant.w8a16_matmul(x, qt), lambda: quant.w8a16_matmul_plain(x, qt),
                  iters_for(2.0 * m * n * k),
-                 bound(2.0 * m * n * k, nbytes(x, qt.q, qt.scale, got), "bf16"),
-                 library=library, library_note=note,
-                 form=GQ_FORMS[_build.query("sdtpu_gq_form", 0, quant.GQ_MODE_ROW_SCALE, m)])
+                 bound(2.0 * m * n * k, nbytes(x, qt.q, qt.scale, got), dt),
+                 library=library, library_note=note, dtype=dt,
+                 form=GQ_FORMS[_build.query("sdtpu_gq_form", _build.DTYPE_CODES[dtype],
+                                            quant.GQ_MODE_ROW_SCALE, m)])
         del x, qt, got, want, library
 
 
@@ -667,7 +772,9 @@ def _rel(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-12)).item()
 
 
-def _to_cpu_f32(params):
+def _f32_params(params, device):
+    """The same weights on ``device``, the dense ones widened to float32
+    (exact from bf16), the quantized ones as they are."""
     import torch
 
     from sdtpu_torch.ops.quant import Q4Tensor, QuantTensor
@@ -675,17 +782,18 @@ def _to_cpu_f32(params):
     out = {}
     for k, v in params.items():
         if isinstance(v, QuantTensor):
-            out[k] = QuantTensor(v.q.cpu(), v.scale.cpu())
+            out[k] = QuantTensor(v.q.to(device), v.scale.to(device))
         elif isinstance(v, Q4Tensor):
-            out[k] = dataclasses.replace(v, packed=v.packed.cpu(), scale=v.scale.cpu())
+            out[k] = dataclasses.replace(v, packed=v.packed.to(device), scale=v.scale.to(device))
         else:
-            out[k] = v.to("cpu", torch.float32)
+            out[k] = v.to(device, torch.float32)
     return out
 
 
 def reference_check():
-    """Small kernel-shaped configs: every kernel on the card (bf16) against
-    the plain versions on the CPU (float32), same weights and inputs."""
+    """Small kernel-shaped configs: every kernel on the card against the
+    plain versions on the CPU (float32), same weights and inputs, with the
+    card in bf16 (held at REF_REL_TOL) and in float32 (REF_F32_REL_TOL)."""
     import torch
 
     from sdtpu_torch.models import clip as clip_mod
@@ -706,7 +814,7 @@ def reference_check():
     }
     gpu = {n: synthesize(s, quant=q, seed=i, device=DEVICE, dtype=torch.bfloat16)
            for i, (n, (s, q)) in enumerate(mods.items())}
-    cpu = {n: _to_cpu_f32(p) for n, p in gpu.items()}
+    cpu = {n: _f32_params(p, "cpu") for n, p in gpu.items()}
     gen = torch.Generator().manual_seed(5)
     ids = torch.randint(0, 1000, (1, 77), generator=gen)
     ids[0, 20] = clip_cfg.eos_token_id
@@ -726,13 +834,17 @@ def reference_check():
             img = vae_mod.vae_decode(p["vae"], z.to(dev, dtype), vae_cfg)
         return {"clip_pooled": pooled, "t5": ctx, "flux_forward": vel, "vae_decode": img}
 
-    got = run(gpu, DEVICE, torch.bfloat16)
     want = run(cpu, "cpu", torch.float32)
     out = {}
-    for name in got:
-        ok = bool(torch.isfinite(got[name]).all())
-        rel = _rel(got[name], want[name])
-        out[name] = dict(rel_l2=rel, tol=REF_REL_TOL, ok=ok and rel <= REF_REL_TOL)
+    for dt, dtype, tol in (("bf16", torch.bfloat16, REF_REL_TOL),
+                           ("f32", torch.float32, REF_F32_REL_TOL)):
+        params = gpu if dt == "bf16" else {n: _f32_params(p, DEVICE) for n, p in gpu.items()}
+        got = run(params, DEVICE, dtype)
+        out[dt] = {}
+        for name in got:
+            ok = bool(torch.isfinite(got[name]).all())
+            rel = _rel(got[name], want[name])
+            out[dt][name] = dict(rel_l2=rel, tol=tol, ok=ok and rel <= tol)
     return out
 
 
@@ -746,6 +858,7 @@ def _windowed(wrappers, path, run):
     print(f"launches {path} " + json.dumps(counts), flush=True)
     idle = [n for n in PATH_KERNELS[path] if counts[n] == 0]
     stray = [n for n in PATH_IDLE.get(path, ()) if counts[n] != 0]
+    stray += [n for n, n32 in F32_PATHS.get(path, ()) if counts[n] != counts[n32]]
     if idle or stray:
         raise RuntimeError(f"path {path}: kernels not launched {idle}, launched in error {stray}")
     return out, counts
@@ -930,10 +1043,12 @@ def q4_block_dit() -> dict:
                       device=DEVICE, dtype=torch.bfloat16, group=Q4_DIT_GROUP)
 
 
-def build_pipeline(card: str, diffusion, label: str):
+def build_pipeline(card: str, diffusion, label: str, default_dtype: bool = False):
     """A full-width FLUX.1-dev pipeline around the given DiT params (None:
     the factory draws the int8 DiT); T5-XXL (4-bit), CLIP-L and the VAE drawn
-    on the card."""
+    on the card; in bf16, or with ``default_dtype`` as a user who names no
+    dtype gets it: ``create_pipeline(SDVersion.FLUX, device="cuda", seed=0)``,
+    float32 (held here)."""
     import torch
 
     from sdtpu_torch.config import SDVersion
@@ -942,8 +1057,13 @@ def build_pipeline(card: str, diffusion, label: str):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    pipe = create_pipeline(SDVersion.FLUX, params={"diffusion": diffusion}, dtype=torch.bfloat16,
-                           device=DEVICE, seed=0)
+    if default_dtype:
+        pipe = create_pipeline(SDVersion.FLUX, device=DEVICE, seed=0)
+        if pipe.compute_dtype != torch.float32:
+            raise RuntimeError(f"create_pipeline's default dtype is {pipe.compute_dtype}, not float32")
+    else:
+        pipe = create_pipeline(SDVersion.FLUX, params={"diffusion": diffusion}, dtype=torch.bfloat16,
+                               device=DEVICE, seed=0)
     pipe.set_vae_tiling(True)
     torch.cuda.synchronize()
     build_s = time.time() - t0
@@ -952,7 +1072,8 @@ def build_pipeline(card: str, diffusion, label: str):
           "vae": weight_bytes(pipe.vae_params)}
     print(f"pipeline: full-width FLUX.1-dev, DiT {label}, built in {build_s:.2f} s on "
           f"{card}; weight bytes " + json.dumps(wb), flush=True)
-    return pipe, {"diffusion": label, "build_s": build_s, "weight_bytes": wb}
+    return pipe, {"diffusion": label, "dtype": str(pipe.compute_dtype), "build_s": build_s,
+                  "weight_bytes": wb}
 
 
 def answer(pipe, requests, card: str, label: str):
@@ -1038,8 +1159,8 @@ def main() -> int:
     ap.add_argument("--out", help="also write every measured number to this JSON file")
     ap.add_argument("--profile", metavar="TABLE",
                     help="after each main path, profile one more 1024² request and write the "
-                         "profiler's tables to TABLE with .int8 / .w8a16 / .q8_0_gguf / .q4_0 "
-                         "before its suffix")
+                         "profiler's tables to TABLE with .int8 / .w8a16 / .q8_0_gguf / .q4_0 / "
+                         ".f32 before its suffix")
     args = ap.parse_args()
 
     import torch
@@ -1081,12 +1202,13 @@ def main() -> int:
 
     ref = reference_check()
     print("reference " + json.dumps(ref), flush=True)
-    if not all(r["ok"] for r in ref.values()):
+    if not all(r["ok"] for rs in ref.values() for r in rs.values()):
         raise RuntimeError(f"small-input reference check failed: {ref}")
 
     # each kernel's launch counter: (wrapper, attribute); the D 512 kernel,
-    # the 4-bit wgmma form and the GEMVs (and the W8A8, group-dequant and
-    # W8A16 mma.sync forms) are counted apart by their wrappers
+    # the 4-bit wgmma form, the GEMVs, the float32 forms (and the W8A8,
+    # group-dequant and W8A16 mma.sync forms) are counted apart by their
+    # wrappers
     wrappers = {"flash_attention": (flash_attention.flash_attention, "launches"),
                 "flash_attention_d512": (flash_attention.flash_attention, "launches_d512"),
                 "w8a8_matmul_gemv": (quant.quant_matmul_w8a8, "launches_gemv"),
@@ -1096,7 +1218,10 @@ def main() -> int:
                 "gq_matmul_gemv": (quant.gq_matmul, "launches_gemv"),
                 "gq_matmul_mma": (quant.gq_matmul, "launches_mma"),
                 "w8a16_matmul_gemv": (quant.w8a16_matmul, "launches_gemv"),
-                "w8a16_matmul_mma": (quant.w8a16_matmul, "launches_mma")}
+                "w8a16_matmul_mma": (quant.w8a16_matmul, "launches_mma"),
+                "flash_attention_f32": (flash_attention.flash_attention, "launches_f32"),
+                "q4_matmul_f32": (quant.q4_matmul, "launches_f32"),
+                "w8a16_matmul_f32": (quant.w8a16_matmul, "launches_f32")}
     for name, fn in (("w8a8_matmul", quant.quant_matmul_w8a8), ("q4_matmul", quant.q4_matmul),
                      ("gq_matmul", quant.gq_matmul), ("gq_matmul_ws", quant.gq_matmul_ws),
                      ("gq_zero_matmul", quant.gq_zero_matmul), ("w8a16_matmul", quant.w8a16_matmul)):
@@ -1160,17 +1285,43 @@ def main() -> int:
     if args.profile:
         prof["q4_0"] = profile_request(pipe, GGUF_REQUESTS[-1], args.profile, "q4_0", card)
     del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pipe, info = build_pipeline(card, None, "q8_0", default_dtype=True)
+    pipes.append(info)
+    rep, launches["f32"] = _windowed(wrappers, "f32",
+                                     lambda: answer(pipe, F32_REQUESTS, card, "f32"))
+    _check_m1_linears("f32", launches["f32"]["w8a8_matmul_gemv"],
+                      launches["f32"]["w8a8_matmul_mma"], F32_REQUESTS)
+    reports += rep
+    if args.profile:
+        prof["f32"] = profile_request(pipe, F32_REQUESTS[-1], args.profile, "f32", card)
+    os.environ["SDTPU_QUANT_MODE"] = "w8a16"
+    try:
+        rep, launches["f32_w8a16"] = _windowed(
+            wrappers, "f32_w8a16", lambda: answer(pipe, F32_W8A16_REQUESTS, card, "f32_w8a16"))
+    finally:
+        if previous is None:
+            del os.environ["SDTPU_QUANT_MODE"]
+        else:
+            os.environ["SDTPU_QUANT_MODE"] = previous
+    reports += rep
+    del pipe
 
     headline = {"flash_attention": ([1, 24, 4352, 4352, 128], {}),
                 "flash_attention_d512": ([1, 1, 4096, 4096, 512], {}),
+                "flash_attention_f32": ([1, 24, 4352, 4352, 128], {}),
                 "w8a8_matmul": ([4352, 3072, 12288], {}),
                 "w8a8_matmul_gemv": ([1, 3072, 18432], {}),
-                "q4_matmul": ([256, 4096, 10240], {"group": 64}),
+                "q4_matmul": ([256, 4096, 10240], {"group": 64, "dtype": "bf16"}),
+                "q4_matmul_f32": ([256, 4096, 10240], {"group": 64}),
                 "q4_matmul_wgmma": ([4352, 3072, 12288], {"group": 32}),
                 "q4_matmul_gemv": ([1, 3072, 18432], {"group": 32})}
     for name in ("gq_matmul", "gq_matmul_ws", "gq_zero_matmul"):
         headline[name] = ([4352, 3072, 12288], {"group": 32, "dtype": "bf16"})
-    headline["w8a16_matmul"] = ([4352, 3072, 12288], {})
+    headline["w8a16_matmul"] = ([4352, 3072, 12288], {"dtype": "bf16"})
+    headline["w8a16_matmul_f32"] = ([4352, 3072, 12288], {})
     headline["gq_matmul_gemv"] = ([1, 3072, 18432], {"group": 32})
     headline["w8a16_matmul_gemv"] = ([1, 3072, 18432], {})
     kernels = []

@@ -47,6 +47,58 @@ __device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// D(16x8, f32) += A(16x8, tf32, row) * B(8x8, tf32, col).  A: a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B: b0 (k t, n g), b1
+// (k t + 4, n g); C as mma_bf16_16816's (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma_tf32_1688(float c[4], const uint32_t a[4],
+                                              const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x = big + small + r: big = x rounded to a tf32 (10 explicit mantissa bits,
+// to nearest), small = the exact rest x - big rounded to a tf32, |r| <=
+// 2^-22 |x|.  The 3xTF32 product below keeps float32's accuracy on the
+// tensor cores.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  const float rest = __fsub_rn(x, __uint_as_float(big));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
+}
+
+// A.B in 3xTF32: big += Ab.Bb, small += As.Bb + Ab.Bs, float32 sums; the
+// dropped As.Bs and the splits' rests are ~2^-21 of each product.  The
+// tensor cores' adds truncate, so an MMA chain's error grows with its length
+// and its accumulator's size: the cross terms, 2^-11 of the big ones, keep
+// an accumulator of their own, and the caller adds the two (big + small)
+// with an IEEE add.
+__device__ __forceinline__ void mma_3xtf32(float big[4], float small[4], const uint32_t ab[4],
+                                           const uint32_t as[4], const uint32_t bb[2],
+                                           const uint32_t bs[2]) {
+  mma_tf32_1688(small, as, bb);
+  mma_tf32_1688(small, ab, bs);
+  mma_tf32_1688(big, ab, bb);
+}
+
+// cp.async of 16 bytes into shared `dst` (zeros when `valid` is false: the
+// source is not read), grouped by commit and waited on by group.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this thread's copies are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // 16 bytes of a weight that is read once (the GEMVs' stream): through the
 // non-coherent path, cached in L2 only.
 __device__ __forceinline__ uint4 ld_stream(const void* p) {
@@ -257,6 +309,83 @@ __device__ __forceinline__ void weight_gemv(const __nv_bfloat16* __restrict__ x,
       out[static_cast<size_t>(mm) * n + n0 + r] = __float2bfloat16_rn(sum);
     }
   }
+}
+
+// ------------------------------------------------------------------------
+// float32 activations against a quantized weight: out[m, n] = sum_k x[m, k]
+// * w[n, k] in float32, the form every M takes when x is float32 (the
+// group-dequant, affine and W8A16 matmuls in gq_matmul.cu, the 4-bit one in
+// q4_matmul.cu), the widening a policy W.  It is the simple kind: plain FFMA,
+// no tensor cores (TF32 would keep about three decimal digits).  A block owns
+// a 64 x 64 output tile, each of its 256 threads a 4 x 4 patch; per 32-wide
+// K step x is staged transposed and the weight tile widened to float32 in
+// shared memory, exactly as the plain version's dequantize computes it
+// (__fmul_rn: no contraction into an fma), so the two differ only in the
+// order of the float32 sums.  Its bound is 2*M*N*K operations at 67 TFLOP/s
+// (float32 outside the tensor cores, NVIDIA H100 SXM data sheet, 700 W) at
+// large M and the weight's bytes at M <= 8.
+//
+// The policy W gives:
+//   kSumScale   a float32 scale a row (scale[n]) multiplies the float32 sum;
+//   widen(ws, w, scale, zero, n, kp, n0, k0, tid)  the weight rows n0 ..
+//               n0 + 63 at K columns k0 .. k0 + 31 as float32 into ws[k][row],
+//               zeros past n and kp.
+constexpr int kF32BM = 64, kF32BN = 64, kF32BK = 32, kF32Threads = 256;
+
+// x [m, k] float32 with k % 4 == 0 and k <= kp; the weight's bytes, scales
+// and zeros as the policy reads them.
+template <class W>
+__device__ __forceinline__ void f32_tile_gemm(const float* __restrict__ x, const uint8_t* __restrict__ w,
+                                              const float* __restrict__ scale,
+                                              const float* __restrict__ zero, float* __restrict__ out,
+                                              int m, int n, int k, int kp) {
+  __shared__ float xs[kF32BK][kF32BM + 4];  // transposed: [k][row]
+  __shared__ float ws[kF32BK][kF32BN + 4];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * kF32BM, n0 = blockIdx.x * kF32BN;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < kp; k0 += kF32BK) {
+    for (int c = tid; c < kF32BM * kF32BK / 4; c += kF32Threads) {
+      const int r = c >> 3, col = (c & 7) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (m0 + r < m && k0 + col < k)
+        v = *reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * k + k0 + col);
+      xs[col][r] = v.x;
+      xs[col + 1][r] = v.y;
+      xs[col + 2][r] = v.z;
+      xs[col + 3][r] = v.w;
+    }
+    W::widen(ws, w, scale, zero, n, kp, n0, k0, tid);
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kF32BK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = m0 + ty + 16 * i, col = n0 + tx + 16 * j;
+      if (row >= m || col >= n) continue;
+      float v = acc[i][j];
+      if constexpr (W::kSumScale) v = __fmul_rn(v, scale[col]);
+      out[(size_t)row * n + col] = v;
+    }
 }
 
 // ------------------------------------------------------------------------

@@ -53,8 +53,43 @@
 // `flash_d512_combine_kernel` merges them.  Ragged edges, the last-tile
 // mask, the bias template and the exp2 units are as in the D 64/128 kernel.
 //
-// The f32 kernel is the parity variant: plain FMA arithmetic, one thread per
-// query row, Q stored transposed in shared memory.  It is slow by design.
+// float32, D = 64, 128 and 512 (the default float32 pipeline: FLUX joint
+// attention at D 128, CLIP-L's causal attention at D 64, the VAE mid-block
+// at D 512): `flash_f32_kernel<D, kBias>`.  The reference runs float32 at
+// Precision.HIGHEST (sdtpu/ops/flash_attention.py:68), so one TF32 pass
+// (about three decimal digits) is not enough.  What bounds it: 4 * L^2 * D
+// float32 operations per head, 3.47 ms at [24 heads, 4352, 128] at 67
+// TFLOP/s on the FP32 pipes (NVIDIA H100 SXM data sheet, 700 W); on the
+// tensor cores in 3xTF32, three TF32 products for each (495 TFLOP/s), the
+// floor is 1.41 ms.  So both products run on the tensor cores in 3xTF32:
+// each operand is split into big = tf32(x) and small = tf32(x - big) and
+// A.B ~ As.Bb + Ab.Bs + Ab.Bb, accumulated in f32 (mma.sync m16n8k8 tf32;
+// float32's accuracy to ~2^-21 of each product).  A block of eight warps
+// owns a Q tile of all of D, scaled once into log2 units, and walks the
+// keys in a loop, so the scores are computed once per key tile (the first
+// form recomputed them for each 64-wide output slice).  K, V and the bias
+// tile are staged by cp.async into a two-stage ring, the next tile's copies
+// in flight under this tile's math.  Each warp owns 16 query rows; at D 64
+// and 128 all of D (BQ = 128 rows, 32-key tiles), at D 512 a quarter of it
+// (BQ = 32, 16-key tiles): the four quarters' partial scores are summed
+// through shared memory in one order, so each warp runs the same softmax,
+// and the keys split across blocks where the grid is small, merged by the
+// combine kernel writing f32.  S = Q K^T reads Q and K with 16-byte loads
+// (the contraction index relabelled so one load feeds two k8 steps); P's
+// accumulator fragment is its own A fragment for P V once the keys of each
+// 8-key block are relabelled, and V is read a column at a time (rows padded
+// so a warp's reads hit 32 banks).  Each tile's P V is summed in fresh
+// accumulators and added to O with an IEEE add, and the big products keep
+// accumulators apart from the cross terms: the tensor cores' adds truncate,
+// and one chain over all keys read 4e-5 of the largest output at [1, 24,
+// 4352, 128] against 4e-6 now.  At D 64 / 128 the whole block splits each K
+// and V tile once into big (in place) and small planes, where every warp
+// would split all of it again; Q and P are split as they are loaded, and at
+// D 512, whose planes would not fit, everything is.  Measured with
+// sdtpu_torch/tools/time_dequant.py on trees differing in these constants
+// (NVIDIA H100 80GB HBM3, 700.00 W), [1, 24, 4352, 4352, 128]: 5.17-5.24 ms
+// with the planes and eight warps, 6.11 without them, 5.89-5.95 / 7.15-7.23
+// with four warps a block (two blocks an SM) without / with them.
 #include "common.cuh"
 
 #include <math.h>
@@ -499,10 +534,12 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
 }
 
 // The split-keys combine: o = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s,
-// M the largest m_s.  One block per output row, four columns a thread.
+// M the largest m_s.  One block per output row, four columns a thread; T is
+// the output's type (bf16, or f32 for the f32 kernel).
+template <typename T>
 __global__ void __launch_bounds__(128)
 flash_d512_combine_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml,
-                          __nv_bfloat16* __restrict__ o, int rows, int splits) {
+                          T* __restrict__ o, int rows, int splits) {
   const size_t row = blockIdx.x;
   const int c = threadIdx.x * 4;
   float mx = kNegBig;
@@ -519,18 +556,23 @@ flash_d512_combine_kernel(const float* __restrict__ part_o, const float* __restr
     acc.z += w * p.z;
     acc.w += w * p.w;
   }
-  const float inv = 1.f / l;
-  __nv_bfloat16* orow = o + row * kXD + c;
-  *reinterpret_cast<__nv_bfloat162*>(orow) = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
-  *reinterpret_cast<__nv_bfloat162*>(orow + 2) = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
+  T* orow = o + row * kXD + c;
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(orow) = make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
+  } else {
+    const float inv = 1.f / l;
+    *reinterpret_cast<__nv_bfloat162*>(orow) = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
+    *reinterpret_cast<__nv_bfloat162*>(orow + 2) = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
+  }
 }
 
-// Key splits for D 512: the fewest that minimise the waves of the grid
-// (ceil(blocks * s / SMs) / s), at least one key tile a split.  The VAE's
-// [1, 4096] call has 64 Q tiles on 132 SMs and takes two; Lq = 16384 takes one.
-int d512_splits(int bh, int lq, int lk) {
-  const long long blocks = static_cast<long long>(ceil_div(lq, kXQ)) * bh;
-  const int ntiles = ceil_div(lk, kXK);
+// Key splits for D 512 (blocks of `bq` query rows, key tiles of `bk`): the
+// fewest that minimise the waves of the grid (ceil(blocks * s / SMs) / s), at
+// least one key tile a split.  The VAE's [1, 4096] call has 64 bf16 Q tiles
+// on 132 SMs and takes two; Lq = 16384 takes one.
+int d512_splits(int bh, int lq, int lk, int bq, int bk) {
+  const long long blocks = static_cast<long long>(ceil_div(lq, bq)) * bh;
+  const int ntiles = ceil_div(lk, bk);
   const int sms = sm_count();
   int best = 1;
   double best_cost = static_cast<double>((blocks + sms - 1) / sms);
@@ -545,105 +587,337 @@ int d512_splits(int bh, int lq, int lk) {
   return ceil_div(ntiles, per);  // every split gets at least one tile
 }
 
-size_t d512_workspace_bytes(int bh, int lq, int lk) {
-  const int splits = d512_splits(bh, lq, lk);
+size_t d512_workspace_bytes(int bh, int lq, int lk, int bq, int bk) {
+  const int splits = d512_splits(bh, lq, lk, bq, bk);
   if (splits == 1) return 0;
   return static_cast<size_t>(splits) * bh * lq * (kXD + 2) * sizeof(float);
 }
 
-// ----------------------------------------------------------------- f32
+// ------------------------------------------- f32: 3xTF32 on mma.sync
 
-constexpr int kFQ = 64;   // query rows per block, one per thread
-constexpr int kFK = 32;   // keys per tile
-constexpr int kFDV = 64;  // output head-dim slice per block
-
+// Warps a block: RG row groups of 16 query rows x DS head-dim slices; BK
+// keys a tile; kPresplit: K and V split into tf32 big / small planes once a
+// tile, by the whole block, instead of by every warp as they are loaded.
+// D 512 splits the head dim four ways (a warp's 16 x 512 f32 accumulator
+// would not fit its registers) and shares S through shared memory; D 64 /
+// 128 give each warp all of D.
 template <int D>
-constexpr int f32_smem_bytes() {
-  return (D * kFQ + kFK * D + kFK * kFDV) * 4;
-}
+struct F32Cfg;
+template <>
+struct F32Cfg<64> {
+  static constexpr int RG = 8, DS = 1, BK = 32;
+  static constexpr bool kPresplit = true;
+};
+template <>
+struct F32Cfg<128> {
+  static constexpr int RG = 8, DS = 1, BK = 32;
+  static constexpr bool kPresplit = true;
+};
+template <>
+struct F32Cfg<512> {
+  static constexpr int RG = 2, DS = 4, BK = 16;
+  static constexpr bool kPresplit = false;
+};
 
-template <int D>
-__global__ void __launch_bounds__(kFQ)
+// Shared-memory layout, in floats.  Q and K rows are D + 16 apart (a row
+// start moves 64 bytes modulo 128, so the 16-byte fragment loads of two
+// rows that one quarter-warp makes fall in different banks); V rows D + 4
+// (the column reads of one warp, keys 2t and 2t + 1 at 8 dims, hit 32
+// different banks); bias rows BK + 8 (its 8-byte reads by row pairs).
+template <int D, bool kBias>
+struct F32Smem {
+  using C = F32Cfg<D>;
+  static constexpr int kThreads = 32 * C::RG * C::DS;
+  static constexpr int BQ = 16 * C::RG, BK = C::BK;
+  static constexpr int QS = D + 16, VS = D + 4, BS = BK + 8;
+  static constexpr int kQ = BQ * QS;
+  static constexpr int kStage = BK * QS + BK * VS + (kBias ? BQ * BS : 0);
+  static constexpr int kSmall = C::kPresplit ? BK * QS + BK * VS : 0;  // the small planes
+  static constexpr int kSwap = C::DS > 1 ? C::RG * C::DS * 16 * BK : 0;
+  static constexpr int kBytes = (kQ + 2 * kStage + kSmall + kSwap) * 4;
+  static_assert(kBytes <= 232448, "f32 flash: shared memory over the 227 KB a block may use");
+};
+
+// A block owns BQ query rows of one batch*head (all of D) and the key tiles
+// [t_begin, t_begin + tiles_per_split) of its split (blockIdx.z); warp w
+// owns rows 16 (w / DS).. and head-dim columns (w % DS) * D / DS ...  With
+// one split the block writes the normalised f32 output; with several its
+// f32 accumulator and running max / sum for the combine kernel.
+template <int D, bool kBias>
+__global__ void __launch_bounds__(F32Smem<D, kBias>::kThreads, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
-                 float* __restrict__ o, int lq, int lk, float scale_log2) {
+                 float* __restrict__ o, float* __restrict__ part_o, float* __restrict__ part_ml,
+                 int lq, int lk, int tiles_per_split, float scale_log2) {
+  using C = F32Cfg<D>;
+  using L = F32Smem<D, kBias>;
+  constexpr int DS = C::DS, BK = C::BK, BQ = L::BQ, DW = D / DS, kFThreads = L::kThreads;
+  constexpr int QS = L::QS, VS = L::VS, BS = L::BS;
   extern __shared__ __align__(16) float fsm[];
-  float* qt = fsm;               // [D][kFQ]: Q tile transposed
-  float* ks = qt + D * kFQ;      // [kFK][D]
-  float* vs = ks + kFK * D;      // [kFK][kFDV]
+  float* qs = fsm;                     // [BQ][QS]: Q * scale * log2(e)
+  float* stages = qs + L::kQ;          // two of: K [BK][QS], V [BK][VS], bias [BQ][BS]
+  float* small = stages + 2 * L::kStage;  // kPresplit: K, V small planes (the stage holds big)
+  float* swap = small + L::kSmall;       // DS > 1: [RG][DS][BK / 2][32] partial scores
+  auto ks = [&](int st) { return stages + st * L::kStage; };
+  auto vs = [&](int st) { return stages + st * L::kStage + BK * QS; };
+  auto bsm = [&](int st) { return stages + st * L::kStage + BK * (QS + VS); };
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kFQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rg = warp / DS, ds = warp % DS;
+  const int q0 = blockIdx.x * BQ;
   const size_t bh = blockIdx.y;
-  const int d0 = blockIdx.z * kFDV;
+  const int ntiles = (lk + BK - 1) / BK;
+  const int t_begin = blockIdx.z * tiles_per_split;
+  const int count = min(ntiles, t_begin + tiles_per_split) - t_begin;  // >= 1 by the launcher
   const float* qb = q + bh * lq * D;
   const float* kb = k + bh * lk * D;
   const float* vb = v + bh * lk * D;
 
-  for (int c = tid; c < kFQ * D; c += kFQ) {
-    const int r = c / D, d = c % D;
-    qt[d * kFQ + r] = (q0 + r < lq) ? qb[(size_t)(q0 + r) * D + d] : 0.f;
-  }
-  float acc[kFDV];
-#pragma unroll
-  for (int c = 0; c < kFDV; ++c) acc[c] = 0.f;
-  float m_run = kNegBig, l_run = 0.f;
-  const int qrow = q0 + tid;
-
-  for (int kt = 0; kt < lk; kt += kFK) {
-    __syncthreads();
-    for (int c = tid; c < kFK * D; c += kFQ) {
-      const int r = c / D, d = c % D;
-      ks[c] = (kt + r < lk) ? kb[(size_t)(kt + r) * D + d] : 0.f;
+  // K, V (and bias) of key tile t into stage st: 16-byte copies, zeros past Lk / Lq
+  auto load_tile = [&](int t, int st) {
+    const int kt = t * BK;
+    for (int c = tid; c < BK * D / 4; c += kFThreads) {
+      const int r = c / (D / 4), c4 = (c % (D / 4)) * 4;
+      const bool ok = kt + r < lk;
+      const size_t off = ok ? static_cast<size_t>(kt + r) * D + c4 : 0;
+      cp_async_16(smem_u32(ks(st) + r * QS + c4), kb + off, ok);
+      cp_async_16(smem_u32(vs(st) + r * VS + c4), vb + off, ok);
     }
-    for (int c = tid; c < kFK * kFDV; c += kFQ) {
-      const int r = c / kFDV, d = c % kFDV;
-      vs[c] = (kt + r < lk) ? vb[(size_t)(kt + r) * D + d0 + d] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kFK];
-#pragma unroll
-    for (int j = 0; j < kFK; ++j) s[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qv = qt[d * kFQ + tid];
-#pragma unroll
-      for (int j = 0; j < kFK; ++j) s[j] = fmaf(qv, ks[j * D + d], s[j]);
-    }
-    float m_new = m_run;
-#pragma unroll
-    for (int j = 0; j < kFK; ++j) {
-      const int key = kt + j;
-      float x = s[j] * scale_log2;
-      if (key >= lk) {
-        x = -INFINITY;
-      } else if (bias != nullptr && qrow < lq) {
-        x += bias[(size_t)qrow * lk + key] * kLog2e;
+    if constexpr (kBias) {
+      for (int c = tid; c < BQ * BK; c += kFThreads) {
+        const int r = c / BK, j = c % BK;
+        const bool ok = q0 + r < lq && kt + j < lk;
+        const size_t off = ok ? static_cast<size_t>(q0 + r) * lk + kt + j : 0;
+        cp_async_4(smem_u32(bsm(st) + r * BS + j), bias + off, ok);
       }
-      s[j] = x;
-      m_new = fmaxf(m_new, x);
     }
-    const float alpha = exp2f(m_run - m_new);
-    m_run = m_new;
-    float rsum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kFK; ++j) {
-      s[j] = exp2f(s[j] - m_new);
-      rsum += s[j];
-    }
-    l_run = l_run * alpha + rsum;
-#pragma unroll
-    for (int c = 0; c < kFDV; ++c) {
-      float a = acc[c] * alpha;
-#pragma unroll
-      for (int j = 0; j < kFK; ++j) a = fmaf(s[j], vs[j * kFDV + c], a);
-      acc[c] = a;
-    }
+    cp_async_commit();
+  };
+  load_tile(t_begin, 0);
+
+  // Q once, scaled into log2 units (the first tile's barrier publishes it)
+  for (int c = tid; c < BQ * D / 4; c += kFThreads) {
+    const int r = c / (D / 4), c4 = (c % (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < lq) x = *reinterpret_cast<const float4*>(qb + static_cast<size_t>(q0 + r) * D + c4);
+    *reinterpret_cast<float4*>(qs + r * QS + c4) =
+        make_float4(x.x * scale_log2, x.y * scale_log2, x.z * scale_log2, x.w * scale_log2);
   }
-  if (qrow < lq) {
-    float* orow = o + (bh * lq + qrow) * D + d0;
+
+  // acc[4nb + e]: row g (+8 for e >= 2), column ds * DW + 8nb + 2tq (+1 for odd e)
+  float acc[DW / 2];
 #pragma unroll
-    for (int c = 0; c < kFDV; ++c) orow[c] = acc[c] / l_run;
+  for (int i = 0; i < DW / 2; ++i) acc[i] = 0.f;
+  float m_run[2] = {kNegBig, kNegBig};
+  float l_run[2] = {0.f, 0.f};
+  const float* qrow = qs + (rg * 16 + g) * QS + ds * DW + 4 * tq;
+
+  for (int i = 0; i < count; ++i) {
+    const int st = i & 1;
+    if (i + 1 < count) {
+      load_tile(t_begin + i + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int kt = (t_begin + i) * BK;
+    if constexpr (C::kPresplit) {
+      // split K and V once for the block: big in place, small beside
+      for (int c = tid; c < BK * D / 4; c += kFThreads) {
+        const int r = c / (D / 4), c4 = (c % (D / 4)) * 4;
+        float* kp = ks(st) + r * QS + c4;
+        float* vp = vs(st) + r * VS + c4;
+        float* kq = small + r * QS + c4;
+        float* vq = small + BK * QS + r * VS + c4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float4 x = *reinterpret_cast<float4*>(h ? vp : kp);
+          uint4 b, sm;
+          split_tf32(x.x, b.x, sm.x);
+          split_tf32(x.y, b.y, sm.y);
+          split_tf32(x.z, b.z, sm.z);
+          split_tf32(x.w, b.w, sm.w);
+          *reinterpret_cast<uint4*>(h ? vp : kp) = b;
+          *reinterpret_cast<uint4*>(h ? vq : kq) = sm;
+        }
+      }
+      __syncthreads();
+    }
+
+    // S = Q K^T over this warp's DW columns, 16 rows x BK keys, as sc[4j + e]
+    // like acc.  The contraction index is relabelled so one 16-byte load
+    // feeds two k8 steps: in the pair of steps 2p, 2p + 1, lane slot t holds
+    // d = 16p + 4t (+2 in the second) and slot t + 4 the d after it, in A (Q)
+    // and B (K) alike.
+    float sc[BK / 2], sx[BK / 2];  // the big products' sums and the cross terms'
+#pragma unroll
+    for (int r = 0; r < BK / 2; ++r) sc[r] = sx[r] = 0.f;
+    const float* krow = ks(st) + g * QS + ds * DW + 4 * tq;
+#pragma unroll
+    for (int p = 0; p < DW / 16; ++p) {
+      const float4 qa = *reinterpret_cast<const float4*>(qrow + 16 * p);
+      const float4 qc = *reinterpret_cast<const float4*>(qrow + 8 * QS + 16 * p);
+      uint32_t ab[2][4], as[2][4];
+      split_tf32(qa.x, ab[0][0], as[0][0]);
+      split_tf32(qc.x, ab[0][1], as[0][1]);
+      split_tf32(qa.y, ab[0][2], as[0][2]);
+      split_tf32(qc.y, ab[0][3], as[0][3]);
+      split_tf32(qa.z, ab[1][0], as[1][0]);
+      split_tf32(qc.z, ab[1][1], as[1][1]);
+      split_tf32(qa.w, ab[1][2], as[1][2]);
+      split_tf32(qc.w, ab[1][3], as[1][3]);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        uint32_t bb[2][2], bs[2][2];
+        if constexpr (C::kPresplit) {
+          const uint4 kb4 = *reinterpret_cast<const uint4*>(krow + 8 * j * QS + 16 * p);
+          const uint4 ks4 = *reinterpret_cast<const uint4*>(krow - ks(st) + small + 8 * j * QS + 16 * p);
+          bb[0][0] = kb4.x, bb[0][1] = kb4.y, bb[1][0] = kb4.z, bb[1][1] = kb4.w;
+          bs[0][0] = ks4.x, bs[0][1] = ks4.y, bs[1][0] = ks4.z, bs[1][1] = ks4.w;
+        } else {
+          const float4 kv = *reinterpret_cast<const float4*>(krow + 8 * j * QS + 16 * p);
+          split_tf32(kv.x, bb[0][0], bs[0][0]);
+          split_tf32(kv.y, bb[0][1], bs[0][1]);
+          split_tf32(kv.z, bb[1][0], bs[1][0]);
+          split_tf32(kv.w, bb[1][1], bs[1][1]);
+        }
+        mma_3xtf32(sc + 4 * j, sx + 4 * j, ab[0], as[0], bb[0], bs[0]);
+        mma_3xtf32(sc + 4 * j, sx + 4 * j, ab[1], as[1], bb[1], bs[1]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < BK / 2; ++r) sc[r] += sx[r];
+
+    if constexpr (DS > 1) {
+      // the slices' partial scores meet in shared memory; every warp of the
+      // row group sums them in the same order, so all hold the same S, bit
+      // for bit, and run the same softmax
+      float* mine = swap + (rg * DS + ds) * 16 * BK;
+#pragma unroll
+      for (int r = 0; r < BK / 2; ++r) mine[r * 32 + lane] = sc[r];
+      named_bar_sync(1 + rg, 32 * DS);
+      const float* all = swap + rg * DS * 16 * BK;
+#pragma unroll
+      for (int r = 0; r < BK / 2; ++r) {
+        float total = 0.f;
+#pragma unroll
+        for (int d2 = 0; d2 < DS; ++d2) total += all[d2 * 16 * BK + r * 32 + lane];
+        sc[r] = total;
+      }
+    }
+
+    // the bias and the Lk edge where they apply
+    if constexpr (kBias) {
+      const float* brow = bsm(st) + (rg * 16 + g) * BS + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float2 b0 = *reinterpret_cast<const float2*>(brow + 8 * j);
+        const float2 b1 = *reinterpret_cast<const float2*>(brow + 8 * BS + 8 * j);
+        sc[4 * j + 0] += b0.x * kLog2e;
+        sc[4 * j + 1] += b0.y * kLog2e;
+        sc[4 * j + 2] += b1.x * kLog2e;
+        sc[4 * j + 3] += b1.y * kLog2e;
+      }
+    }
+    if (kt + BK > lk) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (kt + j * 8 + 2 * tq + (e & 1) >= lk) sc[4 * j + e] = -INFINITY;
+    }
+
+    // online softmax in f32; a row's scores are spread over a quad
+    float m_new[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m_new[e >> 1] = fmaxf(m_new[e >> 1], sc[4 * j + e]);
+    float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      alpha[h] = exp2f(m_run[h] - m_new[h]);
+      m_run[h] = m_new[h];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * j + e] = exp2f(sc[4 * j + e] - m_new[e >> 1]);
+        rsum[e >> 1] += sc[4 * j + e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
+      rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
+      l_run[h] = l_run[h] * alpha[h] + rsum[h];
+    }
+
+    // O = O * alpha + P V: the keys of score block j are relabelled so that
+    // P's C fragment is its own A fragment (slot t: key 8j + 2t, slot t + 4:
+    // key 8j + 2t + 1), and B is V at those keys, read a column at a time.
+    // Each tile's P V is summed in fresh accumulators and added to O with an
+    // IEEE add: one chain across all key tiles would gather the tensor
+    // cores' truncation (a bias that grows with Lk).
+    uint32_t pb[BK / 8][4], ps[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      split_tf32(sc[4 * j + 0], pb[j][0], ps[j][0]);
+      split_tf32(sc[4 * j + 2], pb[j][1], ps[j][1]);
+      split_tf32(sc[4 * j + 1], pb[j][2], ps[j][2]);
+      split_tf32(sc[4 * j + 3], pb[j][3], ps[j][3]);
+    }
+    const float* vcol = vs(st) + 2 * tq * VS + ds * DW + g;
+#pragma unroll
+    for (int nb = 0; nb < DW / 8; ++nb) {
+      float tb[4] = {0.f, 0.f, 0.f, 0.f}, tx[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float* vr = vcol + 8 * j * VS + 8 * nb;
+        uint32_t bb[2], bs[2];
+        if constexpr (C::kPresplit) {
+          const float* vq = vr - vs(st) + small + BK * QS;
+          bb[0] = __float_as_uint(vr[0]), bb[1] = __float_as_uint(vr[VS]);
+          bs[0] = __float_as_uint(vq[0]), bs[1] = __float_as_uint(vq[VS]);
+        } else {
+          split_tf32(vr[0], bb[0], bs[0]);
+          split_tf32(vr[VS], bb[1], bs[1]);
+        }
+        mma_3xtf32(tb, tx, pb[j], ps[j], bb, bs);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * nb + e] = acc[4 * nb + e] * alpha[e >> 1] + (tb[e] + tx[e]);
+    }
+    __syncthreads();  // the stage (and the swap buffer) may be refilled
+  }
+
+  const size_t bh_rows = bh * lq;
+  const int col0 = ds * DW + 2 * tq;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qrow_i = q0 + rg * 16 + g + 8 * h;
+    if (qrow_i >= lq) continue;
+    if (part_o == nullptr) {
+      float* orow = o + (bh_rows + qrow_i) * D + col0;
+#pragma unroll
+      for (int nb = 0; nb < DW / 8; ++nb)
+        *reinterpret_cast<float2*>(orow + 8 * nb) =
+            make_float2(acc[4 * nb + 2 * h] / l_run[h], acc[4 * nb + 2 * h + 1] / l_run[h]);
+    } else {
+      const size_t prow = static_cast<size_t>(blockIdx.z) * gridDim.y * lq + bh_rows + qrow_i;
+      float* orow = part_o + prow * D + col0;
+#pragma unroll
+      for (int nb = 0; nb < DW / 8; ++nb)
+        *reinterpret_cast<float2*>(orow + 8 * nb) = make_float2(acc[4 * nb + 2 * h], acc[4 * nb + 2 * h + 1]);
+      if (ds == 0 && tq == 0) {
+        part_ml[2 * prow] = m_run[h];
+        part_ml[2 * prow + 1] = l_run[h];
+      }
+    }
   }
 }
 
@@ -651,7 +925,7 @@ template <bool kBias>
 cudaError_t launch_d512(const void* q, const void* k, const void* v, const float* bias, void* o,
                         void* workspace, int bh, int lq, int lk, float scale_log2,
                         cudaStream_t stream) {
-  const int splits = d512_splits(bh, lq, lk);
+  const int splits = d512_splits(bh, lq, lk, kXQ, kXK);
   if (splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
@@ -676,8 +950,8 @@ cudaError_t launch_d512(const void* q, const void* k, const void* v, const float
                                               lk, ceil_div(ntiles, splits), scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  flash_d512_combine_kernel<<<bh * lq, 128, 0, stream>>>(part_o, part_ml,
-                                                        static_cast<__nv_bfloat16*>(o), bh * lq, splits);
+  flash_d512_combine_kernel<__nv_bfloat16><<<bh * lq, 128, 0, stream>>>(
+      part_o, part_ml, static_cast<__nv_bfloat16*>(o), bh * lq, splits);
   return cudaGetLastError();
 }
 
@@ -712,31 +986,54 @@ cudaError_t launch_bf16_wgmma(const void* q, const void* k, const void* v, const
   return launch_wgmma<D, false>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
 }
 
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const float* bias, void* o, int bh, int lq, int lk,
-                       float scale_log2, cudaStream_t stream) {
-  constexpr int smem = f32_smem_bytes<D>();
-  auto kernel = flash_f32_kernel<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// The f32 kernel at head dim D; at D 512 the keys split as for bf16, by the
+// f32 kernel's tiles, and the combine writes f32.
+template <int D, bool kBias>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const float* bias, void* o,
+                       void* workspace, int bh, int lq, int lk, float scale_log2,
+                       cudaStream_t stream) {
+  using L = F32Smem<D, kBias>;
+  const int splits = D == kXD ? d512_splits(bh, lq, lk, L::BQ, L::BK) : 1;
+  if (splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
+  auto kernel = flash_f32_kernel<D, kBias>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(ceil_div(lq, kFQ), bh, D / kFDV);
-  kernel<<<grid, kFQ, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), bias, static_cast<float*>(o), lq, lk, scale_log2);
+  const int ntiles = ceil_div(lk, L::BK);
+  float* part_o = splits > 1 ? static_cast<float*>(workspace) : nullptr;
+  float* part_ml = splits > 1 ? part_o + static_cast<size_t>(splits) * bh * lq * D : nullptr;
+  dim3 grid(ceil_div(lq, L::BQ), bh, splits);
+  kernel<<<grid, L::kThreads, L::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), bias,
+      static_cast<float*>(o), part_o, part_ml, lq, lk, ceil_div(ntiles, splits), scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  flash_d512_combine_kernel<float><<<bh * lq, 128, 0, stream>>>(
+      part_o, part_ml, static_cast<float*>(o), bh * lq, splits);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32_bias(const void* q, const void* k, const void* v, const float* bias, void* o,
+                            void* workspace, int bh, int lq, int lk, float scale_log2,
+                            cudaStream_t s) {
+  if (bias != nullptr) return launch_f32<D, true>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
+  return launch_f32<D, false>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
 }
 
 }  // namespace
 }  // namespace sdtpu
 
-// Bytes of f32 scratch the call needs (bf16 D 512 with its keys split; 0
-// otherwise).  The caller allocates it and passes it as `workspace`.
+// Bytes of f32 scratch the call needs (D 512, bf16 or f32, with its keys
+// split; 0 otherwise).  The caller allocates it and passes it as `workspace`.
 extern "C" long long sdtpu_flash_workspace_bytes(int dtype, int bh, int lq, int lk, int d) {
   using namespace sdtpu;
-  if (dtype != kBF16 || d != kXD || bh <= 0 || lq <= 0 || lk <= 0) return 0;
-  return static_cast<long long>(d512_workspace_bytes(bh, lq, lk));
+  if (d != kXD || bh <= 0 || lq <= 0 || lk <= 0) return 0;
+  if (dtype == kBF16) return static_cast<long long>(d512_workspace_bytes(bh, lq, lk, kXQ, kXK));
+  if (dtype == kF32) {
+    using L = F32Smem<kXD, false>;
+    return static_cast<long long>(d512_workspace_bytes(bh, lq, lk, L::BQ, L::BK));
+  }
+  return 0;
 }
 
 // q, k, v, o: contiguous [bh, L, d] in `dtype`; bias: dense f32 [lq, lk] or
@@ -760,9 +1057,9 @@ extern "C" int sdtpu_flash_attention(int dtype, const void* q, const void* k,
     }
   } else if (dtype == kF32) {
     switch (d) {
-      case 64: return launch_f32<64>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
-      case 128: return launch_f32<128>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
-      case 512: return launch_f32<512>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
+      case 64: return launch_f32_bias<64>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
+      case 128: return launch_f32_bias<128>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
+      case 512: return launch_f32_bias<512>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
     }
   }
   return cudaErrorInvalidValue;

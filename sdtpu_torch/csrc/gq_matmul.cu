@@ -11,7 +11,9 @@
 // bf16 activations with M >= kGqMinM rows, `gq_gemv_kernel<Mode, G>` for
 // bf16 with M <= kGqGemvMaxM in the group and W8A16 modes,
 // `gq_gemm_kernel<Mode, G>` for the rest of bf16, and, for float32
-// activations, the parity kernel `gq_gemm_f32_kernel`.
+// activations at every M and in every mode (W8A16's too),
+// `gq_gemm_f32_kernel<Mode, G>`: common.cuh's FFMA tile GEMM
+// `f32_tile_gemm` with an int8 widening, the simple kind.
 //
 // Weights are int8 [N, Kp] rows (the port's layout; the TPU stored the
 // transpose for Mosaic).  The group forms carry f32 scales [N, Kp/G] on a
@@ -75,7 +77,7 @@
 // 3072->18432 in 0.0288 ms against 0.0261 now, and 3072->9216 alike).
 //
 // The rest of bf16 below kGqMinM (M 9-127, and the affine mode at any small
-// M) and every float32 call: the first form, tiles loaded synchronously
+// M): the first form, tiles loaded synchronously
 // (global -> registers -> shared, then a barrier) and mma.sync m16n8k16.  x
 // is row-major [M, K] with K a multiple of 8; rows, columns and K past the
 // edge are zero-filled.
@@ -244,78 +246,63 @@ gq_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q
   store_tile<Mode>(acc, out, scale, m, n, m0, n0, wm, wn, g, tq);
 }
 
-// float32 activations (the parity form): plain FMA, one 64 x 64 tile per
-// block, each thread a 4 x 4 patch; the weight tile widened to f32.
-constexpr int kFBM = 64, kFBN = 64, kFBK = 32;
-
+// float32 activations, every M and mode: common.cuh's FFMA tile GEMM
+// `f32_tile_gemm` with this int8 widening.  A thread of the first 128
+// widens 16 int8 weights of one row (one scale group, G >= 16): kGroup
+// q * s, kGroupZero q * s - z (__fmul_rn / __fsub_rn, as the plain
+// version), kRowScale q exactly, its row scale multiplying the float32 sum
+// in the epilogue, as the TPU kernel scales its sum (sdtpu/ops/quant.py:541-543).
 template <int Mode, int G>
-__global__ void __launch_bounds__(kThreads)
+struct WidenI8F32 {
+  static constexpr bool kSumScale = Mode == kRowScale;
+  static __device__ __forceinline__ void widen(float (*ws)[kF32BN + 4], const uint8_t* __restrict__ w,
+                                               const float* __restrict__ scale,
+                                               const float* __restrict__ zero, int n, int kp,
+                                               int n0, int k0, int tid) {
+    if (tid >= kF32BN * kF32BK / 16) return;
+    const int r = tid >> 1, col = (tid & 1) * 16;
+    const int row = n0 + r, kk = k0 + col;
+    if (row < n && kk < kp) {
+      const int4 raw = *reinterpret_cast<const int4*>(w + (size_t)row * kp + kk);
+      const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+      float s = 1.f, z = 0.f;
+      if constexpr (Mode != kRowScale) {
+        const size_t gi = (size_t)row * (kp / G) + kk / G;
+        s = scale[gi];
+        if constexpr (Mode == kGroupZero) z = zero[gi];
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        float f = static_cast<float>(v[i]);
+        if constexpr (Mode != kRowScale) f = __fmul_rn(f, s);
+        if constexpr (Mode == kGroupZero) f = __fsub_rn(f, z);
+        ws[col + i][r] = f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) ws[col + i][r] = 0.f;
+    }
+  }
+};
+
+// kGroup / kGroupZero: scale (and zero) f32 [n, kp / G]; kRowScale (G
+// unused): scale f32 [n].
+template <int Mode, int G>
+__global__ void __launch_bounds__(kF32Threads)
 gq_gemm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
                    const float* __restrict__ scale, const float* __restrict__ zero,
                    float* __restrict__ out, int m, int n, int k, int kp) {
-  __shared__ float xs[kFBK][kFBM + 4];  // transposed: [k][row]
-  __shared__ float ws[kFBK][kFBN + 4];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * kFBM, n0 = blockIdx.x * kFBN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  f32_tile_gemm<WidenI8F32<Mode, G>>(x, reinterpret_cast<const uint8_t*>(q), scale, zero, out, m, n,
+                                     k, kp);
+}
 
-  for (int k0 = 0; k0 < kp; k0 += kFBK) {
-    for (int c = tid; c < kFBM * kFBK / 4; c += kThreads) {
-      const int r = c >> 3, col = (c & 7) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m0 + r < m && k0 + col < k)
-        v = *reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * k + k0 + col);
-      xs[col][r] = v.x;
-      xs[col + 1][r] = v.y;
-      xs[col + 2][r] = v.z;
-      xs[col + 3][r] = v.w;
-    }
-    if (tid < kFBN * kFBK / 16) {
-      const int r = tid >> 1, col = (tid & 1) * 16;
-      const int row = n0 + r, kk = k0 + col;
-      if (row < n && kk < kp) {
-        const int4 raw = *reinterpret_cast<const int4*>(q + (size_t)row * kp + kk);
-        const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
-        const size_t gi = (size_t)row * (kp / G) + kk / G;
-        const float s = scale[gi];
-        const float z = Mode == kGroupZero ? zero[gi] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          float w = __fmul_rn(static_cast<float>(v[i]), s);
-          if (Mode == kGroupZero) w = __fsub_rn(w, z);
-          ws[col + i][r] = w;
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 16; ++i) ws[col + i][r] = 0.f;
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kFBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = m0 + ty + 16 * i, col = n0 + tx + 16 * j;
-      if (row < m && col < n) out[(size_t)row * n + col] = acc[i][j];
-    }
+template <int Mode, int G>
+cudaError_t launch_gq_f32(const void* x, const void* q, const float* scale, const float* zero,
+                          void* out, int m, int n, int k, int kp, cudaStream_t stream) {
+  gq_gemm_f32_kernel<Mode, G><<<dim3(ceil_div(n, kF32BN), ceil_div(m, kF32BM)), kF32Threads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(q), scale, zero,
+      static_cast<float*>(out), m, n, k, kp);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------- large M: wgmma
@@ -582,7 +569,8 @@ cudaError_t launch_gq_gemv(const void* x, const void* q, const float* scale, voi
 
 // The form a call of m rows takes, by shape alone: 0 the GEMV (bf16, M <=
 // kGqGemvMaxM, not affine), 1 the mma.sync form, 2 the wgmma kernel (bf16,
-// M >= kGqMinM), 3 the float32 parity kernel; -1 a dtype no kernel takes.
+// M >= kGqMinM), 3 the float32 kernel (every mode and M); -1 a dtype no
+// kernel takes.
 int gq_form(int dtype, int mode, int m) {
   if (dtype == kF32) return 3;
   if (dtype != kBF16) return -1;
@@ -620,9 +608,8 @@ cudaError_t launch_group(int dtype, const void* x, const void* q, const void* sc
         static_cast<const __nv_bfloat16*>(x), qi, sc, zr, static_cast<__nv_bfloat16*>(out), m,
         n, k, kp);
   } else if (form == 3) {
-    auto kernel = group == 16 ? gq_gemm_f32_kernel<Mode, 16> : gq_gemm_f32_kernel<Mode, 32>;
-    kernel<<<dim3(ceil_div(n, kFBN), ceil_div(m, kFBM)), kThreads, 0, s>>>(
-        static_cast<const float*>(x), qi, sc, zr, static_cast<float*>(out), m, n, k, kp);
+    return group == 16 ? launch_gq_f32<Mode, 16>(x, q, sc, zr, out, m, n, k, kp, s)
+                       : launch_gq_f32<Mode, 32>(x, q, sc, zr, out, m, n, k, kp, s);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -660,16 +647,19 @@ extern "C" int sdtpu_gq_matmul_ws(int dtype, const void* x, const void* q, const
   return launch_group<kGroup>(dtype, x, q, scale, nullptr, out, m, n, k, kp, group, stream);
 }
 
-// W8A16: x bf16 [m, k]; q int8 [n, k]; scale f32 [n] -> out bf16 [m, n],
-// out = (sum_k x * q) * scale[n].  Needs k % 16 == 0.  The form is
-// gq_form's for kRowScale.
-extern "C" int sdtpu_w8a16_matmul(const void* x, const void* q, const void* scale, void* out,
-                                  int m, int n, int k, void* stream) {
+// W8A16: x [m, k] in `dtype` (bf16 or f32); q int8 [n, k]; scale f32 [n]
+// -> out [m, n] in `dtype`, out = (sum_k x * q) * scale[n], the sum in
+// float32.  Needs k % 16 == 0.  The form is gq_form's for kRowScale; a
+// refused launch is returned, never retried on another form.
+extern "C" int sdtpu_w8a16_matmul(int dtype, const void* x, const void* q, const void* scale,
+                                  void* out, int m, int n, int k, void* stream) {
   using namespace sdtpu;
   if (m <= 0 || n <= 0 || k <= 0 || k % 16) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
-  const int form = gq_form(kBF16, kRowScale, m);
+  const int form = gq_form(dtype, kRowScale, m);
+  if (form < 0) return cudaErrorInvalidValue;
+  if (form == 3) return launch_gq_f32<kRowScale, 1>(x, q, sc, nullptr, out, m, n, k, k, s);
   if (form == 0) return launch_gq_gemv<kRowScale, 1>(x, q, sc, out, m, n, k, k, s);
   if (form == 2) return launch_gq_wgmma<kRowScale>(x, q, sc, nullptr, out, m, n, k, k, 32, s);
   gq_gemm_kernel<kRowScale, 1><<<dim3(ceil_div(n, kBN), ceil_div(m, kBM)), kThreads, 0, s>>>(

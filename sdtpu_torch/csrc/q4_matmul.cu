@@ -4,16 +4,20 @@
 // bench synthesizes), 32 (a q4_0 GGUF's own blocks) and 16 (q3_k-class
 // blocks).
 //
-// Replaces the TPU kernel `_q4_matmul_kernel` (sdtpu/ops/quant.py:845), through
-// three forms chosen by the row count M alone: `q4_gemv_kernel<G>` for
-// M <= kQ4GemvMaxM, `q4_wgmma_kernel<G, BM>` for M >= kQ4MinM and
-// `q4_gemm_kernel<G>` between them.  The port stores 4-bit weights in its own
+// Replaces the TPU kernel `_q4_matmul_kernel` (sdtpu/ops/quant.py:845), which
+// computes in x's dtype, through forms chosen by dtype and the row count M
+// alone: for bf16 x `q4_gemv_kernel<G>` for M <= kQ4GemvMaxM,
+// `q4_wgmma_kernel<G, BM>` for M >= kQ4MinM and `q4_gemm_kernel<G>` between
+// them; for float32 x (the default pipeline's T5-XXL) `q4_gemm_f32_kernel<G>`
+// at every M, the simple kind (common.cuh's FFMA tile GEMM `f32_tile_gemm`,
+// each weight (nibble - 8) * s in float32 as the plain version's; bound by
+// 2*M*N*K operations at 67 TFLOP/s float32).  The port stores 4-bit weights in its own
 // layout, chosen for these kernels (the TPU's split-half layout served
 // Mosaic's sublane tiling):
 // packed uint8 [N, Kp/2] row-major, byte j of a row holding k = 2j in the low
 // nibble and k = 2j + 1 in the high nibble, and f32 scales [N, Kp/G], Kp a
-// multiple of 64.  x is bf16 [M, K] with K a multiple of 8; rows, columns and
-// K past the edge are zero-filled.
+// multiple of 64.  x is bf16 or float32 [M, K] with K a multiple of 8; rows,
+// columns and K past the edge are zero-filled.
 //
 // What bounds it on the card (NVIDIA H100 SXM data sheet, 700 W): 2*M*N*K
 // operations at 989 TFLOP/s bf16, e.g. 0.332 ms at the FLUX DiT's
@@ -472,17 +476,75 @@ cudaError_t launch_q4_gemv(const void* x, const void* packed, const float* scale
   return cudaGetLastError();
 }
 
-int q4_form(int m) { return m <= kQ4GemvMaxM ? 0 : m < kQ4MinM ? 1 : 2; }
+// ------------------------------------------------------- float32 x: FFMA
+
+// common.cuh's FFMA tile GEMM `f32_tile_gemm` with this widening: a thread
+// of the first 128 widens 8 packed bytes of one row (16 weights, one scale
+// group, G >= 16), each (nibble - 8) * s in float32 with __fmul_rn, exactly
+// the plain version's dequantize_q4(qt, torch.float32).
+template <int G>
+struct WidenQ4F32 {
+  static constexpr bool kSumScale = false;
+  static __device__ __forceinline__ void widen(float (*ws)[kF32BN + 4], const uint8_t* __restrict__ w,
+                                               const float* __restrict__ scale, const float*, int n,
+                                               int kp, int n0, int k0, int tid) {
+    if (tid >= 2 * kF32BN) return;
+    const int r = tid >> 1, col = (tid & 1) * 16;
+    const int row = n0 + r;
+    if (row < n) {  // kp % 64 == 0: the K step never passes kp
+      const uint2 raw = *reinterpret_cast<const uint2*>(w + (size_t)row * (kp / 2) + (k0 + col) / 2);
+      const float s = scale[(size_t)row * (kp / G) + (k0 + col) / G];
+      const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        ws[col + 2 * i][r] = __fmul_rn(static_cast<float>(static_cast<int>(b[i] & 0xF) - 8), s);
+        ws[col + 2 * i + 1][r] = __fmul_rn(static_cast<float>(static_cast<int>(b[i] >> 4) - 8), s);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) ws[col + i][r] = 0.f;
+    }
+  }
+};
+
+template <int G>
+__global__ void __launch_bounds__(kF32Threads)
+q4_gemm_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
+                   const float* __restrict__ scale, float* __restrict__ out, int m, int n, int k,
+                   int kp) {
+  f32_tile_gemm<WidenQ4F32<G>>(x, packed, scale, nullptr, out, m, n, k, kp);
+}
+
+cudaError_t launch_q4_f32(const void* x, const void* packed, const float* scale, void* out, int m,
+                          int n, int k, int kp, int group, cudaStream_t stream) {
+  auto kernel = group == 16   ? q4_gemm_f32_kernel<16>
+                : group == 32 ? q4_gemm_f32_kernel<32>
+                              : q4_gemm_f32_kernel<64>;
+  kernel<<<dim3(ceil_div(n, kF32BN), ceil_div(m, kF32BM)), kF32Threads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const uint8_t*>(packed), scale,
+      static_cast<float*>(out), m, n, k, kp);
+  return cudaGetLastError();
+}
+
+// The form a call takes, by dtype and the row count alone: 0 the GEMV, 1 the
+// mma.sync form, 2 the wgmma kernel (bf16), 3 the float32 kernel (every M);
+// -1 a dtype no kernel takes.
+int q4_form(int dtype, int m) {
+  if (dtype == kF32) return 3;
+  if (dtype != kBF16) return -1;
+  return m <= kQ4GemvMaxM ? 0 : m < kQ4MinM ? 1 : 2;
+}
 
 }  // namespace
 }  // namespace sdtpu
 
-// x bf16 [m, k]; packed uint8 [n, kp/2]; scale f32 [n, kp/group] -> out
-// bf16 [m, n].  Needs k <= kp, k % 8 == 0, kp % 64 == 0 and group 16, 32 or 64.
-// M <= kQ4GemvMaxM takes the GEMV, M >= kQ4MinM the wgmma kernel, M between
-// them the mma.sync form: the choice is by shape only, and a refused launch
-// is returned, never retried on another form.
-extern "C" int sdtpu_q4_matmul(const void* x, const void* packed, const void* scale,
+// x [m, k] in `dtype` (bf16 or f32); packed uint8 [n, kp/2]; scale f32
+// [n, kp/group] -> out [m, n] in `dtype`.  Needs k <= kp, k % 8 == 0, kp % 64
+// == 0 and group 16, 32 or 64.  float32 x takes the FFMA form at every M;
+// bf16 with M <= kQ4GemvMaxM the GEMV, M >= kQ4MinM the wgmma kernel, M
+// between them the mma.sync form: the choice is by dtype and shape only,
+// and a refused launch is returned, never retried on another form.
+extern "C" int sdtpu_q4_matmul(int dtype, const void* x, const void* packed, const void* scale,
                                void* out, int m, int n, int k, int kp, int group,
                                void* stream) {
   using namespace sdtpu;
@@ -490,7 +552,10 @@ extern "C" int sdtpu_q4_matmul(const void* x, const void* packed, const void* sc
       (group != 16 && group != 32 && group != 64))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int form = q4_form(m);
+  const int form = q4_form(dtype, m);
+  if (form < 0) return cudaErrorInvalidValue;
+  if (form == 3)
+    return launch_q4_f32(x, packed, static_cast<const float*>(scale), out, m, n, k, kp, group, s);
   if (form == 0)
     return launch_q4_gemv(x, packed, static_cast<const float*>(scale), out, m, n, k, kp, group, s);
   if (form == 2)
@@ -505,12 +570,13 @@ extern "C" int sdtpu_q4_matmul(const void* x, const void* packed, const void* sc
 }
 
 // The x rows per block `sdtpu_q4_matmul` gives the wgmma kernel at this
-// shape (0 below kQ4MinM, where the GEMV or the mma.sync form runs).
+// shape of bf16 x (0 below kQ4MinM, where the GEMV or the mma.sync form runs).
 extern "C" long long sdtpu_q4_tile_rows(int m, int n) {
   using namespace sdtpu;
   return m >= kQ4MinM && n > 0 ? q4_tile_rows(m, n) : 0;
 }
 
-// The form `sdtpu_q4_matmul` runs for m rows: 0 the GEMV, 1 the mma.sync
-// form, 2 the wgmma kernel.
-extern "C" long long sdtpu_q4_form(int m) { return sdtpu::q4_form(m); }
+// The form `sdtpu_q4_matmul` runs for m rows of x in `dtype`: 0 the GEMV,
+// 1 the mma.sync form, 2 the wgmma kernel, 3 the float32 kernel (-1: no
+// kernel takes the dtype).
+extern "C" long long sdtpu_q4_form(int dtype, int m) { return sdtpu::q4_form(dtype, m); }

@@ -38,15 +38,15 @@ SIGNATURES = {
     "sdtpu_w8a8_quantize_rows": (_I, _P, _P, _P, _I, _I, _P),
     # dtype, x, xq, wq, sx, sw, out, m, n, k, stream
     "sdtpu_w8a8_matmul": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # x, packed, scale, out, m, n, k, kp, group, stream
-    "sdtpu_q4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # dtype, x, packed, scale, out, m, n, k, kp, group, stream
+    "sdtpu_q4_matmul": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # dtype, x, q, scale, out, m, n, k, kp, group, stream
     "sdtpu_gq_matmul": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "sdtpu_gq_matmul_ws": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # dtype, x, q, scale, zero, out, m, n, k, kp, group, stream
     "sdtpu_gq_zero_matmul": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, q, scale, out, m, n, k, stream
-    "sdtpu_w8a16_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # dtype, x, q, scale, out, m, n, k, stream
+    "sdtpu_w8a16_matmul": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 # entry points that return a value rather than a cudaError_t
 QUERIES = {
@@ -56,8 +56,9 @@ QUERIES = {
     "sdtpu_q4_tile_rows": ((_I, _I), ctypes.c_longlong),
     # m, k -> the W8A8 form: 0 the GEMV, 1 the mma.sync form, 2 the wgmma kernel
     "sdtpu_w8a8_form": ((_I, _I), ctypes.c_longlong),
-    # m -> the 4-bit form for m rows: 0 the GEMV, 1 the mma.sync form, 2 the wgmma kernel
-    "sdtpu_q4_form": ((_I,), ctypes.c_longlong),
+    # dtype, m -> the 4-bit form for m rows: 0 the GEMV, 1 the mma.sync form,
+    # 2 the wgmma kernel, 3 the float32 kernel
+    "sdtpu_q4_form": ((_I, _I), ctypes.c_longlong),
     # dtype, mode (0 group, 1 affine, 2 W8A16), m -> the group-dequant form:
     # 0 the GEMV, 1 the mma.sync form, 2 the wgmma kernel, 3 the float32 kernel
     "sdtpu_gq_form": ((_I, _I, _I), ctypes.c_longlong),

@@ -46,7 +46,9 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.
     """q: [B,H,Lq,D], k/v: [B,H,Lk,D] → [B,H,Lq,D] in q.dtype.
 
     k and v are cast to q's dtype first, as on the TPU.  CUDA tensors launch
-    the kernel (bf16 or f32, D in SUPPORTED_HEAD_DIMS) or raise."""
+    the kernel (bf16 or f32, D in SUPPORTED_HEAD_DIMS) or raise.  Every launch
+    counts in ``launches``; bf16 at D 512 also in ``launches_d512``, float32
+    in ``launches_f32``."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if scale is None:
@@ -69,9 +71,8 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     code = _build.DTYPE_CODES[q.dtype]
-    d512 = d == 512 and q.dtype == torch.bfloat16  # the VAE's kernel
     ws = None
-    if d512:  # f32 scratch for the partial outputs of a key split, sized by the library
+    if d == 512:  # f32 scratch for the partial outputs of a key split, sized by the library
         ws_bytes = _build.query("sdtpu_flash_workspace_bytes", code, b * h, lq, lk, d)
         ws = torch.empty((ws_bytes // 4,), dtype=torch.float32, device=q.device) if ws_bytes else None
     _build.check_cuda("flash_attention", q, k, v, out, *(t for t in (bias, ws) if t is not None))
@@ -81,9 +82,10 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.
         _build.stream_ptr(q),
     )
     flash_attention.launches += 1
-    if d512:  # counted apart as well
-        flash_attention.launches_d512 += 1
+    # counted apart as well: the bf16 D 512 kernel (the VAE's) and the f32 kernel
+    flash_attention.launches_d512 += d == 512 and q.dtype == torch.bfloat16
+    flash_attention.launches_f32 += q.dtype == torch.float32
     return out
 
 
-flash_attention.launches = flash_attention.launches_d512 = 0
+flash_attention.launches = flash_attention.launches_d512 = flash_attention.launches_f32 = 0

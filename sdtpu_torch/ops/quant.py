@@ -5,8 +5,8 @@ Three memory classes, as on the TPU:
 * ``QuantTensor`` -- per-row int8 weight [out, in] with f32 scales [out]
   (the q8_0 class).  ``quant_matmul`` runs it as W8A8 (dynamic per-token
   int8 activations, int32 accumulation, f32 epilogue; ``quant_matmul_w8a8``)
-  by default, or as W8A16 (``w8a16_matmul``: bf16 activations, the int8
-  weight widened in the tile, the row scale in the epilogue) when
+  by default, or as W8A16 (``w8a16_matmul``: bf16 or float32 activations,
+  the int8 weight widened in the tile, the row scale in the epilogue) when
   ``SDTPU_QUANT_MODE`` names another mode.
 * ``Q4Tensor`` -- packed 4-bit weight with f32 scales per group of 16, 32
   or 64 along K (the q4_0 / q3_k class), run by ``q4_matmul``.
@@ -364,14 +364,16 @@ def _count_form(wrapper, m: int) -> None:
 
 
 def w8a16_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
-    """W8A16: bf16 x [..., K] × int8 weight [N, K] → [..., N] in bf16.
+    """W8A16: bf16 or float32 x [..., K] × int8 weight [N, K] → [..., N] in
+    x.dtype.
 
-    out[m, n] = (Σ_k x[m, k]·q[n, k]) · s[n], the sum in float32.  Calls of
-    at most ``GQ_GEMV_MAX_M`` rows run the weight-streaming GEMV."""
+    out[m, n] = (Σ_k x[m, k]·q[n, k]) · s[n], the sum in float32.  bf16 calls
+    of at most ``GQ_GEMV_MAX_M`` rows run the weight-streaming GEMV; float32
+    calls run the float32 form at every M (counted in ``launches_f32``)."""
     if x.device.type == "cpu":
         return w8a16_matmul_plain(x, qt)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"w8a16_matmul: the kernel takes bf16 activations, got {x.dtype}")
+    if x.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"w8a16_matmul: unsupported dtype {x.dtype}")
     k = x.shape[-1]
     n = qt.q.shape[0]
     if k % 16 or qt.q.shape[1] != k:
@@ -380,14 +382,19 @@ def w8a16_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     _build.check_cuda("w8a16_matmul", x2, qt.q, qt.scale, out)
-    _build.launch("sdtpu_w8a16_matmul", x2.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(),
-                  out.data_ptr(), m, n, k, _build.stream_ptr(x))
+    _build.launch("sdtpu_w8a16_matmul", _build.DTYPE_CODES[x.dtype], x2.data_ptr(),
+                  qt.q.data_ptr(), qt.scale.data_ptr(), out.data_ptr(), m, n, k,
+                  _build.stream_ptr(x))
     w8a16_matmul.launches += 1
-    _count_form(w8a16_matmul, m)
+    if x.dtype == torch.bfloat16:
+        _count_form(w8a16_matmul, m)
+    else:
+        w8a16_matmul.launches_f32 += 1
     return out.reshape(*x.shape[:-1], n)
 
 
 w8a16_matmul.launches = w8a16_matmul.launches_gemv = w8a16_matmul.launches_mma = 0
+w8a16_matmul.launches_f32 = 0
 
 
 def quant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
@@ -408,17 +415,19 @@ def q4_matmul_plain(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
 
 
 def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
-    """x [..., K] × packed 4-bit weight (logical [N, K]) → [..., N] in x.dtype.
+    """bf16 or float32 x [..., K] × packed 4-bit weight (logical [N, K]) →
+    [..., N] in x.dtype.
 
-    Three forms, chosen by the row count M alone: calls of at most
-    ``Q4_GEMV_MAX_M`` rows run the weight-streaming GEMV (counted in
-    ``launches_gemv``), calls of at least ``Q4_WGMMA_MIN_M`` rows the TMA +
-    wgmma kernel (``launches_wgmma``), the rest the ``mma.sync`` form; every
-    launch counts in ``launches``."""
+    The form is chosen by dtype and the row count M alone: float32 calls run
+    the float32 form at every M (counted in ``launches_f32``); bf16 calls of
+    at most ``Q4_GEMV_MAX_M`` rows the weight-streaming GEMV
+    (``launches_gemv``), of at least ``Q4_WGMMA_MIN_M`` rows the TMA + wgmma
+    kernel (``launches_wgmma``), the rest the ``mma.sync`` form; every launch
+    counts in ``launches``."""
     if x.device.type == "cpu":
         return q4_matmul_plain(x, qt)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"q4_matmul: the kernel takes bf16 activations, got {x.dtype}")
+    if x.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"q4_matmul: unsupported dtype {x.dtype}")
     k = x.shape[-1]
     n, kp = qt.packed.shape[0], qt.packed.shape[1] * 2
     if (k != qt.k or k % 8 or k > kp or qt.group not in Q4_GROUPS or kp % Q4_K_MULTIPLE
@@ -428,10 +437,13 @@ def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     _build.check_cuda("q4_matmul", x2, qt.packed, qt.scale, out)
-    _build.launch("sdtpu_q4_matmul", x2.data_ptr(), qt.packed.data_ptr(), qt.scale.data_ptr(),
-                  out.data_ptr(), m, n, k, kp, qt.group, _build.stream_ptr(x))
+    _build.launch("sdtpu_q4_matmul", _build.DTYPE_CODES[x.dtype], x2.data_ptr(),
+                  qt.packed.data_ptr(), qt.scale.data_ptr(), out.data_ptr(), m, n, k, kp,
+                  qt.group, _build.stream_ptr(x))
     q4_matmul.launches += 1
-    if m <= Q4_GEMV_MAX_M:
+    if x.dtype == torch.float32:
+        q4_matmul.launches_f32 += 1
+    elif m <= Q4_GEMV_MAX_M:
         q4_matmul.launches_gemv += 1
     elif m >= Q4_WGMMA_MIN_M:
         q4_matmul.launches_wgmma += 1
@@ -439,6 +451,7 @@ def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
 
 
 q4_matmul.launches = q4_matmul.launches_wgmma = q4_matmul.launches_gemv = 0
+q4_matmul.launches_f32 = 0
 
 
 # ------------------------------------------------------------- group quant

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Time the quantized matmuls (4-bit, group-dequant, affine, W8A16, W8A8)
-at ``chip_smoke.py``'s shapes with whichever checkout's package
-``PYTHONPATH`` names, so checkouts can be compared on one card in one
-call, in turns.
+and float32 flash attention at ``chip_smoke.py``'s shapes with whichever
+checkout's package ``PYTHONPATH`` names, so checkouts can be compared on one
+card in one call, in turns.
 
     PYTHONPATH=<checkout> python3 <this checkout>/sdtpu_torch/tools/time_dequant.py \
-        [--label name] [--kernels w8a8_matmul,...] [--out results.json]
+        [--label name] [--kernels w8a8_matmul,flash_attention,...] [--out results.json]
 
 Cases: ``q4_matmul`` at ``Q4_CASES``; ``gq_matmul`` (group 32, and group 16
 at ``GQ16_CASES``), ``gq_zero_matmul``, ``w8a16_matmul`` and
 ``quant_matmul_w8a8`` at the ``W8A8_CASES`` of at least 128 rows (their
 TMA + wgmma form); then ``gq_matmul`` (groups 32 and 16), ``w8a16_matmul``
 and ``quant_matmul_w8a8`` at the cases of at most ``GQ_GEMV_MAX_M`` rows
-(their GEMVs).  ``--kernels`` keeps the cases of the named wrappers only.
+(their GEMVs); then ``flash_attention`` at the float32 ``FLASH_CASES``
+(held to the float32 limit).  ``--kernels`` keeps the cases of the named
+wrappers only.
 The shapes, tolerances, input draws and timing are ``chip_smoke.py``'s,
 loaded from this script's own checkout; the kernels come from the package
 on ``PYTHONPATH`` (built from that checkout's sources).  Each case is held
@@ -53,6 +55,31 @@ def device_ms_sum(cs, fn, iters: int) -> float:
     return sum(sum(v) / len(v) for v in by_name.values()) / 1e3
 
 
+def time_flash(cs, g, case, label: str, card: str) -> dict:
+    """One float32 ``FLASH_CASES`` case: held to its plain version at
+    ``FLASH_TOL["f32"]`` of the largest |output|, then timed with CUDA events."""
+    import torch
+
+    from sdtpu_torch.ops import flash_attention as fa
+
+    b, h, lq, lk, d, dt, bias = case
+    q, k, v = (torch.randn((b, h, l, d), generator=g, device="cuda") for l in (lq, lk, lk))
+    mask = None
+    if bias == "causal":
+        mask = torch.full((lq, lk), -1e30, device="cuda").triu(1)
+    elif bias == "random":
+        mask = torch.randn((lq, lk), generator=g, device="cuda")
+    got, want = fa.flash_attention(q, k, v, mask=mask), fa.plain_attention(q, k, v, mask=mask)
+    err = (got - want).abs().max().item()
+    tol = cs.FLASH_TOL[dt] * want.abs().max().item()
+    ms = cs.time_ms(lambda: fa.flash_attention(q, k, v, mask=mask),
+                    cs.iters_for(4.0 * b * h * lq * lk * d))
+    case = dict(label=label, kernel="flash_attention", shape=[b, h, lq, lk, d], dtype=dt, bias=bias,
+                ms=ms, max_abs_err=err, tol=tol, ok=bool(err <= tol), card=card)
+    print("kernel " + json.dumps(case), flush=True)
+    return case
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--label", default="")
@@ -85,10 +112,15 @@ def main() -> int:
     small = [s for s in cs.W8A8_CASES if s[0] <= quant.GQ_GEMV_MAX_M]
     plan += [(form, s, 32) for s in small for form in ("gq_matmul", "w8a16_matmul", "quant_matmul_w8a8")]
     plan += [("gq_matmul", s, 16) for s in cs.GQ16_CASES if s[0] <= quant.GQ_GEMV_MAX_M]
+    plan += [("flash_attention", c, None) for c in cs.FLASH_CASES if c[5] == "f32"]
     if args.kernels:
         plan = [p for p in plan if p[0] in args.kernels.split(",")]
     cases = []
-    for form, (m, k, n), group in plan:
+    for form, shape, group in plan:
+        if form == "flash_attention":
+            cases.append(time_flash(cs, g, shape, args.label, card))
+            continue
+        m, k, n = shape
         x = torch.randn((m, k), generator=g, device="cuda", dtype=torch.bfloat16)
         if form == "q4_matmul":
             kp = -(-k // quant.Q4_K_MULTIPLE) * quant.Q4_K_MULTIPLE

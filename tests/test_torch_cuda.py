@@ -12,10 +12,15 @@ plain version and never counts a launch or builds the library.
 import pytest
 import torch
 
+import chip_smoke
 from sdtpu_torch.ops import _build
 from sdtpu_torch.ops import flash_attention as fa
 from sdtpu_torch.ops import quant
 from sdtpu_torch.ops.attention import attention
+
+
+# flash float32: its limit, a share of the largest |output|
+FLASH_F32_TOL = chip_smoke.FLASH_TOL["f32"]
 
 
 @pytest.fixture
@@ -132,7 +137,7 @@ def test_w8a8_form_by_shape(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, FLASH_F32_TOL)])
 @pytest.mark.parametrize("lq,lk,d,bias", [(1, 1, 64, False), (65, 63, 64, True),
                                           (130, 257, 128, False), (70, 33, 512, True)])
 def test_flash_kernel_matches_plain(cuda, dtype, tol, lq, lk, d, bias):
@@ -144,7 +149,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, lq, lk, d, bias):
     got = fa.flash_attention(q, k, v, mask=mask)
     assert fa.flash_attention.launches == before + 1
     want = fa.plain_attention(q, k, v, mask=mask)
-    scale = want.float().abs().max().item() if dtype == torch.bfloat16 else 1.0
+    scale = want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= tol * scale
 
 
@@ -279,20 +284,24 @@ def test_q4_gemv_kernel_matches_plain(cuda, group, m, k, n):
 
 @pytest.mark.cuda
 def test_q4_form_by_rows(cuda):
-    """The library picks the form by M alone (0 the GEMV, 1 mma.sync, 2
-    wgmma), and the wrapper counts the form the library ran."""
+    """The library picks the form by dtype and M alone (bf16: 0 the GEMV, 1
+    mma.sync, 2 wgmma; float32: 3 at every M), and the wrapper counts the
+    form the library ran."""
     edges = (1, quant.Q4_GEMV_MAX_M, quant.Q4_GEMV_MAX_M + 1, quant.Q4_WGMMA_MIN_M - 1,
              quant.Q4_WGMMA_MIN_M)
-    assert [_build.query("sdtpu_q4_form", m) for m in edges] == [0, 0, 1, 1, 2]
+    assert [_build.query("sdtpu_q4_form", 0, m) for m in edges] == [0, 0, 1, 1, 2]
+    assert [_build.query("sdtpu_q4_form", 1, m) for m in edges] == [3] * len(edges)
     g = torch.Generator(device=cuda).manual_seed(0)
     qt = _q4_weight(g, 256, 512, 32, cuda)
-    for m in edges:
-        x = torch.randn((m, 512), generator=g, device=cuda, dtype=torch.bfloat16)
-        before = (quant.q4_matmul.launches_gemv, quant.q4_matmul.launches_wgmma)
-        quant.q4_matmul(x, qt)
-        form = _build.query("sdtpu_q4_form", m)
-        assert (quant.q4_matmul.launches_gemv, quant.q4_matmul.launches_wgmma) == (
-            before[0] + (form == 0), before[1] + (form == 2))
+    counts = ("launches_gemv", "launches_wgmma", "launches_f32")
+    for dtype in (torch.bfloat16, torch.float32):
+        for m in edges:
+            x = torch.randn((m, 512), generator=g, device=cuda, dtype=dtype)
+            before = [getattr(quant.q4_matmul, c) for c in counts]
+            quant.q4_matmul(x, qt)
+            form = _build.query("sdtpu_q4_form", _build.DTYPE_CODES[dtype], m)
+            assert [getattr(quant.q4_matmul, c) for c in counts] == [
+                before[0] + (form == 0), before[1] + (form == 2), before[2] + (form == 3)]
 
 
 @pytest.mark.cuda
@@ -500,6 +509,98 @@ def test_quant_matmul_reads_the_mode_at_each_call(cuda, monkeypatch):
     assert (quant.quant_matmul_w8a8.launches, quant.w8a16_matmul.launches) == (w8a8 + 1, w8a16 + 1)
 
 
+# float32 x takes the FFMA form at every M: the GEMV's (1, 8), the mma.sync
+# form's (9, 127) and the wgmma kernel's (128, 4352) rows in bf16; N off the
+# 64-row tile, K off the 64-wide K tile (200: Kp = 256, the padded nibbles
+# random), and K = 1040 (Kp = 1088)
+F32_ROWS = [1, 8, 9, 127, 128, 4352]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [16, 32, 64])
+@pytest.mark.parametrize("m", F32_ROWS)
+@pytest.mark.parametrize("k,n", [(64, 2), (200, 77), (1040, 130)])
+def test_q4_f32_kernel_matches_plain(cuda, group, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n + group)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    qt = _q4_weight(g, n, k, group, cuda)
+    counts = ("launches", "launches_f32", "launches_gemv", "launches_wgmma")
+    before = [getattr(quant.q4_matmul, c) for c in counts]
+    got = quant.q4_matmul(x, qt)
+    assert [getattr(quant.q4_matmul, c) for c in counts] == [before[0] + 1, before[1] + 1, *before[2:]]
+    assert got.dtype == torch.float32 and got.shape == (m, n) and torch.isfinite(got).all()
+    assert _close(got, quant.q4_matmul_plain(x, qt), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", F32_ROWS)
+@pytest.mark.parametrize("k,n", [(16, 8), (48, 130), (272, 257), (1040, 64)])
+def test_w8a16_f32_kernel_matches_plain(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    qt = quant.QuantTensor(
+        q=torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8),
+        scale=torch.rand((n,), generator=g, device=cuda) * 4e-4 + 1e-5)
+    before = _gemv_counts(quant.w8a16_matmul) + [quant.w8a16_matmul.launches_f32]
+    got = quant.w8a16_matmul(x, qt)
+    assert _gemv_counts(quant.w8a16_matmul) + [quant.w8a16_matmul.launches_f32] == [
+        before[0] + 1, before[1], before[2], before[3] + 1]
+    assert got.dtype == torch.float32 and got.shape == (m, n) and torch.isfinite(got).all()
+    assert _close(got, quant.w8a16_matmul_plain(x, qt), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m,k,n", [
+    ("q4", 256, 4096, 10240),     # T5-XXL's wi_0 / wi_1 at 256 tokens, group 64
+    ("q4", 256, 10240, 4096),     # T5-XXL's wo
+    ("w8a16", 4352, 3072, 12288),  # a DiT MLP linear at 1024²
+    ("w8a16", 1, 3072, 18432)])    # a DiT modulation linear
+def test_f32_full_width_linears_match_plain(cuda, kind, m, k, n):
+    """The default float32 pipeline's T5 4-bit linears and a W8A16 DiT
+    linear, at full width, against their plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    if kind == "q4":
+        qt = _q4_weight(g, n, k, 64, cuda)
+        got, want = quant.q4_matmul(x, qt), quant.q4_matmul_plain(x, qt)
+    else:
+        qt = quant.QuantTensor(
+            q=torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8),
+            scale=torch.rand((n,), generator=g, device=cuda) * 4e-4 + 1e-5)
+        got, want = quant.w8a16_matmul(x, qt), quant.w8a16_matmul_plain(x, qt)
+    assert got.dtype == torch.float32 and _close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("bh,lq,lk,d", [
+    ((1, 24), 200, 300, 128), ((2, 3), 129, 127, 128), ((1, 24), 1280, 1000, 128),
+    ((2, 12), 77, 77, 64), ((1, 4), 150, 129, 64), ((3, 2), 257, 385, 64),
+    ((1, 1), 4096, 4096, 512), ((1, 1), 130, 20, 512), ((1, 1), 64, 100, 512),
+    ((1, 2), 300, 200, 512), ((3, 2), 257, 1000, 512), ((2, 3), 1030, 77, 512)])
+def test_flash_f32_kernel_ragged_edges(cuda, bias, bh, lq, lk, d):
+    """float32 takes the 3xTF32 kernel: the bf16 ragged-edge shapes with and
+    without the dense bias (at D 512 the keys split where the grid is small),
+    within the f32 limit, which the one-pass TF32 fault must exceed."""
+    g = torch.Generator(device=cuda).manual_seed(lq + lk + d)
+    q = torch.randn((*bh, lq, d), generator=g, device=cuda)
+    k, v = (torch.randn((*bh, lk, d), generator=g, device=cuda) for _ in range(2))
+    mask = torch.randn((lq, lk), generator=g, device=cuda) if bias else None
+    before = (fa.flash_attention.launches, fa.flash_attention.launches_f32,
+              fa.flash_attention.launches_d512)
+    got = fa.flash_attention(q, k, v, mask=mask)
+    assert (fa.flash_attention.launches, fa.flash_attention.launches_f32,
+            fa.flash_attention.launches_d512) == (before[0] + 1, before[1] + 1, before[2])
+    want = fa.plain_attention(q, k, v, mask=mask)
+    tol = FLASH_F32_TOL * want.abs().max().item()
+    err = (got - want).abs().max().item()
+    fault = chip_smoke._one_pass_tf32_fault(q, k, v, mask, want)["one_pass_tf32"]
+    print(f"flash f32 {bh} {lq}x{lk} D {d} bias {bias}: err {err:.3g}, one-pass TF32 {fault:.3g}, "
+          f"limit {tol:.3g}")
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert err <= tol < fault
+
+
 def _all_launch_counts():
     """Every wrapper's launch counts, the forms counted apart included."""
     wrappers = (fa.flash_attention, quant.quant_matmul_w8a8, quant.q4_matmul, quant.gq_matmul,
@@ -513,6 +614,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     counts = _all_launch_counts()
     assert all((f, "launches_gemv") in counts
                for f in ("quant_matmul_w8a8", "gq_matmul", "w8a16_matmul"))
+    assert all((f, "launches_f32") in counts
+               for f in ("flash_attention", "q4_matmul", "w8a16_matmul"))
     q = torch.randn((1, 1, 8, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)  # head dim 32 has no kernel
@@ -523,7 +626,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         quant.quant_matmul_w8a8(torch.randn((2, 24), device=cuda), qt)  # K % 16
     q4 = quant.quantize_q4(torch.randn((8, 64), device=cuda))
     with pytest.raises(ValueError):
-        quant.q4_matmul(torch.randn((2, 64), device=cuda), q4)  # float32 activations
+        quant.q4_matmul(torch.randn((2, 64), device=cuda).half(), q4)  # float16 activations
     gq = quant.quantize_group(torch.randn((8, 64), device=cuda))
     with pytest.raises(ValueError):
         quant.gq_matmul_ws(torch.randn((600, 64), device=cuda), gq)  # float32 activations
@@ -533,8 +636,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         quant.gq_matmul(torch.randn((2, 64), device=cuda), quant.quantize_group(
             torch.randn((8, 64), device=cuda), group=64))
     with pytest.raises(ValueError):
-        quant.w8a16_matmul(torch.randn((2, 32), device=cuda), quant.quantize_per_channel(
-            torch.randn((8, 32), device=cuda)))  # float32 activations
+        quant.w8a16_matmul(torch.randn((2, 32), device=cuda).half(), quant.quantize_per_channel(
+            torch.randn((8, 32), device=cuda)))  # float16 activations
+    with pytest.raises(ValueError):
+        quant.w8a16_matmul(torch.randn((2, 24), device=cuda), quant.quantize_per_channel(
+            torch.randn((8, 24), device=cuda)))  # K % 16, float32 too
     assert _all_launch_counts() == counts  # nothing refused was counted
 
 

@@ -153,3 +153,19 @@ def test_unported_requests_raise(pipes):
         tp.generate(_gp(sample_method="dpm++2m"))
     with pytest.raises(NotImplementedError):
         create_pipeline(SDVersion.SD1, small=True, device="cpu")
+
+
+def test_create_pipeline_defaults_to_float32_as_the_reference():
+    """The port's default dtype is the reference's, float32: a call that
+    names no dtype runs float32 weights and compute (on the card too, where
+    every kernel on that path has a float32 form)."""
+    import inspect
+
+    import jax.numpy as jnp
+
+    assert inspect.signature(create_pipeline).parameters["dtype"].default is torch.float32
+    assert inspect.signature(jax_create_pipeline).parameters["dtype"].default is jnp.float32
+    tp = create_pipeline(SDVersion.FLUX, small=True, seed=0, device="cpu")
+    assert tp.compute_dtype == torch.float32
+    dense = [v for v in tp.diffusion_params.values() if isinstance(v, torch.Tensor)]
+    assert dense and all(v.dtype == torch.float32 for v in dense)

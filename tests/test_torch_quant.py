@@ -189,7 +189,9 @@ def test_repack_q4_reads_fields_directly():
 @pytest.mark.parametrize("m,k,n,group", [
     pytest.param(3, 512, 40, 64, id="3-512-40"), pytest.param(70, 1024, 96, 64, id="70-1024-96"),
     # one modulation row at the DiT's K on a q4_0 GGUF's group-32 grid (the GEMV's case)
-    pytest.param(1, 3072, 48, 32, id="1-3072-48-g32")])
+    pytest.param(1, 3072, 48, 32, id="1-3072-48-g32"),
+    # float32 x at a q3_k-class group 16, K off the 64-wide tile (the float32 form's case)
+    pytest.param(9, 600, 40, 16, id="9-600-40-g16")])
 def test_q4_plain_matches_xla_form(m, k, n, group):
     rng = np.random.default_rng(8)
     x = rng.standard_normal((m, k)).astype(np.float32)
