@@ -10,7 +10,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      shapes of the FLUX.1-dev txt2img path (the group-dequant and W8A16
      kernels at the W8A8 shapes, the 4-bit kernel at T5-XXL's shapes at
      groups 64, 32 and 16 and at the q4_0 DiT's shapes at group 32, its
-     M <= 8 GEMV also at groups 16 and 64),
+     M <= 8 GEMV also at groups 16 and 64; the float32 forms at their own
+     cases, each also against the one-pass TF32 fault and a float64 answer),
      with a stated tolerance (at flash D 512 also two faults emulated on
      the same inputs, which must exceed it), and the time of both (CUDA events, after
      warm-up); beside them each case's bound (the larger of its operations
@@ -35,7 +36,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      promotion; DiT forwards of each staging at four inputs, the promoted
      one against the same forward on the blocks' dense dequantized values,
      the kept one against that forward in float32 (no further from it than
-     the dense bf16 forward's noise allows); then the file loaded again by
+     the dense bf16 forward's noise allows), and the kept blocks once more
+     with float32 x (the float32 forms) against the blocks' values in a
+     float32 forward; then the file loaded again by
      ``sdtpu_torch.loader.load_flux_diffusion`` (blocks kept), built into a
      pipeline by ``create_pipeline(params=...)`` and answering one 512²
      request through ``generate``;
@@ -74,10 +77,12 @@ GEMV (M <= 8) and their ``mma.sync`` form apart (``w8a8_matmul_gemv``,
 the ``mma.sync`` form.  The W8A8 GEMV quantizes x in its one launch, so its
 cases' ``device_ms`` (one kernel a call) also shows that no row-quantize
 launch runs in front of it.
-The float32 forms of flash, the 4-bit and the W8A16 matmuls are counted
-apart (``flash_attention_f32``, ``q4_matmul_f32``, ``w8a16_matmul_f32``):
-the float32 paths run every launch of those wrappers in them and no bf16
-form, the bf16 paths none of them.
+The float32 forms of flash, the 4-bit, group-dequant, affine and W8A16
+matmuls are counted apart (``flash_attention_f32``, ``q4_matmul_f32``,
+``gq_matmul_f32``, ``gq_zero_matmul_f32``, ``w8a16_matmul_f32``): the
+float32 paths run every launch of the flash, 4-bit and W8A16 wrappers in
+them and no bf16 form, the bf16 request paths none of them; the loader's
+float32 forward runs the 4-bit, group-dequant and affine ones.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -114,6 +119,8 @@ KERNEL_INFO = {
     "gq_matmul": (GQ_SRC, "sdtpu/ops/quant.py:616"),
     "gq_matmul_ws": (GQ_SRC, "sdtpu/ops/quant.py:652"),
     "gq_zero_matmul": (GQ_SRC, "sdtpu/ops/quant.py:687"),
+    "gq_matmul_f32": (GQ_SRC, "sdtpu/ops/quant.py:616"),
+    "gq_zero_matmul_f32": (GQ_SRC, "sdtpu/ops/quant.py:687"),
     "w8a16_matmul": (GQ_SRC, "sdtpu/ops/quant.py:525"),
     "gq_matmul_gemv": (GQ_SRC, "sdtpu/ops/quant.py:616"),
     "w8a16_matmul_gemv": (GQ_SRC, "sdtpu/ops/quant.py:525"),
@@ -134,9 +141,18 @@ W8A8_CASES = [
     (1024, 3072, 12288), (2, 3072, 18432), (4, 3072, 18432), (8, 3072, 18432),
     (9, 3072, 18432),
 ]
-# group 16 (q3_k / q6_k blocks) at two of them; float32 parity at one
+# W8A8 with float32 x (the default pipeline's int8 DiT) at the DiT's M >= 128
+# shapes: the 1024² request's 4352 tokens, the 512² request's 1280 and 1024
+W8A8_F32_CASES = [(4352, 3072, 9216), (4352, 3072, 3072), (4352, 3072, 12288), (4352, 12288, 3072),
+                  (4352, 3072, 21504), (4352, 15360, 3072), (1280, 3072, 21504), (1024, 3072, 12288)]
+# group 16 (q3_k / q6_k blocks) at two of them
 GQ16_CASES = [(4352, 3072, 12288), (1, 3072, 18432)]
-GQ_F32_CASES = [(1280, 3072, 3072)]
+# (M, K, N, group) of the group-dequant and affine float32 form (a q8_0 / q4_1
+# GGUF DiT kept in its blocks at the default dtype): the 512² request's
+# linear2-sized 1280 tokens at groups 32 and 16, a modulation linear (M = 1)
+# and the 1024² request's MLP width
+GQ_F32_CASES = [(1280, 3072, 3072, 32), (1280, 3072, 3072, 16), (1, 3072, 18432, 32),
+                (4352, 3072, 12288, 32)]
 # (B, H, Lq, Lk, D, dtype, bias) — FLUX joint attention at 1024² and 512²,
 # CLIP-L with its causal mask, the VAE mid-block per 64-latent tile, in bf16
 # and in float32 (the default pipeline's dtype), and a biased D 512 case.
@@ -167,15 +183,18 @@ Q4_DIT_SHAPES = [(4352, 3072, 12288), (4352, 12288, 3072), (4352, 15360, 3072),
 Q4_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES] + [(*s, 32) for s in Q4_DIT_SHAPES]
             + [(s, 3072, n, g) for g in (16, 64) for s, n in ((4352, 12288), (1, 18432))])
 # the float32 form (the default pipeline's T5-XXL): T5's shapes at groups 64,
-# 32 and 16, and a 4096-wide T5 linear at M = 1, 9 and 128 (the bf16 forms'
-# rows: GEMV, mma.sync, wgmma)
+# 32 and 16, a 4096-wide T5 linear at M = 1, 9 and 128 (the bf16 forms'
+# rows: GEMV, mma.sync, wgmma), and a q4_0 DiT linear at 1024² kept at the
+# default dtype, at groups 32 and 16 (the 128-row tile)
 Q4_F32_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES]
-                + [(m, 4096, 4096, 64) for m in (1, 9, 128)])
+                + [(m, 4096, 4096, 64) for m in (1, 9, 128)]
+                + [(4352, 3072, 12288, g) for g in (32, 16)])
 # W8A16's float32 form (the default pipeline under SDTPU_QUANT_MODE=w8a16):
 # a modulation linear (M = 1), the bf16 forms' first mma.sync and wgmma rows,
-# the 1024² request's 4352 tokens, and a ragged shape
+# the 1024² request's 4352 tokens, its long-K widths (MLP out, linear2: where
+# a truncating MMA chain would show), and a ragged shape
 W8A16_F32_CASES = [(1, 3072, 18432), (9, 3072, 18432), (128, 3072, 12288), (4352, 3072, 12288),
-                   (300, 1040, 130)]
+                   (4352, 12288, 3072), (4352, 15360, 3072), (300, 1040, 130)]
 Q4_FORMS = ("gemv", "mma", "wgmma", "f32")  # sdtpu_q4_form's codes
 GQ_FORMS = ("gemv", "mma", "wgmma", "f32")  # sdtpu_gq_form's codes
 W8A8_FORMS = ("gemv", "mma", "wgmma")  # sdtpu_w8a8_form's codes
@@ -202,8 +221,13 @@ Q4_DIT_GROUP = 32
 #     version scales the weight before its bf16 rounding, 2^-9 apart);
 #     float32 sums in another order can move the final bf16 rounding by an
 #     ulp → 2^-6 of the largest |output|.  The float32 forms (group-dequant,
-#     4-bit, W8A16): the same float32 weights as the plain version, float32
-#     sums in another order → 1e-5 of it.
+#     affine, 4-bit, W8A16) split x into two tf32 terms (|rest| <= 2^-23 |x|)
+#     against integer weights exact in tf32, the scales applied to float32
+#     sums; the plain version multiplies the float32 weights (q·s rounded
+#     once) in float32: sums in another order, ~2^-23 of each product → 1e-5
+#     of the largest |output|.  Each float32 case also reads the one-pass
+#     TF32 fault (x rounded to tf32, the same weights, in plain PyTorch; about
+#     2^-12 of each product), which must exceed it.
 FLASH_TOL = {"bf16": 2e-2, "f32": 2e-5}
 #   the D 512 faults, in plain PyTorch on the case's inputs: the last 32-key
 #     tile of the first key split dropped, and the split-keys combine without
@@ -251,7 +275,11 @@ REF_F32_REL_TOL = 1e-4
 #     also re-quantizes the q8_0 weights per row and the activations per
 #     token (W8A8), so it is held to the dense bf16 forward by relative L2
 #     (LOADER_REL_TOL; read 2.8e-2 to 3.2e-2).  A wrong scale, zero or nibble
-#     in any linear is an error of order one in its output.
+#     in any linear is an error of order one in its output.  The kept blocks
+#     also run the forward at the default dtype (float32 x: the float32 forms
+#     of the 4-bit, group-dequant and affine matmuls, flash in 3xTF32),
+#     against the blocks' own values in a float32 forward (TF32 off): a
+#     precision check at REF_F32_REL_TOL, as the reference check's.
 LOADER_SEEDS = (6, 7, 8, 9)
 LOADER_KEEP_RATIO = 1.1
 LOADER_REL_TOL = {"promote_q8": 0.06}
@@ -274,8 +302,10 @@ LOADER_KQUANT = {"single_blocks.0.linear1.weight": "q6_k", "single_blocks.0.line
 # prompt, is the only 4-bit model.)
 Q4 = ("q4_matmul", "q4_matmul_wgmma")
 PATH_KERNELS = {
+    # (its kept blocks also run one forward at the default dtype, float32)
     "gguf_loader": ("flash_attention", "w8a8_matmul", "w8a8_matmul_gemv", *Q4, "q4_matmul_gemv",
-                    "gq_matmul", "gq_matmul_gemv", "gq_matmul_ws", "gq_zero_matmul"),
+                    "gq_matmul", "gq_matmul_gemv", "gq_matmul_ws", "gq_zero_matmul",
+                    "flash_attention_f32", "q4_matmul_f32", "gq_matmul_f32", "gq_zero_matmul_f32"),
     "gguf_file": ("flash_attention", "flash_attention_d512", *Q4, "q4_matmul_gemv", "gq_matmul",
                   "gq_matmul_gemv", "gq_matmul_ws", "gq_zero_matmul"),
     "int8": ("flash_attention", "flash_attention_d512", "w8a8_matmul", "w8a8_matmul_gemv", *Q4),
@@ -294,7 +324,8 @@ PATH_KERNELS = {
 # hold: the bf16 paths run no float32 form, the float32 paths no bf16 one;
 # F32_PATHS also check that every launch of the flash, 4-bit and W8A16
 # wrappers was a float32 one)
-F32_FORMS = ("flash_attention_f32", "q4_matmul_f32", "w8a16_matmul_f32")
+F32_FORMS = ("flash_attention_f32", "q4_matmul_f32", "w8a16_matmul_f32", "gq_matmul_f32",
+             "gq_zero_matmul_f32")
 F32_IDLE = ("flash_attention_d512", "q4_matmul_wgmma", "q4_matmul_gemv", "w8a16_matmul_gemv",
               "w8a16_matmul_mma", "gq_matmul", "gq_matmul_ws", "gq_zero_matmul")
 PATH_IDLE = {"int8": ("q4_matmul_gemv", "gq_matmul_gemv", "w8a16_matmul_gemv", *F32_FORMS),
@@ -302,7 +333,7 @@ PATH_IDLE = {"int8": ("q4_matmul_gemv", "gq_matmul_gemv", "w8a16_matmul_gemv", *
                        *F32_FORMS),
              "q8_0_gguf": ("w8a8_matmul", "w8a8_matmul_gemv", "w8a16_matmul", "q4_matmul_gemv",
                            *F32_FORMS),
-             "gguf_loader": F32_FORMS,
+             "gguf_loader": ("w8a16_matmul_f32",),
              "gguf_file": ("w8a8_matmul", "w8a16_matmul", *F32_FORMS),
              "q4_0": ("w8a8_matmul", "w8a8_matmul_gemv", "w8a16_matmul", "gq_matmul",
                       "gq_matmul_ws", "gq_zero_matmul", *F32_FORMS),
@@ -354,9 +385,13 @@ GGUF_REQUESTS = [
 
 
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
-# sheet): tensor-core bf16 and int8, float32 outside the tensor cores; HBM3.
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# sheet): tensor-core bf16, int8 and tf32, float32 outside the tensor cores;
+# HBM3.  A float32 product's bound takes the tf32 peak, the fastest rate the
+# card has that can compute it (a kernel that splits an operand into tf32
+# terms, as the float32 forms do, runs faster than the f32 peak allows).
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12
+OPS_KIND = {"bf16": "bf16", "f32": "tf32"}  # activation dtype -> PEAK_OPS key of its products
 
 
 def bound(ops: float, nbytes: float, kind: str) -> dict:
@@ -366,6 +401,20 @@ def bound(ops: float, nbytes: float, kind: str) -> dict:
     t_ops = ops / PEAK_OPS[kind] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def quant_bound(m: int, k: int, n: int, nb: int, dt: str) -> dict:
+    """A quantized matmul's bound: its 2*M*N*K operations at the peak for
+    x's type (bf16, or tf32 for float32 x), or its bytes.  Float32 x also
+    records two figures that are no bound: ``split_x_floor_ms``, the float32
+    forms' own floor (two tf32 products a weight and row, 4*M*N*K at the tf32
+    peak), and ``f32_bound_ms``, 2*M*N*K at the f32 peak (the bound of the
+    FFMA form they replaced)."""
+    out = bound(2.0 * m * n * k, nb, OPS_KIND[dt])
+    if dt == "f32":
+        out["split_x_floor_ms"] = bound(4.0 * m * n * k, nb, "tf32")["bound_ms"]
+        out["f32_bound_ms"] = bound(2.0 * m * n * k, nb, "f32")["bound_ms"]
+    return out
 
 
 def nbytes(*tensors) -> int:
@@ -465,14 +514,15 @@ def _yardstick(call, want):
 
 
 def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, bnd, library=None,
-             library_note=None, **extra):
+             library_note=None, faults=None, **extra):
     """Record one kernel case (``shape`` [M, K, N]): max |error| against the
     plain version, within ``tol_rel`` of the largest |output|, both times,
     at the GEMVs' M (at most ``quant.GQ_GEMV_MAX_M`` rows, where the
     CUDA-event time reads the wrapper's launch rate) also the kernel's
     device time (``device_ms``: one kernel a call), the bound ``bnd`` and,
     where ``library`` is a one-call equivalent, its time (else null and
-    ``library_note`` says why)."""
+    ``library_note`` says why); each of ``faults`` (max |error| of an
+    emulated fault) must exceed the limit."""
     import torch
 
     from sdtpu_torch.ops import quant
@@ -486,13 +536,17 @@ def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, bnd, libra
     plain_ms = time_ms(plain, max(3, it // 4))
     library_ms = time_ms(library, it) if library is not None else None
     note = {} if library_note is None else {"library_note": library_note}
+    if faults:
+        note["faults"] = faults
+    caught = all(f > tol for f in (faults or {}).values())
     _record(results, dict(kernel=name, shape=list(shape), **extra, max_abs_err=err, tol=tol,
-                          ok=bool(err <= tol and torch.isfinite(got).all()), ms=ms,
+                          ok=bool(err <= tol and caught and torch.isfinite(got).all()), ms=ms,
                           plain_ms=plain_ms, **bnd, library_ms=library_ms, **note))
 
 
 def check_w8a8(results):
-    """Each W8A8_CASES shape, bit-equal to the plain version, with an
+    """Each W8A8_CASES shape (bf16 x) and W8A8_F32_CASES shape (float32 x),
+    bit-equal to the plain version, with an
     all-zero x row (at M = 1 a second call on an all-zero x); ``form`` is the
     form the library ran (``W8A8_FORMS``).  The yardstick ``torch._int_mm``
     runs the GEMM alone on the same int8 operands, unchecked (no row
@@ -503,8 +557,10 @@ def check_w8a8(results):
     from sdtpu_torch.ops import _build, quant
 
     g = torch.Generator(device=DEVICE).manual_seed(1)
-    for m, k, n in W8A8_CASES:
-        x = torch.randn((m, k), generator=g, device=DEVICE, dtype=torch.bfloat16)
+    plan = [(c, "bf16") for c in W8A8_CASES] + [(c, "f32") for c in W8A8_F32_CASES]
+    for (m, k, n), dt in plan:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x = torch.randn((m, k), generator=g, device=DEVICE, dtype=dtype)
         qt = quant.QuantTensor(
             q=torch.randint(-127, 127, (n, k), generator=g, device=DEVICE, dtype=torch.int8),
             scale=torch.rand((n,), generator=g, device=DEVICE) * 4e-4 + 1e-5)
@@ -526,7 +582,7 @@ def check_w8a8(results):
                  lambda: quant.quant_matmul_w8a8(x, qt), lambda: quant.quant_matmul_w8a8_plain(x, qt),
                  iters_for(2.0 * m * n * k),
                  bound(2.0 * m * n * k, nbytes(x, qt.q, qt.scale, got[:m]), "int8"),
-                 library=library, library_note=note,
+                 library=library, library_note=note, dtype=dt,
                  form=W8A8_FORMS[_build.query("sdtpu_w8a8_form", m, k)])
         del x, xs, xq, qt, got, want, library
 
@@ -586,6 +642,63 @@ def _one_pass_tf32_fault(q, k, v, mask, want) -> dict:
     return {"one_pass_tf32": (torch.matmul(p, vr) - want).abs().max().item()}
 
 
+def _one_pass_tf32_matmul_fault(x, w, want) -> dict:
+    """max |error| against ``want`` of x·wᵀ in one TF32 pass, emulated in
+    plain PyTorch: x rounded to tf32, the same float32 weights ``w`` [N, K],
+    the sums in float32 (TF32 off)."""
+    import torch
+
+    return {"one_pass_tf32": (torch.matmul(_tf32_round(x), w.T) - want).abs().max().item()}
+
+
+def _f32_matmul_checks(x, w, got, want):
+    """A float32 matmul case's fault and its distances from the exact
+    answer: (faults, extra), faults the one-pass TF32 fault (which must
+    exceed the case's limit), extra the kernel's and the plain version's
+    max |error| against x·wᵀ in float64 (how much of their difference is the
+    plain version's own float32 rounding)."""
+    import torch
+
+    exact = torch.matmul(x.double(), w.double().T)
+    extra = {"err_f64": (got.double() - exact).abs().max().item(),
+             "plain_err_f64": (want.double() - exact).abs().max().item()}
+    del exact
+    return _one_pass_tf32_matmul_fault(x, w, want), extra
+
+
+def split_x_matmul(x, q, scale, zero=None, group=None):
+    """The float32 quantized forms' arithmetic, emulated in plain PyTorch on
+    float32 tensors: x [M, K] split into big = tf32(x) and small = tf32(x -
+    big); q [N, Kp] the weight's integers (exact); with ``group``, scale (and
+    zero) [N, Kp / group]: each group's two products summed in float32, then
+    folded into the float32 master as master + s·acc (− z · the group's sum
+    of x); without, scale [N]: each 64-k stage's sums added to the master,
+    the total times scale[n].  The tensor cores sum a product in another
+    order, with truncating adds: this is the arithmetic, not the bits."""
+    import torch
+
+    m, k = x.shape
+    n, kp = q.shape
+    x = torch.nn.functional.pad(x, (0, kp - k))
+    big = _tf32_round(x)
+    small = _tf32_round(x - big)
+    step = group or 64
+    parts = -(-kp // step)
+    pad = parts * step - kp
+    xb, xs, xp, qq = (torch.nn.functional.pad(t, (0, pad)).reshape(t.shape[0], parts, step)
+                      for t in (big, small, x, q))
+    acc = torch.einsum("mgk,ngk->gmn", xb, qq) + torch.einsum("mgk,ngk->gmn", xs, qq)
+    master = torch.zeros((m, n), dtype=torch.float32)
+    for gi in range(parts):
+        if group is None:
+            master = master + acc[gi]
+            continue
+        master = master + scale[:, gi] * acc[gi]
+        if zero is not None:
+            master = master - xp[:, gi].sum(dim=1, keepdim=True) * zero[:, gi]
+    return master if group else master * scale
+
+
 def check_flash(results):
     import torch
     import torch.nn.functional as F
@@ -625,7 +738,7 @@ def check_flash(results):
                             bias=bias, max_abs_err=err, tol=tol, **extra,
                             ok=bool(err <= tol and caught and torch.isfinite(got).all()),
                             ms=ms, plain_ms=plain_ms,
-                            **bound(ops, nbytes(q, k, v, mask, got), dt), library_ms=library_ms))
+                            **bound(ops, nbytes(q, k, v, mask, got), OPS_KIND[dt]), library_ms=library_ms))
         del q, k, v, got, want
 
 
@@ -673,15 +786,27 @@ def check_q4(results):
         got = quant.q4_matmul(x, qt)
         want = quant.q4_matmul_plain(x, qt)
         library, note = _int4pack_library(x, qt, want)
+        faults, f64 = (None, {}) if dt == "bf16" else _f32_matmul_checks(
+            x, quant.dequantize_q4(qt, torch.float32), got, want)
         _compare(results, "q4_matmul", (m, k, n), got, want,
                  Q4_REL_TOL if dt == "bf16" else GQ_REL_TOL["f32"],
                  lambda: quant.q4_matmul(x, qt), lambda: quant.q4_matmul_plain(x, qt),
                  iters_for(2.0 * m * n * k),
-                 bound(2.0 * m * n * k, nbytes(x, qt.packed, qt.scale, got), dt),
-                 library=library, library_note=note, group=group, dtype=dt,
+                 quant_bound(m, k, n, nbytes(x, qt.packed, qt.scale, got), dt),
+                 library=library, library_note=note, faults=faults, **f64, group=group, dtype=dt,
                  form=Q4_FORMS[_build.query("sdtpu_q4_form", _build.DTYPE_CODES[dtype], m)],
-                 tile_rows=_build.query("sdtpu_q4_tile_rows", m, n) if dt == "bf16" else 0)
+                 tile_rows=_tile_rows(dt, m, n))
         del x, qt, got, want, library
+
+
+def _tile_rows(dt: str, m: int, n: int) -> int:
+    """The x rows per block the library gives a call: the 4-bit wgmma
+    kernel's for bf16 (0: another bf16 form), the float32 form's for float32."""
+    from sdtpu_torch.ops import _build
+
+    if dt == "f32":
+        return _build.query("sdtpu_f32_tile_rows", m, n)
+    return _build.query("sdtpu_q4_tile_rows", m, n)
 
 
 def _random_group_weight(g, n, k, group, affine):
@@ -699,8 +824,8 @@ def _random_group_weight(g, n, k, group, affine):
 
 def check_group_quant(results):
     """gq and gq_ws at the W8A8 shapes (group 32) and two shapes at group 16;
-    gq_zero at the W8A8 shapes; float32 parity at one shape; all with random
-    scales (and zeros), so a wrong group index shows."""
+    gq_zero at the W8A8 shapes; gq and gq_zero in float32 at GQ_F32_CASES;
+    all with random scales (and zeros), so a wrong group index shows."""
     import torch
 
     from sdtpu_torch.ops import _build, quant
@@ -709,7 +834,7 @@ def check_group_quant(results):
     plan = [(s, 32, "bf16", form) for s in W8A8_CASES for form in ("gq_matmul", "gq_matmul_ws")]
     plan += [(s, 16, "bf16", form) for s in GQ16_CASES for form in ("gq_matmul", "gq_matmul_ws")]
     plan += [(s, 32, "bf16", "gq_zero_matmul") for s in W8A8_CASES]
-    plan += [(s, 32, "f32", form) for s in GQ_F32_CASES for form in ("gq_matmul", "gq_zero_matmul")]
+    plan += [(s[:3], s[3], "f32", form) for s in GQ_F32_CASES for form in ("gq_matmul", "gq_zero_matmul")]
     for (m, k, n), group, dt, form in plan:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         x = torch.randn((m, k), generator=g, device=DEVICE, dtype=dtype)
@@ -717,14 +842,18 @@ def check_group_quant(results):
         qt = _random_group_weight(g, n, k, group, affine=affine)
         fn = getattr(quant, form)
         got = fn(x, qt)
+        want = quant.group_quant_matmul_plain(x, qt)
+        faults, f64 = (None, {}) if dt == "bf16" else _f32_matmul_checks(
+            x, quant.dequantize_group(qt, torch.float32), got, want)
         mode = quant.GQ_MODE_AFFINE if affine else quant.GQ_MODE_GROUP
-        _compare(results, form, (m, k, n), got, quant.group_quant_matmul_plain(x, qt),
+        _compare(results, form, (m, k, n), got, want,
                  GQ_REL_TOL[dt], lambda: fn(x, qt), lambda: quant.group_quant_matmul_plain(x, qt),
                  iters_for(2.0 * m * n * k),
-                 bound(2.0 * m * n * k, nbytes(x, qt.q, qt.scale, qt.zero, got), dt),
-                 library_note=GQ_NO_LIBRARY, group=group, dtype=dt,
-                 form=GQ_FORMS[_build.query("sdtpu_gq_form", _build.DTYPE_CODES[dtype], mode, m)])
-        del x, qt
+                 quant_bound(m, k, n, nbytes(x, qt.q, qt.scale, qt.zero, got), dt),
+                 library_note=GQ_NO_LIBRARY, faults=faults, **f64, group=group, dtype=dt,
+                 form=GQ_FORMS[_build.query("sdtpu_gq_form", _build.DTYPE_CODES[dtype], mode, m)],
+                 tile_rows=_build.query("sdtpu_f32_tile_rows", m, n) if dt == "f32" else 0)
+        del x, qt, got, want
 
 
 def check_w8a16(results):
@@ -747,13 +876,16 @@ def check_w8a16(results):
         want = quant.w8a16_matmul_plain(x, qt)
         s_lib = qt.scale.to(dtype)
         library, note = _yardstick(lambda: torch._weight_int8pack_mm(x, qt.q, s_lib), want)
+        faults, f64 = (None, {}) if dt == "bf16" else _f32_matmul_checks(
+            x, quant.dequantize(qt, torch.float32), got, want)
         _compare(results, "w8a16_matmul", (m, k, n), got, want, GQ_REL_TOL[dt],
                  lambda: quant.w8a16_matmul(x, qt), lambda: quant.w8a16_matmul_plain(x, qt),
                  iters_for(2.0 * m * n * k),
-                 bound(2.0 * m * n * k, nbytes(x, qt.q, qt.scale, got), dt),
-                 library=library, library_note=note, dtype=dt,
+                 quant_bound(m, k, n, nbytes(x, qt.q, qt.scale, got), dt),
+                 library=library, library_note=note, faults=faults, **f64, dtype=dt,
                  form=GQ_FORMS[_build.query("sdtpu_gq_form", _build.DTYPE_CODES[dtype],
-                                            quant.GQ_MODE_ROW_SCALE, m)])
+                                            quant.GQ_MODE_ROW_SCALE, m)],
+                 tile_rows=_build.query("sdtpu_f32_tile_rows", m, n) if dt == "f32" else 0)
         del x, qt, got, want, library
 
 
@@ -952,13 +1084,19 @@ def loader_check(wrappers, card: str):
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         exact = [forward(dense, inp, torch.float32) for inp in inps]
+        # the default dtype's exact answer: the blocks' own values in float32
+        dense = {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=DEVICE)
+                 for k, v in d.items()}
+        exact32 = [forward(dense, inp, torch.float32) for inp in inps]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     del dense
     stagings = {}
     t0 = time.time()
-    for label, promote in (("promote_q8", True), ("keep_blocks", False)):
-        stagings[label] = diffusion_to_device(d, torch.bfloat16, DEVICE, promote_q8=promote)
+    for label, promote, dtype in (("promote_q8", True, torch.bfloat16),
+                                  ("keep_blocks", False, torch.bfloat16),
+                                  ("keep_blocks_f32", False, torch.float32)):
+        stagings[label] = diffusion_to_device(d, dtype, DEVICE, promote_q8=promote)
     torch.cuda.synchronize()
     stage_s = time.time() - t0
 
@@ -982,15 +1120,20 @@ def loader_check(wrappers, card: str):
         raise RuntimeError(f"loader: classes {sorted(needed - seen)} missing from {classes}")
 
     outs, counts = _windowed(wrappers, "gguf_loader", lambda: {
-        label: [forward(p, inp) for inp in inps] for label, p in stagings.items()})
+        label: [forward(p, inp, torch.float32 if label.endswith("_f32") else torch.bfloat16)
+                for inp in inps] for label, p in stagings.items()})
     report = {"card": card, "params": n_params, "file_bytes": path.stat().st_size,
               "gguf_types": types, "classes": classes, "write_s": write_s, "load_s": load_s,
               "stage_s": stage_s, "checks": {label: [] for label in outs}}
     for label, gots in outs.items():
-        for seed, got, dense_out, exact_out in zip(LOADER_SEEDS, gots, want, exact):
+        for seed, got, dense_out, exact_out, exact32_out in zip(LOADER_SEEDS, gots, want, exact,
+                                                                exact32):
             ok = bool(torch.isfinite(got).all()) and got.shape == dense_out.shape
             check = dict(seed=seed, rel_l2_dense=_rel(got, dense_out))
-            if label == "keep_blocks":
+            if label == "keep_blocks_f32":
+                # the float32 kernels against the blocks' values in a float32 forward
+                check.update(rel_l2=_rel(got, exact32_out), tol=REF_F32_REL_TOL)
+            elif label == "keep_blocks":
                 # rel_l2 and tol are distances from the exact answer
                 dense_rel = _rel(dense_out, exact_out)
                 check.update(rel_l2=_rel(got, exact_out), dense_rel_l2=dense_rel,
@@ -1002,7 +1145,7 @@ def loader_check(wrappers, card: str):
     print("loader " + json.dumps(report), flush=True)
     if not all(c["ok"] for cs in report["checks"].values() for c in cs):
         raise RuntimeError(f"loader check failed: {report['checks']}")
-    del stagings, outs, want, exact, d
+    del stagings, outs, want, exact, exact32, d
     gc.collect()
 
     t0 = time.time()
@@ -1221,7 +1364,9 @@ def main() -> int:
                 "w8a16_matmul_mma": (quant.w8a16_matmul, "launches_mma"),
                 "flash_attention_f32": (flash_attention.flash_attention, "launches_f32"),
                 "q4_matmul_f32": (quant.q4_matmul, "launches_f32"),
-                "w8a16_matmul_f32": (quant.w8a16_matmul, "launches_f32")}
+                "w8a16_matmul_f32": (quant.w8a16_matmul, "launches_f32"),
+                "gq_matmul_f32": (quant.gq_matmul, "launches_f32"),
+                "gq_zero_matmul_f32": (quant.gq_zero_matmul, "launches_f32")}
     for name, fn in (("w8a8_matmul", quant.quant_matmul_w8a8), ("q4_matmul", quant.q4_matmul),
                      ("gq_matmul", quant.gq_matmul), ("gq_matmul_ws", quant.gq_matmul_ws),
                      ("gq_zero_matmul", quant.gq_zero_matmul), ("w8a16_matmul", quant.w8a16_matmul)):
@@ -1312,7 +1457,7 @@ def main() -> int:
     headline = {"flash_attention": ([1, 24, 4352, 4352, 128], {}),
                 "flash_attention_d512": ([1, 1, 4096, 4096, 512], {}),
                 "flash_attention_f32": ([1, 24, 4352, 4352, 128], {}),
-                "w8a8_matmul": ([4352, 3072, 12288], {}),
+                "w8a8_matmul": ([4352, 3072, 12288], {"dtype": "bf16"}),
                 "w8a8_matmul_gemv": ([1, 3072, 18432], {}),
                 "q4_matmul": ([256, 4096, 10240], {"group": 64, "dtype": "bf16"}),
                 "q4_matmul_f32": ([256, 4096, 10240], {"group": 64}),
@@ -1322,6 +1467,8 @@ def main() -> int:
         headline[name] = ([4352, 3072, 12288], {"group": 32, "dtype": "bf16"})
     headline["w8a16_matmul"] = ([4352, 3072, 12288], {"dtype": "bf16"})
     headline["w8a16_matmul_f32"] = ([4352, 3072, 12288], {})
+    headline["gq_matmul_f32"] = ([4352, 3072, 12288], {"group": 32})
+    headline["gq_zero_matmul_f32"] = ([4352, 3072, 12288], {"group": 32})
     headline["gq_matmul_gemv"] = ([1, 3072, 18432], {"group": 32})
     headline["w8a16_matmul_gemv"] = ([1, 3072, 18432], {})
     kernels = []

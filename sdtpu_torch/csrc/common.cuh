@@ -312,83 +312,6 @@ __device__ __forceinline__ void weight_gemv(const __nv_bfloat16* __restrict__ x,
 }
 
 // ------------------------------------------------------------------------
-// float32 activations against a quantized weight: out[m, n] = sum_k x[m, k]
-// * w[n, k] in float32, the form every M takes when x is float32 (the
-// group-dequant, affine and W8A16 matmuls in gq_matmul.cu, the 4-bit one in
-// q4_matmul.cu), the widening a policy W.  It is the simple kind: plain FFMA,
-// no tensor cores (TF32 would keep about three decimal digits).  A block owns
-// a 64 x 64 output tile, each of its 256 threads a 4 x 4 patch; per 32-wide
-// K step x is staged transposed and the weight tile widened to float32 in
-// shared memory, exactly as the plain version's dequantize computes it
-// (__fmul_rn: no contraction into an fma), so the two differ only in the
-// order of the float32 sums.  Its bound is 2*M*N*K operations at 67 TFLOP/s
-// (float32 outside the tensor cores, NVIDIA H100 SXM data sheet, 700 W) at
-// large M and the weight's bytes at M <= 8.
-//
-// The policy W gives:
-//   kSumScale   a float32 scale a row (scale[n]) multiplies the float32 sum;
-//   widen(ws, w, scale, zero, n, kp, n0, k0, tid)  the weight rows n0 ..
-//               n0 + 63 at K columns k0 .. k0 + 31 as float32 into ws[k][row],
-//               zeros past n and kp.
-constexpr int kF32BM = 64, kF32BN = 64, kF32BK = 32, kF32Threads = 256;
-
-// x [m, k] float32 with k % 4 == 0 and k <= kp; the weight's bytes, scales
-// and zeros as the policy reads them.
-template <class W>
-__device__ __forceinline__ void f32_tile_gemm(const float* __restrict__ x, const uint8_t* __restrict__ w,
-                                              const float* __restrict__ scale,
-                                              const float* __restrict__ zero, float* __restrict__ out,
-                                              int m, int n, int k, int kp) {
-  __shared__ float xs[kF32BK][kF32BM + 4];  // transposed: [k][row]
-  __shared__ float ws[kF32BK][kF32BN + 4];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * kF32BM, n0 = blockIdx.x * kF32BN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < kp; k0 += kF32BK) {
-    for (int c = tid; c < kF32BM * kF32BK / 4; c += kF32Threads) {
-      const int r = c >> 3, col = (c & 7) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m0 + r < m && k0 + col < k)
-        v = *reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * k + k0 + col);
-      xs[col][r] = v.x;
-      xs[col + 1][r] = v.y;
-      xs[col + 2][r] = v.z;
-      xs[col + 3][r] = v.w;
-    }
-    W::widen(ws, w, scale, zero, n, kp, n0, k0, tid);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kF32BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = m0 + ty + 16 * i, col = n0 + tx + 16 * j;
-      if (row >= m || col >= n) continue;
-      float v = acc[i][j];
-      if constexpr (W::kSumScale) v = __fmul_rn(v, scale[col]);
-      out[(size_t)row * n + col] = v;
-    }
-}
-
-// ------------------------------------------------------------------------
 // Hopper (sm_90a): mbarrier, TMA and wgmma as inline PTX.
 //
 // The redesigned kernels share one skeleton: a producer warp TMA-loads tiles
@@ -683,6 +606,291 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16_rs(float (&d)[128], const 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TransB));
 }
 
+// ------------------------------------------------------------------------
+// float32 activations against a quantized weight: out[m, n] = sum_k x[m, k]
+// * w[n, k] in float32 on the TF32 tensor cores, the form every M takes when
+// x is float32 (the group-dequant, affine and W8A16 matmuls in gq_matmul.cu,
+// the 4-bit one in q4_matmul.cu), the widening a policy W.
+//
+// Its bound is 2*M*N*K operations at 495 TFLOP/s, the TF32 tensor-core peak
+// (NVIDIA H100 SXM data sheet, 700 W; float32 outside the tensor cores runs
+// at 67 TFLOP/s, which this form beats) at large M and the weight's bytes at
+// M <= 8.  One TF32 pass keeps about three decimal digits, short of float32;
+// but every weight is a small integer times a float32 scale, and the integer
+// (nibble - 8, or q) is exact in tf32.  So only x is split, x = big + small +
+// r with big and small tf32 and |r| <= 2^-23 |x| (split_tf32), and each K
+// step runs two products, acc += Xb.W and acc += Xs.W, on mma.sync m16n8k8:
+// the form's own floor, the split-x floor, is twice the bound.  The scales
+// stay outside the products: each chain of kF32QChain 16-k blocks (at most
+// one scale group, G = 16, 32 or 64 along K) sums into fresh accumulators,
+// folded into the float32 master by fmaf(s[n, g], acc, master) (the affine
+// mode then subtracts z[n, g] times the chain's sum of x, so w = q*s - z is
+// never formed); the W8A16 policy (one row scale) adds them to the master
+// with an IEEE add and multiplies by scale[n] in the epilogue.  The tensor
+// cores' adds truncate, so a chain holds at most 16 MMAs while K runs to
+// 15360.  On an H100 this form lies 6-8 times closer to a float64 answer
+// than the plain version's float32 cuBLAS product, whose own rounding is
+// most of their difference (chip_smoke.py records both against float64); a
+// chain of one 16-k block, folding four times as often, ran slower and
+// further from it.
+//
+// A block owns BM x rows and kF32QBN = 128 weight rows; warp (wm, wn) a
+// 16 MT x 8 NT patch: 32 x 64 at BM = 128, 32 x 32 at 64, 16 x 16 at 16.  A
+// cp.async ring of kF32QStages stages brings x (float32, 64 k a stage), the
+// weight's bytes and the stage's scales (and zeros).  The mma's K is
+// relabelled so that one 16-byte load of an x row gives a lane two k8 steps
+// and each lane widens its own weight bytes: in the 16-k block p, lane slot
+// tq of step 2p holds k = 16p + 4tq, slot tq + 4 k + 1, and step 2p + 1 k + 2
+// and k + 3, in A (x) and B (the weight) alike; a step's 8 k stay in one 16-k
+// block, so in one group.  Each warp splits the x it loads: a block-wide
+// split into two tf32 planes in shared memory (float32 flash's choice) ran
+// 23-41 % slower here, its extra pass, barrier and plane traffic costing more
+// than the warps' duplicated splits.  Shared rows are padded so that these
+// loads meet no bank conflict: x rows 80 floats, weight rows W::kRowStride
+// bytes.  What bounds it is the mma.sync rate: with the widening and the
+// split taken out (wrong answers, timing only) the DiT's widths ran only
+// 17-18 % faster (sdtpu_torch/tools/time_dequant.py on trees differing in
+// these lines, NVIDIA H100 80GB HBM3, 700.00 W); wgmma's TF32 rate is the
+// next step.
+//
+// The policy W gives:
+//   kKPerByte    weights a byte (2: packed nibbles, 1: int8);
+//   kRowStride   bytes of a weight row in a stage (64 k, padded);
+//   kG           K columns a scale group (the stage, 64, for a row scale);
+//   kGroupScale  a f32 scale a row and group, scale[n, kp / kG];
+//   kZero        an f32 zero beside each group scale (w = q*s - z);
+//   kSumScale    a f32 scale a row, scale[n], multiplying the float32 sum;
+//   fragment(row, p, tq, b)  the lane's four weights of the 16-k block p of
+//                a stage row (k = 16p + 4tq ..), exact, as float bits.
+constexpr int kF32QBN = 128, kF32QBK = 64, kF32QStages = 3;
+constexpr int kF32QChain = 4;  // 16-k blocks a chain of fresh accumulators (at most a group)
+constexpr int kF32QXS = kF32QBK + 16;  // x plane row stride, floats
+
+// Warps along M and N, and each warp's m16 and n8 tiles, by the block's x rows.
+template <int BM>
+struct F32QCfg;
+template <>
+struct F32QCfg<16> {
+  static constexpr int WM = 1, WN = 8, MT = 1, NT = 2;
+};
+template <>
+struct F32QCfg<64> {
+  static constexpr int WM = 2, WN = 4, MT = 2, NT = 4;
+};
+template <>
+struct F32QCfg<128> {
+  static constexpr int WM = 4, WN = 2, MT = 2, NT = 8;
+};
+
+// Shared memory, bytes: kStages x (x tile, weight tile, scales, zeros).
+template <class W, int BM>
+struct F32QSmem {
+  using C = F32QCfg<BM>;
+  static_assert(C::WM * C::MT * 16 == BM && C::WN * C::NT * 8 == kF32QBN, "f32q: warp layout");
+  static constexpr int kThreads = 32 * C::WM * C::WN;
+  static constexpr int kX = BM * kF32QXS * 4;
+  static constexpr int kW = kF32QBN * W::kRowStride;
+  static constexpr int kS = W::kGroupScale ? kF32QBN * (kF32QBK / W::kG) * 4 : 0;
+  static constexpr int kZ = W::kZero ? kS : 0;
+  static constexpr int kStage = kX + kW + kS + kZ;
+  static constexpr int kBytes = kF32QStages * kStage;
+  static_assert(kX % 16 == 0 && kW % 16 == 0 && kS % 16 == 0, "f32q: 16-byte aligned tiles");
+  static_assert(kBytes <= 232448, "f32q: shared memory over the 227 KB a block may use");
+};
+
+// x [m, k] float32 with k % 4 == 0 and k <= kp; the weight's rows of kp /
+// kKPerByte bytes (a multiple of 16); scales (and zeros) as the policy reads
+// them; out [m, n] float32.  Grid: (N tiles, M tiles), dynamic shared memory
+// F32QSmem<W, BM>::kBytes.
+template <class W, int BM>
+__device__ __forceinline__ void f32_quant_gemm(const float* __restrict__ x, const uint8_t* __restrict__ w,
+                                               const float* __restrict__ scale,
+                                               const float* __restrict__ zero, float* __restrict__ out,
+                                               int m, int n, int k, int kp) {
+  using C = F32QCfg<BM>;
+  using L = F32QSmem<W, BM>;
+  constexpr int MT = C::MT, NT = C::NT, kThreads = L::kThreads;
+  constexpr int G = W::kG, GPS = kF32QBK / G;  // groups a stage
+  constexpr int PPC = kF32QChain < G / 16 ? kF32QChain : G / 16;  // 16-k blocks a chain
+  constexpr int kRowBytes = kF32QBK / W::kKPerByte;          // weight bytes of a row a stage
+  constexpr int XS = kF32QXS;
+  extern __shared__ __align__(16) uint8_t f32q_smem[];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp / C::WN, wn = warp % C::WN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kF32QBN;
+  const int ktiles = (kp + kF32QBK - 1) / kF32QBK;
+  const int row_bytes = kp / W::kKPerByte;
+  const int groups = W::kGroupScale ? kp / G : 0;
+
+  // stage kt into ring slot s: 16-byte copies of x and the weight, 4-byte
+  // ones of the scales (a scale row need not be 16-byte aligned); zeros past
+  // M, N, k and kp
+  auto load = [&](int kt, int s) {
+    uint8_t* st = f32q_smem + s * L::kStage;
+    const int k0 = kt * kF32QBK;
+    for (int c = tid; c < BM * (kF32QBK / 4); c += kThreads) {
+      const int r = c / (kF32QBK / 4), col = (c % (kF32QBK / 4)) * 4;
+      const bool ok = m0 + r < m && k0 + col < k;
+      const size_t off = ok ? static_cast<size_t>(m0 + r) * k + k0 + col : 0;
+      cp_async_16(smem_u32(st + (r * XS + col) * 4), x + off, ok);
+    }
+    constexpr int WC = kRowBytes / 16;
+    for (int c = tid; c < kF32QBN * WC; c += kThreads) {
+      const int r = c / WC, col = kt * kRowBytes + (c % WC) * 16;
+      const bool ok = n0 + r < n && col < row_bytes;
+      const size_t off = ok ? static_cast<size_t>(n0 + r) * row_bytes + col : 0;
+      cp_async_16(smem_u32(st + L::kX + r * W::kRowStride + (c % WC) * 16), w + off, ok);
+    }
+    if constexpr (W::kGroupScale) {
+      for (int c = tid; c < kF32QBN * GPS; c += kThreads) {
+        const int r = c / GPS, gi = kt * GPS + c % GPS;
+        const bool ok = n0 + r < n && gi < groups;
+        const size_t off = ok ? static_cast<size_t>(n0 + r) * groups + gi : 0;
+        cp_async_4(smem_u32(st + L::kX + L::kW + 4 * c), scale + off, ok);
+        if constexpr (W::kZero) cp_async_4(smem_u32(st + L::kX + L::kW + L::kS + 4 * c), zero + off, ok);
+      }
+    }
+  };
+
+  // master[i][j][e]: x row 16 i + g (+8 for e >= 2), weight row 8 j + 2tq
+  // (+1 for odd e) of the warp's patch, the mma's C fragment
+  float master[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) master[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kF32QStages - 1; ++s) {
+    if (s < ktiles) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt % kF32QStages;
+    cp_async_wait<kF32QStages - 2>();
+    __syncthreads();  // stage kt has landed, and every warp is done with kt - 1
+    if (kt + kF32QStages - 1 < ktiles) load(kt + kF32QStages - 1, (kt + kF32QStages - 1) % kF32QStages);
+    cp_async_commit();
+    uint8_t* st = f32q_smem + s * L::kStage;
+    const float* xb = reinterpret_cast<const float*>(st);
+
+    const uint8_t* wrow = st + L::kX + (wn * NT * 8 + g) * W::kRowStride;
+    const float* sc = reinterpret_cast<const float*>(st + L::kX + L::kW);
+    const float* zc = reinterpret_cast<const float*>(st + L::kX + L::kW + L::kS);
+    const int xoff = (wm * MT * 16 + g) * XS + 4 * tq;
+#pragma unroll
+    for (int ch = 0; ch < 4 / PPC; ++ch) {
+      const int gi = ch * PPC * 16 / G;  // the chain's scale group in the stage
+      float acc[MT][NT][4];
+      float xsum[MT][2];  // kZero: this lane's part of the chain's x sums, rows g and g + 8
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        xsum[i][0] = xsum[i][1] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      }
+#pragma unroll
+      for (int pp = 0; pp < PPC; ++pp) {
+        const int p = ch * PPC + pp;
+        uint32_t bw[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) W::fragment(wrow + 8 * j * W::kRowStride, p, tq, bw[j]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int o = xoff + 16 * i * XS + 16 * p;
+          // x rows g and g + 8 at k = 16p + 4tq .. + 3, split into big (b) and
+          // small (s) tf32 terms as they are loaded
+          const float4 x0 = *reinterpret_cast<const float4*>(xb + o);
+          const float4 x1 = *reinterpret_cast<const float4*>(xb + o + 8 * XS);
+          uint4 b0, b1, s0, s1;
+          split_tf32(x0.x, b0.x, s0.x);
+          split_tf32(x0.y, b0.y, s0.y);
+          split_tf32(x0.z, b0.z, s0.z);
+          split_tf32(x0.w, b0.w, s0.w);
+          split_tf32(x1.x, b1.x, s1.x);
+          split_tf32(x1.y, b1.y, s1.y);
+          split_tf32(x1.z, b1.z, s1.z);
+          split_tf32(x1.w, b1.w, s1.w);
+          if constexpr (W::kZero) {
+            xsum[i][0] += (x0.x + x0.y) + (x0.z + x0.w);
+            xsum[i][1] += (x1.x + x1.y) + (x1.z + x1.w);
+          }
+          const uint32_t ab0[4] = {b0.x, b1.x, b0.y, b1.y}, ab1[4] = {b0.z, b1.z, b0.w, b1.w};
+          const uint32_t as0[4] = {s0.x, s1.x, s0.y, s1.y}, as1[4] = {s0.z, s1.z, s0.w, s1.w};
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const uint32_t w0[2] = {bw[j][0], bw[j][1]}, w1[2] = {bw[j][2], bw[j][3]};
+            mma_tf32_1688(acc[i][j], ab0, w0);
+            mma_tf32_1688(acc[i][j], as0, w0);
+            mma_tf32_1688(acc[i][j], ab1, w1);
+            mma_tf32_1688(acc[i][j], as1, w1);
+          }
+        }
+      }
+      // the chain's fold into the master
+      if constexpr (W::kZero) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            xsum[i][h] += __shfl_xor_sync(0xffffffffu, xsum[i][h], 1);
+            xsum[i][h] += __shfl_xor_sync(0xffffffffu, xsum[i][h], 2);
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = wn * NT * 8 + 8 * j + 2 * tq + c;
+          const float s = W::kGroupScale ? sc[col * GPS + gi] : 1.f;
+          const float z = W::kZero ? zc[col * GPS + gi] : 0.f;
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float& mv = master[i][j][2 * h + c];
+              if constexpr (W::kGroupScale) {
+                mv = fmaf(s, acc[i][j][2 * h + c], mv);
+                if constexpr (W::kZero) mv = fmaf(-z, xsum[i][h], mv);
+              } else {
+                mv = __fadd_rn(mv, acc[i][j][2 * h + c]);
+              }
+            }
+        }
+    }
+  }
+
+  // epilogue: out = master (kSumScale: * scale[n] in float32)
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm * MT * 16 + 16 * i + g + 8 * h;
+        const int col = n0 + wn * NT * 8 + 8 * j + 2 * tq;
+        if (row >= m || col >= n) continue;
+        float v0 = master[i][j][2 * h], v1 = master[i][j][2 * h + 1];
+        if constexpr (W::kSumScale) {
+          v0 = __fmul_rn(v0, scale[col]);
+          if (col + 1 < n) v1 = __fmul_rn(v1, scale[col + 1]);
+        }
+        float* o = out + static_cast<size_t>(row) * n + col;
+        if (col + 1 < n && (n & 1) == 0) {  // paired store needs 8-byte alignment
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          o[0] = v0;
+          if (col + 1 < n) o[1] = v1;
+        }
+      }
+}
+
 // Host side: the device's SM count, read once (launchers size grids by it).
 inline int sm_count() {
   static const int n = [] {
@@ -693,6 +901,51 @@ inline int sm_count() {
     return v;
   }();
   return n;
+}
+
+// The x-row tile f32_quant_gemm takes for m x n: 16 for M <= 16, else of 128
+// and 64 the one whose grid costs least, counted as waves x (BM + 32) (one
+// block an SM; the 32 stands for the weight's widening and the split, which
+// do not shrink with BM), a tie keeping the larger tile.
+inline int f32q_tile_rows(int m, int n) {
+  if (m <= 16) return 16;
+  const long long sms = sm_count();
+  const long long nt = (n + kF32QBN - 1) / kF32QBN;
+  auto cost = [&](int bm) { return ((nt * ((m + bm - 1) / bm) + sms - 1) / sms) * (bm + 32); };
+  return cost(128) <= cost(64) ? 128 : 64;
+}
+
+// Host side: one launch of an f32_quant_gemm kernel with tile rows BM (all
+// share this signature; the weight's bytes as uint8), and the launch of the
+// kernel of the tile the shape takes, of k16, k64 and k128.
+using F32QKernel = void (*)(const float*, const uint8_t*, const float*, const float*, float*, int, int,
+                            int, int);
+template <class W, int BM>
+inline cudaError_t launch_f32q_tile(F32QKernel kernel, const void* x, const void* w, const float* scale,
+                                    const float* zero, void* out, int m, int n, int k, int kp,
+                                    cudaStream_t stream) {
+  constexpr int bytes = F32QSmem<W, BM>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kF32QBN - 1) / kF32QBN, (m + BM - 1) / BM);
+  kernel<<<grid, F32QSmem<W, BM>::kThreads, bytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const uint8_t*>(w), scale, zero, static_cast<float*>(out),
+      m, n, k, kp);
+  return cudaGetLastError();
+}
+
+template <class W>
+inline cudaError_t launch_f32q(F32QKernel k16, F32QKernel k64, F32QKernel k128, const void* x,
+                               const void* w, const float* scale, const float* zero, void* out, int m,
+                               int n, int k, int kp, cudaStream_t stream) {
+  switch (f32q_tile_rows(m, n)) {
+    case 16:
+      return launch_f32q_tile<W, 16>(k16, x, w, scale, zero, out, m, n, k, kp, stream);
+    case 64:
+      return launch_f32q_tile<W, 64>(k64, x, w, scale, zero, out, m, n, k, kp, stream);
+    default:
+      return launch_f32q_tile<W, 128>(k128, x, w, scale, zero, out, m, n, k, kp, stream);
+  }
 }
 
 // Host side: cuTensorMapEncodeTiled, fetched through the CUDA runtime's

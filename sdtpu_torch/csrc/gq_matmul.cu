@@ -12,8 +12,11 @@
 // bf16 with M <= kGqGemvMaxM in the group and W8A16 modes,
 // `gq_gemm_kernel<Mode, G>` for the rest of bf16, and, for float32
 // activations at every M and in every mode (W8A16's too),
-// `gq_gemm_f32_kernel<Mode, G>`: common.cuh's FFMA tile GEMM
-// `f32_tile_gemm` with an int8 widening, the simple kind.
+// `gq_gemm_f32_kernel<Mode, G, BM>`: common.cuh's split-x TF32 tile
+// `f32_quant_gemm` with an int8 widening (x split into two tf32 terms, q
+// exact in tf32, two tensor-core products a step, the scales outside them;
+// bound by 2*M*N*K operations at 495 TFLOP/s TF32, its own floor 2 x
+// that).
 //
 // Weights are int8 [N, Kp] rows (the port's layout; the TPU stored the
 // transpose for Mosaic).  The group forms carry f32 scales [N, Kp/G] on a
@@ -246,63 +249,49 @@ gq_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q
   store_tile<Mode>(acc, out, scale, m, n, m0, n0, wm, wn, g, tq);
 }
 
-// float32 activations, every M and mode: common.cuh's FFMA tile GEMM
-// `f32_tile_gemm` with this int8 widening.  A thread of the first 128
-// widens 16 int8 weights of one row (one scale group, G >= 16): kGroup
-// q * s, kGroupZero q * s - z (__fmul_rn / __fsub_rn, as the plain
-// version), kRowScale q exactly, its row scale multiplying the float32 sum
-// in the epilogue, as the TPU kernel scales its sum (sdtpu/ops/quant.py:541-543).
+// float32 activations, every M and mode: common.cuh's split-x TF32 tile
+// `f32_quant_gemm` with this int8 widening.  A lane's four bytes at 16p +
+// 4tq of a stage row are its four weights of the 16-k block p, each q exact
+// as a float (offset binary under 2^23, as the GEMV's widening), a valid
+// tf32.  kGroup folds each group's float32 sum into the master by
+// fmaf(s, acc, master); kGroupZero then subtracts z times the group's sum of
+// x, fmaf(-z, sum_x, master), so q * s - z is never formed (the TPU's affine
+// kernel factored the zero out as well); this was chosen over widening q * s
+// - z in float32 and running 3xTF32 on it, which would take three products
+// a step, not two, and a split of every weight.  kRowScale adds fresh
+// accumulators to the master every 64-k stage and multiplies the float32
+// sum by its row scale in the epilogue, as the TPU kernel scales its sum
+// (sdtpu/ops/quant.py:541-543).  Rows of 64 bytes a stage, padded to 80 so
+// the eight rows one load reads start 20 banks apart.
 template <int Mode, int G>
 struct WidenI8F32 {
+  static constexpr int kKPerByte = 1, kRowStride = 80, kG = Mode == kRowScale ? 64 : G;
+  static constexpr bool kGroupScale = Mode != kRowScale, kZero = Mode == kGroupZero;
   static constexpr bool kSumScale = Mode == kRowScale;
-  static __device__ __forceinline__ void widen(float (*ws)[kF32BN + 4], const uint8_t* __restrict__ w,
-                                               const float* __restrict__ scale,
-                                               const float* __restrict__ zero, int n, int kp,
-                                               int n0, int k0, int tid) {
-    if (tid >= kF32BN * kF32BK / 16) return;
-    const int r = tid >> 1, col = (tid & 1) * 16;
-    const int row = n0 + r, kk = k0 + col;
-    if (row < n && kk < kp) {
-      const int4 raw = *reinterpret_cast<const int4*>(w + (size_t)row * kp + kk);
-      const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
-      float s = 1.f, z = 0.f;
-      if constexpr (Mode != kRowScale) {
-        const size_t gi = (size_t)row * (kp / G) + kk / G;
-        s = scale[gi];
-        if constexpr (Mode == kGroupZero) z = zero[gi];
-      }
+  static __device__ __forceinline__ void fragment(const uint8_t* row, int p, int tq, uint32_t (&b)[4]) {
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(row + 16 * p + 4 * tq) ^ 0x80808080u;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        float f = static_cast<float>(v[i]);
-        if constexpr (Mode != kRowScale) f = __fmul_rn(f, s);
-        if constexpr (Mode == kGroupZero) f = __fsub_rn(f, z);
-        ws[col + i][r] = f;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) ws[col + i][r] = 0.f;
-    }
+    for (int i = 0; i < 4; ++i)
+      b[i] = __float_as_uint(__fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u | i)), 8388736.f));
   }
 };
 
 // kGroup / kGroupZero: scale (and zero) f32 [n, kp / G]; kRowScale (G
 // unused): scale f32 [n].
-template <int Mode, int G>
-__global__ void __launch_bounds__(kF32Threads)
-gq_gemm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
+template <int Mode, int G, int BM>
+__global__ void __launch_bounds__(F32QSmem<WidenI8F32<Mode, G>, BM>::kThreads, 1)
+gq_gemm_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
                    const float* __restrict__ scale, const float* __restrict__ zero,
                    float* __restrict__ out, int m, int n, int k, int kp) {
-  f32_tile_gemm<WidenI8F32<Mode, G>>(x, reinterpret_cast<const uint8_t*>(q), scale, zero, out, m, n,
-                                     k, kp);
+  f32_quant_gemm<WidenI8F32<Mode, G>, BM>(x, q, scale, zero, out, m, n, k, kp);
 }
 
 template <int Mode, int G>
 cudaError_t launch_gq_f32(const void* x, const void* q, const float* scale, const float* zero,
                           void* out, int m, int n, int k, int kp, cudaStream_t stream) {
-  gq_gemm_f32_kernel<Mode, G><<<dim3(ceil_div(n, kF32BN), ceil_div(m, kF32BM)), kF32Threads, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(q), scale, zero,
-      static_cast<float*>(out), m, n, k, kp);
-  return cudaGetLastError();
+  return launch_f32q<WidenI8F32<Mode, G>>(gq_gemm_f32_kernel<Mode, G, 16>, gq_gemm_f32_kernel<Mode, G, 64>,
+                                          gq_gemm_f32_kernel<Mode, G, 128>, x, q, scale, zero, out, m,
+                                          n, k, kp, stream);
 }
 
 // ------------------------------------------------------- large M: wgmma

@@ -8,10 +8,12 @@
 // computes in x's dtype, through forms chosen by dtype and the row count M
 // alone: for bf16 x `q4_gemv_kernel<G>` for M <= kQ4GemvMaxM,
 // `q4_wgmma_kernel<G, BM>` for M >= kQ4MinM and `q4_gemm_kernel<G>` between
-// them; for float32 x (the default pipeline's T5-XXL) `q4_gemm_f32_kernel<G>`
-// at every M, the simple kind (common.cuh's FFMA tile GEMM `f32_tile_gemm`,
-// each weight (nibble - 8) * s in float32 as the plain version's; bound by
-// 2*M*N*K operations at 67 TFLOP/s float32).  The port stores 4-bit weights in its own
+// them; for float32 x (the default pipeline's T5-XXL) `q4_gemm_f32_kernel<G,
+// BM>` at every M: common.cuh's split-x TF32 tile `f32_quant_gemm` on the
+// tensor cores (x split into two tf32 terms, each nibble - 8 exact in tf32,
+// the group's scale folded into a float32 master by an fma; bound by 2*M*N*K
+// operations at 495 TFLOP/s TF32, its own floor 2 x that; x-row tile BM 16,
+// 64 or 128 by shape).  The port stores 4-bit weights in its own
 // layout, chosen for these kernels (the TPU's split-half layout served
 // Mosaic's sublane tiling):
 // packed uint8 [N, Kp/2] row-major, byte j of a row holding k = 2j in the low
@@ -476,54 +478,46 @@ cudaError_t launch_q4_gemv(const void* x, const void* packed, const float* scale
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------- float32 x: FFMA
+// ------------------------------------------------------- float32 x: split-x TF32
 
-// common.cuh's FFMA tile GEMM `f32_tile_gemm` with this widening: a thread
-// of the first 128 widens 8 packed bytes of one row (16 weights, one scale
-// group, G >= 16), each (nibble - 8) * s in float32 with __fmul_rn, exactly
-// the plain version's dequantize_q4(qt, torch.float32).
+// common.cuh's split-x TF32 tile `f32_quant_gemm` with this widening: a
+// lane's two packed bytes at 8p + 2tq of a stage row hold its four weights
+// of the 16-k block p (k = 16p + 4tq .. + 3, low nibble first), each (nibble
+// - 8) exact as a float (nibble_f32), which is a valid tf32; the group's
+// scale multiplies the group's float32 sum.  Rows of 32 bytes a stage,
+// padded to 48 so the eight rows one load reads start 12 banks apart.
 template <int G>
 struct WidenQ4F32 {
-  static constexpr bool kSumScale = false;
-  static __device__ __forceinline__ void widen(float (*ws)[kF32BN + 4], const uint8_t* __restrict__ w,
-                                               const float* __restrict__ scale, const float*, int n,
-                                               int kp, int n0, int k0, int tid) {
-    if (tid >= 2 * kF32BN) return;
-    const int r = tid >> 1, col = (tid & 1) * 16;
-    const int row = n0 + r;
-    if (row < n) {  // kp % 64 == 0: the K step never passes kp
-      const uint2 raw = *reinterpret_cast<const uint2*>(w + (size_t)row * (kp / 2) + (k0 + col) / 2);
-      const float s = scale[(size_t)row * (kp / G) + (k0 + col) / G];
-      const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
+  static constexpr int kKPerByte = 2, kRowStride = 48, kG = G;
+  static constexpr bool kGroupScale = true, kZero = false, kSumScale = false;
+  static __device__ __forceinline__ void fragment(const uint8_t* row, int p, int tq, uint32_t (&b)[4]) {
+    const uint32_t v = *reinterpret_cast<const uint16_t*>(row + 8 * p + 2 * tq);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        ws[col + 2 * i][r] = __fmul_rn(static_cast<float>(static_cast<int>(b[i] & 0xF) - 8), s);
-        ws[col + 2 * i + 1][r] = __fmul_rn(static_cast<float>(static_cast<int>(b[i] >> 4) - 8), s);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) ws[col + i][r] = 0.f;
-    }
+    for (int i = 0; i < 4; ++i) b[i] = __float_as_uint(nibble_f32((v >> (4 * i)) & 0xF));
   }
 };
 
-template <int G>
-__global__ void __launch_bounds__(kF32Threads)
+template <int G, int BM>
+__global__ void __launch_bounds__(F32QSmem<WidenQ4F32<G>, BM>::kThreads, 1)
 q4_gemm_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
-                   const float* __restrict__ scale, float* __restrict__ out, int m, int n, int k,
-                   int kp) {
-  f32_tile_gemm<WidenQ4F32<G>>(x, packed, scale, nullptr, out, m, n, k, kp);
+                   const float* __restrict__ scale, const float* __restrict__ zero,
+                   float* __restrict__ out, int m, int n, int k, int kp) {
+  f32_quant_gemm<WidenQ4F32<G>, BM>(x, packed, scale, zero, out, m, n, k, kp);
+}
+
+template <int G>
+cudaError_t launch_q4_f32_group(const void* x, const void* packed, const float* scale, void* out,
+                                int m, int n, int k, int kp, cudaStream_t stream) {
+  return launch_f32q<WidenQ4F32<G>>(q4_gemm_f32_kernel<G, 16>, q4_gemm_f32_kernel<G, 64>,
+                                    q4_gemm_f32_kernel<G, 128>, x, packed, scale, nullptr, out, m, n,
+                                    k, kp, stream);
 }
 
 cudaError_t launch_q4_f32(const void* x, const void* packed, const float* scale, void* out, int m,
                           int n, int k, int kp, int group, cudaStream_t stream) {
-  auto kernel = group == 16   ? q4_gemm_f32_kernel<16>
-                : group == 32 ? q4_gemm_f32_kernel<32>
-                              : q4_gemm_f32_kernel<64>;
-  kernel<<<dim3(ceil_div(n, kF32BN), ceil_div(m, kF32BM)), kF32Threads, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const uint8_t*>(packed), scale,
-      static_cast<float*>(out), m, n, k, kp);
-  return cudaGetLastError();
+  if (group == 16) return launch_q4_f32_group<16>(x, packed, scale, out, m, n, k, kp, stream);
+  if (group == 32) return launch_q4_f32_group<32>(x, packed, scale, out, m, n, k, kp, stream);
+  return launch_q4_f32_group<64>(x, packed, scale, out, m, n, k, kp, stream);
 }
 
 // The form a call takes, by dtype and the row count alone: 0 the GEMV, 1 the
@@ -540,7 +534,7 @@ int q4_form(int dtype, int m) {
 
 // x [m, k] in `dtype` (bf16 or f32); packed uint8 [n, kp/2]; scale f32
 // [n, kp/group] -> out [m, n] in `dtype`.  Needs k <= kp, k % 8 == 0, kp % 64
-// == 0 and group 16, 32 or 64.  float32 x takes the FFMA form at every M;
+// == 0 and group 16, 32 or 64.  float32 x takes the split-x TF32 form at every M;
 // bf16 with M <= kQ4GemvMaxM the GEMV, M >= kQ4MinM the wgmma kernel, M
 // between them the mma.sync form: the choice is by dtype and shape only,
 // and a refused launch is returned, never retried on another form.
@@ -567,6 +561,13 @@ extern "C" int sdtpu_q4_matmul(int dtype, const void* x, const void* packed, con
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
       static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), m, n, k, kp);
   return cudaGetLastError();
+}
+
+// The x rows per block of the float32 form (common.cuh's f32_quant_gemm,
+// in this library for the 4-bit and the int8 matmuls alike) at m x n.
+extern "C" long long sdtpu_f32_tile_rows(int m, int n) {
+  using namespace sdtpu;
+  return m > 0 && n > 0 ? f32q_tile_rows(m, n) : 0;
 }
 
 // The x rows per block `sdtpu_q4_matmul` gives the wgmma kernel at this

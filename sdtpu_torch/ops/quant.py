@@ -483,13 +483,16 @@ def _gq_launch(name: str, wrapper, x: torch.Tensor, qt: GroupQuantTensor, dtypes
     _build.launch(name, _build.DTYPE_CODES[x.dtype], *(t.data_ptr() for t in tensors),
                   m, n, k, kp, qt.group, _build.stream_ptr(x))
     wrapper.launches += 1
+    if x.dtype == torch.float32:
+        wrapper.launches_f32 += 1
     return out.reshape(*x.shape[:-1], n)
 
 
 def gq_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
     """Symmetric group-dequant matmul, one output tile per block; bf16 or
     float32 x [..., K] → [..., N] in x.dtype.  bf16 calls of at most
-    ``GQ_GEMV_MAX_M`` rows run the weight-streaming GEMV."""
+    ``GQ_GEMV_MAX_M`` rows run the weight-streaming GEMV; float32 calls run
+    the float32 form at every M (counted in ``launches_f32``)."""
     if x.device.type == "cpu":
         return group_quant_matmul_plain(x, qt)
     if qt.zero is not None:
@@ -515,7 +518,8 @@ def gq_matmul_ws(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
 
 def gq_zero_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
     """Affine group-dequant matmul (value = q·scale − zero); bf16 or float32
-    x [..., K] → [..., N] in x.dtype."""
+    x [..., K] → [..., N] in x.dtype; float32 calls are counted in
+    ``launches_f32`` too."""
     if x.device.type == "cpu":
         return group_quant_matmul_plain(x, qt)
     if qt.zero is None:
@@ -525,6 +529,7 @@ def gq_zero_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
 
 gq_matmul.launches = gq_matmul.launches_gemv = gq_matmul.launches_mma = 0
 gq_matmul_ws.launches = gq_zero_matmul.launches = 0
+gq_matmul.launches_f32 = gq_zero_matmul.launches_f32 = 0
 
 
 def group_quant_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:

@@ -12,9 +12,12 @@ at ``GQ16_CASES``), ``gq_zero_matmul``, ``w8a16_matmul`` and
 ``quant_matmul_w8a8`` at the ``W8A8_CASES`` of at least 128 rows (their
 TMA + wgmma form); then ``gq_matmul`` (groups 32 and 16), ``w8a16_matmul``
 and ``quant_matmul_w8a8`` at the cases of at most ``GQ_GEMV_MAX_M`` rows
-(their GEMVs); then ``flash_attention`` at the float32 ``FLASH_CASES``
-(held to the float32 limit).  ``--kernels`` keeps the cases of the named
-wrappers only.
+(their GEMVs); then ``flash_attention`` at the float32 ``FLASH_CASES``;
+then the float32 forms of the quantized matmuls, float32 x held to the
+float32 limit: ``q4_matmul`` at ``Q4_F32_CASES``, ``gq_matmul`` and
+``gq_zero_matmul`` at ``GQ_F32_CASES``, ``w8a16_matmul`` at
+``W8A16_F32_CASES``.  ``--kernels`` keeps the cases of the named wrappers
+only, ``--dtypes`` those of the named activation types (bf16, f32).
 The shapes, tolerances, input draws and timing are ``chip_smoke.py``'s,
 loaded from this script's own checkout; the kernels come from the package
 on ``PYTHONPATH`` (built from that checkout's sources).  Each case is held
@@ -84,6 +87,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--label", default="")
     ap.add_argument("--kernels", help="comma-separated wrapper names: time only their cases")
+    ap.add_argument("--dtypes", default="bf16,f32",
+                    help="comma-separated activation types (bf16, f32): time only their cases")
     ap.add_argument("--out", help="also write every number to this JSON file")
     args = ap.parse_args()
 
@@ -105,46 +110,53 @@ def main() -> int:
 
     g = torch.Generator(device="cuda").manual_seed(3)
     big = [s for s in cs.W8A8_CASES if s[0] >= 128]
-    plan = [("q4_matmul", s[:3], s[3]) for s in cs.Q4_CASES]
-    plan += [(form, s, 32) for s in big
+    plan = [("q4_matmul", s[:3], s[3], "bf16") for s in cs.Q4_CASES]
+    plan += [(form, s, 32, "bf16") for s in big
              for form in ("gq_matmul", "gq_zero_matmul", "w8a16_matmul", "quant_matmul_w8a8")]
-    plan += [("gq_matmul", s, 16) for s in cs.GQ16_CASES if s[0] >= 128]
+    plan += [("gq_matmul", s, 16, "bf16") for s in cs.GQ16_CASES if s[0] >= 128]
     small = [s for s in cs.W8A8_CASES if s[0] <= quant.GQ_GEMV_MAX_M]
-    plan += [(form, s, 32) for s in small for form in ("gq_matmul", "w8a16_matmul", "quant_matmul_w8a8")]
-    plan += [("gq_matmul", s, 16) for s in cs.GQ16_CASES if s[0] <= quant.GQ_GEMV_MAX_M]
-    plan += [("flash_attention", c, None) for c in cs.FLASH_CASES if c[5] == "f32"]
+    plan += [(form, s, 32, "bf16") for s in small
+             for form in ("gq_matmul", "w8a16_matmul", "quant_matmul_w8a8")]
+    plan += [("gq_matmul", s, 16, "bf16") for s in cs.GQ16_CASES if s[0] <= quant.GQ_GEMV_MAX_M]
+    plan += [("flash_attention", c, None, "f32") for c in cs.FLASH_CASES if c[5] == "f32"]
+    plan += [("q4_matmul", s[:3], s[3], "f32") for s in cs.Q4_F32_CASES]
+    plan += [(form, s[:3], s[3], "f32") for s in cs.GQ_F32_CASES for form in ("gq_matmul", "gq_zero_matmul")]
+    plan += [("w8a16_matmul", s, None, "f32") for s in cs.W8A16_F32_CASES]
     if args.kernels:
         plan = [p for p in plan if p[0] in args.kernels.split(",")]
+    plan = [p for p in plan if p[3] in args.dtypes.split(",")]
     cases = []
-    for form, shape, group in plan:
+    for form, shape, group, dt in plan:
         if form == "flash_attention":
             cases.append(time_flash(cs, g, shape, args.label, card))
             continue
         m, k, n = shape
-        x = torch.randn((m, k), generator=g, device="cuda", dtype=torch.bfloat16)
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x = torch.randn((m, k), generator=g, device="cuda", dtype=dtype)
         if form == "q4_matmul":
             kp = -(-k // quant.Q4_K_MULTIPLE) * quant.Q4_K_MULTIPLE
             qt = quant.Q4Tensor(
                 packed=torch.randint(0, 256, (n, kp // 2), generator=g, device="cuda", dtype=torch.uint8),
                 scale=torch.rand((n, kp // group), generator=g, device="cuda") * Q4_SCALE + Q4_SCALE / 2,
                 k=k, group=group)
-            fn, plain, rel = quant.q4_matmul, quant.q4_matmul_plain, cs.Q4_REL_TOL
+            fn, plain = quant.q4_matmul, quant.q4_matmul_plain
+            rel = cs.Q4_REL_TOL if dt == "bf16" else cs.GQ_REL_TOL["f32"]
         elif form in ("w8a16_matmul", "quant_matmul_w8a8"):
             qt = quant.QuantTensor(
                 q=torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8),
                 scale=torch.rand((n,), generator=g, device="cuda") * 4e-4 + 1e-5)
             fn, plain = getattr(quant, form), getattr(quant, f"{form}_plain")
-            rel = 0.0 if form == "quant_matmul_w8a8" else cs.GQ_REL_TOL["bf16"]
+            rel = 0.0 if form == "quant_matmul_w8a8" else cs.GQ_REL_TOL[dt]
         else:
             qt = cs._random_group_weight(g, n, k, group, affine=form == "gq_zero_matmul")
-            fn, plain, rel = getattr(quant, form), quant.group_quant_matmul_plain, cs.GQ_REL_TOL["bf16"]
+            fn, plain, rel = getattr(quant, form), quant.group_quant_matmul_plain, cs.GQ_REL_TOL[dt]
         got, want = fn(x, qt), plain(x, qt)
         err = (got.float() - want.float()).abs().max().item()
         tol = rel * want.float().abs().max().item()
         it = cs.iters_for(2.0 * m * n * k)
         ms = cs.time_ms(lambda: fn(x, qt), it)
         dev = {"device_ms": device_ms_sum(cs, lambda: fn(x, qt), it)} if m <= quant.GQ_GEMV_MAX_M else {}
-        case = dict(label=args.label, kernel=form, shape=[m, k, n], group=group, ms=ms, **dev,
+        case = dict(label=args.label, kernel=form, shape=[m, k, n], group=group, dtype=dt, ms=ms, **dev,
                     max_abs_err=err, tol=tol, ok=bool(err <= tol), card=card)
         print("kernel " + json.dumps(case), flush=True)
         cases.append(case)

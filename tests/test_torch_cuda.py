@@ -374,9 +374,10 @@ def test_group_quant_kernels_match_plain(cuda, form, dtype, group, m, k, n):
     x = torch.randn((m, k), generator=g, device=cuda, dtype=dtype)
     qt = _group_weight(g, n, k, group, form == "gq_zero_matmul", cuda)
     fn = getattr(quant, form)
-    before = fn.launches
+    before = (fn.launches, getattr(fn, "launches_f32", 0))
     got = fn(x, qt)
-    assert fn.launches == before + 1
+    assert (fn.launches, getattr(fn, "launches_f32", 0)) == (before[0] + 1,
+                                                            before[1] + (dtype == torch.float32))
     assert got.dtype == dtype and got.shape == (m, n)
     assert _close(got, quant.group_quant_matmul_plain(x, qt), dtype)
 
@@ -509,10 +510,11 @@ def test_quant_matmul_reads_the_mode_at_each_call(cuda, monkeypatch):
     assert (quant.quant_matmul_w8a8.launches, quant.w8a16_matmul.launches) == (w8a8 + 1, w8a16 + 1)
 
 
-# float32 x takes the FFMA form at every M: the GEMV's (1, 8), the mma.sync
-# form's (9, 127) and the wgmma kernel's (128, 4352) rows in bf16; N off the
-# 64-row tile, K off the 64-wide K tile (200: Kp = 256, the padded nibbles
-# random), and K = 1040 (Kp = 1088)
+# float32 x takes the split-x TF32 form at every M: the GEMV's (1, 8), the
+# mma.sync form's (9, 127) and the wgmma kernel's (128, 4352) rows in bf16,
+# across its 16-, 64- and 128-row tiles (16 up to M = 16); N off the 128-row
+# tile, K off the 64-wide K stage (200: Kp = 256, the padded nibbles random),
+# and K = 1040 (Kp = 1088)
 F32_ROWS = [1, 8, 9, 127, 128, 4352]
 
 
@@ -547,6 +549,63 @@ def test_w8a16_f32_kernel_matches_plain(cuda, m, k, n):
         before[0] + 1, before[1], before[2], before[3] + 1]
     assert got.dtype == torch.float32 and got.shape == (m, n) and torch.isfinite(got).all()
     assert _close(got, quant.w8a16_matmul_plain(x, qt), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("group", [16, 32])
+@pytest.mark.parametrize("m", F32_ROWS)
+@pytest.mark.parametrize("k,n", [(32, 8), (272, 257), (1040, 130)])
+def test_gq_f32_kernel_matches_plain(cuda, affine, group, m, k, n):
+    """The group-dequant and affine float32 forms at ragged M, N and K
+    (K = 272: Kp = 288 at group 32, x short of the weight row); each counts
+    its float32 launch."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n + group)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    qt = _group_weight(g, n, k, group, affine, cuda)
+    fn = quant.gq_zero_matmul if affine else quant.gq_matmul
+    before = (fn.launches, fn.launches_f32)
+    got = fn(x, qt)
+    assert (fn.launches, fn.launches_f32) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (m, n) and torch.isfinite(got).all()
+    assert _close(got, quant.group_quant_matmul_plain(x, qt), torch.float32)
+
+
+# chip_smoke.py's float32 cases: (kind, M, K, N, group)
+F32_SMOKE_CASES = ([("q4", *c) for c in chip_smoke.Q4_F32_CASES]
+                   + [(kind, *c) for c in chip_smoke.GQ_F32_CASES for kind in ("gq", "affine")]
+                   + [("w8a16", *c, None) for c in chip_smoke.W8A16_F32_CASES])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m,k,n,group", F32_SMOKE_CASES)
+def test_f32_smoke_cases_hold_the_limit_the_one_pass_fault_misses(cuda, kind, m, k, n, group):
+    """At chip_smoke.py's float32 shapes (the DiT's long K included) each form
+    lies within GQ_REL_TOL["f32"] of the largest output of its plain version,
+    and the one-pass TF32 fault does not."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    if kind == "q4":
+        qt = _q4_weight(g, n, k, group, cuda)
+        got, want, w = quant.q4_matmul(x, qt), quant.q4_matmul_plain(x, qt), quant.dequantize_q4(
+            qt, torch.float32)
+    elif kind == "w8a16":
+        qt = quant.QuantTensor(
+            q=torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8),
+            scale=torch.rand((n,), generator=g, device=cuda) * 4e-4 + 1e-5)
+        got, want, w = quant.w8a16_matmul(x, qt), quant.w8a16_matmul_plain(x, qt), quant.dequantize(
+            qt, torch.float32)
+    else:
+        qt = _group_weight(g, n, k, group, kind == "affine", cuda)
+        fn = quant.gq_zero_matmul if kind == "affine" else quant.gq_matmul
+        got, want = fn(x, qt), quant.group_quant_matmul_plain(x, qt)
+        w = quant.dequantize_group(qt, torch.float32)
+    tol = chip_smoke.GQ_REL_TOL["f32"] * want.abs().max().item()
+    err = (got - want).abs().max().item()
+    fault = chip_smoke._one_pass_tf32_matmul_fault(x, w, want)["one_pass_tf32"]
+    print(f"{kind} {m}x{k}->{n} g{group}: err {err:.3g}, one-pass TF32 {fault:.3g}, limit {tol:.3g}")
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert err <= tol < fault
 
 
 @pytest.mark.cuda
@@ -615,7 +674,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     assert all((f, "launches_gemv") in counts
                for f in ("quant_matmul_w8a8", "gq_matmul", "w8a16_matmul"))
     assert all((f, "launches_f32") in counts
-               for f in ("flash_attention", "q4_matmul", "w8a16_matmul"))
+               for f in ("flash_attention", "q4_matmul", "w8a16_matmul", "gq_matmul",
+                         "gq_zero_matmul"))
     q = torch.randn((1, 1, 8, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)  # head dim 32 has no kernel

@@ -9,6 +9,10 @@
   ``q4_matmul`` (XLA form and forced-interpreted kernel) at float32 sum-order
   tolerance (rtol 1e-5 / atol 1e-5); groups 16 and 32 (a q3_k or q4_0 GGUF's
   own blocks) stage from ``HostQuant`` as the JAX package stages them.
+* The float32 forms' arithmetic on the card (x split into two tf32 terms,
+  integer weights, scales folded outside the products), emulated in plain
+  PyTorch by ``chip_smoke.split_x_matmul``, holds the float32 limit against
+  the plain versions at every weight mode, where one TF32 pass does not.
 """
 import sys
 
@@ -18,6 +22,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+import chip_smoke
 import sdtpu.ops.attention  # noqa: F401 — registers the module
 import sdtpu.ops.quant as jq
 from sdtpu.io.gguf import BLOCK_INFO, GGML_Q3_K, GGML_Q4_0, extract_blocks, quantize_q4_0
@@ -266,3 +271,48 @@ def test_q4_small_groups_quantize_and_repack_like_jax(group):
     np.testing.assert_array_equal(tq.dequantize_q4(bridged, torch.float32).numpy(), want)
     ours = tq.quantize_q4(torch.from_numpy(w), group=group)
     np.testing.assert_array_equal(tq.dequantize_q4(ours, torch.float32).numpy(), want)
+
+
+# (mode, group at K = 4096, group at K = 15360): the 4-bit form at T5's
+# group 64 and a q4_0 GGUF's 32, the group-dequant form at q8_0's 32 and
+# q6_k's 16, the affine form at q4_1's 32, W8A16's row scale
+SPLIT_X_MODES = [("q4", 64, 32), ("gq", 32, 16), ("affine", 32, 32), ("w8a16", None, None)]
+
+
+@pytest.mark.parametrize("mode,g4096,g15360", SPLIT_X_MODES, ids=[m[0] for m in SPLIT_X_MODES])
+@pytest.mark.parametrize("k", [4096, 15360])
+def test_split_x_arithmetic_holds_the_float32_limit(mode, g4096, g15360, k):
+    """At the T5 width and the DiT's longest K, small M and N: the split-x
+    emulation lies within GQ_REL_TOL["f32"] of the largest output of the
+    plain version (float32 weights q·s (− z), one float32 matmul), and the
+    one-pass TF32 fault (x rounded to tf32) does not."""
+    group = g4096 if k == 4096 else g15360
+    rng = np.random.default_rng(k + len(mode))
+    m, n = 4, 24
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    if mode == "q4":
+        q = torch.from_numpy(rng.integers(-8, 8, (n, k)).astype(np.int16))
+        scale = torch.from_numpy((rng.random((n, k // group)) * 0.02 + 0.01).astype(np.float32))
+        qt = tq.Q4Tensor(packed=tq._pack_nibbles(q), scale=scale, k=k, group=group)
+        want, w = tq.q4_matmul(x, qt), tq.dequantize_q4(qt, torch.float32)
+        got = chip_smoke.split_x_matmul(x, q.float(), scale, group=group)
+    elif mode == "w8a16":
+        q = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8))
+        scale = torch.from_numpy((rng.random(n) * 4e-4 + 1e-5).astype(np.float32))
+        qt = tq.QuantTensor(q=q, scale=scale)
+        want, w = tq.w8a16_matmul(x, qt), tq.dequantize(qt, torch.float32)
+        got = chip_smoke.split_x_matmul(x, q.float(), scale)
+    else:
+        q = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8))
+        scale = torch.from_numpy((rng.random((n, k // group)) * 4e-4 + 1e-5).astype(np.float32))
+        zero = (torch.from_numpy((rng.random((n, k // group)) * 1e-2).astype(np.float32))
+                if mode == "affine" else None)
+        qt = tq.GroupQuantTensor(q=q, scale=scale, zero=zero, k=k, group=group)
+        fn = tq.gq_zero_matmul if zero is not None else tq.gq_matmul
+        want, w = fn(x, qt), tq.dequantize_group(qt, torch.float32)
+        got = chip_smoke.split_x_matmul(x, q.float(), scale, zero, group=group)
+    tol = chip_smoke.GQ_REL_TOL["f32"] * want.abs().max().item()
+    err = (got - want).abs().max().item()
+    fault = chip_smoke._one_pass_tf32_matmul_fault(x, w, want)["one_pass_tf32"]
+    assert got.shape == want.shape == (m, n)
+    assert err <= tol < fault, (err, tol, fault)
