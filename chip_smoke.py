@@ -62,7 +62,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      through the float32 flash kernel), answering a 512² and a 1024² request
      (path ``f32``), then a 512² request with ``SDTPU_QUANT_MODE=w8a16``
      (path ``f32_w8a16``: the W8A16 kernel's float32 form).
-Every path of phases 5-10 sets the kernels' launch counts to 0 before it runs
+ 11. main path 5, the entry points, on files: a full FLUX.1-dev checkpoint
+     set written by ``sdtpu_torch.tools.flux_files`` into a temporary
+     directory under ``build/chip_smoke/`` (removed after; the free disk
+     space is checked first): the DiT at full width and depth as a q8_0
+     GGUF, T5-XXL as a q8_0 GGUF under llama.cpp names with a synthetic
+     32128-piece vocab embedded, CLIP-L as bf16 safetensors and the FLUX VAE
+     (encoder included) as safetensors.  ``sdtpu_torch.cli.main`` answers one
+     1024² 2-step euler request with VAE tiling from them (path ``cli``: the
+     T5 tokenizer found in the GGUF, q8_0 promoted to W8A8), and the PNG is
+     read back in metadata mode; then ``sdtpu_torch.server.main``, loaded
+     from the same files with ``--no-promote-q8`` (the DiT in its group-32
+     blocks), serves on 127.0.0.1 three 512² requests of at most 4 steps
+     (``/sdapi/v1/txt2img`` with no sampler named, so euler_a;
+     ``/v1/images/generations``; an ``/sdcpp/v1/img_gen`` job polled to
+     completion with its progress seen) and cancels one queued job (path
+     ``server``).
+Every path of phases 5-11 sets the kernels' launch counts to 0 before it runs
 and reads them after: each kernel that path runs must have launched.  The
 4-bit kernel's TMA + wgmma form (M >= 128) and its weight-streaming GEMV
 (M <= 8) are counted apart as well, as ``q4_matmul_wgmma`` and
@@ -83,12 +99,16 @@ matmuls are counted apart (``flash_attention_f32``, ``q4_matmul_f32``,
 float32 paths run every launch of the flash, 4-bit and W8A16 wrappers in
 them and no bf16 form, the bf16 request paths none of them; the loader's
 float32 forward runs the 4-bit, group-dequant and affine ones.
+The ``cli`` path must run flash at D 64 (CLIP-L), 128 (the DiT) and 512 (the
+VAE), the W8A8 GEMV and wgmma forms and no ``mma.sync`` form; the
+``server`` path the group-dequant GEMV and wgmma forms, flash, and no W8A8.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import base64
 import dataclasses
 import gc
 import json
@@ -319,6 +339,13 @@ PATH_KERNELS = {
             "q4_matmul", "q4_matmul_f32"),
     "f32_w8a16": ("flash_attention", "flash_attention_f32", "w8a16_matmul", "w8a16_matmul_f32",
                   "q4_matmul", "q4_matmul_f32"),
+    # the entry points on files: T5 dequantized (dense bf16), the DiT's q8_0
+    # promoted to W8A8 (cli) or kept in its blocks (server); the D 128 and
+    # wgmma forms are checked by ENTRY_FORMS
+    "cli": ("flash_attention", "flash_attention_d64", "flash_attention_d512", "w8a8_matmul",
+            "w8a8_matmul_gemv"),
+    "server": ("flash_attention", "flash_attention_d64", "flash_attention_d512", "gq_matmul",
+               "gq_matmul_gemv", "gq_matmul_ws"),
 }
 # ... and none of these (the mode switch, the memory class and the dtype
 # hold: the bf16 paths run no float32 form, the float32 paths no bf16 one;
@@ -338,7 +365,11 @@ PATH_IDLE = {"int8": ("q4_matmul_gemv", "gq_matmul_gemv", "w8a16_matmul_gemv", *
              "q4_0": ("w8a8_matmul", "w8a8_matmul_gemv", "w8a16_matmul", "gq_matmul",
                       "gq_matmul_ws", "gq_zero_matmul", *F32_FORMS),
              "f32": ("w8a16_matmul", *F32_IDLE),
-             "f32_w8a16": ("w8a8_matmul", "w8a8_matmul_gemv", *F32_IDLE)}
+             "f32_w8a16": ("w8a8_matmul", "w8a8_matmul_gemv", *F32_IDLE),
+             "cli": ("w8a8_matmul_mma", "gq_matmul", "gq_zero_matmul", "q4_matmul",
+                     "w8a16_matmul", *F32_FORMS),
+             "server": ("w8a8_matmul", "w8a8_matmul_gemv", "q4_matmul", "w8a16_matmul",
+                        "gq_zero_matmul", *F32_FORMS)}
 F32_PATHS = {"f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
              "f32_w8a16": (("flash_attention", "flash_attention_f32"),
                            ("q4_matmul", "q4_matmul_f32"), ("w8a16_matmul", "w8a16_matmul_f32"))}
@@ -1162,6 +1193,223 @@ def loader_check(wrappers, card: str):
     return report, counts, request_counts
 
 
+# Phase 11, the entry points on files (the DiT at FLUX.1-dev's full depth):
+# the CLI's 1024² request and the server's 512² ones (at most 4 steps each)
+ENTRY_PROMPT = "a lighthouse on a cliff above a stormy sea"
+CLI_REQUEST = dict(prompt=ENTRY_PROMPT, width=1024, height=1024, sample_steps=2, cfg_scale=1.0,
+                   guidance=3.5, seed=3)
+CLI_ARGV = ["-p", ENTRY_PROMPT, "-W", "1024", "-H", "1024", "--steps", "2", "--sampling-method",
+            "euler", "--cfg-scale", "1.0", "--guidance", "3.5", "-s", "3", "--vae-tiling"]
+# (route, body, the sampler the image's parameters must name)
+SERVER_SYNC = [
+    ("/sdapi/v1/txt2img", {"prompt": "a photograph of an astronaut riding a horse", "width": 512,
+                           "height": 512, "steps": 4, "cfg_scale": 1.0, "seed": 7}, "euler_a"),
+    ("/v1/images/generations",
+     {"prompt": "a paper boat on a puddle after rain <sd_cpp_extra_args>{\"sample_params\": "
+                "{\"sample_steps\": 4, \"sample_method\": \"euler\"}, \"cfg_scale\": 1.0, "
+                "\"seed\": 8}</sd_cpp_extra_args>", "size": "512x512"}, "euler"),
+]
+SERVER_JOB = {"prompt": "a red fox in fresh snow, golden hour", "width": 512, "height": 512,
+              "seed": 9, "sample_params": {"sample_steps": 4, "sample_method": "euler_a", "eta": 1.0,
+                                           "guidance": {"txt_cfg": 1.0}}}
+
+
+def _http(base: str, path: str, body=None):
+    """→ (status, parsed json) of one request to the server under test."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method="GET" if body is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _check_png(blob: bytes, width: int, height: int, sampler: str) -> dict:
+    """An answer's PNG: its size, not constant, the sampler named in its
+    parameters text."""
+    from sdtpu_torch.utils.image import decode_png, parse_parameters_text
+
+    img, params = decode_png(blob)
+    if img.shape != (height, width, 3) or img.std() == 0:
+        raise RuntimeError(f"image {img.shape}, std {img.std()}: not a {width}x{height} picture")
+    named = parse_parameters_text(params or "").get("sampler")
+    if named != sampler:
+        raise RuntimeError(f"the image's parameters name sampler {named!r}, not {sampler!r}")
+    return {"image_std": float(img.std()), "parameters": params}
+
+
+def _entry_forms(path: str, counts: dict) -> dict:
+    """The forms the entry paths must run that no counter holds alone: flash
+    at D 128 (bf16, neither D 64 nor D 512), and the W8A8 (cli) or
+    group-dequant (server) wgmma form (neither GEMV nor mma.sync)."""
+    forms = {"flash_attention_d128": counts["flash_attention"] - counts["flash_attention_d64"]
+             - counts["flash_attention_d512"] - counts["flash_attention_f32"]}
+    if path == "cli":
+        forms["w8a8_matmul_wgmma"] = (counts["w8a8_matmul"] - counts["w8a8_matmul_gemv"]
+                                      - counts["w8a8_matmul_mma"])
+    else:
+        forms["gq_matmul_wgmma"] = (counts["gq_matmul"] - counts["gq_matmul_gemv"]
+                                    - counts["gq_matmul_mma"] - counts["gq_matmul_f32"])
+    if not all(v > 0 for v in forms.values()):
+        raise RuntimeError(f"path {path}: forms not launched {forms}")
+    return forms
+
+
+def _ask_server(base: str, pipe) -> list:
+    """The server's requests: the two synchronous routes, one native job
+    polled to completion with its progress seen, one queued job cancelled."""
+    import torch
+
+    out = []
+    for route, body, sampler in SERVER_SYNC:
+        torch.cuda.reset_peak_memory_stats()
+        code, resp = _http(base, route, body)
+        if code != 200:
+            raise RuntimeError(f"{route}: {code} {resp}")
+        b64 = resp["images"][0] if route.startswith("/sdapi") else resp["data"][0]["b64_json"]
+        out.append({"route": route, "timings_s": dict(pipe.last_timings),
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                    **_check_png(base64.b64decode(b64), 512, 512, sampler)})
+        print("entry request " + json.dumps(out[-1]), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    jobs = [_http(base, "/sdcpp/v1/img_gen", SERVER_JOB) for _ in range(2)]
+    if any(code != 202 for code, _ in jobs):
+        raise RuntimeError(f"/sdcpp/v1/img_gen: {jobs}")
+    job_id, queued_id = (resp["id"] for _, resp in jobs)
+    cancel = _http(base, f"/sdcpp/v1/jobs/{queued_id}/cancel", {})
+    seen, t0 = [], time.time()
+    while True:
+        _, st = _http(base, f"/sdcpp/v1/jobs/{job_id}")
+        seen.append(st["progress"])
+        if st["status"] in ("completed", "failed", "cancelled"):
+            break
+        if time.time() - t0 > 600:
+            raise RuntimeError(f"job {job_id} still {st['status']} after 600 s")
+        time.sleep(0.025)  # a step takes ~0.1 s; a tighter loop slows the job
+    queued = _http(base, f"/sdcpp/v1/jobs/{queued_id}")[1]
+    if st["status"] != "completed":
+        raise RuntimeError(f"job {job_id} {st['status']}: {st['error']}")
+    if not any(0 < p < 1 for p in seen) or st["step"] != st["steps"]:
+        raise RuntimeError(f"job {job_id}: no progress seen while it ran ({sorted(set(seen))})")
+    if cancel != (200, {"cancelled": True}) or queued["status"] != "cancelled":
+        raise RuntimeError(f"queued job {queued_id}: cancel {cancel}, status {queued['status']}")
+    out.append({"route": "/sdcpp/v1/img_gen", "timings_s": dict(pipe.last_timings),
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "progress_seen": sorted(set(seen)), "cancelled_queued_job": True,
+                **_check_png(base64.b64decode(st["images"][0]), 512, 512, "euler_a")})
+    print("entry request " + json.dumps(out[-1]), flush=True)
+    return out
+
+
+def entry_points_check(wrappers, card: str, profile=None):
+    """Phase 11: write the FLUX file set, answer from it through the CLI and
+    the server, each in its own launch window."""
+    import contextlib
+    import io
+    import queue
+    import tempfile
+    import threading
+
+    import torch
+
+    from sdtpu_torch import cli, server
+    from sdtpu_torch.config import GenerationParams
+    from sdtpu_torch.models.flux import FLUX_DEV_CONFIG
+    from sdtpu_torch.tools.flux_files import write_flux_files
+    from sdtpu_torch.utils.image import build_parameters_text, parse_parameters_text
+
+    root = ROOT / "build" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="entry_points_", dir=root))
+    report = {"card": card, "dit_depth": [FLUX_DEV_CONFIG.depth, FLUX_DEV_CONFIG.depth_single]}
+    try:
+        t0 = time.time()
+        files = write_flux_files(tmp, device=DEVICE)
+        report["files"] = {"bytes": files["bytes"], "write_s": files["write_s"],
+                           "total_bytes": sum(files["bytes"].values()),
+                           "total_write_s": time.time() - t0}
+        print(f"entry files on {card}: " + json.dumps(report["files"]), flush=True)
+        paths = files["paths"]
+        file_args = ["--diffusion-model", paths["diffusion_model"], "--clip_l", paths["clip_l"],
+                     "--t5xxl", paths["t5xxl"], "--vae", paths["vae"]]
+
+        png = tmp / "cli.png"
+        cli_rep = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        rc, counts_cli = _windowed(wrappers, "cli", lambda: cli.main(
+            file_args + CLI_ARGV + ["-o", str(png)], report=cli_rep))
+        wall_s = time.time() - t0
+        if rc != 0:
+            raise RuntimeError(f"sdtpu_torch.cli.main exited {rc}")
+        forms = _entry_forms("cli", counts_cli)
+        mma = sum(counts_cli[n] for n in ("w8a8_matmul_mma", "gq_matmul_mma", "w8a16_matmul_mma"))
+        if mma:
+            raise RuntimeError(f"path cli: {mma} mma.sync launches")
+        load, ids = cli_rep["load"], cli_rep["t5_ids"]
+        if not str(load["t5_tokenizer"]).startswith("gguf:"):
+            raise RuntimeError(f"the T5 tokenizer was not found in the GGUF: {load['t5_tokenizer']}")
+        if sum(1 for i in ids if i) < 2:  # more than the end-of-sequence id
+            raise RuntimeError(f"T5 was fed no token of the prompt: {ids}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["metadata", "--image", str(png), "--metadata-format", "json"])
+        want = build_parameters_text(GenerationParams(sample_method="euler", **CLI_REQUEST))
+        meta = json.loads(buf.getvalue())
+        if rc != 0 or meta.get("parameters") != parse_parameters_text(want):
+            raise RuntimeError(f"metadata mode read {meta.get('parameters')}, not {want!r}")
+        report["cli"] = {"load": load, "wall_s": wall_s, "timings_s": cli_rep["timings"],
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                         "t5_ids": len(ids), "t5_ids_nonzero": sum(1 for i in ids if i),
+                         "forms": forms, "launches": counts_cli,
+                         **_check_png(png.read_bytes(), 1024, 1024, "euler")}
+        print("entry cli " + json.dumps(report["cli"]), flush=True)
+        if profile:
+            report["profile"] = profile_request(cli_rep["pipeline"], CLI_REQUEST, profile, "cli",
+                                                card)
+        del cli_rep
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        box, srv_rep = queue.Queue(), {}
+
+        def run():
+            try:
+                server.main(file_args + ["--no-promote-q8", "--port", "0"], report=srv_rep,
+                            ready=box.put)
+            except BaseException as e:  # handed to the waiting thread, then raised here
+                box.put(e)
+                raise
+
+        thread = threading.Thread(target=run, daemon=True)
+        t0 = time.time()
+        thread.start()
+        httpd = box.get(timeout=900)
+        if isinstance(httpd, BaseException):
+            raise RuntimeError("the server did not start") from httpd
+        try:
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            report["server"] = {"load": srv_rep["load"], "start_s": time.time() - t0}
+            report["server"]["requests"], counts_srv = _windowed(
+                wrappers, "server", lambda: _ask_server(base, httpd.manager.pipeline))
+        finally:
+            httpd.shutdown()
+            thread.join(timeout=300)
+        report["server"].update(forms=_entry_forms("server", counts_srv), launches=counts_srv)
+        del httpd, srv_rep
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("entry " + json.dumps({k: report[k] for k in ("card", "dit_depth", "files")}), flush=True)
+    return report, counts_cli, counts_srv
+
+
 def gguf_block_dit() -> dict:
     """Full-depth FLUX.1-dev DiT weights in the ``q8_0_gguf`` memory class,
     drawn on the card (the seed the factory gives a DiT it synthesizes)."""
@@ -1303,7 +1551,7 @@ def main() -> int:
     ap.add_argument("--profile", metavar="TABLE",
                     help="after each main path, profile one more 1024² request and write the "
                          "profiler's tables to TABLE with .int8 / .w8a16 / .q8_0_gguf / .q4_0 / "
-                         ".f32 before its suffix")
+                         ".f32 / .cli before its suffix")
     args = ap.parse_args()
 
     import torch
@@ -1354,6 +1602,7 @@ def main() -> int:
     # wrappers
     wrappers = {"flash_attention": (flash_attention.flash_attention, "launches"),
                 "flash_attention_d512": (flash_attention.flash_attention, "launches_d512"),
+                "flash_attention_d64": (flash_attention.flash_attention, "launches_d64"),
                 "w8a8_matmul_gemv": (quant.quant_matmul_w8a8, "launches_gemv"),
                 "w8a8_matmul_mma": (quant.quant_matmul_w8a8, "launches_mma"),
                 "q4_matmul_wgmma": (quant.q4_matmul, "launches_wgmma"),
@@ -1453,6 +1702,12 @@ def main() -> int:
             os.environ["SDTPU_QUANT_MODE"] = previous
     reports += rep
     del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    entry, launches["cli"], launches["server"] = entry_points_check(wrappers, card, args.profile)
+    if "profile" in entry:
+        prof["cli"] = entry.pop("profile")
 
     headline = {"flash_attention": ([1, 24, 4352, 4352, 128], {}),
                 "flash_attention_d512": ([1, 1, 4096, 4096, 512], {}),
@@ -1488,7 +1743,7 @@ def main() -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s, "cases": cases, "reference": ref,
-                       "loader": loader, "pipelines": pipes, "requests": reports,
+                       "loader": loader, "pipelines": pipes, "requests": reports, "entry": entry,
                        "launches": launches, "kernels": kernels, "profile": prof}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,9 +2,11 @@
 
 The JAX package ``sdtpu`` stays the reference; this package mirrors its
 layout (ops/, models/, conditioning/, diffusion/, io/, tokenizers/,
-pipeline.py, factory.py) and is held against it by the tests.  The slice
-ported so far runs FLUX.1 txt2img, from random weights or a GGUF /
-safetensors DiT.  Every TPU kernel on that path is a hand-written Hopper
+pipeline.py, factory.py, cli.py, server.py) and is held against it by the
+tests.  The slice ported so far runs FLUX.1 txt2img, from random weights
+or checkpoint files, through ``create_pipeline`` or its own CLI
+(``python -m sdtpu_torch.cli``) and HTTP server (``python -m
+sdtpu_torch.server``).  Every TPU kernel on that path is a hand-written Hopper
 kernel in ``csrc/`` (flash attention; the W8A8, packed 4-bit, group-dequant
 and W8A16 matmuls), launched for CUDA tensors; CPU tensors run each
 kernel's plain PyTorch version.
@@ -12,8 +14,9 @@ kernel's plain PyTorch version.
 The package stands alone: it imports nothing of ``sdtpu`` and never imports
 ``jax``.  Its host layer (config types, Philox / torch-CPU noise, CLIP
 tokenizer, prompt parser, GGUF and safetensors readers, the FLUX model
-loader) is its own copy of the JAX package's, under the same names.  Entry
-points run on the card (``device="cuda"``) unless the caller asks for the
+loader, T5 tokenizer, PNG metadata) is its own copy of the JAX package's,
+under the same names.  Entry points run on the card (``device="cuda"``;
+the CLI and server with no ``--backend``) unless the caller asks for the
 CPU, as the tests do.
 """
 __version__ = "0.1.0"

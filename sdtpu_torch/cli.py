@@ -1,0 +1,729 @@
+"""sd-cli for the PyTorch/CUDA port: FLUX.1 txt2img from checkpoint files
+(this package's copy of ``sdtpu/cli.py``: ``build_parser``, ``main``, the
+FLUX txt2img parts of ``_load_pipeline`` and ``_img_gen``, the metadata
+mode, ``discover_gguf_tokenizer``).
+
+    python -m sdtpu_torch.cli --diffusion-model flux1-dev-q8_0.gguf \
+        --clip_l clip_l.safetensors --t5xxl t5xxl-q8_0.gguf --vae ae.safetensors \
+        -p "a lantern on a wooden table" -W 1024 -H 1024 --steps 20 -o out.png
+    python -m sdtpu_torch.cli metadata --image out.png
+
+The parser is the JAX CLI's (the same flags, defaults and help).  The port
+runs two modes, ``img_gen`` (FLUX.1 txt2img) and ``metadata``, and the
+flags in ``RUN_FLAGS``; any other mode or flag set away from its default,
+a sampler other than ``euler`` / ``euler_a``, a schedule other than
+``discrete`` / ``flux`` or a ``<lora:...>`` prompt tag exits with code 2
+before anything loads, naming it.
+
+Device: ``--backend`` as the JAX CLI spells it, one device for every module:
+``cpu`` or ``cuda0``..``cudaN`` (a per-module split exits 2).  With no
+``--backend`` the port runs on the GPU, and raises where there is none.
+The dtype is bf16 on the GPU and float32 on the CPU unless ``--dtype`` says
+otherwise.  q8_0 blocks of a GGUF diffusion model are re-quantized per row
+onto the W8A8 kernels unless ``--no-promote-q8``; other quantized diffusion
+blocks are kept (``--no-keep-quant`` dequantizes them); a quantized text
+encoder is dequantized on the host, one tensor at a time.  Images are
+PNGs with the webui ``parameters`` text.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import sys
+import time
+from typing import Optional
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="sdtpu_torch",
+                                 description="stable diffusion on an NVIDIA GPU (PyTorch/CUDA)")
+    from sdtpu_torch import __version__
+
+    ap.add_argument("--version", action="version",
+                    version=f"sdtpu_torch {__version__}")
+    ap.add_argument("mode", nargs="?", default="img_gen",
+                    choices=["img_gen", "vid_gen", "adetailer", "convert",
+                             "upscale", "metadata"])
+    ap.add_argument("-M", "--mode", dest="mode_flag", default=None,
+                    choices=["img_gen", "vid_gen", "adetailer", "convert",
+                             "upscale", "metadata"],
+                    help="run mode (reference -M/--mode; same as the "
+                    "positional)")
+    # model files (reference sd_ctx_params)
+    ap.add_argument("-m", "--model", help="full checkpoint (safetensors/gguf/ckpt)")
+    ap.add_argument("--diffusion-model", help="standalone diffusion model file")
+    ap.add_argument("--clip_l", help="clip-l text encoder file")
+    ap.add_argument("--clip_g", help="clip-g text encoder file")
+    ap.add_argument("--t5xxl", help="t5xxl text encoder file")
+    ap.add_argument("--t5-tokenizer", help="t5 tokenizer.json path")
+    ap.add_argument("--llm", "--qwen2vl", dest="llm",
+                    help="decoder-LLM text encoder file (qwen/gemma); --qwen2vl is the reference's deprecated alias")
+    ap.add_argument("--llm-tokenizer", help="LLM tokenizer.json path")
+    ap.add_argument("--audio-vae", help="LTX audio VAE + vocoder file")
+    ap.add_argument("--vae", help="vae file")
+    ap.add_argument("--taesd", "--tae", dest="taesd", help="taesd file (fast decode)")
+    ap.add_argument("--vae-tiling", action="store_true",
+                    help="tile VAE encode/decode (low-memory hires)")
+    ap.add_argument("--vae-tile-size", type=int, default=64, help="latent units")
+    ap.add_argument("--vae-tile-overlap", type=int, default=8)
+    ap.add_argument("--vae-temporal-tiling", action="store_true",
+                    help="window the video VAE decode over latent frames "
+                    "(reference sd_tiling_params_t.temporal_tiling)")
+    ap.add_argument("--extra-tiling-args", default="",
+                    help="key=value,... tiling escape hatch (reference "
+                    "extra_tiling_args): temporal_tile_frames=, "
+                    "temporal_tile_overlap=")
+    ap.add_argument("--stream-weights", "--stream-layers", dest="stream_weights",
+                    nargs="?", const="host", default=False,
+                    choices=["host", "disk"],
+                    help="stream diffusion block weights per layer (>HBM "
+                    "models; reference --stream-layers): 'host' keeps them "
+                    "in host RAM, 'disk' reads them from the checkpoint "
+                    "mmap per use (ResidencyMode::Disk — neither HBM nor "
+                    "host RSS holds the full model). Wan/FLUX/Hunyuan/LTX.")
+    ap.add_argument("--stream-cache-gib", type=float, default=0.0,
+                    help="host-RAM LRU budget (GiB) for decoded blocks in "
+                    "disk streaming mode (0 = re-read per use)")
+    ap.add_argument("--motion-module",
+                    help="AnimateDiff motion module for SD1.5 (reference "
+                    "--motion-module); enables vid_gen on UNet checkpoints")
+    ap.add_argument("--lora-model-dir", default="", help="dir for <lora:name:mult>")
+    ap.add_argument("--embd-dir", default="", help="textual-inversion embeddings dir")
+    # generation
+    ap.add_argument("-p", "--prompt", default="")
+    ap.add_argument("-n", "--negative-prompt", default="")
+    ap.add_argument("-H", "--height", type=int, default=512)
+    ap.add_argument("-W", "--width", type=int, default=512)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--cfg-scale", type=float, default=7.0)
+    ap.add_argument("--img-cfg-scale", type=float, default=None,
+                    help="separate image guidance scale (pix2pix / ref-image models)")
+    ap.add_argument("--guidance", type=float, default=3.5)
+    ap.add_argument("--sampling-method", default="euler_a")
+    ap.add_argument("--schedule", "--scheduler", dest="schedule", default="discrete")
+    ap.add_argument("-s", "--seed", type=int, default=42)
+    ap.add_argument("-b", "--batch-count", type=int, default=1)
+    ap.add_argument("--qwen-image-layers", type=int, default=3,
+                    help="layer count for QWEN_IMAGE_LAYERED checkpoints "
+                    "(reference --qwen-image-layers)")
+    ap.add_argument("--clip-skip", type=int, default=-1)
+    ap.add_argument("--eta", type=float, default=0.0)
+    ap.add_argument("--strength", type=float, default=0.75)
+    ap.add_argument("-i", "--init-img", help="img2img init image")
+    ap.add_argument("--mask", help="inpaint mask image")
+    ap.add_argument("--rng", default="cuda", choices=["cuda", "cpu", "std_default"])
+    ap.add_argument("--sampler-rng", default=None,
+                    choices=["cuda", "cpu", "std_default"],
+                    help="separate sampler-noise RNG (reference "
+                    "--sampler-rng); default: same stream as --rng")
+    ap.add_argument("--control-net", help="controlnet checkpoint file")
+    ap.add_argument("--control-image", help="control hint image")
+    ap.add_argument("--control-strength", type=float, default=0.9)
+    ap.add_argument("--canny", action="store_true",
+                    help="apply canny preprocessing to the control image")
+    ap.add_argument("--ip-adapter", help="ip-adapter checkpoint file")
+    ap.add_argument("--ip-image", "--ip-adapter-image", dest="ip_image", help="ip-adapter reference image")
+    ap.add_argument("-r", "--ref-image", action="append", default=[],
+                    help="reference image (PiD low-quality input; repeatable)")
+    ap.add_argument("--ip-scale", "--ip-adapter-strength", dest="ip_scale",
+                    type=float, default=1.0)
+    ap.add_argument("--clip-vision", help="CLIP vision encoder checkpoint (ip-adapter)")
+    ap.add_argument("--photo-maker", help="PhotoMaker checkpoint (v1/v2)")
+    ap.add_argument("--pm-id-images-dir", help="PhotoMaker input ID images dir")
+    ap.add_argument("--pm-id-embed-path", help="PhotoMaker v2 insightface id embed file")
+    ap.add_argument("--pm-style-strength", type=float, default=20.0)
+    ap.add_argument("--pulid-weights", help="PuLID pulid_ca weights file")
+    ap.add_argument("--pulid-id-embedding", help="PuLID id embedding file")
+    ap.add_argument("--pulid-id-weight", type=float, default=1.0)
+    ap.add_argument("--cache", "--cache-mode", dest="cache", default=None,
+                    choices=["easycache", "ucache", "taylorseer", "spectrum",
+                             "dbcache", "cache_dit"],
+                    help="step cache: skip diffusion forwards (reference docs/caching.md)")
+    ap.add_argument("--extra-sample-args", default="",
+                    help="key=value,... sampler/guidance escape hatch "
+                    "(reference --extra-sample-args): guidance_schedule="
+                    "7.5x10+5x10, gamma=, alpha=, delta_t=, "
+                    "noise_scale_start/end=, noise_clip_std=")
+    ap.add_argument("--cache-option", default="",
+                    help="key=value,... options for the step cache")
+    ap.add_argument("--model-args", default="",
+                    help="key=value,... model escape hatch (reference "
+                    "--model-args): chroma_use_dit_mask=, chroma_use_t5_mask=,"
+                    " chroma_t5_mask_pad=, qwen_image_zero_cond_t=")
+    # adetailer mode
+    ap.add_argument("--detector", help="yolov8 detector checkpoint (adetailer)")
+    ap.add_argument("--ad-prompt", default=None, help="adetailer inpaint prompt")
+    ap.add_argument("--ad-confidence", type=float, default=0.3)
+    ap.add_argument("--ad-strength", type=float, default=0.4)
+    ap.add_argument("--ad-option", "--extra-ad-args", dest="ad_option", default="",
+                    help="extra adetailer args key=value,... (reference "
+                    "extra_ad_args): sort_by/mask_k_largest/dilate_erode/"
+                    "merge_masks/invert_mask/mask_blur/...")
+    ap.add_argument("--slg-scale", type=float, default=0.0)
+    ap.add_argument("--skip-layers", default="7,8,9")
+    ap.add_argument("--slg-start", "--skip-layer-start", dest="slg_start",
+                    type=float, default=0.01)
+    ap.add_argument("--slg-end", "--skip-layer-end", dest="slg_end",
+                    type=float, default=0.2)
+    ap.add_argument("--apg-eta", type=float, default=1.0)
+    ap.add_argument("--apg-momentum", type=float, default=0.0)
+    ap.add_argument("--apg-nt", type=float, default=0.0, help="APG norm threshold")
+    # video (vid_gen mode)
+    ap.add_argument("--video-frames", type=int, default=81, help="frame count (1+4k)")
+    ap.add_argument("--fps", type=int, default=16)
+    ap.add_argument("--end-img", help="last-frame conditioning image (LTX FLF2V)")
+    ap.add_argument("--no-audio", action="store_true",
+                    help="skip audio generation for audio-video models (LTX-2)")
+    ap.add_argument("--control-video", action="append", default=[],
+                    help="VACE control frame image (repeatable, in order)")
+    ap.add_argument("--vace-strength", type=float, default=1.0)
+    ap.add_argument("--upscale-model",
+                    help="upscaler checkpoint: ESRGAN for img_gen/upscale "
+                    "modes (reference --upscale-model), LTX latent spatial "
+                    "upsampler for vid_gen")
+    # standalone upscale mode + post-generation ESRGAN pass
+    # (reference cli/main.cpp:926-962, common.h:248-249)
+    ap.add_argument("--upscale-repeats", type=int, default=1,
+                    help="run the ESRGAN upscaler N times (reference "
+                    "--upscale-repeats)")
+    ap.add_argument("--upscale-tile-size", type=int, default=128,
+                    help="ESRGAN tile size in pixels")
+    # highres fix (reference common.h:255-264)
+    ap.add_argument("--hires", action="store_true", help="enable highres fix")
+    ap.add_argument("--hires-upscaler", default="Latent",
+                    help="'Latent' or 'ESRGAN' (uses --upscale-model)")
+    ap.add_argument("--hires-scale", type=float, default=2.0)
+    ap.add_argument("--hires-width", type=int, default=0,
+                    help="hires target width, 0 to use --hires-scale")
+    ap.add_argument("--hires-height", type=int, default=0)
+    ap.add_argument("--hires-steps", type=int, default=0,
+                    help="hires pass steps, 0 = same as --steps")
+    ap.add_argument("--hires-denoising-strength", type=float, default=0.7)
+    ap.add_argument("--hires-sigmas", default="",
+                    help="custom sigma schedule for the hires pass "
+                    "(reference --hires-sigmas)")
+    ap.add_argument("--flow-shift", type=float, default=None)
+    ap.add_argument("--prediction", default=None,
+                    choices=["eps", "v", "edm_v", "flow", "flux_flow",
+                             "sefi_flow", "minit2i_flow"],
+                    help="override the prediction type / denoiser "
+                    "(reference --prediction)")
+    ap.add_argument("--ref-image-args", default="",
+                    help="key=value,... reference-image routing overrides "
+                    "(reference --ref-image-args): pass_to_vlm=, pass_to_dit=,"
+                    " vlm_max_pixels=, vlm_min_pixels=")
+    ap.add_argument("--disable-auto-resize-ref-image", action="store_true",
+                    help="deprecated alias for --ref-image-args "
+                    "resize_before_vae=off (reference common.cpp:2484-2487)")
+    ap.add_argument("--sigmas", default="",
+                    help="custom comma-separated sigma schedule (reference "
+                    "--sigmas); overrides --schedule/--steps")
+    ap.add_argument("--prompt-file", default=None,
+                    help="read the prompt from a file (reference --prompt-file)")
+    ap.add_argument("--negative-prompt-file", default=None)
+    ap.add_argument("--clip-on-cpu", action="store_true",
+                    help="keep the text encoder on the host CPU (reference "
+                    "--clip-on-cpu; per-module placement)")
+    ap.add_argument("--vae-on-cpu", action="store_true",
+                    help="keep the VAE on the host CPU (reference --vae-on-cpu)")
+    ap.add_argument("--circular", action="store_true",
+                    help="seamless tiling on both axes (reference --circular)")
+    ap.add_argument("--circularx", action="store_true",
+                    help="seamless tiling on the x axis only")
+    ap.add_argument("--circulary", action="store_true",
+                    help="seamless tiling on the y axis only")
+    ap.add_argument("--list-devices", action="store_true",
+                    help="print available devices and exit (reference "
+                    "--list-devices)")
+    ap.add_argument("--type", dest="wtype", default=None,
+                    choices=["q8_0", "q4_0"],
+                    help="quantize large diffusion weights at load "
+                    "(int8 W8A8 / packed 4-bit; reference --type). On an "
+                    "already-quantized GGUF, q8_0 re-quantizes int8-class "
+                    "blocks per-row onto the faster W8A8 MXU path")
+    ap.add_argument("--auto-fit", type=float, default=None, metavar="GIB",
+                    help="derive a memory plan for the given HBM budget and "
+                    "apply it (quantize / VAE-tile / stream weights; "
+                    "reference --auto-fit, backend_fit.h:12)")
+    ap.add_argument("--max-vram", default=None, metavar="SPEC",
+                    help="HBM budget for compute segmentation (reference "
+                    "--max-vram graph-cut, common.cpp:504): GiB float, "
+                    "'dev=GiB,...' spec, 0 disables, negative = auto-detect "
+                    "free HBM minus |value| GiB headroom; bounds activations "
+                    "by running cond/uncond forwards sequentially and "
+                    "shrinking VAE decode tiles to fit")
+    ap.add_argument("--no-keep-quant", action="store_true",
+                    help="dequantize quantized GGUF weights to the compute "
+                    "dtype instead of computing on the checkpoint's own "
+                    "quant blocks (default keeps blocks, matching the "
+                    "reference's end-to-end ggml types)")
+    ap.add_argument("--no-promote-q8", action="store_true",
+                    help="keep q8_0 GGUF blocks on the group-dequant matmul "
+                    "path instead of the default per-row W8A8 re-quantization "
+                    "(exact checkpoint numerics)")
+    # Wan2.2 MoE (reference --high-noise-* family + --moe-boundary)
+    ap.add_argument("--high-noise-diffusion-model",
+                    help="Wan2.2 MoE high-noise expert checkpoint")
+    ap.add_argument("--moe-boundary", type=float, default=0.875,
+                    help="sigma boundary between high/low-noise experts")
+    ap.add_argument("--high-noise-cfg-scale", type=float, default=None)
+    ap.add_argument("--high-noise-sampling-method", default=None)
+    ap.add_argument("--high-noise-eta", type=float, default=None)
+    ap.add_argument("--high-noise-steps", type=int, default=None,
+                    help="explicit phase split step (overrides --moe-boundary)")
+    ap.add_argument("--high-noise-img-cfg-scale", type=float, default=None,
+                    help="(high noise) image guidance scale (reference "
+                    "--high-noise-img-cfg-scale, common.cpp:1133)")
+    ap.add_argument("--high-noise-slg-scale", type=float, default=None,
+                    help="(high noise) skip-layer guidance scale (reference "
+                    "--high-noise-slg-scale)")
+    ap.add_argument("--high-noise-skip-layers", default=None,
+                    help="(high noise) comma-separated layers for SLG "
+                    "(reference --high-noise-skip-layers; default: base "
+                    "--skip-layers)")
+    ap.add_argument("--high-noise-slg-start", "--high-noise-skip-layer-start",
+                    dest="high_noise_slg_start", type=float, default=None)
+    ap.add_argument("--high-noise-slg-end", "--high-noise-skip-layer-end",
+                    dest="high_noise_slg_end", type=float, default=None)
+    # output
+    ap.add_argument("-o", "--output", default="output.png")
+    ap.add_argument("--output-begin-idx", type=int, default=None,
+                    help="starting index for output image sequences "
+                    "(reference --output-begin-idx; works with printf-style "
+                    "%%d patterns in -o)")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    ap.add_argument("--dtype", default=None, choices=["f32", "f16", "bf16"],
+                    help="compute dtype (default: bf16 on the GPU, f32 on the CPU)")
+    ap.add_argument("--preview", default="none", choices=["none", "proj", "tae", "vae"],
+                    help="per-step latent preview mode (reference --preview)")
+    ap.add_argument("--preview-interval", type=int, default=1)
+    ap.add_argument("--preview-path", default="preview.png")
+    ap.add_argument("--preview-noisy", action="store_true",
+                    help="preview the noisy model inputs instead of the "
+                    "denoised estimates (reference --preview-noisy)")
+    ap.add_argument("--taesd-preview-only", action="store_true",
+                    help="use --taesd only for previews, not the final "
+                    "decode (reference --taesd-preview-only)")
+    ap.add_argument("--no-progress", action="store_true",
+                    help="disable the per-step progress bar (fastest path: "
+                    "the whole sigma schedule runs as one on-device scan)")
+    # convert mode
+    ap.add_argument("--output-type", default="f16", help="convert: f32/f16/bf16/q8_0")
+    ap.add_argument("--force-sdxl-vae-conv-scale", action="store_true",
+                    help="guard the SDXL VAE against f16 overflow "
+                    "(reference --force-sdxl-vae-conv-scale; here the VAE "
+                    "is pinned to f32 instead of conv-weight rescaling)")
+    ap.add_argument("--convert-name", action="store_true",
+                    help="convert mode: canonicalize tensor names before "
+                    "export (reference --convert-name)")
+    ap.add_argument("--tensor-type-rules", default="",
+                    help="convert: regex=type,... per-tensor quant overrides "
+                    "(reference --tensor-type-rules); first matching pattern "
+                    "wins, e.g. 'attn=q8_0,^first_stage=f16'")
+    ap.add_argument("--imatrix-out", "--imat-out", dest="imatrix_out",
+                    help="collect an importance matrix during img_gen and "
+                    "save it (reference --imat-out)")
+    ap.add_argument("--imatrix", "--imat-in", dest="imatrix",
+                    action="append", default=None,
+                    help="importance matrix .dat — quantizing conversion "
+                    "weights, or continued collection with --imatrix-out; "
+                    "repeatable, entries merge additively (reference "
+                    "--imat-in)")
+    ap.add_argument("--lora-apply-mode", default="auto",
+                    choices=["auto", "immediately", "at_runtime"],
+                    help="how LoRAs bind to weights (reference "
+                    "--lora-apply-mode): auto = merge into dense bases / "
+                    "runtime factors on quantized; immediately = always "
+                    "fold (requantize on the weight's own grid); at_runtime "
+                    "= always attach detachable low-rank factors")
+    ap.add_argument("--vae-format", default="auto",
+                    choices=["auto", "flux", "sd3", "flux2", "wan"],
+                    help="latent-format override for PiD's LQ reference "
+                    "encoder (reference --vae-format)")
+    ap.add_argument("--backend", default="",
+                    help="the device of every module: 'cpu' or 'cuda0'..'cudaN' "
+                    "(default: the GPU; a per-module split is not ported)")
+    ap.add_argument("--params-backend", default="",
+                    help="per-module parameter residency, e.g. 'disk', "
+                    "'cpu', or 'diffusion=disk,clip=cpu' (reference "
+                    "--params-backend): diffusion=cpu/disk maps to "
+                    "--stream-weights host/disk; other modules move to the "
+                    "host device")
+    ap.add_argument("--split-mode", default="row",
+                    choices=["row", "layer"],
+                    help="multi-device weight distribution (reference "
+                    "--split-mode): on a TPU mesh both modes resolve to "
+                    "GSPMD tensor-parallel NamedShardings (row); 'layer' is "
+                    "accepted for compat (docs/performance.md#multi-chip)")
+    ap.add_argument("--rpc-servers", default="",
+                    help="reference --rpc-servers has no TPU analog — "
+                    "multi-host runs use jax.distributed (see "
+                    "docs/performance.md#multi-chip); passing this errors "
+                    "with that pointer")
+    ap.add_argument("--timestep-shift", type=int, default=0,
+                    help="shifted timestep for NitroFusion models (reference "
+                    "--timestep-shift; ~250 NitroSD-Realism, ~500 Vibrant)")
+    ap.add_argument("--scm-mask", default="",
+                    help="cache-dit SCM per-step compute mask, e.g. "
+                    "1,1,1,0,0,1 (reference --scm-mask)")
+    ap.add_argument("--scm-policy", default="", choices=["", "dynamic", "static"],
+                    help="cache-dit SCM policy (reference --scm-policy)")
+    ap.add_argument("--ad-negative-prompt", default=None,
+                    help="adetailer inpaint negative prompt")
+    ap.add_argument("--ad-model",
+                    help="separate checkpoint for the adetailer inpaint pass "
+                    "(reference --ad-model); defaults to the main model")
+    ap.add_argument("--uncond-diffusion-model",
+                    help="standalone unconditional diffusion model (Ideogram4 "
+                    "CFG; reference --uncond-diffusion-model)")
+    ap.add_argument("--embeddings-connectors",
+                    help="LTX-AV embeddings connectors file (learned-register "
+                    "text/audio refiners; reference --embeddings-connectors)")
+    ap.add_argument("--vae-relative-tile-size", default="",
+                    help="VAE tile size as [X]x[Y] fraction of the image "
+                    "(<1) or tiles per dim (>=1); overrides --vae-tile-size")
+    ap.add_argument("--hires-upscalers-dir", default="",
+                    help="dir searched for --hires-upscaler model files")
+    ap.add_argument("--disable-image-metadata", action="store_true",
+                    help="do not embed generation parameters in output PNGs")
+    # metadata-mode output options (reference cli/main.cpp:77,130-140)
+    ap.add_argument("--image", default=None,
+                    help="image to inspect in metadata mode (reference "
+                    "--image, cli/main.cpp:72)")
+    ap.add_argument("--metadata-format", default="text",
+                    choices=["text", "json"],
+                    help="metadata mode output format (reference "
+                    "--metadata-format)")
+    ap.add_argument("--metadata-brief", action="store_true",
+                    help="truncate long metadata text values")
+    ap.add_argument("--metadata-all", action="store_true",
+                    help="include structural entries (IHDR, IDAT, JPEG "
+                    "segments)")
+    ap.add_argument("--metadata-raw", action="store_true",
+                    help="include raw hex previews for unparsed payloads")
+    ap.add_argument("--high-noise-guidance", type=float, default=None,
+                    help="distilled guidance for the Wan2.2 high-noise phase")
+    ap.add_argument("--hires-upscale-tile-size", type=int, default=256,
+                    help="ESRGAN tile size for the hires-fix upscale pass "
+                    "(reference --hires-upscale-tile-size)")
+    ap.add_argument("--control-net-cpu", action="store_true",
+                    help="keep the ControlNet on the host CPU (reference "
+                    "--control-net-cpu; per-module placement)")
+    ap.add_argument("--increase-ref-index", action="store_true",
+                    help="index Kontext reference images 1..N in RoPE "
+                    "instead of sharing index 1 (reference "
+                    "--increase-ref-index)")
+    # accepted-for-compat flags (no-ops on TPU)
+    ap.add_argument("--fa", "--diffusion-fa", dest="fa", action="store_true",
+                    help="flash attention (always on for eligible shapes on "
+                    "TPU; accepted for reference-CLI compat)")
+    ap.add_argument("--mmap", action="store_true",
+                    help="mmap checkpoints (always on; compat no-op)")
+    ap.add_argument("--threads", type=int, default=0,
+                    help="ignored (XLA manages threading; compat no-op)")
+    ap.add_argument("--offload-to-cpu", action="store_true",
+                    help="compat: keep weights in host RAM — maps to "
+                    "--stream-weights host on Wan/FLUX/Hunyuan/LTX")
+    ap.add_argument("--eager-load", action="store_true",
+                    help="load all params at model-load time (already the "
+                    "default here; compat no-op)")
+    ap.add_argument("--diffusion-conv-direct", action="store_true",
+                    help="ggml conv2d-direct toggle; XLA picks conv "
+                    "algorithms itself (compat no-op)")
+    ap.add_argument("--vae-conv-direct", action="store_true",
+                    help="ggml conv2d-direct toggle for the VAE (compat "
+                    "no-op)")
+    ap.add_argument("--color", action="store_true",
+                    help="colorize log level tags (reference --color)")
+    ap.add_argument("--temporal-tiling", dest="vae_temporal_tiling",
+                    action="store_true",
+                    help="alias of --vae-temporal-tiling (reference "
+                    "--temporal-tiling)")
+    return ap
+
+
+# the flags the port runs (argparse dests); every other flag must keep its
+# default
+RUN_FLAGS = frozenset({
+    "mode", "mode_flag",
+    "model", "diffusion_model", "clip_l", "t5xxl", "vae", "t5_tokenizer",
+    "prompt", "negative_prompt", "prompt_file", "width", "height",
+    "steps", "cfg_scale", "guidance", "seed", "batch_count", "sampling_method", "schedule",
+    "eta", "clip_skip", "rng",
+    "vae_tiling", "vae_tile_size", "vae_tile_overlap",
+    "dtype", "no_promote_q8", "no_keep_quant", "backend",
+    "output", "output_begin_idx", "disable_image_metadata", "verbose",
+    # metadata mode
+    "image", "metadata_format", "metadata_brief", "metadata_all", "metadata_raw",
+})
+MODES = ("img_gen", "metadata")
+DTYPES = ("f32", "bf16")
+
+
+def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Optional[str]:
+    """Why the port cannot run these arguments (None: it can)."""
+    from sdtpu_torch.diffusion.samplers import PORTED_METHODS
+    from sdtpu_torch.diffusion.schedule import SCHEDULERS
+
+    for action in parser._actions:
+        dest = action.dest
+        if dest in run_flags or dest in ("help", "version"):
+            continue
+        if getattr(args, dest, action.default) != action.default:
+            flag = "/".join(action.option_strings)
+            return f"{flag} is not ported (the port runs FLUX.1 txt2img)"
+    if args.mode not in MODES:
+        return f"mode {args.mode!r} is not ported; the port runs {list(MODES)}"
+    if args.sampling_method not in PORTED_METHODS:
+        return (f"--sampling-method {args.sampling_method!r} is not ported; "
+                f"ported: {list(PORTED_METHODS)}")
+    if args.schedule not in SCHEDULERS:
+        return f"--schedule {args.schedule!r} is not ported; ported: {list(SCHEDULERS)}"
+    if args.dtype is not None and args.dtype not in DTYPES:
+        return f"--dtype {args.dtype} is not ported: the kernels take bf16 and float32"
+    spec = _parse_assignment_spec(args.backend)
+    if set(spec) - {"*"}:
+        return f"--backend {args.backend!r}: a per-module split is not ported; name one device"
+    if spec and not re.fullmatch(r"cpu|cuda\d*", spec["*"]):
+        return (f"--backend {args.backend!r} is not ported: the port runs on 'cpu' or "
+                "'cuda0'..'cudaN'")
+    if re.search(r"<lora:[^>]*>", args.prompt or ""):
+        return "<lora:...> prompt tags: LoRA is not ported"
+    return None
+
+
+def _parse_assignment_spec(spec: str) -> dict:
+    """--backend specs: 'module=target,...' pairs; a bare value applies to all
+    modules ('*')."""
+    out = {}
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" in part:
+            m, dv = part.split("=", 1)
+            out[m.strip()] = dv.strip()
+        else:
+            out["*"] = part
+    return out
+
+
+def resolve_device(backend: str):
+    """--backend → the torch device of every module: 'cpu', 'cudaN' → cuda:N,
+    none → the GPU, which must exist."""
+    import torch
+
+    name = _parse_assignment_spec(backend).get("*", "")
+    if name == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on an NVIDIA GPU; pass --backend cpu "
+                           "to run on the CPU")
+    return torch.device("cuda", int(name[len("cuda"):] or 0))
+
+
+def pretty_progress(step: int, steps: int, time_per_step: float) -> None:
+    """In-place progress bar: |====>     | 5/20 - 2.10it/s."""
+    width = 50
+    filled = int(width * step / max(steps, 1))
+    bar = "=" * max(filled - 1, 0) + (">" if 0 < filled < width else "=" * min(filled, 1))
+    bar = bar.ljust(width)
+    if time_per_step >= 1.0 or time_per_step <= 0:
+        rate = f"{time_per_step:.2f}s/it"
+    else:
+        rate = f"{1.0 / time_per_step:.2f}it/s"
+    end = "\n" if step == steps else ""
+    print(f"\r|{bar}| {step}/{steps} - {rate}", end=end, file=sys.stderr, flush=True)
+
+
+def _progress_cb():
+    state = {"t": time.time()}
+
+    def cb(step, steps, _x):
+        now = time.time()
+        pretty_progress(step, steps, now - state["t"])
+        state["t"] = now
+
+    return cb
+
+
+def discover_gguf_tokenizer(*paths):
+    """The first tokenizer embedded in the given .gguf files' metadata
+    (llama.cpp ``tokenizer.ggml.*``), or None; a file that fails to read
+    gives none."""
+    from sdtpu_torch.tokenizers.gguf_vocab import tokenizer_from_gguf_file
+
+    for p in paths:
+        if p and p.lower().endswith(".gguf"):
+            try:
+                tok = tokenizer_from_gguf_file(p)
+            except Exception:
+                tok = None
+            if tok is not None:
+                print(f"tokenizer from embedded GGUF vocab: {p} ({type(tok).__name__})")
+                return tok
+    return None
+
+
+def load_t5_tokenizer(args):
+    """--t5-tokenizer (a ``spiece.model`` or a ``tokenizer.json``), else the
+    vocab embedded in the T5 or full-checkpoint GGUF, else None → (tokenizer,
+    where it came from)."""
+    if args.t5_tokenizer:
+        if args.t5_tokenizer.endswith(".model"):
+            from sdtpu_torch.tokenizers.gguf_vocab import load_spiece_model
+
+            return load_spiece_model(args.t5_tokenizer), args.t5_tokenizer
+        from sdtpu_torch.tokenizers.t5 import T5UnigramTokenizer
+
+        return T5UnigramTokenizer.from_tokenizer_json(args.t5_tokenizer), args.t5_tokenizer
+    tok = discover_gguf_tokenizer(args.t5xxl, args.model)
+    if tok is None:
+        print("warning: no T5 tokenizer (no --t5-tokenizer and no vocab in a GGUF): "
+              "T5 gets all-zero ids")
+        return None, None
+    return tok, "gguf:" + next(p for p in (args.t5xxl, args.model) if p and p.lower().endswith(".gguf"))
+
+
+def _load_pipeline(args, report: Optional[dict] = None):
+    """The files → a FLUX pipeline on ``--backend``'s device.  ``report``
+    (when given) gets ``load``: its seconds, ``read_s`` (the files → host
+    arrays and quant blocks, the blocks' extraction included), ``stage_s``
+    (→ the device) and ``build_s``, and ``pipeline``, the pipeline."""
+    import torch
+
+    from sdtpu_torch.config import SDVersion
+    from sdtpu_torch.factory import create_pipeline
+    from sdtpu_torch.io.model_loader import load_model_bundle
+    from sdtpu_torch.loader import diffusion_to_device, module_to_device
+
+    device = resolve_device(args.backend)
+    if not (args.model or args.diffusion_model):
+        raise SystemExit("error: provide --model or --diffusion-model")
+    if args.dtype:
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.dtype]
+    else:
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    t5_tok, t5_tok_source = load_t5_tokenizer(args)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t0 = time.time()
+    bundle = load_model_bundle(model_path=args.model, diffusion_model_path=args.diffusion_model,
+                               clip_l_path=args.clip_l, t5xxl_path=args.t5xxl,
+                               vae_path=args.vae, keep_quant=not args.no_keep_quant)
+    t_read = time.time() - t0
+    missing = [m for m in ("clip_l", "t5", "vae") if not getattr(bundle, m)]
+    if missing:
+        raise SystemExit(f"error: no {', '.join(missing)} weights in the given files "
+                         "(pass --clip_l, --t5xxl, --vae)")
+    t0 = time.time()
+    params = {"diffusion": diffusion_to_device(bundle.diffusion, dtype, device,
+                                               promote_q8=not args.no_promote_q8)}
+    bundle.diffusion = None
+    for m in ("clip_l", "t5", "vae"):
+        params[m] = module_to_device(getattr(bundle, m), dtype, device)
+        setattr(bundle, m, None)
+    sync()
+    t_stage = time.time() - t0
+    n_row = sum(type(v).__name__ == "QuantTensor" for v in params["diffusion"].values())
+    n_blocks = sum(type(v).__name__ in ("GroupQuantTensor", "Q4Tensor")
+                   for v in params["diffusion"].values())
+    if n_row:
+        print(f"re-quantized {n_row} diffusion weights to per-row int8 (W8A8 path)")
+    if n_blocks:
+        print(f"keeping {n_blocks} diffusion weights in checkpoint quant blocks")
+    t0 = time.time()
+    pipe = create_pipeline(SDVersion.FLUX, params=params, rng_type=args.rng, dtype=dtype,
+                           t5_tokenizer=t5_tok, device=device)
+    if args.vae_tiling:
+        pipe.set_vae_tiling(True, args.vae_tile_size, args.vae_tile_overlap)
+    sync()
+    load = {"read_s": t_read, "stage_s": t_stage, "build_s": time.time() - t0,
+            "device": str(device), "dtype": str(dtype).replace("torch.", ""),
+            "w8a8_weights": n_row, "block_weights": n_blocks, "t5_tokenizer": t5_tok_source}
+    print("load " + json.dumps(load))
+    if report is not None:
+        report.update(load=load, pipeline=pipe)
+    return pipe
+
+
+def _img_gen(args, report: Optional[dict] = None) -> int:
+    from sdtpu_torch.config import GenerationParams
+    from sdtpu_torch.utils.image import build_parameters_text, resolve_output_path, write_image
+
+    pipe = _load_pipeline(args, report)
+    gp = GenerationParams(
+        prompt=args.prompt, negative_prompt=args.negative_prompt, width=args.width,
+        height=args.height, sample_steps=args.steps, cfg_scale=args.cfg_scale,
+        guidance=args.guidance, sample_method=args.sampling_method, schedule=args.schedule,
+        seed=args.seed, batch_count=args.batch_count, clip_skip=args.clip_skip, eta=args.eta)
+    t0 = time.time()
+    res = pipe.generate(gp, progress_callback=_progress_cb())
+    print(f"generated {len(res.images)} image(s) in {time.time() - t0:.2f}s")
+    print("timings " + json.dumps(pipe.last_timings))
+    paths = []
+    for i, img in enumerate(res.images):
+        path = resolve_output_path(args.output, i, len(res.images), args.output_begin_idx)
+        meta = build_parameters_text(GenerationParams(**{**gp.__dict__, "seed": res.seeds[i]}))
+        write_image(path, img, parameters=None if args.disable_image_metadata else meta)
+        print(f"saved {path}")
+        paths.append(path)
+    if report is not None:
+        report.update(timings=dict(pipe.last_timings), outputs=paths, seeds=res.seeds,
+                      t5_ids=pipe.last_t5_ids)
+    return 0
+
+
+def _metadata(args) -> int:
+    """Chunk-level metadata dump of a PNG (the reference's metadata mode)."""
+    from sdtpu_torch.utils.image import parse_parameters_text, walk_image_metadata
+
+    path = args.image or args.model or args.output
+    entries = walk_image_metadata(path, include_structural=args.metadata_all,
+                                  include_raw=args.metadata_raw, brief=args.metadata_brief)
+    params = next((e.get("value") for e in entries if e.get("keyword") == "parameters"), None)
+    if args.metadata_format == "json":
+        out = {"file": path, "entries": entries}
+        if params and not args.metadata_brief:
+            out["parameters"] = parse_parameters_text(params)
+        print(json.dumps(out, indent=2))
+        return 0
+    for e in entries:
+        head = e["chunk"] + (f"/{e['keyword']}" if "keyword" in e else "")
+        tail = e.get("value", e.get("raw", ""))
+        print(f"{head} ({e['length']} bytes): {tail}")
+    if params:
+        for k, v in parse_parameters_text(params).items():
+            print(f"  {k}: {v}")
+    elif not entries:
+        print("(no parameters)")
+    return 0
+
+
+def main(argv=None, report: Optional[dict] = None) -> int:
+    """Run the CLI; ``report`` (a dict, when given) gets what an img_gen run
+    measured: ``load`` (seconds of read / stage / build, the T5 tokenizer's
+    source), ``timings`` (cond / sample / decode / total), ``outputs``, the
+    padded ``t5_ids`` T5 was fed for the prompt and the ``pipeline`` that
+    answered."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.mode_flag:
+        args.mode = args.mode_flag  # reference -M/--mode spelling
+    if args.prompt_file:
+        with open(args.prompt_file) as f:
+            args.prompt = f.read().strip()
+    why = unported(args, parser)
+    if why:
+        print(f"error: {why}", file=sys.stderr)
+        return 2
+    if args.mode == "metadata":
+        return _metadata(args)
+    return _img_gen(args, report)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

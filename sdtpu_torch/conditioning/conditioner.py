@@ -71,6 +71,7 @@ def apply_token_weights(hidden: torch.Tensor, weights: torch.Tensor) -> torch.Te
 class SDCondition:
     c_crossattn: Optional[torch.Tensor] = None  # [B, L, C]
     c_vector: Optional[torch.Tensor] = None  # [B, adm]
+    t5_ids: Optional[List[int]] = None  # the padded ids T5 was fed
 
 
 class FluxConditioner:
@@ -93,7 +94,7 @@ class FluxConditioner:
                 self.t5_tokenizer.encode(text, add_eos=True), self.t5_seq_len)
         else:
             t5_ids = [0] * self.t5_seq_len
-        t5_ids = torch.tensor([t5_ids], dtype=torch.int64, device=self.device)
         _, pooled = clip_text_forward(self.pl, ids, self.cl, clip_skip=-1, return_pooled=True)
-        h_t5 = t5_encoder_forward(self.pt, t5_ids, self.ct)
-        return SDCondition(c_crossattn=h_t5, c_vector=pooled)
+        h_t5 = t5_encoder_forward(
+            self.pt, torch.tensor([t5_ids], dtype=torch.int64, device=self.device), self.ct)
+        return SDCondition(c_crossattn=h_t5, c_vector=pooled, t5_ids=list(t5_ids))

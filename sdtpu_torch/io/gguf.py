@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import os
 import struct
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -788,7 +788,7 @@ QUANTIZE_FNS = {
 
 
 def save_gguf(path: str, tensors: Dict[str, np.ndarray], out_type: str = "f16",
-              metadata: Optional[Dict[str, str]] = None, min_quant_size: int = 1024,
+              metadata: Optional[Dict[str, Any]] = None, min_quant_size: int = 1024,
               type_rules: Optional[list] = None):
     """Write a GGUF v3 file.
 
@@ -805,7 +805,6 @@ def save_gguf(path: str, tensors: Dict[str, np.ndarray], out_type: str = "f16",
     target = name_to_type[out_type]
     rules = [(re.compile(pat), name_to_type[tn])
              for pat, tn in (type_rules or []) if tn in name_to_type]
-    align = 32
 
     entries = []  # (name, type_id, shape, payload bytes)
     for name, arr in tensors.items():
@@ -846,9 +845,28 @@ def save_gguf(path: str, tensors: Dict[str, np.ndarray], out_type: str = "f16",
         entries.append((name, t, arr.shape, payload))
 
     kv = {"general.architecture": "sdtpu", **(metadata or {})}
+    buf = _gguf_header(kv, [(name, t, shape, len(payload)) for name, t, shape, payload in entries])
+    for _, _, _, payload in entries:
+        buf.extend(payload)
+        buf.extend(b"\x00" * _pad(len(payload)))
+    with open(path, "wb") as f:
+        f.write(bytes(buf))
+
+
+GGUF_ALIGN = 32
+
+
+def _pad(n: int) -> int:
+    return (GGUF_ALIGN - n % GGUF_ALIGN) % GGUF_ALIGN
+
+
+def _gguf_header(kv: Dict[str, Any], infos) -> bytearray:
+    """The GGUF v3 header for metadata ``kv`` and tensor infos
+    ``[(name, ggml_type, shape, payload bytes)]``, padded to the alignment
+    (each payload starts aligned)."""
     buf = bytearray()
     buf += GGUF_MAGIC
-    buf += struct.pack("<IQQ", 3, len(entries), len(kv))
+    buf += struct.pack("<IQQ", 3, len(infos), len(kv))
 
     def w_str(s):
         b = s.encode("utf-8")
@@ -890,7 +908,7 @@ def save_gguf(path: str, tensors: Dict[str, np.ndarray], out_type: str = "f16",
         w_value(v)
 
     offset = 0
-    for name, t, shape, payload in entries:
+    for name, t, shape, nbytes in infos:
         w_str(name)
         dims = list(reversed(shape))  # gguf dims are innermost-first
         buf.extend(struct.pack("<I", len(dims)))
@@ -898,13 +916,33 @@ def save_gguf(path: str, tensors: Dict[str, np.ndarray], out_type: str = "f16",
             buf.extend(struct.pack("<Q", dname))
         buf.extend(struct.pack("<I", t))
         buf.extend(struct.pack("<Q", offset))
-        offset += (len(payload) + align - 1) // align * align
+        offset += nbytes + _pad(nbytes)
+    buf.extend(b"\x00" * _pad(len(buf)))
+    return buf
 
-    pad = (align - (len(buf) % align)) % align
-    buf.extend(b"\x00" * pad)
-    for _, _, _, payload in entries:
-        buf.extend(payload)
-        pad = (align - (len(payload) % align)) % align
-        buf.extend(b"\x00" * pad)
+
+def _payload_bytes(ggml_type: int, shape) -> int:
+    """Bytes of one tensor's payload of ``ggml_type`` and numpy ``shape``."""
+    block_elems, block_bytes = BLOCK_INFO[ggml_type]
+    return int(np.prod(shape, dtype=np.int64)) // block_elems * block_bytes
+
+
+def write_gguf(path: str, specs, payload: Callable[[str], np.ndarray],
+               metadata: Optional[Dict[str, Any]] = None) -> int:
+    """Stream a GGUF v3 file tensor by tensor, holding one payload at a time.
+
+    specs: [(name, ggml_type, numpy shape)]; ``payload(name)`` returns that
+    tensor's raw bytes (a uint8 array or bytes, in ggml's block layout, of
+    the size its type and shape give).  The header is ``save_gguf``'s.  → bytes written."""
+    kv = {"general.architecture": "sdtpu", **(metadata or {})}
+    infos = [(name, t, tuple(shape), _payload_bytes(t, shape)) for name, t, shape in specs]
+    written = 0
     with open(path, "wb") as f:
-        f.write(bytes(buf))
+        written += f.write(bytes(_gguf_header(kv, infos)))
+        for name, _, _, nbytes in infos:
+            data = memoryview(np.ascontiguousarray(payload(name), dtype=np.uint8)).cast("B")
+            if data.nbytes != nbytes:
+                raise ValueError(f"{name}: payload of {data.nbytes} bytes, not {nbytes}")
+            written += f.write(data)
+            written += f.write(b"\x00" * _pad(nbytes))
+    return written

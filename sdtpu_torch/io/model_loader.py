@@ -1,14 +1,19 @@
-"""A FLUX diffusion-model checkpoint → its param dict (this package's copy of
-what ``sdtpu.io.model_loader.load_model_bundle(diffusion_model_path=...,
-keep_quant=...)`` does for a FLUX.1 file, with the parts of
-``sdtpu/io/detect.py`` and ``sdtpu/io/name_conversion.py`` that call uses).
+"""FLUX checkpoint files → per-module param dicts (this package's copy of the
+FLUX parts of ``sdtpu.io.model_loader``: ``load_model_bundle``,
+``split_modules``, ``read_checkpoint_file``, with the parts of
+``sdtpu/io/detect.py`` and ``sdtpu/io/name_conversion.py`` they use).
 
-Read the GGUF or safetensors file (GGUF quant blocks kept as ``HostQuant``
-when ``keep_quant``), convert diffusers FLUX names to the internal
-double/single-block names (split q/k/v merged back into the fused
-weights), put the names under ``model.diffusion_model.``, fingerprint the
-version and strip the prefix again.  Any other family raises
-``NotImplementedError``: the port runs FLUX.
+Read N GGUF or safetensors files under their per-file prefixes (a full
+checkpoint, the diffusion model, CLIP-L, T5-XXL, the VAE), convert
+diffusers FLUX names to the internal double/single-block names (split
+q/k/v merged back into the fused weights), canonicalize diffusers VAE
+names, map llama.cpp GGUF T5 names to HF ones, fingerprint the version and
+split the names into the modules' own.  Only the diffusion file keeps its
+GGUF blocks for the device (``keep_quant``); a quantized text-encoder or
+VAE file's 2-D tensors come back as ``HostQuant`` too, but only so each is
+dequantized on the host when it is staged, one at a time: by value they
+are the float32 arrays the JAX loader returns.  Any family but FLUX raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,6 +35,10 @@ DIFFUSION_PREFIX = "model.diffusion_model."
 class ModelBundle:
     version: SDVersion
     diffusion: Dict[str, np.ndarray]
+    clip_l: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    t5: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    vae: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    extra: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
 
 
 def read_checkpoint_file(path: str, keep_quant: bool = False) -> Dict[str, np.ndarray]:
@@ -198,17 +207,174 @@ def detect_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
     return SDVersion.FLUX
 
 
-def load_model_bundle(diffusion_model_path: str, keep_quant: bool = False) -> ModelBundle:
-    """A FLUX.1 diffusion-model file → ``ModelBundle(version, diffusion)``, the
-    diffusion dict under the DiT's own names (what the JAX package's
-    ``load_model_bundle(diffusion_model_path=..., keep_quant=...).diffusion``
-    holds).  Raises ``NotImplementedError`` for any other model."""
-    sub = convert_diffusers_diffusion_names(read_checkpoint_file(diffusion_model_path, keep_quant))
-    tensors = {(k if k.startswith(DIFFUSION_PREFIX) else DIFFUSION_PREFIX + k): v
-               for k, v in sub.items()}
-    version = detect_version(tensors.keys(), {k: tuple(v.shape) for k, v in tensors.items()})
-    if version != SDVersion.FLUX:
-        raise NotImplementedError(f"{diffusion_model_path} holds a {version.value} model; "
+# ------------------------------------------------------------ name canon
+
+def convert_diffusers_vae_name(name: str, num_levels: int = 4) -> Optional[str]:
+    """diffusers AutoencoderKL names → CompVis ``first_stage_model`` names."""
+    vae_res = {
+        "norm1": "norm1", "conv1": "conv1", "norm2": "norm2", "conv2": "conv2",
+        "conv_shortcut": "nin_shortcut",
+    }
+
+    def res_inner(rest):
+        for k, v in vae_res.items():
+            if rest.startswith(k + "."):
+                return v + rest[len(k):]
+        return rest
+
+    attn_map = {
+        "group_norm": "norm", "to_q": "q", "to_k": "k", "to_v": "v", "to_out.0": "proj_out",
+        # older diffusers naming
+        "query": "q", "key": "k", "value": "v", "proj_attn": "proj_out",
+    }
+
+    def attn_inner(rest):
+        for k, v in sorted(attn_map.items(), key=lambda kv: -len(kv[0])):
+            if rest.startswith(k + "."):
+                return v + rest[len(k):]
+        return rest
+
+    for enc in ("encoder", "decoder"):
+        if not name.startswith(enc + "."):
+            continue
+        sub = name[len(enc) + 1:]
+        if sub.startswith("conv_in.") or sub.startswith("conv_out."):
+            return f"{enc}.{sub}"
+        if sub.startswith("conv_norm_out."):
+            return f"{enc}.norm_out.{sub[len('conv_norm_out.'):]}"
+        m = re.match(r"mid_block\.resnets\.(\d)\.(.*)", sub)
+        if m:
+            return f"{enc}.mid.block_{int(m.group(1)) + 1}.{res_inner(m.group(2))}"
+        m = re.match(r"mid_block\.attentions\.0\.(.*)", sub)
+        if m:
+            return f"{enc}.mid.attn_1.{attn_inner(m.group(1))}"
+        m = re.match(r"down_blocks\.(\d+)\.resnets\.(\d+)\.(.*)", sub)
+        if m:
+            return f"encoder.down.{m.group(1)}.block.{m.group(2)}.{res_inner(m.group(3))}"
+        m = re.match(r"down_blocks\.(\d+)\.downsamplers\.0\.conv\.(.*)", sub)
+        if m:
+            return f"encoder.down.{m.group(1)}.downsample.conv.{m.group(2)}"
+        m = re.match(r"up_blocks\.(\d+)\.resnets\.(\d+)\.(.*)", sub)
+        if m:
+            i = num_levels - 1 - int(m.group(1))
+            return f"decoder.up.{i}.block.{m.group(2)}.{res_inner(m.group(3))}"
+        m = re.match(r"up_blocks\.(\d+)\.upsamplers\.0\.conv\.(.*)", sub)
+        if m:
+            i = num_levels - 1 - int(m.group(1))
+            return f"decoder.up.{i}.upsample.conv.{m.group(2)}"
+        return None
+    if name.startswith("quant_conv.") or name.startswith("post_quant_conv."):
+        return name
+    return None
+
+
+# the wrapper prefixes ``canonicalize_name`` leaves as they are
+_CANON_PREFIXES = ("model.diffusion_model.", "first_stage_model.", "cond_stage_model.transformer.",
+                   "cond_stage_model.model.", "conditioner.embedders.0.transformer.",
+                   "conditioner.embedders.1.model.")
+
+
+def canonicalize_name(name: str) -> str:
+    """A full checkpoint key → its internal name: known wrapper prefixes
+    pass through, diffusers VAE names go under ``first_stage_model.``.
+    (The JAX package also maps diffusers UNet names here; the port loads no
+    UNet, and such a name stays as it is, so the file is refused as not
+    FLUX.)"""
+    if name.startswith(_CANON_PREFIXES):
+        return name
+    cv = convert_diffusers_vae_name(name)
+    if cv is not None:
+        return "first_stage_model." + cv
+    return name
+
+
+def _replace_name_map(name: str, pairs) -> str:
+    """First-substring-occurrence replacement per pair, applied in order."""
+    for src, dst in pairs:
+        idx = name.find(src)
+        if idx >= 0:
+            name = name[:idx] + dst + name[idx + len(src):]
+    return name
+
+
+_GGUF_T5_MAP = (
+    ("enc.", "encoder."),
+    ("blk.", "block."),
+    ("output_norm.", "final_layer_norm."),
+    ("attn_q.", "layer.0.SelfAttention.q."),
+    ("attn_k.", "layer.0.SelfAttention.k."),
+    ("attn_v.", "layer.0.SelfAttention.v."),
+    ("attn_o.", "layer.0.SelfAttention.o."),
+    ("attn_norm.", "layer.0.layer_norm."),
+    ("ffn_norm.", "layer.1.layer_norm."),
+    ("ffn_up.", "layer.1.DenseReluDense.wi_1."),
+    ("ffn_down.", "layer.1.DenseReluDense.wo."),
+    ("ffn_gate.", "layer.1.DenseReluDense.wi_0."),
+    ("attn_rel_b.", "layer.0.SelfAttention.relative_attention_bias."),
+    ("token_embd.", "shared."),
+)
+
+
+def convert_gguf_t5_name(name: str) -> str:
+    """llama.cpp GGUF T5 names → HF T5EncoderModel names."""
+    return _replace_name_map(name, _GGUF_T5_MAP)
+
+
+# ------------------------------------------------------------ bundle
+
+# module dict ← full-name prefix
+MODULE_PREFIXES = (("diffusion", DIFFUSION_PREFIX), ("vae", "first_stage_model."),
+                   ("clip_l", "cond_stage_model.transformer."),
+                   ("clip_l", "text_encoders.clip_l.transformer."),
+                   ("t5", "text_encoders.t5xxl.transformer."))
+
+
+def split_modules(tensors: Dict[str, np.ndarray]) -> ModelBundle:
+    """Canonicalize + fingerprint + split into module-local param dicts."""
+    canon = {canonicalize_name(k): v for k, v in tensors.items()}
+    version = detect_version(canon.keys(), {k: tuple(v.shape) for k, v in canon.items()})
+    mods: Dict[str, Dict[str, np.ndarray]] = {"diffusion": {}, "clip_l": {}, "t5": {}, "vae": {},
+                                              "extra": {}}
+    for name, arr in canon.items():
+        for mod, prefix in MODULE_PREFIXES:
+            if name.startswith(prefix):
+                local = name[len(prefix):]
+                if mod == "t5" and local.startswith(("enc.", "dec.", "token_embd.", "output_norm.")):
+                    local = convert_gguf_t5_name(local)  # llama.cpp GGUF T5 export
+                mods[mod][local] = arr
+                break
+        else:
+            mods["extra"][name] = arr
+    return ModelBundle(version=version, **mods)
+
+
+def load_model_bundle(model_path: Optional[str] = None, diffusion_model_path: Optional[str] = None,
+                      clip_l_path: Optional[str] = None, t5xxl_path: Optional[str] = None,
+                      vae_path: Optional[str] = None, keep_quant: bool = False) -> ModelBundle:
+    """FLUX.1 checkpoint files, each under its logical prefix, → ``ModelBundle``
+    (what the JAX package's ``load_model_bundle`` holds for them, by value).
+    Raises ``NotImplementedError`` for any model but FLUX."""
+    tensors: Dict[str, np.ndarray] = {}
+    if model_path:
+        tensors.update(read_checkpoint_file(model_path, keep_quant=keep_quant))
+    for path, prefix in ((diffusion_model_path, DIFFUSION_PREFIX),
+                         (clip_l_path, "text_encoders.clip_l.transformer."),
+                         (t5xxl_path, "text_encoders.t5xxl.transformer."),
+                         (vae_path, "first_stage_model.")):
+        if not path:
+            continue
+        diffusion = path == diffusion_model_path
+        # another module's blocks are dequantized when staged, one at a time
+        sub = read_checkpoint_file(path, keep_quant=keep_quant or not diffusion)
+        if diffusion:
+            sub = convert_diffusers_diffusion_names(sub)
+        for k, v in sub.items():
+            kk = canonicalize_name(k)
+            if not kk.startswith(prefix):
+                kk = prefix + kk
+            tensors[kk] = v
+    bundle = split_modules(tensors)
+    if bundle.version != SDVersion.FLUX:
+        raise NotImplementedError(f"the files hold a {bundle.version.value} model; "
                                   "the port loads FLUX")
-    return ModelBundle(version=version,
-                       diffusion={k[len(DIFFUSION_PREFIX):]: v for k, v in tensors.items()})
+    return bundle

@@ -10,13 +10,17 @@ The promotion rule is the CLI's default: q8_0 blocks are re-quantized per
 row onto the W8A8 path unless ``promote_q8=False``, which keeps them as
 group-32 ``GroupQuantTensor``s; every other quantized type keeps its blocks
 (``Q4Tensor`` for q4_0 / q3_k-class blocks with K >= 512, ``GroupQuantTensor``
-otherwise); dense tensors are cast to ``dtype``.
+otherwise); dense tensors are cast to ``dtype``.  ``module_to_device`` stages
+a text encoder or the VAE, each tensor dequantized (a quantized GGUF's
+``HostQuant``) or widened on the host and cast on its way to the device,
+one at a time, so a module's whole float32 dict is never held on the host.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from sdtpu_torch.io.gguf import _parallel_map
 from sdtpu_torch.io.model_loader import load_model_bundle
 from sdtpu_torch.ops.quant import GroupQuantTensor, Q4Tensor, QuantTensor, host_params_to_device
 
@@ -33,6 +37,19 @@ def diffusion_to_device(d: dict, dtype: torch.dtype = torch.bfloat16, device="cu
         else:
             out[name] = torch.tensor(np.asarray(v), dtype=dtype, device=device)
     return out
+
+
+def module_to_device(d: dict, dtype: torch.dtype = torch.bfloat16, device="cuda") -> dict:
+    """A text-encoder or VAE param dict (numpy arrays or ``HostQuant``) →
+    dense ``dtype`` tensors on ``device``, staged tensor by tensor."""
+    def stage_one(item):
+        name, v = item
+        a = np.asarray(v, dtype=np.float32)
+        return name, torch.from_numpy(a if a.flags.writeable else a.copy()).to(device, dtype)
+
+    # a thread pool: dequantization and widening are numpy work that
+    # releases the GIL; each thread holds one float32 tensor at a time
+    return dict(_parallel_map(stage_one, list(d.items())))
 
 
 def load_flux_diffusion(path: str, dtype: torch.dtype = torch.bfloat16, device="cuda",

@@ -47,8 +47,8 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.
 
     k and v are cast to q's dtype first, as on the TPU.  CUDA tensors launch
     the kernel (bf16 or f32, D in SUPPORTED_HEAD_DIMS) or raise.  Every launch
-    counts in ``launches``; bf16 at D 512 also in ``launches_d512``, float32
-    in ``launches_f32``."""
+    counts in ``launches``; bf16 at D 512 also in ``launches_d512``, bf16 at
+    D 64 (CLIP's) in ``launches_d64``, float32 in ``launches_f32``."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if scale is None:
@@ -82,10 +82,13 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.
         _build.stream_ptr(q),
     )
     flash_attention.launches += 1
-    # counted apart as well: the bf16 D 512 kernel (the VAE's) and the f32 kernel
+    # counted apart as well: the bf16 D 512 kernel (the VAE's), bf16 D 64
+    # (CLIP's) and the f32 kernel
     flash_attention.launches_d512 += d == 512 and q.dtype == torch.bfloat16
+    flash_attention.launches_d64 += d == 64 and q.dtype == torch.bfloat16
     flash_attention.launches_f32 += q.dtype == torch.float32
     return out
 
 
 flash_attention.launches = flash_attention.launches_d512 = flash_attention.launches_f32 = 0
+flash_attention.launches_d64 = 0

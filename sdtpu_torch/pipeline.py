@@ -2,26 +2,34 @@
 ``sdtpu/pipeline.py``: ``DiffusionPipeline.generate``, ``txt2img``,
 ``set_vae_tiling`` and the tiled decode).
 
+Samplers: ``euler`` and ``euler_a``; at ``eta > 0`` euler_a's per-step
+noise follows the initial noise in each batch item's ``rng`` stream, as the
+JAX pipeline draws it.  ``generate`` takes the JAX pipeline's
+``progress_callback(step, steps, x)`` and ``cancel_check()`` (a server
+job's progress and cancellation): both run after each step, and a cancelled
+request decodes the latents it reached.
+
 Takes this package's ``sdtpu_torch.config.GenerationParams`` (the fields
 and defaults of the JAX package's).  The initial noise comes from
 ``sdtpu_torch.rng`` (Philox in numpy, or torch's CPU generator), drawn per batch item
 exactly as the JAX pipeline draws it, so both packages start from the same
 latent.  Phase wall-clock times of the last call land in
 ``last_timings`` (``cond``, ``sample``, ``decode``, ``total``, ``steps``);
-each phase ends in a device synchronize.
+each phase ends in a device synchronize.  ``last_t5_ids`` holds the padded
+ids T5 was fed for the last prompt (all zero without a T5 tokenizer).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from sdtpu_torch.config import GenerationParams, SDVersion
 from sdtpu_torch.diffusion.guidance import cfg_combine
-from sdtpu_torch.diffusion.samplers import sample
+from sdtpu_torch.diffusion.samplers import method_needs_noise, sample
 from sdtpu_torch.diffusion.schedule import get_sigmas
 from sdtpu_torch.models.tiling import tiled_decode
 from sdtpu_torch.rng import create_rng
@@ -70,6 +78,7 @@ class DiffusionPipeline:
         self._vae_tile = 64
         self._vae_overlap = 8
         self.last_timings: Dict[str, float] = {}
+        self.last_t5_ids: Optional[list] = None
 
     def set_vae_tiling(self, enabled: bool = True, tile_size: int = 64, overlap: int = 8) -> None:
         """Spatial VAE tiling: decode runs tile-wise with feathered blending;
@@ -131,9 +140,12 @@ class DiffusionPipeline:
         return model_fn
 
     @torch.inference_mode()
-    def generate(self, gp: GenerationParams) -> GenerationResult:
-        """FLUX txt2img for one GenerationParams: conditioning → flow Euler
-        sampling (CFG when cfg_scale != 1) → (tiled) VAE decode."""
+    def generate(self, gp: GenerationParams, progress_callback: Optional[Callable] = None,
+                 cancel_check: Optional[Callable] = None) -> GenerationResult:
+        """FLUX txt2img for one GenerationParams: conditioning → flow Euler or
+        Euler-ancestral sampling (CFG when cfg_scale != 1) → (tiled) VAE
+        decode.  progress_callback(step, steps, x) after each step (False
+        stops); cancel_check() before it (True stops)."""
         if gp.custom_sigmas:
             raise NotImplementedError("custom sigmas are not ported yet")
         t0 = time.time()
@@ -145,6 +157,7 @@ class DiffusionPipeline:
 
         tc0 = time.time()
         cond = self.conditioner.get_learned_condition(gp.prompt, clip_skip=gp.clip_skip)
+        self.last_t5_ids = cond.t5_ids
         uncond = (self.conditioner.get_learned_condition(gp.negative_prompt, clip_skip=gp.clip_skip)
                   if has_uncond else None)
         _sync(dev)
@@ -158,11 +171,18 @@ class DiffusionPipeline:
                             image_seq_len=(lh // 2) * (lw // 2))
         steps = len(sigmas) - 1
 
+        # per-batch streams: latent noise, then the sampler's per-step noise
         seeds = [gp.seed + i for i in range(bc)]
         shape = (lh, lw, self.latent_channels)
         init_noise = np.empty((bc,) + shape, dtype=np.float32)
+        need_noise = method_needs_noise(gp.sample_method, gp.eta)
+        step_noise = np.empty((steps, bc) + shape, dtype=np.float32) if need_noise else None
         for bi, s in enumerate(seeds):
-            init_noise[bi] = create_rng(self.rng_type, s).randn_shape(shape)
+            rng = create_rng(self.rng_type, s)
+            init_noise[bi] = rng.randn_shape(shape)
+            if need_noise:
+                for si in range(steps):
+                    step_noise[si, bi] = rng.randn_shape(shape)
         x0 = np.zeros((bc,) + shape, dtype=np.float32)
         x = np.asarray(self.denoiser.noise_scaling(np.float32(sigmas[0]), init_noise, x0),
                        dtype=np.float32)
@@ -173,7 +193,16 @@ class DiffusionPipeline:
 
         ts0 = time.time()
         model_fn = self._model_fn(ctx_c, ctx_u, y_c, y_u, gp.cfg_scale, guidance, bc)
-        latents = sample(model_fn, torch.from_numpy(x).to(dev), sigmas, method=gp.sample_method)
+        def step_callback(i, xi):
+            if cancel_check is not None and cancel_check():
+                return False
+            if progress_callback is not None and progress_callback(i + 1, steps, xi) is False:
+                return False
+            return True
+
+        latents = sample(model_fn, torch.from_numpy(x).to(dev), sigmas, method=gp.sample_method,
+                         noises=step_noise, eta=gp.eta, is_flow=self.denoiser.is_flow,
+                         step_callback=step_callback)
         latents = self.denoiser.inverse_noise_scaling(
             torch.tensor(sigmas[-1], device=dev), latents).float()
         _sync(dev)

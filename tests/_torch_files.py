@@ -1,0 +1,83 @@
+"""Small FLUX checkpoint files for the port's entry-point tests.
+
+The weights are the JAX package's small FLUX pipeline (``create_pipeline(
+SDVersion.FLUX, small=True, seed=0)``), written as a user's file set: the DiT
+as a q8_0 GGUF, CLIP-L as safetensors, T5 as a q8_0 GGUF under llama.cpp
+names with a unigram vocab embedded as ``tokenizer.ggml.*``, and the VAE
+(encoder included) as safetensors; the vocab and the llama.cpp names are
+``sdtpu_torch.tools.flux_files``'s.  ``small_configs`` swaps the full-size
+configs the CLIs load with for the small ones, in both packages.
+"""
+import dataclasses
+import struct
+
+import numpy as np
+
+import sdtpu.config as jconfig
+from sdtpu.factory import create_pipeline as jax_create_pipeline
+from sdtpu.io.gguf import save_gguf
+from sdtpu.io.safetensors import save_safetensors
+from sdtpu_torch.tools.flux_files import gguf_t5_name, synthetic_t5_vocab
+
+
+def spiece_model_bytes(md: dict) -> bytes:
+    """The vocab of GGUF ``tokenizer.ggml.*`` metadata ``md`` as a
+    SentencePiece ModelProto holding only its pieces (field 1)."""
+    def varint(v):
+        out = bytearray()
+        while True:
+            b = v & 0x7F
+            v >>= 7
+            out.append(b | (0x80 if v else 0))
+            if not v:
+                return bytes(out)
+
+    blob = bytearray()
+    for piece, score, t in zip(md["tokenizer.ggml.tokens"], md["tokenizer.ggml.scores"],
+                               md["tokenizer.ggml.token_type"]):
+        raw = piece.encode("utf-8")
+        sp = b"\x0a" + varint(len(raw)) + raw + b"\x15" + struct.pack("<f", score)
+        sp += b"\x18" + varint(t)
+        blob += b"\x0a" + varint(len(sp)) + sp
+    return bytes(blob)
+
+
+def small_jax_pipeline():
+    return jax_create_pipeline(jconfig.SDVersion.FLUX, small=True, seed=0)
+
+
+def write_small_flux_files(directory, jp=None) -> dict:
+    """The small pipeline's weights as a FLUX file set → {flag: path}."""
+    jp = jp or small_jax_pipeline()
+    d = str(directory)
+    host = lambda p: {k: np.asarray(v, dtype=np.float32) for k, v in p.items()}  # noqa: E731
+    paths = {"diffusion_model": f"{d}/flux_small_q8_0.gguf", "clip_l": f"{d}/clip_l.safetensors",
+             "t5xxl": f"{d}/t5_small_q8_0.gguf", "vae": f"{d}/ae.safetensors"}
+    save_gguf(paths["diffusion_model"], host(jp.diffusion_params), out_type="q8_0")
+    save_safetensors(paths["clip_l"], host(jp.conditioner.pl))
+    save_gguf(paths["t5xxl"], {gguf_t5_name(k): v for k, v in host(jp.conditioner.pt).items()},
+              out_type="q8_0", metadata=synthetic_t5_vocab(256))
+    save_safetensors(paths["vae"], host(jp.vae_params))
+    return paths
+
+
+def small_configs(monkeypatch):
+    """Swap the four full-size configs both CLIs load FLUX with for the small
+    FLUX configs of both factories."""
+    import sdtpu.models.clip as jclip
+    import sdtpu.models.flux as jflux
+    import sdtpu.models.t5 as jt5
+    import sdtpu.models.vae as jvae
+    import sdtpu_torch.models.clip as tclip
+    import sdtpu_torch.models.flux as tflux
+    import sdtpu_torch.models.t5 as tt5
+    import sdtpu_torch.models.vae as tvae
+    from sdtpu_torch.factory import flux_configs
+
+    dit, clip, t5, vae, _ = flux_configs(small=True)
+    for (tmod, jmod), name, small in (((tflux, jflux), "FLUX_DEV_CONFIG", dit),
+                                      ((tclip, jclip), "CLIP_L_CONFIG", clip),
+                                      ((tt5, jt5), "T5_XXL_CONFIG", t5),
+                                      ((tvae, jvae), "FLUX_VAE_CONFIG", vae)):
+        monkeypatch.setattr(tmod, name, small)
+        monkeypatch.setattr(jmod, name, type(getattr(jmod, name))(**dataclasses.asdict(small)))

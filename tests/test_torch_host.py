@@ -9,6 +9,8 @@ bundles are equal.  The port's entry points default to the card, and its
 """
 import dataclasses
 import inspect
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -27,6 +29,8 @@ from sdtpu_torch.conditioning.prompt_parser import parse_prompt_attention as tpa
 from sdtpu_torch.io import gguf as tgguf
 from sdtpu_torch.io.model_loader import load_model_bundle
 from sdtpu_torch.tokenizers.clip import CLIPTokenizer
+
+sys.path.insert(0, os.path.dirname(__file__))  # tests/_torch_files.py
 
 
 # ------------------------------------------------------------- config, RNG
@@ -326,9 +330,287 @@ def _entry_points():
         "from_host_quant": quant.from_host_quant,
         "rowwise_requant_from_host_quant": quant.rowwise_requant_from_host_quant,
         "host_params_to_device": quant.host_params_to_device,
+        "module_to_device": loader.module_to_device,
     }
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))
 def test_entry_points_default_to_the_card(name):
     assert inspect.signature(_entry_points()[name]).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("entry", ["cli", "server"])
+def test_cli_and_server_run_on_the_card_unless_asked(entry, tmp_path, monkeypatch):
+    """With no --backend the CLI and the server take the GPU, and raise
+    where there is none (before they read a file); --backend cpu or cudaN
+    names one device for every module."""
+    import torch
+
+    from sdtpu_torch import cli, server
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = cli.main if entry == "cli" else server.main
+    with pytest.raises(RuntimeError, match="--backend cpu"):
+        main(["--diffusion-model", str(tmp_path / "missing.gguf"), "-p", "x"])
+    assert cli.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError):
+        cli.resolve_device("cuda1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert cli.resolve_device("") == torch.device("cuda", 0)
+    assert cli.resolve_device("cuda1") == torch.device("cuda", 1)
+
+
+# --------------------------------------------------------- T5 tokenizer
+
+
+T5_PROMPTS = PROMPTS + [
+    "a red fox in snow",
+    "  the   golden\tlantern \n on a wooden table  ",
+    "a (red:1.3) fox BREAK in snow, ((golden hour))",
+    "zzqx 12:34 — ünïcödé 日本",
+]
+
+
+def _t5_sources(tmp_path):
+    """The same unigram vocab as a tokenizer.json, a GGUF's embedded
+    metadata and a spiece.model → {source: (port tokenizer, JAX tokenizer)}."""
+    import json as _json
+
+    from _torch_files import spiece_model_bytes
+    from sdtpu.tokenizers import gguf_vocab as jvocab
+    from sdtpu.tokenizers.t5 import T5UnigramTokenizer as JT5
+    from sdtpu_torch.tokenizers import gguf_vocab as tvocab
+    from sdtpu_torch.tokenizers.t5 import T5UnigramTokenizer as TT5
+    from sdtpu_torch.tools.flux_files import synthetic_t5_vocab
+
+    md = synthetic_t5_vocab(512, seed=3)
+    tj = tmp_path / "tokenizer.json"
+    tj.write_text(_json.dumps({"model": {"type": "Unigram", "unk_id": 2, "vocab": [
+        [p, s] for p, s in zip(md["tokenizer.ggml.tokens"], md["tokenizer.ggml.scores"])]}}))
+    gg = str(tmp_path / "t5.gguf")
+    jgguf.save_gguf(gg, {"x.weight": np.zeros(4, np.float32)}, metadata=md)
+    sp = tmp_path / "spiece.model"
+    sp.write_bytes(spiece_model_bytes(md))
+    return {"tokenizer.json": (TT5.from_tokenizer_json(str(tj)), JT5.from_tokenizer_json(str(tj))),
+            "gguf": (tvocab.tokenizer_from_gguf_file(gg), jvocab.tokenizer_from_gguf_file(gg)),
+            "spiece.model": (tvocab.load_spiece_model(str(sp)), jvocab.load_spiece_model(str(sp)))}
+
+
+@pytest.fixture(scope="module")
+def t5_tokenizers(tmp_path_factory):
+    return _t5_sources(tmp_path_factory.mktemp("t5tok"))
+
+
+@pytest.mark.parametrize("source", ["tokenizer.json", "gguf", "spiece.model"])
+@pytest.mark.parametrize("prompt", T5_PROMPTS, ids=[f"prompt{i}" for i in range(len(T5_PROMPTS))])
+def test_t5_tokenizer_ids_match(t5_tokenizers, source, prompt):
+    tok, jtok = t5_tokenizers[source]
+    assert type(tok).__module__ == "sdtpu_torch.tokenizers.t5"
+    ids = tok.encode(prompt, add_eos=True)
+    assert ids == jtok.encode(prompt, add_eos=True)
+    assert tok.pad(ids, 32) == jtok.pad(ids, 32)
+    assert tok.decode(ids) == jtok.decode(ids)
+    assert (tok.unk_id, tok.eos_token_id, tok.pad_token_id) == \
+        (jtok.unk_id, jtok.eos_token_id, jtok.pad_token_id)
+
+
+def test_gguf_vocab_other_models_give_none():
+    from sdtpu_torch.tokenizers.gguf_vocab import tokenizer_from_gguf_metadata
+
+    assert tokenizer_from_gguf_metadata({}) is None
+    md = {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.tokens": ["a", "b"],
+          "tokenizer.ggml.merges": ["a b"]}
+    assert tokenizer_from_gguf_metadata(md) is None  # byte-level BPE: not ported
+
+
+# ------------------------------------------------------ names, bundles
+
+VAE_NAMES = ["encoder.conv_in.weight", "decoder.conv_norm_out.bias",
+             "decoder.mid_block.resnets.1.conv_shortcut.weight",
+             "encoder.mid_block.attentions.0.to_out.0.weight",
+             "decoder.mid_block.attentions.0.query.bias",
+             "encoder.down_blocks.2.downsamplers.0.conv.weight",
+             "decoder.up_blocks.0.resnets.2.norm1.weight",
+             "decoder.up_blocks.3.upsamplers.0.conv.bias", "post_quant_conv.weight",
+             "encoder.block.0.layer.0.SelfAttention.q.weight", "decoder.up.0.block.0.conv1.weight",
+             "model.diffusion_model.double_blocks.0.img_mod.lin.weight",
+             "text_encoders.clip_l.transformer.text_model.final_layer_norm.weight",
+             "first_stage_model.decoder.conv_in.weight", "shared.weight"]
+
+
+@pytest.mark.parametrize("name", VAE_NAMES)
+def test_canonicalize_name_matches(name):
+    from sdtpu.io import name_conversion as jnc
+    from sdtpu_torch.io import model_loader as tml
+
+    assert tml.canonicalize_name(name) == jnc.canonicalize_name(name)
+    assert tml.convert_diffusers_vae_name(name) == jnc.convert_diffusers_vae_name(name)
+
+
+@pytest.mark.parametrize("name", ["enc.blk.3.attn_rel_b.weight", "enc.blk.0.ffn_gate.weight",
+                                  "enc.output_norm.weight", "token_embd.weight"])
+def test_gguf_t5_names_match(name):
+    from sdtpu.io.name_conversion import convert_gguf_t5_name as jconv
+    from sdtpu_torch.io.model_loader import convert_gguf_t5_name
+    from sdtpu_torch.tools.flux_files import gguf_t5_name
+
+    assert convert_gguf_t5_name(name) == jconv(name)
+    assert gguf_t5_name(convert_gguf_t5_name(name)) == name
+
+
+def _same_module(got, want, name):
+    assert sorted(got) == sorted(want), name
+    for k, w in want.items():
+        g = got[k]
+        if type(w).__name__ == "HostQuant":
+            _same_host_quant(g, w)
+        else:  # a text encoder's or the VAE's blocks: equal once dequantized
+            assert tuple(g.shape) == tuple(w.shape), k
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w), err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def flux_files(tmp_path_factory):
+    from _torch_files import small_jax_pipeline, write_small_flux_files
+
+    jp = small_jax_pipeline()
+    d = tmp_path_factory.mktemp("flux_files")
+    return jp, d, write_small_flux_files(d, jp)
+
+
+@pytest.mark.parametrize("layout", ["split_gguf", "split_safetensors", "single_safetensors"])
+def test_load_model_bundle_all_modules_match(flux_files, tmp_path, layout):
+    """Split files (the DiT and T5 as q8_0 GGUFs, T5 under llama.cpp names
+    with an embedded vocab), the same as safetensors, and one full
+    checkpoint holding every module under its prefix."""
+    jp, _, paths = flux_files
+    host = lambda p: {k: np.asarray(v, dtype=np.float32) for k, v in p.items()}  # noqa: E731
+    if layout == "split_gguf":
+        kw = dict(diffusion_model_path=paths["diffusion_model"], clip_l_path=paths["clip_l"],
+                  t5xxl_path=paths["t5xxl"], vae_path=paths["vae"])
+    elif layout == "split_safetensors":
+        kw = {}
+        for flag, mod in (("diffusion_model", jp.diffusion_params), ("t5xxl", jp.conditioner.pt)):
+            kw[f"{flag}_path"] = str(tmp_path / f"{flag}.safetensors")
+            save_safetensors(kw[f"{flag}_path"], host(mod))
+        kw.update(clip_l_path=paths["clip_l"], vae_path=paths["vae"])
+    else:
+        full = {}
+        for prefix, mod in (("model.diffusion_model.", jp.diffusion_params),
+                            ("text_encoders.clip_l.transformer.", jp.conditioner.pl),
+                            ("text_encoders.t5xxl.transformer.", jp.conditioner.pt),
+                            ("first_stage_model.", jp.vae_params)):
+            full.update({prefix + k: v for k, v in host(mod).items()})
+        kw = {"model_path": str(tmp_path / "flux_full.safetensors")}
+        save_safetensors(kw["model_path"], full)
+    got = load_model_bundle(keep_quant=True, **kw)
+    want = jax_load_model_bundle(keep_quant=True, **kw)
+    assert got.version.value == want.version.value == "flux"
+    for mod in ("diffusion", "clip_l", "t5", "vae"):
+        _same_module(getattr(got, mod), getattr(want, mod), mod)
+    assert sorted(got.extra) == sorted(want.extra)
+    assert any(k.startswith("encoder.") for k in got.vae)  # the encoder is read, and unused
+
+
+# ------------------------------------------------------ image metadata
+
+
+def _gps():
+    base = dict(prompt="a lantern, (warm:1.2)\nsecond line", width=768, height=512,
+                sample_steps=4, cfg_scale=3.5, seed=7, sample_method="euler_a")
+    return [base, dict(base, negative_prompt="blurry, low quality", clip_skip=2),
+            dict(base, prompt="", cfg_scale=1.0, schedule="flux")]
+
+
+@pytest.mark.parametrize("i", range(3))
+def test_parameters_text_matches(i):
+    from sdtpu.utils.image import build_parameters_text as jbuild
+    from sdtpu.utils.image import parse_parameters_text as jparse_params
+    from sdtpu_torch.utils.image import build_parameters_text, parse_parameters_text
+
+    kw = _gps()[i]
+    text = build_parameters_text(tconfig.GenerationParams(**kw))
+    assert text == jbuild(jconfig.GenerationParams(**kw))
+    assert text == build_parameters_text(tconfig.GenerationParams(**kw), extra=None)
+    assert parse_parameters_text(text) == jparse_params(text)
+
+
+@pytest.mark.parametrize("options", [{}, {"include_structural": True},
+                                     {"include_raw": True, "brief": True}])
+def test_png_and_metadata_walk_match(tmp_path, options):
+    """The port's PNG writer is the JAX package's zlib writer byte for byte,
+    and both metadata walks read the same entries."""
+    from sdtpu.utils import image as jimage
+    from sdtpu_torch.utils import image as timage
+
+    img = np.random.default_rng(0).integers(0, 256, (24, 40, 3), dtype=np.uint8)
+    text = "a long prompt " * 20 + "\nSteps: 4, Sampler: euler_a, Seed: 7"
+    ours, theirs = tmp_path / "port.png", tmp_path / "jax.png"
+    timage.write_image(str(ours), img, parameters=text)
+    jimage._write_png_fallback(str(theirs), img, text)
+    assert ours.read_bytes() == theirs.read_bytes()
+    assert timage.walk_image_metadata(str(ours), **options) == \
+        jimage.walk_image_metadata(str(theirs), **options)
+    back, params = timage.decode_png(ours.read_bytes())
+    np.testing.assert_array_equal(back, img)
+    assert params == text
+    pil_img, pil_params = jimage.read_png(str(ours))
+    np.testing.assert_array_equal(pil_img, img)
+    assert pil_params == text
+    assert timage.image_to_base64(img, parameters=text) == \
+        __import__("base64").b64encode(ours.read_bytes()).decode()
+
+
+def test_image_formats_that_need_pillow_are_refused(tmp_path):
+    from sdtpu_torch.utils import image as timage
+
+    img = np.zeros((8, 8, 3), np.uint8)
+    for ext in ("jpg", "jpeg", "webp"):
+        with pytest.raises(ValueError, match="Pillow"):
+            timage.write_image(str(tmp_path / f"x.{ext}"), img)
+    with pytest.raises(ValueError, match="Pillow"):
+        timage.image_to_base64(img, fmt="jpeg")
+
+
+@pytest.mark.parametrize("output,i,n,begin", [("out.png", 0, 1, None), ("out.png", 1, 3, None),
+                                               ("img_%03d.png", 2, 3, 5), ("a/b.png", 0, 2, -1)])
+def test_resolve_output_path_matches(output, i, n, begin):
+    from sdtpu.cli import resolve_output_path as jresolve
+    from sdtpu_torch.utils.image import resolve_output_path
+
+    assert resolve_output_path(output, i, n, begin) == jresolve(output, i, n, begin)
+
+
+# ------------------------------------------------------------- sampler
+
+
+@pytest.mark.parametrize("eta", [0.0, 0.5, 1.0, 2.0])
+@pytest.mark.parametrize("is_flow", [True, False])
+def test_ancestral_steps_match(eta, is_flow):
+    from sdtpu.diffusion.samplers import ancestral_steps as jsteps
+    from sdtpu_torch.diffusion.samplers import ancestral_steps
+
+    sigmas = np.array([1.0, 0.93, 0.71, 0.4, 0.12, 0.0], np.float32)
+    for got, want in zip(ancestral_steps(sigmas, eta, is_flow), jsteps(sigmas, eta, is_flow)):
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------------------ CLI parser
+
+
+def test_cli_parser_is_the_jax_one():
+    """The same flags, defaults and help, but the three whose help names the
+    port's device and kernels."""
+    from sdtpu.cli import build_parser as jbuild
+    from sdtpu_torch.cli import RUN_FLAGS, build_parser
+
+    card_help = {"dtype", "backend", "no_promote_q8"}
+    ours, theirs = build_parser()._actions, jbuild()._actions
+    assert [a.option_strings for a in ours] == [a.option_strings for a in theirs]
+    for a, b in zip(ours, theirs):
+        assert (a.dest, a.default, a.choices, a.nargs, a.type) == \
+            (b.dest, b.default, b.choices, b.nargs, b.type), a.dest
+        if a.dest not in card_help | {"help", "version"}:
+            assert a.help == b.help, a.dest
+    assert RUN_FLAGS <= {a.dest for a in ours}

@@ -79,6 +79,46 @@ def test_latents_match_jax_pipeline(pipes, kw):
     assert got.seeds == want.seeds
 
 
+@pytest.mark.parametrize("eta", [0.0, 1.0])
+def test_euler_a_latents_match_jax_pipeline(pipes, eta):
+    """euler_a, the default sampler: at eta 0 the deterministic ratio form,
+    at eta 1 the ancestral noise drawn after each item's initial noise from
+    its own stream; a batch of two, with and without CFG."""
+    jp, tp = pipes
+    for cfg in (1.0, 3.0):
+        gp = _gp(sample_method="euler_a", eta=eta, cfg_scale=cfg, batch_count=2, seed=3)
+        want, got = jp.generate(_jgp(gp)), tp.generate(gp)
+        np.testing.assert_allclose(got.latents, want.latents, rtol=5e-4, atol=5e-4)
+        assert np.abs(got.images.astype(int) - want.images.astype(int)).max() <= 1
+
+
+def test_progress_and_cancel_match_jax(pipes):
+    """The per-step callbacks of the JAX pipeline: progress(step, steps, x)
+    after each step; a cancel stops the loop, and the latents it reached are
+    decoded."""
+    jp, tp = pipes
+    gp = _gp(cfg_scale=1.0, sample_steps=3)
+    seen = {"jax": [], "port": []}
+    for side, pipe, req in (("jax", jp, _jgp(gp)), ("port", tp, gp)):
+        pipe.generate(req, progress_callback=lambda i, n, x, s=side: seen[s].append((i, n)))
+    assert seen["port"] == seen["jax"] == [(1, 3), (2, 3), (3, 3)]
+    def canceller():
+        calls = []
+
+        def cancel():  # stop after the second step
+            calls.append(1)
+            return len(calls) > 1
+
+        return cancel, calls
+
+    jcancel, jcalls = canceller()
+    want = jp.generate(_jgp(gp), cancel_check=jcancel)
+    cancel, calls = canceller()
+    got = tp.generate(gp, cancel_check=cancel)
+    assert len(calls) == len(jcalls) == 2
+    np.testing.assert_allclose(got.latents, want.latents, rtol=5e-4, atol=5e-4)
+
+
 def test_tiled_decode_matches_jax_pipeline(pipes):
     jp, tp = pipes
     gp = _gp(width=128, height=96, sample_steps=1)
@@ -93,21 +133,23 @@ def test_tiled_decode_matches_jax_pipeline(pipes):
     assert np.abs(got.images.astype(int) - want.images.astype(int)).max() <= 1
 
 
-def _tiny_t5_tokenizer():
-    from sdtpu.tokenizers.t5 import T5UnigramTokenizer
-
+def _tiny_t5_tokenizer(cls):
     pieces = ["<pad>", "</s>", "<unk>", "\u2581", "\u2581a", "\u2581red", "\u2581fox", "\u2581in",
               "\u2581snow"] + list("abcdefghijklmnopqrstuvwxyz")
-    return T5UnigramTokenizer([(p, -float(i)) for i, p in enumerate(pieces)])
+    return cls([(p, -float(i)) for i, p in enumerate(pieces)])
 
 
 @pytest.mark.parametrize("t5_tokenizer", [None, "tiny"])
 def test_conditioning_matches_jax(pipes, t5_tokenizer):
-    """CLIP pooled vector and T5 tokens; without a T5 tokenizer the T5 ids
-    are zeros, as in the bench."""
+    """CLIP pooled vector and T5 tokens, each package with its own T5
+    tokenizer on the same vocab; without a T5 tokenizer the T5 ids are
+    zeros, as in the bench."""
+    from sdtpu.tokenizers.t5 import T5UnigramTokenizer as JT5
+    from sdtpu_torch.tokenizers.t5 import T5UnigramTokenizer
+
     jp, tp = pipes
-    tok = _tiny_t5_tokenizer() if t5_tokenizer else None
-    jp.conditioner.t5_tokenizer = tp.conditioner.t5_tokenizer = tok
+    jp.conditioner.t5_tokenizer = _tiny_t5_tokenizer(JT5) if t5_tokenizer else None
+    tp.conditioner.t5_tokenizer = _tiny_t5_tokenizer(T5UnigramTokenizer) if t5_tokenizer else None
     try:
         cj = jp.conditioner.get_learned_condition("a (red:1.3) fox BREAK in snow")
         ct = tp.conditioner.get_learned_condition("a (red:1.3) fox BREAK in snow")

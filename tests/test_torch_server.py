@@ -1,0 +1,184 @@
+"""The port's HTTP server against the JAX package's, on the same weights.
+
+The JAX small FLUX pipeline and the port's pipeline bridged from it
+(``from_jax_params``, on the CPU) each sit behind their package's handler
+on ``127.0.0.1``.  The same requests to both give images at most one uint8
+level apart with equal ``parameters`` text; an async job reports its
+progress and completes, a queued job cancels; unported routes answer 501,
+unported request fields 400.
+"""
+import base64
+import io
+import json
+import threading
+import time
+import urllib.error
+import urllib.request
+from http.server import ThreadingHTTPServer
+
+import numpy as np
+import pytest
+
+import sdtpu.config as jconfig
+import sdtpu.server as jserver
+from sdtpu.factory import create_pipeline as jax_create_pipeline
+from sdtpu_torch import server
+from sdtpu_torch.config import SDVersion
+from sdtpu_torch.factory import create_pipeline
+from sdtpu_torch.weights import from_jax_params
+
+
+def _serve(httpd):
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+@pytest.fixture(scope="module")
+def servers():
+    jp = jax_create_pipeline(jconfig.SDVersion.FLUX, small=True, seed=0)
+    params = {"diffusion": from_jax_params(jp.diffusion_params, device="cpu"),
+              "clip_l": from_jax_params(jp.conditioner.pl, device="cpu"),
+              "t5": from_jax_params(jp.conditioner.pt, device="cpu"),
+              "vae": from_jax_params(jp.vae_params, device="cpu")}
+    tp = create_pipeline(SDVersion.FLUX, params=params, small=True, device="cpu")
+    ours = server.make_server(tp, "127.0.0.1", 0)
+    theirs = ThreadingHTTPServer(("127.0.0.1", 0), jserver.make_handler(jserver.JobManager(jp)))
+    yield {"port": _serve(ours), "jax": _serve(theirs), "manager": ours.manager}
+    for httpd in (ours, theirs):
+        httpd.shutdown()
+        httpd.server_close()
+    ours.manager.close()
+
+
+def _call(base, path, body=None):
+    """→ (status, parsed json)."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method="GET" if body is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _png(b64):
+    from PIL import Image
+
+    img = Image.open(io.BytesIO(base64.b64decode(b64)))
+    return np.asarray(img).astype(int), img.info.get("parameters")
+
+
+def _same_images(ours, theirs):
+    assert len(ours) == len(theirs) >= 1
+    for a, b in zip(ours, theirs):
+        (ia, pa), (ib, pb) = _png(a), _png(b)
+        assert pa == pb and "Version: sdtpu" in pa
+        assert ia.shape == ib.shape and np.abs(ia - ib).max() <= 1
+
+
+EXTRA = ('<sd_cpp_extra_args>{"sample_params": {"sample_steps": 2, "sample_method": "euler"}, '
+         '"seed": 9, "cfg_scale": 1.0}</sd_cpp_extra_args>')
+SYNC = {
+    # no sampler named: euler_a
+    "txt2img": ("/sdapi/v1/txt2img", {"prompt": "a red fox in snow", "width": 64, "height": 64,
+                                      "steps": 2, "cfg_scale": 1.0, "seed": 3}),
+    "txt2img_cfg": ("/sdapi/v1/txt2img", {"prompt": "a cat", "negative_prompt": "dog",
+                                          "width": 64, "height": 64, "steps": 2, "seed": 4,
+                                          "cfg_scale": 2.0, "sampler_name": "Euler A",
+                                          "eta": 1.0, "batch_size": 2}),
+    "openai": ("/v1/images/generations", {"prompt": "a lantern " + EXTRA, "size": "64x64"}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SYNC))
+def test_sync_routes_match_jax(servers, name):
+    path, body = SYNC[name]
+    code, ours = _call(servers["port"], path, body)
+    jcode, theirs = _call(servers["jax"], path, body)
+    assert code == jcode == 200
+    key = (lambda r: r["images"]) if path.startswith("/sdapi") else \
+        (lambda r: [d["b64_json"] for d in r["data"]])
+    _same_images(key(ours), key(theirs))
+
+
+def _wait(base, job_id, timeout=300):
+    seen, t0 = [], time.time()
+    while time.time() - t0 < timeout:
+        _, job = _call(base, f"/sdcpp/v1/jobs/{job_id}")
+        seen.append(job["progress"])
+        if job["status"] in ("completed", "failed", "cancelled"):
+            return job, seen
+        time.sleep(0.01)
+    raise TimeoutError(job_id)
+
+
+def test_async_job_matches_jax_with_progress(servers):
+    body = {"prompt": "a paper boat", "width": 64, "height": 64, "seed": 2,
+            "sample_params": {"sample_steps": 3, "guidance": {"txt_cfg": 1.0,
+                                                              "distilled_guidance": 2.0}}}
+    jobs = {}
+    for side in ("port", "jax"):
+        code, resp = _call(servers[side], "/sdcpp/v1/img_gen", body)
+        assert code == 202 and resp["status"] == "queued"
+        jobs[side], seen = _wait(servers[side], resp["id"])
+        assert jobs[side]["status"] == "completed", jobs[side]
+        assert (jobs[side]["step"], jobs[side]["steps"], seen[-1]) == (3, 3, 1.0)
+    _same_images(jobs["port"]["images"], jobs["jax"]["images"])
+
+
+def test_queued_job_cancels(servers):
+    base, manager = servers["port"], servers["manager"]
+    body = {"prompt": "a dog", "width": 64, "height": 64, "steps": 1, "cfg_scale": 1.0}
+    with manager.ctx_mutex:  # the first job holds the worker; the second waits in the queue
+        first = _call(base, "/sdcpp/v1/img_gen", body)[1]["id"]
+        second = _call(base, "/sdcpp/v1/img_gen", body)[1]["id"]
+        t0 = time.time()
+        while manager.jobs[first].status != "running" and time.time() - t0 < 30:
+            time.sleep(0.01)
+        assert _call(base, "/sdapi/v1/progress")[0] == 200
+        assert _call(base, f"/sdcpp/v1/jobs/{second}/cancel", {}) == (200, {"cancelled": True})
+        assert _call(base, f"/sdcpp/v1/jobs/{second}")[1]["status"] == "cancelled"
+    assert _wait(base, first)[0]["status"] == "completed"
+    assert _call(base, "/sdcpp/v1/jobs/nope/cancel", {})[0] == 404
+
+
+def test_unported_request_fields_fail_by_name(servers):
+    base = servers["port"]
+    for body, name in (({"prompt": "x", "init_images": ["AAAA"]}, "img2img"),
+                       ({"prompt": "x", "sampler_name": "DPM++ 2M"}, "dpm++_2m"),
+                       ({"prompt": "x", "enable_hr": True}, "hires"),
+                       ({"prompt": "x", "scheduler": "karras"}, "karras")):
+        code, resp = _call(base, "/sdapi/v1/txt2img", body)
+        assert code == 400 and name in resp["error"], resp
+    code, resp = _call(base, "/v1/images/generations", {"prompt": "x", "output_format": "jpeg"})
+    assert code == 400 and "Pillow" in resp["error"]
+    code, resp = _call(base, "/sdcpp/v1/img_gen", {"prompt": "x", "lora": [{"name": "a"}]})
+    job, _ = _wait(base, resp["id"])
+    assert job["status"] == "failed" and "LoRA" in job["error"]
+
+
+@pytest.mark.parametrize("method,path", [("GET", "/"), ("GET", "/sdapi/v1/loras"),
+                                         ("GET", "/sdapi/v1/upscalers"), ("GET", "/nope"),
+                                         ("POST", "/sdapi/v1/img2img"), ("POST", "/v1/images/edits"),
+                                         ("POST", "/sdcpp/v1/vid_gen")])
+def test_unported_routes_answer_501(servers, method, path):
+    code, resp = _call(servers["port"], path, {} if method == "POST" else None)
+    assert code == 501 and path in resp["error"] and "not ported" in resp["error"]
+
+
+def test_listings_name_what_the_port_runs(servers):
+    base = servers["port"]
+    assert [s["name"] for s in _call(base, "/sdapi/v1/samplers")[1]] == ["euler", "euler_a"]
+    assert [s["name"] for s in _call(base, "/sdapi/v1/schedulers")[1]] == ["discrete", "flux"]
+    caps = _call(base, "/sdcpp/v1/capabilities")[1]
+    assert caps["modes"] == ["img_gen"] and caps["samplers"] == ["euler", "euler_a"]
+    assert _call(base, "/v1/models")[1]["data"][0]["id"] == "sdtpu"
+    assert _call(base, "/sdapi/v1/sd-models")[0] == 200
+    assert _call(base, "/sdapi/v1/options", {"foo": 1}) == (200, {})
+    assert _call(base, "/sdapi/v1/options")[1]["foo"] == 1
+
+
+def test_server_main_refuses_unported_flags(capsys):
+    assert server.main(["--upscaler-dir", "ups"]) == 2
+    assert "--upscaler-dir" in capsys.readouterr().err
