@@ -20,14 +20,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (``scaled_dot_product_attention`` for flash, ``torch._int_mm`` for the
      W8A8 GEMM at M > 16, ``torch._weight_int4pack_mm`` for the 4-bit
      matmul at groups 32 and 64, ``torch._weight_int8pack_mm`` for W8A16),
+     flash also at the SD1.5 UNet's shapes (D 40, 80 and 160: each level's
+     self- and cross-attention at 512² under CFG, the middle block's, a
+     ragged and a biased case; bf16 and float32, each with faults that must
+     exceed its limit: the padded head dim's softmax scale and unmasked pad
+     keys for bf16, the one-pass TF32 fault for float32),
      that call's time, after its output was checked against the plain
      version (a call that is refused or disagrees records null and why);
      at M <= 8, where the CUDA-event time reads the Python wrapper's launch
      rate, also the kernel's mean device time a call (``device_ms``, from
      torch.profiler's record of its launches over the timed iterations);
-  4. a small-input reference check: T5, CLIP, one DiT forward and a VAE
-     decode at kernel-shaped small widths, on the card (kernels, bf16)
-     against the same weights on the CPU (plain versions, float32);
+  4. a small-input reference check: T5, CLIP, one DiT forward, a VAE
+     decode and one SD1.5 UNet forward (its widths and heads, one res block
+     a level, a 16x16 latent) at kernel-shaped small widths, on the card
+     (kernels, bf16 and float32) against the same weights on the CPU (plain
+     versions, float32);
   5. the GGUF loader at full FLUX.1-dev width and cut depth: a DiT of one
      double and one single block written by ``save_gguf`` (q8_0, q4_0 and
      q4_1 tensors; q6_k and q4_k blocks added from random raw blocks),
@@ -62,6 +69,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      through the float32 flash kernel), answering a 512² and a 1024² request
      (path ``f32``), then a 512² request with ``SDTPU_QUANT_MODE=w8a16``
      (path ``f32_w8a16``: the W8A16 kernel's float32 form).
+ 10b. SD1.5 at full width (``create_pipeline(SDVersion.SD1, ...)``, dense
+     random weights drawn on the card): path ``sd15`` in bf16 answers the
+     JAX bench's request (``bench_sd15``: "a photograph of an astronaut
+     riding a horse", 512², 20 steps, euler_a, discrete schedule, CFG 7,
+     seed 42) once to warm up and once timed, then with dpm++2m; path
+     ``sd15_f32`` (no dtype argument: float32) answers it at 4 steps.  On
+     both, the flash launches at D 40 / 80 / 160 equal the UNet's calls per
+     forward (10 / 10 / 12) times its forwards, and no attention runs in the
+     plain version on the card.
  11. main path 5, the entry points, on files: a full FLUX.1-dev checkpoint
      set written by ``sdtpu_torch.tools.flux_files`` into a temporary
      directory under ``build/chip_smoke/`` (removed after; the free disk
@@ -77,7 +93,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (``/sdapi/v1/txt2img`` with no sampler named, so euler_a;
      ``/v1/images/generations``; an ``/sdcpp/v1/img_gen`` job polled to
      completion with its progress seen) and cancels one queued job (path
-     ``server``).
+     ``server``).  Then SD1.5 on a file: ``sdtpu_torch.tools.sd15_file``
+     writes a full-width float16 single-file checkpoint under the LDM names
+     (2.13e9 bytes), ``cli.main -m`` answers one 512² × 20-step request to
+     a PNG (path ``sd15_cli``) and the server, loaded from the same file,
+     one A1111 ``/sdapi/v1/txt2img`` request (path ``sd15_server``), each
+     with the launch checks of 10b.
 Every path of phases 5-11 sets the kernels' launch counts to 0 before it runs
 and reads them after: each kernel that path runs must have launched.  The
 4-bit kernel's TMA + wgmma form (M >= 128) and its weight-streaming GEMV
@@ -109,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import dataclasses
 import gc
 import json
@@ -130,6 +152,10 @@ KERNEL_INFO = {
     "flash_attention": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "flash_attention_d512": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "flash_attention_f32": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
+    # the SD1.5 UNet's head dims, bf16 and float32 forms (counted per D)
+    "flash_attention_d40": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
+    "flash_attention_d80": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
+    "flash_attention_d160": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "w8a8_matmul": (W8A8_SRC, "sdtpu/ops/quant.py:416"),
     "w8a8_matmul_gemv": (W8A8_SRC, "sdtpu/ops/quant.py:416"),
     "q4_matmul": (Q4_SRC, "sdtpu/ops/quant.py:845"),
@@ -184,6 +210,23 @@ FLASH_CASES = [
     (2, 12, 77, 77, 64, "f32", "causal"), (1, 1, 1024, 1024, 512, "f32", "random"),
     (1, 1, 4096, 4096, 512, "f32", None),
 ]
+# The SD1.5 UNet at 512² under CFG (B = 2, 8 heads over 320, 640 and 1280
+# channels, so D 40, 80 and 160): each level's self-attention over its
+# latent tokens and cross-attention over CLIP's 77, the middle block's 64
+# tokens, a ragged case and a biased one, in bf16 and in float32.
+UNET_FLASH_SHAPES = [
+    (2, 8, 4096, 4096, 40, None), (2, 8, 4096, 77, 40, None), (2, 8, 1024, 1024, 80, None),
+    (2, 8, 1024, 77, 80, None), (2, 8, 256, 256, 160, None), (2, 8, 256, 77, 160, None),
+    (2, 8, 64, 64, 160, None), (1, 8, 1000, 77, 40, None), (1, 8, 300, 200, 160, "random"),
+]
+FLASH_CASES += [(b, h, lq, lk, d, dt, bias) for dt in ("bf16", "f32")
+                for b, h, lq, lk, d, bias in UNET_FLASH_SHAPES]
+UNET_HEAD_DIMS = (40, 80, 160)
+# head dim -> attention calls of one full-width SD1.5 UNet forward: a self-
+# and a cross-attention in each of its 16 transformer blocks (two at each
+# of the three attention levels on the way down, three on the way up, and
+# the middle block's one at D 160)
+UNET_ATTENTION_CALLS = {40: 10, 80: 10, 160: 12}
 # (M, K, N, group) of the 4-bit kernel.  T5-XXL (M = 256 tokens per prompt:
 # q/k/v/o, wi_0/wi_1, wo) and one ragged case at groups 64, 32 and 16; the
 # q4_0 DiT at group 32 (a q4_0 GGUF's blocks): its MLP and linear2 widths at
@@ -251,8 +294,12 @@ Q4_DIT_GROUP = 32
 FLASH_TOL = {"bf16": 2e-2, "f32": 2e-5}
 #   the D 512 faults, in plain PyTorch on the case's inputs: the last 32-key
 #     tile of the first key split dropped, and the split-keys combine without
-#     its 2^(m_s - M) rescale (where the launcher splits the keys).
-FLASH_FAULTS = ("drop_key_tile", "combine_unscaled")
+#     its 2^(m_s - M) rescale (where the launcher splits the keys).  At the
+#     UNet's D 40, 80 and 160 the bf16 kernel computes on the head dim padded
+#     to 64, 128 and 192 columns: the softmax scale of the padded width
+#     (``padded_scale``), and where Lk is off the key tile (128, 64 at D 160)
+#     the zero keys past it left unmasked (``unmasked_pad_keys``).
+FLASH_FAULTS = ("drop_key_tile", "combine_unscaled", "padded_scale", "unmasked_pad_keys")
 Q4_REL_TOL = 2.0 ** -6
 GQ_REL_TOL = {"bf16": 2.0 ** -6, "f32": 1e-5}
 #   library yardsticks (``_weight_int4pack_mm``, ``_weight_int8pack_mm``): they
@@ -370,7 +417,20 @@ PATH_IDLE = {"int8": ("q4_matmul_gemv", "gq_matmul_gemv", "w8a16_matmul_gemv", *
                      "w8a16_matmul", *F32_FORMS),
              "server": ("w8a8_matmul", "w8a8_matmul_gemv", "q4_matmul", "w8a16_matmul",
                         "gq_zero_matmul", *F32_FORMS)}
-F32_PATHS = {"f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
+# SD1.5 (dense, bf16 unless the default dtype): the UNet's flash forms at D
+# 40 / 80 / 160, CLIP-L's D 64 and the VAE's D 512, no quantized matmul
+QUANT_KERNELS = ("w8a8_matmul", "w8a8_matmul_gemv", "q4_matmul", "gq_matmul", "gq_matmul_ws",
+                 "gq_zero_matmul", "w8a16_matmul")
+UNET_FLASH = ("flash_attention_d40", "flash_attention_d80", "flash_attention_d160")
+for _path in ("sd15", "sd15_cli", "sd15_server"):
+    PATH_KERNELS[_path] = ("flash_attention", *UNET_FLASH, "flash_attention_d64",
+                           "flash_attention_d512")
+    PATH_IDLE[_path] = (*QUANT_KERNELS, *F32_FORMS)
+PATH_KERNELS["sd15_f32"] = ("flash_attention", "flash_attention_f32", *UNET_FLASH)
+PATH_IDLE["sd15_f32"] = (*QUANT_KERNELS, "flash_attention_d64", "flash_attention_d512",
+                         "q4_matmul_f32", "w8a16_matmul_f32", "gq_matmul_f32", "gq_zero_matmul_f32")
+F32_PATHS = {"sd15_f32": (("flash_attention", "flash_attention_f32"),),
+             "f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
              "f32_w8a16": (("flash_attention", "flash_attention_f32"),
                            ("q4_matmul", "q4_matmul_f32"), ("w8a16_matmul", "w8a16_matmul_f32"))}
 # The FLUX.1-dev DiT's M = 1 linears per forward: 2 x 19 double-block and 38
@@ -413,6 +473,15 @@ GGUF_REQUESTS = [
     dict(prompt="a lighthouse on a cliff above a stormy sea", width=1024, height=1024,
          sample_steps=2, cfg_scale=1.0, guidance=3.5, seed=3),
 ]
+# SD1.5: the JAX bench's request (``bench_sd15``, bench.py:151), answered
+# once to warm up and once timed, then the same with dpm++2m; the default
+# dtype (float32) answers it at 4 steps.  Each denoise step is one UNet
+# forward of the doubled (CFG) batch.
+SD15_REQUEST = dict(prompt="a photograph of an astronaut riding a horse", negative_prompt="",
+                    width=512, height=512, sample_steps=20, cfg_scale=7.0, seed=42,
+                    sample_method="euler_a", schedule="discrete")
+SD15_REQUESTS = [SD15_REQUEST, SD15_REQUEST, dict(SD15_REQUEST, sample_method="dpm++2m")]
+SD15_F32_REQUESTS = [dict(SD15_REQUEST, sample_steps=4)]
 
 
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
@@ -650,6 +719,27 @@ def _d512_faults(q, k, v, mask, want) -> dict:
     return out
 
 
+def _padded_faults(q, k, v, mask, want) -> dict:
+    """max |error| against ``want`` of the padded bf16 kernel's two faults
+    (FLASH_FAULTS), in plain PyTorch on the case's inputs."""
+    import torch
+
+    from sdtpu_torch.ops.flash_attention import plain_attention
+
+    d, lk = q.shape[-1], k.shape[2]
+    dp = -(-d // 64) * 64
+    tile = 64 if dp > 128 else 128
+    out = {"padded_scale": (plain_attention(q, k, v, mask=mask, scale=dp ** -0.5).float()
+                            - want.float()).abs().max().item()}
+    if lk % tile:
+        pad = tile - lk % tile
+        kz, vz = (torch.cat([t, t.new_zeros(t.shape[:2] + (pad, d))], dim=2) for t in (k, v))
+        mz = None if mask is None else torch.nn.functional.pad(mask, (0, pad))
+        out["unmasked_pad_keys"] = (plain_attention(q, kz, vz, mask=mz).float()
+                                    - want.float()).abs().max().item()
+    return out
+
+
 def _tf32_round(t):
     """float32 → the nearest tf32 (10 explicit mantissa bits, ties away from
     zero), as cvt.rna.tf32.f32 rounds."""
@@ -751,7 +841,11 @@ def check_flash(results):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = FLASH_TOL[dt] * want.float().abs().max().item()
-        if dt == "f32":
+        if d in UNET_HEAD_DIMS:
+            name = f"flash_attention_d{d}"
+            faults = (_one_pass_tf32_fault(q, k, v, mask, want) if dt == "f32"
+                      else _padded_faults(q, k, v, mask, want))
+        elif dt == "f32":
             name, faults = "flash_attention_f32", _one_pass_tf32_fault(q, k, v, mask, want)
         elif d == 512:
             name, faults = "flash_attention_d512", _d512_faults(q, k, v, mask, want)
@@ -962,6 +1056,7 @@ def reference_check():
     from sdtpu_torch.models import clip as clip_mod
     from sdtpu_torch.models import flux as flux_mod
     from sdtpu_torch.models import t5 as t5_mod
+    from sdtpu_torch.models import unet as unet_mod
     from sdtpu_torch.models import vae as vae_mod
     from sdtpu_torch.weights import synthesize
 
@@ -971,9 +1066,14 @@ def reference_check():
                                    num_layers=2, num_heads=2)
     t5_cfg = t5_mod.T5Config(d_model=512, d_kv=64, d_ff=1024, num_layers=1, num_heads=8)
     vae_cfg = vae_mod.FLUX_VAE_CONFIG
+    # the SD1.5 UNet's widths and heads (D 40, 80, 160) at one res block a
+    # level, on a 16x16 latent under CFG
+    unet_cfg = dataclasses.replace(unet_mod.SD1_UNET_CONFIG, num_res_blocks=1,
+                                   channel_mult=(1, 2, 4), transformer_depth=(1, 1, 1))
     mods = {
         "dit": (flux_mod.param_specs(dit_cfg), "q8_0"), "clip": (clip_mod.param_specs(clip_cfg), None),
         "t5": (t5_mod.param_specs(t5_cfg), "q4_0"), "vae": (vae_mod.param_specs(vae_cfg), None),
+        "unet": (unet_mod.param_specs(unet_cfg), None),
     }
     gpu = {n: synthesize(s, quant=q, seed=i, device=DEVICE, dtype=torch.bfloat16)
            for i, (n, (s, q)) in enumerate(mods.items())}
@@ -986,6 +1086,9 @@ def reference_check():
     z = torch.randn((1, 16, 16, 16), generator=gen)
     t = torch.tensor([0.7])
     gd = torch.tensor([3.5])
+    xu = torch.randn((2, 16, 16, 4), generator=gen)
+    tu = torch.tensor([999.0, 411.5])
+    ctx_u = torch.randn((2, 77, 768), generator=gen)
 
     def run(p, dev, dtype):
         with torch.inference_mode():
@@ -995,7 +1098,10 @@ def reference_check():
             vel = flux_mod.flux_forward(p["dit"], x.to(dev, dtype), t.to(dev), ctx, pooled,
                                         guidance=gd.to(dev), cfg=dit_cfg)
             img = vae_mod.vae_decode(p["vae"], z.to(dev, dtype), vae_cfg)
-        return {"clip_pooled": pooled, "t5": ctx, "flux_forward": vel, "vae_decode": img}
+            eps = unet_mod.unet_forward(p["unet"], xu.to(dev, dtype), tu.to(dev),
+                                        ctx_u.to(dev, dtype), cfg=unet_cfg)
+        return {"clip_pooled": pooled, "t5": ctx, "flux_forward": vel, "vae_decode": img,
+                "unet_forward": eps}
 
     want = run(cpu, "cpu", torch.float32)
     out = {}
@@ -1410,6 +1516,185 @@ def entry_points_check(wrappers, card: str, profile=None):
     return report, counts_cli, counts_srv
 
 
+@contextlib.contextmanager
+def plain_attention_on_card():
+    """Count the calls that ``ops.attention`` routes to the plain attention
+    with CUDA tensors while the block runs (→ {"calls": n}): a path whose
+    attention all goes through the kernels counts 0."""
+    import importlib
+
+    # the module (``sdtpu_torch.ops.attention`` names the function it exports)
+    att = importlib.import_module("sdtpu_torch.ops.attention")
+    box = {"calls": 0}
+    plain = att.plain_attention
+
+    def counted(q, *a, **kw):
+        box["calls"] += q.is_cuda
+        return plain(q, *a, **kw)
+
+    att.plain_attention = counted
+    try:
+        yield box
+    finally:
+        att.plain_attention = plain
+
+
+def _check_unet_flash(path: str, counts: dict, forwards: int, plain: dict) -> dict:
+    """Each of the UNet's head dims launched flash exactly its calls per
+    forward (``UNET_ATTENTION_CALLS``) times the path's UNet forwards, and
+    no attention ran in the plain version on the card."""
+    want = {f"flash_attention_d{d}": n * forwards for d, n in UNET_ATTENTION_CALLS.items()}
+    got = {k: counts[k] for k in want}
+    if got != want or plain["calls"]:
+        raise RuntimeError(f"path {path}: UNet flash launches {got}, not {want}; "
+                           f"{plain['calls']} plain attention calls on the card")
+    return {"unet_flash": got, "plain_attention_on_card": plain["calls"]}
+
+
+def build_sd15_pipeline(card: str, default_dtype: bool = False):
+    """A full-width SD1.5 pipeline (``SD1_UNET_CONFIG``, CLIP-L, the SD VAE),
+    dense random weights drawn on the card: ``create_pipeline(SDVersion.SD1,
+    dtype=torch.bfloat16, ...)``, or with ``default_dtype`` no dtype
+    argument, so float32 (held here)."""
+    import torch
+
+    from sdtpu_torch.config import SDVersion
+    from sdtpu_torch.factory import create_pipeline
+    from sdtpu_torch.weights import weight_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    if default_dtype:
+        pipe = create_pipeline(SDVersion.SD1, device=DEVICE, seed=0)
+        if pipe.compute_dtype != torch.float32:
+            raise RuntimeError(f"create_pipeline's default dtype is {pipe.compute_dtype}, not float32")
+    else:
+        pipe = create_pipeline(SDVersion.SD1, dtype=torch.bfloat16, device=DEVICE, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    wb = {"diffusion": weight_bytes(pipe.diffusion_params),
+          "clip_l": weight_bytes(pipe.conditioner.params), "vae": weight_bytes(pipe.vae_params)}
+    print(f"pipeline: full-width SD1.5, {pipe.compute_dtype}, built in {build_s:.2f} s on {card}; "
+          "weight bytes " + json.dumps(wb), flush=True)
+    return pipe, {"diffusion": "sd15 dense", "dtype": str(pipe.compute_dtype), "build_s": build_s,
+                  "weight_bytes": wb}
+
+
+def sd15_paths(wrappers, card: str, launches: dict, profile=None):
+    """The SD1.5 paths: ``sd15`` (bf16, SD15_REQUESTS) and ``sd15_f32`` (the
+    default dtype, SD15_F32_REQUESTS), each in its launch window."""
+    import torch
+
+    pipes, reports, prof = [], [], {}
+    for label, f32, requests in (("sd15", False, SD15_REQUESTS), ("sd15_f32", True, SD15_F32_REQUESTS)):
+        pipe, info = build_sd15_pipeline(card, default_dtype=f32)
+        pipes.append(info)
+        with plain_attention_on_card() as plain:
+            rep, launches[label] = _windowed(wrappers, label,
+                                             lambda: answer(pipe, requests, card, label))
+        info.update(_check_unet_flash(label, launches[label],
+                                      sum(r["sample_steps"] for r in requests), plain))
+        reports += rep
+        if profile and not f32:
+            prof[label] = profile_request(pipe, SD15_REQUEST, profile, label, card)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return pipes, reports, prof
+
+
+# Phase 11, SD1.5 on a file: the CLI's and the A1111 route's 512² × 20-step
+# request (euler_a, the default sampler; CFG 7)
+SD15_CLI_ARGV = ["-p", SD15_REQUEST["prompt"], "-W", "512", "-H", "512", "--steps", "20",
+                 "--cfg-scale", "7.0", "-s", "42"]
+SD15_SERVER_BODY = {"prompt": SD15_REQUEST["prompt"], "width": 512, "height": 512, "steps": 20,
+                    "cfg_scale": 7.0, "seed": 42}
+
+
+def sd15_entry_check(wrappers, card: str) -> dict:
+    """Phase 11, SD1.5: write the full-width single-file checkpoint with
+    ``tools/sd15_file.py``, answer one request from it through
+    ``cli.main -m`` and one through the server's A1111 route, each in its
+    own launch window."""
+    import queue
+    import tempfile
+    import threading
+
+    import torch
+
+    from sdtpu_torch import cli, server
+    from sdtpu_torch.tools.sd15_file import write_sd15_file
+
+    root = ROOT / "build" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="sd15_file_", dir=root))
+    report = {"card": card}
+    launches = {}
+    try:
+        report["file"] = write_sd15_file(tmp / "sd15.safetensors", device=DEVICE)
+        print(f"entry sd15 file on {card}: " + json.dumps(report["file"]), flush=True)
+        path = report["file"]["path"]
+        png, cli_rep = tmp / "sd15.png", {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with plain_attention_on_card() as plain:
+            rc, launches["sd15_cli"] = _windowed(wrappers, "sd15_cli", lambda: cli.main(
+                ["-m", path] + SD15_CLI_ARGV + ["-o", str(png)], report=cli_rep))
+        wall_s = time.time() - t0
+        if rc != 0:
+            raise RuntimeError(f"sdtpu_torch.cli.main -m exited {rc}")
+        if cli_rep["load"]["version"] != "sd1":
+            raise RuntimeError(f"the CLI loaded a {cli_rep['load']['version']} model, not sd1")
+        report["cli"] = {"load": cli_rep["load"], "wall_s": wall_s, "timings_s": cli_rep["timings"],
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                         **_check_unet_flash("sd15_cli", launches["sd15_cli"], 20, plain),
+                         **_check_png(png.read_bytes(), 512, 512, "euler_a")}
+        print("entry sd15 cli " + json.dumps(report["cli"]), flush=True)
+        del cli_rep
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        box, srv_rep = queue.Queue(), {}
+
+        def run():
+            try:
+                server.main(["-m", path, "--port", "0"], report=srv_rep, ready=box.put)
+            except BaseException as e:  # handed to the waiting thread, then raised here
+                box.put(e)
+                raise
+
+        thread = threading.Thread(target=run, daemon=True)
+        t0 = time.time()
+        thread.start()
+        httpd = box.get(timeout=900)
+        if isinstance(httpd, BaseException):
+            raise RuntimeError("the server did not start") from httpd
+        try:
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            report["server"] = {"load": srv_rep["load"], "start_s": time.time() - t0}
+            torch.cuda.reset_peak_memory_stats()
+            with plain_attention_on_card() as plain:
+                (code, resp), launches["sd15_server"] = _windowed(
+                    wrappers, "sd15_server", lambda: _http(base, "/sdapi/v1/txt2img", SD15_SERVER_BODY))
+            if code != 200:
+                raise RuntimeError(f"/sdapi/v1/txt2img: {code} {resp}")
+            report["server"].update(
+                timings_s=dict(httpd.manager.pipeline.last_timings),
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                **_check_unet_flash("sd15_server", launches["sd15_server"], 20, plain),
+                **_check_png(base64.b64decode(resp["images"][0]), 512, 512, "euler_a"))
+        finally:
+            httpd.shutdown()
+            thread.join(timeout=300)
+        print("entry sd15 server " + json.dumps(report["server"]), flush=True)
+        del httpd, srv_rep
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return report, launches
+
+
 def gguf_block_dit() -> dict:
     """Full-depth FLUX.1-dev DiT weights in the ``q8_0_gguf`` memory class,
     drawn on the card (the seed the factory gives a DiT it synthesizes)."""
@@ -1475,7 +1760,7 @@ def answer(pipe, requests, card: str, label: str):
 
     reports = []
     for kw in requests:
-        gp = GenerationParams(sample_method="euler", **kw)
+        gp = GenerationParams(**{"sample_method": "euler", **kw})
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_stats()
         res = pipe.generate(gp)
@@ -1491,7 +1776,8 @@ def answer(pipe, requests, card: str, label: str):
             raise RuntimeError("constant image or latents")
         tm = pipe.last_timings
         rep = {"path": label, "size": [gp.width, gp.height], "batch": bc,
-               "cfg_scale": gp.cfg_scale, "steps": tm["steps"], "seed": gp.seed,
+               "cfg_scale": gp.cfg_scale, "sampler": gp.sample_method, "steps": tm["steps"],
+               "seed": gp.seed,
                "timings_s": {k: tm[k] for k in ("cond", "sample", "decode", "total")},
                "denoise_steps_per_s": tm["steps"] / tm["sample"], "peak_mem_bytes": peak,
                # the caching allocator during the request: cudaMalloc calls
@@ -1513,7 +1799,7 @@ def profile_request(pipe, request: dict, table: str, label: str, card: str) -> d
 
     from sdtpu_torch.config import GenerationParams
 
-    gp = GenerationParams(sample_method="euler", **request)
+    gp = GenerationParams(**{"sample_method": "euler", **request})
     path = Path(table)
     path = path.with_name(f"{path.stem}.{label}{path.suffix}")
 
@@ -1603,6 +1889,9 @@ def main() -> int:
     wrappers = {"flash_attention": (flash_attention.flash_attention, "launches"),
                 "flash_attention_d512": (flash_attention.flash_attention, "launches_d512"),
                 "flash_attention_d64": (flash_attention.flash_attention, "launches_d64"),
+                "flash_attention_d40": (flash_attention.flash_attention, "launches_d40"),
+                "flash_attention_d80": (flash_attention.flash_attention, "launches_d80"),
+                "flash_attention_d160": (flash_attention.flash_attention, "launches_d160"),
                 "w8a8_matmul_gemv": (quant.quant_matmul_w8a8, "launches_gemv"),
                 "w8a8_matmul_mma": (quant.quant_matmul_w8a8, "launches_mma"),
                 "q4_matmul_wgmma": (quant.q4_matmul, "launches_wgmma"),
@@ -1705,13 +1994,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    sd15_pipes, rep, sd15_prof = sd15_paths(wrappers, card, launches, args.profile)
+    pipes += sd15_pipes
+    reports += rep
+    prof.update(sd15_prof)
+
     entry, launches["cli"], launches["server"] = entry_points_check(wrappers, card, args.profile)
     if "profile" in entry:
         prof["cli"] = entry.pop("profile")
+    entry["sd15"], sd15_launches = sd15_entry_check(wrappers, card)
+    launches.update(sd15_launches)
 
     headline = {"flash_attention": ([1, 24, 4352, 4352, 128], {}),
                 "flash_attention_d512": ([1, 1, 4096, 4096, 512], {}),
                 "flash_attention_f32": ([1, 24, 4352, 4352, 128], {}),
+                "flash_attention_d40": ([2, 8, 4096, 4096, 40], {"dtype": "bf16"}),
+                "flash_attention_d80": ([2, 8, 1024, 1024, 80], {"dtype": "bf16"}),
+                "flash_attention_d160": ([2, 8, 256, 256, 160], {"dtype": "bf16"}),
                 "w8a8_matmul": ([4352, 3072, 12288], {"dtype": "bf16"}),
                 "w8a8_matmul_gemv": ([1, 3072, 18432], {}),
                 "q4_matmul": ([256, 4096, 10240], {"group": 64, "dtype": "bf16"}),
@@ -1740,6 +2039,10 @@ def main() -> int:
                         "max_abs_err": max(c["max_abs_err"] for c in mine),
                         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                         "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+        if name in UNET_FLASH:  # the float32 form at the same shape
+            f32 = next(c for c in mine if c["shape"] == shape and c["dtype"] == "f32")
+            kernels[-1].update({f"f32_{k}": f32[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                              "library_ms")})
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s, "cases": cases, "reference": ref,

@@ -3,8 +3,8 @@
 The JAX package ``sdtpu`` stays the reference; this package mirrors its
 layout (ops/, models/, conditioning/, diffusion/, io/, tokenizers/,
 pipeline.py, factory.py, cli.py, server.py) and is held against it by the
-tests.  The slice ported so far runs FLUX.1 txt2img, from random weights
-or checkpoint files, through ``create_pipeline`` or its own CLI
+tests.  The slices ported so far run FLUX.1 and SD1.x txt2img, from random
+weights or checkpoint files, through ``create_pipeline`` or its own CLI
 (``python -m sdtpu_torch.cli``) and HTTP server (``python -m
 sdtpu_torch.server``).  Every TPU kernel on that path is a hand-written Hopper
 kernel in ``csrc/`` (flash attention; the W8A8, packed 4-bit, group-dequant
@@ -13,8 +13,8 @@ kernel's plain PyTorch version.
 
 The package stands alone: it imports nothing of ``sdtpu`` and never imports
 ``jax``.  Its host layer (config types, Philox / torch-CPU noise, CLIP
-tokenizer, prompt parser, GGUF and safetensors readers, the FLUX model
-loader, T5 tokenizer, PNG metadata) is its own copy of the JAX package's,
+tokenizer, prompt parser, GGUF and safetensors readers, the FLUX and SD1
+model loader, T5 tokenizer, PNG metadata) is its own copy of the JAX package's,
 under the same names.  Entry points run on the card (``device="cuda"``;
 the CLI and server with no ``--backend``) unless the caller asks for the
 CPU, as the tests do.

@@ -1,19 +1,24 @@
-"""sd-cli for the PyTorch/CUDA port: FLUX.1 txt2img from checkpoint files
-(this package's copy of ``sdtpu/cli.py``: ``build_parser``, ``main``, the
-FLUX txt2img parts of ``_load_pipeline`` and ``_img_gen``, the metadata
-mode, ``discover_gguf_tokenizer``).
+"""sd-cli for the PyTorch/CUDA port: FLUX.1 and SD1.x txt2img from checkpoint
+files (this package's copy of ``sdtpu/cli.py``: ``build_parser``, ``main``,
+the FLUX and SD1 txt2img parts of ``_load_pipeline`` and ``_img_gen``, the
+metadata mode, ``discover_gguf_tokenizer``).
 
     python -m sdtpu_torch.cli --diffusion-model flux1-dev-q8_0.gguf \
         --clip_l clip_l.safetensors --t5xxl t5xxl-q8_0.gguf --vae ae.safetensors \
         -p "a lantern on a wooden table" -W 1024 -H 1024 --steps 20 -o out.png
+    python -m sdtpu_torch.cli -m sd15.safetensors -p "an astronaut riding a horse" \
+        -W 512 -H 512 --steps 20 -o out.png
     python -m sdtpu_torch.cli metadata --image out.png
 
-The parser is the JAX CLI's (the same flags, defaults and help).  The port
-runs two modes, ``img_gen`` (FLUX.1 txt2img) and ``metadata``, and the
-flags in ``RUN_FLAGS``; any other mode or flag set away from its default,
-a sampler other than ``euler`` / ``euler_a``, a schedule other than
-``discrete`` / ``flux`` or a ``<lora:...>`` prompt tag exits with code 2
-before anything loads, naming it.
+The model family is fingerprinted from the files' tensor names, as the JAX
+CLI does; FLUX.1 and SD1.x load, any other family exits naming it.  The
+parser is the JAX CLI's (the same flags, defaults and help).  The port
+runs two modes, ``img_gen`` (txt2img) and ``metadata``, and the flags in
+``RUN_FLAGS``; any other mode or flag set away from its default (e.g.
+``--embd-dir``: textual-inversion embeddings are not ported), a sampler
+outside ``samplers.PORTED_METHODS``, a schedule other than ``discrete`` /
+``flux`` or a ``<lora:...>`` prompt tag exits with code 2 before anything
+loads, naming it.
 
 Device: ``--backend`` as the JAX CLI spells it, one device for every module:
 ``cpu`` or ``cuda0``..``cudaN`` (a per-module split exits 2).  With no
@@ -471,7 +476,7 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
             continue
         if getattr(args, dest, action.default) != action.default:
             flag = "/".join(action.option_strings)
-            return f"{flag} is not ported (the port runs FLUX.1 txt2img)"
+            return f"{flag} is not ported (the port runs FLUX.1 and SD1.x txt2img)"
     if args.mode not in MODES:
         return f"mode {args.mode!r} is not ported; the port runs {list(MODES)}"
     if args.sampling_method not in PORTED_METHODS:
@@ -586,7 +591,8 @@ def load_t5_tokenizer(args):
 
 
 def _load_pipeline(args, report: Optional[dict] = None):
-    """The files → a FLUX pipeline on ``--backend``'s device.  ``report``
+    """The files → a FLUX or SD1.x pipeline (the version the files'
+    fingerprint names) on ``--backend``'s device.  ``report``
     (when given) gets ``load``: its seconds, ``read_s`` (the files → host
     arrays and quant blocks, the blocks' extraction included), ``stage_s``
     (→ the device) and ``build_s``, and ``pipeline``, the pipeline."""
@@ -604,7 +610,6 @@ def _load_pipeline(args, report: Optional[dict] = None):
         dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.dtype]
     else:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    t5_tok, t5_tok_source = load_t5_tokenizer(args)
 
     def sync():
         if device.type == "cuda":
@@ -615,15 +620,18 @@ def _load_pipeline(args, report: Optional[dict] = None):
                                clip_l_path=args.clip_l, t5xxl_path=args.t5xxl,
                                vae_path=args.vae, keep_quant=not args.no_keep_quant)
     t_read = time.time() - t0
-    missing = [m for m in ("clip_l", "t5", "vae") if not getattr(bundle, m)]
+    # SD1.x conditions on CLIP-L alone: a missing T5 is no error there
+    encoders = ("clip_l", "t5") if bundle.version == SDVersion.FLUX else ("clip_l",)
+    missing = [m for m in (*encoders, "vae") if not getattr(bundle, m)]
     if missing:
         raise SystemExit(f"error: no {', '.join(missing)} weights in the given files "
                          "(pass --clip_l, --t5xxl, --vae)")
+    t5_tok, t5_tok_source = load_t5_tokenizer(args) if "t5" in encoders else (None, None)
     t0 = time.time()
     params = {"diffusion": diffusion_to_device(bundle.diffusion, dtype, device,
                                                promote_q8=not args.no_promote_q8)}
     bundle.diffusion = None
-    for m in ("clip_l", "t5", "vae"):
+    for m in (*encoders, "vae"):
         params[m] = module_to_device(getattr(bundle, m), dtype, device)
         setattr(bundle, m, None)
     sync()
@@ -636,12 +644,13 @@ def _load_pipeline(args, report: Optional[dict] = None):
     if n_blocks:
         print(f"keeping {n_blocks} diffusion weights in checkpoint quant blocks")
     t0 = time.time()
-    pipe = create_pipeline(SDVersion.FLUX, params=params, rng_type=args.rng, dtype=dtype,
+    pipe = create_pipeline(bundle.version, params=params, rng_type=args.rng, dtype=dtype,
                            t5_tokenizer=t5_tok, device=device)
     if args.vae_tiling:
         pipe.set_vae_tiling(True, args.vae_tile_size, args.vae_tile_overlap)
     sync()
-    load = {"read_s": t_read, "stage_s": t_stage, "build_s": time.time() - t0,
+    load = {"version": bundle.version.value, "read_s": t_read, "stage_s": t_stage,
+            "build_s": time.time() - t0,
             "device": str(device), "dtype": str(dtype).replace("torch.", ""),
             "w8a8_weights": n_row, "block_weights": n_blocks, "t5_tokenizer": t5_tok_source}
     print("load " + json.dumps(load))
@@ -655,8 +664,8 @@ def _img_gen(args, report: Optional[dict] = None) -> int:
     from sdtpu_torch.utils.image import build_parameters_text, resolve_output_path, write_image
 
     pipe = _load_pipeline(args, report)
-    gp = GenerationParams(
-        prompt=args.prompt, negative_prompt=args.negative_prompt, width=args.width,
+    gp = GenerationParams(  # the prompt stripped, as the JAX CLI's ``extract_loras`` leaves it
+        prompt=args.prompt.strip(), negative_prompt=args.negative_prompt, width=args.width,
         height=args.height, sample_steps=args.steps, cfg_scale=args.cfg_scale,
         guidance=args.guidance, sample_method=args.sampling_method, schedule=args.schedule,
         seed=args.seed, batch_count=args.batch_count, clip_skip=args.clip_skip, eta=args.eta)

@@ -1,6 +1,6 @@
-"""Prompt → conditioning tensors for FLUX (counterpart of
+"""Prompt → conditioning tensors for FLUX and SD1.x (counterpart of
 ``sdtpu/conditioning/conditioner.py``: ``tokenize_with_weights``,
-``apply_token_weights``, ``SDCondition``, ``FluxConditioner``).
+``apply_token_weights``, ``SDCondition``, ``SD1Conditioner``, ``FluxConditioner``).
 
 The tokenizers, the webui prompt parser and the encoders are this
 package's own.
@@ -98,3 +98,28 @@ class FluxConditioner:
         h_t5 = t5_encoder_forward(
             self.pt, torch.tensor([t5_ids], dtype=torch.int64, device=self.device), self.ct)
         return SDCondition(c_crossattn=h_t5, c_vector=pooled, t5_ids=list(t5_ids))
+
+
+class SD1Conditioner:
+    """SD1.x: one CLIP-L text encoder; the prompt's 77-token chunks (padded
+    with CLIP's EOS id) are embedded in one batched call, weighted per chunk
+    and concatenated.  Textual-inversion embeddings (the JAX package's
+    ``EmbeddingMixin``) are not ported yet."""
+
+    def __init__(self, tokenizer, clip_params, clip_cfg: CLIPTextConfig, device="cuda"):
+        self.tokenizer = tokenizer
+        self.params = clip_params
+        self.cfg = clip_cfg
+        self.pad_token_id = tokenizer.eos_token_id
+        self.device = torch.device(device)
+
+    def get_learned_condition(self, text: str, clip_skip: int = -1, **kw) -> SDCondition:
+        if clip_skip <= 0:
+            clip_skip = 1
+        tokens, weights = tokenize_with_weights(self.tokenizer, text, self.pad_token_id)
+        n_chunks = len(tokens) // CHUNK_LEN
+        ids = torch.from_numpy(tokens.reshape(n_chunks, CHUNK_LEN).astype(np.int64)).to(self.device)
+        w = torch.from_numpy(weights.reshape(n_chunks, CHUNK_LEN)).to(self.device)
+        hidden, _ = clip_text_forward(self.params, ids, self.cfg, clip_skip=clip_skip)
+        hidden = apply_token_weights(hidden, w)
+        return SDCondition(c_crossattn=hidden.reshape(1, n_chunks * CHUNK_LEN, hidden.shape[-1]))

@@ -29,6 +29,22 @@
 // the last tile.  The dense f32 [Lq, Lk] bias (CLIP's causal mask) is a
 // template parameter, so the unbiased FLUX path has no per-score branch.
 //
+// bf16, D = 40, 80 and 160 (the SD1.5 UNet: 8 heads over 320, 640 and 1280
+// channels; self-attention over 4096, 1024 and 256 latent tokens at 512^2
+// and cross-attention over CLIP's 77): the same kernel, the head dim padded
+// to whole 64-column swizzle blocks (64, 128, 192) in shared memory only.
+// The TMA maps keep the true D as their innermost extent (row strides of
+// 80, 160 and 320 bytes, multiples of 16) and load 64-column boxes, so TMA
+// fills the columns past D with zeros; Q K^T skips the k16 steps that are
+// all zeros (3, 5 and 10 of them run), P V computes the padded width (1.6x,
+// 1.6x and 1.2x the work at D 40, 80 and 160) and the store writes D
+// columns.  D 160 takes 64-key tiles (m64n64k16 scores, P V m64n192k16): a
+// 128-key two-stage ring of 192 columns would need 240 KB of shared memory.
+// What bounds it: the D 40 self-attention [2, 8, 4096, 40] does 4 * 16 *
+// 4096^2 * 40 = 42.9 GFLOP, 0.043 ms at 989 TFLOP/s, against 0.0063 ms of
+// bytes -- compute bound; the cross-attention calls (77 keys) and the D 160
+// calls over 256 and 64 tokens are a few microseconds of work or bytes.
+//
 // bf16, D = 512 (the VAE mid-block, one head over a 64 x 64 latent tile,
 // Lq = Lk = 4096): `flash_d512_kernel`, replacing the same four TPU kernels
 // at that head dim.  What bounds it: 4 * 4096^2 * 512 = 34.4 GFLOP per
@@ -53,9 +69,10 @@
 // `flash_d512_combine_kernel` merges them.  Ragged edges, the last-tile
 // mask, the bias template and the exp2 units are as in the D 64/128 kernel.
 //
-// float32, D = 64, 128 and 512 (the default float32 pipeline: FLUX joint
-// attention at D 128, CLIP-L's causal attention at D 64, the VAE mid-block
-// at D 512): `flash_f32_kernel<D, kBias>`.  The reference runs float32 at
+// float32, D = 40, 64, 80, 128, 160 and 512 (the default float32 pipeline:
+// FLUX joint attention at D 128, the SD1.5 UNet at D 40, 80 and 160,
+// CLIP-L's causal attention at D 64, the VAE mid-block at D 512):
+// `flash_f32_kernel<D, kBias>`.  The reference runs float32 at
 // Precision.HIGHEST (sdtpu/ops/flash_attention.py:68), so one TF32 pass
 // (about three decimal digits) is not enough.  What bounds it: 4 * L^2 * D
 // float32 operations per head, 3.47 ms at [24 heads, 4352, 128] at 67
@@ -71,7 +88,9 @@
 // tile are staged by cp.async into a two-stage ring, the next tile's copies
 // in flight under this tile's math.  Each warp owns 16 query rows; at D 64
 // and 128 all of D (BQ = 128 rows, 32-key tiles), at D 512 a quarter of it
-// (BQ = 32, 16-key tiles): the four quarters' partial scores are summed
+// (BQ = 32, 16-key tiles; D 160 takes 16-key tiles too, for shared
+// memory; D 40 contracts Q K^T over 48 columns, the 8 past D zeros in shared
+// memory): the four quarters' partial scores are summed
 // through shared memory in one order, so each warp runs the same softmax,
 // and the keys split across blocks where the grid is small, merged by the
 // combine kernel writing f32.  S = Q K^T reads Q and K with 16-byte loads
@@ -102,17 +121,27 @@ namespace {
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegBig = -1e30f;
 
-// --------------------------------------------- bf16 D 64/128: TMA + wgmma
+// ------------------------------------- bf16 D 40-160: TMA + wgmma
 
 constexpr int kWQ = 128;        // query rows per block: two consumer warpgroups x 64
-constexpr int kWK = 128;        // keys per K/V tile
 constexpr int kWStages = 2;     // K/V ring depth
 constexpr int kWThreads = 384;  // warpgroups 0-1: consumers; 2: producer
 constexpr int kColBytes = 128;  // a 64-element bf16 column block: one swizzle row
 
+// The head dim a block computes on: D rounded up to whole 64-column swizzle
+// blocks.  The TMA maps keep the true D as their innermost extent and load
+// boxes of 64 columns, so the columns past D arrive as zeros: no padded
+// copy is made in device memory, and the zero columns add nothing to Q K^T
+// and leave zeros in the output columns that are never stored.
+__host__ __device__ constexpr int wgmma_dp(int d) { return (d + 63) / 64 * 64; }
+// Keys per K/V tile: 128, and 64 where the padded head dim is 192 (D 160),
+// whose 128-key two-stage ring would need 240 KB of shared memory.
+__host__ __device__ constexpr int wgmma_bk(int d) { return wgmma_dp(d) > 128 ? 64 : 128; }
+
 template <int D>
-constexpr int wgmma_smem_bytes() {
-  return 1024 + kWQ * D * 2 + 2 * kWStages * kWK * D * 2 + (1 + 3 * kWStages) * 8;
+__host__ __device__ constexpr int wgmma_smem_bytes() {
+  return 1024 + kWQ * wgmma_dp(D) * 2 + 2 * kWStages * wgmma_bk(D) * wgmma_dp(D) * 2 +
+         (1 + 3 * kWStages) * 8;
 }
 
 template <int D, bool kBias>
@@ -120,8 +149,13 @@ __global__ void __launch_bounds__(kWThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, const float* __restrict__ bias,
                    __nv_bfloat16* __restrict__ o, int lq, int lk, float scale_log2) {
-  static_assert(D == 64 || D == 128, "the wgmma kernel takes head dims 64 and 128");
-  constexpr int CB = D / 64;                   // column blocks per row
+  static_assert(D == 40 || D == 64 || D == 80 || D == 128 || D == 160,
+                "the wgmma kernel takes head dims 40, 64, 80, 128 and 160");
+  static_assert(wgmma_smem_bytes<D>() <= 232448, "bf16 flash: shared memory over 227 KB");
+  constexpr int DP = wgmma_dp(D);              // head-dim columns computed: 64, 128 or 192
+  constexpr int kWK = wgmma_bk(D);             // keys per K/V tile
+  constexpr int CB = DP / 64;                  // column blocks per row
+  constexpr int KS = (D + 15) / 16;            // k16 steps of Q K^T (all-zero steps skipped)
   constexpr int kQBlock = kWQ * kColBytes;     // one column block of the Q tile
   constexpr int kKVBlock = kWK * kColBytes;    // one column block of a K or V tile
   constexpr int kKVBytes = CB * kKVBlock;      // one K or V tile
@@ -176,9 +210,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
     const uint32_t q_rows = wg * 64 * kColBytes;  // this warpgroup's 64 rows of each Q column block
 
     // acc[4j + e]: row row_w (+8 for e >= 2), column 8j + 2tq (+1 for odd e)
-    float acc[D / 2];
+    float acc[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
     float m_run[2] = {kNegBig, kNegBig};
     float l_run[2] = {0.f, 0.f};
     mbar_wait(q_full, 0);
@@ -188,16 +222,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
       const uint32_t par = (t / kWStages) & 1;
       const int kt = t * kWK;
 
-      // S = Q K^T: 64 rows x 128 keys, f32, as sc[4j + e] like acc
+      // S = Q K^T: 64 rows x kWK keys, f32, as sc[4j + e] like acc
       float sc[kWK / 2];
       mbar_wait(k_full(s), par);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < KS; ++kk) {
         const uint32_t off = (kk / 4) * kQBlock + (kk % 4) * 32;
         const uint32_t koff = (kk / 4) * kKVBlock + (kk % 4) * 32;
-        wgmma_m64n128k16_bf16_ss(sc, smem_desc_sw128(q_base + q_rows + off, 16, 1024),
-                                 smem_desc_sw128(k_base + s * kKVBytes + koff, 16, 1024), kk > 0);
+        const uint64_t dq = smem_desc_sw128(q_base + q_rows + off, 16, 1024);
+        const uint64_t dk = smem_desc_sw128(k_base + s * kKVBytes + koff, 16, 1024);
+        if constexpr (kWK == 128) {
+          wgmma_m64n128k16_bf16_ss(sc, dq, dk, kk > 0);
+        } else {
+          wgmma_m64n64k16_bf16_ss(sc, dq, dk, kk > 0);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -228,7 +267,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
             if (kt + j * 8 + 2 * tq + (e & 1) >= lk) sc[4 * j + e] = -INFINITY;
       }
 
-      // online softmax; a row's 128 scores are spread over the 4 threads of a quad
+      // online softmax; a row's kWK scores are spread over the 4 threads of a quad
       float m_new[2] = {m_run[0], m_run[1]};
 #pragma unroll
       for (int j = 0; j < kWK / 8; ++j)
@@ -261,16 +300,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
         l_run[h] = l_run[h] * alpha[h] + rsum[h];
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-      // O += P V: B = the V tile [keys][D], read MN-major (D contiguous)
+      // O += P V: B = the V tile [keys][DP], read MN-major (D contiguous)
       mbar_wait(v_full(s), par);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < kWK / 16; ++kc) {
         const uint64_t dv = smem_desc_sw128(v_base + s * kKVBytes + kc * 16 * kColBytes, kKVBlock, 1024);
-        if constexpr (D == 128) {
+        if constexpr (DP == 192) {
+          wgmma_m64n192k16_bf16_rs<1>(acc, pa[kc], dv, 1);
+        } else if constexpr (DP == 128) {
           wgmma_m64n128k16_bf16_rs<1>(acc, pa[kc], dv, 1);
         } else {
           wgmma_m64n64k16_bf16_rs<1>(acc, pa[kc], dv, 1);
@@ -613,23 +654,48 @@ struct F32Cfg<128> {
   static constexpr int RG = 8, DS = 1, BK = 32;
   static constexpr bool kPresplit = true;
 };
+// the SD1.5 UNet's head dims (8 heads over 320, 640 and 1280 channels)
+template <>
+struct F32Cfg<40> {
+  static constexpr int RG = 8, DS = 1, BK = 32;
+  static constexpr bool kPresplit = true;
+};
+template <>
+struct F32Cfg<80> {
+  static constexpr int RG = 8, DS = 1, BK = 32;
+  static constexpr bool kPresplit = true;
+};
+// 16-key tiles: with 32 the biased form's two stages and planes would need
+// 255 KB; a warp holds all 160 columns (80 accumulator floats a lane)
+template <>
+struct F32Cfg<160> {
+  static constexpr int RG = 8, DS = 1, BK = 16;
+  static constexpr bool kPresplit = true;
+};
 template <>
 struct F32Cfg<512> {
   static constexpr int RG = 2, DS = 4, BK = 16;
   static constexpr bool kPresplit = false;
 };
 
-// Shared-memory layout, in floats.  Q and K rows are D + 16 apart (a row
-// start moves 64 bytes modulo 128, so the 16-byte fragment loads of two
-// rows that one quarter-warp makes fall in different banks); V rows D + 4
-// (the column reads of one warp, keys 2t and 2t + 1 at 8 dims, hit 32
-// different banks); bias rows BK + 8 (its 8-byte reads by row pairs).
+// Shared-memory layout, in floats.  Q K^T contracts over DK, D rounded up
+// to the 16 of a pair of k8 steps (48 at D 40): the columns past D are
+// zeros in shared memory, written once.  Q and K rows are QS apart, the
+// least width >= DK that is 16 modulo 32 (a row start moves 64 bytes
+// modulo 128, so the 16-byte fragment loads of two rows that one
+// quarter-warp makes fall in different banks: 48, 80, 80, 144, 176 and 528
+// at D 40, 64, 80, 128, 160 and 512); V rows D + 4 (the column reads of
+// one warp, keys 2t and 2t + 1 at 8 dims, hit 32 different banks: 2 (D + 4)
+// is 8 or 24 modulo 32 at every D); bias rows BK + 8 (its 8-byte reads by
+// row pairs).
 template <int D, bool kBias>
 struct F32Smem {
   using C = F32Cfg<D>;
   static constexpr int kThreads = 32 * C::RG * C::DS;
   static constexpr int BQ = 16 * C::RG, BK = C::BK;
-  static constexpr int QS = D + 16, VS = D + 4, BS = BK + 8;
+  static constexpr int DK = (D + 15) / 16 * 16;
+  static constexpr int QS = DK + (48 - DK % 32) % 32, VS = D + 4, BS = BK + 8;
+  static_assert(C::DS == 1 || DK == D, "a head-dim split needs D a multiple of 16");
   static constexpr int kQ = BQ * QS;
   static constexpr int kStage = BK * QS + BK * VS + (kBias ? BQ * BS : 0);
   static constexpr int kSmall = C::kPresplit ? BK * QS + BK * VS : 0;  // the small planes
@@ -653,6 +719,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   using L = F32Smem<D, kBias>;
   constexpr int DS = C::DS, BK = C::BK, BQ = L::BQ, DW = D / DS, kFThreads = L::kThreads;
   constexpr int QS = L::QS, VS = L::VS, BS = L::BS;
+  constexpr int KW = DS == 1 ? L::DK : DW;  // a warp's contraction width in Q K^T
   extern __shared__ __align__(16) float fsm[];
   float* qs = fsm;                     // [BQ][QS]: Q * scale * log2(e)
   float* stages = qs + L::kQ;          // two of: K [BK][QS], V [BK][VS], bias [BQ][BS]
@@ -695,6 +762,20 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
   };
   load_tile(t_begin, 0);
+
+  if constexpr (L::DK > D) {
+    // the zero columns past D of Q, of both K stages and of the K small
+    // plane; the copies and the split write columns below D only
+    constexpr int P = L::DK - D, kRows = BQ + (C::kPresplit ? 3 : 2) * BK;
+    for (int c = tid; c < kRows * P; c += kFThreads) {
+      const int r = c / P, j = D + c % P;
+      float* row = r < BQ            ? qs + r * QS
+                   : r < BQ + BK     ? ks(0) + (r - BQ) * QS
+                   : r < BQ + 2 * BK ? ks(1) + (r - BQ - BK) * QS
+                                     : small + (r - BQ - 2 * BK) * QS;
+      row[j] = 0.f;
+    }
+  }
 
   // Q once, scaled into log2 units (the first tile's barrier publishes it)
   for (int c = tid; c < BQ * D / 4; c += kFThreads) {
@@ -756,7 +837,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int r = 0; r < BK / 2; ++r) sc[r] = sx[r] = 0.f;
     const float* krow = ks(st) + g * QS + ds * DW + 4 * tq;
 #pragma unroll
-    for (int p = 0; p < DW / 16; ++p) {
+    for (int p = 0; p < KW / 16; ++p) {
       const float4 qa = *reinterpret_cast<const float4*>(qrow + 16 * p);
       const float4 qc = *reinterpret_cast<const float4*>(qrow + 8 * QS + 16 * p);
       uint32_t ab[2][4], as[2][4];
@@ -964,7 +1045,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const floa
   for (int i = 0; i < 3; ++i) {
     const cuuint64_t dims[3] = {D, static_cast<cuuint64_t>(lens[i]), static_cast<cuuint64_t>(bh)};
     const cuuint64_t strides[2] = {D * 2ull, static_cast<cuuint64_t>(lens[i]) * D * 2ull};
-    const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(i == 0 ? kWQ : kWK), 1};
+    // the innermost extent is the true D; a 64-column box past it reads zeros
+    const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(i == 0 ? kWQ : wgmma_bk(D)), 1};
     cudaError_t err =
         make_tensor_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptrs[i], dims, strides, box);
     if (err != cudaSuccess) return err;
@@ -1049,16 +1131,22 @@ extern "C" int sdtpu_flash_attention(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
     switch (d) {
+      case 40: return launch_bf16_wgmma<40>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
       case 64: return launch_bf16_wgmma<64>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
+      case 80: return launch_bf16_wgmma<80>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
       case 128: return launch_bf16_wgmma<128>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
+      case 160: return launch_bf16_wgmma<160>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
       case 512:
         if (bias != nullptr) return launch_d512<true>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
         return launch_d512<false>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
     }
   } else if (dtype == kF32) {
     switch (d) {
+      case 40: return launch_f32_bias<40>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
       case 64: return launch_f32_bias<64>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
+      case 80: return launch_f32_bias<80>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
       case 128: return launch_f32_bias<128>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
+      case 160: return launch_f32_bias<160>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
       case 512: return launch_f32_bias<512>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
     }
   }

@@ -1,13 +1,80 @@
-"""Flow denoisers FLUX uses (counterpart of ``sdtpu/diffusion/denoiser.py``).
+"""Denoisers (counterpart of ``sdtpu/diffusion/denoiser.py``): the CompVis
+eps-prediction denoiser on the DDPM table (SD1.x) and the flow denoisers
+FLUX uses.  The v-prediction ``CompVisVDenoiser`` (SD2) is not ported yet.
 
 Tables and scalings are host-side numpy, as in the JAX package; the sampling
-loop consumes them as f32 values.
+loop consumes them as f32 values.  ``get_scalings_torch`` and
+``sigma_to_t_torch`` are the on-device forms (``*_jnp`` in the JAX package)
+the pipeline's model function calls on a 0-dim float32 sigma.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 TIMESTEPS = 1000
+
+
+def compvis_alphas_cumprod(beta_start: float = 0.00085, beta_end: float = 0.012,
+                           n: int = TIMESTEPS) -> np.ndarray:
+    """DDPM alpha-bar table with the CompVis sqrt-linear beta schedule."""
+    i = np.arange(n, dtype=np.float32)
+    betas = (np.sqrt(np.float32(beta_start))
+             + (np.sqrt(np.float32(beta_end)) - np.sqrt(np.float32(beta_start))) * (i / (n - 1))) ** 2
+    return np.cumprod(1.0 - betas.astype(np.float64))
+
+
+class CompVisDenoiser:
+    """eps-prediction on the DDPM table (SD1.x)."""
+
+    prediction = "eps"
+    is_flow = False
+
+    def __init__(self):
+        ac = compvis_alphas_cumprod()
+        self.sigmas = np.sqrt((1.0 - ac) / ac).astype(np.float32)
+        self.log_sigmas = np.log(self.sigmas)
+        self.sigma_data = 1.0
+        self._log_sigmas_dev = {}
+
+    def sigma_min(self) -> float:
+        return float(self.sigmas[0])
+
+    def sigma_max(self) -> float:
+        return float(self.sigmas[-1])
+
+    def t_to_sigma(self, t):
+        t = np.asarray(t, dtype=np.float32)
+        low_idx = np.floor(t).astype(np.int64)
+        high_idx = np.ceil(t).astype(np.int64)
+        w = t - low_idx
+        log_sigma = (1.0 - w) * self.log_sigmas[low_idx] + w * self.log_sigmas[high_idx]
+        return np.exp(log_sigma)
+
+    def get_scalings_torch(self, sigma):
+        """→ (c_skip, c_out, c_in) for a 0-dim float32 tensor sigma inside the
+        sampling loop: denoised = c_skip·x + c_out·model(c_in·x)."""
+        return 1.0, -sigma, 1.0 / torch.sqrt(sigma ** 2 + self.sigma_data ** 2)
+
+    def sigma_to_t_torch(self, sigma):
+        """The fractional DDPM timestep of a 0-dim float32 sigma on its
+        device, interpolated in log sigma (``sigma_to_t_jnp``)."""
+        log_sigmas = self._log_sigmas_dev.get(sigma.device)
+        if log_sigmas is None:
+            log_sigmas = torch.from_numpy(self.log_sigmas).to(sigma.device)
+            self._log_sigmas_dev[sigma.device] = log_sigmas
+        log_sigma = torch.log(sigma)
+        low_idx = torch.clamp((log_sigma - log_sigmas >= 0).sum() - 1, 0, TIMESTEPS - 2)
+        high_idx = low_idx + 1
+        low, high = log_sigmas[low_idx], log_sigmas[high_idx]
+        w = torch.clamp((low - log_sigma) / (low - high), 0.0, 1.0)
+        return (1.0 - w) * low_idx.float() + w * high_idx.float()
+
+    def noise_scaling(self, sigma, noise, latent):
+        return latent + noise * sigma
+
+    def inverse_noise_scaling(self, sigma, latent):
+        return latent
 
 
 def time_snr_shift(alpha: float, t):

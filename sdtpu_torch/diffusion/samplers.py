@@ -1,13 +1,17 @@
-"""The flow Euler and Euler-ancestral samplers (counterpart of
-``sdtpu/diffusion/samplers.py``: ``ancestral_steps``, ``_per_step_common``,
-``_euler_step``, ``_euler_a_step``, ``sample_stepwise``).
+"""The samplers the port runs (counterpart of ``sdtpu/diffusion/samplers.py``:
+``ancestral_steps``, ``_per_step_common``, ``_dpmpp_2m_coeffs``,
+``_euler_step``, ``_euler_a_step``, the non-flow
+``_dpmpp_2s_a_step``, ``_dpmpp_2m_step`` and the fixed-step
+``_ipndm_step``, driven as ``sample_stepwise`` drives them).
 
 Per-step scalars are precomputed on the host in numpy float32, as in the JAX
 package; its ``lax.scan`` becomes a Python loop over the same per-step
 arrays.  Each scalar reaches the device as a 0-dim float32 tensor, so the
-step arithmetic is float32 throughout.  ``euler_a`` at ``eta > 0`` takes
-its noise from a precomputed ``noises[steps, ...]`` stack drawn from the
-pipeline's ``rng`` stream, as the JAX pipeline draws it.
+step arithmetic is float32 throughout; the JAX steps' ``where`` selects on
+per-step values become branches on their host copies.  ``euler_a`` and
+``dpm++2s_a`` at ``eta > 0`` take their noise from a precomputed
+``noises[steps, ...]`` stack drawn from the pipeline's ``rng`` stream, as
+the JAX pipeline draws it.  Every other method raises by name.
 """
 from __future__ import annotations
 
@@ -17,7 +21,9 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-PORTED_METHODS = ("euler", "euler_a")
+PORTED_METHODS = ("euler", "euler_a", "dpm++2s_a", "dpm++2m", "ipndm")
+# the ported methods that draw per-step noise at eta > 0
+NOISY_METHODS = ("euler_a", "dpm++2s_a")
 
 
 def ancestral_steps(sigmas: np.ndarray, eta: float, is_flow: bool):
@@ -56,29 +62,60 @@ def ancestral_steps(sigmas: np.ndarray, eta: float, is_flow: bool):
     return down, up, alpha
 
 
+def dpmpp_2m_coeffs(sigmas: np.ndarray) -> Dict[str, np.ndarray]:
+    """DPM++ 2M's per-step (a, b_first, b_multi, r) in float32, as the JAX
+    package's ``_dpmpp_2m_coeffs(sigmas, v2=False)`` computes them."""
+    sigmas = np.asarray(sigmas, dtype=np.float32)
+    n = len(sigmas) - 1
+    a = np.zeros(n, dtype=np.float32)
+    b_first = np.zeros(n, dtype=np.float32)
+    b_multi = np.zeros(n, dtype=np.float32)
+    r_arr = np.ones(n, dtype=np.float32)
+    t_fn = lambda s: -math.log(max(float(s), 1e-20))  # noqa: E731
+    for i in range(n):
+        t, t_next = t_fn(sigmas[i]), t_fn(sigmas[i + 1])
+        h = t_next - t
+        a[i] = sigmas[i + 1] / sigmas[i]
+        b_first[i] = math.exp(-h) - 1.0
+        if i > 0 and sigmas[i + 1] != 0:
+            r_arr[i] = (t - t_fn(sigmas[i - 1])) / h
+            b_multi[i] = b_first[i]
+    return {"a": a, "b_first": b_first, "b_multi": b_multi, "r": r_arr}
+
+
 def per_step_arrays(sigmas: np.ndarray, method: str = "euler", eta: float = 0.0,
                     is_flow: bool = False) -> Dict[str, np.ndarray]:
-    """The per-step arrays of ``_per_step_common``; the ancestral ones only
-    for ``euler_a``, the one step that reads them."""
+    """The per-step arrays of ``_per_step_common`` and ``build_sampler``
+    that a method's step reads: the ancestral split for ``euler_a`` and
+    ``dpm++2s_a``, DPM++ 2M's coefficients."""
     sigmas = np.asarray(sigmas, dtype=np.float32)
     n = len(sigmas) - 1
     per = {"i": np.arange(n, dtype=np.int32), "sigma": sigmas[:n], "sigma_next": sigmas[1:n + 1]}
     if method == "euler_a":
         per["sigma_down"], per["sigma_up"], per["alpha_scale"] = ancestral_steps(sigmas, eta,
                                                                                  is_flow)
+    elif method == "dpm++2s_a":
+        if is_flow:
+            raise NotImplementedError("the flow form of sampler 'dpm++2s_a' is not ported yet")
+        per["sigma_down"], per["sigma_up"], _ = ancestral_steps(sigmas, eta, False)
+    elif method == "dpm++2m":
+        per.update(dpmpp_2m_coeffs(sigmas))
     return per
 
 
-# the per-step scalars each step reads on the device (``euler_a`` reads
-# sigma_next and sigma_up on the host as well)
+# the per-step scalars each step reads on the device (every per-step value
+# is also a host float in ``s["host"]``, for the JAX step's ``where`` selects)
 DEVICE_SCALARS = {"euler": ("sigma", "sigma_next"),
-                  "euler_a": ("sigma", "sigma_down", "sigma_up", "alpha_scale")}
+                  "euler_a": ("sigma", "sigma_down", "sigma_up", "alpha_scale"),
+                  "dpm++2s_a": ("sigma", "sigma_down", "sigma_up"),
+                  "dpm++2m": ("sigma", "a", "b_first", "b_multi", "r"),
+                  "ipndm": ("sigma", "sigma_next")}
 
 
 def method_needs_noise(method: str, eta: float) -> bool:
     """Whether a method draws per-step noise (``_method_needs_noise`` of the
     JAX pipeline, for the ported methods)."""
-    return method == "euler_a" and eta > 0.0
+    return method in NOISY_METHODS and eta > 0.0
 
 
 def _euler_step(model_fn: Callable):
@@ -111,6 +148,70 @@ def _euler_a_step(model_fn: Callable, is_flow: bool):
     return step
 
 
+def _dpmpp_2s_a_step(model_fn: Callable):
+    """DPM++ 2S ancestral (the non-flow ``_dpmpp_2s_a_step``).  Its last step
+    (sigma_down == 0) returns the first model call's denoised, so the second
+    call, which the JAX step makes and discards, is not made."""
+    def step(carry, s):
+        x = carry["x"]
+        host = s["host"]
+        den, _ = model_fn(x, s["sigma"], s["i"])
+        if host["sigma_down"] == 0.0:
+            x_new = den
+        else:
+            t = -torch.log(s["sigma"])
+            h = -torch.log(s["sigma_down"]) - t
+            sigma_s = torch.exp(-(t + 0.5 * h))
+            x2 = (sigma_s / s["sigma"]) * x - (torch.exp(-h * 0.5) - 1.0) * den
+            den2, _ = model_fn(x2, sigma_s, s["i"])
+            x_new = (s["sigma_down"] / s["sigma"]) * x - (torch.exp(-h) - 1.0) * den2
+        if "noise" in s and host["sigma_next"] > 0:
+            x_new = x_new + s["noise"] * s["sigma_up"]
+        return {"x": x_new}
+
+    return step
+
+
+def _dpmpp_2m_step(model_fn: Callable):
+    """DPM++ 2M (``_dpmpp_2m_step``, v2 off): the first and last steps are
+    first order, the rest extrapolate from the previous denoised."""
+    def step(carry, s):
+        x, old_den = carry["x"], carry["old_denoised"]
+        den, _ = model_fn(x, s["sigma"], s["i"])
+        if s["i"] == 0 or s["host"]["sigma_next"] == 0.0:
+            x_new = s["a"] * x - s["b_first"] * den
+        else:
+            r = s["r"]
+            den_d = (1.0 + 1.0 / (2.0 * r)) * den - (1.0 / (2.0 * r)) * old_den
+            x_new = s["a"] * x - s["b_multi"] * den_d
+        return {"x": x_new, "old_denoised": den}
+
+    return step
+
+
+def _ipndm_step(model_fn: Callable):
+    """iPNDM (``_ipndm_step``, fixed step): Adams-Bashforth of order
+    min(i + 1, 4) over the last three derivatives."""
+    def step(carry, s):
+        x, hist = carry["x"], carry["hist"]  # newest last
+        den, _ = model_fn(x, s["sigma"], s["i"])
+        d = (x - den) / s["sigma"]
+        h_n = s["sigma_next"] - s["sigma"]
+        h1, h2, h3 = hist[2], hist[1], hist[0]
+        order = min(s["i"] + 1, 4)
+        if order == 1:
+            upd = d
+        elif order == 2:
+            upd = (3.0 * d - h1) / 2.0
+        elif order == 3:
+            upd = (23.0 * d - 16.0 * h1 + 5.0 * h2) / 12.0
+        else:
+            upd = (55.0 * d - 59.0 * h1 + 37.0 * h2 - 9.0 * h3) / 24.0
+        return {"x": x + upd * h_n, "hist": [hist[1], hist[2], d]}
+
+    return step
+
+
 def sample(model_fn: Callable, x: torch.Tensor, sigmas: np.ndarray, method: str = "euler",
            noises: Optional[np.ndarray] = None, eta: float = 0.0, is_flow: bool = False,
            step_callback: Optional[Callable] = None) -> torch.Tensor:
@@ -123,21 +224,28 @@ def sample(model_fn: Callable, x: torch.Tensor, sigmas: np.ndarray, method: str 
             f"sampler {method!r} is not ported yet; ported: {list(PORTED_METHODS)}")
     per = per_step_arrays(sigmas, method, eta, is_flow)
     n = len(per["i"])
+    if method_needs_noise(method, eta) and noises is None:
+        raise ValueError(f"{method} at eta > 0 needs its per-step noises")
+    carry = {"x": x}
     if method == "euler":
         step = _euler_step(model_fn)
-    else:
-        if method_needs_noise(method, eta) and noises is None:
-            raise ValueError("euler_a at eta > 0 needs its per-step noises")
+    elif method == "euler_a":
         step = _euler_a_step(model_fn, is_flow)
+    elif method == "dpm++2s_a":
+        step = _dpmpp_2s_a_step(model_fn)
+    elif method == "dpm++2m":
+        step = _dpmpp_2m_step(model_fn)
+        carry["old_denoised"] = x
+    else:
+        step = _ipndm_step(model_fn)
+        carry["hist"] = [torch.zeros_like(x)] * 3
     dev = x.device
-    carry = {"x": x}
     for i in range(n):
         s = {k: torch.tensor(per[k][i], device=dev) for k in DEVICE_SCALARS[method]}
         s["i"] = int(per["i"][i])
-        if method == "euler_a":
-            s["host"] = {k: float(per[k][i]) for k in ("sigma_next", "sigma_up")}
-            if noises is not None:
-                s["noise"] = torch.from_numpy(np.ascontiguousarray(noises[i])).to(dev)
+        s["host"] = {k: float(v[i]) for k, v in per.items()}
+        if noises is not None and method in NOISY_METHODS:
+            s["noise"] = torch.from_numpy(np.ascontiguousarray(noises[i])).to(dev)
         carry = step(carry, s)
         if step_callback is not None and step_callback(i, carry["x"]) is False:
             break

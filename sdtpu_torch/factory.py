@@ -1,12 +1,14 @@
 """Pipeline construction (counterpart of ``sdtpu/factory.py``:
-``create_pipeline`` and its ``_create_flux_pipeline``).
+``create_pipeline``, its SD1 branch and ``_create_flux_pipeline``).
 
-FLUX is built from given params (this package's tensors, e.g. bridged with
-``sdtpu_torch.weights.from_jax_params``) or from random weights drawn on the
-target device.  Full-width random weights come in the memory classes of the
-JAX FLUX bench: the DiT as per-row int8 ``QuantTensor``s (q8_0), T5-XXL as
-packed 4-bit ``Q4Tensor``s (q4_0), CLIP-L and the VAE dense.  A given DiT
-runs at the depth its params hold (a checkpoint cut to fewer blocks).
+FLUX and SD1.x are built from given params (this package's tensors, e.g.
+bridged with ``sdtpu_torch.weights.from_jax_params``) or from random weights
+drawn on the target device.  Full-width random FLUX weights come in the
+memory classes of the JAX FLUX bench: the DiT as per-row int8
+``QuantTensor``s (q8_0), T5-XXL as packed 4-bit ``Q4Tensor``s (q4_0), CLIP-L
+and the VAE dense.  A given DiT runs at the depth its params hold (a
+checkpoint cut to fewer blocks).  SD1.x is dense throughout, as the JAX
+SD1.5 bench (``bench_sd15``) draws it.  Every other version raises by name.
 """
 from __future__ import annotations
 
@@ -15,12 +17,14 @@ from typing import Optional
 
 import torch
 
-from sdtpu_torch.conditioning.conditioner import FluxConditioner
+from sdtpu_torch.conditioning.conditioner import FluxConditioner, SD1Conditioner
 from sdtpu_torch.config import SDVersion
-from sdtpu_torch.diffusion.denoiser import FluxFlowDenoiser
+from sdtpu_torch.diffusion.denoiser import CompVisDenoiser, FluxFlowDenoiser
+from sdtpu_torch.io.model_loader import PORTED_VERSIONS
 from sdtpu_torch.models import clip as clip_mod
 from sdtpu_torch.models import flux as flux_mod
 from sdtpu_torch.models import t5 as t5_mod
+from sdtpu_torch.models import unet as unet_mod
 from sdtpu_torch.models import vae as vae_mod
 from sdtpu_torch.pipeline import DiffusionPipeline
 from sdtpu_torch.tokenizers.clip import CLIPTokenizer
@@ -49,6 +53,44 @@ def flux_configs(small: bool):
             vae_mod.FLUX_VAE_CONFIG, 256)
 
 
+def sd1_configs(small: bool):
+    """→ (unet, clip_l, vae) configs; the small set is the JAX factory's
+    small SD1 config (``unet_config_for(SD1, small=True)``, its CLIP and
+    VAE)."""
+    if small:
+        unet_cfg = unet_mod.UNetConfig(model_channels=32, num_res_blocks=1, channel_mult=(1, 2),
+                                       attention_resolutions=(1, 2), transformer_depth=(1, 1),
+                                       context_dim=64, num_heads=2)
+        clip_l_cfg = dataclasses.replace(clip_mod.CLIP_L_CONFIG, hidden_size=64,
+                                         intermediate_size=128, num_layers=2, num_heads=4)
+        vae_cfg = vae_mod.VAEConfig(base_channels=32, channel_mult=(1, 2, 2, 2), num_res_blocks=1)
+        return unet_cfg, clip_l_cfg, vae_cfg
+    return unet_mod.SD1_UNET_CONFIG, clip_mod.CLIP_L_CONFIG, vae_mod.SD_VAE_CONFIG
+
+
+def _create_sd1_pipeline(params: dict, rng_type: str, dtype: torch.dtype, small: bool, seed: int,
+                         device) -> DiffusionPipeline:
+    unet_cfg, clip_l_cfg, vae_cfg = sd1_configs(small)
+    specs = {"diffusion": unet_mod.param_specs(unet_cfg), "clip_l": clip_mod.param_specs(clip_l_cfg),
+             "vae": vae_mod.param_specs(vae_cfg)}
+    mods = {name: params.get(name) or synthesize(spec, seed=seed + SEED_OFFSET[name], device=device,
+                                                 dtype=dtype)
+            for name, spec in specs.items()}
+    conditioner = SD1Conditioner(CLIPTokenizer(), mods["clip_l"], clip_l_cfg, device=device)
+
+    def diffusion_fn(p, x, t, ctx, y, guidance=None):
+        return unet_mod.unet_forward(p, x, t, ctx, y=y, cfg=unet_cfg)
+
+    def vae_decode_fn(p, z):
+        return vae_mod.vae_decode(p, z, vae_cfg)
+
+    return DiffusionPipeline(
+        version=SDVersion.SD1, diffusion_params=mods["diffusion"], diffusion_fn=diffusion_fn,
+        conditioner=conditioner, vae_params=mods["vae"], vae_decode_fn=vae_decode_fn,
+        denoiser=CompVisDenoiser(), rng_type=rng_type, latent_channels=vae_cfg.z_channels,
+        compute_dtype=dtype, device=device)
+
+
 def _blocks(p: dict, prefix: str) -> int:
     return len({name.split(".")[1] for name in p if name.startswith(prefix + ".")})
 
@@ -57,12 +99,16 @@ def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] 
                     rng_type: str = "cuda", dtype: torch.dtype = torch.float32,
                     small: bool = False, seed: int = 0, t5_tokenizer=None,
                     device="cuda") -> DiffusionPipeline:
-    """params: dict with keys 'diffusion', 'clip_l', 't5', 'vae'; a missing
-    module gets random weights drawn on ``device`` (dense for the small
-    config, the bench's memory classes at full width)."""
-    if version != SDVersion.FLUX:
-        raise NotImplementedError(f"{version} is not ported yet; the port runs FLUX txt2img")
+    """params: dict with keys 'diffusion', 'clip_l', 't5' (FLUX only),
+    'vae'; a missing module gets random weights drawn on ``device`` (dense
+    for the small configs and SD1 at full width, the bench's memory classes
+    for FLUX at full width)."""
+    if version not in PORTED_VERSIONS:
+        raise NotImplementedError(f"{version} is not ported yet; the port runs "
+                                  f"{[v.name for v in PORTED_VERSIONS]} txt2img")
     params = params or {}
+    if version == SDVersion.SD1:
+        return _create_sd1_pipeline(params, rng_type, dtype, small, seed, device)
     dit_cfg, clip_l_cfg, t5_cfg, vae_cfg, t5_seq = flux_configs(small)
     specs = {"diffusion": flux_mod.param_specs(dit_cfg), "t5": t5_mod.param_specs(t5_cfg),
              "clip_l": clip_mod.param_specs(clip_l_cfg), "vae": vae_mod.param_specs(vae_cfg)}

@@ -1,7 +1,8 @@
-"""FLUX checkpoint files → per-module param dicts (this package's copy of the
-FLUX parts of ``sdtpu.io.model_loader``: ``load_model_bundle``,
-``split_modules``, ``read_checkpoint_file``, with the parts of
-``sdtpu/io/detect.py`` and ``sdtpu/io/name_conversion.py`` they use).
+"""FLUX and SD1.x checkpoint files → per-module param dicts (this package's
+copy of the FLUX and SD1 parts of ``sdtpu.io.model_loader``:
+``load_model_bundle``, ``split_modules``, ``read_checkpoint_file``, with the
+parts of ``sdtpu/io/detect.py`` and ``sdtpu/io/name_conversion.py`` they
+use).
 
 Read N GGUF or safetensors files under their per-file prefixes (a full
 checkpoint, the diffusion model, CLIP-L, T5-XXL, the VAE), convert
@@ -12,8 +13,10 @@ split the names into the modules' own.  Only the diffusion file keeps its
 GGUF blocks for the device (``keep_quant``); a quantized text-encoder or
 VAE file's 2-D tensors come back as ``HostQuant`` too, but only so each is
 dequantized on the host when it is staged, one at a time: by value they
-are the float32 arrays the JAX loader returns.  Any family but FLUX raises
-``NotImplementedError``.
+are the float32 arrays the JAX loader returns.  A single-file SD1.x
+checkpoint splits by its LDM prefixes (``model.diffusion_model.``,
+``cond_stage_model.transformer.``, ``first_stage_model.``).  Any family but
+FLUX and SD1 raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -170,12 +173,72 @@ def convert_diffusers_diffusion_names(tensors: Dict[str, np.ndarray]) -> Dict[st
     return _merge_fused_markers(out)
 
 
+# the families the port runs (``load_model_bundle`` and ``create_pipeline``
+# refuse every other by name)
+PORTED_VERSIONS = (SDVersion.FLUX, SDVersion.SD1)
+
+
+def _unet_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
+    """The JAX package's fingerprint of a UNet checkpoint (``detect_version``,
+    its UNet branch: the ``input_blocks.0.0.weight`` stem's input channels,
+    SDXL's label embedding or second text encoder, the cross-attention
+    context width 768 / 1024, the middle block of the full-size UNets)."""
+    def has_prefix(p):
+        return any(n.startswith(p) for n in names)
+
+    unet_key = next((c for c in (DIFFUSION_PREFIX + "input_blocks.0.0.weight",
+                                 "input_blocks.0.0.weight") if c in names), None)
+    if unet_key is None:
+        return SDVersion.UNKNOWN
+    if any("time_mixer.mix_factor" in n and "block" in n for n in names):
+        return SDVersion.SVD
+    in_channels = shapes.get(unet_key, (0, 4, 3, 3))[1]
+    if (has_prefix("conditioner.embedders.1") or DIFFUSION_PREFIX + "label_emb.0.0.weight" in names
+            or has_prefix("add_embedding")):
+        if in_channels == 9:
+            return SDVersion.SDXL_INPAINT
+        if in_channels == 8:
+            return SDVersion.SDXL_PIX2PIX
+        mid = DIFFUSION_PREFIX + "middle_block.1.transformer_blocks.{}.attn1.to_q.weight"
+        if mid.format(9) not in names and mid.format(0) not in names:
+            return SDVersion.SDXL_SSD1B
+        return SDVersion.SDXL
+    ctx_key = next((c for c in (
+        DIFFUSION_PREFIX + "input_blocks.4.1.transformer_blocks.0.attn2.to_k.weight",
+        DIFFUSION_PREFIX + "input_blocks.1.1.transformer_blocks.0.attn2.to_k.weight")
+        if c in names), None)
+    ctx_dim = shapes.get(ctx_key, (0, 768))[1] if ctx_key else None
+    is_sd2 = ctx_dim == 1024 or has_prefix("cond_stage_model.model.")
+    no_middle = (not has_prefix((DIFFUSION_PREFIX + "middle_block.1.", "middle_block.1."))
+                 and has_prefix((DIFFUSION_PREFIX + "output_blocks.", "output_blocks.")))
+    if is_sd2:
+        if in_channels == 9:
+            return SDVersion.SD2_INPAINT
+        if no_middle:
+            attn_k = None
+            for cand in (DIFFUSION_PREFIX + "output_blocks.7.1.transformer_blocks.0.attn1.to_k.weight",
+                         "output_blocks.7.1.transformer_blocks.0.attn1.to_k.weight"):
+                if cand in names:
+                    attn_k = shapes.get(cand, (0, 0))[-1]
+            return SDVersion.SDXS_09 if attn_k == 1024 else SDVersion.SD2_TINY_UNET
+        return SDVersion.SD2
+    if in_channels == 9:
+        return SDVersion.SD1_INPAINT
+    if in_channels == 8:
+        return SDVersion.SD1_PIX2PIX
+    if no_middle:
+        has_ob71 = has_prefix((DIFFUSION_PREFIX + "output_blocks.7.1", "output_blocks.7.1"))
+        return SDVersion.SD1_TINY_UNET if has_ob71 else SDVersion.SDXS_512_DS
+    return SDVersion.SD1
+
+
 def detect_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
-    """The JAX package's fingerprint of a double-block DiT (``detect_version``,
-    its ``double_blocks`` branch); UNKNOWN for anything without double blocks."""
+    """The JAX package's fingerprint (``detect_version``) of a double-block
+    DiT (its ``double_blocks`` branch) or a UNet (its UNet branch); UNKNOWN
+    for anything else."""
     names = set(names)
     if not any(n.startswith((DIFFUSION_PREFIX + "double_blocks", "double_blocks")) for n in names):
-        return SDVersion.UNKNOWN
+        return _unet_version(names, shapes)
     if any("nerf_final_layer_conv." in n for n in names):
         return SDVersion.CHROMA_RADIANCE
     if any("distilled_guidance_layer" in n for n in names):
@@ -351,9 +414,9 @@ def split_modules(tensors: Dict[str, np.ndarray]) -> ModelBundle:
 def load_model_bundle(model_path: Optional[str] = None, diffusion_model_path: Optional[str] = None,
                       clip_l_path: Optional[str] = None, t5xxl_path: Optional[str] = None,
                       vae_path: Optional[str] = None, keep_quant: bool = False) -> ModelBundle:
-    """FLUX.1 checkpoint files, each under its logical prefix, → ``ModelBundle``
-    (what the JAX package's ``load_model_bundle`` holds for them, by value).
-    Raises ``NotImplementedError`` for any model but FLUX."""
+    """FLUX.1 or SD1.x checkpoint files, each under its logical prefix, →
+    ``ModelBundle`` (what the JAX package's ``load_model_bundle`` holds for
+    them, by value).  Raises ``NotImplementedError`` for any other model."""
     tensors: Dict[str, np.ndarray] = {}
     if model_path:
         tensors.update(read_checkpoint_file(model_path, keep_quant=keep_quant))
@@ -374,7 +437,7 @@ def load_model_bundle(model_path: Optional[str] = None, diffusion_model_path: Op
                 kk = prefix + kk
             tensors[kk] = v
     bundle = split_modules(tensors)
-    if bundle.version != SDVersion.FLUX:
-        raise NotImplementedError(f"the files hold a {bundle.version.value} model; "
-                                  "the port loads FLUX")
+    if bundle.version not in PORTED_VERSIONS:
+        raise NotImplementedError(f"the files hold a {bundle.version.value} model; the port "
+                                  f"loads {[v.value for v in PORTED_VERSIONS]}")
     return bundle

@@ -1,0 +1,288 @@
+"""SD1.x UNet (counterpart of the SD1 subset of ``sdtpu/models/unet.py``).
+
+Params are a flat dict keyed by CompVis checkpoint names
+(``input_blocks.N.M.…``, ``middle_block.…``, ``output_blocks.…``,
+``time_embed.…``, ``out.…``); activations are NHWC.  Convolutions and dense
+linears run as cuDNN / ``torch.matmul`` calls, as the JAX package leaves
+them to XLA; attention goes through ``ops.attention`` (the flash kernel on
+the card: 8 heads over 320, 640 and 1280 channels, so D 40, 80 and 160).
+
+Structure (CompVis openaimodel semantics):
+  time_embed: Linear→SiLU→Linear on the sinusoidal timestep embedding
+  input blocks: conv stem, then per level {ResBlock [+SpatialTransformer]}×n,
+    strided-conv Downsample between levels
+  middle: ResBlock, SpatialTransformer, ResBlock
+  output blocks: mirrored with skip concatenation, nearest-2x Upsample
+  out: GroupNorm→SiLU→conv
+The SD2 (linear projections, head channels), SDXL (label embedding), tiny
+and video (SVD) variants are not ported yet, and the config has none of
+their fields: the loader and ``create_pipeline`` refuse those families by
+name.  ControlNet residuals, IP-Adapter and AnimateDiff are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from sdtpu_torch.ops import attention, conv2d, gelu, group_norm, layer_norm, linear, silu, timestep_embedding
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    model_channels: int = 320
+    num_res_blocks: int = 2
+    channel_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    attention_resolutions: Tuple[int, ...] = (1, 2, 4)  # ds values with attention
+    transformer_depth: Tuple[int, ...] = (1, 1, 1, 1)  # per level
+    context_dim: int = 768
+    num_heads: int = 8
+
+
+SD1_UNET_CONFIG = UNetConfig()
+
+
+def resblock(p, pre: str, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """CompVis ResBlock: GN→SiLU→conv, +time-emb, GN→SiLU→conv, skip."""
+    out_ch = p[f"{pre}.out_layers.3.weight"].shape[0]
+    h = silu(group_norm(x, p[f"{pre}.in_layers.0.weight"], p[f"{pre}.in_layers.0.bias"], eps=1e-5))
+    h = conv2d(h, p[f"{pre}.in_layers.2.weight"], p[f"{pre}.in_layers.2.bias"])
+    emb_out = linear(silu(emb), p[f"{pre}.emb_layers.1.weight"], p[f"{pre}.emb_layers.1.bias"])
+    h = h + emb_out[:, None, None, :].to(h.dtype)
+    h = silu(group_norm(h, p[f"{pre}.out_layers.0.weight"], p[f"{pre}.out_layers.0.bias"], eps=1e-5))
+    h = conv2d(h, p[f"{pre}.out_layers.3.weight"], p[f"{pre}.out_layers.3.bias"])
+    if x.shape[-1] != out_ch:
+        x = conv2d(x, p[f"{pre}.skip_connection.weight"], p[f"{pre}.skip_connection.bias"], padding=0)
+    return x + h
+
+
+def cross_attention(p, pre: str, x: torch.Tensor, context: Optional[torch.Tensor],
+                    num_heads: int) -> torch.Tensor:
+    """attn1 (self, context=None) / attn2 (cross); to_q/k/v have no bias."""
+    b, l, c = x.shape
+    ctx = x if context is None else context
+    d = c // num_heads
+
+    def heads(t, n):
+        return t.reshape(b, n, num_heads, d).transpose(1, 2)
+
+    q = heads(linear(x, p[f"{pre}.to_q.weight"]), l)
+    k = heads(linear(ctx, p[f"{pre}.to_k.weight"]), ctx.shape[1])
+    v = heads(linear(ctx, p[f"{pre}.to_v.weight"]), ctx.shape[1])
+    o = attention(q, k, v).transpose(1, 2).reshape(b, l, c)
+    return linear(o, p[f"{pre}.to_out.0.weight"], p[f"{pre}.to_out.0.bias"])
+
+
+def geglu_ff(p, pre: str, x: torch.Tensor) -> torch.Tensor:
+    h = linear(x, p[f"{pre}.net.0.proj.weight"], p[f"{pre}.net.0.proj.bias"])
+    a, g = h.chunk(2, dim=-1)
+    return linear(a * gelu(g), p[f"{pre}.net.2.weight"], p[f"{pre}.net.2.bias"])
+
+
+def transformer_block(p, pre: str, x: torch.Tensor, context: torch.Tensor,
+                      num_heads: int) -> torch.Tensor:
+    h = layer_norm(x, p[f"{pre}.norm1.weight"], p[f"{pre}.norm1.bias"])
+    x = x + cross_attention(p, f"{pre}.attn1", h, None, num_heads)
+    h = layer_norm(x, p[f"{pre}.norm2.weight"], p[f"{pre}.norm2.bias"])
+    x = x + cross_attention(p, f"{pre}.attn2", h, context, num_heads)
+    h = layer_norm(x, p[f"{pre}.norm3.weight"], p[f"{pre}.norm3.bias"])
+    return x + geglu_ff(p, f"{pre}.ff", h)
+
+
+def spatial_transformer(p, pre: str, x: torch.Tensor, context: torch.Tensor, cfg: UNetConfig,
+                        depth: int) -> torch.Tensor:
+    """GroupNorm, 1x1-conv ``proj_in``, ``depth`` transformer blocks over the
+    H·W tokens, 1x1-conv ``proj_out``, residual."""
+    b, hh, ww, c = x.shape
+    h = group_norm(x, p[f"{pre}.norm.weight"], p[f"{pre}.norm.bias"], eps=1e-6)
+    h = conv2d(h, p[f"{pre}.proj_in.weight"], p[f"{pre}.proj_in.bias"], padding=0)
+    h = h.reshape(b, hh * ww, c)
+    for k in range(depth):
+        h = transformer_block(p, f"{pre}.transformer_blocks.{k}", h, context, cfg.num_heads)
+    h = h.reshape(b, hh, ww, c)
+    h = conv2d(h, p[f"{pre}.proj_out.weight"], p[f"{pre}.proj_out.bias"], padding=0)
+    return x + h
+
+
+def upsample(p, pre: str, x: torch.Tensor) -> torch.Tensor:
+    x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    return conv2d(x, p[f"{pre}.conv.weight"], p[f"{pre}.conv.bias"])
+
+
+def _block_layout(cfg: UNetConfig):
+    """Static layout of (input_blocks, output_blocks) with CompVis block
+    indices.  inputs: [(idx, [kinds])]; outputs: [(idx, [kinds], up)] where
+    up is None or (up_idx, up_sub) naming the UpSample conv position."""
+    inputs = [(0, ["conv"])]
+    ds = 1
+    idx = 0
+    for level, _ in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            idx += 1
+            blk = ["res"]
+            if ds in cfg.attention_resolutions and cfg.transformer_depth[level] > 0:
+                blk.append(("attn", cfg.transformer_depth[level]))
+            inputs.append((idx, blk))
+        if level != len(cfg.channel_mult) - 1:
+            idx += 1
+            inputs.append((idx, ["down"]))
+            ds *= 2
+    outputs = []
+    obi = 0
+    for level in reversed(range(len(cfg.channel_mult))):
+        for i in range(cfg.num_res_blocks + 1):
+            blk = ["res"]
+            up_sub = 1
+            if ds in cfg.attention_resolutions and cfg.transformer_depth[level] > 0:
+                blk.append(("attn", cfg.transformer_depth[level]))
+                up_sub += 1
+            up = None
+            if level != 0 and i == cfg.num_res_blocks:
+                up = (obi, up_sub)
+                ds //= 2
+            outputs.append((obi, blk, up))
+            obi += 1
+    return inputs, outputs
+
+
+def unet_forward(p, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
+                 y: Optional[torch.Tensor] = None, cfg: UNetConfig = SD1_UNET_CONFIG) -> torch.Tensor:
+    """x: [B,H,W,C] latent (NHWC), timesteps: [B], context: [B,L,ctx] →
+    eps prediction [B,H,W,out].  ``y`` (SDXL's vector) must be None."""
+    if y is not None:
+        raise NotImplementedError("the UNet's label embedding (SDXL) is not ported yet")
+    t_emb = timestep_embedding(timesteps, cfg.model_channels).to(x.dtype)
+    emb = linear(t_emb, p["time_embed.0.weight"], p["time_embed.0.bias"])
+    emb = linear(silu(emb), p["time_embed.2.weight"], p["time_embed.2.bias"])
+    context = context.to(x.dtype)
+
+    inputs, outputs = _block_layout(cfg)
+    hs = []
+    h = x
+    for bi, blk in inputs:
+        for j, kind in enumerate(blk):
+            pre = f"input_blocks.{bi}.{j}"
+            if kind == "conv":
+                h = conv2d(h, p[f"{pre}.weight"], p[f"{pre}.bias"])
+            elif kind == "res":
+                h = resblock(p, pre, h, emb)
+            elif kind == "down":
+                h = conv2d(h, p[f"{pre}.op.weight"], p[f"{pre}.op.bias"], stride=2)
+            else:
+                h = spatial_transformer(p, pre, h, context, cfg, kind[1])
+        hs.append(h)
+
+    h = resblock(p, "middle_block.0", h, emb)
+    mid_depth = cfg.transformer_depth[-1] if cfg.transformer_depth[-1] > 0 else 1
+    h = spatial_transformer(p, "middle_block.1", h, context, cfg, mid_depth)
+    h = resblock(p, "middle_block.2", h, emb)
+
+    for bi, blk, up in outputs:
+        h = torch.cat([h, hs.pop()], dim=-1)
+        for j, kind in enumerate(blk):
+            pre = f"output_blocks.{bi}.{j}"
+            if kind == "res":
+                h = resblock(p, pre, h, emb)
+            else:
+                h = spatial_transformer(p, pre, h, context, cfg, kind[1])
+        if up is not None:
+            h = upsample(p, f"output_blocks.{up[0]}.{up[1]}", h)
+
+    h = silu(group_norm(h, p["out.0.weight"], p["out.0.bias"], eps=1e-5))
+    return conv2d(h, p["out.2.weight"], p["out.2.bias"])
+
+
+def param_specs(cfg: UNetConfig) -> dict:
+    """name → (shape, init) for every tensor ``unet_forward`` reads; init is
+    'normal' (std 0.02), 'zeros' (biases) or 'ones' (norm gains), as the JAX
+    ``unet_param_shapes`` / ``init_unet_params`` set them."""
+    specs = {}
+
+    def w(name, *shape):
+        specs[name] = (tuple(shape), "normal")
+
+    def norm(name, ch):
+        specs[f"{name}.weight"] = ((ch,), "ones")
+        specs[f"{name}.bias"] = ((ch,), "zeros")
+
+    def lin(name, out_c, in_c, bias=True):
+        w(f"{name}.weight", out_c, in_c)
+        if bias:
+            specs[f"{name}.bias"] = ((out_c,), "zeros")
+
+    def conv(name, out_c, in_c, k=3):
+        w(f"{name}.weight", out_c, in_c, k, k)
+        specs[f"{name}.bias"] = ((out_c,), "zeros")
+
+    def res(pre, in_c, out_c, emb_dim):
+        norm(f"{pre}.in_layers.0", in_c)
+        conv(f"{pre}.in_layers.2", out_c, in_c)
+        lin(f"{pre}.emb_layers.1", out_c, emb_dim)
+        norm(f"{pre}.out_layers.0", out_c)
+        conv(f"{pre}.out_layers.3", out_c, out_c)
+        if in_c != out_c:
+            conv(f"{pre}.skip_connection", out_c, in_c, k=1)
+
+    def attn_block(pre, dim, ctx):
+        lin(f"{pre}.to_q", dim, dim, bias=False)
+        lin(f"{pre}.to_k", dim, ctx, bias=False)
+        lin(f"{pre}.to_v", dim, ctx, bias=False)
+        lin(f"{pre}.to_out.0", dim, dim)
+
+    def spatial(pre, dim, depth):
+        norm(f"{pre}.norm", dim)
+        conv(f"{pre}.proj_in", dim, dim, k=1)
+        conv(f"{pre}.proj_out", dim, dim, k=1)
+        for k in range(depth):
+            tb = f"{pre}.transformer_blocks.{k}"
+            norm(f"{tb}.norm1", dim)
+            attn_block(f"{tb}.attn1", dim, dim)
+            norm(f"{tb}.norm2", dim)
+            attn_block(f"{tb}.attn2", dim, cfg.context_dim)
+            norm(f"{tb}.norm3", dim)
+            lin(f"{tb}.ff.net.0.proj", dim * 8, dim)
+            lin(f"{tb}.ff.net.2", dim, dim * 4)
+
+    mc = cfg.model_channels
+    emb_dim = 4 * mc
+    lin("time_embed.0", emb_dim, mc)
+    lin("time_embed.2", emb_dim, emb_dim)
+    conv("input_blocks.0.0", mc, cfg.in_channels)
+
+    layout_in, layout_out = _block_layout(cfg)
+    skips = [mc]
+    cur = mc
+    level = 0
+    for bi, blk in layout_in[1:]:
+        if blk == ["down"]:
+            conv(f"input_blocks.{bi}.0.op", cur, cur)
+            level += 1
+        else:
+            out_c = cfg.channel_mult[level] * mc
+            res(f"input_blocks.{bi}.0", cur, out_c, emb_dim)
+            cur = out_c
+            if len(blk) > 1:
+                spatial(f"input_blocks.{bi}.1", out_c, blk[1][1])
+        skips.append(cur)
+
+    top = cfg.channel_mult[-1] * mc
+    res("middle_block.0", top, top, emb_dim)
+    spatial("middle_block.1", top, cfg.transformer_depth[-1] if cfg.transformer_depth[-1] > 0 else 1)
+    res("middle_block.2", top, top, emb_dim)
+
+    for oi, (bi, blk, up) in enumerate(layout_out):
+        lvl = len(cfg.channel_mult) - 1 - oi // (cfg.num_res_blocks + 1)
+        out_c = cfg.channel_mult[lvl] * mc
+        res(f"output_blocks.{bi}.0", cur + skips.pop(), out_c, emb_dim)
+        cur = out_c
+        if len(blk) > 1:
+            spatial(f"output_blocks.{bi}.1", out_c, blk[1][1])
+        if up is not None:
+            conv(f"output_blocks.{up[0]}.{up[1]}.conv", out_c, out_c)
+
+    norm("out.0", mc)
+    conv("out.2", cfg.out_channels, mc)
+    return specs

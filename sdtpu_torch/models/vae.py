@@ -2,7 +2,8 @@
 
 Params are keyed by CompVis ``first_stage_model`` names
 (``decoder.up.N.block.M.…``); activations are NHWC.  The mid-block attention
-is single-head over every latent position (D = 512 at FLUX width).
+is single-head over every latent position (D = 512 at full width, FLUX's
+and SD1.x's alike).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ class VAEConfig:
     shift_factor: float = 0.0
 
 
+SD_VAE_CONFIG = VAEConfig()  # SD1.x: 4 latent channels, scale 0.18215, no shift
 FLUX_VAE_CONFIG = VAEConfig(z_channels=16, scale_factor=0.3611, shift_factor=0.1159)
 
 

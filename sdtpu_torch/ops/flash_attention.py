@@ -18,7 +18,9 @@ import torch
 
 from . import _build
 
-SUPPORTED_HEAD_DIMS = (64, 128, 512)
+# 40, 80 and 160: the SD1.5 UNet's 8 heads over 320, 640 and 1280 channels;
+# 64: CLIP-L; 128: the FLUX DiT; 512: the VAE mid-block
+SUPPORTED_HEAD_DIMS = (40, 64, 80, 128, 160, 512)
 
 
 def plain_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.Tensor:
@@ -48,7 +50,9 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.
     k and v are cast to q's dtype first, as on the TPU.  CUDA tensors launch
     the kernel (bf16 or f32, D in SUPPORTED_HEAD_DIMS) or raise.  Every launch
     counts in ``launches``; bf16 at D 512 also in ``launches_d512``, bf16 at
-    D 64 (CLIP's) in ``launches_d64``, float32 in ``launches_f32``."""
+    D 64 (CLIP's) in ``launches_d64``, float32 in ``launches_f32``, and
+    either dtype at the UNet's D 40, 80 and 160 in ``launches_d40``,
+    ``launches_d80`` and ``launches_d160``."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if scale is None:
@@ -87,8 +91,12 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.
     flash_attention.launches_d512 += d == 512 and q.dtype == torch.bfloat16
     flash_attention.launches_d64 += d == 64 and q.dtype == torch.bfloat16
     flash_attention.launches_f32 += q.dtype == torch.float32
+    flash_attention.launches_d40 += d == 40
+    flash_attention.launches_d80 += d == 80
+    flash_attention.launches_d160 += d == 160
     return out
 
 
 flash_attention.launches = flash_attention.launches_d512 = flash_attention.launches_f32 = 0
 flash_attention.launches_d64 = 0
+flash_attention.launches_d40 = flash_attention.launches_d80 = flash_attention.launches_d160 = 0

@@ -1,10 +1,13 @@
-"""FLUX txt2img pipeline (counterpart of the FLUX txt2img part of
+"""txt2img pipeline for FLUX and SD1.x (counterpart of the txt2img part of
 ``sdtpu/pipeline.py``: ``DiffusionPipeline.generate``, ``txt2img``,
-``set_vae_tiling`` and the tiled decode).
+``set_vae_tiling``, the tiled decode and ``_match_context``).
 
-Samplers: ``euler`` and ``euler_a``; at ``eta > 0`` euler_a's per-step
-noise follows the initial noise in each batch item's ``rng`` stream, as the
-JAX pipeline draws it.  ``generate`` takes the JAX pipeline's
+Samplers: ``sdtpu_torch.diffusion.samplers.PORTED_METHODS``; at ``eta > 0``
+an ancestral sampler's per-step noise follows the initial noise in each
+batch item's ``rng`` stream, as the JAX pipeline draws it.  The latent's
+channels and the schedule come from the model (FLUX's 16-channel flow
+latent, SD1's 4-channel eps latent on the DDPM table); SD1 has no pooled
+vector (``y``) and no distilled guidance.  ``generate`` takes the JAX pipeline's
 ``progress_callback(step, steps, x)`` and ``cancel_check()`` (a server
 job's progress and cancellation): both run after each step, and a cancelled
 request decodes the latents it reached.
@@ -47,8 +50,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _tile(x: torch.Tensor, bc: int) -> torch.Tensor:
+def _tile(x: Optional[torch.Tensor], bc: int) -> Optional[torch.Tensor]:
+    if x is None:
+        return None
     return x.repeat((bc,) + (1,) * (x.dim() - 1))
+
+
+def _pad_tokens_by_repeat(x: torch.Tensor, target: int) -> torch.Tensor:
+    """Repeat the last 77-token chunk up to ``target`` tokens (CLIP
+    chunking); a context not in 77-token chunks is zero-padded."""
+    if x.shape[1] == target:
+        return x
+    if (target - x.shape[1]) % 77 == 0 and x.shape[1] >= 77:
+        reps = (target - x.shape[1]) // 77
+        return torch.cat([x] + [x[:, -77:, :]] * reps, dim=1)
+    pad = x.new_zeros((x.shape[0], target - x.shape[1], x.shape[2]))
+    return torch.cat([x, pad], dim=1)
+
+
+def _match_context(c: torch.Tensor, u: Optional[torch.Tensor], bc: int):
+    """Pad the cond and uncond contexts to one token length (their chunk
+    counts may differ), then tile both to the batch."""
+    if u is not None and c.shape[1] != u.shape[1]:
+        target = max(c.shape[1], u.shape[1])
+        c, u = _pad_tokens_by_repeat(c, target), _pad_tokens_by_repeat(u, target)
+    return _tile(c, bc), _tile(u, bc)
 
 
 class DiffusionPipeline:
@@ -120,7 +146,7 @@ class DiffusionPipeline:
             if has_uncond:
                 x_both = torch.cat([x_in, x_in], dim=0)
                 ctx = torch.cat([ctx_c, ctx_u], dim=0)
-                y = torch.cat([y_c, y_u], dim=0)
+                y = torch.cat([y_c, y_u], dim=0) if y_c is not None else None
                 g = torch.cat([guidance, guidance], dim=0) if guidance is not None else None
                 tt = t.reshape(1).expand(2 * b).to(torch.float32)
                 out = self.diffusion_fn(self.diffusion_params, x_both, tt, ctx, y,
@@ -142,9 +168,8 @@ class DiffusionPipeline:
     @torch.inference_mode()
     def generate(self, gp: GenerationParams, progress_callback: Optional[Callable] = None,
                  cancel_check: Optional[Callable] = None) -> GenerationResult:
-        """FLUX txt2img for one GenerationParams: conditioning → flow Euler or
-        Euler-ancestral sampling (CFG when cfg_scale != 1) → (tiled) VAE
-        decode.  progress_callback(step, steps, x) after each step (False
+        """txt2img for one GenerationParams: conditioning → sampling (CFG
+        when cfg_scale != 1) → (tiled) VAE decode.  progress_callback(step, steps, x) after each step (False
         stops); cancel_check() before it (True stops)."""
         if gp.custom_sigmas:
             raise NotImplementedError("custom sigmas are not ported yet")
@@ -162,8 +187,8 @@ class DiffusionPipeline:
                   if has_uncond else None)
         _sync(dev)
         t_cond = time.time() - tc0
-        ctx_c = _tile(cond.c_crossattn, bc)
-        ctx_u = _tile(uncond.c_crossattn, bc) if uncond is not None else None
+        ctx_c, ctx_u = _match_context(cond.c_crossattn,
+                                      uncond.c_crossattn if uncond is not None else None, bc)
         y_c = _tile(cond.c_vector, bc)
         y_u = _tile(uncond.c_vector, bc) if uncond is not None else None
 

@@ -1,5 +1,5 @@
-"""HTTP server for the PyTorch/CUDA port: FLUX.1 txt2img behind the reference's
-three API families (this package's copy of ``sdtpu/server.py``: ``Job``,
+"""HTTP server for the PyTorch/CUDA port: FLUX.1 and SD1.x txt2img behind the
+reference's three API families (this package's copy of ``sdtpu/server.py``: ``Job``,
 ``JobManager``, ``flatten_native_params``, ``extract_extra_args``,
 ``params_from_json``, the txt2img part of ``run_generation``,
 ``make_handler``, ``serve`` and ``main``).
@@ -16,7 +16,7 @@ Routes the port answers:
   OpenAI:  POST /v1/images/generations, GET /v1/models
 Every other route answers 501 with a JSON error naming it (no web UI).  A
 request that asks for what the port does not run (img2img fields, hires,
-LoRA, video, a sampler other than euler / euler_a, jpeg / webp output)
+LoRA, video, a sampler outside samplers.PORTED_METHODS, jpeg / webp output)
 answers 400, or fails its job, naming it.
 
 One generation at a time (a mutex around the pipeline); the native family
@@ -234,7 +234,7 @@ def _refuse_unported(data: dict, gp: GenerationParams) -> None:
     for field, what in UNPORTED_FIELDS.items():
         if data.get(field):
             raise ValueError(f"request field {field!r}: {what} is not ported "
-                             "(the port runs FLUX.1 txt2img)")
+                             "(the port runs FLUX.1 and SD1.x txt2img)")
     if gp.sample_method not in PORTED_METHODS:
         raise ValueError(f"sampler {gp.sample_method!r} is not ported; "
                          f"ported: {list(PORTED_METHODS)}")
@@ -293,8 +293,8 @@ def make_handler(manager: JobManager):
             self.wfile.write(body)
 
         def _not_ported(self, method: str, p: str):
-            self._json({"error": f"{method} {p} is not ported (the port serves FLUX.1 txt2img)"},
-                       501)
+            self._json({"error": f"{method} {p} is not ported "
+                                  "(the port serves FLUX.1 and SD1.x txt2img)"}, 501)
 
         def _read_json(self) -> Optional[dict]:
             """→ parsed body, or None after replying 400 to a bad payload."""

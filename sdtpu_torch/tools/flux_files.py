@@ -175,7 +175,7 @@ def _gguf_from_specs(path: Path, specs: dict, draw: _Draw, min_elems: int, metad
 def write_safetensors(path: Path, specs: dict, draw: _Draw, dtype=torch.float32) -> int:
     """A safetensors file of ``specs`` drawn by ``draw`` in ``dtype``, tensor
     by tensor → bytes written."""
-    name = {torch.float32: "F32", torch.bfloat16: "BF16"}[dtype]
+    name = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16"}[dtype]
     size = torch.tensor([], dtype=dtype).element_size()
     header, offset = {}, 0
     for n, (shape, _) in specs.items():

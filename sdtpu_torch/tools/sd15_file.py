@@ -1,0 +1,72 @@
+"""A synthetic SD1.5 single-file checkpoint on disk, at full width, from
+seeded values (the file a user passes to ``python -m sdtpu_torch.cli -m``).
+
+    python -m sdtpu_torch.tools.sd15_file OUT.safetensors
+
+One safetensors file in float16 (about 2.1 GB), under the original LDM
+names, written tensor by tensor (no whole float source is ever held; values
+are drawn on the device from fixed seeds, std 0.02 weights, unit norm gains,
+zero biases):
+  model.diffusion_model.*          the SD1.x UNet (``SD1_UNET_CONFIG``);
+  cond_stage_model.transformer.*   CLIP-L's text tower (``CLIP_L_CONFIG``);
+  first_stage_model.*              the SD VAE (``SD_VAE_CONFIG``), encoder,
+                                   ``quant_conv`` and ``post_quant_conv``
+                                   included.
+Both packages' loaders fingerprint it as SD1 (a 4-channel UNet stem, a
+768-wide cross-attention context, a middle block, no label embedding).
+"""
+from __future__ import annotations
+
+import json
+import shutil
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from sdtpu_torch.models import clip as clip_mod
+from sdtpu_torch.models import unet as unet_mod
+from sdtpu_torch.models import vae as vae_mod
+from sdtpu_torch.tools.flux_files import _Draw, vae_encoder_specs, write_safetensors
+
+PREFIXES = {"diffusion": "model.diffusion_model.", "clip_l": "cond_stage_model.transformer.",
+            "vae": "first_stage_model."}
+DTYPE = torch.float16  # as SD1.5 files ship
+SEED = 0
+
+
+def file_specs() -> dict:
+    """name → (shape, init) of every tensor of the file, LDM-prefixed."""
+    vae_cfg = vae_mod.SD_VAE_CONFIG
+    z2 = 2 * vae_cfg.z_channels
+    vae = {**vae_encoder_specs(vae_cfg),
+           "quant_conv.weight": ((z2, z2, 1, 1), "normal"), "quant_conv.bias": ((z2,), "zeros"),
+           **vae_mod.param_specs(vae_cfg)}
+    mods = {"diffusion": unet_mod.param_specs(unet_mod.SD1_UNET_CONFIG),
+            "clip_l": clip_mod.param_specs(clip_mod.CLIP_L_CONFIG), "vae": vae}
+    return {PREFIXES[m] + n: v for m, specs in mods.items() for n, v in specs.items()}
+
+
+def write_sd15_file(path, device="cuda") -> dict:
+    """Write the file → {"path", "bytes", "write_s", "tensors"}.  Raises
+    before writing where the disk has too little free space."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    specs = file_specs()
+    size = torch.tensor([], dtype=DTYPE).element_size()
+    need = sum(int(np.prod(s)) for s, _ in specs.values()) * size + (1 << 28)
+    free = shutil.disk_usage(path.parent).free
+    if free < need:
+        raise RuntimeError(f"{path.parent}: {free / 2**30:.1f} GiB free, the SD1.5 file needs "
+                           f"{need / 2**30:.1f} GiB")
+    t0 = time.time()
+    n = write_safetensors(path, specs, _Draw(SEED, device), DTYPE)
+    return {"path": str(path), "bytes": n, "write_s": time.time() - t0, "tensors": len(specs)}
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 2:
+        raise SystemExit(__doc__)
+    print(json.dumps(write_sd15_file(sys.argv[1]), indent=1))

@@ -1,4 +1,4 @@
-"""Small FLUX checkpoint files for the port's entry-point tests.
+"""Small FLUX and SD1 checkpoint files for the port's entry-point tests.
 
 The weights are the JAX package's small FLUX pipeline (``create_pipeline(
 SDVersion.FLUX, small=True, seed=0)``), written as a user's file set: the DiT
@@ -6,7 +6,9 @@ as a q8_0 GGUF, CLIP-L as safetensors, T5 as a q8_0 GGUF under llama.cpp
 names with a unigram vocab embedded as ``tokenizer.ggml.*``, and the VAE
 (encoder included) as safetensors; the vocab and the llama.cpp names are
 ``sdtpu_torch.tools.flux_files``'s.  ``small_configs`` swaps the full-size
-configs the CLIs load with for the small ones, in both packages.
+configs the CLIs load with for the small ones, in both packages.  The SD1
+file is the JAX package's small SD1 pipeline as one float16 safetensors
+under the LDM names; ``small_sd1_configs`` swaps SD1's full-size configs.
 """
 import dataclasses
 import struct
@@ -79,5 +81,43 @@ def small_configs(monkeypatch):
                                       ((tclip, jclip), "CLIP_L_CONFIG", clip),
                                       ((tt5, jt5), "T5_XXL_CONFIG", t5),
                                       ((tvae, jvae), "FLUX_VAE_CONFIG", vae)):
+        monkeypatch.setattr(tmod, name, small)
+        monkeypatch.setattr(jmod, name, type(getattr(jmod, name))(**dataclasses.asdict(small)))
+
+
+def small_sd1_pipeline():
+    return jax_create_pipeline(jconfig.SDVersion.SD1, small=True, seed=0)
+
+
+def write_small_sd1_file(directory, jp=None) -> str:
+    """The small SD1 pipeline's weights as one single-file checkpoint under
+    the LDM names (``model.diffusion_model.``, ``cond_stage_model.transformer.``,
+    ``first_stage_model.``), float16 as SD1.5 files ship → its path."""
+    jp = jp or small_sd1_pipeline()
+    path = f"{directory}/sd15_small.safetensors"
+    host = {}
+    for prefix, params in (("model.diffusion_model.", jp.diffusion_params),
+                           ("cond_stage_model.transformer.", jp.conditioner.params),
+                           ("first_stage_model.", jp.vae_params)):
+        host.update({prefix + k: np.asarray(v, dtype=np.float16) for k, v in params.items()})
+    save_safetensors(path, host)
+    return path
+
+
+def small_sd1_configs(monkeypatch):
+    """Swap the three full-size configs both CLIs load SD1 with for the
+    small SD1 configs of both factories."""
+    import sdtpu.models.clip as jclip
+    import sdtpu.models.unet as junet
+    import sdtpu.models.vae as jvae
+    import sdtpu_torch.models.clip as tclip
+    import sdtpu_torch.models.unet as tunet
+    import sdtpu_torch.models.vae as tvae
+    from sdtpu_torch.factory import sd1_configs
+
+    unet, clip, vae = sd1_configs(small=True)
+    for (tmod, jmod), name, small in (((tunet, junet), "SD1_UNET_CONFIG", unet),
+                                      ((tclip, jclip), "CLIP_L_CONFIG", clip),
+                                      ((tvae, jvae), "SD_VAE_CONFIG", vae)):
         monkeypatch.setattr(tmod, name, small)
         monkeypatch.setattr(jmod, name, type(getattr(jmod, name))(**dataclasses.asdict(small)))

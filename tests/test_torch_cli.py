@@ -2,13 +2,16 @@
 
 Both CLIs load the files written by ``tests/_torch_files.py`` (the JAX
 package's small FLUX weights as a q8_0 DiT GGUF, CLIP-L and VAE
-safetensors, a q8_0 T5 GGUF under llama.cpp names with an embedded vocab),
-with their four full-size configs swapped for the small ones.  The port runs
+safetensors, a q8_0 T5 GGUF under llama.cpp names with an embedded vocab;
+its small SD1 weights as one float16 single-file checkpoint), with their
+full-size configs swapped for the small ones.  The port runs
 with ``--backend cpu``.  Their images may differ by one uint8 level (a
 float32 pixel on a rounding boundary); the ``parameters`` text is equal.
 Unported flags, modes and values exit 2 before anything loads.
 """
+import json
 import os
+import struct
 import sys
 
 import numpy as np
@@ -16,7 +19,8 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(__file__))  # tests/_torch_files.py
 
-from _torch_files import small_configs, small_jax_pipeline, write_small_flux_files  # noqa: E402
+from _torch_files import (small_configs, small_jax_pipeline, small_sd1_configs,  # noqa: E402
+                          small_sd1_pipeline, write_small_flux_files, write_small_sd1_file)
 
 
 @pytest.fixture(scope="module")
@@ -104,10 +108,11 @@ def test_metadata_mode_matches_jax(tmp_path, capsys, monkeypatch, fmt):
 
 UNPORTED = [
     ["--lora-model-dir", "loras"], ["--init-img", "in.png"], ["--hires"], ["--type", "q8_0"],
-    ["--sampling-method", "dpm++2m"], ["--schedule", "karras"], ["--fa"], ["--no-progress"],
+    ["--sampling-method", "heun"], ["--schedule", "karras"], ["--fa"], ["--no-progress"],
     ["--vae-on-cpu"], ["--control-net", "cn.safetensors"], ["--llm", "qwen.gguf"],
     ["--backend", "clip=cpu,diffusion=cuda0"], ["--backend", "tpu0"], ["--dtype", "f16"],
     ["-p", "a <lora:detail:0.8> cat"], ["convert"], ["-M", "vid_gen"],
+    ["--embd-dir", "embeddings"],  # textual inversion (SD1's EmbeddingMixin)
 ]
 
 
@@ -169,3 +174,76 @@ def test_flux_files_tool_writes_a_set_the_cli_answers_from(small, tmp_path):
     assert img.shape == (64, 64, 3) and img.std() > 0
     assert params.startswith("a lantern on a wooden table\nSteps: 2, Sampler: euler")
     assert report["pipeline"].diffusion_fn is not None
+
+
+@pytest.fixture(scope="module")
+def sd1_file(tmp_path_factory):
+    return write_small_sd1_file(tmp_path_factory.mktemp("sd1_file"), small_sd1_pipeline())
+
+
+SD1_REQUESTS = {
+    # the bench's sampler and CFG (euler_a, 7), the default schedule
+    "euler_a_cfg": ["-p", "an astronaut riding a horse", "-W", "64", "-H", "64", "--steps", "3",
+                    "--cfg-scale", "7.0", "-s", "42"],
+    # dpm++2m, a negative prompt, a batch of two, clip skip 2, a prompt of
+    # two 77-token chunks
+    "dpmpp2m_batch": ["-p", "a red fox " + "in deep snow " * 30, "-n", "blurry", "-W", "64",
+                      "-H", "96", "--steps", "2", "--sampling-method", "dpm++2m", "-b", "2",
+                      "--clip-skip", "2", "-s", "7"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SD1_REQUESTS))
+def test_cli_sd1_file_matches_jax_cli(sd1_file, monkeypatch, tmp_path, name):
+    """``-m`` with an SD1 single-file checkpoint: both CLIs fingerprint it as
+    SD1 and split it by its LDM prefixes; no T5 is asked for."""
+    from PIL import Image
+
+    import sdtpu.cli as jcli
+    from sdtpu_torch import cli
+
+    small_sd1_configs(monkeypatch)
+    monkeypatch.setenv("SDTPU_COMPILE_CACHE", str(tmp_path / "xla"))
+    args = ["-m", sd1_file] + SD1_REQUESTS[name]
+    report = {}
+    assert cli.main(args + ["--backend", "cpu", "-o", str(tmp_path / "port.png")],
+                    report=report) == 0
+    assert jcli.main(args + ["-o", str(tmp_path / "jax.png")]) == 0
+    assert report["load"]["version"] == "sd1" and report["load"]["t5_tokenizer"] is None
+    assert report["t5_ids"] is None
+    n = 2 if "-b" in args else 1
+    assert len(report["outputs"]) == n
+    for i, ours in enumerate(report["outputs"]):
+        theirs = str(tmp_path / (f"jax_{i}.png" if n > 1 else "jax.png"))
+        a, b = Image.open(ours), Image.open(theirs)
+        assert a.info["parameters"] == b.info["parameters"]
+        diff = np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int))
+        assert diff.max() <= 1
+
+
+def test_sd15_file_tool_writes_a_file_the_cli_answers_from(monkeypatch, tmp_path):
+    """``sdtpu_torch.tools.sd15_file`` (the card check's SD1.5 file: float16,
+    the LDM names, the VAE's encoder and quant convs) at the small configs,
+    fingerprinted as SD1 by both packages' loaders and answered by the
+    port's CLI."""
+    from sdtpu.io.model_loader import load_model_bundle as jax_load_model_bundle
+    from sdtpu_torch import cli
+    from sdtpu_torch.io.model_loader import load_model_bundle
+    from sdtpu_torch.io.safetensors import load_safetensors
+    from sdtpu_torch.tools.sd15_file import file_specs, write_sd15_file
+
+    small_sd1_configs(monkeypatch)
+    out = write_sd15_file(tmp_path / "sd15.safetensors", device="cpu")
+    assert os.path.getsize(out["path"]) > out["bytes"] - 1 and out["tensors"] == len(file_specs())
+    with open(out["path"], "rb") as f:
+        header = json.loads(f.read(struct.unpack("<Q", f.read(8))[0]))
+    assert {v["dtype"] for v in header.values()} == {"F16"}
+    tensors = load_safetensors(out["path"])
+    assert set(tensors) == set(file_specs()) and "first_stage_model.quant_conv.weight" in tensors
+    assert load_model_bundle(model_path=out["path"]).version.value == "sd1"
+    assert jax_load_model_bundle(model_path=out["path"]).version.value == "sd1"
+    report = {}
+    png = str(tmp_path / "out.png")
+    assert cli.main(["-m", out["path"], "-p", "a cat", "-W", "64", "-H", "64", "--steps", "2",
+                     "--backend", "cpu", "-o", png], report=report) == 0
+    assert report["load"]["version"] == "sd1" and report["timings"]["steps"] == 2

@@ -154,6 +154,32 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, lq, lk, d, bias):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, FLASH_F32_TOL)])
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("bh,lq,lk,bias", [
+    ((2, 8), 1000, 77, False), ((1, 3), 257, 300, True), ((2, 8), 64, 64, False),
+    ((3, 2), 130, 1, True), ((1, 2), 1, 129, False), ((1, 8), 513, 1030, True)])
+def test_flash_unet_head_dims_match_plain(cuda, dtype, tol, d, bh, lq, lk, bias):
+    """The SD1.5 UNet's head dims, both dtypes: bf16 pads D to whole 64-column
+    blocks in shared memory only (TMA's zero fill), float32 contracts D 40
+    over 48 columns; ragged Lq and Lk (a cross-attention's 77 keys, one key,
+    one query), with and without the dense bias.  Each call counts one
+    launch in ``launches`` and in its head dim's counter."""
+    g = torch.Generator(device=cuda).manual_seed(lq * d + lk)
+    q = torch.randn((*bh, lq, d), generator=g, device=cuda, dtype=dtype)
+    k, v = (torch.randn((*bh, lk, d), generator=g, device=cuda, dtype=dtype) for _ in range(2))
+    mask = torch.randn((lq, lk), generator=g, device=cuda) if bias else None
+    counter = f"launches_d{d}"
+    before = (fa.flash_attention.launches, getattr(fa.flash_attention, counter))
+    got = fa.flash_attention(q, k, v, mask=mask)
+    assert (fa.flash_attention.launches, getattr(fa.flash_attention, counter)) == (
+        before[0] + 1, before[1] + 1)
+    want = fa.plain_attention(q, k, v, mask=mask)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(128, 256, 256), (129, 272, 257), (4352, 3072, 384),
                                    (4352, 64, 3072), (256, 64, 1040)])
 def test_w8a8_wgmma_kernel_bit_equal(cuda, m, k, n):
@@ -679,6 +705,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.randn((1, 1, 8, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)  # head dim 32 has no kernel
+    for d in (48, 96, 120):  # nor does any other head dim outside SUPPORTED_HEAD_DIMS
+        qd = torch.randn((1, 1, 8, d), device=cuda)
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            fa.flash_attention(qd, qd, qd)
     with pytest.raises(ValueError):
         fa.flash_attention(q.half(), q.half(), q.half())
     qt = quant.quantize_per_channel(torch.randn((8, 24), device=cuda))

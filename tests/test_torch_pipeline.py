@@ -191,10 +191,10 @@ def test_synthesized_small_pipeline_runs():
 
 def test_unported_requests_raise(pipes):
     _, tp = pipes
-    with pytest.raises(NotImplementedError):
-        tp.generate(_gp(sample_method="dpm++2m"))
-    with pytest.raises(NotImplementedError):
-        create_pipeline(SDVersion.SD1, small=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="heun"):
+        tp.generate(_gp(sample_method="heun"))
+    with pytest.raises(NotImplementedError, match="SDXL"):
+        create_pipeline(SDVersion.SDXL, small=True, device="cpu")
 
 
 def test_create_pipeline_defaults_to_float32_as_the_reference():

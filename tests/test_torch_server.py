@@ -169,10 +169,11 @@ def test_unported_routes_answer_501(servers, method, path):
 
 def test_listings_name_what_the_port_runs(servers):
     base = servers["port"]
-    assert [s["name"] for s in _call(base, "/sdapi/v1/samplers")[1]] == ["euler", "euler_a"]
+    ported = ["euler", "euler_a", "dpm++2s_a", "dpm++2m", "ipndm"]
+    assert [s["name"] for s in _call(base, "/sdapi/v1/samplers")[1]] == ported
     assert [s["name"] for s in _call(base, "/sdapi/v1/schedulers")[1]] == ["discrete", "flux"]
     caps = _call(base, "/sdcpp/v1/capabilities")[1]
-    assert caps["modes"] == ["img_gen"] and caps["samplers"] == ["euler", "euler_a"]
+    assert caps["modes"] == ["img_gen"] and caps["samplers"] == ported
     assert _call(base, "/v1/models")[1]["data"][0]["id"] == "sdtpu"
     assert _call(base, "/sdapi/v1/sd-models")[0] == 200
     assert _call(base, "/sdapi/v1/options", {"foo": 1}) == (200, {})
