@@ -24,7 +24,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      self- and cross-attention at 512² under CFG, the middle block's, a
      ragged and a biased case; bf16 and float32, each with faults that must
      exceed its limit: the padded head dim's softmax scale and unmasked pad
-     keys for bf16, the one-pass TF32 fault for float32),
+     keys for bf16, the one-pass TF32 fault for float32 and, where the
+     float32 call splits its keys (D 160 and 512: each case records its
+     ``splits``), the split-keys combine without its rescale; flash's bound
+     also counts its B·H·Lq·Lk exponentials at the special-function unit's
+     rate, ``bound_by`` "exp" where they bound it; a flash case under 0.1 ms
+     also records the kernel's and SDPA's device time a call,
+     ``device_ms`` / ``library_device_ms``: the sum of the call's kernels in
+     torch.profiler, a split call's combine included),
      that call's time, after its output was checked against the plain
      version (a call that is refused or disagrees records null and why);
      at M <= 8, where the CUDA-event time reads the Python wrapper's launch
@@ -210,6 +217,9 @@ FLASH_CASES = [
     (2, 12, 77, 77, 64, "f32", "causal"), (1, 1, 1024, 1024, 512, "f32", "random"),
     (1, 1, 4096, 4096, 512, "f32", None),
 ]
+# float32 D 160 split four ways at a ragged key count (the last split one
+# 16-key tile, itself ragged), with the dense bias
+FLASH_CASES.append((2, 8, 256, 200, 160, "f32", "random"))
 # The SD1.5 UNet at 512² under CFG (B = 2, 8 heads over 320, 640 and 1280
 # channels, so D 40, 80 and 160): each level's self-attention over its
 # latent tokens and cross-attention over CLIP's 77, the middle block's 64
@@ -503,6 +513,34 @@ def bound(ops: float, nbytes: float, kind: str) -> dict:
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+# ex2 on each SM's special-function unit (MUFU): 16 a clock (the figure of
+# the FlashAttention-3 paper, Shah et al. 2024, for the H100)
+EX2_PER_CLOCK_PER_SM = 16
+
+
+def ex2_per_s() -> float:
+    """The card's ex2 rate: EX2_PER_CLOCK_PER_SM at its SM count and its
+    maximum SM clock, both read from the device."""
+    import torch
+
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(res.stdout.strip().splitlines()[0])
+    return EX2_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+
+
+def flash_bound(b: int, h: int, lq: int, lk: int, d: int, nb: int, dt: str, ex2_rate: float) -> dict:
+    """Flash's bound: the larger of its 4·B·H·Lq·Lk·D product operations at
+    the peak for their type (tf32 for float32), its B·H·Lq·Lk exponentials
+    at ``ex2_rate`` (``exp_ms``; ``bound_by`` "exp" where they are the
+    larger) and its bytes."""
+    out = bound(4.0 * b * h * lq * lk * d, nb, OPS_KIND[dt])
+    out["exp_ms"] = b * h * lq * lk / ex2_rate * 1e3
+    if out["exp_ms"] > out["bound_ms"]:
+        out.update(bound_ms=out["exp_ms"], bound_by="exp")
+    return out
+
+
 def quant_bound(m: int, k: int, n: int, nb: int, dt: str) -> dict:
     """A quantized matmul's bound: its 2*M*N*K operations at the peak for
     x's type (bf16, or tf32 for float32 x), or its bytes.  Float32 x also
@@ -576,6 +614,20 @@ def device_ms(fn, iters: int) -> float:
         raise RuntimeError(f"device_ms: {len(kernels)} device kernels traced in {iters} calls: "
                            f"{sorted(n[:60] for n in names)}")
     return sum(us for _, us in kernels) / len(kernels) / 1e3
+
+
+def device_ms_sum(fn, iters: int) -> float:
+    """The device time of one call of ``fn``, summed over the kernels it
+    launches: each kernel's mean over the launches ``device_kernels``
+    recorded of ``iters`` calls, times its launches a call (its count over
+    ``iters``, rounded, at least one: a library call may launch one kernel
+    twice)."""
+    by_name = {}
+    for name, us in device_kernels(fn, iters):
+        by_name.setdefault(name, []).append(us)
+    if not by_name:
+        raise RuntimeError(f"device_ms_sum: no device kernel traced in {iters} calls")
+    return sum(sum(v) / len(v) * max(1, round(len(v) / iters)) for v in by_name.values()) / 1e3
 
 
 def iters_for(flops: float) -> int:
@@ -697,8 +749,7 @@ def _d512_faults(q, k, v, mask, want) -> dict:
 
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    ws = _build.query("sdtpu_flash_workspace_bytes", 0, b * h, lq, lk, d)
-    splits = max(1, ws // (b * h * lq * (d + 2) * 4))
+    splits = _build.query("sdtpu_flash_splits", 0, b * h, lq, lk, d)
     ntiles = -(-lk // 32)
     keys = -(-ntiles // splits) * 32  # keys of each split but the last
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d ** -0.5
@@ -738,6 +789,17 @@ def _padded_faults(q, k, v, mask, want) -> dict:
         out["unmasked_pad_keys"] = (plain_attention(q, kz, vz, mask=mz).float()
                                     - want.float()).abs().max().item()
     return out
+
+
+def _split_fault(q, k, v, mask, want, splits: int) -> dict:
+    """A float32 split call's fault (FLASH_FAULTS): its splits' partial
+    outputs and sums (``key_split_partials``, the f32 kernel's 16-key tiles)
+    merged without the combine's 2^(m_s - M) rescale."""
+    from sdtpu_torch.ops.flash_attention import key_split_partials
+
+    parts = key_split_partials(q, k, v, mask, splits=splits, tile=16)
+    unscaled = sum(o for o, _, _ in parts) / sum(l for _, _, l in parts)
+    return {"combine_unscaled": (unscaled - want.float()).abs().max().item()}
 
 
 def _tf32_round(t):
@@ -824,8 +886,10 @@ def check_flash(results):
     import torch
     import torch.nn.functional as F
 
+    from sdtpu_torch.ops import _build
     from sdtpu_torch.ops import flash_attention as fa
 
+    ex2_rate = ex2_per_s()
     g = torch.Generator(device=DEVICE).manual_seed(2)
     for b, h, lq, lk, d, dt, bias in FLASH_CASES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
@@ -851,19 +915,31 @@ def check_flash(results):
             name, faults = "flash_attention_d512", _d512_faults(q, k, v, mask, want)
         else:
             name, faults = "flash_attention", {}
+        splits = _build.query("sdtpu_flash_splits", _build.DTYPE_CODES[dtype], b * h, lq, lk, d)
+        if dt == "f32" and splits > 1:
+            faults.update(_split_fault(q, k, v, mask, want, splits))
         caught = all(faults[f] > tol for f in (*FLASH_FAULTS, "one_pass_tf32") if f in faults)
-        ops = 4.0 * b * h * lq * lk * d
-        it = iters_for(ops)
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, mask=mask), it)
-        plain_ms = time_ms(lambda: fa.plain_attention(q, k, v, mask=mask), it)
+        it = iters_for(4.0 * b * h * lq * lk * d)
         lib_mask = None if mask is None else mask.to(dtype)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask), it)
+
+        def kernel():
+            return fa.flash_attention(q, k, v, mask=mask)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask)
+
+        ms = time_ms(kernel, it)
+        plain_ms = time_ms(lambda: fa.plain_attention(q, k, v, mask=mask), it)
+        library_ms = time_ms(library, it)
         extra = {"faults": faults} if faults else {}
+        if ms < 0.1:  # the CUDA-event time reads the wrapper here: the device clock too
+            extra.update(device_ms=device_ms_sum(kernel, it), library_device_ms=device_ms_sum(library, it))
         _record(results, dict(kernel=name, shape=[b, h, lq, lk, d], dtype=dt,
-                            bias=bias, max_abs_err=err, tol=tol, **extra,
+                            bias=bias, splits=splits, max_abs_err=err, tol=tol, **extra,
                             ok=bool(err <= tol and caught and torch.isfinite(got).all()),
                             ms=ms, plain_ms=plain_ms,
-                            **bound(ops, nbytes(q, k, v, mask, got), OPS_KIND[dt]), library_ms=library_ms))
+                            **flash_bound(b, h, lq, lk, d, nbytes(q, k, v, mask, got), dt, ex2_rate),
+                            library_ms=library_ms))
         del q, k, v, got, want
 
 
@@ -2033,16 +2109,19 @@ def main() -> int:
         shape, extra = headline[name]
         head = next(c for c in mine if c["shape"] == shape
                     and all(c.get(k) == v for k, v in extra.items()))
+        # the exponentials are operations too: "exp" names which ones
+        by = {"bound_by": "operations", "bound_term": "exp"} if head["bound_by"] == "exp" else {
+            "bound_by": head["bound_by"]}
         kernels.append({"name": name, "shape": shape, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(c[name] for c in launches.values()),
                         "max_abs_err": max(c["max_abs_err"] for c in mine),
                         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-                        "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+                        **by, "library_ms": head["library_ms"]})
         if name in UNET_FLASH:  # the float32 form at the same shape
             f32 = next(c for c in mine if c["shape"] == shape and c["dtype"] == "f32")
             kernels[-1].update({f"f32_{k}": f32[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                              "library_ms")})
+                                                              "library_ms", "splits")})
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s, "cases": cases, "reference": ref,

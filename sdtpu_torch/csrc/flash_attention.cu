@@ -29,21 +29,57 @@
 // the last tile.  The dense f32 [Lq, Lk] bias (CLIP's causal mask) is a
 // template parameter, so the unbiased FLUX path has no per-score branch.
 //
-// bf16, D = 40, 80 and 160 (the SD1.5 UNet: 8 heads over 320, 640 and 1280
-// channels; self-attention over 4096, 1024 and 256 latent tokens at 512^2
-// and cross-attention over CLIP's 77): the same kernel, the head dim padded
-// to whole 64-column swizzle blocks (64, 128, 192) in shared memory only.
-// The TMA maps keep the true D as their innermost extent (row strides of
-// 80, 160 and 320 bytes, multiples of 16) and load 64-column boxes, so TMA
-// fills the columns past D with zeros; Q K^T skips the k16 steps that are
-// all zeros (3, 5 and 10 of them run), P V computes the padded width (1.6x,
-// 1.6x and 1.2x the work at D 40, 80 and 160) and the store writes D
-// columns.  D 160 takes 64-key tiles (m64n64k16 scores, P V m64n192k16): a
-// 128-key two-stage ring of 192 columns would need 240 KB of shared memory.
-// What bounds it: the D 40 self-attention [2, 8, 4096, 40] does 4 * 16 *
-// 4096^2 * 40 = 42.9 GFLOP, 0.043 ms at 989 TFLOP/s, against 0.0063 ms of
-// bytes -- compute bound; the cross-attention calls (77 keys) and the D 160
-// calls over 256 and 64 tokens are a few microseconds of work or bytes.
+// bf16, D = 80 and 160 (the SD1.5 UNet: 8 heads over 640 and 1280
+// channels; self-attention over 1024 and 256 latent tokens at 512^2 and
+// cross-attention over CLIP's 77): the same kernel, the head dim padded to
+// whole 64-column swizzle blocks (128, 192) in shared memory only.  The TMA
+// maps keep the true D as their innermost extent (row strides of 160 and
+// 320 bytes, multiples of 16) and load 64-column boxes, so TMA fills the
+// columns past D with zeros; Q K^T skips the k16 steps that are all zeros
+// (5 and 10 of them run), P V computes the padded width (1.6x and 1.2x the
+// work) and the store writes D columns.  D 160 takes 64-key tiles
+// (m64n64k16 scores, P V m64n192k16): a 128-key two-stage ring of 192
+// columns would need 240 KB of shared memory.  The cross-attention calls
+// (77 keys) and the D 160 calls over 256 and 64 tokens are a few
+// microseconds of work or bytes.
+//
+// bf16, D = 40 (the UNet's 320-channel levels, the self-attention [2, 8,
+// 4096, 4096, 40] and the 77-key cross-attention): `flash_d40_kernel`.
+// Its floor is the exponential, not the tensor cores: 2 * 8 * 4096^2 =
+// 2.68e8 ex2 at the 16 a clock of each SM's MUFU take ~0.064 ms at 132 SMs
+// and 1.98 GHz, against 0.043 ms for 4 * 16 * 4096^2 * 40 = 42.9 GFLOP at
+// 989 TFLOP/s and 0.0063 ms of bytes.  The D 64 design ran the products
+// and the softmax of a warpgroup in series (0.207 ms against SDPA's
+// 0.170).  What this one does, found on an H100 with clock64() stamps a
+// phase and with trial builds that each dropped one unit's work: (1) with
+// two consumer warpgroups a step is a chain of K/V wait, wgmma issue,
+// softmax and bf16 pack, and dropping the exponentials, either product or
+// the per-step K/V loads left the time within about a tenth: no unit
+// bounds it, the chain's latency does.  So the block runs three consumer
+// warpgroups of 64 rows (a 192-row Q tile, 160 registers a thread, as
+// FlashAttention-3 does at small head dims) instead of two, a fifth
+// faster although 22 Q tiles a head fill 2.67 waves.  Two stay where the
+// grid of 192-row tiles would leave SMs idle, and for the biased form (a
+// 512-thread block caps the compiler at 128 registers, and its bias loads
+// spilled).  (2) Within a warpgroup, step t
+// issues S(t) = Q K(t)^T and P(t-1) V(t-1) together, waits for S(t) alone
+// and runs its exponentials in place in the score registers; only the bf16
+// packing of P(t) waits for the P V (one P register set: with two, ptxas
+// gave both the same registers and waited for the P V before the
+// softmax), and O's rescale for P(t) is applied just before P(t) V(t) is
+// issued, as in FlashAttention-3.  K and V have three-stage rings of their
+// own, so K(t) is released as soon as S(t) is done.  (3) The consumer
+// warpgroups take turns issuing their wgmmas under named barriers, round
+// robin, so one's exponentials run under another's products.  (4) The
+// running max is taken on the raw scores and the scale enters the
+// exponent's FFMA, 2^(s * scale - m * scale), with no separate scaling
+// pass, and each thread keeps its own share of the row sum until the end.
+// (5) P V is wgmma m64n40k16 on the V tile as TMA lands it (64-column
+// swizzle rows, of which N = 40 are read): 20 accumulator floats a thread
+// instead of 32, 1.6x less work than the padded n = 64.  Q K^T contracts
+// over 48 columns (three k16 steps, the 8 past D zeros by TMA).  Tried and
+// dropped: a quarter of the exponentials on the FMA pipe (a degree-3
+// polynomial; slower) and a four-stage ring (no change).
 //
 // bf16, D = 512 (the VAE mid-block, one head over a 64 x 64 latent tile,
 // Lq = Lk = 4096): `flash_d512_kernel`, replacing the same four TPU kernels
@@ -66,7 +102,7 @@
 // VAE call gives 64 blocks for 132 SMs, so the keys are split (the launcher
 // picks the count that minimises the grid's waves: two there, one at Lq =
 // 16384): each split writes its f32 accumulator, max and sum, and
-// `flash_d512_combine_kernel` merges them.  Ragged edges, the last-tile
+// `flash_combine_kernel` merges them.  Ragged edges, the last-tile
 // mask, the bias template and the exp2 units are as in the D 64/128 kernel.
 //
 // float32, D = 40, 64, 80, 128, 160 and 512 (the default float32 pipeline:
@@ -93,7 +129,10 @@
 // memory): the four quarters' partial scores are summed
 // through shared memory in one order, so each warp runs the same softmax,
 // and the keys split across blocks where the grid is small, merged by the
-// combine kernel writing f32.  S = Q K^T reads Q and K with 16-byte loads
+// combine kernel writing f32.  D 160 splits its keys too where the grid of
+// 128-row Q tiles leaves SMs idle: the UNet's [2, 8, 256, 256, 160] call has
+// 32 Q tiles for 132 SMs and ran 16 key tiles in series in each; four
+// splits give 128 blocks of four.  S = Q K^T reads Q and K with 16-byte loads
 // (the contraction index relabelled so one load feeds two k8 steps); P's
 // accumulator fragment is its own A fragment for P V once the keys of each
 // 8-key block are relabelled, and V is read a column at a time (rows padded
@@ -149,8 +188,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, const float* __restrict__ bias,
                    __nv_bfloat16* __restrict__ o, int lq, int lk, float scale_log2) {
-  static_assert(D == 40 || D == 64 || D == 80 || D == 128 || D == 160,
-                "the wgmma kernel takes head dims 40, 64, 80, 128 and 160");
+  static_assert(D == 64 || D == 80 || D == 128 || D == 160,
+                "the wgmma kernel takes head dims 64, 80, 128 and 160 (D 40: flash_d40_kernel)");
   static_assert(wgmma_smem_bytes<D>() <= 232448, "bf16 flash: shared memory over 227 KB");
   constexpr int DP = wgmma_dp(D);              // head-dim columns computed: 64, 128 or 192
   constexpr int kWK = wgmma_bk(D);             // keys per K/V tile
@@ -334,6 +373,303 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
         *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(qrow) * D + j * 8 + 2 * tq) =
             __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
       }
+    }
+  }
+}
+
+// ------------------------------------ bf16 D 40: the exponential-bound form
+
+// WG consumer warpgroups of 64 query rows each (3, or 2: launch_wgmma
+// picks), and a producer warpgroup.
+__host__ __device__ constexpr int d40_rows(int wg) { return 64 * wg; }  // Q rows a block
+__host__ __device__ constexpr int d40_threads(int wg) { return 128 * (wg + 1); }
+constexpr int kEK = 128;      // keys per K/V tile
+constexpr int kEStages = 3;   // K ring and V ring depth
+constexpr int kED = 40;       // head dim
+constexpr int kEN = 40;       // P V's N: the head dim itself (wgmma takes N in steps of 8)
+constexpr int kEKS = 3;       // k16 steps of Q K^T: 48 columns, the 8 past D zeros
+constexpr int kETile = kEK * kColBytes;  // one K or V tile: 128 rows of one 64-column block
+__host__ __device__ constexpr int d40_smem(int wg) {
+  return 1024 + d40_rows(wg) * kColBytes + 2 * kEStages * kETile + (1 + 4 * kEStages) * 8;
+}
+static_assert(d40_smem(3) <= 232448, "D 40 flash: shared memory over 227 KB");
+
+// Shared-memory addresses and the launch's scalars, as one consumer
+// warpgroup of flash_d40_kernel sees them.
+struct D40Args {
+  uint32_t q_rows, k_base, v_base, bars;
+  const float* bias;
+  int lq, lk, q0, row_w, tq, lane;
+  float scale_log2, sl;  // sl: the exponent's scale (scale_log2, or 1 with a bias)
+};
+
+// One consumer warpgroup's running state: O (64 rows x 40 columns), and per
+// row the running max (raw scores; log2 units with a bias) and this thread's
+// share of the running sum (its 32 of the tile's 128 keys; the quad's four
+// shares are added once, at the end).
+struct D40State {
+  float acc[kEN / 2];  // acc[4j + e]: row row_w (+8 for e >= 2), column 8j + 2tq (+1 for odd e)
+  float m_run[2], l_run[2];
+};
+
+__device__ __forceinline__ uint32_t d40_bar(const D40Args& a, int i) { return a.bars + 8 * i; }
+// barriers: 0 q_full; then k_full, v_full, k_empty, v_empty, kEStages each
+__device__ __forceinline__ uint32_t d40_k_full(const D40Args& a, int s) { return d40_bar(a, 1 + s); }
+__device__ __forceinline__ uint32_t d40_v_full(const D40Args& a, int s) { return d40_bar(a, 1 + kEStages + s); }
+__device__ __forceinline__ uint32_t d40_k_empty(const D40Args& a, int s) { return d40_bar(a, 1 + 2 * kEStages + s); }
+__device__ __forceinline__ uint32_t d40_v_empty(const D40Args& a, int s) { return d40_bar(a, 1 + 3 * kEStages + s); }
+
+// Wait until K(t) / V(t) has landed.
+__device__ __forceinline__ void d40_wait_k(const D40Args& a, int t) {
+  mbar_wait(d40_k_full(a, t % kEStages), (t / kEStages) & 1);
+}
+__device__ __forceinline__ void d40_wait_v(const D40Args& a, int t) {
+  mbar_wait(d40_v_full(a, t % kEStages), (t / kEStages) & 1);
+}
+
+// S(t) = Q K(t)^T, 64 rows x 128 keys, issued and committed (not waited on).
+__device__ __forceinline__ void d40_issue_s(const D40Args& a, int t, float (&sc)[kEK / 2]) {
+  const int s = t % kEStages;
+#pragma unroll
+  for (int kk = 0; kk < kEKS; ++kk)
+    wgmma_m64n128k16_bf16_ss(sc, smem_desc_sw128(a.q_rows + kk * 32, 16, 1024),
+                             smem_desc_sw128(a.k_base + s * kETile + kk * 32, 16, 1024), kk > 0);
+  wgmma_commit();
+}
+
+// O += P(t) V(t): B = the V tile read MN-major, its first 40 columns.
+__device__ __forceinline__ void d40_issue_pv(const D40Args& a, D40State& st, int t,
+                                             const uint32_t (&p)[kEK / 16][4]) {
+  const int s = t % kEStages;
+#pragma unroll
+  for (int kc = 0; kc < kEK / 16; ++kc)
+    wgmma_m64n40k16_bf16_rs<1>(
+        st.acc, p[kc], smem_desc_sw128(a.v_base + s * kETile + kc * 16 * kColBytes, kETile, 1024), 1);
+  wgmma_commit();
+}
+
+// The online softmax of S(t), in place: sc becomes P(t) in f32, and alpha
+// the factor that rescales O for it.  The max is taken on the raw scores
+// and the scale enters the exponent's FFMA: p = 2^(s sl - m sl).
+template <bool kBias>
+__device__ __forceinline__ void d40_softmax(const D40Args& a, D40State& st, int t, float (&sc)[kEK / 2],
+                                            float (&alpha)[2]) {
+  const int kt = t * kEK;
+  if constexpr (kBias) {
+    // the bias is in natural-log units: scores into log2 units first
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qrow = a.q0 + a.row_w + 8 * h;
+      const float* brow = a.bias + static_cast<size_t>(min(qrow, a.lq - 1)) * a.lk;
+#pragma unroll
+      for (int j = 0; j < kEK / 8; ++j) {
+        const int key = kt + j * 8 + 2 * a.tq;
+        const float b0 = key < a.lk ? brow[key] : 0.f, b1 = key + 1 < a.lk ? brow[key + 1] : 0.f;
+        sc[4 * j + 2 * h] = fmaf(sc[4 * j + 2 * h], a.scale_log2, b0 * kLog2e);
+        sc[4 * j + 2 * h + 1] = fmaf(sc[4 * j + 2 * h + 1], a.scale_log2, b1 * kLog2e);
+      }
+    }
+  }
+  if (kt + kEK > a.lk) {
+#pragma unroll
+    for (int j = 0; j < kEK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (kt + j * 8 + 2 * a.tq + (e & 1) >= a.lk) sc[4 * j + e] = -INFINITY;
+  }
+  // the max and the sum in four independent chains a row (latency, not
+  // issue slots, bounds one long chain)
+  float mx[2][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) mx[e >> 1][(e & 1) * 2] = mx[e >> 1][(e & 1) * 2 + 1] = sc[e];
+#pragma unroll
+  for (int j = 1; j < kEK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mx[e >> 1][(e & 1) * 2 + (j & 1)] = fmaxf(mx[e >> 1][(e & 1) * 2 + (j & 1)], sc[4 * j + e]);
+  float m_new[2], ms[2], rs[2][4] = {};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m_new[h] = fmaxf(fmaxf(st.m_run[h], fmaxf(mx[h][0], mx[h][1])), fmaxf(mx[h][2], mx[h][3]));
+    m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+    m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+    alpha[h] = ex2_approx((st.m_run[h] - m_new[h]) * a.sl);
+    st.m_run[h] = m_new[h];
+    ms[h] = m_new[h] * a.sl;
+  }
+#pragma unroll
+  for (int j = 0; j < kEK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * j + e] = ex2_approx(fmaf(sc[4 * j + e], a.sl, -ms[e >> 1]));
+      rs[e >> 1][(j & 1) * 2 + (e & 1)] += sc[4 * j + e];
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    st.l_run[h] = fmaf(st.l_run[h], alpha[h], (rs[h][0] + rs[h][1]) + (rs[h][2] + rs[h][3]));
+}
+
+// P(t) in bf16, in the register-A layout of P V's k16 steps: the S columns
+// of two neighbouring 8-key chunks are one A fragment.
+__device__ __forceinline__ void d40_pack(const float (&sc)[kEK / 2], uint32_t (&p)[kEK / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < kEK / 8; ++j) {
+    p[j / 2][(j & 1) * 2 + 0] = pack_bf16x2(sc[4 * j + 0], sc[4 * j + 1]);
+    p[j / 2][(j & 1) * 2 + 1] = pack_bf16x2(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+// The warpgroups take turns issuing their wgmmas, round robin (named
+// barrier 1 + w: warpgroup w waits on it, then lets the next go), so one
+// warpgroup's exponentials run while another's products do.
+__device__ __forceinline__ void d40_my_turn(int wg) { named_bar_sync(1 + wg, 256); }
+template <int WG>
+__device__ __forceinline__ void d40_your_turn(int wg) { named_bar_arrive(1 + (wg + 1) % WG, 256); }
+
+// Step t >= 1: rescale O for P(t-1), issue S(t) and P(t-1) V(t-1), wait for
+// S(t) alone and run its softmax under the P V, then wait for the P V and
+// pack P(t) into the registers it read.
+template <bool kBias, int WG>
+__device__ __forceinline__ void d40_step(const D40Args& a, D40State& st, int wg, int t,
+                                         uint32_t (&p)[kEK / 16][4], float (&alpha)[2]) {
+  float sc[kEK / 2];
+  d40_wait_k(a, t);
+  d40_wait_v(a, t - 1);
+  d40_my_turn(wg);
+#pragma unroll
+  for (int i = 0; i < kEN / 2; ++i) st.acc[i] *= alpha[(i >> 1) & 1];
+  wgmma_fence();
+  d40_issue_s(a, t, sc);
+  d40_issue_pv(a, st, t - 1, p);
+  d40_your_turn<WG>(wg);
+  wgmma_wait<1>();
+  fence_regs(sc);
+  if (a.lane == 0) mbar_arrive(d40_k_empty(a, t % kEStages));
+  d40_softmax<kBias>(a, st, t, sc, alpha);
+  // pinned before the wait, so the softmax stays under the P V
+  fence_regs(sc);
+  fence_regs(alpha);
+  wgmma_wait<0>();
+  fence_regs(st.acc);
+  fence_regs(p);
+  if (a.lane == 0) mbar_arrive(d40_v_empty(a, (t - 1) % kEStages));
+  d40_pack(sc, p);
+}
+
+// A block owns a 64 * WG-row Q tile of one batch*head: warpgroup WG's
+// producer thread TMA-loads Q once and 128-key K and V tiles into rings of
+// their own; consumer warpgroups 0..WG-1 own 64 rows each.  Each consumer
+// runs S(0) and its softmax, then d40_step for t = 1.., then the last P V.
+// K(t) is released when S(t) is done, V(t) when its P V is.
+template <bool kBias, int WG>
+__global__ void __launch_bounds__(d40_threads(WG), 1)
+flash_d40_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, const float* __restrict__ bias,
+                 __nv_bfloat16* __restrict__ o, int lq, int lk, float scale_log2) {
+  constexpr int kRows = d40_rows(WG);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms: 1 KB aligned
+  D40Args a;
+  a.k_base = q_base + kRows * kColBytes;
+  a.v_base = a.k_base + kEStages * kETile;
+  a.bars = a.v_base + kEStages * kETile;
+  a.bias = bias;
+  a.lq = lq;
+  a.lk = lk;
+  a.q0 = blockIdx.x * kRows;
+  a.scale_log2 = scale_log2;
+  a.sl = kBias ? 1.f : scale_log2;
+  const int wg = threadIdx.x >> 7;
+  const int bh = blockIdx.y;
+  const int ntiles = (lk + kEK - 1) / kEK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(d40_bar(a, 0), 1);
+    for (int s = 0; s < kEStages; ++s) {
+      mbar_init(d40_k_full(a, s), 1);
+      mbar_init(d40_v_full(a, s), 1);
+      mbar_init(d40_k_empty(a, s), 4 * WG);  // the consumers' warps
+      mbar_init(d40_v_empty(a, s), 4 * WG);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == WG) {
+    // producer: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * WG) {
+      mbar_expect_tx(d40_bar(a, 0), kRows * kColBytes);
+      tma_load_3d(q_base, &qmap, d40_bar(a, 0), 0, a.q0, bh);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % kEStages;
+        const uint32_t free_par = ((t / kEStages) & 1) ^ 1;
+        mbar_wait(d40_k_empty(a, s), free_par);
+        mbar_expect_tx(d40_k_full(a, s), kETile);
+        tma_load_3d(a.k_base + s * kETile, &kmap, d40_k_full(a, s), 0, t * kEK, bh);
+        mbar_wait(d40_v_empty(a, s), free_par);
+        mbar_expect_tx(d40_v_full(a, s), kETile);
+        tma_load_3d(a.v_base + s * kETile, &vmap, d40_v_full(a, s), 0, t * kEK, bh);
+      }
+    }
+  } else {
+    // the registers the producer gave up: 160 a thread for three consumer
+    // warpgroups, 240 for two
+    setmaxnreg_inc<WG == 3 ? 160 : 240>();
+    const int warp = (threadIdx.x >> 5) & 3;
+    a.lane = threadIdx.x & 31;
+    a.tq = a.lane & 3;
+    a.row_w = wg * 64 + warp * 16 + (a.lane >> 2);  // this thread's rows: row_w, row_w + 8
+    a.q_rows = q_base + wg * 64 * kColBytes;
+    D40State st;
+#pragma unroll
+    for (int i = 0; i < kEN / 2; ++i) st.acc[i] = 0.f;
+    st.m_run[0] = st.m_run[1] = kNegBig;
+    st.l_run[0] = st.l_run[1] = 0.f;
+    uint32_t p[kEK / 16][4];
+    float alpha[2];
+
+    if (wg == WG - 1) d40_your_turn<WG>(wg);  // warpgroup 0 issues first
+    mbar_wait(d40_bar(a, 0), 0);
+    {
+      float sc[kEK / 2];
+      d40_wait_k(a, 0);
+      d40_my_turn(wg);
+      wgmma_fence();
+      d40_issue_s(a, 0, sc);
+      d40_your_turn<WG>(wg);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (a.lane == 0) mbar_arrive(d40_k_empty(a, 0));
+      d40_softmax<kBias>(a, st, 0, sc, alpha);  // alpha 0: O starts at 0 either way
+      d40_pack(sc, p);
+    }
+    for (int t = 1; t < ntiles; ++t) d40_step<kBias, WG>(a, st, wg, t, p, alpha);
+    // the last P V; the last warpgroup does not hand the turn on, which
+    // balances the arrival that gave warpgroup 0 its first turn
+    d40_wait_v(a, ntiles - 1);
+    d40_my_turn(wg);
+#pragma unroll
+    for (int i = 0; i < kEN / 2; ++i) st.acc[i] *= alpha[(i >> 1) & 1];
+    wgmma_fence();
+    d40_issue_pv(a, st, ntiles - 1, p);
+    if (wg < WG - 1) d40_your_turn<WG>(wg);
+    wgmma_wait<0>();
+    fence_regs(st.acc);
+
+    __nv_bfloat16* ob = o + static_cast<size_t>(bh) * lq * kED;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = st.l_run[h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int qrow = a.q0 + a.row_w + 8 * h;
+      if (qrow >= lq) continue;
+      const float inv = 1.f / l;
+#pragma unroll
+      for (int j = 0; j < kED / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(qrow) * kED + j * 8 + 2 * a.tq) =
+            __floats2bfloat162_rn(st.acc[4 * j + 2 * h] * inv, st.acc[4 * j + 2 * h + 1] * inv);
     }
   }
 }
@@ -575,12 +911,12 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
 }
 
 // The split-keys combine: o = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s,
-// M the largest m_s.  One block per output row, four columns a thread; T is
-// the output's type (bf16, or f32 for the f32 kernel).
-template <typename T>
-__global__ void __launch_bounds__(128)
-flash_d512_combine_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml,
-                          T* __restrict__ o, int rows, int splits) {
+// M the largest m_s.  One block per output row, four of its D columns a
+// thread; T is the output's type (bf16, or f32 for the f32 kernel).
+template <typename T, int D>
+__global__ void __launch_bounds__(D / 4)
+flash_combine_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml,
+                     T* __restrict__ o, int rows, int splits) {
   const size_t row = blockIdx.x;
   const int c = threadIdx.x * 4;
   float mx = kNegBig;
@@ -591,13 +927,13 @@ flash_d512_combine_kernel(const float* __restrict__ part_o, const float* __restr
     const size_t prow = s * static_cast<size_t>(rows) + row;
     const float w = exp2f(part_ml[2 * prow] - mx);
     l += w * part_ml[2 * prow + 1];
-    const float4 p = *reinterpret_cast<const float4*>(part_o + prow * kXD + c);
+    const float4 p = *reinterpret_cast<const float4*>(part_o + prow * D + c);
     acc.x += w * p.x;
     acc.y += w * p.y;
     acc.z += w * p.z;
     acc.w += w * p.w;
   }
-  T* orow = o + row * kXD + c;
+  T* orow = o + row * D + c;
   if constexpr (sizeof(T) == 4) {
     *reinterpret_cast<float4*>(orow) = make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
   } else {
@@ -607,11 +943,11 @@ flash_d512_combine_kernel(const float* __restrict__ part_o, const float* __restr
   }
 }
 
-// Key splits for D 512 (blocks of `bq` query rows, key tiles of `bk`): the
-// fewest that minimise the waves of the grid (ceil(blocks * s / SMs) / s), at
-// least one key tile a split.  The VAE's [1, 4096] call has 64 bf16 Q tiles
-// on 132 SMs and takes two; Lq = 16384 takes one.
-int d512_splits(int bh, int lq, int lk, int bq, int bk) {
+// Key splits (blocks of `bq` query rows, key tiles of `bk`): the fewest that
+// minimise the waves of the grid (ceil(blocks * s / SMs) / s), at least one
+// key tile a split.  The VAE's bf16 [1, 4096] call (D 512) has 64 Q tiles on
+// 132 SMs and takes two; Lq = 16384 takes one.
+int key_splits(int bh, int lq, int lk, int bq, int bk) {
   const long long blocks = static_cast<long long>(ceil_div(lq, bq)) * bh;
   const int ntiles = ceil_div(lk, bk);
   const int sms = sm_count();
@@ -628,10 +964,11 @@ int d512_splits(int bh, int lq, int lk, int bq, int bk) {
   return ceil_div(ntiles, per);  // every split gets at least one tile
 }
 
-size_t d512_workspace_bytes(int bh, int lq, int lk, int bq, int bk) {
-  const int splits = d512_splits(bh, lq, lk, bq, bk);
+// f32 scratch of a split call: each split's unnormalised [bh, lq, D]
+// output, then its running max and sum a row.
+size_t split_workspace_bytes(int splits, int bh, int lq, int d) {
   if (splits == 1) return 0;
-  return static_cast<size_t>(splits) * bh * lq * (kXD + 2) * sizeof(float);
+  return static_cast<size_t>(splits) * bh * lq * (d + 2) * sizeof(float);
 }
 
 // ------------------------------------------- f32: 3xTF32 on mma.sync
@@ -1002,25 +1339,36 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <bool kBias>
-cudaError_t launch_d512(const void* q, const void* k, const void* v, const float* bias, void* o,
-                        void* workspace, int bh, int lq, int lk, float scale_log2,
-                        cudaStream_t stream) {
-  const int splits = d512_splits(bh, lq, lk, kXQ, kXK);
-  if (splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
-  CUtensorMap maps[3];
+// bf16: TMA maps of q, k, v ([bh, L, D]) in 64-column boxes over the true
+// D (a box past D reads zeros), Q boxes of `q_rows` rows, K and V boxes of
+// `kv_rows` keys.
+template <int D>
+cudaError_t bf16_maps(CUtensorMap (&maps)[3], const void* q, const void* k, const void* v, int bh,
+                      int lq, int lk, int q_rows, int kv_rows) {
   const void* ptrs[3] = {q, k, v};
   const int lens[3] = {lq, lk, lk};
   for (int i = 0; i < 3; ++i) {
-    const cuuint64_t dims[3] = {kXD, static_cast<cuuint64_t>(lens[i]), static_cast<cuuint64_t>(bh)};
-    const cuuint64_t strides[2] = {kXD * 2ull, static_cast<cuuint64_t>(lens[i]) * kXD * 2ull};
-    const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(i == 0 ? kXQ : kXK), 1};
+    const cuuint64_t dims[3] = {D, static_cast<cuuint64_t>(lens[i]), static_cast<cuuint64_t>(bh)};
+    const cuuint64_t strides[2] = {D * 2ull, static_cast<cuuint64_t>(lens[i]) * D * 2ull};
+    const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(i == 0 ? q_rows : kv_rows), 1};
     cudaError_t err =
         make_tensor_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptrs[i], dims, strides, box);
     if (err != cudaSuccess) return err;
   }
+  return cudaSuccess;
+}
+
+template <bool kBias>
+cudaError_t launch_d512(const void* q, const void* k, const void* v, const float* bias, void* o,
+                        void* workspace, int bh, int lq, int lk, float scale_log2,
+                        cudaStream_t stream) {
+  const int splits = key_splits(bh, lq, lk, kXQ, kXK);
+  if (splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  cudaError_t err = bf16_maps<kXD>(maps, q, k, v, bh, lq, lk, kXQ, kXK);
+  if (err != cudaSuccess) return err;
   auto kernel = flash_d512_kernel<kBias>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kXSmem);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kXSmem);
   if (err != cudaSuccess) return err;
   const int ntiles = ceil_div(lk, kXK);
   float* part_o = splits > 1 ? static_cast<float*>(workspace) : nullptr;
@@ -1031,34 +1379,52 @@ cudaError_t launch_d512(const void* q, const void* k, const void* v, const float
                                               lk, ceil_div(ntiles, splits), scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  flash_d512_combine_kernel<__nv_bfloat16><<<bh * lq, 128, 0, stream>>>(
+  flash_combine_kernel<__nv_bfloat16, kXD><<<bh * lq, kXD / 4, 0, stream>>>(
       part_o, part_ml, static_cast<__nv_bfloat16*>(o), bh * lq, splits);
   return cudaGetLastError();
 }
 
+// One launch of a bf16 D 40-160 kernel: a block per `q_rows` query rows of
+// each batch*head.
+template <typename Kernel>
+cudaError_t launch_bf16(Kernel kernel, const CUtensorMap (&maps)[3], int threads, int smem, int q_rows,
+                        const float* bias, void* o, int bh, int lq, int lk, float scale_log2,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(ceil_div(lq, q_rows), bh), threads, smem, stream>>>(
+      maps[0], maps[1], maps[2], bias, static_cast<__nv_bfloat16*>(o), lq, lk, scale_log2);
+  return cudaGetLastError();
+}
+
+// bf16 D 64-160: flash_wgmma_kernel.  D 40: flash_d40_kernel with three
+// consumer warpgroups where its grid of 192-row Q tiles fills the card
+// (the UNet's [2, 8, 4096] calls: 352 blocks), and with two where it does
+// not ([1, 8, 1000]: 48 blocks of 192 rows, 64 of 128) and for the biased
+// form (at three, its bias loads spilled).
 template <int D, bool kBias>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const float* bias, void* o,
                          int bh, int lq, int lk, float scale_log2, cudaStream_t stream) {
   CUtensorMap maps[3];
-  const void* ptrs[3] = {q, k, v};
-  const int lens[3] = {lq, lk, lk};
-  for (int i = 0; i < 3; ++i) {
-    const cuuint64_t dims[3] = {D, static_cast<cuuint64_t>(lens[i]), static_cast<cuuint64_t>(bh)};
-    const cuuint64_t strides[2] = {D * 2ull, static_cast<cuuint64_t>(lens[i]) * D * 2ull};
-    // the innermost extent is the true D; a 64-column box past it reads zeros
-    const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(i == 0 ? kWQ : wgmma_bk(D)), 1};
-    cudaError_t err =
-        make_tensor_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptrs[i], dims, strides, box);
+  if constexpr (D == kED) {
+    if constexpr (!kBias) {
+      if (static_cast<long long>(ceil_div(lq, d40_rows(3))) * bh >= sm_count()) {
+        cudaError_t err = bf16_maps<D>(maps, q, k, v, bh, lq, lk, d40_rows(3), kEK);
+        if (err != cudaSuccess) return err;
+        return launch_bf16(flash_d40_kernel<kBias, 3>, maps, d40_threads(3), d40_smem(3), d40_rows(3),
+                           bias, o, bh, lq, lk, scale_log2, stream);
+      }
+    }
+    cudaError_t err = bf16_maps<D>(maps, q, k, v, bh, lq, lk, d40_rows(2), kEK);
     if (err != cudaSuccess) return err;
+    return launch_bf16(flash_d40_kernel<kBias, 2>, maps, d40_threads(2), d40_smem(2), d40_rows(2), bias,
+                       o, bh, lq, lk, scale_log2, stream);
+  } else {
+    cudaError_t err = bf16_maps<D>(maps, q, k, v, bh, lq, lk, kWQ, wgmma_bk(D));
+    if (err != cudaSuccess) return err;
+    return launch_bf16(flash_wgmma_kernel<D, kBias>, maps, kWThreads, wgmma_smem_bytes<D>(), kWQ, bias, o,
+                       bh, lq, lk, scale_log2, stream);
   }
-  constexpr int smem = wgmma_smem_bytes<D>();
-  auto kernel = flash_wgmma_kernel<D, kBias>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(ceil_div(lq, kWQ), bh);
-  kernel<<<grid, kWThreads, smem, stream>>>(maps[0], maps[1], maps[2], bias,
-                                            static_cast<__nv_bfloat16*>(o), lq, lk, scale_log2);
-  return cudaGetLastError();
 }
 
 template <int D>
@@ -1068,14 +1434,26 @@ cudaError_t launch_bf16_wgmma(const void* q, const void* k, const void* v, const
   return launch_wgmma<D, false>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
 }
 
-// The f32 kernel at head dim D; at D 512 the keys split as for bf16, by the
-// f32 kernel's tiles, and the combine writes f32.
+// Key splits of the f32 kernel, by its tiles: at D 512 as for bf16; at D
+// 160 where the grid of Q tiles leaves SMs idle (the SD1.5 UNet's [2, 8,
+// 256] calls have 32 Q tiles and split four ways, 128 blocks of four 16-key
+// tiles).  The other head dims keep one split.
+template <int D>
+int f32_splits(int bh, int lq, int lk) {
+  using L = F32Smem<D, false>;  // BQ and BK do not depend on the bias
+  if (D == kXD) return key_splits(bh, lq, lk, L::BQ, L::BK);
+  if (D == 160 && static_cast<long long>(ceil_div(lq, L::BQ)) * bh < sm_count())
+    return key_splits(bh, lq, lk, L::BQ, L::BK);
+  return 1;
+}
+
+// The f32 kernel at head dim D; with several key splits the combine writes f32.
 template <int D, bool kBias>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const float* bias, void* o,
                        void* workspace, int bh, int lq, int lk, float scale_log2,
                        cudaStream_t stream) {
   using L = F32Smem<D, kBias>;
-  const int splits = D == kXD ? d512_splits(bh, lq, lk, L::BQ, L::BK) : 1;
+  const int splits = f32_splits<D>(bh, lq, lk);
   if (splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
   auto kernel = flash_f32_kernel<D, kBias>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
@@ -1089,7 +1467,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const float*
       static_cast<float*>(o), part_o, part_ml, lq, lk, ceil_div(ntiles, splits), scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  flash_d512_combine_kernel<float><<<bh * lq, 128, 0, stream>>>(
+  flash_combine_kernel<float, D><<<bh * lq, D / 4, 0, stream>>>(
       part_o, part_ml, static_cast<float*>(o), bh * lq, splits);
   return cudaGetLastError();
 }
@@ -1105,17 +1483,23 @@ cudaError_t launch_f32_bias(const void* q, const void* k, const void* v, const f
 }  // namespace
 }  // namespace sdtpu
 
-// Bytes of f32 scratch the call needs (D 512, bf16 or f32, with its keys
-// split; 0 otherwise).  The caller allocates it and passes it as `workspace`.
+// The key splits a call runs (1 where the keys are not split): bf16 at D
+// 512, f32 at D 160 and 512 (f32_splits).
+extern "C" long long sdtpu_flash_splits(int dtype, int bh, int lq, int lk, int d) {
+  using namespace sdtpu;
+  if (bh <= 0 || lq <= 0 || lk <= 0) return 1;
+  if (dtype == kBF16 && d == kXD) return key_splits(bh, lq, lk, kXQ, kXK);
+  if (dtype == kF32 && d == 160) return f32_splits<160>(bh, lq, lk);
+  if (dtype == kF32 && d == kXD) return f32_splits<kXD>(bh, lq, lk);
+  return 1;
+}
+
+// Bytes of f32 scratch the call needs (0 unless its keys split).  The caller
+// allocates it and passes it as `workspace`.
 extern "C" long long sdtpu_flash_workspace_bytes(int dtype, int bh, int lq, int lk, int d) {
   using namespace sdtpu;
-  if (d != kXD || bh <= 0 || lq <= 0 || lk <= 0) return 0;
-  if (dtype == kBF16) return static_cast<long long>(d512_workspace_bytes(bh, lq, lk, kXQ, kXK));
-  if (dtype == kF32) {
-    using L = F32Smem<kXD, false>;
-    return static_cast<long long>(d512_workspace_bytes(bh, lq, lk, L::BQ, L::BK));
-  }
-  return 0;
+  const long long splits = sdtpu_flash_splits(dtype, bh, lq, lk, d);
+  return static_cast<long long>(split_workspace_bytes(static_cast<int>(splits), bh, lq, d));
 }
 
 // q, k, v, o: contiguous [bh, L, d] in `dtype`; bias: dense f32 [lq, lk] or

@@ -52,6 +52,8 @@ SIGNATURES = {
 QUERIES = {
     # dtype, bh, lq, lk, d -> bytes of f32 scratch
     "sdtpu_flash_workspace_bytes": ((_I, _I, _I, _I, _I), ctypes.c_longlong),
+    # dtype, bh, lq, lk, d -> the key splits the call runs (1: not split)
+    "sdtpu_flash_splits": ((_I, _I, _I, _I, _I), ctypes.c_longlong),
     # m, n -> x rows per block of the 4-bit wgmma kernel (0: another form runs)
     "sdtpu_q4_tile_rows": ((_I, _I), ctypes.c_longlong),
     # m, k -> the W8A8 form: 0 the GEMV, 1 the mma.sync form, 2 the wgmma kernel

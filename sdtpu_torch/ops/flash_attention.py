@@ -12,6 +12,8 @@ to ``plain_attention``.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import torch
@@ -34,6 +36,49 @@ def plain_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.
     return torch.matmul(probs.to(q.dtype), v.to(q.dtype))
 
 
+def key_split_partials(q, k, v, mask=None, scale: Optional[float] = None, splits: int = 1,
+                       tile: int = 16) -> list:
+    """The key split of the float32 kernel (D 160 and 512) in plain PyTorch:
+    the keys cut into ``tile``-key tiles, ``ceil(tiles / splits)`` whole
+    tiles a split (the last split ragged, and empty splits dropped), each
+    split an online softmax over its tiles in log2 units (scale·log2(e)
+    folded into the scores).  Returns each split's (O, m, l): the
+    unnormalised [..., Lq, D] output, its row max and row sum ([..., Lq, 1]),
+    all float32."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    lk = k.shape[-2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (scale * math.log2(math.e))
+    if mask is not None:
+        s = s + mask.float() * math.log2(math.e)
+    ntiles = -(-lk // tile)
+    per = -(-ntiles // splits) * tile  # keys a split
+    parts = []
+    for start in range(0, lk, per):
+        m = s.new_full(s.shape[:-1] + (1,), -1e30)
+        l = torch.zeros_like(m)
+        o = s.new_zeros(s.shape[:-1] + (v.shape[-1],))
+        for t in range(start, min(start + per, lk), tile):
+            st = s[..., t:t + tile]
+            m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(st - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            o = o * alpha + torch.matmul(p, v[..., t:t + tile, :].float())
+            m = m_new
+        parts.append((o, m, l))
+    return parts
+
+
+def combine_key_splits(parts, dtype=torch.float32) -> torch.Tensor:
+    """Merge ``key_split_partials``' splits as the combine kernel does:
+    o = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s, M the largest m_s."""
+    mx = functools.reduce(torch.maximum, [m for _, m, _ in parts])
+    o = sum(torch.exp2(m - mx) * po for po, m, _ in parts)
+    l = sum(torch.exp2(m - mx) * pl for _, m, pl in parts)
+    return (o / l).to(dtype)
+
+
 def flash_supported(q, k, v, mask) -> bool:
     """The kernel's constraints, the reference's rule: 4-D [B,H,L,D]; a mask
     must broadcast as [Lq, Lk] (every leading dim 1)."""
@@ -42,6 +87,13 @@ def flash_supported(q, k, v, mask) -> bool:
     if mask is not None and mask.dim() > 2 and any(d != 1 for d in mask.shape[:-2]):
         return False
     return True
+
+
+@functools.lru_cache(maxsize=1024)
+def _workspace_bytes(code: int, bh: int, lq: int, lk: int, d: int) -> int:
+    """f32 scratch a call needs (0 unless the library splits its keys: bf16
+    at D 512, float32 at D 160 and 512), asked once per shape."""
+    return _build.query("sdtpu_flash_workspace_bytes", code, bh, lq, lk, d)
 
 
 def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.Tensor:
@@ -76,9 +128,9 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.
     out = torch.empty_like(q)
     code = _build.DTYPE_CODES[q.dtype]
     ws = None
-    if d == 512:  # f32 scratch for the partial outputs of a key split, sized by the library
-        ws_bytes = _build.query("sdtpu_flash_workspace_bytes", code, b * h, lq, lk, d)
-        ws = torch.empty((ws_bytes // 4,), dtype=torch.float32, device=q.device) if ws_bytes else None
+    ws_bytes = _workspace_bytes(code, b * h, lq, lk, d)
+    if ws_bytes:  # f32 scratch for the partial outputs of a key split, sized by the library
+        ws = torch.empty((ws_bytes // 4,), dtype=torch.float32, device=q.device)
     _build.check_cuda("flash_attention", q, k, v, out, *(t for t in (bias, ws) if t is not None))
     _build.launch(
         "sdtpu_flash_attention", code, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time the quantized matmuls (4-bit, group-dequant, affine, W8A16, W8A8)
-and float32 flash attention at ``chip_smoke.py``'s shapes with whichever
+and flash attention at ``chip_smoke.py``'s shapes with whichever
 checkout's package ``PYTHONPATH`` names, so checkouts can be compared on one
 card in one call, in turns.
 
@@ -12,7 +12,7 @@ at ``GQ16_CASES``), ``gq_zero_matmul``, ``w8a16_matmul`` and
 ``quant_matmul_w8a8`` at the ``W8A8_CASES`` of at least 128 rows (their
 TMA + wgmma form); then ``gq_matmul`` (groups 32 and 16), ``w8a16_matmul``
 and ``quant_matmul_w8a8`` at the cases of at most ``GQ_GEMV_MAX_M`` rows
-(their GEMVs); then ``flash_attention`` at the float32 ``FLASH_CASES``;
+(their GEMVs); then ``flash_attention`` at the ``FLASH_CASES``;
 then the float32 forms of the quantized matmuls, float32 x held to the
 float32 limit: ``q4_matmul`` at ``Q4_F32_CASES``, ``gq_matmul`` and
 ``gq_zero_matmul`` at ``GQ_F32_CASES``, ``w8a16_matmul`` at
@@ -26,7 +26,9 @@ warm-up, and a case of at most ``GQ_GEMV_MAX_M`` rows also on the device
 clock (``device_ms``: the CUDA-event time reads the Python wrapper's launch
 rate there), as the sum over the kernels a call launches of each one's mean
 device time, so that a W8A8 call that quantizes x in a launch of its own
-counts both.  One ``kernel {...}`` line per case, then a summary line.
+counts both; so is a flash case under 0.1 ms (a split call's combine
+included), which also records its ``splits``.  One ``kernel {...}`` line per
+case, then a summary line.
 """
 from __future__ import annotations
 
@@ -45,40 +47,35 @@ def _chip_smoke():
     return mod
 
 
-def device_ms_sum(cs, fn, iters: int) -> float:
-    """The device time of one call of ``fn``, summed over the kernels it
-    launches: each kernel's mean over the launches ``chip_smoke.py``'s
-    ``device_kernels`` recorded of ``iters`` calls."""
-    by_name = {}
-    for name, us in cs.device_kernels(fn, iters):
-        by_name.setdefault(name, []).append(us)
-    if not by_name or any(len(v) > iters for v in by_name.values()):
-        raise RuntimeError(f"device_ms_sum: {[(n[:60], len(v)) for n, v in by_name.items()]} "
-                           f"device kernels traced in {iters} calls")
-    return sum(sum(v) / len(v) for v in by_name.values()) / 1e3
-
-
 def time_flash(cs, g, case, label: str, card: str) -> dict:
-    """One float32 ``FLASH_CASES`` case: held to its plain version at
-    ``FLASH_TOL["f32"]`` of the largest |output|, then timed with CUDA events."""
+    """One ``FLASH_CASES`` case: held to its plain version at
+    ``FLASH_TOL`` of the largest |output|, then timed with CUDA events."""
     import torch
 
+    from sdtpu_torch.ops import _build
     from sdtpu_torch.ops import flash_attention as fa
 
     b, h, lq, lk, d, dt, bias = case
-    q, k, v = (torch.randn((b, h, l, d), generator=g, device="cuda") for l in (lq, lk, lk))
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    q, k, v = (torch.randn((b, h, l, d), generator=g, device="cuda", dtype=dtype) for l in (lq, lk, lk))
     mask = None
     if bias == "causal":
         mask = torch.full((lq, lk), -1e30, device="cuda").triu(1)
     elif bias == "random":
         mask = torch.randn((lq, lk), generator=g, device="cuda")
     got, want = fa.flash_attention(q, k, v, mask=mask), fa.plain_attention(q, k, v, mask=mask)
-    err = (got - want).abs().max().item()
-    tol = cs.FLASH_TOL[dt] * want.abs().max().item()
-    ms = cs.time_ms(lambda: fa.flash_attention(q, k, v, mask=mask),
-                    cs.iters_for(4.0 * b * h * lq * lk * d))
+    err = (got.float() - want.float()).abs().max().item()
+    tol = cs.FLASH_TOL[dt] * want.float().abs().max().item()
+    it = cs.iters_for(4.0 * b * h * lq * lk * d)
+    ms = cs.time_ms(lambda: fa.flash_attention(q, k, v, mask=mask), it)
+    dev = {}
+    if ms < 0.1:
+        dev["device_ms"] = cs.device_ms_sum(lambda: fa.flash_attention(q, k, v, mask=mask), it)
+    splits = None  # a tree older than the query splits only bf16 and float32 D 512
+    if "sdtpu_flash_splits" in _build.QUERIES:
+        splits = _build.query("sdtpu_flash_splits", _build.DTYPE_CODES[dtype], b * h, lq, lk, d)
     case = dict(label=label, kernel="flash_attention", shape=[b, h, lq, lk, d], dtype=dt, bias=bias,
-                ms=ms, max_abs_err=err, tol=tol, ok=bool(err <= tol), card=card)
+                splits=splits, ms=ms, **dev, max_abs_err=err, tol=tol, ok=bool(err <= tol), card=card)
     print("kernel " + json.dumps(case), flush=True)
     return case
 
@@ -118,7 +115,7 @@ def main() -> int:
     plan += [(form, s, 32, "bf16") for s in small
              for form in ("gq_matmul", "w8a16_matmul", "quant_matmul_w8a8")]
     plan += [("gq_matmul", s, 16, "bf16") for s in cs.GQ16_CASES if s[0] <= quant.GQ_GEMV_MAX_M]
-    plan += [("flash_attention", c, None, "f32") for c in cs.FLASH_CASES if c[5] == "f32"]
+    plan += [("flash_attention", c, None, c[5]) for c in cs.FLASH_CASES]
     plan += [("q4_matmul", s[:3], s[3], "f32") for s in cs.Q4_F32_CASES]
     plan += [(form, s[:3], s[3], "f32") for s in cs.GQ_F32_CASES for form in ("gq_matmul", "gq_zero_matmul")]
     plan += [("w8a16_matmul", s, None, "f32") for s in cs.W8A16_F32_CASES]
@@ -155,7 +152,7 @@ def main() -> int:
         tol = rel * want.float().abs().max().item()
         it = cs.iters_for(2.0 * m * n * k)
         ms = cs.time_ms(lambda: fn(x, qt), it)
-        dev = {"device_ms": device_ms_sum(cs, lambda: fn(x, qt), it)} if m <= quant.GQ_GEMV_MAX_M else {}
+        dev = {"device_ms": cs.device_ms_sum(lambda: fn(x, qt), it)} if m <= quant.GQ_GEMV_MAX_M else {}
         case = dict(label=args.label, kernel=form, shape=[m, k, n], group=group, dtype=dt, ms=ms, **dev,
                     max_abs_err=err, tol=tol, ok=bool(err <= tol), card=card)
         print("kernel " + json.dumps(case), flush=True)

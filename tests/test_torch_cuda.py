@@ -153,18 +153,48 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, lq, lk, d, bias):
     assert (got.float() - want.float()).abs().max().item() <= tol * scale
 
 
+# (dtype, tol, d, (B, H), Lq, Lk, bias, key splits on 132 SMs or None).
+# Every UNet head dim in both dtypes at ragged shapes; then float32 D 160
+# split 1, 2, 3, 4, 5, 8 and 16 ways, and the bf16 D 40 kernel's edges:
+# one key tile, Lk off the 128-key tile, one and several tiles, Lq under
+# one warpgroup's 64 rows and between 128 and 192, and grids large enough
+# for its three-warpgroup form (a ragged last Q tile among them).
+UNET_FLASH_TESTS = [
+    (dtype, tol, d, bh, lq, lk, bias, None)
+    for dtype, tol in [(torch.bfloat16, 2e-2), (torch.float32, FLASH_F32_TOL)]
+    for d in (40, 80, 160)
+    for bh, lq, lk, bias in [((2, 8), 1000, 77, False), ((1, 3), 257, 300, True), ((2, 8), 64, 64, False),
+                             ((3, 2), 130, 1, True), ((1, 2), 1, 129, False), ((1, 8), 513, 1030, True)]
+] + [
+    (torch.float32, FLASH_F32_TOL, 160, bh, lq, lk, bias, splits)
+    for bh, lq, lk, bias, splits in [
+        ((2, 8), 256, 16, False, 1), ((2, 8), 256, 1, True, 1), ((1, 2), 64, 32, True, 2),
+        ((2, 8), 256, 77, True, 3), ((2, 8), 256, 256, False, 4), ((2, 8), 64, 64, False, 4),
+        ((2, 8), 256, 200, True, 4), ((2, 8), 64, 77, False, 5), ((1, 8), 64, 120, False, 8),
+        ((1, 1), 256, 256, False, 16)]
+] + [
+    (torch.bfloat16, 2e-2, 40, bh, lq, lk, bias, None)
+    for bh, lq, lk, bias in [
+        ((1, 2), 100, 128, False), ((1, 2), 10, 50, True), ((1, 1), 1, 1, False),
+        ((1, 2), 64, 129, False), ((2, 3), 150, 300, False), ((1, 4), 190, 256, True),
+        ((2, 2), 300, 640, True), ((1, 2), 1024, 1024, False),
+        # grids of 192-row Q tiles that fill 132 SMs: three consumer warpgroups
+        ((2, 8), 2000, 300, False), ((2, 8), 4096, 77, False)]
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, FLASH_F32_TOL)])
-@pytest.mark.parametrize("d", [40, 80, 160])
-@pytest.mark.parametrize("bh,lq,lk,bias", [
-    ((2, 8), 1000, 77, False), ((1, 3), 257, 300, True), ((2, 8), 64, 64, False),
-    ((3, 2), 130, 1, True), ((1, 2), 1, 129, False), ((1, 8), 513, 1030, True)])
-def test_flash_unet_head_dims_match_plain(cuda, dtype, tol, d, bh, lq, lk, bias):
-    """The SD1.5 UNet's head dims, both dtypes: bf16 pads D to whole 64-column
-    blocks in shared memory only (TMA's zero fill), float32 contracts D 40
-    over 48 columns; ragged Lq and Lk (a cross-attention's 77 keys, one key,
-    one query), with and without the dense bias.  Each call counts one
-    launch in ``launches`` and in its head dim's counter."""
+@pytest.mark.parametrize("dtype,tol,d,bh,lq,lk,bias,splits", UNET_FLASH_TESTS)
+def test_flash_unet_head_dims_match_plain(cuda, dtype, tol, d, bh, lq, lk, bias, splits):
+    """The SD1.5 UNet's head dims, both dtypes: bf16 D 80 / 160 pad D to
+    whole 64-column blocks in shared memory only (TMA's zero fill), bf16 D
+    40 runs its own kernel, float32 contracts D 40 over 48 columns and
+    splits D 160's keys where the grid is small; ragged Lq and Lk (a
+    cross-attention's 77 keys, one key, one query), with and without the
+    dense bias.  Each call counts one launch in ``launches`` and in its head
+    dim's counter; a float32 D 160 case runs the key splits it names."""
+    if splits is not None and torch.cuda.get_device_properties(0).multi_processor_count == 132:
+        assert _build.query("sdtpu_flash_splits", 1, bh[0] * bh[1], lq, lk, d) == splits
     g = torch.Generator(device=cuda).manual_seed(lq * d + lk)
     q = torch.randn((*bh, lq, d), generator=g, device=cuda, dtype=dtype)
     k, v = (torch.randn((*bh, lk, d), generator=g, device=cuda, dtype=dtype) for _ in range(2))
@@ -177,6 +207,32 @@ def test_flash_unet_head_dims_match_plain(cuda, dtype, tol, d, bh, lq, lk, bias)
     want = fa.plain_attention(q, k, v, mask=mask)
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max().item() <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_flash_split_workspace_allocated_by_wrapper(cuda):
+    """A float32 D 160 call that splits its keys: the library asks for f32
+    scratch (each split's [B·H, Lq, D] output, max and sum), the wrapper
+    allocates it beside the output, and the call (the kernel and its
+    combine) counts one launch in ``launches``, ``launches_f32`` and
+    ``launches_d160``."""
+    b, h, lq, lk, d = 2, 8, 256, 256, 160
+    splits = _build.query("sdtpu_flash_splits", 1, b * h, lq, lk, d)
+    ws = _build.query("sdtpu_flash_workspace_bytes", 1, b * h, lq, lk, d)
+    assert splits > 1 and ws == splits * b * h * lq * (d + 2) * 4
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((b, h, l, d), generator=g, device=cuda) for l in (lq, lk, lk))
+    counters = ("launches", "launches_f32", "launches_d160")
+    before = [getattr(fa.flash_attention, c) for c in counters]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base >= ws + got.numel() * 4
+    assert [getattr(fa.flash_attention, c) for c in counters] == [n + 1 for n in before]
+    want = fa.plain_attention(q, k, v)
+    assert (got - want).abs().max().item() <= FLASH_F32_TOL * want.abs().max().item()
 
 
 @pytest.mark.cuda

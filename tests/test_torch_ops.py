@@ -24,7 +24,7 @@ from sdtpu_torch.ops import basic as tb
 from sdtpu_torch.ops.attention import attention as tattention
 from sdtpu_torch.ops.flash_attention import flash_attention as tflash
 from sdtpu_torch.ops.flash_attention import flash_supported as tflash_supported
-from sdtpu_torch.ops.flash_attention import plain_attention
+from sdtpu_torch.ops.flash_attention import combine_key_splits, key_split_partials, plain_attention
 
 
 def _t(a):
@@ -130,6 +130,36 @@ def test_plain_flash_matches_pallas_interpret(lq, lk, d, mask):
     want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                   mask=None if bias is None else jnp.asarray(bias))
     got = tflash(_t(q), _t(k), _t(v), mask=None if bias is None else _t(bias))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("lq,lk,d,splits,mask", [
+    (24, 77, 40, 1, None),       # one split: the kernel's own online softmax
+    (24, 77, 40, 3, "random"),   # 5 tiles in 3 splits: the last one tile, ragged
+    (40, 200, 80, 2, None),
+    (64, 256, 160, 4, None),     # the UNet's [256, 256] split: four 4-tile splits
+    (33, 200, 160, 4, "random"),  # 13 tiles: the last split one ragged tile
+    (17, 64, 160, 8, None),      # more splits than tiles: one tile each
+    (32, 100, 512, 5, "causal"),
+    (16, 130, 512, 8, "random"),
+])
+def test_key_split_combine_matches_pallas_interpret(lq, lk, d, splits, mask):
+    """The float32 kernel's key split (16-key tiles, each split's running
+    max, sum and unnormalised output) merged by the combine's 2^(m_s - M)
+    rescale, against the reference's flash in interpret mode."""
+    q, k, v = _qkv(13 + d, 1, 2, lq, lk, d)
+    bias = None
+    if mask == "causal":
+        bias = np.where(np.tril(np.ones((lq, lk), dtype=bool)), 0.0, -1e30).astype(np.float32)
+    elif mask == "random":
+        bias = np.random.default_rng(splits).standard_normal((lq, lk), dtype=np.float32)
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  mask=None if bias is None else jnp.asarray(bias))
+    parts = key_split_partials(_t(q), _t(k), _t(v), None if bias is None else _t(bias), splits=splits)
+    ntiles = -(-lk // 16)
+    per = -(-ntiles // splits)  # whole tiles a split
+    assert len(parts) == -(-ntiles // per)
+    got = combine_key_splits(parts)
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-5)
 
 
