@@ -26,7 +26,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      exceed its limit: the padded head dim's softmax scale and unmasked pad
      keys for bf16, the one-pass TF32 fault for float32 and, where the
      float32 call splits its keys (D 160 and 512: each case records its
-     ``splits``), the split-keys combine without its rescale; flash's bound
+     ``splits``), the split-keys combine without its rescale; and at the
+     SDXL UNet's and CLIP-G's D 64 shapes at 1024² under CFG (10 heads over
+     4096 tokens, 20 over 1024, each with its cross-attention over CLIP's
+     77, CLIP-G's causal [1, 20, 77, 77]; bf16 with the last 128-key tile
+     dropped and unmasked pad keys as faults, float32 with the one-pass TF32
+     fault); flash's bound
      also counts its B·H·Lq·Lk exponentials at the special-function unit's
      rate, ``bound_by`` "exp" where they bound it; a flash case under 0.1 ms
      also records the kernel's and SDPA's device time a call,
@@ -38,10 +43,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      rate, also the kernel's mean device time a call (``device_ms``, from
      torch.profiler's record of its launches over the timed iterations);
   4. a small-input reference check: T5, CLIP, one DiT forward, a VAE
-     decode and one SD1.5 UNet forward (its widths and heads, one res block
-     a level, a 16x16 latent) at kernel-shaped small widths, on the card
-     (kernels, bf16 and float32) against the same weights on the CPU (plain
-     versions, float32);
+     decode, one SD1.5 UNet forward (its widths and heads, one res block
+     a level, a 16x16 latent), one SDXL UNet forward with its vector ``y``
+     (SDXL's widths and 64-channel heads, one res block a level, depth 1,
+     a 16x16 latent under CFG), CLIP-G's hidden state at clip skip 2 and its
+     pooled projection (full width, two layers) and a TAESD-XL decode, at
+     kernel-shaped small widths, on the card (kernels, bf16 and float32)
+     against the same weights on the CPU (plain versions, float32);
   5. the GGUF loader at full FLUX.1-dev width and cut depth: a DiT of one
      double and one single block written by ``save_gguf`` (q8_0, q4_0 and
      q4_1 tensors; q6_k and q4_k blocks added from random raw blocks),
@@ -85,6 +93,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      both, the flash launches at D 40 / 80 / 160 equal the UNet's calls per
      forward (10 / 10 / 12) times its forwards, and no attention runs in the
      plain version on the card.
+ 10c. SDXL at full width (``create_pipeline(SDVersion.SDXL, ...)``, dense
+     random weights drawn on the card with the JAX bench's seeds, a
+     TAESD-XL decoder attached with ``set_tae``): path ``sdxl`` in bf16
+     answers ``bench_sdxl_lcm_taesd``'s request (bench.py:441: "a
+     photograph of an astronaut riding a horse", 1024², 4 lcm steps,
+     discrete, CFG 1, seed 42) once to warm up and once timed, one with a
+     fresh prompt, then, after ``set_tae(None)``, a 1024² × 4-step euler
+     request at CFG 5 with a negative prompt and VAE tiling (the vector's
+     uncond half, the CFG batch of two, flash D 512); path ``sdxl_f32`` (no
+     dtype argument: float32) answers the bench request at 2 steps.  On
+     both, the flash launches at D 64 equal the UNet's 140 calls a forward
+     times its forwards plus 43 a prompt encode (CLIP-L and CLIP-G), D 40 /
+     80 / 160 do not launch, D 512 only on the full-VAE request, and no
+     attention runs in the plain version on the card.
  11. main path 5, the entry points, on files: a full FLUX.1-dev checkpoint
      set written by ``sdtpu_torch.tools.flux_files`` into a temporary
      directory under ``build/chip_smoke/`` (removed after; the free disk
@@ -105,7 +127,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (2.13e9 bytes), ``cli.main -m`` answers one 512² × 20-step request to
      a PNG (path ``sd15_cli``) and the server, loaded from the same file,
      one A1111 ``/sdapi/v1/txt2img`` request (path ``sd15_server``), each
-     with the launch checks of 10b.
+     with the launch checks of 10b.  Then SDXL on files:
+     ``sdtpu_torch.tools.sdxl_file`` writes a full-width float16 single-file
+     SDXL checkpoint under the SGM names (CLIP-G under OpenCLIP's, 6.94e9
+     bytes) and a TAESD-XL decoder file; ``cli.main -m ... --taesd ...``
+     answers the bench's 1024² × 4-step lcm request to a PNG, read back in
+     metadata mode (path ``sdxl_cli``), and the server, loaded from the
+     same files, one A1111 request with ``sampler_name`` lcm (path
+     ``sdxl_server``), each with the launch checks of 10c.
 Every path of phases 5-11 sets the kernels' launch counts to 0 before it runs
 and reads them after: each kernel that path runs must have launched.  The
 4-bit kernel's TMA + wgmma form (M >= 128) and its weight-streaming GEMV
@@ -159,6 +188,8 @@ KERNEL_INFO = {
     "flash_attention": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "flash_attention_d512": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "flash_attention_f32": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
+    # bf16 D 64: CLIP-L, CLIP-G and the SDXL UNet (counted apart)
+    "flash_attention_d64": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     # the SD1.5 UNet's head dims, bf16 and float32 forms (counted per D)
     "flash_attention_d40": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "flash_attention_d80": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
@@ -231,12 +262,31 @@ UNET_FLASH_SHAPES = [
 ]
 FLASH_CASES += [(b, h, lq, lk, d, dt, bias) for dt in ("bf16", "f32")
                 for b, h, lq, lk, d, bias in UNET_FLASH_SHAPES]
+# The SDXL UNet at 1024² under CFG (B = 2, 64-channel heads: 10 over 640
+# channels, 20 over 1280): each attention level's self-attention over its
+# latent tokens and cross-attention over CLIP's 77; CLIP-G's causal call
+# (20 heads of 64), in bf16 and in float32.
+SDXL_FLASH_SHAPES = [
+    (2, 10, 4096, 4096, 64, None), (2, 10, 4096, 77, 64, None), (2, 20, 1024, 1024, 64, None),
+    (2, 20, 1024, 77, 64, None), (1, 20, 77, 77, 64, "causal"),
+]
+FLASH_CASES += [(b, h, lq, lk, d, dt, bias) for dt in ("bf16", "f32")
+                for b, h, lq, lk, d, bias in SDXL_FLASH_SHAPES]
 UNET_HEAD_DIMS = (40, 80, 160)
 # head dim -> attention calls of one full-width SD1.5 UNet forward: a self-
 # and a cross-attention in each of its 16 transformer blocks (two at each
 # of the three attention levels on the way down, three on the way up, and
 # the middle block's one at D 160)
 UNET_ATTENTION_CALLS = {40: 10, 80: 10, 160: 12}
+# head dim -> attention calls of one full-width SDXL UNet forward: a self-
+# and a cross-attention in each of its 70 transformer blocks (2 x 2 at the
+# 640-wide level and 2 x 10 at the 1280-wide one on the way down, the
+# middle block's 10, 3 x 10 and 3 x 2 on the way up), all at D 64
+SDXL_UNET_ATTENTION_CALLS = {64: 140}
+# attention calls of one SDXL prompt encode (every chunk of a prompt in one
+# batched call a layer): CLIP-L's 11 layers at clip skip 2, CLIP-G's 31 and
+# its top layer, run for the pooled output
+SDXL_CLIP_ATTENTION_CALLS = 11 + 31 + 1
 # (M, K, N, group) of the 4-bit kernel.  T5-XXL (M = 256 tokens per prompt:
 # q/k/v/o, wi_0/wi_1, wo) and one ragged case at groups 64, 32 and 16; the
 # q4_0 DiT at group 32 (a q4_0 GGUF's blocks): its MLP and linear2 widths at
@@ -308,7 +358,10 @@ FLASH_TOL = {"bf16": 2e-2, "f32": 2e-5}
 #     UNet's D 40, 80 and 160 the bf16 kernel computes on the head dim padded
 #     to 64, 128 and 192 columns: the softmax scale of the padded width
 #     (``padded_scale``), and where Lk is off the key tile (128, 64 at D 160)
-#     the zero keys past it left unmasked (``unmasked_pad_keys``).
+#     the zero keys past it left unmasked (``unmasked_pad_keys``).  At bf16
+#     D 64 (CLIP's, the SDXL UNet's) the kernel's last 128-key tile dropped
+#     (``drop_key_tile``, where the keys span more than one) and the zero
+#     keys past Lk left unmasked (where Lk is off the 128-key tile).
 FLASH_FAULTS = ("drop_key_tile", "combine_unscaled", "padded_scale", "unmasked_pad_keys")
 Q4_REL_TOL = 2.0 ** -6
 GQ_REL_TOL = {"bf16": 2.0 ** -6, "f32": 1e-5}
@@ -436,10 +489,22 @@ for _path in ("sd15", "sd15_cli", "sd15_server"):
     PATH_KERNELS[_path] = ("flash_attention", *UNET_FLASH, "flash_attention_d64",
                            "flash_attention_d512")
     PATH_IDLE[_path] = (*QUANT_KERNELS, *F32_FORMS)
+# SDXL (dense): flash at D 64 (the UNet, CLIP-L and CLIP-G), D 512 on the
+# full-VAE request only (the TAESD decode has no attention)
+for _path in ("sdxl", "sdxl_cli", "sdxl_server"):
+    PATH_KERNELS[_path] = ("flash_attention", "flash_attention_d64")
+    PATH_IDLE[_path] = (*QUANT_KERNELS, *F32_FORMS, *UNET_FLASH)
+PATH_KERNELS["sdxl"] += ("flash_attention_d512",)
+PATH_IDLE["sdxl_cli"] += ("flash_attention_d512",)
+PATH_IDLE["sdxl_server"] += ("flash_attention_d512",)
+PATH_KERNELS["sdxl_f32"] = ("flash_attention", "flash_attention_f32")
+PATH_IDLE["sdxl_f32"] = (*QUANT_KERNELS, *UNET_FLASH, "flash_attention_d64", "flash_attention_d512",
+                         "q4_matmul_f32", "w8a16_matmul_f32", "gq_matmul_f32", "gq_zero_matmul_f32")
 PATH_KERNELS["sd15_f32"] = ("flash_attention", "flash_attention_f32", *UNET_FLASH)
 PATH_IDLE["sd15_f32"] = (*QUANT_KERNELS, "flash_attention_d64", "flash_attention_d512",
                          "q4_matmul_f32", "w8a16_matmul_f32", "gq_matmul_f32", "gq_zero_matmul_f32")
 F32_PATHS = {"sd15_f32": (("flash_attention", "flash_attention_f32"),),
+             "sdxl_f32": (("flash_attention", "flash_attention_f32"),),
              "f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
              "f32_w8a16": (("flash_attention", "flash_attention_f32"),
                            ("q4_matmul", "q4_matmul_f32"), ("w8a16_matmul", "w8a16_matmul_f32"))}
@@ -791,6 +856,23 @@ def _padded_faults(q, k, v, mask, want) -> dict:
     return out
 
 
+def _d64_faults(q, k, v, mask, want) -> dict:
+    """max |error| against ``want`` of the bf16 D 64 kernel's faults
+    (FLASH_FAULTS), in plain PyTorch on the case's inputs: its last 128-key
+    tile dropped (where the keys span more than one), and the zero keys past
+    Lk left unmasked (where Lk is off the tile)."""
+    from sdtpu_torch.ops.flash_attention import plain_attention
+
+    lk = k.shape[2]
+    out = {k_: v_ for k_, v_ in _padded_faults(q, k, v, mask, want).items() if k_ != "padded_scale"}
+    if lk > 128:
+        keep = (lk - 1) // 128 * 128
+        out["drop_key_tile"] = (plain_attention(q, k[:, :, :keep], v[:, :, :keep],
+                                                mask=None if mask is None else mask[..., :keep])
+                                .float() - want.float()).abs().max().item()
+    return out
+
+
 def _split_fault(q, k, v, mask, want, splits: int) -> dict:
     """A float32 split call's fault (FLASH_FAULTS): its splits' partial
     outputs and sums (``key_split_partials``, the f32 kernel's 16-key tiles)
@@ -911,6 +993,8 @@ def check_flash(results):
                       else _padded_faults(q, k, v, mask, want))
         elif dt == "f32":
             name, faults = "flash_attention_f32", _one_pass_tf32_fault(q, k, v, mask, want)
+        elif d == 64:
+            name, faults = "flash_attention_d64", _d64_faults(q, k, v, mask, want)
         elif d == 512:
             name, faults = "flash_attention_d512", _d512_faults(q, k, v, mask, want)
         else:
@@ -1132,6 +1216,7 @@ def reference_check():
     from sdtpu_torch.models import clip as clip_mod
     from sdtpu_torch.models import flux as flux_mod
     from sdtpu_torch.models import t5 as t5_mod
+    from sdtpu_torch.models import tae as tae_mod
     from sdtpu_torch.models import unet as unet_mod
     from sdtpu_torch.models import vae as vae_mod
     from sdtpu_torch.weights import synthesize
@@ -1146,10 +1231,18 @@ def reference_check():
     # level, on a 16x16 latent under CFG
     unet_cfg = dataclasses.replace(unet_mod.SD1_UNET_CONFIG, num_res_blocks=1,
                                    channel_mult=(1, 2, 4), transformer_depth=(1, 1, 1))
+    # SDXL's widths, 64-channel heads and vector at one res block a level and
+    # depth 1; CLIP-G at full width and two layers; TAESD-XL whole
+    sdxl_cfg = dataclasses.replace(unet_mod.SDXL_UNET_CONFIG, num_res_blocks=1,
+                                   transformer_depth=(0, 1, 1))
+    clip_g_cfg = dataclasses.replace(clip_mod.CLIP_G_CONFIG, num_layers=2)
+    tae_cfg = tae_mod.TAESD_XL_CONFIG
     mods = {
         "dit": (flux_mod.param_specs(dit_cfg), "q8_0"), "clip": (clip_mod.param_specs(clip_cfg), None),
         "t5": (t5_mod.param_specs(t5_cfg), "q4_0"), "vae": (vae_mod.param_specs(vae_cfg), None),
         "unet": (unet_mod.param_specs(unet_cfg), None),
+        "sdxl_unet": (unet_mod.param_specs(sdxl_cfg), None),
+        "clip_g": (clip_mod.param_specs(clip_g_cfg), None), "tae": (tae_mod.param_specs(tae_cfg), None),
     }
     gpu = {n: synthesize(s, quant=q, seed=i, device=DEVICE, dtype=torch.bfloat16)
            for i, (n, (s, q)) in enumerate(mods.items())}
@@ -1165,6 +1258,9 @@ def reference_check():
     xu = torch.randn((2, 16, 16, 4), generator=gen)
     tu = torch.tensor([999.0, 411.5])
     ctx_u = torch.randn((2, 77, 768), generator=gen)
+    ctx_xl = torch.randn((2, 77, sdxl_cfg.context_dim), generator=gen)
+    y_xl = torch.randn((2, sdxl_cfg.adm_in_channels), generator=gen)
+    z_tae = torch.randn((1, 16, 16, 4), generator=gen)
 
     def run(p, dev, dtype):
         with torch.inference_mode():
@@ -1176,8 +1272,14 @@ def reference_check():
             img = vae_mod.vae_decode(p["vae"], z.to(dev, dtype), vae_cfg)
             eps = unet_mod.unet_forward(p["unet"], xu.to(dev, dtype), tu.to(dev),
                                         ctx_u.to(dev, dtype), cfg=unet_cfg)
+            eps_xl = unet_mod.unet_forward(p["sdxl_unet"], xu.to(dev, dtype), tu.to(dev),
+                                           ctx_xl.to(dev, dtype), y=y_xl.to(dev), cfg=sdxl_cfg)
+            h_g, pooled_g = clip_mod.clip_text_forward(p["clip_g"], ids.to(dev), clip_g_cfg,
+                                                       clip_skip=2, return_pooled=True)
+            tae_img = tae_mod.tae_decode(p["tae"], z_tae.to(dev, dtype), tae_cfg)
         return {"clip_pooled": pooled, "t5": ctx, "flux_forward": vel, "vae_decode": img,
-                "unet_forward": eps}
+                "unet_forward": eps, "sdxl_unet_forward": eps_xl, "clip_g_hidden": h_g,
+                "clip_g_pooled": pooled_g, "tae_decode": tae_img}
 
     want = run(cpu, "cpu", torch.float32)
     out = {}
@@ -1771,6 +1873,252 @@ def sd15_entry_check(wrappers, card: str) -> dict:
     return report, launches
 
 
+# SDXL: the JAX bench's request (``bench_sdxl_lcm_taesd``, bench.py:441),
+# answered through TAESD-XL once to warm up, once timed and once with a
+# fresh prompt (CLIP-L and CLIP-G encode inside the window, as the bench's
+# cold-prompt metric); then, with the full VAE, a 1024² × 4-step euler
+# request at CFG 5 with a negative prompt and VAE tiling.  The default dtype
+# (float32) answers the bench request at 2 steps.
+SDXL_REQUEST = dict(prompt="a photograph of an astronaut riding a horse", negative_prompt="",
+                    width=1024, height=1024, sample_steps=4, cfg_scale=1.0, seed=42,
+                    sample_method="lcm", schedule="discrete")
+SDXL_TAE_REQUESTS = [SDXL_REQUEST, SDXL_REQUEST,
+                     dict(SDXL_REQUEST, prompt=SDXL_REQUEST["prompt"] + ", take 0")]
+SDXL_VAE_REQUEST = dict(SDXL_REQUEST, prompt="a red fox in fresh snow, golden hour",
+                        negative_prompt="blurry, low quality", sample_method="euler", cfg_scale=5.0,
+                        seed=7)
+SDXL_F32_REQUESTS = [dict(SDXL_REQUEST, sample_steps=2)]
+# the JAX bench's seeds (bench.py:453-470): the UNet 1, CLIP-L 2, CLIP-G 3,
+# the VAE 4, TAESD-XL 5
+SDXL_BENCH_SEEDS = {"diffusion": 1, "clip_l": 2, "clip_g": 3, "vae": 4, "tae": 5}
+
+
+def _forwards_and_encodes(requests) -> tuple:
+    """(UNet forwards, prompt encodes) of ``requests``: one forward a step
+    (the CFG batch of two is one forward), one encode a prompt and one more
+    for the negative prompt under CFG."""
+    return (sum(r["sample_steps"] for r in requests),
+            sum(1 + (r.get("cfg_scale", 7.0) != 1.0) for r in requests))
+
+
+def _check_sdxl_flash(path: str, counts: dict, forwards: int, encodes: int, plain: dict,
+                      f32: bool = False) -> dict:
+    """Flash at D 64 (bf16, or every float32 launch) launched exactly
+    ``SDXL_UNET_ATTENTION_CALLS`` a UNet forward times the forwards plus
+    ``SDXL_CLIP_ATTENTION_CALLS`` a prompt encode; every other flash launch
+    is the VAE's D 512; no attention ran in the plain version on the card."""
+    want = SDXL_UNET_ATTENTION_CALLS[64] * forwards + SDXL_CLIP_ATTENTION_CALLS * encodes
+    got = counts["flash_attention_f32" if f32 else "flash_attention_d64"]
+    other = counts["flash_attention"] - got - (0 if f32 else counts["flash_attention_d512"])
+    if got != want or other or plain["calls"]:
+        raise RuntimeError(f"path {path}: flash D 64 launches {got}, not {want} ({forwards} UNet "
+                           f"forwards, {encodes} prompt encodes); {other} other flash launches; "
+                           f"{plain['calls']} plain attention calls on the card")
+    return {"flash_d64": got, "unet_forwards": forwards, "prompt_encodes": encodes,
+            "flash_d512": counts["flash_attention_d512"], "plain_attention_on_card": plain["calls"]}
+
+
+def build_sdxl_pipeline(card: str, default_dtype: bool = False):
+    """A full-width SDXL pipeline (``SDXL_UNET_CONFIG``, CLIP-L, CLIP-G, the
+    SDXL VAE) with TAESD-XL attached, dense random weights drawn on the card:
+    ``create_pipeline(SDVersion.SDXL, params=<the bench's seeds>,
+    dtype=torch.bfloat16)``, or with ``default_dtype`` no params and no dtype
+    argument (float32, the factory's own seeds; held here)."""
+    import torch
+
+    from sdtpu_torch.config import SDVersion
+    from sdtpu_torch.factory import create_pipeline, sdxl_configs
+    from sdtpu_torch.models import clip as clip_mod
+    from sdtpu_torch.models import tae as tae_mod
+    from sdtpu_torch.models import unet as unet_mod
+    from sdtpu_torch.models import vae as vae_mod
+    from sdtpu_torch.weights import synthesize, weight_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    if default_dtype:
+        pipe = create_pipeline(SDVersion.SDXL, device=DEVICE, seed=0)
+        if pipe.compute_dtype != torch.float32:
+            raise RuntimeError(f"create_pipeline's default dtype is {pipe.compute_dtype}, not float32")
+    else:
+        unet_cfg, clip_l_cfg, clip_g_cfg, vae_cfg = sdxl_configs(small=False)
+        specs = {"diffusion": unet_mod.param_specs(unet_cfg), "clip_l": clip_mod.param_specs(clip_l_cfg),
+                 "clip_g": clip_mod.param_specs(clip_g_cfg), "vae": vae_mod.param_specs(vae_cfg)}
+        params = {m: synthesize(sp, seed=SDXL_BENCH_SEEDS[m], device=DEVICE, dtype=torch.bfloat16)
+                  for m, sp in specs.items()}
+        pipe = create_pipeline(SDVersion.SDXL, params=params, dtype=torch.bfloat16, device=DEVICE)
+        del params
+    tae = synthesize(tae_mod.param_specs(tae_mod.TAESD_XL_CONFIG), seed=SDXL_BENCH_SEEDS["tae"],
+                     device=DEVICE, dtype=pipe.compute_dtype)
+    wb = {"diffusion": weight_bytes(pipe.diffusion_params), "clip_l": weight_bytes(pipe.conditioner.pl),
+          "clip_g": weight_bytes(pipe.conditioner.pg), "vae": weight_bytes(pipe.vae_params),
+          "tae": weight_bytes(tae)}
+    pipe.set_tae(tae, tae_mod.TAESD_XL_CONFIG)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    print(f"pipeline: full-width SDXL + TAESD-XL, {pipe.compute_dtype}, built in {build_s:.2f} s "
+          f"on {card}; weight bytes " + json.dumps(wb), flush=True)
+    return pipe, tae, {"diffusion": "sdxl dense", "dtype": str(pipe.compute_dtype), "build_s": build_s,
+                       "weight_bytes": wb}
+
+
+def sdxl_paths(wrappers, card: str, launches: dict, profile=None):
+    """The SDXL paths: ``sdxl`` (bf16: SDXL_TAE_REQUESTS through TAESD-XL,
+    then SDXL_VAE_REQUEST through the full VAE) and ``sdxl_f32`` (the default
+    dtype, SDXL_F32_REQUESTS), each in its launch window."""
+    import torch
+
+    from sdtpu_torch.models import tae as tae_mod
+    from sdtpu_torch.ops import flash_attention
+
+    pipes, reports, prof = [], [], {}
+    pipe, tae, info = build_sdxl_pipeline(card)
+    pipes.append(info)
+
+    def run():
+        rep = answer(pipe, SDXL_TAE_REQUESTS, card, "sdxl")
+        if flash_attention.flash_attention.launches_d512:
+            raise RuntimeError("path sdxl: flash D 512 launched through TAESD-XL")
+        pipe.set_tae(None)
+        pipe.set_vae_tiling(True)
+        try:
+            return rep + answer(pipe, [SDXL_VAE_REQUEST], card, "sdxl")
+        finally:
+            pipe.set_vae_tiling(False)
+            pipe.set_tae(tae, tae_mod.TAESD_XL_CONFIG)
+
+    with plain_attention_on_card() as plain:
+        rep, launches["sdxl"] = _windowed(wrappers, "sdxl", run)
+    info.update(_check_sdxl_flash("sdxl", launches["sdxl"],
+                                  *_forwards_and_encodes(SDXL_TAE_REQUESTS + [SDXL_VAE_REQUEST]),
+                                  plain))
+    reports += rep
+    if profile:
+        prof["sdxl"] = profile_request(pipe, SDXL_REQUEST, profile, "sdxl", card)
+    del pipe, tae
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pipe, _, info = build_sdxl_pipeline(card, default_dtype=True)
+    pipes.append(info)
+    with plain_attention_on_card() as plain:
+        rep, launches["sdxl_f32"] = _windowed(wrappers, "sdxl_f32",
+                                              lambda: answer(pipe, SDXL_F32_REQUESTS, card, "sdxl_f32"))
+    info.update(_check_sdxl_flash("sdxl_f32", launches["sdxl_f32"],
+                                  *_forwards_and_encodes(SDXL_F32_REQUESTS), plain, f32=True))
+    reports += rep
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pipes, reports, prof
+
+
+# Phase 11, SDXL on files: the bench's request through the CLI (``--taesd``)
+# and the A1111 route (``sampler_name`` lcm)
+SDXL_CLI_ARGV = ["-p", SDXL_REQUEST["prompt"], "-W", "1024", "-H", "1024", "--steps", "4",
+                 "--sampling-method", "lcm", "--cfg-scale", "1", "-s", "42"]
+SDXL_SERVER_BODY = {"prompt": SDXL_REQUEST["prompt"], "width": 1024, "height": 1024, "steps": 4,
+                    "cfg_scale": 1.0, "seed": 42, "sampler_name": "lcm"}
+
+
+def sdxl_entry_check(wrappers, card: str) -> dict:
+    """Phase 11, SDXL: write the full-width SDXL and TAESD-XL files with
+    ``tools/sdxl_file.py``, answer one request from them through ``cli.main
+    -m ... --taesd ...`` (its PNG read back in metadata mode) and one through
+    the server's A1111 route, each in its own launch window."""
+    import io
+    import queue
+    import tempfile
+    import threading
+
+    import torch
+
+    from sdtpu_torch import cli, server
+    from sdtpu_torch.config import GenerationParams
+    from sdtpu_torch.tools.sdxl_file import write_sdxl_files
+    from sdtpu_torch.utils.image import build_parameters_text, parse_parameters_text
+
+    root = ROOT / "build" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="sdxl_file_", dir=root))
+    report = {"card": card}
+    launches = {}
+    forwards, encodes = _forwards_and_encodes([SDXL_REQUEST])
+    size = (SDXL_REQUEST["width"], SDXL_REQUEST["height"])
+    try:
+        report["files"] = write_sdxl_files(tmp, device=DEVICE)
+        print(f"entry sdxl files on {card}: " + json.dumps(report["files"]), flush=True)
+        paths = report["files"]["paths"]
+        file_args = ["-m", paths["model"], "--taesd", paths["taesd"]]
+        png, cli_rep = tmp / "sdxl.png", {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with plain_attention_on_card() as plain:
+            rc, launches["sdxl_cli"] = _windowed(wrappers, "sdxl_cli", lambda: cli.main(
+                file_args + SDXL_CLI_ARGV + ["-o", str(png)], report=cli_rep))
+        wall_s = time.time() - t0
+        if rc != 0:
+            raise RuntimeError(f"sdtpu_torch.cli.main -m ... --taesd ... exited {rc}")
+        load = cli_rep["load"]
+        if load["version"] != "sdxl" or not load["tae"]:
+            raise RuntimeError(f"the CLI loaded {load['version']} (TAE {load['tae']}), not sdxl + TAE")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["metadata", "--image", str(png), "--metadata-format", "json"])
+        want = build_parameters_text(GenerationParams(**SDXL_REQUEST))
+        meta = json.loads(buf.getvalue())
+        if rc != 0 or meta.get("parameters") != parse_parameters_text(want):
+            raise RuntimeError(f"metadata mode read {meta.get('parameters')}, not {want!r}")
+        report["cli"] = {"load": load, "wall_s": wall_s, "timings_s": cli_rep["timings"],
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                         **_check_sdxl_flash("sdxl_cli", launches["sdxl_cli"], forwards, encodes, plain),
+                         **_check_png(png.read_bytes(), *size, "lcm")}
+        print("entry sdxl cli " + json.dumps(report["cli"]), flush=True)
+        del cli_rep
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        box, srv_rep = queue.Queue(), {}
+
+        def run():
+            try:
+                server.main(file_args + ["--port", "0"], report=srv_rep, ready=box.put)
+            except BaseException as e:  # handed to the waiting thread, then raised here
+                box.put(e)
+                raise
+
+        thread = threading.Thread(target=run, daemon=True)
+        t0 = time.time()
+        thread.start()
+        httpd = box.get(timeout=900)
+        if isinstance(httpd, BaseException):
+            raise RuntimeError("the server did not start") from httpd
+        try:
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            report["server"] = {"load": srv_rep["load"], "start_s": time.time() - t0}
+            torch.cuda.reset_peak_memory_stats()
+            with plain_attention_on_card() as plain:
+                (code, resp), launches["sdxl_server"] = _windowed(
+                    wrappers, "sdxl_server", lambda: _http(base, "/sdapi/v1/txt2img", SDXL_SERVER_BODY))
+            if code != 200:
+                raise RuntimeError(f"/sdapi/v1/txt2img: {code} {resp}")
+            report["server"].update(
+                timings_s=dict(httpd.manager.pipeline.last_timings),
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                **_check_sdxl_flash("sdxl_server", launches["sdxl_server"], forwards, encodes, plain),
+                **_check_png(base64.b64decode(resp["images"][0]), *size, "lcm"))
+        finally:
+            httpd.shutdown()
+            thread.join(timeout=300)
+        print("entry sdxl server " + json.dumps(report["server"]), flush=True)
+        del httpd, srv_rep
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return report, launches
+
+
 def gguf_block_dit() -> dict:
     """Full-depth FLUX.1-dev DiT weights in the ``q8_0_gguf`` memory class,
     drawn on the card (the seed the factory gives a DiT it synthesizes)."""
@@ -1911,9 +2259,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measured number to this JSON file")
     ap.add_argument("--profile", metavar="TABLE",
-                    help="after each main path, profile one more 1024² request and write the "
-                         "profiler's tables to TABLE with .int8 / .w8a16 / .q8_0_gguf / .q4_0 / "
-                         ".f32 / .cli before its suffix")
+                    help="after each main path, profile one more request (1024² for FLUX and "
+                         "SDXL, 512² for SD1.5) and write the profiler's tables to TABLE with "
+                         ".int8 / .w8a16 / .q8_0_gguf / .q4_0 / .f32 / .cli / .sd15 / .sdxl before "
+                         "its suffix")
     args = ap.parse_args()
 
     import torch
@@ -2074,16 +2423,23 @@ def main() -> int:
     pipes += sd15_pipes
     reports += rep
     prof.update(sd15_prof)
+    sdxl_pipes, rep, sdxl_prof = sdxl_paths(wrappers, card, launches, args.profile)
+    pipes += sdxl_pipes
+    reports += rep
+    prof.update(sdxl_prof)
 
     entry, launches["cli"], launches["server"] = entry_points_check(wrappers, card, args.profile)
     if "profile" in entry:
         prof["cli"] = entry.pop("profile")
     entry["sd15"], sd15_launches = sd15_entry_check(wrappers, card)
     launches.update(sd15_launches)
+    entry["sdxl"], sdxl_launches = sdxl_entry_check(wrappers, card)
+    launches.update(sdxl_launches)
 
     headline = {"flash_attention": ([1, 24, 4352, 4352, 128], {}),
                 "flash_attention_d512": ([1, 1, 4096, 4096, 512], {}),
                 "flash_attention_f32": ([1, 24, 4352, 4352, 128], {}),
+                "flash_attention_d64": ([2, 10, 4096, 4096, 64], {"dtype": "bf16"}),
                 "flash_attention_d40": ([2, 8, 4096, 4096, 40], {"dtype": "bf16"}),
                 "flash_attention_d80": ([2, 8, 1024, 1024, 80], {"dtype": "bf16"}),
                 "flash_attention_d160": ([2, 8, 256, 256, 160], {"dtype": "bf16"}),
@@ -2118,8 +2474,9 @@ def main() -> int:
                         "max_abs_err": max(c["max_abs_err"] for c in mine),
                         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                         **by, "library_ms": head["library_ms"]})
-        if name in UNET_FLASH:  # the float32 form at the same shape
-            f32 = next(c for c in mine if c["shape"] == shape and c["dtype"] == "f32")
+        if name in (*UNET_FLASH, "flash_attention_d64"):  # the float32 form at the same shape
+            f32 = next(c for c in cases if c["kernel"] in (name, "flash_attention_f32")
+                       and c["shape"] == shape and c["dtype"] == "f32")
             kernels[-1].update({f"f32_{k}": f32[k] for k in ("ms", "plain_ms", "bound_ms",
                                                               "library_ms", "splits")})
     if args.out:

@@ -1,17 +1,20 @@
-"""sd-cli for the PyTorch/CUDA port: FLUX.1 and SD1.x txt2img from checkpoint
-files (this package's copy of ``sdtpu/cli.py``: ``build_parser``, ``main``,
-the FLUX and SD1 txt2img parts of ``_load_pipeline`` and ``_img_gen``, the
-metadata mode, ``discover_gguf_tokenizer``).
+"""sd-cli for the PyTorch/CUDA port: FLUX.1, SD1.x and SDXL txt2img from
+checkpoint files (this package's copy of ``sdtpu/cli.py``: ``build_parser``,
+``main``, the FLUX, SD1 and SDXL txt2img parts of ``_load_pipeline`` and
+``_img_gen``, ``--taesd``, the metadata mode, ``discover_gguf_tokenizer``).
 
     python -m sdtpu_torch.cli --diffusion-model flux1-dev-q8_0.gguf \
         --clip_l clip_l.safetensors --t5xxl t5xxl-q8_0.gguf --vae ae.safetensors \
         -p "a lantern on a wooden table" -W 1024 -H 1024 --steps 20 -o out.png
     python -m sdtpu_torch.cli -m sd15.safetensors -p "an astronaut riding a horse" \
         -W 512 -H 512 --steps 20 -o out.png
+    python -m sdtpu_torch.cli -m sdxl.safetensors --taesd taesdxl.safetensors \
+        -p "an astronaut riding a horse" -W 1024 -H 1024 --steps 4 --cfg-scale 1 \
+        --sampling-method lcm -o out.png
     python -m sdtpu_torch.cli metadata --image out.png
 
 The model family is fingerprinted from the files' tensor names, as the JAX
-CLI does; FLUX.1 and SD1.x load, any other family exits naming it.  The
+CLI does; FLUX.1, SD1.x and SDXL load, any other family exits naming it.  The
 parser is the JAX CLI's (the same flags, defaults and help).  The port
 runs two modes, ``img_gen`` (txt2img) and ``metadata``, and the flags in
 ``RUN_FLAGS``; any other mode or flag set away from its default (e.g.
@@ -28,7 +31,10 @@ otherwise.  q8_0 blocks of a GGUF diffusion model are re-quantized per row
 onto the W8A8 kernels unless ``--no-promote-q8``; other quantized diffusion
 blocks are kept (``--no-keep-quant`` dequantizes them); a quantized text
 encoder is dequantized on the host, one tensor at a time.  Images are
-PNGs with the webui ``parameters`` text.
+PNGs with the webui ``parameters`` text.  ``--taesd`` attaches a TAESD
+decoder (raw ``taesd`` names, its variant by the model's version) for the
+final decode; ``--taesd-preview-only`` is not ported (the port has no
+preview).
 """
 from __future__ import annotations
 
@@ -451,7 +457,7 @@ def build_parser() -> argparse.ArgumentParser:
 # default
 RUN_FLAGS = frozenset({
     "mode", "mode_flag",
-    "model", "diffusion_model", "clip_l", "t5xxl", "vae", "t5_tokenizer",
+    "model", "diffusion_model", "clip_l", "clip_g", "t5xxl", "vae", "taesd", "t5_tokenizer",
     "prompt", "negative_prompt", "prompt_file", "width", "height",
     "steps", "cfg_scale", "guidance", "seed", "batch_count", "sampling_method", "schedule",
     "eta", "clip_skip", "rng",
@@ -476,7 +482,7 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
             continue
         if getattr(args, dest, action.default) != action.default:
             flag = "/".join(action.option_strings)
-            return f"{flag} is not ported (the port runs FLUX.1 and SD1.x txt2img)"
+            return f"{flag} is not ported (the port runs FLUX.1, SD1.x and SDXL txt2img)"
     if args.mode not in MODES:
         return f"mode {args.mode!r} is not ported; the port runs {list(MODES)}"
     if args.sampling_method not in PORTED_METHODS:
@@ -591,8 +597,9 @@ def load_t5_tokenizer(args):
 
 
 def _load_pipeline(args, report: Optional[dict] = None):
-    """The files → a FLUX or SD1.x pipeline (the version the files'
-    fingerprint names) on ``--backend``'s device.  ``report``
+    """The files → a FLUX, SD1.x or SDXL pipeline (the version the files'
+    fingerprint names) on ``--backend``'s device, with ``--taesd``'s decoder
+    attached.  ``report``
     (when given) gets ``load``: its seconds, ``read_s`` (the files → host
     arrays and quant blocks, the blocks' extraction included), ``stage_s``
     (→ the device) and ``build_s``, and ``pipeline``, the pipeline."""
@@ -600,8 +607,9 @@ def _load_pipeline(args, report: Optional[dict] = None):
 
     from sdtpu_torch.config import SDVersion
     from sdtpu_torch.factory import create_pipeline
-    from sdtpu_torch.io.model_loader import load_model_bundle
+    from sdtpu_torch.io.model_loader import load_model_bundle, read_checkpoint_file
     from sdtpu_torch.loader import diffusion_to_device, module_to_device
+    from sdtpu_torch.models.tae import convert_taesd_name, tae_config_for
 
     device = resolve_device(args.backend)
     if not (args.model or args.diffusion_model):
@@ -618,14 +626,18 @@ def _load_pipeline(args, report: Optional[dict] = None):
     t0 = time.time()
     bundle = load_model_bundle(model_path=args.model, diffusion_model_path=args.diffusion_model,
                                clip_l_path=args.clip_l, t5xxl_path=args.t5xxl,
-                               vae_path=args.vae, keep_quant=not args.no_keep_quant)
+                               vae_path=args.vae, keep_quant=not args.no_keep_quant,
+                               clip_g_path=args.clip_g)
+    tae_raw = read_checkpoint_file(args.taesd) if args.taesd else None
     t_read = time.time() - t0
-    # SD1.x conditions on CLIP-L alone: a missing T5 is no error there
-    encoders = ("clip_l", "t5") if bundle.version == SDVersion.FLUX else ("clip_l",)
+    # SD1.x conditions on CLIP-L alone, SDXL on CLIP-L and CLIP-G: a missing
+    # T5 is no error there
+    encoders = {SDVersion.FLUX: ("clip_l", "t5"),
+                SDVersion.SDXL: ("clip_l", "clip_g")}.get(bundle.version, ("clip_l",))
     missing = [m for m in (*encoders, "vae") if not getattr(bundle, m)]
     if missing:
         raise SystemExit(f"error: no {', '.join(missing)} weights in the given files "
-                         "(pass --clip_l, --t5xxl, --vae)")
+                         "(pass --clip_l, --clip_g, --t5xxl, --vae)")
     t5_tok, t5_tok_source = load_t5_tokenizer(args) if "t5" in encoders else (None, None)
     t0 = time.time()
     params = {"diffusion": diffusion_to_device(bundle.diffusion, dtype, device,
@@ -648,10 +660,15 @@ def _load_pipeline(args, report: Optional[dict] = None):
                            t5_tokenizer=t5_tok, device=device)
     if args.vae_tiling:
         pipe.set_vae_tiling(True, args.vae_tile_size, args.vae_tile_overlap)
+    if tae_raw is not None:
+        tae_p = module_to_device({nk: v for k, v in tae_raw.items()
+                                  if (nk := convert_taesd_name(k)) is not None}, dtype, device)
+        pipe.set_tae(tae_p, tae_config_for(bundle.version.value, pipe.latent_channels))
+        print("TAE attached (decode)")
     sync()
     load = {"version": bundle.version.value, "read_s": t_read, "stage_s": t_stage,
             "build_s": time.time() - t0,
-            "device": str(device), "dtype": str(dtype).replace("torch.", ""),
+            "device": str(device), "dtype": str(dtype).replace("torch.", ""), "tae": bool(tae_raw),
             "w8a8_weights": n_row, "block_weights": n_blocks, "t5_tokenizer": t5_tok_source}
     print("load " + json.dumps(load))
     if report is not None:

@@ -1,6 +1,7 @@
-"""Prompt → conditioning tensors for FLUX and SD1.x (counterpart of
+"""Prompt → conditioning tensors for FLUX, SD1.x and SDXL (counterpart of
 ``sdtpu/conditioning/conditioner.py``: ``tokenize_with_weights``,
-``apply_token_weights``, ``SDCondition``, ``SD1Conditioner``, ``FluxConditioner``).
+``apply_token_weights``, ``SDCondition``, ``SD1Conditioner``,
+``sdxl_size_vector``, ``SDXLConditioner``, ``FluxConditioner``).
 
 The tokenizers, the webui prompt parser and the encoders are this
 package's own.
@@ -16,6 +17,7 @@ import torch
 from sdtpu_torch.conditioning.prompt_parser import parse_prompt_attention
 from sdtpu_torch.models.clip import CLIPTextConfig, clip_text_forward
 from sdtpu_torch.models.t5 import T5Config, t5_encoder_forward
+from sdtpu_torch.ops import timestep_embedding
 
 CHUNK_LEN = 77
 RAW_CHUNK = 75
@@ -123,3 +125,61 @@ class SD1Conditioner:
         hidden, _ = clip_text_forward(self.params, ids, self.cfg, clip_skip=clip_skip)
         hidden = apply_token_weights(hidden, w)
         return SDCondition(c_crossattn=hidden.reshape(1, n_chunks * CHUNK_LEN, hidden.shape[-1]))
+
+
+def sdxl_size_vector(pooled: torch.Tensor, width: int, height: int, crop_w: int = 0,
+                     crop_h: int = 0, target_width: Optional[int] = None,
+                     target_height: Optional[int] = None) -> torch.Tensor:
+    """adm_in vector = pooled (1280) ++ emb256(h, w) ++ emb256(crop) ++
+    emb256(target), [1, 2816] at full width, float32 (the JAX package's
+    bf16 pooled output promotes to the embeddings' float32 too)."""
+    target_width = target_width or width
+    target_height = target_height or height
+    vals = torch.tensor([height, width, crop_h, crop_w, target_height, target_width],
+                        dtype=torch.float32, device=pooled.device)
+    embs = timestep_embedding(vals, 256).reshape(1, 6 * 256)
+    return torch.cat([pooled.reshape(1, -1).float(), embs], dim=-1)
+
+
+class SDXLConditioner:
+    """SDXL: CLIP-L and OpenCLIP-G on the same 77-token chunks (padded with
+    id 0), their hidden states at ``clip_skip`` (2 by default: the
+    penultimate layer, before the final norm) joined on the last axis, then
+    weighted per chunk; CLIP-G's ids zeroed after each chunk's first EOS.
+    The vector ``y`` is CLIP-G's projected pooled output of the first chunk
+    followed by the size, crop and target embeddings."""
+
+    def __init__(self, tokenizer, clip_l_params, clip_l_cfg: CLIPTextConfig, clip_g_params,
+                 clip_g_cfg: CLIPTextConfig, device="cuda"):
+        self.tokenizer = tokenizer
+        self.pl, self.cl = clip_l_params, clip_l_cfg
+        self.pg, self.cg = clip_g_params, clip_g_cfg
+        self.device = torch.device(device)
+
+    def get_learned_condition(self, text: str, clip_skip: int = -1, width: int = 1024,
+                              height: int = 1024, **kw) -> SDCondition:
+        if clip_skip <= 0:
+            clip_skip = 2
+        tokens, weights = tokenize_with_weights(self.tokenizer, text, 0)
+        n_chunks = len(tokens) // CHUNK_LEN
+        chunks = tokens.reshape(n_chunks, CHUNK_LEN)
+        chunks_g = chunks.copy()
+        eos = self.tokenizer.eos_token_id
+        for row in chunks_g:
+            eos_pos = np.argmax(row == eos)
+            if row[eos_pos] == eos and eos_pos + 1 < CHUNK_LEN:
+                row[eos_pos + 1:] = 0
+
+        def ids(a):
+            return torch.from_numpy(a.astype(np.int64)).to(self.device)
+
+        h_l, _ = clip_text_forward(self.pl, ids(chunks), self.cl, clip_skip=clip_skip)
+        h_g, pooled = clip_text_forward(self.pg, ids(chunks_g), self.cg, clip_skip=clip_skip,
+                                        return_pooled=True)
+        w = torch.from_numpy(weights.reshape(n_chunks, CHUNK_LEN)).to(self.device)
+        hidden = apply_token_weights(torch.cat([h_l, h_g.to(h_l.dtype)], dim=-1), w)
+        vec = sdxl_size_vector(pooled[:1], width, height, **{
+            k: v for k, v in kw.items()
+            if k in ("crop_w", "crop_h", "target_width", "target_height")})
+        return SDCondition(c_crossattn=hidden.reshape(1, n_chunks * CHUNK_LEN, hidden.shape[-1]),
+                           c_vector=vec)

@@ -1,17 +1,19 @@
 """The samplers the port runs (counterpart of ``sdtpu/diffusion/samplers.py``:
 ``ancestral_steps``, ``_per_step_common``, ``_dpmpp_2m_coeffs``,
 ``_euler_step``, ``_euler_a_step``, the non-flow
-``_dpmpp_2s_a_step``, ``_dpmpp_2m_step`` and the fixed-step
-``_ipndm_step``, driven as ``sample_stepwise`` drives them).
+``_dpmpp_2s_a_step``, ``_dpmpp_2m_step``, the fixed-step
+``_ipndm_step`` and ``_lcm_step``, driven as ``sample_stepwise`` drives
+them).
 
 Per-step scalars are precomputed on the host in numpy float32, as in the JAX
 package; its ``lax.scan`` becomes a Python loop over the same per-step
 arrays.  Each scalar reaches the device as a 0-dim float32 tensor, so the
 step arithmetic is float32 throughout; the JAX steps' ``where`` selects on
 per-step values become branches on their host copies.  ``euler_a`` and
-``dpm++2s_a`` at ``eta > 0`` take their noise from a precomputed
-``noises[steps, ...]`` stack drawn from the pipeline's ``rng`` stream, as
-the JAX pipeline draws it.  Every other method raises by name.
+``dpm++2s_a`` at ``eta > 0``, and ``lcm`` at any ``eta``, take their noise
+from a precomputed ``noises[steps, ...]`` stack drawn from the pipeline's
+``rng`` stream, as the JAX pipeline draws it.  Every other method raises by
+name.
 """
 from __future__ import annotations
 
@@ -21,9 +23,9 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-PORTED_METHODS = ("euler", "euler_a", "dpm++2s_a", "dpm++2m", "ipndm")
-# the ported methods that draw per-step noise at eta > 0
-NOISY_METHODS = ("euler_a", "dpm++2s_a")
+PORTED_METHODS = ("euler", "euler_a", "dpm++2s_a", "dpm++2m", "ipndm", "lcm")
+# the ported methods that draw per-step noise: at eta > 0, and ``lcm`` always
+NOISY_METHODS = ("euler_a", "dpm++2s_a", "lcm")
 
 
 def ancestral_steps(sigmas: np.ndarray, eta: float, is_flow: bool):
@@ -84,10 +86,13 @@ def dpmpp_2m_coeffs(sigmas: np.ndarray) -> Dict[str, np.ndarray]:
 
 
 def per_step_arrays(sigmas: np.ndarray, method: str = "euler", eta: float = 0.0,
-                    is_flow: bool = False) -> Dict[str, np.ndarray]:
+                    is_flow: bool = False,
+                    extra_args: Optional[Dict[str, float]] = None) -> Dict[str, np.ndarray]:
     """The per-step arrays of ``_per_step_common`` and ``build_sampler``
     that a method's step reads: the ancestral split for ``euler_a`` and
-    ``dpm++2s_a``, DPM++ 2M's coefficients."""
+    ``dpm++2s_a``, DPM++ 2M's coefficients, LCM's noise scale (linear from
+    ``noise_scale_start`` to ``noise_scale_end`` of ``extra_args``, 1.0 by
+    default)."""
     sigmas = np.asarray(sigmas, dtype=np.float32)
     n = len(sigmas) - 1
     per = {"i": np.arange(n, dtype=np.int32), "sigma": sigmas[:n], "sigma_next": sigmas[1:n + 1]}
@@ -100,6 +105,12 @@ def per_step_arrays(sigmas: np.ndarray, method: str = "euler", eta: float = 0.0,
         per["sigma_down"], per["sigma_up"], _ = ancestral_steps(sigmas, eta, False)
     elif method == "dpm++2m":
         per.update(dpmpp_2m_coeffs(sigmas))
+    elif method == "lcm":
+        extra_args = extra_args or {}
+        ns_start = float(extra_args.get("noise_scale_start", 1.0))
+        ns_end = float(extra_args.get("noise_scale_end", ns_start))
+        t = np.arange(n, dtype=np.float32) / max(n - 1, 1)
+        per["noise_scale"] = (ns_start + (ns_end - ns_start) * t).astype(np.float32)
     return per
 
 
@@ -109,13 +120,15 @@ DEVICE_SCALARS = {"euler": ("sigma", "sigma_next"),
                   "euler_a": ("sigma", "sigma_down", "sigma_up", "alpha_scale"),
                   "dpm++2s_a": ("sigma", "sigma_down", "sigma_up"),
                   "dpm++2m": ("sigma", "a", "b_first", "b_multi", "r"),
-                  "ipndm": ("sigma", "sigma_next")}
+                  "ipndm": ("sigma", "sigma_next"),
+                  "lcm": ("sigma", "sigma_next", "noise_scale")}
 
 
 def method_needs_noise(method: str, eta: float) -> bool:
     """Whether a method draws per-step noise (``_method_needs_noise`` of the
-    JAX pipeline, for the ported methods)."""
-    return method in NOISY_METHODS and eta > 0.0
+    JAX pipeline, for the ported methods): ``lcm`` always, the others at
+    eta > 0."""
+    return method == "lcm" or (method in NOISY_METHODS and eta > 0.0)
 
 
 def _euler_step(model_fn: Callable):
@@ -212,20 +225,38 @@ def _ipndm_step(model_fn: Callable):
     return step
 
 
+def _lcm_step(model_fn: Callable, is_flow: bool):
+    """LCM (``_lcm_step``): x = the denoised estimate, re-noised to the next
+    sigma (times its noise scale) unless that is the last, 0."""
+    def step(carry, s):
+        den, _ = model_fn(carry["x"], s["sigma"], s["i"])
+        if s["host"]["sigma_next"] <= 0.0:
+            return {"x": den}
+        x_new = den * (1.0 - s["sigma_next"]) if is_flow else den
+        if "noise" in s:
+            x_new = x_new + s["noise"] * (s["sigma_next"] * s["noise_scale"])
+        return {"x": x_new}
+
+    return step
+
+
 def sample(model_fn: Callable, x: torch.Tensor, sigmas: np.ndarray, method: str = "euler",
            noises: Optional[np.ndarray] = None, eta: float = 0.0, is_flow: bool = False,
-           step_callback: Optional[Callable] = None) -> torch.Tensor:
+           step_callback: Optional[Callable] = None,
+           extra_args: Optional[Dict[str, float]] = None) -> torch.Tensor:
     """Run the denoise loop.  model_fn(x, sigma, i) → (denoised,
     uncond_denoised), with sigma a 0-dim float32 tensor on x's device.
-    noises: [steps, *x.shape] for ``euler_a`` at eta > 0.  step_callback(i,
-    x) runs after each step; returning False stops the loop (cancellation)."""
+    noises: [steps, *x.shape] where ``method_needs_noise``.  extra_args: the
+    sampler's keys of ``extra_sample_args`` (``lcm``'s noise scales).
+    step_callback(i, x) runs after each step; returning False stops the loop
+    (cancellation)."""
     if method not in PORTED_METHODS:
         raise NotImplementedError(
             f"sampler {method!r} is not ported yet; ported: {list(PORTED_METHODS)}")
-    per = per_step_arrays(sigmas, method, eta, is_flow)
+    per = per_step_arrays(sigmas, method, eta, is_flow, extra_args)
     n = len(per["i"])
     if method_needs_noise(method, eta) and noises is None:
-        raise ValueError(f"{method} at eta > 0 needs its per-step noises")
+        raise ValueError(f"{method} needs its per-step noises")
     carry = {"x": x}
     if method == "euler":
         step = _euler_step(model_fn)
@@ -236,6 +267,8 @@ def sample(model_fn: Callable, x: torch.Tensor, sigmas: np.ndarray, method: str 
     elif method == "dpm++2m":
         step = _dpmpp_2m_step(model_fn)
         carry["old_denoised"] = x
+    elif method == "lcm":
+        step = _lcm_step(model_fn, is_flow)
     else:
         step = _ipndm_step(model_fn)
         carry["hist"] = [torch.zeros_like(x)] * 3

@@ -1,14 +1,15 @@
 """Pipeline construction (counterpart of ``sdtpu/factory.py``:
-``create_pipeline``, its SD1 branch and ``_create_flux_pipeline``).
+``create_pipeline``, its SD1 and SDXL branches and ``_create_flux_pipeline``).
 
-FLUX and SD1.x are built from given params (this package's tensors, e.g.
+FLUX, SD1.x and SDXL are built from given params (this package's tensors, e.g.
 bridged with ``sdtpu_torch.weights.from_jax_params``) or from random weights
 drawn on the target device.  Full-width random FLUX weights come in the
 memory classes of the JAX FLUX bench: the DiT as per-row int8
 ``QuantTensor``s (q8_0), T5-XXL as packed 4-bit ``Q4Tensor``s (q4_0), CLIP-L
 and the VAE dense.  A given DiT runs at the depth its params hold (a
-checkpoint cut to fewer blocks).  SD1.x is dense throughout, as the JAX
-SD1.5 bench (``bench_sd15``) draws it.  Every other version raises by name.
+checkpoint cut to fewer blocks).  SD1.x and SDXL are dense throughout, as
+the JAX SD1.5 and SDXL benches (``bench_sd15``, ``bench_sdxl_lcm_taesd``)
+draw them.  Every other version raises by name.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from sdtpu_torch.conditioning.conditioner import FluxConditioner, SD1Conditioner
+from sdtpu_torch.conditioning.conditioner import FluxConditioner, SD1Conditioner, SDXLConditioner
 from sdtpu_torch.config import SDVersion
 from sdtpu_torch.diffusion.denoiser import CompVisDenoiser, FluxFlowDenoiser
 from sdtpu_torch.io.model_loader import PORTED_VERSIONS
@@ -32,7 +33,7 @@ from sdtpu_torch.weights import synthesize
 
 # synthesis memory class and seed offset per module at full width
 FULL_QUANT = {"diffusion": "q8_0", "t5": "q4_0", "clip_l": None, "vae": None}
-SEED_OFFSET = {"diffusion": 1, "t5": 2, "clip_l": 3, "vae": 4}
+SEED_OFFSET = {"diffusion": 1, "t5": 2, "clip_l": 3, "vae": 4, "clip_g": 5}
 
 
 def flux_configs(small: bool):
@@ -68,15 +69,42 @@ def sd1_configs(small: bool):
     return unet_mod.SD1_UNET_CONFIG, clip_mod.CLIP_L_CONFIG, vae_mod.SD_VAE_CONFIG
 
 
-def _create_sd1_pipeline(params: dict, rng_type: str, dtype: torch.dtype, small: bool, seed: int,
-                         device) -> DiffusionPipeline:
-    unet_cfg, clip_l_cfg, vae_cfg = sd1_configs(small)
+def sdxl_configs(small: bool):
+    """→ (unet, clip_l, clip_g, vae) configs; the small set is the JAX
+    factory's small SDXL config (``unet_config_for(SDXL, small=True)``: the
+    small SD1 UNet with a 96-wide context and a 48 + 6·256 vector; CLIP-L
+    and CLIP-G 48 wide, CLIP-G's projection 48)."""
+    if small:
+        sd1_unet, clip_l_cfg, vae_cfg = sd1_configs(small=True)
+        unet_cfg = dataclasses.replace(sd1_unet, context_dim=96, adm_in_channels=48 + 1536)
+        clip_l_cfg = dataclasses.replace(clip_l_cfg, hidden_size=48, intermediate_size=96)
+        clip_g_cfg = dataclasses.replace(clip_mod.CLIP_G_CONFIG, hidden_size=48,
+                                         intermediate_size=96, num_layers=2, num_heads=4,
+                                         projection_dim=48)
+        return unet_cfg, clip_l_cfg, clip_g_cfg, vae_cfg
+    return (unet_mod.SDXL_UNET_CONFIG, clip_mod.CLIP_L_CONFIG, clip_mod.CLIP_G_CONFIG,
+            vae_mod.SDXL_VAE_CONFIG)
+
+
+def _create_unet_pipeline(version: SDVersion, params: dict, rng_type: str, dtype: torch.dtype,
+                          small: bool, seed: int, device) -> DiffusionPipeline:
+    """SD1.x (one CLIP-L) or SDXL (CLIP-L and CLIP-G, the vector ``y``)."""
+    if version == SDVersion.SDXL:
+        unet_cfg, clip_l_cfg, clip_g_cfg, vae_cfg = sdxl_configs(small)
+    else:
+        (unet_cfg, clip_l_cfg, vae_cfg), clip_g_cfg = sd1_configs(small), None
     specs = {"diffusion": unet_mod.param_specs(unet_cfg), "clip_l": clip_mod.param_specs(clip_l_cfg),
              "vae": vae_mod.param_specs(vae_cfg)}
+    if clip_g_cfg is not None:
+        specs["clip_g"] = clip_mod.param_specs(clip_g_cfg)
     mods = {name: params.get(name) or synthesize(spec, seed=seed + SEED_OFFSET[name], device=device,
                                                  dtype=dtype)
             for name, spec in specs.items()}
-    conditioner = SD1Conditioner(CLIPTokenizer(), mods["clip_l"], clip_l_cfg, device=device)
+    if clip_g_cfg is not None:
+        conditioner = SDXLConditioner(CLIPTokenizer(), mods["clip_l"], clip_l_cfg, mods["clip_g"],
+                                      clip_g_cfg, device=device)
+    else:
+        conditioner = SD1Conditioner(CLIPTokenizer(), mods["clip_l"], clip_l_cfg, device=device)
 
     def diffusion_fn(p, x, t, ctx, y, guidance=None):
         return unet_mod.unet_forward(p, x, t, ctx, y=y, cfg=unet_cfg)
@@ -85,7 +113,7 @@ def _create_sd1_pipeline(params: dict, rng_type: str, dtype: torch.dtype, small:
         return vae_mod.vae_decode(p, z, vae_cfg)
 
     return DiffusionPipeline(
-        version=SDVersion.SD1, diffusion_params=mods["diffusion"], diffusion_fn=diffusion_fn,
+        version=version, diffusion_params=mods["diffusion"], diffusion_fn=diffusion_fn,
         conditioner=conditioner, vae_params=mods["vae"], vae_decode_fn=vae_decode_fn,
         denoiser=CompVisDenoiser(), rng_type=rng_type, latent_channels=vae_cfg.z_channels,
         compute_dtype=dtype, device=device)
@@ -100,15 +128,15 @@ def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] 
                     small: bool = False, seed: int = 0, t5_tokenizer=None,
                     device="cuda") -> DiffusionPipeline:
     """params: dict with keys 'diffusion', 'clip_l', 't5' (FLUX only),
-    'vae'; a missing module gets random weights drawn on ``device`` (dense
-    for the small configs and SD1 at full width, the bench's memory classes
-    for FLUX at full width)."""
+    'clip_g' (SDXL only), 'vae'; a missing module gets random weights drawn
+    on ``device`` (dense for the small configs and for SD1 and SDXL at full
+    width, the bench's memory classes for FLUX at full width)."""
     if version not in PORTED_VERSIONS:
         raise NotImplementedError(f"{version} is not ported yet; the port runs "
                                   f"{[v.name for v in PORTED_VERSIONS]} txt2img")
     params = params or {}
-    if version == SDVersion.SD1:
-        return _create_sd1_pipeline(params, rng_type, dtype, small, seed, device)
+    if version in (SDVersion.SD1, SDVersion.SDXL):
+        return _create_unet_pipeline(version, params, rng_type, dtype, small, seed, device)
     dit_cfg, clip_l_cfg, t5_cfg, vae_cfg, t5_seq = flux_configs(small)
     specs = {"diffusion": flux_mod.param_specs(dit_cfg), "t5": t5_mod.param_specs(t5_cfg),
              "clip_l": clip_mod.param_specs(clip_l_cfg), "vae": vae_mod.param_specs(vae_cfg)}

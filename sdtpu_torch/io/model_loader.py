@@ -1,8 +1,8 @@
-"""FLUX and SD1.x checkpoint files → per-module param dicts (this package's
-copy of the FLUX and SD1 parts of ``sdtpu.io.model_loader``:
-``load_model_bundle``, ``split_modules``, ``read_checkpoint_file``, with the
-parts of ``sdtpu/io/detect.py`` and ``sdtpu/io/name_conversion.py`` they
-use).
+"""FLUX, SD1.x and SDXL checkpoint files → per-module param dicts (this
+package's copy of the FLUX, SD1 and SDXL parts of ``sdtpu.io.model_loader``:
+``load_model_bundle``, ``split_modules``, ``_split_in_proj``,
+``read_checkpoint_file``, with the parts of ``sdtpu/io/detect.py`` and
+``sdtpu/io/name_conversion.py`` they use).
 
 Read N GGUF or safetensors files under their per-file prefixes (a full
 checkpoint, the diffusion model, CLIP-L, T5-XXL, the VAE), convert
@@ -15,8 +15,13 @@ VAE file's 2-D tensors come back as ``HostQuant`` too, but only so each is
 dequantized on the host when it is staged, one at a time: by value they
 are the float32 arrays the JAX loader returns.  A single-file SD1.x
 checkpoint splits by its LDM prefixes (``model.diffusion_model.``,
-``cond_stage_model.transformer.``, ``first_stage_model.``).  Any family but
-FLUX and SD1 raises ``NotImplementedError`` naming it.
+``cond_stage_model.transformer.``, ``first_stage_model.``); a single-file
+SDXL checkpoint by its SGM prefixes (``conditioner.embedders.0.transformer.``
+→ CLIP-L, ``conditioner.embedders.1.model.`` → CLIP-G under OpenCLIP names,
+renamed to HF ones, the fused ``in_proj`` split into q / k / v, the
+``text_projection`` transposed).  Any family but FLUX, SD1 and SDXL raises
+``NotImplementedError`` naming it (SDXL's inpaint, pix2pix and SSD-1B
+variants too).
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ class ModelBundle:
     version: SDVersion
     diffusion: Dict[str, np.ndarray]
     clip_l: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    clip_g: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
     t5: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
     vae: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
     extra: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
@@ -175,7 +181,7 @@ def convert_diffusers_diffusion_names(tensors: Dict[str, np.ndarray]) -> Dict[st
 
 # the families the port runs (``load_model_bundle`` and ``create_pipeline``
 # refuse every other by name)
-PORTED_VERSIONS = (SDVersion.FLUX, SDVersion.SD1)
+PORTED_VERSIONS = (SDVersion.FLUX, SDVersion.SD1, SDVersion.SDXL)
 
 
 def _unet_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
@@ -385,10 +391,53 @@ def convert_gguf_t5_name(name: str) -> str:
 
 # ------------------------------------------------------------ bundle
 
-# module dict ← full-name prefix
+def convert_open_clip_name(name: str) -> Optional[str]:
+    """OpenCLIP text-tower names (SDXL's ``conditioner.embedders.1.model.*``)
+    → HF CLIPText names; the fused ``in_proj`` comes back under an
+    ``__inproj__`` marker that ``_split_in_proj`` splits."""
+    if name.startswith("transformer."):
+        name = name[len("transformer."):]
+    if name == "token_embedding.weight":
+        return "text_model.embeddings.token_embedding.weight"
+    if name == "positional_embedding":
+        return "text_model.embeddings.position_embedding.weight"
+    if name.startswith("ln_final."):
+        return "text_model.final_layer_norm." + name[len("ln_final."):]
+    if name == "text_projection":
+        return "text_projection.weight"  # split_modules transposes it
+    m = re.match(r"resblocks\.(\d+)\.(.*)", name)
+    if m:
+        pre = f"text_model.encoder.layers.{m.group(1)}"
+        table = {
+            "ln_1.weight": f"{pre}.layer_norm1.weight", "ln_1.bias": f"{pre}.layer_norm1.bias",
+            "ln_2.weight": f"{pre}.layer_norm2.weight", "ln_2.bias": f"{pre}.layer_norm2.bias",
+            "mlp.c_fc.weight": f"{pre}.mlp.fc1.weight", "mlp.c_fc.bias": f"{pre}.mlp.fc1.bias",
+            "mlp.c_proj.weight": f"{pre}.mlp.fc2.weight", "mlp.c_proj.bias": f"{pre}.mlp.fc2.bias",
+            "attn.out_proj.weight": f"{pre}.self_attn.out_proj.weight",
+            "attn.out_proj.bias": f"{pre}.self_attn.out_proj.bias",
+            "attn.in_proj_weight": f"{pre}.self_attn.__inproj__.weight",
+            "attn.in_proj_bias": f"{pre}.self_attn.__inproj__.bias",
+        }
+        return table.get(m.group(2))
+    return None
+
+
+def _split_in_proj(params: Dict[str, np.ndarray]) -> None:
+    """OpenCLIP's fused q/k/v (``__inproj__``) → separate q/k/v projections."""
+    for name in [n for n in params if "__inproj__" in n]:
+        arr = params.pop(name)
+        c = arr.shape[0] // 3
+        for i, which in enumerate(("q_proj", "k_proj", "v_proj")):
+            params[name.replace("__inproj__", which)] = arr[i * c:(i + 1) * c]
+
+
+# module dict ← full-name prefix (and the renaming of its local names)
 MODULE_PREFIXES = (("diffusion", DIFFUSION_PREFIX), ("vae", "first_stage_model."),
                    ("clip_l", "cond_stage_model.transformer."),
+                   ("clip_l", "conditioner.embedders.0.transformer."),
+                   ("clip_g", "conditioner.embedders.1.model."),
                    ("clip_l", "text_encoders.clip_l.transformer."),
+                   ("clip_g", "text_encoders.clip_g.transformer."),
                    ("t5", "text_encoders.t5xxl.transformer."))
 
 
@@ -396,25 +445,37 @@ def split_modules(tensors: Dict[str, np.ndarray]) -> ModelBundle:
     """Canonicalize + fingerprint + split into module-local param dicts."""
     canon = {canonicalize_name(k): v for k, v in tensors.items()}
     version = detect_version(canon.keys(), {k: tuple(v.shape) for k, v in canon.items()})
-    mods: Dict[str, Dict[str, np.ndarray]] = {"diffusion": {}, "clip_l": {}, "t5": {}, "vae": {},
-                                              "extra": {}}
+    mods: Dict[str, Dict[str, np.ndarray]] = {"diffusion": {}, "clip_l": {}, "clip_g": {}, "t5": {},
+                                              "vae": {}, "extra": {}}
     for name, arr in canon.items():
         for mod, prefix in MODULE_PREFIXES:
             if name.startswith(prefix):
                 local = name[len(prefix):]
                 if mod == "t5" and local.startswith(("enc.", "dec.", "token_embd.", "output_norm.")):
                     local = convert_gguf_t5_name(local)  # llama.cpp GGUF T5 export
+                if prefix == "conditioner.embedders.1.model.":
+                    local = convert_open_clip_name(local)
+                    if local is None:
+                        break  # an OpenCLIP tensor the text tower does not use
                 mods[mod][local] = arr
                 break
         else:
             mods["extra"][name] = arr
+    for tower in ("clip_l", "clip_g"):
+        _split_in_proj(mods[tower])
+    # OpenCLIP's projection is [width, proj], applied as x @ W (the JAX
+    # loader transposes CLIP-G's, whichever file it came from)
+    tp = mods["clip_g"].get("text_projection.weight")
+    if tp is not None:
+        mods["clip_g"]["text_projection.weight"] = np.ascontiguousarray(np.asarray(tp).T)
     return ModelBundle(version=version, **mods)
 
 
 def load_model_bundle(model_path: Optional[str] = None, diffusion_model_path: Optional[str] = None,
                       clip_l_path: Optional[str] = None, t5xxl_path: Optional[str] = None,
-                      vae_path: Optional[str] = None, keep_quant: bool = False) -> ModelBundle:
-    """FLUX.1 or SD1.x checkpoint files, each under its logical prefix, →
+                      vae_path: Optional[str] = None, keep_quant: bool = False,
+                      clip_g_path: Optional[str] = None) -> ModelBundle:
+    """FLUX.1, SD1.x or SDXL checkpoint files, each under its logical prefix, →
     ``ModelBundle`` (what the JAX package's ``load_model_bundle`` holds for
     them, by value).  Raises ``NotImplementedError`` for any other model."""
     tensors: Dict[str, np.ndarray] = {}
@@ -422,6 +483,7 @@ def load_model_bundle(model_path: Optional[str] = None, diffusion_model_path: Op
         tensors.update(read_checkpoint_file(model_path, keep_quant=keep_quant))
     for path, prefix in ((diffusion_model_path, DIFFUSION_PREFIX),
                          (clip_l_path, "text_encoders.clip_l.transformer."),
+                         (clip_g_path, "text_encoders.clip_g.transformer."),
                          (t5xxl_path, "text_encoders.t5xxl.transformer."),
                          (vae_path, "first_stage_model.")):
         if not path:

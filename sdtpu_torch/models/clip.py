@@ -1,8 +1,10 @@
-"""CLIP text encoder (counterpart of ``sdtpu/models/clip.py``, text tower).
+"""CLIP text encoders (counterpart of ``sdtpu/models/clip.py``, text towers):
+OpenAI CLIP-L and OpenCLIP-G (SDXL's second encoder, with its pooled
+projection).
 
-Params are keyed by HF ``CLIPTextModel`` names (``text_model.…``), linear
-weights [out, in].  The causal mask goes to the flash kernel as an additive
-bias on CUDA.
+Params are keyed by HF ``CLIPTextModel`` names (``text_model.…``,
+``text_projection.weight``), linear weights [out, in].  The causal mask
+goes to the flash kernel as an additive bias on CUDA.
 """
 from __future__ import annotations
 
@@ -28,6 +30,14 @@ class CLIPTextConfig:
 
 
 CLIP_L_CONFIG = CLIPTextConfig()
+CLIP_G_CONFIG = CLIPTextConfig(
+    hidden_size=1280,
+    intermediate_size=5120,
+    num_layers=32,
+    num_heads=20,
+    hidden_act="gelu",
+    projection_dim=1280,
+)
 
 
 def param_specs(cfg: CLIPTextConfig) -> dict:

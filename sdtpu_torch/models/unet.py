@@ -1,27 +1,34 @@
-"""SD1.x UNet (counterpart of the SD1 subset of ``sdtpu/models/unet.py``).
+"""SD1.x and SDXL UNet (counterpart of the SD1 and SDXL subset of
+``sdtpu/models/unet.py``).
 
 Params are a flat dict keyed by CompVis checkpoint names
 (``input_blocks.N.M.…``, ``middle_block.…``, ``output_blocks.…``,
 ``time_embed.…``, ``out.…``); activations are NHWC.  Convolutions and dense
 linears run as cuDNN / ``torch.matmul`` calls, as the JAX package leaves
 them to XLA; attention goes through ``ops.attention`` (the flash kernel on
-the card: 8 heads over 320, 640 and 1280 channels, so D 40, 80 and 160).
+the card: SD1.x's 8 heads over 320, 640 and 1280 channels, so D 40, 80 and
+160; SDXL's 64-channel heads, so D 64).
 
 Structure (CompVis openaimodel semantics):
   time_embed: Linear→SiLU→Linear on the sinusoidal timestep embedding
+  label_emb (SDXL): the same MLP on the pooled + size/crop vector ``y``
   input blocks: conv stem, then per level {ResBlock [+SpatialTransformer]}×n,
     strided-conv Downsample between levels
   middle: ResBlock, SpatialTransformer, ResBlock
   output blocks: mirrored with skip concatenation, nearest-2x Upsample
   out: GroupNorm→SiLU→conv
-The SD2 (linear projections, head channels), SDXL (label embedding), tiny
-and video (SVD) variants are not ported yet, and the config has none of
-their fields: the loader and ``create_pipeline`` refuse those families by
-name.  ControlNet residuals, IP-Adapter and AnimateDiff are not ported.
+SDXL's transformers project in and out with linears on the tokens
+(``use_linear_in_transformer``) and take their head count from 64-channel
+heads (``num_head_channels``).  The SD2 family (which shares those two
+fields), the tiny and video (SVD) variants are not ported yet, and the
+config has none of their other fields: the loader and ``create_pipeline``
+refuse those families by name.  ControlNet residuals, IP-Adapter and
+AnimateDiff are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -39,10 +46,29 @@ class UNetConfig:
     attention_resolutions: Tuple[int, ...] = (1, 2, 4)  # ds values with attention
     transformer_depth: Tuple[int, ...] = (1, 1, 1, 1)  # per level
     context_dim: int = 768
-    num_heads: int = 8
+    num_heads: Optional[int] = 8
+    num_head_channels: Optional[int] = None
+    use_linear_in_transformer: bool = False
+    adm_in_channels: Optional[int] = None  # SDXL conditioning vector
 
 
 SD1_UNET_CONFIG = UNetConfig()
+SDXL_UNET_CONFIG = UNetConfig(
+    channel_mult=(1, 2, 4),
+    attention_resolutions=(2, 4),
+    transformer_depth=(0, 2, 10),
+    context_dim=2048,
+    num_heads=None,
+    num_head_channels=64,
+    use_linear_in_transformer=True,
+    adm_in_channels=2816,
+)
+
+
+def _heads_for(cfg: UNetConfig, ch: int) -> int:
+    if cfg.num_head_channels is not None:
+        return ch // cfg.num_head_channels
+    return cfg.num_heads or 8
 
 
 def resblock(p, pre: str, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -94,16 +120,24 @@ def transformer_block(p, pre: str, x: torch.Tensor, context: torch.Tensor,
 
 def spatial_transformer(p, pre: str, x: torch.Tensor, context: torch.Tensor, cfg: UNetConfig,
                         depth: int) -> torch.Tensor:
-    """GroupNorm, 1x1-conv ``proj_in``, ``depth`` transformer blocks over the
-    H·W tokens, 1x1-conv ``proj_out``, residual."""
+    """GroupNorm, ``proj_in`` (a 1x1 conv, or with
+    ``use_linear_in_transformer`` a linear on the tokens), ``depth``
+    transformer blocks over the H·W tokens, ``proj_out`` likewise, residual."""
     b, hh, ww, c = x.shape
+    num_heads = _heads_for(cfg, c)
     h = group_norm(x, p[f"{pre}.norm.weight"], p[f"{pre}.norm.bias"], eps=1e-6)
-    h = conv2d(h, p[f"{pre}.proj_in.weight"], p[f"{pre}.proj_in.bias"], padding=0)
-    h = h.reshape(b, hh * ww, c)
+    if cfg.use_linear_in_transformer:
+        h = linear(h.reshape(b, hh * ww, c), p[f"{pre}.proj_in.weight"], p[f"{pre}.proj_in.bias"])
+    else:
+        h = conv2d(h, p[f"{pre}.proj_in.weight"], p[f"{pre}.proj_in.bias"], padding=0)
+        h = h.reshape(b, hh * ww, c)
     for k in range(depth):
-        h = transformer_block(p, f"{pre}.transformer_blocks.{k}", h, context, cfg.num_heads)
-    h = h.reshape(b, hh, ww, c)
-    h = conv2d(h, p[f"{pre}.proj_out.weight"], p[f"{pre}.proj_out.bias"], padding=0)
+        h = transformer_block(p, f"{pre}.transformer_blocks.{k}", h, context, num_heads)
+    if cfg.use_linear_in_transformer:
+        h = linear(h, p[f"{pre}.proj_out.weight"], p[f"{pre}.proj_out.bias"]).reshape(b, hh, ww, c)
+    else:
+        h = conv2d(h.reshape(b, hh, ww, c), p[f"{pre}.proj_out.weight"], p[f"{pre}.proj_out.bias"],
+                   padding=0)
     return x + h
 
 
@@ -150,13 +184,18 @@ def _block_layout(cfg: UNetConfig):
 
 def unet_forward(p, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
                  y: Optional[torch.Tensor] = None, cfg: UNetConfig = SD1_UNET_CONFIG) -> torch.Tensor:
-    """x: [B,H,W,C] latent (NHWC), timesteps: [B], context: [B,L,ctx] →
-    eps prediction [B,H,W,out].  ``y`` (SDXL's vector) must be None."""
-    if y is not None:
-        raise NotImplementedError("the UNet's label embedding (SDXL) is not ported yet")
+    """x: [B,H,W,C] latent (NHWC), timesteps: [B], context: [B,L,ctx],
+    y: [B, adm_in_channels] (SDXL's vector, added through the label
+    embedding) → eps prediction [B,H,W,out].  A ``y`` given to a config
+    without ``adm_in_channels`` raises."""
+    if y is not None and cfg.adm_in_channels is None:
+        raise ValueError("y given to a UNet without a label embedding (adm_in_channels is None)")
     t_emb = timestep_embedding(timesteps, cfg.model_channels).to(x.dtype)
     emb = linear(t_emb, p["time_embed.0.weight"], p["time_embed.0.bias"])
     emb = linear(silu(emb), p["time_embed.2.weight"], p["time_embed.2.bias"])
+    if y is not None:
+        lemb = linear(y.to(x.dtype), p["label_emb.0.0.weight"], p["label_emb.0.0.bias"])
+        emb = emb + linear(silu(lemb), p["label_emb.0.2.weight"], p["label_emb.0.2.bias"])
     context = context.to(x.dtype)
 
     inputs, outputs = _block_layout(cfg)
@@ -234,8 +273,9 @@ def param_specs(cfg: UNetConfig) -> dict:
 
     def spatial(pre, dim, depth):
         norm(f"{pre}.norm", dim)
-        conv(f"{pre}.proj_in", dim, dim, k=1)
-        conv(f"{pre}.proj_out", dim, dim, k=1)
+        proj = lin if cfg.use_linear_in_transformer else functools.partial(conv, k=1)
+        proj(f"{pre}.proj_in", dim, dim)
+        proj(f"{pre}.proj_out", dim, dim)
         for k in range(depth):
             tb = f"{pre}.transformer_blocks.{k}"
             norm(f"{tb}.norm1", dim)
@@ -250,6 +290,9 @@ def param_specs(cfg: UNetConfig) -> dict:
     emb_dim = 4 * mc
     lin("time_embed.0", emb_dim, mc)
     lin("time_embed.2", emb_dim, emb_dim)
+    if cfg.adm_in_channels is not None:
+        lin("label_emb.0.0", emb_dim, cfg.adm_in_channels)
+        lin("label_emb.0.2", emb_dim, emb_dim)
     conv("input_blocks.0.0", mc, cfg.in_channels)
 
     layout_in, layout_out = _block_layout(cfg)

@@ -2,8 +2,8 @@
 
 Params are keyed by CompVis ``first_stage_model`` names
 (``decoder.up.N.block.M.…``); activations are NHWC.  The mid-block attention
-is single-head over every latent position (D = 512 at full width, FLUX's
-and SD1.x's alike).
+is single-head over every latent position (D = 512 at full width, FLUX's,
+SD1.x's and SDXL's alike).
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ class VAEConfig:
 
 
 SD_VAE_CONFIG = VAEConfig()  # SD1.x: 4 latent channels, scale 0.18215, no shift
+SDXL_VAE_CONFIG = VAEConfig(scale_factor=0.13025)
 FLUX_VAE_CONFIG = VAEConfig(z_channels=16, scale_factor=0.3611, shift_factor=0.1159)
 
 

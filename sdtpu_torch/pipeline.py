@@ -1,13 +1,18 @@
-"""txt2img pipeline for FLUX and SD1.x (counterpart of the txt2img part of
-``sdtpu/pipeline.py``: ``DiffusionPipeline.generate``, ``txt2img``,
-``set_vae_tiling``, the tiled decode and ``_match_context``).
+"""txt2img pipeline for FLUX, SD1.x and SDXL (counterpart of the txt2img
+part of ``sdtpu/pipeline.py``: ``DiffusionPipeline.generate``, ``txt2img``,
+``set_vae_tiling``, ``set_tae``, the tiled decode and ``_match_context``).
 
 Samplers: ``sdtpu_torch.diffusion.samplers.PORTED_METHODS``; at ``eta > 0``
-an ancestral sampler's per-step noise follows the initial noise in each
-batch item's ``rng`` stream, as the JAX pipeline draws it.  The latent's
-channels and the schedule come from the model (FLUX's 16-channel flow
-latent, SD1's 4-channel eps latent on the DDPM table); SD1 has no pooled
-vector (``y``) and no distilled guidance.  ``generate`` takes the JAX pipeline's
+an ancestral sampler's per-step noise (and ``lcm``'s at any ``eta``)
+follows the initial noise in each batch item's ``rng`` stream, as the JAX
+pipeline draws it.  The latent's channels and the schedule come from the
+model (FLUX's 16-channel flow latent, SD1's and SDXL's 4-channel eps latent
+on the DDPM table); SD1 has no pooled vector (``y``), SDXL's is the pooled
+CLIP-G output with the size embeddings of the request's width and height,
+and neither has distilled guidance.  ``set_tae`` swaps the final decode for
+a TAESD decoder.  Of ``extra_sample_args`` the port runs ``lcm``'s
+``noise_scale_start`` / ``noise_scale_end``; any other key raises by
+name.  ``generate`` takes the JAX pipeline's
 ``progress_callback(step, steps, x)`` and ``cancel_check()`` (a server
 job's progress and cancellation): both run after each step, and a cancelled
 request decodes the latents it reached.
@@ -68,6 +73,25 @@ def _pad_tokens_by_repeat(x: torch.Tensor, target: int) -> torch.Tensor:
     return torch.cat([x, pad], dim=1)
 
 
+# the keys of ``extra_sample_args`` the port's samplers read
+SAMPLER_KEYS = ("noise_scale_start", "noise_scale_end")
+
+
+def _sampler_extra_args(spec: str) -> Dict[str, float]:
+    """``extra_sample_args`` ("key=value,...") → the sampler keys as floats,
+    as the JAX pipeline parses them; a key the port does not run raises."""
+    out = {}
+    for part in (spec or "").split(","):
+        if "=" not in part:
+            continue
+        k, v = (t.strip() for t in part.split("=", 1))
+        if k not in SAMPLER_KEYS:
+            raise NotImplementedError(f"extra_sample_args key {k!r} is not ported; "
+                                      f"ported: {list(SAMPLER_KEYS)}")
+        out[k] = float(v)
+    return out
+
+
 def _match_context(c: torch.Tensor, u: Optional[torch.Tensor], bc: int):
     """Pad the cond and uncond contexts to one token length (their chunk
     counts may differ), then tile both to the batch."""
@@ -105,6 +129,7 @@ class DiffusionPipeline:
         self._vae_overlap = 8
         self.last_timings: Dict[str, float] = {}
         self.last_t5_ids: Optional[list] = None
+        self._tae: Optional[dict] = None
 
     def set_vae_tiling(self, enabled: bool = True, tile_size: int = 64, overlap: int = 8) -> None:
         """Spatial VAE tiling: decode runs tile-wise with feathered blending;
@@ -112,6 +137,31 @@ class DiffusionPipeline:
         self._vae_tiling = enabled
         self._vae_tile = tile_size
         self._vae_overlap = overlap
+
+    def set_tae(self, tae_params, tae_cfg=None, preview_only: bool = False) -> None:
+        """Attach a TAESD decoder (the CLI's ``--taesd``): final decodes run
+        the tiny decoder.  ``tae_params=None`` restores the full VAE;
+        re-attaching over a TAE keeps the original VAE pair.  The port has no
+        latent preview, so ``preview_only`` (``--taesd-preview-only``) is
+        refused."""
+        if preview_only:
+            raise NotImplementedError("set_tae(preview_only=True): the port has no latent "
+                                      "preview to serve (--taesd-preview-only is not ported)")
+        if tae_params is None:
+            if self._tae is not None:
+                self.vae_decode_fn, self.vae_params = self._tae["orig"]
+            self._tae = None
+            return
+        from sdtpu_torch.models.tae import TAESD_CONFIG, tae_decode
+
+        tae_cfg = tae_cfg or TAESD_CONFIG
+
+        def tae_decode_fn(p, z):
+            return tae_decode(p, z, tae_cfg)
+
+        orig = self._tae["orig"] if self._tae else (self.vae_decode_fn, self.vae_params)
+        self._tae = {"cfg": tae_cfg, "orig": orig}
+        self.vae_decode_fn, self.vae_params = tae_decode_fn, tae_params
 
     def _vae_dtype(self) -> torch.dtype:
         for v in self.vae_params.values():
@@ -180,10 +230,13 @@ class DiffusionPipeline:
         bc = gp.batch_count
         has_uncond = gp.cfg_scale != 1.0
 
+        extra_args = _sampler_extra_args(gp.extra_sample_args)
         tc0 = time.time()
-        cond = self.conditioner.get_learned_condition(gp.prompt, clip_skip=gp.clip_skip)
+        cond = self.conditioner.get_learned_condition(gp.prompt, clip_skip=gp.clip_skip, width=w,
+                                                      height=h)
         self.last_t5_ids = cond.t5_ids
-        uncond = (self.conditioner.get_learned_condition(gp.negative_prompt, clip_skip=gp.clip_skip)
+        uncond = (self.conditioner.get_learned_condition(gp.negative_prompt, clip_skip=gp.clip_skip,
+                                                         width=w, height=h)
                   if has_uncond else None)
         _sync(dev)
         t_cond = time.time() - tc0
@@ -227,7 +280,7 @@ class DiffusionPipeline:
 
         latents = sample(model_fn, torch.from_numpy(x).to(dev), sigmas, method=gp.sample_method,
                          noises=step_noise, eta=gp.eta, is_flow=self.denoiser.is_flow,
-                         step_callback=step_callback)
+                         step_callback=step_callback, extra_args=extra_args)
         latents = self.denoiser.inverse_noise_scaling(
             torch.tensor(sigmas[-1], device=dev), latents).float()
         _sync(dev)

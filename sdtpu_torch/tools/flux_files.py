@@ -150,8 +150,9 @@ class _Draw:
         return blocks.cpu().numpy().reshape(-1)
 
     def dense(self, shape, init: str, dtype=torch.float32) -> torch.Tensor:
-        if init == "normal":
-            t = torch.randn(shape, generator=self.g, device=self.device).mul_(WEIGHT_STD)
+        if init == "normal" or isinstance(init, float):
+            std = WEIGHT_STD if init == "normal" else init
+            t = torch.randn(shape, generator=self.g, device=self.device).mul_(std)
         else:
             t = (torch.ones if init == "ones" else torch.zeros)(shape, device=self.device)
         return t.to(dtype)

@@ -101,7 +101,9 @@ def _quantizable(name: str, shape, init: str) -> bool:
 def synthesize(specs: Dict[str, tuple], quant: Optional[str] = None, seed: int = 0,
                device="cuda", dtype: torch.dtype = torch.bfloat16,
                group: int = Q4_GROUP) -> dict:
-    """name → (shape, init) specs → random tensors drawn on ``device``.
+    """name → (shape, init) specs → random tensors drawn on ``device``;
+    init is "normal" (std ``WEIGHT_STD``), a float (the std of a normal
+    draw), "ones" or "zeros".
 
     quant: None (all dense), "q8_0" (eligible weights → int8 QuantTensor),
     "q8_0_gguf" (→ group-32 int8 GroupQuantTensor, the footprint of a q8_0
@@ -140,8 +142,9 @@ def synthesize(specs: Dict[str, tuple], quant: Optional[str] = None, seed: int =
                     scale=torch.full((n, kp // group), Q4_SCALE, dtype=torch.float32,
                                      device=device),
                     k=k, group=group)
-        elif init == "normal":
-            out[name] = torch.randn(shape, generator=g, device=device, dtype=dtype).mul_(WEIGHT_STD)
+        elif init == "normal" or isinstance(init, float):
+            std = WEIGHT_STD if init == "normal" else init
+            out[name] = torch.randn(shape, generator=g, device=device, dtype=dtype).mul_(std)
         elif init == "ones":
             out[name] = torch.ones(shape, device=device, dtype=dtype)
         else:

@@ -9,6 +9,12 @@ names with a unigram vocab embedded as ``tokenizer.ggml.*``, and the VAE
 configs the CLIs load with for the small ones, in both packages.  The SD1
 file is the JAX package's small SD1 pipeline as one float16 safetensors
 under the LDM names; ``small_sd1_configs`` swaps SD1's full-size configs.
+The SDXL file is the JAX package's small SDXL pipeline as one float16
+safetensors under the SGM names, CLIP-G under OpenCLIP's (the fused
+``in_proj``, ``text_projection`` as [width, proj]); the TAESD-XL file the
+decoder of ``init_tae_params(TAESD_XL_CONFIG, seed=5)`` under the raw
+``taesd`` names (the Clamp at decoder index 0); ``small_sdxl_configs``
+swaps SDXL's full-size configs.
 """
 import dataclasses
 import struct
@@ -119,5 +125,94 @@ def small_sd1_configs(monkeypatch):
     for (tmod, jmod), name, small in (((tunet, junet), "SD1_UNET_CONFIG", unet),
                                       ((tclip, jclip), "CLIP_L_CONFIG", clip),
                                       ((tvae, jvae), "SD_VAE_CONFIG", vae)):
+        monkeypatch.setattr(tmod, name, small)
+        monkeypatch.setattr(jmod, name, type(getattr(jmod, name))(**dataclasses.asdict(small)))
+
+
+def small_sdxl_pipeline():
+    return jax_create_pipeline(jconfig.SDVersion.SDXL, small=True, seed=0)
+
+
+def to_open_clip(params: dict) -> dict:
+    """A CLIP text tower under HF names → OpenCLIP's names: q, k and v fused
+    into ``in_proj``, the projection as [width, proj]."""
+    out = {}
+    fixed = {"text_model.embeddings.token_embedding.weight": "token_embedding.weight",
+             "text_model.embeddings.position_embedding.weight": "positional_embedding",
+             "text_model.final_layer_norm.weight": "ln_final.weight",
+             "text_model.final_layer_norm.bias": "ln_final.bias"}
+    sub = {"layer_norm1": "ln_1", "layer_norm2": "ln_2", "mlp.fc1": "mlp.c_fc",
+           "mlp.fc2": "mlp.c_proj", "self_attn.out_proj": "attn.out_proj"}
+    for k, v in params.items():
+        v = np.asarray(v, dtype=np.float32)
+        if k in fixed:
+            out[fixed[k]] = v
+        elif k == "text_projection.weight":
+            out["text_projection"] = np.ascontiguousarray(v.T)
+        elif ".self_attn.q_proj." in k:
+            i, kind = k.split(".")[3], k.rsplit(".", 1)[1]
+            parts = [np.asarray(params[k.replace("q_proj", p)], np.float32)
+                     for p in ("q_proj", "k_proj", "v_proj")]
+            out[f"transformer.resblocks.{i}.attn.in_proj_{kind}"] = np.concatenate(parts, axis=0)
+        elif ".self_attn.k_proj." in k or ".self_attn.v_proj." in k:
+            continue
+        else:
+            i, rest = k.split(".")[3], k.split(".", 4)[4]
+            for a, b in sub.items():
+                if rest.startswith(a + "."):
+                    rest = b + rest[len(a):]
+            out[f"transformer.resblocks.{i}.{rest}"] = v
+    return out
+
+
+def write_small_sdxl_file(directory, jp=None) -> str:
+    """The small SDXL pipeline's weights as one single-file checkpoint under
+    the SGM names, float16 → its path."""
+    jp = jp or small_sdxl_pipeline()
+    path = f"{directory}/sdxl_small.safetensors"
+    host = {}
+    for prefix, params in (("model.diffusion_model.", jp.diffusion_params),
+                           ("conditioner.embedders.0.transformer.", jp.conditioner.pl),
+                           ("conditioner.embedders.1.model.", to_open_clip(jp.conditioner.pg)),
+                           ("first_stage_model.", jp.vae_params)):
+        host.update({prefix + k: np.asarray(v, dtype=np.float16) for k, v in params.items()})
+    save_safetensors(path, host)
+    return path
+
+
+def small_tae_params():
+    from sdtpu.models import tae as jtae
+
+    p = jtae.init_tae_params(jtae.TAESD_XL_CONFIG, seed=5)
+    return {k: v for k, v in p.items() if k.startswith("decoder.")}
+
+
+def write_small_tae_file(directory) -> str:
+    """TAESD-XL's decoder under the raw names (index + 1), float16 → its path."""
+    path = f"{directory}/taesdxl_small.safetensors"
+    host = {}
+    for k, v in small_tae_params().items():
+        _, _, idx, rest = k.split(".", 3)
+        host[f"decoder.{int(idx) + 1}.{rest}"] = np.asarray(v, dtype=np.float16)
+    save_safetensors(path, host)
+    return path
+
+
+def small_sdxl_configs(monkeypatch):
+    """Swap the four full-size configs both CLIs load SDXL with for the
+    small SDXL configs of both factories."""
+    import sdtpu.models.clip as jclip
+    import sdtpu.models.unet as junet
+    import sdtpu.models.vae as jvae
+    import sdtpu_torch.models.clip as tclip
+    import sdtpu_torch.models.unet as tunet
+    import sdtpu_torch.models.vae as tvae
+    from sdtpu_torch.factory import sdxl_configs
+
+    unet, clip_l, clip_g, vae = sdxl_configs(small=True)
+    for (tmod, jmod), name, small in (((tunet, junet), "SDXL_UNET_CONFIG", unet),
+                                      ((tclip, jclip), "CLIP_L_CONFIG", clip_l),
+                                      ((tclip, jclip), "CLIP_G_CONFIG", clip_g),
+                                      ((tvae, jvae), "SDXL_VAE_CONFIG", vae)):
         monkeypatch.setattr(tmod, name, small)
         monkeypatch.setattr(jmod, name, type(getattr(jmod, name))(**dataclasses.asdict(small)))

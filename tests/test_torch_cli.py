@@ -3,8 +3,9 @@
 Both CLIs load the files written by ``tests/_torch_files.py`` (the JAX
 package's small FLUX weights as a q8_0 DiT GGUF, CLIP-L and VAE
 safetensors, a q8_0 T5 GGUF under llama.cpp names with an embedded vocab;
-its small SD1 weights as one float16 single-file checkpoint), with their
-full-size configs swapped for the small ones.  The port runs
+its small SD1 and SDXL weights as float16 single-file checkpoints, beside
+a TAESD-XL decoder file), with their full-size configs swapped for the
+small ones.  The port runs
 with ``--backend cpu``.  Their images may differ by one uint8 level (a
 float32 pixel on a rounding boundary); the ``parameters`` text is equal.
 Unported flags, modes and values exit 2 before anything loads.
@@ -20,7 +21,9 @@ import pytest
 sys.path.insert(0, os.path.dirname(__file__))  # tests/_torch_files.py
 
 from _torch_files import (small_configs, small_jax_pipeline, small_sd1_configs,  # noqa: E402
-                          small_sd1_pipeline, write_small_flux_files, write_small_sd1_file)
+                          small_sd1_pipeline, small_sdxl_configs, small_sdxl_pipeline,
+                          write_small_flux_files, write_small_sd1_file, write_small_sdxl_file,
+                          write_small_tae_file)
 
 
 @pytest.fixture(scope="module")
@@ -113,6 +116,7 @@ UNPORTED = [
     ["--backend", "clip=cpu,diffusion=cuda0"], ["--backend", "tpu0"], ["--dtype", "f16"],
     ["-p", "a <lora:detail:0.8> cat"], ["convert"], ["-M", "vid_gen"],
     ["--embd-dir", "embeddings"],  # textual inversion (SD1's EmbeddingMixin)
+    ["--taesd", "taesd.safetensors", "--taesd-preview-only"],  # the port has no preview
 ]
 
 
@@ -247,3 +251,150 @@ def test_sd15_file_tool_writes_a_file_the_cli_answers_from(monkeypatch, tmp_path
     assert cli.main(["-m", out["path"], "-p", "a cat", "-W", "64", "-H", "64", "--steps", "2",
                      "--backend", "cpu", "-o", png], report=report) == 0
     assert report["load"]["version"] == "sd1" and report["timings"]["steps"] == 2
+
+
+@pytest.fixture(scope="module")
+def sdxl_files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("sdxl_file")
+    jp = small_sdxl_pipeline()
+    return {"model": write_small_sdxl_file(d, jp), "taesd": write_small_tae_file(d), "dir": d,
+            "jp": jp}
+
+
+SDXL_REQUESTS = {
+    # the bench's request, cut to 64²: TAESD-XL, 4 lcm steps, CFG 1, seed 42
+    "lcm_taesd": (["-p", "a photograph of an astronaut riding a horse", "-W", "64", "-H", "64",
+                   "--steps", "4", "--sampling-method", "lcm", "--cfg-scale", "1", "-s", "42"],
+                  True),
+    # the full VAE: euler, CFG 5, a negative prompt, a wide image, VAE tiling
+    "euler_cfg_vae": (["-p", "a red fox in snow", "-n", "blurry", "-W", "96", "-H", "64",
+                       "--steps", "3", "--sampling-method", "euler", "--cfg-scale", "5", "-s", "7",
+                       "--vae-tiling", "--vae-tile-size", "8", "--vae-tile-overlap", "2"], False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SDXL_REQUESTS))
+def test_cli_sdxl_file_matches_jax_cli(sdxl_files, monkeypatch, tmp_path, name):
+    """``-m`` with an SDXL single-file checkpoint (SGM names, CLIP-G under
+    OpenCLIP's), with ``--taesd`` and with the full VAE: both CLIPs
+    fingerprint it as SDXL; the images lie within one uint8 level."""
+    from PIL import Image
+
+    import sdtpu.cli as jcli
+    from sdtpu_torch import cli
+
+    small_sdxl_configs(monkeypatch)
+    monkeypatch.setenv("SDTPU_COMPILE_CACHE", str(tmp_path / "xla"))
+    req, tae = SDXL_REQUESTS[name]
+    args = ["-m", sdxl_files["model"]] + req + (["--taesd", sdxl_files["taesd"]] if tae else [])
+    report = {}
+    assert cli.main(args + ["--backend", "cpu", "-o", str(tmp_path / "port.png")],
+                    report=report) == 0
+    assert jcli.main(args + ["-o", str(tmp_path / "jax.png")]) == 0
+    assert report["load"]["version"] == "sdxl" and report["load"]["tae"] is tae
+    a, b = Image.open(report["outputs"][0]), Image.open(str(tmp_path / "jax.png"))
+    assert a.info["parameters"] == b.info["parameters"]
+    diff = np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int))
+    assert diff.max() <= 1 and np.asarray(a).std() > 0
+
+
+def _same_modules(got, want, modules):
+    assert got.version.value == want.version.value == "sdxl"
+    for m in modules:
+        g, w = getattr(got, m), getattr(want, m)
+        assert sorted(g) == sorted(w), m
+        for k, v in w.items():
+            np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(v), err_msg=f"{m}.{k}")
+
+
+def test_sdxl_split_modules_matches_jax(sdxl_files, tmp_path):
+    """The single file by its SGM prefixes (CLIP-G renamed, ``in_proj``
+    split, ``text_projection`` transposed), and a file set with a separate
+    ``--clip_g`` (``text_encoders.clip_g.transformer.``): the port's
+    ``split_modules`` equals the JAX one by value, and CLIP-G lands under
+    ``param_specs``' names."""
+    from sdtpu.io.model_loader import load_model_bundle as jload
+    from sdtpu.io.model_loader import split_modules as jsplit
+    from sdtpu.io.safetensors import save_safetensors
+    from sdtpu_torch.factory import sdxl_configs
+    from sdtpu_torch.io.model_loader import load_model_bundle, split_modules
+    from sdtpu_torch.io.safetensors import load_safetensors
+    from sdtpu_torch.models import clip as tclip
+
+    mods = ("diffusion", "clip_l", "clip_g", "vae")
+    tensors = load_safetensors(sdxl_files["model"])
+    got, want = split_modules(tensors), jsplit(tensors)
+    _same_modules(got, want, mods)
+    assert set(got.clip_g) == set(tclip.param_specs(sdxl_configs(small=True)[2]))
+    assert not got.extra
+    pg = sdxl_files["jp"].conditioner.pg
+    np.testing.assert_allclose(got.clip_g["text_projection.weight"],
+                               np.asarray(pg["text_projection.weight"]), atol=1e-3)
+    d = tmp_path
+    jp = sdxl_files["jp"]
+    host = lambda p: {k: np.asarray(v, dtype=np.float32) for k, v in p.items()}  # noqa: E731
+    paths = {"diffusion_model_path": f"{d}/unet.safetensors", "clip_l_path": f"{d}/l.safetensors",
+             "clip_g_path": f"{d}/g.safetensors", "vae_path": f"{d}/vae.safetensors"}
+    for key, p in (("diffusion_model_path", jp.diffusion_params), ("clip_l_path", jp.conditioner.pl),
+                   ("clip_g_path", jp.conditioner.pg), ("vae_path", jp.vae_params)):
+        save_safetensors(paths[key], host(p))
+    _same_modules(load_model_bundle(**paths), jload(**paths), mods)
+
+
+def test_sdxl_variants_stay_refused(sdxl_files, tmp_path):
+    """SDXL inpaint (a 9-channel stem) and SSD-1B (no 10-deep middle block)
+    are refused by name."""
+    from sdtpu.io.safetensors import save_safetensors
+    from sdtpu_torch.io.model_loader import load_model_bundle
+    from sdtpu_torch.io.safetensors import load_safetensors
+
+    tensors = load_safetensors(sdxl_files["model"])
+    stem = "model.diffusion_model.input_blocks.0.0.weight"
+    inpaint = dict(tensors)
+    w = inpaint[stem]
+    inpaint[stem] = np.concatenate([w, np.zeros((w.shape[0], 5) + w.shape[2:], w.dtype)], axis=1)
+    ssd = {k: v for k, v in tensors.items() if ".middle_block.1.transformer_blocks." not in k}
+    for name, t in (("sdxl_inpaint", inpaint), ("sdxl_ssd1b", ssd)):
+        path = str(tmp_path / f"{name}.safetensors")
+        save_safetensors(path, t)
+        with pytest.raises(NotImplementedError, match=name):
+            load_model_bundle(model_path=path)
+
+
+def test_sdxl_file_tool_writes_files_the_cli_answers_from(monkeypatch, tmp_path):
+    """``sdtpu_torch.tools.sdxl_file`` (the card check's SDXL and TAESD-XL
+    files, float16) at the small configs: fingerprinted as SDXL by both
+    packages' loaders, the TAE file under the raw names, answered by the
+    port's CLI with ``--taesd`` and read back in metadata mode."""
+    from sdtpu.io.model_loader import load_model_bundle as jax_load_model_bundle
+    from sdtpu_torch import cli
+    from sdtpu_torch.io.model_loader import load_model_bundle
+    from sdtpu_torch.io.safetensors import load_safetensors
+    from sdtpu_torch.models.tae import TAESD_XL_CONFIG, convert_taesd_name, param_specs
+    from sdtpu_torch.tools.sdxl_file import file_specs, tae_file_specs, write_sdxl_files
+    from sdtpu_torch.utils.image import decode_png
+
+    small_sdxl_configs(monkeypatch)
+    out = write_sdxl_files(tmp_path / "set", device="cpu")
+    paths = out["paths"]
+    assert out["tensors"] == {"model": len(file_specs()), "taesd": len(tae_file_specs())}
+    assert all(os.path.getsize(p) >= out["bytes"][k] for k, p in paths.items())
+    for p in paths.values():
+        with open(p, "rb") as f:
+            header = json.loads(f.read(struct.unpack("<Q", f.read(8))[0]))
+        assert {v["dtype"] for v in header.values()} == {"F16"}
+    tae = load_safetensors(paths["taesd"])
+    assert "decoder.1.weight" in tae and "decoder.0.weight" not in tae
+    assert {convert_taesd_name(k) for k in tae} == set(param_specs(TAESD_XL_CONFIG))
+    assert load_model_bundle(model_path=paths["model"]).version.value == "sdxl"
+    assert jax_load_model_bundle(model_path=paths["model"]).version.value == "sdxl"
+    report = {}
+    png = str(tmp_path / "out.png")
+    assert cli.main(["-m", paths["model"], "--taesd", paths["taesd"], "-p", "a cat", "-W", "64",
+                     "-H", "64", "--steps", "2", "--sampling-method", "lcm", "--cfg-scale", "1",
+                     "--backend", "cpu", "-o", png], report=report) == 0
+    assert report["load"]["version"] == "sdxl" and report["load"]["tae"]
+    with open(png, "rb") as f:
+        img, params = decode_png(f.read())
+    assert img.shape == (64, 64, 3) and img.std() > 0
+    assert "Sampler: lcm" in params

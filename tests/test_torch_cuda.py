@@ -210,6 +210,32 @@ def test_flash_unet_head_dims_match_plain(cuda, dtype, tol, d, bh, lq, lk, bias,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, FLASH_F32_TOL)])
+@pytest.mark.parametrize("b,h,lq,lk,d,bias", chip_smoke.SDXL_FLASH_SHAPES)
+def test_flash_sdxl_shapes_match_plain(cuda, dtype, tol, b, h, lq, lk, d, bias):
+    """The SDXL UNet's D 64 calls at 1024² under CFG (10 heads over 4096
+    tokens, 20 over 1024, their 77-key cross-attention) and CLIP-G's causal
+    call, both dtypes, at the limits of ``chip_smoke.py``; a bf16 call counts
+    in ``launches_d64``, a float32 one in ``launches_f32``.  The bf16 faults
+    (the last 128-key tile dropped, unmasked pad keys) exceed the limit."""
+    g = torch.Generator(device=cuda).manual_seed(lq + lk + h)
+    q = torch.randn((b, h, lq, d), generator=g, device=cuda, dtype=dtype)
+    k, v = (torch.randn((b, h, lk, d), generator=g, device=cuda, dtype=dtype) for _ in range(2))
+    mask = torch.full((lq, lk), -1e30, device=cuda).triu(1) if bias == "causal" else None
+    counter = "launches_d64" if dtype == torch.bfloat16 else "launches_f32"
+    before = (fa.flash_attention.launches, getattr(fa.flash_attention, counter))
+    got = fa.flash_attention(q, k, v, mask=mask)
+    assert (fa.flash_attention.launches, getattr(fa.flash_attention, counter)) == (
+        before[0] + 1, before[1] + 1)
+    want = fa.plain_attention(q, k, v, mask=mask)
+    limit = tol * want.float().abs().max().item()
+    assert torch.isfinite(got).all() and (got.float() - want.float()).abs().max().item() <= limit
+    if dtype == torch.bfloat16:
+        faults = chip_smoke._d64_faults(q, k, v, mask, want)
+        assert faults and all(f > limit for f in faults.values()), faults
+
+
+@pytest.mark.cuda
 def test_flash_split_workspace_allocated_by_wrapper(cuda):
     """A float32 D 160 call that splits its keys: the library asks for f32
     scratch (each split's [B·H, Lq, D] output, max and sum), the wrapper

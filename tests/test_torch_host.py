@@ -309,16 +309,17 @@ def test_diffusers_names_round_trip(small_dit):
 @pytest.mark.parametrize("tensors,family", [
     # SD1 inpaint: the UNet stem takes 9 channels
     ({"input_blocks.0.0.weight": np.zeros((4, 9, 3, 3), np.float32)}, "sd1_inpaint"),
-    # SDXL: the label embedding
+    # SSD-1B: SDXL's label embedding without the 10-deep middle block
     ({"input_blocks.0.0.weight": np.zeros((4, 4, 3, 3), np.float32),
-      "label_emb.0.0.weight": np.zeros((8, 16), np.float32)}, "sdxl"),
+      "label_emb.0.0.weight": np.zeros((8, 16), np.float32)}, "sdxl_ssd1b"),
     # SD2: a 1024-wide cross-attention context
     ({"input_blocks.0.0.weight": np.zeros((4, 4, 3, 3), np.float32),
       "input_blocks.1.1.transformer_blocks.0.attn2.to_k.weight": np.zeros((8, 1024), np.float32)},
      "sd2"),
 ])
 def test_load_model_bundle_refuses_other_families(tmp_path, tensors, family):
-    """The port loads FLUX and SD1.x; another UNet family is refused by name."""
+    """The port loads FLUX, SD1.x and SDXL; another UNet family (SDXL's
+    variants too) is refused by name."""
     path = str(tmp_path / "unet.safetensors")
     save_safetensors(path, tensors)
     with pytest.raises(NotImplementedError, match=f"a {family}"):

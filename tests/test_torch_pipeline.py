@@ -193,8 +193,8 @@ def test_unported_requests_raise(pipes):
     _, tp = pipes
     with pytest.raises(NotImplementedError, match="heun"):
         tp.generate(_gp(sample_method="heun"))
-    with pytest.raises(NotImplementedError, match="SDXL"):
-        create_pipeline(SDVersion.SDXL, small=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="SD3"):
+        create_pipeline(SDVersion.SD3, small=True, device="cpu")
 
 
 def test_create_pipeline_defaults_to_float32_as_the_reference():

@@ -5,11 +5,16 @@ The JAX small FLUX pipeline and the port's pipeline bridged from it
 on ``127.0.0.1``.  The same requests to both give images at most one uint8
 level apart with equal ``parameters`` text; an async job reports its
 progress and completes, a queued job cancels; unported routes answer 501,
-unported request fields 400.
+unported request fields 400.  ``server.main`` also loads a small SDXL file
+with a TAESD-XL decoder (``tests/_torch_files.py``) and answers an A1111
+request with the JAX CLI's image on the same files.
 """
 import base64
 import io
 import json
+import os
+import queue
+import sys
 import threading
 import time
 import urllib.error
@@ -19,6 +24,7 @@ from http.server import ThreadingHTTPServer
 import numpy as np
 import pytest
 
+import sdtpu.cli as jcli
 import sdtpu.config as jconfig
 import sdtpu.server as jserver
 from sdtpu.factory import create_pipeline as jax_create_pipeline
@@ -26,6 +32,10 @@ from sdtpu_torch import server
 from sdtpu_torch.config import SDVersion
 from sdtpu_torch.factory import create_pipeline
 from sdtpu_torch.weights import from_jax_params
+
+sys.path.insert(0, os.path.dirname(__file__))  # tests/_torch_files.py
+
+from _torch_files import small_sdxl_configs, write_small_sdxl_file, write_small_tae_file  # noqa: E402
 
 
 def _serve(httpd):
@@ -169,7 +179,7 @@ def test_unported_routes_answer_501(servers, method, path):
 
 def test_listings_name_what_the_port_runs(servers):
     base = servers["port"]
-    ported = ["euler", "euler_a", "dpm++2s_a", "dpm++2m", "ipndm"]
+    ported = ["euler", "euler_a", "dpm++2s_a", "dpm++2m", "ipndm", "lcm"]
     assert [s["name"] for s in _call(base, "/sdapi/v1/samplers")[1]] == ported
     assert [s["name"] for s in _call(base, "/sdapi/v1/schedulers")[1]] == ["discrete", "flux"]
     caps = _call(base, "/sdcpp/v1/capabilities")[1]
@@ -183,3 +193,36 @@ def test_listings_name_what_the_port_runs(servers):
 def test_server_main_refuses_unported_flags(capsys):
     assert server.main(["--upscaler-dir", "ups"]) == 2
     assert "--upscaler-dir" in capsys.readouterr().err
+
+
+def test_sdxl_server_answers_a1111_lcm_from_files(monkeypatch, tmp_path):
+    """``server.main`` on a small SDXL single file with ``--taesd`` (the
+    CLI's loader) answers one A1111 request with ``sampler_name`` lcm: the
+    image of the JAX CLI on the same files and request, within one uint8
+    level."""
+    small_sdxl_configs(monkeypatch)
+    monkeypatch.setenv("SDTPU_COMPILE_CACHE", str(tmp_path / "xla"))
+    model, tae = write_small_sdxl_file(tmp_path), write_small_tae_file(tmp_path)
+    box = queue.Queue()
+    thread = threading.Thread(target=server.main, daemon=True, kwargs=dict(
+        argv=["-m", model, "--taesd", tae, "--backend", "cpu", "--port", "0"], ready=box.put))
+    thread.start()
+    httpd = box.get(timeout=300)
+    try:
+        body = {"prompt": "an astronaut riding a horse", "width": 64, "height": 64, "steps": 2,
+                "cfg_scale": 1.0, "seed": 42, "sampler_name": "lcm"}
+        code, resp = _call(f"http://127.0.0.1:{httpd.server_address[1]}", "/sdapi/v1/txt2img", body)
+    finally:
+        httpd.shutdown()
+        thread.join(timeout=60)
+    assert code == 200, resp
+    ours, params = _png(resp["images"][0])
+    assert "Sampler: lcm" in params and ours.std() > 0
+    png = str(tmp_path / "jax.png")
+    assert jcli.main(["-m", model, "--taesd", tae, "-p", body["prompt"], "-W", "64", "-H", "64",
+                      "--steps", "2", "--cfg-scale", "1", "-s", "42", "--sampling-method", "lcm",
+                      "-o", png]) == 0
+    from PIL import Image  # as _png reads the answers
+
+    theirs = np.asarray(Image.open(png)).astype(int)
+    assert ours.shape == theirs.shape and np.abs(ours - theirs).max() <= 1
