@@ -31,7 +31,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      4096 tokens, 20 over 1024, each with its cross-attention over CLIP's
      77, CLIP-G's causal [1, 20, 77, 77]; bf16 with the last 128-key tile
      dropped and unmasked pad keys as faults, float32 with the one-pass TF32
-     fault); flash's bound
+     fault); at SD3.5-Medium's D 64 shapes at 1024² under CFG (the joint
+     attention over 154 + 4096 = 4250 tokens, ragged on every tile, and
+     MMDiT-X's self-attention over 4096; both dtypes, the bf16 faults as
+     SDXL's); the 4-bit matmul also at T5-XXL's three shapes over SD3's 77
+     tokens (groups 64 and 32, bf16 in its mma.sync form and float32, each
+     also on the device clock beside ``_weight_int4pack_mm``); flash's bound
      also counts its B·H·Lq·Lk exponentials at the special-function unit's
      rate, ``bound_by`` "exp" where they bound it; a flash case under 0.1 ms
      also records the kernel's and SDPA's device time a call,
@@ -47,7 +52,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      a level, a 16x16 latent), one SDXL UNet forward with its vector ``y``
      (SDXL's widths and 64-channel heads, one res block a level, depth 1,
      a 16x16 latent under CFG), CLIP-G's hidden state at clip skip 2 and its
-     pooled projection (full width, two layers) and a TAESD-XL decode, at
+     pooled projection (full width, two layers), a TAESD-XL decode, three
+     SD3.5-Medium MMDiT blocks (64-channel heads, qk RMS norms, MMDiT-X's
+     attn2, the pre-only last block; a 32x32 latent beside 154 context
+     tokens) and the SD3 conditioner (those CLIPs, a 4-bit T5 1536 wide), at
      kernel-shaped small widths, on the card (kernels, bf16 and float32)
      against the same weights on the CPU (plain versions, float32);
   5. the GGUF loader at full FLUX.1-dev width and cut depth: a DiT of one
@@ -107,6 +115,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      times its forwards plus 43 a prompt encode (CLIP-L and CLIP-G), D 40 /
      80 / 160 do not launch, D 512 only on the full-VAE request, and no
      attention runs in the plain version on the card.
+ 10d. SD3.5-Medium at full width (``create_pipeline(SDVersion.SD3,
+     params=...)``: the MMDiT-X, CLIP-L with its 768-wide projection, CLIP-G
+     and the SD3 VAE dense, T5-XXL packed 4-bit, drawn on the card with the
+     JAX bench's seeds, the MMDiT config fingerprinted from the weights):
+     path ``sd3`` in bf16 answers ``bench_sd35_medium``'s request (bench.py:
+     515: "a photograph of an astronaut riding a horse", negative "blurry",
+     1024², 28 dpm++2m steps, discrete, CFG 4.5, seed 42) once to warm up,
+     once timed and once with a fresh prompt; path ``sd3_f32``
+     (``create_pipeline(SDVersion.SD3)`` with no params and no dtype:
+     SD3-Medium in float32) answers it at 512² and 2 steps.  On both, flash
+     at D 64 launches 37 a forward (24 for SD3-Medium) times the forwards
+     plus 44 a prompt encode (CLIP-L and CLIP-G), D 512 once a decode, the
+     4-bit matmul 168 a prompt encode in the path's form (bf16: the mma.sync
+     form at T5's 77 rows, no wgmma or GEMV launch; float32: its float32
+     form), and on the card no attention runs in the plain version but T5's
+     24 a prompt encode (its relative-position bias, as in the JAX package).
  11. main path 5, the entry points, on files: a full FLUX.1-dev checkpoint
      set written by ``sdtpu_torch.tools.flux_files`` into a temporary
      directory under ``build/chip_smoke/`` (removed after; the free disk
@@ -134,7 +158,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      answers the bench's 1024² × 4-step lcm request to a PNG, read back in
      metadata mode (path ``sdxl_cli``), and the server, loaded from the
      same files, one A1111 request with ``sampler_name`` lcm (path
-     ``sdxl_server``), each with the launch checks of 10c.
+     ``sdxl_server``), each with the launch checks of 10c.  Then SD3.5 on
+     files: ``sdtpu_torch.tools.sd3_file`` writes the published SD3.5-Medium
+     layout (the MMDiT-X and the SD3 VAE in one float16 file, CLIP-L and
+     CLIP-G float16 files, T5-XXL as a q8_0 GGUF with its vocab);
+     ``cli.main -m ... --clip_l ... --clip_g ... --t5xxl ...`` answers the
+     bench's request to a PNG, read back in metadata mode (path ``sd3_cli``),
+     and the server, loaded from the same files, one A1111 request with
+     ``sampler_name`` dpm++2m (path ``sd3_server``), each with the launch
+     checks of 10d (T5 dequantized when staged, as the JAX CLI does: no
+     4-bit call).
 Every path of phases 5-11 sets the kernels' launch counts to 0 before it runs
 and reads them after: each kernel that path runs must have launched.  The
 4-bit kernel's TMA + wgmma form (M >= 128) and its weight-streaming GEMV
@@ -200,6 +233,8 @@ KERNEL_INFO = {
     "q4_matmul_wgmma": (Q4_SRC, "sdtpu/ops/quant.py:845"),
     "q4_matmul_gemv": (Q4_SRC, "sdtpu/ops/quant.py:845"),
     "q4_matmul_f32": (Q4_SRC, "sdtpu/ops/quant.py:845"),
+    # the bf16 mma.sync form (M 9-127): T5-XXL over SD3's 77 tokens
+    "q4_matmul_mma": (Q4_SRC, "sdtpu/ops/quant.py:845"),
     "gq_matmul": (GQ_SRC, "sdtpu/ops/quant.py:616"),
     "gq_matmul_ws": (GQ_SRC, "sdtpu/ops/quant.py:652"),
     "gq_zero_matmul": (GQ_SRC, "sdtpu/ops/quant.py:687"),
@@ -272,6 +307,21 @@ SDXL_FLASH_SHAPES = [
 ]
 FLASH_CASES += [(b, h, lq, lk, d, dt, bias) for dt in ("bf16", "f32")
                 for b, h, lq, lk, d, bias in SDXL_FLASH_SHAPES]
+# SD3.5-Medium at 1024² under CFG (B = 2, 24 heads of 64): the joint
+# attention over 154 context + 4096 image tokens (4250 = 33 x 128 + 26:
+# ragged on every query and key tile) and MMDiT-X's second self-attention
+# over the image's 4096, in bf16 and in float32.
+# The joint case draws its scores negative ("neg_scores", flash_inputs): over
+# 4250 random keys the 102 zero pad keys of the last tile, left unmasked,
+# would move an output by less than the bf16 limit.
+SD3_FLASH_SHAPES = [(2, 24, 4250, 4250, 64, "neg_scores"), (2, 24, 4096, 4096, 64, None)]
+FLASH_CASES += [(b, h, lq, lk, d, dt, bias) for dt in ("bf16", "f32")
+                for b, h, lq, lk, d, bias in SD3_FLASH_SHAPES]
+# The SD3 VAE's mid-block attention over the untiled 1024² decode's whole
+# 128 x 128 latent (the sd3 path's one D 512 call a decode): 256 Q tiles of
+# 64 rows, so the key split the D 512 launcher picks is not the 4096 case's.
+SD3_VAE_FLASH_SHAPE = (1, 1, 16384, 16384, 512)
+FLASH_CASES.append((*SD3_VAE_FLASH_SHAPE, "bf16", None))
 UNET_HEAD_DIMS = (40, 80, 160)
 # head dim -> attention calls of one full-width SD1.5 UNet forward: a self-
 # and a cross-attention in each of its 16 transformer blocks (two at each
@@ -287,6 +337,18 @@ SDXL_UNET_ATTENTION_CALLS = {64: 140}
 # batched call a layer): CLIP-L's 11 layers at clip skip 2, CLIP-G's 31 and
 # its top layer, run for the pooled output
 SDXL_CLIP_ATTENTION_CALLS = 11 + 31 + 1
+# head dim -> attention calls of one full-width SD3.5-Medium MMDiT forward:
+# the joint attention of each of its 24 blocks (154 context + the image's
+# tokens) and MMDiT-X's second self-attention in the first 13 (the image's
+# tokens), all at D 64
+SD3_MMDIT_ATTENTION_CALLS = {64: 24 + 13}
+# attention calls of one SD3 prompt encode (the first 77-token chunk):
+# CLIP-L's 11 layers at clip skip 2 and its top layer, run for the pooled
+# output, CLIP-G's 31 and its top one
+SD3_CLIP_ATTENTION_CALLS = 11 + 1 + 31 + 1
+# T5-XXL linears of one SD3 prompt encode (q, k, v, o, wi_0, wi_1, wo in each
+# of 24 blocks, over 77 tokens: the 4-bit matmul's M = 77 mma.sync form)
+SD3_T5_LINEARS = 7 * 24
 # (M, K, N, group) of the 4-bit kernel.  T5-XXL (M = 256 tokens per prompt:
 # q/k/v/o, wi_0/wi_1, wo) and one ragged case at groups 64, 32 and 16; the
 # q4_0 DiT at group 32 (a q4_0 GGUF's blocks): its MLP and linear2 widths at
@@ -303,15 +365,20 @@ Q4_DIT_SHAPES = [(4352, 3072, 12288), (4352, 12288, 3072), (4352, 15360, 3072),
                  (129, 3072, 12288), (1, 3072, 18432), (1, 3072, 9216), (1, 3072, 3072),
                  (1, 256, 3072), (1, 768, 3072), (2, 3072, 18432), (4, 3072, 18432),
                  (8, 3072, 18432), (9, 3072, 18432)]
+# T5-XXL over SD3's 77 tokens (q/k/v/o, wi_0/wi_1, wo): the bf16 mma.sync
+# form and the float32 form, at the synthesized T5's group 64 and at 32
+Q4_SD3_T5_SHAPES = [(77, 4096, 4096), (77, 4096, 10240), (77, 10240, 4096)]
+Q4_SD3_CASES = [(*s, g) for g in (64, 32) for s in Q4_SD3_T5_SHAPES]
 Q4_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES] + [(*s, 32) for s in Q4_DIT_SHAPES]
-            + [(s, 3072, n, g) for g in (16, 64) for s, n in ((4352, 12288), (1, 18432))])
+            + [(s, 3072, n, g) for g in (16, 64) for s, n in ((4352, 12288), (1, 18432))]
+            + Q4_SD3_CASES)
 # the float32 form (the default pipeline's T5-XXL): T5's shapes at groups 64,
 # 32 and 16, a 4096-wide T5 linear at M = 1, 9 and 128 (the bf16 forms'
 # rows: GEMV, mma.sync, wgmma), and a q4_0 DiT linear at 1024² kept at the
 # default dtype, at groups 32 and 16 (the 128-row tile)
 Q4_F32_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES]
                 + [(m, 4096, 4096, 64) for m in (1, 9, 128)]
-                + [(4352, 3072, 12288, g) for g in (32, 16)])
+                + [(4352, 3072, 12288, g) for g in (32, 16)] + Q4_SD3_CASES)
 # W8A16's float32 form (the default pipeline under SDTPU_QUANT_MODE=w8a16):
 # a modulation linear (M = 1), the bf16 forms' first mma.sync and wgmma rows,
 # the 1024² request's 4352 tokens, its long-K widths (MLP out, linear2: where
@@ -503,7 +570,24 @@ PATH_IDLE["sdxl_f32"] = (*QUANT_KERNELS, *UNET_FLASH, "flash_attention_d64", "fl
 PATH_KERNELS["sd15_f32"] = ("flash_attention", "flash_attention_f32", *UNET_FLASH)
 PATH_IDLE["sd15_f32"] = (*QUANT_KERNELS, "flash_attention_d64", "flash_attention_d512",
                          "q4_matmul_f32", "w8a16_matmul_f32", "gq_matmul_f32", "gq_zero_matmul_f32")
-F32_PATHS = {"sd15_f32": (("flash_attention", "flash_attention_f32"),),
+# SD3 (a dense MMDiT, CLIP-L and CLIP-G, a 4-bit T5-XXL): flash at D 64 (the
+# MMDiT and both CLIPs) and D 512 (the VAE), the 4-bit matmul in its mma.sync
+# form only (77 T5 rows); on the entry paths T5 is dequantized (no 4-bit
+# call), as the JAX CLI stages it
+Q4_BF16_FORMS = ("q4_matmul_wgmma", "q4_matmul_gemv", "q4_matmul_mma")
+OTHER_QUANT = tuple(k for k in QUANT_KERNELS if k != "q4_matmul")
+PATH_KERNELS["sd3"] = ("flash_attention", "flash_attention_d64", "flash_attention_d512", "q4_matmul",
+                       "q4_matmul_mma")
+PATH_IDLE["sd3"] = (*OTHER_QUANT, "q4_matmul_wgmma", "q4_matmul_gemv", *F32_FORMS, *UNET_FLASH)
+for _path in ("sd3_cli", "sd3_server"):
+    PATH_KERNELS[_path] = ("flash_attention", "flash_attention_d64", "flash_attention_d512")
+    PATH_IDLE[_path] = (*QUANT_KERNELS, *Q4_BF16_FORMS, *F32_FORMS, *UNET_FLASH)
+PATH_KERNELS["sd3_f32"] = ("flash_attention", "flash_attention_f32", "q4_matmul", "q4_matmul_f32")
+PATH_IDLE["sd3_f32"] = (*OTHER_QUANT, *Q4_BF16_FORMS, *UNET_FLASH, "flash_attention_d64",
+                        "flash_attention_d512", "w8a16_matmul_f32", "gq_matmul_f32",
+                        "gq_zero_matmul_f32")
+F32_PATHS = {"sd3_f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
+             "sd15_f32": (("flash_attention", "flash_attention_f32"),),
              "sdxl_f32": (("flash_attention", "flash_attention_f32"),),
              "f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
              "f32_w8a16": (("flash_attention", "flash_attention_f32"),
@@ -731,7 +815,7 @@ def _yardstick(call, want):
 
 
 def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, bnd, library=None,
-             library_note=None, faults=None, **extra):
+             library_note=None, faults=None, device_clock=False, **extra):
     """Record one kernel case (``shape`` [M, K, N]): max |error| against the
     plain version, within ``tol_rel`` of the largest |output|, both times,
     at the GEMVs' M (at most ``quant.GQ_GEMV_MAX_M`` rows, where the
@@ -739,7 +823,9 @@ def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, bnd, libra
     device time (``device_ms``: one kernel a call), the bound ``bnd`` and,
     where ``library`` is a one-call equivalent, its time (else null and
     ``library_note`` says why); each of ``faults`` (max |error| of an
-    emulated fault) must exceed the limit."""
+    emulated fault) must exceed the limit.  With ``device_clock``, the case
+    also records both sides' device time a call (``device_ms``,
+    ``library_device_ms``: a call's kernels summed)."""
     import torch
 
     from sdtpu_torch.ops import quant
@@ -750,6 +836,10 @@ def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, bnd, libra
     ms = time_ms(fn, it)
     if shape[0] <= quant.GQ_GEMV_MAX_M:
         extra["device_ms"] = device_ms(fn, it)
+    elif device_clock:
+        extra["device_ms"] = device_ms_sum(fn, it)
+        if library is not None:
+            extra["library_device_ms"] = device_ms_sum(library, it)
     plain_ms = time_ms(plain, max(3, it // 4))
     library_ms = time_ms(library, it) if library is not None else None
     note = {} if library_note is None else {"library_note": library_note}
@@ -964,6 +1054,26 @@ def split_x_matmul(x, q, scale, zero=None, group=None):
     return master if group else master * scale
 
 
+def flash_inputs(g, b: int, h: int, lq: int, lk: int, d: int, dtype, bias):
+    """A flash case's q, k, v ([B, H, L, D], standard normal) and mask on the
+    card.  bias: None; "causal"; "random" (a dense [Lq, Lk] bias); or
+    "neg_scores": no mask, q drawn around +1 and k around -1, so every score
+    lies near -sqrt(D) (std sqrt(3)) and a zero pad key, scoring 0, would
+    outweigh the real ones where the kernel left it unmasked."""
+    import torch
+
+    q, k, v = (torch.randn((b, h, l, d), generator=g, device=DEVICE, dtype=dtype)
+               for l in (lq, lk, lk))
+    mask = None
+    if bias == "causal":
+        mask = torch.full((lq, lk), -1e30, device=DEVICE).triu(1)
+    elif bias == "random":
+        mask = torch.randn((lq, lk), generator=g, device=DEVICE)
+    elif bias == "neg_scores":
+        q, k = q + 1, k - 1
+    return q, k, v, mask
+
+
 def check_flash(results):
     import torch
     import torch.nn.functional as F
@@ -975,13 +1085,7 @@ def check_flash(results):
     g = torch.Generator(device=DEVICE).manual_seed(2)
     for b, h, lq, lk, d, dt, bias in FLASH_CASES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-        q, k, v = (torch.randn((b, h, l, d), generator=g, device=DEVICE, dtype=dtype)
-                   for l in (lq, lk, lk))
-        mask = None
-        if bias == "causal":
-            mask = torch.full((lq, lk), -1e30, device=DEVICE).triu(1)
-        elif bias == "random":
-            mask = torch.randn((lq, lk), generator=g, device=DEVICE)
+        q, k, v, mask = flash_inputs(g, b, h, lq, lk, d, dtype, bias)
         got = fa.flash_attention(q, k, v, mask=mask)
         want = fa.plain_attention(q, k, v, mask=mask)
         torch.cuda.synchronize()
@@ -1080,7 +1184,7 @@ def check_q4(results):
                  quant_bound(m, k, n, nbytes(x, qt.packed, qt.scale, got), dt),
                  library=library, library_note=note, faults=faults, **f64, group=group, dtype=dt,
                  form=Q4_FORMS[_build.query("sdtpu_q4_form", _build.DTYPE_CODES[dtype], m)],
-                 tile_rows=_tile_rows(dt, m, n))
+                 tile_rows=_tile_rows(dt, m, n), device_clock=(m, k, n) in Q4_SD3_T5_SHAPES)
         del x, qt, got, want, library
 
 
@@ -1213,12 +1317,15 @@ def reference_check():
     card in bf16 (held at REF_REL_TOL) and in float32 (REF_F32_REL_TOL)."""
     import torch
 
+    from sdtpu_torch.conditioning.conditioner import SD3Conditioner
     from sdtpu_torch.models import clip as clip_mod
     from sdtpu_torch.models import flux as flux_mod
+    from sdtpu_torch.models import mmdit as mmdit_mod
     from sdtpu_torch.models import t5 as t5_mod
     from sdtpu_torch.models import tae as tae_mod
     from sdtpu_torch.models import unet as unet_mod
     from sdtpu_torch.models import vae as vae_mod
+    from sdtpu_torch.tokenizers.clip import CLIPTokenizer
     from sdtpu_torch.weights import synthesize
 
     dit_cfg = flux_mod.FluxConfig(hidden_size=256, num_heads=2, depth=1, depth_single=1,
@@ -1237,12 +1344,22 @@ def reference_check():
                                    transformer_depth=(0, 1, 1))
     clip_g_cfg = dataclasses.replace(clip_mod.CLIP_G_CONFIG, num_layers=2)
     tae_cfg = tae_mod.TAESD_XL_CONFIG
+    # SD3.5-Medium's blocks cut to three, 64-channel heads (3 of them): qk
+    # RMS norms, MMDiT-X's attn2 in the first two, the pre-only last block;
+    # a 32x32 latent beside 154 context tokens (410: ragged on the tiles);
+    # and the SD3 conditioner on the CLIPs above with a 4-bit T5 1536 wide
+    # (CLIP-L ++ CLIP-G is 1408)
+    mmdit_cfg = dataclasses.replace(mmdit_mod.SD35_MEDIUM_CONFIG, depth=3, num_x_self_attn_layers=2,
+                                    pos_embed_max_size=32, context_size=512, adm_in_channels=256)
+    sd3_t5_cfg = t5_mod.T5Config(d_model=1536, d_kv=64, d_ff=1024, num_layers=1, num_heads=8)
     mods = {
         "dit": (flux_mod.param_specs(dit_cfg), "q8_0"), "clip": (clip_mod.param_specs(clip_cfg), None),
         "t5": (t5_mod.param_specs(t5_cfg), "q4_0"), "vae": (vae_mod.param_specs(vae_cfg), None),
         "unet": (unet_mod.param_specs(unet_cfg), None),
         "sdxl_unet": (unet_mod.param_specs(sdxl_cfg), None),
         "clip_g": (clip_mod.param_specs(clip_g_cfg), None), "tae": (tae_mod.param_specs(tae_cfg), None),
+        "mmdit": (mmdit_mod.param_specs(mmdit_cfg), None),
+        "sd3_t5": (t5_mod.param_specs(sd3_t5_cfg), "q4_0"),
     }
     gpu = {n: synthesize(s, quant=q, seed=i, device=DEVICE, dtype=torch.bfloat16)
            for i, (n, (s, q)) in enumerate(mods.items())}
@@ -1261,6 +1378,10 @@ def reference_check():
     ctx_xl = torch.randn((2, 77, sdxl_cfg.context_dim), generator=gen)
     y_xl = torch.randn((2, sdxl_cfg.adm_in_channels), generator=gen)
     z_tae = torch.randn((1, 16, 16, 4), generator=gen)
+    x_sd3 = torch.randn((2, 32, 32, 16), generator=gen)
+    t_sd3 = torch.tensor([1000.0, 411.5])
+    ctx_sd3 = torch.randn((2, 154, mmdit_cfg.context_size), generator=gen)
+    y_sd3 = torch.randn((2, mmdit_cfg.adm_in_channels), generator=gen)
 
     def run(p, dev, dtype):
         with torch.inference_mode():
@@ -1277,9 +1398,15 @@ def reference_check():
             h_g, pooled_g = clip_mod.clip_text_forward(p["clip_g"], ids.to(dev), clip_g_cfg,
                                                        clip_skip=2, return_pooled=True)
             tae_img = tae_mod.tae_decode(p["tae"], z_tae.to(dev, dtype), tae_cfg)
+            vel_sd3 = mmdit_mod.mmdit_forward(p["mmdit"], x_sd3.to(dev, dtype), t_sd3.to(dev),
+                                              ctx_sd3.to(dev, dtype), y_sd3.to(dev), cfg=mmdit_cfg)
+            cond = SD3Conditioner(CLIPTokenizer(), None, p["clip"], clip_cfg, p["clip_g"], clip_g_cfg,
+                                  p["sd3_t5"], sd3_t5_cfg, device=dev).get_learned_condition(
+                                      "a photograph of an astronaut riding a horse")
         return {"clip_pooled": pooled, "t5": ctx, "flux_forward": vel, "vae_decode": img,
                 "unet_forward": eps, "sdxl_unet_forward": eps_xl, "clip_g_hidden": h_g,
-                "clip_g_pooled": pooled_g, "tae_decode": tae_img}
+                "clip_g_pooled": pooled_g, "tae_decode": tae_img, "mmdit_forward": vel_sd3,
+                "sd3_cond_crossattn": cond.c_crossattn, "sd3_cond_vector": cond.c_vector}
 
     want = run(cpu, "cpu", torch.float32)
     out = {}
@@ -1789,11 +1916,18 @@ SD15_SERVER_BODY = {"prompt": SD15_REQUEST["prompt"], "width": 512, "height": 51
                     "cfg_scale": 7.0, "seed": 42}
 
 
-def sd15_entry_check(wrappers, card: str) -> dict:
-    """Phase 11, SD1.5: write the full-width single-file checkpoint with
-    ``tools/sd15_file.py``, answer one request from it through
-    ``cli.main -m`` and one through the server's A1111 route, each in its
-    own launch window."""
+def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, cli_argv: list,
+                      server_body: dict, check_launches, sampler: str, size: tuple, load_check,
+                      request: dict = None):
+    """Phase 11 for one family: ``write_files(tmp)`` writes its full-width
+    files into a fresh directory under the build directory and returns their
+    report; ``file_args(files)`` names them on the CLI and the server. One
+    request through ``cli.main`` (``load_check(cli_report)`` raises where it
+    loaded the wrong model; with ``request`` the PNG is read back in metadata
+    mode and its parameters held against the request's) and one through the
+    server's A1111 route, each in its own launch window, held by
+    ``check_launches(path, counts, plain)`` and ``_check_png``."""
+    import io
     import queue
     import tempfile
     import threading
@@ -1801,33 +1935,41 @@ def sd15_entry_check(wrappers, card: str) -> dict:
     import torch
 
     from sdtpu_torch import cli, server
-    from sdtpu_torch.tools.sd15_file import write_sd15_file
+    from sdtpu_torch.config import GenerationParams
+    from sdtpu_torch.utils.image import build_parameters_text, parse_parameters_text
 
     root = ROOT / "build" / "chip_smoke"
     root.mkdir(parents=True, exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="sd15_file_", dir=root))
+    tmp = Path(tempfile.mkdtemp(prefix=f"{label}_files_", dir=root))
     report = {"card": card}
     launches = {}
     try:
-        report["file"] = write_sd15_file(tmp / "sd15.safetensors", device=DEVICE)
-        print(f"entry sd15 file on {card}: " + json.dumps(report["file"]), flush=True)
-        path = report["file"]["path"]
-        png, cli_rep = tmp / "sd15.png", {}
+        report["files"] = write_files(tmp)
+        print(f"entry {label} files on {card}: " + json.dumps(report["files"]), flush=True)
+        args = file_args(report["files"])
+        png, cli_rep = tmp / f"{label}.png", {}
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         with plain_attention_on_card() as plain:
-            rc, launches["sd15_cli"] = _windowed(wrappers, "sd15_cli", lambda: cli.main(
-                ["-m", path] + SD15_CLI_ARGV + ["-o", str(png)], report=cli_rep))
+            rc, launches[f"{label}_cli"] = _windowed(wrappers, f"{label}_cli", lambda: cli.main(
+                args + cli_argv + ["-o", str(png)], report=cli_rep))
         wall_s = time.time() - t0
         if rc != 0:
-            raise RuntimeError(f"sdtpu_torch.cli.main -m exited {rc}")
-        if cli_rep["load"]["version"] != "sd1":
-            raise RuntimeError(f"the CLI loaded a {cli_rep['load']['version']} model, not sd1")
+            raise RuntimeError(f"sdtpu_torch.cli.main on the {label} files exited {rc}")
+        load_check(cli_rep)
+        if request is not None:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["metadata", "--image", str(png), "--metadata-format", "json"])
+            want = build_parameters_text(GenerationParams(**request))
+            meta = json.loads(buf.getvalue())
+            if rc != 0 or meta.get("parameters") != parse_parameters_text(want):
+                raise RuntimeError(f"metadata mode read {meta.get('parameters')}, not {want!r}")
         report["cli"] = {"load": cli_rep["load"], "wall_s": wall_s, "timings_s": cli_rep["timings"],
                          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-                         **_check_unet_flash("sd15_cli", launches["sd15_cli"], 20, plain),
-                         **_check_png(png.read_bytes(), 512, 512, "euler_a")}
-        print("entry sd15 cli " + json.dumps(report["cli"]), flush=True)
+                         **check_launches(f"{label}_cli", launches[f"{label}_cli"], plain),
+                         **_check_png(png.read_bytes(), *size, sampler)}
+        print(f"entry {label} cli " + json.dumps(report["cli"]), flush=True)
         del cli_rep
         gc.collect()
         torch.cuda.empty_cache()
@@ -1836,7 +1978,7 @@ def sd15_entry_check(wrappers, card: str) -> dict:
 
         def run():
             try:
-                server.main(["-m", path, "--port", "0"], report=srv_rep, ready=box.put)
+                server.main(args + ["--port", "0"], report=srv_rep, ready=box.put)
             except BaseException as e:  # handed to the waiting thread, then raised here
                 box.put(e)
                 raise
@@ -1852,25 +1994,41 @@ def sd15_entry_check(wrappers, card: str) -> dict:
             report["server"] = {"load": srv_rep["load"], "start_s": time.time() - t0}
             torch.cuda.reset_peak_memory_stats()
             with plain_attention_on_card() as plain:
-                (code, resp), launches["sd15_server"] = _windowed(
-                    wrappers, "sd15_server", lambda: _http(base, "/sdapi/v1/txt2img", SD15_SERVER_BODY))
+                (code, resp), launches[f"{label}_server"] = _windowed(
+                    wrappers, f"{label}_server", lambda: _http(base, "/sdapi/v1/txt2img", server_body))
             if code != 200:
                 raise RuntimeError(f"/sdapi/v1/txt2img: {code} {resp}")
             report["server"].update(
                 timings_s=dict(httpd.manager.pipeline.last_timings),
                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
-                **_check_unet_flash("sd15_server", launches["sd15_server"], 20, plain),
-                **_check_png(base64.b64decode(resp["images"][0]), 512, 512, "euler_a"))
+                **check_launches(f"{label}_server", launches[f"{label}_server"], plain),
+                **_check_png(base64.b64decode(resp["images"][0]), *size, sampler))
         finally:
             httpd.shutdown()
             thread.join(timeout=300)
-        print("entry sd15 server " + json.dumps(report["server"]), flush=True)
+        print(f"entry {label} server " + json.dumps(report["server"]), flush=True)
         del httpd, srv_rep
         gc.collect()
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return report, launches
+
+
+def sd15_entry_check(wrappers, card: str) -> dict:
+    """Phase 11, SD1.5: the full-width single-file checkpoint of
+    ``tools/sd15_file.py`` through ``cli.main -m`` and the A1111 route."""
+    from sdtpu_torch.tools.sd15_file import write_sd15_file
+
+    def load_check(rep):
+        if rep["load"]["version"] != "sd1":
+            raise RuntimeError(f"the CLI loaded a {rep['load']['version']} model, not sd1")
+
+    return _file_entry_check(
+        wrappers, card, "sd15", lambda tmp: write_sd15_file(tmp / "sd15.safetensors", device=DEVICE),
+        lambda files: ["-m", files["path"]], SD15_CLI_ARGV, SD15_SERVER_BODY,
+        lambda path, counts, plain: _check_unet_flash(path, counts, 20, plain),
+        "euler_a", (512, 512), load_check)
 
 
 # SDXL: the JAX bench's request (``bench_sdxl_lcm_taesd``, bench.py:441),
@@ -2022,101 +2180,184 @@ SDXL_SERVER_BODY = {"prompt": SDXL_REQUEST["prompt"], "width": 1024, "height": 1
 
 
 def sdxl_entry_check(wrappers, card: str) -> dict:
-    """Phase 11, SDXL: write the full-width SDXL and TAESD-XL files with
-    ``tools/sdxl_file.py``, answer one request from them through ``cli.main
-    -m ... --taesd ...`` (its PNG read back in metadata mode) and one through
-    the server's A1111 route, each in its own launch window."""
-    import io
-    import queue
-    import tempfile
-    import threading
-
-    import torch
-
-    from sdtpu_torch import cli, server
-    from sdtpu_torch.config import GenerationParams
+    """Phase 11, SDXL: the full-width SDXL and TAESD-XL files of
+    ``tools/sdxl_file.py`` through ``cli.main -m ... --taesd ...`` (its PNG
+    read back in metadata mode) and the A1111 route."""
     from sdtpu_torch.tools.sdxl_file import write_sdxl_files
-    from sdtpu_torch.utils.image import build_parameters_text, parse_parameters_text
 
-    root = ROOT / "build" / "chip_smoke"
-    root.mkdir(parents=True, exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="sdxl_file_", dir=root))
-    report = {"card": card}
-    launches = {}
-    forwards, encodes = _forwards_and_encodes([SDXL_REQUEST])
-    size = (SDXL_REQUEST["width"], SDXL_REQUEST["height"])
-    try:
-        report["files"] = write_sdxl_files(tmp, device=DEVICE)
-        print(f"entry sdxl files on {card}: " + json.dumps(report["files"]), flush=True)
-        paths = report["files"]["paths"]
-        file_args = ["-m", paths["model"], "--taesd", paths["taesd"]]
-        png, cli_rep = tmp / "sdxl.png", {}
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        with plain_attention_on_card() as plain:
-            rc, launches["sdxl_cli"] = _windowed(wrappers, "sdxl_cli", lambda: cli.main(
-                file_args + SDXL_CLI_ARGV + ["-o", str(png)], report=cli_rep))
-        wall_s = time.time() - t0
-        if rc != 0:
-            raise RuntimeError(f"sdtpu_torch.cli.main -m ... --taesd ... exited {rc}")
-        load = cli_rep["load"]
+    def load_check(rep):
+        load = rep["load"]
         if load["version"] != "sdxl" or not load["tae"]:
             raise RuntimeError(f"the CLI loaded {load['version']} (TAE {load['tae']}), not sdxl + TAE")
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(["metadata", "--image", str(png), "--metadata-format", "json"])
-        want = build_parameters_text(GenerationParams(**SDXL_REQUEST))
-        meta = json.loads(buf.getvalue())
-        if rc != 0 or meta.get("parameters") != parse_parameters_text(want):
-            raise RuntimeError(f"metadata mode read {meta.get('parameters')}, not {want!r}")
-        report["cli"] = {"load": load, "wall_s": wall_s, "timings_s": cli_rep["timings"],
-                         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-                         **_check_sdxl_flash("sdxl_cli", launches["sdxl_cli"], forwards, encodes, plain),
-                         **_check_png(png.read_bytes(), *size, "lcm")}
-        print("entry sdxl cli " + json.dumps(report["cli"]), flush=True)
-        del cli_rep
+
+    counts_of = _forwards_and_encodes([SDXL_REQUEST])
+    return _file_entry_check(
+        wrappers, card, "sdxl", lambda tmp: write_sdxl_files(tmp, device=DEVICE),
+        lambda files: ["-m", files["paths"]["model"], "--taesd", files["paths"]["taesd"]],
+        SDXL_CLI_ARGV, SDXL_SERVER_BODY,
+        lambda path, counts, plain: _check_sdxl_flash(path, counts, *counts_of, plain),
+        "lcm", (SDXL_REQUEST["width"], SDXL_REQUEST["height"]), load_check, request=SDXL_REQUEST)
+
+
+# SD3.5-Medium: the JAX bench's request (``bench_sd35_medium``, bench.py:515:
+# 1024², 28 dpm++2m steps, discrete, CFG 4.5 with the negative prompt
+# "blurry", seed 42), answered once to warm up, once timed and once with a
+# fresh prompt (CLIP-L, CLIP-G and the 4-bit T5 encode inside the window, as
+# the bench's fresh-prompt leg).  The default dtype (float32) answers it at
+# 512² and 2 steps.
+SD3_REQUEST = dict(prompt="a photograph of an astronaut riding a horse", negative_prompt="blurry",
+                   width=1024, height=1024, sample_steps=28, cfg_scale=4.5, seed=42,
+                   sample_method="dpm++2m", schedule="discrete")
+SD3_REQUESTS = [SD3_REQUEST, SD3_REQUEST, dict(SD3_REQUEST, prompt=SD3_REQUEST["prompt"] + ", take 0")]
+SD3_F32_REQUESTS = [dict(SD3_REQUEST, width=512, height=512, sample_steps=2)]
+# the JAX bench's seeds (bench.py:529-543): the MMDiT 1, CLIP-L 2, CLIP-G 3,
+# T5-XXL 4, the VAE 5
+SD3_BENCH_SEEDS = {"diffusion": 1, "clip_l": 2, "clip_g": 3, "t5": 4, "vae": 5}
+# T5's attentions a prompt encode: its relative-position bias keeps them on
+# the plain path, as the JAX package runs them (``sdtpu/models/t5.py``)
+SD3_T5_LAYERS = 24
+
+
+def _check_sd3_launches(path: str, counts: dict, forwards: int, encodes: int, decodes: int,
+                        plain: dict, mmdit_calls: int, f32: bool = False, t5_q4: bool = True) -> dict:
+    """Flash at D 64 (bf16, or float32) launched exactly ``mmdit_calls`` a
+    MMDiT forward times the forwards plus ``SD3_CLIP_ATTENTION_CALLS`` a
+    prompt encode; the VAE's D 512 once a decode; the 4-bit matmul
+    ``SD3_T5_LINEARS`` times a prompt encode, all in the path's form (bf16
+    ``mma.sync`` at 77 rows, or float32), none where T5 was dequantized
+    (``t5_q4`` False: the entry points); and on the card no attention ran in
+    the plain version but T5's ``SD3_T5_LAYERS`` a prompt encode."""
+    d64 = mmdit_calls * forwards + SD3_CLIP_ATTENTION_CALLS * encodes
+    q4 = SD3_T5_LINEARS * encodes if t5_q4 else 0
+    if f32:  # every flash launch float32, the VAE's D 512 among them
+        got = {"flash_f32": counts["flash_attention_f32"],
+               "flash_bf16": counts["flash_attention"] - counts["flash_attention_f32"]}
+        want = {"flash_f32": d64 + decodes, "flash_bf16": 0}
+    else:
+        got = {"flash_d64": counts["flash_attention_d64"], "flash_d512": counts["flash_attention_d512"],
+               "flash_other": counts["flash_attention"] - counts["flash_attention_d64"]
+               - counts["flash_attention_d512"]}
+        want = {"flash_d64": d64, "flash_d512": decodes, "flash_other": 0}
+    got.update(q4_t5=counts["q4_matmul_f32" if f32 else "q4_matmul_mma"], q4_all=counts["q4_matmul"],
+               plain_attention_on_card_besides_t5=plain["calls"] - SD3_T5_LAYERS * encodes)
+    want.update(q4_t5=q4, q4_all=q4, plain_attention_on_card_besides_t5=0)
+    if got != want:
+        raise RuntimeError(f"path {path}: launches {got}, not {want} ({forwards} MMDiT forwards of "
+                           f"{mmdit_calls} attentions, {encodes} prompt encodes, {decodes} decodes)")
+    return {**got, "mmdit_forwards": forwards, "prompt_encodes": encodes,
+            "t5_plain_attention": plain["calls"]}
+
+
+def build_sd3_pipeline(card: str, default_dtype: bool = False):
+    """A full-width SD3.5-Medium pipeline (the MMDiT-X, CLIP-L with its
+    768-wide projection, CLIP-G and the SD3 VAE dense, T5-XXL 4-bit), random
+    weights drawn on the card with the JAX bench's seeds and passed as
+    ``params``, so the MMDiT config is fingerprinted: ``create_pipeline(
+    SDVersion.SD3, params=..., dtype=torch.bfloat16)``; or with
+    ``default_dtype`` no params and no dtype argument (float32, the
+    factory's own SD3-Medium draw; held here)."""
+    import torch
+
+    from sdtpu_torch.config import SDVersion
+    from sdtpu_torch.factory import create_pipeline, sd3_configs
+    from sdtpu_torch.models import clip as clip_mod
+    from sdtpu_torch.models import mmdit as mmdit_mod
+    from sdtpu_torch.models import t5 as t5_mod
+    from sdtpu_torch.models import vae as vae_mod
+    from sdtpu_torch.weights import synthesize, weight_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    if default_dtype:
+        pipe = create_pipeline(SDVersion.SD3, device=DEVICE, seed=0)
+        if pipe.compute_dtype != torch.float32:
+            raise RuntimeError(f"create_pipeline's default dtype is {pipe.compute_dtype}, not float32")
+        label = "sd3_medium dense"
+    else:
+        _, clip_l_cfg, clip_g_cfg, t5_cfg, vae_cfg = sd3_configs(small=False)
+        specs = {"diffusion": mmdit_mod.param_specs(mmdit_mod.SD35_MEDIUM_CONFIG),
+                 "clip_l": clip_mod.param_specs(clip_l_cfg), "clip_g": clip_mod.param_specs(clip_g_cfg),
+                 "t5": t5_mod.param_specs(t5_cfg), "vae": vae_mod.param_specs(vae_cfg)}
+        params = {m: synthesize(sp, quant="q4_0" if m == "t5" else None, seed=SD3_BENCH_SEEDS[m],
+                                device=DEVICE, dtype=torch.bfloat16) for m, sp in specs.items()}
+        cfg = mmdit_mod.detect_mmdit_config(params["diffusion"].keys(), {
+            k: tuple(v.shape) for k, v in params["diffusion"].items()})
+        if cfg != mmdit_mod.SD35_MEDIUM_CONFIG:
+            raise RuntimeError(f"the MMDiT fingerprints as {cfg}, not SD3.5-Medium's")
+        pipe = create_pipeline(SDVersion.SD3, params=params, dtype=torch.bfloat16, device=DEVICE)
+        del params
+        label = "sd35_medium dense"
+    c = pipe.conditioner
+    wb = {"diffusion": weight_bytes(pipe.diffusion_params), "clip_l": weight_bytes(c.pl),
+          "clip_g": weight_bytes(c.pg), "t5": weight_bytes(c.pt), "vae": weight_bytes(pipe.vae_params)}
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    print(f"pipeline: full-width {label}, T5-XXL q4_0, {pipe.compute_dtype}, built in {build_s:.2f} s "
+          f"on {card}; weight bytes " + json.dumps(wb), flush=True)
+    return pipe, {"diffusion": label, "dtype": str(pipe.compute_dtype), "build_s": build_s,
+                  "weight_bytes": wb}
+
+
+def sd3_paths(wrappers, card: str, launches: dict, profile=None):
+    """The SD3 paths: ``sd3`` (bf16 SD3.5-Medium, SD3_REQUESTS) and
+    ``sd3_f32`` (the default dtype, SD3-Medium, SD3_F32_REQUESTS), each in
+    its launch window."""
+    import torch
+
+    pipes, reports, prof = [], [], {}
+    for label, f32, requests, calls in (("sd3", False, SD3_REQUESTS, SD3_MMDIT_ATTENTION_CALLS[64]),
+                                        ("sd3_f32", True, SD3_F32_REQUESTS, 24)):
+        pipe, info = build_sd3_pipeline(card, default_dtype=f32)
+        pipes.append(info)
+        with plain_attention_on_card() as plain:
+            rep, launches[label] = _windowed(wrappers, label,
+                                             lambda: answer(pipe, requests, card, label))
+        info.update(_check_sd3_launches(label, launches[label], *_forwards_and_encodes(requests),
+                                        len(requests), plain, calls, f32=f32))
+        reports += rep
+        if profile and not f32:
+            prof[label] = profile_request(pipe, SD3_REQUEST, profile, label, card)
+        del pipe
         gc.collect()
         torch.cuda.empty_cache()
+    return pipes, reports, prof
 
-        box, srv_rep = queue.Queue(), {}
 
-        def run():
-            try:
-                server.main(file_args + ["--port", "0"], report=srv_rep, ready=box.put)
-            except BaseException as e:  # handed to the waiting thread, then raised here
-                box.put(e)
-                raise
+# Phase 11, SD3.5-Medium on files: the bench's request through the CLI and
+# the A1111 route (``sampler_name`` dpm++2m; A1111's display name "DPM++ 2M"
+# maps to ``dpm++_2m`` in both packages' servers, a method neither runs)
+SD3_CLI_ARGV = ["-p", SD3_REQUEST["prompt"], "-n", "blurry", "-W", "1024", "-H", "1024", "--steps",
+                "28", "--sampling-method", "dpm++2m", "--cfg-scale", "4.5", "-s", "42"]
+SD3_SERVER_BODY = {"prompt": SD3_REQUEST["prompt"], "negative_prompt": "blurry", "width": 1024,
+                   "height": 1024, "steps": 28, "cfg_scale": 4.5, "seed": 42, "sampler_name": "dpm++2m"}
 
-        thread = threading.Thread(target=run, daemon=True)
-        t0 = time.time()
-        thread.start()
-        httpd = box.get(timeout=900)
-        if isinstance(httpd, BaseException):
-            raise RuntimeError("the server did not start") from httpd
-        try:
-            base = f"http://127.0.0.1:{httpd.server_address[1]}"
-            report["server"] = {"load": srv_rep["load"], "start_s": time.time() - t0}
-            torch.cuda.reset_peak_memory_stats()
-            with plain_attention_on_card() as plain:
-                (code, resp), launches["sdxl_server"] = _windowed(
-                    wrappers, "sdxl_server", lambda: _http(base, "/sdapi/v1/txt2img", SDXL_SERVER_BODY))
-            if code != 200:
-                raise RuntimeError(f"/sdapi/v1/txt2img: {code} {resp}")
-            report["server"].update(
-                timings_s=dict(httpd.manager.pipeline.last_timings),
-                peak_mem_bytes=torch.cuda.max_memory_allocated(),
-                **_check_sdxl_flash("sdxl_server", launches["sdxl_server"], forwards, encodes, plain),
-                **_check_png(base64.b64decode(resp["images"][0]), *size, "lcm"))
-        finally:
-            httpd.shutdown()
-            thread.join(timeout=300)
-        print("entry sdxl server " + json.dumps(report["server"]), flush=True)
-        del httpd, srv_rep
-        gc.collect()
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return report, launches
+
+def sd3_entry_check(wrappers, card: str) -> dict:
+    """Phase 11, SD3: the full-width SD3.5-Medium set of
+    ``tools/sd3_file.py`` through ``cli.main -m ... --clip_l ... --clip_g ...
+    --t5xxl ...`` (its PNG read back in metadata mode) and the A1111 route."""
+    from sdtpu_torch.tools.sd3_file import write_sd3_files
+
+    def load_check(rep):
+        load, ids = rep["load"], rep["t5_ids"]
+        if load["version"] != "sd3" or not str(load["t5_tokenizer"]).startswith("gguf:"):
+            raise RuntimeError(f"the CLI loaded {load['version']} (T5 tokenizer "
+                               f"{load['t5_tokenizer']}), not sd3 with the GGUF's vocab")
+        if sum(1 for i in ids if i) < 2:  # more than the end-of-sequence id
+            raise RuntimeError(f"T5 was fed no token of the prompt: {ids}")
+
+    def file_args(files):
+        paths = files["paths"]
+        return ["-m", paths["model"], "--clip_l", paths["clip_l"], "--clip_g", paths["clip_g"],
+                "--t5xxl", paths["t5xxl"]]
+
+    counts_of = (*_forwards_and_encodes([SD3_REQUEST]), 1)
+    return _file_entry_check(
+        wrappers, card, "sd3", lambda tmp: write_sd3_files(tmp, device=DEVICE), file_args,
+        SD3_CLI_ARGV, SD3_SERVER_BODY,
+        lambda path, counts, plain: _check_sd3_launches(path, counts, *counts_of, plain,
+                                                        SD3_MMDIT_ATTENTION_CALLS[64], t5_q4=False),
+        "dpm++2m", (SD3_REQUEST["width"], SD3_REQUEST["height"]), load_check, request=SD3_REQUEST)
 
 
 def gguf_block_dit() -> dict:
@@ -2259,10 +2500,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measured number to this JSON file")
     ap.add_argument("--profile", metavar="TABLE",
-                    help="after each main path, profile one more request (1024² for FLUX and "
-                         "SDXL, 512² for SD1.5) and write the profiler's tables to TABLE with "
-                         ".int8 / .w8a16 / .q8_0_gguf / .q4_0 / .f32 / .cli / .sd15 / .sdxl before "
-                         "its suffix")
+                    help="after each main path, profile one more request (1024² for FLUX, "
+                         "SDXL and SD3, 512² for SD1.5) and write the profiler's tables to TABLE "
+                         "with .int8 / .w8a16 / .q8_0_gguf / .q4_0 / .f32 / .cli / .sd15 / .sdxl / "
+                         ".sd3 before its suffix")
     args = ap.parse_args()
 
     import torch
@@ -2321,6 +2562,7 @@ def main() -> int:
                 "w8a8_matmul_mma": (quant.quant_matmul_w8a8, "launches_mma"),
                 "q4_matmul_wgmma": (quant.q4_matmul, "launches_wgmma"),
                 "q4_matmul_gemv": (quant.q4_matmul, "launches_gemv"),
+                "q4_matmul_mma": (quant.q4_matmul, "launches_mma"),
                 "gq_matmul_gemv": (quant.gq_matmul, "launches_gemv"),
                 "gq_matmul_mma": (quant.gq_matmul, "launches_mma"),
                 "w8a16_matmul_gemv": (quant.w8a16_matmul, "launches_gemv"),
@@ -2387,9 +2629,7 @@ def main() -> int:
                                       lambda: answer(pipe, GGUF_REQUESTS, card, "q4_0"))
     reports += rep
     q4c = launches["q4_0"]
-    _check_m1_linears("q4_0", q4c["q4_matmul_gemv"],
-                      q4c["q4_matmul"] - q4c["q4_matmul_wgmma"] - q4c["q4_matmul_gemv"],
-                      GGUF_REQUESTS)
+    _check_m1_linears("q4_0", q4c["q4_matmul_gemv"], q4c["q4_matmul_mma"], GGUF_REQUESTS)
     if args.profile:
         prof["q4_0"] = profile_request(pipe, GGUF_REQUESTS[-1], args.profile, "q4_0", card)
     del pipe
@@ -2427,6 +2667,10 @@ def main() -> int:
     pipes += sdxl_pipes
     reports += rep
     prof.update(sdxl_prof)
+    sd3_pipes, rep, sd3_prof = sd3_paths(wrappers, card, launches, args.profile)
+    pipes += sd3_pipes
+    reports += rep
+    prof.update(sd3_prof)
 
     entry, launches["cli"], launches["server"] = entry_points_check(wrappers, card, args.profile)
     if "profile" in entry:
@@ -2435,6 +2679,8 @@ def main() -> int:
     launches.update(sd15_launches)
     entry["sdxl"], sdxl_launches = sdxl_entry_check(wrappers, card)
     launches.update(sdxl_launches)
+    entry["sd3"], sd3_launches = sd3_entry_check(wrappers, card)
+    launches.update(sd3_launches)
 
     headline = {"flash_attention": ([1, 24, 4352, 4352, 128], {}),
                 "flash_attention_d512": ([1, 1, 4096, 4096, 512], {}),
@@ -2448,7 +2694,8 @@ def main() -> int:
                 "q4_matmul": ([256, 4096, 10240], {"group": 64, "dtype": "bf16"}),
                 "q4_matmul_f32": ([256, 4096, 10240], {"group": 64}),
                 "q4_matmul_wgmma": ([4352, 3072, 12288], {"group": 32}),
-                "q4_matmul_gemv": ([1, 3072, 18432], {"group": 32})}
+                "q4_matmul_gemv": ([1, 3072, 18432], {"group": 32}),
+                "q4_matmul_mma": ([77, 4096, 10240], {"group": 64, "dtype": "bf16"})}
     for name in ("gq_matmul", "gq_matmul_ws", "gq_zero_matmul"):
         headline[name] = ([4352, 3072, 12288], {"group": 32, "dtype": "bf16"})
     headline["w8a16_matmul"] = ([4352, 3072, 12288], {"dtype": "bf16"})

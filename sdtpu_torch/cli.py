@@ -1,7 +1,8 @@
-"""sd-cli for the PyTorch/CUDA port: FLUX.1, SD1.x and SDXL txt2img from
+"""sd-cli for the PyTorch/CUDA port: FLUX.1, SD1.x, SDXL and SD3 txt2img from
 checkpoint files (this package's copy of ``sdtpu/cli.py``: ``build_parser``,
-``main``, the FLUX, SD1 and SDXL txt2img parts of ``_load_pipeline`` and
-``_img_gen``, ``--taesd``, the metadata mode, ``discover_gguf_tokenizer``).
+``main``, the FLUX, SD1, SDXL and SD3 txt2img parts of ``_load_pipeline`` and
+``_img_gen``, ``--taesd``, ``--flow-shift``, the metadata mode,
+``discover_gguf_tokenizer``).
 
     python -m sdtpu_torch.cli --diffusion-model flux1-dev-q8_0.gguf \
         --clip_l clip_l.safetensors --t5xxl t5xxl-q8_0.gguf --vae ae.safetensors \
@@ -11,10 +12,13 @@ checkpoint files (this package's copy of ``sdtpu/cli.py``: ``build_parser``,
     python -m sdtpu_torch.cli -m sdxl.safetensors --taesd taesdxl.safetensors \
         -p "an astronaut riding a horse" -W 1024 -H 1024 --steps 4 --cfg-scale 1 \
         --sampling-method lcm -o out.png
+    python -m sdtpu_torch.cli -m sd3.5_medium.safetensors --clip_l clip_l.safetensors \
+        --clip_g clip_g.safetensors --t5xxl t5xxl-q8_0.gguf -p "an astronaut riding a horse" \
+        -n blurry -W 1024 -H 1024 --steps 28 --cfg-scale 4.5 --sampling-method dpm++2m -o out.png
     python -m sdtpu_torch.cli metadata --image out.png
 
 The model family is fingerprinted from the files' tensor names, as the JAX
-CLI does; FLUX.1, SD1.x and SDXL load, any other family exits naming it.  The
+CLI does; FLUX.1, SD1.x, SDXL and SD3 load, any other family exits naming it.  The
 parser is the JAX CLI's (the same flags, defaults and help).  The port
 runs two modes, ``img_gen`` (txt2img) and ``metadata``, and the flags in
 ``RUN_FLAGS``; any other mode or flag set away from its default (e.g.
@@ -34,7 +38,8 @@ encoder is dequantized on the host, one tensor at a time.  Images are
 PNGs with the webui ``parameters`` text.  ``--taesd`` attaches a TAESD
 decoder (raw ``taesd`` names, its variant by the model's version) for the
 final decode; ``--taesd-preview-only`` is not ported (the port has no
-preview).
+preview).  ``--flow-shift`` sets SD3's flow shift (3.0 by default) and, as
+in the JAX CLI, changes nothing for the other families.
 """
 from __future__ import annotations
 
@@ -462,7 +467,7 @@ RUN_FLAGS = frozenset({
     "steps", "cfg_scale", "guidance", "seed", "batch_count", "sampling_method", "schedule",
     "eta", "clip_skip", "rng",
     "vae_tiling", "vae_tile_size", "vae_tile_overlap",
-    "dtype", "no_promote_q8", "no_keep_quant", "backend",
+    "dtype", "no_promote_q8", "no_keep_quant", "backend", "flow_shift",
     "output", "output_begin_idx", "disable_image_metadata", "verbose",
     # metadata mode
     "image", "metadata_format", "metadata_brief", "metadata_all", "metadata_raw",
@@ -482,7 +487,7 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
             continue
         if getattr(args, dest, action.default) != action.default:
             flag = "/".join(action.option_strings)
-            return f"{flag} is not ported (the port runs FLUX.1, SD1.x and SDXL txt2img)"
+            return f"{flag} is not ported (the port runs FLUX.1, SD1.x, SDXL and SD3 txt2img)"
     if args.mode not in MODES:
         return f"mode {args.mode!r} is not ported; the port runs {list(MODES)}"
     if args.sampling_method not in PORTED_METHODS:
@@ -597,9 +602,9 @@ def load_t5_tokenizer(args):
 
 
 def _load_pipeline(args, report: Optional[dict] = None):
-    """The files → a FLUX, SD1.x or SDXL pipeline (the version the files'
-    fingerprint names) on ``--backend``'s device, with ``--taesd``'s decoder
-    attached.  ``report``
+    """The files → a FLUX, SD1.x, SDXL or SD3 pipeline (the version the
+    files' fingerprint names) on ``--backend``'s device, with ``--taesd``'s
+    decoder attached.  ``report``
     (when given) gets ``load``: its seconds, ``read_s`` (the files → host
     arrays and quant blocks, the blocks' extraction included), ``stage_s``
     (→ the device) and ``build_s``, and ``pipeline``, the pipeline."""
@@ -632,8 +637,8 @@ def _load_pipeline(args, report: Optional[dict] = None):
     t_read = time.time() - t0
     # SD1.x conditions on CLIP-L alone, SDXL on CLIP-L and CLIP-G: a missing
     # T5 is no error there
-    encoders = {SDVersion.FLUX: ("clip_l", "t5"),
-                SDVersion.SDXL: ("clip_l", "clip_g")}.get(bundle.version, ("clip_l",))
+    encoders = {SDVersion.FLUX: ("clip_l", "t5"), SDVersion.SDXL: ("clip_l", "clip_g"),
+                SDVersion.SD3: ("clip_l", "clip_g", "t5")}.get(bundle.version, ("clip_l",))
     missing = [m for m in (*encoders, "vae") if not getattr(bundle, m)]
     if missing:
         raise SystemExit(f"error: no {', '.join(missing)} weights in the given files "
@@ -657,7 +662,7 @@ def _load_pipeline(args, report: Optional[dict] = None):
         print(f"keeping {n_blocks} diffusion weights in checkpoint quant blocks")
     t0 = time.time()
     pipe = create_pipeline(bundle.version, params=params, rng_type=args.rng, dtype=dtype,
-                           t5_tokenizer=t5_tok, device=device)
+                           t5_tokenizer=t5_tok, flow_shift=args.flow_shift, device=device)
     if args.vae_tiling:
         pipe.set_vae_tiling(True, args.vae_tile_size, args.vae_tile_overlap)
     if tae_raw is not None:

@@ -1,7 +1,8 @@
-"""Prompt → conditioning tensors for FLUX, SD1.x and SDXL (counterpart of
-``sdtpu/conditioning/conditioner.py``: ``tokenize_with_weights``,
+"""Prompt → conditioning tensors for FLUX, SD1.x, SDXL and SD3 (counterpart
+of ``sdtpu/conditioning/conditioner.py``: ``tokenize_with_weights``,
 ``apply_token_weights``, ``SDCondition``, ``SD1Conditioner``,
-``sdxl_size_vector``, ``SDXLConditioner``, ``FluxConditioner``).
+``sdxl_size_vector``, ``SDXLConditioner``, ``SD3Conditioner``,
+``FluxConditioner``).
 
 The tokenizers, the webui prompt parser and the encoders are this
 package's own.
@@ -183,3 +184,47 @@ class SDXLConditioner:
             if k in ("crop_w", "crop_h", "target_width", "target_height")})
         return SDCondition(c_crossattn=hidden.reshape(1, n_chunks * CHUNK_LEN, hidden.shape[-1]),
                            c_vector=vec)
+
+
+class SD3Conditioner:
+    """SD3: CLIP-L and CLIP-G on the prompt's first 77-token chunk (padded
+    with id 0; CLIP-G gets CLIP-L's ids as they are), their hidden states at
+    ``clip_skip`` (2 by default) joined on the last axis, weighted, and
+    zero-padded to T5's width; then T5-XXL's output over ``t5_seq_len``
+    tokens (all-zero ids without a T5 tokenizer) on the token axis.  The
+    vector is CLIP-L's pooled projection followed by CLIP-G's.  T5's
+    attention stays off flash (its relative-position bias), as in FLUX."""
+
+    def __init__(self, clip_tokenizer, t5_tokenizer, clip_l_params, clip_l_cfg: CLIPTextConfig,
+                 clip_g_params, clip_g_cfg: CLIPTextConfig, t5_params, t5_cfg: T5Config,
+                 t5_seq_len: int = 77, device="cuda"):
+        self.clip_tokenizer = clip_tokenizer
+        self.t5_tokenizer = t5_tokenizer
+        self.pl, self.cl = clip_l_params, clip_l_cfg
+        self.pg, self.cg = clip_g_params, clip_g_cfg
+        self.pt, self.ct = t5_params, t5_cfg
+        self.t5_seq_len = t5_seq_len
+        self.device = torch.device(device)
+
+    def get_learned_condition(self, text: str, clip_skip: int = -1, **kw) -> SDCondition:
+        if clip_skip <= 0:
+            clip_skip = 2
+        tokens, weights = tokenize_with_weights(self.clip_tokenizer, text, 0)
+        ids = torch.from_numpy(tokens[:CHUNK_LEN][None].astype(np.int64)).to(self.device)
+        w = torch.from_numpy(weights[:CHUNK_LEN][None]).to(self.device)
+        if self.t5_tokenizer is not None:
+            t5_ids, _ = self.t5_tokenizer.pad(
+                self.t5_tokenizer.encode(text, add_eos=True), self.t5_seq_len)
+        else:
+            t5_ids = [0] * self.t5_seq_len
+        h_l, pooled_l = clip_text_forward(self.pl, ids, self.cl, clip_skip=clip_skip,
+                                          return_pooled=True)
+        h_g, pooled_g = clip_text_forward(self.pg, ids, self.cg, clip_skip=clip_skip,
+                                          return_pooled=True)
+        hidden = apply_token_weights(torch.cat([h_l, h_g.to(h_l.dtype)], dim=-1), w)
+        hidden = torch.nn.functional.pad(hidden, (0, self.ct.d_model - hidden.shape[-1]))
+        h_t5 = t5_encoder_forward(
+            self.pt, torch.tensor([t5_ids], dtype=torch.int64, device=self.device), self.ct)
+        return SDCondition(c_crossattn=torch.cat([hidden, h_t5.to(hidden.dtype)], dim=1),
+                           c_vector=torch.cat([pooled_l, pooled_g.to(pooled_l.dtype)], dim=-1),
+                           t5_ids=list(t5_ids))

@@ -1,6 +1,7 @@
 """Denoisers (counterpart of ``sdtpu/diffusion/denoiser.py``): the CompVis
-eps-prediction denoiser on the DDPM table (SD1.x) and the flow denoisers
-FLUX uses.  The v-prediction ``CompVisVDenoiser`` (SD2) is not ported yet.
+eps-prediction denoiser on the DDPM table (SD1.x, SDXL) and the flow
+denoisers of SD3 (``DiscreteFlowDenoiser``) and FLUX.  The v-prediction
+``CompVisVDenoiser`` (SD2) is not ported yet.
 
 Tables and scalings are host-side numpy, as in the JAX package; the sampling
 loop consumes them as f32 values.  ``get_scalings_torch`` and
@@ -94,6 +95,9 @@ class DiscreteFlowDenoiser:
     is_flow = True
 
     def __init__(self, shift: float = 3.0):
+        self.shift = shift
+
+    def set_shift(self, shift: float):
         self.shift = shift
 
     def sigma_min(self) -> float:

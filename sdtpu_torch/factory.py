@@ -1,15 +1,20 @@
 """Pipeline construction (counterpart of ``sdtpu/factory.py``:
-``create_pipeline``, its SD1 and SDXL branches and ``_create_flux_pipeline``).
+``create_pipeline``, its SD1 and SDXL branches, ``_create_sd3_pipeline``,
+``_create_flux_pipeline`` and ``_detect_t5_config``).
 
-FLUX, SD1.x and SDXL are built from given params (this package's tensors, e.g.
-bridged with ``sdtpu_torch.weights.from_jax_params``) or from random weights
-drawn on the target device.  Full-width random FLUX weights come in the
-memory classes of the JAX FLUX bench: the DiT as per-row int8
+FLUX, SD1.x, SDXL and SD3 are built from given params (this package's
+tensors, e.g. bridged with ``sdtpu_torch.weights.from_jax_params``) or from
+random weights drawn on the target device.  Full-width random FLUX weights
+come in the memory classes of the JAX FLUX bench: the DiT as per-row int8
 ``QuantTensor``s (q8_0), T5-XXL as packed 4-bit ``Q4Tensor``s (q4_0), CLIP-L
 and the VAE dense.  A given DiT runs at the depth its params hold (a
 checkpoint cut to fewer blocks).  SD1.x and SDXL are dense throughout, as
 the JAX SD1.5 and SDXL benches (``bench_sd15``, ``bench_sdxl_lcm_taesd``)
-draw them.  Every other version raises by name.
+draw them; SD3 as ``bench_sd35_medium`` draws it: the MMDiT, CLIP-L, CLIP-G
+and the VAE dense, T5-XXL 4-bit.  A given MMDiT's config is fingerprinted
+from its names and shapes (``detect_mmdit_config``: SD3-Medium, SD3.5-Medium's
+MMDiT-X, SD3.5-Large), a given T5's from its shapes.  Every other version
+raises by name.
 """
 from __future__ import annotations
 
@@ -18,12 +23,14 @@ from typing import Optional
 
 import torch
 
-from sdtpu_torch.conditioning.conditioner import FluxConditioner, SD1Conditioner, SDXLConditioner
+from sdtpu_torch.conditioning.conditioner import (FluxConditioner, SD1Conditioner,
+                                                  SD3Conditioner, SDXLConditioner)
 from sdtpu_torch.config import SDVersion
-from sdtpu_torch.diffusion.denoiser import CompVisDenoiser, FluxFlowDenoiser
+from sdtpu_torch.diffusion.denoiser import CompVisDenoiser, DiscreteFlowDenoiser, FluxFlowDenoiser
 from sdtpu_torch.io.model_loader import PORTED_VERSIONS
 from sdtpu_torch.models import clip as clip_mod
 from sdtpu_torch.models import flux as flux_mod
+from sdtpu_torch.models import mmdit as mmdit_mod
 from sdtpu_torch.models import t5 as t5_mod
 from sdtpu_torch.models import unet as unet_mod
 from sdtpu_torch.models import vae as vae_mod
@@ -86,6 +93,77 @@ def sdxl_configs(small: bool):
             vae_mod.SDXL_VAE_CONFIG)
 
 
+def sd3_configs(small: bool):
+    """→ (mmdit, clip_l, clip_g, t5, vae) configs; the small set is the JAX
+    factory's small SD3 config (a 2-deep MMDiT 128 wide over 4 latent
+    channels, CLIP-L and a CLIP-G of CLIP-L's shape 48 wide with 48-wide
+    projections, the small T5, a 4-channel VAE with SD3's scale and shift).
+    At full width the MMDiT is ``SD3_MEDIUM_CONFIG`` (the factory
+    fingerprints a given one instead), CLIP-L projects to 768."""
+    if small:
+        dit_cfg = mmdit_mod.MMDiTConfig(patch_size=2, in_channels=4, depth=2, context_size=96,
+                                        adm_in_channels=96, pos_embed_max_size=16)
+        clip_l_cfg = dataclasses.replace(clip_mod.CLIP_L_CONFIG, hidden_size=48,
+                                         intermediate_size=96, num_layers=2, num_heads=4,
+                                         projection_dim=48)
+        clip_g_cfg = dataclasses.replace(clip_l_cfg, projection_dim=48)
+        t5_cfg = t5_mod.T5Config(vocab_size=256, d_model=96, d_kv=16, d_ff=128, num_layers=2,
+                                 num_heads=4)
+        vae_cfg = vae_mod.VAEConfig(base_channels=32, channel_mult=(1, 2, 2, 2), num_res_blocks=1,
+                                    z_channels=4, scale_factor=1.5305, shift_factor=0.0609)
+        return dit_cfg, clip_l_cfg, clip_g_cfg, t5_cfg, vae_cfg
+    return (mmdit_mod.SD3_MEDIUM_CONFIG,
+            dataclasses.replace(clip_mod.CLIP_L_CONFIG, projection_dim=768),
+            clip_mod.CLIP_G_CONFIG, t5_mod.T5_XXL_CONFIG, vae_mod.SD3_VAE_CONFIG)
+
+
+def detect_t5_config(p: dict) -> t5_mod.T5Config:
+    """A T5 / UMT5 encoder's config from its params' shapes (the JAX
+    factory's ``_detect_t5_config``)."""
+    vocab, d_model = p["shared.weight"].shape
+    num_layers = 1 + max(int(k.split(".")[2]) for k in p if k.startswith("encoder.block."))
+    num_heads = p["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"].shape[1]
+    inner = p["encoder.block.0.layer.0.SelfAttention.q.weight"].shape[0]
+    d_ff = p["encoder.block.0.layer.1.DenseReluDense.wi_0.weight"].shape[0]
+    is_umt5 = "encoder.block.1.layer.0.SelfAttention.relative_attention_bias.weight" in p
+    return t5_mod.T5Config(vocab_size=vocab, d_model=d_model, d_kv=inner // num_heads, d_ff=d_ff,
+                           num_layers=num_layers, num_heads=num_heads, is_umt5=is_umt5)
+
+
+def _create_sd3_pipeline(params: dict, rng_type: str, dtype: torch.dtype, small: bool, seed: int,
+                         t5_tokenizer, flow_shift: Optional[float], device) -> DiffusionPipeline:
+    """SD3 / SD3.5: the MMDiT, CLIP-L + CLIP-G + T5-XXL, the SD3 VAE, the
+    discrete flow denoiser (shift 3 unless ``flow_shift``)."""
+    dit_cfg, clip_l_cfg, clip_g_cfg, t5_cfg, vae_cfg = sd3_configs(small)
+    if not small:
+        if params.get("diffusion"):
+            d = params["diffusion"]
+            dit_cfg = mmdit_mod.detect_mmdit_config(d.keys(), {k: tuple(v.shape) for k, v in d.items()})
+        if params.get("t5"):
+            t5_cfg = detect_t5_config(params["t5"])
+    specs = {"diffusion": mmdit_mod.param_specs(dit_cfg), "clip_l": clip_mod.param_specs(clip_l_cfg),
+             "clip_g": clip_mod.param_specs(clip_g_cfg), "t5": t5_mod.param_specs(t5_cfg),
+             "vae": vae_mod.param_specs(vae_cfg)}
+    mods = {name: params.get(name) or synthesize(
+                spec, quant="q4_0" if name == "t5" and not small else None,
+                seed=seed + SEED_OFFSET[name], device=device, dtype=dtype)
+            for name, spec in specs.items()}
+    conditioner = SD3Conditioner(CLIPTokenizer(), t5_tokenizer, mods["clip_l"], clip_l_cfg,
+                                 mods["clip_g"], clip_g_cfg, mods["t5"], t5_cfg, device=device)
+
+    def diffusion_fn(p, x, t, ctx, y, guidance=None, skip_layers=()):
+        return mmdit_mod.mmdit_forward(p, x, t, ctx, y, cfg=dit_cfg, skip_layers=skip_layers)
+
+    def vae_decode_fn(p, z):
+        return vae_mod.vae_decode(p, z, vae_cfg)
+
+    return DiffusionPipeline(
+        version=SDVersion.SD3, diffusion_params=mods["diffusion"], diffusion_fn=diffusion_fn,
+        conditioner=conditioner, vae_params=mods["vae"], vae_decode_fn=vae_decode_fn,
+        denoiser=DiscreteFlowDenoiser(shift=3.0 if flow_shift is None else flow_shift),
+        rng_type=rng_type, latent_channels=dit_cfg.in_channels, compute_dtype=dtype, device=device)
+
+
 def _create_unet_pipeline(version: SDVersion, params: dict, rng_type: str, dtype: torch.dtype,
                           small: bool, seed: int, device) -> DiffusionPipeline:
     """SD1.x (one CLIP-L) or SDXL (CLIP-L and CLIP-G, the vector ``y``)."""
@@ -126,15 +204,20 @@ def _blocks(p: dict, prefix: str) -> int:
 def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] = None,
                     rng_type: str = "cuda", dtype: torch.dtype = torch.float32,
                     small: bool = False, seed: int = 0, t5_tokenizer=None,
-                    device="cuda") -> DiffusionPipeline:
-    """params: dict with keys 'diffusion', 'clip_l', 't5' (FLUX only),
-    'clip_g' (SDXL only), 'vae'; a missing module gets random weights drawn
-    on ``device`` (dense for the small configs and for SD1 and SDXL at full
-    width, the bench's memory classes for FLUX at full width)."""
+                    flow_shift: Optional[float] = None, device="cuda") -> DiffusionPipeline:
+    """params: dict with keys 'diffusion', 'clip_l', 't5' (FLUX and SD3),
+    'clip_g' (SDXL and SD3), 'vae'; a missing module gets random weights
+    drawn on ``device`` (dense for the small configs and for SD1 and SDXL at
+    full width, the bench's memory classes for FLUX and SD3 at full width).
+    flow_shift: SD3's flow shift (None: 3.0); the other ported families take
+    none, and ignore it, as the JAX factory does."""
     if version not in PORTED_VERSIONS:
         raise NotImplementedError(f"{version} is not ported yet; the port runs "
                                   f"{[v.name for v in PORTED_VERSIONS]} txt2img")
     params = params or {}
+    if version == SDVersion.SD3:
+        return _create_sd3_pipeline(params, rng_type, dtype, small, seed, t5_tokenizer, flow_shift,
+                                    device)
     if version in (SDVersion.SD1, SDVersion.SDXL):
         return _create_unet_pipeline(version, params, rng_type, dtype, small, seed, device)
     dit_cfg, clip_l_cfg, t5_cfg, vae_cfg, t5_seq = flux_configs(small)

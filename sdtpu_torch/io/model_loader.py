@@ -1,5 +1,5 @@
-"""FLUX, SD1.x and SDXL checkpoint files → per-module param dicts (this
-package's copy of the FLUX, SD1 and SDXL parts of ``sdtpu.io.model_loader``:
+"""FLUX, SD1.x, SDXL and SD3 checkpoint files → per-module param dicts (this
+package's copy of the FLUX, SD1, SDXL and SD3 parts of ``sdtpu.io.model_loader``:
 ``load_model_bundle``, ``split_modules``, ``_split_in_proj``,
 ``read_checkpoint_file``, with the parts of ``sdtpu/io/detect.py`` and
 ``sdtpu/io/name_conversion.py`` they use).
@@ -19,9 +19,13 @@ checkpoint splits by its LDM prefixes (``model.diffusion_model.``,
 SDXL checkpoint by its SGM prefixes (``conditioner.embedders.0.transformer.``
 → CLIP-L, ``conditioner.embedders.1.model.`` → CLIP-G under OpenCLIP names,
 renamed to HF ones, the fused ``in_proj`` split into q / k / v, the
-``text_projection`` transposed).  Any family but FLUX, SD1 and SDXL raises
-``NotImplementedError`` naming it (SDXL's inpaint, pix2pix and SSD-1B
-variants too).
+``text_projection`` transposed).  An SD3 / SD3.5 file (``joint_blocks``)
+splits by ``model.diffusion_model.``, ``first_stage_model.`` and
+``text_encoders.{clip_l,clip_g,t5xxl}.transformer.``; CLIP-G's
+``text_projection`` is transposed whichever file it came from, CLIP-L's
+kept, as the JAX loader leaves them.  Any family but FLUX, SD1, SDXL and
+SD3 raises ``NotImplementedError`` naming it (SDXL's inpaint, pix2pix and
+SSD-1B variants too, and an SD3 transformer under diffusers names).
 """
 from __future__ import annotations
 
@@ -164,6 +168,9 @@ def convert_diffusers_diffusion_names(tensors: Dict[str, np.ndarray]) -> Dict[st
     def has_prefix(p):
         return any(k.startswith(p) for k in tensors)
 
+    if has_prefix("pos_embed.proj.") and not has_prefix("single_transformer_blocks."):
+        raise NotImplementedError("a diffusers SD3 transformer (SD3Transformer2DModel names): "
+                                  "the port loads SD3 under its single-file names (joint_blocks)")
     if (any("img_attn_qkv" in k or "img_mod.linear." in k for k in tensors)
             or has_prefix("pos_embed.proj.") or has_prefix("all_x_embedder.2-1.")
             or has_prefix("noise_refiner.") or has_prefix("time_mod_proj.")
@@ -181,7 +188,7 @@ def convert_diffusers_diffusion_names(tensors: Dict[str, np.ndarray]) -> Dict[st
 
 # the families the port runs (``load_model_bundle`` and ``create_pipeline``
 # refuse every other by name)
-PORTED_VERSIONS = (SDVersion.FLUX, SDVersion.SD1, SDVersion.SDXL)
+PORTED_VERSIONS = (SDVersion.FLUX, SDVersion.SD1, SDVersion.SDXL, SDVersion.SD3)
 
 
 def _unet_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
@@ -239,10 +246,12 @@ def _unet_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
 
 
 def detect_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
-    """The JAX package's fingerprint (``detect_version``) of a double-block
-    DiT (its ``double_blocks`` branch) or a UNet (its UNet branch); UNKNOWN
-    for anything else."""
+    """The JAX package's fingerprint (``detect_version``) of an MMDiT (SD3:
+    ``joint_blocks``), a double-block DiT (its ``double_blocks`` branch) or a
+    UNet (its UNet branch); UNKNOWN for anything else."""
     names = set(names)
+    if any(n.startswith((DIFFUSION_PREFIX + "joint_blocks", "joint_blocks")) for n in names):
+        return SDVersion.SD3
     if not any(n.startswith((DIFFUSION_PREFIX + "double_blocks", "double_blocks")) for n in names):
         return _unet_version(names, shapes)
     if any("nerf_final_layer_conv." in n for n in names):
@@ -475,7 +484,7 @@ def load_model_bundle(model_path: Optional[str] = None, diffusion_model_path: Op
                       clip_l_path: Optional[str] = None, t5xxl_path: Optional[str] = None,
                       vae_path: Optional[str] = None, keep_quant: bool = False,
                       clip_g_path: Optional[str] = None) -> ModelBundle:
-    """FLUX.1, SD1.x or SDXL checkpoint files, each under its logical prefix, →
+    """FLUX.1, SD1.x, SDXL or SD3 checkpoint files, each under its logical prefix, →
     ``ModelBundle`` (what the JAX package's ``load_model_bundle`` holds for
     them, by value).  Raises ``NotImplementedError`` for any other model."""
     tensors: Dict[str, np.ndarray] = {}

@@ -3,7 +3,7 @@
 Params are keyed by CompVis ``first_stage_model`` names
 (``decoder.up.N.block.M.…``); activations are NHWC.  The mid-block attention
 is single-head over every latent position (D = 512 at full width, FLUX's,
-SD1.x's and SDXL's alike).
+SD1.x's, SDXL's and SD3's alike).
 """
 from __future__ import annotations
 
@@ -28,6 +28,8 @@ class VAEConfig:
 
 SD_VAE_CONFIG = VAEConfig()  # SD1.x: 4 latent channels, scale 0.18215, no shift
 SDXL_VAE_CONFIG = VAEConfig(scale_factor=0.13025)
+# SD3 / SD3.5: 16 latent channels with a shift; its files carry no quant_conv
+SD3_VAE_CONFIG = VAEConfig(z_channels=16, scale_factor=1.5305, shift_factor=0.0609)
 FLUX_VAE_CONFIG = VAEConfig(z_channels=16, scale_factor=0.3611, shift_factor=0.1159)
 
 

@@ -422,8 +422,8 @@ def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
     the float32 form at every M (counted in ``launches_f32``); bf16 calls of
     at most ``Q4_GEMV_MAX_M`` rows the weight-streaming GEMV
     (``launches_gemv``), of at least ``Q4_WGMMA_MIN_M`` rows the TMA + wgmma
-    kernel (``launches_wgmma``), the rest the ``mma.sync`` form; every launch
-    counts in ``launches``."""
+    kernel (``launches_wgmma``), the rest the ``mma.sync`` form
+    (``launches_mma``); every launch counts in ``launches``."""
     if x.device.type == "cpu":
         return q4_matmul_plain(x, qt)
     if x.dtype not in _build.DTYPE_CODES:
@@ -447,11 +447,13 @@ def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
         q4_matmul.launches_gemv += 1
     elif m >= Q4_WGMMA_MIN_M:
         q4_matmul.launches_wgmma += 1
+    else:
+        q4_matmul.launches_mma += 1
     return out.reshape(*x.shape[:-1], n)
 
 
 q4_matmul.launches = q4_matmul.launches_wgmma = q4_matmul.launches_gemv = 0
-q4_matmul.launches_f32 = 0
+q4_matmul.launches_mma = q4_matmul.launches_f32 = 0
 
 
 # ------------------------------------------------------------- group quant

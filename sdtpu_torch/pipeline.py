@@ -1,16 +1,21 @@
-"""txt2img pipeline for FLUX, SD1.x and SDXL (counterpart of the txt2img
-part of ``sdtpu/pipeline.py``: ``DiffusionPipeline.generate``, ``txt2img``,
-``set_vae_tiling``, ``set_tae``, the tiled decode and ``_match_context``).
+"""txt2img pipeline for FLUX, SD1.x, SDXL and SD3 (counterpart of the
+txt2img part of ``sdtpu/pipeline.py``: ``DiffusionPipeline.generate``,
+``txt2img``, ``set_vae_tiling``, ``set_tae``, the tiled decode and
+``_match_context``).
 
 Samplers: ``sdtpu_torch.diffusion.samplers.PORTED_METHODS``; at ``eta > 0``
 an ancestral sampler's per-step noise (and ``lcm``'s at any ``eta``)
 follows the initial noise in each batch item's ``rng`` stream, as the JAX
 pipeline draws it.  The latent's channels and the schedule come from the
 model (FLUX's 16-channel flow latent, SD1's and SDXL's 4-channel eps latent
-on the DDPM table); SD1 has no pooled vector (``y``), SDXL's is the pooled
-CLIP-G output with the size embeddings of the request's width and height,
-and neither has distilled guidance.  ``set_tae`` swaps the final decode for
-a TAESD decoder.  Of ``extra_sample_args`` the port runs ``lcm``'s
+on the DDPM table, SD3's 16-channel latent on the discrete flow schedule);
+SD1 has no pooled vector (``y``), SDXL's is the pooled CLIP-G output with
+the size embeddings of the request's width and height, SD3's the pooled
+CLIP-L and CLIP-G outputs; only FLUX has distilled guidance.  Skip-Layer
+Guidance (``slg_scale`` under CFG) is not ported and raises by name on
+every family; without CFG it is ignored, as the JAX pipeline ignores it.
+``set_tae`` swaps the final decode for a TAESD decoder.  Of
+``extra_sample_args`` the port runs ``lcm``'s
 ``noise_scale_start`` / ``noise_scale_end``; any other key raises by
 name.  ``generate`` takes the JAX pipeline's
 ``progress_callback(step, steps, x)`` and ``cancel_check()`` (a server
@@ -231,6 +236,8 @@ class DiffusionPipeline:
         has_uncond = gp.cfg_scale != 1.0
 
         extra_args = _sampler_extra_args(gp.extra_sample_args)
+        if gp.slg_scale != 0.0 and has_uncond:
+            raise NotImplementedError("skip-layer guidance (slg_scale) is not ported")
         tc0 = time.time()
         cond = self.conditioner.get_learned_condition(gp.prompt, clip_skip=gp.clip_skip, width=w,
                                                       height=h)

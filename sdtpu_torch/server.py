@@ -1,5 +1,5 @@
-"""HTTP server for the PyTorch/CUDA port: FLUX.1, SD1.x and SDXL txt2img behind the
-reference's three API families (this package's copy of ``sdtpu/server.py``: ``Job``,
+"""HTTP server for the PyTorch/CUDA port: FLUX.1, SD1.x, SDXL and SD3 txt2img behind
+the reference's three API families (this package's copy of ``sdtpu/server.py``: ``Job``,
 ``JobManager``, ``flatten_native_params``, ``extract_extra_args``,
 ``params_from_json``, the txt2img part of ``run_generation``,
 ``make_handler``, ``serve`` and ``main``).
@@ -8,6 +8,8 @@ reference's three API families (this package's copy of ``sdtpu/server.py``: ``Jo
         --clip_l clip_l.safetensors --t5xxl t5xxl-q8_0.gguf --vae ae.safetensors \\
         --port 7860
     python -m sdtpu_torch.server -m sdxl.safetensors --taesd taesdxl.safetensors --port 7860
+    python -m sdtpu_torch.server -m sd3.5_medium.safetensors --clip_l clip_l.safetensors \\
+        --clip_g clip_g.safetensors --t5xxl t5xxl-q8_0.gguf --port 7860
 
 Routes the port answers:
   native:  POST /sdcpp/v1/img_gen (async job), GET /sdcpp/v1/jobs/<id>,
@@ -235,7 +237,7 @@ def _refuse_unported(data: dict, gp: GenerationParams) -> None:
     for field, what in UNPORTED_FIELDS.items():
         if data.get(field):
             raise ValueError(f"request field {field!r}: {what} is not ported "
-                             "(the port runs FLUX.1, SD1.x and SDXL txt2img)")
+                             "(the port runs FLUX.1, SD1.x, SDXL and SD3 txt2img)")
     if gp.sample_method not in PORTED_METHODS:
         raise ValueError(f"sampler {gp.sample_method!r} is not ported; "
                          f"ported: {list(PORTED_METHODS)}")
@@ -295,7 +297,7 @@ def make_handler(manager: JobManager):
 
         def _not_ported(self, method: str, p: str):
             self._json({"error": f"{method} {p} is not ported "
-                                  "(the port serves FLUX.1, SD1.x and SDXL txt2img)"}, 501)
+                                  "(the port serves FLUX.1, SD1.x, SDXL and SD3 txt2img)"}, 501)
 
         def _read_json(self) -> Optional[dict]:
             """→ parsed body, or None after replying 400 to a bad payload."""

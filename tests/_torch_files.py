@@ -1,4 +1,5 @@
-"""Small FLUX and SD1 checkpoint files for the port's entry-point tests.
+"""Small FLUX, SD1, SDXL and SD3 checkpoint files for the port's entry-point
+tests.
 
 The weights are the JAX package's small FLUX pipeline (``create_pipeline(
 SDVersion.FLUX, small=True, seed=0)``), written as a user's file set: the DiT
@@ -14,7 +15,10 @@ safetensors under the SGM names, CLIP-G under OpenCLIP's (the fused
 ``in_proj``, ``text_projection`` as [width, proj]); the TAESD-XL file the
 decoder of ``init_tae_params(TAESD_XL_CONFIG, seed=5)`` under the raw
 ``taesd`` names (the Clamp at decoder index 0); ``small_sdxl_configs``
-swaps SDXL's full-size configs.
+swaps SDXL's full-size configs.  The SD3 set is the JAX package's small SD3
+pipeline as an SD3.5 user's files: the MMDiT and the VAE in one float16
+single file, CLIP-L and CLIP-G float16 under HF names, T5 as a q8_0 GGUF
+with its vocab; ``small_sd3_configs`` swaps SD3's full-size configs.
 """
 import dataclasses
 import struct
@@ -216,3 +220,55 @@ def small_sdxl_configs(monkeypatch):
                                       ((tvae, jvae), "SDXL_VAE_CONFIG", vae)):
         monkeypatch.setattr(tmod, name, small)
         monkeypatch.setattr(jmod, name, type(getattr(jmod, name))(**dataclasses.asdict(small)))
+
+
+def small_sd3_pipeline():
+    return jax_create_pipeline(jconfig.SDVersion.SD3, small=True, seed=0)
+
+
+def write_small_sd3_files(directory, jp=None) -> dict:
+    """The small SD3 pipeline's weights as an SD3.5 file set → {key: path}:
+    the MMDiT and the VAE in one float16 single file (``model.diffusion_model.``,
+    ``first_stage_model.``), CLIP-L and CLIP-G as float16 safetensors under HF
+    names, T5 as a q8_0 GGUF under llama.cpp names with a unigram vocab."""
+    jp = jp or small_sd3_pipeline()
+    d = str(directory)
+    paths = {"model": f"{d}/sd3_small.safetensors", "clip_l": f"{d}/clip_l.safetensors",
+             "clip_g": f"{d}/clip_g.safetensors", "t5xxl": f"{d}/t5_small_q8_0.gguf"}
+    host = {}
+    for prefix, params in (("model.diffusion_model.", jp.diffusion_params),
+                           ("first_stage_model.", jp.vae_params)):
+        host.update({prefix + k: np.asarray(v, dtype=np.float16) for k, v in params.items()})
+    save_safetensors(paths["model"], host)
+    for key, params in (("clip_l", jp.conditioner.pl), ("clip_g", jp.conditioner.pg)):
+        save_safetensors(paths[key], {k: np.asarray(v, dtype=np.float16) for k, v in params.items()})
+    save_gguf(paths["t5xxl"], {gguf_t5_name(k): np.asarray(v, dtype=np.float32)
+                               for k, v in jp.conditioner.pt.items()},
+              out_type="q8_0", metadata=synthetic_t5_vocab(256))
+    return paths
+
+
+def small_sd3_configs(monkeypatch):
+    """Swap the full-size configs both CLIs load SD3 with (CLIP-L, CLIP-G,
+    the SD3 VAE; the MMDiT and T5 configs come from the weights) for the
+    small SD3 configs of both factories; and, for the port's
+    ``tools/sd3_file.py``, SD3.5-Medium's MMDiT and T5-XXL for small ones
+    (the MMDiT with qk RMS norms and one MMDiT-X block, its vector as wide
+    as the file's pooled CLIP-L (768) and CLIP-G outputs)."""
+    import sdtpu.models.clip as jclip
+    import sdtpu.models.vae as jvae
+    import sdtpu_torch.models.clip as tclip
+    import sdtpu_torch.models.mmdit as tmmdit
+    import sdtpu_torch.models.t5 as tt5
+    import sdtpu_torch.models.vae as tvae
+    from sdtpu_torch.factory import sd3_configs
+
+    dit, clip_l, clip_g, t5, vae = sd3_configs(small=True)
+    for (tmod, jmod), name, small in (((tclip, jclip), "CLIP_L_CONFIG", clip_l),
+                                      ((tclip, jclip), "CLIP_G_CONFIG", clip_g),
+                                      ((tvae, jvae), "SD3_VAE_CONFIG", vae)):
+        monkeypatch.setattr(tmod, name, small)
+        monkeypatch.setattr(jmod, name, type(getattr(jmod, name))(**dataclasses.asdict(small)))
+    monkeypatch.setattr(tmmdit, "SD35_MEDIUM_CONFIG", dataclasses.replace(
+        dit, qk_norm="rms", num_x_self_attn_layers=1, adm_in_channels=768 + clip_g.projection_dim))
+    monkeypatch.setattr(tt5, "T5_XXL_CONFIG", t5)

@@ -4,12 +4,14 @@ Both CLIs load the files written by ``tests/_torch_files.py`` (the JAX
 package's small FLUX weights as a q8_0 DiT GGUF, CLIP-L and VAE
 safetensors, a q8_0 T5 GGUF under llama.cpp names with an embedded vocab;
 its small SD1 and SDXL weights as float16 single-file checkpoints, beside
-a TAESD-XL decoder file), with their full-size configs swapped for the
-small ones.  The port runs
+a TAESD-XL decoder file; its small SD3 weights as an SD3.5 set: the MMDiT
+and the VAE in one float16 file, CLIP-L, CLIP-G and a q8_0 T5 GGUF beside
+it), with their full-size configs swapped for the small ones.  The port runs
 with ``--backend cpu``.  Their images may differ by one uint8 level (a
 float32 pixel on a rounding boundary); the ``parameters`` text is equal.
 Unported flags, modes and values exit 2 before anything loads.
 """
+import dataclasses
 import json
 import os
 import struct
@@ -21,8 +23,9 @@ import pytest
 sys.path.insert(0, os.path.dirname(__file__))  # tests/_torch_files.py
 
 from _torch_files import (small_configs, small_jax_pipeline, small_sd1_configs,  # noqa: E402
-                          small_sd1_pipeline, small_sdxl_configs, small_sdxl_pipeline,
-                          write_small_flux_files, write_small_sd1_file, write_small_sdxl_file,
+                          small_sd1_pipeline, small_sd3_configs, small_sd3_pipeline,
+                          small_sdxl_configs, small_sdxl_pipeline, write_small_flux_files,
+                          write_small_sd1_file, write_small_sd3_files, write_small_sdxl_file,
                           write_small_tae_file)
 
 
@@ -398,3 +401,142 @@ def test_sdxl_file_tool_writes_files_the_cli_answers_from(monkeypatch, tmp_path)
         img, params = decode_png(f.read())
     assert img.shape == (64, 64, 3) and img.std() > 0
     assert "Sampler: lcm" in params
+
+
+@pytest.mark.parametrize("shift", [None, "2.0"])
+def test_flow_shift_does_for_flux_what_the_jax_cli_does(files, small, tmp_path, shift):
+    """``--flow-shift`` reaches ``create_pipeline`` in both CLIs; FLUX takes
+    no flow shift there, so both answer the image they answer without it."""
+    from PIL import Image
+
+    import sdtpu.cli as jcli
+    from sdtpu_torch import cli
+
+    _, paths = files
+    args = _file_args(paths) + REQUESTS["euler_a"] + (["--flow-shift", shift] if shift else [])
+    report = {}
+    assert cli.main(args + ["--backend", "cpu", "-o", str(tmp_path / "port.png")],
+                    report=report) == 0
+    assert jcli.main(args + ["-o", str(tmp_path / "jax.png")]) == 0
+    a, b = (np.asarray(Image.open(str(tmp_path / f"{n}.png"))).astype(int) for n in ("port", "jax"))
+    assert np.abs(a - b).max() <= 1
+    assert report["pipeline"].denoiser.shift == 1.15  # FluxFlowDenoiser's own
+
+
+@pytest.fixture(scope="module")
+def sd3_files(tmp_path_factory):
+    """The small SD3 set, and the MMDiT and the VAE as files of their own
+    (internal names, float32)."""
+    from sdtpu.io.safetensors import save_safetensors
+
+    d = tmp_path_factory.mktemp("sd3_files")
+    jp = small_sd3_pipeline()
+    paths = write_small_sd3_files(d, jp)
+    for key, params in (("diffusion_model", jp.diffusion_params), ("vae", jp.vae_params)):
+        paths[key] = f"{d}/{key}.safetensors"
+        save_safetensors(paths[key], {k: np.asarray(v, np.float32) for k, v in params.items()})
+    return paths
+
+
+SD3_REQUESTS = {
+    # the bench's request (bench_sd35_medium), cut to 64² and 4 steps: -m
+    # with the MMDiT and the VAE, the three encoders beside it
+    "dpmpp2m_cfg": (["-p", "a photograph of an astronaut riding a horse", "-n", "blurry",
+                     "-W", "64", "-H", "64", "--steps", "4", "--sampling-method", "dpm++2m",
+                     "--cfg-scale", "4.5", "-s", "42"], "model"),
+    # every module in a file of its own, another flow shift, euler_a's noise,
+    # a wide image, a batch of two, VAE tiling
+    "flow_shift_euler_a": (["-p", "a red fox in snow", "-n", "blurry", "-W", "96", "-H", "64",
+                            "--steps", "3", "--cfg-scale", "3", "--eta", "1.0", "-b", "2",
+                            "-s", "7", "--flow-shift", "2.0", "--vae-tiling", "--vae-tile-size", "8",
+                            "--vae-tile-overlap", "2"], "separate"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SD3_REQUESTS))
+def test_cli_sd3_files_match_jax_cli(sd3_files, monkeypatch, tmp_path, name):
+    """The SD3 set through both CLIs: both fingerprint it as SD3 (the MMDiT
+    config from the weights), find the T5 tokenizer in the GGUF and take
+    ``--flow-shift``; the images lie within one uint8 level, the
+    ``parameters`` text is equal."""
+    from PIL import Image
+
+    import sdtpu.cli as jcli
+    from sdtpu_torch import cli
+
+    small_sd3_configs(monkeypatch)
+    monkeypatch.setenv("SDTPU_COMPILE_CACHE", str(tmp_path / "xla"))
+    req, layout = SD3_REQUESTS[name]
+    p = sd3_files
+    enc = ["--clip_l", p["clip_l"], "--clip_g", p["clip_g"], "--t5xxl", p["t5xxl"]]
+    files = (["-m", p["model"]] if layout == "model"
+             else ["--diffusion-model", p["diffusion_model"], "--vae", p["vae"]])
+    args = files + enc + req
+    report = {}
+    assert cli.main(args + ["--backend", "cpu", "-o", str(tmp_path / "port.png")],
+                    report=report) == 0
+    assert jcli.main(args + ["-o", str(tmp_path / "jax.png")]) == 0
+    assert report["load"]["version"] == "sd3"
+    assert report["load"]["t5_tokenizer"] == "gguf:" + p["t5xxl"]
+    assert report["pipeline"].denoiser.shift == (2.0 if "--flow-shift" in req else 3.0)
+    n = 2 if "-b" in req else 1
+    assert len(report["outputs"]) == n
+    for i, ours in enumerate(report["outputs"]):
+        a = Image.open(ours)
+        b = Image.open(str(tmp_path / (f"jax_{i}.png" if n > 1 else "jax.png")))
+        assert a.info["parameters"] == b.info["parameters"]
+        diff = np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int))
+        assert diff.max() <= 1 and np.asarray(a).std() > 0
+    assert any(report["t5_ids"][:-1]) and len(report["t5_ids"]) == 77
+
+
+def test_sd3_file_tool_writes_files_the_cli_answers_from(monkeypatch, tmp_path):
+    """``sdtpu_torch.tools.sd3_file`` (the card check's SD3.5-Medium set) at
+    small configs: float16 safetensors for the single file (MMDiT-X + VAE,
+    no quant_conv) and both CLIPs, a q8_0 T5 GGUF with its vocab;
+    fingerprinted as SD3 by both packages' loaders, the MMDiT config as an
+    MMDiT-X with qk norms, answered by the port's CLI and read back."""
+    from sdtpu.io.model_loader import load_model_bundle as jax_load_model_bundle
+    from sdtpu_torch import cli
+    from sdtpu_torch.io.gguf import GGUFFile
+    from sdtpu_torch.io.model_loader import load_model_bundle
+    from sdtpu_torch.models import mmdit as tm
+    from sdtpu_torch.tools.sd3_file import file_specs, write_sd3_files
+    from sdtpu_torch.utils.image import decode_png
+
+    small_sd3_configs(monkeypatch)
+    out = write_sd3_files(tmp_path / "set", device="cpu", min_quant_elems=1024)
+    paths = out["paths"]
+    assert out["tensors"] == {k: len(v) for k, v in file_specs().items()}
+    assert all(os.path.getsize(p) >= out["bytes"][k] for k, p in paths.items())
+    for key in ("model", "clip_l", "clip_g"):
+        with open(paths[key], "rb") as f:
+            header = json.loads(f.read(struct.unpack("<Q", f.read(8))[0]))
+        assert {v["dtype"] for v in header.values()} == {"F16"}
+        if key == "model":
+            assert not any("quant_conv" in k for k in header)
+    f = GGUFFile(paths["t5xxl"])
+    try:
+        assert f.tensor_type("token_embd.weight") == "q8_0"
+    finally:
+        f.close()
+    enc = {"clip_l_path": paths["clip_l"], "clip_g_path": paths["clip_g"],
+           "t5xxl_path": paths["t5xxl"]}
+    bundle = load_model_bundle(model_path=paths["model"], **enc)
+    assert bundle.version.value == "sd3"
+    assert jax_load_model_bundle(model_path=paths["model"], **enc).version.value == "sd3"
+    shapes = {k: tuple(v.shape) for k, v in bundle.diffusion.items()}
+    det = tm.detect_mmdit_config(list(shapes), shapes)
+    # the fingerprint takes the vector's width from its base config (2048)
+    assert det == dataclasses.replace(tm.SD35_MEDIUM_CONFIG, adm_in_channels=det.adm_in_channels)
+    report = {}
+    png = str(tmp_path / "out.png")
+    assert cli.main(["-m", paths["model"], "--clip_l", paths["clip_l"], "--clip_g", paths["clip_g"],
+                     "--t5xxl", paths["t5xxl"], "-p", "a cat", "-n", "blurry", "-W", "64", "-H",
+                     "64", "--steps", "2", "--sampling-method", "dpm++2m", "--cfg-scale", "4.5",
+                     "--backend", "cpu", "-o", png], report=report) == 0
+    assert report["load"]["version"] == "sd3"
+    with open(png, "rb") as f:
+        img, params = decode_png(f.read())
+    assert img.shape == (64, 64, 3) and img.std() > 0
+    assert "Sampler: dpm++2m" in params

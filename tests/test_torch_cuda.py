@@ -211,17 +211,20 @@ def test_flash_unet_head_dims_match_plain(cuda, dtype, tol, d, bh, lq, lk, bias,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, FLASH_F32_TOL)])
-@pytest.mark.parametrize("b,h,lq,lk,d,bias", chip_smoke.SDXL_FLASH_SHAPES)
+@pytest.mark.parametrize("b,h,lq,lk,d,bias",
+                         chip_smoke.SDXL_FLASH_SHAPES + chip_smoke.SD3_FLASH_SHAPES)
 def test_flash_sdxl_shapes_match_plain(cuda, dtype, tol, b, h, lq, lk, d, bias):
-    """The SDXL UNet's D 64 calls at 1024² under CFG (10 heads over 4096
-    tokens, 20 over 1024, their 77-key cross-attention) and CLIP-G's causal
-    call, both dtypes, at the limits of ``chip_smoke.py``; a bf16 call counts
-    in ``launches_d64``, a float32 one in ``launches_f32``.  The bf16 faults
-    (the last 128-key tile dropped, unmasked pad keys) exceed the limit."""
+    """The D 64 calls at 1024² under CFG of the SDXL UNet (10 heads over
+    4096 tokens, 20 over 1024, their 77-key cross-attention), CLIP-G's causal
+    call and SD3.5-Medium (the joint attention over 154 + 4096 tokens,
+    ragged on every 128-row and 128-key tile, its scores drawn negative by
+    ``chip_smoke.flash_inputs``; MMDiT-X's second self-attention over 4096),
+    both dtypes, at the limits of ``chip_smoke.py``; a bf16 call counts in
+    ``launches_d64``, a float32 one in ``launches_f32``.  The bf16 faults
+    (the last 128-key tile dropped; unmasked pad keys, where Lk is off the
+    tile) exceed the limit."""
     g = torch.Generator(device=cuda).manual_seed(lq + lk + h)
-    q = torch.randn((b, h, lq, d), generator=g, device=cuda, dtype=dtype)
-    k, v = (torch.randn((b, h, lk, d), generator=g, device=cuda, dtype=dtype) for _ in range(2))
-    mask = torch.full((lq, lk), -1e30, device=cuda).triu(1) if bias == "causal" else None
+    q, k, v, mask = chip_smoke.flash_inputs(g, b, h, lq, lk, d, dtype, bias)
     counter = "launches_d64" if dtype == torch.bfloat16 else "launches_f32"
     before = (fa.flash_attention.launches, getattr(fa.flash_attention, counter))
     got = fa.flash_attention(q, k, v, mask=mask)
@@ -232,7 +235,53 @@ def test_flash_sdxl_shapes_match_plain(cuda, dtype, tol, b, h, lq, lk, d, bias):
     assert torch.isfinite(got).all() and (got.float() - want.float()).abs().max().item() <= limit
     if dtype == torch.bfloat16:
         faults = chip_smoke._d64_faults(q, k, v, mask, want)
+        assert ("unmasked_pad_keys" in faults) is (lk % 128 != 0)
         assert faults and all(f > limit for f in faults.values()), faults
+
+
+@pytest.mark.cuda
+def test_flash_d512_at_sd3_decode_matches_plain(cuda):
+    """The SD3 VAE's mid-block attention over the untiled 1024² decode's
+    16384 tokens, bf16 D 512 (``chip_smoke.SD3_VAE_FLASH_SHAPE``): one launch
+    in ``launches_d512``, within ``chip_smoke.py``'s limit of the plain
+    version, and the faults of the key split the launcher picks (the last
+    32-key tile of a split dropped; split partials merged without their
+    rescale) exceed the limit."""
+    b, h, lq, lk, d = chip_smoke.SD3_VAE_FLASH_SHAPE
+    g = torch.Generator(device=cuda).manual_seed(lq)
+    q, k, v, mask = chip_smoke.flash_inputs(g, b, h, lq, lk, d, torch.bfloat16, None)
+    before = (fa.flash_attention.launches, fa.flash_attention.launches_d512)
+    got = fa.flash_attention(q, k, v, mask=mask)
+    assert (fa.flash_attention.launches, fa.flash_attention.launches_d512) == (
+        before[0] + 1, before[1] + 1)
+    want = fa.plain_attention(q, k, v, mask=mask)
+    limit = chip_smoke.FLASH_TOL["bf16"] * want.float().abs().max().item()
+    assert torch.isfinite(got).all() and (got.float() - want.float()).abs().max().item() <= limit
+    faults = chip_smoke._d512_faults(q, k, v, mask, want)
+    assert faults.pop("splits") == _build.query("sdtpu_flash_splits", 0, b * h, lq, lk, d)
+    assert faults and all(f > limit for f in faults.values()), faults
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [32, 64])
+@pytest.mark.parametrize("m,k,n", chip_smoke.Q4_SD3_T5_SHAPES)
+def test_q4_at_sd3_t5_rows_matches_plain(cuda, dtype, group, m, k, n):
+    """T5-XXL's linears over SD3's 77 tokens: the bf16 ``mma.sync`` form
+    (counted in ``launches_mma``) and the float32 form, each within its
+    limit of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n + group)
+    x = torch.randn((m, k), generator=g, device=cuda, dtype=dtype)
+    qt = _q4_weight(g, n, k, group, cuda)
+    counter = "launches_mma" if dtype == torch.bfloat16 else "launches_f32"
+    before = (quant.q4_matmul.launches, getattr(quant.q4_matmul, counter))
+    got = quant.q4_matmul(x, qt)
+    assert (quant.q4_matmul.launches, getattr(quant.q4_matmul, counter)) == (
+        before[0] + 1, before[1] + 1)
+    want = quant.q4_matmul_plain(x, qt)
+    tol = chip_smoke.Q4_REL_TOL if dtype == torch.bfloat16 else chip_smoke.GQ_REL_TOL["f32"]
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol * want.float().abs().max().item()
 
 
 @pytest.mark.cuda
@@ -401,7 +450,7 @@ def test_q4_form_by_rows(cuda):
     assert [_build.query("sdtpu_q4_form", 1, m) for m in edges] == [3] * len(edges)
     g = torch.Generator(device=cuda).manual_seed(0)
     qt = _q4_weight(g, 256, 512, 32, cuda)
-    counts = ("launches_gemv", "launches_wgmma", "launches_f32")
+    counts = ("launches_gemv", "launches_mma", "launches_wgmma", "launches_f32")
     for dtype in (torch.bfloat16, torch.float32):
         for m in edges:
             x = torch.randn((m, 512), generator=g, device=cuda, dtype=dtype)
@@ -409,7 +458,7 @@ def test_q4_form_by_rows(cuda):
             quant.q4_matmul(x, qt)
             form = _build.query("sdtpu_q4_form", _build.DTYPE_CODES[dtype], m)
             assert [getattr(quant.q4_matmul, c) for c in counts] == [
-                before[0] + (form == 0), before[1] + (form == 2), before[2] + (form == 3)]
+                b + (form == f) for f, b in enumerate(before)]
 
 
 @pytest.mark.cuda

@@ -337,6 +337,7 @@ def _entry_points():
     return {
         "create_pipeline": factory.create_pipeline, "DiffusionPipeline": pipeline.DiffusionPipeline,
         "FluxConditioner": conditioner.FluxConditioner,
+        "SD3Conditioner": conditioner.SD3Conditioner,
         "load_flux_diffusion": loader.load_flux_diffusion,
         "diffusion_to_device": loader.diffusion_to_device, "synthesize": weights.synthesize,
         "from_jax_params": weights.from_jax_params, "repack_q4": weights.repack_q4,

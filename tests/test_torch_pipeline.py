@@ -193,8 +193,25 @@ def test_unported_requests_raise(pipes):
     _, tp = pipes
     with pytest.raises(NotImplementedError, match="heun"):
         tp.generate(_gp(sample_method="heun"))
-    with pytest.raises(NotImplementedError, match="SD3"):
-        create_pipeline(SDVersion.SD3, small=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="WAN2"):
+        create_pipeline(SDVersion.WAN2, small=True, device="cpu")
+
+
+def test_slg_is_refused_under_cfg(pipes):
+    """The JAX FLUX diffusion function takes ``skip_layers``, so the JAX
+    pipeline runs Skip-Layer Guidance under CFG: the port raises by name
+    there, and without CFG ignores it as the JAX pipeline does."""
+    import inspect
+
+    jp, tp = pipes
+    assert "skip_layers" in inspect.signature(jp.diffusion_fn).parameters
+    with pytest.raises(NotImplementedError, match="slg_scale"):
+        tp.generate(_gp(slg_scale=2.5))
+    no_cfg = _gp(cfg_scale=1.0, sample_steps=2)
+    got = tp.generate(dataclasses.replace(no_cfg, slg_scale=2.5))
+    want = jp.generate(_jgp(dataclasses.replace(no_cfg, slg_scale=2.5)))
+    np.testing.assert_allclose(got.latents, want.latents, rtol=5e-4, atol=5e-4)
+    assert np.array_equal(got.latents, tp.generate(no_cfg).latents)
 
 
 def test_create_pipeline_defaults_to_float32_as_the_reference():

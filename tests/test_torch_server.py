@@ -6,8 +6,9 @@ on ``127.0.0.1``.  The same requests to both give images at most one uint8
 level apart with equal ``parameters`` text; an async job reports its
 progress and completes, a queued job cancels; unported routes answer 501,
 unported request fields 400.  ``server.main`` also loads a small SDXL file
-with a TAESD-XL decoder (``tests/_torch_files.py``) and answers an A1111
-request with the JAX CLI's image on the same files.
+with a TAESD-XL decoder (``tests/_torch_files.py``), and a small SD3.5 file
+set, and answers an A1111 request with the JAX CLI's image on the same
+files.
 """
 import base64
 import io
@@ -35,7 +36,8 @@ from sdtpu_torch.weights import from_jax_params
 
 sys.path.insert(0, os.path.dirname(__file__))  # tests/_torch_files.py
 
-from _torch_files import small_sdxl_configs, write_small_sdxl_file, write_small_tae_file  # noqa: E402
+from _torch_files import (small_sd3_configs, small_sdxl_configs, write_small_sd3_files,  # noqa: E402
+                          write_small_sdxl_file, write_small_tae_file)
 
 
 def _serve(httpd):
@@ -222,6 +224,46 @@ def test_sdxl_server_answers_a1111_lcm_from_files(monkeypatch, tmp_path):
     assert jcli.main(["-m", model, "--taesd", tae, "-p", body["prompt"], "-W", "64", "-H", "64",
                       "--steps", "2", "--cfg-scale", "1", "-s", "42", "--sampling-method", "lcm",
                       "-o", png]) == 0
+    from PIL import Image  # as _png reads the answers
+
+    theirs = np.asarray(Image.open(png)).astype(int)
+    assert ours.shape == theirs.shape and np.abs(ours - theirs).max() <= 1
+
+
+def test_sd3_server_answers_a1111_dpmpp2m_from_files(monkeypatch, tmp_path):
+    """``server.main`` on a small SD3.5 set (``-m`` with the MMDiT and the
+    VAE, ``--clip_l``, ``--clip_g``, ``--t5xxl``) answers the bench's request
+    on the A1111 route (``sampler_name`` dpm++2m, CFG 4.5, a negative
+    prompt): the JAX CLI's image on the same files and request, within one
+    uint8 level.  (The A1111 display name "DPM++ 2M" maps to ``dpm++_2m`` in
+    both servers, which no sampler takes:
+    ``test_unported_request_fields_fail_by_name``.)"""
+    small_sd3_configs(monkeypatch)
+    monkeypatch.setenv("SDTPU_COMPILE_CACHE", str(tmp_path / "xla"))
+    p = write_small_sd3_files(tmp_path)
+    files = ["-m", p["model"], "--clip_l", p["clip_l"], "--clip_g", p["clip_g"], "--t5xxl", p["t5xxl"]]
+    box = queue.Queue()
+    thread = threading.Thread(target=server.main, daemon=True, kwargs=dict(
+        argv=files + ["--backend", "cpu", "--port", "0"], ready=box.put))
+    thread.start()
+    httpd = box.get(timeout=300)
+    try:
+        body = {"prompt": "a photograph of an astronaut riding a horse", "negative_prompt": "blurry",
+                "width": 64, "height": 64, "steps": 3, "cfg_scale": 4.5, "seed": 42,
+                "sampler_name": "dpm++2m"}
+        code, resp = _call(f"http://127.0.0.1:{httpd.server_address[1]}", "/sdapi/v1/txt2img", body)
+        version = httpd.manager.pipeline.version.value
+    finally:
+        httpd.shutdown()
+        thread.join(timeout=60)
+    assert code == 200, resp
+    assert version == "sd3"
+    ours, params = _png(resp["images"][0])
+    assert "Sampler: dpm++2m" in params and ours.std() > 0
+    png = str(tmp_path / "jax.png")
+    assert jcli.main(files + ["-p", body["prompt"], "-n", "blurry", "-W", "64", "-H", "64",
+                              "--steps", "3", "--cfg-scale", "4.5", "-s", "42",
+                              "--sampling-method", "dpm++2m", "-o", png]) == 0
     from PIL import Image  # as _png reads the answers
 
     theirs = np.asarray(Image.open(png)).astype(int)
