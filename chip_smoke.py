@@ -35,8 +35,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      attention over 154 + 4096 = 4250 tokens, ragged on every tile, and
      MMDiT-X's self-attention over 4096; both dtypes, the bf16 faults as
      SDXL's); the 4-bit matmul also at T5-XXL's three shapes over SD3's 77
-     tokens (groups 64 and 32, bf16 in its mma.sync form and float32, each
-     also on the device clock beside ``_weight_int4pack_mm``); flash's bound
+     tokens (groups 64 and 32, bf16 in its split-K form and float32, each
+     also on the device clock beside ``_weight_int4pack_mm``), and every bf16
+     case of 9 to 128 rows on the device clock (the split-K form at 16, 64,
+     77 and 100 rows and at the wgmma threshold's 127 against 128), each
+     split-K case with its ``splits`` and, as a fault that must exceed the
+     limit, the plain split-and-combine with its last K split dropped; flash's bound
      also counts its B·H·Lq·Lk exponentials at the special-function unit's
      rate, ``bound_by`` "exp" where they bound it; a flash case under 0.1 ms
      also records the kernel's and SDPA's device time a call,
@@ -127,7 +131,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      SD3-Medium in float32) answers it at 512² and 2 steps.  On both, flash
      at D 64 launches 37 a forward (24 for SD3-Medium) times the forwards
      plus 44 a prompt encode (CLIP-L and CLIP-G), D 512 once a decode, the
-     4-bit matmul 168 a prompt encode in the path's form (bf16: the mma.sync
+     4-bit matmul 168 a prompt encode in the path's form (bf16: the split-K
      form at T5's 77 rows, no wgmma or GEMV launch; float32: its float32
      form), and on the card no attention runs in the plain version but T5's
      24 a prompt encode (its relative-position bias, as in the JAX package).
@@ -172,8 +176,9 @@ Every path of phases 5-11 sets the kernels' launch counts to 0 before it runs
 and reads them after: each kernel that path runs must have launched.  The
 4-bit kernel's TMA + wgmma form (M >= 128) and its weight-streaming GEMV
 (M <= 8) are counted apart as well, as ``q4_matmul_wgmma`` and
-``q4_matmul_gemv``; the ``q4_0`` path must run its M = 1 linears through
-the GEMV and no call through the ``mma.sync`` form.
+``q4_matmul_gemv``, and its split-K form (8 < M < 128) as
+``q4_matmul_splitk``; the ``q4_0`` path must run its M = 1 linears through
+the GEMV and no call through the split-K form.
 The W8A8, group-dequant and W8A16 wrappers count their weight-streaming
 GEMV (M <= 8) and their ``mma.sync`` form apart (``w8a8_matmul_gemv``,
 ``w8a8_matmul_mma``, ``gq_matmul_gemv``, ``gq_matmul_mma``,
@@ -233,8 +238,8 @@ KERNEL_INFO = {
     "q4_matmul_wgmma": (Q4_SRC, "sdtpu/ops/quant.py:845"),
     "q4_matmul_gemv": (Q4_SRC, "sdtpu/ops/quant.py:845"),
     "q4_matmul_f32": (Q4_SRC, "sdtpu/ops/quant.py:845"),
-    # the bf16 mma.sync form (M 9-127): T5-XXL over SD3's 77 tokens
-    "q4_matmul_mma": (Q4_SRC, "sdtpu/ops/quant.py:845"),
+    # the bf16 split-K form (M 9-127): T5-XXL over SD3's 77 tokens
+    "q4_matmul_splitk": (Q4_SRC, "sdtpu/ops/quant.py:845"),
     "gq_matmul": (GQ_SRC, "sdtpu/ops/quant.py:616"),
     "gq_matmul_ws": (GQ_SRC, "sdtpu/ops/quant.py:652"),
     "gq_zero_matmul": (GQ_SRC, "sdtpu/ops/quant.py:687"),
@@ -347,34 +352,36 @@ SD3_MMDIT_ATTENTION_CALLS = {64: 24 + 13}
 # output, CLIP-G's 31 and its top one
 SD3_CLIP_ATTENTION_CALLS = 11 + 1 + 31 + 1
 # T5-XXL linears of one SD3 prompt encode (q, k, v, o, wi_0, wi_1, wo in each
-# of 24 blocks, over 77 tokens: the 4-bit matmul's M = 77 mma.sync form)
+# of 24 blocks, over 77 tokens: the 4-bit matmul's M = 77 split-K form)
 SD3_T5_LINEARS = 7 * 24
 # (M, K, N, group) of the 4-bit kernel.  T5-XXL (M = 256 tokens per prompt:
 # q/k/v/o, wi_0/wi_1, wo) and one ragged case at groups 64, 32 and 16; the
 # q4_0 DiT at group 32 (a q4_0 GGUF's blocks): its MLP and linear2 widths at
 # the 1024² request's 4352 tokens (the double blocks run the image's 4096 and
 # the text's 256 apart), linear1 at the 512² request's 1280, img_in (K = 64),
-# the wgmma threshold's edges (127 takes the mma.sync form); the GEMV's M = 1
+# the wgmma threshold's edges (127 takes the split-K form); the GEMV's M = 1
 # linears (double-block and single-block modulation, the embedders' 256- and
 # 768-wide inputs and their 3072-wide second layers), the double block's
 # modulation at M = 2, 4 and 8 (batch, CFG) and at M = 9 (the first
-# mma.sync row); groups 16 and 64 at one large-M and one M = 1 shape.
+# split-K row); groups 16 and 64 at one large-M and one M = 1 shape; the
+# split-K form at each of its x tiles (M = 16, 64, 100; 77 below) on a
+# 4096-wide T5 linear at group 64, and T5's 77 rows at group 16.
 Q4_T5_SHAPES = [(256, 4096, 4096), (256, 4096, 10240), (256, 10240, 4096), (77, 640, 1001)]
 Q4_DIT_SHAPES = [(4352, 3072, 12288), (4352, 12288, 3072), (4352, 15360, 3072),
                  (1280, 3072, 21504), (4096, 64, 3072), (127, 3072, 12288), (128, 3072, 12288),
                  (129, 3072, 12288), (1, 3072, 18432), (1, 3072, 9216), (1, 3072, 3072),
                  (1, 256, 3072), (1, 768, 3072), (2, 3072, 18432), (4, 3072, 18432),
                  (8, 3072, 18432), (9, 3072, 18432)]
-# T5-XXL over SD3's 77 tokens (q/k/v/o, wi_0/wi_1, wo): the bf16 mma.sync
+# T5-XXL over SD3's 77 tokens (q/k/v/o, wi_0/wi_1, wo): the bf16 split-K
 # form and the float32 form, at the synthesized T5's group 64 and at 32
 Q4_SD3_T5_SHAPES = [(77, 4096, 4096), (77, 4096, 10240), (77, 10240, 4096)]
 Q4_SD3_CASES = [(*s, g) for g in (64, 32) for s in Q4_SD3_T5_SHAPES]
 Q4_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES] + [(*s, 32) for s in Q4_DIT_SHAPES]
             + [(s, 3072, n, g) for g in (16, 64) for s, n in ((4352, 12288), (1, 18432))]
-            + Q4_SD3_CASES)
+            + Q4_SD3_CASES + [(m, 4096, 4096, 64) for m in (16, 64, 100)] + [(77, 4096, 4096, 16)])
 # the float32 form (the default pipeline's T5-XXL): T5's shapes at groups 64,
 # 32 and 16, a 4096-wide T5 linear at M = 1, 9 and 128 (the bf16 forms'
-# rows: GEMV, mma.sync, wgmma), and a q4_0 DiT linear at 1024² kept at the
+# rows: GEMV, split-K, wgmma), and a q4_0 DiT linear at 1024² kept at the
 # default dtype, at groups 32 and 16 (the 128-row tile)
 Q4_F32_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES]
                 + [(m, 4096, 4096, 64) for m in (1, 9, 128)]
@@ -385,7 +392,7 @@ Q4_F32_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES]
 # a truncating MMA chain would show), and a ragged shape
 W8A16_F32_CASES = [(1, 3072, 18432), (9, 3072, 18432), (128, 3072, 12288), (4352, 3072, 12288),
                    (4352, 12288, 3072), (4352, 15360, 3072), (300, 1040, 130)]
-Q4_FORMS = ("gemv", "mma", "wgmma", "f32")  # sdtpu_q4_form's codes
+Q4_FORMS = ("gemv", "splitk", "wgmma", "f32")  # sdtpu_q4_form's codes
 GQ_FORMS = ("gemv", "mma", "wgmma", "f32")  # sdtpu_gq_form's codes
 W8A8_FORMS = ("gemv", "mma", "wgmma")  # sdtpu_w8a8_form's codes
 Q4_DIT_GROUP = 32
@@ -571,13 +578,13 @@ PATH_KERNELS["sd15_f32"] = ("flash_attention", "flash_attention_f32", *UNET_FLAS
 PATH_IDLE["sd15_f32"] = (*QUANT_KERNELS, "flash_attention_d64", "flash_attention_d512",
                          "q4_matmul_f32", "w8a16_matmul_f32", "gq_matmul_f32", "gq_zero_matmul_f32")
 # SD3 (a dense MMDiT, CLIP-L and CLIP-G, a 4-bit T5-XXL): flash at D 64 (the
-# MMDiT and both CLIPs) and D 512 (the VAE), the 4-bit matmul in its mma.sync
+# MMDiT and both CLIPs) and D 512 (the VAE), the 4-bit matmul in its split-K
 # form only (77 T5 rows); on the entry paths T5 is dequantized (no 4-bit
 # call), as the JAX CLI stages it
-Q4_BF16_FORMS = ("q4_matmul_wgmma", "q4_matmul_gemv", "q4_matmul_mma")
+Q4_BF16_FORMS = ("q4_matmul_wgmma", "q4_matmul_gemv", "q4_matmul_splitk")
 OTHER_QUANT = tuple(k for k in QUANT_KERNELS if k != "q4_matmul")
 PATH_KERNELS["sd3"] = ("flash_attention", "flash_attention_d64", "flash_attention_d512", "q4_matmul",
-                       "q4_matmul_mma")
+                       "q4_matmul_splitk")
 PATH_IDLE["sd3"] = (*OTHER_QUANT, "q4_matmul_wgmma", "q4_matmul_gemv", *F32_FORMS, *UNET_FLASH)
 for _path in ("sd3_cli", "sd3_server"):
     PATH_KERNELS[_path] = ("flash_attention", "flash_attention_d64", "flash_attention_d512")
@@ -1149,12 +1156,28 @@ def _int4pack_library(x, qt, want):
     return _yardstick(lambda: torch._weight_int4pack_mm(x, w, qt.group, sz), want)
 
 
+def _drop_split_fault(x, qt, want, splits: int) -> dict:
+    """The split-K form's fault, in plain PyTorch on the case's inputs: the
+    ``splits`` K splits summed without the last one (with one split, the
+    whole sum dropped)."""
+    import torch
+
+    from sdtpu_torch.ops import quant
+
+    parts = quant.split_k_partials(x, qt, splits)
+    got = quant.combine_splits(parts[:-1], x.dtype) if len(parts) > 1 else torch.zeros_like(want)
+    return {"drop_k_split": (got.float() - want.float()).abs().max().item()}
+
+
 def check_q4(results):
     """Each Q4_CASES shape in bf16 and each Q4_F32_CASES shape in float32,
     with random packed bytes and random scales (a wrong nibble or group index
-    shows); ``form`` is the form the library ran (``Q4_FORMS``) and
+    shows); ``form`` is the form the library ran (``Q4_FORMS``),
     ``tile_rows`` the x-row tile the launcher gave the wgmma form (0: another
-    form)."""
+    form) and ``splits`` the K splits of the split-K form (0: another form),
+    whose cases also read the last split dropped as a fault.  bf16 cases of
+    at most ``Q4_WGMMA_MIN_M`` rows and T5's 77-row shapes in float32 are
+    read on the device clock too."""
     import torch
 
     from sdtpu_torch.ops import _build, quant
@@ -1175,16 +1198,23 @@ def check_q4(results):
         got = quant.q4_matmul(x, qt)
         want = quant.q4_matmul_plain(x, qt)
         library, note = _int4pack_library(x, qt, want)
+        form = Q4_FORMS[_build.query("sdtpu_q4_form", _build.DTYPE_CODES[dtype], m)]
+        splits = _build.query("sdtpu_q4_splits", m, n, k) if form == "splitk" else 0
         faults, f64 = (None, {}) if dt == "bf16" else _f32_matmul_checks(
             x, quant.dequantize_q4(qt, torch.float32), got, want)
+        if splits:  # the reduction's order is fixed: a second call is bit-identical
+            faults = _drop_split_fault(x, qt, want, splits)
+            if not torch.equal(quant.q4_matmul(x, qt), got):
+                raise RuntimeError(f"q4_matmul {m}x{k}->{n} g{group}: two calls differ")
         _compare(results, "q4_matmul", (m, k, n), got, want,
                  Q4_REL_TOL if dt == "bf16" else GQ_REL_TOL["f32"],
                  lambda: quant.q4_matmul(x, qt), lambda: quant.q4_matmul_plain(x, qt),
                  iters_for(2.0 * m * n * k),
                  quant_bound(m, k, n, nbytes(x, qt.packed, qt.scale, got), dt),
                  library=library, library_note=note, faults=faults, **f64, group=group, dtype=dt,
-                 form=Q4_FORMS[_build.query("sdtpu_q4_form", _build.DTYPE_CODES[dtype], m)],
-                 tile_rows=_tile_rows(dt, m, n), device_clock=(m, k, n) in Q4_SD3_T5_SHAPES)
+                 form=form, tile_rows=_tile_rows(dt, m, n), splits=splits,
+                 device_clock=(m, k, n) in Q4_SD3_T5_SHAPES or (
+                     dt == "bf16" and m <= quant.Q4_WGMMA_MIN_M))
         del x, qt, got, want, library
 
 
@@ -1278,14 +1308,14 @@ def check_w8a16(results):
         del x, qt, got, want, library
 
 
-def _check_m1_linears(path: str, gemv: int, mma: int, requests) -> None:
+def _check_m1_linears(path: str, gemv: int, mid: int, requests) -> None:
     """A path's GEMV ran every M = 1 linear of the DiT (DIT_M1_PER_STEP a
-    step, M = 4 under CFG with a batch of two) and its mma.sync form ran
-    nothing."""
+    step, M = 4 under CFG with a batch of two) and its form for 8 < M < 128
+    (``mma.sync``, or the 4-bit split-K form) ran nothing."""
     want = DIT_M1_PER_STEP * sum(r["sample_steps"] for r in requests)
-    if gemv != want or mma:
+    if gemv != want or mid:
         raise RuntimeError(f"path {path}: {gemv} GEMV launches, not the {want} M = 1 linears, "
-                           f"and {mma} mma.sync launches, not 0")
+                           f"and {mid} launches of the 8 < M < 128 form, not 0")
 
 
 def _rel(a, b) -> float:
@@ -2224,7 +2254,7 @@ def _check_sd3_launches(path: str, counts: dict, forwards: int, encodes: int, de
     MMDiT forward times the forwards plus ``SD3_CLIP_ATTENTION_CALLS`` a
     prompt encode; the VAE's D 512 once a decode; the 4-bit matmul
     ``SD3_T5_LINEARS`` times a prompt encode, all in the path's form (bf16
-    ``mma.sync`` at 77 rows, or float32), none where T5 was dequantized
+    split-K at 77 rows, or float32), none where T5 was dequantized
     (``t5_q4`` False: the entry points); and on the card no attention ran in
     the plain version but T5's ``SD3_T5_LAYERS`` a prompt encode."""
     d64 = mmdit_calls * forwards + SD3_CLIP_ATTENTION_CALLS * encodes
@@ -2238,7 +2268,7 @@ def _check_sd3_launches(path: str, counts: dict, forwards: int, encodes: int, de
                "flash_other": counts["flash_attention"] - counts["flash_attention_d64"]
                - counts["flash_attention_d512"]}
         want = {"flash_d64": d64, "flash_d512": decodes, "flash_other": 0}
-    got.update(q4_t5=counts["q4_matmul_f32" if f32 else "q4_matmul_mma"], q4_all=counts["q4_matmul"],
+    got.update(q4_t5=counts["q4_matmul_f32" if f32 else "q4_matmul_splitk"], q4_all=counts["q4_matmul"],
                plain_attention_on_card_besides_t5=plain["calls"] - SD3_T5_LAYERS * encodes)
     want.update(q4_t5=q4, q4_all=q4, plain_attention_on_card_besides_t5=0)
     if got != want:
@@ -2562,7 +2592,7 @@ def main() -> int:
                 "w8a8_matmul_mma": (quant.quant_matmul_w8a8, "launches_mma"),
                 "q4_matmul_wgmma": (quant.q4_matmul, "launches_wgmma"),
                 "q4_matmul_gemv": (quant.q4_matmul, "launches_gemv"),
-                "q4_matmul_mma": (quant.q4_matmul, "launches_mma"),
+                "q4_matmul_splitk": (quant.q4_matmul, "launches_splitk"),
                 "gq_matmul_gemv": (quant.gq_matmul, "launches_gemv"),
                 "gq_matmul_mma": (quant.gq_matmul, "launches_mma"),
                 "w8a16_matmul_gemv": (quant.w8a16_matmul, "launches_gemv"),
@@ -2629,7 +2659,7 @@ def main() -> int:
                                       lambda: answer(pipe, GGUF_REQUESTS, card, "q4_0"))
     reports += rep
     q4c = launches["q4_0"]
-    _check_m1_linears("q4_0", q4c["q4_matmul_gemv"], q4c["q4_matmul_mma"], GGUF_REQUESTS)
+    _check_m1_linears("q4_0", q4c["q4_matmul_gemv"], q4c["q4_matmul_splitk"], GGUF_REQUESTS)
     if args.profile:
         prof["q4_0"] = profile_request(pipe, GGUF_REQUESTS[-1], args.profile, "q4_0", card)
     del pipe
@@ -2695,7 +2725,7 @@ def main() -> int:
                 "q4_matmul_f32": ([256, 4096, 10240], {"group": 64}),
                 "q4_matmul_wgmma": ([4352, 3072, 12288], {"group": 32}),
                 "q4_matmul_gemv": ([1, 3072, 18432], {"group": 32}),
-                "q4_matmul_mma": ([77, 4096, 10240], {"group": 64, "dtype": "bf16"})}
+                "q4_matmul_splitk": ([77, 4096, 10240], {"group": 64, "dtype": "bf16"})}
     for name in ("gq_matmul", "gq_matmul_ws", "gq_zero_matmul"):
         headline[name] = ([4352, 3072, 12288], {"group": 32, "dtype": "bf16"})
     headline["w8a16_matmul"] = ([4352, 3072, 12288], {"dtype": "bf16"})
@@ -2721,6 +2751,9 @@ def main() -> int:
                         "max_abs_err": max(c["max_abs_err"] for c in mine),
                         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                         **by, "library_ms": head["library_ms"]})
+        # the device clock's reading and the K splits, where the case has them
+        kernels[-1].update({key: head[key] for key in ("device_ms", "library_device_ms", "splits")
+                            if head.get(key)})
         if name in (*UNET_FLASH, "flash_attention_d64"):  # the float32 form at the same shape
             f32 = next(c for c in cases if c["kernel"] in (name, "flash_attention_f32")
                        and c["shape"] == shape and c["dtype"] == "f32")

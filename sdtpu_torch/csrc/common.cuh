@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+
 namespace sdtpu {
 
 // Element types the C entry points accept, as an int code.
@@ -377,6 +379,13 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool v
                "r"(valid ? 4 : 0)
                : "memory");
 }
+// The same for N = 4, 8 or 16 bytes (source and destination N-byte aligned).
+template <int N>
+__device__ __forceinline__ void cp_async_n(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(N),
+               "r"(valid ? N : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
@@ -389,6 +398,35 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
 // this warp's arrivals plus the waiting warps' named_bar_sync.
 __device__ __forceinline__ void named_bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Thread-block clusters: this block's rank in its cluster; a barrier over
+// every thread of the cluster (shared-memory writes before it are visible to
+// the cluster's reads after it); a shared address of this block mapped to
+// the same offset in block `rank` of the cluster; a 16-byte load from such
+// an address (distributed shared memory).
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();  // .aligned: the whole warp, converged
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");  // release
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");    // acquire
+}
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // 2^x on the special-function unit (MUFU.EX2: 16 a clock per SM), inputs
@@ -685,6 +723,39 @@ __device__ __forceinline__ void wgmma_m64n192k16_bf16_rs(float (&d)[96], const u
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TransB));
+}
+
+// m64n80k16 and m64n32k16 with A from registers (TransB as above; the 4-bit
+// split-K kernel's 80- and 32-row x tiles).
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n80k16_bf16_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39 " "}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TransB));
+}
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n32k16_bf16_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 " "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TransB));
 }
 
@@ -1068,6 +1139,400 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, i
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+
+// ------------------------------------------------------------------------
+// Split-K weight-streaming GEMM for 8 < M < 128 bf16 rows of x against a
+// quantized weight: out[m, n] = sum_k x[m, k] * w[n, k], the widening a
+// policy W (as weight_gemv's).  The 4-bit matmul's middle form
+// (q4_matmul.cu) instantiates it; T5-XXL over SD3's 77 tokens runs it.
+//
+// What bounds it on the card: at M = 77 a 4-bit weight does 2 * 80 = 160
+// products a byte, about the H100's ridge (989 TFLOP/s over 3.35 TB/s is
+// 295 operations a byte), so the bytes and the tensor cores bound it alike
+// (77x4096->4096: 0.0032 ms of bytes, 0.0026 ms of bf16 products at 80
+// rows).  Both want every SM busy and each SM's loads, widening and wgmma
+// overlapped.
+//
+// Operands are swapped as in q4_wgmma_kernel: a block owns kSplitBN = 128
+// weight rows (the wgmma M, 64 per consumer warpgroup) and every x row, one
+// x tile of XN rows (the wgmma N: 32, 64, 80 or 128, the first that holds
+// M), so no weight tile is fetched or widened twice.  A producer warp
+// TMA-loads the packed tile (unswizzled rows of W::kRowBytes) and the bf16 x
+// tile (128-byte swizzle) of each 64-k stage into a ring under full / empty
+// mbarriers and cp.asyncs each row's f32 group scales of the stage beside
+// them; each consumer warpgroup builds its register-A fragments from the
+// stage's bytes with W::row_pairs (the widened weight never touches shared
+// memory) while the previous stage's wgmma run (fragments double-buffered).
+//
+// Filling the card: a band of 128 weight rows is a cluster of `splits`
+// blocks (1 to 8, the portable cluster size), block r of which takes the
+// r-th run of ceil(stages / splits) 64-k stages; the launcher picks the
+// count whose grid costs least, counted as waves of clusters (as many as
+// cudaOccupancyMaxActiveClusters says fit) x (stages a block +
+// kSplitFixed).  On an H100 (132 SMs) 77x4096->4096 and 77x10240->4096 take
+// 32 bands x 3 splits, 77x4096->10240 80 bands unsplit.  The reduction is
+// deterministic and needs no workspace and no second launch: each block
+// writes its f32 partial tile [XN][128] into its own (now idle) x ring, the
+// cluster synchronises, and block r sums x rows [r * ceil(M / splits), ...)
+// of all the cluster's partials through distributed shared memory in split
+// order (0, 1, ...), rounds once to bf16 and stores them; a second cluster
+// barrier keeps every block's shared memory alive until its peers have read
+// it.  An unsplit call stores its accumulators directly.
+//
+// What holds it: the consumers.  On an NVIDIA H100 80GB HBM3 at 700 W
+// (device clock, chip_smoke.py and sdtpu_torch/tools/time_dequant.py)
+// 77x4096->4096 and 77x10240->4096, both 32 bands x 3 splits, 22 and 54
+// stages a block, take 0.0167 and 0.0323 ms: ~0.5 us a stage and ~6 us
+// fixed (launch, first loads, the cluster reduction).  Timing-only development variants (wrong
+// answers; not kept, nor their numbers) showed the stage's widening and its
+// four chained m64n80k16 adding up rather than overlapping, the memory side
+// hidden (the ring filled once and never waited on ran about as fast), and
+// none of these overlapping them better: A from shared memory instead of
+// registers, two accumulator chains, triple-buffered fragments, the next
+// stage widened between this stage's wgmma, the warpgroups taking turns to
+// issue, four consumer warpgroups (256-row bands, half the x reads), the
+// partial tiles pushed to their summing block with one cluster barrier, and
+// eight weight rows a thread in the sum (each slower).  So the launcher
+// splits only where the grid would otherwise leave most SMs idle
+// (kSplitFixed: ~12 stages), and an unsplit call skips the reduction.
+//
+// x traffic: each band re-reads its x columns from L2, XN x 2 bytes a k
+// against the band's 64 bytes of packed weight a k (2.5x at XN = 80); the
+// 256-row bands that halve it ran no faster (above): L2 serves these reads
+// (0.63 MB of x at 77x4096) within the consumers' time.
+//
+// The policy W gives:
+//   kKPerByte         weights a byte (2: packed nibbles, 1: int8);
+//   kRowBytes         bytes of a weight row in a 64-k stage (64 / kKPerByte);
+//   row_pairs<G>(row, srow, tq, f)  the thread's bf16x2 register-A pairs of
+//                     one weight row from its stage bytes `row` and its f32
+//                     group scales `srow` (one a group of G in the stage):
+//                     f[kk][h] holds k = 16 kk + 8 h + 2 tq and + 1.
+constexpr int kSplitBN = 128;       // weight rows a block: two consumer warpgroups x 64 (wgmma M)
+constexpr int kSplitBK = 64;        // K a stage: 128 bytes of an x row
+constexpr int kSplitThreads = 384;  // warpgroups 0-1: consumers; 2: producer (its first warp)
+constexpr int kSplitMax = 8;        // splits a call: the portable cluster size
+constexpr int kSplitSTile = kSplitBN * (kSplitBK / 16) * 4;  // a stage's f32 scales, G >= 16
+constexpr int kSplitPRow = kSplitBN + 4;  // floats a row of the partial tile: conflict-free stores
+constexpr int kSplitFixed = 12;     // a block's fixed cost in stages: pipeline fill, reduction
+constexpr int kSplitRing = 200 * 1024;  // shared bytes the ring may take
+
+// x rows a block (the wgmma N) at m rows
+constexpr int splitk_cols(int m) {
+  return m <= 32 ? 32 : m <= 64 ? 64 : m <= 80 ? 80 : 128;
+}
+
+template <class W, int XN>
+struct SplitKSmem {
+  static constexpr int kXTile = XN * kSplitBK * 2;  // whole 1 KB swizzle atoms
+  static constexpr int kWTile = kSplitBN * W::kRowBytes;
+  static constexpr int kStage = kXTile + kWTile + kSplitSTile;
+  static constexpr int kStages = kSplitRing / kStage < 12 ? kSplitRing / kStage : 12;
+  static constexpr int kBytes = 1024 + kStages * kStage + 2 * kStages * 8;
+  static_assert(kStages * kXTile >= XN * kSplitPRow * 4, "split-K: the partial tile must fit the x ring");
+  static_assert(kBytes <= 232448, "split-K: shared memory over the 227 KB a block may use");
+};
+
+// acc += W_tile . x_tile^T for one k16 step, wgmma N = XN
+template <int XN>
+__device__ __forceinline__ void splitk_wgmma(float (&acc)[XN / 2], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  if constexpr (XN == 128) {
+    wgmma_m64n128k16_bf16_rs<0>(acc, a, desc_b, 1);
+  } else if constexpr (XN == 80) {
+    wgmma_m64n80k16_bf16_rs<0>(acc, a, desc_b, 1);
+  } else if constexpr (XN == 64) {
+    wgmma_m64n64k16_bf16_rs<0>(acc, a, desc_b, 1);
+  } else {
+    wgmma_m64n32k16_bf16_rs<0>(acc, a, desc_b, 1);
+  }
+}
+
+// out[0:m, n0:n0 + 128] of one block of the cluster: xmap the bf16 x [m, k]
+// (box 64 x XN), wmap the weight bytes [n, kp / kKPerByte] (box kRowBytes x
+// 128), scale f32 [n, kp / G]; the grid is ceil(n / 128) clusters of
+// `splits` blocks.
+template <class W, int G, int XN>
+__device__ __forceinline__ void splitk_gemm(const CUtensorMap* xmap, const CUtensorMap* wmap,
+                                            const float* __restrict__ scale,
+                                            __nv_bfloat16* __restrict__ out, int m, int n, int k,
+                                            int kp, int splits) {
+  using S = SplitKSmem<W, XN>;
+  constexpr int kStages = S::kStages;
+  constexpr int GPS = kSplitBK / G;  // scale groups a row per stage: 4, 2 or 1
+  extern __shared__ __align__(16) uint8_t splitk_smem[];
+  const uint32_t raw = smem_u32(splitk_smem);
+  const uint32_t x_base = (raw + 1023) & ~1023u;  // swizzle atoms: 1 KB aligned
+  const uint32_t w_base = x_base + kStages * S::kXTile;
+  const uint32_t s_base = w_base + kStages * S::kWTile;
+  const uint32_t bars = s_base + kStages * kSplitSTile;
+  uint8_t* smem = splitk_smem - raw;  // generic pointer of shared address 0
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int n0 = (blockIdx.x / splits) * kSplitBN;
+  const int ktiles = (k + kSplitBK - 1) / kSplitBK;  // stages past K would add zeros
+  const int per = (ktiles + splits - 1) / splits;
+  const int kt0 = rank * per;
+  const int nk = max(0, min(ktiles, kt0 + per) - kt0);  // this block's stages
+  const int groups = kp / G;
+
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1 + 32);  // the TMA arrival, plus one cp.async arrival per producer lane
+      mbar_init(empty(s), 8);      // the consumers' eight warps
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: the first warp; lane 0 issues the TMA loads, all lanes
+    // cp.async the stage's scales, one copy of 4 * GPS bytes a row (a scale
+    // row is kp / G x 4 bytes, not always the 16-byte multiple a TMA map
+    // needs; a stage's GPS groups are 4 * GPS-byte aligned)
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 256 + 32) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % kStages, kt = kt0 + i;
+        mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full(s), S::kXTile + S::kWTile);
+          tma_load_2d(x_base + s * S::kXTile, xmap, full(s), kt * kSplitBK, 0);
+          tma_load_2d(w_base + s * S::kWTile, wmap, full(s), kt * W::kRowBytes, n0);
+        }
+        for (int r = lane; r < kSplitBN; r += 32) {
+          const bool valid = n0 + r < n;
+          const size_t off = valid ? static_cast<size_t>(n0 + r) * groups + kt * GPS : 0;
+          cp_async_n<4 * GPS>(s_base + s * kSplitSTile + r * 4 * GPS, scale + off, valid);
+        }
+        cp_async_mbar_arrive(full(s));
+      }
+    }
+    if (splits > 1) {
+      cluster_sync();  // the cluster's partial tiles are written
+      cluster_sync();  // and read
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = wg * 64 + warp * 16 + g;  // this thread's weight rows in the band: r0, r0 + 8
+
+  // The stage's weight tile widened into the register-A layout of four k16
+  // steps: a[kk] = {(r0, 2tq..+1), (r0+8, 2tq..+1), (r0, 2tq+8..+9),
+  // (r0+8, 2tq+8..+9)} of K columns 16kk..
+  auto widen = [&](uint32_t (&a)[4][4], int s) {
+    const uint8_t* wt = smem + w_base + s * S::kWTile;
+    const float* sc = reinterpret_cast<const float*>(smem + s_base + s * kSplitSTile);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = r0 + 8 * rr;
+      uint32_t f[4][2];
+      W::template row_pairs<G>(wt + row * W::kRowBytes, sc + row * GPS, tq, f);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        a[kk][rr] = f[kk][0];
+        a[kk][2 + rr] = f[kk][1];
+      }
+    }
+  };
+
+  // acc[4j + e]: weight row r0 (+8 for e >= 2), x row 8j + 2tq (+1 for odd e)
+  float acc[XN / 2];
+#pragma unroll
+  for (int i = 0; i < XN / 2; ++i) acc[i] = 0.f;
+  uint32_t a0[4][4], a1[4][4];
+
+  // One stage: issue its four wgmma on `cur`, then, while they run, free
+  // the stage before it and widen the next stage into `nxt` (whose previous
+  // wgmma group is complete after wait<1>).
+  auto step = [&](uint32_t (&cur)[4][4], uint32_t (&nxt)[4][4], int i) {
+    const int s = i % kStages;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      splitk_wgmma<XN>(acc, cur[kk], smem_desc_sw128(x_base + s * S::kXTile + kk * 32, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(acc);
+    fence_regs(nxt);
+    if (i > 0 && lane == 0) mbar_arrive(empty((i - 1) % kStages));
+    if (i + 1 < nk) {
+      const int s1 = (i + 1) % kStages;
+      mbar_wait(full(s1), ((i + 1) / kStages) & 1);
+      widen(nxt, s1);
+    }
+  };
+
+  if (nk > 0) {
+    mbar_wait(full(0), 0);
+    widen(a0, 0);
+    for (int i = 0; i < nk; i += 2) {
+      step(a0, a1, i);
+      if (i + 1 < nk) step(a1, a0, i + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(a0);
+    fence_regs(a1);
+  }
+
+  if (splits == 1) {  // the whole sum: out[m, n] = acc, no reduction
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int nn = n0 + r0 + 8 * h;
+      if (nn >= n) continue;
+#pragma unroll
+      for (int j = 0; j < XN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int mm = 8 * j + 2 * tq + e;
+          if (mm < m) out[static_cast<size_t>(mm) * n + nn] = __float2bfloat16_rn(acc[4 * j + 2 * h + e]);
+        }
+    }
+    return;
+  }
+
+  // This block's partial tile, part[x row][weight row], over its own x ring
+  // once both consumer warpgroups' wgmma are done reading it.
+  __syncwarp();
+  named_bar_sync(1, 256);
+  float* part = reinterpret_cast<float*>(smem + x_base);
+#pragma unroll
+  for (int j = 0; j < XN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        part[(8 * j + 2 * tq + e) * kSplitPRow + r0 + 8 * h] = acc[4 * j + 2 * h + e];
+  cluster_sync();
+
+  // x rows [m_lo, m_hi) of the band: the cluster's partials summed in split
+  // order, four weight rows a thread and step
+  const int rows = (m + splits - 1) / splits;
+  const int m_lo = rank * rows, m_hi = min(m, m_lo + rows);
+  const int items = max(0, m_hi - m_lo) * (kSplitBN / 4);
+  for (int idx = threadIdx.x; idx < items; idx += 256) {
+    const int mm = m_lo + idx / (kSplitBN / 4), c = (idx % (kSplitBN / 4)) * 4;
+    const uint32_t addr = x_base + (mm * kSplitPRow + c) * 4;
+    float4 sum = ld_cluster_f4(cluster_map(addr, 0));
+    for (int q = 1; q < splits; ++q) {
+      const float4 v = ld_cluster_f4(cluster_map(addr, q));
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const int nn = n0 + c;
+    __nv_bfloat16* o = out + static_cast<size_t>(mm) * n + nn;
+    if ((n & 3) == 0 && nn < n) {  // four outputs, 8-byte aligned
+      *reinterpret_cast<uint2*>(o) = make_uint2(pack_bf16x2(sum.x, sum.y), pack_bf16x2(sum.z, sum.w));
+    } else {
+      const float v[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (nn + e < n) o[e] = __float2bfloat16_rn(v[e]);
+    }
+  }
+  cluster_sync();
+}
+
+// Host side: the kernels of this form share one signature.
+using SplitKKernel = void (*)(CUtensorMap, CUtensorMap, const float*, __nv_bfloat16*, int, int, int,
+                              int, int);
+
+// Clusters of `splits` blocks of `kernel` that the card holds at once (the
+// SM count over `splits` where the runtime cannot say).
+inline int splitk_capacity(SplitKKernel kernel, int smem, int splits) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = splits;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits);
+  cfg.blockDim = dim3(kSplitThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg) !=
+          cudaSuccess ||
+      clusters <= 0) {
+    cudaGetLastError();  // not sticky: clear it
+    return sm_count() / splits;
+  }
+  return clusters;
+}
+
+// Splits of K a call takes: of 1 to kSplitMax (at most one a 64-k stage),
+// the count whose grid costs least, counted as waves of clusters x (stages a
+// block + kSplitFixed); a tie keeps fewer.  `capacity(s)`: clusters of s
+// blocks the card holds at once.
+template <class Capacity>
+inline int splitk_splits(int n, int k, Capacity capacity) {
+  const long long bands = ceil_div(n, kSplitBN), ktiles = ceil_div(k, kSplitBK);
+  int best = 1;
+  long long best_cost = LLONG_MAX;
+  for (int s = 1; s <= kSplitMax && s <= ktiles; ++s) {
+    const long long clusters = capacity(s);
+    if (clusters <= 0) continue;
+    const long long cost = (bands + clusters - 1) / clusters * ((ktiles + s - 1) / s + kSplitFixed);
+    if (cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// One launch of a split-K kernel: the TMA maps of x (bf16 [m, k]) and the
+// weight's bytes ([n, kp / W::kKPerByte]), then ceil(n / 128) clusters of
+// `splits` blocks.
+template <class W>
+inline cudaError_t launch_splitk(SplitKKernel kernel, int smem, int xn, const void* x,
+                                 const void* w, const float* scale, void* out, int m, int n, int k,
+                                 int kp, int splits, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(m)};
+  const cuuint64_t xstrides[1] = {static_cast<cuuint64_t>(k) * 2};
+  const cuuint32_t xbox[2] = {kSplitBK, static_cast<cuuint32_t>(xn)};
+  cudaError_t err = make_tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xdims, xstrides, xbox);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(kp / W::kKPerByte), static_cast<cuuint64_t>(n)};
+  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(kp / W::kKPerByte)};
+  const cuuint32_t wbox[2] = {W::kRowBytes, kSplitBN};
+  err = make_tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wdims, wstrides, wbox,
+                        CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = splits;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ceil_div(n, kSplitBN) * splits);
+  cfg.blockDim = dim3(kSplitThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  void* args[] = {&xmap, &wmap, &scale, &o, &m, &n, &k, &kp, &splits};
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace sdtpu

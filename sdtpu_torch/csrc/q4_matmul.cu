@@ -7,10 +7,11 @@
 // Replaces the TPU kernel `_q4_matmul_kernel` (sdtpu/ops/quant.py:845), which
 // computes in x's dtype, through forms chosen by dtype and the row count M
 // alone: for bf16 x `q4_gemv_kernel<G>` for M <= kQ4GemvMaxM,
-// `q4_wgmma_kernel<G, BM>` for M >= kQ4MinM and `q4_gemm_kernel<G>` between
-// them; for float32 x (the default pipeline's T5-XXL) `q4_gemm_f32_kernel<G,
-// BM>` at every M: common.cuh's split-x TF32 tile `f32_quant_gemm` on the
-// tensor cores (x split into two tf32 terms, each nibble - 8 exact in tf32,
+// `q4_wgmma_kernel<G, BM>` for M >= kQ4MinM and `q4_splitk_kernel<G, XN>`
+// between them; for float32 x (the default pipeline's T5-XXL)
+// `q4_gemm_f32_kernel<G, BM>` at every M: common.cuh's split-x TF32 tile
+// `f32_quant_gemm` on the tensor cores (x split into two tf32 terms, each
+// nibble - 8 exact in tf32,
 // the group's scale folded into a float32 master by an fma; bound by 2*M*N*K
 // operations at 495 TFLOP/s TF32, its own floor 2 x that; x-row tile BM 16,
 // 64 or 128 by shape).  The port stores 4-bit weights in its own
@@ -79,122 +80,19 @@
 // warp: the widening costs about as much issue time as the stream takes, so
 // warps that can hide it matter more than deep batches.
 
-// Between them (8 < M < kQ4MinM): `q4_gemm_kernel`, the first form.  Each
-// block unpacks its 128 x 64 weight tile into shared memory as bf16 (f32
-// multiply, then one rounding) beside a 64-row x tile and runs mma.sync
-// m16n8k16 with f32 accumulation; tiles are loaded synchronously.
+// Between them (8 < M < kQ4MinM; T5-XXL over SD3's 77 tokens):
+// `q4_splitk_kernel<G, XN>`, common.cuh's split-K weight-streaming `wgmma`
+// GEMM `splitk_gemm` with the register-A nibble widening of the wgmma form
+// as its policy (`WidenQ4Rows`): operands swapped (128 weight rows a block
+// as the wgmma M, every x row in one tile of XN = 32, 64, 80 or 128 as its
+// N), a TMA ring under full / empty mbarriers, K split across the blocks of
+// a cluster (1 to 8, by shape: `sdtpu_q4_splits` reports it) and reduced
+// through distributed shared memory in split order, one launch and no
+// workspace.
 #include "common.cuh"
-
-#include <climits>
 
 namespace sdtpu {
 namespace {
-
-constexpr int kBM = 64, kBN = 128, kBK = 64;
-constexpr int kRow = kBK + 8;                 // bf16 row padding: 144-byte rows
-constexpr int kThreads = 256;  // 8 warps: 2 along M (32 rows) x 4 along N (32 cols)
-
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-q4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
-               const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
-               int m, int n, int k, int kp) {
-  __shared__ __align__(16) __nv_bfloat16 xs[kBM * kRow];
-  __shared__ __align__(16) __nv_bfloat16 ws[kBN * kRow];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int groups = kp / G;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int k0 = 0; k0 < kp; k0 += kBK) {
-    // x tile: 64 rows x 64 bf16 = 512 chunks of 8 elements.
-    for (int c = tid; c < kBM * kBK / 8; c += kThreads) {
-      const int r = c >> 3, col = (c & 7) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (m0 + r < m && k0 + col < k)
-        val = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * k + k0 + col);
-      *reinterpret_cast<uint4*>(xs + r * kRow + col) = val;
-    }
-    // weight tile: 128 rows x 32 packed bytes = 256 chunks of 16 bytes.
-    {
-      const int r = tid >> 1, half = tid & 1;
-      __nv_bfloat16* dst = ws + r * kRow + half * 32;
-      if (n0 + r < n) {
-        const uint4 pk = *reinterpret_cast<const uint4*>(
-            packed + (size_t)(n0 + r) * (kp / 2) + k0 / 2 + half * 16);
-        // byte i holds k = kb + 2i and kb + 2i + 1
-        const int kb = k0 + half * 32;
-        const float* srow = scale + (size_t)(n0 + r) * groups + kb / G;
-        const float s0 = srow[0];
-        const float s1 = G == 16 ? srow[1] : s0;
-        const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&pk);
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const float sc = i < 8 ? s0 : s1;
-          const float lo = static_cast<float>(static_cast<int>(bytes[i] & 0xF) - 8);
-          const float hi = static_cast<float>(static_cast<int>(bytes[i] >> 4) - 8);
-          *reinterpret_cast<uint32_t*>(dst + 2 * i) = pack_bf16x2(lo * sc, hi * sc);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) reinterpret_cast<uint4*>(dst)[i] = make_uint4(0, 0, 0, 0);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const __nv_bfloat16* p = xs + (wm * 32 + i * 16 + g) * kRow + kk + tq * 2;
-        a[i][0] = ld_u32(p);
-        a[i][1] = ld_u32(p + 8 * kRow);
-        a[i][2] = ld_u32(p + 8);
-        a[i][3] = ld_u32(p + 8 * kRow + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const __nv_bfloat16* p = ws + (wn * 32 + j * 8 + g) * kRow + kk + tq * 2;
-        b[j][0] = ld_u32(p);
-        b[j][1] = ld_u32(p + 8);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 32 + i * 16 + g + h * 8;
-        const int col = n0 + wn * 32 + j * 8 + tq * 2;
-        if (row >= m) continue;
-        if (col + 1 < n && (n & 1) == 0) {  // paired store needs 4-byte alignment
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * n + col) =
-              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        } else {
-          if (col < n) out[(size_t)row * n + col] = __float2bfloat16_rn(acc[i][j][2 * h]);
-          if (col + 1 < n)
-            out[(size_t)row * n + col + 1] = __float2bfloat16_rn(acc[i][j][2 * h + 1]);
-        }
-      }
-}
 
 // ------------------------------------------------------- large M: wgmma
 
@@ -478,6 +376,98 @@ cudaError_t launch_q4_gemv(const void* x, const void* packed, const float* scale
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- 8 < M < 128: split K
+
+// splitk_gemm's policy for packed nibbles, the widening of q4_wgmma_kernel:
+// a thread's pair (2tq + 8h) of k16 step kk is byte tq of the row's stage
+// word 2kk + h (k = 2j in the low nibble of byte j), each (nibble - 8) exact
+// in f32 (nibble_f32), __fmul_rn by the group's scale, one bf16x2 rounding:
+// bit-equal to the plain version's weight.  The row's 32 stage bytes are
+// read as two 16-byte loads (eight lanes of a phase read two adjacent rows,
+// 64 contiguous bytes: no bank conflict).
+struct WidenQ4Rows {
+  static constexpr int kKPerByte = 2, kRowBytes = kSplitBK / kKPerByte;
+  template <int G>
+  static __device__ __forceinline__ void row_pairs(const uint8_t* row, const float* srow, int tq,
+                                                   uint32_t (&f)[4][2]) {
+    const uint4 c0 = *reinterpret_cast<const uint4*>(row);
+    const uint4 c1 = *reinterpret_cast<const uint4*>(row + 16);
+    const uint32_t words[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float s = srow[(16 * kk) / G];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t b = (words[2 * kk + h] >> (8 * tq)) & 0xFF;
+        f[kk][h] = pack_bf16x2(__fmul_rn(nibble_f32(b & 0xF), s), __fmul_rn(nibble_f32(b >> 4), s));
+      }
+    }
+  }
+};
+
+template <int G, int XN>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+q4_splitk_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                 const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int m, int n,
+                 int k, int kp, int splits) {
+  splitk_gemm<WidenQ4Rows, G, XN>(&xmap, &wmap, scale, out, m, n, k, kp, splits);
+}
+
+template <int XN>
+SplitKKernel q4_splitk_for(int group) {
+  return group == 16 ? q4_splitk_kernel<16, XN> : group == 32 ? q4_splitk_kernel<32, XN>
+                                                             : q4_splitk_kernel<64, XN>;
+}
+
+// Clusters of s blocks of the XN-row kernel the card holds at once, asked
+// once per XN and s (the groups' kernels share their shared memory and
+// threads).
+template <int XN>
+int q4_splitk_capacity(int s) {
+  static int cap[kSplitMax + 1] = {};
+  if (cap[s] == 0)
+    cap[s] = splitk_capacity(q4_splitk_for<XN>(64), SplitKSmem<WidenQ4Rows, XN>::kBytes, s);
+  return cap[s];
+}
+
+// The split count a call of m rows takes at n x k: a function of the shape
+// (and the card) alone.
+int q4_splits(int m, int n, int k) {
+  switch (splitk_cols(m)) {
+    case 32:
+      return splitk_splits(n, k, q4_splitk_capacity<32>);
+    case 64:
+      return splitk_splits(n, k, q4_splitk_capacity<64>);
+    case 80:
+      return splitk_splits(n, k, q4_splitk_capacity<80>);
+    default:
+      return splitk_splits(n, k, q4_splitk_capacity<128>);
+  }
+}
+
+template <int XN>
+cudaError_t launch_q4_splitk_cols(const void* x, const void* packed, const float* scale, void* out,
+                                  int m, int n, int k, int kp, int group, int splits,
+                                  cudaStream_t stream) {
+  return launch_splitk<WidenQ4Rows>(q4_splitk_for<XN>(group), SplitKSmem<WidenQ4Rows, XN>::kBytes, XN,
+                                    x, packed, scale, out, m, n, k, kp, splits, stream);
+}
+
+cudaError_t launch_q4_splitk(const void* x, const void* packed, const float* scale, void* out,
+                             int m, int n, int k, int kp, int group, cudaStream_t stream) {
+  const int splits = q4_splits(m, n, k);
+  switch (splitk_cols(m)) {
+    case 32:
+      return launch_q4_splitk_cols<32>(x, packed, scale, out, m, n, k, kp, group, splits, stream);
+    case 64:
+      return launch_q4_splitk_cols<64>(x, packed, scale, out, m, n, k, kp, group, splits, stream);
+    case 80:
+      return launch_q4_splitk_cols<80>(x, packed, scale, out, m, n, k, kp, group, splits, stream);
+    default:
+      return launch_q4_splitk_cols<128>(x, packed, scale, out, m, n, k, kp, group, splits, stream);
+  }
+}
+
 // ------------------------------------------------------- float32 x: split-x TF32
 
 // common.cuh's split-x TF32 tile `f32_quant_gemm` with this widening: a
@@ -521,7 +511,7 @@ cudaError_t launch_q4_f32(const void* x, const void* packed, const float* scale,
 }
 
 // The form a call takes, by dtype and the row count alone: 0 the GEMV, 1 the
-// mma.sync form, 2 the wgmma kernel (bf16), 3 the float32 kernel (every M);
+// split-K form, 2 the wgmma kernel (bf16), 3 the float32 kernel (every M);
 // -1 a dtype no kernel takes.
 int q4_form(int dtype, int m) {
   if (dtype == kF32) return 3;
@@ -536,31 +526,29 @@ int q4_form(int dtype, int m) {
 // [n, kp/group] -> out [m, n] in `dtype`.  Needs k <= kp, k % 8 == 0, kp % 64
 // == 0 and group 16, 32 or 64.  float32 x takes the split-x TF32 form at every M;
 // bf16 with M <= kQ4GemvMaxM the GEMV, M >= kQ4MinM the wgmma kernel, M
-// between them the mma.sync form: the choice is by dtype and shape only,
-// and a refused launch is returned, never retried on another form.
+// between them the split-K form: the choice is by dtype and shape only, and
+// a refused launch is returned, never retried on another form.
 extern "C" int sdtpu_q4_matmul(int dtype, const void* x, const void* packed, const void* scale,
                                void* out, int m, int n, int k, int kp, int group,
                                void* stream) {
   using namespace sdtpu;
-  if (m <= 0 || n <= 0 || k <= 0 || k > kp || k % 8 || kp % kBK ||
+  if (m <= 0 || n <= 0 || k <= 0 || k > kp || k % 8 || kp % kQ4BK ||
       (group != 16 && group != 32 && group != 64))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int form = q4_form(dtype, m);
-  if (form < 0) return cudaErrorInvalidValue;
-  if (form == 3)
-    return launch_q4_f32(x, packed, static_cast<const float*>(scale), out, m, n, k, kp, group, s);
-  if (form == 0)
-    return launch_q4_gemv(x, packed, static_cast<const float*>(scale), out, m, n, k, kp, group, s);
-  if (form == 2)
-    return launch_q4_wgmma(x, packed, static_cast<const float*>(scale), out, m, n, k, kp, group, s);
-  dim3 grid(ceil_div(n, kBN), ceil_div(m, kBM));
-  auto kernel = group == 16 ? q4_gemm_kernel<16>
-                : group == 32 ? q4_gemm_kernel<32> : q4_gemm_kernel<64>;
-  kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), m, n, k, kp);
-  return cudaGetLastError();
+  const float* sc = static_cast<const float*>(scale);
+  switch (q4_form(dtype, m)) {
+    case 0:
+      return launch_q4_gemv(x, packed, sc, out, m, n, k, kp, group, s);
+    case 1:
+      return launch_q4_splitk(x, packed, sc, out, m, n, k, kp, group, s);
+    case 2:
+      return launch_q4_wgmma(x, packed, sc, out, m, n, k, kp, group, s);
+    case 3:
+      return launch_q4_f32(x, packed, sc, out, m, n, k, kp, group, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The x rows per block of the float32 form (common.cuh's f32_quant_gemm,
@@ -571,13 +559,20 @@ extern "C" long long sdtpu_f32_tile_rows(int m, int n) {
 }
 
 // The x rows per block `sdtpu_q4_matmul` gives the wgmma kernel at this
-// shape of bf16 x (0 below kQ4MinM, where the GEMV or the mma.sync form runs).
+// shape of bf16 x (0 below kQ4MinM, where the GEMV or the split-K form runs).
 extern "C" long long sdtpu_q4_tile_rows(int m, int n) {
   using namespace sdtpu;
   return m >= kQ4MinM && n > 0 ? q4_tile_rows(m, n) : 0;
 }
 
+// The splits of K `sdtpu_q4_matmul` gives the split-K form at m x k -> n of
+// bf16 x (1 to 8, the blocks of a cluster; 0 where another form runs).
+extern "C" long long sdtpu_q4_splits(int m, int n, int k) {
+  using namespace sdtpu;
+  return m > kQ4GemvMaxM && m < kQ4MinM && n > 0 && k > 0 ? q4_splits(m, n, k) : 0;
+}
+
 // The form `sdtpu_q4_matmul` runs for m rows of x in `dtype`: 0 the GEMV,
-// 1 the mma.sync form, 2 the wgmma kernel, 3 the float32 kernel (-1: no
+// 1 the split-K form, 2 the wgmma kernel, 3 the float32 kernel (-1: no
 // kernel takes the dtype).
 extern "C" long long sdtpu_q4_form(int dtype, int m) { return sdtpu::q4_form(dtype, m); }

@@ -414,6 +414,29 @@ def q4_matmul_plain(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
     return torch.matmul(x, dequantize_q4(qt, x.dtype).T)
 
 
+def split_k_partials(x: torch.Tensor, qt: Q4Tensor, splits: int) -> list:
+    """The K split of the 4-bit split-K form (bf16, 8 < M < 128) in plain
+    PyTorch: K cut into ``Q4_K_MULTIPLE``-wide stages, ``ceil(stages /
+    splits)`` whole stages a split (the last split ragged, empty splits
+    dropped), each split's x·Wᵀ over its columns with the weight dequantized
+    to x.dtype, as float32 [..., N]."""
+    k = x.shape[-1]
+    w = dequantize_q4(qt, x.dtype)
+    stages = -(-k // Q4_K_MULTIPLE)
+    per = -(-stages // splits) * Q4_K_MULTIPLE  # K columns a split
+    return [torch.matmul(x[..., a:a + per].float(), w[:, a:a + per].float().T)
+            for a in range(0, k, per)]
+
+
+def combine_splits(parts, dtype=torch.float32) -> torch.Tensor:
+    """Sum ``split_k_partials``' splits in split order, as the kernel's
+    reduction does, rounded once to ``dtype``."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out.to(dtype)
+
+
 def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
     """bf16 or float32 x [..., K] × packed 4-bit weight (logical [N, K]) →
     [..., N] in x.dtype.
@@ -422,8 +445,10 @@ def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
     the float32 form at every M (counted in ``launches_f32``); bf16 calls of
     at most ``Q4_GEMV_MAX_M`` rows the weight-streaming GEMV
     (``launches_gemv``), of at least ``Q4_WGMMA_MIN_M`` rows the TMA + wgmma
-    kernel (``launches_wgmma``), the rest the ``mma.sync`` form
-    (``launches_mma``); every launch counts in ``launches``."""
+    kernel (``launches_wgmma``), the rest the split-K kernel
+    (``launches_splitk``: K split across a cluster's blocks, reduced in
+    split order inside the one launch); every launch counts in
+    ``launches``."""
     if x.device.type == "cpu":
         return q4_matmul_plain(x, qt)
     if x.dtype not in _build.DTYPE_CODES:
@@ -448,12 +473,12 @@ def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
     elif m >= Q4_WGMMA_MIN_M:
         q4_matmul.launches_wgmma += 1
     else:
-        q4_matmul.launches_mma += 1
+        q4_matmul.launches_splitk += 1
     return out.reshape(*x.shape[:-1], n)
 
 
 q4_matmul.launches = q4_matmul.launches_wgmma = q4_matmul.launches_gemv = 0
-q4_matmul.launches_mma = q4_matmul.launches_f32 = 0
+q4_matmul.launches_splitk = q4_matmul.launches_f32 = 0
 
 
 # ------------------------------------------------------------- group quant

@@ -4,13 +4,17 @@ each answer's timings, to tell a first request's warm-up from a steady
 change.
 
     PYTHONPATH=<checkout> python3 <checkout>/sdtpu_torch/tools/repeat_requests.py \
-        [--repeats 8] [--paths int8,w8a16,q8_0_gguf] [--label name]
+        [--repeats 8] [--paths int8,w8a16,q8_0_gguf,sd3] [--label name]
 
 For each path, a full-width FLUX.1-dev pipeline with random weights drawn on
 the card from seed 0 (int8 DiT, 4-bit T5-XXL, bf16 CLIP-L and VAE, VAE tiling
 on, as ``chip_smoke.py`` builds it; ``w8a16`` is the same pipeline under
 ``SDTPU_QUANT_MODE=w8a16``; ``q8_0_gguf`` the DiT as group-32 int8 blocks)
-answers a 512² × 4-step request (seed 42) ``--repeats`` times.  One line per
+answers a 512² × 4-step request (seed 42) ``--repeats`` times; ``sd3`` (not
+run unless named) is ``chip_smoke.py``'s bf16 SD3.5-Medium pipeline (4-bit
+T5-XXL) answering its ``SD3_REQUEST``, the bench's 1024² × 28-step dpm++2m
+request at CFG 4.5 (shapes, seeds and builder taken from the
+``chip_smoke.py`` beside this script).  One line per
 answer: ``repeat {...}`` with its cond / sample / decode seconds, denoise
 steps per second and what the caching allocator did during it (new device
 segments, i.e. cudaMalloc calls, and allocation retries, each of which frees
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import importlib.util
 import json
 import os
 import subprocess
@@ -35,8 +40,19 @@ REQUEST = dict(prompt="a photograph of an astronaut riding a horse", width=512, 
 ALLOCATOR = {"new_segments": "num_device_alloc", "alloc_retries": "num_alloc_retries"}
 
 
-def _pipeline(path: str):
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pipeline(path: str, card: str):
     import torch
+
+    if path == "sd3":
+        return _chip_smoke().build_sd3_pipeline(card)[0]
 
     from sdtpu_torch.config import SDVersion
     from sdtpu_torch.factory import create_pipeline
@@ -75,14 +91,15 @@ def main() -> int:
     t0 = time.time()
     _build.library()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
-    gp = GenerationParams(sample_method="euler", **REQUEST)
     summary = {}
     for path in args.paths.split(","):
         previous = os.environ.pop("SDTPU_QUANT_MODE", None)
         if path == "w8a16":
             os.environ["SDTPU_QUANT_MODE"] = "w8a16"
         try:
-            pipe = _pipeline(path)
+            pipe = _pipeline(path, card)
+            gp = GenerationParams(**(_chip_smoke().SD3_REQUEST if path == "sd3"
+                                     else dict(sample_method="euler", **REQUEST)))
             rates = []
             for i in range(args.repeats):
                 before = torch.cuda.memory_stats()

@@ -27,8 +27,10 @@ clock (``device_ms``: the CUDA-event time reads the Python wrapper's launch
 rate there), as the sum over the kernels a call launches of each one's mean
 device time, so that a W8A8 call that quantizes x in a launch of its own
 counts both; so is a flash case under 0.1 ms (a split call's combine
-included), which also records its ``splits``.  One ``kernel {...}`` line per
-case, then a summary line.
+included), which also records its ``splits``, and a bf16 4-bit case of 9 to
+``Q4_WGMMA_MIN_M`` rows (the split-K form and the wgmma threshold), which
+records the K ``splits`` where the tree's library reports them.  One
+``kernel {...}`` line per case, then a summary line.
 """
 from __future__ import annotations
 
@@ -152,7 +154,11 @@ def main() -> int:
         tol = rel * want.float().abs().max().item()
         it = cs.iters_for(2.0 * m * n * k)
         ms = cs.time_ms(lambda: fn(x, qt), it)
-        dev = {"device_ms": cs.device_ms_sum(lambda: fn(x, qt), it)} if m <= quant.GQ_GEMV_MAX_M else {}
+        mid_q4 = form == "q4_matmul" and dt == "bf16" and quant.Q4_GEMV_MAX_M < m <= quant.Q4_WGMMA_MIN_M
+        dev = ({"device_ms": cs.device_ms_sum(lambda: fn(x, qt), it)}
+               if m <= quant.GQ_GEMV_MAX_M or mid_q4 else {})
+        if mid_q4 and "sdtpu_q4_splits" in _build.QUERIES:  # a tree older than the query: no split
+            dev["splits"] = _build.query("sdtpu_q4_splits", m, n, k)
         case = dict(label=args.label, kernel=form, shape=[m, k, n], group=group, dtype=dt, ms=ms, **dev,
                     max_abs_err=err, tol=tol, ok=bool(err <= tol), card=card)
         print("kernel " + json.dumps(case), flush=True)

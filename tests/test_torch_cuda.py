@@ -267,13 +267,13 @@ def test_flash_d512_at_sd3_decode_matches_plain(cuda):
 @pytest.mark.parametrize("group", [32, 64])
 @pytest.mark.parametrize("m,k,n", chip_smoke.Q4_SD3_T5_SHAPES)
 def test_q4_at_sd3_t5_rows_matches_plain(cuda, dtype, group, m, k, n):
-    """T5-XXL's linears over SD3's 77 tokens: the bf16 ``mma.sync`` form
-    (counted in ``launches_mma``) and the float32 form, each within its
+    """T5-XXL's linears over SD3's 77 tokens: the bf16 split-K form
+    (counted in ``launches_splitk``) and the float32 form, each within its
     limit of the plain version."""
     g = torch.Generator(device=cuda).manual_seed(m + k + n + group)
     x = torch.randn((m, k), generator=g, device=cuda, dtype=dtype)
     qt = _q4_weight(g, n, k, group, cuda)
-    counter = "launches_mma" if dtype == torch.bfloat16 else "launches_f32"
+    counter = "launches_splitk" if dtype == torch.bfloat16 else "launches_f32"
     before = (quant.q4_matmul.launches, getattr(quant.q4_matmul, counter))
     got = quant.q4_matmul(x, qt)
     assert (quant.q4_matmul.launches, getattr(quant.q4_matmul, counter)) == (
@@ -414,6 +414,41 @@ def test_q4_wgmma_kernel_matches_plain(cuda, group, m, k, n):
     assert (got.float() - want.float()).abs().max().item() <= 2 ** -6 * want.float().abs().max().item()
 
 
+# 8 < M < 128 takes the split-K kernel: M at each x tile's edges (9 and 16
+# in the 32-row tile, 33 and 64 in the 64-row, 77 in the 80-row, 100 and 127
+# in the 128-row); N off the 128-row band (200, 1001: 1001 also off the
+# four-wide store); K = 64 (one stage, one split) and K off the 64-wide
+# stage (1040, the padded nibbles random); T5-XXL's three widths
+Q4_SPLITK_ROWS = [9, 16, 33, 64, 77, 100, 127]
+Q4_SPLITK_SHAPES = [(64, 200), (64, 1001), (1040, 200), (1040, 1001), (4096, 4096), (4096, 10240),
+                    (10240, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [16, 32, 64])
+@pytest.mark.parametrize("m", Q4_SPLITK_ROWS)
+@pytest.mark.parametrize("k,n", Q4_SPLITK_SHAPES)
+def test_q4_splitk_kernel_matches_plain(cuda, group, m, k, n):
+    """One counted launch of the split-K form within ``Q4_REL_TOL`` of the
+    plain version; its K splits (1 to 8, at most one a 64-k stage) as the
+    library reports them; a second call bit-identical (the reduction sums
+    the splits in a fixed order)."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n + group)
+    x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
+    qt = _q4_weight(g, n, k, group, cuda)
+    counts = ("launches", "launches_splitk", "launches_wgmma", "launches_gemv")
+    before = [getattr(quant.q4_matmul, c) for c in counts]
+    got = quant.q4_matmul(x, qt)
+    assert [getattr(quant.q4_matmul, c) for c in counts] == [before[0] + 1, before[1] + 1, *before[2:]]
+    splits = _build.query("sdtpu_q4_splits", m, n, k)
+    assert 1 <= splits <= min(8, -(-k // quant.Q4_K_MULTIPLE))
+    want = quant.q4_matmul_plain(x, qt)
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    limit = chip_smoke.Q4_REL_TOL * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= limit
+    assert torch.equal(quant.q4_matmul(x, qt), got)
+
+
 # M <= 8 takes the weight-streaming GEMV: N off the 16-row block (2, 77,
 # 130), K off the 64-wide K tile (200, the padded nibbles random), a row of
 # Kp / 2 = 544 bytes whose last 64-byte segment is half past the row (1040;
@@ -442,7 +477,7 @@ def test_q4_gemv_kernel_matches_plain(cuda, group, m, k, n):
 @pytest.mark.cuda
 def test_q4_form_by_rows(cuda):
     """The library picks the form by dtype and M alone (bf16: 0 the GEMV, 1
-    mma.sync, 2 wgmma; float32: 3 at every M), and the wrapper counts the
+    split-K, 2 wgmma; float32: 3 at every M), and the wrapper counts the
     form the library ran."""
     edges = (1, quant.Q4_GEMV_MAX_M, quant.Q4_GEMV_MAX_M + 1, quant.Q4_WGMMA_MIN_M - 1,
              quant.Q4_WGMMA_MIN_M)
@@ -450,7 +485,7 @@ def test_q4_form_by_rows(cuda):
     assert [_build.query("sdtpu_q4_form", 1, m) for m in edges] == [3] * len(edges)
     g = torch.Generator(device=cuda).manual_seed(0)
     qt = _q4_weight(g, 256, 512, 32, cuda)
-    counts = ("launches_gemv", "launches_mma", "launches_wgmma", "launches_f32")
+    counts = ("launches_gemv", "launches_splitk", "launches_wgmma", "launches_f32")
     for dtype in (torch.bfloat16, torch.float32):
         for m in edges:
             x = torch.randn((m, 512), generator=g, device=cuda, dtype=dtype)
@@ -464,7 +499,7 @@ def test_q4_form_by_rows(cuda):
 @pytest.mark.cuda
 def test_q4_tile_choice_by_shape(cuda):
     """The launcher's x-row tile is a function of the shape alone; the card
-    tests' shapes reach every tile, and M < 128 takes the mma.sync form."""
+    tests' shapes reach every tile, and M < 128 takes the split-K form."""
     tiles = {_build.query("sdtpu_q4_tile_rows", m, n) for m, _, n in Q4_WGMMA_SHAPES}
     assert tiles == {64, 128, 256}
     assert _build.query("sdtpu_q4_tile_rows", quant.Q4_WGMMA_MIN_M - 1, 4096) == 0
@@ -868,7 +903,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 def test_cpu_tensors_run_the_plain_versions_without_launching():
     counts = (fa.flash_attention.launches, quant.quant_matmul_w8a8.launches,
               quant.q4_matmul.launches, quant.q4_matmul.launches_wgmma,
-              quant.q4_matmul.launches_gemv)
+              quant.q4_matmul.launches_gemv, quant.q4_matmul.launches_splitk)
     q = torch.randn((1, 2, 8, 64))
     assert torch.equal(fa.flash_attention(q, q, q), fa.plain_attention(q, q, q))
     x = torch.randn((3, 32))
@@ -881,9 +916,11 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     assert torch.equal(quant.q4_matmul(x4, q4), quant.q4_matmul_plain(x4, q4))
     x4 = torch.randn((1, 64))  # the GEMV's M, on the CPU
     assert torch.equal(quant.q4_matmul(x4, q4), quant.q4_matmul_plain(x4, q4))
+    x4 = torch.randn((77, 64))  # the split-K form's M, on the CPU
+    assert torch.equal(quant.q4_matmul(x4, q4), quant.q4_matmul_plain(x4, q4))
     assert counts == (fa.flash_attention.launches, quant.quant_matmul_w8a8.launches,
                       quant.q4_matmul.launches, quant.q4_matmul.launches_wgmma,
-                      quant.q4_matmul.launches_gemv)
+                      quant.q4_matmul.launches_gemv, quant.q4_matmul.launches_splitk)
     assert _build.library.cache_info().currsize == 0
 
 

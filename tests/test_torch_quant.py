@@ -9,6 +9,9 @@
   ``q4_matmul`` (XLA form and forced-interpreted kernel) at float32 sum-order
   tolerance (rtol 1e-5 / atol 1e-5); groups 16 and 32 (a q3_k or q4_0 GGUF's
   own blocks) stage from ``HostQuant`` as the JAX package stages them.
+  The bf16 split-K form's K split and ordered combine
+  (``split_k_partials`` / ``combine_splits``) are held to both forms of
+  ``q4_matmul`` at the same tolerance, at 1 to 4 splits.
 * The float32 forms' arithmetic on the card (x split into two tf32 terms,
   integer weights, scales folded outside the products), emulated in plain
   PyTorch by ``chip_smoke.split_x_matmul``, holds the float32 limit against
@@ -214,6 +217,41 @@ def test_q4_plain_matches_pallas_kernel(tpu_branch_interpret):
     want = np.asarray(jq.q4_matmul(jnp.asarray(x), qj))
     got = tq.q4_matmul(torch.from_numpy(x), from_jax_params({"w": qj}, device="cpu")["w"]).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _split_combine(x, qj, splits):
+    """The port's plain split-K partials of x · W over the bridged weight,
+    combined in split order; checks the split count on the way."""
+    qt = from_jax_params({"w": qj}, device="cpu")["w"]
+    parts = tq.split_k_partials(torch.from_numpy(x), qt, splits)
+    stages = -(-x.shape[1] // tq.Q4_K_MULTIPLE)
+    assert len(parts) == -(-stages // -(-stages // splits))
+    return tq.combine_splits(parts).numpy()
+
+
+# the split-K form's rows (its first, T5 over SD3's 77 tokens, its last),
+# every group, K off the 64-wide stage, N off the 128-row band
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("group", [16, 32, 64])
+@pytest.mark.parametrize("m", [9, 77, 127])
+def test_q4_split_k_combine_matches_xla_form(m, group, splits):
+    rng = np.random.default_rng(m + group + splits)
+    k, n = 600, 37
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    qj = jq.quantize_q4(rng.standard_normal((n, k)).astype(np.float32) * 0.05, group=group)
+    want = np.asarray(jq.q4_matmul(jnp.asarray(x), qj))
+    np.testing.assert_allclose(_split_combine(x, qj, splits), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("group", [16, 32, 64])
+@pytest.mark.parametrize("m", [9, 77, 127])
+def test_q4_split_k_combine_matches_pallas_kernel(tpu_branch_interpret, m, group):
+    rng = np.random.default_rng(m * group)
+    k, n = 1040, 200
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    qj = jq.quantize_q4(rng.standard_normal((n, k)).astype(np.float32) * 0.05, group=group)
+    want = np.asarray(jq.q4_matmul(jnp.asarray(x), qj))
+    np.testing.assert_allclose(_split_combine(x, qj, 3), want, rtol=1e-5, atol=1e-5)
 
 
 def test_linear_dispatches_q4_tensor():
