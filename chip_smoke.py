@@ -34,7 +34,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      fault); at SD3.5-Medium's D 64 shapes at 1024² under CFG (the joint
      attention over 154 + 4096 = 4250 tokens, ragged on every tile, and
      MMDiT-X's self-attention over 4096; both dtypes, the bf16 faults as
-     SDXL's); the 4-bit matmul also at T5-XXL's three shapes over SD3's 77
+     SDXL's); at Wan2.1-1.3B's D 128 shapes at 832x480 over 9 latent frames
+     under CFG (the self-attention over 14040 tokens, ragged on the last
+     tile, and the cross-attention over UMT5's 512; bf16 with the unmasked
+     pad keys as its fault, q drawn around +1 and k around -1 so the fault
+     shows; float32 with the self-attention at B = 1; each also on the
+     device clock beside SDPA); the 4-bit matmul at UMT5-XXL's three shapes
+     over Wan's 512 tokens (group 64, bf16 wgmma and float32) and at
+     T5-XXL's three shapes over SD3's 77
      tokens (groups 64 and 32, bf16 in its split-K form and float32, each
      also on the device clock beside ``_weight_int4pack_mm``), and every bf16
      case of 9 to 128 rows on the device clock (the split-K form at 16, 64,
@@ -59,7 +66,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      pooled projection (full width, two layers), a TAESD-XL decode, three
      SD3.5-Medium MMDiT blocks (64-channel heads, qk RMS norms, MMDiT-X's
      attn2, the pre-only last block; a 32x32 latent beside 154 context
-     tokens) and the SD3 conditioner (those CLIPs, a 4-bit T5 1536 wide), at
+     tokens) and the SD3 conditioner (those CLIPs, a 4-bit T5 1536 wide),
+     one Wan2.1 block (128-wide heads, a 3 x 8 x 12 latent beside 40 text
+     tokens), a Wan VAE decode (32 wide, 16 latent channels, 3 latent
+     frames) and the Wan conditioner on a 4-bit UMT5 over 512 tokens, at
      kernel-shaped small widths, on the card (kernels, bf16 and float32)
      against the same weights on the CPU (plain versions, float32);
   5. the GGUF loader at full FLUX.1-dev width and cut depth: a DiT of one
@@ -135,6 +145,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      form at T5's 77 rows, no wgmma or GEMV launch; float32: its float32
      form), and on the card no attention runs in the plain version but T5's
      24 a prompt encode (its relative-position bias, as in the JAX package).
+ 10e. Wan2.1-T2V-1.3B at full width (``create_pipeline(SDVersion.WAN2,
+     params=...)``: the DiT and the Wan VAE dense, UMT5-XXL packed 4-bit,
+     drawn on the card with the JAX bench's seeds, the DiT config
+     fingerprinted from the weights; the bench's decode tiling: spatial
+     tiles of 32 latent pixels, temporal windows of 5 latent frames with
+     one of overlap): path ``wan`` in bf16 answers ``bench_wan21_t2v``'s
+     request (bench.py:592: "a corgi running on a beach", negative
+     "static", 832x480, 33 frames, 8 euler steps, CFG 6, seed 42) through
+     ``generate_video`` once to warm up and twice timed, printing each
+     request's sample and decode seconds, DiT steps/s and decode s/frame;
+     then decodes the last request's latents once untiled (its seconds and
+     peak memory) and holds one full-width DiT forward of the bench's
+     latent (B = 1) against the same forward with every attention in the
+     plain version (REF_REL_TOL); path ``wan_f32`` (no dtype argument:
+     float32) answers the request at 2 steps on the DiT cut to
+     ``WAN_F32_BLOCKS`` blocks.  On both, flash at D 128 launches 60 a
+     forward (2 x 2 on the cut DiT), nothing else of flash, the 4-bit
+     matmul 168 a prompt encode (bf16: its wgmma form at UMT5's 512 rows;
+     float32: its float32 form), and on the card no attention runs in the
+     plain version but UMT5's 24 a prompt encode; the frames are finite,
+     of the asked size and not constant.
  11. main path 5, the entry points, on files: a full FLUX.1-dev checkpoint
      set written by ``sdtpu_torch.tools.flux_files`` into a temporary
      directory under ``build/chip_smoke/`` (removed after; the free disk
@@ -171,7 +202,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      and the server, loaded from the same files, one A1111 request with
      ``sampler_name`` dpm++2m (path ``sd3_server``), each with the launch
      checks of 10d (T5 dequantized when staged, as the JAX CLI does: no
-     4-bit call).
+     4-bit call).  Then Wan2.1 on files: ``sdtpu_torch.tools.wan_file``
+     writes the DiT and the VAE's decoder as float16 safetensors and
+     UMT5-XXL as a q8_0 GGUF with its vocab; ``cli.main -M vid_gen`` answers
+     a 832x480 clip of 9 frames at 2 steps with the bench's tiling (path
+     ``wan_cli``): 9 PNG frames of 832x480, not constant, with the launch
+     checks of 10e (UMT5 dequantized: no 4-bit call).
 Every path of phases 5-11 sets the kernels' launch counts to 0 before it runs
 and reads them after: each kernel that path runs must have launched.  The
 4-bit kernel's TMA + wgmma form (M >= 128) and its weight-streaming GEMV
@@ -327,6 +363,26 @@ FLASH_CASES += [(b, h, lq, lk, d, dt, bias) for dt in ("bf16", "f32")
 # 64 rows, so the key split the D 512 launcher picks is not the 4096 case's.
 SD3_VAE_FLASH_SHAPE = (1, 1, 16384, 16384, 512)
 FLASH_CASES.append((*SD3_VAE_FLASH_SHAPE, "bf16", None))
+# Wan2.1-T2V-1.3B at 832x480 over 33 frames (9 latent frames) under CFG
+# (B = 2, 12 heads of 128): the self-attention over 9 x 30 x 52 = 14040
+# tokens (109 x 128 + 88: ragged on the last query and key tile) and the
+# cross-attention over UMT5's 512, in bf16 and in float32.  Both draw q
+# around +1 and k around -1 ("neg_scores"), so zero pad keys left unmasked
+# in the last key tile would outweigh the real ones.
+# (The float32 self-attention runs at B = 1: the plain version and the
+# one-pass TF32 fault hold four float32 [B, 12, 14040, 14040] temporaries,
+# 76 GB at B = 2.)
+WAN_FLASH_SHAPES = [(2, 12, 14040, 14040, 128, "neg_scores"), (2, 12, 14040, 512, 128, "neg_scores")]
+WAN_FLASH_CASES = ([(*s_[:5], "bf16", s_[5]) for s_ in WAN_FLASH_SHAPES]
+                   + [(1, 12, 14040, 14040, 128, "f32", "neg_scores"),
+                      (2, 12, 14040, 512, 128, "f32", "neg_scores")])
+FLASH_CASES += WAN_FLASH_CASES
+# attention calls of one Wan2.1 forward: a self- and a cross-attention in
+# each of its 30 blocks, all at D 128
+WAN_ATTENTION_CALLS = 2 * 30
+# UMT5-XXL linears of one Wan prompt encode (q, k, v, o, wi_0, wi_1, wo in
+# each of 24 blocks, over 512 tokens: the 4-bit matmul's wgmma form)
+WAN_T5_LINEARS = 7 * 24
 UNET_HEAD_DIMS = (40, 80, 160)
 # head dim -> attention calls of one full-width SD1.5 UNet forward: a self-
 # and a cross-attention in each of its 16 transformer blocks (two at each
@@ -376,16 +432,21 @@ Q4_DIT_SHAPES = [(4352, 3072, 12288), (4352, 12288, 3072), (4352, 15360, 3072),
 # form and the float32 form, at the synthesized T5's group 64 and at 32
 Q4_SD3_T5_SHAPES = [(77, 4096, 4096), (77, 4096, 10240), (77, 10240, 4096)]
 Q4_SD3_CASES = [(*s, g) for g in (64, 32) for s in Q4_SD3_T5_SHAPES]
+# UMT5-XXL over Wan's 512 tokens (q/k/v/o, wi_0/wi_1, wo) at the
+# synthesized UMT5's group 64: the bf16 wgmma form and the float32 form
+Q4_WAN_T5_SHAPES = [(512, 4096, 4096), (512, 4096, 10240), (512, 10240, 4096)]
 Q4_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES] + [(*s, 32) for s in Q4_DIT_SHAPES]
             + [(s, 3072, n, g) for g in (16, 64) for s, n in ((4352, 12288), (1, 18432))]
-            + Q4_SD3_CASES + [(m, 4096, 4096, 64) for m in (16, 64, 100)] + [(77, 4096, 4096, 16)])
+            + Q4_SD3_CASES + [(m, 4096, 4096, 64) for m in (16, 64, 100)] + [(77, 4096, 4096, 16)]
+            + [(*s, 64) for s in Q4_WAN_T5_SHAPES])
 # the float32 form (the default pipeline's T5-XXL): T5's shapes at groups 64,
 # 32 and 16, a 4096-wide T5 linear at M = 1, 9 and 128 (the bf16 forms'
 # rows: GEMV, split-K, wgmma), and a q4_0 DiT linear at 1024² kept at the
 # default dtype, at groups 32 and 16 (the 128-row tile)
 Q4_F32_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES]
                 + [(m, 4096, 4096, 64) for m in (1, 9, 128)]
-                + [(4352, 3072, 12288, g) for g in (32, 16)] + Q4_SD3_CASES)
+                + [(4352, 3072, 12288, g) for g in (32, 16)] + Q4_SD3_CASES
+                + [(*s, 64) for s in Q4_WAN_T5_SHAPES])
 # W8A16's float32 form (the default pipeline under SDTPU_QUANT_MODE=w8a16):
 # a modulation linear (M = 1), the bf16 forms' first mma.sync and wgmma rows,
 # the 1024² request's 4352 tokens, its long-K widths (MLP out, linear2: where
@@ -593,7 +654,22 @@ PATH_KERNELS["sd3_f32"] = ("flash_attention", "flash_attention_f32", "q4_matmul"
 PATH_IDLE["sd3_f32"] = (*OTHER_QUANT, *Q4_BF16_FORMS, *UNET_FLASH, "flash_attention_d64",
                         "flash_attention_d512", "w8a16_matmul_f32", "gq_matmul_f32",
                         "gq_zero_matmul_f32")
-F32_PATHS = {"sd3_f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
+# Wan2.1 T2V (a dense DiT, a 4-bit UMT5-XXL, the dense VAE): flash at D 128
+# only (the VAE's per-frame attention is plain float32, as the reference
+# writes it), the 4-bit matmul in its wgmma form (512 UMT5 rows); on the
+# CLI path UMT5 is dequantized (no 4-bit call)
+PATH_KERNELS["wan"] = ("flash_attention", "q4_matmul", "q4_matmul_wgmma")
+PATH_IDLE["wan"] = (*OTHER_QUANT, "q4_matmul_gemv", "q4_matmul_splitk", *F32_FORMS, *UNET_FLASH,
+                    "flash_attention_d64", "flash_attention_d512")
+PATH_KERNELS["wan_cli"] = ("flash_attention",)
+PATH_IDLE["wan_cli"] = (*QUANT_KERNELS, *Q4_BF16_FORMS, *F32_FORMS, *UNET_FLASH,
+                        "flash_attention_d64", "flash_attention_d512")
+PATH_KERNELS["wan_f32"] = ("flash_attention", "flash_attention_f32", "q4_matmul", "q4_matmul_f32")
+PATH_IDLE["wan_f32"] = (*OTHER_QUANT, *Q4_BF16_FORMS, *UNET_FLASH, "flash_attention_d64",
+                        "flash_attention_d512", "w8a16_matmul_f32", "gq_matmul_f32",
+                        "gq_zero_matmul_f32")
+F32_PATHS = {"wan_f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
+             "sd3_f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
              "sd15_f32": (("flash_attention", "flash_attention_f32"),),
              "sdxl_f32": (("flash_attention", "flash_attention_f32"),),
              "f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
@@ -970,6 +1046,13 @@ def _d64_faults(q, k, v, mask, want) -> dict:
     return out
 
 
+def _ragged_faults(q, k, v, mask, want) -> dict:
+    """max |error| against ``want`` of the bf16 D 128 kernel's fault at a
+    key count off its 128-key tile (``unmasked_pad_keys``, FLASH_FAULTS), in
+    plain PyTorch on the case's inputs; none where Lk is on the tile."""
+    return {k_: v_ for k_, v_ in _padded_faults(q, k, v, mask, want).items() if k_ != "padded_scale"}
+
+
 def _split_fault(q, k, v, mask, want, splits: int) -> dict:
     """A float32 split call's fault (FLASH_FAULTS): its splits' partial
     outputs and sums (``key_split_partials``, the f32 kernel's 16-key tiles)
@@ -1109,7 +1192,7 @@ def check_flash(results):
         elif d == 512:
             name, faults = "flash_attention_d512", _d512_faults(q, k, v, mask, want)
         else:
-            name, faults = "flash_attention", {}
+            name, faults = "flash_attention", _ragged_faults(q, k, v, mask, want)
         splits = _build.query("sdtpu_flash_splits", _build.DTYPE_CODES[dtype], b * h, lq, lk, d)
         if dt == "f32" and splits > 1:
             faults.update(_split_fault(q, k, v, mask, want, splits))
@@ -1127,7 +1210,9 @@ def check_flash(results):
         plain_ms = time_ms(lambda: fa.plain_attention(q, k, v, mask=mask), it)
         library_ms = time_ms(library, it)
         extra = {"faults": faults} if faults else {}
-        if ms < 0.1:  # the CUDA-event time reads the wrapper here: the device clock too
+        # under 0.1 ms the CUDA-event time reads the wrapper: the device clock
+        # too; and at Wan's shapes, whose request time this case predicts
+        if ms < 0.1 or (b, h, lq, lk, d, dt, bias) in WAN_FLASH_CASES:
             extra.update(device_ms=device_ms_sum(kernel, it), library_device_ms=device_ms_sum(library, it))
         _record(results, dict(kernel=name, shape=[b, h, lq, lk, d], dtype=dt,
                             bias=bias, splits=splits, max_abs_err=err, tol=tol, **extra,
@@ -1347,7 +1432,7 @@ def reference_check():
     card in bf16 (held at REF_REL_TOL) and in float32 (REF_F32_REL_TOL)."""
     import torch
 
-    from sdtpu_torch.conditioning.conditioner import SD3Conditioner
+    from sdtpu_torch.conditioning.conditioner import SD3Conditioner, WanConditioner
     from sdtpu_torch.models import clip as clip_mod
     from sdtpu_torch.models import flux as flux_mod
     from sdtpu_torch.models import mmdit as mmdit_mod
@@ -1355,6 +1440,8 @@ def reference_check():
     from sdtpu_torch.models import tae as tae_mod
     from sdtpu_torch.models import unet as unet_mod
     from sdtpu_torch.models import vae as vae_mod
+    from sdtpu_torch.models import wan as wan_mod
+    from sdtpu_torch.models import wan_vae as wan_vae_mod
     from sdtpu_torch.tokenizers.clip import CLIPTokenizer
     from sdtpu_torch.weights import synthesize
 
@@ -1382,6 +1469,17 @@ def reference_check():
     mmdit_cfg = dataclasses.replace(mmdit_mod.SD35_MEDIUM_CONFIG, depth=3, num_x_self_attn_layers=2,
                                     pos_embed_max_size=32, context_size=512, adm_in_channels=256)
     sd3_t5_cfg = t5_mod.T5Config(d_model=1536, d_kv=64, d_ff=1024, num_layers=1, num_heads=8)
+    # Wan2.1: the DiT at 128-wide heads (2 of them), one block, over a 3 x 8
+    # x 12 latent (72 tokens) beside 40 text tokens; the Wan VAE 32 wide at
+    # 16 latent channels over 3 latent frames (9 frames of 64 x 64: the
+    # temporal upsample, the per-frame float32 attention); and the Wan
+    # conditioner on a 4-bit UMT5 (per-layer bias) over 512 tokens (the
+    # 4-bit matmul's wgmma form)
+    wan_cfg = dataclasses.replace(wan_mod.WAN21_T2V_1_3B_CONFIG, dim=256, ffn_dim=512, num_heads=2,
+                                  num_layers=1, text_dim=512)
+    wan_vae_cfg = wan_vae_mod.WanVAEConfig(dim=32, z_dim=16, num_res_blocks=1)
+    umt5_cfg = t5_mod.T5Config(d_model=512, d_kv=64, d_ff=1024, num_layers=2, num_heads=8,
+                               is_umt5=True)
     mods = {
         "dit": (flux_mod.param_specs(dit_cfg), "q8_0"), "clip": (clip_mod.param_specs(clip_cfg), None),
         "t5": (t5_mod.param_specs(t5_cfg), "q4_0"), "vae": (vae_mod.param_specs(vae_cfg), None),
@@ -1390,6 +1488,9 @@ def reference_check():
         "clip_g": (clip_mod.param_specs(clip_g_cfg), None), "tae": (tae_mod.param_specs(tae_cfg), None),
         "mmdit": (mmdit_mod.param_specs(mmdit_cfg), None),
         "sd3_t5": (t5_mod.param_specs(sd3_t5_cfg), "q4_0"),
+        "wan": (wan_mod.param_specs(wan_cfg), None),
+        "wan_vae": (wan_vae_mod.param_specs(wan_vae_cfg), None),
+        "umt5": (t5_mod.param_specs(umt5_cfg), "q4_0"),
     }
     gpu = {n: synthesize(s, quant=q, seed=i, device=DEVICE, dtype=torch.bfloat16)
            for i, (n, (s, q)) in enumerate(mods.items())}
@@ -1412,6 +1513,10 @@ def reference_check():
     t_sd3 = torch.tensor([1000.0, 411.5])
     ctx_sd3 = torch.randn((2, 154, mmdit_cfg.context_size), generator=gen)
     y_sd3 = torch.randn((2, mmdit_cfg.adm_in_channels), generator=gen)
+    x_wan = torch.randn((2, 3, 8, 12, 16), generator=gen)
+    t_wan = torch.tensor([999.0, 411.5])
+    ctx_wan = torch.randn((2, 40, wan_cfg.text_dim), generator=gen)
+    z_wan = torch.randn((1, 3, 8, 8, 16), generator=gen)
 
     def run(p, dev, dtype):
         with torch.inference_mode():
@@ -1433,7 +1538,14 @@ def reference_check():
             cond = SD3Conditioner(CLIPTokenizer(), None, p["clip"], clip_cfg, p["clip_g"], clip_g_cfg,
                                   p["sd3_t5"], sd3_t5_cfg, device=dev).get_learned_condition(
                                       "a photograph of an astronaut riding a horse")
-        return {"clip_pooled": pooled, "t5": ctx, "flux_forward": vel, "vae_decode": img,
+            vel_wan = wan_mod.wan_forward(p["wan"], x_wan.to(dev, dtype), t_wan.to(dev),
+                                          ctx_wan.to(dev, dtype), cfg=wan_cfg)
+            vid_wan = wan_vae_mod.wan_vae_decode(p["wan_vae"], z_wan.to(dev, dtype), wan_vae_cfg)
+            cond_wan = WanConditioner(None, p["umt5"], umt5_cfg, device=dev).get_learned_condition(
+                "a corgi running on a beach")
+        return {"wan_forward": vel_wan, "wan_vae_decode": vid_wan,
+                "wan_cond_crossattn": cond_wan.c_crossattn,
+                "clip_pooled": pooled, "t5": ctx, "flux_forward": vel, "vae_decode": img,
                 "unet_forward": eps, "sdxl_unet_forward": eps_xl, "clip_g_hidden": h_g,
                 "clip_g_pooled": pooled_g, "tae_decode": tae_img, "mmdit_forward": vel_sd3,
                 "sd3_cond_crossattn": cond.c_crossattn, "sd3_cond_vector": cond.c_vector}
@@ -2390,6 +2502,305 @@ def sd3_entry_check(wrappers, card: str) -> dict:
         "dpm++2m", (SD3_REQUEST["width"], SD3_REQUEST["height"]), load_check, request=SD3_REQUEST)
 
 
+# Wan2.1-T2V-1.3B: the JAX bench's request (``bench_wan21_t2v``, bench.py:
+# 592: "a corgi running on a beach", negative "static", 832x480, 33 frames =
+# 9 latent frames, 8 euler steps, CFG 6, seed 42), answered once to warm up
+# and twice timed with the bench's decode tiling (spatial tiles of 32 latent
+# pixels, temporal windows of 5 latent frames with 1 of overlap).  Each step
+# is one DiT forward of the CFG batch of two; each request encodes two
+# prompts (UMT5 over 512 tokens).  The default dtype (float32) answers it at
+# 2 steps on the DiT cut to WAN_F32_BLOCKS blocks (every width full): its
+# float32 self-attention over 14040 tokens takes ~47 ms a call under CFG,
+# ~1.4 s a step at full depth, beside a float32 decode of ~20 s.
+WAN_REQUEST = dict(prompt="a corgi running on a beach", negative_prompt="static", width=832,
+                   height=480, sample_steps=8, cfg_scale=6.0, seed=42, sample_method="euler",
+                   frames=33)
+WAN_REQUESTS = [WAN_REQUEST, WAN_REQUEST, WAN_REQUEST]
+WAN_F32_REQUESTS = [dict(WAN_REQUEST, sample_steps=2)]
+WAN_F32_BLOCKS = 2
+WAN_TILING = dict(tile_size=32, temporal=True,
+                  extra_tiling_args="temporal_tile_frames=5,temporal_tile_overlap=1")
+# the JAX bench's seeds (bench.py:602-613): the DiT 1, UMT5-XXL 2, the VAE 3
+WAN_BENCH_SEEDS = {"diffusion": 1, "t5": 2, "vae": 3}
+# UMT5's attentions a prompt encode: its relative-position bias keeps them on
+# the plain path, as the JAX package runs them
+WAN_T5_LAYERS = 24
+
+
+def _check_wan_launches(path: str, counts: dict, forwards: int, encodes: int, plain: dict,
+                        f32: bool = False, t5_q4: bool = True, calls: int = WAN_ATTENTION_CALLS) -> dict:
+    """Flash at D 128 (bf16, or float32) launched exactly ``calls`` a DiT
+    forward times the forwards, and nothing else of flash; the 4-bit matmul
+    ``WAN_T5_LINEARS`` times a prompt encode in the path's form (bf16 wgmma
+    at 512 rows, or float32), none where UMT5 was dequantized (``t5_q4``
+    False: the CLI); and on the card no attention ran in the plain version
+    but UMT5's ``WAN_T5_LAYERS`` a prompt encode."""
+    other = ("flash_attention_d64", "flash_attention_d512", *UNET_FLASH)
+    q4 = WAN_T5_LINEARS * encodes if t5_q4 else 0
+    got = {"flash_d128": counts["flash_attention"] - sum(counts[k] for k in other),
+           "flash_other": sum(counts[k] for k in other),
+           "flash_f32": counts["flash_attention_f32"],
+           "q4_t5": counts["q4_matmul_f32" if f32 else "q4_matmul_wgmma"], "q4_all": counts["q4_matmul"],
+           "plain_attention_on_card_besides_t5": plain["calls"] - WAN_T5_LAYERS * encodes}
+    want = {"flash_d128": calls * forwards, "flash_other": 0,
+            "flash_f32": calls * forwards if f32 else 0, "q4_t5": q4, "q4_all": q4,
+            "plain_attention_on_card_besides_t5": 0}
+    if got != want:
+        raise RuntimeError(f"path {path}: launches {got}, not {want} ({forwards} DiT forwards of "
+                           f"{calls} attentions, {encodes} prompt encodes)")
+    return {**got, "dit_forwards": forwards, "prompt_encodes": encodes,
+            "t5_plain_attention": plain["calls"]}
+
+
+def build_wan_pipeline(card: str, default_dtype: bool = False):
+    """A full-width Wan2.1-T2V-1.3B pipeline (the DiT and the Wan VAE dense,
+    UMT5-XXL 4-bit), random weights drawn on the card with the JAX bench's
+    seeds and passed as ``params``, so the DiT config is fingerprinted:
+    ``create_pipeline(SDVersion.WAN2, params=..., dtype=torch.bfloat16)``;
+    or with ``default_dtype`` no dtype argument (float32, held here) and the
+    DiT cut to ``WAN_F32_BLOCKS`` blocks.  The bench's decode tiling is
+    set."""
+    import torch
+
+    from sdtpu_torch.config import SDVersion
+    from sdtpu_torch.factory import create_pipeline, wan_configs
+    from sdtpu_torch.models import t5 as t5_mod
+    from sdtpu_torch.models import wan as wan_mod
+    from sdtpu_torch.models import wan_vae as wan_vae_mod
+    from sdtpu_torch.weights import synthesize, weight_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    dit_cfg, t5_cfg, vae_cfg, _ = wan_configs(small=False)
+    if default_dtype:
+        dit_cfg = dataclasses.replace(dit_cfg, num_layers=WAN_F32_BLOCKS)
+    dtype = torch.float32 if default_dtype else torch.bfloat16
+    specs = {"diffusion": wan_mod.param_specs(dit_cfg), "t5": t5_mod.param_specs(t5_cfg),
+             "vae": wan_vae_mod.param_specs(vae_cfg)}
+    params = {m: synthesize(sp, quant="q4_0" if m == "t5" else None, seed=WAN_BENCH_SEEDS[m],
+                            device=DEVICE, dtype=dtype) for m, sp in specs.items()}
+    cfg = wan_mod.detect_wan_config(params["diffusion"].keys(), {
+        k: tuple(v.shape) for k, v in params["diffusion"].items()})
+    if cfg != dit_cfg:
+        raise RuntimeError(f"the DiT fingerprints as {cfg}, not {dit_cfg}")
+    if default_dtype:
+        pipe = create_pipeline(SDVersion.WAN2, params=params, device=DEVICE)
+        if pipe.compute_dtype != torch.float32:
+            raise RuntimeError(f"create_pipeline's default dtype is {pipe.compute_dtype}, not float32")
+    else:
+        pipe = create_pipeline(SDVersion.WAN2, params=params, dtype=torch.bfloat16, device=DEVICE)
+    del params
+    pipe.set_vae_tiling(True, **WAN_TILING)
+    label = f"wan21_t2v_1_3b dense, {dit_cfg.num_layers} blocks"
+    wb = {"diffusion": weight_bytes(pipe.diffusion_params), "t5": weight_bytes(pipe.conditioner.pt),
+          "vae": weight_bytes(pipe.vae_params)}
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    print(f"pipeline: full-width {label}, UMT5-XXL q4_0, {pipe.compute_dtype}, built in "
+          f"{build_s:.2f} s on {card}; weight bytes " + json.dumps(wb), flush=True)
+    return pipe, {"diffusion": label, "dtype": str(pipe.compute_dtype), "build_s": build_s,
+                  "weight_bytes": wb}
+
+
+def answer_video(pipe, requests, card: str, label: str):
+    """Each request through ``generate_video``: 1 + 4k frames of the asked
+    size, uint8, not constant; finite latents [1, Tl, h, w, 16].  Reports the
+    sample and decode seconds, DiT steps/s and decode s/frame."""
+    import numpy as np
+    import torch
+
+    from sdtpu_torch.config import GenerationParams
+
+    reports = []
+    for kw in requests:
+        kw = dict(kw)
+        frames = kw.pop("frames")
+        gp = GenerationParams(**kw)
+        torch.cuda.reset_peak_memory_stats()
+        res = pipe.generate_video(gp, frames=frames)
+        peak = torch.cuda.max_memory_allocated()
+        vid, lat = res.frames, res.latents
+        tl = (frames - 1) // 4 + 1
+        if vid.shape != (1, frames, gp.height, gp.width, 3) or vid.dtype != np.uint8:
+            raise RuntimeError(f"frames {vid.shape} {vid.dtype} for {frames} x {gp.width}x{gp.height}")
+        if lat.shape != (1, tl, gp.height // 8, gp.width // 8, pipe.latent_channels) or not np.isfinite(lat).all():
+            raise RuntimeError(f"latents {lat.shape} not finite or of the wrong shape")
+        if vid.std() == 0 or lat.std() == 0 or vid[0, -1].std() == 0:
+            raise RuntimeError("constant frames or latents")
+        tm = pipe.last_timings
+        rep = {"path": label, "size": [gp.width, gp.height], "frames": tm["frames"],
+               "cfg_scale": gp.cfg_scale, "sampler": gp.sample_method, "steps": tm["steps"],
+               "seed": gp.seed, "timings_s": {k: tm[k] for k in ("cond", "sample", "decode", "total")},
+               "dit_steps_per_s": tm["steps"] / tm["sample"],
+               "decode_s_per_frame": tm["decode"] / tm["frames"], "peak_mem_bytes": peak,
+               "frame_std": float(vid.std()), "card": card}
+        print("request " + json.dumps(rep), flush=True)
+        reports.append(rep)
+    return reports, res
+
+
+def wan_forward_plain_check(pipe, cond) -> dict:
+    """One full-width DiT forward of the bench's latent (9 x 60 x 104, the
+    cond half: B = 1) through the kernels, against the same forward with
+    every attention in the plain version (``flash_supported`` refused),
+    held at REF_REL_TOL (relative L2: both sides bf16, flash against the
+    plain softmax); both finite."""
+    import importlib
+
+    import torch
+
+    att = importlib.import_module("sdtpu_torch.ops.attention")
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    x = torch.randn((1, 9, 60, 104, pipe.latent_channels), generator=g, device=DEVICE,
+                    dtype=pipe.compute_dtype)
+    t = torch.tensor([700.0], device=DEVICE)
+    with torch.inference_mode():
+        got = pipe.diffusion_fn(pipe.diffusion_params, x, t, cond, None)
+        real = att.flash_supported
+        att.flash_supported = lambda *a: False
+        try:
+            want = pipe.diffusion_fn(pipe.diffusion_params, x, t, cond, None)
+        finally:
+            att.flash_supported = real
+    rel = _rel(got, want)
+    ok = bool(torch.isfinite(got).all() and torch.isfinite(want).all() and rel <= REF_REL_TOL)
+    out = {"rel_l2": rel, "tol": REF_REL_TOL, "ok": ok, "shape": list(got.shape)}
+    print("wan_forward_plain " + json.dumps(out), flush=True)
+    if not ok:
+        raise RuntimeError(f"the full-width Wan forward with flash is {rel:.4g} from the plain one")
+    return out
+
+
+def wan_paths(wrappers, card: str, launches: dict, profile=None):
+    """The Wan paths: ``wan`` (bf16 Wan2.1-T2V-1.3B, WAN_REQUESTS), then an
+    untiled decode of its last latents for comparison and the full-width
+    forward against plain attention; ``wan_f32`` (the default dtype, the
+    DiT cut to WAN_F32_BLOCKS blocks, WAN_F32_REQUESTS), each in its launch
+    window."""
+    import torch
+
+    pipes, reports, prof, extra = [], [], {}, {}
+    for label, f32, requests in (("wan", False, WAN_REQUESTS), ("wan_f32", True, WAN_F32_REQUESTS)):
+        pipe, info = build_wan_pipeline(card, default_dtype=f32)
+        pipes.append(info)
+        with plain_attention_on_card() as plain:
+            (rep, res), launches[label] = _windowed(wrappers, label,
+                                                    lambda: answer_video(pipe, requests, card, label))
+        info.update(_check_wan_launches(label, launches[label], *_forwards_and_encodes(requests),
+                                        plain, f32=f32,
+                                        calls=2 * WAN_F32_BLOCKS if f32 else WAN_ATTENTION_CALLS))
+        reports += rep
+        if not f32:
+            # the bench's tiling against one untiled decode of the same latents
+            lat = torch.from_numpy(res.latents).to(DEVICE)
+            pipe.set_vae_tiling(False)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with torch.inference_mode():
+                full = pipe.decode(lat)
+            torch.cuda.synchronize()
+            extra["untiled_decode"] = {
+                "decode_s": time.time() - t0, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "frames": full.shape[1], "finite": bool(torch.isfinite(full).all()),
+                "tiled_rel_l2": _rel(torch.from_numpy(res.frames[0]).float(),
+                                     ((full[0].clamp(-1, 1) + 1) * 127.5).round().cpu())}
+            print("untiled_decode " + json.dumps(extra["untiled_decode"]), flush=True)
+            if not extra["untiled_decode"]["finite"] or full.shape[1] != res.frames.shape[1]:
+                raise RuntimeError("the untiled Wan decode is not finite or has the wrong frames")
+            pipe.set_vae_tiling(True, **WAN_TILING)
+            del full, lat
+            with torch.inference_mode():
+                cond = pipe.conditioner.get_learned_condition(WAN_REQUEST["prompt"]).c_crossattn
+            extra["forward_plain"] = wan_forward_plain_check(pipe, cond)
+            del cond
+            if profile:
+                prof[label] = profile_request(pipe, WAN_REQUEST, profile, label, card)
+        del pipe, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return pipes, reports, prof, extra
+
+
+# Phase 11, Wan2.1 on files: ``vid_gen`` through the CLI on
+# ``tools/wan_file.py``'s set at full width, a short clip (9 frames: 3
+# latent frames) at 2 steps with the bench's tiling (UMT5 dequantized when
+# staged, as the JAX CLI does: no 4-bit call)
+WAN_CLI_FRAMES = 9
+WAN_CLI_REQUEST = dict(WAN_REQUEST, sample_steps=2, frames=WAN_CLI_FRAMES)
+WAN_CLI_ARGV = ["-M", "vid_gen", "-p", WAN_REQUEST["prompt"], "-n", "static", "-W", "832", "-H", "480",
+                "--video-frames", str(WAN_CLI_FRAMES), "--steps", "2", "--cfg-scale", "6",
+                "--sampling-method", "euler", "-s", "42", "--vae-tiling", "--vae-tile-size", "32",
+                "--vae-temporal-tiling", "--extra-tiling-args",
+                "temporal_tile_frames=5,temporal_tile_overlap=1"]
+
+
+def wan_entry_check(wrappers, card: str):
+    """Phase 11, Wan: ``tools/wan_file.py``'s full-width set (the DiT and the
+    VAE float16, UMT5-XXL a q8_0 GGUF with its vocab) written into a fresh
+    directory under the build directory, then ``cli.main -M vid_gen`` on it:
+    WAN_CLI_FRAMES PNG frames of 832x480, not constant, in its launch window
+    (path ``wan_cli``)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sdtpu_torch import cli
+    from sdtpu_torch.tools.wan_file import write_wan_files
+    from sdtpu_torch.utils.image import decode_png
+
+    root = ROOT / "build" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="wan_files_", dir=root))
+    report, launches = {"card": card}, {}
+    try:
+        report["files"] = write_wan_files(tmp, device=DEVICE)
+        print("entry wan files on " + card + ": " + json.dumps(report["files"]), flush=True)
+        paths = report["files"]["paths"]
+        args = ["--diffusion-model", paths["diffusion_model"], "--vae", paths["vae"], "--t5xxl",
+                paths["t5xxl"]]
+        out, rep = tmp / "wan.png", {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with plain_attention_on_card() as plain:
+            rc, launches["wan_cli"] = _windowed(wrappers, "wan_cli", lambda: cli.main(
+                args + WAN_CLI_ARGV + ["-o", str(out)], report=rep))
+        wall_s = time.time() - t0
+        if rc != 0:
+            raise RuntimeError(f"sdtpu_torch.cli.main -M vid_gen on the Wan files exited {rc}")
+        load = rep["load"]
+        if load["version"] != "wan2" or not str(load["t5_tokenizer"]).startswith("gguf:"):
+            raise RuntimeError(f"the CLI loaded {load['version']} (UMT5 tokenizer "
+                               f"{load['t5_tokenizer']}), not wan2 with the GGUF's vocab")
+        if sum(1 for i in rep["t5_ids"] if i) < 2:
+            raise RuntimeError(f"UMT5 was fed no token of the prompt: {rep['t5_ids'][:16]}")
+        want = [str(tmp / f"wan_{i:04d}.png") for i in range(WAN_CLI_FRAMES)]
+        if rep["outputs"] != want or (tmp / f"wan_{WAN_CLI_FRAMES:04d}.png").exists():
+            raise RuntimeError(f"vid_gen wrote {rep['outputs']}, not {want}")
+        stds = []
+        for p_ in want:
+            img, _ = decode_png(Path(p_).read_bytes())
+            if img.shape != (480, 832, 3):
+                raise RuntimeError(f"{p_}: {img.shape}, not (480, 832, 3)")
+            stds.append(float(img.std()))
+        if min(stds) == 0:
+            raise RuntimeError(f"constant frames: {stds}")
+        report["cli"] = {"load": load, "wall_s": wall_s, "timings_s": rep["timings"],
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                         "frames": len(want), "frame_std": float(np.mean(stds)),
+                         **_check_wan_launches("wan_cli", launches["wan_cli"],
+                                               *_forwards_and_encodes([WAN_CLI_REQUEST]), plain,
+                                               t5_q4=False)}
+        print("entry wan cli " + json.dumps(report["cli"]), flush=True)
+        del rep
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return report, launches
+
+
 def gguf_block_dit() -> dict:
     """Full-depth FLUX.1-dev DiT weights in the ``q8_0_gguf`` memory class,
     drawn on the card (the seed the factory gives a DiT it synthesizes)."""
@@ -2494,13 +2905,18 @@ def profile_request(pipe, request: dict, table: str, label: str, card: str) -> d
 
     from sdtpu_torch.config import GenerationParams
 
+    request = dict(request)
+    frames = request.pop("frames", None)
     gp = GenerationParams(**{"sample_method": "euler", **request})
     path = Path(table)
     path = path.with_name(f"{path.stem}.{label}{path.suffix}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        pipe.generate(gp)
+        if frames is None:
+            pipe.generate(gp)
+        else:  # a video request (Wan)
+            pipe.generate_video(gp, frames=frames)
         wall_s = time.time() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name, spans = {}, []
@@ -2518,7 +2934,8 @@ def profile_request(pipe, request: dict, table: str, label: str, card: str) -> d
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    summary = {"path": label, "card": card, "size": [gp.width, gp.height], "steps": gp.sample_steps,
+    summary = {"path": label, "card": card, "size": [gp.width, gp.height], "frames": frames,
+               "steps": gp.sample_steps,
                "wall_s": wall_s, "timings_s": dict(pipe.last_timings),
                "device_busy_s": busy_us / 1e6, "device_busy_share": busy_us / 1e6 / wall_s,
                "kernels": [{"name": n[:90], "ms": v[0] / 1e3, "count": v[1]} for n, v in top[:25]]}
@@ -2526,14 +2943,49 @@ def profile_request(pipe, request: dict, table: str, label: str, card: str) -> d
     return summary
 
 
+def launch_counters() -> dict:
+    """Each kernel's launch counter: name → (wrapper, attribute); the D 512
+    kernel, the 4-bit wgmma form, the GEMVs, the float32 forms (and the
+    W8A8, group-dequant and W8A16 mma.sync forms) are counted apart by their
+    wrappers."""
+    from sdtpu_torch.ops import flash_attention, quant
+
+    wrappers = {"flash_attention": (flash_attention.flash_attention, "launches"),
+                "flash_attention_d512": (flash_attention.flash_attention, "launches_d512"),
+                "flash_attention_d64": (flash_attention.flash_attention, "launches_d64"),
+                "flash_attention_d40": (flash_attention.flash_attention, "launches_d40"),
+                "flash_attention_d80": (flash_attention.flash_attention, "launches_d80"),
+                "flash_attention_d160": (flash_attention.flash_attention, "launches_d160"),
+                "w8a8_matmul_gemv": (quant.quant_matmul_w8a8, "launches_gemv"),
+                "w8a8_matmul_mma": (quant.quant_matmul_w8a8, "launches_mma"),
+                "q4_matmul_wgmma": (quant.q4_matmul, "launches_wgmma"),
+                "q4_matmul_gemv": (quant.q4_matmul, "launches_gemv"),
+                "q4_matmul_splitk": (quant.q4_matmul, "launches_splitk"),
+                "gq_matmul_gemv": (quant.gq_matmul, "launches_gemv"),
+                "gq_matmul_mma": (quant.gq_matmul, "launches_mma"),
+                "w8a16_matmul_gemv": (quant.w8a16_matmul, "launches_gemv"),
+                "w8a16_matmul_mma": (quant.w8a16_matmul, "launches_mma"),
+                "flash_attention_f32": (flash_attention.flash_attention, "launches_f32"),
+                "q4_matmul_f32": (quant.q4_matmul, "launches_f32"),
+                "w8a16_matmul_f32": (quant.w8a16_matmul, "launches_f32"),
+                "gq_matmul_f32": (quant.gq_matmul, "launches_f32"),
+                "gq_zero_matmul_f32": (quant.gq_zero_matmul, "launches_f32")}
+    for name, fn in (("w8a8_matmul", quant.quant_matmul_w8a8), ("q4_matmul", quant.q4_matmul),
+                     ("gq_matmul", quant.gq_matmul), ("gq_matmul_ws", quant.gq_matmul_ws),
+                     ("gq_zero_matmul", quant.gq_zero_matmul), ("w8a16_matmul", quant.w8a16_matmul)):
+        wrappers[name] = (fn, "launches")
+    return wrappers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measured number to this JSON file")
     ap.add_argument("--profile", metavar="TABLE",
                     help="after each main path, profile one more request (1024² for FLUX, "
-                         "SDXL and SD3, 512² for SD1.5) and write the profiler's tables to TABLE "
-                         "with .int8 / .w8a16 / .q8_0_gguf / .q4_0 / .f32 / .cli / .sd15 / .sdxl / "
-                         ".sd3 before its suffix")
+                         "SDXL and SD3, 512² for SD1.5, the bench's 832x480 x 33-frame clip for "
+                         "Wan) and write the profiler's tables to TABLE with .int8 / .w8a16 / "
+                         ".q8_0_gguf / .q4_0 / .f32 / .cli / .sd15 / .sdxl / .sd3 / .wan before "
+                         "its suffix")
     args = ap.parse_args()
 
     import torch
@@ -2578,34 +3030,7 @@ def main() -> int:
     if not all(r["ok"] for rs in ref.values() for r in rs.values()):
         raise RuntimeError(f"small-input reference check failed: {ref}")
 
-    # each kernel's launch counter: (wrapper, attribute); the D 512 kernel,
-    # the 4-bit wgmma form, the GEMVs, the float32 forms (and the W8A8,
-    # group-dequant and W8A16 mma.sync forms) are counted apart by their
-    # wrappers
-    wrappers = {"flash_attention": (flash_attention.flash_attention, "launches"),
-                "flash_attention_d512": (flash_attention.flash_attention, "launches_d512"),
-                "flash_attention_d64": (flash_attention.flash_attention, "launches_d64"),
-                "flash_attention_d40": (flash_attention.flash_attention, "launches_d40"),
-                "flash_attention_d80": (flash_attention.flash_attention, "launches_d80"),
-                "flash_attention_d160": (flash_attention.flash_attention, "launches_d160"),
-                "w8a8_matmul_gemv": (quant.quant_matmul_w8a8, "launches_gemv"),
-                "w8a8_matmul_mma": (quant.quant_matmul_w8a8, "launches_mma"),
-                "q4_matmul_wgmma": (quant.q4_matmul, "launches_wgmma"),
-                "q4_matmul_gemv": (quant.q4_matmul, "launches_gemv"),
-                "q4_matmul_splitk": (quant.q4_matmul, "launches_splitk"),
-                "gq_matmul_gemv": (quant.gq_matmul, "launches_gemv"),
-                "gq_matmul_mma": (quant.gq_matmul, "launches_mma"),
-                "w8a16_matmul_gemv": (quant.w8a16_matmul, "launches_gemv"),
-                "w8a16_matmul_mma": (quant.w8a16_matmul, "launches_mma"),
-                "flash_attention_f32": (flash_attention.flash_attention, "launches_f32"),
-                "q4_matmul_f32": (quant.q4_matmul, "launches_f32"),
-                "w8a16_matmul_f32": (quant.w8a16_matmul, "launches_f32"),
-                "gq_matmul_f32": (quant.gq_matmul, "launches_f32"),
-                "gq_zero_matmul_f32": (quant.gq_zero_matmul, "launches_f32")}
-    for name, fn in (("w8a8_matmul", quant.quant_matmul_w8a8), ("q4_matmul", quant.q4_matmul),
-                     ("gq_matmul", quant.gq_matmul), ("gq_matmul_ws", quant.gq_matmul_ws),
-                     ("gq_zero_matmul", quant.gq_zero_matmul), ("w8a16_matmul", quant.w8a16_matmul)):
-        wrappers[name] = (fn, "launches")
+    wrappers = launch_counters()
     launches = {}
     loader, launches["gguf_loader"], launches["gguf_file"] = loader_check(wrappers, card)
 
@@ -2701,6 +3126,10 @@ def main() -> int:
     pipes += sd3_pipes
     reports += rep
     prof.update(sd3_prof)
+    wan_pipes, rep, wan_prof, wan_extra = wan_paths(wrappers, card, launches, args.profile)
+    pipes += wan_pipes
+    reports += rep
+    prof.update(wan_prof)
 
     entry, launches["cli"], launches["server"] = entry_points_check(wrappers, card, args.profile)
     if "profile" in entry:
@@ -2711,6 +3140,8 @@ def main() -> int:
     launches.update(sdxl_launches)
     entry["sd3"], sd3_launches = sd3_entry_check(wrappers, card)
     launches.update(sd3_launches)
+    entry["wan"], wan_launches = wan_entry_check(wrappers, card)
+    launches.update(wan_launches)
 
     headline = {"flash_attention": ([1, 24, 4352, 4352, 128], {}),
                 "flash_attention_d512": ([1, 1, 4096, 4096, 512], {}),
@@ -2763,6 +3194,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s, "cases": cases, "reference": ref,
                        "loader": loader, "pipelines": pipes, "requests": reports, "entry": entry,
+                       "wan": wan_extra,
                        "launches": launches, "kernels": kernels, "profile": prof}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

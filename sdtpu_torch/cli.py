@@ -1,7 +1,8 @@
-"""sd-cli for the PyTorch/CUDA port: FLUX.1, SD1.x, SDXL and SD3 txt2img from
-checkpoint files (this package's copy of ``sdtpu/cli.py``: ``build_parser``,
-``main``, the FLUX, SD1, SDXL and SD3 txt2img parts of ``_load_pipeline`` and
-``_img_gen``, ``--taesd``, ``--flow-shift``, the metadata mode,
+"""sd-cli for the PyTorch/CUDA port: FLUX.1, SD1.x, SDXL and SD3 txt2img and
+Wan2.1 T2V txt2vid from checkpoint files (this package's copy of
+``sdtpu/cli.py``: ``build_parser``, ``main``, the FLUX, SD1, SDXL, SD3 and
+Wan parts of ``_load_pipeline``, ``_img_gen``, the T2V part of ``_vid_gen``,
+``--taesd``, ``--flow-shift``, the metadata mode,
 ``discover_gguf_tokenizer``).
 
     python -m sdtpu_torch.cli --diffusion-model flux1-dev-q8_0.gguf \
@@ -15,12 +16,20 @@ checkpoint files (this package's copy of ``sdtpu/cli.py``: ``build_parser``,
     python -m sdtpu_torch.cli -m sd3.5_medium.safetensors --clip_l clip_l.safetensors \
         --clip_g clip_g.safetensors --t5xxl t5xxl-q8_0.gguf -p "an astronaut riding a horse" \
         -n blurry -W 1024 -H 1024 --steps 28 --cfg-scale 4.5 --sampling-method dpm++2m -o out.png
+    python -m sdtpu_torch.cli -M vid_gen --diffusion-model wan2.1_t2v_1.3B_fp16.safetensors \
+        --vae wan_2.1_vae.safetensors --t5xxl umt5-xxl-enc-q8_0.gguf -p "a corgi running on a beach" \
+        -n static -W 832 -H 480 --video-frames 33 --steps 8 --cfg-scale 6 --sampling-method euler \
+        --vae-tiling --vae-tile-size 32 --vae-temporal-tiling \
+        --extra-tiling-args temporal_tile_frames=5,temporal_tile_overlap=1 -o clip.png
     python -m sdtpu_torch.cli metadata --image out.png
 
 The model family is fingerprinted from the files' tensor names, as the JAX
-CLI does; FLUX.1, SD1.x, SDXL and SD3 load, any other family exits naming it.  The
-parser is the JAX CLI's (the same flags, defaults and help).  The port
-runs two modes, ``img_gen`` (txt2img) and ``metadata``, and the flags in
+CLI does; FLUX.1, SD1.x, SDXL, SD3 and Wan2.1 T2V load, any other family exits
+naming it.  The parser is the JAX CLI's (the same flags, defaults and help).
+The port runs three modes, ``img_gen`` (txt2img), ``vid_gen`` (txt2vid on
+Wan2.1: one PNG a frame, ``name_0000.png``... for ``-o name.png``; the AVI,
+WebP, GIF and WebM containers, the default ``output.avi`` among them, need
+Pillow's JPEG / WebP encoders and exit 2) and ``metadata``, and the flags in
 ``RUN_FLAGS``; any other mode or flag set away from its default (e.g.
 ``--embd-dir``: textual-inversion embeddings are not ported), a sampler
 outside ``samplers.PORTED_METHODS``, a schedule other than ``discrete`` /
@@ -38,8 +47,11 @@ encoder is dequantized on the host, one tensor at a time.  Images are
 PNGs with the webui ``parameters`` text.  ``--taesd`` attaches a TAESD
 decoder (raw ``taesd`` names, its variant by the model's version) for the
 final decode; ``--taesd-preview-only`` is not ported (the port has no
-preview).  ``--flow-shift`` sets SD3's flow shift (3.0 by default) and, as
-in the JAX CLI, changes nothing for the other families.
+preview).  ``--flow-shift`` sets SD3's and Wan's flow shift (3.0 and 5.0 by
+default) and, as in the JAX CLI, changes nothing for the other families.
+``--vae-temporal-tiling`` (or ``--temporal-tiling``) windows a video decode
+over latent frames, sized by ``--extra-tiling-args
+temporal_tile_frames=N,temporal_tile_overlap=M``.
 """
 from __future__ import annotations
 
@@ -49,6 +61,8 @@ import re
 import sys
 import time
 from typing import Optional
+
+from sdtpu_torch.utils.image import VIDEO_CONTAINERS
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="sdtpu_torch",
@@ -469,10 +483,12 @@ RUN_FLAGS = frozenset({
     "vae_tiling", "vae_tile_size", "vae_tile_overlap",
     "dtype", "no_promote_q8", "no_keep_quant", "backend", "flow_shift",
     "output", "output_begin_idx", "disable_image_metadata", "verbose",
+    # vid_gen mode (Wan2.1 T2V)
+    "video_frames", "fps", "vae_temporal_tiling", "extra_tiling_args",
     # metadata mode
     "image", "metadata_format", "metadata_brief", "metadata_all", "metadata_raw",
 })
-MODES = ("img_gen", "metadata")
+MODES = ("img_gen", "vid_gen", "metadata")
 DTYPES = ("f32", "bf16")
 
 
@@ -487,9 +503,14 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
             continue
         if getattr(args, dest, action.default) != action.default:
             flag = "/".join(action.option_strings)
-            return f"{flag} is not ported (the port runs FLUX.1, SD1.x, SDXL and SD3 txt2img)"
+            return (f"{flag} is not ported (the port runs FLUX.1, SD1.x, SDXL and SD3 txt2img "
+                    "and Wan2.1 txt2vid)")
     if args.mode not in MODES:
         return f"mode {args.mode!r} is not ported; the port runs {list(MODES)}"
+    if args.mode == "vid_gen" and video_output(args).lower().endswith(VIDEO_CONTAINERS):
+        return (f"vid_gen -o {video_output(args)}: the {'/'.join(VIDEO_CONTAINERS)} writers need "
+                "Pillow's JPEG / WebP encoders, which are not ported; name a .png to write one PNG "
+                "a frame")
     if args.sampling_method not in PORTED_METHODS:
         return (f"--sampling-method {args.sampling_method!r} is not ported; "
                 f"ported: {list(PORTED_METHODS)}")
@@ -506,6 +527,12 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
     if re.search(r"<lora:[^>]*>", args.prompt or ""):
         return "<lora:...> prompt tags: LoRA is not ported"
     return None
+
+
+def video_output(args) -> str:
+    """vid_gen's output path: ``-o``, or ``output.avi`` where ``-o`` keeps its
+    default (the JAX CLI's)."""
+    return args.output if args.output != "output.png" else "output.avi"
 
 
 def _parse_assignment_spec(spec: str) -> dict:
@@ -638,7 +665,8 @@ def _load_pipeline(args, report: Optional[dict] = None):
     # SD1.x conditions on CLIP-L alone, SDXL on CLIP-L and CLIP-G: a missing
     # T5 is no error there
     encoders = {SDVersion.FLUX: ("clip_l", "t5"), SDVersion.SDXL: ("clip_l", "clip_g"),
-                SDVersion.SD3: ("clip_l", "clip_g", "t5")}.get(bundle.version, ("clip_l",))
+                SDVersion.SD3: ("clip_l", "clip_g", "t5"),
+                SDVersion.WAN2: ("t5",)}.get(bundle.version, ("clip_l",))
     missing = [m for m in (*encoders, "vae") if not getattr(bundle, m)]
     if missing:
         raise SystemExit(f"error: no {', '.join(missing)} weights in the given files "
@@ -663,8 +691,10 @@ def _load_pipeline(args, report: Optional[dict] = None):
     t0 = time.time()
     pipe = create_pipeline(bundle.version, params=params, rng_type=args.rng, dtype=dtype,
                            t5_tokenizer=t5_tok, flow_shift=args.flow_shift, device=device)
-    if args.vae_tiling:
-        pipe.set_vae_tiling(True, args.vae_tile_size, args.vae_tile_overlap)
+    if args.vae_tiling or args.vae_temporal_tiling:
+        pipe.set_vae_tiling(True, args.vae_tile_size, args.vae_tile_overlap,
+                            temporal=args.vae_temporal_tiling,
+                            extra_tiling_args=args.extra_tiling_args)
     if tae_raw is not None:
         tae_p = module_to_device({nk: v for k, v in tae_raw.items()
                                   if (nk := convert_taesd_name(k)) is not None}, dtype, device)
@@ -682,10 +712,13 @@ def _load_pipeline(args, report: Optional[dict] = None):
 
 
 def _img_gen(args, report: Optional[dict] = None) -> int:
-    from sdtpu_torch.config import GenerationParams
+    from sdtpu_torch.config import GenerationParams, SDVersion
     from sdtpu_torch.utils.image import build_parameters_text, resolve_output_path, write_image
 
     pipe = _load_pipeline(args, report)
+    if pipe.version == SDVersion.WAN2:
+        print("error: img_gen on a Wan2.1 model: run -M vid_gen", file=sys.stderr)
+        return 2
     gp = GenerationParams(  # the prompt stripped, as the JAX CLI's ``extract_loras`` leaves it
         prompt=args.prompt.strip(), negative_prompt=args.negative_prompt, width=args.width,
         height=args.height, sample_steps=args.steps, cfg_scale=args.cfg_scale,
@@ -702,6 +735,35 @@ def _img_gen(args, report: Optional[dict] = None) -> int:
         write_image(path, img, parameters=None if args.disable_image_metadata else meta)
         print(f"saved {path}")
         paths.append(path)
+    if report is not None:
+        report.update(timings=dict(pipe.last_timings), outputs=paths, seeds=res.seeds,
+                      t5_ids=pipe.last_t5_ids)
+    return 0
+
+
+def _vid_gen(args, report: Optional[dict] = None) -> int:
+    """txt2vid (the JAX CLI's ``_vid_gen``) on a Wan2.1 T2V model: one PNG a
+    frame (``write_video_frames``)."""
+    from sdtpu_torch.config import GenerationParams, SDVersion
+    from sdtpu_torch.utils.image import write_video_frames
+
+    pipe = _load_pipeline(args, report)
+    if pipe.version != SDVersion.WAN2:
+        print(f"error: vid_gen on a {pipe.version.value} model: the port runs txt2vid on Wan2.1 "
+              "T2V", file=sys.stderr)
+        return 2
+    gp = GenerationParams(  # the JAX CLI's: no batch count, no distilled guidance
+        prompt=args.prompt.strip(), negative_prompt=args.negative_prompt, width=args.width,
+        height=args.height, sample_steps=args.steps, cfg_scale=args.cfg_scale,
+        sample_method=args.sampling_method, schedule=args.schedule, seed=args.seed,
+        clip_skip=args.clip_skip, eta=args.eta)
+    t0 = time.time()
+    res = pipe.generate_video(gp, frames=args.video_frames, progress_callback=_progress_cb())
+    print(f"generated {res.frames.shape[1]} frames in {time.time() - t0:.2f}s")
+    print("timings " + json.dumps(pipe.last_timings))
+    out = video_output(args)
+    paths = write_video_frames(out, res.frames[0])
+    print(f"saved {out}")
     if report is not None:
         report.update(timings=dict(pipe.last_timings), outputs=paths, seeds=res.seeds,
                       t5_ids=pipe.last_t5_ids)
@@ -735,8 +797,8 @@ def _metadata(args) -> int:
 
 
 def main(argv=None, report: Optional[dict] = None) -> int:
-    """Run the CLI; ``report`` (a dict, when given) gets what an img_gen run
-    measured: ``load`` (seconds of read / stage / build, the T5 tokenizer's
+    """Run the CLI; ``report`` (a dict, when given) gets what an img_gen or
+    vid_gen run measured: ``load`` (seconds of read / stage / build, the T5 tokenizer's
     source), ``timings`` (cond / sample / decode / total), ``outputs``, the
     padded ``t5_ids`` T5 was fed for the prompt and the ``pipeline`` that
     answered."""
@@ -753,6 +815,8 @@ def main(argv=None, report: Optional[dict] = None) -> int:
         return 2
     if args.mode == "metadata":
         return _metadata(args)
+    if args.mode == "vid_gen":
+        return _vid_gen(args, report)
     return _img_gen(args, report)
 
 

@@ -2,7 +2,7 @@
 of ``sdtpu/conditioning/conditioner.py``: ``tokenize_with_weights``,
 ``apply_token_weights``, ``SDCondition``, ``SD1Conditioner``,
 ``sdxl_size_vector``, ``SDXLConditioner``, ``SD3Conditioner``,
-``FluxConditioner``).
+``FluxConditioner``, ``WanConditioner``).
 
 The tokenizers, the webui prompt parser and the encoders are this
 package's own.
@@ -228,3 +228,39 @@ class SD3Conditioner:
         return SDCondition(c_crossattn=torch.cat([hidden, h_t5.to(hidden.dtype)], dim=1),
                            c_vector=torch.cat([pooled_l, pooled_g.to(pooled_l.dtype)], dim=-1),
                            t5_ids=list(t5_ids))
+
+
+class WanConditioner:
+    """Wan 2.1: UMT5-XXL alone over ``seq_len`` (512) tokens: the prompt's
+    weighted spans tokenized one by one, then the end-of-sequence id,
+    padded; encoded under the attention mask, weighted (mean-preserving over
+    the whole sequence) and the masked states zeroed (``zero_out_masked``).
+    Without a tokenizer the ids are all zero and the mask full.  T5's
+    attention stays off flash (its relative-position bias)."""
+
+    def __init__(self, t5_tokenizer, t5_params, t5_cfg: T5Config, seq_len: int = 512, device="cuda"):
+        self.t5_tokenizer = t5_tokenizer
+        self.pt, self.ct = t5_params, t5_cfg
+        self.seq_len = seq_len
+        self.device = torch.device(device)
+
+    def get_learned_condition(self, text: str, clip_skip: int = -1, **kw) -> SDCondition:
+        ids: List[int] = []
+        w: List[float] = []
+        if self.t5_tokenizer is not None:
+            for span, weight in parse_prompt_attention(text):
+                span_ids = self.t5_tokenizer.encode(span)
+                ids.extend(span_ids)
+                w.extend([weight] * len(span_ids))
+            ids.append(self.t5_tokenizer.eos_token_id)
+            w.append(1.0)
+            ids, mask = self.t5_tokenizer.pad(ids, self.seq_len)
+        else:
+            ids, mask = [0] * self.seq_len, [1] * self.seq_len
+        w = (w + [1.0] * self.seq_len)[:self.seq_len]
+        dev = self.device
+        m = torch.tensor([mask], dtype=torch.float32, device=dev)
+        h = t5_encoder_forward(self.pt, torch.tensor([ids], dtype=torch.int64, device=dev), self.ct,
+                               attention_mask=m)
+        h = apply_token_weights(h, torch.tensor([w], dtype=torch.float32, device=dev))
+        return SDCondition(c_crossattn=h * m[:, :, None].to(h.dtype), t5_ids=list(ids))

@@ -1,5 +1,6 @@
 """Pipeline construction (counterpart of ``sdtpu/factory.py``:
 ``create_pipeline``, its SD1 and SDXL branches, ``_create_sd3_pipeline``,
+the WAN2 branch of ``_create_wan_pipeline``,
 ``_create_flux_pipeline`` and ``_detect_t5_config``).
 
 FLUX, SD1.x, SDXL and SD3 are built from given params (this package's
@@ -13,8 +14,11 @@ the JAX SD1.5 and SDXL benches (``bench_sd15``, ``bench_sdxl_lcm_taesd``)
 draw them; SD3 as ``bench_sd35_medium`` draws it: the MMDiT, CLIP-L, CLIP-G
 and the VAE dense, T5-XXL 4-bit.  A given MMDiT's config is fingerprinted
 from its names and shapes (``detect_mmdit_config``: SD3-Medium, SD3.5-Medium's
-MMDiT-X, SD3.5-Large), a given T5's from its shapes.  Every other version
-raises by name.
+MMDiT-X, SD3.5-Large), a given T5's from its shapes.  Wan2.1 T2V
+(``_create_wan_pipeline``, ``_detect_wan_vae_config``) as
+``bench_wan21_t2v`` draws it: the DiT and the VAE dense, UMT5-XXL 4-bit; a
+given DiT's config comes from ``detect_wan_config``, a given VAE's from its
+shapes.  Every other version raises by name.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from typing import Optional
 import torch
 
 from sdtpu_torch.conditioning.conditioner import (FluxConditioner, SD1Conditioner,
-                                                  SD3Conditioner, SDXLConditioner)
+                                                  SD3Conditioner, SDXLConditioner, WanConditioner)
 from sdtpu_torch.config import SDVersion
 from sdtpu_torch.diffusion.denoiser import CompVisDenoiser, DiscreteFlowDenoiser, FluxFlowDenoiser
 from sdtpu_torch.io.model_loader import PORTED_VERSIONS
@@ -34,6 +38,8 @@ from sdtpu_torch.models import mmdit as mmdit_mod
 from sdtpu_torch.models import t5 as t5_mod
 from sdtpu_torch.models import unet as unet_mod
 from sdtpu_torch.models import vae as vae_mod
+from sdtpu_torch.models import wan as wan_mod
+from sdtpu_torch.models import wan_vae as wan_vae_mod
 from sdtpu_torch.pipeline import DiffusionPipeline
 from sdtpu_torch.tokenizers.clip import CLIPTokenizer
 from sdtpu_torch.weights import synthesize
@@ -115,6 +121,64 @@ def sd3_configs(small: bool):
     return (mmdit_mod.SD3_MEDIUM_CONFIG,
             dataclasses.replace(clip_mod.CLIP_L_CONFIG, projection_dim=768),
             clip_mod.CLIP_G_CONFIG, t5_mod.T5_XXL_CONFIG, vae_mod.SD3_VAE_CONFIG)
+
+
+def wan_configs(small: bool):
+    """→ (dit, umt5, vae) configs and the UMT5 sequence length; the small set
+    is the JAX factory's small Wan2.1 T2V config (2 blocks 64 wide, axes
+    (8, 12, 12), the small UMT5, a VAE 8 wide over 4 latent channels, 32
+    tokens).  At full width: Wan2.1-T2V-1.3B, UMT5-XXL, the Wan 2.1 VAE, 512
+    tokens (the factory fingerprints given weights instead)."""
+    if small:
+        dit_cfg = wan_mod.WanConfig(in_dim=4, dim=64, ffn_dim=128, freq_dim=32, text_dim=96,
+                                    out_dim=4, num_heads=2, num_layers=2, axes_dim=(8, 12, 12))
+        t5_cfg = t5_mod.T5Config(vocab_size=256, d_model=96, d_kv=16, d_ff=128, num_layers=2,
+                                 num_heads=4, is_umt5=True)
+        return dit_cfg, t5_cfg, wan_vae_mod.WanVAEConfig(dim=8, z_dim=4, num_res_blocks=1), 32
+    return wan_mod.WAN21_T2V_1_3B_CONFIG, t5_mod.UMT5_XXL_CONFIG, wan_vae_mod.WAN21_VAE_CONFIG, 512
+
+
+def _create_wan_pipeline(params: dict, rng_type: str, dtype: torch.dtype, small: bool, seed: int,
+                         t5_tokenizer, flow_shift: Optional[float], device) -> DiffusionPipeline:
+    """Wan2.1 T2V: the Wan DiT, UMT5-XXL (``WanConditioner``), the 3-D causal
+    Wan VAE (the latent statistics applied only to its 16-channel latent),
+    the discrete flow denoiser (shift 5 unless ``flow_shift``), 4 frames a
+    latent frame.  Random weights come in ``bench_wan21_t2v``'s classes: the
+    DiT and the VAE dense, UMT5-XXL 4-bit at full width."""
+    dit_cfg, t5_cfg, vae_cfg, t5_seq = wan_configs(small)
+    if not small:
+        if params.get("diffusion"):
+            d = params["diffusion"]
+            dit_cfg = wan_mod.detect_wan_config(d.keys(), {k: tuple(v.shape) for k, v in d.items()})
+        if params.get("t5"):
+            t5_cfg = detect_t5_config(params["t5"])
+        if params.get("vae"):
+            vae_cfg = wan_vae_mod.detect_wan_vae_config(params["vae"])
+    wan_mod.check_supported(dit_cfg)
+    specs = {"diffusion": wan_mod.param_specs(dit_cfg), "t5": t5_mod.param_specs(t5_cfg),
+             "vae": wan_vae_mod.param_specs(vae_cfg)}
+    mods = {name: params.get(name) or synthesize(
+                spec, quant="q4_0" if name == "t5" and not small else None,
+                seed=seed + SEED_OFFSET[name], device=device, dtype=dtype)
+            for name, spec in specs.items()}
+    conditioner = WanConditioner(t5_tokenizer, mods["t5"], t5_cfg, seq_len=t5_seq, device=device)
+
+    def diffusion_fn(p, x, t, ctx, y, guidance=None, skip_layers=()):
+        return wan_mod.wan_forward(p, x, t, ctx, clip_fea=y, cfg=dit_cfg, skip_layers=skip_layers)
+
+    use_stats = vae_cfg.z_dim == 16  # the statistics are the real VAE's
+
+    def vae_decode_fn(p, z):
+        if use_stats:
+            z = wan_vae_mod.diffusion_to_vae_latents(z)
+        return wan_vae_mod.wan_vae_decode(p, z, vae_cfg)
+
+    return DiffusionPipeline(
+        version=SDVersion.WAN2, diffusion_params=mods["diffusion"], diffusion_fn=diffusion_fn,
+        conditioner=conditioner, vae_params=mods["vae"], vae_decode_fn=vae_decode_fn,
+        denoiser=DiscreteFlowDenoiser(shift=5.0 if flow_shift is None else flow_shift),
+        rng_type=rng_type, latent_channels=vae_cfg.z_dim, compute_dtype=dtype, device=device,
+        temporal_scale=4)
 
 
 def detect_t5_config(p: dict) -> t5_mod.T5Config:
@@ -205,16 +269,20 @@ def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] 
                     rng_type: str = "cuda", dtype: torch.dtype = torch.float32,
                     small: bool = False, seed: int = 0, t5_tokenizer=None,
                     flow_shift: Optional[float] = None, device="cuda") -> DiffusionPipeline:
-    """params: dict with keys 'diffusion', 'clip_l', 't5' (FLUX and SD3),
-    'clip_g' (SDXL and SD3), 'vae'; a missing module gets random weights
-    drawn on ``device`` (dense for the small configs and for SD1 and SDXL at
-    full width, the bench's memory classes for FLUX and SD3 at full width).
-    flow_shift: SD3's flow shift (None: 3.0); the other ported families take
-    none, and ignore it, as the JAX factory does."""
+    """params: dict with keys 'diffusion', 'clip_l', 't5' (FLUX, SD3 and
+    Wan's UMT5), 'clip_g' (SDXL and SD3), 'vae'; a missing module gets random
+    weights drawn on ``device`` (dense for the small configs and for SD1 and
+    SDXL at full width, the bench's memory classes for FLUX, SD3 and Wan at
+    full width).  flow_shift: SD3's and Wan's flow shift (None: 3.0 and
+    5.0); the other ported families take none, and ignore it, as the JAX
+    factory does."""
     if version not in PORTED_VERSIONS:
         raise NotImplementedError(f"{version} is not ported yet; the port runs "
                                   f"{[v.name for v in PORTED_VERSIONS]} txt2img")
     params = params or {}
+    if version == SDVersion.WAN2:
+        return _create_wan_pipeline(params, rng_type, dtype, small, seed, t5_tokenizer, flow_shift,
+                                    device)
     if version == SDVersion.SD3:
         return _create_sd3_pipeline(params, rng_type, dtype, small, seed, t5_tokenizer, flow_shift,
                                     device)

@@ -1,5 +1,6 @@
-"""FLUX, SD1.x, SDXL and SD3 checkpoint files → per-module param dicts (this
-package's copy of the FLUX, SD1, SDXL and SD3 parts of ``sdtpu.io.model_loader``:
+"""FLUX, SD1.x, SDXL, SD3 and Wan2.1 T2V checkpoint files → per-module param
+dicts (this package's copy of the FLUX, SD1, SDXL, SD3 and Wan parts of
+``sdtpu.io.model_loader``:
 ``load_model_bundle``, ``split_modules``, ``_split_in_proj``,
 ``read_checkpoint_file``, with the parts of ``sdtpu/io/detect.py`` and
 ``sdtpu/io/name_conversion.py`` they use).
@@ -23,9 +24,14 @@ renamed to HF ones, the fused ``in_proj`` split into q / k / v, the
 splits by ``model.diffusion_model.``, ``first_stage_model.`` and
 ``text_encoders.{clip_l,clip_g,t5xxl}.transformer.``; CLIP-G's
 ``text_projection`` is transposed whichever file it came from, CLIP-L's
-kept, as the JAX loader leaves them.  Any family but FLUX, SD1, SDXL and
-SD3 raises ``NotImplementedError`` naming it (SDXL's inpaint, pix2pix and
-SSD-1B variants too, and an SD3 transformer under diffusers names).
+kept, as the JAX loader leaves them.  A Wan2.1 DiT (``blocks.N.cross_attn``,
+``patch_embedding``) comes as ``--diffusion-model``, its VAE as ``--vae``
+and UMT5-XXL as ``--t5xxl`` (HF or llama.cpp GGUF names, its per-layer
+relative bias included).  Any family but FLUX, SD1, SDXL, SD3 and Wan2.1
+T2V raises ``NotImplementedError`` naming it (SDXL's inpaint, pix2pix and
+SSD-1B variants too, an SD3 transformer under diffusers names, Wan2.2 I2V
+and TI2V, a Wan VACE or I2V DiT, and a Wan DiT or VAE under diffusers
+names).
 """
 from __future__ import annotations
 
@@ -168,6 +174,9 @@ def convert_diffusers_diffusion_names(tensors: Dict[str, np.ndarray]) -> Dict[st
     def has_prefix(p):
         return any(k.startswith(p) for k in tensors)
 
+    if has_prefix("condition_embedder."):
+        raise NotImplementedError("a diffusers Wan transformer (WanTransformer3DModel names): the "
+                                  "port loads Wan under its original names (blocks.N.self_attn)")
     if has_prefix("pos_embed.proj.") and not has_prefix("single_transformer_blocks."):
         raise NotImplementedError("a diffusers SD3 transformer (SD3Transformer2DModel names): "
                                   "the port loads SD3 under its single-file names (joint_blocks)")
@@ -188,7 +197,7 @@ def convert_diffusers_diffusion_names(tensors: Dict[str, np.ndarray]) -> Dict[st
 
 # the families the port runs (``load_model_bundle`` and ``create_pipeline``
 # refuse every other by name)
-PORTED_VERSIONS = (SDVersion.FLUX, SDVersion.SD1, SDVersion.SDXL, SDVersion.SD3)
+PORTED_VERSIONS = (SDVersion.FLUX, SDVersion.SD1, SDVersion.SDXL, SDVersion.SD3, SDVersion.WAN2)
 
 
 def _unet_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
@@ -245,15 +254,33 @@ def _unet_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
     return SDVersion.SD1
 
 
+def _wan_version(names, shapes: Dict[str, Tuple[int, ...]]) -> Optional[SDVersion]:
+    """The JAX package's fingerprint of a Wan DiT (``detect_version``, its Wan
+    branch): VACE blocks, or the cross-attention of block 0 or a
+    ``patch_embedding``, whose 5-D weight's input channels name Wan2.2's
+    TI2V (48) and I2V (36); None where it is no Wan."""
+    if any(".vace_blocks." in n for n in names):
+        return SDVersion.WAN2
+    patch = next((n for n in names if "patch_embedding.weight" in n), None)
+    if patch is None and not any(n.startswith(DIFFUSION_PREFIX + "blocks.0.cross_attn")
+                                 for n in names):
+        return None
+    sh = shapes.get(patch) if patch is not None else None
+    if sh is not None and len(sh) == 5:
+        return {48: SDVersion.WAN2_2_TI2V, 36: SDVersion.WAN2_2_I2V}.get(sh[1], SDVersion.WAN2)
+    return SDVersion.WAN2
+
+
 def detect_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
     """The JAX package's fingerprint (``detect_version``) of an MMDiT (SD3:
-    ``joint_blocks``), a double-block DiT (its ``double_blocks`` branch) or a
-    UNet (its UNet branch); UNKNOWN for anything else."""
+    ``joint_blocks``), a double-block DiT (its ``double_blocks`` branch), a
+    Wan DiT (its Wan branch) or a UNet (its UNet branch); UNKNOWN for
+    anything else."""
     names = set(names)
     if any(n.startswith((DIFFUSION_PREFIX + "joint_blocks", "joint_blocks")) for n in names):
         return SDVersion.SD3
     if not any(n.startswith((DIFFUSION_PREFIX + "double_blocks", "double_blocks")) for n in names):
-        return _unet_version(names, shapes)
+        return _wan_version(names, shapes) or _unet_version(names, shapes)
     if any("nerf_final_layer_conv." in n for n in names):
         return SDVersion.CHROMA_RADIANCE
     if any("distilled_guidance_layer" in n for n in names):
@@ -502,6 +529,10 @@ def load_model_bundle(model_path: Optional[str] = None, diffusion_model_path: Op
         sub = read_checkpoint_file(path, keep_quant=keep_quant or not diffusion)
         if diffusion:
             sub = convert_diffusers_diffusion_names(sub)
+        elif path == vae_path and any(k.startswith("encoder.down_blocks.4.") for k in sub) and not any(
+                ".resnets." in k and k.startswith("encoder.") for k in sub):
+            raise NotImplementedError(f"{path}: a diffusers Wan VAE (AutoencoderKLWan names); the "
+                                      "port loads the Wan VAE under its original names")
         for k, v in sub.items():
             kk = canonicalize_name(k)
             if not kk.startswith(prefix):
@@ -511,4 +542,10 @@ def load_model_bundle(model_path: Optional[str] = None, diffusion_model_path: Op
     if bundle.version not in PORTED_VERSIONS:
         raise NotImplementedError(f"the files hold a {bundle.version.value} model; the port "
                                   f"loads {[v.value for v in PORTED_VERSIONS]}")
+    if bundle.version == SDVersion.WAN2:
+        refused = [what for what, key in (("VACE (vace_blocks)", "vace_blocks."),
+                                          ("I2V (img_emb)", "img_emb."))
+                   if any(key in k for k in bundle.diffusion)]
+        if refused:
+            raise NotImplementedError(f"a Wan {refused[0]} model: the port runs Wan2.1 T2V")
     return bundle

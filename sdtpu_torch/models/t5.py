@@ -2,7 +2,8 @@
 
 HF naming (``encoder.block.N.layer.{0,1}…``, ``shared.weight``): RMS norms,
 a relative position bias from block 0 shared by every layer, gated-GELU
-feed-forward, unscaled attention.  Attention takes the plain path
+feed-forward, unscaled attention; UMT5 (Wan's text encoder, ``is_umt5``)
+has a relative bias in every layer.  Attention takes the plain path
 (``flash=False``), as on the TPU; its linears are ``Q4Tensor``s in the
 FLUX.1 memory class.
 """
@@ -32,6 +33,7 @@ class T5Config:
 
 
 T5_XXL_CONFIG = T5Config()
+UMT5_XXL_CONFIG = dataclasses.replace(T5_XXL_CONFIG, vocab_size=256384, is_umt5=True)  # Wan's
 
 
 def param_specs(cfg: T5Config) -> dict:

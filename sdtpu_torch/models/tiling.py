@@ -1,9 +1,12 @@
-"""Spatial tiling with feathered overlap blending (counterpart of
-``sdtpu/models/tiling.py``, 2-D decode).
+"""Spatial tiling with feathered overlap blending, and the temporal windows
+of a video decode (counterpart of ``sdtpu/models/tiling.py``: ``tiled_decode``,
+``tiled_decode_temporal``).
 
 The plane splits into overlapping tiles; each runs through ``fn`` and the
-outputs blend with linear feather ramps in the overlap bands.  The canvas
-lives on the input's device in f32.
+outputs blend with linear feather ramps in the overlap bands.  Images are
+[B, H, W, C], videos [B, T, H, W, C] (the spatial axes are the two before
+the channels; a video decode may change the frame count).  The canvas lives
+on the input's device in f32.
 """
 from __future__ import annotations
 
@@ -63,3 +66,31 @@ def tiled_decode(decode_fn: Callable, z: torch.Tensor, tile: int = 64, overlap: 
                  scale_factor: int = 8) -> torch.Tensor:
     """Latent → pixels, tile and overlap in latent units."""
     return tiled_apply(decode_fn, z, tile, overlap, scale_factor)
+
+
+def tiled_decode_temporal(decode_fn: Callable, z: torch.Tensor, frames: int = 16, overlap: int = 4,
+                          temporal_scale: int = 4) -> torch.Tensor:
+    """A video latent [B, T, h, w, C] decoded in windows of ``frames``
+    latent frames, each ``frames - overlap`` after the last; a window after
+    the first drops the ``1 + temporal_scale·(overlap - 1)`` output frames
+    of its ``overlap`` context frames (a causal VAE decodes a window's frame
+    0 to one frame, each later one to ``temporal_scale``).  Float32, on z's
+    device."""
+    T = z.shape[1]
+    frames = max(1, frames)
+    overlap = max(0, min(overlap, frames - 1))
+    if T <= frames:
+        return decode_fn(z).float()
+    stride = frames - overlap
+    outs = []
+    s = 0
+    while True:
+        e = min(T, s + frames)
+        y = decode_fn(z[:, s:e]).float()
+        if s > 0 and overlap > 0:
+            y = y[:, 1 + temporal_scale * (overlap - 1):]
+        outs.append(y)
+        if e == T:
+            break
+        s += stride
+    return torch.cat(outs, dim=1)

@@ -1,7 +1,8 @@
-"""txt2img pipeline for FLUX, SD1.x, SDXL and SD3 (counterpart of the
-txt2img part of ``sdtpu/pipeline.py``: ``DiffusionPipeline.generate``,
-``txt2img``, ``set_vae_tiling``, ``set_tae``, the tiled decode and
-``_match_context``).
+"""txt2img pipeline for FLUX, SD1.x, SDXL and SD3, and txt2vid for Wan2.1
+T2V (counterpart of the txt2img and T2V parts of ``sdtpu/pipeline.py``:
+``DiffusionPipeline.generate``, ``generate_video``, ``VideoResult``,
+``txt2img``, ``set_vae_tiling`` with its temporal windows, ``set_tae``, the
+tiled decode and ``_match_context``).
 
 Samplers: ``sdtpu_torch.diffusion.samplers.PORTED_METHODS``; at ``eta > 0``
 an ancestral sampler's per-step noise (and ``lcm``'s at any ``eta``)
@@ -27,8 +28,9 @@ and defaults of the JAX package's).  The initial noise comes from
 ``sdtpu_torch.rng`` (Philox in numpy, or torch's CPU generator), drawn per batch item
 exactly as the JAX pipeline draws it, so both packages start from the same
 latent.  Phase wall-clock times of the last call land in
-``last_timings`` (``cond``, ``sample``, ``decode``, ``total``, ``steps``);
-each phase ends in a device synchronize.  ``last_t5_ids`` holds the padded
+``last_timings`` (``cond``, ``sample``, ``decode``, ``total``, ``steps``;
+``frames`` for a video); each phase ends in a device synchronize.  A video's
+latent is [B, Tl, h, w, C], Tl = 1 + (frames - 1) / ``temporal_scale``.  ``last_t5_ids`` holds the padded
 ids T5 was fed for the last prompt (all zero without a T5 tokenizer).
 """
 from __future__ import annotations
@@ -44,7 +46,7 @@ from sdtpu_torch.config import GenerationParams, SDVersion
 from sdtpu_torch.diffusion.guidance import cfg_combine
 from sdtpu_torch.diffusion.samplers import method_needs_noise, sample
 from sdtpu_torch.diffusion.schedule import get_sigmas
-from sdtpu_torch.models.tiling import tiled_decode
+from sdtpu_torch.models.tiling import tiled_decode, tiled_decode_temporal
 from sdtpu_torch.rng import create_rng
 
 
@@ -52,6 +54,13 @@ from sdtpu_torch.rng import create_rng
 class GenerationResult:
     images: np.ndarray  # [B, H, W, 3] uint8
     latents: np.ndarray  # [B, h, w, zc] float32 (pre-decode)
+    seeds: list
+
+
+@dataclasses.dataclass
+class VideoResult:
+    frames: np.ndarray  # [B, T, H, W, 3] uint8
+    latents: np.ndarray  # [B, Tl, h, w, zc] float32 (pre-decode)
     seeds: list
 
 
@@ -115,7 +124,7 @@ class DiffusionPipeline:
     def __init__(self, version: SDVersion, diffusion_params, diffusion_fn: Callable, conditioner,
                  vae_params, vae_decode_fn: Callable, denoiser, rng_type: str = "cuda",
                  latent_channels: int = 4, compute_dtype: torch.dtype = torch.float32,
-                 uses_distilled_guidance: bool = False, device="cuda"):
+                 uses_distilled_guidance: bool = False, device="cuda", temporal_scale: int = 1):
         self.version = version
         self.diffusion_params = diffusion_params
         self.diffusion_fn = diffusion_fn
@@ -126,22 +135,35 @@ class DiffusionPipeline:
         self.rng_type = rng_type
         self.latent_channels = latent_channels
         self.scale_factor = 8  # VAE pixels per latent
+        self.temporal_scale = temporal_scale  # video frames per latent frame (after the first)
         self.compute_dtype = compute_dtype
         self.uses_distilled_guidance = uses_distilled_guidance
         self.device = torch.device(device)
         self._vae_tiling = False
         self._vae_tile = 64
         self._vae_overlap = 8
+        self._vae_temporal = False
+        self._vae_temporal_frames = 16
+        self._vae_temporal_overlap = 4
         self.last_timings: Dict[str, float] = {}
         self.last_t5_ids: Optional[list] = None
         self._tae: Optional[dict] = None
 
-    def set_vae_tiling(self, enabled: bool = True, tile_size: int = 64, overlap: int = 8) -> None:
+    def set_vae_tiling(self, enabled: bool = True, tile_size: int = 64, overlap: int = 8,
+                       temporal: bool = False, extra_tiling_args: str = "") -> None:
         """Spatial VAE tiling: decode runs tile-wise with feathered blending;
-        tile and overlap in latent units."""
+        tile and overlap in latent units.  ``temporal``: a video decode also
+        runs in windows of latent frames; ``extra_tiling_args``
+        "temporal_tile_frames=N,temporal_tile_overlap=M" sizes them (16 and
+        4 by default)."""
         self._vae_tiling = enabled
         self._vae_tile = tile_size
         self._vae_overlap = overlap
+        self._vae_temporal = temporal
+        kv = dict(part.split("=", 1) for part in extra_tiling_args.split(",") if "=" in part)
+        kv = {k.strip(): v.strip() for k, v in kv.items()}
+        self._vae_temporal_frames = max(1, int(kv.get("temporal_tile_frames", 16)))
+        self._vae_temporal_overlap = max(0, int(kv.get("temporal_tile_overlap", 4)))
 
     def set_tae(self, tae_params, tae_cfg=None, preview_only: bool = False) -> None:
         """Attach a TAESD decoder (the CLI's ``--taesd``): final decodes run
@@ -175,16 +197,25 @@ class DiffusionPipeline:
         return self.compute_dtype
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
-        """Scaled latents [B,h,w,zc] → image [B,8h,8w,3] in [-1,1], float32."""
+        """Scaled latents [B,h,w,zc] → image [B,8h,8w,3] in [-1,1], float32;
+        a video's [B,Tl,h,w,zc] → [B,T,8h,8w,3], in temporal windows where
+        ``set_vae_tiling(temporal=True)`` asked for them."""
         vae_dtype = self._vae_dtype()
 
         def run(z):
             return self.vae_decode_fn(self.vae_params, z.to(vae_dtype))
 
-        if self._vae_tiling:
-            return tiled_decode(run, latents, tile=self._vae_tile, overlap=self._vae_overlap,
-                                scale_factor=self.scale_factor)
-        return run(latents).float()
+        def spatial(z):
+            if self._vae_tiling:
+                return tiled_decode(run, z, tile=self._vae_tile, overlap=self._vae_overlap,
+                                    scale_factor=self.scale_factor)
+            return run(z).float()
+
+        if self._vae_temporal and latents.dim() == 5:
+            return tiled_decode_temporal(spatial, latents, frames=self._vae_temporal_frames,
+                                         overlap=self._vae_temporal_overlap,
+                                         temporal_scale=self.temporal_scale)
+        return spatial(latents)
 
     def txt2img(self, gp: GenerationParams) -> GenerationResult:
         return self.generate(gp)
@@ -220,18 +251,15 @@ class DiffusionPipeline:
 
         return model_fn
 
-    @torch.inference_mode()
-    def generate(self, gp: GenerationParams, progress_callback: Optional[Callable] = None,
-                 cancel_check: Optional[Callable] = None) -> GenerationResult:
-        """txt2img for one GenerationParams: conditioning → sampling (CFG
-        when cfg_scale != 1) → (tiled) VAE decode.  progress_callback(step, steps, x) after each step (False
-        stops); cancel_check() before it (True stops)."""
+    def _denoise(self, gp: GenerationParams, shape: tuple, image_seq_len: int,
+                  progress_callback: Optional[Callable], cancel_check: Optional[Callable]):
+        """Conditioning, then sampling from the initial noise of ``shape``
+        (one batch item's latent) → (latents on the device, float32; seeds;
+        cond seconds; sample seconds; steps)."""
         if gp.custom_sigmas:
             raise NotImplementedError("custom sigmas are not ported yet")
-        t0 = time.time()
         dev = self.device
         w, h = gp.width, gp.height
-        lh, lw = h // self.scale_factor, w // self.scale_factor
         bc = gp.batch_count
         has_uncond = gp.cfg_scale != 1.0
 
@@ -253,12 +281,11 @@ class DiffusionPipeline:
         y_u = _tile(uncond.c_vector, bc) if uncond is not None else None
 
         sigmas = get_sigmas(self.denoiser, gp.sample_steps, scheduler=gp.schedule,
-                            image_seq_len=(lh // 2) * (lw // 2))
+                            image_seq_len=image_seq_len)
         steps = len(sigmas) - 1
 
         # per-batch streams: latent noise, then the sampler's per-step noise
         seeds = [gp.seed + i for i in range(bc)]
-        shape = (lh, lw, self.latent_channels)
         init_noise = np.empty((bc,) + shape, dtype=np.float32)
         need_noise = method_needs_noise(gp.sample_method, gp.eta)
         step_noise = np.empty((steps, bc) + shape, dtype=np.float32) if need_noise else None
@@ -278,6 +305,7 @@ class DiffusionPipeline:
 
         ts0 = time.time()
         model_fn = self._model_fn(ctx_c, ctx_u, y_c, y_u, gp.cfg_scale, guidance, bc)
+
         def step_callback(i, xi):
             if cancel_check is not None and cancel_check():
                 return False
@@ -291,14 +319,64 @@ class DiffusionPipeline:
         latents = self.denoiser.inverse_noise_scaling(
             torch.tensor(sigmas[-1], device=dev), latents).float()
         _sync(dev)
-        t1 = time.time()
+        return latents, seeds, t_cond, time.time() - ts0, steps
 
+    @torch.inference_mode()
+    def generate(self, gp: GenerationParams, progress_callback: Optional[Callable] = None,
+                 cancel_check: Optional[Callable] = None) -> GenerationResult:
+        """txt2img for one GenerationParams: conditioning → sampling (CFG
+        when cfg_scale != 1) → (tiled) VAE decode.  progress_callback(step, steps, x) after each step (False
+        stops); cancel_check() before it (True stops)."""
+        t0 = time.time()
+        lh, lw = gp.height // self.scale_factor, gp.width // self.scale_factor
+        latents, seeds, t_cond, t_sample, steps = self._denoise(
+            gp, (lh, lw, self.latent_channels), (lh // 2) * (lw // 2), progress_callback,
+            cancel_check)
+        t1 = time.time()
         imgs = self.decode(latents).cpu().numpy()
         lat_np = latents.cpu().numpy()
         images = np.clip((imgs + 1.0) * 127.5, 0, 255).round().astype(np.uint8)
         t2 = time.time()
         self.last_timings = {
-            "cond": t_cond, "sample": t1 - ts0, "decode": t2 - t1,
+            "cond": t_cond, "sample": t_sample, "decode": t2 - t1,
             "total": t2 - t0, "steps": steps,
         }
         return GenerationResult(images=images, latents=lat_np, seeds=seeds)
+
+    @torch.inference_mode()
+    def generate_video(self, gp: GenerationParams, frames: int = 81, init_image=None,
+                       high_noise_params=None, control_frames=None, preview_callback=None,
+                       progress_callback: Optional[Callable] = None, **unported) -> VideoResult:
+        """txt2vid for one GenerationParams: ``frames`` rounded down to
+        1 + ``temporal_scale``·k (the causal VAE's), the noise drawn per batch
+        item at [Tl, h, w, C], sampling as ``generate`` (CFG batched;
+        ``progress_callback`` as there), then the (spatially and temporally
+        tiled) video decode.  ``last_timings``
+        adds ``frames``.  I2V (``init_image``), the Wan2.2 MoE
+        (``high_noise_params`` and the ``high_noise_*`` / ``moe_boundary``
+        options), VACE (``control_frames``) and ``preview_callback`` are not
+        ported and raise by name."""
+        for name, value in (("init_image", init_image), ("high_noise_params", high_noise_params),
+                            ("control_frames", control_frames),
+                            ("preview_callback", preview_callback), *unported.items()):
+            if value is not None:
+                raise NotImplementedError(f"generate_video({name}=...) is not ported; the port "
+                                          "runs txt2vid")
+        t0 = time.time()
+        lh, lw = gp.height // self.scale_factor, gp.width // self.scale_factor
+        ts = self.temporal_scale
+        frames = max(1, ((frames - 1) // ts) * ts + 1)
+        tl = (frames - 1) // ts + 1
+        latents, seeds, t_cond, t_sample, steps = self._denoise(
+            gp, (tl, lh, lw, self.latent_channels), tl * (lh // 2) * (lw // 2), progress_callback,
+            None)
+        t1 = time.time()
+        vid = self.decode(latents).cpu().numpy()
+        lat_np = latents.cpu().numpy()
+        frames_u8 = np.clip((vid + 1.0) * 127.5, 0, 255).round().astype(np.uint8)
+        t2 = time.time()
+        self.last_timings = {
+            "cond": t_cond, "sample": t_sample, "decode": t2 - t1,
+            "total": t2 - t0, "steps": steps, "frames": frames,
+        }
+        return VideoResult(frames=frames_u8, latents=lat_np, seeds=seeds)

@@ -20,7 +20,9 @@ Routes the port answers:
 Every other route answers 501 with a JSON error naming it (no web UI).  A
 request that asks for what the port does not run (img2img fields, hires,
 LoRA, video, a sampler outside samplers.PORTED_METHODS, jpeg / webp output)
-answers 400, or fails its job, naming it.
+answers 400, or fails its job, naming it.  A Wan2.1 model is refused at
+load (the reference's video answer is an animated WebP): the CLI's
+``-M vid_gen`` runs it.
 
 One generation at a time (a mutex around the pipeline); the native family
 is async, with a job queue, per-step progress and cancellation.  The
@@ -456,6 +458,11 @@ def main(argv=None, report: Optional[dict] = None, ready=None) -> int:
         print(f"error: {why}", file=sys.stderr)
         return 2
     pipe = _load_pipeline(args, report)
+    if pipe.version.value == "wan2":
+        print("error: a Wan2.1 model: the server's video generation (video_frames, answered with "
+              "an animated WebP) is not ported; run python -m sdtpu_torch.cli -M vid_gen",
+              file=sys.stderr)
+        return 2
     serve(pipe, args.host, args.port, ready=ready)
     return 0
 

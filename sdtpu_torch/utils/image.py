@@ -109,6 +109,28 @@ def write_image(path: str, image: np.ndarray, parameters: Optional[str] = None) 
         f.write(encode_png(image, parameters))
 
 
+# the JAX package's video containers (``write_video``: AVI of JPEG frames,
+# animated WebP, GIF, WebM) need Pillow's encoders, which the port does not use
+VIDEO_CONTAINERS = (".avi", ".webp", ".gif", ".webm")
+
+
+def write_video_frames(path: str, frames: np.ndarray) -> list:
+    """A clip [T, H, W, 3] uint8 as one PNG a frame, ``<path without its
+    extension>_0000.png``..., as the JAX package's ``write_video`` writes a
+    path that names none of its containers → the paths written.  A container
+    raises ``ValueError``."""
+    if path.lower().endswith(VIDEO_CONTAINERS):
+        raise ValueError(f"{path}: {'/'.join(VIDEO_CONTAINERS)} output needs Pillow's JPEG / WebP "
+                         "encoders, which the port does not use; name a .png to write one PNG a "
+                         "frame")
+    base = path.rsplit(".", 1)[0]
+    paths = [f"{base}_{i:04d}.png" for i in range(len(frames))]
+    for p, f in zip(paths, frames):
+        with open(p, "wb") as fh:
+            fh.write(encode_png(f))
+    return paths
+
+
 def decode_png(blob: bytes):
     """PNG bytes → (image [H,W,3] uint8, parameters text or None) of an 8-bit
     RGB PNG whose rows all use filter 0, as ``encode_png`` writes them."""

@@ -15,7 +15,8 @@ device, in the memory classes of the JAX bench synthesis
 its blocks) or packed 4-bit ``Q4Tensor`` (q4_0, scale group 64 by default
 as in the bench, 32 for a q4_0 GGUF's block grid) with constant scales sized
 so dequantized values have std ~0.02; embeddings and tensors under 2**16
-elements stay dense.
+elements stay dense.  A dense weight's std is the spec's (0.02, or the
+float it names: the Wan VAE's convolutions take 0.05).
 """
 from __future__ import annotations
 

@@ -18,7 +18,11 @@ decoder of ``init_tae_params(TAESD_XL_CONFIG, seed=5)`` under the raw
 swaps SDXL's full-size configs.  The SD3 set is the JAX package's small SD3
 pipeline as an SD3.5 user's files: the MMDiT and the VAE in one float16
 single file, CLIP-L and CLIP-G float16 under HF names, T5 as a q8_0 GGUF
-with its vocab; ``small_sd3_configs`` swaps SD3's full-size configs.
+with its vocab; ``small_sd3_configs`` swaps SD3's full-size configs.  The
+Wan set is the JAX package's small Wan2.1 T2V pipeline as a Wan user's
+files: the DiT and the VAE as float16 safetensors under their original
+names, UMT5 as a q8_0 GGUF under llama.cpp names with its vocab;
+``small_wan_configs`` swaps Wan's full-size configs.
 """
 import dataclasses
 import struct
@@ -272,3 +276,42 @@ def small_sd3_configs(monkeypatch):
     monkeypatch.setattr(tmmdit, "SD35_MEDIUM_CONFIG", dataclasses.replace(
         dit, qk_norm="rms", num_x_self_attn_layers=1, adm_in_channels=768 + clip_g.projection_dim))
     monkeypatch.setattr(tt5, "T5_XXL_CONFIG", t5)
+
+
+def small_wan_pipeline():
+    return jax_create_pipeline(jconfig.SDVersion.WAN2, small=True, seed=0)
+
+
+def write_small_wan_files(directory, jp=None) -> dict:
+    """The small Wan pipeline's weights as a Wan file set → {CLI flag: path}:
+    the DiT and the VAE as float16 safetensors (original names), UMT5 as a
+    q8_0 GGUF under llama.cpp names with a unigram vocab."""
+    jp = jp or small_wan_pipeline()
+    d = str(directory)
+    paths = {"diffusion_model": f"{d}/wan_small.safetensors", "vae": f"{d}/wan_vae_small.safetensors",
+             "t5xxl": f"{d}/umt5_small_q8_0.gguf"}
+    for key, params in (("diffusion_model", jp.diffusion_params), ("vae", jp.vae_params)):
+        save_safetensors(paths[key], {k: np.asarray(v, dtype=np.float16) for k, v in params.items()})
+    save_gguf(paths["t5xxl"], {gguf_t5_name(k): np.asarray(v, dtype=np.float32)
+                               for k, v in jp.conditioner.pt.items()},
+              out_type="q8_0", metadata=synthetic_t5_vocab(256))
+    return paths
+
+
+def small_wan_configs(monkeypatch):
+    """Swap the full-size Wan configs for the small ones of both factories:
+    the DiT's base config (both packages fingerprint a given DiT from it:
+    its width is under the 128-wide heads' rule), and, for the port's
+    ``tools/wan_file.py``, UMT5-XXL and the Wan VAE (the loaders read those
+    two from the weights)."""
+    import sdtpu.models.wan as jwan
+    import sdtpu_torch.models.t5 as tt5
+    import sdtpu_torch.models.wan as twan
+    import sdtpu_torch.models.wan_vae as twv
+    from sdtpu_torch.factory import wan_configs
+
+    dit, t5, vae, _ = wan_configs(small=True)
+    monkeypatch.setattr(twan, "WAN21_T2V_1_3B_CONFIG", dit)
+    monkeypatch.setattr(jwan, "WAN21_T2V_1_3B_CONFIG", jwan.WanConfig(**dataclasses.asdict(dit)))
+    monkeypatch.setattr(tt5, "UMT5_XXL_CONFIG", t5)
+    monkeypatch.setattr(twv, "WAN21_VAE_CONFIG", vae)

@@ -6,7 +6,9 @@ safetensors, a q8_0 T5 GGUF under llama.cpp names with an embedded vocab;
 its small SD1 and SDXL weights as float16 single-file checkpoints, beside
 a TAESD-XL decoder file; its small SD3 weights as an SD3.5 set: the MMDiT
 and the VAE in one float16 file, CLIP-L, CLIP-G and a q8_0 T5 GGUF beside
-it), with their full-size configs swapped for the small ones.  The port runs
+it; its small Wan2.1 T2V weights as a Wan set: the DiT and the VAE as
+float16 safetensors, a q8_0 UMT5 GGUF), with their full-size configs
+swapped for the small ones.  The port runs
 with ``--backend cpu``.  Their images may differ by one uint8 level (a
 float32 pixel on a rounding boundary); the ``parameters`` text is equal.
 Unported flags, modes and values exit 2 before anything loads.
@@ -24,9 +26,10 @@ sys.path.insert(0, os.path.dirname(__file__))  # tests/_torch_files.py
 
 from _torch_files import (small_configs, small_jax_pipeline, small_sd1_configs,  # noqa: E402
                           small_sd1_pipeline, small_sd3_configs, small_sd3_pipeline,
-                          small_sdxl_configs, small_sdxl_pipeline, write_small_flux_files,
-                          write_small_sd1_file, write_small_sd3_files, write_small_sdxl_file,
-                          write_small_tae_file)
+                          small_sdxl_configs, small_sdxl_pipeline, small_wan_configs,
+                          small_wan_pipeline, write_small_flux_files, write_small_sd1_file,
+                          write_small_sd3_files, write_small_sdxl_file, write_small_tae_file,
+                          write_small_wan_files)
 
 
 @pytest.fixture(scope="module")
@@ -540,3 +543,150 @@ def test_sd3_file_tool_writes_files_the_cli_answers_from(monkeypatch, tmp_path):
         img, params = decode_png(f.read())
     assert img.shape == (64, 64, 3) and img.std() > 0
     assert "Sampler: dpm++2m" in params
+
+
+@pytest.fixture(scope="module")
+def wan_files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("wan_files")
+    return write_small_wan_files(d, small_wan_pipeline())
+
+
+def _wan_args(p):
+    return ["--diffusion-model", p["diffusion_model"], "--vae", p["vae"], "--t5xxl", p["t5xxl"]]
+
+
+WAN_REQUESTS = {
+    # the bench's request (bench_wan21_t2v), cut to 64x48, 5 frames and 3
+    # steps, with its tiling (spatial tiles, temporal windows of 5, overlap 1)
+    "bench_tiled": ["-p", "a corgi running on a beach", "-n", "static", "-W", "64", "-H", "48",
+                    "--video-frames", "5", "--steps", "3", "--cfg-scale", "6", "--sampling-method",
+                    "euler", "-s", "42", "--vae-tiling", "--vae-tile-size", "4",
+                    "--vae-tile-overlap", "2", "--vae-temporal-tiling", "--extra-tiling-args",
+                    "temporal_tile_frames=5,temporal_tile_overlap=1"],
+    # 11 frames rounded down to 9, another flow shift, euler_a's noise, the
+    # temporal windows alone (spatial tiles of the default size)
+    "flow_shift_temporal": ["-p", "a red fox in snow", "-W", "64", "-H", "64", "--video-frames",
+                            "11", "--steps", "2", "--cfg-scale", "4", "--eta", "1.0", "-s", "7",
+                            "--flow-shift", "3.0", "--temporal-tiling", "--extra-tiling-args",
+                            "temporal_tile_frames=2,temporal_tile_overlap=1"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(WAN_REQUESTS))
+def test_cli_vid_gen_matches_jax_cli(wan_files, monkeypatch, tmp_path, name):
+    """The Wan set through both CLIs' ``vid_gen``: both fingerprint it as
+    Wan2 (the DiT config from the weights), find the UMT5 tokenizer in the
+    GGUF and take ``--flow-shift``; ``-o name.png`` writes ``name_0000.png``
+    ... one a frame, 1 + 4k of them, each within one uint8 level of the JAX
+    CLI's."""
+    from PIL import Image
+
+    import sdtpu.cli as jcli
+    from sdtpu_torch import cli
+
+    small_wan_configs(monkeypatch)
+    monkeypatch.setenv("SDTPU_COMPILE_CACHE", str(tmp_path / "xla"))
+    args = ["-M", "vid_gen"] + _wan_args(wan_files) + WAN_REQUESTS[name]
+    report = {}
+    assert cli.main(args + ["--backend", "cpu", "-o", str(tmp_path / "port.png")],
+                    report=report) == 0
+    assert jcli.main(args + ["-o", str(tmp_path / "jax.png")]) == 0
+    assert report["load"]["version"] == "wan2"
+    assert report["load"]["t5_tokenizer"] == "gguf:" + wan_files["t5xxl"]
+    pipe = report["pipeline"]
+    assert pipe.denoiser.shift == (3.0 if "--flow-shift" in WAN_REQUESTS[name] else 5.0)
+    assert pipe.diffusion_params["blocks.1.ffn.0.weight"].shape == (128, 64)
+    n = 5 if name == "bench_tiled" else 9
+    assert report["outputs"] == [str(tmp_path / f"port_{i:04d}.png") for i in range(n)]
+    assert report["timings"]["frames"] == n and not os.path.exists(tmp_path / f"port_{n:04d}.png")
+    for i in range(n):
+        a = np.asarray(Image.open(str(tmp_path / f"port_{i:04d}.png"))).astype(int)
+        b = np.asarray(Image.open(str(tmp_path / f"jax_{i:04d}.png"))).astype(int)
+        assert a.shape == b.shape == (int(args[args.index("-H") + 1]), int(args[args.index("-W") + 1]), 3)
+        assert np.abs(a - b).max() <= 1
+    assert np.asarray(Image.open(report["outputs"][0])).std() > 0
+    assert any(report["t5_ids"][:-1]) and len(report["t5_ids"]) == 512
+
+
+@pytest.mark.parametrize("output", [None, "clip.avi", "clip.webp", "clip.gif", "clip.webm"])
+def test_vid_gen_video_containers_exit_2(tmp_path, capsys, output):
+    """The default ``output.avi`` and every container the JAX CLI writes
+    through Pillow's JPEG / WebP encoders exit 2 by name, before anything
+    loads."""
+    from sdtpu_torch import cli
+
+    argv = ["-M", "vid_gen", "--diffusion-model", str(tmp_path / "missing.safetensors")]
+    if output:
+        argv += ["-o", str(tmp_path / output)]
+    assert cli.main(argv) == 2
+    err = capsys.readouterr().err
+    assert "not ported" in err and (output or "output.avi") in err and "Pillow" in err
+
+
+def test_wan_modes_need_their_model(wan_files, files, small, monkeypatch, tmp_path, capsys):
+    """img_gen on a Wan model and vid_gen on an image model exit 2 by name;
+    a Wan set without UMT5 is refused naming it; the server refuses a Wan
+    model (its video answer is an animated WebP) and a request's
+    ``video_frames``."""
+    from sdtpu_torch import cli, server
+
+    small_wan_configs(monkeypatch)
+    _, flux = files
+    out = ["--backend", "cpu", "-o", str(tmp_path / "x.png"), "--steps", "1", "-W", "32", "-H", "32"]
+    assert cli.main(_wan_args(wan_files) + out) == 2
+    assert "vid_gen" in capsys.readouterr().err
+    assert cli.main(["-M", "vid_gen"] + _file_args(flux) + out) == 2
+    assert "txt2vid on Wan2.1" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match="t5"):
+        cli.main(["-M", "vid_gen", "--diffusion-model", wan_files["diffusion_model"], "--vae",
+                  wan_files["vae"]] + out)
+    assert server.main(_wan_args(wan_files) + ["--backend", "cpu", "--port", "0"]) == 2
+    assert "video_frames" in capsys.readouterr().err
+    assert server.UNPORTED_FIELDS["video_frames"] == "video"
+
+
+def test_wan_file_tool_writes_files_the_cli_answers_from(monkeypatch, tmp_path):
+    """``sdtpu_torch.tools.wan_file`` (the card check's Wan2.1-T2V-1.3B set)
+    at small configs: float16 safetensors for the DiT and the VAE's decoder,
+    a q8_0 UMT5 GGUF with a relative bias in every block and its vocab;
+    fingerprinted as Wan2 by both packages' loaders, the DiT config as the
+    base one, answered by the port's CLI with 1 + 4k PNG frames."""
+    from sdtpu.io.model_loader import load_model_bundle as jax_load_model_bundle
+    from sdtpu_torch import cli
+    from sdtpu_torch.io.gguf import GGUFFile
+    from sdtpu_torch.io.model_loader import load_model_bundle
+    from sdtpu_torch.models import wan as tw
+    from sdtpu_torch.tools.wan_file import file_specs, write_wan_files
+    from sdtpu_torch.utils.image import decode_png
+
+    small_wan_configs(monkeypatch)
+    out = write_wan_files(tmp_path / "set", device="cpu", min_quant_elems=1024)
+    paths = out["paths"]
+    assert out["tensors"] == {k: len(v) for k, v in file_specs().items()}
+    assert all(os.path.getsize(p) >= out["bytes"][k] for k, p in paths.items())
+    for key in ("diffusion_model", "vae"):
+        with open(paths[key], "rb") as f:
+            header = json.loads(f.read(struct.unpack("<Q", f.read(8))[0]))
+        assert {v["dtype"] for v in header.values()} == {"F16"}
+    f = GGUFFile(paths["t5xxl"])
+    try:
+        assert f.tensor_type("token_embd.weight") == "q8_0"
+        assert f.tensor_type("enc.blk.1.attn_rel_b.weight") == "f32"
+    finally:
+        f.close()
+    kw = dict(diffusion_model_path=paths["diffusion_model"], vae_path=paths["vae"],
+              t5xxl_path=paths["t5xxl"])
+    bundle = load_model_bundle(**kw)
+    assert bundle.version.value == jax_load_model_bundle(**kw).version.value == "wan2"
+    shapes = {k: tuple(v.shape) for k, v in bundle.diffusion.items()}
+    assert tw.detect_wan_config(list(shapes), shapes) == tw.WAN21_T2V_1_3B_CONFIG
+    report = {}
+    png = str(tmp_path / "out.png")
+    assert cli.main(["-M", "vid_gen", "--diffusion-model", paths["diffusion_model"], "--vae",
+                     paths["vae"], "--t5xxl", paths["t5xxl"], "-p", "a cat", "-n", "static", "-W",
+                     "32", "-H", "32", "--video-frames", "6", "--steps", "2", "--sampling-method",
+                     "euler", "--cfg-scale", "6", "--backend", "cpu", "-o", png], report=report) == 0
+    assert report["load"]["version"] == "wan2" and len(report["outputs"]) == 5
+    with open(report["outputs"][-1], "rb") as f:
+        img, params = decode_png(f.read())
+    assert img.shape == (32, 32, 3) and img.std() > 0 and not params

@@ -240,6 +240,31 @@ def test_flash_sdxl_shapes_match_plain(cuda, dtype, tol, b, h, lq, lk, d, bias):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,lq,lk,d,bias", chip_smoke.WAN_FLASH_SHAPES)
+def test_flash_wan_shapes_match_plain(cuda, b, h, lq, lk, d, bias):
+    """Wan2.1-1.3B's D 128 calls at 832x480 over 9 latent frames under CFG:
+    the self-attention over 14040 tokens (the last 128-row Q tile and the
+    last 128-key tile ragged) and the cross-attention over UMT5's 512, bf16,
+    q drawn around +1 and k around -1 (``chip_smoke.flash_inputs``), at
+    ``chip_smoke.py``'s limit: one launch in ``launches`` and none in the
+    D 64, D 512 or float32 counts; the zero keys past Lk left unmasked
+    (``unmasked_pad_keys``, where Lk is off the 128-key tile) exceed the
+    limit."""
+    g = torch.Generator(device=cuda).manual_seed(lq + lk)
+    q, k, v, mask = chip_smoke.flash_inputs(g, b, h, lq, lk, d, torch.bfloat16, bias)
+    counters = ("launches", "launches_d64", "launches_d512", "launches_f32")
+    before = [getattr(fa.flash_attention, c) for c in counters]
+    got = fa.flash_attention(q, k, v, mask=mask)
+    assert [getattr(fa.flash_attention, c) for c in counters] == [before[0] + 1] + before[1:]
+    want = fa.plain_attention(q, k, v, mask=mask)
+    limit = chip_smoke.FLASH_TOL["bf16"] * want.float().abs().max().item()
+    assert torch.isfinite(got).all() and (got.float() - want.float()).abs().max().item() <= limit
+    faults = chip_smoke._ragged_faults(q, k, v, mask, want)
+    assert ("unmasked_pad_keys" in faults) is (lk % 128 != 0)
+    assert all(f > limit for f in faults.values()), faults
+
+
+@pytest.mark.cuda
 def test_flash_d512_at_sd3_decode_matches_plain(cuda):
     """The SD3 VAE's mid-block attention over the untiled 1024² decode's
     16384 tokens, bf16 D 512 (``chip_smoke.SD3_VAE_FLASH_SHAPE``): one launch

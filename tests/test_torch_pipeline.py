@@ -193,8 +193,8 @@ def test_unported_requests_raise(pipes):
     _, tp = pipes
     with pytest.raises(NotImplementedError, match="heun"):
         tp.generate(_gp(sample_method="heun"))
-    with pytest.raises(NotImplementedError, match="WAN2"):
-        create_pipeline(SDVersion.WAN2, small=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="HUNYUAN_VIDEO"):
+        create_pipeline(SDVersion.HUNYUAN_VIDEO, small=True, device="cpu")
 
 
 def test_slg_is_refused_under_cfg(pipes):

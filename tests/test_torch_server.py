@@ -170,6 +170,18 @@ def test_unported_request_fields_fail_by_name(servers):
     assert job["status"] == "failed" and "LoRA" in job["error"]
 
 
+def test_video_frames_are_refused_by_name(servers):
+    """A request's ``video_frames`` (the reference answers with an animated
+    WebP) stays refused by name: the port's video runs through the CLI's
+    ``vid_gen``."""
+    base = servers["port"]
+    code, resp = _call(base, "/sdapi/v1/txt2img", {"prompt": "x", "video_frames": 33})
+    assert code == 400 and "video" in resp["error"], resp
+    code, resp = _call(base, "/sdcpp/v1/img_gen", {"prompt": "x", "video_frames": 33})
+    job, _ = _wait(base, resp["id"])
+    assert job["status"] == "failed" and "video" in job["error"]
+
+
 @pytest.mark.parametrize("method,path", [("GET", "/"), ("GET", "/sdapi/v1/loras"),
                                          ("GET", "/sdapi/v1/upscalers"), ("GET", "/nope"),
                                          ("POST", "/sdapi/v1/img2img"), ("POST", "/v1/images/edits"),
