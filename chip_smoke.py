@@ -166,6 +166,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      float32: its float32 form), and on the card no attention runs in the
      plain version but UMT5's 24 a prompt encode; the frames are finite,
      of the asked size and not constant.
+ 10f. img2img, masked img2img and the latent hires fix, each in its launch
+     window on a pipeline of the paths above, from a 1024² (512² on SD1.5)
+     init image drawn from ``IMG2IMG_SEED`` and a mask whose right half
+     regenerates: path ``img2img`` on the int8 FLUX.1-dev pipeline (the
+     bench's VAE tiling) answers a 4-step request at strength 0.75 (its
+     ``encode`` seconds printed beside cond / sample / decode), then encodes
+     the image once untiled (one D 512 call over 16384 tokens); path
+     ``img2img_mask`` answers the masked request at 0.6, whose kept half of
+     the final latent must be the tiled encode of the init image within
+     ``MASK_KEEP_TOL`` and whose regenerated half must move; path ``hires``
+     on the bf16 SD1.5 pipeline answers ``txt2img_hires`` 512² → 1024² at
+     0.7; paths ``sdxl_img2img`` (the full VAE, untiled, after
+     ``set_tae(None)``) and ``sd3_img2img`` answer a 1024² request of 4 steps at 0.6.
+     Flash D 512 launches exactly once a tile of each encode and decode
+     through the full VAE, each family's UNet / DiT flash forms as in
+     txt2img, the steps sampled are ``img2img_steps``'s, and no attention
+     runs in the plain version on the card but T5's.
  11. main path 5, the entry points, on files: a full FLUX.1-dev checkpoint
      set written by ``sdtpu_torch.tools.flux_files`` into a temporary
      directory under ``build/chip_smoke/`` (removed after; the free disk
@@ -175,7 +192,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (encoder included) as safetensors.  ``sdtpu_torch.cli.main`` answers one
      1024² 2-step euler request with VAE tiling from them (path ``cli``: the
      T5 tokenizer found in the GGUF, q8_0 promoted to W8A8), and the PNG is
-     read back in metadata mode; then ``sdtpu_torch.server.main``, loaded
+     read back in metadata mode, then ``-i`` / ``--mask`` / ``--strength 0.6``
+     over 4 steps (path ``cli_img2img``: the init image and the mask as PNG
+     files, the PNG read back in metadata mode); then
+     ``sdtpu_torch.server.main``, loaded
      from the same files with ``--no-promote-q8`` (the DiT in its group-32
      blocks), serves on 127.0.0.1 three 512² requests of at most 4 steps
      (``/sdapi/v1/txt2img`` with no sampler named, so euler_a;
@@ -184,9 +204,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      ``server``).  Then SD1.5 on a file: ``sdtpu_torch.tools.sd15_file``
      writes a full-width float16 single-file checkpoint under the LDM names
      (2.13e9 bytes), ``cli.main -m`` answers one 512² × 20-step request to
-     a PNG (path ``sd15_cli``) and the server, loaded from the same file,
-     one A1111 ``/sdapi/v1/txt2img`` request (path ``sd15_server``), each
-     with the launch checks of 10b.  Then SDXL on files:
+     a PNG (path ``sd15_cli``) and then ``--hires`` 512² → 1024² (path
+     ``sd15_cli_hires``), and the server, loaded from the same file, one
+     A1111 ``/sdapi/v1/txt2img`` request (path ``sd15_server``), one
+     ``/sdapi/v1/img2img`` request with a 1024² Paeth-filtered PNG in
+     ``init_images`` and a ``mask`` (path ``sd15_server_img2img``; the
+     PNG's host decode seconds beside the request's) and one ``enable_hr`` txt2img request (path
+     ``sd15_server_hires``), each with the launch checks of 10b (and 10f's
+     D 512 count).  Then SDXL on files:
      ``sdtpu_torch.tools.sdxl_file`` writes a full-width float16 single-file
      SDXL checkpoint under the SGM names (CLIP-G under OpenCLIP's, 6.94e9
      bytes) and a TAESD-XL decoder file; ``cli.main -m ... --taesd ...``
@@ -246,9 +271,11 @@ import gc
 import json
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 DEVICE = "cuda"
@@ -668,6 +695,15 @@ PATH_KERNELS["wan_f32"] = ("flash_attention", "flash_attention_f32", "q4_matmul"
 PATH_IDLE["wan_f32"] = (*OTHER_QUANT, *Q4_BF16_FORMS, *UNET_FLASH, "flash_attention_d64",
                         "flash_attention_d512", "w8a16_matmul_f32", "gq_matmul_f32",
                         "gq_zero_matmul_f32")
+# img2img, masked img2img and the hires fix run each family's kernels as its
+# txt2img path does; the encoder's mid-block attention is flash D 512, as the
+# decoder's
+for _path, _as in (("img2img", "int8"), ("img2img_mask", "int8"), ("hires", "sd15"),
+                   ("sd3_img2img", "sd3"), ("cli_img2img", "cli"), ("sd15_cli_hires", "sd15"),
+                   ("sd15_server_img2img", "sd15"), ("sd15_server_hires", "sd15")):
+    PATH_KERNELS[_path], PATH_IDLE[_path] = PATH_KERNELS[_as], PATH_IDLE[_as]
+PATH_KERNELS["sdxl_img2img"] = ("flash_attention", "flash_attention_d64", "flash_attention_d512")
+PATH_IDLE["sdxl_img2img"] = (*QUANT_KERNELS, *F32_FORMS, *UNET_FLASH)
 F32_PATHS = {"wan_f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
              "sd3_f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
              "sd15_f32": (("flash_attention", "flash_attention_f32"),),
@@ -724,6 +760,11 @@ SD15_REQUEST = dict(prompt="a photograph of an astronaut riding a horse", negati
                     sample_method="euler_a", schedule="discrete")
 SD15_REQUESTS = [SD15_REQUEST, SD15_REQUEST, dict(SD15_REQUEST, sample_method="dpm++2m")]
 SD15_F32_REQUESTS = [dict(SD15_REQUEST, sample_steps=4)]
+# SD1.5's hires fix: the base at 512² x 8 euler_a steps (CFG 7), its
+# latents resized to 128 x 128, then int(8 x 0.7) + 1 = 6 steps at 1024²
+SD15_HIRES_REQUEST = dict(SD15_REQUEST, prompt="a lighthouse at night, long exposure",
+                          sample_steps=8)
+SD15_HIRES = dict(hires_scale=2.0, hires_strength=0.7)
 
 
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
@@ -1753,6 +1794,13 @@ CLI_REQUEST = dict(prompt=ENTRY_PROMPT, width=1024, height=1024, sample_steps=2,
                    guidance=3.5, seed=3)
 CLI_ARGV = ["-p", ENTRY_PROMPT, "-W", "1024", "-H", "1024", "--steps", "2", "--sampling-method",
             "euler", "--cfg-scale", "1.0", "--guidance", "3.5", "-s", "3", "--vae-tiling"]
+# the CLI's img2img on the FLUX files: -i / --mask / --strength 0.6 over 4
+# steps (3 sample) with the bench's VAE tiling
+CLI_IMG2IMG_REQUEST = dict(prompt="a harbour at dawn, oil on canvas", width=1024, height=1024,
+                           sample_steps=4, cfg_scale=1.0, guidance=3.5, seed=3, strength=0.6)
+CLI_IMG2IMG_ARGV = ["-p", CLI_IMG2IMG_REQUEST["prompt"], "-W", "1024", "-H", "1024", "--steps", "4",
+                    "--sampling-method", "euler", "--cfg-scale", "1.0", "--guidance", "3.5", "-s",
+                    "3", "--vae-tiling", "--strength", "0.6"]
 # (route, body, the sampler the image's parameters must name)
 SERVER_SYNC = [
     ("/sdapi/v1/txt2img", {"prompt": "a photograph of an astronaut riding a horse", "width": 512,
@@ -1860,8 +1908,9 @@ def _ask_server(base: str, pipe) -> list:
 
 
 def entry_points_check(wrappers, card: str, profile=None):
-    """Phase 11: write the FLUX file set, answer from it through the CLI and
-    the server, each in its own launch window."""
+    """Phase 11: write the FLUX file set, answer from it through the CLI
+    (txt2img, then img2img with a mask: path ``cli_img2img``) and the
+    server, each in its own launch window."""
     import contextlib
     import io
     import queue
@@ -1870,11 +1919,13 @@ def entry_points_check(wrappers, card: str, profile=None):
 
     import torch
 
+    import numpy as np
+
     from sdtpu_torch import cli, server
     from sdtpu_torch.config import GenerationParams
     from sdtpu_torch.models.flux import FLUX_DEV_CONFIG
     from sdtpu_torch.tools.flux_files import write_flux_files
-    from sdtpu_torch.utils.image import build_parameters_text, parse_parameters_text
+    from sdtpu_torch.utils.image import build_parameters_text, parse_parameters_text, write_image
 
     root = ROOT / "build" / "chip_smoke"
     root.mkdir(parents=True, exist_ok=True)
@@ -1929,6 +1980,43 @@ def entry_points_check(wrappers, card: str, profile=None):
         gc.collect()
         torch.cuda.empty_cache()
 
+        # img2img through the CLI: an init image and a mask as PNG files
+        init_png, mask_png, png = tmp / "init.png", tmp / "mask.png", tmp / "cli_img2img.png"
+        img, mask = init_image_and_mask(1024)
+        write_image(str(init_png), img)
+        write_image(str(mask_png), np.repeat(mask[..., None], 3, axis=-1))
+        cli_rep = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with plain_attention_on_card() as plain:
+            rc, counts_i2i = _windowed(wrappers, "cli_img2img", lambda: cli.main(
+                file_args + CLI_IMG2IMG_ARGV + ["-i", str(init_png), "--mask", str(mask_png), "-o",
+                                                str(png)], report=cli_rep))
+        wall_s = time.time() - t0
+        if rc != 0:
+            raise RuntimeError(f"sdtpu_torch.cli.main -i ... --mask ... exited {rc}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["metadata", "--image", str(png), "--metadata-format", "json"])
+        want = build_parameters_text(GenerationParams(sample_method="euler", **CLI_IMG2IMG_REQUEST))
+        meta = json.loads(buf.getvalue())
+        if rc != 0 or meta.get("parameters") != parse_parameters_text(want):
+            raise RuntimeError(f"metadata mode read {meta.get('parameters')}, not {want!r}")
+        enc, dec = _tiles(cli_rep["pipeline"], 1024)
+        steps = img2img_steps(4, CLI_IMG2IMG_REQUEST["strength"])
+        if cli_rep["timings"]["steps"] != steps:
+            raise RuntimeError(f"path cli_img2img: {cli_rep['timings']['steps']} steps, not {steps}")
+        report["cli_img2img"] = {
+            "load": cli_rep["load"], "wall_s": wall_s, "timings_s": cli_rep["timings"],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "forms": _entry_forms("cli", counts_i2i), "launches": counts_i2i,
+            **_check_d512("cli_img2img", counts_i2i, enc + dec, plain, SD3_T5_LAYERS),
+            **_check_png(png.read_bytes(), 1024, 1024, "euler")}
+        print("entry cli_img2img " + json.dumps(report["cli_img2img"]), flush=True)
+        del cli_rep
+        gc.collect()
+        torch.cuda.empty_cache()
+
         box, srv_rep = queue.Queue(), {}
 
         def run():
@@ -1960,7 +2048,7 @@ def entry_points_check(wrappers, card: str, profile=None):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("entry " + json.dumps({k: report[k] for k in ("card", "dit_depth", "files")}), flush=True)
-    return report, counts_cli, counts_srv
+    return report, counts_cli, counts_srv, counts_i2i
 
 
 @contextlib.contextmanager
@@ -2028,8 +2116,9 @@ def build_sd15_pipeline(card: str, default_dtype: bool = False):
 
 
 def sd15_paths(wrappers, card: str, launches: dict, profile=None):
-    """The SD1.5 paths: ``sd15`` (bf16, SD15_REQUESTS) and ``sd15_f32`` (the
-    default dtype, SD15_F32_REQUESTS), each in its launch window."""
+    """The SD1.5 paths: ``sd15`` (bf16, SD15_REQUESTS), then ``hires`` on the
+    same pipeline, and ``sd15_f32`` (the default dtype, SD15_F32_REQUESTS),
+    each in its launch window."""
     import torch
 
     pipes, reports, prof = [], [], {}
@@ -2044,6 +2133,9 @@ def sd15_paths(wrappers, card: str, launches: dict, profile=None):
         reports += rep
         if profile and not f32:
             prof[label] = profile_request(pipe, SD15_REQUEST, profile, label, card)
+        if not f32:
+            rep, info["hires"] = sd15_hires_path(pipe, wrappers, card, launches)
+            reports += rep
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
@@ -2060,7 +2152,7 @@ SD15_SERVER_BODY = {"prompt": SD15_REQUEST["prompt"], "width": 512, "height": 51
 
 def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, cli_argv: list,
                       server_body: dict, check_launches, sampler: str, size: tuple, load_check,
-                      request: dict = None):
+                      request: dict = None, more_cli=(), more_server=()):
     """Phase 11 for one family: ``write_files(tmp)`` writes its full-width
     files into a fresh directory under the build directory and returns their
     report; ``file_args(files)`` names them on the CLI and the server. One
@@ -2068,7 +2160,11 @@ def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, c
     loaded the wrong model; with ``request`` the PNG is read back in metadata
     mode and its parameters held against the request's) and one through the
     server's A1111 route, each in its own launch window, held by
-    ``check_launches(path, counts, plain)`` and ``_check_png``."""
+    ``check_launches(path, counts, plain)`` and ``_check_png``.
+    ``more_cli`` / ``more_server``: further requests after each, dicts of
+    ``path``, ``argv`` or ``route`` and ``body`` (and ``files(tmp)`` → more
+    body fields), ``check``, ``size``, ``sampler``, each in its own
+    window."""
     import io
     import queue
     import tempfile
@@ -2115,6 +2211,22 @@ def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, c
         del cli_rep
         gc.collect()
         torch.cuda.empty_cache()
+        for more in more_cli:
+            path, png, cli_rep = more["path"], tmp / f"{more['path']}.png", {}
+            torch.cuda.reset_peak_memory_stats()
+            with plain_attention_on_card() as plain:
+                rc, launches[path] = _windowed(wrappers, path, lambda: cli.main(
+                    args + more["argv"] + ["-o", str(png)], report=cli_rep))
+            if rc != 0:
+                raise RuntimeError(f"sdtpu_torch.cli.main ({path}) exited {rc}")
+            report[path] = {"timings_s": cli_rep["timings"],
+                            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                            **more["check"](path, launches[path], plain),
+                            **_check_png(png.read_bytes(), *more["size"], more["sampler"])}
+            print(f"entry {path} " + json.dumps(report[path]), flush=True)
+            del cli_rep
+            gc.collect()
+            torch.cuda.empty_cache()
 
         box, srv_rep = queue.Queue(), {}
 
@@ -2145,6 +2257,24 @@ def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, c
                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
                 **check_launches(f"{label}_server", launches[f"{label}_server"], plain),
                 **_check_png(base64.b64decode(resp["images"][0]), *size, sampler))
+            for more in more_server:
+                path = more["path"]
+                body = {**more["body"], **(more["files"](tmp) if "files" in more else {})}
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                with plain_attention_on_card() as plain:
+                    (code, resp), launches[path] = _windowed(
+                        wrappers, path, lambda: _http(base, more["route"], body))
+                request_s = time.time() - t0
+                if code != 200:
+                    raise RuntimeError(f"{more['route']} ({path}): {code} {resp}")
+                report[path] = {"timings_s": dict(httpd.manager.pipeline.last_timings),
+                                "request_s": request_s,
+                                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                                **more["check"](path, launches[path], plain),
+                                **_check_png(base64.b64decode(resp["images"][0]), *more["size"],
+                                             more["sampler"])}
+                print(f"entry {path} " + json.dumps(report[path]), flush=True)
         finally:
             httpd.shutdown()
             thread.join(timeout=300)
@@ -2157,20 +2287,93 @@ def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, c
     return report, launches
 
 
+# the hires fix through the CLI and the A1111 route: 512² x 8 steps, then
+# 1024² at 0.7 (6 steps); img2img through the A1111 route: a 1024² init
+# image, every row Paeth-filtered as an editor's PNG, and the mask at 0.75
+# over 20 steps (16 sample)
+SD15_CLI_HIRES_ARGV = ["-p", SD15_HIRES_REQUEST["prompt"], "-W", "512", "-H", "512", "--steps", "8",
+                       "--cfg-scale", "7.0", "-s", "42", "--hires", "--hires-scale", "2",
+                       "--hires-denoising-strength", "0.7"]
+SD15_SERVER_HIRES_BODY = {"prompt": SD15_HIRES_REQUEST["prompt"], "width": 512, "height": 512,
+                          "steps": 8, "cfg_scale": 7.0, "seed": 42, "enable_hr": True,
+                          "hr_scale": 2.0, "hr_upscaler": "Latent", "denoising_strength": 0.7}
+SD15_SERVER_IMG2IMG_BODY = {"prompt": "a harbour at dawn, oil on canvas", "width": 1024,
+                            "height": 1024, "steps": 20, "cfg_scale": 7.0, "seed": 42,
+                            "denoising_strength": 0.75}
+
+
+def paeth_png(img) -> bytes:
+    """[H, W, 3] uint8 → PNG bytes with every row Paeth-filtered, as an image
+    editor's adaptive filtering writes most rows of a photo (the port's own
+    ``encode_png`` writes filter 0, which decodes row-wise)."""
+    import numpy as np
+
+    from sdtpu_torch.utils.image import PNG_SIGNATURE, _png_chunk
+
+    h, w, _ = img.shape
+    x = np.pad(img.astype(np.int16), ((1, 0), (1, 0), (0, 0)))
+    a, b, c = x[1:, :-1], x[:-1, 1:], x[:-1, :-1]  # left, above, above-left
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = ((x[1:, 1:] - pred) & 255).astype(np.uint8).reshape(h, -1)
+    raw = np.concatenate([np.full((h, 1), 4, dtype=np.uint8), rows], axis=1).tobytes()
+    return (PNG_SIGNATURE + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(raw, 6)) + _png_chunk(b"IEND", b""))
+
+
+def _init_and_mask_b64(size: int, timing: dict) -> dict:
+    """The init image (``paeth_png``) and the mask as the A1111 route's
+    base64 PNGs; ``timing["init_png_decode_s"]`` gets the host seconds of
+    ``base64_png_to_image`` (what the server runs on it) on the init image,
+    whose pixels must come back."""
+    import numpy as np
+
+    from sdtpu_torch.utils.image import base64_png_to_image, image_to_base64_png
+
+    img, mask = init_image_and_mask(size)
+    init = base64.b64encode(paeth_png(img)).decode("ascii")
+    t0 = time.time()
+    back = base64_png_to_image(init)
+    timing["init_png_decode_s"] = time.time() - t0
+    if not np.array_equal(back, img):
+        raise RuntimeError("the Paeth-filtered init image did not decode to its pixels")
+    return {"init_images": [init],
+            "mask": image_to_base64_png(np.repeat(mask[..., None], 3, axis=-1))}
+
+
 def sd15_entry_check(wrappers, card: str) -> dict:
     """Phase 11, SD1.5: the full-width single-file checkpoint of
-    ``tools/sd15_file.py`` through ``cli.main -m`` and the A1111 route."""
+    ``tools/sd15_file.py`` through ``cli.main -m`` (txt2img, then ``--hires``:
+    path ``sd15_cli_hires``) and the A1111 routes (txt2img, then img2img
+    with a mask: ``sd15_server_img2img``, then ``enable_hr``:
+    ``sd15_server_hires``)."""
     from sdtpu_torch.tools.sd15_file import write_sd15_file
 
     def load_check(rep):
         if rep["load"]["version"] != "sd1":
             raise RuntimeError(f"the CLI loaded a {rep['load']['version']} model, not sd1")
 
+    def check(forwards: int, d512: int):
+        return lambda path, counts, plain: {**_check_unet_flash(path, counts, forwards, plain),
+                                            **_check_d512(path, counts, d512, plain)}
+
+    hires = check(8 + img2img_steps(8, 0.7), 2)
+    i2i_size, png_timing = SD15_SERVER_IMG2IMG_BODY["width"], {}
     return _file_entry_check(
         wrappers, card, "sd15", lambda tmp: write_sd15_file(tmp / "sd15.safetensors", device=DEVICE),
         lambda files: ["-m", files["path"]], SD15_CLI_ARGV, SD15_SERVER_BODY,
         lambda path, counts, plain: _check_unet_flash(path, counts, 20, plain),
-        "euler_a", (512, 512), load_check)
+        "euler_a", (512, 512), load_check,
+        more_cli=[dict(path="sd15_cli_hires", argv=SD15_CLI_HIRES_ARGV, check=hires,
+                       size=(1024, 1024), sampler="euler_a")],
+        more_server=[dict(path="sd15_server_img2img", route="/sdapi/v1/img2img",
+                          body=SD15_SERVER_IMG2IMG_BODY,
+                          files=lambda tmp: _init_and_mask_b64(i2i_size, png_timing),
+                          check=lambda *a: {**check(img2img_steps(20, 0.75), 2)(*a), **png_timing},
+                          size=(i2i_size, i2i_size), sampler="euler_a"),
+                     dict(path="sd15_server_hires", route="/sdapi/v1/txt2img",
+                          body=SD15_SERVER_HIRES_BODY, check=hires, size=(1024, 1024),
+                          sampler="euler_a")])
 
 
 # SDXL: the JAX bench's request (``bench_sdxl_lcm_taesd``, bench.py:441),
@@ -2243,7 +2446,7 @@ def build_sdxl_pipeline(card: str, default_dtype: bool = False):
     else:
         unet_cfg, clip_l_cfg, clip_g_cfg, vae_cfg = sdxl_configs(small=False)
         specs = {"diffusion": unet_mod.param_specs(unet_cfg), "clip_l": clip_mod.param_specs(clip_l_cfg),
-                 "clip_g": clip_mod.param_specs(clip_g_cfg), "vae": vae_mod.param_specs(vae_cfg)}
+                 "clip_g": clip_mod.param_specs(clip_g_cfg), "vae": vae_mod.vae_specs(vae_cfg)}
         params = {m: synthesize(sp, seed=SDXL_BENCH_SEEDS[m], device=DEVICE, dtype=torch.bfloat16)
                   for m, sp in specs.items()}
         pipe = create_pipeline(SDVersion.SDXL, params=params, dtype=torch.bfloat16, device=DEVICE)
@@ -2264,8 +2467,10 @@ def build_sdxl_pipeline(card: str, default_dtype: bool = False):
 
 def sdxl_paths(wrappers, card: str, launches: dict, profile=None):
     """The SDXL paths: ``sdxl`` (bf16: SDXL_TAE_REQUESTS through TAESD-XL,
-    then SDXL_VAE_REQUEST through the full VAE) and ``sdxl_f32`` (the default
-    dtype, SDXL_F32_REQUESTS), each in its launch window."""
+    then SDXL_VAE_REQUEST through the full VAE), ``sdxl_img2img`` on the same
+    pipeline (SDXL_IMG2IMG_REQUEST after ``set_tae(None)``: the full VAE
+    encodes and decodes untiled) and ``sdxl_f32`` (the default dtype, SDXL_F32_REQUESTS), each
+    in its launch window."""
     import torch
 
     from sdtpu_torch.models import tae as tae_mod
@@ -2295,6 +2500,17 @@ def sdxl_paths(wrappers, card: str, launches: dict, profile=None):
     reports += rep
     if profile:
         prof["sdxl"] = profile_request(pipe, SDXL_REQUEST, profile, "sdxl", card)
+    img, _ = init_image_and_mask(SDXL_IMG2IMG_REQUEST["width"])
+    pipe.set_tae(None)
+    with plain_attention_on_card() as plain:
+        rep, launches["sdxl_img2img"] = _windowed(wrappers, "sdxl_img2img", lambda: answer(
+            pipe, [dict(SDXL_IMG2IMG_REQUEST, init_image=img)], card, "sdxl_img2img"))
+    steps = img2img_steps(SDXL_IMG2IMG_REQUEST["sample_steps"], SDXL_IMG2IMG_REQUEST["strength"])
+    _check_steps("sdxl_img2img", rep[0], steps)
+    info["img2img"] = {**_check_sdxl_flash("sdxl_img2img", launches["sdxl_img2img"], steps,
+                                           _forwards_and_encodes([SDXL_IMG2IMG_REQUEST])[1], plain),
+                       **_check_d512("sdxl_img2img", launches["sdxl_img2img"], 2, plain)}
+    reports += rep
     del pipe, tae
     gc.collect()
     torch.cuda.empty_cache()
@@ -2419,7 +2635,7 @@ def build_sd3_pipeline(card: str, default_dtype: bool = False):
         _, clip_l_cfg, clip_g_cfg, t5_cfg, vae_cfg = sd3_configs(small=False)
         specs = {"diffusion": mmdit_mod.param_specs(mmdit_mod.SD35_MEDIUM_CONFIG),
                  "clip_l": clip_mod.param_specs(clip_l_cfg), "clip_g": clip_mod.param_specs(clip_g_cfg),
-                 "t5": t5_mod.param_specs(t5_cfg), "vae": vae_mod.param_specs(vae_cfg)}
+                 "t5": t5_mod.param_specs(t5_cfg), "vae": vae_mod.vae_specs(vae_cfg)}
         params = {m: synthesize(sp, quant="q4_0" if m == "t5" else None, seed=SD3_BENCH_SEEDS[m],
                                 device=DEVICE, dtype=torch.bfloat16) for m, sp in specs.items()}
         cfg = mmdit_mod.detect_mmdit_config(params["diffusion"].keys(), {
@@ -2441,7 +2657,8 @@ def build_sd3_pipeline(card: str, default_dtype: bool = False):
 
 
 def sd3_paths(wrappers, card: str, launches: dict, profile=None):
-    """The SD3 paths: ``sd3`` (bf16 SD3.5-Medium, SD3_REQUESTS) and
+    """The SD3 paths: ``sd3`` (bf16 SD3.5-Medium, SD3_REQUESTS), then
+    ``sd3_img2img`` on the same pipeline (SD3_IMG2IMG_REQUEST), and
     ``sd3_f32`` (the default dtype, SD3-Medium, SD3_F32_REQUESTS), each in
     its launch window."""
     import torch
@@ -2459,6 +2676,18 @@ def sd3_paths(wrappers, card: str, launches: dict, profile=None):
         reports += rep
         if profile and not f32:
             prof[label] = profile_request(pipe, SD3_REQUEST, profile, label, card)
+        if not f32:
+            img, _ = init_image_and_mask(SD3_IMG2IMG_REQUEST["width"])
+            with plain_attention_on_card() as plain:
+                rep, launches["sd3_img2img"] = _windowed(wrappers, "sd3_img2img", lambda: answer(
+                    pipe, [dict(SD3_IMG2IMG_REQUEST, init_image=img)], card, "sd3_img2img"))
+            steps = img2img_steps(SD3_IMG2IMG_REQUEST["sample_steps"], SD3_IMG2IMG_REQUEST["strength"])
+            _check_steps("sd3_img2img", rep[0], steps)
+            # D 512: the untiled encode and the decode
+            info["img2img"] = _check_sd3_launches(
+                "sd3_img2img", launches["sd3_img2img"], steps,
+                _forwards_and_encodes([SD3_IMG2IMG_REQUEST])[1], 2, plain, calls)
+            reports += rep
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
@@ -2603,8 +2832,8 @@ def build_wan_pipeline(card: str, default_dtype: bool = False):
 
 
 def answer_video(pipe, requests, card: str, label: str):
-    """Each request through ``generate_video``: 1 + 4k frames of the asked
-    size, uint8, not constant; finite latents [1, Tl, h, w, 16].  Reports the
+    """Each request through ``generate_video`` (the prompt cache emptied
+    first, as in ``answer``): 1 + 4k frames of the asked size, uint8, not constant; finite latents [1, Tl, h, w, 16].  Reports the
     sample and decode seconds, DiT steps/s and decode s/frame."""
     import numpy as np
     import torch
@@ -2616,6 +2845,7 @@ def answer_video(pipe, requests, card: str, label: str):
         kw = dict(kw)
         frames = kw.pop("frames")
         gp = GenerationParams(**kw)
+        pipe._cond_cache.clear()  # every request encodes its prompts
         torch.cuda.reset_peak_memory_stats()
         res = pipe.generate_video(gp, frames=frames)
         peak = torch.cuda.max_memory_allocated()
@@ -2801,6 +3031,180 @@ def wan_entry_check(wrappers, card: str):
     return report, launches
 
 
+# Phase 10f, img2img, masked img2img and the latent hires fix: an init image
+# drawn from the seed (uint8 noise) and a mask whose right half regenerates
+# (255) and whose left half keeps the init image (0).
+IMG2IMG_SEED = 20
+# FLUX.1-dev int8 with the bench's VAE tiling (tiles of 64 latent pixels
+# overlapping by 8: 512-pixel encode tiles overlapping by 64).  t_enc =
+# int(4 x 0.75) = 3 keeps every sigma (the reference's cut), so all 4 steps
+# sample; the masked request at 0.6 keeps the last 3.
+FLUX_IMG2IMG_REQUEST = dict(prompt="a harbour at dawn, oil on canvas", width=1024, height=1024,
+                            sample_steps=4, cfg_scale=1.0, guidance=3.5, seed=5, strength=0.75)
+FLUX_MASK_REQUEST = dict(FLUX_IMG2IMG_REQUEST, seed=6, strength=0.6)
+# The kept half of the masked request's final latent against the tiled
+# encode of the init image: euler's last step (to sigma 0) lands on the
+# blended estimate, which is the init latent there, up to float32 rounding;
+# the regenerated half must move away from it.
+MASK_KEEP_TOL = 1e-4
+MASK_MOVED_MIN = 0.05
+# SDXL (the full VAE, TAESD-XL detached) and SD3.5-Medium:
+# a 1024² request of 4 steps at 0.6 (3 sample)
+SDXL_IMG2IMG_REQUEST = dict(SDXL_REQUEST, prompt="a watercolour of a fox in a forest", strength=0.6)
+SD3_IMG2IMG_REQUEST = dict(SD3_REQUEST, prompt="a watercolour of a fox in a forest", sample_steps=4,
+                           strength=0.6)
+
+
+def img2img_steps(steps: int, strength: float) -> int:
+    """The steps an img2img request samples: t_enc = int(steps x strength),
+    one fewer where that is every step, keeps t_enc + 1; at strength 1 all."""
+    if strength >= 1.0:
+        return steps
+    t_enc = int(steps * strength)
+    return t_enc - (t_enc == steps) + 1
+
+
+def init_image_and_mask(size: int):
+    """(init image [size, size, 3] uint8, mask [size, size] uint8)."""
+    import numpy as np
+
+    img = np.random.default_rng(IMG2IMG_SEED).integers(0, 256, (size, size, 3), dtype=np.uint8)
+    mask = np.zeros((size, size), dtype=np.uint8)
+    mask[:, size // 2:] = 255
+    return img, mask
+
+
+def _tiles(pipe, size: int) -> tuple:
+    """(encode tiles, decode tiles) of a size² image under the pipeline's
+    VAE tiling (1 and 1 without)."""
+    from sdtpu_torch.models.tiling import _tile_starts
+
+    if not pipe._vae_tiling:
+        return 1, 1
+    sf, t, o = pipe.scale_factor, pipe._vae_tile, pipe._vae_overlap
+    enc = len(_tile_starts(size, t * sf, max((t - o) * sf, 1))) ** 2
+    dec = len(_tile_starts(size // sf, t, max(t - o, 1))) ** 2
+    return enc, dec
+
+
+def _check_d512(path: str, counts: dict, want: int, plain: dict, plain_want: int = 0) -> dict:
+    """Flash D 512 launched ``want`` times (once a tile of each encode and
+    decode through the full VAE); ``plain_want`` plain attention calls on
+    the card (T5's)."""
+    got = {"flash_d512": counts["flash_attention_d512"], "plain_attention_on_card": plain["calls"]}
+    if got != {"flash_d512": want, "plain_attention_on_card": plain_want}:
+        raise RuntimeError(f"path {path}: {got}, not {want} D 512 launches and {plain_want} plain "
+                           "attention calls on the card")
+    return got
+
+
+def _check_steps(path: str, rep: dict, want: int) -> None:
+    if rep["steps"] != want:
+        raise RuntimeError(f"path {path}: {rep['steps']} steps sampled, not {want}")
+
+
+def flux_img2img_paths(pipe, wrappers, card: str, launches: dict):
+    """Phase 10f on the int8 FLUX.1-dev pipeline (VAE tiling on): path
+    ``img2img`` answers FLUX_IMG2IMG_REQUEST from a 1024² init image, then
+    encodes the image once untiled (one D 512 call over 16384 tokens); path
+    ``img2img_mask`` answers FLUX_MASK_REQUEST with the mask, whose kept
+    half must be the tiled encode of the init image.  Flash D 512 launches
+    once a tile of each encode and decode; no attention runs in the plain
+    version on the card but T5's 24 a prompt encode."""
+    import numpy as np
+    import torch
+
+    size = FLUX_IMG2IMG_REQUEST["width"]
+    img, mask = init_image_and_mask(size)
+    enc, dec = _tiles(pipe, size)
+    info = {"encode_tiles": enc, "decode_tiles": dec}
+
+    def run():
+        rep = answer(pipe, [dict(FLUX_IMG2IMG_REQUEST, init_image=img)], card, "img2img")
+        pipe.set_vae_tiling(False)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            z = pipe.encode_image(img)  # ends in the copy to the host
+            info["untiled_encode"] = {"encode_s": time.time() - t0, "shape": list(z.shape),
+                                      "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                                      "finite": bool(np.isfinite(z).all())}
+        finally:
+            pipe.set_vae_tiling(True)
+        return rep, z
+
+    with plain_attention_on_card() as plain:
+        (rep, untiled), launches["img2img"] = _windowed(wrappers, "img2img", run)
+    encodes = _forwards_and_encodes([FLUX_IMG2IMG_REQUEST])[1]
+    info["img2img"] = _check_d512("img2img", launches["img2img"], enc + dec + 1, plain,
+                                  SD3_T5_LAYERS * encodes)
+    _check_steps("img2img", rep[0], img2img_steps(4, FLUX_IMG2IMG_REQUEST["strength"]))
+    print("untiled_encode " + json.dumps(info["untiled_encode"]), flush=True)
+    results = []
+    with plain_attention_on_card() as plain:
+        rep2, launches["img2img_mask"] = _windowed(wrappers, "img2img_mask", lambda: answer(
+            pipe, [dict(FLUX_MASK_REQUEST, init_image=img, mask_image=mask)], card, "img2img_mask",
+            results))
+    info["img2img_mask"] = _check_d512("img2img_mask", launches["img2img_mask"], enc + dec, plain,
+                                       SD3_T5_LAYERS * encodes)
+    _check_steps("img2img_mask", rep2[0], img2img_steps(4, FLUX_MASK_REQUEST["strength"]))
+    init = pipe.encode_image(img)  # tiled, outside the windows
+    lat = results[0].latents
+    half = lat.shape[2] // 2
+    info["mask"] = {"kept_max_abs": float(np.abs(lat[:, :, :half] - init[:, :, :half]).max()),
+                    "tol": MASK_KEEP_TOL,
+                    "moved_mean_abs": float(np.abs(lat[:, :, half:] - init[:, :, half:]).mean()),
+                    "moved_min": MASK_MOVED_MIN,
+                    "untiled_vs_tiled_rel_l2": _rel(torch.from_numpy(untiled), torch.from_numpy(init))}
+    print("img2img_mask " + json.dumps(info["mask"]), flush=True)
+    if (not info["untiled_encode"]["finite"] or info["mask"]["kept_max_abs"] > MASK_KEEP_TOL
+            or info["mask"]["moved_mean_abs"] < MASK_MOVED_MIN):
+        raise RuntimeError(f"masked img2img: {info['mask']}, untiled encode {info['untiled_encode']}")
+    return rep + rep2, info
+
+
+def sd15_hires_path(pipe, wrappers, card: str, launches: dict):
+    """Phase 10f on the bf16 SD1.5 pipeline: path ``hires`` answers
+    SD15_HIRES_REQUEST through ``txt2img_hires`` (512² → 1024², the latent
+    upscaler at strength 0.7): the UNet's flash launches for the base's and
+    the hires pass's forwards, D 512 once a decode (two), no plain attention
+    on the card; a 1024² image, finite latents."""
+    import numpy as np
+    import torch
+
+    from sdtpu_torch.config import GenerationParams
+
+    gp = GenerationParams(**SD15_HIRES_REQUEST)
+    hires_steps = img2img_steps(gp.sample_steps, SD15_HIRES["hires_strength"])
+
+    def run():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = pipe.txt2img_hires(gp, **SD15_HIRES)
+        wall_s = time.time() - t0
+        size = int(gp.width * SD15_HIRES["hires_scale"])
+        if res.images.shape != (1, size, size, 3) or not np.isfinite(res.latents).all() \
+                or res.images.std() == 0:
+            raise RuntimeError(f"hires: images {res.images.shape}, std {res.images.std()}")
+        tm = pipe.last_timings
+        rep = {"path": "hires", "size": [gp.width, gp.height], "hires_size": [size, size],
+               "steps": gp.sample_steps, "hires_steps": tm["steps"], "cfg_scale": gp.cfg_scale,
+               "sampler": gp.sample_method, "seed": gp.seed, "wall_s": wall_s,
+               "hires_timings_s": {k: tm[k] for k in ("cond", "sample", "decode", "total")},
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "image_std": float(res.images.std()), "card": card}
+        print("request " + json.dumps(rep), flush=True)
+        return rep
+
+    with plain_attention_on_card() as plain:
+        rep, launches["hires"] = _windowed(wrappers, "hires", run)
+    if rep["hires_steps"] != hires_steps:
+        raise RuntimeError(f"hires: {rep['hires_steps']} hires steps, not {hires_steps}")
+    info = {**_check_unet_flash("hires", launches["hires"], gp.sample_steps + hires_steps, plain),
+            **_check_d512("hires", launches["hires"], 2, plain)}
+    return [rep], info
+
+
 def gguf_block_dit() -> dict:
     """Full-depth FLUX.1-dev DiT weights in the ``q8_0_gguf`` memory class,
     drawn on the card (the seed the factory gives a DiT it synthesizes)."""
@@ -2858,7 +3262,12 @@ def build_pipeline(card: str, diffusion, label: str, default_dtype: bool = False
                   "weight_bytes": wb}
 
 
-def answer(pipe, requests, card: str, label: str):
+def answer(pipe, requests, card: str, label: str, results: list = None):
+    """Each request through ``generate`` (an ``init_image`` / ``mask_image``
+    key goes to it as such: img2img), its prompt cache emptied first so that
+    a repeated prompt is encoded, timed and counted as in a fresh request:
+    images and latents of the asked shape, finite, not constant; ``results`` (when given) gets each
+    ``GenerationResult``."""
     import numpy as np
     import torch
 
@@ -2866,10 +3275,15 @@ def answer(pipe, requests, card: str, label: str):
 
     reports = []
     for kw in requests:
+        kw = dict(kw)
+        images = {k: kw.pop(k) for k in ("init_image", "mask_image") if k in kw}
         gp = GenerationParams(**{"sample_method": "euler", **kw})
+        pipe._cond_cache.clear()  # every request encodes its prompts
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_stats()
-        res = pipe.generate(gp)
+        res = pipe.generate(gp, **images)
+        if results is not None:
+            results.append(res)
         after = torch.cuda.memory_stats()
         peak = torch.cuda.max_memory_allocated()
         img, lat = res.images, res.latents
@@ -2883,8 +3297,10 @@ def answer(pipe, requests, card: str, label: str):
         tm = pipe.last_timings
         rep = {"path": label, "size": [gp.width, gp.height], "batch": bc,
                "cfg_scale": gp.cfg_scale, "sampler": gp.sample_method, "steps": tm["steps"],
-               "seed": gp.seed,
-               "timings_s": {k: tm[k] for k in ("cond", "sample", "decode", "total")},
+               "seed": gp.seed, **({"strength": gp.strength, "masked": "mask_image" in images}
+                                   if images else {}),
+               "timings_s": {k: tm[k] for k in ("encode", "cond", "sample", "decode", "total")
+                             if k in tm},
                "denoise_steps_per_s": tm["steps"] / tm["sample"], "peak_mem_bytes": peak,
                # the caching allocator during the request: cudaMalloc calls
                # and retries (each frees the cache and synchronizes)
@@ -2911,6 +3327,7 @@ def profile_request(pipe, request: dict, table: str, label: str, card: str) -> d
     path = Path(table)
     path = path.with_name(f"{path.stem}.{label}{path.suffix}")
 
+    pipe._cond_cache.clear()  # the profile covers the prompt encode too
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         if frames is None:
@@ -3060,6 +3477,8 @@ def main() -> int:
         else:
             os.environ["SDTPU_QUANT_MODE"] = previous
     reports += rep
+    rep, pipes[-1]["img2img"] = flux_img2img_paths(pipe, wrappers, card, launches)
+    reports += rep
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -3131,7 +3550,8 @@ def main() -> int:
     reports += rep
     prof.update(wan_prof)
 
-    entry, launches["cli"], launches["server"] = entry_points_check(wrappers, card, args.profile)
+    entry, launches["cli"], launches["server"], launches["cli_img2img"] = entry_points_check(
+        wrappers, card, args.profile)
     if "profile" in entry:
         prof["cli"] = entry.pop("profile")
     entry["sd15"], sd15_launches = sd15_entry_check(wrappers, card)

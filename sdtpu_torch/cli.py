@@ -1,9 +1,10 @@
-"""sd-cli for the PyTorch/CUDA port: FLUX.1, SD1.x, SDXL and SD3 txt2img and
-Wan2.1 T2V txt2vid from checkpoint files (this package's copy of
-``sdtpu/cli.py``: ``build_parser``, ``main``, the FLUX, SD1, SDXL, SD3 and
-Wan parts of ``_load_pipeline``, ``_img_gen``, the T2V part of ``_vid_gen``,
-``--taesd``, ``--flow-shift``, the metadata mode,
-``discover_gguf_tokenizer``).
+"""sd-cli for the PyTorch/CUDA port: FLUX.1, SD1.x, SDXL and SD3 txt2img,
+img2img, masked img2img and the latent hires fix, and Wan2.1 T2V txt2vid
+from checkpoint files (this package's copy of ``sdtpu/cli.py``:
+``build_parser``, ``main``, the FLUX, SD1, SDXL, SD3 and Wan parts of
+``_load_pipeline``, ``_img_gen`` with ``-i`` / ``--mask`` / ``--hires``,
+the T2V part of ``_vid_gen``, ``--taesd``, ``--flow-shift``, the metadata
+mode, ``discover_gguf_tokenizer``).
 
     python -m sdtpu_torch.cli --diffusion-model flux1-dev-q8_0.gguf \
         --clip_l clip_l.safetensors --t5xxl t5xxl-q8_0.gguf --vae ae.safetensors \
@@ -21,12 +22,20 @@ Wan parts of ``_load_pipeline``, ``_img_gen``, the T2V part of ``_vid_gen``,
         -n static -W 832 -H 480 --video-frames 33 --steps 8 --cfg-scale 6 --sampling-method euler \
         --vae-tiling --vae-tile-size 32 --vae-temporal-tiling \
         --extra-tiling-args temporal_tile_frames=5,temporal_tile_overlap=1 -o clip.png
+    python -m sdtpu_torch.cli -m sd15.safetensors -p "a watercolour harbour" -i init.png \
+        --mask mask.png --strength 0.6 -W 512 -H 512 --steps 20 -o out.png
+    python -m sdtpu_torch.cli -m sd15.safetensors -p "a watercolour harbour" -W 512 -H 512 \
+        --steps 20 --hires --hires-scale 2 --hires-denoising-strength 0.7 -o out.png
     python -m sdtpu_torch.cli metadata --image out.png
 
 The model family is fingerprinted from the files' tensor names, as the JAX
 CLI does; FLUX.1, SD1.x, SDXL, SD3 and Wan2.1 T2V load, any other family exits
 naming it.  The parser is the JAX CLI's (the same flags, defaults and help).
-The port runs three modes, ``img_gen`` (txt2img), ``vid_gen`` (txt2vid on
+The port runs three modes, ``img_gen`` (txt2img; img2img with ``-i``,
+``--strength`` and ``--mask``, the mask being channel 0 of its PNG; the
+hires fix with ``--hires`` and the ``Latent`` upscaler; custom sigmas with
+``--sigmas`` / ``--hires-sigmas``; init images and masks are PNGs),
+``vid_gen`` (txt2vid on
 Wan2.1: one PNG a frame, ``name_0000.png``... for ``-o name.png``; the AVI,
 WebP, GIF and WebM containers, the default ``output.avi`` among them, need
 Pillow's JPEG / WebP encoders and exit 2) and ``metadata``, and the flags in
@@ -480,6 +489,9 @@ RUN_FLAGS = frozenset({
     "prompt", "negative_prompt", "prompt_file", "width", "height",
     "steps", "cfg_scale", "guidance", "seed", "batch_count", "sampling_method", "schedule",
     "eta", "clip_skip", "rng",
+    # img2img, masked img2img, custom sigmas and the latent hires fix
+    "init_img", "mask", "strength", "sigmas", "hires", "hires_upscaler", "hires_scale",
+    "hires_width", "hires_height", "hires_steps", "hires_denoising_strength", "hires_sigmas",
     "vae_tiling", "vae_tile_size", "vae_tile_overlap",
     "dtype", "no_promote_q8", "no_keep_quant", "backend", "flow_shift",
     "output", "output_begin_idx", "disable_image_metadata", "verbose",
@@ -503,14 +515,17 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
             continue
         if getattr(args, dest, action.default) != action.default:
             flag = "/".join(action.option_strings)
-            return (f"{flag} is not ported (the port runs FLUX.1, SD1.x, SDXL and SD3 txt2img "
-                    "and Wan2.1 txt2vid)")
+            return (f"{flag} is not ported (the port runs FLUX.1, SD1.x, SDXL and SD3 txt2img, "
+                    "img2img, masked img2img and the latent hires fix, and Wan2.1 txt2vid)")
     if args.mode not in MODES:
         return f"mode {args.mode!r} is not ported; the port runs {list(MODES)}"
     if args.mode == "vid_gen" and video_output(args).lower().endswith(VIDEO_CONTAINERS):
         return (f"vid_gen -o {video_output(args)}: the {'/'.join(VIDEO_CONTAINERS)} writers need "
                 "Pillow's JPEG / WebP encoders, which are not ported; name a .png to write one PNG "
                 "a frame")
+    if args.hires_upscaler.lower() != "latent":
+        return (f"--hires-upscaler {args.hires_upscaler!r}: ESRGAN upscalers are not ported; the "
+                "port runs the Latent upscaler")
     if args.sampling_method not in PORTED_METHODS:
         return (f"--sampling-method {args.sampling_method!r} is not ported; "
                 f"ported: {list(PORTED_METHODS)}")
@@ -713,8 +728,18 @@ def _load_pipeline(args, report: Optional[dict] = None):
 
 def _img_gen(args, report: Optional[dict] = None) -> int:
     from sdtpu_torch.config import GenerationParams, SDVersion
-    from sdtpu_torch.utils.image import build_parameters_text, resolve_output_path, write_image
+    from sdtpu_torch.utils.image import (build_parameters_text, read_png, resolve_output_path,
+                                         write_image)
 
+    init_image = mask_image = None
+    try:  # read before the (long) load, so a file the port cannot read fails first
+        if args.init_img:
+            init_image, _ = read_png(args.init_img)
+        if args.mask:
+            mask_image = read_png(args.mask)[0][..., 0]
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     pipe = _load_pipeline(args, report)
     if pipe.version == SDVersion.WAN2:
         print("error: img_gen on a Wan2.1 model: run -M vid_gen", file=sys.stderr)
@@ -723,9 +748,17 @@ def _img_gen(args, report: Optional[dict] = None) -> int:
         prompt=args.prompt.strip(), negative_prompt=args.negative_prompt, width=args.width,
         height=args.height, sample_steps=args.steps, cfg_scale=args.cfg_scale,
         guidance=args.guidance, sample_method=args.sampling_method, schedule=args.schedule,
-        seed=args.seed, batch_count=args.batch_count, clip_skip=args.clip_skip, eta=args.eta)
+        seed=args.seed, batch_count=args.batch_count, clip_skip=args.clip_skip, eta=args.eta,
+        strength=args.strength, custom_sigmas=args.sigmas)
     t0 = time.time()
-    res = pipe.generate(gp, progress_callback=_progress_cb())
+    if args.hires:  # the JAX CLI's: the base request, then the latent upscale pass
+        res = pipe.txt2img_hires(
+            gp, hires_scale=args.hires_scale, hires_steps=args.hires_steps or None,
+            hires_strength=args.hires_denoising_strength, hires_width=args.hires_width,
+            hires_height=args.hires_height, hires_sigmas=args.hires_sigmas)
+    else:
+        res = pipe.generate(gp, init_image=init_image, mask_image=mask_image,
+                            progress_callback=_progress_cb())
     print(f"generated {len(res.images)} image(s) in {time.time() - t0:.2f}s")
     print("timings " + json.dumps(pipe.last_timings))
     paths = []

@@ -5,7 +5,9 @@ the WAN2 branch of ``_create_wan_pipeline``,
 
 FLUX, SD1.x, SDXL and SD3 are built from given params (this package's
 tensors, e.g. bridged with ``sdtpu_torch.weights.from_jax_params``) or from
-random weights drawn on the target device.  Full-width random FLUX weights
+random weights drawn on the target device; each gets the VAE's encoder
+(``vae_encode_fn``) beside its decoder, and a VAE it draws has both halves
+in ``init_vae_params``'s layout (``vae_specs``).  Full-width random FLUX weights
 come in the memory classes of the JAX FLUX bench: the DiT as per-row int8
 ``QuantTensor``s (q8_0), T5-XXL as packed 4-bit ``Q4Tensor``s (q4_0), CLIP-L
 and the VAE dense.  A given DiT runs at the depth its params hold (a
@@ -207,7 +209,7 @@ def _create_sd3_pipeline(params: dict, rng_type: str, dtype: torch.dtype, small:
             t5_cfg = detect_t5_config(params["t5"])
     specs = {"diffusion": mmdit_mod.param_specs(dit_cfg), "clip_l": clip_mod.param_specs(clip_l_cfg),
              "clip_g": clip_mod.param_specs(clip_g_cfg), "t5": t5_mod.param_specs(t5_cfg),
-             "vae": vae_mod.param_specs(vae_cfg)}
+             "vae": vae_mod.vae_specs(vae_cfg)}
     mods = {name: params.get(name) or synthesize(
                 spec, quant="q4_0" if name == "t5" and not small else None,
                 seed=seed + SEED_OFFSET[name], device=device, dtype=dtype)
@@ -218,12 +220,11 @@ def _create_sd3_pipeline(params: dict, rng_type: str, dtype: torch.dtype, small:
     def diffusion_fn(p, x, t, ctx, y, guidance=None, skip_layers=()):
         return mmdit_mod.mmdit_forward(p, x, t, ctx, y, cfg=dit_cfg, skip_layers=skip_layers)
 
-    def vae_decode_fn(p, z):
-        return vae_mod.vae_decode(p, z, vae_cfg)
-
+    vae_decode_fn, vae_encode_fn = _vae_fns(vae_cfg)
     return DiffusionPipeline(
         version=SDVersion.SD3, diffusion_params=mods["diffusion"], diffusion_fn=diffusion_fn,
         conditioner=conditioner, vae_params=mods["vae"], vae_decode_fn=vae_decode_fn,
+        vae_encode_fn=vae_encode_fn,
         denoiser=DiscreteFlowDenoiser(shift=3.0 if flow_shift is None else flow_shift),
         rng_type=rng_type, latent_channels=dit_cfg.in_channels, compute_dtype=dtype, device=device)
 
@@ -236,7 +237,7 @@ def _create_unet_pipeline(version: SDVersion, params: dict, rng_type: str, dtype
     else:
         (unet_cfg, clip_l_cfg, vae_cfg), clip_g_cfg = sd1_configs(small), None
     specs = {"diffusion": unet_mod.param_specs(unet_cfg), "clip_l": clip_mod.param_specs(clip_l_cfg),
-             "vae": vae_mod.param_specs(vae_cfg)}
+             "vae": vae_mod.vae_specs(vae_cfg)}
     if clip_g_cfg is not None:
         specs["clip_g"] = clip_mod.param_specs(clip_g_cfg)
     mods = {name: params.get(name) or synthesize(spec, seed=seed + SEED_OFFSET[name], device=device,
@@ -251,14 +252,25 @@ def _create_unet_pipeline(version: SDVersion, params: dict, rng_type: str, dtype
     def diffusion_fn(p, x, t, ctx, y, guidance=None):
         return unet_mod.unet_forward(p, x, t, ctx, y=y, cfg=unet_cfg)
 
-    def vae_decode_fn(p, z):
-        return vae_mod.vae_decode(p, z, vae_cfg)
-
+    vae_decode_fn, vae_encode_fn = _vae_fns(vae_cfg)
     return DiffusionPipeline(
         version=version, diffusion_params=mods["diffusion"], diffusion_fn=diffusion_fn,
         conditioner=conditioner, vae_params=mods["vae"], vae_decode_fn=vae_decode_fn,
+        vae_encode_fn=vae_encode_fn,
         denoiser=CompVisDenoiser(), rng_type=rng_type, latent_channels=vae_cfg.z_channels,
         compute_dtype=dtype, device=device)
+
+
+def _vae_fns(vae_cfg: vae_mod.VAEConfig):
+    """(decode, encode) of the 2-D VAE at ``vae_cfg``, as the JAX factory's
+    ``vae_decode_fn`` / ``vae_encode_fn``."""
+    def vae_decode_fn(p, z):
+        return vae_mod.vae_decode(p, z, vae_cfg)
+
+    def vae_encode_fn(p, x, noise=None):
+        return vae_mod.vae_encode(p, x, noise=noise, cfg=vae_cfg)
+
+    return vae_decode_fn, vae_encode_fn
 
 
 def _blocks(p: dict, prefix: str) -> int:
@@ -290,7 +302,7 @@ def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] 
         return _create_unet_pipeline(version, params, rng_type, dtype, small, seed, device)
     dit_cfg, clip_l_cfg, t5_cfg, vae_cfg, t5_seq = flux_configs(small)
     specs = {"diffusion": flux_mod.param_specs(dit_cfg), "t5": t5_mod.param_specs(t5_cfg),
-             "clip_l": clip_mod.param_specs(clip_l_cfg), "vae": vae_mod.param_specs(vae_cfg)}
+             "clip_l": clip_mod.param_specs(clip_l_cfg), "vae": vae_mod.vae_specs(vae_cfg)}
     mods = {}
     for name, spec in specs.items():
         mods[name] = params.get(name) or synthesize(
@@ -306,11 +318,10 @@ def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] 
     def diffusion_fn(p, x, t, ctx, y, guidance=None):
         return flux_mod.flux_forward(p, x, t, ctx, y, guidance=guidance, cfg=dit_cfg)
 
-    def vae_decode_fn(p, z):
-        return vae_mod.vae_decode(p, z, vae_cfg)
-
+    vae_decode_fn, vae_encode_fn = _vae_fns(vae_cfg)
     return DiffusionPipeline(
         version=SDVersion.FLUX, diffusion_params=mods["diffusion"], diffusion_fn=diffusion_fn,
         conditioner=conditioner, vae_params=mods["vae"], vae_decode_fn=vae_decode_fn,
+        vae_encode_fn=vae_encode_fn,
         denoiser=FluxFlowDenoiser(), rng_type=rng_type, latent_channels=vae_cfg.z_channels,
         compute_dtype=dtype, uses_distilled_guidance=dit_cfg.guidance_embed, device=device)

@@ -1,6 +1,6 @@
 """Spatial tiling with feathered overlap blending, and the temporal windows
 of a video decode (counterpart of ``sdtpu/models/tiling.py``: ``tiled_decode``,
-``tiled_decode_temporal``).
+``tiled_encode``, ``tiled_decode_temporal``).
 
 The plane splits into overlapping tiles; each runs through ``fn`` and the
 outputs blend with linear feather ramps in the overlap bands.  Images are
@@ -66,6 +66,33 @@ def tiled_decode(decode_fn: Callable, z: torch.Tensor, tile: int = 64, overlap: 
                  scale_factor: int = 8) -> torch.Tensor:
     """Latent → pixels, tile and overlap in latent units."""
     return tiled_apply(decode_fn, z, tile, overlap, scale_factor)
+
+
+def tiled_encode(encode_fn: Callable, x: torch.Tensor, tile: int = 512, overlap: int = 64,
+                 scale_factor: int = 8, out_channels: int = 4) -> torch.Tensor:
+    """Pixels → latent, tile and overlap in pixel units (multiples of the
+    scale factor); the feather ramps run at latent scale.  Float32."""
+    H, W = x.shape[-3], x.shape[-2]
+    s = scale_factor
+    stride = max(tile - overlap, 1)
+    ys = _tile_starts(H, tile, stride)
+    xs = _tile_starts(W, tile, stride)
+    if len(ys) == 1 and len(xs) == 1:
+        return encode_fn(x).float()
+    th, tw = min(tile, H), min(tile, W)
+    fy = _feather(th // s, overlap // s)
+    fx = _feather(tw // s, overlap // s)
+    mask = torch.from_numpy((fy[:, None] * fx[None, :])[..., None]).to(x.device)
+    canvas = torch.zeros(x.shape[:-3] + (H // s, W // s, out_channels), dtype=torch.float32,
+                         device=x.device)
+    weight = torch.zeros((H // s, W // s, 1), dtype=torch.float32, device=x.device)
+    for y0 in ys:
+        for x0 in xs:
+            out = encode_fn(x[..., y0:y0 + th, x0:x0 + tw, :]).float()
+            oy, ox = y0 // s, x0 // s
+            canvas[..., oy:oy + th // s, ox:ox + tw // s, :] += out * mask
+            weight[oy:oy + th // s, ox:ox + tw // s] += mask
+    return canvas / weight.clamp_min(1e-8)
 
 
 def tiled_decode_temporal(decode_fn: Callable, z: torch.Tensor, frames: int = 16, overlap: int = 4,

@@ -1,8 +1,28 @@
-"""txt2img pipeline for FLUX, SD1.x, SDXL and SD3, and txt2vid for Wan2.1
-T2V (counterpart of the txt2img and T2V parts of ``sdtpu/pipeline.py``:
-``DiffusionPipeline.generate``, ``generate_video``, ``VideoResult``,
-``txt2img``, ``set_vae_tiling`` with its temporal windows, ``set_tae``, the
-tiled decode and ``_match_context``).
+"""txt2img, img2img, masked img2img and the latent hires fix for FLUX, SD1.x,
+SDXL and SD3, and txt2vid for Wan2.1 T2V (counterpart of ``sdtpu/pipeline.py``:
+``DiffusionPipeline.generate`` with its init image, init latent and mask,
+``img2img``, ``encode_image``, ``txt2img_hires``, ``generate_video``,
+``VideoResult``, ``txt2img``, ``set_vae_tiling`` with its temporal windows,
+``set_tae``, the tiled decode and encode, the prompt → conditions cache,
+``free_conditioner_params``, ``_match_context``, ``_parse_custom_sigmas``
+and ``_to_pm1``).
+
+img2img: the init image is encoded to the posterior mean (tiled under
+``set_vae_tiling``; refused while a TAESD decoder is attached, whose params
+hold no encoder), ``strength`` keeps the last ``int(steps · strength)`` steps
+of the schedule (one fewer at 1.0) and the noise is scaled around the init
+latent.  A mask (1 regenerate, 0 keep; uint8 or [0, 1]) is rounded,
+nearest-downsampled to the latent and blends each denoised estimate toward
+the init latent where it is 0.  ``txt2img_hires`` runs the base request,
+resizes its latents bilinearly (half-pixel centres, antialiased when
+shrinking, as ``jax.image.resize``) and runs an img2img pass at the target
+size; an ESRGAN upscaler is not ported.  Inpaint-model versions are not
+ported (the loader refuses them), nor is ``generate_video(init_image=...)``.
+Repeated prompts come from a cache of ``COND_CACHE_SIZE`` (16) entries,
+the oldest dropped first, keyed on (prompt, negative prompt, clip skip, width, height,
+CFG); ``free_params_immediately`` (or ``free_conditioner_params()``)
+releases the text encoders' tensors after conditioning, after which only
+cached prompts can be answered.
 
 Samplers: ``sdtpu_torch.diffusion.samplers.PORTED_METHODS``; at ``eta > 0``
 an ancestral sampler's per-step noise (and ``lcm``'s at any ``eta``)
@@ -29,7 +49,8 @@ and defaults of the JAX package's).  The initial noise comes from
 exactly as the JAX pipeline draws it, so both packages start from the same
 latent.  Phase wall-clock times of the last call land in
 ``last_timings`` (``cond``, ``sample``, ``decode``, ``total``, ``steps``;
-``frames`` for a video); each phase ends in a device synchronize.  A video's
+``encode`` where an init image was encoded; ``frames`` for a video); each
+phase ends in a device synchronize.  A video's
 latent is [B, Tl, h, w, C], Tl = 1 + (frames - 1) / ``temporal_scale``.  ``last_t5_ids`` holds the padded
 ids T5 was fed for the last prompt (all zero without a T5 tokenizer).
 """
@@ -41,12 +62,13 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sdtpu_torch.config import GenerationParams, SDVersion
 from sdtpu_torch.diffusion.guidance import cfg_combine
 from sdtpu_torch.diffusion.samplers import method_needs_noise, sample
 from sdtpu_torch.diffusion.schedule import get_sigmas
-from sdtpu_torch.models.tiling import tiled_decode, tiled_decode_temporal
+from sdtpu_torch.models.tiling import tiled_decode, tiled_decode_temporal, tiled_encode
 from sdtpu_torch.rng import create_rng
 
 
@@ -106,6 +128,55 @@ def _sampler_extra_args(spec: str) -> Dict[str, float]:
     return out
 
 
+def _parse_custom_sigmas(spec: str) -> np.ndarray:
+    """'14.61,7.8,...' → float32 sigmas, 0 appended where the list does not
+    end in it."""
+    vals = [float(v) for v in spec.replace(" ", "").split(",") if v]
+    if not vals:
+        raise ValueError("empty custom sigma list")
+    if vals[-1] != 0.0:
+        vals.append(0.0)
+    return np.asarray(vals, dtype=np.float32)
+
+
+def _to_pm1(image) -> np.ndarray:
+    """uint8 [0, 255] or float [0, 1] image → float32 in [-1, 1] (uint8 where
+    its maximum exceeds 1.5)."""
+    img = np.asarray(image, dtype=np.float32)
+    if img.max() > 1.5:
+        img = img / 255.0
+    return img * 2.0 - 1.0
+
+
+def resize_latents(latents: np.ndarray, lh: int, lw: int) -> np.ndarray:
+    """[B, h, w, C] float32 → [B, lh, lw, C]: bilinear with half-pixel
+    centres, antialiased along a shrinking axis, on the host, as
+    ``jax.image.resize(..., "bilinear")``."""
+    x = torch.from_numpy(np.ascontiguousarray(latents, dtype=np.float32)).permute(0, 3, 1, 2)
+    shrink = lh < x.shape[2] or lw < x.shape[3]
+    y = F.interpolate(x, size=(lh, lw), mode="bilinear", align_corners=False, antialias=shrink)
+    return y.permute(0, 2, 3, 1).contiguous().numpy()
+
+
+def _tensors(value) -> list:
+    """The torch tensors inside a conditioner attribute (dicts, sequences and
+    the quantized weights' dataclasses)."""
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, dict):
+        return [t for v in value.values() for t in _tensors(v)]
+    if isinstance(value, (list, tuple)):
+        return [t for v in value for t in _tensors(v)]
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return [t for f in dataclasses.fields(value) for t in _tensors(getattr(value, f.name))]
+    return []
+
+
+COND_CACHE_SIZE = 16  # prompt → conditions entries kept, the oldest dropped first
+FREED_ERROR = ("text-encoder params were freed (free_params_immediately) and this prompt is not "
+               "in the cond cache; rebuild the pipeline to encode new prompts")
+
+
 def _match_context(c: torch.Tensor, u: Optional[torch.Tensor], bc: int):
     """Pad the cond and uncond contexts to one token length (their chunk
     counts may differ), then tile both to the batch."""
@@ -124,13 +195,15 @@ class DiffusionPipeline:
     def __init__(self, version: SDVersion, diffusion_params, diffusion_fn: Callable, conditioner,
                  vae_params, vae_decode_fn: Callable, denoiser, rng_type: str = "cuda",
                  latent_channels: int = 4, compute_dtype: torch.dtype = torch.float32,
-                 uses_distilled_guidance: bool = False, device="cuda", temporal_scale: int = 1):
+                 uses_distilled_guidance: bool = False, device="cuda", temporal_scale: int = 1,
+                 vae_encode_fn: Optional[Callable] = None):
         self.version = version
         self.diffusion_params = diffusion_params
         self.diffusion_fn = diffusion_fn
         self.conditioner = conditioner
         self.vae_params = vae_params
         self.vae_decode_fn = vae_decode_fn
+        self.vae_encode_fn = vae_encode_fn  # (params, x, noise=None) → scaled latent
         self.denoiser = denoiser
         self.rng_type = rng_type
         self.latent_channels = latent_channels
@@ -148,6 +221,28 @@ class DiffusionPipeline:
         self.last_timings: Dict[str, float] = {}
         self.last_t5_ids: Optional[list] = None
         self._tae: Optional[dict] = None
+        self._cond_cache: Dict[tuple, tuple] = {}  # prompt key → (cond, uncond)
+        self.free_params_immediately = False
+        self._conditioner_freed = False
+
+    def free_conditioner_params(self) -> int:
+        """Release the text encoders' tensors (``free_params_immediately``):
+        cached prompts keep working, an uncached one raises.  → the bytes
+        released."""
+        cond = self.conditioner
+        if cond is None or self._conditioner_freed:
+            return 0
+        freed = 0
+        for attr, val in list(vars(cond).items()):
+            tensors = {id(t): t for t in _tensors(val)}
+            if not tensors:
+                continue
+            freed += sum(t.numel() * t.element_size() for t in tensors.values())
+            setattr(cond, attr, None)
+        self._conditioner_freed = True
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return freed
 
     def set_vae_tiling(self, enabled: bool = True, tile_size: int = 64, overlap: int = 8,
                        temporal: bool = False, extra_tiling_args: str = "") -> None:
@@ -190,11 +285,38 @@ class DiffusionPipeline:
         self._tae = {"cfg": tae_cfg, "orig": orig}
         self.vae_decode_fn, self.vae_params = tae_decode_fn, tae_params
 
-    def _vae_dtype(self) -> torch.dtype:
-        for v in self.vae_params.values():
+    def _vae_dtype(self, params: Optional[dict] = None) -> torch.dtype:
+        for v in (params or self.vae_params).values():
             if v.is_floating_point():
                 return v.dtype
         return self.compute_dtype
+
+    def _encode(self, image) -> torch.Tensor:
+        """[H,W,3] image → scaled latent [1,h,w,zc], float32 on the device
+        (the posterior mean; tiled under ``set_vae_tiling``, tile and
+        overlap in pixels = the latent units times the scale factor)."""
+        if self.vae_encode_fn is None:
+            raise NotImplementedError(f"{self.version.value}: the port has no VAE encoder for this "
+                                      "model (img2img is ported for FLUX.1, SD1.x, SDXL and SD3)")
+        if self._tae is not None:
+            raise NotImplementedError("encode_image with a TAESD decoder attached: the TAE params "
+                                      "hold no encoder (set_tae(None) restores the full VAE)")
+        x = torch.from_numpy(_to_pm1(image)[None]).to(self.device, self._vae_dtype())
+
+        def run(t):
+            return self.vae_encode_fn(self.vae_params, t)
+
+        if self._vae_tiling:
+            sf = self.scale_factor
+            return tiled_encode(run, x, tile=self._vae_tile * sf, overlap=self._vae_overlap * sf,
+                                scale_factor=sf, out_channels=self.latent_channels)
+        return run(x).float()
+
+    @torch.inference_mode()
+    def encode_image(self, image) -> np.ndarray:
+        """[H,W,3] (uint8, or float in [0, 1]) → scaled latent [1,h,w,zc]
+        float32 (deterministic: the posterior mean)."""
+        return self._encode(image).cpu().numpy()
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Scaled latents [B,h,w,zc] → image [B,8h,8w,3] in [-1,1], float32;
@@ -220,7 +342,11 @@ class DiffusionPipeline:
     def txt2img(self, gp: GenerationParams) -> GenerationResult:
         return self.generate(gp)
 
-    def _model_fn(self, ctx_c, ctx_u, y_c, y_u, cfg_scale: float, guidance, b: int):
+    def _model_fn(self, ctx_c, ctx_u, y_c, y_u, cfg_scale: float, guidance, b: int,
+                  denoise_mask: Optional[torch.Tensor] = None,
+                  masked_target: Optional[torch.Tensor] = None):
+        """→ model_fn(x, sigma, i) → (denoised, uncond denoised); with a
+        mask, the denoised estimate keeps ``masked_target`` where it is 0."""
         denoiser = self.denoiser
         has_uncond = ctx_u is not None
         dev = self.device
@@ -247,19 +373,40 @@ class DiffusionPipeline:
                                         guidance=guidance).float()
                 pred = c_skip * xt + c_out * out
                 den_uncond = pred
+            if denoise_mask is not None:
+                pred = pred * denoise_mask + masked_target * (1.0 - denoise_mask)
             return pred, den_uncond
 
         return model_fn
 
-    def _denoise(self, gp: GenerationParams, shape: tuple, image_seq_len: int,
-                  progress_callback: Optional[Callable], cancel_check: Optional[Callable]):
-        """Conditioning, then sampling from the initial noise of ``shape``
-        (one batch item's latent) → (latents on the device, float32; seeds;
-        cond seconds; sample seconds; steps)."""
-        if gp.custom_sigmas:
-            raise NotImplementedError("custom sigmas are not ported yet")
-        dev = self.device
+    def _conditions(self, gp: GenerationParams, has_uncond: bool):
+        """(cond, uncond) of the request's prompts, from the cache where
+        they are in it."""
         w, h = gp.width, gp.height
+        key = (gp.prompt, gp.negative_prompt, gp.clip_skip, w, h, has_uncond)
+        cached = self._cond_cache.get(key)
+        if cached is not None:
+            return cached
+        if self._conditioner_freed:
+            raise RuntimeError(FREED_ERROR)
+        encode = self.conditioner.get_learned_condition
+        cond = encode(gp.prompt, clip_skip=gp.clip_skip, width=w, height=h)
+        uncond = (encode(gp.negative_prompt, clip_skip=gp.clip_skip, width=w, height=h)
+                  if has_uncond else None)
+        if len(self._cond_cache) >= COND_CACHE_SIZE:
+            self._cond_cache.pop(next(iter(self._cond_cache)))
+        self._cond_cache[key] = (cond, uncond)
+        return cond, uncond
+
+    def _denoise(self, gp: GenerationParams, shape: tuple, image_seq_len: int,
+                 progress_callback: Optional[Callable], cancel_check: Optional[Callable],
+                 init_latent: Optional[torch.Tensor] = None, mask_image=None):
+        """Conditioning, then sampling from the initial noise of ``shape``
+        (one batch item's latent), scaled around ``init_latent`` where given
+        (img2img: the schedule cut by ``gp.strength``; ``mask_image`` keeps
+        the init latent where it is 0) → (latents on the device, float32;
+        seeds; cond seconds; sample seconds; steps)."""
+        dev = self.device
         bc = gp.batch_count
         has_uncond = gp.cfg_scale != 1.0
 
@@ -267,12 +414,8 @@ class DiffusionPipeline:
         if gp.slg_scale != 0.0 and has_uncond:
             raise NotImplementedError("skip-layer guidance (slg_scale) is not ported")
         tc0 = time.time()
-        cond = self.conditioner.get_learned_condition(gp.prompt, clip_skip=gp.clip_skip, width=w,
-                                                      height=h)
+        cond, uncond = self._conditions(gp, has_uncond)
         self.last_t5_ids = cond.t5_ids
-        uncond = (self.conditioner.get_learned_condition(gp.negative_prompt, clip_skip=gp.clip_skip,
-                                                         width=w, height=h)
-                  if has_uncond else None)
         _sync(dev)
         t_cond = time.time() - tc0
         ctx_c, ctx_u = _match_context(cond.c_crossattn,
@@ -282,6 +425,30 @@ class DiffusionPipeline:
 
         sigmas = get_sigmas(self.denoiser, gp.sample_steps, scheduler=gp.schedule,
                             image_seq_len=image_seq_len)
+        if gp.custom_sigmas:
+            sigmas = _parse_custom_sigmas(gp.custom_sigmas)
+        x0 = np.zeros((bc,) + shape, dtype=np.float32)
+        if init_latent is not None:
+            if tuple(init_latent.shape[1:]) != shape:
+                raise ValueError(f"init latent {tuple(init_latent.shape[1:])} does not match the "
+                                 f"request's {shape} (an init image of {gp.width}x{gp.height} "
+                                 "pixels)")
+            if gp.strength < 1.0:
+                n_total = len(sigmas) - 1  # not sample_steps under custom sigmas
+                t_enc = int(n_total * gp.strength)
+                if t_enc == n_total:
+                    t_enc -= 1
+                sigmas = sigmas[n_total - t_enc - 1:]
+            x0 = np.broadcast_to(init_latent.cpu().numpy(), x0.shape).astype(np.float32)
+        denoise_mask = masked_target = None
+        if mask_image is not None and init_latent is not None:
+            m = np.round(np.asarray(mask_image, dtype=np.float32))
+            if m.max() > 1.0:
+                m = m / 255.0
+            sf = self.scale_factor  # nearest-downsampled to the latent
+            m = m[::sf, ::sf][None, :shape[0], :shape[1], None].astype(np.float32)
+            denoise_mask = torch.from_numpy(np.broadcast_to(m, (bc,) + m.shape[1:]).copy()).to(dev)
+            masked_target = torch.from_numpy(x0.copy()).to(dev)
         steps = len(sigmas) - 1
 
         # per-batch streams: latent noise, then the sampler's per-step noise
@@ -295,16 +462,18 @@ class DiffusionPipeline:
             if need_noise:
                 for si in range(steps):
                     step_noise[si, bi] = rng.randn_shape(shape)
-        x0 = np.zeros((bc,) + shape, dtype=np.float32)
         x = np.asarray(self.denoiser.noise_scaling(np.float32(sigmas[0]), init_noise, x0),
                        dtype=np.float32)
 
         guidance = None
         if self.uses_distilled_guidance:
             guidance = torch.full((bc,), gp.guidance, dtype=torch.float32, device=dev)
+        if self.free_params_immediately:
+            self.free_conditioner_params()
 
         ts0 = time.time()
-        model_fn = self._model_fn(ctx_c, ctx_u, y_c, y_u, gp.cfg_scale, guidance, bc)
+        model_fn = self._model_fn(ctx_c, ctx_u, y_c, y_u, gp.cfg_scale, guidance, bc,
+                                  denoise_mask, masked_target)
 
         def step_callback(i, xi):
             if cancel_check is not None and cancel_check():
@@ -322,16 +491,27 @@ class DiffusionPipeline:
         return latents, seeds, t_cond, time.time() - ts0, steps
 
     @torch.inference_mode()
-    def generate(self, gp: GenerationParams, progress_callback: Optional[Callable] = None,
+    def generate(self, gp: GenerationParams, init_image=None, mask_image=None, init_latent=None,
+                 progress_callback: Optional[Callable] = None,
                  cancel_check: Optional[Callable] = None) -> GenerationResult:
-        """txt2img for one GenerationParams: conditioning → sampling (CFG
-        when cfg_scale != 1) → (tiled) VAE decode.  progress_callback(step, steps, x) after each step (False
-        stops); cancel_check() before it (True stops)."""
+        """txt2img, or img2img from ``init_image`` ([H,W,3] uint8 or float in
+        [0, 1]) or ``init_latent`` ([1 or B, h, w, zc], scaled) with
+        ``gp.strength``, masked by ``mask_image`` ([H,W]: 1 regenerate, 0
+        keep): conditioning → sampling (CFG when cfg_scale != 1) → (tiled)
+        VAE decode.  progress_callback(step, steps, x) after each step
+        (False stops); cancel_check() before it (True stops)."""
         t0 = time.time()
         lh, lw = gp.height // self.scale_factor, gp.width // self.scale_factor
+        timings = {}
+        if init_image is not None and init_latent is None:
+            init_latent = self._encode(init_image)
+            _sync(self.device)
+            timings["encode"] = time.time() - t0
+        elif init_latent is not None:
+            init_latent = torch.as_tensor(np.asarray(init_latent, dtype=np.float32))
         latents, seeds, t_cond, t_sample, steps = self._denoise(
             gp, (lh, lw, self.latent_channels), (lh // 2) * (lw // 2), progress_callback,
-            cancel_check)
+            cancel_check, init_latent=init_latent, mask_image=mask_image)
         t1 = time.time()
         imgs = self.decode(latents).cpu().numpy()
         lat_np = latents.cpu().numpy()
@@ -339,9 +519,36 @@ class DiffusionPipeline:
         t2 = time.time()
         self.last_timings = {
             "cond": t_cond, "sample": t_sample, "decode": t2 - t1,
-            "total": t2 - t0, "steps": steps,
+            "total": t2 - t0, "steps": steps, **timings,
         }
         return GenerationResult(images=images, latents=lat_np, seeds=seeds)
+
+    def img2img(self, gp: GenerationParams, init_image, mask_image=None) -> GenerationResult:
+        """init_image: [H,W,3] uint8 or float in [0, 1]; mask: [H,W] (1 =
+        regenerate, 0 = keep)."""
+        return self.generate(gp, init_image=init_image, mask_image=mask_image)
+
+    def txt2img_hires(self, gp: GenerationParams, hires_scale: float = 2.0,
+                      hires_steps: Optional[int] = None, hires_strength: float = 0.7,
+                      upscaler: str = "latent", hires_width: int = 0, hires_height: int = 0,
+                      hires_sigmas: str = "") -> GenerationResult:
+        """Hires fix: the base request → its latents resized to the target
+        (``hires_width`` / ``hires_height``, else ``hires_scale`` times the
+        base size, rounded down to the scale factor) → an img2img pass there
+        at ``hires_strength`` with ``hires_steps`` (the base's when None) and
+        ``hires_sigmas``.  Only the latent upscaler is ported: an ESRGAN
+        upscaler raises by name."""
+        if upscaler != "latent":
+            raise NotImplementedError(f"txt2img_hires(upscaler={upscaler!r}): ESRGAN is not "
+                                      "ported; the port runs the latent upscaler")
+        base = self.generate(gp)
+        sf = self.scale_factor
+        tw = (hires_width or int(gp.width * hires_scale)) // sf * sf
+        th = (hires_height or int(gp.height * hires_scale)) // sf * sf
+        gp2 = dataclasses.replace(gp, width=tw, height=th,
+                                  sample_steps=hires_steps or gp.sample_steps,
+                                  strength=hires_strength, custom_sigmas=hires_sigmas)
+        return self.generate(gp2, init_latent=resize_latents(base.latents, th // sf, tw // sf))
 
     @torch.inference_mode()
     def generate_video(self, gp: GenerationParams, frames: int = 81, init_image=None,

@@ -1,8 +1,8 @@
-"""HTTP server for the PyTorch/CUDA port: FLUX.1, SD1.x, SDXL and SD3 txt2img behind
-the reference's three API families (this package's copy of ``sdtpu/server.py``: ``Job``,
-``JobManager``, ``flatten_native_params``, ``extract_extra_args``,
-``params_from_json``, the txt2img part of ``run_generation``,
-``make_handler``, ``serve`` and ``main``).
+"""HTTP server for the PyTorch/CUDA port: FLUX.1, SD1.x, SDXL and SD3 txt2img, img2img,
+masked img2img and the latent hires fix behind the reference's three API families
+(this package's copy of ``sdtpu/server.py``: ``Job``, ``JobManager``,
+``flatten_native_params``, ``extract_extra_args``, ``params_from_json``, the image part
+of ``run_generation``, ``make_handler``, ``serve`` and ``main``).
 
     python -m sdtpu_torch.server --diffusion-model flux1-dev-q8_0.gguf \\
         --clip_l clip_l.safetensors --t5xxl t5xxl-q8_0.gguf --vae ae.safetensors \\
@@ -14,12 +14,19 @@ the reference's three API families (this package's copy of ``sdtpu/server.py``: 
 Routes the port answers:
   native:  POST /sdcpp/v1/img_gen (async job), GET /sdcpp/v1/jobs/<id>,
            POST /sdcpp/v1/jobs/<id>/cancel, GET /sdcpp/v1/capabilities
-  A1111:   POST /sdapi/v1/txt2img, GET/POST /sdapi/v1/options,
+  A1111:   POST /sdapi/v1/txt2img, POST /sdapi/v1/img2img, GET/POST /sdapi/v1/options,
            GET /sdapi/v1/{samplers,schedulers,sd-models,progress}
   OpenAI:  POST /v1/images/generations, GET /v1/models
-Every other route answers 501 with a JSON error naming it (no web UI).  A
-request that asks for what the port does not run (img2img fields, hires,
-LoRA, video, a sampler outside samplers.PORTED_METHODS, jpeg / webp output)
+img2img takes ``init_images`` (or ``init_image``) and ``mask`` as base64 PNGs
+(the mask's channel 0; 1 regenerate, 0 keep) with ``denoising_strength``;
+``enable_hr`` on a request without an init image runs the hires fix
+(``hr_scale``, ``hr_resize_x`` / ``hr_resize_y``, ``hr_steps``,
+``denoising_strength``) with a latent ``hr_upscaler`` (``Latent*``, or the
+names the JAX server also resizes in latent space: ``Lanczos``, ``Nearest``,
+``None``).  Every other route answers 501 with a JSON error naming it (no
+web UI).  A request that asks for what the port does not run (reference
+images, an ESRGAN ``hr_upscaler``, LoRA, video, a sampler outside
+samplers.PORTED_METHODS, jpeg / webp output, a JPEG or WebP init image)
 answers 400, or fails its job, naming it.  A Wan2.1 model is refused at
 load (the reference's video answer is an animated WebP): the CLI's
 ``-M vid_gen`` runs it.
@@ -45,9 +52,11 @@ from sdtpu_torch.diffusion.samplers import PORTED_METHODS
 from sdtpu_torch.diffusion.schedule import SCHEDULERS
 
 # request fields of what the port does not run, and what each names
-UNPORTED_FIELDS = {"init_images": "img2img", "init_image": "img2img", "mask": "inpainting",
-                   "extra_images": "reference images", "video_frames": "video",
-                   "frames": "video", "lora": "LoRA", "enable_hr": "hires fix"}
+UNPORTED_FIELDS = {"extra_images": "reference images", "video_frames": "video",
+                   "frames": "video", "lora": "LoRA"}
+# hr_upscaler names the JAX server resizes in latent space (any other names
+# an ESRGAN model)
+LATENT_UPSCALERS = ("latent", "lanczos", "nearest", "none")
 
 
 class Job:
@@ -239,7 +248,12 @@ def _refuse_unported(data: dict, gp: GenerationParams) -> None:
     for field, what in UNPORTED_FIELDS.items():
         if data.get(field):
             raise ValueError(f"request field {field!r}: {what} is not ported "
-                             "(the port runs FLUX.1, SD1.x, SDXL and SD3 txt2img)")
+                             "(the port runs FLUX.1, SD1.x, SDXL and SD3 txt2img, img2img, "
+                             "masked img2img and the latent hires fix)")
+    hr_name = str(data.get("hr_upscaler", "Latent"))
+    if data.get("enable_hr") and not hr_name.lower().startswith(LATENT_UPSCALERS):
+        raise ValueError(f"hr_upscaler {hr_name!r}: ESRGAN upscalers are not ported; the port "
+                         "runs the latent upscaler")
     if gp.sample_method not in PORTED_METHODS:
         raise ValueError(f"sampler {gp.sample_method!r} is not ported; "
                          f"ported: {list(PORTED_METHODS)}")
@@ -250,13 +264,14 @@ def _refuse_unported(data: dict, gp: GenerationParams) -> None:
 
 
 def run_generation(pipeline, data: dict, job: Optional[Job] = None):
-    """One txt2img request → base64 PNGs with the webui parameters text.
-    Runs on the pipeline's device whatever thread calls it."""
+    """One txt2img, img2img or hires request → base64 PNGs with the webui
+    parameters text.  Runs on the pipeline's device whatever thread calls
+    it."""
     import contextlib
 
     import torch
 
-    from sdtpu_torch.utils.image import build_parameters_text, image_to_base64
+    from sdtpu_torch.utils.image import base64_png_to_image, build_parameters_text, image_to_base64
 
     data = flatten_native_params(data)
     gp = params_from_json(data)
@@ -265,6 +280,14 @@ def run_generation(pipeline, data: dict, job: Optional[Job] = None):
     if out_fmt != "png":
         raise ValueError(f"output_format {out_fmt!r} needs Pillow, which the port does not use; "
                          "the port encodes png")
+    init_image = mask_image = None
+    init_b64 = data.get("init_images") or data.get("init_image")
+    if isinstance(init_b64, list):
+        init_b64 = init_b64[0] if init_b64 else None
+    if init_b64:
+        init_image = base64_png_to_image(init_b64)
+    if data.get("mask"):
+        mask_image = base64_png_to_image(data["mask"])[..., 0]
     kw = {}
     if job is not None:
         # per-step progress + mid-run cancellation
@@ -276,7 +299,15 @@ def run_generation(pipeline, data: dict, job: Optional[Job] = None):
     dev = pipeline.device
     ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
     with ctx:
-        res = pipeline.generate(gp, **kw)
+        if data.get("enable_hr") and init_image is None:  # the JAX server's hires fix
+            res = pipeline.txt2img_hires(
+                gp, hires_scale=float(data.get("hr_scale", 2.0) or 2.0),
+                hires_steps=int(data.get("hr_steps", 0) or 0) or None,
+                hires_strength=float(data.get("denoising_strength", 0.7)),
+                hires_width=int(data.get("hr_resize_x", 0) or 0),
+                hires_height=int(data.get("hr_resize_y", 0) or 0))
+        else:
+            res = pipeline.generate(gp, init_image=init_image, mask_image=mask_image, **kw)
     out = []
     for i, img in enumerate(res.images):
         meta = build_parameters_text(GenerationParams(**{**gp.__dict__, "seed": res.seeds[i]}))
@@ -298,8 +329,8 @@ def make_handler(manager: JobManager):
             self.wfile.write(body)
 
         def _not_ported(self, method: str, p: str):
-            self._json({"error": f"{method} {p} is not ported "
-                                  "(the port serves FLUX.1, SD1.x, SDXL and SD3 txt2img)"}, 501)
+            self._json({"error": f"{method} {p} is not ported (the port serves FLUX.1, "
+                                  "SD1.x, SDXL and SD3 txt2img and img2img)"}, 501)
 
         def _read_json(self) -> Optional[dict]:
             """→ parsed body, or None after replying 400 to a bad payload."""
@@ -379,7 +410,7 @@ def make_handler(manager: JobManager):
                     return
                 manager.options.update(data)
                 self._json({})
-            elif p == "/sdapi/v1/txt2img":
+            elif p in ("/sdapi/v1/txt2img", "/sdapi/v1/img2img"):
                 data = self._read_json()
                 if data is None:
                     return

@@ -87,46 +87,6 @@ def synthetic_t5_vocab(n: int, seed: int = 0) -> dict:
             "tokenizer.ggml.unknown_token_id": 2}
 
 
-def vae_encoder_specs(cfg: vae_mod.VAEConfig) -> dict:
-    """name → (shape, init) of the VAE's encoder half (the decoder's layout,
-    mirrored; two z-widths out for the mean and the log-variance)."""
-    specs = {}
-
-    def conv(name, out_c, in_c, k=3):
-        specs[f"{name}.weight"] = ((out_c, in_c, k, k), "normal")
-        specs[f"{name}.bias"] = ((out_c,), "zeros")
-
-    def norm(name, ch):
-        specs[f"{name}.weight"] = ((ch,), "ones")
-        specs[f"{name}.bias"] = ((ch,), "zeros")
-
-    def res(pre, in_c, out_c):
-        norm(f"{pre}.norm1", in_c)
-        conv(f"{pre}.conv1", out_c, in_c)
-        norm(f"{pre}.norm2", out_c)
-        conv(f"{pre}.conv2", out_c, out_c)
-        if in_c != out_c:
-            conv(f"{pre}.nin_shortcut", out_c, in_c, k=1)
-
-    ch = cfg.base_channels
-    conv("encoder.conv_in", ch, cfg.in_channels)
-    for i, mult in enumerate(cfg.channel_mult):
-        out_c = cfg.base_channels * mult
-        for j in range(cfg.num_res_blocks):
-            res(f"encoder.down.{i}.block.{j}", ch, out_c)
-            ch = out_c
-        if i != len(cfg.channel_mult) - 1:
-            conv(f"encoder.down.{i}.downsample.conv", ch, ch)
-    res("encoder.mid.block_1", ch, ch)
-    norm("encoder.mid.attn_1.norm", ch)
-    for nm in ("q", "k", "v", "proj_out"):
-        conv(f"encoder.mid.attn_1.{nm}", ch, ch, k=1)
-    res("encoder.mid.block_2", ch, ch)
-    norm("encoder.norm_out", ch)
-    conv("encoder.conv_out", 2 * cfg.z_channels, ch)
-    return specs
-
-
 def _quantized(shape, init: str, min_elems: int = MIN_QUANT_ELEMS) -> bool:
     return (len(shape) == 2 and init == "normal" and shape[0] * shape[1] >= min_elems
             and shape[1] % 32 == 0)
@@ -201,7 +161,7 @@ def file_specs(double: int = 19, single: int = 38) -> Dict[str, dict]:
     return {"diffusion_model": flux_mod.param_specs(dit),
             "t5xxl": t5_mod.param_specs(t5_mod.T5_XXL_CONFIG),
             "clip_l": clip_mod.param_specs(clip_mod.CLIP_L_CONFIG),
-            "vae": {**vae_encoder_specs(vae_mod.FLUX_VAE_CONFIG), **vae}}
+            "vae": {**vae_mod.vae_encoder_specs(vae_mod.FLUX_VAE_CONFIG), **vae}}
 
 
 FILE_NAMES = {"diffusion_model": "flux1-dev-q8_0.gguf", "t5xxl": "t5xxl-q8_0.gguf",

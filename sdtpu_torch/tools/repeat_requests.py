@@ -14,7 +14,9 @@ answers a 512² × 4-step request (seed 42) ``--repeats`` times; ``sd3`` (not
 run unless named) is ``chip_smoke.py``'s bf16 SD3.5-Medium pipeline (4-bit
 T5-XXL) answering its ``SD3_REQUEST``, the bench's 1024² × 28-step dpm++2m
 request at CFG 4.5 (shapes, seeds and builder taken from the
-``chip_smoke.py`` beside this script).  One line per
+``chip_smoke.py`` beside this script).  The pipeline's prompt cache, in a
+checkout that has one, is emptied before each answer, so every answer
+encodes its prompt.  One line per
 answer: ``repeat {...}`` with its cond / sample / decode seconds, denoise
 steps per second and what the caching allocator did during it (new device
 segments, i.e. cudaMalloc calls, and allocation retries, each of which frees
@@ -102,6 +104,7 @@ def main() -> int:
                                      else dict(sample_method="euler", **REQUEST)))
             rates = []
             for i in range(args.repeats):
+                getattr(pipe, "_cond_cache", {}).clear()  # each answer encodes its prompt
                 before = torch.cuda.memory_stats()
                 pipe.generate(gp)
                 after = torch.cuda.memory_stats()

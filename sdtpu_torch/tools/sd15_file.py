@@ -29,7 +29,7 @@ import torch
 from sdtpu_torch.models import clip as clip_mod
 from sdtpu_torch.models import unet as unet_mod
 from sdtpu_torch.models import vae as vae_mod
-from sdtpu_torch.tools.flux_files import _Draw, vae_encoder_specs, write_safetensors
+from sdtpu_torch.tools.flux_files import _Draw, write_safetensors
 
 PREFIXES = {"diffusion": "model.diffusion_model.", "clip_l": "cond_stage_model.transformer.",
             "vae": "first_stage_model."}
@@ -40,10 +40,7 @@ SEED = 0
 def file_specs() -> dict:
     """name → (shape, init) of every tensor of the file, LDM-prefixed."""
     vae_cfg = vae_mod.SD_VAE_CONFIG
-    z2 = 2 * vae_cfg.z_channels
-    vae = {**vae_encoder_specs(vae_cfg),
-           "quant_conv.weight": ((z2, z2, 1, 1), "normal"), "quant_conv.bias": ((z2,), "zeros"),
-           **vae_mod.param_specs(vae_cfg)}
+    vae = vae_mod.vae_specs(vae_cfg)
     mods = {"diffusion": unet_mod.param_specs(unet_mod.SD1_UNET_CONFIG),
             "clip_l": clip_mod.param_specs(clip_mod.CLIP_L_CONFIG), "vae": vae}
     return {PREFIXES[m] + n: v for m, specs in mods.items() for n, v in specs.items()}

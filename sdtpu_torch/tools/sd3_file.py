@@ -38,7 +38,7 @@ from sdtpu_torch.models import mmdit as mmdit_mod
 from sdtpu_torch.models import t5 as t5_mod
 from sdtpu_torch.models import vae as vae_mod
 from sdtpu_torch.tools.flux_files import (_Draw, _gguf_from_specs, expected_bytes, gguf_t5_name,
-                                          synthetic_t5_vocab, vae_encoder_specs, write_safetensors)
+                                          synthetic_t5_vocab, write_safetensors)
 from sdtpu_torch.weights import MIN_QUANT_ELEMS
 
 DTYPE = torch.float16  # as SD3.5 files ship
@@ -55,7 +55,7 @@ def file_specs() -> dict:
     model = {"model.diffusion_model." + k: v
              for k, v in mmdit_mod.param_specs(mmdit_mod.SD35_MEDIUM_CONFIG).items()}
     model.update({"first_stage_model." + k: v
-                  for k, v in {**vae_encoder_specs(vae_cfg), **vae}.items()})
+                  for k, v in {**vae_mod.vae_encoder_specs(vae_cfg), **vae}.items()})
     return {"model": model,
             "clip_l": clip_mod.param_specs(dataclasses.replace(clip_mod.CLIP_L_CONFIG,
                                                                projection_dim=768)),

@@ -37,7 +37,7 @@ from sdtpu_torch.models import clip as clip_mod
 from sdtpu_torch.models import tae as tae_mod
 from sdtpu_torch.models import unet as unet_mod
 from sdtpu_torch.models import vae as vae_mod
-from sdtpu_torch.tools.flux_files import _Draw, vae_encoder_specs, write_safetensors
+from sdtpu_torch.tools.flux_files import _Draw, write_safetensors
 
 PREFIXES = {"diffusion": "model.diffusion_model.", "clip_l": "conditioner.embedders.0.transformer.",
             "clip_g": "conditioner.embedders.1.model.", "vae": "first_stage_model."}
@@ -74,10 +74,7 @@ def open_clip_specs(cfg: clip_mod.CLIPTextConfig) -> dict:
 def file_specs() -> dict:
     """name → (shape, init) of every tensor of the checkpoint, SGM-prefixed."""
     vae_cfg = vae_mod.SDXL_VAE_CONFIG
-    z2 = 2 * vae_cfg.z_channels
-    vae = {**vae_encoder_specs(vae_cfg),
-           "quant_conv.weight": ((z2, z2, 1, 1), "normal"), "quant_conv.bias": ((z2,), "zeros"),
-           **vae_mod.param_specs(vae_cfg)}
+    vae = vae_mod.vae_specs(vae_cfg)
     mods = {"diffusion": unet_mod.param_specs(unet_mod.SDXL_UNET_CONFIG),
             "clip_l": clip_mod.param_specs(clip_mod.CLIP_L_CONFIG),
             "clip_g": open_clip_specs(clip_mod.CLIP_G_CONFIG), "vae": vae}

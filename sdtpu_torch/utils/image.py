@@ -1,12 +1,16 @@
-"""PNG writing with webui-compatible metadata (this package's copy of the PNG
-parts of ``sdtpu/utils/image.py``: ``build_parameters_text``,
+"""PNG reading and writing with webui-compatible metadata (this package's copy
+of the PNG parts of ``sdtpu/utils/image.py``: ``build_parameters_text``,
 ``parse_parameters_text``, ``walk_image_metadata``, ``image_to_base64``,
-and the CLI's ``resolve_output_path``).
+``read_png``, ``base64_png_to_image``, and the CLI's
+``resolve_output_path``).
 
 The port needs no Pillow: it always writes PNG with the JAX package's own
 zlib writer (``_write_png_fallback``: the same IHDR, the same tEXt
-``parameters`` chunk, the same bytes), and decodes only what it writes.
-JPEG and WebP output need Pillow and are refused.
+``parameters`` chunk, the same bytes), and reads the PNGs users hand in
+(8-bit grey, grey + alpha, RGB or RGBA, any of the five row filters) as
+Pillow's ``convert("RGB")`` gives them.  Palette, 16-bit and interlaced
+PNGs, and JPEG and WebP in either direction, need Pillow and are refused
+by name.
 """
 from __future__ import annotations
 
@@ -131,30 +135,140 @@ def write_video_frames(path: str, frames: np.ndarray) -> list:
     return paths
 
 
+# colour type → (channels, what Pillow's convert("RGB") keeps of them)
+PNG_COLOUR_TYPES = {0: (1, [0, 0, 0]), 2: (3, [0, 1, 2]), 4: (2, [0, 0, 0]), 6: (4, [0, 1, 2])}
+
+
+def _diagonal(rows: np.ndarray, y: int, x: int, n: int, bpp: int) -> np.ndarray:
+    """The view [n, bpp] of pixels (y + i, x - i), i < n, of ``rows`` [H, W·bpp]."""
+    return np.lib.stride_tricks.as_strided(rows[y, x * bpp:], (n, bpp), (rows.strides[0] - bpp, 1))
+
+
+def _unfilter_wavefront(raw: np.ndarray, kinds: np.ndarray, prior: np.ndarray,
+                        bpp: int) -> np.ndarray:
+    """Rows [h, stride] of any filters below the reconstructed row ``prior``.
+    Average and Paeth make each pixel depend on the one to its left and the
+    two above, so the pixels of one anti-diagonal (y + x = t) are independent
+    of each other: h + w - 1 vector steps, each over one anti-diagonal, with
+    every row's own predictor picked by a bit mask."""
+    h, stride = raw.shape
+    w = stride // bpp
+    out = np.empty((h, stride), dtype=np.uint8)
+    sel = -(kinds[:, None] == np.arange(1, 5)).astype(np.int16)  # all ones where Sub/Up/Avg/Paeth
+    m_sub, m_up, m_avg, m_paeth = (sel[:, i:i + 1] for i in range(4))
+    above = np.zeros((w + 1, bpp), dtype=np.int16)
+    above[:w] = prior.reshape(w, bpp)
+    # d1 / d2: anti-diagonals t - 1 / t - 2, at index y + 1 (index 0: ``prior``)
+    d2 = np.zeros((h + 1, bpp), dtype=np.int16)
+    d1 = np.zeros((h + 1, bpp), dtype=np.int16)
+    d1[0] = above[0]
+    for t in range(h + w - 1):
+        lo, hi = max(0, t - w + 1), min(h, t + 1)
+        a, b, c = d1[lo + 1:hi + 1], d1[lo:hi], d2[lo:hi]  # left, above, above-left
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        pred = ((a & m_sub[lo:hi]) | (b & m_up[lo:hi]) | (((a + b) >> 1) & m_avg[lo:hi])
+                | (paeth & m_paeth[lo:hi]))
+        new = np.zeros((h + 1, bpp), dtype=np.int16)
+        new[0] = above[min(t + 1, w)]
+        new[lo + 1:hi + 1] = (_diagonal(raw, lo, t - lo, hi - lo, bpp) + pred) & 255
+        _diagonal(out, lo, t - lo, hi - lo, bpp)[:] = new[lo + 1:hi + 1]
+        d2, d1 = d1, new
+    return out
+
+
+def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Filtered scanlines → the image's bytes [h, stride].  None, Sub and Up
+    rows run row by row; the rows from the first Average or Paeth row to the
+    last one run as one wavefront (``_unfilter_wavefront``)."""
+    if len(data) < h * (1 + stride):
+        raise ValueError("truncated PNG image data")
+    rows = np.frombuffer(data, dtype=np.uint8, count=h * (1 + stride)).reshape(h, 1 + stride)
+    kinds, raw = rows[:, 0], rows[:, 1:]
+    if (kinds > 4).any():
+        raise ValueError(f"PNG row filter {kinds[kinds > 4][0]} is not one of the five")
+    slow = np.flatnonzero(kinds >= 3)
+    first, last = (int(slow[0]), int(slow[-1]) + 1) if slow.size else (h, h)
+    out = np.zeros((h, stride), dtype=np.uint8)
+    prior, y = np.zeros(stride, dtype=np.uint8), 0
+    while y < h:
+        if y == first:
+            out[first:last] = _unfilter_wavefront(raw[first:last], kinds[first:last], prior, bpp)
+            y = last
+        else:
+            if kinds[y] == 0:
+                out[y] = raw[y]
+            elif kinds[y] == 1:  # Sub: a running sum along each byte lane
+                out[y] = np.cumsum(raw[y].reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+            else:  # Up
+                out[y] = raw[y] + prior
+            y += 1
+        prior = out[y - 1]
+    return out
+
+
 def decode_png(blob: bytes):
-    """PNG bytes → (image [H,W,3] uint8, parameters text or None) of an 8-bit
-    RGB PNG whose rows all use filter 0, as ``encode_png`` writes them."""
+    """PNG bytes → (image [H,W,3] uint8, parameters text or None).  Reads
+    8-bit grey, grey + alpha, RGB and RGBA PNGs with any row filters, as
+    Pillow's ``convert("RGB")`` gives them (grey repeated, alpha dropped);
+    palette, 16-bit and interlaced PNGs, and JPEG and WebP, raise
+    ``ValueError`` naming them."""
+    if blob[:3] == b"\xff\xd8\xff":
+        raise ValueError("a JPEG image: reading JPEG needs Pillow, which the port does not use; "
+                         "hand in a PNG")
+    if blob[:4] == b"RIFF" and blob[8:12] == b"WEBP":
+        raise ValueError("a WebP image: reading WebP needs Pillow, which the port does not use; "
+                         "hand in a PNG")
     if blob[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
-    pos, idat, params, size = 8, [], None, None
+    pos, idat, params, header = 8, [], None, None
     while pos + 8 <= len(blob):
         (n,) = struct.unpack(">I", blob[pos:pos + 4])
         tag, data = blob[pos + 4:pos + 8], blob[pos + 8:pos + 8 + n]
         if tag == b"IHDR":
-            w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", data)
-            if (depth, ctype, interlace) != (8, 2, 0):
-                raise ValueError("not an 8-bit RGB PNG without interlace")
-            size = (h, w)
+            header = struct.unpack(">IIBBBBB", data)
         elif tag == b"IDAT":
             idat.append(data)
-        elif tag == b"tEXt" and data.startswith(b"parameters\x00"):
-            params = data[len(b"parameters\x00"):].decode("latin-1", "replace")
+        elif tag in (b"tEXt", b"zTXt", b"iTXt") and data.startswith(b"parameters\x00"):
+            body = data[len(b"parameters\x00"):]
+            if tag == b"zTXt":
+                params = zlib.decompress(body[1:]).decode("latin-1", "replace")
+            elif tag == b"iTXt":
+                text = body[2:].split(b"\x00", 2)[-1]  # after the language and translated key
+                params = (zlib.decompress(text) if body[0] else text).decode("utf-8", "replace")
+            else:
+                params = body.decode("latin-1", "replace")
+        elif tag == b"IEND":
+            break
         pos += 12 + n
-    h, w = size
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise ValueError("rows with PNG filters other than 0 are not read here")
-    return rows[:, 1:].reshape(h, w, 3).copy(), params
+    if header is None:
+        raise ValueError("a PNG without an IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = header
+    if ctype == 3:
+        raise ValueError("a palette PNG: reading palette images needs Pillow; hand in an RGB PNG")
+    if ctype not in PNG_COLOUR_TYPES:
+        raise ValueError(f"PNG colour type {ctype} is not one of 0, 2, 4, 6")
+    if depth != 8:
+        raise ValueError(f"a {depth}-bit PNG: the port reads 8-bit PNGs; hand in an 8-bit one")
+    if interlace:
+        raise ValueError("an interlaced PNG: the port reads non-interlaced PNGs")
+    channels, keep = PNG_COLOUR_TYPES[ctype]
+    rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * channels, channels)
+    return np.ascontiguousarray(rows.reshape(h, w, channels)[..., keep]), params
+
+
+def read_png(path: str):
+    """→ (image [H,W,3] uint8, parameters text or None) of a PNG file
+    (``decode_png``)."""
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
+def base64_png_to_image(data: str) -> np.ndarray:
+    """A base64 PNG (a ``data:`` URL too) → [H,W,3] uint8."""
+    if data.startswith("data:"):
+        data = data.split(",", 1)[1]
+    return decode_png(base64.b64decode(data))[0]
 
 
 def walk_image_metadata(path: str, include_structural: bool = False,

@@ -11,7 +11,11 @@ float16 safetensors, a q8_0 UMT5 GGUF), with their full-size configs
 swapped for the small ones.  The port runs
 with ``--backend cpu``.  Their images may differ by one uint8 level (a
 float32 pixel on a rounding boundary); the ``parameters`` text is equal.
-Unported flags, modes and values exit 2 before anything loads.
+img2img (``-i``, ``--mask``, ``--strength``, ``--sigmas``) and the latent
+hires fix (``--hires*``) run on the FLUX files and the SD1 file against
+the JAX CLI the same way, from PNGs Pillow wrote.  Unported flags, modes
+and values (an ESRGAN ``--hires-upscaler`` among them), and init images
+the port cannot read, exit 2 before anything loads.
 """
 import dataclasses
 import json
@@ -116,7 +120,8 @@ def test_metadata_mode_matches_jax(tmp_path, capsys, monkeypatch, fmt):
 
 
 UNPORTED = [
-    ["--lora-model-dir", "loras"], ["--init-img", "in.png"], ["--hires"], ["--type", "q8_0"],
+    ["--lora-model-dir", "loras"], ["--hires-upscaler", "RealESRGAN_x4plus"],
+    ["--upscale-model", "esrgan.pth"], ["--type", "q8_0"],
     ["--sampling-method", "heun"], ["--schedule", "karras"], ["--fa"], ["--no-progress"],
     ["--vae-on-cpu"], ["--control-net", "cn.safetensors"], ["--llm", "qwen.gguf"],
     ["--backend", "clip=cpu,diffusion=cuda0"], ["--backend", "tpu0"], ["--dtype", "f16"],
@@ -257,6 +262,98 @@ def test_sd15_file_tool_writes_a_file_the_cli_answers_from(monkeypatch, tmp_path
     assert cli.main(["-m", out["path"], "-p", "a cat", "-W", "64", "-H", "64", "--steps", "2",
                      "--backend", "cpu", "-o", png], report=report) == 0
     assert report["load"]["version"] == "sd1" and report["timings"]["steps"] == 2
+
+
+def _write_init_and_mask(directory):
+    """An RGBA init image and a grey mask (the right half regenerates) as
+    Pillow writes them → (init path, mask path)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(12)
+    rgba = rng.integers(0, 256, (64, 64, 4), dtype=np.uint8)
+    mask = np.zeros((64, 64), dtype=np.uint8)
+    mask[:, 32:] = 255
+    init, m = str(directory / "init.png"), str(directory / "mask.png")
+    Image.fromarray(rgba, mode="RGBA").save(init)
+    Image.fromarray(mask, mode="L").save(m)
+    return init, m
+
+
+IMG2IMG_REQUESTS = {
+    # (family, argv, with the init image, with the mask)
+    "flux_mask": ("flux", ["-p", "a lantern on a wooden table", "-W", "64", "-H", "64", "--steps",
+                           "4", "--sampling-method", "euler", "--cfg-scale", "1.0", "--guidance",
+                           "3.0", "-s", "5", "--strength", "0.6"], True, True),
+    # custom sigmas cut by strength
+    "flux_sigmas": ("flux", ["-p", "a red fox in snow", "-W", "64", "-H", "64", "--sigmas",
+                             "1.0,0.7,0.4,0.15", "--strength", "0.8", "--sampling-method", "euler",
+                             "--cfg-scale", "1.0", "-s", "6"], True, False),
+    # euler_a's noise (eta 1) for the cut steps, CFG, a batch of two
+    "sd1_cfg_batch": ("sd1", ["-p", "an astronaut riding a horse", "-n", "blurry", "-W", "64",
+                              "-H", "64", "--steps", "3", "--cfg-scale", "5", "-b", "2", "--eta",
+                              "1.0", "--strength", "0.5", "-s", "8"], True, False),
+    # a given size (up on one axis, down on the other), its own steps,
+    # strength and sigmas (--hires-scale runs in the pipeline's test)
+    "sd1_hires_size": ("sd1", ["-p", "a watercolour harbour", "-W", "64", "-H", "64", "--steps",
+                               "3", "--cfg-scale", "1", "-s", "9", "--sampling-method", "euler",
+                               "--hires", "--hires-width", "96", "--hires-height", "48",
+                               "--hires-steps", "2", "--hires-denoising-strength", "0.6",
+                               "--hires-sigmas", "10,3,1"], False, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(IMG2IMG_REQUESTS))
+def test_cli_img2img_and_hires_match_jax_cli(request, monkeypatch, tmp_path, name):
+    """``-i`` (an RGBA PNG Pillow wrote), ``--mask`` (a grey one: channel
+    0), ``--strength``, ``--sigmas`` and ``--hires`` with the latent
+    upscaler on the small FLUX files and the SD1 file: images within one
+    uint8 level of the JAX CLI's, the same ``parameters`` text; the loaded
+    VAE keeps its encoder."""
+    from PIL import Image
+
+    import sdtpu.cli as jcli
+    from sdtpu_torch import cli
+
+    family, argv, with_init, with_mask = IMG2IMG_REQUESTS[name]
+    if family == "flux":
+        args = _file_args(request.getfixturevalue("files")[1])
+        small_configs(monkeypatch)
+    else:
+        args = ["-m", request.getfixturevalue("sd1_file")]
+        small_sd1_configs(monkeypatch)
+    monkeypatch.setenv("SDTPU_COMPILE_CACHE", str(tmp_path / "xla"))
+    init, mask = _write_init_and_mask(tmp_path)
+    args += argv + (["-i", init] if with_init else []) + (["--mask", mask] if with_mask else [])
+    report = {}
+    assert cli.main(args + ["--backend", "cpu", "-o", str(tmp_path / "port.png")],
+                    report=report) == 0
+    assert jcli.main(args + ["-o", str(tmp_path / "jax.png")]) == 0
+    assert "encoder.conv_in.weight" in report["pipeline"].vae_params
+    assert ("encode" in report["timings"]) == with_init
+    n = 2 if "-b" in args else 1
+    for i, ours in enumerate(report["outputs"]):
+        theirs = str(tmp_path / (f"jax_{i}.png" if n > 1 else "jax.png"))
+        a, b = Image.open(ours), Image.open(theirs)
+        assert a.info["parameters"] == b.info["parameters"] and a.size == b.size
+        diff = np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int))
+        assert diff.max() <= 1
+    assert len(report["outputs"]) == n
+
+
+def test_unreadable_init_images_exit_2_by_name(tmp_path, capsys):
+    """A JPEG init image and a palette mask fail before anything loads."""
+    from PIL import Image
+
+    from sdtpu_torch import cli
+
+    rgb = np.zeros((16, 16, 3), dtype=np.uint8)
+    jpg, pal = str(tmp_path / "in.jpg"), str(tmp_path / "mask.png")
+    Image.fromarray(rgb).save(jpg, format="JPEG")
+    Image.fromarray(rgb).quantize(4).save(pal)
+    missing = str(tmp_path / "missing.gguf")
+    for extra, name in ((["-i", jpg], "JPEG"), (["--mask", pal], "palette")):
+        assert cli.main(["--diffusion-model", missing] + extra) == 2
+        assert name in capsys.readouterr().err
 
 
 @pytest.fixture(scope="module")

@@ -4,8 +4,10 @@ The JAX small FLUX pipeline and the port's pipeline bridged from it
 (``from_jax_params``, on the CPU) each sit behind their package's handler
 on ``127.0.0.1``.  The same requests to both give images at most one uint8
 level apart with equal ``parameters`` text; an async job reports its
-progress and completes, a queued job cancels; unported routes answer 501,
-unported request fields 400.  ``server.main`` also loads a small SDXL file
+progress and completes, a queued job cancels; img2img with a mask (A1111
+and native) and ``enable_hr`` (A1111, and the native schema's ``hires``
+object) match the JAX server's images; unported routes answer 501,
+unported request fields (an ESRGAN ``hr_upscaler``, a JPEG init image) 400.  ``server.main`` also loads a small SDXL file
 with a TAESD-XL decoder (``tests/_torch_files.py``), and a small SD3.5 file
 set, and answers an A1111 request with the JAX CLI's image on the same
 files.
@@ -114,6 +116,51 @@ def test_sync_routes_match_jax(servers, name):
     _same_images(key(ours), key(theirs))
 
 
+def _img2img_bodies():
+    rng = np.random.default_rng(21)
+    init = "data:image/png;base64," + _b64(rng.integers(0, 256, (64, 64, 3), dtype=np.uint8))
+    mask = np.zeros((64, 64), np.uint8)
+    mask[:, 32:] = 255
+    base = {"prompt": "a lantern on a wooden table", "width": 64, "height": 64, "steps": 3,
+            "cfg_scale": 1.0, "seed": 4, "sampler_name": "euler"}
+    return {
+        # A1111 img2img: a data-URL init image, a grey mask, denoising_strength
+        "img2img_mask": ("/sdapi/v1/img2img", dict(base, init_images=[init], denoising_strength=0.6,
+                                                   mask=_b64(mask, mode="L"))),
+        # enable_hr on txt2img: the latent upscaler by its A1111 name
+        "txt2img_hr": ("/sdapi/v1/txt2img", dict(base, enable_hr=True, hr_scale=1.5,
+                                                 hr_upscaler="Latent (nearest-exact)",
+                                                 denoising_strength=0.7)),
+        # the native schema's hires object, to a given size with its own steps
+        "native_hires": ("/sdcpp/v1/img_gen", {
+            "prompt": "a paper boat", "width": 64, "height": 64, "seed": 5,
+            "sample_params": {"sample_steps": 2, "sample_method": "euler",
+                              "guidance": {"txt_cfg": 1.0}},
+            "hires": {"enabled": True, "target_width": 96, "target_height": 64, "steps": 2,
+                      "denoising_strength": 0.5}}),
+        # a native job from an init image
+        "native_img2img": ("/sdcpp/v1/img_gen", dict(base, init_image=init, strength=0.5)),
+    }
+
+
+@pytest.mark.parametrize("name", ["img2img_mask", "txt2img_hr", "native_hires", "native_img2img"])
+def test_img2img_and_hires_requests_match_jax(servers, name):
+    path, body = _img2img_bodies()[name]
+    out = {}
+    for side in ("port", "jax"):
+        code, resp = _call(servers[side], path, body)
+        if path == "/sdcpp/v1/img_gen":
+            assert code == 202
+            resp, _ = _wait(servers[side], resp["id"])
+            assert resp["status"] == "completed", resp
+        else:
+            assert code == 200, resp
+        out[side] = resp["images"]
+    _same_images(out["port"], out["jax"])
+    want = (96, 64) if name == "native_hires" else (96, 96) if name == "txt2img_hr" else (64, 64)
+    assert _png(out["port"][0])[0].shape[:2] == want[::-1]
+
+
 def _wait(base, job_id, timeout=300):
     seen, t0 = [], time.time()
     while time.time() - t0 < timeout:
@@ -155,11 +202,21 @@ def test_queued_job_cancels(servers):
     assert _call(base, "/sdcpp/v1/jobs/nope/cancel", {})[0] == 404
 
 
+def _b64(array, fmt="PNG", mode=None) -> str:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(array, mode=mode).save(buf, format=fmt)
+    return base64.b64encode(buf.getvalue()).decode()
+
+
 def test_unported_request_fields_fail_by_name(servers):
     base = servers["port"]
-    for body, name in (({"prompt": "x", "init_images": ["AAAA"]}, "img2img"),
+    jpeg = _b64(np.zeros((64, 64, 3), np.uint8), "JPEG")
+    for body, name in (({"prompt": "x", "init_images": [jpeg]}, "JPEG"),
                        ({"prompt": "x", "sampler_name": "DPM++ 2M"}, "dpm++_2m"),
-                       ({"prompt": "x", "enable_hr": True}, "hires"),
+                       ({"prompt": "x", "enable_hr": True, "hr_upscaler": "R-ESRGAN 4x+"},
+                        "ESRGAN"),
                        ({"prompt": "x", "scheduler": "karras"}, "karras")):
         code, resp = _call(base, "/sdapi/v1/txt2img", body)
         assert code == 400 and name in resp["error"], resp
@@ -184,7 +241,8 @@ def test_video_frames_are_refused_by_name(servers):
 
 @pytest.mark.parametrize("method,path", [("GET", "/"), ("GET", "/sdapi/v1/loras"),
                                          ("GET", "/sdapi/v1/upscalers"), ("GET", "/nope"),
-                                         ("POST", "/sdapi/v1/img2img"), ("POST", "/v1/images/edits"),
+                                         ("POST", "/sdapi/v1/extra-single-image"),
+                                         ("POST", "/v1/images/edits"),
                                          ("POST", "/sdcpp/v1/vid_gen")])
 def test_unported_routes_answer_501(servers, method, path):
     code, resp = _call(servers["port"], path, {} if method == "POST" else None)
