@@ -31,7 +31,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      4096 tokens, 20 over 1024, each with its cross-attention over CLIP's
      77, CLIP-G's causal [1, 20, 77, 77]; bf16 with the last 128-key tile
      dropped and unmasked pad keys as faults, float32 with the one-pass TF32
-     fault); at SD3.5-Medium's D 64 shapes at 1024² under CFG (the joint
+     fault); at SD2.1-768-v's D 64 shapes at 768² under CFG (5 heads over
+     9216 tokens with q around +1 and k around -1, its cross-attention over
+     OpenCLIP-H's 77, 10 heads over 2304, 20 over 576) and OpenCLIP-H's
+     causal call, both dtypes, the faults as SDXL's; at SD3.5-Medium's D 64
+     shapes at 1024² under CFG (the joint
      attention over 154 + 4096 = 4250 tokens, ragged on every tile, and
      MMDiT-X's self-attention over 4096; both dtypes, the bf16 faults as
      SDXL's); at Wan2.1-1.3B's D 128 shapes at 832x480 over 9 latent frames
@@ -69,7 +73,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      tokens) and the SD3 conditioner (those CLIPs, a 4-bit T5 1536 wide),
      one Wan2.1 block (128-wide heads, a 3 x 8 x 12 latent beside 40 text
      tokens), a Wan VAE decode (32 wide, 16 latent channels, 3 latent
-     frames) and the Wan conditioner on a 4-bit UMT5 over 512 tokens, at
+     frames) and the Wan conditioner on a 4-bit UMT5 over 512 tokens, an
+     SD2 inpainting UNet (64-channel heads, linear proj, a 9-channel stem,
+     one res block a level) and the SD2 conditioner on OpenCLIP-H (full
+     width, three layers, pad id 0, clip skip 2), at
      kernel-shaped small widths, on the card (kernels, bf16 and float32)
      against the same weights on the CPU (plain versions, float32);
   5. the GGUF loader at full FLUX.1-dev width and cut depth: a DiT of one
@@ -112,12 +119,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      riding a horse", 512², 20 steps, euler_a, discrete schedule, CFG 7,
      seed 42) once to warm up and once timed, then with dpm++2m; path
      ``sd15_f32`` (no dtype argument: float32) answers it at 4 steps.  On
-     both, the flash launches at D 40 / 80 / 160 equal the UNet's calls per
-     forward (10 / 10 / 12) times its forwards, and no attention runs in the
-     plain version on the card.
+     both, flash launches exactly the UNet's calls per forward at D 40 / 80
+     / 160 (10 / 10 / 12) times its forwards, CLIP-L's 12 at D 64 a prompt
+     encode and D 512 once a decode, and no attention runs in the plain
+     version on the card (``_check_unet_family``, as in 10g).
  10c. SDXL at full width (``create_pipeline(SDVersion.SDXL, ...)``, dense
-     random weights drawn on the card with the JAX bench's seeds, a
-     TAESD-XL decoder attached with ``set_tae``): path ``sdxl`` in bf16
+     random weights drawn on the card, a TAESD-XL decoder drawn from the
+     JAX bench's seed attached with ``set_tae``): path ``sdxl`` in bf16
      answers ``bench_sdxl_lcm_taesd``'s request (bench.py:441: "a
      photograph of an astronaut riding a horse", 1024², 4 lcm steps,
      discrete, CFG 1, seed 42) once to warm up and once timed, one with a
@@ -127,8 +135,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      dtype argument: float32) answers the bench request at 2 steps.  On
      both, the flash launches at D 64 equal the UNet's 140 calls a forward
      times its forwards plus 43 a prompt encode (CLIP-L and CLIP-G), D 40 /
-     80 / 160 do not launch, D 512 only on the full-VAE request, and no
-     attention runs in the plain version on the card.
+     80 / 160 do not launch, D 512 once a tile of the full-VAE request's
+     decode, and no attention runs in the plain version on the card
+     (``_check_unet_family``).
  10d. SD3.5-Medium at full width (``create_pipeline(SDVersion.SD3,
      params=...)``: the MMDiT-X, CLIP-L with its 768-wide projection, CLIP-G
      and the SD3 VAE dense, T5-XXL packed 4-bit, drawn on the card with the
@@ -183,6 +192,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      through the full VAE, each family's UNet / DiT flash forms as in
      txt2img, the steps sampled are ``img2img_steps``'s, and no attention
      runs in the plain version on the card but T5's.
+ 10g. SD2.x and the inpainting and instruct-pix2pix UNets at full width,
+     dense random weights drawn on the card (``create_pipeline(<version>,
+     dtype=torch.bfloat16, v_prediction=...)``): path ``sd2`` (SD2.1-768-v:
+     768², CFG 7 with a negative prompt, 20 euler_a steps to warm up and
+     timed, then 6 heun steps) and ``sd2_f32`` (no dtype: float32, 2 heun
+     steps); paths ``sd15_inpaint`` (512², a seeded init image with its right
+     half masked, strength 1, 20 euler_a steps, CFG 7, then the same without
+     the init image), ``sd2_inpaint`` (512² x 2), ``sdxl_inpaint`` (1024² x
+     8 euler, CFG 5, the full VAE untiled), ``sd15_pix2pix`` (512² x 20
+     euler_a, CFG 7.5, image guidance 1.5: three UNet calls a step) and
+     ``sdxl_pix2pix`` (1024² x 2 from a reference image).  On each, flash
+     launches exactly its family's calls a UNet call (SD2's 32 and SDXL's 140
+     at D 64, SD1's 10 / 10 / 12 at D 40 / 80 / 160) times the calls (heun
+     two a step but the last's one), plus its text encoders' a prompt encode
+     (OpenCLIP-H's 22, CLIP-L's 12, CLIP-L and CLIP-G's 43), D 512 once a
+     VAE call (a decode, the init image's encode, the masked or edit image's
+     encode), nothing else, and no attention in the plain version on the
+     card (``_check_unet_family``).
  11. main path 5, the entry points, on files: a full FLUX.1-dev checkpoint
      set written by ``sdtpu_torch.tools.flux_files`` into a temporary
      directory under ``build/chip_smoke/`` (removed after; the free disk
@@ -232,7 +259,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      UMT5-XXL as a q8_0 GGUF with its vocab; ``cli.main -M vid_gen`` answers
      a 832x480 clip of 9 frames at 2 steps with the bench's tiling (path
      ``wan_cli``): 9 PNG frames of 832x480, not constant, with the launch
-     checks of 10e (UMT5 dequantized: no 4-bit call).
+     checks of 10e (UMT5 dequantized: no 4-bit call).  Then SD2.1 on a file
+     (``tools/sd2_file.py``: OpenCLIP-H under ``cond_stage_model.model.``,
+     24 resblocks): ``cli.main -m ... --prediction v --sampling-method heun``
+     answers 768² x 8 steps (path ``sd2_cli``); the SD1.5-inpainting file
+     (``tools/sd15_file.py`` with 9 input channels) through the CLI and the
+     A1111 txt2img route with no init image (``sd15_inpaint_cli``,
+     ``sd15_inpaint_server``), then with ``-i`` / ``--mask``
+     (``sd15_inpaint_cli_img2img``) and the A1111 route's masked img2img
+     (``sd15_inpaint_server_img2img``); the instruct-pix2pix file (8 channels)
+     through ``-r`` and ``--img-cfg-scale 1.5`` (``sd15_pix2pix_cli``), each
+     512² x 8 steps with the launch checks of 10g.
 Every path of phases 5-11 sets the kernels' launch counts to 0 before it runs
 and reads them after: each kernel that path runs must have launched.  The
 4-bit kernel's TMA + wgmma form (M >= 128) and its weight-streaming GEMV
@@ -385,11 +422,31 @@ FLASH_CASES += [(b, h, lq, lk, d, dt, bias) for dt in ("bf16", "f32")
 SD3_FLASH_SHAPES = [(2, 24, 4250, 4250, 64, "neg_scores"), (2, 24, 4096, 4096, 64, None)]
 FLASH_CASES += [(b, h, lq, lk, d, dt, bias) for dt in ("bf16", "f32")
                 for b, h, lq, lk, d, bias in SD3_FLASH_SHAPES]
+# SD2.1-768-v at 768² under CFG (B = 2, 64-channel heads: 5 over 320
+# channels, 10 over 640, 20 over 1280): the first level's self-attention
+# over its 96 x 96 = 9216 latent tokens and cross-attention over OpenCLIP-H's
+# 77, the second and third levels' self-attentions over 2304 and 576; and
+# OpenCLIP-H's causal call (16 heads of 64), in bf16 and in float32.  The
+# 9216-token cases draw q around +1 and k around -1 ("neg_scores"), so a
+# dropped key tile or unmasked pad keys would outweigh the limit there.
+SD2_FLASH_SHAPES = [(2, 5, 9216, 9216, 64, "neg_scores"), (2, 5, 9216, 77, 64, "neg_scores"),
+                    (2, 10, 2304, 2304, 64, None), (2, 20, 576, 576, 64, None),
+                    (2, 16, 77, 77, 64, "causal")]
+FLASH_CASES += [(b, h, lq, lk, d, dt, bias) for dt in ("bf16", "f32")
+                for b, h, lq, lk, d, bias in SD2_FLASH_SHAPES]
 # The SD3 VAE's mid-block attention over the untiled 1024² decode's whole
 # 128 x 128 latent (the sd3 path's one D 512 call a decode): 256 Q tiles of
 # 64 rows, so the key split the D 512 launcher picks is not the 4096 case's.
 SD3_VAE_FLASH_SHAPE = (1, 1, 16384, 16384, 512)
 FLASH_CASES.append((*SD3_VAE_FLASH_SHAPE, "bf16", None))
+# The SD VAE's mid-block attention over the untiled 768² decode's whole 96 x
+# 96 latent (the sd2 paths' one D 512 call a decode, bf16 and float32): 144
+# Q tiles of 64 rows, more than the SMs but short of two waves, so the
+# launcher splits the keys many ways, the last split ragged.  q is drawn
+# around +1 and k around -1 ("neg_scores"), so a dropped key tile or a
+# split merged without its rescale would outweigh the limit.
+SD2_VAE_FLASH_SHAPE = (1, 1, 9216, 9216, 512)
+FLASH_CASES += [(*SD2_VAE_FLASH_SHAPE, dt, "neg_scores") for dt in ("bf16", "f32")]
 # Wan2.1-T2V-1.3B at 832x480 over 33 frames (9 latent frames) under CFG
 # (B = 2, 12 heads of 128): the self-attention over 9 x 30 x 52 = 14040
 # tokens (109 x 128 + 88: ragged on the last query and key tile) and the
@@ -421,6 +478,13 @@ UNET_ATTENTION_CALLS = {40: 10, 80: 10, 160: 12}
 # 640-wide level and 2 x 10 at the 1280-wide one on the way down, the
 # middle block's 10, 3 x 10 and 3 x 2 on the way up), all at D 64
 SDXL_UNET_ATTENTION_CALLS = {64: 140}
+# attention calls of one full-width SD2.x UNet forward, its inpainting UNet's
+# too: SD1's layout with every head 64 wide (5, 10 and 20 heads over 320,
+# 640 and 1280 channels)
+SD2_UNET_ATTENTION_CALLS = 32
+# attention calls of one SD2 prompt encode: OpenCLIP-H's 23 layers at clip
+# skip 2, so 22 (no pooled output)
+SD2_CLIP_ATTENTION_CALLS = 22
 # attention calls of one SDXL prompt encode (every chunk of a prompt in one
 # batched call a layer): CLIP-L's 11 layers at clip skip 2, CLIP-G's 31 and
 # its top layer, run for the pooled output
@@ -704,7 +768,22 @@ for _path, _as in (("img2img", "int8"), ("img2img_mask", "int8"), ("hires", "sd1
     PATH_KERNELS[_path], PATH_IDLE[_path] = PATH_KERNELS[_as], PATH_IDLE[_as]
 PATH_KERNELS["sdxl_img2img"] = ("flash_attention", "flash_attention_d64", "flash_attention_d512")
 PATH_IDLE["sdxl_img2img"] = (*QUANT_KERNELS, *F32_FORMS, *UNET_FLASH)
-F32_PATHS = {"wan_f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
+# SD2.x (dense): flash at D 64 (the UNet, OpenCLIP-H) and D 512 (the VAE);
+# its inpainting UNet and the SD1.5 inpainting and pix2pix UNets as their
+# families' txt2img paths, the SDXL ones as the full-VAE SDXL path
+for _path in ("sd2", "sd2_cli", "sd2_inpaint"):
+    PATH_KERNELS[_path] = ("flash_attention", "flash_attention_d64", "flash_attention_d512")
+    PATH_IDLE[_path] = (*QUANT_KERNELS, *F32_FORMS, *UNET_FLASH)
+for _path in ("sd15_inpaint", "sd15_pix2pix", "sd15_inpaint_cli", "sd15_inpaint_server",
+              "sd15_inpaint_cli_img2img", "sd15_inpaint_server_img2img", "sd15_pix2pix_cli"):
+    PATH_KERNELS[_path], PATH_IDLE[_path] = PATH_KERNELS["sd15"], PATH_IDLE["sd15"]
+for _path in ("sdxl_inpaint", "sdxl_pix2pix"):
+    PATH_KERNELS[_path], PATH_IDLE[_path] = PATH_KERNELS["sdxl_img2img"], PATH_IDLE["sdxl_img2img"]
+PATH_KERNELS["sd2_f32"] = ("flash_attention", "flash_attention_f32")
+PATH_IDLE["sd2_f32"] = PATH_IDLE["sdxl_f32"]
+F32_PATHS = {"sd2_f32": (("flash_attention", "flash_attention_f32"),),
+             "wan_f32": (("flash_attention", "flash_attention_f32"),
+                         ("q4_matmul", "q4_matmul_f32")),
              "sd3_f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
              "sd15_f32": (("flash_attention", "flash_attention_f32"),),
              "sdxl_f32": (("flash_attention", "flash_attention_f32"),),
@@ -1473,7 +1552,7 @@ def reference_check():
     card in bf16 (held at REF_REL_TOL) and in float32 (REF_F32_REL_TOL)."""
     import torch
 
-    from sdtpu_torch.conditioning.conditioner import SD3Conditioner, WanConditioner
+    from sdtpu_torch.conditioning.conditioner import SD1Conditioner, SD3Conditioner, WanConditioner
     from sdtpu_torch.models import clip as clip_mod
     from sdtpu_torch.models import flux as flux_mod
     from sdtpu_torch.models import mmdit as mmdit_mod
@@ -1521,6 +1600,13 @@ def reference_check():
     wan_vae_cfg = wan_vae_mod.WanVAEConfig(dim=32, z_dim=16, num_res_blocks=1)
     umt5_cfg = t5_mod.T5Config(d_model=512, d_kv=64, d_ff=1024, num_layers=2, num_heads=8,
                                is_umt5=True)
+    # SD2's inpainting UNet (64-channel heads, linear proj in / out, a
+    # 9-channel stem) at one res block a level over three levels, on a
+    # 16x16 latent under CFG; the SD2 conditioner (pad id 0, clip skip 2) on
+    # OpenCLIP-H at full width cut to three layers
+    sd2_cfg = dataclasses.replace(unet_mod.SD2_INPAINT_UNET_CONFIG, num_res_blocks=1,
+                                  channel_mult=(1, 2, 4), transformer_depth=(1, 1, 1))
+    clip_h_cfg = dataclasses.replace(clip_mod.CLIP_H_CONFIG, num_layers=3)
     mods = {
         "dit": (flux_mod.param_specs(dit_cfg), "q8_0"), "clip": (clip_mod.param_specs(clip_cfg), None),
         "t5": (t5_mod.param_specs(t5_cfg), "q4_0"), "vae": (vae_mod.param_specs(vae_cfg), None),
@@ -1532,6 +1618,8 @@ def reference_check():
         "wan": (wan_mod.param_specs(wan_cfg), None),
         "wan_vae": (wan_vae_mod.param_specs(wan_vae_cfg), None),
         "umt5": (t5_mod.param_specs(umt5_cfg), "q4_0"),
+        "sd2_unet": (unet_mod.param_specs(sd2_cfg), None),
+        "clip_h": (clip_mod.param_specs(clip_h_cfg), None),
     }
     gpu = {n: synthesize(s, quant=q, seed=i, device=DEVICE, dtype=torch.bfloat16)
            for i, (n, (s, q)) in enumerate(mods.items())}
@@ -1558,6 +1646,8 @@ def reference_check():
     t_wan = torch.tensor([999.0, 411.5])
     ctx_wan = torch.randn((2, 40, wan_cfg.text_dim), generator=gen)
     z_wan = torch.randn((1, 3, 8, 8, 16), generator=gen)
+    x_sd2 = torch.randn((2, 16, 16, 9), generator=gen)
+    ctx_sd2 = torch.randn((2, 77, sd2_cfg.context_dim), generator=gen)
 
     def run(p, dev, dtype):
         with torch.inference_mode():
@@ -1584,7 +1674,13 @@ def reference_check():
             vid_wan = wan_vae_mod.wan_vae_decode(p["wan_vae"], z_wan.to(dev, dtype), wan_vae_cfg)
             cond_wan = WanConditioner(None, p["umt5"], umt5_cfg, device=dev).get_learned_condition(
                 "a corgi running on a beach")
-        return {"wan_forward": vel_wan, "wan_vae_decode": vid_wan,
+            v_sd2 = unet_mod.unet_forward(p["sd2_unet"], x_sd2.to(dev, dtype), tu.to(dev),
+                                          ctx_sd2.to(dev, dtype), cfg=sd2_cfg)
+            cond_sd2 = SD1Conditioner(CLIPTokenizer(), p["clip_h"], clip_h_cfg, is_sd2=True,
+                                      device=dev).get_learned_condition(
+                                          "a lighthouse at dusk, oil on canvas")
+        return {"sd2_inpaint_unet_forward": v_sd2, "sd2_cond_crossattn": cond_sd2.c_crossattn,
+                "wan_forward": vel_wan, "wan_vae_decode": vid_wan,
                 "wan_cond_crossattn": cond_wan.c_crossattn,
                 "clip_pooled": pooled, "t5": ctx, "flux_forward": vel, "vae_decode": img,
                 "unet_forward": eps, "sdxl_unet_forward": eps_xl, "clip_g_hidden": h_g,
@@ -2074,62 +2170,141 @@ def plain_attention_on_card():
         att.plain_attention = plain
 
 
-def _check_unet_flash(path: str, counts: dict, forwards: int, plain: dict) -> dict:
-    """Each of the UNet's head dims launched flash exactly its calls per
-    forward (``UNET_ATTENTION_CALLS``) times the path's UNet forwards, and
-    no attention ran in the plain version on the card."""
-    want = {f"flash_attention_d{d}": n * forwards for d, n in UNET_ATTENTION_CALLS.items()}
+# flash launches a UNet call and a prompt encode, per family (d40 / d80 /
+# d160 count both dtypes, d64 and d512 bf16 only): SD1.x's UNet at D 40 /
+# 80 / 160 and CLIP-L's 12 layers at clip skip 1; SD2's UNet and
+# OpenCLIP-H's 22 layers at clip skip 2, all D 64; SDXL's UNet and CLIP-L
+# and CLIP-G's 43, all D 64
+UNET_FAMILY_FLASH = {
+    "sd1": ({f"flash_attention_d{d}": n for d, n in UNET_ATTENTION_CALLS.items()},
+            {"flash_attention_d64": 12}),
+    "sd2": ({"flash_attention_d64": SD2_UNET_ATTENTION_CALLS},
+            {"flash_attention_d64": SD2_CLIP_ATTENTION_CALLS}),
+    "sdxl": ({"flash_attention_d64": SDXL_UNET_ATTENTION_CALLS[64]},
+             {"flash_attention_d64": SDXL_CLIP_ATTENTION_CALLS}),
+}
+# TAESD-XL's seed (the JAX bench's, bench.py:470)
+TAE_SEED = 5
+
+
+def unet_calls(request: dict, inpaint: bool = False, edit: bool = False, decode: int = 1) -> tuple:
+    """(UNet calls, prompt encodes, VAE calls) of one request: a call a
+    sampled step (the CFG batch of two is one call; heun makes two but on
+    its last step), a third a step under image guidance (``img_cfg_scale``
+    set apart from ``cfg_scale`` under CFG, on the concat UNets); an encode
+    a prompt and one more for the negative one under CFG; ``decode`` VAE
+    calls a decode (0 through TAESD-XL, a tile count under VAE tiling), one
+    an init image's encode, and on an inpainting UNet the masked image's,
+    on a pix2pix one the edit image's (a reference image, else the init
+    image)."""
+    init = "init_image" in request
+    steps = (img2img_steps(request["sample_steps"], request.get("strength", 0.75)) if init
+             else request["sample_steps"])
+    calls = 2 * steps - 1 if request.get("sample_method") == "heun" else steps
+    cfg = request.get("cfg_scale", 7.0)
+    img_cfg = request.get("img_cfg_scale")
+    if (inpaint or edit) and cfg != 1.0 and img_cfg is not None and img_cfg != cfg:
+        calls *= 2
+    vae = decode + init + (inpaint and init) + (edit and (init or "ref_images" in request))
+    return calls, 1 + (cfg != 1.0), vae
+
+
+def _totals(requests, **kind) -> tuple:
+    """``unet_calls`` summed over ``requests``."""
+    return tuple(sum(t) for t in zip(*(unet_calls(r, **kind) for r in requests)))
+
+
+def _check_unet_family(path: str, counts: dict, family: str, totals: tuple, plain: dict,
+                       f32: bool = False) -> dict:
+    """Flash launched exactly ``family``'s calls (UNET_FAMILY_FLASH) for
+    ``totals`` = (UNet calls, prompt encodes, VAE calls), D 512 once a VAE
+    call, nothing else (float32: every launch in ``launches_f32``); no
+    attention ran in the plain version on the card."""
+    calls, encodes, vae = totals
+    unet, text = UNET_FAMILY_FLASH[family]
+    want = {k: 0 for k in (*UNET_FLASH, "flash_attention_d64")}
+    for k, n in unet.items():
+        want[k] += n * calls
+    for k, n in text.items():
+        want[k] += n * encodes
+    want["flash_attention_d512"] = vae
+    total = sum(want.values())
+    if f32:  # d40 / d80 / d160 count both dtypes
+        want = {**{k: v for k, v in want.items() if k in UNET_FLASH}, "flash_attention_d64": 0,
+                "flash_attention_d512": 0, "flash_attention_f32": total}
+    else:
+        want["flash_attention_f32"] = 0
+    want["flash_attention"] = total
     got = {k: counts[k] for k in want}
     if got != want or plain["calls"]:
-        raise RuntimeError(f"path {path}: UNet flash launches {got}, not {want}; "
-                           f"{plain['calls']} plain attention calls on the card")
-    return {"unet_flash": got, "plain_attention_on_card": plain["calls"]}
+        raise RuntimeError(f"path {path}: flash launches {got}, not {want} ({calls} UNet calls, "
+                           f"{encodes} prompt encodes, {vae} VAE calls); {plain['calls']} plain "
+                           "attention calls on the card")
+    return {"flash": got, "unet_calls": calls, "prompt_encodes": encodes, "vae_calls": vae,
+            "plain_attention_on_card": plain["calls"]}
 
 
-def build_sd15_pipeline(card: str, default_dtype: bool = False):
-    """A full-width SD1.5 pipeline (``SD1_UNET_CONFIG``, CLIP-L, the SD VAE),
-    dense random weights drawn on the card: ``create_pipeline(SDVersion.SD1,
-    dtype=torch.bfloat16, ...)``, or with ``default_dtype`` no dtype
-    argument, so float32 (held here)."""
+def unet_check(family: str, totals: tuple):
+    """``_check_unet_family`` at ``totals`` as ``_file_entry_check``'s launch
+    check."""
+    return lambda path, counts, plain: _check_unet_family(path, counts, family, totals, plain)
+
+
+def build_unet_pipeline(card: str, version_name: str, default_dtype: bool = False,
+                        v_prediction: bool = False, tae: bool = False):
+    """A full-width UNet pipeline of ``version_name`` (``SDVersion``), dense
+    random weights drawn on the card: ``create_pipeline(version,
+    dtype=torch.bfloat16, v_prediction=..., device="cuda", seed=0)``, or with
+    ``default_dtype`` no dtype argument (float32, held here); ``tae``:
+    TAESD-XL drawn from ``TAE_SEED`` and attached with ``set_tae``."""
     import torch
 
     from sdtpu_torch.config import SDVersion
     from sdtpu_torch.factory import create_pipeline
-    from sdtpu_torch.weights import weight_bytes
+    from sdtpu_torch.models import tae as tae_mod
+    from sdtpu_torch.weights import synthesize, weight_bytes
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    if default_dtype:
-        pipe = create_pipeline(SDVersion.SD1, device=DEVICE, seed=0)
-        if pipe.compute_dtype != torch.float32:
-            raise RuntimeError(f"create_pipeline's default dtype is {pipe.compute_dtype}, not float32")
-    else:
-        pipe = create_pipeline(SDVersion.SD1, dtype=torch.bfloat16, device=DEVICE, seed=0)
+    kw = {} if default_dtype else {"dtype": torch.bfloat16}
+    pipe = create_pipeline(getattr(SDVersion, version_name), device=DEVICE, seed=0,
+                           v_prediction=v_prediction, **kw)
+    if default_dtype and pipe.compute_dtype != torch.float32:
+        raise RuntimeError(f"create_pipeline's default dtype is {pipe.compute_dtype}, not float32")
+    wb = {"diffusion": weight_bytes(pipe.diffusion_params),
+          "text": sum(weight_bytes(v) for v in vars(pipe.conditioner).values() if isinstance(v, dict)),
+          "vae": weight_bytes(pipe.vae_params)}
+    if tae:
+        params = synthesize(tae_mod.param_specs(tae_mod.TAESD_XL_CONFIG), seed=TAE_SEED,
+                            device=DEVICE, dtype=pipe.compute_dtype)
+        wb["tae"] = weight_bytes(params)
+        pipe.set_tae(params, tae_mod.TAESD_XL_CONFIG)
     torch.cuda.synchronize()
     build_s = time.time() - t0
-    wb = {"diffusion": weight_bytes(pipe.diffusion_params),
-          "clip_l": weight_bytes(pipe.conditioner.params), "vae": weight_bytes(pipe.vae_params)}
-    print(f"pipeline: full-width SD1.5, {pipe.compute_dtype}, built in {build_s:.2f} s on {card}; "
-          "weight bytes " + json.dumps(wb), flush=True)
-    return pipe, {"diffusion": "sd15 dense", "dtype": str(pipe.compute_dtype), "build_s": build_s,
-                  "weight_bytes": wb}
+    stem = pipe.diffusion_params["input_blocks.0.0.weight"].shape[1]
+    print(f"pipeline: full-width {version_name}{' + TAESD-XL' if tae else ''} (a {stem}-channel "
+          f"stem, {type(pipe.denoiser).__name__}), {pipe.compute_dtype}, built in {build_s:.2f} s "
+          f"on {card}; weight bytes " + json.dumps(wb), flush=True)
+    return pipe, {"diffusion": f"{version_name.lower()} dense", "dtype": str(pipe.compute_dtype),
+                  "denoiser": type(pipe.denoiser).__name__, "stem_channels": stem,
+                  "build_s": build_s, "weight_bytes": wb}
 
 
 def sd15_paths(wrappers, card: str, launches: dict, profile=None):
     """The SD1.5 paths: ``sd15`` (bf16, SD15_REQUESTS), then ``hires`` on the
     same pipeline, and ``sd15_f32`` (the default dtype, SD15_F32_REQUESTS),
-    each in its launch window."""
+    each in its launch window, flash held to ``_check_unet_family``."""
     import torch
 
     pipes, reports, prof = [], [], {}
     for label, f32, requests in (("sd15", False, SD15_REQUESTS), ("sd15_f32", True, SD15_F32_REQUESTS)):
-        pipe, info = build_sd15_pipeline(card, default_dtype=f32)
+        pipe, info = build_unet_pipeline(card, "SD1", default_dtype=f32)
         pipes.append(info)
         with plain_attention_on_card() as plain:
             rep, launches[label] = _windowed(wrappers, label,
                                              lambda: answer(pipe, requests, card, label))
-        info.update(_check_unet_flash(label, launches[label],
-                                      sum(r["sample_steps"] for r in requests), plain))
+        info.update(_check_unet_family(label, launches[label], "sd1", _totals(requests), plain,
+                                       f32=f32))
         reports += rep
         if profile and not f32:
             prof[label] = profile_request(pipe, SD15_REQUEST, profile, label, card)
@@ -2151,16 +2326,17 @@ SD15_SERVER_BODY = {"prompt": SD15_REQUEST["prompt"], "width": 512, "height": 51
 
 
 def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, cli_argv: list,
-                      server_body: dict, check_launches, sampler: str, size: tuple, load_check,
+                      server_body, check_launches, sampler: str, size: tuple, load_check,
                       request: dict = None, more_cli=(), more_server=()):
     """Phase 11 for one family: ``write_files(tmp)`` writes its full-width
     files into a fresh directory under the build directory and returns their
     report; ``file_args(files)`` names them on the CLI and the server. One
     request through ``cli.main`` (``load_check(cli_report)`` raises where it
-    loaded the wrong model; with ``request`` the PNG is read back in metadata
-    mode and its parameters held against the request's) and one through the
-    server's A1111 route, each in its own launch window, held by
-    ``check_launches(path, counts, plain)`` and ``_check_png``.
+    loaded the wrong model; with ``request`` the PNG is read back in
+    metadata mode and its parameters held against the request's) and,
+    unless ``server_body`` is None, one through the server's A1111 txt2img
+    route, each in its own launch window, held by ``check_launches(path,
+    counts, plain)`` and ``_check_png``.
     ``more_cli`` / ``more_server``: further requests after each, dicts of
     ``path``, ``argv`` or ``route`` and ``body`` (and ``files(tmp)`` → more
     body fields), ``check``, ``size``, ``sampler``, each in its own
@@ -2228,6 +2404,8 @@ def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, c
             gc.collect()
             torch.cuda.empty_cache()
 
+        if server_body is None:
+            return report, launches
         box, srv_rep = queue.Queue(), {}
 
         def run():
@@ -2353,23 +2531,20 @@ def sd15_entry_check(wrappers, card: str) -> dict:
         if rep["load"]["version"] != "sd1":
             raise RuntimeError(f"the CLI loaded a {rep['load']['version']} model, not sd1")
 
-    def check(forwards: int, d512: int):
-        return lambda path, counts, plain: {**_check_unet_flash(path, counts, forwards, plain),
-                                            **_check_d512(path, counts, d512, plain)}
-
-    hires = check(8 + img2img_steps(8, 0.7), 2)
+    hires = unet_check("sd1", sd15_hires_totals(8, 0.7))
+    i2i = unet_calls(dict(SD15_REQUEST, init_image=None,
+                          strength=SD15_SERVER_IMG2IMG_BODY["denoising_strength"]))
     i2i_size, png_timing = SD15_SERVER_IMG2IMG_BODY["width"], {}
     return _file_entry_check(
         wrappers, card, "sd15", lambda tmp: write_sd15_file(tmp / "sd15.safetensors", device=DEVICE),
         lambda files: ["-m", files["path"]], SD15_CLI_ARGV, SD15_SERVER_BODY,
-        lambda path, counts, plain: _check_unet_flash(path, counts, 20, plain),
-        "euler_a", (512, 512), load_check,
+        unet_check("sd1", unet_calls(SD15_REQUEST)), "euler_a", (512, 512), load_check,
         more_cli=[dict(path="sd15_cli_hires", argv=SD15_CLI_HIRES_ARGV, check=hires,
                        size=(1024, 1024), sampler="euler_a")],
         more_server=[dict(path="sd15_server_img2img", route="/sdapi/v1/img2img",
                           body=SD15_SERVER_IMG2IMG_BODY,
                           files=lambda tmp: _init_and_mask_b64(i2i_size, png_timing),
-                          check=lambda *a: {**check(img2img_steps(20, 0.75), 2)(*a), **png_timing},
+                          check=lambda *a: {**unet_check("sd1", i2i)(*a), **png_timing},
                           size=(i2i_size, i2i_size), sampler="euler_a"),
                      dict(path="sd15_server_hires", route="/sdapi/v1/txt2img",
                           body=SD15_SERVER_HIRES_BODY, check=hires, size=(1024, 1024),
@@ -2391,9 +2566,6 @@ SDXL_VAE_REQUEST = dict(SDXL_REQUEST, prompt="a red fox in fresh snow, golden ho
                         negative_prompt="blurry, low quality", sample_method="euler", cfg_scale=5.0,
                         seed=7)
 SDXL_F32_REQUESTS = [dict(SDXL_REQUEST, sample_steps=2)]
-# the JAX bench's seeds (bench.py:453-470): the UNet 1, CLIP-L 2, CLIP-G 3,
-# the VAE 4, TAESD-XL 5
-SDXL_BENCH_SEEDS = {"diffusion": 1, "clip_l": 2, "clip_g": 3, "vae": 4, "tae": 5}
 
 
 def _forwards_and_encodes(requests) -> tuple:
@@ -2404,89 +2576,29 @@ def _forwards_and_encodes(requests) -> tuple:
             sum(1 + (r.get("cfg_scale", 7.0) != 1.0) for r in requests))
 
 
-def _check_sdxl_flash(path: str, counts: dict, forwards: int, encodes: int, plain: dict,
-                      f32: bool = False) -> dict:
-    """Flash at D 64 (bf16, or every float32 launch) launched exactly
-    ``SDXL_UNET_ATTENTION_CALLS`` a UNet forward times the forwards plus
-    ``SDXL_CLIP_ATTENTION_CALLS`` a prompt encode; every other flash launch
-    is the VAE's D 512; no attention ran in the plain version on the card."""
-    want = SDXL_UNET_ATTENTION_CALLS[64] * forwards + SDXL_CLIP_ATTENTION_CALLS * encodes
-    got = counts["flash_attention_f32" if f32 else "flash_attention_d64"]
-    other = counts["flash_attention"] - got - (0 if f32 else counts["flash_attention_d512"])
-    if got != want or other or plain["calls"]:
-        raise RuntimeError(f"path {path}: flash D 64 launches {got}, not {want} ({forwards} UNet "
-                           f"forwards, {encodes} prompt encodes); {other} other flash launches; "
-                           f"{plain['calls']} plain attention calls on the card")
-    return {"flash_d64": got, "unet_forwards": forwards, "prompt_encodes": encodes,
-            "flash_d512": counts["flash_attention_d512"], "plain_attention_on_card": plain["calls"]}
-
-
-def build_sdxl_pipeline(card: str, default_dtype: bool = False):
-    """A full-width SDXL pipeline (``SDXL_UNET_CONFIG``, CLIP-L, CLIP-G, the
-    SDXL VAE) with TAESD-XL attached, dense random weights drawn on the card:
-    ``create_pipeline(SDVersion.SDXL, params=<the bench's seeds>,
-    dtype=torch.bfloat16)``, or with ``default_dtype`` no params and no dtype
-    argument (float32, the factory's own seeds; held here)."""
-    import torch
-
-    from sdtpu_torch.config import SDVersion
-    from sdtpu_torch.factory import create_pipeline, sdxl_configs
-    from sdtpu_torch.models import clip as clip_mod
-    from sdtpu_torch.models import tae as tae_mod
-    from sdtpu_torch.models import unet as unet_mod
-    from sdtpu_torch.models import vae as vae_mod
-    from sdtpu_torch.weights import synthesize, weight_bytes
-
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    if default_dtype:
-        pipe = create_pipeline(SDVersion.SDXL, device=DEVICE, seed=0)
-        if pipe.compute_dtype != torch.float32:
-            raise RuntimeError(f"create_pipeline's default dtype is {pipe.compute_dtype}, not float32")
-    else:
-        unet_cfg, clip_l_cfg, clip_g_cfg, vae_cfg = sdxl_configs(small=False)
-        specs = {"diffusion": unet_mod.param_specs(unet_cfg), "clip_l": clip_mod.param_specs(clip_l_cfg),
-                 "clip_g": clip_mod.param_specs(clip_g_cfg), "vae": vae_mod.vae_specs(vae_cfg)}
-        params = {m: synthesize(sp, seed=SDXL_BENCH_SEEDS[m], device=DEVICE, dtype=torch.bfloat16)
-                  for m, sp in specs.items()}
-        pipe = create_pipeline(SDVersion.SDXL, params=params, dtype=torch.bfloat16, device=DEVICE)
-        del params
-    tae = synthesize(tae_mod.param_specs(tae_mod.TAESD_XL_CONFIG), seed=SDXL_BENCH_SEEDS["tae"],
-                     device=DEVICE, dtype=pipe.compute_dtype)
-    wb = {"diffusion": weight_bytes(pipe.diffusion_params), "clip_l": weight_bytes(pipe.conditioner.pl),
-          "clip_g": weight_bytes(pipe.conditioner.pg), "vae": weight_bytes(pipe.vae_params),
-          "tae": weight_bytes(tae)}
-    pipe.set_tae(tae, tae_mod.TAESD_XL_CONFIG)
-    torch.cuda.synchronize()
-    build_s = time.time() - t0
-    print(f"pipeline: full-width SDXL + TAESD-XL, {pipe.compute_dtype}, built in {build_s:.2f} s "
-          f"on {card}; weight bytes " + json.dumps(wb), flush=True)
-    return pipe, tae, {"diffusion": "sdxl dense", "dtype": str(pipe.compute_dtype), "build_s": build_s,
-                       "weight_bytes": wb}
-
-
 def sdxl_paths(wrappers, card: str, launches: dict, profile=None):
     """The SDXL paths: ``sdxl`` (bf16: SDXL_TAE_REQUESTS through TAESD-XL,
-    then SDXL_VAE_REQUEST through the full VAE), ``sdxl_img2img`` on the same
-    pipeline (SDXL_IMG2IMG_REQUEST after ``set_tae(None)``: the full VAE
-    encodes and decodes untiled) and ``sdxl_f32`` (the default dtype, SDXL_F32_REQUESTS), each
-    in its launch window."""
+    then SDXL_VAE_REQUEST through the full VAE, tiled), ``sdxl_img2img`` on
+    the same pipeline (SDXL_IMG2IMG_REQUEST after ``set_tae(None)``: the full
+    VAE encodes and decodes untiled) and ``sdxl_f32`` (the default dtype,
+    SDXL_F32_REQUESTS through TAESD-XL), each in its launch window, flash
+    held to ``_check_unet_family``."""
     import torch
 
     from sdtpu_torch.models import tae as tae_mod
-    from sdtpu_torch.ops import flash_attention
 
     pipes, reports, prof = [], [], {}
-    pipe, tae, info = build_sdxl_pipeline(card)
+    pipe, info = build_unet_pipeline(card, "SDXL", tae=True)
     pipes.append(info)
+    tae = pipe.vae_params  # TAESD-XL's, while it is attached
+    size = SDXL_VAE_REQUEST["width"]
 
     def run():
         rep = answer(pipe, SDXL_TAE_REQUESTS, card, "sdxl")
-        if flash_attention.flash_attention.launches_d512:
-            raise RuntimeError("path sdxl: flash D 512 launched through TAESD-XL")
         pipe.set_tae(None)
         pipe.set_vae_tiling(True)
         try:
+            info["decode_tiles"] = _tiles(pipe, size)[1]
             return rep + answer(pipe, [SDXL_VAE_REQUEST], card, "sdxl")
         finally:
             pipe.set_vae_tiling(False)
@@ -2494,34 +2606,34 @@ def sdxl_paths(wrappers, card: str, launches: dict, profile=None):
 
     with plain_attention_on_card() as plain:
         rep, launches["sdxl"] = _windowed(wrappers, "sdxl", run)
-    info.update(_check_sdxl_flash("sdxl", launches["sdxl"],
-                                  *_forwards_and_encodes(SDXL_TAE_REQUESTS + [SDXL_VAE_REQUEST]),
-                                  plain))
+    totals = [a + b for a, b in zip(_totals(SDXL_TAE_REQUESTS, decode=0),
+                                    unet_calls(SDXL_VAE_REQUEST, decode=info["decode_tiles"]))]
+    info.update(_check_unet_family("sdxl", launches["sdxl"], "sdxl", totals, plain))
     reports += rep
     if profile:
         prof["sdxl"] = profile_request(pipe, SDXL_REQUEST, profile, "sdxl", card)
     img, _ = init_image_and_mask(SDXL_IMG2IMG_REQUEST["width"])
     pipe.set_tae(None)
+    i2i = dict(SDXL_IMG2IMG_REQUEST, init_image=img)
     with plain_attention_on_card() as plain:
         rep, launches["sdxl_img2img"] = _windowed(wrappers, "sdxl_img2img", lambda: answer(
-            pipe, [dict(SDXL_IMG2IMG_REQUEST, init_image=img)], card, "sdxl_img2img"))
+            pipe, [i2i], card, "sdxl_img2img"))
     steps = img2img_steps(SDXL_IMG2IMG_REQUEST["sample_steps"], SDXL_IMG2IMG_REQUEST["strength"])
     _check_steps("sdxl_img2img", rep[0], steps)
-    info["img2img"] = {**_check_sdxl_flash("sdxl_img2img", launches["sdxl_img2img"], steps,
-                                           _forwards_and_encodes([SDXL_IMG2IMG_REQUEST])[1], plain),
-                       **_check_d512("sdxl_img2img", launches["sdxl_img2img"], 2, plain)}
+    info["img2img"] = _check_unet_family("sdxl_img2img", launches["sdxl_img2img"], "sdxl",
+                                         unet_calls(i2i), plain)
     reports += rep
     del pipe, tae
     gc.collect()
     torch.cuda.empty_cache()
 
-    pipe, _, info = build_sdxl_pipeline(card, default_dtype=True)
+    pipe, info = build_unet_pipeline(card, "SDXL", default_dtype=True, tae=True)
     pipes.append(info)
     with plain_attention_on_card() as plain:
         rep, launches["sdxl_f32"] = _windowed(wrappers, "sdxl_f32",
                                               lambda: answer(pipe, SDXL_F32_REQUESTS, card, "sdxl_f32"))
-    info.update(_check_sdxl_flash("sdxl_f32", launches["sdxl_f32"],
-                                  *_forwards_and_encodes(SDXL_F32_REQUESTS), plain, f32=True))
+    info.update(_check_unet_family("sdxl_f32", launches["sdxl_f32"], "sdxl",
+                                   _totals(SDXL_F32_REQUESTS, decode=0), plain, f32=True))
     reports += rep
     del pipe
     gc.collect()
@@ -2548,13 +2660,11 @@ def sdxl_entry_check(wrappers, card: str) -> dict:
         if load["version"] != "sdxl" or not load["tae"]:
             raise RuntimeError(f"the CLI loaded {load['version']} (TAE {load['tae']}), not sdxl + TAE")
 
-    counts_of = _forwards_and_encodes([SDXL_REQUEST])
     return _file_entry_check(
         wrappers, card, "sdxl", lambda tmp: write_sdxl_files(tmp, device=DEVICE),
         lambda files: ["-m", files["paths"]["model"], "--taesd", files["paths"]["taesd"]],
         SDXL_CLI_ARGV, SDXL_SERVER_BODY,
-        lambda path, counts, plain: _check_sdxl_flash(path, counts, *counts_of, plain),
-        "lcm", (SDXL_REQUEST["width"], SDXL_REQUEST["height"]), load_check, request=SDXL_REQUEST)
+        unet_check("sdxl", unet_calls(SDXL_REQUEST, decode=0)), "lcm", (SDXL_REQUEST["width"], SDXL_REQUEST["height"]), load_check, request=SDXL_REQUEST)
 
 
 # SD3.5-Medium: the JAX bench's request (``bench_sd35_medium``, bench.py:515:
@@ -3166,9 +3276,9 @@ def flux_img2img_paths(pipe, wrappers, card: str, launches: dict):
 def sd15_hires_path(pipe, wrappers, card: str, launches: dict):
     """Phase 10f on the bf16 SD1.5 pipeline: path ``hires`` answers
     SD15_HIRES_REQUEST through ``txt2img_hires`` (512² → 1024², the latent
-    upscaler at strength 0.7): the UNet's flash launches for the base's and
-    the hires pass's forwards, D 512 once a decode (two), no plain attention
-    on the card; a 1024² image, finite latents."""
+    upscaler at strength 0.7), flash held to ``_check_unet_family`` for the
+    base's and the hires pass's UNet calls and prompt encodes and two
+    decodes; a 1024² image, finite latents."""
     import numpy as np
     import torch
 
@@ -3200,9 +3310,216 @@ def sd15_hires_path(pipe, wrappers, card: str, launches: dict):
         rep, launches["hires"] = _windowed(wrappers, "hires", run)
     if rep["hires_steps"] != hires_steps:
         raise RuntimeError(f"hires: {rep['hires_steps']} hires steps, not {hires_steps}")
-    info = {**_check_unet_flash("hires", launches["hires"], gp.sample_steps + hires_steps, plain),
-            **_check_d512("hires", launches["hires"], 2, plain)}
+    info = _check_unet_family("hires", launches["hires"], "sd1",
+                              sd15_hires_totals(gp.sample_steps, SD15_HIRES["hires_strength"]), plain)
     return [rep], info
+
+
+def sd15_hires_totals(steps: int, strength: float) -> tuple:
+    """``unet_calls`` of SD15_HIRES_REQUEST's hires fix at ``steps`` and
+    ``strength``: the base's steps and the hires pass's, each pass's prompt
+    encodes (the 1024² pass misses the prompt cache, keyed on the size),
+    two decodes."""
+    calls, encodes, _ = unet_calls(dict(SD15_HIRES_REQUEST, sample_steps=steps))
+    return calls + img2img_steps(steps, strength), 2 * encodes, 2
+
+
+# SD2.1-768-v (stabilityai/stable-diffusion-2-1: SD2_UNET_CONFIG, OpenCLIP-H,
+# the SD VAE, v-prediction): 768², CFG 7 with a negative prompt, 20 euler_a
+# steps answered once to warm up and once timed, then 6 heun steps (two UNet
+# calls a step but the last's one); the default dtype (float32) answers 2
+# heun steps
+SD2_REQUEST = dict(prompt="a photograph of an astronaut riding a horse",
+                   negative_prompt="blurry, low quality", width=768, height=768, sample_steps=20,
+                   cfg_scale=7.0, seed=42, sample_method="euler_a", schedule="discrete")
+SD2_REQUESTS = [SD2_REQUEST, SD2_REQUEST, dict(SD2_REQUEST, sample_method="heun", sample_steps=6)]
+SD2_F32_REQUESTS = [dict(SD2_REQUEST, sample_method="heun", sample_steps=2)]
+# The inpainting and instruct-pix2pix UNets, from an init image drawn from
+# IMG2IMG_SEED whose right half the mask regenerates: SD1.5-inpainting at
+# 512² x 20 euler_a steps, CFG 7, strength 1 (then the same without the init
+# image), SD2-inpainting at 512² x 2, SDXL-inpainting at 1024² x 8 euler,
+# CFG 5 (the full VAE, untiled); instruct-pix2pix at 512² x 20 euler_a, CFG
+# 7.5 and image guidance 1.5 (three UNet calls a step) from the init image,
+# SDXL's at 1024² x 2 from a reference image.
+SD15_INPAINT_REQUEST = dict(prompt="a red sofa by the window", negative_prompt="blurry",
+                            width=512, height=512, sample_steps=20, cfg_scale=7.0, seed=42,
+                            sample_method="euler_a", strength=1.0)
+SD2_INPAINT_REQUEST = dict(SD15_INPAINT_REQUEST, sample_steps=2)
+SDXL_INPAINT_REQUEST = dict(SD15_INPAINT_REQUEST, width=1024, height=1024, sample_steps=8,
+                            cfg_scale=5.0, sample_method="euler")
+SD15_PIX2PIX_REQUEST = dict(prompt="make it a snowy winter evening", negative_prompt="",
+                            width=512, height=512, sample_steps=20, cfg_scale=7.5,
+                            img_cfg_scale=1.5, seed=42, sample_method="euler_a", strength=1.0)
+SDXL_PIX2PIX_REQUEST = dict(SD15_PIX2PIX_REQUEST, width=1024, height=1024, sample_steps=2)
+
+
+def sd2_paths(wrappers, card: str, launches: dict, profile=None):
+    """Phase 10g: path ``sd2`` (bf16 SD2.1-768-v, SD2_REQUESTS) and ``sd2_f32``
+    (the default dtype, SD2_F32_REQUESTS), each in its launch window, flash
+    held to ``_check_unet_family``."""
+    import torch
+
+    pipes, reports, prof = [], [], {}
+    for label, f32, requests in (("sd2", False, SD2_REQUESTS), ("sd2_f32", True, SD2_F32_REQUESTS)):
+        pipe, info = build_unet_pipeline(card, "SD2", default_dtype=f32, v_prediction=True)
+        pipes.append(info)
+        with plain_attention_on_card() as plain:
+            rep, launches[label] = _windowed(wrappers, label,
+                                             lambda: answer(pipe, requests, card, label))
+        info.update(_check_unet_family(label, launches[label], "sd2", _totals(requests), plain,
+                                       f32=f32))
+        reports += rep
+        if profile and not f32:
+            prof[label] = profile_request(pipe, SD2_REQUEST, profile, label, card)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return pipes, reports, prof
+
+
+def concat_unet_paths(wrappers, card: str, launches: dict):
+    """Phase 10g: the inpainting UNets (paths ``sd15_inpaint``, ``sd2_inpaint``,
+    ``sdxl_inpaint``) and the instruct-pix2pix ones (``sd15_pix2pix``,
+    ``sdxl_pix2pix``) at full width in bf16, each in its launch window, flash
+    held to ``_check_unet_family`` (the VAE encodes the init image and the
+    masked or edit image)."""
+    import torch
+
+    img, mask = init_image_and_mask(512)
+    img_xl, mask_xl = init_image_and_mask(1024)
+    runs = [
+        ("sd15_inpaint", "SD1_INPAINT", "sd1", dict(inpaint=True),
+         [dict(SD15_INPAINT_REQUEST, init_image=img, mask_image=mask),
+          dict(SD15_INPAINT_REQUEST, mask_image=mask)]),
+        ("sd2_inpaint", "SD2_INPAINT", "sd2", dict(inpaint=True),
+         [dict(SD2_INPAINT_REQUEST, init_image=img, mask_image=mask)]),
+        ("sdxl_inpaint", "SDXL_INPAINT", "sdxl", dict(inpaint=True),
+         [dict(SDXL_INPAINT_REQUEST, init_image=img_xl, mask_image=mask_xl)]),
+        ("sd15_pix2pix", "SD1_PIX2PIX", "sd1", dict(edit=True),
+         [dict(SD15_PIX2PIX_REQUEST, init_image=img)]),
+        ("sdxl_pix2pix", "SDXL_PIX2PIX", "sdxl", dict(edit=True),
+         [dict(SDXL_PIX2PIX_REQUEST, ref_images=[img])]),
+    ]
+    pipes, reports = [], []
+    for label, version, family, kind, requests in runs:
+        pipe, info = build_unet_pipeline(card, version)
+        pipes.append(info)
+        with plain_attention_on_card() as plain:
+            rep, launches[label] = _windowed(wrappers, label,
+                                             lambda: answer(pipe, requests, card, label))
+        info.update(_check_unet_family(label, launches[label], family, _totals(requests, **kind),
+                                       plain))
+        for r, want in zip(rep, requests):
+            _check_steps(label, r, want["sample_steps"])
+        reports += rep
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return pipes, reports
+
+
+# Phase 11, SD2.1-v and the SD1.5 inpainting and pix2pix UNets on files: the
+# CLI with --prediction v and heun on the SD2.1 file; -i / --mask on the
+# SD1.5-inpainting file and the A1111 route's masked img2img; -r with image
+# guidance on the instruct-pix2pix file (each 512², 8 steps)
+SD2_CLI_REQUEST = dict(SD2_REQUEST, sample_method="heun", sample_steps=8)
+SD2_CLI_ARGV = ["-p", SD2_REQUEST["prompt"], "-n", SD2_REQUEST["negative_prompt"], "-W", "768",
+                "-H", "768", "--steps", "8", "--cfg-scale", "7", "-s", "42", "--prediction", "v",
+                "--sampling-method", "heun"]
+INPAINT_CLI_ARGV = ["-p", SD15_INPAINT_REQUEST["prompt"], "-n", "blurry", "-W", "512", "-H", "512",
+                    "--steps", "8", "--cfg-scale", "7", "-s", "42"]
+INPAINT_SERVER_BODY = {"prompt": SD15_INPAINT_REQUEST["prompt"], "negative_prompt": "blurry",
+                       "width": 512, "height": 512, "steps": 8, "cfg_scale": 7.0, "seed": 42}
+# (the server's masked request takes a prompt of its own: the txt2img
+# request's prompts are in the server's prompt cache)
+PIX2PIX_CLI_ARGV = ["-p", SD15_PIX2PIX_REQUEST["prompt"], "-W", "512", "-H", "512", "--steps", "8",
+                    "--cfg-scale", "7.5", "--img-cfg-scale", "1.5", "-s", "42"]
+
+
+def _init_and_mask_files(tmp) -> dict:
+    """The 512² init image and mask as PNG files in ``tmp`` → their paths."""
+    from sdtpu_torch.utils.image import write_image
+
+    import numpy as np
+
+    img, mask = init_image_and_mask(512)
+    paths = {"init": str(Path(tmp) / "init.png"), "mask": str(Path(tmp) / "mask.png")}
+    write_image(paths["init"], img)
+    write_image(paths["mask"], np.repeat(mask[..., None], 3, axis=-1))
+    return paths
+
+
+def sd2_family_entry_check(wrappers, card: str) -> tuple:
+    """Phase 11 for SD2.1-v and the SD1.5 inpainting and pix2pix UNets: the
+    full-width files of ``tools/sd2_file.py`` and ``tools/sd15_file.py``
+    (``in_channels`` 9 and 8) through ``cli.main -m`` (paths ``sd2_cli``,
+    ``sd15_inpaint_cli``, ``sd15_pix2pix_cli``; the init image and the mask
+    as PNG files) and, on the inpainting file, the A1111 txt2img route
+    (``sd15_inpaint_server``), each also with the init image and the mask
+    (``sd15_inpaint_cli_img2img``, ``sd15_inpaint_server_img2img``)."""
+    import tempfile
+
+    from sdtpu_torch.tools.sd2_file import write_sd2_file
+    from sdtpu_torch.tools.sd15_file import write_sd15_file
+
+    def load_check(version, denoiser):
+        def check(rep):
+            got = (rep["load"]["version"], type(rep["pipeline"].denoiser).__name__)
+            if got != (version, denoiser):
+                raise RuntimeError(f"the CLI loaded {got}, not {(version, denoiser)}")
+        return check
+
+    def write(version, in_channels=4):
+        def files(tmp):
+            path = tmp / f"{version}.safetensors"
+            if version == "sd2":
+                return write_sd2_file(path, device=DEVICE)
+            return write_sd15_file(path, device=DEVICE, in_channels=in_channels)
+        return files
+
+    def model(files):
+        return ["-m", files["path"]]
+
+    img, mask = init_image_and_mask(512)
+    inpaint = dict(SD15_INPAINT_REQUEST, sample_steps=8)
+    png_timing = {}
+    report, launches = {}, {}
+    root = ROOT / "build" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    images = Path(tempfile.mkdtemp(prefix="init_and_mask_", dir=root))
+    try:
+        pngs = _init_and_mask_files(images)
+        report["sd2"], got = _file_entry_check(
+            wrappers, card, "sd2", write("sd2"), model, SD2_CLI_ARGV, None,
+            unet_check("sd2", unet_calls(SD2_CLI_REQUEST)), "heun", (768, 768),
+            load_check("sd2", "CompVisVDenoiser"))
+        launches.update(got)
+        masked = unet_check("sd1", unet_calls(dict(inpaint, init_image=img), inpaint=True))
+        report["sd15_inpaint"], got = _file_entry_check(
+            wrappers, card, "sd15_inpaint", write("sd1_inpaint", 9), model, INPAINT_CLI_ARGV,
+            INPAINT_SERVER_BODY, unet_check("sd1", unet_calls(inpaint, inpaint=True)), "euler_a",
+            (512, 512), load_check("sd1_inpaint", "CompVisDenoiser"),
+            more_cli=[dict(path="sd15_inpaint_cli_img2img", check=masked, size=(512, 512),
+                           sampler="euler_a",
+                           argv=INPAINT_CLI_ARGV + ["-i", pngs["init"], "--mask", pngs["mask"],
+                                                    "--strength", "1.0"])],
+            more_server=[dict(path="sd15_inpaint_server_img2img", route="/sdapi/v1/img2img",
+                              body=dict(INPAINT_SERVER_BODY, denoising_strength=1.0,
+                                        prompt="a green armchair by the window"),
+                              files=lambda tmp: _init_and_mask_b64(512, png_timing),
+                              check=lambda *a: {**masked(*a), **png_timing}, size=(512, 512),
+                              sampler="euler_a")])
+        launches.update(got)
+        report["sd15_pix2pix"], got = _file_entry_check(
+            wrappers, card, "sd15_pix2pix", write("sd1_pix2pix", 8), model,
+            PIX2PIX_CLI_ARGV + ["-r", pngs["init"]], None,
+            unet_check("sd1", unet_calls(dict(SD15_PIX2PIX_REQUEST, sample_steps=8, ref_images=[img]),
+                                         edit=True)),
+            "euler_a", (512, 512), load_check("sd1_pix2pix", "CompVisDenoiser"))
+        launches.update(got)
+    finally:
+        shutil.rmtree(images, ignore_errors=True)
+    return report, launches
 
 
 def gguf_block_dit() -> dict:
@@ -3276,7 +3593,7 @@ def answer(pipe, requests, card: str, label: str, results: list = None):
     reports = []
     for kw in requests:
         kw = dict(kw)
-        images = {k: kw.pop(k) for k in ("init_image", "mask_image") if k in kw}
+        images = {k: kw.pop(k) for k in ("init_image", "mask_image", "ref_images") if k in kw}
         gp = GenerationParams(**{"sample_method": "euler", **kw})
         pipe._cond_cache.clear()  # every request encodes its prompts
         torch.cuda.reset_peak_memory_stats()
@@ -3399,10 +3716,10 @@ def main() -> int:
     ap.add_argument("--out", help="also write every measured number to this JSON file")
     ap.add_argument("--profile", metavar="TABLE",
                     help="after each main path, profile one more request (1024² for FLUX, "
-                         "SDXL and SD3, 512² for SD1.5, the bench's 832x480 x 33-frame clip for "
-                         "Wan) and write the profiler's tables to TABLE with .int8 / .w8a16 / "
-                         ".q8_0_gguf / .q4_0 / .f32 / .cli / .sd15 / .sdxl / .sd3 / .wan before "
-                         "its suffix")
+                         "SDXL and SD3, 512² for SD1.5, 768² for SD2.1, the bench's 832x480 x "
+                         "33-frame clip for Wan) and write the profiler's tables to TABLE with "
+                         ".int8 / .w8a16 / .q8_0_gguf / .q4_0 / .f32 / .cli / .sd15 / .sdxl / "
+                         ".sd3 / .wan / .sd2 before its suffix")
     args = ap.parse_args()
 
     import torch
@@ -3419,6 +3736,13 @@ def main() -> int:
           "TF32 off for matmul and cuDNN")
 
     from sdtpu_torch.ops import _build, flash_attention, quant
+
+    elapsed, t_start = {}, time.time()
+
+    def lap(phase: str) -> None:
+        """The script's seconds so far, at the end of ``phase``."""
+        elapsed[phase] = time.time() - t_start
+        print(f"elapsed {phase} {elapsed[phase]:.1f} s", flush=True)
 
     t0 = time.time()
     _build.library()
@@ -3441,6 +3765,7 @@ def main() -> int:
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise RuntimeError(f"{len(bad)} kernel case(s) disagree with the plain version: {bad}")
+    lap("kernel cases")
 
     ref = reference_check()
     print("reference " + json.dumps(ref), flush=True)
@@ -3450,6 +3775,7 @@ def main() -> int:
     wrappers = launch_counters()
     launches = {}
     loader, launches["gguf_loader"], launches["gguf_file"] = loader_check(wrappers, card)
+    lap("reference and loader")
 
     pipes, reports = [], []
     pipe, info = build_pipeline(card, None, "q8_0")
@@ -3533,6 +3859,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("flux paths")
     sd15_pipes, rep, sd15_prof = sd15_paths(wrappers, card, launches, args.profile)
     pipes += sd15_pipes
     reports += rep
@@ -3549,11 +3876,20 @@ def main() -> int:
     pipes += wan_pipes
     reports += rep
     prof.update(wan_prof)
+    sd2_pipes, rep, sd2_prof = sd2_paths(wrappers, card, launches, args.profile)
+    pipes += sd2_pipes
+    reports += rep
+    prof.update(sd2_prof)
+    concat_pipes, rep = concat_unet_paths(wrappers, card, launches)
+    pipes += concat_pipes
+    reports += rep
+    lap("unet, sd3 and wan paths")
 
     entry, launches["cli"], launches["server"], launches["cli_img2img"] = entry_points_check(
         wrappers, card, args.profile)
     if "profile" in entry:
         prof["cli"] = entry.pop("profile")
+    lap("flux entry points")
     entry["sd15"], sd15_launches = sd15_entry_check(wrappers, card)
     launches.update(sd15_launches)
     entry["sdxl"], sdxl_launches = sdxl_entry_check(wrappers, card)
@@ -3562,6 +3898,10 @@ def main() -> int:
     launches.update(sd3_launches)
     entry["wan"], wan_launches = wan_entry_check(wrappers, card)
     launches.update(wan_launches)
+    lap("other entry points")
+    entry["sd2_family"], sd2_launches = sd2_family_entry_check(wrappers, card)
+    launches.update(sd2_launches)
+    lap("sd2, inpainting and pix2pix entry points")
 
     headline = {"flash_attention": ([1, 24, 4352, 4352, 128], {}),
                 "flash_attention_d512": ([1, 1, 4096, 4096, 512], {}),
@@ -3612,7 +3952,8 @@ def main() -> int:
                                                               "library_ms", "splits")})
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "build_s": build_s, "cases": cases, "reference": ref,
+            json.dump({"card": card, "build_s": build_s, "elapsed_s": elapsed, "cases": cases,
+                       "reference": ref,
                        "loader": loader, "pipelines": pipes, "requests": reports, "entry": entry,
                        "wan": wan_extra,
                        "launches": launches, "kernels": kernels, "profile": prof}, f, indent=1)

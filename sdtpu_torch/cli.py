@@ -1,10 +1,12 @@
-"""sd-cli for the PyTorch/CUDA port: FLUX.1, SD1.x, SDXL and SD3 txt2img,
-img2img, masked img2img and the latent hires fix, and Wan2.1 T2V txt2vid
-from checkpoint files (this package's copy of ``sdtpu/cli.py``:
-``build_parser``, ``main``, the FLUX, SD1, SDXL, SD3 and Wan parts of
-``_load_pipeline``, ``_img_gen`` with ``-i`` / ``--mask`` / ``--hires``,
-the T2V part of ``_vid_gen``, ``--taesd``, ``--flow-shift``, the metadata
-mode, ``discover_gguf_tokenizer``).
+"""sd-cli for the PyTorch/CUDA port: FLUX.1, SD1.x, SD2.x, SDXL and SD3
+txt2img, img2img, masked img2img and the latent hires fix, the inpainting
+and instruct-pix2pix UNets, and Wan2.1 T2V txt2vid from checkpoint files
+(this package's copy of ``sdtpu/cli.py``: ``build_parser``, ``main``, the
+FLUX, SD1, SD2, SDXL, SD3 and Wan parts of ``_load_pipeline`` with its
+``--prediction`` override, ``_img_gen`` with ``-i`` / ``--mask`` /
+``--hires`` / ``-r`` / ``--img-cfg-scale``, the T2V part of ``_vid_gen``,
+``--taesd``, ``--flow-shift``, the metadata mode,
+``discover_gguf_tokenizer``).
 
     python -m sdtpu_torch.cli --diffusion-model flux1-dev-q8_0.gguf \
         --clip_l clip_l.safetensors --t5xxl t5xxl-q8_0.gguf --vae ae.safetensors \
@@ -26,11 +28,25 @@ mode, ``discover_gguf_tokenizer``).
         --mask mask.png --strength 0.6 -W 512 -H 512 --steps 20 -o out.png
     python -m sdtpu_torch.cli -m sd15.safetensors -p "a watercolour harbour" -W 512 -H 512 \
         --steps 20 --hires --hires-scale 2 --hires-denoising-strength 0.7 -o out.png
+    python -m sdtpu_torch.cli -m v2-1_768-ema-pruned.safetensors --prediction v \
+        -p "a lighthouse at dusk" -n blurry -W 768 -H 768 --steps 20 --sampling-method heun \
+        -o out.png
+    python -m sdtpu_torch.cli -m sd-v1-5-inpainting.safetensors -p "a red sofa" -i room.png \
+        --mask mask.png --strength 1.0 -o out.png
+    python -m sdtpu_torch.cli -m instruct-pix2pix.safetensors -p "make it snow" -r photo.png \
+        --cfg-scale 7.5 --img-cfg-scale 1.5 -o out.png
     python -m sdtpu_torch.cli metadata --image out.png
 
 The model family is fingerprinted from the files' tensor names, as the JAX
-CLI does; FLUX.1, SD1.x, SDXL, SD3 and Wan2.1 T2V load, any other family exits
-naming it.  The parser is the JAX CLI's (the same flags, defaults and help).
+CLI does; FLUX.1, SD1.x, SD2.x, SDXL (with their inpainting and
+instruct-pix2pix UNets), SD3 and Wan2.1 T2V load, any other family exits
+naming it.  ``--prediction`` swaps the denoiser as the JAX CLI does
+(``eps``, ``v`` for an SD2.x-v checkpoint, ``flow``, ``flux_flow``;
+``edm_v`` and the SeFi / MiniT2I flows exit 2).  On an inpainting UNet
+``-i`` / ``--mask`` go into the model's input; on a pix2pix UNet ``-r``
+names the edit image (else ``-i``'s) and ``--img-cfg-scale`` its guidance;
+``-r`` on any other model exits 2.  The parser is the JAX CLI's (the
+same flags, defaults and help).
 The port runs three modes, ``img_gen`` (txt2img; img2img with ``-i``,
 ``--strength`` and ``--mask``, the mask being channel 0 of its PNG; the
 hires fix with ``--hires`` and the ``Latent`` upscaler; custom sigmas with
@@ -488,7 +504,9 @@ RUN_FLAGS = frozenset({
     "model", "diffusion_model", "clip_l", "clip_g", "t5xxl", "vae", "taesd", "t5_tokenizer",
     "prompt", "negative_prompt", "prompt_file", "width", "height",
     "steps", "cfg_scale", "guidance", "seed", "batch_count", "sampling_method", "schedule",
-    "eta", "clip_skip", "rng",
+    "eta", "clip_skip", "rng", "prediction",
+    # the inpainting and instruct-pix2pix UNets: the edit image, image guidance
+    "ref_image", "img_cfg_scale",
     # img2img, masked img2img, custom sigmas and the latent hires fix
     "init_img", "mask", "strength", "sigmas", "hires", "hires_upscaler", "hires_scale",
     "hires_width", "hires_height", "hires_steps", "hires_denoising_strength", "hires_sigmas",
@@ -502,6 +520,9 @@ RUN_FLAGS = frozenset({
 })
 MODES = ("img_gen", "vid_gen", "metadata")
 DTYPES = ("f32", "bf16")
+# --prediction values → the denoiser the port puts in the pipeline's (the
+# JAX CLI's map, the denoisers the port has)
+PREDICTIONS = ("eps", "v", "flow", "flux_flow")
 
 
 def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Optional[str]:
@@ -515,8 +536,9 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
             continue
         if getattr(args, dest, action.default) != action.default:
             flag = "/".join(action.option_strings)
-            return (f"{flag} is not ported (the port runs FLUX.1, SD1.x, SDXL and SD3 txt2img, "
-                    "img2img, masked img2img and the latent hires fix, and Wan2.1 txt2vid)")
+            return (f"{flag} is not ported (the port runs FLUX.1, SD1.x, SD2.x, SDXL and SD3 "
+                    "txt2img, img2img, masked img2img and the latent hires fix, the inpainting and "
+                    "instruct-pix2pix UNets, and Wan2.1 txt2vid)")
     if args.mode not in MODES:
         return f"mode {args.mode!r} is not ported; the port runs {list(MODES)}"
     if args.mode == "vid_gen" and video_output(args).lower().endswith(VIDEO_CONTAINERS):
@@ -531,6 +553,9 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
                 f"ported: {list(PORTED_METHODS)}")
     if args.schedule not in SCHEDULERS:
         return f"--schedule {args.schedule!r} is not ported; ported: {list(SCHEDULERS)}"
+    if args.prediction is not None and args.prediction not in PREDICTIONS:
+        return (f"--prediction {args.prediction}: its denoiser is not ported; ported: "
+                f"{list(PREDICTIONS)}")
     if args.dtype is not None and args.dtype not in DTYPES:
         return f"--dtype {args.dtype} is not ported: the kernels take bf16 and float32"
     spec = _parse_assignment_spec(args.backend)
@@ -644,15 +669,16 @@ def load_t5_tokenizer(args):
 
 
 def _load_pipeline(args, report: Optional[dict] = None):
-    """The files → a FLUX, SD1.x, SDXL or SD3 pipeline (the version the
-    files' fingerprint names) on ``--backend``'s device, with ``--taesd``'s
+    """The files → a FLUX, SD1.x, SD2.x, SDXL, SD3 or Wan pipeline (the
+    version the files' fingerprint names; ``--prediction``'s denoiser) on
+    ``--backend``'s device, with ``--taesd``'s
     decoder attached.  ``report``
     (when given) gets ``load``: its seconds, ``read_s`` (the files → host
     arrays and quant blocks, the blocks' extraction included), ``stage_s``
     (→ the device) and ``build_s``, and ``pipeline``, the pipeline."""
     import torch
 
-    from sdtpu_torch.config import SDVersion
+    from sdtpu_torch.config import SDVersion, sd_version_is_sdxl
     from sdtpu_torch.factory import create_pipeline
     from sdtpu_torch.io.model_loader import load_model_bundle, read_checkpoint_file
     from sdtpu_torch.loader import diffusion_to_device, module_to_device
@@ -677,11 +703,12 @@ def _load_pipeline(args, report: Optional[dict] = None):
                                clip_g_path=args.clip_g)
     tae_raw = read_checkpoint_file(args.taesd) if args.taesd else None
     t_read = time.time() - t0
-    # SD1.x conditions on CLIP-L alone, SDXL on CLIP-L and CLIP-G: a missing
-    # T5 is no error there
-    encoders = {SDVersion.FLUX: ("clip_l", "t5"), SDVersion.SDXL: ("clip_l", "clip_g"),
-                SDVersion.SD3: ("clip_l", "clip_g", "t5"),
+    # SD1.x and SD2.x condition on one CLIP (SD2's OpenCLIP-H loads as
+    # clip_l), SDXL on CLIP-L and CLIP-G: a missing T5 is no error there
+    encoders = {SDVersion.FLUX: ("clip_l", "t5"), SDVersion.SD3: ("clip_l", "clip_g", "t5"),
                 SDVersion.WAN2: ("t5",)}.get(bundle.version, ("clip_l",))
+    if sd_version_is_sdxl(bundle.version):
+        encoders = ("clip_l", "clip_g")
     missing = [m for m in (*encoders, "vae") if not getattr(bundle, m)]
     if missing:
         raise SystemExit(f"error: no {', '.join(missing)} weights in the given files "
@@ -706,6 +733,13 @@ def _load_pipeline(args, report: Optional[dict] = None):
     t0 = time.time()
     pipe = create_pipeline(bundle.version, params=params, rng_type=args.rng, dtype=dtype,
                            t5_tokenizer=t5_tok, flow_shift=args.flow_shift, device=device)
+    if args.prediction:  # the JAX CLI's denoiser override
+        from sdtpu_torch.diffusion import denoiser as dn
+
+        shift = args.flow_shift if args.flow_shift is not None else 3.0
+        pipe.denoiser = {"eps": dn.CompVisDenoiser, "v": dn.CompVisVDenoiser,
+                         "flow": lambda: dn.DiscreteFlowDenoiser(shift=shift),
+                         "flux_flow": dn.FluxFlowDenoiser}[args.prediction]()
     if args.vae_tiling or args.vae_temporal_tiling:
         pipe.set_vae_tiling(True, args.vae_tile_size, args.vae_tile_overlap,
                             temporal=args.vae_temporal_tiling,
@@ -727,16 +761,18 @@ def _load_pipeline(args, report: Optional[dict] = None):
 
 
 def _img_gen(args, report: Optional[dict] = None) -> int:
-    from sdtpu_torch.config import GenerationParams, SDVersion
+    from sdtpu_torch.config import GenerationParams, SDVersion, sd_version_is_unet_edit
     from sdtpu_torch.utils.image import (build_parameters_text, read_png, resolve_output_path,
                                          write_image)
 
-    init_image = mask_image = None
+    init_image = mask_image = ref_images = None
     try:  # read before the (long) load, so a file the port cannot read fails first
         if args.init_img:
             init_image, _ = read_png(args.init_img)
         if args.mask:
             mask_image = read_png(args.mask)[0][..., 0]
+        if args.ref_image:
+            ref_images = [read_png(p)[0][..., :3] for p in args.ref_image]
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -744,11 +780,16 @@ def _img_gen(args, report: Optional[dict] = None) -> int:
     if pipe.version == SDVersion.WAN2:
         print("error: img_gen on a Wan2.1 model: run -M vid_gen", file=sys.stderr)
         return 2
+    if ref_images and not sd_version_is_unet_edit(pipe.version):
+        print(f"error: -r/--ref-image on a {pipe.version.value} model: the port takes reference "
+              "images on the instruct-pix2pix UNets only", file=sys.stderr)
+        return 2
     gp = GenerationParams(  # the prompt stripped, as the JAX CLI's ``extract_loras`` leaves it
         prompt=args.prompt.strip(), negative_prompt=args.negative_prompt, width=args.width,
         height=args.height, sample_steps=args.steps, cfg_scale=args.cfg_scale,
-        guidance=args.guidance, sample_method=args.sampling_method, schedule=args.schedule,
-        seed=args.seed, batch_count=args.batch_count, clip_skip=args.clip_skip, eta=args.eta,
+        img_cfg_scale=args.img_cfg_scale, guidance=args.guidance,
+        sample_method=args.sampling_method, schedule=args.schedule, seed=args.seed,
+        batch_count=args.batch_count, clip_skip=args.clip_skip, eta=args.eta,
         strength=args.strength, custom_sigmas=args.sigmas)
     t0 = time.time()
     if args.hires:  # the JAX CLI's: the base request, then the latent upscale pass
@@ -758,7 +799,7 @@ def _img_gen(args, report: Optional[dict] = None) -> int:
             hires_height=args.hires_height, hires_sigmas=args.hires_sigmas)
     else:
         res = pipe.generate(gp, init_image=init_image, mask_image=mask_image,
-                            progress_callback=_progress_cb())
+                            ref_images=ref_images, progress_callback=_progress_cb())
     print(f"generated {len(res.images)} image(s) in {time.time() - t0:.2f}s")
     print("timings " + json.dumps(pipe.last_timings))
     paths = []

@@ -1,6 +1,7 @@
-"""Prompt → conditioning tensors for FLUX, SD1.x, SDXL and SD3 (counterpart
-of ``sdtpu/conditioning/conditioner.py``: ``tokenize_with_weights``,
-``apply_token_weights``, ``SDCondition``, ``SD1Conditioner``,
+"""Prompt → conditioning tensors for FLUX, SD1.x, SD2.x, SDXL, SD3 and Wan
+(counterpart of ``sdtpu/conditioning/conditioner.py``:
+``tokenize_with_weights``, ``apply_token_weights``, ``SDCondition``,
+``SD1Conditioner`` with its SD2 form,
 ``sdxl_size_vector``, ``SDXLConditioner``, ``SD3Conditioner``,
 ``FluxConditioner``, ``WanConditioner``).
 
@@ -104,21 +105,26 @@ class FluxConditioner:
 
 
 class SD1Conditioner:
-    """SD1.x: one CLIP-L text encoder; the prompt's 77-token chunks (padded
-    with CLIP's EOS id) are embedded in one batched call, weighted per chunk
-    and concatenated.  Textual-inversion embeddings (the JAX package's
-    ``EmbeddingMixin``) are not ported yet."""
+    """SD1.x / SD2.x: one text encoder (CLIP-L, or SD2's OpenCLIP-H with
+    ``is_sd2``); the prompt's 77-token chunks (padded with CLIP's EOS id,
+    SD2's with id 0) are embedded in one batched call, weighted per chunk
+    and concatenated.  ``clip_skip`` <= 0 means 1 (the final layer after the
+    final layer norm), on SD2 2 (the penultimate layer, no final norm).
+    Textual-inversion embeddings (the JAX package's ``EmbeddingMixin``) are
+    not ported yet."""
 
-    def __init__(self, tokenizer, clip_params, clip_cfg: CLIPTextConfig, device="cuda"):
+    def __init__(self, tokenizer, clip_params, clip_cfg: CLIPTextConfig, is_sd2: bool = False,
+                 device="cuda"):
         self.tokenizer = tokenizer
         self.params = clip_params
         self.cfg = clip_cfg
-        self.pad_token_id = tokenizer.eos_token_id
+        self.is_sd2 = is_sd2
+        self.pad_token_id = 0 if is_sd2 else tokenizer.eos_token_id
         self.device = torch.device(device)
 
     def get_learned_condition(self, text: str, clip_skip: int = -1, **kw) -> SDCondition:
         if clip_skip <= 0:
-            clip_skip = 1
+            clip_skip = 2 if self.is_sd2 else 1
         tokens, weights = tokenize_with_weights(self.tokenizer, text, self.pad_token_id)
         n_chunks = len(tokens) // CHUNK_LEN
         ids = torch.from_numpy(tokens.reshape(n_chunks, CHUNK_LEN).astype(np.int64)).to(self.device)

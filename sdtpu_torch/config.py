@@ -1,6 +1,7 @@
 """Model-version taxonomy and per-request parameters (this package's copy of
-``sdtpu/config.py``: ``SDVersion`` and ``GenerationParams``, with the same
-names, values, fields and defaults).
+``sdtpu/config.py``: ``SDVersion``, ``GenerationParams`` and the version
+predicates ``sd_version_is_sd2`` / ``_sdxl`` / ``_inpaint`` / ``_unet_edit``,
+with the same names, values, fields and defaults).
 
 The port compares only its own ``SDVersion``: an enum member of the JAX
 package's class never equals one of this class.
@@ -60,6 +61,30 @@ class SDVersion(enum.Enum):
     LONGCAT = "longcat"
     SEFI = "sefi"
     UNKNOWN = "unknown"
+
+
+_SD2_FAMILY = {SDVersion.SD2, SDVersion.SD2_INPAINT, SDVersion.SD2_TINY_UNET, SDVersion.SDXS_09}
+_SDXL_FAMILY = {SDVersion.SDXL, SDVersion.SDXL_INPAINT, SDVersion.SDXL_PIX2PIX,
+                SDVersion.SDXL_SSD1B, SDVersion.SDXL_VEGA}
+
+
+def sd_version_is_sd2(v: SDVersion) -> bool:
+    return v in _SD2_FAMILY
+
+
+def sd_version_is_sdxl(v: SDVersion) -> bool:
+    return v in _SDXL_FAMILY
+
+
+def sd_version_is_inpaint(v: SDVersion) -> bool:
+    return v in {SDVersion.SD1_INPAINT, SDVersion.SD2_INPAINT, SDVersion.SDXL_INPAINT,
+                 SDVersion.FLUX_FILL, SDVersion.FLEX_2}
+
+
+def sd_version_is_unet_edit(v: SDVersion) -> bool:
+    """instruct-pix2pix-style UNets: the edit image's latent concatenated to
+    the model input."""
+    return v in {SDVersion.SD1_PIX2PIX, SDVersion.SDXL_PIX2PIX}
 
 
 @dataclasses.dataclass

@@ -1,7 +1,8 @@
 """Denoisers (counterpart of ``sdtpu/diffusion/denoiser.py``): the CompVis
-eps-prediction denoiser on the DDPM table (SD1.x, SDXL) and the flow
-denoisers of SD3 (``DiscreteFlowDenoiser``) and FLUX.  The v-prediction
-``CompVisVDenoiser`` (SD2) is not ported yet.
+eps-prediction denoiser on the DDPM table (SD1.x, SD2.x-eps, SDXL), its
+v-prediction form ``CompVisVDenoiser`` (SD2.x-v, e.g. SD2.1-768-v) and the
+flow denoisers of SD3 (``DiscreteFlowDenoiser``) and FLUX.  The EDM and
+SeFi / MiniT2I flow denoisers are not ported.
 
 Tables and scalings are host-side numpy, as in the JAX package; the sampling
 loop consumes them as f32 values.  ``get_scalings_torch`` and
@@ -76,6 +77,20 @@ class CompVisDenoiser:
 
     def inverse_noise_scaling(self, sigma, latent):
         return latent
+
+
+class CompVisVDenoiser(CompVisDenoiser):
+    """v-prediction on the DDPM table (SD2.x-v): c_skip = σ_d² / (σ² + σ_d²),
+    c_out = −σ·σ_d / √(σ² + σ_d²), c_in = 1 / √(σ² + σ_d²)."""
+
+    prediction = "v"
+
+    def get_scalings_torch(self, sigma):
+        sd2 = self.sigma_data ** 2
+        c_skip = sd2 / (sigma ** 2 + sd2)
+        c_out = -sigma * self.sigma_data / torch.sqrt(sigma ** 2 + sd2)
+        c_in = 1.0 / torch.sqrt(sigma ** 2 + sd2)
+        return c_skip, c_out, c_in
 
 
 def time_snr_shift(alpha: float, t):

@@ -1,6 +1,6 @@
 """The samplers the port runs (counterpart of ``sdtpu/diffusion/samplers.py``:
 ``ancestral_steps``, ``_per_step_common``, ``_dpmpp_2m_coeffs``,
-``_euler_step``, ``_euler_a_step``, the non-flow
+``_euler_step``, ``_euler_a_step``, ``_heun_step``, the non-flow
 ``_dpmpp_2s_a_step``, ``_dpmpp_2m_step``, the fixed-step
 ``_ipndm_step`` and ``_lcm_step``, driven as ``sample_stepwise`` drives
 them).
@@ -23,7 +23,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-PORTED_METHODS = ("euler", "euler_a", "dpm++2s_a", "dpm++2m", "ipndm", "lcm")
+PORTED_METHODS = ("euler", "euler_a", "heun", "dpm++2s_a", "dpm++2m", "ipndm", "lcm")
 # the ported methods that draw per-step noise: at eta > 0, and ``lcm`` always
 NOISY_METHODS = ("euler_a", "dpm++2s_a", "lcm")
 
@@ -116,7 +116,7 @@ def per_step_arrays(sigmas: np.ndarray, method: str = "euler", eta: float = 0.0,
 
 # the per-step scalars each step reads on the device (every per-step value
 # is also a host float in ``s["host"]``, for the JAX step's ``where`` selects)
-DEVICE_SCALARS = {"euler": ("sigma", "sigma_next"),
+DEVICE_SCALARS = {"euler": ("sigma", "sigma_next"), "heun": ("sigma", "sigma_next"),
                   "euler_a": ("sigma", "sigma_down", "sigma_up", "alpha_scale"),
                   "dpm++2s_a": ("sigma", "sigma_down", "sigma_up"),
                   "dpm++2m": ("sigma", "a", "b_first", "b_multi", "r"),
@@ -157,6 +157,26 @@ def _euler_a_step(model_fn: Callable, is_flow: bool):
         if "noise" in s:
             x_new = x_new + s["noise"] * s["sigma_up"]
         return {"x": x_new}
+
+    return step
+
+
+def _heun_step(model_fn: Callable):
+    """Heun (``_heun_step``): an Euler step, then the trapezoid of its two
+    derivatives.  Its last step (sigma_next == 0) keeps the Euler step, so
+    the second call, which the JAX step makes at sigma 1 and discards, is
+    not made."""
+    def step(carry, s):
+        x = carry["x"]
+        den, _ = model_fn(x, s["sigma"], s["i"])
+        d = (x - den) / s["sigma"]
+        dt = s["sigma_next"] - s["sigma"]
+        x_euler = x + d * dt
+        if s["host"]["sigma_next"] == 0.0:
+            return {"x": x_euler}
+        den2, _ = model_fn(x_euler, s["sigma_next"], s["i"])
+        d2 = (d + (x_euler - den2) / s["sigma_next"]) / 2.0
+        return {"x": x + d2 * dt}
 
     return step
 
@@ -262,6 +282,8 @@ def sample(model_fn: Callable, x: torch.Tensor, sigmas: np.ndarray, method: str 
         step = _euler_step(model_fn)
     elif method == "euler_a":
         step = _euler_a_step(model_fn, is_flow)
+    elif method == "heun":
+        step = _heun_step(model_fn)
     elif method == "dpm++2s_a":
         step = _dpmpp_2s_a_step(model_fn)
     elif method == "dpm++2m":

@@ -1,9 +1,11 @@
 """Pipeline construction (counterpart of ``sdtpu/factory.py``:
-``create_pipeline``, its SD1 and SDXL branches, ``_create_sd3_pipeline``,
-the WAN2 branch of ``_create_wan_pipeline``,
-``_create_flux_pipeline`` and ``_detect_t5_config``).
+``create_pipeline`` with ``v_prediction``, ``unet_config_for`` and its
+UNet branch for SD1.x, SD2.x and SDXL with their inpainting and
+instruct-pix2pix stems, ``_create_sd3_pipeline``, the WAN2 branch of
+``_create_wan_pipeline``, ``_create_flux_pipeline`` and
+``_detect_t5_config``).
 
-FLUX, SD1.x, SDXL and SD3 are built from given params (this package's
+FLUX, the UNet families and SD3 are built from given params (this package's
 tensors, e.g. bridged with ``sdtpu_torch.weights.from_jax_params``) or from
 random weights drawn on the target device; each gets the VAE's encoder
 (``vae_encode_fn``) beside its decoder, and a VAE it draws has both halves
@@ -11,12 +13,13 @@ in ``init_vae_params``'s layout (``vae_specs``).  Full-width random FLUX weights
 come in the memory classes of the JAX FLUX bench: the DiT as per-row int8
 ``QuantTensor``s (q8_0), T5-XXL as packed 4-bit ``Q4Tensor``s (q4_0), CLIP-L
 and the VAE dense.  A given DiT runs at the depth its params hold (a
-checkpoint cut to fewer blocks).  SD1.x and SDXL are dense throughout, as
-the JAX SD1.5 and SDXL benches (``bench_sd15``, ``bench_sdxl_lcm_taesd``)
-draw them; SD3 as ``bench_sd35_medium`` draws it: the MMDiT, CLIP-L, CLIP-G
-and the VAE dense, T5-XXL 4-bit.  A given MMDiT's config is fingerprinted
-from its names and shapes (``detect_mmdit_config``: SD3-Medium, SD3.5-Medium's
-MMDiT-X, SD3.5-Large), a given T5's from its shapes.  Wan2.1 T2V
+checkpoint cut to fewer blocks).  SD1.x, SD2.x and SDXL are dense
+throughout, as the JAX SD1.5 and SDXL benches (``bench_sd15``,
+``bench_sdxl_lcm_taesd``) draw them; SD3 as ``bench_sd35_medium`` draws
+it: the MMDiT, CLIP-L, CLIP-G and the VAE dense, T5-XXL 4-bit.  A given
+MMDiT's config is fingerprinted from its names and shapes
+(``detect_mmdit_config``: SD3-Medium, SD3.5-Medium's MMDiT-X, SD3.5-Large),
+a given T5's from its shapes.  Wan2.1 T2V
 (``_create_wan_pipeline``, ``_detect_wan_vae_config``) as
 ``bench_wan21_t2v`` draws it: the DiT and the VAE dense, UMT5-XXL 4-bit; a
 given DiT's config comes from ``detect_wan_config``, a given VAE's from its
@@ -31,9 +34,11 @@ import torch
 
 from sdtpu_torch.conditioning.conditioner import (FluxConditioner, SD1Conditioner,
                                                   SD3Conditioner, SDXLConditioner, WanConditioner)
-from sdtpu_torch.config import SDVersion
-from sdtpu_torch.diffusion.denoiser import CompVisDenoiser, DiscreteFlowDenoiser, FluxFlowDenoiser
-from sdtpu_torch.io.model_loader import PORTED_VERSIONS
+from sdtpu_torch.config import (SDVersion, sd_version_is_inpaint, sd_version_is_sd2,
+                                sd_version_is_sdxl, sd_version_is_unet_edit)
+from sdtpu_torch.diffusion.denoiser import (CompVisDenoiser, CompVisVDenoiser, DiscreteFlowDenoiser,
+                                            FluxFlowDenoiser)
+from sdtpu_torch.io.model_loader import PORTED_VERSIONS, UNET_VERSIONS
 from sdtpu_torch.models import clip as clip_mod
 from sdtpu_torch.models import flux as flux_mod
 from sdtpu_torch.models import mmdit as mmdit_mod
@@ -69,36 +74,66 @@ def flux_configs(small: bool):
             vae_mod.FLUX_VAE_CONFIG, 256)
 
 
-def sd1_configs(small: bool):
-    """→ (unet, clip_l, vae) configs; the small set is the JAX factory's
-    small SD1 config (``unet_config_for(SD1, small=True)``, its CLIP and
-    VAE)."""
+def unet_config_for(version: SDVersion, small: bool = False) -> unet_mod.UNetConfig:
+    """The JAX factory's ``unet_config_for`` for the ported UNet versions:
+    SD1.x, SD2.x and SDXL, their inpainting stems (9 input channels) and
+    the instruct-pix2pix ones (8).  The small config is the small SD1 UNet
+    (SDXL's with a 96-wide context and a 48 + 6·256 vector) with the
+    version's stem."""
     if small:
-        unet_cfg = unet_mod.UNetConfig(model_channels=32, num_res_blocks=1, channel_mult=(1, 2),
-                                       attention_resolutions=(1, 2), transformer_depth=(1, 1),
-                                       context_dim=64, num_heads=2)
-        clip_l_cfg = dataclasses.replace(clip_mod.CLIP_L_CONFIG, hidden_size=64,
-                                         intermediate_size=128, num_layers=2, num_heads=4)
+        cfg = unet_mod.UNetConfig(model_channels=32, num_res_blocks=1, channel_mult=(1, 2),
+                                  attention_resolutions=(1, 2), transformer_depth=(1, 1),
+                                  context_dim=64, num_heads=2)
+        if sd_version_is_sdxl(version):
+            cfg = dataclasses.replace(cfg, context_dim=96, adm_in_channels=48 + 1536)
+        if sd_version_is_inpaint(version):
+            cfg = dataclasses.replace(cfg, in_channels=9)
+        if sd_version_is_unet_edit(version):
+            cfg = dataclasses.replace(cfg, in_channels=8)
+        return cfg
+    if sd_version_is_sdxl(version):
+        if sd_version_is_unet_edit(version):
+            return dataclasses.replace(unet_mod.SDXL_UNET_CONFIG, in_channels=8)
+        return (unet_mod.SDXL_INPAINT_UNET_CONFIG if sd_version_is_inpaint(version)
+                else unet_mod.SDXL_UNET_CONFIG)
+    if sd_version_is_sd2(version):
+        return (unet_mod.SD2_INPAINT_UNET_CONFIG if sd_version_is_inpaint(version)
+                else unet_mod.SD2_UNET_CONFIG)
+    if sd_version_is_unet_edit(version):
+        return dataclasses.replace(unet_mod.SD1_UNET_CONFIG, in_channels=8)
+    return (unet_mod.SD1_INPAINT_UNET_CONFIG if sd_version_is_inpaint(version)
+            else unet_mod.SD1_UNET_CONFIG)
+
+
+def sd1_configs(small: bool, version: SDVersion = SDVersion.SD1):
+    """→ (unet, text encoder, vae) configs of an SD1.x or SD2.x version; the
+    small set is the JAX factory's small SD1 config (``unet_config_for``,
+    its CLIP-L 64 wide, which SD2 also takes, and its VAE).  At full width
+    SD2 conditions on OpenCLIP-H."""
+    unet_cfg = unet_config_for(version, small)
+    if small:
+        clip_cfg = dataclasses.replace(clip_mod.CLIP_L_CONFIG, hidden_size=64,
+                                       intermediate_size=128, num_layers=2, num_heads=4)
         vae_cfg = vae_mod.VAEConfig(base_channels=32, channel_mult=(1, 2, 2, 2), num_res_blocks=1)
-        return unet_cfg, clip_l_cfg, vae_cfg
-    return unet_mod.SD1_UNET_CONFIG, clip_mod.CLIP_L_CONFIG, vae_mod.SD_VAE_CONFIG
+        return unet_cfg, clip_cfg, vae_cfg
+    clip_cfg = clip_mod.CLIP_H_CONFIG if sd_version_is_sd2(version) else clip_mod.CLIP_L_CONFIG
+    return unet_cfg, clip_cfg, vae_mod.SD_VAE_CONFIG
 
 
-def sdxl_configs(small: bool):
-    """→ (unet, clip_l, clip_g, vae) configs; the small set is the JAX
-    factory's small SDXL config (``unet_config_for(SDXL, small=True)``: the
+def sdxl_configs(small: bool, version: SDVersion = SDVersion.SDXL):
+    """→ (unet, clip_l, clip_g, vae) configs of an SDXL version; the small
+    set is the JAX factory's small SDXL config (``unet_config_for``: the
     small SD1 UNet with a 96-wide context and a 48 + 6·256 vector; CLIP-L
     and CLIP-G 48 wide, CLIP-G's projection 48)."""
+    unet_cfg = unet_config_for(version, small)
     if small:
-        sd1_unet, clip_l_cfg, vae_cfg = sd1_configs(small=True)
-        unet_cfg = dataclasses.replace(sd1_unet, context_dim=96, adm_in_channels=48 + 1536)
+        _, clip_l_cfg, vae_cfg = sd1_configs(small=True)
         clip_l_cfg = dataclasses.replace(clip_l_cfg, hidden_size=48, intermediate_size=96)
         clip_g_cfg = dataclasses.replace(clip_mod.CLIP_G_CONFIG, hidden_size=48,
                                          intermediate_size=96, num_layers=2, num_heads=4,
                                          projection_dim=48)
         return unet_cfg, clip_l_cfg, clip_g_cfg, vae_cfg
-    return (unet_mod.SDXL_UNET_CONFIG, clip_mod.CLIP_L_CONFIG, clip_mod.CLIP_G_CONFIG,
-            vae_mod.SDXL_VAE_CONFIG)
+    return unet_cfg, clip_mod.CLIP_L_CONFIG, clip_mod.CLIP_G_CONFIG, vae_mod.SDXL_VAE_CONFIG
 
 
 def sd3_configs(small: bool):
@@ -230,12 +265,15 @@ def _create_sd3_pipeline(params: dict, rng_type: str, dtype: torch.dtype, small:
 
 
 def _create_unet_pipeline(version: SDVersion, params: dict, rng_type: str, dtype: torch.dtype,
-                          small: bool, seed: int, device) -> DiffusionPipeline:
-    """SD1.x (one CLIP-L) or SDXL (CLIP-L and CLIP-G, the vector ``y``)."""
-    if version == SDVersion.SDXL:
-        unet_cfg, clip_l_cfg, clip_g_cfg, vae_cfg = sdxl_configs(small)
+                          small: bool, seed: int, v_prediction: bool, device) -> DiffusionPipeline:
+    """SD1.x and SD2.x (one text encoder: CLIP-L, or OpenCLIP-H at full width
+    on SD2) or SDXL (CLIP-L and CLIP-G, the vector ``y``), with the
+    version's stem (``unet_config_for``); the CompVis denoiser, in its
+    v-prediction form with ``v_prediction``."""
+    if sd_version_is_sdxl(version):
+        unet_cfg, clip_l_cfg, clip_g_cfg, vae_cfg = sdxl_configs(small, version)
     else:
-        (unet_cfg, clip_l_cfg, vae_cfg), clip_g_cfg = sd1_configs(small), None
+        (unet_cfg, clip_l_cfg, vae_cfg), clip_g_cfg = sd1_configs(small, version), None
     specs = {"diffusion": unet_mod.param_specs(unet_cfg), "clip_l": clip_mod.param_specs(clip_l_cfg),
              "vae": vae_mod.vae_specs(vae_cfg)}
     if clip_g_cfg is not None:
@@ -247,7 +285,8 @@ def _create_unet_pipeline(version: SDVersion, params: dict, rng_type: str, dtype
         conditioner = SDXLConditioner(CLIPTokenizer(), mods["clip_l"], clip_l_cfg, mods["clip_g"],
                                       clip_g_cfg, device=device)
     else:
-        conditioner = SD1Conditioner(CLIPTokenizer(), mods["clip_l"], clip_l_cfg, device=device)
+        conditioner = SD1Conditioner(CLIPTokenizer(), mods["clip_l"], clip_l_cfg,
+                                     is_sd2=sd_version_is_sd2(version), device=device)
 
     def diffusion_fn(p, x, t, ctx, y, guidance=None):
         return unet_mod.unet_forward(p, x, t, ctx, y=y, cfg=unet_cfg)
@@ -257,8 +296,8 @@ def _create_unet_pipeline(version: SDVersion, params: dict, rng_type: str, dtype
         version=version, diffusion_params=mods["diffusion"], diffusion_fn=diffusion_fn,
         conditioner=conditioner, vae_params=mods["vae"], vae_decode_fn=vae_decode_fn,
         vae_encode_fn=vae_encode_fn,
-        denoiser=CompVisDenoiser(), rng_type=rng_type, latent_channels=vae_cfg.z_channels,
-        compute_dtype=dtype, device=device)
+        denoiser=CompVisVDenoiser() if v_prediction else CompVisDenoiser(), rng_type=rng_type,
+        latent_channels=vae_cfg.z_channels, compute_dtype=dtype, device=device)
 
 
 def _vae_fns(vae_cfg: vae_mod.VAEConfig):
@@ -279,18 +318,20 @@ def _blocks(p: dict, prefix: str) -> int:
 
 def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] = None,
                     rng_type: str = "cuda", dtype: torch.dtype = torch.float32,
-                    small: bool = False, seed: int = 0, t5_tokenizer=None,
-                    flow_shift: Optional[float] = None, device="cuda") -> DiffusionPipeline:
-    """params: dict with keys 'diffusion', 'clip_l', 't5' (FLUX, SD3 and
-    Wan's UMT5), 'clip_g' (SDXL and SD3), 'vae'; a missing module gets random
-    weights drawn on ``device`` (dense for the small configs and for SD1 and
-    SDXL at full width, the bench's memory classes for FLUX, SD3 and Wan at
-    full width).  flow_shift: SD3's and Wan's flow shift (None: 3.0 and
-    5.0); the other ported families take none, and ignore it, as the JAX
-    factory does."""
+                    small: bool = False, seed: int = 0, v_prediction: bool = False,
+                    t5_tokenizer=None, flow_shift: Optional[float] = None,
+                    device="cuda") -> DiffusionPipeline:
+    """params: dict with keys 'diffusion', 'clip_l' (SD2's OpenCLIP-H too),
+    't5' (FLUX, SD3 and Wan's UMT5), 'clip_g' (SDXL and SD3), 'vae'; a
+    missing module gets random weights drawn on ``device`` (dense for the
+    small configs and for the UNet families at full width, the bench's
+    memory classes for FLUX, SD3 and Wan at full width).  v_prediction: the
+    UNet families' v-prediction denoiser (SD2.x-v); flow_shift: SD3's and
+    Wan's flow shift (None: 3.0 and 5.0); the other ported families take
+    neither, and ignore them, as the JAX factory does."""
     if version not in PORTED_VERSIONS:
         raise NotImplementedError(f"{version} is not ported yet; the port runs "
-                                  f"{[v.name for v in PORTED_VERSIONS]} txt2img")
+                                  f"{[v.name for v in PORTED_VERSIONS]}")
     params = params or {}
     if version == SDVersion.WAN2:
         return _create_wan_pipeline(params, rng_type, dtype, small, seed, t5_tokenizer, flow_shift,
@@ -298,8 +339,9 @@ def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] 
     if version == SDVersion.SD3:
         return _create_sd3_pipeline(params, rng_type, dtype, small, seed, t5_tokenizer, flow_shift,
                                     device)
-    if version in (SDVersion.SD1, SDVersion.SDXL):
-        return _create_unet_pipeline(version, params, rng_type, dtype, small, seed, device)
+    if version in UNET_VERSIONS:
+        return _create_unet_pipeline(version, params, rng_type, dtype, small, seed, v_prediction,
+                                     device)
     dit_cfg, clip_l_cfg, t5_cfg, vae_cfg, t5_seq = flux_configs(small)
     specs = {"diffusion": flux_mod.param_specs(dit_cfg), "t5": t5_mod.param_specs(t5_cfg),
              "clip_l": clip_mod.param_specs(clip_l_cfg), "vae": vae_mod.vae_specs(vae_cfg)}

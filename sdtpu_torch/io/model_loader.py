@@ -1,6 +1,6 @@
-"""FLUX, SD1.x, SDXL, SD3 and Wan2.1 T2V checkpoint files → per-module param
-dicts (this package's copy of the FLUX, SD1, SDXL, SD3 and Wan parts of
-``sdtpu.io.model_loader``:
+"""FLUX, SD1.x, SD2.x, SDXL, SD3 and Wan2.1 T2V checkpoint files → per-module
+param dicts (this package's copy of the FLUX, SD1, SD2, SDXL, SD3 and Wan
+parts of ``sdtpu.io.model_loader``:
 ``load_model_bundle``, ``split_modules``, ``_split_in_proj``,
 ``read_checkpoint_file``, with the parts of ``sdtpu/io/detect.py`` and
 ``sdtpu/io/name_conversion.py`` they use).
@@ -16,7 +16,10 @@ VAE file's 2-D tensors come back as ``HostQuant`` too, but only so each is
 dequantized on the host when it is staged, one at a time: by value they
 are the float32 arrays the JAX loader returns.  A single-file SD1.x
 checkpoint splits by its LDM prefixes (``model.diffusion_model.``,
-``cond_stage_model.transformer.``, ``first_stage_model.``); a single-file
+``cond_stage_model.transformer.``, ``first_stage_model.``), an SD2.x one
+likewise with its OpenCLIP-H text tower under ``cond_stage_model.model.``
+(renamed to HF names as CLIP-G's below; all 24 layers are kept, the
+23-layer config reads the first 23); a single-file
 SDXL checkpoint by its SGM prefixes (``conditioner.embedders.0.transformer.``
 → CLIP-L, ``conditioner.embedders.1.model.`` → CLIP-G under OpenCLIP names,
 renamed to HF ones, the fused ``in_proj`` split into q / k / v, the
@@ -27,11 +30,12 @@ splits by ``model.diffusion_model.``, ``first_stage_model.`` and
 kept, as the JAX loader leaves them.  A Wan2.1 DiT (``blocks.N.cross_attn``,
 ``patch_embedding``) comes as ``--diffusion-model``, its VAE as ``--vae``
 and UMT5-XXL as ``--t5xxl`` (HF or llama.cpp GGUF names, its per-layer
-relative bias included).  Any family but FLUX, SD1, SDXL, SD3 and Wan2.1
-T2V raises ``NotImplementedError`` naming it (SDXL's inpaint, pix2pix and
-SSD-1B variants too, an SD3 transformer under diffusers names, Wan2.2 I2V
-and TI2V, a Wan VACE or I2V DiT, and a Wan DiT or VAE under diffusers
-names).
+relative bias included).  The UNet families' inpainting (a 9-channel
+stem) and instruct-pix2pix (8) variants load as SD1.x, SD2.x and SDXL do.
+Any family but FLUX, those in ``UNET_VERSIONS``, SD3 and Wan2.1 T2V raises
+``NotImplementedError`` naming it (the tiny UNets, SDXS and SDXL's SSD-1B
+too, an SD3 transformer under diffusers names, Wan2.2 I2V and TI2V, a Wan
+VACE or I2V DiT, and a Wan DiT or VAE under diffusers names).
 """
 from __future__ import annotations
 
@@ -195,9 +199,14 @@ def convert_diffusers_diffusion_names(tensors: Dict[str, np.ndarray]) -> Dict[st
     return _merge_fused_markers(out)
 
 
+# the UNet versions the port runs: SD1.x, SD2.x and SDXL, their inpainting
+# and instruct-pix2pix stems
+UNET_VERSIONS = (SDVersion.SD1, SDVersion.SD1_INPAINT, SDVersion.SD1_PIX2PIX, SDVersion.SD2,
+                 SDVersion.SD2_INPAINT, SDVersion.SDXL, SDVersion.SDXL_INPAINT,
+                 SDVersion.SDXL_PIX2PIX)
 # the families the port runs (``load_model_bundle`` and ``create_pipeline``
 # refuse every other by name)
-PORTED_VERSIONS = (SDVersion.FLUX, SDVersion.SD1, SDVersion.SDXL, SDVersion.SD3, SDVersion.WAN2)
+PORTED_VERSIONS = (SDVersion.FLUX, *UNET_VERSIONS, SDVersion.SD3, SDVersion.WAN2)
 
 
 def _unet_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
@@ -428,8 +437,8 @@ def convert_gguf_t5_name(name: str) -> str:
 # ------------------------------------------------------------ bundle
 
 def convert_open_clip_name(name: str) -> Optional[str]:
-    """OpenCLIP text-tower names (SDXL's ``conditioner.embedders.1.model.*``)
-    → HF CLIPText names; the fused ``in_proj`` comes back under an
+    """OpenCLIP text-tower names (SD2's ``cond_stage_model.model.*``, SDXL's
+    ``conditioner.embedders.1.model.*``) → HF CLIPText names; the fused ``in_proj`` comes back under an
     ``__inproj__`` marker that ``_split_in_proj`` splits."""
     if name.startswith("transformer."):
         name = name[len("transformer."):]
@@ -470,6 +479,7 @@ def _split_in_proj(params: Dict[str, np.ndarray]) -> None:
 # module dict ← full-name prefix (and the renaming of its local names)
 MODULE_PREFIXES = (("diffusion", DIFFUSION_PREFIX), ("vae", "first_stage_model."),
                    ("clip_l", "cond_stage_model.transformer."),
+                   ("clip_l", "cond_stage_model.model."),
                    ("clip_l", "conditioner.embedders.0.transformer."),
                    ("clip_g", "conditioner.embedders.1.model."),
                    ("clip_l", "text_encoders.clip_l.transformer."),
@@ -489,7 +499,7 @@ def split_modules(tensors: Dict[str, np.ndarray]) -> ModelBundle:
                 local = name[len(prefix):]
                 if mod == "t5" and local.startswith(("enc.", "dec.", "token_embd.", "output_norm.")):
                     local = convert_gguf_t5_name(local)  # llama.cpp GGUF T5 export
-                if prefix == "conditioner.embedders.1.model.":
+                if prefix in ("conditioner.embedders.1.model.", "cond_stage_model.model."):
                     local = convert_open_clip_name(local)
                     if local is None:
                         break  # an OpenCLIP tensor the text tower does not use
@@ -500,7 +510,8 @@ def split_modules(tensors: Dict[str, np.ndarray]) -> ModelBundle:
     for tower in ("clip_l", "clip_g"):
         _split_in_proj(mods[tower])
     # OpenCLIP's projection is [width, proj], applied as x @ W (the JAX
-    # loader transposes CLIP-G's, whichever file it came from)
+    # loader transposes CLIP-G's, whichever file it came from; SD2's square
+    # one stays as it is, unused by the 23-layer text tower)
     tp = mods["clip_g"].get("text_projection.weight")
     if tp is not None:
         mods["clip_g"]["text_projection.weight"] = np.ascontiguousarray(np.asarray(tp).T)
@@ -511,9 +522,10 @@ def load_model_bundle(model_path: Optional[str] = None, diffusion_model_path: Op
                       clip_l_path: Optional[str] = None, t5xxl_path: Optional[str] = None,
                       vae_path: Optional[str] = None, keep_quant: bool = False,
                       clip_g_path: Optional[str] = None) -> ModelBundle:
-    """FLUX.1, SD1.x, SDXL or SD3 checkpoint files, each under its logical prefix, →
-    ``ModelBundle`` (what the JAX package's ``load_model_bundle`` holds for
-    them, by value).  Raises ``NotImplementedError`` for any other model."""
+    """Checkpoint files of a ported family (``PORTED_VERSIONS``), each under
+    its logical prefix, → ``ModelBundle`` (what the JAX package's
+    ``load_model_bundle`` holds for them, by value).  Raises
+    ``NotImplementedError`` for any other model."""
     tensors: Dict[str, np.ndarray] = {}
     if model_path:
         tensors.update(read_checkpoint_file(model_path, keep_quant=keep_quant))

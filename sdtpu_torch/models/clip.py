@@ -1,6 +1,7 @@
 """CLIP text encoders (counterpart of ``sdtpu/models/clip.py``, text towers):
-OpenAI CLIP-L and OpenCLIP-G (SDXL's second encoder, with its pooled
-projection).
+OpenAI CLIP-L, OpenCLIP-G (SDXL's second encoder, with its pooled
+projection) and OpenCLIP-H (SD2.x's text tower: 23 of the checkpoint's 24
+layers, as the JAX config holds them).
 
 Params are keyed by HF ``CLIPTextModel`` names (``text_model.…``,
 ``text_projection.weight``), linear weights [out, in].  The causal mask
@@ -37,6 +38,14 @@ CLIP_G_CONFIG = CLIPTextConfig(
     num_heads=20,
     hidden_act="gelu",
     projection_dim=1280,
+)
+# SD2.x's OpenCLIP ViT-H text tower
+CLIP_H_CONFIG = CLIPTextConfig(
+    hidden_size=1024,
+    intermediate_size=4096,
+    num_layers=23,
+    num_heads=16,
+    hidden_act="gelu",
 )
 
 

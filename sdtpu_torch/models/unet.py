@@ -1,5 +1,7 @@
-"""SD1.x and SDXL UNet (counterpart of the SD1 and SDXL subset of
-``sdtpu/models/unet.py``).
+"""SD1.x, SD2.x and SDXL UNets (counterpart of the SD1, SD2 and SDXL subset of
+``sdtpu/models/unet.py``), with the inpainting (9 input channels: the
+latent, the mask and the masked image's latent) and instruct-pix2pix (8:
+the latent and the edit image's latent) stems.
 
 Params are a flat dict keyed by CompVis checkpoint names
 (``input_blocks.N.M.…``, ``middle_block.…``, ``output_blocks.…``,
@@ -7,7 +9,7 @@ Params are a flat dict keyed by CompVis checkpoint names
 linears run as cuDNN / ``torch.matmul`` calls, as the JAX package leaves
 them to XLA; attention goes through ``ops.attention`` (the flash kernel on
 the card: SD1.x's 8 heads over 320, 640 and 1280 channels, so D 40, 80 and
-160; SDXL's 64-channel heads, so D 64).
+160; SD2's and SDXL's 64-channel heads, so D 64).
 
 Structure (CompVis openaimodel semantics):
   time_embed: Linear→SiLU→Linear on the sinusoidal timestep embedding
@@ -17,13 +19,12 @@ Structure (CompVis openaimodel semantics):
   middle: ResBlock, SpatialTransformer, ResBlock
   output blocks: mirrored with skip concatenation, nearest-2x Upsample
   out: GroupNorm→SiLU→conv
-SDXL's transformers project in and out with linears on the tokens
+SD2's and SDXL's transformers project in and out with linears on the tokens
 (``use_linear_in_transformer``) and take their head count from 64-channel
-heads (``num_head_channels``).  The SD2 family (which shares those two
-fields), the tiny and video (SVD) variants are not ported yet, and the
-config has none of their other fields: the loader and ``create_pipeline``
-refuse those families by name.  ControlNet residuals, IP-Adapter and
-AnimateDiff are not ported.
+heads (``num_head_channels``).  The tiny (no middle block) and video (SVD)
+variants are not ported yet, and the config has none of their fields: the
+loader and ``create_pipeline`` refuse those families by name.  ControlNet
+residuals, IP-Adapter and AnimateDiff are not ported.
 """
 from __future__ import annotations
 
@@ -53,6 +54,11 @@ class UNetConfig:
 
 
 SD1_UNET_CONFIG = UNetConfig()
+SD1_INPAINT_UNET_CONFIG = dataclasses.replace(SD1_UNET_CONFIG, in_channels=9)
+SD2_UNET_CONFIG = UNetConfig(
+    context_dim=1024, num_heads=None, num_head_channels=64, use_linear_in_transformer=True
+)
+SD2_INPAINT_UNET_CONFIG = dataclasses.replace(SD2_UNET_CONFIG, in_channels=9)
 SDXL_UNET_CONFIG = UNetConfig(
     channel_mult=(1, 2, 4),
     attention_resolutions=(2, 4),
@@ -63,6 +69,7 @@ SDXL_UNET_CONFIG = UNetConfig(
     use_linear_in_transformer=True,
     adm_in_channels=2816,
 )
+SDXL_INPAINT_UNET_CONFIG = dataclasses.replace(SDXL_UNET_CONFIG, in_channels=9)
 
 
 def _heads_for(cfg: UNetConfig, ch: int) -> int:

@@ -1,6 +1,9 @@
 """txt2img, img2img, masked img2img and the latent hires fix for FLUX, SD1.x,
-SDXL and SD3, and txt2vid for Wan2.1 T2V (counterpart of ``sdtpu/pipeline.py``:
-``DiffusionPipeline.generate`` with its init image, init latent and mask,
+SD2.x, SDXL and SD3 (the UNets' inpainting and instruct-pix2pix variants
+too), and txt2vid for Wan2.1 T2V (counterpart of ``sdtpu/pipeline.py``:
+``DiffusionPipeline.generate`` with its init image, init latent, mask,
+the inpainting and pix2pix UNets' concat latents, their image guidance and
+the pix2pix edit image (``ref_images``),
 ``img2img``, ``encode_image``, ``txt2img_hires``, ``generate_video``,
 ``VideoResult``, ``txt2img``, ``set_vae_tiling`` with its temporal windows,
 ``set_tae``, the tiled decode and encode, the prompt → conditions cache,
@@ -16,8 +19,14 @@ nearest-downsampled to the latent and blends each denoised estimate toward
 the init latent where it is 0.  ``txt2img_hires`` runs the base request,
 resizes its latents bilinearly (half-pixel centres, antialiased when
 shrinking, as ``jax.image.resize``) and runs an img2img pass at the target
-size; an ESRGAN upscaler is not ported.  Inpaint-model versions are not
-ported (the loader refuses them), nor is ``generate_video(init_image=...)``.
+size; an ESRGAN upscaler is not ported.  An inpainting UNet (9 input
+channels) takes [mask, masked image's latent] beside the latent instead of
+the blend; an instruct-pix2pix UNet (8) the edit image's latent
+(``ref_images[0]``, else the init image); with CFG on and
+``img_cfg_scale`` set apart from ``cfg_scale``, a third forward on the
+uncond context with those channels zeroed (the mask kept) gives the
+image-guidance estimate (``cfg_combine``).  ``generate_video(init_image=...)``
+is not ported.
 Repeated prompts come from a cache of ``COND_CACHE_SIZE`` (16) entries,
 the oldest dropped first, keyed on (prompt, negative prompt, clip skip, width, height,
 CFG); ``free_params_immediately`` (or ``free_conditioner_params()``)
@@ -28,9 +37,9 @@ Samplers: ``sdtpu_torch.diffusion.samplers.PORTED_METHODS``; at ``eta > 0``
 an ancestral sampler's per-step noise (and ``lcm``'s at any ``eta``)
 follows the initial noise in each batch item's ``rng`` stream, as the JAX
 pipeline draws it.  The latent's channels and the schedule come from the
-model (FLUX's 16-channel flow latent, SD1's and SDXL's 4-channel eps latent
-on the DDPM table, SD3's 16-channel latent on the discrete flow schedule);
-SD1 has no pooled vector (``y``), SDXL's is the pooled CLIP-G output with
+model (FLUX's 16-channel flow latent, SD1's, SD2's and SDXL's 4-channel
+eps or v latent on the DDPM table, SD3's 16-channel latent on the discrete
+flow schedule); SD1 has no pooled vector (``y``), SDXL's is the pooled CLIP-G output with
 the size embeddings of the request's width and height, SD3's the pooled
 CLIP-L and CLIP-G outputs; only FLUX has distilled guidance.  Skip-Layer
 Guidance (``slg_scale`` under CFG) is not ported and raises by name on
@@ -64,7 +73,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sdtpu_torch.config import GenerationParams, SDVersion
+from sdtpu_torch.config import (GenerationParams, SDVersion, sd_version_is_inpaint,
+                                sd_version_is_unet_edit)
 from sdtpu_torch.diffusion.guidance import cfg_combine
 from sdtpu_torch.diffusion.samplers import method_needs_noise, sample
 from sdtpu_torch.diffusion.schedule import get_sigmas
@@ -148,14 +158,14 @@ def _to_pm1(image) -> np.ndarray:
     return img * 2.0 - 1.0
 
 
-def resize_latents(latents: np.ndarray, lh: int, lw: int) -> np.ndarray:
-    """[B, h, w, C] float32 → [B, lh, lw, C]: bilinear with half-pixel
-    centres, antialiased along a shrinking axis, on the host, as
+def resize_latents(latents: torch.Tensor, lh: int, lw: int) -> torch.Tensor:
+    """[B, h, w, C] → [B, lh, lw, C] float32 on the latents' device: bilinear
+    with half-pixel centres, antialiased along a shrinking axis, as
     ``jax.image.resize(..., "bilinear")``."""
-    x = torch.from_numpy(np.ascontiguousarray(latents, dtype=np.float32)).permute(0, 3, 1, 2)
+    x = latents.float().permute(0, 3, 1, 2)
     shrink = lh < x.shape[2] or lw < x.shape[3]
     y = F.interpolate(x, size=(lh, lw), mode="bilinear", align_corners=False, antialias=shrink)
-    return y.permute(0, 2, 3, 1).contiguous().numpy()
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 def _tensors(value) -> list:
@@ -297,7 +307,8 @@ class DiffusionPipeline:
         overlap in pixels = the latent units times the scale factor)."""
         if self.vae_encode_fn is None:
             raise NotImplementedError(f"{self.version.value}: the port has no VAE encoder for this "
-                                      "model (img2img is ported for FLUX.1, SD1.x, SDXL and SD3)")
+                                      "model (img2img is ported for FLUX.1, the UNet families and "
+                                      "SD3)")
         if self._tae is not None:
             raise NotImplementedError("encode_image with a TAESD decoder attached: the TAE params "
                                       "hold no encoder (set_tae(None) restores the full VAE)")
@@ -344,31 +355,50 @@ class DiffusionPipeline:
 
     def _model_fn(self, ctx_c, ctx_u, y_c, y_u, cfg_scale: float, guidance, b: int,
                   denoise_mask: Optional[torch.Tensor] = None,
-                  masked_target: Optional[torch.Tensor] = None):
+                  masked_target: Optional[torch.Tensor] = None,
+                  c_concat: Optional[torch.Tensor] = None,
+                  img_uncond_concat: Optional[torch.Tensor] = None,
+                  img_cfg_scale: Optional[float] = None):
         """→ model_fn(x, sigma, i) → (denoised, uncond denoised); with a
-        mask, the denoised estimate keeps ``masked_target`` where it is 0."""
+        mask, the denoised estimate keeps ``masked_target`` where it is 0.
+        ``c_concat`` ([1, h, w, C]): channels that follow the scaled latent
+        into the model (the inpainting and pix2pix UNets' input); with
+        ``img_cfg_scale`` a third forward (the uncond context, the latent
+        beside ``img_uncond_concat``) gives the image guidance's estimate."""
         denoiser = self.denoiser
         has_uncond = ctx_u is not None
         dev = self.device
 
+        def with_concat(x_core, concat):
+            if concat is None:
+                return x_core
+            return torch.cat([x_core, concat.to(x_core.dtype).expand(b, -1, -1, -1)], dim=-1)
+
         def model_fn(xt, sigma, i):
             c_skip, c_out, c_in = denoiser.get_scalings_torch(sigma)
             t = denoiser.sigma_to_t_torch(sigma)
-            x_in = (xt * c_in).to(self.compute_dtype)
+            x_core = (xt * c_in).to(self.compute_dtype)  # only the latent is scaled
+            x_in = with_concat(x_core, c_concat)
+            tt = t.reshape(1).expand(b).to(torch.float32)
             if has_uncond:
                 x_both = torch.cat([x_in, x_in], dim=0)
                 ctx = torch.cat([ctx_c, ctx_u], dim=0)
                 y = torch.cat([y_c, y_u], dim=0) if y_c is not None else None
                 g = torch.cat([guidance, guidance], dim=0) if guidance is not None else None
-                tt = t.reshape(1).expand(2 * b).to(torch.float32)
-                out = self.diffusion_fn(self.diffusion_params, x_both, tt, ctx, y,
+                out = self.diffusion_fn(self.diffusion_params, x_both, tt.repeat(2), ctx, y,
                                         guidance=g).float()
                 den_both = c_skip * torch.cat([xt, xt], dim=0) + c_out * out
                 den_cond, den_uncond = den_both[:b], den_both[b:]
-                pred = cfg_combine(den_cond, den_uncond, None,
-                                   torch.tensor(cfg_scale, dtype=torch.float32, device=dev))
+                den_img_u, img_scale = None, 1.0
+                if img_cfg_scale is not None:
+                    out_iu = self.diffusion_fn(self.diffusion_params,
+                                               with_concat(x_core, img_uncond_concat), tt, ctx_u,
+                                               y_u, guidance=guidance).float()
+                    den_img_u, img_scale = c_skip * xt + c_out * out_iu, img_cfg_scale
+                pred = cfg_combine(den_cond, den_uncond, den_img_u,
+                                   torch.tensor(cfg_scale, dtype=torch.float32, device=dev),
+                                   img_scale)
             else:
-                tt = t.reshape(1).expand(b).to(torch.float32)
                 out = self.diffusion_fn(self.diffusion_params, x_in, tt, ctx_c, y_c,
                                         guidance=guidance).float()
                 pred = c_skip * xt + c_out * out
@@ -400,12 +430,15 @@ class DiffusionPipeline:
 
     def _denoise(self, gp: GenerationParams, shape: tuple, image_seq_len: int,
                  progress_callback: Optional[Callable], cancel_check: Optional[Callable],
-                 init_latent: Optional[torch.Tensor] = None, mask_image=None):
+                 init_latent: Optional[torch.Tensor] = None, mask_image=None,
+                 concat: tuple = (None, None)):
         """Conditioning, then sampling from the initial noise of ``shape``
         (one batch item's latent), scaled around ``init_latent`` where given
         (img2img: the schedule cut by ``gp.strength``; ``mask_image`` keeps
-        the init latent where it is 0) → (latents on the device, float32;
-        seeds; cond seconds; sample seconds; steps)."""
+        the init latent where it is 0); ``concat``: the model's extra input
+        channels and their image-guidance form (``_concat_latents``) →
+        (latents on the device, float32; seeds; cond seconds; sample seconds;
+        steps)."""
         dev = self.device
         bc = gp.batch_count
         has_uncond = gp.cfg_scale != 1.0
@@ -471,9 +504,16 @@ class DiffusionPipeline:
         if self.free_params_immediately:
             self.free_conditioner_params()
 
+        c_concat, img_uncond_concat = concat
+        # separate image guidance: under CFG, where the model takes concat
+        # channels and img_cfg_scale differs from cfg_scale
+        img_cfg = (gp.img_cfg_scale if has_uncond and img_uncond_concat is not None
+                   and gp.img_cfg_scale is not None
+                   and float(gp.img_cfg_scale) != float(gp.cfg_scale) else None)
         ts0 = time.time()
         model_fn = self._model_fn(ctx_c, ctx_u, y_c, y_u, gp.cfg_scale, guidance, bc,
-                                  denoise_mask, masked_target)
+                                  denoise_mask, masked_target, c_concat, img_uncond_concat,
+                                  None if img_cfg is None else float(img_cfg))
 
         def step_callback(i, xi):
             if cancel_check is not None and cancel_check():
@@ -490,28 +530,83 @@ class DiffusionPipeline:
         _sync(dev)
         return latents, seeds, t_cond, time.time() - ts0, steps
 
+    def _concat_latents(self, gp: GenerationParams, init_image, mask_image, ref_images):
+        """The inpainting and instruct-pix2pix UNets' extra input channels, as
+        the JAX pipeline builds them → (c_concat, img_uncond_concat), each
+        [1, h, w, C] float32 on the device, or (None, None) for any other
+        model.  Inpainting: [mask, masked image's latent], the mask rounded,
+        scaled to [0, 1] and nearest-downsampled (ones without a mask), the
+        masked image (1 - mask)·(image - 0.5) + 0.5 in [0, 1] (zeros without
+        an init image); its image-guidance form zeroes the latent.
+        pix2pix: the latent of ``ref_images[0]`` (else of the init image,
+        else zeros), resized bilinearly to the request's latent; zeros for
+        image guidance."""
+        lh, lw = gp.height // self.scale_factor, gp.width // self.scale_factor
+        zeros = torch.zeros((1, lh, lw, self.latent_channels), device=self.device)
+        if sd_version_is_inpaint(self.version):
+            if mask_image is not None:
+                mask_full = np.round(np.asarray(mask_image, dtype=np.float32))
+                if mask_full.max() > 1.0:
+                    mask_full = mask_full / 255.0
+                sf = self.scale_factor
+                lm = mask_full[::sf, ::sf][None, :lh, :lw, None]
+            else:
+                mask_full = np.ones((gp.height, gp.width), dtype=np.float32)
+                lm = np.ones((1, lh, lw, 1), dtype=np.float32)
+            lm = torch.from_numpy(np.ascontiguousarray(lm, dtype=np.float32)).to(self.device)
+            masked_latent = zeros
+            if init_image is not None:
+                im01 = (_to_pm1(init_image) + 1.0) / 2.0
+                masked = (1.0 - mask_full[..., None]) * (im01 - 0.5) + 0.5
+                # as the JAX pipeline: the [-1, 1] image goes through the
+                # encoder's [0, 1] → [-1, 1] mapping once more
+                masked_latent = self._encode(masked * 2.0 - 1.0)
+            return torch.cat([lm, masked_latent], dim=-1), torch.cat([lm, zeros], dim=-1)
+        if sd_version_is_unet_edit(self.version):
+            src = ref_images[0] if ref_images else init_image
+            edit = zeros
+            if src is not None:
+                edit = self._encode(src)
+                if tuple(edit.shape[1:3]) != (lh, lw):
+                    edit = resize_latents(edit, lh, lw)
+            return edit, zeros
+        return None, None
+
     @torch.inference_mode()
     def generate(self, gp: GenerationParams, init_image=None, mask_image=None, init_latent=None,
-                 progress_callback: Optional[Callable] = None,
+                 ref_images=None, progress_callback: Optional[Callable] = None,
                  cancel_check: Optional[Callable] = None) -> GenerationResult:
         """txt2img, or img2img from ``init_image`` ([H,W,3] uint8 or float in
         [0, 1]) or ``init_latent`` ([1 or B, h, w, zc], scaled) with
         ``gp.strength``, masked by ``mask_image`` ([H,W]: 1 regenerate, 0
-        keep): conditioning → sampling (CFG when cfg_scale != 1) → (tiled)
-        VAE decode.  progress_callback(step, steps, x) after each step
-        (False stops); cancel_check() before it (True stops)."""
+        keep; on an inpainting UNet it goes into the model's input instead):
+        conditioning → sampling (CFG when cfg_scale != 1; image guidance at
+        ``gp.img_cfg_scale`` on the inpainting and pix2pix UNets) → (tiled)
+        VAE decode.  ``ref_images``: the pix2pix UNets' edit image (the
+        first; any other model raises).  progress_callback(step, steps, x)
+        after each step (False stops); cancel_check() before it (True
+        stops)."""
+        if ref_images is not None and not sd_version_is_unet_edit(self.version):
+            raise NotImplementedError(
+                f"generate(ref_images=...) on {self.version.name}: the port takes reference "
+                "images on the instruct-pix2pix UNets (SD1_PIX2PIX, SDXL_PIX2PIX) only")
         t0 = time.time()
         lh, lw = gp.height // self.scale_factor, gp.width // self.scale_factor
         timings = {}
-        if init_image is not None and init_latent is None:
+        encoded = init_image is not None and init_latent is None
+        if encoded:
             init_latent = self._encode(init_image)
-            _sync(self.device)
-            timings["encode"] = time.time() - t0
         elif init_latent is not None:
             init_latent = torch.as_tensor(np.asarray(init_latent, dtype=np.float32))
+        concat = self._concat_latents(gp, init_image, mask_image, ref_images)
+        if sd_version_is_inpaint(self.version):
+            mask_image = None  # the inpainting UNet takes the mask in its input: no blend
+        if encoded or (concat[0] is not None and (init_image is not None or ref_images)):
+            _sync(self.device)
+            timings["encode"] = time.time() - t0
         latents, seeds, t_cond, t_sample, steps = self._denoise(
             gp, (lh, lw, self.latent_channels), (lh // 2) * (lw // 2), progress_callback,
-            cancel_check, init_latent=init_latent, mask_image=mask_image)
+            cancel_check, init_latent=init_latent, mask_image=mask_image, concat=concat)
         t1 = time.time()
         imgs = self.decode(latents).cpu().numpy()
         lat_np = latents.cpu().numpy()
@@ -548,7 +643,8 @@ class DiffusionPipeline:
         gp2 = dataclasses.replace(gp, width=tw, height=th,
                                   sample_steps=hires_steps or gp.sample_steps,
                                   strength=hires_strength, custom_sigmas=hires_sigmas)
-        return self.generate(gp2, init_latent=resize_latents(base.latents, th // sf, tw // sf))
+        return self.generate(gp2, init_latent=resize_latents(torch.from_numpy(base.latents), th // sf,
+                                                             tw // sf))
 
     @torch.inference_mode()
     def generate_video(self, gp: GenerationParams, frames: int = 81, init_image=None,

@@ -1,5 +1,6 @@
-"""HTTP server for the PyTorch/CUDA port: FLUX.1, SD1.x, SDXL and SD3 txt2img, img2img,
-masked img2img and the latent hires fix behind the reference's three API families
+"""HTTP server for the PyTorch/CUDA port: FLUX.1, SD1.x, SD2.x, SDXL and SD3 txt2img,
+img2img, masked img2img and the latent hires fix (the UNets' inpainting and
+instruct-pix2pix variants too) behind the reference's three API families
 (this package's copy of ``sdtpu/server.py``: ``Job``, ``JobManager``,
 ``flatten_native_params``, ``extract_extra_args``, ``params_from_json``, the image part
 of ``run_generation``, ``make_handler``, ``serve`` and ``main``).
@@ -18,14 +19,17 @@ Routes the port answers:
            GET /sdapi/v1/{samplers,schedulers,sd-models,progress}
   OpenAI:  POST /v1/images/generations, GET /v1/models
 img2img takes ``init_images`` (or ``init_image``) and ``mask`` as base64 PNGs
-(the mask's channel 0; 1 regenerate, 0 keep) with ``denoising_strength``;
+(the mask's channel 0; 1 regenerate, 0 keep; on an inpainting UNet both go
+into the model's input) with ``denoising_strength``; ``img_cfg_scale`` sets
+the image guidance of the inpainting and pix2pix UNets, and on a pix2pix
+UNet ``extra_images`` (base64 PNGs) names the edit image;
 ``enable_hr`` on a request without an init image runs the hires fix
 (``hr_scale``, ``hr_resize_x`` / ``hr_resize_y``, ``hr_steps``,
 ``denoising_strength``) with a latent ``hr_upscaler`` (``Latent*``, or the
 names the JAX server also resizes in latent space: ``Lanczos``, ``Nearest``,
 ``None``).  Every other route answers 501 with a JSON error naming it (no
 web UI).  A request that asks for what the port does not run (reference
-images, an ESRGAN ``hr_upscaler``, LoRA, video, a sampler outside
+images on any other model, an ESRGAN ``hr_upscaler``, LoRA, video, a sampler outside
 samplers.PORTED_METHODS, jpeg / webp output, a JPEG or WebP init image)
 answers 400, or fails its job, naming it.  A Wan2.1 model is refused at
 load (the reference's video answer is an animated WebP): the CLI's
@@ -244,12 +248,15 @@ def params_from_json(data: dict) -> GenerationParams:
     )
 
 
-def _refuse_unported(data: dict, gp: GenerationParams) -> None:
+def _refuse_unported(data: dict, gp: GenerationParams, takes_refs: bool = False) -> None:
+    """Raise ValueError naming the first field the port does not run;
+    ``takes_refs``: the pipeline takes ``extra_images`` (a pix2pix UNet)."""
     for field, what in UNPORTED_FIELDS.items():
-        if data.get(field):
+        if data.get(field) and not (takes_refs and field == "extra_images"):
             raise ValueError(f"request field {field!r}: {what} is not ported "
-                             "(the port runs FLUX.1, SD1.x, SDXL and SD3 txt2img, img2img, "
-                             "masked img2img and the latent hires fix)")
+                             "(the port runs FLUX.1, SD1.x, SD2.x, SDXL and SD3 txt2img, "
+                             "img2img, masked img2img and the latent hires fix, and reference "
+                             "images on the instruct-pix2pix UNets)")
     hr_name = str(data.get("hr_upscaler", "Latent"))
     if data.get("enable_hr") and not hr_name.lower().startswith(LATENT_UPSCALERS):
         raise ValueError(f"hr_upscaler {hr_name!r}: ESRGAN upscalers are not ported; the port "
@@ -271,11 +278,13 @@ def run_generation(pipeline, data: dict, job: Optional[Job] = None):
 
     import torch
 
+    from sdtpu_torch.config import sd_version_is_unet_edit
     from sdtpu_torch.utils.image import base64_png_to_image, build_parameters_text, image_to_base64
 
     data = flatten_native_params(data)
     gp = params_from_json(data)
-    _refuse_unported(data, gp)
+    takes_refs = sd_version_is_unet_edit(pipeline.version)
+    _refuse_unported(data, gp, takes_refs)
     out_fmt = str(data.get("output_format", "png")).lower()
     if out_fmt != "png":
         raise ValueError(f"output_format {out_fmt!r} needs Pillow, which the port does not use; "
@@ -289,6 +298,8 @@ def run_generation(pipeline, data: dict, job: Optional[Job] = None):
     if data.get("mask"):
         mask_image = base64_png_to_image(data["mask"])[..., 0]
     kw = {}
+    if takes_refs and data.get("extra_images"):  # the JAX server's A1111 reference images
+        kw["ref_images"] = [base64_png_to_image(b) for b in data["extra_images"]]
     if job is not None:
         # per-step progress + mid-run cancellation
         def _progress(step, steps, _x):
@@ -330,7 +341,7 @@ def make_handler(manager: JobManager):
 
         def _not_ported(self, method: str, p: str):
             self._json({"error": f"{method} {p} is not ported (the port serves FLUX.1, "
-                                  "SD1.x, SDXL and SD3 txt2img and img2img)"}, 501)
+                                  "SD1.x, SD2.x, SDXL and SD3 txt2img and img2img)"}, 501)
 
         def _read_json(self) -> Optional[dict]:
             """→ parsed body, or None after replying 400 to a bad payload."""

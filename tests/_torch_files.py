@@ -22,7 +22,13 @@ with its vocab; ``small_sd3_configs`` swaps SD3's full-size configs.  The
 Wan set is the JAX package's small Wan2.1 T2V pipeline as a Wan user's
 files: the DiT and the VAE as float16 safetensors under their original
 names, UMT5 as a q8_0 GGUF under llama.cpp names with its vocab;
-``small_wan_configs`` swaps Wan's full-size configs.
+``small_wan_configs`` swaps Wan's full-size configs.  The SD2.x,
+inpainting and instruct-pix2pix files are the JAX package's small pipelines
+of those versions as single files under the LDM names, SD2's text tower
+under OpenCLIP's (``cond_stage_model.model.``, one resblock more than the
+config reads and a square ``text_projection``, as SD2.x files hold them);
+``small_unet_family_configs`` swaps the SD1 and SD2 UNets', CLIP-L's,
+CLIP-H's and the SD VAE's full-size configs.
 """
 import dataclasses
 import struct
@@ -135,6 +141,70 @@ def small_sd1_configs(monkeypatch):
                                       ((tvae, jvae), "SD_VAE_CONFIG", vae)):
         monkeypatch.setattr(tmod, name, small)
         monkeypatch.setattr(jmod, name, type(getattr(jmod, name))(**dataclasses.asdict(small)))
+
+
+def write_small_unet_file(directory, jp, name: str) -> str:
+    """A small SD1.x / SD2.x pipeline of any stem as one float16 single file
+    under the LDM names (SD2's text tower under OpenCLIP's, with an extra
+    resblock and a square projection) → its path."""
+    path = f"{directory}/{name}_small.safetensors"
+    text = dict(jp.conditioner.params)
+    if jp.conditioner.is_sd2:
+        layers = "text_model.encoder.layers."
+        n = 1 + max(int(k.split(".")[3]) for k in text if k.startswith(layers))
+        text.update({k.replace("layers.0.", f"layers.{n}."): v for k, v in text.items()
+                     if k.startswith("text_model.encoder.layers.0.")})
+        width = text["text_model.final_layer_norm.weight"].shape[0]
+        text["text_projection.weight"] = np.eye(width, dtype=np.float32)
+        text_prefix, text = "cond_stage_model.model.", to_open_clip(text)
+    else:
+        text_prefix = "cond_stage_model.transformer."
+    host = {}
+    for prefix, params in (("model.diffusion_model.", jp.diffusion_params), (text_prefix, text),
+                           ("first_stage_model.", jp.vae_params)):
+        host.update({prefix + k: np.asarray(v, dtype=np.float16) for k, v in params.items()})
+    save_safetensors(path, host)
+    return path
+
+
+def small_unet_family_configs(monkeypatch):
+    """Swap the full-size configs both CLIs load SD1.x and SD2.x with (their
+    inpainting stems too) for the small ones of both factories: the small
+    SD1 UNet, its CLIP-L (SD2's text tower too) and its VAE."""
+    import sdtpu.models.clip as jclip
+    import sdtpu.models.unet as junet
+    import sdtpu.models.vae as jvae
+    import sdtpu_torch.models.clip as tclip
+    import sdtpu_torch.models.unet as tunet
+    import sdtpu_torch.models.vae as tvae
+    from sdtpu_torch.factory import sd1_configs
+
+    unet, clip, vae = sd1_configs(small=True)
+    inpaint = dataclasses.replace(unet, in_channels=9)
+    for (tmod, jmod), name, small in (((tunet, junet), "SD1_UNET_CONFIG", unet),
+                                      ((tunet, junet), "SD2_UNET_CONFIG", unet),
+                                      ((tunet, junet), "SD1_INPAINT_UNET_CONFIG", inpaint),
+                                      ((tunet, junet), "SD2_INPAINT_UNET_CONFIG", inpaint),
+                                      ((tclip, jclip), "CLIP_L_CONFIG", clip),
+                                      ((tclip, jclip), "CLIP_H_CONFIG", clip),
+                                      ((tvae, jvae), "SD_VAE_CONFIG", vae)):
+        monkeypatch.setattr(tmod, name, small)
+        monkeypatch.setattr(jmod, name, type(getattr(jmod, name))(**dataclasses.asdict(small)))
+
+
+def write_init_and_mask(directory):
+    """An RGBA init image and a grey mask (the right half regenerates) as
+    Pillow writes them → (init path, mask path)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(12)
+    rgba = rng.integers(0, 256, (64, 64, 4), dtype=np.uint8)
+    mask = np.zeros((64, 64), dtype=np.uint8)
+    mask[:, 32:] = 255
+    init, m = str(directory / "init.png"), str(directory / "mask.png")
+    Image.fromarray(rgba, mode="RGBA").save(init)
+    Image.fromarray(mask, mode="L").save(m)
+    return init, m
 
 
 def small_sdxl_pipeline():

@@ -31,9 +31,9 @@ sys.path.insert(0, os.path.dirname(__file__))  # tests/_torch_files.py
 from _torch_files import (small_configs, small_jax_pipeline, small_sd1_configs,  # noqa: E402
                           small_sd1_pipeline, small_sd3_configs, small_sd3_pipeline,
                           small_sdxl_configs, small_sdxl_pipeline, small_wan_configs,
-                          small_wan_pipeline, write_small_flux_files, write_small_sd1_file,
-                          write_small_sd3_files, write_small_sdxl_file, write_small_tae_file,
-                          write_small_wan_files)
+                          small_wan_pipeline, write_init_and_mask, write_small_flux_files,
+                          write_small_sd1_file, write_small_sd3_files, write_small_sdxl_file,
+                          write_small_tae_file, write_small_wan_files)
 
 
 @pytest.fixture(scope="module")
@@ -122,12 +122,14 @@ def test_metadata_mode_matches_jax(tmp_path, capsys, monkeypatch, fmt):
 UNPORTED = [
     ["--lora-model-dir", "loras"], ["--hires-upscaler", "RealESRGAN_x4plus"],
     ["--upscale-model", "esrgan.pth"], ["--type", "q8_0"],
-    ["--sampling-method", "heun"], ["--schedule", "karras"], ["--fa"], ["--no-progress"],
+    ["--sampling-method", "dpm2"], ["--schedule", "karras"], ["--fa"], ["--no-progress"],
     ["--vae-on-cpu"], ["--control-net", "cn.safetensors"], ["--llm", "qwen.gguf"],
     ["--backend", "clip=cpu,diffusion=cuda0"], ["--backend", "tpu0"], ["--dtype", "f16"],
     ["-p", "a <lora:detail:0.8> cat"], ["convert"], ["-M", "vid_gen"],
     ["--embd-dir", "embeddings"],  # textual inversion (SD1's EmbeddingMixin)
     ["--taesd", "taesd.safetensors", "--taesd-preview-only"],  # the port has no preview
+    # denoisers the port does not have
+    ["--prediction", "edm_v"], ["--prediction", "sefi_flow"], ["--prediction", "minit2i_flow"],
 ]
 
 
@@ -264,21 +266,6 @@ def test_sd15_file_tool_writes_a_file_the_cli_answers_from(monkeypatch, tmp_path
     assert report["load"]["version"] == "sd1" and report["timings"]["steps"] == 2
 
 
-def _write_init_and_mask(directory):
-    """An RGBA init image and a grey mask (the right half regenerates) as
-    Pillow writes them → (init path, mask path)."""
-    from PIL import Image
-
-    rng = np.random.default_rng(12)
-    rgba = rng.integers(0, 256, (64, 64, 4), dtype=np.uint8)
-    mask = np.zeros((64, 64), dtype=np.uint8)
-    mask[:, 32:] = 255
-    init, m = str(directory / "init.png"), str(directory / "mask.png")
-    Image.fromarray(rgba, mode="RGBA").save(init)
-    Image.fromarray(mask, mode="L").save(m)
-    return init, m
-
-
 IMG2IMG_REQUESTS = {
     # (family, argv, with the init image, with the mask)
     "flux_mask": ("flux", ["-p", "a lantern on a wooden table", "-W", "64", "-H", "64", "--steps",
@@ -322,7 +309,7 @@ def test_cli_img2img_and_hires_match_jax_cli(request, monkeypatch, tmp_path, nam
         args = ["-m", request.getfixturevalue("sd1_file")]
         small_sd1_configs(monkeypatch)
     monkeypatch.setenv("SDTPU_COMPILE_CACHE", str(tmp_path / "xla"))
-    init, mask = _write_init_and_mask(tmp_path)
+    init, mask = write_init_and_mask(tmp_path)
     args += argv + (["-i", init] if with_init else []) + (["--mask", mask] if with_mask else [])
     report = {}
     assert cli.main(args + ["--backend", "cpu", "-o", str(tmp_path / "port.png")],
@@ -445,23 +432,30 @@ def test_sdxl_split_modules_matches_jax(sdxl_files, tmp_path):
 
 
 def test_sdxl_variants_stay_refused(sdxl_files, tmp_path):
-    """SDXL inpaint (a 9-channel stem) and SSD-1B (no 10-deep middle block)
-    are refused by name."""
+    """SSD-1B (no 10-deep middle block) stays refused by name; SDXL inpaint
+    (a 9-channel stem) and pix2pix (8) load, fingerprinted as both
+    packages' loaders do."""
+    from sdtpu.io.model_loader import load_model_bundle as jax_load_model_bundle
     from sdtpu.io.safetensors import save_safetensors
     from sdtpu_torch.io.model_loader import load_model_bundle
     from sdtpu_torch.io.safetensors import load_safetensors
 
     tensors = load_safetensors(sdxl_files["model"])
     stem = "model.diffusion_model.input_blocks.0.0.weight"
-    inpaint = dict(tensors)
-    w = inpaint[stem]
-    inpaint[stem] = np.concatenate([w, np.zeros((w.shape[0], 5) + w.shape[2:], w.dtype)], axis=1)
-    ssd = {k: v for k, v in tensors.items() if ".middle_block.1.transformer_blocks." not in k}
-    for name, t in (("sdxl_inpaint", inpaint), ("sdxl_ssd1b", ssd)):
+    w = tensors[stem]
+    for name, extra in (("sdxl_inpaint", 5), ("sdxl_pix2pix", 4)):
+        t = dict(tensors)
+        t[stem] = np.concatenate([w, np.zeros((w.shape[0], extra) + w.shape[2:], w.dtype)], axis=1)
         path = str(tmp_path / f"{name}.safetensors")
         save_safetensors(path, t)
-        with pytest.raises(NotImplementedError, match=name):
-            load_model_bundle(model_path=path)
+        got = load_model_bundle(model_path=path)
+        assert got.version.value == jax_load_model_bundle(model_path=path).version.value == name
+        assert got.diffusion[stem[len("model.diffusion_model."):]].shape[1] == 4 + extra
+    ssd = {k: v for k, v in tensors.items() if ".middle_block.1.transformer_blocks." not in k}
+    path = str(tmp_path / "sdxl_ssd1b.safetensors")
+    save_safetensors(path, ssd)
+    with pytest.raises(NotImplementedError, match="sdxl_ssd1b"):
+        load_model_bundle(model_path=path)
 
 
 def test_sdxl_file_tool_writes_files_the_cli_answers_from(monkeypatch, tmp_path):

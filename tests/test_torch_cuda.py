@@ -211,15 +211,17 @@ def test_flash_unet_head_dims_match_plain(cuda, dtype, tol, d, bh, lq, lk, bias,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, FLASH_F32_TOL)])
-@pytest.mark.parametrize("b,h,lq,lk,d,bias",
-                         chip_smoke.SDXL_FLASH_SHAPES + chip_smoke.SD3_FLASH_SHAPES)
+@pytest.mark.parametrize("b,h,lq,lk,d,bias", chip_smoke.SDXL_FLASH_SHAPES
+                         + chip_smoke.SD3_FLASH_SHAPES + chip_smoke.SD2_FLASH_SHAPES)
 def test_flash_sdxl_shapes_match_plain(cuda, dtype, tol, b, h, lq, lk, d, bias):
     """The D 64 calls at 1024² under CFG of the SDXL UNet (10 heads over
     4096 tokens, 20 over 1024, their 77-key cross-attention), CLIP-G's causal
-    call and SD3.5-Medium (the joint attention over 154 + 4096 tokens,
+    call, SD3.5-Medium (the joint attention over 154 + 4096 tokens,
     ragged on every 128-row and 128-key tile, its scores drawn negative by
-    ``chip_smoke.flash_inputs``; MMDiT-X's second self-attention over 4096),
-    both dtypes, at the limits of ``chip_smoke.py``; a bf16 call counts in
+    ``chip_smoke.flash_inputs``; MMDiT-X's second self-attention over 4096)
+    and SD2.1-768-v at 768² (5 heads over 9216 tokens, q around +1 and k
+    around -1, with its cross-attention over 77; 10 over 2304, 20 over 576;
+    OpenCLIP-H's causal call), both dtypes, at the limits of ``chip_smoke.py``; a bf16 call counts in
     ``launches_d64``, a float32 one in ``launches_f32``.  The bf16 faults
     (the last 128-key tile dropped; unmasked pad keys, where Lk is off the
     tile) exceed the limit."""
@@ -285,6 +287,39 @@ def test_flash_d512_at_sd3_decode_matches_plain(cuda):
     faults = chip_smoke._d512_faults(q, k, v, mask, want)
     assert faults.pop("splits") == _build.query("sdtpu_flash_splits", 0, b * h, lq, lk, d)
     assert faults and all(f > limit for f in faults.values()), faults
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_d512_at_sd2_decode_matches_plain(cuda, dtype):
+    """The SD VAE's mid-block attention over the untiled 768² decode's 9216
+    tokens (``chip_smoke.SD2_VAE_FLASH_SHAPE``), q around +1 and k around
+    -1: the launcher splits the keys; one launch in ``launches_d512`` (bf16)
+    or ``launches_f32``, within ``chip_smoke.py``'s limit of the plain
+    version, and the faults of that split (bf16: the last 32-key tile of a
+    split dropped, split partials merged without their rescale; float32:
+    the same merge, and one TF32 pass) exceed the limit."""
+    b, h, lq, lk, d = chip_smoke.SD2_VAE_FLASH_SHAPE
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    g = torch.Generator(device=cuda).manual_seed(lq)
+    q, k, v, mask = chip_smoke.flash_inputs(g, b, h, lq, lk, d, dtype, "neg_scores")
+    counter = "launches_d512" if dt == "bf16" else "launches_f32"
+    before = (fa.flash_attention.launches, getattr(fa.flash_attention, counter))
+    got = fa.flash_attention(q, k, v, mask=mask)
+    assert (fa.flash_attention.launches, getattr(fa.flash_attention, counter)) == (
+        before[0] + 1, before[1] + 1)
+    want = fa.plain_attention(q, k, v, mask=mask)
+    limit = chip_smoke.FLASH_TOL[dt] * want.float().abs().max().item()
+    assert torch.isfinite(got).all() and (got.float() - want.float()).abs().max().item() <= limit
+    splits = _build.query("sdtpu_flash_splits", _build.DTYPE_CODES[dtype], b * h, lq, lk, d)
+    assert splits > 1
+    if dt == "bf16":
+        faults = chip_smoke._d512_faults(q, k, v, mask, want)
+        assert faults.pop("splits") == splits
+    else:
+        faults = {**chip_smoke._one_pass_tf32_fault(q, k, v, mask, want),
+                  **chip_smoke._split_fault(q, k, v, mask, want, splits)}
+    assert len(faults) == 2 and all(f > limit for f in faults.values()), faults
 
 
 @pytest.mark.cuda

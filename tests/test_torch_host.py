@@ -307,19 +307,22 @@ def test_diffusers_names_round_trip(small_dit):
 
 
 @pytest.mark.parametrize("tensors,family", [
-    # SD1 inpaint: the UNet stem takes 9 channels
-    ({"input_blocks.0.0.weight": np.zeros((4, 9, 3, 3), np.float32)}, "sd1_inpaint"),
+    # SD1 tiny: no middle block, output block 7 kept
+    ({"input_blocks.0.0.weight": np.zeros((4, 4, 3, 3), np.float32),
+      "output_blocks.7.1.proj_in.weight": np.zeros((8, 8), np.float32)}, "sd1_tiny_unet"),
     # SSD-1B: SDXL's label embedding without the 10-deep middle block
     ({"input_blocks.0.0.weight": np.zeros((4, 4, 3, 3), np.float32),
       "label_emb.0.0.weight": np.zeros((8, 16), np.float32)}, "sdxl_ssd1b"),
-    # SD2: a 1024-wide cross-attention context
+    # SD2 tiny: a 1024-wide cross-attention context, no middle block
     ({"input_blocks.0.0.weight": np.zeros((4, 4, 3, 3), np.float32),
-      "input_blocks.1.1.transformer_blocks.0.attn2.to_k.weight": np.zeros((8, 1024), np.float32)},
-     "sd2"),
+      "input_blocks.1.1.transformer_blocks.0.attn2.to_k.weight": np.zeros((8, 1024), np.float32),
+      "output_blocks.2.0.in_layers.0.weight": np.zeros((8,), np.float32)},
+     "sd2_tiny_unet"),
 ])
 def test_load_model_bundle_refuses_other_families(tmp_path, tensors, family):
-    """The port loads FLUX, SD1.x and SDXL; another UNet family (SDXL's
-    variants too) is refused by name."""
+    """The port loads FLUX, the SD1.x / SD2.x / SDXL UNets (their inpainting
+    and pix2pix stems too), SD3 and Wan2.1 T2V; another UNet family (the
+    tiny UNets, SDXL's SSD-1B) is refused by name."""
     path = str(tmp_path / "unet.safetensors")
     save_safetensors(path, tensors)
     with pytest.raises(NotImplementedError, match=f"a {family}"):

@@ -233,7 +233,8 @@ def test_masked_img2img_matches_jax(sd1, flux, family):
 def test_resize_latents_matches_jax_image_resize(lh, lw):
     x = np.random.default_rng(7).standard_normal((2, 8, 8, 4), dtype=np.float32)
     want = np.asarray(jax.image.resize(jnp.asarray(x), (2, lh, lw, 4), method="bilinear"))
-    np.testing.assert_allclose(resize_latents(x, lh, lw), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(resize_latents(torch.from_numpy(x), lh, lw).numpy(), want, rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("base,kw", [

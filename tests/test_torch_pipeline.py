@@ -191,8 +191,8 @@ def test_synthesized_small_pipeline_runs():
 
 def test_unported_requests_raise(pipes):
     _, tp = pipes
-    with pytest.raises(NotImplementedError, match="heun"):
-        tp.generate(_gp(sample_method="heun"))
+    with pytest.raises(NotImplementedError, match="dpm2"):
+        tp.generate(_gp(sample_method="dpm2"))
     with pytest.raises(NotImplementedError, match="HUNYUAN_VIDEO"):
         create_pipeline(SDVersion.HUNYUAN_VIDEO, small=True, device="cpu")
 

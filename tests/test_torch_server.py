@@ -10,7 +10,10 @@ object) match the JAX server's images; unported routes answer 501,
 unported request fields (an ESRGAN ``hr_upscaler``, a JPEG init image) 400.  ``server.main`` also loads a small SDXL file
 with a TAESD-XL decoder (``tests/_torch_files.py``), and a small SD3.5 file
 set, and answers an A1111 request with the JAX CLI's image on the same
-files.
+files.  On a small SD1.5-inpainting file ``/sdapi/v1/img2img`` with a mask
+and ``img_cfg_scale``, and on a small instruct-pix2pix file an A1111
+request with ``extra_images`` and ``img_cfg_scale``, answer with the JAX
+CLI's image on the same file and request.
 """
 import base64
 import io
@@ -38,8 +41,9 @@ from sdtpu_torch.weights import from_jax_params
 
 sys.path.insert(0, os.path.dirname(__file__))  # tests/_torch_files.py
 
-from _torch_files import (small_sd3_configs, small_sdxl_configs, write_small_sd3_files,  # noqa: E402
-                          write_small_sdxl_file, write_small_tae_file)
+from _torch_files import (small_sd3_configs, small_sdxl_configs,  # noqa: E402
+                          small_unet_family_configs, write_small_sd3_files, write_small_sdxl_file,
+                          write_small_tae_file, write_small_unet_file)
 
 
 def _serve(httpd):
@@ -251,7 +255,7 @@ def test_unported_routes_answer_501(servers, method, path):
 
 def test_listings_name_what_the_port_runs(servers):
     base = servers["port"]
-    ported = ["euler", "euler_a", "dpm++2s_a", "dpm++2m", "ipndm", "lcm"]
+    ported = ["euler", "euler_a", "heun", "dpm++2s_a", "dpm++2m", "ipndm", "lcm"]
     assert [s["name"] for s in _call(base, "/sdapi/v1/samplers")[1]] == ported
     assert [s["name"] for s in _call(base, "/sdapi/v1/schedulers")[1]] == ["discrete", "flux"]
     caps = _call(base, "/sdcpp/v1/capabilities")[1]
@@ -336,5 +340,70 @@ def test_sd3_server_answers_a1111_dpmpp2m_from_files(monkeypatch, tmp_path):
                               "--sampling-method", "dpm++2m", "-o", png]) == 0
     from PIL import Image  # as _png reads the answers
 
+    theirs = np.asarray(Image.open(png)).astype(int)
+    assert ours.shape == theirs.shape and np.abs(ours - theirs).max() <= 1
+
+
+def test_reference_images_are_refused_off_the_pix2pix_unets(servers):
+    """``extra_images`` on a model that takes no edit image (FLUX) answers
+    400 naming it."""
+    code, resp = _call(servers["port"], "/sdapi/v1/txt2img",
+                       {"prompt": "x", "extra_images": [_b64(np.zeros((8, 8, 3), np.uint8))]})
+    assert code == 400 and "reference images" in resp["error"], resp
+
+
+@pytest.mark.parametrize("version", ["sd1_inpaint", "sd1_pix2pix"])
+def test_inpaint_and_pix2pix_servers_answer_from_files(monkeypatch, tmp_path, version):
+    """``server.main`` on a small SD1.5-inpainting file answers a masked
+    ``/sdapi/v1/img2img`` (strength 1, ``img_cfg_scale`` 2), on a small
+    instruct-pix2pix file an A1111 txt2img with the edit image in
+    ``extra_images`` and ``img_cfg_scale`` 1.5: the JAX CLI's image (``-i``
+    / ``--mask``, or ``-r``, and ``--img-cfg-scale``) on the same file and
+    request, within one uint8 level."""
+    from PIL import Image
+
+    import sdtpu.cli as jcli
+
+    small_unet_family_configs(monkeypatch)
+    monkeypatch.setenv("SDTPU_COMPILE_CACHE", str(tmp_path / "xla"))
+    model = write_small_unet_file(
+        tmp_path, jax_create_pipeline(getattr(jconfig.SDVersion, version.upper()), small=True,
+                                      seed=0), version)
+    rng = np.random.default_rng(31)
+    img = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    mask = np.zeros((64, 64), np.uint8)
+    mask[:, 32:] = 255
+    init_png, mask_png = str(tmp_path / "init.png"), str(tmp_path / "mask.png")
+    Image.fromarray(img).save(init_png)
+    Image.fromarray(mask, mode="L").save(mask_png)
+    body = {"prompt": "a red sofa", "width": 64, "height": 64, "steps": 3, "seed": 8,
+            "sampler_name": "euler"}
+    argv = ["-p", body["prompt"], "-W", "64", "-H", "64", "--steps", "3", "-s", "8",
+            "--sampling-method", "euler"]
+    if version == "sd1_inpaint":
+        route = "/sdapi/v1/img2img"
+        body.update(init_images=[_b64(img)], mask=_b64(mask, mode="L"), denoising_strength=1.0,
+                    img_cfg_scale=2.0)
+        argv += ["-i", init_png, "--mask", mask_png, "--strength", "1.0", "--img-cfg-scale", "2"]
+    else:
+        route = "/sdapi/v1/txt2img"
+        body.update(extra_images=[_b64(img)], cfg_scale=7.5, img_cfg_scale=1.5)
+        argv += ["-r", init_png, "--cfg-scale", "7.5", "--img-cfg-scale", "1.5"]
+    box = queue.Queue()
+    thread = threading.Thread(target=server.main, daemon=True, kwargs=dict(
+        argv=["-m", model, "--backend", "cpu", "--port", "0"], ready=box.put))
+    thread.start()
+    httpd = box.get(timeout=300)
+    try:
+        code, resp = _call(f"http://127.0.0.1:{httpd.server_address[1]}", route, body)
+        loaded = httpd.manager.pipeline.version.value
+    finally:
+        httpd.shutdown()
+        thread.join(timeout=60)
+    assert code == 200, resp
+    assert loaded == version
+    ours, _ = _png(resp["images"][0])
+    png = str(tmp_path / "jax.png")
+    assert jcli.main(["-m", model] + argv + ["-o", png]) == 0
     theirs = np.asarray(Image.open(png)).astype(int)
     assert ours.shape == theirs.shape and np.abs(ours - theirs).max() <= 1

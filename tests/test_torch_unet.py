@@ -121,7 +121,7 @@ def test_attention_calls_count_the_forward(monkeypatch):
 
 
 def test_unported_unet_variants_raise_by_name():
-    for version in (SDVersion.SD2, SDVersion.SD1_TINY_UNET, SDVersion.SVD):
+    for version in (SDVersion.SD2_TINY_UNET, SDVersion.SD1_TINY_UNET, SDVersion.SVD):
         with pytest.raises(NotImplementedError, match=version.name):
             create_pipeline(version, small=True, device="cpu")
     with pytest.raises(ValueError, match="label embedding"):
@@ -224,7 +224,7 @@ def test_sampler_steps_match_jax(method, eta):
 
 
 def test_unported_samplers_raise_by_name():
-    for method in ("heun", "dpm2", "dpm++2m_v2", "ipndm_v", "tcd"):
+    for method in ("dpm2", "dpm++2m_v2", "ipndm_v", "tcd"):
         with pytest.raises(NotImplementedError, match=method.replace("+", r"\+")):
             tsamplers.sample(lambda x, s, i: (x, x), torch.zeros(1), _sigmas(2), method=method)
     with pytest.raises(NotImplementedError, match="dpm\\+\\+2s_a"):
