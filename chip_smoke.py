@@ -278,14 +278,26 @@ and reads them after: each kernel that path runs must have launched.  The
 ``q4_matmul_splitk``; the ``q4_0`` path must run its M = 1 linears through
 the GEMV and no call through the split-K form.
 The W8A8, group-dequant and W8A16 wrappers count their weight-streaming
-GEMV (M <= 8) and their ``mma.sync`` form apart (``w8a8_matmul_gemv``,
-``w8a8_matmul_mma``, ``gq_matmul_gemv``, ``gq_matmul_mma``,
-``w8a16_matmul_gemv``, ``w8a16_matmul_mma``): the ``int8``, ``w8a16`` and
-``q8_0_gguf`` paths, like ``q4_0``, must run every DiT linear of M <= 8 (M =
-1, or 4 under CFG with a batch of two) through the GEMV and no call through
-the ``mma.sync`` form.  The W8A8 GEMV quantizes x in its one launch, so its
-cases' ``device_ms`` (one kernel a call) also shows that no row-quantize
-launch runs in front of it.
+GEMV (M <= 8), their split-K form (8 < M < 128) and their wgmma form apart
+(``w8a8_matmul_gemv``, ``w8a8_matmul_splitk``, ``w8a8_matmul_wgmma``, and
+the same for ``gq_matmul`` and ``w8a16_matmul``; the affine matmul's
+``mma.sync`` form, the one left below 128 rows, as ``gq_zero_matmul_mma``):
+the ``int8``, ``w8a16`` and ``q8_0_gguf`` paths, like ``q4_0``, must run
+every DiT linear of M <= 8 (M = 1, or 4 under CFG with a batch of two)
+through the GEMV and no call through the split-K form.  The W8A8 GEMV
+quantizes x in its one launch, so its cases' ``device_ms`` (one kernel a
+call) also shows that no row-quantize launch runs in front of it.
+The int8 SDXL paths (``sdxl_q8``: the UNet per-row int8 on W8A8;
+``sdxl_q8_w8a16``: the same weights under SDTPU_QUANT_MODE=w8a16;
+``sdxl_q8_gguf``: group-32 int8 blocks; ``sdxl_q8_cli`` / ``sdxl_q8_server``:
+``cli.main`` / ``server.main`` with ``--type q8_0`` on the SDXL file)
+answer the bench's SDXL request (1024², 4 lcm
+steps, CFG 1, TAESD-XL) and must run their class's split-K form exactly 140
+times a UNet forward (the context projections at 77 rows), every launch of
+their wrapper in a form that is not ``mma.sync`` (the wrapper's count equal
+to its forms' sum), flash as ``_check_unet_family`` holds it; the first
+three also hold one full-width UNet forward against the same forward with
+every quantized linear in its plain version on the card (REF_REL_TOL).
 The float32 forms of flash, the 4-bit, group-dequant, affine and W8A16
 matmuls are counted apart (``flash_attention_f32``, ``q4_matmul_f32``,
 ``gq_matmul_f32``, ``gq_zero_matmul_f32``, ``w8a16_matmul_f32``): the
@@ -293,7 +305,7 @@ float32 paths run every launch of the flash, 4-bit and W8A16 wrappers in
 them and no bf16 form, the bf16 request paths none of them; the loader's
 float32 forward runs the 4-bit, group-dequant and affine ones.
 The ``cli`` path must run flash at D 64 (CLIP-L), 128 (the DiT) and 512 (the
-VAE), the W8A8 GEMV and wgmma forms and no ``mma.sync`` form; the
+VAE), the W8A8 GEMV and wgmma forms and no form for 8 < M < 128; the
 ``server`` path the group-dequant GEMV and wgmma forms, flash, and no W8A8.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -349,6 +361,11 @@ KERNEL_INFO = {
     "gq_matmul_gemv": (GQ_SRC, "sdtpu/ops/quant.py:616"),
     "w8a16_matmul_gemv": (GQ_SRC, "sdtpu/ops/quant.py:525"),
     "w8a16_matmul_f32": (GQ_SRC, "sdtpu/ops/quant.py:525"),
+    # the int8 split-K forms (M 9-127): an int8 SDXL UNet's context
+    # projections at CFG 1
+    "w8a8_matmul_splitk": (W8A8_SRC, "sdtpu/ops/quant.py:416"),
+    "gq_matmul_splitk": (GQ_SRC, "sdtpu/ops/quant.py:616"),
+    "w8a16_matmul_splitk": (GQ_SRC, "sdtpu/ops/quant.py:525"),
 }
 
 # W8A8 at FLUX.1-dev shapes (M tokens, K in, N out): 4352 = 4096 img + 256 txt
@@ -544,9 +561,24 @@ Q4_F32_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES]
 # a truncating MMA chain would show), and a ragged shape
 W8A16_F32_CASES = [(1, 3072, 18432), (9, 3072, 18432), (128, 3072, 12288), (4352, 3072, 12288),
                    (4352, 12288, 3072), (4352, 15360, 3072), (300, 1040, 130)]
+# The int8 split-K forms (W8A8 with bf16 and float32 x, group-dequant at
+# groups 32 and 16, W8A16) at the first path that runs them, an int8 SDXL
+# UNet at CFG 1, whose 140 context projections a forward (attn2.to_k / to_v
+# over CLIP's 77 tokens) are 77x2048->640 and ->1280; a DiT-wide
+# 3072->12288 at each of the forms' x tiles (9, 16, 64, 100, 127 rows) and
+# 9x3072->18432; and W8A8 at 4x20480->3072, where M <= 8 but x would not fit
+# the GEMV's shared memory.  Each case records its K splits and is read on
+# the device clock; W8A8 is held bit-equal with an all-zero x row, the
+# others within GQ_REL_TOL with the plain split-and-sum without its last
+# split (``drop_k_split``) as a fault that must exceed it; a second call is
+# bit-identical.
+SDXL_CONTEXT_SHAPES = [(77, 2048, 640), (77, 2048, 1280)]
+INT8_SPLITK_SHAPES = SDXL_CONTEXT_SHAPES + [(m, 3072, 12288) for m in (9, 16, 64, 100, 127)] + [
+    (9, 3072, 18432)]
+W8A8_LONG_K_SHAPES = [(4, 20480, 3072)]
 Q4_FORMS = ("gemv", "splitk", "wgmma", "f32")  # sdtpu_q4_form's codes
-GQ_FORMS = ("gemv", "mma", "wgmma", "f32")  # sdtpu_gq_form's codes
-W8A8_FORMS = ("gemv", "mma", "wgmma")  # sdtpu_w8a8_form's codes
+GQ_FORMS = ("gemv", "mma", "wgmma", "f32", "splitk")  # sdtpu_gq_form's codes
+W8A8_FORMS = ("gemv", "splitk", "wgmma")  # sdtpu_w8a8_form's codes
 Q4_DIT_GROUP = 32
 
 # Why each tolerance:
@@ -690,7 +722,7 @@ PATH_KERNELS = {
 F32_FORMS = ("flash_attention_f32", "q4_matmul_f32", "w8a16_matmul_f32", "gq_matmul_f32",
              "gq_zero_matmul_f32")
 F32_IDLE = ("flash_attention_d512", "q4_matmul_wgmma", "q4_matmul_gemv", "w8a16_matmul_gemv",
-              "w8a16_matmul_mma", "gq_matmul", "gq_matmul_ws", "gq_zero_matmul")
+              "w8a16_matmul_splitk", "gq_matmul", "gq_matmul_ws", "gq_zero_matmul")
 PATH_IDLE = {"int8": ("q4_matmul_gemv", "gq_matmul_gemv", "w8a16_matmul_gemv", *F32_FORMS),
              "w8a16": ("w8a8_matmul", "w8a8_matmul_gemv", "q4_matmul_gemv", "gq_matmul_gemv",
                        *F32_FORMS),
@@ -702,7 +734,7 @@ PATH_IDLE = {"int8": ("q4_matmul_gemv", "gq_matmul_gemv", "w8a16_matmul_gemv", *
                       "gq_matmul_ws", "gq_zero_matmul", *F32_FORMS),
              "f32": ("w8a16_matmul", *F32_IDLE),
              "f32_w8a16": ("w8a8_matmul", "w8a8_matmul_gemv", *F32_IDLE),
-             "cli": ("w8a8_matmul_mma", "gq_matmul", "gq_zero_matmul", "q4_matmul",
+             "cli": ("w8a8_matmul_splitk", "gq_matmul", "gq_zero_matmul", "q4_matmul",
                      "w8a16_matmul", *F32_FORMS),
              "server": ("w8a8_matmul", "w8a8_matmul_gemv", "q4_matmul", "w8a16_matmul",
                         "gq_zero_matmul", *F32_FORMS)}
@@ -723,6 +755,24 @@ for _path in ("sdxl", "sdxl_cli", "sdxl_server"):
 PATH_KERNELS["sdxl"] += ("flash_attention_d512",)
 PATH_IDLE["sdxl_cli"] += ("flash_attention_d512",)
 PATH_IDLE["sdxl_server"] += ("flash_attention_d512",)
+# the int8 SDXL paths: flash at D 64 (the UNet and both CLIPs), their
+# class's wrapper in its GEMV (M = 1: the time and label embedders, each
+# ResBlock's emb_layers), split-K (the 77-row context projections) and wgmma
+# (the latent tokens: gq_matmul_ws at M >= GQ_WS_MIN_M) forms, no other
+# quantized matmul, no float32 form
+SDXL_QUANT_WRAPPER = {"sdxl_q8": "w8a8_matmul", "sdxl_q8_w8a16": "w8a16_matmul",
+                      "sdxl_q8_gguf": "gq_matmul", "sdxl_q8_cli": "w8a8_matmul",
+                      "sdxl_q8_server": "w8a8_matmul"}
+INT8_KERNELS = {"w8a8_matmul": ("w8a8_matmul", "w8a8_matmul_gemv", "w8a8_matmul_splitk",
+                                "w8a8_matmul_wgmma"),
+                "w8a16_matmul": ("w8a16_matmul", "w8a16_matmul_gemv", "w8a16_matmul_splitk",
+                                 "w8a16_matmul_wgmma"),
+                "gq_matmul": ("gq_matmul", "gq_matmul_gemv", "gq_matmul_splitk", "gq_matmul_ws")}
+for _path, _w in SDXL_QUANT_WRAPPER.items():
+    PATH_KERNELS[_path] = ("flash_attention", "flash_attention_d64", *INT8_KERNELS[_w])
+    PATH_IDLE[_path] = (*(k for ks in INT8_KERNELS.values() for k in ks if k not in INT8_KERNELS[_w]),
+                        "q4_matmul", "gq_zero_matmul", "gq_zero_matmul_mma", *F32_FORMS, *UNET_FLASH,
+                        "flash_attention_d512")
 PATH_KERNELS["sdxl_f32"] = ("flash_attention", "flash_attention_f32")
 PATH_IDLE["sdxl_f32"] = (*QUANT_KERNELS, *UNET_FLASH, "flash_attention_d64", "flash_attention_d512",
                          "q4_matmul_f32", "w8a16_matmul_f32", "gq_matmul_f32", "gq_zero_matmul_f32")
@@ -1037,7 +1087,7 @@ def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, bnd, libra
     err = (got.float() - want.float()).abs().max().item()
     tol = tol_rel * want.float().abs().max().item()
     ms = time_ms(fn, it)
-    if shape[0] <= quant.GQ_GEMV_MAX_M:
+    if shape[0] <= quant.GQ_GEMV_MAX_M and extra.get("form") != "splitk":  # one kernel a call
         extra["device_ms"] = device_ms(fn, it)
     elif device_clock:
         extra["device_ms"] = device_ms_sum(fn, it)
@@ -1093,7 +1143,8 @@ def check_w8a8(results):
                  iters_for(2.0 * m * n * k),
                  bound(2.0 * m * n * k, nbytes(x, qt.q, qt.scale, got[:m]), "int8"),
                  library=library, library_note=note, dtype=dt,
-                 form=W8A8_FORMS[_build.query("sdtpu_w8a8_form", m, k)])
+                 form=W8A8_FORMS[_build.query("sdtpu_w8a8_form", m, k)],
+                 splits=_build.query("sdtpu_w8a8_splits", m, n, k))
         del x, xs, xq, qt, got, want, library
 
 
@@ -1361,16 +1412,13 @@ def _int4pack_library(x, qt, want):
     return _yardstick(lambda: torch._weight_int4pack_mm(x, w, qt.group, sz), want)
 
 
-def _drop_split_fault(x, qt, want, splits: int) -> dict:
-    """The split-K form's fault, in plain PyTorch on the case's inputs: the
+def _drop_split_fault(x, qt, want, splits: int, w8a8: bool = False) -> dict:
+    """A split-K form's fault, in plain PyTorch on the case's inputs: the
     ``splits`` K splits summed without the last one (with one split, the
     whole sum dropped)."""
-    import torch
-
     from sdtpu_torch.ops import quant
 
-    parts = quant.split_k_partials(x, qt, splits)
-    got = quant.combine_splits(parts[:-1], x.dtype) if len(parts) > 1 else torch.zeros_like(want)
+    got = quant.split_k_matmul(x, qt, splits, w8a8=w8a8, keep=-1)
     return {"drop_k_split": (got.float() - want.float()).abs().max().item()}
 
 
@@ -1470,12 +1518,13 @@ def check_group_quant(results):
         faults, f64 = (None, {}) if dt == "bf16" else _f32_matmul_checks(
             x, quant.dequantize_group(qt, torch.float32), got, want)
         mode = quant.GQ_MODE_AFFINE if affine else quant.GQ_MODE_GROUP
+        code = GQ_FORMS[_build.query("sdtpu_gq_form", _build.DTYPE_CODES[dtype], mode, m)]
         _compare(results, form, (m, k, n), got, want,
                  GQ_REL_TOL[dt], lambda: fn(x, qt), lambda: quant.group_quant_matmul_plain(x, qt),
                  iters_for(2.0 * m * n * k),
                  quant_bound(m, k, n, nbytes(x, qt.q, qt.scale, qt.zero, got), dt),
                  library_note=GQ_NO_LIBRARY, faults=faults, **f64, group=group, dtype=dt,
-                 form=GQ_FORMS[_build.query("sdtpu_gq_form", _build.DTYPE_CODES[dtype], mode, m)],
+                 form=code, splits=_build.query("sdtpu_gq_splits", m, n, k) if code == "splitk" else 0,
                  tile_rows=_build.query("sdtpu_f32_tile_rows", m, n) if dt == "f32" else 0)
         del x, qt, got, want
 
@@ -1502,21 +1551,85 @@ def check_w8a16(results):
         library, note = _yardstick(lambda: torch._weight_int8pack_mm(x, qt.q, s_lib), want)
         faults, f64 = (None, {}) if dt == "bf16" else _f32_matmul_checks(
             x, quant.dequantize(qt, torch.float32), got, want)
+        code = GQ_FORMS[_build.query("sdtpu_gq_form", _build.DTYPE_CODES[dtype],
+                                     quant.GQ_MODE_ROW_SCALE, m)]
         _compare(results, "w8a16_matmul", (m, k, n), got, want, GQ_REL_TOL[dt],
                  lambda: quant.w8a16_matmul(x, qt), lambda: quant.w8a16_matmul_plain(x, qt),
                  iters_for(2.0 * m * n * k),
                  quant_bound(m, k, n, nbytes(x, qt.q, qt.scale, got), dt),
-                 library=library, library_note=note, faults=faults, **f64, dtype=dt,
-                 form=GQ_FORMS[_build.query("sdtpu_gq_form", _build.DTYPE_CODES[dtype],
-                                            quant.GQ_MODE_ROW_SCALE, m)],
+                 library=library, library_note=note, faults=faults, **f64, dtype=dt, form=code,
+                 splits=_build.query("sdtpu_gq_splits", m, n, k) if code == "splitk" else 0,
                  tile_rows=_build.query("sdtpu_f32_tile_rows", m, n) if dt == "f32" else 0)
+        del x, qt, got, want, library
+
+
+def check_int8_splitk(results):
+    """The int8 split-K cases (INT8_SPLITK_SHAPES, W8A8_LONG_K_SHAPES): each
+    form the library ran (``form`` splitk), its ``splits``, a second call
+    bit-identical, the device clock.  Yardsticks: ``torch._int_mm`` on the
+    same int8 operands for W8A8's GEMM alone (it refuses M <= 16: the
+    refusal is the case's ``library_note``), ``torch._weight_int8pack_mm``
+    for W8A16; the group-dequant form has none."""
+    import torch
+
+    from sdtpu_torch.ops import _build, quant
+
+    g = torch.Generator(device=DEVICE).manual_seed(22)
+    plan = [(s, "w8a8", dt) for s in INT8_SPLITK_SHAPES + W8A8_LONG_K_SHAPES for dt in ("bf16", "f32")]
+    plan += [(s, kind, "bf16") for s in INT8_SPLITK_SHAPES for kind in ("gq32", "gq16", "w8a16")]
+    for (m, k, n), kind, dt in plan:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x = torch.randn((m, k), generator=g, device=DEVICE, dtype=dtype)
+        if kind.startswith("gq"):
+            qt = _random_group_weight(g, n, k, int(kind[2:]), affine=False)
+            fn, plain, name = quant.gq_matmul, quant.group_quant_matmul_plain, "gq_matmul"
+            mode, tol, nb = quant.GQ_MODE_GROUP, GQ_REL_TOL["bf16"], nbytes(x, qt.q, qt.scale)
+        else:
+            qt = quant.QuantTensor(
+                q=torch.randint(-127, 128, (n, k), generator=g, device=DEVICE, dtype=torch.int8),
+                scale=torch.rand((n,), generator=g, device=DEVICE) * 4e-4 + 1e-5)
+            nb = nbytes(x, qt.q, qt.scale)
+            if kind == "w8a8":
+                x[m // 2] = 0  # the amax = 0 row
+                fn, plain, name, tol = quant.quant_matmul_w8a8, quant.quant_matmul_w8a8_plain, \
+                    "w8a8_matmul", 0.0
+            else:
+                fn, plain, name = quant.w8a16_matmul, quant.w8a16_matmul_plain, "w8a16_matmul"
+                mode, tol = quant.GQ_MODE_ROW_SCALE, GQ_REL_TOL["bf16"]
+        got, want = fn(x, qt), plain(x, qt)
+        if kind == "w8a8":
+            form = W8A8_FORMS[_build.query("sdtpu_w8a8_form", m, k)]
+            splits = _build.query("sdtpu_w8a8_splits", m, n, k)
+            xq, _ = quant.quantize_activations(x)
+            wt = qt.q.t()
+            library, note = lambda: torch._int_mm(xq, wt), None
+            try:
+                library()
+            except RuntimeError as e:
+                library, note = None, _refused(e)
+        else:
+            form = GQ_FORMS[_build.query("sdtpu_gq_form", 0, mode, m)]
+            splits = _build.query("sdtpu_gq_splits", m, n, k)
+            library, note = (None, GQ_NO_LIBRARY) if kind != "w8a16" else _yardstick(
+                lambda: torch._weight_int8pack_mm(x, qt.q, qt.scale.to(dtype)), want)
+        if form != "splitk" or splits < 1:
+            raise RuntimeError(f"{name} {m}x{k}->{n}: form {form}, {splits} splits: not split-K")
+        if not torch.equal(fn(x, qt), got):
+            raise RuntimeError(f"{name} {m}x{k}->{n} {kind}: two calls differ")
+        faults = _drop_split_fault(x, qt, want, splits, w8a8=kind == "w8a8")
+        bnd = (bound(2.0 * m * n * k, nb + nbytes(got), "int8") if kind == "w8a8"
+               else quant_bound(m, k, n, nb + nbytes(got), dt))
+        extra = {"group": int(kind[2:])} if kind.startswith("gq") else {}
+        _compare(results, name, (m, k, n), got, want, tol, lambda: fn(x, qt), lambda: plain(x, qt),
+                 iters_for(2.0 * m * n * k), bnd, library=library, library_note=note,
+                 faults=faults, dtype=dt, form=form, splits=splits, device_clock=True, **extra)
         del x, qt, got, want, library
 
 
 def _check_m1_linears(path: str, gemv: int, mid: int, requests) -> None:
     """A path's GEMV ran every M = 1 linear of the DiT (DIT_M1_PER_STEP a
-    step, M = 4 under CFG with a batch of two) and its form for 8 < M < 128
-    (``mma.sync``, or the 4-bit split-K form) ran nothing."""
+    step, M = 4 under CFG with a batch of two) and its split-K form for 8 <
+    M < 128 ran nothing."""
     want = DIT_M1_PER_STEP * sum(r["sample_steps"] for r in requests)
     if gemv != want or mid:
         raise RuntimeError(f"path {path}: {gemv} GEMV launches, not the {want} M = 1 linears, "
@@ -1941,17 +2054,15 @@ def _check_png(blob: bytes, width: int, height: int, sampler: str) -> dict:
 
 
 def _entry_forms(path: str, counts: dict) -> dict:
-    """The forms the entry paths must run that no counter holds alone: flash
-    at D 128 (bf16, neither D 64 nor D 512), and the W8A8 (cli) or
-    group-dequant (server) wgmma form (neither GEMV nor mma.sync)."""
+    """The forms the entry paths must run: flash at D 128 (bf16, neither D 64
+    nor D 512: no counter holds it alone), and the W8A8 (cli) or
+    group-dequant (server) wgmma form."""
     forms = {"flash_attention_d128": counts["flash_attention"] - counts["flash_attention_d64"]
              - counts["flash_attention_d512"] - counts["flash_attention_f32"]}
     if path == "cli":
-        forms["w8a8_matmul_wgmma"] = (counts["w8a8_matmul"] - counts["w8a8_matmul_gemv"]
-                                      - counts["w8a8_matmul_mma"])
+        forms["w8a8_matmul_wgmma"] = counts["w8a8_matmul_wgmma"]
     else:
-        forms["gq_matmul_wgmma"] = (counts["gq_matmul"] - counts["gq_matmul_gemv"]
-                                    - counts["gq_matmul_mma"] - counts["gq_matmul_f32"])
+        forms["gq_matmul_wgmma"] = counts["gq_matmul_wgmma"]
     if not all(v > 0 for v in forms.values()):
         raise RuntimeError(f"path {path}: forms not launched {forms}")
     return forms
@@ -2048,9 +2159,10 @@ def entry_points_check(wrappers, card: str, profile=None):
         if rc != 0:
             raise RuntimeError(f"sdtpu_torch.cli.main exited {rc}")
         forms = _entry_forms("cli", counts_cli)
-        mma = sum(counts_cli[n] for n in ("w8a8_matmul_mma", "gq_matmul_mma", "w8a16_matmul_mma"))
-        if mma:
-            raise RuntimeError(f"path cli: {mma} mma.sync launches")
+        mid = sum(counts_cli[n] for n in ("w8a8_matmul_splitk", "gq_matmul_splitk",
+                                          "w8a16_matmul_splitk", "gq_zero_matmul_mma"))
+        if mid:
+            raise RuntimeError(f"path cli: {mid} launches of a form for 8 < M < 128")
         load, ids = cli_rep["load"], cli_rep["t5_ids"]
         if not str(load["t5_tokenizer"]).startswith("gguf:"):
             raise RuntimeError(f"the T5 tokenizer was not found in the GGUF: {load['t5_tokenizer']}")
@@ -2325,9 +2437,40 @@ SD15_SERVER_BODY = {"prompt": SD15_REQUEST["prompt"], "width": 512, "height": 51
                     "cfg_scale": 7.0, "seed": 42}
 
 
+@contextlib.contextmanager
+def _serving(argv: list):
+    """``sdtpu_torch.server.main(argv)`` on a free port of 127.0.0.1 in a
+    thread of its own → (its base URL, the server, its load report); shut
+    down when the block ends."""
+    import queue
+    import threading
+
+    from sdtpu_torch import server
+
+    box, rep = queue.Queue(), {}
+
+    def run():
+        try:
+            server.main(argv + ["--port", "0"], report=rep, ready=box.put)
+        except BaseException as e:  # handed to the waiting thread, then raised here
+            box.put(e)
+            raise
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    httpd = box.get(timeout=900)
+    if isinstance(httpd, BaseException):
+        raise RuntimeError("the server did not start") from httpd
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}", httpd, rep
+    finally:
+        httpd.shutdown()
+        thread.join(timeout=300)
+
+
 def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, cli_argv: list,
                       server_body, check_launches, sampler: str, size: tuple, load_check,
-                      request: dict = None, more_cli=(), more_server=()):
+                      request: dict = None, more_cli=(), more_server=(), more_servers=()):
     """Phase 11 for one family: ``write_files(tmp)`` writes its full-width
     files into a fresh directory under the build directory and returns their
     report; ``file_args(files)`` names them on the CLI and the server. One
@@ -2339,16 +2482,18 @@ def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, c
     counts, plain)`` and ``_check_png``.
     ``more_cli`` / ``more_server``: further requests after each, dicts of
     ``path``, ``argv`` or ``route`` and ``body`` (and ``files(tmp)`` → more
-    body fields), ``check``, ``size``, ``sampler``, each in its own
-    window."""
+    body fields), ``check``, ``size``, ``sampler`` (and for the CLI
+    ``load_check(cli_report)``), each in its own window.  ``more_servers``:
+    servers of their own, each started with its ``argv`` added to the
+    files' and asked its ``body`` on the A1111 txt2img route once, dicts of
+    ``path``, ``argv``, ``body``, ``load_check(server_report)``, ``check``,
+    ``size``, ``sampler``."""
     import io
-    import queue
     import tempfile
-    import threading
 
     import torch
 
-    from sdtpu_torch import cli, server
+    from sdtpu_torch import cli
     from sdtpu_torch.config import GenerationParams
     from sdtpu_torch.utils.image import build_parameters_text, parse_parameters_text
 
@@ -2395,7 +2540,9 @@ def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, c
                     args + more["argv"] + ["-o", str(png)], report=cli_rep))
             if rc != 0:
                 raise RuntimeError(f"sdtpu_torch.cli.main ({path}) exited {rc}")
-            report[path] = {"timings_s": cli_rep["timings"],
+            if "load_check" in more:
+                more["load_check"](cli_rep)
+            report[path] = {"load": cli_rep["load"], "timings_s": cli_rep["timings"],
                             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                             **more["check"](path, launches[path], plain),
                             **_check_png(png.read_bytes(), *more["size"], more["sampler"])}
@@ -2404,62 +2551,63 @@ def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, c
             gc.collect()
             torch.cuda.empty_cache()
 
-        if server_body is None:
-            return report, launches
-        box, srv_rep = queue.Queue(), {}
-
-        def run():
-            try:
-                server.main(args + ["--port", "0"], report=srv_rep, ready=box.put)
-            except BaseException as e:  # handed to the waiting thread, then raised here
-                box.put(e)
-                raise
-
-        thread = threading.Thread(target=run, daemon=True)
-        t0 = time.time()
-        thread.start()
-        httpd = box.get(timeout=900)
-        if isinstance(httpd, BaseException):
-            raise RuntimeError("the server did not start") from httpd
-        try:
-            base = f"http://127.0.0.1:{httpd.server_address[1]}"
-            report["server"] = {"load": srv_rep["load"], "start_s": time.time() - t0}
-            torch.cuda.reset_peak_memory_stats()
-            with plain_attention_on_card() as plain:
-                (code, resp), launches[f"{label}_server"] = _windowed(
-                    wrappers, f"{label}_server", lambda: _http(base, "/sdapi/v1/txt2img", server_body))
-            if code != 200:
-                raise RuntimeError(f"/sdapi/v1/txt2img: {code} {resp}")
-            report["server"].update(
-                timings_s=dict(httpd.manager.pipeline.last_timings),
-                peak_mem_bytes=torch.cuda.max_memory_allocated(),
-                **check_launches(f"{label}_server", launches[f"{label}_server"], plain),
-                **_check_png(base64.b64decode(resp["images"][0]), *size, sampler))
-            for more in more_server:
-                path = more["path"]
-                body = {**more["body"], **(more["files"](tmp) if "files" in more else {})}
+        if server_body is not None:
+            t0 = time.time()
+            with _serving(args) as (base, httpd, srv_rep):
+                report["server"] = {"load": srv_rep["load"], "start_s": time.time() - t0}
                 torch.cuda.reset_peak_memory_stats()
-                t0 = time.time()
+                with plain_attention_on_card() as plain:
+                    (code, resp), launches[f"{label}_server"] = _windowed(
+                        wrappers, f"{label}_server", lambda: _http(base, "/sdapi/v1/txt2img", server_body))
+                if code != 200:
+                    raise RuntimeError(f"/sdapi/v1/txt2img: {code} {resp}")
+                report["server"].update(
+                    timings_s=dict(httpd.manager.pipeline.last_timings),
+                    peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                    **check_launches(f"{label}_server", launches[f"{label}_server"], plain),
+                    **_check_png(base64.b64decode(resp["images"][0]), *size, sampler))
+                for more in more_server:
+                    path = more["path"]
+                    body = {**more["body"], **(more["files"](tmp) if "files" in more else {})}
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.time()
+                    with plain_attention_on_card() as plain:
+                        (code, resp), launches[path] = _windowed(
+                            wrappers, path, lambda: _http(base, more["route"], body))
+                    request_s = time.time() - t0
+                    if code != 200:
+                        raise RuntimeError(f"{more['route']} ({path}): {code} {resp}")
+                    report[path] = {"timings_s": dict(httpd.manager.pipeline.last_timings),
+                                    "request_s": request_s,
+                                    "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                                    **more["check"](path, launches[path], plain),
+                                    **_check_png(base64.b64decode(resp["images"][0]), *more["size"],
+                                                 more["sampler"])}
+                    print(f"entry {path} " + json.dumps(report[path]), flush=True)
+            print(f"entry {label} server " + json.dumps(report["server"]), flush=True)
+            del httpd, srv_rep
+            gc.collect()
+            torch.cuda.empty_cache()
+        for more in more_servers:  # a server of its own, started with more["argv"] added
+            path = more["path"]
+            with _serving(args + more["argv"]) as (base, httpd, srv_rep):
+                more["load_check"](srv_rep)
+                torch.cuda.reset_peak_memory_stats()
                 with plain_attention_on_card() as plain:
                     (code, resp), launches[path] = _windowed(
-                        wrappers, path, lambda: _http(base, more["route"], body))
-                request_s = time.time() - t0
+                        wrappers, path, lambda: _http(base, "/sdapi/v1/txt2img", more["body"]))
                 if code != 200:
-                    raise RuntimeError(f"{more['route']} ({path}): {code} {resp}")
-                report[path] = {"timings_s": dict(httpd.manager.pipeline.last_timings),
-                                "request_s": request_s,
+                    raise RuntimeError(f"/sdapi/v1/txt2img ({path}): {code} {resp}")
+                report[path] = {"load": srv_rep["load"],
+                                "timings_s": dict(httpd.manager.pipeline.last_timings),
                                 "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                                 **more["check"](path, launches[path], plain),
                                 **_check_png(base64.b64decode(resp["images"][0]), *more["size"],
                                              more["sampler"])}
-                print(f"entry {path} " + json.dumps(report[path]), flush=True)
-        finally:
-            httpd.shutdown()
-            thread.join(timeout=300)
-        print(f"entry {label} server " + json.dumps(report["server"]), flush=True)
-        del httpd, srv_rep
-        gc.collect()
-        torch.cuda.empty_cache()
+            print(f"entry {path} " + json.dumps(report[path]), flush=True)
+            del httpd, srv_rep
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return report, launches
@@ -2641,6 +2789,168 @@ def sdxl_paths(wrappers, card: str, launches: dict, profile=None):
     return pipes, reports, prof
 
 
+# The int8 SDXL UNet at CFG 1, the first path of the int8 split-K forms:
+# the bench's SDXL request through TAESD-XL (SDXL_TAE_REQUESTS: warm, timed,
+# a fresh prompt) on build_unet_pipeline's dense draw with its UNet
+# quantized on the card: per row by quantize_params (the --type q8_0 rule)
+# on W8A8 (``sdxl_q8``) and, the same weights, under SDTPU_QUANT_MODE=w8a16
+# (``sdxl_q8_w8a16``); and into group-32 int8 blocks (a q8_0 GGUF kept as
+# --no-promote-q8 keeps it: ``sdxl_q8_gguf``).  CLIP-L, CLIP-G and the TAE
+# stay dense.
+SDXL_QUANT_PATHS = {"sdxl_q8": ("q8_0", "w8a8"), "sdxl_q8_w8a16": ("q8_0", "w8a16"),
+                    "sdxl_q8_gguf": ("q8_0_gguf", "w8a8")}
+# the split-K form's calls in one SDXL UNet forward at CFG 1: attn2.to_k and
+# to_v over CLIP's 77 tokens in each of its 70 transformer blocks
+SDXL_CONTEXT_LINEARS = 2 * 70
+
+
+def _check_int8_unet(path: str, counts: dict, forwards: int) -> dict:
+    """The path's wrapper ran its split-K form exactly SDXL_CONTEXT_LINEARS
+    times a UNet forward, and every launch of the wrapper in one of its
+    counted forms (GEMV, split-K, wgmma, float32: none in ``mma.sync``)."""
+    w = SDXL_QUANT_WRAPPER[path]
+    forms = {f: counts.get(f"{w}_{f}", 0) for f in ("gemv", "splitk", "wgmma", "f32")}
+    want = SDXL_CONTEXT_LINEARS * forwards
+    if forms["splitk"] != want or sum(forms.values()) != counts[w]:
+        raise RuntimeError(f"path {path}: {w} launched {counts[w]} times, its forms {forms}; "
+                           f"the split-K form must run {want} ({SDXL_CONTEXT_LINEARS} x "
+                           f"{forwards} UNet forwards)")
+    return {"int8_forms": {w: forms}, "splitk_per_forward": forms["splitk"] / forwards}
+
+
+def quantize_unet(params: dict, kind: str) -> dict:
+    """A dense UNet param dict quantized on its device: "q8_0" per row
+    (``quantize_params``, as ``--type q8_0``), "q8_0_gguf" into group-32
+    int8 blocks under the same rule (2-D ``.weight`` of at least 2**16
+    elements)."""
+    import torch
+
+    from sdtpu_torch.ops import quant
+
+    if kind == "q8_0":
+        return quant.quantize_params(params, bits=8)
+    return {k: (quant.quantize_group(v, 32) if isinstance(v, torch.Tensor) and v.ndim == 2
+                and v.numel() >= quant.QUANTIZE_MIN_SIZE and k.endswith(".weight") else v)
+            for k, v in params.items()}
+
+
+@contextlib.contextmanager
+def plain_quant_linears(drop_k_split: bool = False):
+    """Every quantized linear of ``ops.basic.linear`` in its plain version
+    while the block runs (per-row int8 as W8A8 or W8A16, as
+    ``quant_matmul`` reads SDTPU_QUANT_MODE).  ``drop_k_split``: the calls
+    the int8 split-K forms take (bf16, 8 < M < 128: SDXL's context
+    projections at CFG 1) sum their plain split without its last split, at
+    the split count the kernel takes (``_drop_split_fault``'s fault)."""
+    import torch
+
+    from sdtpu_torch.ops import _build, basic, quant
+
+    real = basic.quant_matmul, basic.group_quant_matmul, basic.q4_matmul
+
+    def per_row(x, qt):
+        w8a8 = os.environ.get("SDTPU_QUANT_MODE", "w8a8") == "w8a8"
+        return (quant.quant_matmul_w8a8_plain if w8a8 else quant.w8a16_matmul_plain)(x, qt)
+
+    def dropped(plain, int8):
+        def run(x, qt):
+            m, n, k = x.numel() // x.shape[-1], qt.shape[0], x.shape[-1]
+            if not (drop_k_split and x.dtype == torch.bfloat16 and 8 < m < 128):
+                return plain(x, qt)
+            w8a8 = int8 and os.environ.get("SDTPU_QUANT_MODE", "w8a8") == "w8a8"
+            splits = _build.query("sdtpu_w8a8_splits" if w8a8 else "sdtpu_gq_splits", m, n, k)
+            out = quant.split_k_matmul(x.reshape(m, k), qt, splits, w8a8=w8a8, keep=-1)
+            return out.reshape(*x.shape[:-1], n)
+        return run
+
+    basic.quant_matmul = dropped(per_row, True)
+    basic.group_quant_matmul = dropped(quant.group_quant_matmul_plain, False)
+    basic.q4_matmul = quant.q4_matmul_plain
+    try:
+        yield
+    finally:
+        basic.quant_matmul, basic.group_quant_matmul, basic.q4_matmul = real
+
+
+def unet_forward_plain_check(pipe, label: str) -> dict:
+    """One full-width SDXL UNet forward at the request's shapes (CFG 1: a
+    batch of one, the 1024² latent, CLIP's 77-token context) through the
+    kernels, against the same forward on the same int8 weights with every
+    quantized linear in its plain version on the card (plain_quant_linears):
+    W8A8 (its linears bit-equal) at relative L2 0, W8A16 and group int8 at
+    REF_REL_TOL; both finite.  The fault, the plain side with the last K
+    split dropped in the context projections, must read above the limit."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(23)
+    dt = pipe.compute_dtype
+    x = torch.randn((1, 128, 128, 4), generator=g, device=DEVICE, dtype=dt)
+    t = torch.tensor([499.0], device=DEVICE)
+    ctx = torch.randn((1, 77, 2048), generator=g, device=DEVICE, dtype=dt)
+    y = torch.randn((1, 2816), generator=g, device=DEVICE, dtype=dt)
+    with torch.inference_mode():
+        got = pipe.diffusion_fn(pipe.diffusion_params, x, t, ctx, y)
+        with plain_quant_linears():
+            want = pipe.diffusion_fn(pipe.diffusion_params, x, t, ctx, y)
+        with plain_quant_linears(drop_k_split=True):
+            fault = _rel(pipe.diffusion_fn(pipe.diffusion_params, x, t, ctx, y), want)
+    tol = 0.0 if SDXL_QUANT_WRAPPER[label] == "w8a8_matmul" else REF_REL_TOL
+    rel = _rel(got, want)
+    ok = bool(torch.isfinite(got).all() and torch.isfinite(want).all() and rel <= tol < fault)
+    out = {"rel_l2": rel, "tol": tol, "drop_k_split": fault, "ok": ok, "shape": list(got.shape)}
+    print(f"{label}_forward_plain " + json.dumps(out), flush=True)
+    if not ok:
+        raise RuntimeError(f"path {label}: the full-width UNet forward is {rel:.4g} from the one "
+                           f"with plain quantized linears (limit {tol:.4g}; the dropped split "
+                           f"reads {fault:.4g})")
+    return out
+
+
+def sdxl_quant_paths(wrappers, card: str, launches: dict):
+    """The int8 SDXL paths (SDXL_QUANT_PATHS), each in its launch window,
+    flash held to ``_check_unet_family``, the split-K form to
+    ``_check_int8_unet``, and one full-width forward to
+    ``unet_forward_plain_check``."""
+    import torch
+
+    from sdtpu_torch.weights import weight_bytes
+
+    pipes, reports = [], []
+    pipe, base = build_unet_pipeline(card, "SDXL", tae=True)
+    dense = pipe.diffusion_params
+    totals = _totals(SDXL_TAE_REQUESTS, decode=0)
+    previous = os.environ.get("SDTPU_QUANT_MODE")
+    for label, (kind, mode) in SDXL_QUANT_PATHS.items():
+        if label == "sdxl_q8_w8a16":  # the same int8 weights as sdxl_q8
+            info = dict(pipes[-1], path=label)
+        else:
+            t0 = time.time()
+            pipe.diffusion_params = quantize_unet(dense, kind)
+            torch.cuda.synchronize()
+            info = dict(base, path=label, diffusion=f"sdxl {kind}", quantize_s=time.time() - t0,
+                        weight_bytes=dict(base["weight_bytes"],
+                                          diffusion=weight_bytes(pipe.diffusion_params)))
+        os.environ["SDTPU_QUANT_MODE"] = mode
+        try:
+            with plain_attention_on_card() as plain:
+                rep, launches[label] = _windowed(
+                    wrappers, label, lambda: answer(pipe, SDXL_TAE_REQUESTS, card, label))
+            info.update(_check_unet_family(label, launches[label], "sdxl", totals, plain))
+            info.update(_check_int8_unet(label, launches[label], totals[0]))
+            info["forward_plain"] = unet_forward_plain_check(pipe, label)
+        finally:
+            if previous is None:
+                del os.environ["SDTPU_QUANT_MODE"]
+            else:
+                os.environ["SDTPU_QUANT_MODE"] = previous
+        pipes.append(info)
+        reports += rep
+    del pipe, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pipes, reports
+
+
 # Phase 11, SDXL on files: the bench's request through the CLI (``--taesd``)
 # and the A1111 route (``sampler_name`` lcm)
 SDXL_CLI_ARGV = ["-p", SDXL_REQUEST["prompt"], "-W", "1024", "-H", "1024", "--steps", "4",
@@ -2652,7 +2962,10 @@ SDXL_SERVER_BODY = {"prompt": SDXL_REQUEST["prompt"], "width": 1024, "height": 1
 def sdxl_entry_check(wrappers, card: str) -> dict:
     """Phase 11, SDXL: the full-width SDXL and TAESD-XL files of
     ``tools/sdxl_file.py`` through ``cli.main -m ... --taesd ...`` (its PNG
-    read back in metadata mode) and the A1111 route."""
+    read back in metadata mode), the A1111 route, and both again with
+    ``--type q8_0`` (paths ``sdxl_q8_cli`` and ``sdxl_q8_server``: the UNet
+    quantized per row at load, its context projections in the W8A8 split-K
+    form)."""
     from sdtpu_torch.tools.sdxl_file import write_sdxl_files
 
     def load_check(rep):
@@ -2660,11 +2973,27 @@ def sdxl_entry_check(wrappers, card: str) -> dict:
         if load["version"] != "sdxl" or not load["tae"]:
             raise RuntimeError(f"the CLI loaded {load['version']} (TAE {load['tae']}), not sdxl + TAE")
 
+    def typed_load_check(load):
+        if load["wtype"] != "q8_0" or load["typed_weights"] <= 0:
+            raise RuntimeError(f"--type q8_0: the load line reads wtype {load['wtype']}, "
+                               f"{load['typed_weights']} weights quantized")
+
+    totals = unet_calls(SDXL_REQUEST, decode=0)
+    size = (SDXL_REQUEST["width"], SDXL_REQUEST["height"])
+    def typed_check(path, counts, plain):
+        return {**_check_unet_family(path, counts, "sdxl", totals, plain),
+                **_check_int8_unet(path, counts, totals[0])}
+
+    typed = {"size": size, "sampler": "lcm", "check": typed_check}
     return _file_entry_check(
         wrappers, card, "sdxl", lambda tmp: write_sdxl_files(tmp, device=DEVICE),
         lambda files: ["-m", files["paths"]["model"], "--taesd", files["paths"]["taesd"]],
-        SDXL_CLI_ARGV, SDXL_SERVER_BODY,
-        unet_check("sdxl", unet_calls(SDXL_REQUEST, decode=0)), "lcm", (SDXL_REQUEST["width"], SDXL_REQUEST["height"]), load_check, request=SDXL_REQUEST)
+        SDXL_CLI_ARGV, SDXL_SERVER_BODY, unet_check("sdxl", totals), "lcm", size, load_check,
+        request=SDXL_REQUEST,
+        more_cli=[dict(typed, path="sdxl_q8_cli", argv=SDXL_CLI_ARGV + ["--type", "q8_0"],
+                       load_check=lambda rep: typed_load_check(rep["load"]))],
+        more_servers=[dict(typed, path="sdxl_q8_server", argv=["--type", "q8_0"],
+                           body=SDXL_SERVER_BODY, load_check=lambda rep: typed_load_check(rep["load"]))])
 
 
 # SD3.5-Medium: the JAX bench's request (``bench_sd35_medium``, bench.py:515:
@@ -3679,9 +4008,8 @@ def profile_request(pipe, request: dict, table: str, label: str, card: str) -> d
 
 def launch_counters() -> dict:
     """Each kernel's launch counter: name → (wrapper, attribute); the D 512
-    kernel, the 4-bit wgmma form, the GEMVs, the float32 forms (and the
-    W8A8, group-dequant and W8A16 mma.sync forms) are counted apart by their
-    wrappers."""
+    kernel, the wgmma forms, the GEMVs, the split-K forms, the float32 forms
+    (and the affine mma.sync form) are counted apart by their wrappers."""
     from sdtpu_torch.ops import flash_attention, quant
 
     wrappers = {"flash_attention": (flash_attention.flash_attention, "launches"),
@@ -3691,14 +4019,18 @@ def launch_counters() -> dict:
                 "flash_attention_d80": (flash_attention.flash_attention, "launches_d80"),
                 "flash_attention_d160": (flash_attention.flash_attention, "launches_d160"),
                 "w8a8_matmul_gemv": (quant.quant_matmul_w8a8, "launches_gemv"),
-                "w8a8_matmul_mma": (quant.quant_matmul_w8a8, "launches_mma"),
+                "w8a8_matmul_splitk": (quant.quant_matmul_w8a8, "launches_splitk"),
+                "w8a8_matmul_wgmma": (quant.quant_matmul_w8a8, "launches_wgmma"),
                 "q4_matmul_wgmma": (quant.q4_matmul, "launches_wgmma"),
                 "q4_matmul_gemv": (quant.q4_matmul, "launches_gemv"),
                 "q4_matmul_splitk": (quant.q4_matmul, "launches_splitk"),
                 "gq_matmul_gemv": (quant.gq_matmul, "launches_gemv"),
-                "gq_matmul_mma": (quant.gq_matmul, "launches_mma"),
+                "gq_matmul_splitk": (quant.gq_matmul, "launches_splitk"),
+                "gq_matmul_wgmma": (quant.gq_matmul, "launches_wgmma"),
+                "gq_zero_matmul_mma": (quant.gq_zero_matmul, "launches_mma"),
                 "w8a16_matmul_gemv": (quant.w8a16_matmul, "launches_gemv"),
-                "w8a16_matmul_mma": (quant.w8a16_matmul, "launches_mma"),
+                "w8a16_matmul_splitk": (quant.w8a16_matmul, "launches_splitk"),
+                "w8a16_matmul_wgmma": (quant.w8a16_matmul, "launches_wgmma"),
                 "flash_attention_f32": (flash_attention.flash_attention, "launches_f32"),
                 "q4_matmul_f32": (quant.q4_matmul, "launches_f32"),
                 "w8a16_matmul_f32": (quant.w8a16_matmul, "launches_f32"),
@@ -3762,6 +4094,7 @@ def main() -> int:
     check_q4(cases)
     check_group_quant(cases)
     check_w8a16(cases)
+    check_int8_splitk(cases)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise RuntimeError(f"{len(bad)} kernel case(s) disagree with the plain version: {bad}")
@@ -3783,7 +4116,7 @@ def main() -> int:
     rep, launches["int8"] = _windowed(wrappers, "int8",
                                       lambda: answer(pipe, INT8_REQUESTS, card, "int8"))
     _check_m1_linears("int8", launches["int8"]["w8a8_matmul_gemv"],
-                      launches["int8"]["w8a8_matmul_mma"], INT8_REQUESTS)
+                      launches["int8"]["w8a8_matmul_splitk"], INT8_REQUESTS)
     reports += rep
     prof = {}
     if args.profile:
@@ -3794,7 +4127,7 @@ def main() -> int:
         rep, launches["w8a16"] = _windowed(wrappers, "w8a16",
                                            lambda: answer(pipe, W8A16_REQUESTS, card, "w8a16"))
         _check_m1_linears("w8a16", launches["w8a16"]["w8a16_matmul_gemv"],
-                          launches["w8a16"]["w8a16_matmul_mma"], W8A16_REQUESTS)
+                          launches["w8a16"]["w8a16_matmul_splitk"], W8A16_REQUESTS)
         if args.profile:
             prof["w8a16"] = profile_request(pipe, W8A16_REQUESTS[-1], args.profile, "w8a16", card)
     finally:
@@ -3814,7 +4147,7 @@ def main() -> int:
     rep, launches["q8_0_gguf"] = _windowed(wrappers, "q8_0_gguf",
                                            lambda: answer(pipe, GGUF_REQUESTS, card, "q8_0_gguf"))
     _check_m1_linears("q8_0_gguf", launches["q8_0_gguf"]["gq_matmul_gemv"],
-                      launches["q8_0_gguf"]["gq_matmul_mma"], GGUF_REQUESTS)
+                      launches["q8_0_gguf"]["gq_matmul_splitk"], GGUF_REQUESTS)
     reports += rep
     if args.profile:
         prof["q8_0_gguf"] = profile_request(pipe, GGUF_REQUESTS[-1], args.profile, "q8_0_gguf",
@@ -3841,7 +4174,7 @@ def main() -> int:
     rep, launches["f32"] = _windowed(wrappers, "f32",
                                      lambda: answer(pipe, F32_REQUESTS, card, "f32"))
     _check_m1_linears("f32", launches["f32"]["w8a8_matmul_gemv"],
-                      launches["f32"]["w8a8_matmul_mma"], F32_REQUESTS)
+                      launches["f32"]["w8a8_matmul_splitk"], F32_REQUESTS)
     reports += rep
     if args.profile:
         prof["f32"] = profile_request(pipe, F32_REQUESTS[-1], args.profile, "f32", card)
@@ -3868,6 +4201,10 @@ def main() -> int:
     pipes += sdxl_pipes
     reports += rep
     prof.update(sdxl_prof)
+    sdxl_q_pipes, rep = sdxl_quant_paths(wrappers, card, launches)
+    pipes += sdxl_q_pipes
+    reports += rep
+    lap("int8 sdxl paths")
     sd3_pipes, rep, sd3_prof = sd3_paths(wrappers, card, launches, args.profile)
     pipes += sd3_pipes
     reports += rep
@@ -3925,6 +4262,9 @@ def main() -> int:
     headline["gq_zero_matmul_f32"] = ([4352, 3072, 12288], {"group": 32})
     headline["gq_matmul_gemv"] = ([1, 3072, 18432], {"group": 32})
     headline["w8a16_matmul_gemv"] = ([1, 3072, 18432], {})
+    headline["w8a8_matmul_splitk"] = ([77, 2048, 1280], {"dtype": "bf16"})
+    headline["gq_matmul_splitk"] = ([77, 2048, 1280], {"group": 32})
+    headline["w8a16_matmul_splitk"] = ([77, 2048, 1280], {"dtype": "bf16"})
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         # a form counted apart (the 4-bit wgmma form, the GEMVs) has the cases

@@ -66,9 +66,13 @@ Device: ``--backend`` as the JAX CLI spells it, one device for every module:
 ``--backend`` the port runs on the GPU, and raises where there is none.
 The dtype is bf16 on the GPU and float32 on the CPU unless ``--dtype`` says
 otherwise.  q8_0 blocks of a GGUF diffusion model are re-quantized per row
-onto the W8A8 kernels unless ``--no-promote-q8``; other quantized diffusion
-blocks are kept (``--no-keep-quant`` dequantizes them); a quantized text
-encoder is dequantized on the host, one tensor at a time.  Images are
+onto the W8A8 kernels unless ``--no-promote-q8`` (or ``--type q4_0``);
+other quantized diffusion blocks are kept (``--no-keep-quant`` dequantizes
+them); a quantized text encoder is dequantized on the host, one tensor at a
+time.  ``--type q8_0|q4_0`` quantizes the dense diffusion weights at load
+as the JAX CLI does (``ops.quant.quantize_params``: per-row int8 on the
+W8A8 kernels, or packed 4-bit), and ``--type q8_0`` promotes a q8_0 GGUF's
+blocks per row even under ``--no-promote-q8``.  Images are
 PNGs with the webui ``parameters`` text.  ``--taesd`` attaches a TAESD
 decoder (raw ``taesd`` names, its variant by the model's version) for the
 final decode; ``--taesd-preview-only`` is not ported (the port has no
@@ -511,7 +515,7 @@ RUN_FLAGS = frozenset({
     "init_img", "mask", "strength", "sigmas", "hires", "hires_upscaler", "hires_scale",
     "hires_width", "hires_height", "hires_steps", "hires_denoising_strength", "hires_sigmas",
     "vae_tiling", "vae_tile_size", "vae_tile_overlap",
-    "dtype", "no_promote_q8", "no_keep_quant", "backend", "flow_shift",
+    "dtype", "no_promote_q8", "no_keep_quant", "wtype", "backend", "flow_shift",
     "output", "output_begin_idx", "disable_image_metadata", "verbose",
     # vid_gen mode (Wan2.1 T2V)
     "video_frames", "fps", "vae_temporal_tiling", "extra_tiling_args",
@@ -668,6 +672,20 @@ def load_t5_tokenizer(args):
     return tok, "gguf:" + next(p for p in (args.t5xxl, args.model) if p and p.lower().endswith(".gguf"))
 
 
+def quantize_dense(d: dict, wtype: str):
+    """``--type``: the dense weights of a diffusion param dict quantized as
+    the JAX CLI quantizes them at load (``quantize_params``, bits 8 for
+    q8_0 and 4 for q4_0; weights already quantized stay as they are) → (the
+    new dict, how many weights it quantized)."""
+    from sdtpu_torch.ops.quant import GroupQuantTensor, Q4Tensor, QuantTensor, quantize_params
+
+    kept = (GroupQuantTensor, Q4Tensor, QuantTensor)
+    dense = {k: v for k, v in d.items() if not isinstance(v, kept)}
+    done = quantize_params(dense, bits=8 if wtype == "q8_0" else 4)
+    n = sum(done[k] is not dense[k] for k in dense)
+    return {**{k: v for k, v in d.items() if isinstance(v, kept)}, **done}, n
+
+
 def _load_pipeline(args, report: Optional[dict] = None):
     """The files → a FLUX, SD1.x, SD2.x, SDXL, SD3 or Wan pipeline (the
     version the files' fingerprint names; ``--prediction``'s denoiser) on
@@ -715,8 +733,10 @@ def _load_pipeline(args, report: Optional[dict] = None):
                          "(pass --clip_l, --clip_g, --t5xxl, --vae)")
     t5_tok, t5_tok_source = load_t5_tokenizer(args) if "t5" in encoders else (None, None)
     t0 = time.time()
-    params = {"diffusion": diffusion_to_device(bundle.diffusion, dtype, device,
-                                               promote_q8=not args.no_promote_q8)}
+    # the JAX CLI's rule: --type q8_0 promotes q8_0 blocks per row even under
+    # --no-promote-q8, --type q4_0 keeps them in their blocks
+    promote = args.wtype == "q8_0" or (args.wtype is None and not args.no_promote_q8)
+    params = {"diffusion": diffusion_to_device(bundle.diffusion, dtype, device, promote_q8=promote)}
     bundle.diffusion = None
     for m in (*encoders, "vae"):
         params[m] = module_to_device(getattr(bundle, m), dtype, device)
@@ -730,6 +750,11 @@ def _load_pipeline(args, report: Optional[dict] = None):
         print(f"re-quantized {n_row} diffusion weights to per-row int8 (W8A8 path)")
     if n_blocks:
         print(f"keeping {n_blocks} diffusion weights in checkpoint quant blocks")
+    n_typed = 0
+    if args.wtype:
+        params["diffusion"], n_typed = quantize_dense(params["diffusion"], args.wtype)
+        sync()
+        print(f"quantized diffusion weights to {args.wtype}")
     t0 = time.time()
     pipe = create_pipeline(bundle.version, params=params, rng_type=args.rng, dtype=dtype,
                            t5_tokenizer=t5_tok, flow_shift=args.flow_shift, device=device)
@@ -753,7 +778,8 @@ def _load_pipeline(args, report: Optional[dict] = None):
     load = {"version": bundle.version.value, "read_s": t_read, "stage_s": t_stage,
             "build_s": time.time() - t0,
             "device": str(device), "dtype": str(dtype).replace("torch.", ""), "tae": bool(tae_raw),
-            "w8a8_weights": n_row, "block_weights": n_blocks, "t5_tokenizer": t5_tok_source}
+            "w8a8_weights": n_row, "block_weights": n_blocks, "wtype": args.wtype,
+            "typed_weights": n_typed, "t5_tokenizer": t5_tok_source}
     print("load " + json.dumps(load))
     if report is not None:
         report.update(load=load, pipeline=pipe)

@@ -12,6 +12,7 @@
 #include <stdint.h>
 
 #include <climits>
+#include <type_traits>
 
 namespace sdtpu {
 
@@ -420,13 +421,26 @@ __device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
   return r;
 }
-__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+__device__ __forceinline__ uint4 ld_cluster_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "r"(addr)
                : "memory");
   return v;
+}
+
+// Programmatic dependent launch: a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// launch before it on the stream still runs, once every block of that launch
+// has called griddep_launch_dependents (or exited); griddep_wait then blocks
+// until that launch has completed and its writes are visible.  Both are
+// no-ops where no such launch is involved.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // 2^x on the special-function unit (MUFU.EX2: 16 a clock per SM), inputs
@@ -551,6 +565,74 @@ __device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t desc
         "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
         "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// m64nNk32 int8 x int8 -> int32, both operands K-major from shared memory,
+// at W8A8's split-K x tiles (N = 32, 64, 80, 128; the s8 shapes take N =
+// 8, 16, 24 and the multiples of 16 from 32 to 256).
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 " "}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n80k32_s8(int (&d)[40], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 "
+      "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39 " "}, "
+      "%40, %41, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 " "}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k32_s8(int (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 " "}, "
+      "%16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -1146,57 +1228,66 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, i
 // Split-K weight-streaming GEMM for 8 < M < 128 bf16 rows of x against a
 // quantized weight: out[m, n] = sum_k x[m, k] * w[n, k], the widening a
 // policy W (as weight_gemv's).  The 4-bit matmul's middle form
-// (q4_matmul.cu) instantiates it; T5-XXL over SD3's 77 tokens runs it.
+// (q4_matmul.cu) and the group-dequant / W8A16 one (gq_matmul.cu)
+// instantiate it: T5-XXL over SD3's 77 tokens, and an int8 SDXL UNet's
+// context projections at CFG 1 (attn2.to_k / to_v over CLIP's 77 tokens).
 //
 // What bounds it on the card: at M = 77 a 4-bit weight does 2 * 80 = 160
 // products a byte, about the H100's ridge (989 TFLOP/s over 3.35 TB/s is
 // 295 operations a byte), so the bytes and the tensor cores bound it alike
 // (77x4096->4096: 0.0032 ms of bytes, 0.0026 ms of bf16 products at 80
-// rows).  Both want every SM busy and each SM's loads, widening and wgmma
+// rows); an int8 weight does half as many a byte and is bound by its bytes.
+// Both want every SM busy and each SM's loads, widening and wgmma
 // overlapped.
 //
 // Operands are swapped as in q4_wgmma_kernel: a block owns kSplitBN = 128
 // weight rows (the wgmma M, 64 per consumer warpgroup) and every x row, one
 // x tile of XN rows (the wgmma N: 32, 64, 80 or 128, the first that holds
 // M), so no weight tile is fetched or widened twice.  A producer warp
-// TMA-loads the packed tile (unswizzled rows of W::kRowBytes) and the bf16 x
-// tile (128-byte swizzle) of each 64-k stage into a ring under full / empty
-// mbarriers and cp.asyncs each row's f32 group scales of the stage beside
-// them; each consumer warpgroup builds its register-A fragments from the
-// stage's bytes with W::row_pairs (the widened weight never touches shared
-// memory) while the previous stage's wgmma run (fragments double-buffered).
+// TMA-loads the weight tile (rows of W::kRowBytes, W::kSwizzle) and the
+// bf16 x tile (128-byte swizzle) of each 64-k stage into a ring under full
+// / empty mbarriers and cp.asyncs each row's f32 group scales of the stage
+// beside them (none where W::kSumScale: the scale is a row's, applied in
+// the epilogue); each consumer warpgroup builds its register-A fragments
+// from the stage's bytes with W::row_pairs (the widened weight never
+// touches shared memory) while the previous stage's wgmma run (fragments
+// double-buffered).
 //
 // Filling the card: a band of 128 weight rows is a cluster of `splits`
 // blocks (1 to 8, the portable cluster size), block r of which takes the
-// r-th run of ceil(stages / splits) 64-k stages; the launcher picks the
-// count whose grid costs least, counted as waves of clusters (as many as
+// r-th run of ceil(stages / splits) stages; the launcher picks the count
+// whose grid costs least, counted as waves of clusters (as many as
 // cudaOccupancyMaxActiveClusters says fit) x (stages a block +
 // kSplitFixed).  On an H100 (132 SMs) 77x4096->4096 and 77x10240->4096 take
-// 32 bands x 3 splits, 77x4096->10240 80 bands unsplit.  The reduction is
-// deterministic and needs no workspace and no second launch: each block
-// writes its f32 partial tile [XN][128] into its own (now idle) x ring, the
-// cluster synchronises, and block r sums x rows [r * ceil(M / splits), ...)
-// of all the cluster's partials through distributed shared memory in split
-// order (0, 1, ...), rounds once to bf16 and stores them; a second cluster
-// barrier keeps every block's shared memory alive until its peers have read
-// it.  An unsplit call stores its accumulators directly.
+// 32 bands x 3 splits, 77x4096->10240 80 bands unsplit.  The reduction
+// (splitk_store) is deterministic and needs no workspace and no second
+// launch: each block writes its partial tile [XN][128] into its own (now
+// idle) x ring, the cluster synchronises, and block r sums x rows [r *
+// ceil(M / splits), ...) of all the cluster's partials through distributed
+// shared memory in split order (0, 1, ...), applies the epilogue, rounds
+// once and stores them; a second cluster barrier keeps every block's shared
+// memory alive until its peers have read it.  An unsplit call stores its
+// accumulators directly.  W8A8's int8 x int8 form (w8a8_matmul.cu) shares
+// the launch shape, the split count and this reduction, with int32
+// partials.
 //
 // What holds it: the consumers.  On an NVIDIA H100 80GB HBM3 at 700 W
 // (device clock, chip_smoke.py and sdtpu_torch/tools/time_dequant.py)
-// 77x4096->4096 and 77x10240->4096, both 32 bands x 3 splits, 22 and 54
-// stages a block, take 0.0167 and 0.0323 ms: ~0.5 us a stage and ~6 us
-// fixed (launch, first loads, the cluster reduction).  Timing-only development variants (wrong
-// answers; not kept, nor their numbers) showed the stage's widening and its
-// four chained m64n80k16 adding up rather than overlapping, the memory side
-// hidden (the ring filled once and never waited on ran about as fast), and
-// none of these overlapping them better: A from shared memory instead of
-// registers, two accumulator chains, triple-buffered fragments, the next
-// stage widened between this stage's wgmma, the warpgroups taking turns to
-// issue, four consumer warpgroups (256-row bands, half the x reads), the
-// partial tiles pushed to their summing block with one cluster barrier, and
-// eight weight rows a thread in the sum (each slower).  So the launcher
-// splits only where the grid would otherwise leave most SMs idle
-// (kSplitFixed: ~12 stages), and an unsplit call skips the reduction.
+// 77x4096->4096 and 77x10240->4096 at 4 bits, both 32 bands x 3 splits,
+// 22 and 54 stages a block, take 0.0167 and 0.0323 ms: ~0.5 us a stage and
+// ~6 us fixed (launch, first loads, the cluster reduction).  Timing-only
+// development variants (wrong answers; not kept, nor their numbers) showed
+// the stage's widening and its four chained m64n80k16 adding up rather than
+// overlapping, the memory side hidden (the ring filled once and never
+// waited on ran about as fast), and none of these overlapping them better:
+// A from shared memory instead of registers, two accumulator chains,
+// triple-buffered fragments, the next stage widened between this stage's
+// wgmma, the warpgroups taking turns to issue, four consumer warpgroups
+// (256-row bands, half the x reads), the partial tiles pushed to their
+// summing block with one cluster barrier, and eight weight rows a thread in
+// the sum (each slower).  So the launcher splits only where the grid would
+// otherwise leave most SMs idle (kSplitFixed: ~12 stages), and an unsplit
+// call skips the reduction.
 //
 // x traffic: each band re-reads its x columns from L2, XN x 2 bytes a k
 // against the band's 64 bytes of packed weight a k (2.5x at XN = 80); the
@@ -1206,16 +1297,20 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, i
 // The policy W gives:
 //   kKPerByte         weights a byte (2: packed nibbles, 1: int8);
 //   kRowBytes         bytes of a weight row in a 64-k stage (64 / kKPerByte);
-//   row_pairs<G>(row, srow, tq, f)  the thread's bf16x2 register-A pairs of
-//                     one weight row from its stage bytes `row` and its f32
-//                     group scales `srow` (one a group of G in the stage):
-//                     f[kk][h] holds k = 16 kk + 8 h + 2 tq and + 1.
+//   kSwizzle          the weight tile's TMA swizzle;
+//   kSumScale         true: `scale` is f32 [n], one a weight row, the
+//                     widening exact and the f32 sum multiplied by it before
+//                     its rounding; false: f32 group scales [n, kp / G];
+//   row_pairs<G>(tile, row, srow, tq, f)  the thread's bf16x2 register-A
+//                     pairs of weight row `row` of the stage's tile and its
+//                     f32 group scales `srow` (one a group of G in the
+//                     stage): f[kk][h] holds k = 16 kk + 8 h + 2 tq and + 1.
 constexpr int kSplitBN = 128;       // weight rows a block: two consumer warpgroups x 64 (wgmma M)
-constexpr int kSplitBK = 64;        // K a stage: 128 bytes of an x row
+constexpr int kSplitBK = 64;        // K a stage: 128 bytes of a bf16 x row
 constexpr int kSplitThreads = 384;  // warpgroups 0-1: consumers; 2: producer (its first warp)
 constexpr int kSplitMax = 8;        // splits a call: the portable cluster size
 constexpr int kSplitSTile = kSplitBN * (kSplitBK / 16) * 4;  // a stage's f32 scales, G >= 16
-constexpr int kSplitPRow = kSplitBN + 4;  // floats a row of the partial tile: conflict-free stores
+constexpr int kSplitPRow = kSplitBN + 4;  // words a row of the partial tile: conflict-free stores
 constexpr int kSplitFixed = 12;     // a block's fixed cost in stages: pipeline fill, reduction
 constexpr int kSplitRing = 200 * 1024;  // shared bytes the ring may take
 
@@ -1250,10 +1345,99 @@ __device__ __forceinline__ void splitk_wgmma(float (&acc)[XN / 2], const uint32_
   }
 }
 
+// A 32-bit word of shared memory as the accumulator type it holds.
+template <typename T>
+__device__ __forceinline__ T word_as(uint32_t w);
+template <>
+__device__ __forceinline__ float word_as<float>(uint32_t w) { return __uint_as_float(w); }
+template <>
+__device__ __forceinline__ int word_as<int>(uint32_t w) { return static_cast<int>(w); }
+
+// The end of a split-K block: its consumer warpgroups' accumulators acc
+// (the wgmma layout: acc[4j + e] is weight row r0 (+8 for e >= 2) of the
+// band at n0, x row 8j + 2tq (+1 for odd e)), summed over the cluster's
+// `splits` blocks in split order where K was split, each sum v of x row mm
+// and weight row nn stored as out[mm, nn] = round(value(mm, nn, v)).  The
+// x ring at x_base takes the partial tile, so every stage's wgmma must be
+// complete.  Called by the two consumer warpgroups (256 threads); the
+// producer warpgroup meets the two cluster barriers.
+template <int XN, typename Acc, typename TOut, class Value>
+__device__ __forceinline__ void splitk_store(const Acc (&acc)[XN / 2], uint8_t* smem, uint32_t x_base,
+                                             TOut* __restrict__ out, int m, int n, int n0, int r0,
+                                             int tq, int splits, Value value) {
+  if (splits == 1) {  // the whole sum: no reduction
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int nn = n0 + r0 + 8 * h;
+      if (nn >= n) continue;
+#pragma unroll
+      for (int j = 0; j < XN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int mm = 8 * j + 2 * tq + e;
+          if (mm < m)
+            out[static_cast<size_t>(mm) * n + nn] = from_f32<TOut>(value(mm, nn, acc[4 * j + 2 * h + e]));
+        }
+    }
+    return;
+  }
+
+  // This block's partial tile, part[x row][weight row], over its own x ring
+  // once both consumer warpgroups' wgmma are done reading it.
+  __syncwarp();
+  named_bar_sync(1, 256);
+  Acc* part = reinterpret_cast<Acc*>(smem + x_base);
+#pragma unroll
+  for (int j = 0; j < XN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        part[(8 * j + 2 * tq + e) * kSplitPRow + r0 + 8 * h] = acc[4 * j + 2 * h + e];
+  cluster_sync();
+
+  // x rows [m_lo, m_hi) of the band: the cluster's partials summed in split
+  // order, four weight rows a thread and step
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int rows = (m + splits - 1) / splits;
+  const int m_lo = rank * rows, m_hi = min(m, m_lo + rows);
+  const int items = max(0, m_hi - m_lo) * (kSplitBN / 4);
+  for (int idx = threadIdx.x; idx < items; idx += 256) {
+    const int mm = m_lo + idx / (kSplitBN / 4), c = (idx % (kSplitBN / 4)) * 4;
+    const uint32_t addr = x_base + (mm * kSplitPRow + c) * 4;
+    const uint4 v0 = ld_cluster_v4(cluster_map(addr, 0));
+    Acc sum[4] = {word_as<Acc>(v0.x), word_as<Acc>(v0.y), word_as<Acc>(v0.z), word_as<Acc>(v0.w)};
+    for (int q = 1; q < splits; ++q) {
+      const uint4 v = ld_cluster_v4(cluster_map(addr, q));
+      sum[0] += word_as<Acc>(v.x);
+      sum[1] += word_as<Acc>(v.y);
+      sum[2] += word_as<Acc>(v.z);
+      sum[3] += word_as<Acc>(v.w);
+    }
+    const int nn = n0 + c;
+    TOut* o = out + static_cast<size_t>(mm) * n + nn;
+    float f[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = nn + e < n ? value(mm, nn + e, sum[e]) : 0.f;
+    if ((n & 3) == 0 && nn < n) {  // four outputs, aligned to their width
+      if constexpr (sizeof(TOut) == 2) {
+        *reinterpret_cast<uint2*>(o) = make_uint2(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]));
+      } else {
+        *reinterpret_cast<float4*>(o) = make_float4(f[0], f[1], f[2], f[3]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (nn + e < n) o[e] = from_f32<TOut>(f[e]);
+    }
+  }
+  cluster_sync();
+}
+
 // out[0:m, n0:n0 + 128] of one block of the cluster: xmap the bf16 x [m, k]
 // (box 64 x XN), wmap the weight bytes [n, kp / kKPerByte] (box kRowBytes x
-// 128), scale f32 [n, kp / G]; the grid is ceil(n / 128) clusters of
-// `splits` blocks.
+// 128), scale f32 [n, kp / G] (W::kSumScale: [n]); the grid is ceil(n / 128)
+// clusters of `splits` blocks.
 template <class W, int G, int XN>
 __device__ __forceinline__ void splitk_gemm(const CUtensorMap* xmap, const CUtensorMap* wmap,
                                             const float* __restrict__ scale,
@@ -1283,8 +1467,9 @@ __device__ __forceinline__ void splitk_gemm(const CUtensorMap* xmap, const CUten
   const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(full(s), 1 + 32);  // the TMA arrival, plus one cp.async arrival per producer lane
-      mbar_init(empty(s), 8);      // the consumers' eight warps
+      // the TMA arrival, plus one cp.async arrival per producer lane
+      mbar_init(full(s), W::kSumScale ? 1 : 1 + 32);
+      mbar_init(empty(s), 8);  // the consumers' eight warps
     }
     fence_barrier_init();
   }
@@ -1292,11 +1477,14 @@ __device__ __forceinline__ void splitk_gemm(const CUtensorMap* xmap, const CUten
 
   if (wg == 2) {
     // producer: the first warp; lane 0 issues the TMA loads, all lanes
-    // cp.async the stage's scales, one copy of 4 * GPS bytes a row (a scale
-    // row is kp / G x 4 bytes, not always the 16-byte multiple a TMA map
-    // needs; a stage's GPS groups are 4 * GPS-byte aligned)
+    // cp.async the stage's scales (a scale row is kp / G x 4 bytes, not
+    // always the 16-byte multiple a TMA map needs): one copy of 4 * GPS
+    // bytes a row where a row's groups come in whole stages (every 4-bit
+    // weight: kp % 64 == 0), else one of 4 bytes a group, the groups past a
+    // row's last zero-filled
     setmaxnreg_dec<40>();
     if (threadIdx.x < 256 + 32) {
+      const bool whole = groups % GPS == 0;
       for (int i = 0; i < nk; ++i) {
         const int s = i % kStages, kt = kt0 + i;
         mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
@@ -1305,12 +1493,24 @@ __device__ __forceinline__ void splitk_gemm(const CUtensorMap* xmap, const CUten
           tma_load_2d(x_base + s * S::kXTile, xmap, full(s), kt * kSplitBK, 0);
           tma_load_2d(w_base + s * S::kWTile, wmap, full(s), kt * W::kRowBytes, n0);
         }
-        for (int r = lane; r < kSplitBN; r += 32) {
-          const bool valid = n0 + r < n;
-          const size_t off = valid ? static_cast<size_t>(n0 + r) * groups + kt * GPS : 0;
-          cp_async_n<4 * GPS>(s_base + s * kSplitSTile + r * 4 * GPS, scale + off, valid);
+        if constexpr (!W::kSumScale) {
+          const uint32_t dst = s_base + s * kSplitSTile;
+          if (whole) {
+            for (int r = lane; r < kSplitBN; r += 32) {
+              const bool valid = n0 + r < n && kt * GPS < groups;
+              const size_t off = valid ? static_cast<size_t>(n0 + r) * groups + kt * GPS : 0;
+              cp_async_n<4 * GPS>(dst + r * 4 * GPS, scale + off, valid);
+            }
+          } else {
+            for (int idx = lane; idx < kSplitBN * GPS; idx += 32) {
+              const int r = idx / GPS, grp = kt * GPS + idx % GPS;
+              const bool valid = n0 + r < n && grp < groups;
+              const size_t off = valid ? static_cast<size_t>(n0 + r) * groups + grp : 0;
+              cp_async_4(dst + idx * 4, scale + off, valid);
+            }
+          }
+          cp_async_mbar_arrive(full(s));
         }
-        cp_async_mbar_arrive(full(s));
       }
     }
     if (splits > 1) {
@@ -1335,7 +1535,7 @@ __device__ __forceinline__ void splitk_gemm(const CUtensorMap* xmap, const CUten
     for (int rr = 0; rr < 2; ++rr) {
       const int row = r0 + 8 * rr;
       uint32_t f[4][2];
-      W::template row_pairs<G>(wt + row * W::kRowBytes, sc + row * GPS, tq, f);
+      W::template row_pairs<G>(wt, row, sc + row * GPS, tq, f);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         a[kk][rr] = f[kk][0];
@@ -1385,73 +1585,19 @@ __device__ __forceinline__ void splitk_gemm(const CUtensorMap* xmap, const CUten
     fence_regs(a1);
   }
 
-  if (splits == 1) {  // the whole sum: out[m, n] = acc, no reduction
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int nn = n0 + r0 + 8 * h;
-      if (nn >= n) continue;
-#pragma unroll
-      for (int j = 0; j < XN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int mm = 8 * j + 2 * tq + e;
-          if (mm < m) out[static_cast<size_t>(mm) * n + nn] = __float2bfloat16_rn(acc[4 * j + 2 * h + e]);
-        }
-    }
-    return;
-  }
-
-  // This block's partial tile, part[x row][weight row], over its own x ring
-  // once both consumer warpgroups' wgmma are done reading it.
-  __syncwarp();
-  named_bar_sync(1, 256);
-  float* part = reinterpret_cast<float*>(smem + x_base);
-#pragma unroll
-  for (int j = 0; j < XN / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        part[(8 * j + 2 * tq + e) * kSplitPRow + r0 + 8 * h] = acc[4 * j + 2 * h + e];
-  cluster_sync();
-
-  // x rows [m_lo, m_hi) of the band: the cluster's partials summed in split
-  // order, four weight rows a thread and step
-  const int rows = (m + splits - 1) / splits;
-  const int m_lo = rank * rows, m_hi = min(m, m_lo + rows);
-  const int items = max(0, m_hi - m_lo) * (kSplitBN / 4);
-  for (int idx = threadIdx.x; idx < items; idx += 256) {
-    const int mm = m_lo + idx / (kSplitBN / 4), c = (idx % (kSplitBN / 4)) * 4;
-    const uint32_t addr = x_base + (mm * kSplitPRow + c) * 4;
-    float4 sum = ld_cluster_f4(cluster_map(addr, 0));
-    for (int q = 1; q < splits; ++q) {
-      const float4 v = ld_cluster_f4(cluster_map(addr, q));
-      sum.x += v.x;
-      sum.y += v.y;
-      sum.z += v.z;
-      sum.w += v.w;
-    }
-    const int nn = n0 + c;
-    __nv_bfloat16* o = out + static_cast<size_t>(mm) * n + nn;
-    if ((n & 3) == 0 && nn < n) {  // four outputs, 8-byte aligned
-      *reinterpret_cast<uint2*>(o) = make_uint2(pack_bf16x2(sum.x, sum.y), pack_bf16x2(sum.z, sum.w));
-    } else {
-      const float v[4] = {sum.x, sum.y, sum.z, sum.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (nn + e < n) o[e] = __float2bfloat16_rn(v[e]);
-    }
-  }
-  cluster_sync();
+  // W::kSumScale: the f32 sum times its row's scale, then the one rounding
+  splitk_store<XN>(acc, smem, x_base, out, m, n, n0, r0, tq, splits,
+                   [&](int, int nn, float v) { return W::kSumScale ? __fmul_rn(v, scale[nn]) : v; });
 }
 
-// Host side: the kernels of this form share one signature.
+// Host side: the bf16 kernels of this form share one signature.
 using SplitKKernel = void (*)(CUtensorMap, CUtensorMap, const float*, __nv_bfloat16*, int, int, int,
                               int, int);
 
-// Clusters of `splits` blocks of `kernel` that the card holds at once (the
-// SM count over `splits` where the runtime cannot say).
-inline int splitk_capacity(SplitKKernel kernel, int smem, int splits) {
+// Clusters of `splits` blocks of `kernel` (kSplitThreads threads, `smem`
+// bytes of shared memory) that the card holds at once (the SM count over
+// `splits` where the runtime cannot say).
+inline int splitk_capacity(const void* kernel, int smem, int splits) {
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = splits;
@@ -1465,28 +1611,26 @@ inline int splitk_capacity(SplitKKernel kernel, int smem, int splits) {
   cfg.numAttrs = 1;
   int clusters = 0;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg) !=
-          cudaSuccess ||
-      clusters <= 0) {
+      cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess || clusters <= 0) {
     cudaGetLastError();  // not sticky: clear it
     return sm_count() / splits;
   }
   return clusters;
 }
 
-// Splits of K a call takes: of 1 to kSplitMax (at most one a 64-k stage),
-// the count whose grid costs least, counted as waves of clusters x (stages a
-// block + kSplitFixed); a tie keeps fewer.  `capacity(s)`: clusters of s
-// blocks the card holds at once.
+// Splits of K a call of `stages` K stages takes: of 1 to kSplitMax (at most
+// one a stage), the count whose grid costs least, counted as waves of
+// clusters x (stages a block + kSplitFixed); a tie keeps fewer.
+// `capacity(s)`: clusters of s blocks the card holds at once.
 template <class Capacity>
-inline int splitk_splits(int n, int k, Capacity capacity) {
-  const long long bands = ceil_div(n, kSplitBN), ktiles = ceil_div(k, kSplitBK);
+inline int splitk_splits(int n, int stages, Capacity capacity) {
+  const long long bands = ceil_div(n, kSplitBN);
   int best = 1;
   long long best_cost = LLONG_MAX;
-  for (int s = 1; s <= kSplitMax && s <= ktiles; ++s) {
+  for (int s = 1; s <= kSplitMax && s <= stages; ++s) {
     const long long clusters = capacity(s);
     if (clusters <= 0) continue;
-    const long long cost = (bands + clusters - 1) / clusters * ((ktiles + s - 1) / s + kSplitFixed);
+    const long long cost = (bands + clusters - 1) / clusters * ((stages + s - 1) / s + kSplitFixed);
     if (cost < best_cost) {
       best = s;
       best_cost = cost;
@@ -1495,9 +1639,64 @@ inline int splitk_splits(int n, int k, Capacity capacity) {
   return best;
 }
 
-// One launch of a split-K kernel: the TMA maps of x (bf16 [m, k]) and the
-// weight's bytes ([n, kp / W::kKPerByte]), then ceil(n / 128) clusters of
-// `splits` blocks.
+// splitk_splits on `kernel` (Smem::kBytes of shared memory), the card's
+// capacity asked once per split count for each Smem: the kernels that share
+// a shared-memory layout share their threads and so their capacity.
+template <class Smem>
+inline int splitk_splits_for(const void* kernel, int n, int stages) {
+  static int cap[kSplitMax + 1] = {};
+  return splitk_splits(n, stages, [&](int s) {
+    if (cap[s] == 0) cap[s] = splitk_capacity(kernel, Smem::kBytes, s);
+    return cap[s];
+  });
+}
+
+// f(std::integral_constant<int, XN>{}) at XN = splitk_cols(m): the one place
+// a call's row count picks a split-K kernel's compile-time x rows.
+template <class F>
+inline auto with_splitk_cols(int m, F&& f) {
+  switch (splitk_cols(m)) {
+    case 32:
+      return f(std::integral_constant<int, 32>{});
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    case 80:
+      return f(std::integral_constant<int, 80>{});
+    default:
+      return f(std::integral_constant<int, 128>{});
+  }
+}
+
+// One launch of `kernel` over ceil(n / 128) clusters of `splits` blocks,
+// with its arguments `args`.  `dependent`: it may start while the launch
+// before it on the stream still runs (programmatic dependent launch; the
+// kernel calls griddep_wait before it reads that launch's output).
+inline cudaError_t launch_splitk_grid(const void* kernel, int smem, int n, int splits, bool dependent,
+                                      void** args, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = splits;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ceil_div(n, kSplitBN) * splits);
+  cfg.blockDim = dim3(kSplitThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attrs;
+  cfg.numAttrs = dependent ? 2 : 1;
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// One launch of a bf16 split-K kernel: the TMA maps of x (bf16 [m, k]) and
+// the weight's bytes ([n, kp / W::kKPerByte]), then ceil(n / 128) clusters
+// of `splits` blocks.
 template <class W>
 inline cudaError_t launch_splitk(SplitKKernel kernel, int smem, int xn, const void* x,
                                  const void* w, const float* scale, void* out, int m, int n, int k,
@@ -1511,28 +1710,11 @@ inline cudaError_t launch_splitk(SplitKKernel kernel, int smem, int xn, const vo
   const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(kp / W::kKPerByte), static_cast<cuuint64_t>(n)};
   const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(kp / W::kKPerByte)};
   const cuuint32_t wbox[2] = {W::kRowBytes, kSplitBN};
-  err = make_tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wdims, wstrides, wbox,
-                        CU_TENSOR_MAP_SWIZZLE_NONE);
+  err = make_tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wdims, wstrides, wbox, W::kSwizzle);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = splits;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ceil_div(n, kSplitBN) * splits);
-  cfg.blockDim = dim3(kSplitThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   void* args[] = {&xmap, &wmap, &scale, &o, &m, &n, &k, &kp, &splits};
-  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_splitk_grid(reinterpret_cast<const void*>(kernel), smem, n, splits, false, args, stream);
 }
 
 }  // namespace sdtpu

@@ -10,8 +10,10 @@
 // (`gq_form`, exported as sdtpu_gq_form): `gq_wgmma_kernel<Mode, G>` for
 // bf16 activations with M >= kGqMinM rows, `gq_gemv_kernel<Mode, G>` for
 // bf16 with M <= kGqGemvMaxM in the group and W8A16 modes,
-// `gq_gemm_kernel<Mode, G>` for the rest of bf16, and, for float32
-// activations at every M and in every mode (W8A16's too),
+// `gq_splitk_kernel<Mode, G, XN>` for bf16 between them in those modes,
+// `gq_gemm_kernel<G>` for the affine mode's bf16 calls below
+// kGqMinM, and, for float32 activations at every M and in every mode
+// (W8A16's too),
 // `gq_gemm_f32_kernel<Mode, G, BM>`: common.cuh's split-x TF32 tile
 // `f32_quant_gemm` with an int8 widening (x split into two tf32 terms, q
 // exact in tf32, two tensor-core products a step, the scales outside them;
@@ -79,11 +81,34 @@
 // an SM) and kRowScale 80 (6; 72 and 7 in its own kernel, which ran
 // 3072->18432 in 0.0288 ms against 0.0261 now, and 3072->9216 alike).
 //
-// The rest of bf16 below kGqMinM (M 9-127, and the affine mode at any small
-// M): the first form, tiles loaded synchronously
-// (global -> registers -> shared, then a barrier) and mma.sync m16n8k16.  x
-// is row-major [M, K] with K a multiple of 8; rows, columns and K past the
-// edge are zero-filled.
+// Between them (kGqGemvMaxM < M < kGqMinM), group and W8A16 modes:
+// `gq_splitk_kernel<Mode, G, XN>`, common.cuh's split-K weight-streaming
+// `wgmma` GEMM `splitk_gemm` with an int8 widening as its policy
+// (`WidenI8Rows`): operands swapped (128 weight rows a block as the wgmma
+// M, every x row in one tile of XN = 32, 64, 80 or 128 as its N), a TMA
+// ring under full / empty mbarriers, K split across the blocks of a cluster
+// (1 to 8, by shape: `sdtpu_gq_splits` reports it) and reduced through
+// distributed shared memory in split order, one launch and no workspace.
+// The first path that runs it is an int8 SDXL UNet at CFG 1, whose 140
+// context projections a forward (attn2.to_k / to_v over CLIP's 77 tokens:
+// 77x2048->640 and ->1280) take it as group-32 blocks (a q8_0 GGUF kept in
+// them) or under W8A16.  The weight tile is TMA-loaded with the 64-byte
+// swizzle and each register-A pair read as 16 bits at its swizzled offset,
+// as in the wgmma form (no bank conflicts); kGroup widens q * s in f32
+// (__fmul_rn: no contraction) and rounds once to bf16, kRowScale widens q
+// exactly, loads no stage scales and multiplies the f32 sum by s[n] before
+// its one rounding, in the unsplit store and after the cluster's split-order
+// sum alike.  Its bound is the int8 weight's bytes (77x2048->1280:
+// 0.0009 ms at 3.35 TB/s), so at SDXL's shapes the launch's fixed cost
+// (~6 us, common.cuh) is most of its time: on an NVIDIA H100 80GB HBM3 at
+// 700 W (device clock; chip_smoke.py, sdtpu_torch/tools/time_dequant.py)
+// 0.0073-0.0079 ms there (8 splits; the mma.sync form it replaced
+// 0.049-0.052), 0.029-0.032 at 127x3072->12288 (0.109-0.120).
+//
+// The affine mode below kGqMinM: the first form, tiles loaded
+// synchronously (global -> registers -> shared, then a barrier) and
+// mma.sync m16n8k16.  x is row-major [M, K] with K a multiple of 8; rows,
+// columns and K past the edge are zero-filled.
 #include "common.cuh"
 
 namespace sdtpu {
@@ -96,10 +121,10 @@ constexpr int kThreads = 256;  // 8 warps: 2 along M (32 rows) x 4 along N (32 c
 // How a weight tile is widened.
 enum WMode : int { kGroup = 0, kGroupZero = 1, kRowScale = 2 };
 
-// The block's [kBN x kBK] weight tile, widened to bf16 into shared memory.
-// 512 chunks of 16 int8 values; a chunk starts at a multiple of 16 and so
-// lies inside one scale group (G >= 16).
-template <int Mode, int G>
+// The block's [kBN x kBK] affine weight tile, widened to bf16 into shared
+// memory.  512 chunks of 16 int8 values; a chunk starts at a multiple of 16
+// and so lies inside one scale group (G >= 16).
+template <int G>
 __device__ __forceinline__ void load_w_tile(__nv_bfloat16* ws, const int8_t* __restrict__ q,
                                             const float* __restrict__ scale,
                                             const float* __restrict__ zero, int n, int kp,
@@ -117,24 +142,13 @@ __device__ __forceinline__ void load_w_tile(__nv_bfloat16* ws, const int8_t* __r
     }
     const int4 raw = *reinterpret_cast<const int4*>(q + (size_t)row * kp + kk);
     const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
-    float s = 1.f, z = 0.f;
-    if (Mode != kRowScale) {
-      const size_t gi = (size_t)row * (kp / G) + kk / G;
-      s = scale[gi];
-      if (Mode == kGroupZero) z = zero[gi];
-    }
+    const size_t gi = (size_t)row * (kp / G) + kk / G;
+    const float s = scale[gi], z = zero[gi];
     uint32_t p[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      float a = static_cast<float>(v[2 * i]), b = static_cast<float>(v[2 * i + 1]);
-      if (Mode != kRowScale) {
-        a = __fmul_rn(a, s);
-        b = __fmul_rn(b, s);
-      }
-      if (Mode == kGroupZero) {
-        a = __fsub_rn(a, z);
-        b = __fsub_rn(b, z);
-      }
+      const float a = __fsub_rn(__fmul_rn(static_cast<float>(v[2 * i]), s), z);
+      const float b = __fsub_rn(__fmul_rn(static_cast<float>(v[2 * i + 1]), s), z);
       p[i] = pack_bf16x2(a, b);
     }
     dst[0] = make_uint4(p[0], p[1], p[2], p[3]);
@@ -192,11 +206,9 @@ __device__ __forceinline__ void zero_acc(float (&acc)[2][4][4]) {
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 }
 
-// The warp's patch to bf16 out; kRowScale multiplies by scale[col] first.
-template <int Mode>
-__device__ __forceinline__ void store_tile(const float (&acc)[2][4][4], __nv_bfloat16* out,
-                                           const float* __restrict__ scale, int m, int n,
-                                           int m0, int n0, int wm, int wn, int g, int tq) {
+// The warp's patch to bf16 out.
+__device__ __forceinline__ void store_tile(const float (&acc)[2][4][4], __nv_bfloat16* out, int m,
+                                           int n, int m0, int n0, int wm, int wn, int g, int tq) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -206,11 +218,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[2][4][4], __nv_bfl
         const int row = m0 + wm * 32 + i * 16 + g + h * 8;
         const int col = n0 + wn * 32 + j * 8 + tq * 2;
         if (row >= m) continue;
-        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        if (Mode == kRowScale) {
-          if (col < n) v0 = __fmul_rn(v0, scale[col]);
-          if (col + 1 < n) v1 = __fmul_rn(v1, scale[col + 1]);
-        }
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
         if (col + 1 < n && (n & 1) == 0) {  // paired store needs 4-byte alignment
           *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * n + col) =
               __floats2bfloat162_rn(v0, v1);
@@ -221,10 +229,10 @@ __device__ __forceinline__ void store_tile(const float (&acc)[2][4][4], __nv_bfl
       }
 }
 
-// The small-M form: a block owns a 64 x kBN output tile.  Per K step it
-// widens the weight tile into shared memory, loads the x tile beside it and
-// runs mma.sync over both.
-template <int Mode, int G>
+// The affine mode's small-M form: a block owns a 64 x kBN output tile.  Per
+// K step it widens the weight tile into shared memory, loads the x tile
+// beside it and runs mma.sync over both.
+template <int G>
 __global__ void __launch_bounds__(kThreads)
 gq_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
                const float* __restrict__ scale, const float* __restrict__ zero,
@@ -240,13 +248,13 @@ gq_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q
   float acc[2][4][4];
   zero_acc(acc);
   for (int k0 = 0; k0 < kp; k0 += kBK) {
-    load_w_tile<Mode, G>(ws, q, scale, zero, n, kp, n0, k0, tid);
+    load_w_tile<G>(ws, q, scale, zero, n, kp, n0, k0, tid);
     load_x_tile(xs, x, m, k, m0, k0, tid);
     __syncthreads();
     mma_tile(acc, xs, ws, wm, wn, g, tq);
     __syncthreads();
   }
-  store_tile<Mode>(acc, out, scale, m, n, m0, n0, wm, wn, g, tq);
+  store_tile(acc, out, m, n, m0, n0, wm, wn, g, tq);
 }
 
 // float32 activations, every M and mode: common.cuh's split-x TF32 tile
@@ -505,6 +513,83 @@ cudaError_t launch_gq_wgmma(const void* x, const void* q, const float* scale, co
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- 8 < M < 128: split K
+
+// splitk_gemm's policy for int8 rows of 64 bytes a stage, TMA-loaded with
+// the 64-byte swizzle: a thread's pair (2tq + 8h) of k16 step kk is the
+// 16-bit word at column 16kk + 8h + 2tq of its row (w_pair_offset), each q
+// exact in f32 (offset binary under 2^23, as the GEMV's widening); kGroup
+// multiplies by the group's scale (__fmul_rn) before the one bf16x2
+// rounding, bit-equal to the plain version's weight; kRowScale's q is exact
+// in bf16 and its scale waits for the epilogue.
+template <int Mode>
+struct WidenI8Rows {
+  static_assert(Mode == kGroup || Mode == kRowScale, "gq split-K: the affine mode keeps mma.sync");
+  static constexpr int kKPerByte = 1, kRowBytes = kSplitBK;
+  static constexpr bool kSumScale = Mode == kRowScale;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_64B;
+  template <int G>
+  static __device__ __forceinline__ void row_pairs(const uint8_t* tile, int row, const float* srow,
+                                                   int tq, uint32_t (&f)[4][2]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t v =
+            *reinterpret_cast<const uint16_t*>(tile + w_pair_offset(row, 16 * kk + 8 * h + 2 * tq)) ^ 0x8080u;
+        float lo = __fsub_rn(__uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440u)), 8388736.f);
+        float hi = __fsub_rn(__uint_as_float(__byte_perm(v, 0x4B000000u, 0x7441u)), 8388736.f);
+        if constexpr (!kSumScale) {
+          const float s = srow[(16 * kk) / G];
+          lo = __fmul_rn(lo, s);
+          hi = __fmul_rn(hi, s);
+        }
+        f[kk][h] = pack_bf16x2(lo, hi);
+      }
+  }
+};
+
+// kGroup: scale f32 [n, kp / G]; kRowScale (G unused): scale f32 [n]
+template <int Mode, int G, int XN>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+gq_splitk_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                 const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int m, int n,
+                 int k, int kp, int splits) {
+  splitk_gemm<WidenI8Rows<Mode>, G, XN>(&xmap, &wmap, scale, out, m, n, k, kp, splits);
+}
+
+template <int Mode, int XN>
+SplitKKernel gq_splitk_for(int group) {
+  if constexpr (Mode == kRowScale) {
+    return gq_splitk_kernel<kRowScale, 32, XN>;
+  } else {
+    return group == 16 ? gq_splitk_kernel<Mode, 16, XN> : gq_splitk_kernel<Mode, 32, XN>;
+  }
+}
+
+// The split count a call of m rows takes at n x k: a function of the shape
+// (and the card) alone, the same for both modes (their kernels share their
+// shared memory and threads).
+int gq_splits(int m, int n, int k) {
+  return with_splitk_cols(m, [&](auto xn) {
+    constexpr int XN = decltype(xn)::value;
+    return splitk_splits_for<SplitKSmem<WidenI8Rows<kGroup>, XN>>(
+        reinterpret_cast<const void*>(gq_splitk_for<kGroup, XN>(32)), n, ceil_div(k, kSplitBK));
+  });
+}
+
+template <int Mode>
+cudaError_t launch_gq_splitk(const void* x, const void* q, const float* scale, void* out, int m,
+                             int n, int k, int kp, int group, cudaStream_t stream) {
+  const int splits = gq_splits(m, n, k);
+  return with_splitk_cols(m, [&](auto xn) {
+    constexpr int XN = decltype(xn)::value;
+    return launch_splitk<WidenI8Rows<Mode>>(gq_splitk_for<Mode, XN>(group),
+                                            SplitKSmem<WidenI8Rows<Mode>, XN>::kBytes, XN, x, q,
+                                            scale, out, m, n, k, kp, splits, stream);
+  });
+}
+
 // ------------------------------------------------------- M <= 8: GEMV
 
 constexpr int kGqGemvMaxM = kGemvMaxM;  // bf16 calls with at most this many rows take the GEMV
@@ -557,14 +642,16 @@ cudaError_t launch_gq_gemv(const void* x, const void* q, const float* scale, voi
 }
 
 // The form a call of m rows takes, by shape alone: 0 the GEMV (bf16, M <=
-// kGqGemvMaxM, not affine), 1 the mma.sync form, 2 the wgmma kernel (bf16,
-// M >= kGqMinM), 3 the float32 kernel (every mode and M); -1 a dtype no
-// kernel takes.
+// kGqGemvMaxM, not affine), 1 the mma.sync form (bf16, affine, M <
+// kGqMinM), 2 the wgmma kernel (bf16, M >= kGqMinM), 3 the float32 kernel
+// (every mode and M), 4 the split-K form (bf16, not affine, between the
+// GEMV and the wgmma kernel); -1 a dtype no kernel takes.
 int gq_form(int dtype, int mode, int m) {
   if (dtype == kF32) return 3;
   if (dtype != kBF16) return -1;
-  if (m <= kGqGemvMaxM && mode != kGroupZero) return 0;
-  return m >= kGqMinM ? 2 : 1;
+  if (m >= kGqMinM) return 2;
+  if (mode == kGroupZero) return 1;
+  return m <= kGqGemvMaxM ? 0 : 4;
 }
 
 bool group_shape_ok(int m, int n, int k, int kp, int group) {
@@ -580,29 +667,27 @@ cudaError_t launch_group(int dtype, const void* x, const void* q, const void* sc
                          void* stream) {
   if (!group_shape_ok(m, n, k, kp, group)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* qi = static_cast<const int8_t*>(q);
   const float* sc = static_cast<const float*>(scale);
   const float* zr = static_cast<const float*>(zero);
   const int form = gq_form(dtype, Mode, m);
-  if constexpr (Mode != kGroupZero) {
+  if (form == 2) return launch_gq_wgmma<Mode>(x, q, sc, zr, out, m, n, k, kp, group, s);
+  if (form == 3)
+    return group == 16 ? launch_gq_f32<Mode, 16>(x, q, sc, zr, out, m, n, k, kp, s)
+                       : launch_gq_f32<Mode, 32>(x, q, sc, zr, out, m, n, k, kp, s);
+  if constexpr (Mode == kGroupZero) {
+    if (form != 1) return cudaErrorInvalidValue;
+    auto kernel = group == 16 ? gq_gemm_kernel<16> : gq_gemm_kernel<32>;
+    kernel<<<dim3(ceil_div(n, kBN), ceil_div(m, kBM)), kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q), sc, zr,
+        static_cast<__nv_bfloat16*>(out), m, n, k, kp);
+    return cudaGetLastError();
+  } else {
     if (form == 0)
       return group == 16 ? launch_gq_gemv<Mode, 16>(x, q, sc, out, m, n, k, kp, s)
                          : launch_gq_gemv<Mode, 32>(x, q, sc, out, m, n, k, kp, s);
-  }
-  if (form == 2) {
-    return launch_gq_wgmma<Mode>(x, q, sc, zr, out, m, n, k, kp, group, s);
-  } else if (form == 1) {
-    auto kernel = group == 16 ? gq_gemm_kernel<Mode, 16> : gq_gemm_kernel<Mode, 32>;
-    kernel<<<dim3(ceil_div(n, kBN), ceil_div(m, kBM)), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), qi, sc, zr, static_cast<__nv_bfloat16*>(out), m,
-        n, k, kp);
-  } else if (form == 3) {
-    return group == 16 ? launch_gq_f32<Mode, 16>(x, q, sc, zr, out, m, n, k, kp, s)
-                       : launch_gq_f32<Mode, 32>(x, q, sc, zr, out, m, n, k, kp, s);
-  } else {
+    if (form == 4) return launch_gq_splitk<Mode>(x, q, sc, out, m, n, k, kp, group, s);
     return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -651,15 +736,21 @@ extern "C" int sdtpu_w8a16_matmul(int dtype, const void* x, const void* q, const
   if (form == 3) return launch_gq_f32<kRowScale, 1>(x, q, sc, nullptr, out, m, n, k, k, s);
   if (form == 0) return launch_gq_gemv<kRowScale, 1>(x, q, sc, out, m, n, k, k, s);
   if (form == 2) return launch_gq_wgmma<kRowScale>(x, q, sc, nullptr, out, m, n, k, k, 32, s);
-  gq_gemm_kernel<kRowScale, 1><<<dim3(ceil_div(n, kBN), ceil_div(m, kBM)), kThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q), sc, nullptr,
-      static_cast<__nv_bfloat16*>(out), m, n, k, k);
-  return cudaGetLastError();
+  return launch_gq_splitk<kRowScale>(x, q, sc, out, m, n, k, k, 32, s);
 }
 
 // The form a call takes: dtype (0 bf16, 1 f32), mode (0 group, 1 affine,
 // 2 W8A16's row scale) and m rows -> 0 the GEMV, 1 the mma.sync form, 2 the
-// wgmma kernel, 3 the float32 kernel (-1: no kernel takes the dtype).
+// wgmma kernel, 3 the float32 kernel, 4 the split-K form (-1: no kernel
+// takes the dtype).
 extern "C" long long sdtpu_gq_form(int dtype, int mode, int m) {
   return sdtpu::gq_form(dtype, mode, m);
+}
+
+// The splits of K the split-K form takes at m x k -> n of bf16 x in the
+// group and W8A16 modes (1 to 8, the blocks of a cluster; 0 where another
+// form runs).
+extern "C" long long sdtpu_gq_splits(int m, int n, int k) {
+  using namespace sdtpu;
+  return m > kGqGemvMaxM && m < kGqMinM && n > 0 && k > 0 ? gq_splits(m, n, k) : 0;
 }

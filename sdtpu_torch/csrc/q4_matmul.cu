@@ -387,9 +387,12 @@ cudaError_t launch_q4_gemv(const void* x, const void* packed, const float* scale
 // 64 contiguous bytes: no bank conflict).
 struct WidenQ4Rows {
   static constexpr int kKPerByte = 2, kRowBytes = kSplitBK / kKPerByte;
+  static constexpr bool kSumScale = false;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_NONE;
   template <int G>
-  static __device__ __forceinline__ void row_pairs(const uint8_t* row, const float* srow, int tq,
-                                                   uint32_t (&f)[4][2]) {
+  static __device__ __forceinline__ void row_pairs(const uint8_t* tile, int r, const float* srow,
+                                                   int tq, uint32_t (&f)[4][2]) {
+    const uint8_t* row = tile + r * kRowBytes;
     const uint4 c0 = *reinterpret_cast<const uint4*>(row);
     const uint4 c1 = *reinterpret_cast<const uint4*>(row + 16);
     const uint32_t words[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
@@ -419,53 +422,25 @@ SplitKKernel q4_splitk_for(int group) {
                                                              : q4_splitk_kernel<64, XN>;
 }
 
-// Clusters of s blocks of the XN-row kernel the card holds at once, asked
-// once per XN and s (the groups' kernels share their shared memory and
-// threads).
-template <int XN>
-int q4_splitk_capacity(int s) {
-  static int cap[kSplitMax + 1] = {};
-  if (cap[s] == 0)
-    cap[s] = splitk_capacity(q4_splitk_for<XN>(64), SplitKSmem<WidenQ4Rows, XN>::kBytes, s);
-  return cap[s];
-}
-
 // The split count a call of m rows takes at n x k: a function of the shape
-// (and the card) alone.
+// (and the card) alone (the groups' kernels share their shared memory and
+// threads).
 int q4_splits(int m, int n, int k) {
-  switch (splitk_cols(m)) {
-    case 32:
-      return splitk_splits(n, k, q4_splitk_capacity<32>);
-    case 64:
-      return splitk_splits(n, k, q4_splitk_capacity<64>);
-    case 80:
-      return splitk_splits(n, k, q4_splitk_capacity<80>);
-    default:
-      return splitk_splits(n, k, q4_splitk_capacity<128>);
-  }
-}
-
-template <int XN>
-cudaError_t launch_q4_splitk_cols(const void* x, const void* packed, const float* scale, void* out,
-                                  int m, int n, int k, int kp, int group, int splits,
-                                  cudaStream_t stream) {
-  return launch_splitk<WidenQ4Rows>(q4_splitk_for<XN>(group), SplitKSmem<WidenQ4Rows, XN>::kBytes, XN,
-                                    x, packed, scale, out, m, n, k, kp, splits, stream);
+  return with_splitk_cols(m, [&](auto xn) {
+    constexpr int XN = decltype(xn)::value;
+    return splitk_splits_for<SplitKSmem<WidenQ4Rows, XN>>(
+        reinterpret_cast<const void*>(q4_splitk_for<XN>(64)), n, ceil_div(k, kSplitBK));
+  });
 }
 
 cudaError_t launch_q4_splitk(const void* x, const void* packed, const float* scale, void* out,
                              int m, int n, int k, int kp, int group, cudaStream_t stream) {
   const int splits = q4_splits(m, n, k);
-  switch (splitk_cols(m)) {
-    case 32:
-      return launch_q4_splitk_cols<32>(x, packed, scale, out, m, n, k, kp, group, splits, stream);
-    case 64:
-      return launch_q4_splitk_cols<64>(x, packed, scale, out, m, n, k, kp, group, splits, stream);
-    case 80:
-      return launch_q4_splitk_cols<80>(x, packed, scale, out, m, n, k, kp, group, splits, stream);
-    default:
-      return launch_q4_splitk_cols<128>(x, packed, scale, out, m, n, k, kp, group, splits, stream);
-  }
+  return with_splitk_cols(m, [&](auto xn) {
+    constexpr int XN = decltype(xn)::value;
+    return launch_splitk<WidenQ4Rows>(q4_splitk_for<XN>(group), SplitKSmem<WidenQ4Rows, XN>::kBytes,
+                                      XN, x, packed, scale, out, m, n, k, kp, splits, stream);
+  });
 }
 
 // ------------------------------------------------------- float32 x: split-x TF32

@@ -49,12 +49,53 @@
 // epilogue), and folding those in as policies would change the code the
 // other two GEMVs were tuned with.
 //
-// M 9-127 (no request path sends such M; T5 and the DiT's text run 256
-// rows), and M <= 8 with K > kW8a8GemvMaxK (x would not fit shared memory):
-// `w8a8_gemm_kernel`, the first form: 128x64-byte tiles loaded
-// synchronously into padded shared memory, mma.sync m16n8k32.  `w8a8_form`
-// (exported as sdtpu_w8a8_form) names the form by shape alone.  Every form
-// needs K a multiple of 16 (16-byte loads; TMA's 16-byte global strides).
+// M 9-127 (an int8 SDXL UNet at CFG 1: its 140 context projections a
+// forward, attn2.to_k / to_v over CLIP's 77 tokens, at 77x2048->640 and
+// ->1280), and M <= 8 with K > kW8a8GemvMaxK (x would not fit the GEMV's
+// shared memory): `w8a8_splitk_kernel<TOut, XN>`, a split-K
+// weight-streaming wgmma GEMM on common.cuh's split-K launch shape,
+// split count and cluster reduction (`splitk_store`).  Its bound is the
+// int8 weight's bytes (0.0009 ms at 77x2048->1280 at 3.35 TB/s; 0.0112 ms
+// at 127x3072->12288), well under the ~6 us a split-K launch costs in
+// fixed time (common.cuh), so its design is about launches and filling the
+// card, not arithmetic.  Operands are swapped as in the 4-bit split-K form:
+// a block owns 128 weight rows (the wgmma M, 64 per consumer warpgroup) and
+// every x row in one tile of XN = 32, 64, 80 or 128 rows (the wgmma N, the
+// first that holds M); a producer thread TMA-loads 128-byte K slices of the
+// weight and of the quantized x (both int8, K-major, 128-byte swizzle)
+// into a ring under full / empty mbarriers, and the consumers run
+// wgmma.m64nXNk32.s32.s8.s8 with both operands from shared memory: no
+// widening at all.  K is split across the 1-8 blocks of a cluster
+// (`sdtpu_w8a8_splits`) and the int32 partials summed through distributed
+// shared memory in split order; int32 sums are exact in any order, so the
+// result is bit-equal to the plain version whatever the split.  The
+// epilogue is the other forms' (acc * s_x, then * s_w, each __fmul_rn).
+// On an NVIDIA H100 80GB HBM3 at 700 W (device clock, the quantize and the
+// GEMM summed; chip_smoke.py, sdtpu_torch/tools/time_dequant.py): 0.0093 /
+// 0.0097 ms at 77x2048->640 / ->1280 (8 splits; the mma.sync pair it
+// replaced 0.046-0.048), 0.0224 at 127x3072->12288 (unsplit; 0.095-0.097),
+// against torch._int_mm's 0.0063 / 0.0227 for the GEMM alone.
+//
+// The row quantize stays its own launch (`quantize_rows_kernel`, which
+// every M > 8 call runs first), and the GEMM is launched as its
+// programmatic dependent: quantize_rows_kernel lets it start at once
+// (griddep_launch_dependents), its producer issues the weight loads of the
+// first ring's worth of stages, waits for the quantize to complete
+// (griddep_wait) and only then loads x, and the consumers wait the same
+// before the epilogue reads s_x.  So the weight ring fills while x is
+// quantized, and the second launch's latency overlaps the first's.  This
+// was chosen over folding the quantize into the GEMM as the M <= 8 GEMV
+// does: there every block holds all of x in shared memory, but here a
+// block would have to exchange per-row amax partials of its K slice with
+// its cluster (every row's scale needs all of K) and then quantize each
+// bf16 x stage in shared memory between its TMA load and its wgmma, on the
+// consumers' critical path, for every band of the weight alike; the
+// dependent launch keeps the int8 mainloop free of that work and leaves x
+// quantized once per call.
+//
+// `w8a8_form` (exported as sdtpu_w8a8_form) names the form by shape alone.
+// Every form needs K a multiple of 16 (16-byte loads; TMA's 16-byte global
+// strides).
 #include "common.cuh"
 
 #include <math.h>
@@ -69,6 +110,7 @@ __global__ void __launch_bounds__(kQuantThreads)
 quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
                      float* __restrict__ sx, int k) {
   __shared__ float warp_max[kQuantThreads / 32];
+  griddep_launch_dependents();  // a split-K GEMM after it may start loading its weight
   const size_t row = blockIdx.x;
   const T* xr = x + row * k;
   float amax = 0.f;
@@ -88,85 +130,6 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
     const float v = rintf(__fdiv_rn(to_f32(xr[i]), s));  // half to even
     qr[i] = static_cast<int8_t>(fminf(fmaxf(v, -127.f), 127.f));
   }
-}
-
-constexpr int kBM = 128, kBN = 128, kBK = 64;
-constexpr int kRow = kBK + 16;  // 80-byte rows: conflict-free fragment loads
-constexpr int kThreads = 256;   // 8 warps: 4 along M (32 rows) x 2 along N (64 cols)
-
-template <typename TOut>
-__global__ void __launch_bounds__(kThreads)
-w8a8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
-                 const float* __restrict__ sx, const float* __restrict__ sw,
-                 TOut* __restrict__ out, int m, int n, int k) {
-  __shared__ __align__(16) int8_t xs[kBM * kRow];
-  __shared__ __align__(16) int8_t ws[kBN * kRow];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  int acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    // 128 rows x 64 bytes per operand = 512 chunks of 16 bytes.
-    for (int c = tid; c < kBM * kBK / 16; c += kThreads) {
-      const int r = c >> 2, col = (c & 3) * 16;
-      uint4 a = make_uint4(0, 0, 0, 0), b = make_uint4(0, 0, 0, 0);
-      if (k0 + col < k) {
-        if (m0 + r < m) a = *reinterpret_cast<const uint4*>(xq + (size_t)(m0 + r) * k + k0 + col);
-        if (n0 + r < n) b = *reinterpret_cast<const uint4*>(wq + (size_t)(n0 + r) * k + k0 + col);
-      }
-      *reinterpret_cast<uint4*>(xs + r * kRow + col) = a;
-      *reinterpret_cast<uint4*>(ws + r * kRow + col) = b;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t a[2][4], b[8][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int8_t* p = xs + (wm * 32 + i * 16 + g) * kRow + kk + tq * 4;
-        a[i][0] = ld_u32(p);
-        a[i][1] = ld_u32(p + 8 * kRow);
-        a[i][2] = ld_u32(p + 16);
-        a[i][3] = ld_u32(p + 8 * kRow + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int8_t* p = ws + (wn * 64 + j * 8 + g) * kRow + kk + tq * 4;
-        b[j][0] = ld_u32(p);
-        b[j][1] = ld_u32(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_s8_16832(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 32 + i * 16 + g + ((e & 2) ? 8 : 0);
-        const int col = n0 + wn * 64 + j * 8 + tq * 2 + (e & 1);
-        if (row < m && col < n) {
-          float r = __fmul_rn(__int2float_rn(acc[i][j][e]), sx[row]);
-          r = __fmul_rn(r, sw[col]);
-          out[(size_t)row * n + col] = from_f32<TOut>(r);
-        }
-      }
 }
 
 // ------------------------------------------------------- large M: wgmma
@@ -529,8 +492,178 @@ cudaError_t launch_w8a8_gemv(const void* x, const int8_t* wq, const float* sw, v
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- 8 < M < 128: split K
+
+constexpr int kS8BK = 128;  // K a stage: 128 int8 bytes of a weight row and of an x row
+
+template <int XN>
+struct S8SplitSmem {
+  static constexpr int kXTile = XN * kS8BK;        // 128-byte swizzle: whole 1 KB atoms
+  static constexpr int kWTile = kSplitBN * kS8BK;  // 16 KB
+  static constexpr int kStage = kXTile + kWTile;
+  static constexpr int kStages = kSplitRing / kStage < 12 ? kSplitRing / kStage : 12;
+  static constexpr int kBytes = 1024 + kStages * kStage + 2 * kStages * 8;
+  static_assert(kStages * kXTile >= XN * kSplitPRow * 4, "w8a8 split-K: the partial tile must fit the x ring");
+  static_assert(kBytes <= 232448, "w8a8 split-K: shared memory over the 227 KB a block may use");
+};
+
+// acc += W_tile . xq_tile^T for one k32 step, wgmma N = XN
+template <int XN>
+__device__ __forceinline__ void s8_splitk_wgmma(int (&acc)[XN / 2], uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (XN == 128) {
+    wgmma_m64n128k32_s8(acc, desc_a, desc_b, 1);
+  } else if constexpr (XN == 80) {
+    wgmma_m64n80k32_s8(acc, desc_a, desc_b, 1);
+  } else if constexpr (XN == 64) {
+    wgmma_m64n64k32_s8(acc, desc_a, desc_b, 1);
+  } else {
+    wgmma_m64n32k32_s8(acc, desc_a, desc_b, 1);
+  }
+}
+
+// out[0:m, n0:n0 + 128] of one block of the cluster: xmap the quantized x
+// int8 [m, k] (box 128 x XN), wmap the weight int8 [n, k] (box 128 x 128),
+// both 128-byte swizzle; sx f32 [m] (written by the launch before this
+// one), sw f32 [n]; the grid is ceil(n / 128) clusters of `splits` blocks.
+template <typename TOut, int XN>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+w8a8_splitk_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                   const float* __restrict__ sx, const float* __restrict__ sw,
+                   TOut* __restrict__ out, int m, int n, int k, int splits) {
+  using S = S8SplitSmem<XN>;
+  constexpr int kStages = S::kStages;
+  extern __shared__ __align__(16) uint8_t s8_smem[];
+  const uint32_t raw = smem_u32(s8_smem);
+  const uint32_t x_base = (raw + 1023) & ~1023u;  // swizzle atoms: 1 KB aligned
+  const uint32_t w_base = x_base + kStages * S::kXTile;
+  const uint32_t bars = w_base + kStages * S::kWTile;
+  uint8_t* smem = s8_smem - raw;  // generic pointer of shared address 0
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int n0 = (blockIdx.x / splits) * kSplitBN;
+  const int ktiles = (k + kS8BK - 1) / kS8BK;
+  const int per = (ktiles + splits - 1) / splits;
+  const int kt0 = rank * per;
+  const int nk = max(0, min(ktiles, kt0 + per) - kt0);  // this block's stages
+
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);   // the TMA arrival
+      mbar_init(empty(s), 8);  // the consumers' eight warps
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread.  The weight of the first ring's worth of stages
+    // is loaded before x exists; x only once the quantize launch is done.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      const int pre = min(nk, kStages);
+      for (int i = 0; i < pre; ++i) {
+        mbar_expect_tx(full(i), S::kXTile + S::kWTile);
+        tma_load_2d(w_base + i * S::kWTile, &wmap, full(i), (kt0 + i) * kS8BK, n0);
+      }
+      griddep_wait();
+      for (int i = 0; i < pre; ++i)
+        tma_load_2d(x_base + i * S::kXTile, &xmap, full(i), (kt0 + i) * kS8BK, 0);
+      for (int i = pre; i < nk; ++i) {
+        const int s = i % kStages;
+        mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), S::kXTile + S::kWTile);
+        tma_load_2d(w_base + s * S::kWTile, &wmap, full(s), (kt0 + i) * kS8BK, n0);
+        tma_load_2d(x_base + s * S::kXTile, &xmap, full(s), (kt0 + i) * kS8BK, 0);
+      }
+    }
+    if (splits > 1) {
+      cluster_sync();  // the cluster's partial tiles are written
+      cluster_sync();  // and read
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = wg * 64 + warp * 16 + g;  // this thread's weight rows in the band: r0, r0 + 8
+  const uint32_t a_rows = wg * 64 * kS8BK;  // this warpgroup's 64 rows of the weight tile
+
+  // acc[4j + e]: weight row r0 (+8 for e >= 2), x row 8j + 2tq (+1 for odd e)
+  int acc[XN / 2];
+#pragma unroll
+  for (int i = 0; i < XN / 2; ++i) acc[i] = 0;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % kStages;
+    mbar_wait(full(s), (i / kStages) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kS8BK / 32; ++kk)
+      s8_splitk_wgmma<XN>(acc, smem_desc_sw128(w_base + s * S::kWTile + a_rows + kk * 32, 16, 1024),
+                          smem_desc_sw128(x_base + s * S::kXTile + kk * 32, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: free it
+    fence_regs(acc);
+    if (i > 0 && lane == 0) mbar_arrive(empty((i - 1) % kStages));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  griddep_wait();  // s_x is the quantize launch's
+  splitk_store<XN>(acc, smem, x_base, out, m, n, n0, r0, tq, splits, [&](int mm, int nn, int v) {
+    return __fmul_rn(__fmul_rn(__int2float_rn(v), sx[mm]), sw[nn]);
+  });
+}
+
+template <int XN>
+const void* w8a8_splitk_for(bool bf16) {
+  return bf16 ? reinterpret_cast<const void*>(w8a8_splitk_kernel<__nv_bfloat16, XN>)
+              : reinterpret_cast<const void*>(w8a8_splitk_kernel<float, XN>);
+}
+
+// The split count a call of m rows takes at n x k: a function of the shape
+// (and the card) alone (both output types' kernels share their shared
+// memory and threads).
+int w8a8_splits(int m, int n, int k) {
+  return with_splitk_cols(m, [&](auto xn) {
+    constexpr int XN = decltype(xn)::value;
+    return splitk_splits_for<S8SplitSmem<XN>>(w8a8_splitk_for<XN>(true), n, ceil_div(k, kS8BK));
+  });
+}
+
+template <int XN>
+cudaError_t launch_w8a8_splitk_cols(bool bf16, const int8_t* xq, const int8_t* wq, const float* sx,
+                                    const float* sw, void* out, int m, int n, int k, int splits,
+                                    cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(m)};
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k)};
+  const cuuint32_t xbox[2] = {kS8BK, XN}, wbox[2] = {kS8BK, kSplitBN};
+  cudaError_t err = make_tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, xq, xdims, strides, xbox);
+  if (err != cudaSuccess) return err;
+  err = make_tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wq, wdims, strides, wbox);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&xmap, &wmap, &sx, &sw, &out, &m, &n, &k, &splits};
+  return launch_splitk_grid(w8a8_splitk_for<XN>(bf16), S8SplitSmem<XN>::kBytes, n, splits, true,
+                            args, stream);
+}
+
+cudaError_t launch_w8a8_splitk(bool bf16, const int8_t* xq, const int8_t* wq, const float* sx,
+                               const float* sw, void* out, int m, int n, int k, cudaStream_t stream) {
+  const int splits = w8a8_splits(m, n, k);
+  return with_splitk_cols(m, [&](auto xn) {
+    return launch_w8a8_splitk_cols<decltype(xn)::value>(bf16, xq, wq, sx, sw, out, m, n, k, splits,
+                                                         stream);
+  });
+}
+
 // The form a call of m rows and K = k takes, by shape alone: 0 the GEMV, 1
-// the mma.sync form, 2 the wgmma kernel.
+// the split-K form, 2 the wgmma kernel.
 int w8a8_form(int m, int k) {
   if (m <= kW8a8GemvMaxM && k <= kW8a8GemvMaxK) return 0;
   return m >= kWgmmaMinM ? 2 : 1;
@@ -562,8 +695,10 @@ extern "C" int sdtpu_w8a8_quantize_rows(int dtype, const void* x, void* xq, void
 // [m, n] in `dtype`.  k must be a multiple of 16 and the pointers 16-byte
 // aligned.  The form is w8a8_form's: the GEMV quantizes x itself (xq and sx
 // are not read and may be null); the other forms read xq int8 [m, k] and sx
-// f32 [m], which sdtpu_w8a8_quantize_rows wrote from x.  A refused launch
-// is returned, never retried in another form.
+// f32 [m], which sdtpu_w8a8_quantize_rows wrote from x (the split-K form
+// starts as that launch's programmatic dependent and waits for it before
+// it reads them).  A refused launch is returned, never retried in another
+// form.
 extern "C" int sdtpu_w8a8_matmul(int dtype, const void* x, const void* xq, const void* wq,
                                  const void* sx, const void* sw, void* out, int m, int n, int k,
                                  void* stream) {
@@ -586,16 +721,16 @@ extern "C" int sdtpu_w8a8_matmul(int dtype, const void* x, const void* xq, const
       return launch_w8a8_wgmma(a, b, fx, fw, static_cast<__nv_bfloat16*>(out), m, n, k, s);
     return launch_w8a8_wgmma(a, b, fx, fw, static_cast<float*>(out), m, n, k, s);
   }
-  dim3 grid(ceil_div(n, kBN), ceil_div(m, kBM));
-  if (dtype == kBF16) {
-    w8a8_gemm_kernel<<<grid, kThreads, 0, s>>>(a, b, fx, fw,
-                                               static_cast<__nv_bfloat16*>(out), m, n, k);
-  } else {
-    w8a8_gemm_kernel<<<grid, kThreads, 0, s>>>(a, b, fx, fw, static_cast<float*>(out), m, n, k);
-  }
-  return cudaGetLastError();
+  return launch_w8a8_splitk(dtype == kBF16, a, b, fx, fw, out, m, n, k, s);
 }
 
-// The form a call of m rows and K = k takes: 0 the GEMV, 1 the mma.sync
+// The form a call of m rows and K = k takes: 0 the GEMV, 1 the split-K
 // form, 2 the wgmma kernel.
 extern "C" long long sdtpu_w8a8_form(int m, int k) { return sdtpu::w8a8_form(m, k); }
+
+// The splits of K the split-K form takes at m x k -> n (1 to 8, the blocks
+// of a cluster; 0 where another form runs).
+extern "C" long long sdtpu_w8a8_splits(int m, int n, int k) {
+  using namespace sdtpu;
+  return n > 0 && k > 0 && w8a8_form(m, k) == 1 ? w8a8_splits(m, n, k) : 0;
+}

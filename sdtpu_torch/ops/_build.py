@@ -56,8 +56,10 @@ QUERIES = {
     "sdtpu_flash_splits": ((_I, _I, _I, _I, _I), ctypes.c_longlong),
     # m, n -> x rows per block of the 4-bit wgmma kernel (0: another form runs)
     "sdtpu_q4_tile_rows": ((_I, _I), ctypes.c_longlong),
-    # m, k -> the W8A8 form: 0 the GEMV, 1 the mma.sync form, 2 the wgmma kernel
+    # m, k -> the W8A8 form: 0 the GEMV, 1 the split-K form, 2 the wgmma kernel
     "sdtpu_w8a8_form": ((_I, _I), ctypes.c_longlong),
+    # m, n, k -> splits of K of the W8A8 split-K form (0: another form runs)
+    "sdtpu_w8a8_splits": ((_I, _I, _I), ctypes.c_longlong),
     # dtype, m -> the 4-bit form for m rows: 0 the GEMV, 1 the split-K form,
     # 2 the wgmma kernel, 3 the float32 kernel
     "sdtpu_q4_form": ((_I, _I), ctypes.c_longlong),
@@ -66,8 +68,12 @@ QUERIES = {
     # m, n -> x rows per block of the float32 form of the 4-bit and int8 matmuls
     "sdtpu_f32_tile_rows": ((_I, _I), ctypes.c_longlong),
     # dtype, mode (0 group, 1 affine, 2 W8A16), m -> the group-dequant form:
-    # 0 the GEMV, 1 the mma.sync form, 2 the wgmma kernel, 3 the float32 kernel
+    # 0 the GEMV, 1 the mma.sync form, 2 the wgmma kernel, 3 the float32
+    # kernel, 4 the split-K form
     "sdtpu_gq_form": ((_I, _I, _I), ctypes.c_longlong),
+    # m, n, k -> splits of K of the group / W8A16 split-K form, bf16 (0:
+    # another form runs)
+    "sdtpu_gq_splits": ((_I, _I, _I), ctypes.c_longlong),
 }
 
 

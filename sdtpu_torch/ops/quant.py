@@ -47,15 +47,20 @@ Q4_GEMV_MAX_M = 8  # q4_matmul calls with at most this many rows run the GEMV (k
 # W8A8 calls with at most this many rows and K at most W8A8_GEMV_MAX_K run
 # the GEMV (kW8a8GemvMaxM, kW8a8GemvMaxK: x is quantized into shared memory),
 # those with at least W8A8_WGMMA_MIN_M the wgmma kernel (kWgmmaMinM), the
-# rest the mma.sync form
+# rest the split-K form
 W8A8_GEMV_MAX_M = 8
 W8A8_GEMV_MAX_K = 16384
 W8A8_WGMMA_MIN_M = 128
+# K columns a stage of the split-K forms: 64 (bf16 x; kSplitBK) and W8A8's
+# 128 (int8 x; kS8BK); a split takes whole stages
+SPLITK_STAGE = Q4_K_MULTIPLE
+W8A8_SPLITK_STAGE = 128
 GQ_GROUPS = (16, 32)
 # symmetric group-dequant and W8A16 bf16 calls with at most this many rows run
 # the GEMV (kGqGemvMaxM), those with at least GQ_WGMMA_MIN_M the wgmma kernel
-# (kGqMinM), the rest the mma.sync form; the library's codes for the weight's
-# mode (csrc/gq_matmul.cu, enum WMode), which ``sdtpu_gq_form`` takes
+# (kGqMinM), the rest the split-K form (the affine mode: the mma.sync form);
+# the library's codes for the weight's mode (csrc/gq_matmul.cu, enum WMode),
+# which ``sdtpu_gq_form`` takes
 GQ_GEMV_MAX_M = 8
 GQ_WGMMA_MIN_M = 128
 GQ_MODE_GROUP, GQ_MODE_AFFINE, GQ_MODE_ROW_SCALE = 0, 1, 2
@@ -201,6 +206,32 @@ def dequantize_group(qt: GroupQuantTensor, dtype=torch.float32) -> torch.Tensor:
     return w[:, : qt.k].to(dtype)
 
 
+QUANTIZE_MIN_SIZE = 1 << 16  # elements a 2-D weight needs to be quantized
+
+
+def quantize_params(params: dict, bits: int = 8) -> dict:
+    """Quantize every large 2-D weight of a param dict, as
+    ``sdtpu.ops.quant.quantize_params`` does: bits=8 → per-row int8
+    ``QuantTensor`` (the q8_0 class, ``quantize_per_channel``), bits=4 →
+    packed 4-bit ``Q4Tensor`` at group 64 (``quantize_q4``: the JAX
+    function's nibbles and scales; its K padded to the port's 64-wide tile
+    where the JAX one pads to its 512-wide Mosaic tile, zero weights either
+    way, as ``from_jax_params`` repacks a JAX one).  A weight qualifies when it
+    is 2-D, named ``*.weight`` and holds at least ``QUANTIZE_MIN_SIZE``
+    elements; every other entry comes back as it was.  Each weight is
+    quantized on its own device."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    out = {}
+    for name, v in params.items():
+        if (isinstance(v, torch.Tensor) and v.ndim == 2 and v.numel() >= QUANTIZE_MIN_SIZE
+                and name.endswith(".weight")):
+            out[name] = quantize_per_channel(v) if bits == 8 else quantize_q4(v, Q4_GROUP)
+        else:
+            out[name] = v
+    return out
+
+
 # ----------------------------------------------------------- GGUF staging
 
 
@@ -308,11 +339,13 @@ def quant_matmul_w8a8(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
 
     out[m, n] = (Σ_k xq[m, k]·wq[n, k]) · s_x[m] · s_w[n].  The library
     picks the form by shape (``sdtpu_w8a8_form``): calls of at most
-    ``W8A8_GEMV_MAX_M`` rows run the weight-streaming GEMV, which quantizes
-    x itself in its one launch (counted in ``launches_gemv``); the others
-    quantize x per row first (``sdtpu_w8a8_quantize_rows``) and run the
-    ``mma.sync`` form (``launches_mma``) or, from ``W8A8_WGMMA_MIN_M`` rows,
-    the wgmma kernel.  Every call counts in ``launches``."""
+    ``W8A8_GEMV_MAX_M`` rows (and K at most ``W8A8_GEMV_MAX_K``) run the
+    weight-streaming GEMV, which quantizes x itself in its one launch
+    (counted in ``launches_gemv``); the others quantize x per row first
+    (``sdtpu_w8a8_quantize_rows``) and run the split-K form
+    (``launches_splitk``: K split across a cluster's blocks, started as the
+    quantize's dependent launch) or, from ``W8A8_WGMMA_MIN_M`` rows, the
+    wgmma kernel (``launches_wgmma``).  Every call counts in ``launches``."""
     if x.device.type == "cpu":
         return quant_matmul_w8a8_plain(x, qt)
     if x.dtype not in _build.DTYPE_CODES:
@@ -340,11 +373,13 @@ def quant_matmul_w8a8(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
                   _build.ptr(sx), qt.scale.data_ptr(), out.data_ptr(), m, n, k, stream)
     quant_matmul_w8a8.launches += 1
     quant_matmul_w8a8.launches_gemv += gemv
-    quant_matmul_w8a8.launches_mma += not gemv and m < W8A8_WGMMA_MIN_M
+    quant_matmul_w8a8.launches_splitk += not gemv and m < W8A8_WGMMA_MIN_M
+    quant_matmul_w8a8.launches_wgmma += m >= W8A8_WGMMA_MIN_M
     return out.reshape(*x.shape[:-1], n)
 
 
-quant_matmul_w8a8.launches = quant_matmul_w8a8.launches_gemv = quant_matmul_w8a8.launches_mma = 0
+quant_matmul_w8a8.launches = quant_matmul_w8a8.launches_gemv = 0
+quant_matmul_w8a8.launches_splitk = quant_matmul_w8a8.launches_wgmma = 0
 
 
 # ------------------------------------------------------------------ W8A16
@@ -355,21 +390,31 @@ def w8a16_matmul_plain(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     return torch.matmul(x, dequantize(qt, x.dtype).T)
 
 
-def _count_form(wrapper, m: int) -> None:
-    """Count a bf16 launch of ``m`` rows of ``gq_matmul`` or ``w8a16_matmul``
-    apart by the form the library runs for it (``sdtpu_gq_form``, by shape):
-    the GEMV (``launches_gemv``) or the ``mma.sync`` form (``launches_mma``)."""
-    wrapper.launches_gemv += m <= GQ_GEMV_MAX_M
-    wrapper.launches_mma += GQ_GEMV_MAX_M < m < GQ_WGMMA_MIN_M
+def _count_form(wrapper, m: int, dtype: torch.dtype) -> None:
+    """Count a launch of ``m`` rows of ``gq_matmul`` or ``w8a16_matmul`` by
+    the form the library runs for it (``sdtpu_gq_form``, by dtype and
+    shape): the float32 form (``launches_f32``), or for bf16 the GEMV
+    (``launches_gemv``), the split-K form (``launches_splitk``) or the wgmma
+    kernel (``launches_wgmma``)."""
+    if dtype == torch.float32:
+        wrapper.launches_f32 += 1
+    elif m <= GQ_GEMV_MAX_M:
+        wrapper.launches_gemv += 1
+    elif m < GQ_WGMMA_MIN_M:
+        wrapper.launches_splitk += 1
+    else:
+        wrapper.launches_wgmma += 1
 
 
 def w8a16_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """W8A16: bf16 or float32 x [..., K] × int8 weight [N, K] → [..., N] in
     x.dtype.
 
-    out[m, n] = (Σ_k x[m, k]·q[n, k]) · s[n], the sum in float32.  bf16 calls
-    of at most ``GQ_GEMV_MAX_M`` rows run the weight-streaming GEMV; float32
-    calls run the float32 form at every M (counted in ``launches_f32``)."""
+    out[m, n] = (Σ_k x[m, k]·q[n, k]) · s[n], the sum in float32.  Each
+    launch counts in ``launches`` and in its form's count (``_count_form``):
+    bf16 calls of at most ``GQ_GEMV_MAX_M`` rows run the weight-streaming
+    GEMV, of fewer than ``GQ_WGMMA_MIN_M`` the split-K form, the rest the
+    wgmma kernel; float32 calls run the float32 form at every M."""
     if x.device.type == "cpu":
         return w8a16_matmul_plain(x, qt)
     if x.dtype not in _build.DTYPE_CODES:
@@ -386,15 +431,12 @@ def w8a16_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
                   qt.q.data_ptr(), qt.scale.data_ptr(), out.data_ptr(), m, n, k,
                   _build.stream_ptr(x))
     w8a16_matmul.launches += 1
-    if x.dtype == torch.bfloat16:
-        _count_form(w8a16_matmul, m)
-    else:
-        w8a16_matmul.launches_f32 += 1
+    _count_form(w8a16_matmul, m, x.dtype)
     return out.reshape(*x.shape[:-1], n)
 
 
-w8a16_matmul.launches = w8a16_matmul.launches_gemv = w8a16_matmul.launches_mma = 0
-w8a16_matmul.launches_f32 = 0
+w8a16_matmul.launches = w8a16_matmul.launches_gemv = w8a16_matmul.launches_splitk = 0
+w8a16_matmul.launches_wgmma = w8a16_matmul.launches_f32 = 0
 
 
 def quant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
@@ -414,27 +456,69 @@ def q4_matmul_plain(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
     return torch.matmul(x, dequantize_q4(qt, x.dtype).T)
 
 
-def split_k_partials(x: torch.Tensor, qt: Q4Tensor, splits: int) -> list:
-    """The K split of the 4-bit split-K form (bf16, 8 < M < 128) in plain
-    PyTorch: K cut into ``Q4_K_MULTIPLE``-wide stages, ``ceil(stages /
-    splits)`` whole stages a split (the last split ragged, empty splits
-    dropped), each split's x·Wᵀ over its columns with the weight dequantized
-    to x.dtype, as float32 [..., N]."""
+def split_k_partials(x: torch.Tensor, qt, splits: int, w8a8: bool = False) -> list:
+    """The K split of the split-K forms (8 < M < 128) in plain PyTorch: K
+    cut into stages (``SPLITK_STAGE`` columns; W8A8's ``W8A8_SPLITK_STAGE``),
+    ``ceil(stages / splits)`` whole stages a split (the last split ragged,
+    empty splits dropped), and each split's partial product over its
+    columns, [..., N]:
+
+    * ``Q4Tensor`` / ``GroupQuantTensor``: x·Wᵀ with the weight dequantized
+      to x.dtype, in float32;
+    * ``QuantTensor`` (W8A16): x·qᵀ in float32, the row scale left to
+      ``combine_splits``;
+    * ``QuantTensor`` with ``w8a8``: xq·wqᵀ of x quantized per row
+      (``quantize_activations``), exact, as int64 (the kernel's int32; the
+      product runs in float64, exact far below 2**53, as no device sums
+      int64)."""
     k = x.shape[-1]
-    w = dequantize_q4(qt, x.dtype)
-    stages = -(-k // Q4_K_MULTIPLE)
-    per = -(-stages // splits) * Q4_K_MULTIPLE  # K columns a split
-    return [torch.matmul(x[..., a:a + per].float(), w[:, a:a + per].float().T)
-            for a in range(0, k, per)]
+    stage = W8A8_SPLITK_STAGE if w8a8 else SPLITK_STAGE
+    if isinstance(qt, QuantTensor):
+        if w8a8:
+            xq, _ = quantize_activations(x)
+            a, w = xq.double(), qt.q.double()
+        else:
+            a, w = x.float(), qt.q.float()
+    else:
+        w = (dequantize_q4(qt, x.dtype) if isinstance(qt, Q4Tensor)
+             else dequantize_group(qt, x.dtype)).float()
+        a = x.float()
+    stages = -(-k // stage)
+    per = -(-stages // splits) * stage  # K columns a split
+    parts = [torch.matmul(a[..., c:c + per], w[:, c:c + per].T) for c in range(0, k, per)]
+    return [p.long() for p in parts] if w8a8 else parts
 
 
-def combine_splits(parts, dtype=torch.float32) -> torch.Tensor:
-    """Sum ``split_k_partials``' splits in split order, as the kernel's
-    reduction does, rounded once to ``dtype``."""
+def combine_splits(parts, dtype=torch.float32, row_scale: Optional[torch.Tensor] = None,
+                   sx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum ``split_k_partials``' splits in split order, as the kernels'
+    reduction does, apply the epilogue and round once to ``dtype``: W8A8
+    (``sx``, the activations' row scales [..., 1], and ``row_scale``, the
+    weight's [N]) takes the int sum to float32, · s_x, then · s_w; W8A16
+    (``row_scale`` alone) multiplies the float32 sum by s[n]."""
     out = parts[0]
     for p in parts[1:]:
         out = out + p
+    if sx is not None:
+        out = out.float() * sx
+    if row_scale is not None:
+        out = out * row_scale
     return out.to(dtype)
+
+
+def split_k_matmul(x: torch.Tensor, qt, splits: int, w8a8: bool = False,
+                   keep: Optional[int] = None) -> torch.Tensor:
+    """A split-K form's whole function in plain PyTorch at ``splits`` splits,
+    in x.dtype: ``split_k_partials`` summed by ``combine_splits`` with the
+    class's epilogue (a ``QuantTensor``: W8A8 with ``w8a8``, else W8A16).
+    ``keep`` sums only the first ``keep`` splits (a fault that must show)."""
+    parts = split_k_partials(x, qt, splits, w8a8)[:keep]
+    if not parts:
+        return torch.zeros((*x.shape[:-1], qt.shape[0]), dtype=x.dtype, device=x.device)
+    if not isinstance(qt, QuantTensor):
+        return combine_splits(parts, x.dtype)
+    sx = quantize_activations(x)[1] if w8a8 else None
+    return combine_splits(parts, x.dtype, row_scale=qt.scale, sx=sx)
 
 
 def q4_matmul(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
@@ -510,23 +594,21 @@ def _gq_launch(name: str, wrapper, x: torch.Tensor, qt: GroupQuantTensor, dtypes
     _build.launch(name, _build.DTYPE_CODES[x.dtype], *(t.data_ptr() for t in tensors),
                   m, n, k, kp, qt.group, _build.stream_ptr(x))
     wrapper.launches += 1
-    if x.dtype == torch.float32:
-        wrapper.launches_f32 += 1
     return out.reshape(*x.shape[:-1], n)
 
 
 def gq_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
-    """Symmetric group-dequant matmul, one output tile per block; bf16 or
-    float32 x [..., K] → [..., N] in x.dtype.  bf16 calls of at most
-    ``GQ_GEMV_MAX_M`` rows run the weight-streaming GEMV; float32 calls run
-    the float32 form at every M (counted in ``launches_f32``)."""
+    """Symmetric group-dequant matmul; bf16 or float32 x [..., K] → [..., N]
+    in x.dtype.  Each launch counts in ``launches`` and in its form's count
+    (``_count_form``): bf16 calls of at most ``GQ_GEMV_MAX_M`` rows run the
+    weight-streaming GEMV, of fewer than ``GQ_WGMMA_MIN_M`` the split-K form,
+    the rest the wgmma kernel; float32 calls run the float32 form."""
     if x.device.type == "cpu":
         return group_quant_matmul_plain(x, qt)
     if qt.zero is not None:
         raise ValueError("gq_matmul: affine weights go to gq_zero_matmul")
     out = _gq_launch("sdtpu_gq_matmul", gq_matmul, x, qt, tuple(_build.DTYPE_CODES))
-    if x.dtype == torch.bfloat16:
-        _count_form(gq_matmul, x.numel() // x.shape[-1])
+    _count_form(gq_matmul, x.numel() // x.shape[-1], x.dtype)
     return out
 
 
@@ -545,18 +627,25 @@ def gq_matmul_ws(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
 
 def gq_zero_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:
     """Affine group-dequant matmul (value = q·scale − zero); bf16 or float32
-    x [..., K] → [..., N] in x.dtype; float32 calls are counted in
-    ``launches_f32`` too."""
+    x [..., K] → [..., N] in x.dtype.  float32 calls are counted in
+    ``launches_f32`` too, bf16 calls of fewer than ``GQ_WGMMA_MIN_M`` rows
+    in ``launches_mma`` (the ``mma.sync`` form, the one the port still
+    runs)."""
     if x.device.type == "cpu":
         return group_quant_matmul_plain(x, qt)
     if qt.zero is None:
         raise ValueError("gq_zero_matmul: needs a zero point")
-    return _gq_launch("sdtpu_gq_zero_matmul", gq_zero_matmul, x, qt, tuple(_build.DTYPE_CODES))
+    out = _gq_launch("sdtpu_gq_zero_matmul", gq_zero_matmul, x, qt, tuple(_build.DTYPE_CODES))
+    m = x.numel() // x.shape[-1]
+    gq_zero_matmul.launches_f32 += x.dtype == torch.float32
+    gq_zero_matmul.launches_mma += x.dtype == torch.bfloat16 and m < GQ_WGMMA_MIN_M
+    return out
 
 
-gq_matmul.launches = gq_matmul.launches_gemv = gq_matmul.launches_mma = 0
+gq_matmul.launches = gq_matmul.launches_gemv = gq_matmul.launches_splitk = 0
+gq_matmul.launches_wgmma = gq_matmul.launches_f32 = 0
 gq_matmul_ws.launches = gq_zero_matmul.launches = 0
-gq_matmul.launches_f32 = gq_zero_matmul.launches_f32 = 0
+gq_zero_matmul.launches_f32 = gq_zero_matmul.launches_mma = 0
 
 
 def group_quant_matmul(x: torch.Tensor, qt: GroupQuantTensor) -> torch.Tensor:

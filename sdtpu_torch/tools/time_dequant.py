@@ -5,19 +5,25 @@ checkout's package ``PYTHONPATH`` names, so checkouts can be compared on one
 card in one call, in turns.
 
     PYTHONPATH=<checkout> python3 <this checkout>/sdtpu_torch/tools/time_dequant.py \
-        [--label name] [--kernels w8a8_matmul,flash_attention,...] [--out results.json]
+        [--label name] [--kernels w8a8_matmul,flash_attention,...] [--mid] [--out results.json]
 
 Cases: ``q4_matmul`` at ``Q4_CASES``; ``gq_matmul`` (group 32, and group 16
 at ``GQ16_CASES``), ``gq_zero_matmul``, ``w8a16_matmul`` and
 ``quant_matmul_w8a8`` at the ``W8A8_CASES`` of at least 128 rows (their
 TMA + wgmma form); then ``gq_matmul`` (groups 32 and 16), ``w8a16_matmul``
 and ``quant_matmul_w8a8`` at the cases of at most ``GQ_GEMV_MAX_M`` rows
-(their GEMVs); then ``flash_attention`` at the ``FLASH_CASES``;
+(their GEMVs); then the same four at the int8 cases of 9 to 127 rows
+(``INT8_SPLITK_SHAPES``: an int8 SDXL UNet's 77-row context projections and
+a DiT-wide linear at each x tile; ``quant_matmul_w8a8`` also with float32 x
+and at ``W8A8_LONG_K_SHAPES``), which a tree runs in its split-K forms
+(an older one in its ``mma.sync`` forms, W8A8 after a row-quantize launch:
+both counted); then ``flash_attention`` at the ``FLASH_CASES``;
 then the float32 forms of the quantized matmuls, float32 x held to the
 float32 limit: ``q4_matmul`` at ``Q4_F32_CASES``, ``gq_matmul`` and
 ``gq_zero_matmul`` at ``GQ_F32_CASES``, ``w8a16_matmul`` at
 ``W8A16_F32_CASES``.  ``--kernels`` keeps the cases of the named wrappers
-only, ``--dtypes`` those of the named activation types (bf16, f32).
+only, ``--dtypes`` those of the named activation types (bf16, f32),
+``--mid`` the int8 cases of 9 to 127 rows (and W8A8's long-K ones) only.
 The shapes, tolerances, input draws and timing are ``chip_smoke.py``'s,
 loaded from this script's own checkout; the kernels come from the package
 on ``PYTHONPATH`` (built from that checkout's sources).  Each case is held
@@ -28,8 +34,9 @@ rate there), as the sum over the kernels a call launches of each one's mean
 device time, so that a W8A8 call that quantizes x in a launch of its own
 counts both; so is a flash case under 0.1 ms (a split call's combine
 included), which also records its ``splits``, and a bf16 4-bit case of 9 to
-``Q4_WGMMA_MIN_M`` rows (the split-K form and the wgmma threshold), which
-records the K ``splits`` where the tree's library reports them.  One
+``Q4_WGMMA_MIN_M`` rows (the split-K form and the wgmma threshold) and an
+int8 case of 9 to 127 rows, which record the K ``splits`` where the tree's
+library reports them.  One
 ``kernel {...}`` line per case, then a summary line.
 """
 from __future__ import annotations
@@ -88,6 +95,8 @@ def main() -> int:
     ap.add_argument("--kernels", help="comma-separated wrapper names: time only their cases")
     ap.add_argument("--dtypes", default="bf16,f32",
                     help="comma-separated activation types (bf16, f32): time only their cases")
+    ap.add_argument("--mid", action="store_true",
+                    help="time only the int8 cases of 9 to 127 rows (and W8A8's long-K ones)")
     ap.add_argument("--out", help="also write every number to this JSON file")
     args = ap.parse_args()
 
@@ -117,12 +126,21 @@ def main() -> int:
     plan += [(form, s, 32, "bf16") for s in small
              for form in ("gq_matmul", "w8a16_matmul", "quant_matmul_w8a8")]
     plan += [("gq_matmul", s, 16, "bf16") for s in cs.GQ16_CASES if s[0] <= quant.GQ_GEMV_MAX_M]
+    mid = cs.INT8_SPLITK_SHAPES
+    plan += [(form, s, group, "bf16") for s in mid
+             for form, group in (("gq_matmul", 32), ("gq_matmul", 16), ("w8a16_matmul", None),
+                                 ("quant_matmul_w8a8", None))]
+    plan += [("quant_matmul_w8a8", s, None, dt) for s in mid + cs.W8A8_LONG_K_SHAPES
+             for dt in ("bf16", "f32") if s in cs.W8A8_LONG_K_SHAPES or dt == "f32"]
     plan += [("flash_attention", c, None, c[5]) for c in cs.FLASH_CASES]
     plan += [("q4_matmul", s[:3], s[3], "f32") for s in cs.Q4_F32_CASES]
     plan += [(form, s[:3], s[3], "f32") for s in cs.GQ_F32_CASES for form in ("gq_matmul", "gq_zero_matmul")]
     plan += [("w8a16_matmul", s, None, "f32") for s in cs.W8A16_F32_CASES]
     if args.kernels:
         plan = [p for p in plan if p[0] in args.kernels.split(",")]
+    if args.mid:
+        plan = [p for p in plan if p[0] not in ("q4_matmul", "flash_attention")
+                and tuple(p[1]) in mid + cs.W8A8_LONG_K_SHAPES]
     plan = [p for p in plan if p[3] in args.dtypes.split(",")]
     cases = []
     for form, shape, group, dt in plan:
@@ -155,10 +173,14 @@ def main() -> int:
         it = cs.iters_for(2.0 * m * n * k)
         ms = cs.time_ms(lambda: fn(x, qt), it)
         mid_q4 = form == "q4_matmul" and dt == "bf16" and quant.Q4_GEMV_MAX_M < m <= quant.Q4_WGMMA_MIN_M
+        mid_int8 = form != "q4_matmul" and (m, k, n) in mid + cs.W8A8_LONG_K_SHAPES
         dev = ({"device_ms": cs.device_ms_sum(lambda: fn(x, qt), it)}
-               if m <= quant.GQ_GEMV_MAX_M or mid_q4 else {})
-        if mid_q4 and "sdtpu_q4_splits" in _build.QUERIES:  # a tree older than the query: no split
-            dev["splits"] = _build.query("sdtpu_q4_splits", m, n, k)
+               if m <= quant.GQ_GEMV_MAX_M or mid_q4 or mid_int8 else {})
+        # the K splits where the tree's library reports them (an older tree: no split)
+        query = ("sdtpu_q4_splits" if mid_q4 else "sdtpu_w8a8_splits" if form == "quant_matmul_w8a8"
+                 else "sdtpu_gq_splits")
+        if (mid_q4 or mid_int8) and query in _build.QUERIES:
+            dev["splits"] = _build.query(query, m, n, k)
         case = dict(label=args.label, kernel=form, shape=[m, k, n], group=group, dtype=dt, ms=ms, **dev,
                     max_abs_err=err, tol=tol, ok=bool(err <= tol), card=card)
         print("kernel " + json.dumps(case), flush=True)

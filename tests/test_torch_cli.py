@@ -121,7 +121,7 @@ def test_metadata_mode_matches_jax(tmp_path, capsys, monkeypatch, fmt):
 
 UNPORTED = [
     ["--lora-model-dir", "loras"], ["--hires-upscaler", "RealESRGAN_x4plus"],
-    ["--upscale-model", "esrgan.pth"], ["--type", "q8_0"],
+    ["--upscale-model", "esrgan.pth"], ["--auto-fit", "8"],
     ["--sampling-method", "dpm2"], ["--schedule", "karras"], ["--fa"], ["--no-progress"],
     ["--vae-on-cpu"], ["--control-net", "cn.safetensors"], ["--llm", "qwen.gguf"],
     ["--backend", "clip=cpu,diffusion=cuda0"], ["--backend", "tpu0"], ["--dtype", "f16"],

@@ -33,14 +33,14 @@ def cuda():
 
 
 def _gemv_counts(fn):
-    return [fn.launches, fn.launches_gemv, fn.launches_mma]
+    return [fn.launches, fn.launches_gemv, fn.launches_splitk]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(1, 16, 8), (3, 48, 130), (9, 48, 130), (9, 3072, 18432),
                                    (129, 272, 257), (300, 1040, 64)])
 def test_w8a8_kernel_bit_equal(cuda, m, k, n):
-    """Each form, bf16 and float32 x: the GEMV (M <= 8), mma.sync (M = 9,
+    """Each form, bf16 and float32 x: the GEMV (M <= 8), split-K (M = 9,
     its first row) and wgmma; the wrapper counts the form the library ran."""
     g = torch.Generator(device=cuda).manual_seed(m)
     x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
@@ -117,7 +117,7 @@ def test_w8a8_gemv_is_one_kernel(cuda):
 @pytest.mark.cuda
 def test_w8a8_form_by_shape(cuda):
     """The library picks the W8A8 form by M and K alone (0 the GEMV, 1
-    mma.sync, 2 wgmma): the GEMV up to W8A8_GEMV_MAX_M rows and
+    split-K, 2 wgmma): the GEMV up to W8A8_GEMV_MAX_M rows and
     W8A8_GEMV_MAX_K columns, where its x rows still fit shared memory."""
     edges = (1, quant.W8A8_GEMV_MAX_M, quant.W8A8_GEMV_MAX_M + 1, quant.W8A8_WGMMA_MIN_M - 1,
              quant.W8A8_WGMMA_MIN_M)
@@ -509,6 +509,115 @@ def test_q4_splitk_kernel_matches_plain(cuda, group, m, k, n):
     assert torch.equal(quant.q4_matmul(x, qt), got)
 
 
+# The int8 split-K forms (8 < M < 128; W8A8 also at M <= 8 past
+# W8A8_GEMV_MAX_K): every x tile (32, 64, 80, 128 rows), N off the 128-row
+# band and the four-wide store (200, 1001), K of one stage and K off the
+# stage (W8A8's 128 columns: 48, 1040; the group form's 64: 272, whose Kp =
+# 288 at group 32 is off the stage's scale groups), SDXL's context
+# projections (2048 -> 640, 1280) and a DiT-wide linear
+INT8_SPLITK_ROWS = [9, 16, 33, 64, 77, 100, 127]
+W8A8_SPLITK_SHAPES = [(48, 200), (1040, 1001), (2048, 640), (2048, 1280), (3072, 12288)]
+GQ_SPLITK_SHAPES = [(64, 200), (272, 1001), (2048, 640), (2048, 1280), (3072, 12288)]
+
+
+def _int8_splitk_counts(fn):
+    return [fn.launches, fn.launches_splitk, fn.launches_gemv, fn.launches_wgmma]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", INT8_SPLITK_ROWS)
+@pytest.mark.parametrize("k,n", W8A8_SPLITK_SHAPES)
+def test_w8a8_splitk_kernel_bit_equal(cuda, dtype, m, k, n):
+    """One counted launch of the W8A8 split-K form, bit-equal to the plain
+    version and to the plain split-and-sum at the splits the library reports
+    (int32 partials: exact in any order), with an all-zero x row; a second
+    call bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda, dtype=dtype)
+    x[m // 2] = 0
+    qt = quant.QuantTensor(
+        q=torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8),
+        scale=torch.rand((n,), generator=g, device=cuda) * 4e-4 + 1e-5)
+    before = _int8_splitk_counts(quant.quant_matmul_w8a8)
+    got = quant.quant_matmul_w8a8(x, qt)
+    assert _int8_splitk_counts(quant.quant_matmul_w8a8) == [before[0] + 1, before[1] + 1, *before[2:]]
+    splits = _build.query("sdtpu_w8a8_splits", m, n, k)
+    assert 1 <= splits <= min(8, -(-k // quant.W8A8_SPLITK_STAGE))
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, quant.quant_matmul_w8a8_plain(x, qt))
+    assert torch.equal(got, quant.split_k_matmul(x, qt, splits, w8a8=True))
+    assert torch.equal(quant.quant_matmul_w8a8(x, qt), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_w8a8_splitk_takes_long_k_at_few_rows(cuda, m):
+    """At M <= 8 with K past W8A8_GEMV_MAX_K (x would not fit the GEMV's
+    shared memory) the split-K form runs: bit-equal, counted apart."""
+    k, n = 20480, 3072
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
+    qt = quant.QuantTensor(
+        q=torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8),
+        scale=torch.rand((n,), generator=g, device=cuda) * 4e-4 + 1e-5)
+    assert _build.query("sdtpu_w8a8_form", m, k) == 1
+    before = _int8_splitk_counts(quant.quant_matmul_w8a8)
+    got = quant.quant_matmul_w8a8(x, qt)
+    assert _int8_splitk_counts(quant.quant_matmul_w8a8) == [before[0] + 1, before[1] + 1, *before[2:]]
+    assert torch.equal(got, quant.quant_matmul_w8a8_plain(x, qt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["g16", "g32", "w8a16"])
+@pytest.mark.parametrize("m", INT8_SPLITK_ROWS)
+@pytest.mark.parametrize("k,n", GQ_SPLITK_SHAPES)
+def test_gq_splitk_kernel_matches_plain(cuda, mode, m, k, n):
+    """One counted launch of the group-dequant / W8A16 split-K form within
+    ``GQ_REL_TOL`` of the plain version and of the plain split-and-sum at
+    the splits the library reports; the split-and-sum without its last split
+    beyond the limit where K is split; a second call bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
+    if mode == "w8a16":
+        fn, plain = quant.w8a16_matmul, quant.w8a16_matmul_plain
+        qt = quant.QuantTensor(
+            q=torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8),
+            scale=torch.rand((n,), generator=g, device=cuda) * 4e-4 + 1e-5)
+    else:
+        fn, plain = quant.gq_matmul, quant.group_quant_matmul_plain
+        qt = _group_weight(g, n, k, int(mode[1:]), False, cuda)
+    before = _int8_splitk_counts(fn)
+    got = fn(x, qt)
+    assert _int8_splitk_counts(fn) == [before[0] + 1, before[1] + 1, *before[2:]]
+    splits = _build.query("sdtpu_gq_splits", m, n, k)
+    assert 1 <= splits <= min(8, -(-k // quant.SPLITK_STAGE))
+    want = plain(x, qt)
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    limit = chip_smoke.GQ_REL_TOL["bf16"] * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= limit
+    split = quant.split_k_matmul(x, qt, splits)
+    assert (got.float() - split.float()).abs().max().item() <= limit
+    if splits > 1:
+        dropped = quant.split_k_matmul(x, qt, splits, keep=splits - 1)
+        assert (dropped.float() - want.float()).abs().max().item() > limit
+    assert torch.equal(fn(x, qt), got)
+
+
+@pytest.mark.cuda
+def test_int8_splitk_forms_by_rows(cuda):
+    """W8A8 and the group / W8A16 modes name their split-K form at 9, 77
+    and 127 rows and the wgmma kernel at 128, by shape alone; the affine mode
+    keeps mma.sync below 128."""
+    rows = (9, 77, 127, 128)
+    assert [_build.query("sdtpu_w8a8_form", m, 2048) for m in rows] == [1, 1, 1, 2]
+    for mode in (quant.GQ_MODE_GROUP, quant.GQ_MODE_ROW_SCALE):
+        assert [_build.query("sdtpu_gq_form", 0, mode, m) for m in rows] == [4, 4, 4, 2]
+    assert [_build.query("sdtpu_gq_form", 0, quant.GQ_MODE_AFFINE, m) for m in rows] == [1, 1, 1, 2]
+    assert [_build.query("sdtpu_w8a8_splits", m, 1280, 2048) > 0 for m in rows] == [True] * 3 + [False]
+    assert [_build.query("sdtpu_gq_splits", m, 1280, 2048) > 0 for m in rows] == [True] * 3 + [False]
+
+
 # M <= 8 takes the weight-streaming GEMV: N off the 16-row block (2, 77,
 # 130), K off the 64-wide K tile (200, the padded nibbles random), a row of
 # Kp / 2 = 544 bytes whose last 64-byte segment is half past the row (1040;
@@ -710,13 +819,13 @@ def test_gq_gemv_rounds_as_often_to_nearest_as_the_plain_version(cuda, k, n):
 @pytest.mark.cuda
 def test_gq_form_by_rows(cuda):
     """The library picks the group-dequant form by dtype, mode and M alone
-    (0 the GEMV, 1 mma.sync, 2 wgmma, 3 float32); the affine mode keeps
-    mma.sync at small M.  gq_matmul and w8a16_matmul count the form the
+    (0 the GEMV, 1 mma.sync, 2 wgmma, 3 float32, 4 split-K); the affine mode
+    keeps mma.sync at small M.  gq_matmul and w8a16_matmul count the form the
     library ran."""
     edges = (1, quant.GQ_GEMV_MAX_M, quant.GQ_GEMV_MAX_M + 1, quant.GQ_WGMMA_MIN_M - 1,
              quant.GQ_WGMMA_MIN_M)
     for mode in (quant.GQ_MODE_GROUP, quant.GQ_MODE_ROW_SCALE):
-        assert [_build.query("sdtpu_gq_form", 0, mode, m) for m in edges] == [0, 0, 1, 1, 2]
+        assert [_build.query("sdtpu_gq_form", 0, mode, m) for m in edges] == [0, 0, 4, 4, 2]
     assert _build.query("sdtpu_gq_form", 0, quant.GQ_MODE_AFFINE, 1) == 1
     assert _build.query("sdtpu_gq_form", 1, quant.GQ_MODE_GROUP, 1) == 3
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -730,7 +839,7 @@ def test_gq_form_by_rows(cuda):
             fn(x, qt)
             form = _build.query("sdtpu_gq_form", 0, mode, m)
             assert _gemv_counts(fn) == [before[0] + 1, before[1] + (form == 0),
-                                        before[2] + (form == 1)]
+                                        before[2] + (form == 4)]
 
 
 @pytest.mark.cuda
@@ -763,7 +872,7 @@ def test_quant_matmul_reads_the_mode_at_each_call(cuda, monkeypatch):
 
 
 # float32 x takes the split-x TF32 form at every M: the GEMV's (1, 8), the
-# mma.sync form's (9, 127) and the wgmma kernel's (128, 4352) rows in bf16,
+# split-K form's (9, 127) and the wgmma kernel's (128, 4352) rows in bf16,
 # across its 16-, 64- and 128-row tiles (16 up to M = 16); N off the 128-row
 # tile, K off the 64-wide K stage (200: Kp = 256, the padded nibbles random),
 # and K = 1040 (Kp = 1088)
