@@ -43,7 +43,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      tile, and the cross-attention over UMT5's 512; bf16 with the unmasked
      pad keys as its fault, q drawn around +1 and k around -1 so the fault
      shows; float32 with the self-attention at B = 1; each also on the
-     device clock beside SDPA); the 4-bit matmul at UMT5-XXL's three shapes
+     device clock beside SDPA); at Z-Image-Turbo's D 128 shapes at 1024²
+     (the joint attention over 64 + 4096 = 4160 tokens at B = 1 and, under
+     CFG, B = 2; the noise refiner's 4096; the context refiner's 64; in
+     float32 the 512² joint 1088 and the 64; the ragged and short ones with
+     q around +1 and k around -1); the 4-bit matmul at Qwen3-4B's five
+     shapes over a Z-Image prompt's 55 tokens (group 64, bf16 split-K and
+     float32) and at UMT5-XXL's three shapes
      over Wan's 512 tokens (group 64, bf16 wgmma and float32) and at
      T5-XXL's three shapes over SD3's 77
      tokens (groups 64 and 32, bf16 in its split-K form and float32, each
@@ -175,6 +181,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      float32: its float32 form), and on the card no attention runs in the
      plain version but UMT5's 24 a prompt encode; the frames are finite,
      of the asked size and not constant.
+ 10e'. Z-Image-Turbo at full width (``create_pipeline(SDVersion.Z_IMAGE,
+     dtype=torch.bfloat16, qwen_tokenizer=Qwen2Tokenizer.byte_fallback())``:
+     the DiT and the FLUX VAE dense, Qwen3-4B packed 4-bit, the factory's
+     own draw on the card, the LLM held to be Qwen3-4B): path ``z_image``
+     answers 1024² x 8 euler steps at CFG 1 to warm up, timed, and with a
+     fresh prompt, then 1024² x 2 at CFG 4 with a shorter negative prompt
+     (its context zero-padded for the CFG batch); then holds one full-width
+     DiT forward against the same forward with every attention in the plain
+     version (REF_REL_TOL); path ``z_image_f32`` (no dtype argument:
+     float32) answers 512² x 2 on the DiT cut to ``Z_IMAGE_F32_LAYERS``
+     main layers.  On both, flash at D 128 launches 34 a forward (6 on the
+     cut DiT), D 512 once a decode, nothing else of flash, the 4-bit matmul
+     245 a prompt encode (bf16: its split-K form at the prompt's 55 rows;
+     float32: its float32 form), no W8A8 launch, and on the card no
+     attention runs in the plain version but Qwen3's 35 a prompt encode.
  10f. img2img, masked img2img and the latent hires fix, each in its launch
      window on a pipeline of the paths above, from a 1024² (512² on SD1.5)
      init image drawn from ``IMG2IMG_SEED`` and a mask whose right half
@@ -259,7 +280,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      UMT5-XXL as a q8_0 GGUF with its vocab; ``cli.main -M vid_gen`` answers
      a 832x480 clip of 9 frames at 2 steps with the bench's tiling (path
      ``wan_cli``): 9 PNG frames of 832x480, not constant, with the launch
-     checks of 10e (UMT5 dequantized: no 4-bit call).  Then SD2.1 on a file
+     checks of 10e (UMT5 dequantized: no 4-bit call).  Then Z-Image on
+     files: ``sdtpu_torch.tools.z_image_file`` writes the DiT as a q8_0
+     GGUF, Qwen3-4B as a q4_0 GGUF under llama.cpp names with a "gpt2"
+     vocab and the FLUX VAE; ``cli.main --diffusion-model ... --llm ...
+     --vae ...`` answers 1024² x 4 euler steps at CFG 1 to a PNG, read back
+     in metadata mode (path ``z_image_cli``: the tokenizer from the GGUF's
+     vocab), and the server, loaded from the same files, the A1111 request
+     (path ``z_image_server``), each with the launch checks of 10e' but
+     Qwen3 dequantized (no 4-bit call) and the DiT's q8_0 promoted onto
+     W8A8: ``Z_IMAGE_W8A8_PER_FORWARD`` a forward in the GEMV, split-K and
+     wgmma forms.  Then SD2.1 on a file
      (``tools/sd2_file.py``: OpenCLIP-H under ``cond_stage_model.model.``,
      24 resblocks): ``cli.main -m ... --prediction v --sampling-method heun``
      answers 768² x 8 steps (path ``sd2_cli``); the SD1.5-inpainting file
@@ -481,6 +512,30 @@ FLASH_CASES += WAN_FLASH_CASES
 # attention calls of one Wan2.1 forward: a self- and a cross-attention in
 # each of its 30 blocks, all at D 128
 WAN_ATTENTION_CALLS = 2 * 30
+# Z-Image-Turbo at 1024² (30 heads of 128): the 30 main layers' joint
+# attention over the prompt's tokens padded to 64 and the image's 4096
+# (4160 = 32 x 128 + 64: ragged on the last query and key tile), the noise
+# refiner's over the image's 4096 and the context refiner's over the
+# prompt's 64, at CFG 1 (B = 1, the way Turbo runs) and the joint one under
+# CFG (B = 2); at 512² in float32 (the f32 path: 1024 image tokens, 1088
+# joint).  The ragged and the short cases draw their scores negative
+# ("neg_scores"), so zero pad keys left unmasked would outweigh the real
+# ones.
+Z_IMAGE_FLASH_SHAPES = [(1, 30, 4160, 4160, 128, "neg_scores"), (2, 30, 4160, 4160, 128, "neg_scores"),
+                        (1, 30, 4096, 4096, 128, None), (1, 30, 64, 64, 128, "neg_scores")]
+Z_IMAGE_FLASH_CASES = ([(*s_[:5], "bf16", s_[5]) for s_ in Z_IMAGE_FLASH_SHAPES]
+                       + [(1, 30, 1088, 1088, 128, "f32", "neg_scores"),
+                          (1, 30, 64, 64, 128, "f32", "neg_scores")])
+FLASH_CASES += Z_IMAGE_FLASH_CASES
+# attention calls of one Z-Image forward, all at D 128: 2 context-refiner
+# layers, 2 noise-refiner layers, 30 main layers
+Z_IMAGE_ATTENTION_CALLS = 2 + 2 + 30
+# Qwen3-4B's layers a Z-Image prompt encode runs (the states after layer 35
+# of 36), each one causal attention on the plain path (``flash=False``, as
+# the JAX package runs it) and 7 linears (q, k, v, o, gate, up, down) at the
+# prompt's rows: the 4-bit matmul's split-K form
+Z_IMAGE_LLM_LAYERS = 35
+Z_IMAGE_LLM_LINEARS = 7 * Z_IMAGE_LLM_LAYERS
 # UMT5-XXL linears of one Wan prompt encode (q, k, v, o, wi_0, wi_1, wo in
 # each of 24 blocks, over 512 tokens: the 4-bit matmul's wgmma form)
 WAN_T5_LINEARS = 7 * 24
@@ -543,10 +598,15 @@ Q4_SD3_CASES = [(*s, g) for g in (64, 32) for s in Q4_SD3_T5_SHAPES]
 # UMT5-XXL over Wan's 512 tokens (q/k/v/o, wi_0/wi_1, wo) at the
 # synthesized UMT5's group 64: the bf16 wgmma form and the float32 form
 Q4_WAN_T5_SHAPES = [(512, 4096, 4096), (512, 4096, 10240), (512, 10240, 4096)]
+# Qwen3-4B over a Z-Image prompt's 55 tokens (the chat template's 19 and a
+# 36-byte prompt, byte-level ids): q, k / v, o, gate / up, down at the
+# synthesized LLM's group 64: the bf16 split-K form and the float32 form
+Q4_Z_IMAGE_LLM_SHAPES = [(55, 2560, 4096), (55, 2560, 1024), (55, 4096, 2560), (55, 2560, 9728),
+                         (55, 9728, 2560)]
 Q4_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES] + [(*s, 32) for s in Q4_DIT_SHAPES]
             + [(s, 3072, n, g) for g in (16, 64) for s, n in ((4352, 12288), (1, 18432))]
             + Q4_SD3_CASES + [(m, 4096, 4096, 64) for m in (16, 64, 100)] + [(77, 4096, 4096, 16)]
-            + [(*s, 64) for s in Q4_WAN_T5_SHAPES])
+            + [(*s, 64) for s in Q4_WAN_T5_SHAPES] + [(*s, 64) for s in Q4_Z_IMAGE_LLM_SHAPES])
 # the float32 form (the default pipeline's T5-XXL): T5's shapes at groups 64,
 # 32 and 16, a 4096-wide T5 linear at M = 1, 9 and 128 (the bf16 forms'
 # rows: GEMV, split-K, wgmma), and a q4_0 DiT linear at 1024² kept at the
@@ -554,7 +614,8 @@ Q4_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES] + [(*s, 32) fo
 Q4_F32_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES]
                 + [(m, 4096, 4096, 64) for m in (1, 9, 128)]
                 + [(4352, 3072, 12288, g) for g in (32, 16)] + Q4_SD3_CASES
-                + [(*s, 64) for s in Q4_WAN_T5_SHAPES])
+                + [(*s, 64) for s in Q4_WAN_T5_SHAPES]
+                + [(*s, 64) for s in Q4_Z_IMAGE_LLM_SHAPES])
 # W8A16's float32 form (the default pipeline under SDTPU_QUANT_MODE=w8a16):
 # a modulation linear (M = 1), the bf16 forms' first mma.sync and wgmma rows,
 # the 1024² request's 4352 tokens, its long-K widths (MLP out, linear2: where
@@ -576,6 +637,17 @@ SDXL_CONTEXT_SHAPES = [(77, 2048, 640), (77, 2048, 1280)]
 INT8_SPLITK_SHAPES = SDXL_CONTEXT_SHAPES + [(m, 3072, 12288) for m in (9, 16, 64, 100, 127)] + [
     (9, 3072, 18432)]
 W8A8_LONG_K_SHAPES = [(4, 20480, 3072)]
+# W8A8 at the Z-Image DiT's shapes (the file paths' q8_0 GGUF promoted per
+# row): the wgmma form at the noise refiner's 4096 image rows and the joint
+# 4160 (4096 + a 64-token context: its last 128-row tile ragged) over qkv
+# 3840->11520, out 3840->3840, w1 / w3 3840->10240 and w2 10240->3840, and
+# the final 3840->64 at 4160; the GEMV at the one-row adaLN 256->15360 and
+# the final layer's 256->3840, each held as W8A8_CASES are; the split-K
+# form at the context refiner's 64 rows, held in check_int8_splitk
+Z_IMAGE_W8A8_CASES = [(m, k, n) for m in (4096, 4160) for k, n in (
+    (3840, 11520), (3840, 3840), (3840, 10240), (10240, 3840))] + [
+    (4160, 3840, 64), (1, 256, 15360), (1, 256, 3840)]
+Z_IMAGE_SPLITK_SHAPES = [(64, 3840, 11520), (64, 3840, 3840), (64, 3840, 10240), (64, 10240, 3840)]
 Q4_FORMS = ("gemv", "splitk", "wgmma", "f32")  # sdtpu_q4_form's codes
 GQ_FORMS = ("gemv", "mma", "wgmma", "f32", "splitk")  # sdtpu_gq_form's codes
 W8A8_FORMS = ("gemv", "splitk", "wgmma")  # sdtpu_w8a8_form's codes
@@ -806,9 +878,24 @@ PATH_KERNELS["wan_cli"] = ("flash_attention",)
 PATH_IDLE["wan_cli"] = (*QUANT_KERNELS, *Q4_BF16_FORMS, *F32_FORMS, *UNET_FLASH,
                         "flash_attention_d64", "flash_attention_d512")
 PATH_KERNELS["wan_f32"] = ("flash_attention", "flash_attention_f32", "q4_matmul", "q4_matmul_f32")
+# Z-Image (a dense DiT, a 4-bit Qwen3-4B, the FLUX VAE): flash at D 128 (the
+# DiT) and D 512 (the VAE), the 4-bit matmul in its split-K form (the
+# prompt's rows); on the entry paths the DiT's q8_0 blocks promoted onto
+# W8A8 (its GEMV at the modulation linears' one row, its split-K form at
+# the context refiner's 64, its wgmma form at the image's 4096 and the
+# joint 4160) and Qwen3 dequantized (no 4-bit call)
+PATH_KERNELS["z_image"] = ("flash_attention", "flash_attention_d512", "q4_matmul", "q4_matmul_splitk")
+PATH_IDLE["z_image"] = (*OTHER_QUANT, "q4_matmul_wgmma", "q4_matmul_gemv", *F32_FORMS, *UNET_FLASH,
+                        "flash_attention_d64")
+for _path in ("z_image_cli", "z_image_server"):
+    PATH_KERNELS[_path] = ("flash_attention", "flash_attention_d512", *INT8_KERNELS["w8a8_matmul"])
+    PATH_IDLE[_path] = (*(k for k in QUANT_KERNELS if k not in INT8_KERNELS["w8a8_matmul"]),
+                        *Q4_BF16_FORMS, *F32_FORMS, *UNET_FLASH, "flash_attention_d64")
+PATH_KERNELS["z_image_f32"] = ("flash_attention", "flash_attention_f32", "q4_matmul", "q4_matmul_f32")
 PATH_IDLE["wan_f32"] = (*OTHER_QUANT, *Q4_BF16_FORMS, *UNET_FLASH, "flash_attention_d64",
                         "flash_attention_d512", "w8a16_matmul_f32", "gq_matmul_f32",
                         "gq_zero_matmul_f32")
+PATH_IDLE["z_image_f32"] = PATH_IDLE["wan_f32"]
 # img2img, masked img2img and the hires fix run each family's kernels as its
 # txt2img path does; the encoder's mid-block attention is flash D 512, as the
 # decoder's
@@ -832,6 +919,8 @@ for _path in ("sdxl_inpaint", "sdxl_pix2pix"):
 PATH_KERNELS["sd2_f32"] = ("flash_attention", "flash_attention_f32")
 PATH_IDLE["sd2_f32"] = PATH_IDLE["sdxl_f32"]
 F32_PATHS = {"sd2_f32": (("flash_attention", "flash_attention_f32"),),
+             "z_image_f32": (("flash_attention", "flash_attention_f32"),
+                             ("q4_matmul", "q4_matmul_f32")),
              "wan_f32": (("flash_attention", "flash_attention_f32"),
                          ("q4_matmul", "q4_matmul_f32")),
              "sd3_f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
@@ -1105,8 +1194,8 @@ def _compare(results, name, shape, got, want, tol_rel, fn, plain, it, bnd, libra
 
 
 def check_w8a8(results):
-    """Each W8A8_CASES shape (bf16 x) and W8A8_F32_CASES shape (float32 x),
-    bit-equal to the plain version, with an
+    """Each W8A8_CASES and Z_IMAGE_W8A8_CASES shape (bf16 x) and
+    W8A8_F32_CASES shape (float32 x), bit-equal to the plain version, with an
     all-zero x row (at M = 1 a second call on an all-zero x); ``form`` is the
     form the library ran (``W8A8_FORMS``).  The yardstick ``torch._int_mm``
     runs the GEMM alone on the same int8 operands, unchecked (no row
@@ -1117,7 +1206,8 @@ def check_w8a8(results):
     from sdtpu_torch.ops import _build, quant
 
     g = torch.Generator(device=DEVICE).manual_seed(1)
-    plan = [(c, "bf16") for c in W8A8_CASES] + [(c, "f32") for c in W8A8_F32_CASES]
+    plan = [(c, "bf16") for c in W8A8_CASES + Z_IMAGE_W8A8_CASES]
+    plan += [(c, "f32") for c in W8A8_F32_CASES]
     for (m, k, n), dt in plan:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         x = torch.randn((m, k), generator=g, device=DEVICE, dtype=dtype)
@@ -1564,7 +1654,8 @@ def check_w8a16(results):
 
 
 def check_int8_splitk(results):
-    """The int8 split-K cases (INT8_SPLITK_SHAPES, W8A8_LONG_K_SHAPES): each
+    """The int8 split-K cases (INT8_SPLITK_SHAPES, W8A8_LONG_K_SHAPES; W8A8
+    in bf16 also at Z_IMAGE_SPLITK_SHAPES): each
     form the library ran (``form`` splitk), its ``splits``, a second call
     bit-identical, the device clock.  Yardsticks: ``torch._int_mm`` on the
     same int8 operands for W8A8's GEMM alone (it refuses M <= 16: the
@@ -1576,6 +1667,7 @@ def check_int8_splitk(results):
 
     g = torch.Generator(device=DEVICE).manual_seed(22)
     plan = [(s, "w8a8", dt) for s in INT8_SPLITK_SHAPES + W8A8_LONG_K_SHAPES for dt in ("bf16", "f32")]
+    plan += [(s, "w8a8", "bf16") for s in Z_IMAGE_SPLITK_SHAPES]
     plan += [(s, kind, "bf16") for s in INT8_SPLITK_SHAPES for kind in ("gq32", "gq16", "w8a16")]
     for (m, k, n), kind, dt in plan:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
@@ -3470,6 +3562,283 @@ def wan_entry_check(wrappers, card: str):
     return report, launches
 
 
+# Z-Image-Turbo at 1024², the way Turbo runs: 8 euler steps at CFG 1 (one
+# DiT forward a step, B = 1), answered to warm up, timed, then with a fresh
+# prompt; then 2 steps at CFG 4 with a negative prompt, whose context is
+# shorter than the prompt's (38 byte-level ids against 55) and is
+# zero-padded to it for the CFG batch of two.  The default dtype (float32)
+# answers 512² x 2 on the DiT cut to Z_IMAGE_F32_LAYERS main layers (every
+# width full).  Prompts are tokenized with Qwen's byte-level ids
+# (``Qwen2Tokenizer.byte_fallback``), as the CLI does for a bare text
+# encoder.
+Z_IMAGE_REQUEST = dict(prompt="a red fox in fresh snow, golden hour", negative_prompt="", width=1024,
+                       height=1024, sample_steps=8, cfg_scale=1.0, seed=42, sample_method="euler")
+Z_IMAGE_REQUESTS = [Z_IMAGE_REQUEST, Z_IMAGE_REQUEST,
+                    dict(Z_IMAGE_REQUEST, prompt="a lighthouse on a cliff above a stormy sea", seed=7),
+                    dict(Z_IMAGE_REQUEST, negative_prompt="blurry, low quality", cfg_scale=4.0,
+                         sample_steps=2, seed=3)]
+Z_IMAGE_F32_REQUESTS = [dict(Z_IMAGE_REQUEST, width=512, height=512, sample_steps=2)]
+Z_IMAGE_F32_LAYERS = 2
+# W8A8 launches of one forward of a q8_0 GGUF DiT promoted onto W8A8, at CFG
+# 1 over a prompt of at most 64 tokens, by form: the GEMV at the one-row
+# adaLN linears (2 noise-refiner, 30 main layers, the final layer's), the
+# split-K form at the context refiner's 64 rows (qkv, out, w1, w3, w2 in
+# each of 2 layers), the wgmma form at the image's 4096 rows and the joint
+# 4160 (the noise refiner's and the main layers' 5 each, the final
+# linear).  The embedders (``*_embedder``) stay dense: the loader keeps
+# names with "embed" out of the quantized classes, as the JAX loader does.
+Z_IMAGE_W8A8_PER_FORWARD = {"w8a8_matmul_gemv": 2 + 30 + 1, "w8a8_matmul_splitk": 2 * 5,
+                            "w8a8_matmul_wgmma": 2 * 5 + 30 * 5 + 1}
+
+
+def _check_z_image_launches(path: str, counts: dict, forwards: int, encodes: int, decodes: int,
+                            plain: dict, calls: int = Z_IMAGE_ATTENTION_CALLS, f32: bool = False,
+                            llm_q4: bool = True, w8a8: bool = False) -> dict:
+    """Flash at D 128 (bf16, or float32) launched exactly ``calls`` a DiT
+    forward times the forwards, the VAE's D 512 once a decode, no other
+    flash; the 4-bit matmul ``Z_IMAGE_LLM_LINEARS`` times a prompt encode in
+    the path's form (bf16 split-K at the prompt's rows, or float32), none
+    where Qwen3 was dequantized (``llm_q4`` False: the entry points); with
+    ``w8a8`` the promoted DiT's ``Z_IMAGE_W8A8_PER_FORWARD`` a forward, else
+    no W8A8 launch; on the card no attention in the plain version but the
+    LLM's ``Z_IMAGE_LLM_LAYERS`` a prompt encode."""
+    d128 = calls * forwards
+    q4 = Z_IMAGE_LLM_LINEARS * encodes if llm_q4 else 0
+    if f32:  # every flash launch float32, the VAE's D 512 among them
+        got = {"flash_f32": counts["flash_attention_f32"],
+               "flash_bf16": counts["flash_attention"] - counts["flash_attention_f32"]}
+        want = {"flash_f32": d128 + decodes, "flash_bf16": 0}
+    else:
+        other = ("flash_attention_d64", *UNET_FLASH)
+        got = {"flash_d128": counts["flash_attention"] - counts["flash_attention_d512"]
+               - sum(counts[k] for k in other),
+               "flash_d512": counts["flash_attention_d512"], "flash_other": sum(counts[k] for k in other)}
+        want = {"flash_d128": d128, "flash_d512": decodes, "flash_other": 0}
+    got.update(q4_llm=counts["q4_matmul_f32" if f32 else "q4_matmul_splitk"], q4_all=counts["q4_matmul"],
+               plain_attention_on_card_besides_llm=plain["calls"] - Z_IMAGE_LLM_LAYERS * encodes)
+    want.update(q4_llm=q4, q4_all=q4, plain_attention_on_card_besides_llm=0)
+    per = Z_IMAGE_W8A8_PER_FORWARD if w8a8 else dict.fromkeys(Z_IMAGE_W8A8_PER_FORWARD, 0)
+    got.update({n: counts[n] for n in per}, w8a8_all=counts["w8a8_matmul"])
+    want.update({n: c * forwards for n, c in per.items()}, w8a8_all=sum(per.values()) * forwards)
+    if got != want:
+        raise RuntimeError(f"path {path}: launches {got}, not {want} ({forwards} DiT forwards of "
+                           f"{calls} attentions, {encodes} prompt encodes, {decodes} decodes)")
+    return {**got, "dit_forwards": forwards, "prompt_encodes": encodes,
+            "llm_plain_attention": plain["calls"]}
+
+
+def build_z_image_pipeline(card: str, default_dtype: bool = False):
+    """A full-width Z-Image-Turbo pipeline from the factory's own draw on the
+    card (the DiT and the FLUX VAE dense, Qwen3-4B 4-bit):
+    ``create_pipeline(SDVersion.Z_IMAGE, dtype=torch.bfloat16,
+    qwen_tokenizer=Qwen2Tokenizer.byte_fallback())``, its LLM held to be
+    Qwen3-4B; or with ``default_dtype`` no dtype argument (float32, held
+    here) and a dense DiT cut to ``Z_IMAGE_F32_LAYERS`` main layers passed
+    as ``params``, so its config is fingerprinted."""
+    import torch
+
+    from sdtpu_torch.config import SDVersion
+    from sdtpu_torch.factory import create_pipeline
+    from sdtpu_torch.models import llm as llm_mod
+    from sdtpu_torch.models import z_image as zi_mod
+    from sdtpu_torch.tokenizers.qwen2 import Qwen2Tokenizer
+    from sdtpu_torch.weights import synthesize, weight_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    tok = Qwen2Tokenizer.byte_fallback()
+    if default_dtype:
+        dit_cfg = dataclasses.replace(zi_mod.Z_IMAGE_CONFIG, num_layers=Z_IMAGE_F32_LAYERS)
+        params = {"diffusion": synthesize(zi_mod.param_specs(dit_cfg), seed=1, device=DEVICE,
+                                          dtype=torch.float32)}
+        pipe = create_pipeline(SDVersion.Z_IMAGE, params=params, device=DEVICE, qwen_tokenizer=tok)
+        del params
+        if pipe.compute_dtype != torch.float32:
+            raise RuntimeError(f"create_pipeline's default dtype is {pipe.compute_dtype}, not float32")
+    else:
+        dit_cfg = zi_mod.Z_IMAGE_CONFIG
+        pipe = create_pipeline(SDVersion.Z_IMAGE, dtype=torch.bfloat16, device=DEVICE, seed=0,
+                               qwen_tokenizer=tok)
+    if pipe.conditioner.cl != llm_mod.QWEN3_4B_CONFIG:
+        raise RuntimeError(f"the LLM is {pipe.conditioner.cl}, not Qwen3-4B")
+    got = zi_mod.detect_z_image_config(pipe.diffusion_params.keys(), {
+        k: tuple(v.shape) for k, v in pipe.diffusion_params.items()})
+    if got != dit_cfg:
+        raise RuntimeError(f"the DiT fingerprints as {got}, not {dit_cfg}")
+    label = f"z_image_turbo dense, {dit_cfg.num_layers} layers"
+    wb = {"diffusion": weight_bytes(pipe.diffusion_params), "llm": weight_bytes(pipe.conditioner.pl),
+          "vae": weight_bytes(pipe.vae_params)}
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    print(f"pipeline: full-width {label}, Qwen3-4B q4_0, {pipe.compute_dtype}, built in "
+          f"{build_s:.2f} s on {card}; weight bytes " + json.dumps(wb), flush=True)
+    return pipe, {"diffusion": label, "dtype": str(pipe.compute_dtype), "build_s": build_s,
+                  "weight_bytes": wb}
+
+
+def z_image_forward_plain_check(pipe, cond) -> dict:
+    """One full-width DiT forward of a 1024² latent (B = 1) on the prompt's
+    context through the kernels, against the same forward with every
+    attention in the plain version (``flash_supported`` refused), held at
+    REF_REL_TOL (relative L2: both sides bf16, flash against the plain
+    softmax); both finite."""
+    import importlib
+
+    import torch
+
+    att = importlib.import_module("sdtpu_torch.ops.attention")
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    x = torch.randn((1, 128, 128, pipe.latent_channels), generator=g, device=DEVICE,
+                    dtype=pipe.compute_dtype)
+    t = torch.tensor([700.0], device=DEVICE)
+    with torch.inference_mode():
+        got = pipe.diffusion_fn(pipe.diffusion_params, x, t, cond, None)
+        real = att.flash_supported
+        att.flash_supported = lambda *a: False
+        try:
+            want = pipe.diffusion_fn(pipe.diffusion_params, x, t, cond, None)
+        finally:
+            att.flash_supported = real
+    rel = _rel(got, want)
+    ok = bool(torch.isfinite(got).all() and torch.isfinite(want).all() and rel <= REF_REL_TOL)
+    out = {"rel_l2": rel, "tol": REF_REL_TOL, "ok": ok, "shape": list(got.shape),
+           "context_tokens": cond.shape[1]}
+    print("z_image_forward_plain " + json.dumps(out), flush=True)
+    if not ok:
+        raise RuntimeError(f"the full-width Z-Image forward with flash is {rel:.4g} from the plain one")
+    return out
+
+
+# The W8A8 launches one forward adds when ``quantize_params`` (the --type
+# q8_0 rule) also takes the embedders the loader keeps dense: t_embedder's
+# two one-row linears (the GEMV), cap_embedder's over the prompt's rows
+# (split-K) and x_embedder's over the 4096 image rows (wgmma)
+Z_IMAGE_EMBEDDER_W8A8 = {"w8a8_matmul_gemv": 2, "w8a8_matmul_splitk": 1, "w8a8_matmul_wgmma": 1}
+
+
+def z_image_w8a8_forward_check(wrappers, pipe, cond) -> dict:
+    """The DiT's weights quantized per row on the card (``quantize_params``,
+    as ``--type q8_0`` does: the promoted file set's W8A8 linears and the
+    embedders besides), then one full-width forward of a 1024² latent (B =
+    1) on the prompt's context through the W8A8 kernels, against the same
+    forward with every quantized linear in its plain version
+    (``plain_quant_linears``): relative L2 exactly 0 (each W8A8 call
+    bit-equal), both finite, the W8A8 forms launched exactly
+    Z_IMAGE_W8A8_PER_FORWARD + Z_IMAGE_EMBEDDER_W8A8 times.  The fault, the
+    plain side with the last K split dropped in the split-K calls (the
+    prompt's rows), must read above the limit."""
+    import torch
+
+    from sdtpu_torch.ops import quant
+
+    def counts():
+        return {n: getattr(*wrappers[n]) for n in Z_IMAGE_W8A8_PER_FORWARD}
+
+    want_launches = {n: c + Z_IMAGE_EMBEDDER_W8A8[n] for n, c in Z_IMAGE_W8A8_PER_FORWARD.items()}
+    g = torch.Generator(device=DEVICE).manual_seed(29)
+    x = torch.randn((1, 128, 128, pipe.latent_channels), generator=g, device=DEVICE,
+                    dtype=pipe.compute_dtype)
+    t = torch.tensor([700.0], device=DEVICE)
+    previous = os.environ.pop("SDTPU_QUANT_MODE", None)
+    try:
+        q = quant.quantize_params(pipe.diffusion_params, bits=8)
+        with torch.inference_mode():
+            before = counts()
+            got = pipe.diffusion_fn(q, x, t, cond, None)
+            torch.cuda.synchronize()
+            ran = {n: c - before[n] for n, c in counts().items()}
+            with plain_quant_linears():
+                want = pipe.diffusion_fn(q, x, t, cond, None)
+            with plain_quant_linears(drop_k_split=True):
+                fault = _rel(pipe.diffusion_fn(q, x, t, cond, None), want)
+    finally:
+        if previous is not None:
+            os.environ["SDTPU_QUANT_MODE"] = previous
+    del q
+    rel = _rel(got, want)
+    ok = bool(torch.isfinite(got).all() and torch.isfinite(want).all() and rel == 0.0 < fault
+              and ran == want_launches)
+    out = {"rel_l2": rel, "tol": 0.0, "drop_k_split": fault, "w8a8_launches": ran, "ok": ok,
+           "shape": list(got.shape), "context_tokens": cond.shape[1]}
+    print("z_image_w8a8_forward_plain " + json.dumps(out), flush=True)
+    if not ok:
+        raise RuntimeError(f"the full-width Z-Image forward through W8A8 is {rel:.4g} from the one "
+                           f"with plain quantized linears (limit 0; the dropped split reads "
+                           f"{fault:.4g}); W8A8 launches {ran}, not {want_launches}")
+    return out
+
+
+def z_image_paths(wrappers, card: str, launches: dict, profile=None):
+    """The Z-Image paths: ``z_image`` (bf16 Z-Image-Turbo, Z_IMAGE_REQUESTS),
+    then the full-width forward against plain attention and, quantized per
+    row, against plain W8A8 linears; ``z_image_f32``
+    (the default dtype, Z_IMAGE_F32_LAYERS main layers,
+    Z_IMAGE_F32_REQUESTS), each in its launch window."""
+    import torch
+
+    pipes, reports, prof, extra = [], [], {}, {}
+    for label, f32, requests in (("z_image", False, Z_IMAGE_REQUESTS),
+                                 ("z_image_f32", True, Z_IMAGE_F32_REQUESTS)):
+        pipe, info = build_z_image_pipeline(card, default_dtype=f32)
+        pipes.append(info)
+        with plain_attention_on_card() as plain:
+            rep, launches[label] = _windowed(wrappers, label,
+                                             lambda: answer(pipe, requests, card, label))
+        info.update(_check_z_image_launches(
+            label, launches[label], *_forwards_and_encodes(requests), len(requests), plain,
+            calls=4 + Z_IMAGE_F32_LAYERS if f32 else Z_IMAGE_ATTENTION_CALLS, f32=f32))
+        reports += rep
+        if not f32:
+            with torch.inference_mode():
+                cond = pipe.conditioner.get_learned_condition(Z_IMAGE_REQUEST["prompt"]).c_crossattn
+            extra["forward_plain"] = z_image_forward_plain_check(pipe, cond)
+            extra["w8a8_forward_plain"] = z_image_w8a8_forward_check(wrappers, pipe, cond)
+            del cond
+            if profile:
+                prof[label] = profile_request(pipe, Z_IMAGE_REQUEST, profile, label, card)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return pipes, reports, prof, extra
+
+
+# Phase 11, Z-Image on files: ``tools/z_image_file.py``'s full-width set (a
+# q8_0 GGUF DiT, promoted onto W8A8; Qwen3-4B a q4_0 GGUF with its "gpt2"
+# vocab, dequantized when staged, as the JAX CLI does; the FLUX VAE), one
+# 1024² x 4 request at CFG 1 through the CLI and the A1111 route
+Z_IMAGE_CLI_REQUEST = dict(Z_IMAGE_REQUEST, sample_steps=4)
+Z_IMAGE_CLI_ARGV = ["-p", Z_IMAGE_REQUEST["prompt"], "-W", "1024", "-H", "1024", "--steps", "4",
+                    "--cfg-scale", "1", "--sampling-method", "euler", "-s", "42"]
+Z_IMAGE_SERVER_BODY = {"prompt": Z_IMAGE_REQUEST["prompt"], "width": 1024, "height": 1024, "steps": 4,
+                       "cfg_scale": 1.0, "seed": 42, "sampler_name": "euler"}
+
+
+def z_image_entry_check(wrappers, card: str) -> tuple:
+    """Phase 11, Z-Image: ``tools/z_image_file.py``'s set through ``cli.main
+    --diffusion-model ... --llm ... --vae ...`` (the tokenizer from the
+    GGUF's vocab; its PNG read back in metadata mode) and the A1111 route."""
+    from sdtpu_torch.tools.z_image_file import write_z_image_files
+
+    def load_check(rep):
+        load = rep["load"]
+        if load["version"] != "z_image" or not str(load["llm_tokenizer"]).startswith("gguf:"):
+            raise RuntimeError(f"the CLI loaded {load['version']} (LLM tokenizer "
+                               f"{load['llm_tokenizer']}), not z_image with the GGUF's vocab")
+
+    def file_args(files):
+        paths = files["paths"]
+        return ["--diffusion-model", paths["diffusion_model"], "--llm", paths["llm"], "--vae",
+                paths["vae"]]
+
+    counts_of = (*_forwards_and_encodes([Z_IMAGE_CLI_REQUEST]), 1)
+    return _file_entry_check(
+        wrappers, card, "z_image", lambda tmp: write_z_image_files(tmp, device=DEVICE), file_args,
+        Z_IMAGE_CLI_ARGV, Z_IMAGE_SERVER_BODY,
+        lambda path, counts, plain: _check_z_image_launches(path, counts, *counts_of, plain,
+                                                            llm_q4=False, w8a8=True),
+        "euler", (1024, 1024), load_check, request=Z_IMAGE_CLI_REQUEST)
+
+
 # Phase 10f, img2img, masked img2img and the latent hires fix: an init image
 # drawn from the seed (uint8 noise) and a mask whose right half regenerates
 # (255) and whose left half keeps the init image (0).
@@ -4048,10 +4417,10 @@ def main() -> int:
     ap.add_argument("--out", help="also write every measured number to this JSON file")
     ap.add_argument("--profile", metavar="TABLE",
                     help="after each main path, profile one more request (1024² for FLUX, "
-                         "SDXL and SD3, 512² for SD1.5, 768² for SD2.1, the bench's 832x480 x "
-                         "33-frame clip for Wan) and write the profiler's tables to TABLE with "
-                         ".int8 / .w8a16 / .q8_0_gguf / .q4_0 / .f32 / .cli / .sd15 / .sdxl / "
-                         ".sd3 / .wan / .sd2 before its suffix")
+                         "SDXL, SD3 and Z-Image, 512² for SD1.5, 768² for SD2.1, the bench's "
+                         "832x480 x 33-frame clip for Wan) and write the profiler's tables to "
+                         "TABLE with .int8 / .w8a16 / .q8_0_gguf / .q4_0 / .f32 / .cli / .sd15 / "
+                         ".sdxl / .sd3 / .wan / .z_image / .sd2 before its suffix")
     args = ap.parse_args()
 
     import torch
@@ -4213,6 +4582,10 @@ def main() -> int:
     pipes += wan_pipes
     reports += rep
     prof.update(wan_prof)
+    zi_pipes, rep, zi_prof, zi_extra = z_image_paths(wrappers, card, launches, args.profile)
+    pipes += zi_pipes
+    reports += rep
+    prof.update(zi_prof)
     sd2_pipes, rep, sd2_prof = sd2_paths(wrappers, card, launches, args.profile)
     pipes += sd2_pipes
     reports += rep
@@ -4220,7 +4593,7 @@ def main() -> int:
     concat_pipes, rep = concat_unet_paths(wrappers, card, launches)
     pipes += concat_pipes
     reports += rep
-    lap("unet, sd3 and wan paths")
+    lap("unet, sd3, wan and z_image paths")
 
     entry, launches["cli"], launches["server"], launches["cli_img2img"] = entry_points_check(
         wrappers, card, args.profile)
@@ -4235,6 +4608,8 @@ def main() -> int:
     launches.update(sd3_launches)
     entry["wan"], wan_launches = wan_entry_check(wrappers, card)
     launches.update(wan_launches)
+    entry["z_image"], zi_launches = z_image_entry_check(wrappers, card)
+    launches.update(zi_launches)
     lap("other entry points")
     entry["sd2_family"], sd2_launches = sd2_family_entry_check(wrappers, card)
     launches.update(sd2_launches)
@@ -4295,7 +4670,7 @@ def main() -> int:
             json.dump({"card": card, "build_s": build_s, "elapsed_s": elapsed, "cases": cases,
                        "reference": ref,
                        "loader": loader, "pipelines": pipes, "requests": reports, "entry": entry,
-                       "wan": wan_extra,
+                       "wan": wan_extra, "z_image": zi_extra,
                        "launches": launches, "kernels": kernels, "profile": prof}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

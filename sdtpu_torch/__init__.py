@@ -3,9 +3,9 @@
 The JAX package ``sdtpu`` stays the reference; this package mirrors its
 layout (ops/, models/, conditioning/, diffusion/, io/, tokenizers/,
 pipeline.py, factory.py, cli.py, server.py) and is held against it by the
-tests.  The slices ported so far run FLUX.1, SD1.x, SD2.x, SDXL and SD3
-txt2img, img2img and the latent hires fix (the UNets' inpainting and
-instruct-pix2pix variants too) and Wan2.1 T2V txt2vid, from random weights
+tests.  The slices ported so far run FLUX.1, SD1.x, SD2.x, SDXL, SD3 and
+Z-Image txt2img, img2img and the latent hires fix (the UNets' inpainting
+and instruct-pix2pix variants too) and Wan2.1 T2V txt2vid, from random weights
 or checkpoint files, through
 ``create_pipeline`` (``generate``, ``generate_video``) or its own CLI
 (``python -m sdtpu_torch.cli``; ``-M vid_gen`` for Wan) and HTTP server

@@ -1,9 +1,10 @@
-"""sd-cli for the PyTorch/CUDA port: FLUX.1, SD1.x, SD2.x, SDXL and SD3
-txt2img, img2img, masked img2img and the latent hires fix, the inpainting
-and instruct-pix2pix UNets, and Wan2.1 T2V txt2vid from checkpoint files
-(this package's copy of ``sdtpu/cli.py``: ``build_parser``, ``main``, the
-FLUX, SD1, SD2, SDXL, SD3 and Wan parts of ``_load_pipeline`` with its
-``--prediction`` override, ``_img_gen`` with ``-i`` / ``--mask`` /
+"""sd-cli for the PyTorch/CUDA port: FLUX.1, SD1.x, SD2.x, SDXL, SD3 and
+Z-Image txt2img, img2img, masked img2img and the latent hires fix, the
+inpainting and instruct-pix2pix UNets, and Wan2.1 T2V txt2vid from
+checkpoint files (this package's copy of ``sdtpu/cli.py``: ``build_parser``,
+``main``, the FLUX, SD1, SD2, SDXL, SD3, Wan and Z-Image parts of
+``_load_pipeline`` with its ``--prediction`` override and the LLM
+tokenizer's choice (``sidecar_free_llm_tokenizer``), ``_img_gen`` with ``-i`` / ``--mask`` /
 ``--hires`` / ``-r`` / ``--img-cfg-scale``, the T2V part of ``_vid_gen``,
 ``--taesd``, ``--flow-shift``, the metadata mode,
 ``discover_gguf_tokenizer``).
@@ -24,6 +25,9 @@ FLUX, SD1, SD2, SDXL, SD3 and Wan parts of ``_load_pipeline`` with its
         -n static -W 832 -H 480 --video-frames 33 --steps 8 --cfg-scale 6 --sampling-method euler \
         --vae-tiling --vae-tile-size 32 --vae-temporal-tiling \
         --extra-tiling-args temporal_tile_frames=5,temporal_tile_overlap=1 -o clip.png
+    python -m sdtpu_torch.cli --diffusion-model z_image_turbo-q8_0.gguf \
+        --llm Qwen3-4B-q4_0.gguf --vae ae.safetensors -p "a red fox in fresh snow" \
+        -W 1024 -H 1024 --steps 8 --cfg-scale 1 --sampling-method euler -o out.png
     python -m sdtpu_torch.cli -m sd15.safetensors -p "a watercolour harbour" -i init.png \
         --mask mask.png --strength 0.6 -W 512 -H 512 --steps 20 -o out.png
     python -m sdtpu_torch.cli -m sd15.safetensors -p "a watercolour harbour" -W 512 -H 512 \
@@ -39,8 +43,11 @@ FLUX, SD1, SD2, SDXL, SD3 and Wan parts of ``_load_pipeline`` with its
 
 The model family is fingerprinted from the files' tensor names, as the JAX
 CLI does; FLUX.1, SD1.x, SD2.x, SDXL (with their inpainting and
-instruct-pix2pix UNets), SD3 and Wan2.1 T2V load, any other family exits
-naming it.  ``--prediction`` swaps the denoiser as the JAX CLI does
+instruct-pix2pix UNets), SD3, Wan2.1 T2V and Z-Image load, any other family
+exits naming it.  Z-Image's Qwen3 text encoder (``--llm``) tokenizes with
+``--llm-tokenizer``'s ``tokenizer.json``, else the vocab embedded in the
+``--llm`` (or ``-m``) GGUF, else the Qwen byte-level ids without merges
+(``Qwen2Tokenizer.byte_fallback``, with a warning).  ``--prediction`` swaps the denoiser as the JAX CLI does
 (``eps``, ``v`` for an SD2.x-v checkpoint, ``flow``, ``flux_flow``;
 ``edm_v`` and the SeFi / MiniT2I flows exit 2).  On an inpainting UNet
 ``-i`` / ``--mask`` go into the model's input; on a pix2pix UNet ``-r``
@@ -76,8 +83,8 @@ blocks per row even under ``--no-promote-q8``.  Images are
 PNGs with the webui ``parameters`` text.  ``--taesd`` attaches a TAESD
 decoder (raw ``taesd`` names, its variant by the model's version) for the
 final decode; ``--taesd-preview-only`` is not ported (the port has no
-preview).  ``--flow-shift`` sets SD3's and Wan's flow shift (3.0 and 5.0 by
-default) and, as in the JAX CLI, changes nothing for the other families.
+preview).  ``--flow-shift`` sets SD3's, Wan's and Z-Image's flow shift (3.0, 5.0 and
+3.0 by default) and, as in the JAX CLI, changes nothing for the other families.
 ``--vae-temporal-tiling`` (or ``--temporal-tiling``) windows a video decode
 over latent frames, sized by ``--extra-tiling-args
 temporal_tile_frames=N,temporal_tile_overlap=M``.
@@ -506,6 +513,7 @@ def build_parser() -> argparse.ArgumentParser:
 RUN_FLAGS = frozenset({
     "mode", "mode_flag",
     "model", "diffusion_model", "clip_l", "clip_g", "t5xxl", "vae", "taesd", "t5_tokenizer",
+    "llm", "llm_tokenizer",
     "prompt", "negative_prompt", "prompt_file", "width", "height",
     "steps", "cfg_scale", "guidance", "seed", "batch_count", "sampling_method", "schedule",
     "eta", "clip_skip", "rng", "prediction",
@@ -540,8 +548,8 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
             continue
         if getattr(args, dest, action.default) != action.default:
             flag = "/".join(action.option_strings)
-            return (f"{flag} is not ported (the port runs FLUX.1, SD1.x, SD2.x, SDXL and SD3 "
-                    "txt2img, img2img, masked img2img and the latent hires fix, the inpainting and "
+            return (f"{flag} is not ported (the port runs FLUX.1, SD1.x, SD2.x, SDXL, SD3 and "
+                    "Z-Image txt2img, img2img, masked img2img and the latent hires fix, the inpainting and "
                     "instruct-pix2pix UNets, and Wan2.1 txt2vid)")
     if args.mode not in MODES:
         return f"mode {args.mode!r} is not ported; the port runs {list(MODES)}"
@@ -672,6 +680,28 @@ def load_t5_tokenizer(args):
     return tok, "gguf:" + next(p for p in (args.t5xxl, args.model) if p and p.lower().endswith(".gguf"))
 
 
+def load_llm_tokenizer(args):
+    """The LLM's tokenizer, as the JAX CLI picks it → (tokenizer, where it
+    came from): ``--llm-tokenizer`` (a ``tokenizer.json``), else a "gpt2"
+    vocab embedded in the ``--llm`` or ``-m`` GGUF, else the Qwen byte-level
+    ids without merges (``Qwen2Tokenizer.byte_fallback``)."""
+    from sdtpu_torch.tokenizers.gguf_vocab import tokenizer_from_gguf_file
+    from sdtpu_torch.tokenizers.qwen2 import Qwen2Tokenizer
+
+    if args.llm_tokenizer:
+        return Qwen2Tokenizer.from_tokenizer_json(args.llm_tokenizer), args.llm_tokenizer
+    for p in (args.llm, args.model):
+        if p and p.lower().endswith(".gguf"):
+            tok = tokenizer_from_gguf_file(p)
+            if isinstance(tok, Qwen2Tokenizer):
+                print(f"tokenizer from embedded GGUF vocab: {p} (Qwen2Tokenizer)")
+                return tok, "gguf:" + p
+    print("warning: no tokenizer sidecar for the LLM text encoder: using the Qwen2 byte-level "
+          "vocabulary (valid ids, no multi-byte merges; pass --llm-tokenizer tokenizer.json for "
+          "exact encoding)")
+    return Qwen2Tokenizer.byte_fallback(), "byte_fallback"
+
+
 def quantize_dense(d: dict, wtype: str):
     """``--type``: the dense weights of a diffusion param dict quantized as
     the JAX CLI quantizes them at load (``quantize_params``, bits 8 for
@@ -687,7 +717,7 @@ def quantize_dense(d: dict, wtype: str):
 
 
 def _load_pipeline(args, report: Optional[dict] = None):
-    """The files → a FLUX, SD1.x, SD2.x, SDXL, SD3 or Wan pipeline (the
+    """The files → a FLUX, SD1.x, SD2.x, SDXL, SD3, Wan or Z-Image pipeline (the
     version the files' fingerprint names; ``--prediction``'s denoiser) on
     ``--backend``'s device, with ``--taesd``'s
     decoder attached.  ``report``
@@ -718,20 +748,21 @@ def _load_pipeline(args, report: Optional[dict] = None):
     bundle = load_model_bundle(model_path=args.model, diffusion_model_path=args.diffusion_model,
                                clip_l_path=args.clip_l, t5xxl_path=args.t5xxl,
                                vae_path=args.vae, keep_quant=not args.no_keep_quant,
-                               clip_g_path=args.clip_g)
+                               clip_g_path=args.clip_g, llm_path=args.llm)
     tae_raw = read_checkpoint_file(args.taesd) if args.taesd else None
     t_read = time.time() - t0
     # SD1.x and SD2.x condition on one CLIP (SD2's OpenCLIP-H loads as
     # clip_l), SDXL on CLIP-L and CLIP-G: a missing T5 is no error there
     encoders = {SDVersion.FLUX: ("clip_l", "t5"), SDVersion.SD3: ("clip_l", "clip_g", "t5"),
-                SDVersion.WAN2: ("t5",)}.get(bundle.version, ("clip_l",))
+                SDVersion.WAN2: ("t5",), SDVersion.Z_IMAGE: ("llm",)}.get(bundle.version, ("clip_l",))
     if sd_version_is_sdxl(bundle.version):
         encoders = ("clip_l", "clip_g")
     missing = [m for m in (*encoders, "vae") if not getattr(bundle, m)]
     if missing:
         raise SystemExit(f"error: no {', '.join(missing)} weights in the given files "
-                         "(pass --clip_l, --clip_g, --t5xxl, --vae)")
+                         "(pass --clip_l, --clip_g, --t5xxl, --llm, --vae)")
     t5_tok, t5_tok_source = load_t5_tokenizer(args) if "t5" in encoders else (None, None)
+    llm_tok, llm_tok_source = load_llm_tokenizer(args) if "llm" in encoders else (None, None)
     t0 = time.time()
     # the JAX CLI's rule: --type q8_0 promotes q8_0 blocks per row even under
     # --no-promote-q8, --type q4_0 keeps them in their blocks
@@ -757,7 +788,8 @@ def _load_pipeline(args, report: Optional[dict] = None):
         print(f"quantized diffusion weights to {args.wtype}")
     t0 = time.time()
     pipe = create_pipeline(bundle.version, params=params, rng_type=args.rng, dtype=dtype,
-                           t5_tokenizer=t5_tok, flow_shift=args.flow_shift, device=device)
+                           t5_tokenizer=t5_tok, flow_shift=args.flow_shift, device=device,
+                           qwen_tokenizer=llm_tok)
     if args.prediction:  # the JAX CLI's denoiser override
         from sdtpu_torch.diffusion import denoiser as dn
 
@@ -779,7 +811,8 @@ def _load_pipeline(args, report: Optional[dict] = None):
             "build_s": time.time() - t0,
             "device": str(device), "dtype": str(dtype).replace("torch.", ""), "tae": bool(tae_raw),
             "w8a8_weights": n_row, "block_weights": n_blocks, "wtype": args.wtype,
-            "typed_weights": n_typed, "t5_tokenizer": t5_tok_source}
+            "typed_weights": n_typed, "t5_tokenizer": t5_tok_source,
+            "llm_tokenizer": llm_tok_source}
     print("load " + json.dumps(load))
     if report is not None:
         report.update(load=load, pipeline=pipe)

@@ -1,9 +1,9 @@
-"""Prompt → conditioning tensors for FLUX, SD1.x, SD2.x, SDXL, SD3 and Wan
-(counterpart of ``sdtpu/conditioning/conditioner.py``:
+"""Prompt → conditioning tensors for FLUX, SD1.x, SD2.x, SDXL, SD3, Wan and
+Z-Image (counterpart of ``sdtpu/conditioning/conditioner.py``:
 ``tokenize_with_weights``, ``apply_token_weights``, ``SDCondition``,
 ``SD1Conditioner`` with its SD2 form,
 ``sdxl_size_vector``, ``SDXLConditioner``, ``SD3Conditioner``,
-``FluxConditioner``, ``WanConditioner``).
+``FluxConditioner``, ``WanConditioner``, ``ZImageConditioner``).
 
 The tokenizers, the webui prompt parser and the encoders are this
 package's own.
@@ -18,6 +18,7 @@ import torch
 
 from sdtpu_torch.conditioning.prompt_parser import parse_prompt_attention
 from sdtpu_torch.models.clip import CLIPTextConfig, clip_text_forward
+from sdtpu_torch.models.llm import LLMConfig, llm_forward
 from sdtpu_torch.models.t5 import T5Config, t5_encoder_forward
 from sdtpu_torch.ops import timestep_embedding
 
@@ -270,3 +271,31 @@ class WanConditioner:
                                attention_mask=m)
         h = apply_token_weights(h, torch.tensor([w], dtype=torch.float32, device=dev))
         return SDCondition(c_crossattn=h * m[:, :, None].to(h.dtype), t5_ids=list(ids))
+
+
+class ZImageConditioner:
+    """Z-Image: the prompt in a plain chat wrap (``TEMPLATE``), tokenized
+    (at most ``max_len`` ids) and run through the Qwen3 LLM's first
+    ``num_layers - 1`` layers: the hidden states of the second-to-last
+    layer, without the final norm, are the context.  Without a tokenizer
+    (the small configs: ``create_pipeline`` gives a full-width one the
+    byte-level tokenizer) the ids are 0..23.  The prompt's attention weights are not applied, as
+    in the JAX package."""
+
+    TEMPLATE = "<|im_start|>user\n{}<|im_end|>\n<|im_start|>assistant\n"
+
+    def __init__(self, qwen_tokenizer, llm_params, llm_cfg: LLMConfig, max_len: int = 1024,
+                 device="cuda"):
+        self.tokenizer = qwen_tokenizer
+        self.pl, self.cl = llm_params, llm_cfg
+        self.max_len = max_len
+        self.device = torch.device(device)
+
+    def get_learned_condition(self, text: str, clip_skip: int = -1, **kw) -> SDCondition:
+        if self.tokenizer is not None:
+            ids = self.tokenizer.encode(self.TEMPLATE.format(text))[:self.max_len]
+        else:
+            ids = list(range(24))
+        h = llm_forward(self.pl, torch.tensor([ids], dtype=torch.int64, device=self.device),
+                        self.cl, output_layer=self.cl.num_layers - 1)
+        return SDCondition(c_crossattn=h)

@@ -2,8 +2,8 @@
 ``create_pipeline`` with ``v_prediction``, ``unet_config_for`` and its
 UNet branch for SD1.x, SD2.x and SDXL with their inpainting and
 instruct-pix2pix stems, ``_create_sd3_pipeline``, the WAN2 branch of
-``_create_wan_pipeline``, ``_create_flux_pipeline`` and
-``_detect_t5_config``).
+``_create_wan_pipeline``, ``_create_z_image_pipeline``,
+``_create_flux_pipeline`` and ``_detect_t5_config``).
 
 FLUX, the UNet families and SD3 are built from given params (this package's
 tensors, e.g. bridged with ``sdtpu_torch.weights.from_jax_params``) or from
@@ -23,17 +23,22 @@ a given T5's from its shapes.  Wan2.1 T2V
 (``_create_wan_pipeline``, ``_detect_wan_vae_config``) as
 ``bench_wan21_t2v`` draws it: the DiT and the VAE dense, UMT5-XXL 4-bit; a
 given DiT's config comes from ``detect_wan_config``, a given VAE's from its
-shapes.  Every other version raises by name.
+shapes.  Z-Image (``_create_z_image_pipeline``): the DiT and the FLUX VAE
+dense, its Qwen3-4B text encoder 4-bit, the class users run it in; a given
+DiT's config comes from ``detect_z_image_config``, a given LLM's from
+``detect_llm_config(arch="qwen3")``.  Every other version raises by name.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
 
 from sdtpu_torch.conditioning.conditioner import (FluxConditioner, SD1Conditioner,
-                                                  SD3Conditioner, SDXLConditioner, WanConditioner)
+                                                  SD3Conditioner, SDXLConditioner, WanConditioner,
+                                                  ZImageConditioner)
 from sdtpu_torch.config import (SDVersion, sd_version_is_inpaint, sd_version_is_sd2,
                                 sd_version_is_sdxl, sd_version_is_unet_edit)
 from sdtpu_torch.diffusion.denoiser import (CompVisDenoiser, CompVisVDenoiser, DiscreteFlowDenoiser,
@@ -41,19 +46,22 @@ from sdtpu_torch.diffusion.denoiser import (CompVisDenoiser, CompVisVDenoiser, D
 from sdtpu_torch.io.model_loader import PORTED_VERSIONS, UNET_VERSIONS
 from sdtpu_torch.models import clip as clip_mod
 from sdtpu_torch.models import flux as flux_mod
+from sdtpu_torch.models import llm as llm_mod
 from sdtpu_torch.models import mmdit as mmdit_mod
 from sdtpu_torch.models import t5 as t5_mod
 from sdtpu_torch.models import unet as unet_mod
 from sdtpu_torch.models import vae as vae_mod
 from sdtpu_torch.models import wan as wan_mod
 from sdtpu_torch.models import wan_vae as wan_vae_mod
+from sdtpu_torch.models import z_image as zi_mod
 from sdtpu_torch.pipeline import DiffusionPipeline
 from sdtpu_torch.tokenizers.clip import CLIPTokenizer
+from sdtpu_torch.tokenizers.qwen2 import Qwen2Tokenizer
 from sdtpu_torch.weights import synthesize
 
 # synthesis memory class and seed offset per module at full width
 FULL_QUANT = {"diffusion": "q8_0", "t5": "q4_0", "clip_l": None, "vae": None}
-SEED_OFFSET = {"diffusion": 1, "t5": 2, "clip_l": 3, "vae": 4, "clip_g": 5}
+SEED_OFFSET = {"diffusion": 1, "t5": 2, "clip_l": 3, "vae": 4, "clip_g": 5, "llm": 6}
 
 
 def flux_configs(small: bool):
@@ -218,6 +226,72 @@ def _create_wan_pipeline(params: dict, rng_type: str, dtype: torch.dtype, small:
         temporal_scale=4)
 
 
+def z_image_configs(small: bool):
+    """→ (dit, llm, vae) configs; the small set is the JAX factory's small
+    Z-Image config (a 48-wide DiT of 2 + 1 + 1 blocks with 4 heads of 12 over
+    2 KV heads, a 2-layer Qwen3 32 wide with a 256-piece vocab, the small
+    FLUX-scaled VAE over 4 latent channels).  At full width: Z-Image-Turbo's
+    DiT, Qwen3-4B (hidden 2560, Z-Image's ``cap_feat_dim``), the FLUX VAE
+    (the factory fingerprints given weights instead)."""
+    if small:
+        dit_cfg = zi_mod.ZImageConfig(
+            hidden_size=48, in_channels=4, out_channels=4, num_layers=2, num_refiner_layers=1,
+            head_dim=12, num_heads=4, num_kv_heads=2, multiple_of=16, cap_feat_dim=32,
+            axes_dim=(4, 4, 4))
+        llm_cfg = dataclasses.replace(llm_mod.QWEN3_8B_CONFIG, num_layers=2, hidden_size=32,
+                                      intermediate_size=64, num_heads=4, num_kv_heads=2, head_dim=8,
+                                      vocab_size=256)
+        vae_cfg = vae_mod.VAEConfig(base_channels=32, channel_mult=(1, 2, 2, 2), num_res_blocks=1,
+                                    z_channels=4, scale_factor=0.3611, shift_factor=0.1159)
+        return dit_cfg, llm_cfg, vae_cfg
+    return zi_mod.Z_IMAGE_CONFIG, llm_mod.QWEN3_4B_CONFIG, vae_mod.FLUX_VAE_CONFIG
+
+
+def _create_z_image_pipeline(params: dict, rng_type: str, dtype: torch.dtype, small: bool,
+                             seed: int, qwen_tokenizer, flow_shift: Optional[float],
+                             device) -> DiffusionPipeline:
+    """Z-Image: the single-stream DiT, the Qwen3 LLM (``ZImageConditioner``),
+    the FLUX VAE, the discrete flow denoiser (shift 3 unless
+    ``flow_shift``); the DiT takes 1000 - t.  At full width a missing
+    tokenizer is the Qwen2 byte-level one, with a warning; the small
+    configs keep None (the ids 0..23, as the golden was made)."""
+    dit_cfg, llm_cfg, vae_cfg = z_image_configs(small)
+    if not small:
+        if params.get("diffusion"):
+            d = params["diffusion"]
+            dit_cfg = zi_mod.detect_z_image_config(d.keys(), {k: tuple(v.shape) for k, v in d.items()})
+        if params.get("llm"):
+            m = params["llm"]
+            llm_cfg = llm_mod.detect_llm_config(m.keys(), {k: tuple(v.shape) for k, v in m.items()},
+                                                arch="qwen3")
+    if llm_cfg.hidden_size != dit_cfg.cap_feat_dim:
+        raise ValueError(f"the LLM's hidden size {llm_cfg.hidden_size} is not the DiT's "
+                         f"cap_feat_dim {dit_cfg.cap_feat_dim}")
+    specs = {"diffusion": zi_mod.param_specs(dit_cfg), "llm": llm_mod.param_specs(llm_cfg),
+             "vae": vae_mod.vae_specs(vae_cfg)}
+    mods = {name: params.get(name) or synthesize(
+                spec, quant="q4_0" if name == "llm" and not small else None,
+                seed=seed + SEED_OFFSET[name], device=device, dtype=dtype)
+            for name, spec in specs.items()}
+    if qwen_tokenizer is None and not small:
+        warnings.warn("no qwen_tokenizer: using the Qwen2 byte-level vocabulary (valid ids, no "
+                      "multi-byte merges; pass Qwen2Tokenizer.from_tokenizer_json(...) for exact "
+                      "encoding)", stacklevel=3)
+        qwen_tokenizer = Qwen2Tokenizer.byte_fallback()
+    conditioner = ZImageConditioner(qwen_tokenizer, mods["llm"], llm_cfg, device=device)
+
+    def diffusion_fn(p, x, t, ctx, y, guidance=None):
+        return zi_mod.z_image_forward(p, x, 1000.0 - t, ctx, cfg=dit_cfg)
+
+    vae_decode_fn, vae_encode_fn = _vae_fns(vae_cfg)
+    return DiffusionPipeline(
+        version=SDVersion.Z_IMAGE, diffusion_params=mods["diffusion"], diffusion_fn=diffusion_fn,
+        conditioner=conditioner, vae_params=mods["vae"], vae_decode_fn=vae_decode_fn,
+        vae_encode_fn=vae_encode_fn,
+        denoiser=DiscreteFlowDenoiser(shift=3.0 if flow_shift is None else flow_shift),
+        rng_type=rng_type, latent_channels=dit_cfg.in_channels, compute_dtype=dtype, device=device)
+
+
 def detect_t5_config(p: dict) -> t5_mod.T5Config:
     """A T5 / UMT5 encoder's config from its params' shapes (the JAX
     factory's ``_detect_t5_config``)."""
@@ -320,19 +394,25 @@ def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] 
                     rng_type: str = "cuda", dtype: torch.dtype = torch.float32,
                     small: bool = False, seed: int = 0, v_prediction: bool = False,
                     t5_tokenizer=None, flow_shift: Optional[float] = None,
-                    device="cuda") -> DiffusionPipeline:
+                    device="cuda", qwen_tokenizer=None) -> DiffusionPipeline:
     """params: dict with keys 'diffusion', 'clip_l' (SD2's OpenCLIP-H too),
-    't5' (FLUX, SD3 and Wan's UMT5), 'clip_g' (SDXL and SD3), 'vae'; a
-    missing module gets random weights drawn on ``device`` (dense for the
-    small configs and for the UNet families at full width, the bench's
-    memory classes for FLUX, SD3 and Wan at full width).  v_prediction: the
-    UNet families' v-prediction denoiser (SD2.x-v); flow_shift: SD3's and
-    Wan's flow shift (None: 3.0 and 5.0); the other ported families take
-    neither, and ignore them, as the JAX factory does."""
+    't5' (FLUX, SD3 and Wan's UMT5), 'clip_g' (SDXL and SD3), 'llm'
+    (Z-Image's Qwen3), 'vae'; a missing module gets random weights drawn on
+    ``device`` (dense for the small configs and for the UNet families at
+    full width, the bench's memory classes for FLUX, SD3 and Wan at full
+    width, Z-Image's LLM 4-bit).  v_prediction: the UNet families'
+    v-prediction denoiser (SD2.x-v); flow_shift: SD3's, Wan's and Z-Image's
+    flow shift (None: 3.0, 5.0 and 3.0); the other ported families take
+    neither, and ignore them, as the JAX factory does.  qwen_tokenizer:
+    Z-Image's (None: ``Qwen2Tokenizer.byte_fallback()`` with a warning at
+    full width, the ids 0..23 whatever the prompt with ``small``)."""
     if version not in PORTED_VERSIONS:
         raise NotImplementedError(f"{version} is not ported yet; the port runs "
                                   f"{[v.name for v in PORTED_VERSIONS]}")
     params = params or {}
+    if version == SDVersion.Z_IMAGE:
+        return _create_z_image_pipeline(params, rng_type, dtype, small, seed, qwen_tokenizer,
+                                        flow_shift, device)
     if version == SDVersion.WAN2:
         return _create_wan_pipeline(params, rng_type, dtype, small, seed, t5_tokenizer, flow_shift,
                                     device)

@@ -32,10 +32,14 @@ kept, as the JAX loader leaves them.  A Wan2.1 DiT (``blocks.N.cross_attn``,
 and UMT5-XXL as ``--t5xxl`` (HF or llama.cpp GGUF names, its per-layer
 relative bias included).  The UNet families' inpainting (a 9-channel
 stem) and instruct-pix2pix (8) variants load as SD1.x, SD2.x and SDXL do.
-Any family but FLUX, those in ``UNET_VERSIONS``, SD3 and Wan2.1 T2V raises
-``NotImplementedError`` naming it (the tiny UNets, SDXS and SDXL's SSD-1B
-too, an SD3 transformer under diffusers names, Wan2.2 I2V and TI2V, a Wan
-VACE or I2V DiT, and a Wan DiT or VAE under diffusers names).
+A Z-Image DiT (``cap_embedder``, under its original or diffusers Lumina-2
+names) comes as ``--diffusion-model``, its FLUX VAE as ``--vae`` and its
+Qwen3 text encoder as ``--llm`` (``text_encoders.llm.``: HF names, or
+llama.cpp GGUF names mapped to HF ones; a vision tower is refused).
+Any family but FLUX, those in ``UNET_VERSIONS``, SD3, Wan2.1 T2V and
+Z-Image raises ``NotImplementedError`` naming it (the tiny UNets, SDXS and
+SDXL's SSD-1B too, an SD3 transformer under diffusers names, Wan2.2 I2V and
+TI2V, a Wan VACE or I2V DiT, and a Wan DiT or VAE under diffusers names).
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ class ModelBundle:
     clip_g: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
     t5: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
     vae: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    llm: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
     extra: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
 
 
@@ -172,9 +177,33 @@ def convert_diffusers_flux_name(name: str) -> Optional[str]:
     return None
 
 
+def convert_diffusers_lumina2_name(name: str) -> str:
+    """Lumina-2 / Z-Image diffusers names → internal ones (split q/k/v under
+    merge markers); a name no rule matches comes back as it is."""
+    for src, dst in (("all_x_embedder.2-1.", "x_embedder."),
+                     ("all_final_layer.2-1.", "final_layer.")):
+        if name.startswith(src):
+            name = dst + name[len(src):]
+    m = re.match(r"((?:noise_refiner|context_refiner|layers)\.\d+\.)(.*)", name)
+    if not m:
+        return name
+    pre, rest = m.group(1), m.group(2)
+    mm = re.match(r"attention\.to_([qkv])\.(weight|bias)$", rest)
+    if mm:
+        part = {"q": "", "k": ".1", "v": ".2"}[mm.group(1)]
+        return f"{pre}attention.qkv.{mm.group(2)}{part}"
+    for src, dst in (("attention.norm_q.", "attention.q_norm."),
+                     ("attention.norm_k.", "attention.k_norm."),
+                     ("attention.to_out.0.", "attention.out.")):
+        if rest.startswith(src):
+            return pre + dst + rest[len(src):]
+    return name
+
+
 def convert_diffusers_diffusion_names(tensors: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """A diffusers-format FLUX DiT → internal names; other diffusers DiT
-    families raise, internal names pass through."""
+    """A diffusers-format FLUX or Lumina-2 / Z-Image DiT → internal names
+    (Z-Image's own names pass through the Lumina-2 rules unchanged); other
+    diffusers DiT families raise, internal names pass through."""
     def has_prefix(p):
         return any(k.startswith(p) for k in tensors)
 
@@ -185,10 +214,13 @@ def convert_diffusers_diffusion_names(tensors: Dict[str, np.ndarray]) -> Dict[st
         raise NotImplementedError("a diffusers SD3 transformer (SD3Transformer2DModel names): "
                                   "the port loads SD3 under its single-file names (joint_blocks)")
     if (any("img_attn_qkv" in k or "img_mod.linear." in k for k in tensors)
-            or has_prefix("pos_embed.proj.") or has_prefix("all_x_embedder.2-1.")
-            or has_prefix("noise_refiner.") or has_prefix("time_mod_proj.")
+            or has_prefix("pos_embed.proj.") or has_prefix("time_mod_proj.")
             or has_prefix("text_fusion.")):
-        raise NotImplementedError("a diffusers DiT other than FLUX: the port loads FLUX")
+        raise NotImplementedError("a diffusers DiT other than FLUX and Z-Image: the port loads "
+                                  "FLUX and Z-Image")
+    if has_prefix("all_x_embedder.2-1.") or has_prefix("noise_refiner."):
+        return _merge_fused_markers({convert_diffusers_lumina2_name(k): v
+                                     for k, v in tensors.items()})
     if not (has_prefix("single_transformer_blocks.")
             or (has_prefix("transformer_blocks.") and has_prefix("context_embedder."))):
         return tensors
@@ -206,7 +238,8 @@ UNET_VERSIONS = (SDVersion.SD1, SDVersion.SD1_INPAINT, SDVersion.SD1_PIX2PIX, SD
                  SDVersion.SDXL_PIX2PIX)
 # the families the port runs (``load_model_bundle`` and ``create_pipeline``
 # refuse every other by name)
-PORTED_VERSIONS = (SDVersion.FLUX, *UNET_VERSIONS, SDVersion.SD3, SDVersion.WAN2)
+PORTED_VERSIONS = (SDVersion.FLUX, *UNET_VERSIONS, SDVersion.SD3, SDVersion.WAN2,
+                   SDVersion.Z_IMAGE)
 
 
 def _unet_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
@@ -281,11 +314,13 @@ def _wan_version(names, shapes: Dict[str, Tuple[int, ...]]) -> Optional[SDVersio
 
 
 def detect_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
-    """The JAX package's fingerprint (``detect_version``) of an MMDiT (SD3:
-    ``joint_blocks``), a double-block DiT (its ``double_blocks`` branch), a
+    """The JAX package's fingerprint (``detect_version``) of a Z-Image DiT
+    (``cap_embedder``), an MMDiT (SD3: ``joint_blocks``), a double-block DiT (its ``double_blocks`` branch), a
     Wan DiT (its Wan branch) or a UNet (its UNet branch); UNKNOWN for
     anything else."""
     names = set(names)
+    if any("cap_embedder.0.weight" in n for n in names):
+        return SDVersion.Z_IMAGE
     if any(n.startswith((DIFFUSION_PREFIX + "joint_blocks", "joint_blocks")) for n in names):
         return SDVersion.SD3
     if not any(n.startswith((DIFFUSION_PREFIX + "double_blocks", "double_blocks")) for n in names):
@@ -434,6 +469,31 @@ def convert_gguf_t5_name(name: str) -> str:
     return _replace_name_map(name, _GGUF_T5_MAP)
 
 
+# the Qwen2.5-VL and Qwen3 text towers' names (what llm.check_supported
+# refuses has none here)
+_GGUF_LLM_MAP = (
+    ("token_embd.", "model.embed_tokens."),
+    ("blk.", "model.layers."),
+    ("attn_q.", "self_attn.q_proj."),
+    ("attn_k.", "self_attn.k_proj."),
+    ("attn_v.", "self_attn.v_proj."),
+    ("attn_q_norm.", "self_attn.q_norm."),
+    ("attn_k_norm.", "self_attn.k_norm."),
+    ("attn_output.", "self_attn.o_proj."),
+    ("attn_norm.", "input_layernorm."),
+    ("ffn_down.", "mlp.down_proj."),
+    ("ffn_gate.", "mlp.gate_proj."),
+    ("ffn_up.", "mlp.up_proj."),
+    ("ffn_norm.", "post_attention_layernorm."),
+    ("output_norm.", "model.norm."),
+)
+
+
+def convert_gguf_llm_name(name: str) -> str:
+    """llama.cpp GGUF decoder-LLM names → HF names."""
+    return _replace_name_map(name, _GGUF_LLM_MAP)
+
+
 # ------------------------------------------------------------ bundle
 
 def convert_open_clip_name(name: str) -> Optional[str]:
@@ -484,7 +544,8 @@ MODULE_PREFIXES = (("diffusion", DIFFUSION_PREFIX), ("vae", "first_stage_model."
                    ("clip_g", "conditioner.embedders.1.model."),
                    ("clip_l", "text_encoders.clip_l.transformer."),
                    ("clip_g", "text_encoders.clip_g.transformer."),
-                   ("t5", "text_encoders.t5xxl.transformer."))
+                   ("t5", "text_encoders.t5xxl.transformer."),
+                   ("llm", "text_encoders.llm."))
 
 
 def split_modules(tensors: Dict[str, np.ndarray]) -> ModelBundle:
@@ -492,13 +553,19 @@ def split_modules(tensors: Dict[str, np.ndarray]) -> ModelBundle:
     canon = {canonicalize_name(k): v for k, v in tensors.items()}
     version = detect_version(canon.keys(), {k: tuple(v.shape) for k, v in canon.items()})
     mods: Dict[str, Dict[str, np.ndarray]] = {"diffusion": {}, "clip_l": {}, "clip_g": {}, "t5": {},
-                                              "vae": {}, "extra": {}}
+                                              "vae": {}, "llm": {}, "extra": {}}
     for name, arr in canon.items():
         for mod, prefix in MODULE_PREFIXES:
             if name.startswith(prefix):
                 local = name[len(prefix):]
                 if mod == "t5" and local.startswith(("enc.", "dec.", "token_embd.", "output_norm.")):
                     local = convert_gguf_t5_name(local)  # llama.cpp GGUF T5 export
+                if mod == "llm":
+                    if local.startswith(("model.visual.", "visual.", "v.", "mm.")):
+                        raise NotImplementedError(f"{local}: an LLM vision tower is not ported; "
+                                                  "the port runs the LLM's text tower")
+                    if local.startswith(("blk.", "token_embd.", "output_norm.", "attn_sinks.")):
+                        local = convert_gguf_llm_name(local)  # llama.cpp GGUF LLM export
                 if prefix in ("conditioner.embedders.1.model.", "cond_stage_model.model."):
                     local = convert_open_clip_name(local)
                     if local is None:
@@ -521,7 +588,7 @@ def split_modules(tensors: Dict[str, np.ndarray]) -> ModelBundle:
 def load_model_bundle(model_path: Optional[str] = None, diffusion_model_path: Optional[str] = None,
                       clip_l_path: Optional[str] = None, t5xxl_path: Optional[str] = None,
                       vae_path: Optional[str] = None, keep_quant: bool = False,
-                      clip_g_path: Optional[str] = None) -> ModelBundle:
+                      clip_g_path: Optional[str] = None, llm_path: Optional[str] = None) -> ModelBundle:
     """Checkpoint files of a ported family (``PORTED_VERSIONS``), each under
     its logical prefix, → ``ModelBundle`` (what the JAX package's
     ``load_model_bundle`` holds for them, by value).  Raises
@@ -533,7 +600,8 @@ def load_model_bundle(model_path: Optional[str] = None, diffusion_model_path: Op
                          (clip_l_path, "text_encoders.clip_l.transformer."),
                          (clip_g_path, "text_encoders.clip_g.transformer."),
                          (t5xxl_path, "text_encoders.t5xxl.transformer."),
-                         (vae_path, "first_stage_model.")):
+                         (vae_path, "first_stage_model."),
+                         (llm_path, "text_encoders.llm.")):
         if not path:
             continue
         diffusion = path == diffusion_model_path

@@ -1,4 +1,4 @@
-"""HTTP server for the PyTorch/CUDA port: FLUX.1, SD1.x, SD2.x, SDXL and SD3 txt2img,
+"""HTTP server for the PyTorch/CUDA port: FLUX.1, SD1.x, SD2.x, SDXL, SD3 and Z-Image txt2img,
 img2img, masked img2img and the latent hires fix (the UNets' inpainting and
 instruct-pix2pix variants too) behind the reference's three API families
 (this package's copy of ``sdtpu/server.py``: ``Job``, ``JobManager``,
@@ -11,6 +11,8 @@ of ``run_generation``, ``make_handler``, ``serve`` and ``main``).
     python -m sdtpu_torch.server -m sdxl.safetensors --taesd taesdxl.safetensors --port 7860
     python -m sdtpu_torch.server -m sd3.5_medium.safetensors --clip_l clip_l.safetensors \\
         --clip_g clip_g.safetensors --t5xxl t5xxl-q8_0.gguf --port 7860
+    python -m sdtpu_torch.server --diffusion-model z_image_turbo-q8_0.gguf \\
+        --llm Qwen3-4B-q4_0.gguf --vae ae.safetensors --port 7860
 
 Routes the port answers:
   native:  POST /sdcpp/v1/img_gen (async job), GET /sdcpp/v1/jobs/<id>,

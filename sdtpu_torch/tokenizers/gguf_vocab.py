@@ -1,9 +1,10 @@
-"""T5 tokenizers from embedded checkpoint vocabularies (this package's copy of
-the T5 parts of ``sdtpu/tokenizers/gguf_vocab.py``).
+"""Tokenizers from embedded checkpoint vocabularies (this package's copy of
+``sdtpu/tokenizers/gguf_vocab.py``).
 
 - llama.cpp-style GGUF text encoders carry ``tokenizer.ggml.*`` metadata;
   ``tokenizer_from_gguf_metadata`` turns a SentencePiece-unigram vocab
-  ("t5" / "llama") into a ``T5UnigramTokenizer``.
+  ("t5" / "llama") into a ``T5UnigramTokenizer`` and a byte-level BPE one
+  ("gpt2", the Qwen LLMs') into a ``Qwen2Tokenizer``.
 - SentencePiece ``spiece.model`` protobufs: ``load_spiece_model`` parses the
   ModelProto wire format directly (no protobuf dependency).
 """
@@ -12,22 +13,26 @@ from __future__ import annotations
 import struct
 from typing import List, Tuple
 
+from sdtpu_torch.tokenizers.qwen2 import Qwen2Tokenizer
 from sdtpu_torch.tokenizers.t5 import T5UnigramTokenizer
 
 # llama.cpp token_type values (llama.h llama_token_type)
 _TT_UNKNOWN = 2
+_TT_CONTROL = 3
+_TT_USER_DEFINED = 4
 
 
 def tokenizer_from_gguf_metadata(md: dict):
-    """``tokenizer.ggml.*`` GGUF KV metadata → T5UnigramTokenizer for a
-    "t5" / "llama" (SentencePiece unigram with scores) vocab, else None.
-    A "gpt2" (byte-level BPE) vocab is not ported: the port runs no LLM text
-    encoder, so it too gives None."""
+    """``tokenizer.ggml.*`` GGUF KV metadata → tokenizer, or None when the
+    file carries no vocab (or one of another model).
+
+    - model "t5" / "llama" (SentencePiece unigram with scores) →
+      T5UnigramTokenizer
+    - model "gpt2" (byte-level BPE with merges) → Qwen2Tokenizer
+    """
     model = md.get("tokenizer.ggml.model")
     tokens = md.get("tokenizer.ggml.tokens")
     if not model or not tokens:
-        return None
-    if model not in ("t5", "llama"):
         return None
     ttypes = md.get("tokenizer.ggml.token_type") or []
 
@@ -35,14 +40,25 @@ def tokenizer_from_gguf_metadata(md: dict):
         v = md.get(f"tokenizer.ggml.{key}")
         return int(v) if v is not None else default
 
-    scores = md.get("tokenizer.ggml.scores") or [0.0] * len(tokens)
-    unk = next((i for i, t in enumerate(ttypes) if t == _TT_UNKNOWN), 2)
-    return T5UnigramTokenizer(
-        list(zip(tokens, [float(s) for s in scores])),
-        unk_id=_id("unknown_token_id", unk),
-        eos_id=_id("eos_token_id", 1),
-        pad_id=_id("padding_token_id", 0),
-    )
+    if model in ("t5", "llama"):
+        scores = md.get("tokenizer.ggml.scores") or [0.0] * len(tokens)
+        unk = next((i for i, t in enumerate(ttypes) if t == _TT_UNKNOWN), 2)
+        return T5UnigramTokenizer(
+            list(zip(tokens, [float(s) for s in scores])),
+            unk_id=_id("unknown_token_id", unk),
+            eos_id=_id("eos_token_id", 1),
+            pad_id=_id("padding_token_id", 0),
+        )
+    if model == "gpt2":
+        merges = [tuple(m.split(" ", 1)) for m in md.get("tokenizer.ggml.merges") or []]
+        vocab = {t: i for i, t in enumerate(tokens)}
+        special = {tokens[i]: i for i, tt in enumerate(ttypes)
+                   if tt in (_TT_CONTROL, _TT_USER_DEFINED)}
+        tok = Qwen2Tokenizer(vocab, merges, special)
+        tok.eos_token_id = _id("eos_token_id", tok.eos_token_id)
+        tok.pad_token_id = _id("padding_token_id", tok.pad_token_id)
+        return tok
+    return None
 
 
 def tokenizer_from_gguf_file(path: str):

@@ -30,7 +30,7 @@ import struct
 import sys
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -40,7 +40,7 @@ from sdtpu_torch.models import clip as clip_mod
 from sdtpu_torch.models import flux as flux_mod
 from sdtpu_torch.models import t5 as t5_mod
 from sdtpu_torch.models import vae as vae_mod
-from sdtpu_torch.weights import MIN_QUANT_ELEMS, Q8_SCALE, WEIGHT_STD
+from sdtpu_torch.weights import MIN_QUANT_ELEMS, Q4_SCALE, Q8_SCALE, WEIGHT_STD
 
 # HF T5 names → llama.cpp GGUF names (the inverse of convert_gguf_t5_name)
 GGUF_T5_NAMES = (("encoder.block.", "enc.blk."), ("encoder.final_layer_norm.", "enc.output_norm."),
@@ -109,6 +109,14 @@ class _Draw:
         blocks = torch.cat([d.half().view(torch.uint8), q.view(torch.uint8)], dim=1)
         return blocks.cpu().numpy().reshape(-1)
 
+    def q4_0(self, shape) -> np.ndarray:
+        """Raw q4_0 blocks (fp16 scale, 16 bytes of nibbles) of a tensor of
+        ``shape``."""
+        nb = shape[0] * shape[1] // 32
+        nib = torch.randint(0, 256, (nb, 16), generator=self.g, device=self.device, dtype=torch.uint8)
+        d = (torch.rand((nb, 1), generator=self.g, device=self.device) * 0.5 + 0.75) * Q4_SCALE
+        return torch.cat([d.half().view(torch.uint8), nib], dim=1).cpu().numpy().reshape(-1)
+
     def dense(self, shape, init: str, dtype=torch.float32) -> torch.Tensor:
         if init == "normal" or isinstance(init, float):
             std = WEIGHT_STD if init == "normal" else init
@@ -119,14 +127,17 @@ class _Draw:
 
 
 def _gguf_from_specs(path: Path, specs: dict, draw: _Draw, min_elems: int, metadata=None,
-                     rename=lambda n: n) -> int:
-    types = {rename(n): (gguf.GGML_Q8_0 if _quantized(s, i, min_elems) else gguf.GGML_F32, s, i)
+                     rename=lambda n: n, qtype: int = gguf.GGML_Q8_0) -> int:
+    """A GGUF file of ``specs``: the tensors ``_quantized`` picks as
+    ``qtype`` blocks (q8_0 or q4_0), the rest float32 → bytes written."""
+    blocks = {gguf.GGML_Q8_0: draw.q8_0, gguf.GGML_Q4_0: draw.q4_0}[qtype]
+    types = {rename(n): (qtype if _quantized(s, i, min_elems) else gguf.GGML_F32, s, i)
              for n, (s, i) in specs.items()}
 
     def payload(name):
         t, shape, init = types[name]
-        if t == gguf.GGML_Q8_0:
-            return draw.q8_0(shape)
+        if t == qtype:
+            return blocks(shape)
         return draw.dense(shape, init).cpu().numpy().view(np.uint8).reshape(-1)
 
     return gguf.write_gguf(str(path), [(n, t, s) for n, (t, s, _) in types.items()], payload,
@@ -168,14 +179,20 @@ FILE_NAMES = {"diffusion_model": "flux1-dev-q8_0.gguf", "t5xxl": "t5xxl-q8_0.ggu
               "clip_l": "clip_l.safetensors", "vae": "ae.safetensors"}
 
 
-def expected_bytes(specs: Dict[str, dict], min_elems: int = MIN_QUANT_ELEMS) -> int:
-    """About the bytes the set takes on disk (payloads; headers aside)."""
+def expected_bytes(specs: Dict[str, dict], min_elems: int = MIN_QUANT_ELEMS,
+                   qtypes: Optional[Dict[str, int]] = None) -> int:
+    """About the bytes the set takes on disk (payloads; headers aside).
+    ``qtypes``: file → the GGUF block type of its quantized tensors (by
+    default FLUX's: the DiT and T5-XXL q8_0); CLIP-L is bf16, the rest
+    float32."""
+    qtypes = qtypes or {"diffusion_model": gguf.GGML_Q8_0, "t5xxl": gguf.GGML_Q8_0}
     total = 0
     for flag, mod in specs.items():
         for shape, init in mod.values():
             n = int(np.prod(shape))
-            if flag in ("diffusion_model", "t5xxl") and _quantized(shape, init, min_elems):
-                total += n // 32 * 34
+            if flag in qtypes and _quantized(shape, init, min_elems):
+                elems, nbytes = gguf.BLOCK_INFO[qtypes[flag]]
+                total += n // elems * nbytes
             else:
                 total += n * (2 if flag == "clip_l" else 4)
     return total

@@ -123,7 +123,7 @@ UNPORTED = [
     ["--lora-model-dir", "loras"], ["--hires-upscaler", "RealESRGAN_x4plus"],
     ["--upscale-model", "esrgan.pth"], ["--auto-fit", "8"],
     ["--sampling-method", "dpm2"], ["--schedule", "karras"], ["--fa"], ["--no-progress"],
-    ["--vae-on-cpu"], ["--control-net", "cn.safetensors"], ["--llm", "qwen.gguf"],
+    ["--vae-on-cpu"], ["--control-net", "cn.safetensors"], ["--audio-vae", "audio.gguf"],
     ["--backend", "clip=cpu,diffusion=cuda0"], ["--backend", "tpu0"], ["--dtype", "f16"],
     ["-p", "a <lora:detail:0.8> cat"], ["convert"], ["-M", "vid_gen"],
     ["--embd-dir", "embeddings"],  # textual inversion (SD1's EmbeddingMixin)

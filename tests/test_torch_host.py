@@ -341,6 +341,7 @@ def _entry_points():
         "create_pipeline": factory.create_pipeline, "DiffusionPipeline": pipeline.DiffusionPipeline,
         "FluxConditioner": conditioner.FluxConditioner,
         "SD3Conditioner": conditioner.SD3Conditioner,
+        "ZImageConditioner": conditioner.ZImageConditioner,
         "load_flux_diffusion": loader.load_flux_diffusion,
         "diffusion_to_device": loader.diffusion_to_device, "synthesize": weights.synthesize,
         "from_jax_params": weights.from_jax_params, "repack_q4": weights.repack_q4,
@@ -432,12 +433,110 @@ def test_t5_tokenizer_ids_match(t5_tokenizers, source, prompt):
 
 
 def test_gguf_vocab_other_models_give_none():
+    """No vocab, or a vocab of a model the port has no tokenizer for (a
+    BERT WordPiece), gives None, as in the JAX package; a "gpt2" byte-level
+    BPE vocab gives the Qwen2 tokenizer (``test_qwen2_tokenizer_ids_match``)."""
+    from sdtpu.tokenizers import gguf_vocab as jvocab
     from sdtpu_torch.tokenizers.gguf_vocab import tokenizer_from_gguf_metadata
+    from sdtpu_torch.tokenizers.qwen2 import Qwen2Tokenizer
 
     assert tokenizer_from_gguf_metadata({}) is None
+    md = {"tokenizer.ggml.model": "bert", "tokenizer.ggml.tokens": ["a", "b"]}
+    assert tokenizer_from_gguf_metadata(md) is None and jvocab.tokenizer_from_gguf_metadata(md) is None
     md = {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.tokens": ["a", "b"],
           "tokenizer.ggml.merges": ["a b"]}
-    assert tokenizer_from_gguf_metadata(md) is None  # byte-level BPE: not ported
+    assert isinstance(tokenizer_from_gguf_metadata(md), Qwen2Tokenizer)
+
+
+# ------------------------------------------------------- Qwen2 tokenizer
+
+QWEN_PROMPTS = T5_PROMPTS + [
+    "<|im_start|>user\na red fox in fresh snow<|im_end|>\n<|im_start|>assistant\n",
+    "it's 1234567 o'clock, we'll SEE -- café ☕\r\n\n  tabs\tand  spaces ",
+    "<|endoftext|><|im_end|>x<|vision_pad|>",
+]
+
+
+def _qwen_merges():
+    """A few byte-level merges in rank order (GPT-2's byte→unicode units, so
+    "Ġ" is a space)."""
+    return [("Ġ", "a"), ("r", "e"), ("Ġ", "re"), ("o", "x"), ("f", "ox"), ("Ġ", "fox"),
+            ("i", "n"), ("Ġ", "in"), ("s", "n"), ("o", "w"), ("sn", "ow"), ("1", "2"), ("'", "s")]
+
+
+def _qwen_sources(tmp_path):
+    """The same byte-level vocab (the 256 byte units, the merges' tokens, the
+    specials at Qwen's ids) as a tokenizer.json and a GGUF's "gpt2" metadata,
+    and the merge-free ``byte_fallback`` → {source: (port, JAX)}."""
+    import json as _json
+
+    from sdtpu.tokenizers import gguf_vocab as jvocab
+    from sdtpu.tokenizers.qwen2 import Qwen2Tokenizer as JQ
+    from sdtpu_torch.tokenizers import gguf_vocab as tvocab
+    from sdtpu_torch.tokenizers.bpe import bytes_to_unicode
+    from sdtpu_torch.tokenizers.qwen2 import Qwen2Tokenizer as TQ
+
+    merges = _qwen_merges()
+    tokens = list(bytes_to_unicode().values()) + sorted({a + b for a, b in merges})
+    special = {"<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_end|>": 151645,
+               "<|vision_pad|>": 151654}
+    tj = tmp_path / "tokenizer.json"
+    tj.write_text(_json.dumps({
+        "model": {"vocab": {t: i for i, t in enumerate(tokens)},
+                  "merges": [f"{a} {b}" for a, b in merges]},
+        "added_tokens": [{"id": i, "content": t} for t, i in special.items()]}))
+    n = 151655
+    names = tokens + [f"[PAD{i}]" for i in range(len(tokens), n)]
+    types = [1] * len(tokens) + [5] * (n - len(tokens))
+    for t, i in special.items():
+        names[i], types[i] = t, 3
+    md = {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.tokens": names,
+          "tokenizer.ggml.token_type": types, "tokenizer.ggml.merges": [f"{a} {b}" for a, b in merges],
+          "tokenizer.ggml.eos_token_id": 151645, "tokenizer.ggml.padding_token_id": 151643}
+    gg = str(tmp_path / "qwen.gguf")
+    jgguf.save_gguf(gg, {"x.weight": np.zeros(4, np.float32)}, metadata=md)
+    return {"tokenizer.json": (TQ.from_tokenizer_json(str(tj)), JQ.from_tokenizer_json(str(tj))),
+            "gguf": (tvocab.tokenizer_from_gguf_file(gg), jvocab.tokenizer_from_gguf_file(gg)),
+            "byte_fallback": (TQ.byte_fallback(), JQ.byte_fallback())}
+
+
+@pytest.fixture(scope="module")
+def qwen_tokenizers(tmp_path_factory):
+    return _qwen_sources(tmp_path_factory.mktemp("qwentok"))
+
+
+@pytest.mark.parametrize("source", ["tokenizer.json", "gguf", "byte_fallback"])
+@pytest.mark.parametrize("prompt", QWEN_PROMPTS, ids=[f"prompt{i}" for i in range(len(QWEN_PROMPTS))])
+def test_qwen2_tokenizer_ids_match(qwen_tokenizers, source, prompt):
+    tok, jtok = qwen_tokenizers[source]
+    assert type(tok).__module__ == "sdtpu_torch.tokenizers.qwen2"
+    ids = tok.encode(prompt)
+    assert ids == jtok.encode(prompt) and bool(ids) == bool(prompt)
+    assert (tok.eos_token_id, tok.pad_token_id) == (jtok.eos_token_id, jtok.pad_token_id) == (151645, 151643)
+
+
+def test_qwen2_merges_apply(qwen_tokenizers):
+    """The merges of the tokenizer.json and the GGUF take effect ("Ġfox"
+    one id) where the byte fallback spells the bytes out."""
+    text = " fox"
+    merged = qwen_tokenizers["tokenizer.json"][0].encode(text)
+    assert merged == qwen_tokenizers["gguf"][0].encode(text) and len(merged) == 1
+    assert len(qwen_tokenizers["byte_fallback"][0].encode(text)) == 4
+
+
+def test_z_image_file_vocab_is_the_byte_fallback():
+    """``tools/z_image_file.py``'s "gpt2" vocab tokenizes as
+    ``Qwen2Tokenizer.byte_fallback`` in both packages."""
+    from sdtpu.tokenizers import gguf_vocab as jvocab
+    from sdtpu_torch.tokenizers import gguf_vocab as tvocab
+    from sdtpu_torch.tokenizers.qwen2 import Qwen2Tokenizer
+    from sdtpu_torch.tools.z_image_file import qwen_byte_vocab
+
+    md = qwen_byte_vocab(151936)
+    text = "<|im_start|>user\na lighthouse, 12 o'clock<|im_end|>\n"
+    want = Qwen2Tokenizer.byte_fallback().encode(text)
+    assert tvocab.tokenizer_from_gguf_metadata(md).encode(text) == want
+    assert jvocab.tokenizer_from_gguf_metadata(md).encode(text) == want
 
 
 # ------------------------------------------------------ names, bundles
@@ -462,6 +561,55 @@ def test_canonicalize_name_matches(name):
 
     assert tml.canonicalize_name(name) == jnc.canonicalize_name(name)
     assert tml.convert_diffusers_vae_name(name) == jnc.convert_diffusers_vae_name(name)
+
+
+LLM_GGUF_NAMES = ["token_embd.weight", "output_norm.weight", "blk.0.attn_q.weight",
+                  "blk.3.attn_k.bias", "blk.35.attn_v.weight", "blk.1.attn_output.weight",
+                  "blk.2.attn_q_norm.weight", "blk.2.attn_k_norm.weight", "blk.7.attn_norm.weight",
+                  "blk.7.ffn_norm.weight", "blk.4.ffn_gate.weight", "blk.4.ffn_up.weight",
+                  "blk.4.ffn_down.weight", "blk.10.attn_q.bias", "blk.12.attn_v.bias"]
+
+
+@pytest.mark.parametrize("name", LLM_GGUF_NAMES)
+def test_gguf_llm_names_match(name):
+    """llama.cpp GGUF LLM names → HF names, as the JAX loader maps them; the
+    Z-Image file tool's names map back to HF ones."""
+    from sdtpu.io.name_conversion import convert_gguf_llm_name as jconv
+    from sdtpu_torch.io.model_loader import convert_gguf_llm_name
+    from sdtpu_torch.tools.z_image_file import gguf_llm_name
+
+    hf = convert_gguf_llm_name(name)
+    assert hf == jconv(name)
+    assert gguf_llm_name(hf) == name
+
+
+def test_llm_bundle_matches_jax(tmp_path):
+    """A Z-Image set (a DiT with ``cap_embedder``, a Qwen3 GGUF under
+    llama.cpp names, a VAE) loads into the same modules in both packages."""
+    from sdtpu_torch.io.model_loader import load_model_bundle as tload
+
+    g = np.random.default_rng(0)
+    dit = {"cap_embedder.0.weight": g.standard_normal(32).astype(np.float32),
+           "layers.0.attention.qkv.weight": g.standard_normal((96, 32)).astype(np.float32)}
+    llm = {"token_embd.weight": g.standard_normal((300, 64)).astype(np.float32),
+           "blk.0.attn_q.weight": g.standard_normal((64, 64)).astype(np.float32),
+           "blk.0.attn_q_norm.weight": g.standard_normal(8).astype(np.float32),
+           "output_norm.weight": g.standard_normal(64).astype(np.float32)}
+    vae = {"decoder.conv_in.weight": g.standard_normal((8, 4, 3, 3)).astype(np.float32)}
+    paths = {k: str(tmp_path / f"{k}.{ext}") for k, ext in (("dit", "safetensors"), ("llm", "gguf"),
+                                                             ("vae", "safetensors"))}
+    save_safetensors(paths["dit"], dit)
+    jgguf.save_gguf(paths["llm"], llm, out_type="q8_0")
+    save_safetensors(paths["vae"], vae)
+    kw = dict(diffusion_model_path=paths["dit"], llm_path=paths["llm"], vae_path=paths["vae"])
+    got, want = tload(**kw), jax_load_model_bundle(**kw)
+    assert got.version.value == want.version.value == "z_image"
+    for m in ("diffusion", "llm", "vae"):
+        g_, w_ = getattr(got, m), getattr(want, m)
+        assert sorted(g_) == sorted(w_), m
+        for k in w_:
+            np.testing.assert_array_equal(np.asarray(g_[k], np.float32), np.asarray(w_[k], np.float32),
+                                          err_msg=f"{m}.{k}")
 
 
 @pytest.mark.parametrize("name", ["enc.blk.3.attn_rel_b.weight", "enc.blk.0.ffn_gate.weight",
