@@ -47,7 +47,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (the joint attention over 64 + 4096 = 4160 tokens at B = 1 and, under
      CFG, B = 2; the noise refiner's 4096; the context refiner's 64; in
      float32 the 512² joint 1088 and the 64; the ragged and short ones with
-     q around +1 and k around -1); the 4-bit matmul at Qwen3-4B's five
+     q around +1 and k around -1); at Qwen-Image's D 128 shapes (the joint
+     attention over 164 + 4096 = 4260 tokens under CFG, ragged, q around +1
+     and k around -1; float32 the 512² joint 1188); the 4-bit matmul at
+     Qwen2.5-VL-7B's four shapes over a Qwen-Image prompt's 198 byte-level
+     ids (group 64, bf16 wgmma and float32) and at the q4_0 file DiT's six
+     group-32 shapes at 1024² under CFG; the 4-bit matmul at Qwen3-4B's five
      shapes over a Z-Image prompt's 55 tokens (group 64, bf16 split-K and
      float32) and at UMT5-XXL's three shapes
      over Wan's 512 tokens (group 64, bf16 wgmma and float32) and at
@@ -196,6 +201,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      245 a prompt encode (bf16: its split-K form at the prompt's 55 rows;
      float32: its float32 form), no W8A8 launch, and on the card no
      attention runs in the plain version but Qwen3's 35 a prompt encode.
+ 10e''. Qwen-Image at full width (``create_pipeline(SDVersion.QWEN_IMAGE,
+     dtype=torch.bfloat16, qwen_tokenizer=Qwen2Tokenizer.byte_fallback())``:
+     the DiT (20.4e9 parameters) and the Wan VAE dense, Qwen2.5-VL-7B packed
+     4-bit, the LLM held to be Qwen2.5-VL-7B): path ``qwen_image`` answers
+     1024² x 8 euler steps at CFG 2.5 with a shorter negative prompt (its
+     context zero-padded for the CFG batch) to warm up, timed, and with a
+     fresh prompt; then holds one full-width DiT forward against the same
+     forward with every attention in the plain version (REF_REL_TOL); path
+     ``qwen_image_img2img`` answers a 1024² init image through the Wan
+     VAE's encoder (one frame), 3 of 4 steps at 0.6, then masked (the kept half
+     of the final latent the init image's encode within MASK_KEEP_TOL);
+     then, the DiT quantized per row in place (``--type q8_0``'s rule), one
+     forward on the prompt's first 64 context rows through W8A8 against
+     plain quantized linears at relative L2 0 with its GEMV / split-K /
+     wgmma counts (``qwen_image_w8a8_forms``); path ``qwen_image_f32`` (no
+     dtype argument: float32) answers 512² x 2 on the DiT cut to
+     ``QWEN_IMAGE_F32_LAYERS`` blocks.  On each, flash at D 128 launches 60
+     a forward (2 on the cut DiT), nothing else of flash (the Wan VAE's
+     attention is plain float32), the 4-bit matmul 196 a prompt encode in
+     the form its byte-level id count selects (wgmma; float32: its float32
+     form), no W8A8 launch, and on the card no attention runs in the plain
+     version but Qwen2.5-VL's 28 a prompt encode.
  10f. img2img, masked img2img and the latent hires fix, each in its launch
      window on a pipeline of the paths above, from a 1024² (512² on SD1.5)
      init image drawn from ``IMG2IMG_SEED`` and a mask whose right half
@@ -290,7 +317,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (path ``z_image_server``), each with the launch checks of 10e' but
      Qwen3 dequantized (no 4-bit call) and the DiT's q8_0 promoted onto
      W8A8: ``Z_IMAGE_W8A8_PER_FORWARD`` a forward in the GEMV, split-K and
-     wgmma forms.  Then SD2.1 on a file
+     wgmma forms.  Then Qwen-Image on files: ``sdtpu_torch.tools.
+     qwen_image_file`` writes the DiT as a q4_0 GGUF, Qwen2.5-VL-7B as a
+     q4_0 GGUF under llama.cpp names with a "gpt2" vocab and the Wan VAE with
+     its encoder; ``cli.main --diffusion-model ... --llm ... --vae ... -i
+     init.png --strength 0.6`` answers 1024² x 4 euler steps (the last 3
+     sampled) at CFG 2.5 with a negative prompt to a PNG, read back in
+     metadata mode (path ``qwen_image_cli``), and the server, loaded from
+     the same files, the A1111 txt2img request (``qwen_image_server``) and
+     an img2img one at 0.6 under another prompt
+     (``qwen_image_server_img2img``): one load for each entry point; each
+     with the launch checks of 10e''
+     but Qwen2.5-VL dequantized (no 4-bit call from it) and the DiT in its
+     q4_0 blocks: ``qwen_image_file_forms`` a forward (the 4-bit GEMV at the
+     modulation's two rows, wgmma at both streams, ``img_in`` through
+     ``gq_matmul_ws``).  Then SD2.1 on a file
      (``tools/sd2_file.py``: OpenCLIP-H under ``cond_stage_model.model.``,
      24 resblocks): ``cli.main -m ... --prediction v --sampling-method heun``
      answers 768² x 8 steps (path ``sd2_cli``); the SD1.5-inpainting file
@@ -536,6 +577,21 @@ Z_IMAGE_ATTENTION_CALLS = 2 + 2 + 30
 # prompt's rows: the 4-bit matmul's split-K form
 Z_IMAGE_LLM_LAYERS = 35
 Z_IMAGE_LLM_LINEARS = 7 * Z_IMAGE_LLM_LAYERS
+# Qwen-Image at 1024² (24 heads of 128): the 60 blocks' joint attention over
+# the context and the image's 4096 tokens under CFG (B = 2).  With
+# byte-level ids the chat template's system prefix is about 150 ids, so
+# after the template's 34-id drop QWEN_IMAGE_REQUEST's prompt leaves 164
+# context rows: 4260 = 33 x 128 + 36, ragged on the last tile; the float32
+# path's 512² joint 164 + 1024 = 1188.
+QWEN_IMAGE_FLASH_CASES = [(2, 24, 4260, 4260, 128, "bf16", "neg_scores"),
+                          (2, 24, 1188, 1188, 128, "f32", "neg_scores")]
+FLASH_CASES += QWEN_IMAGE_FLASH_CASES
+QWEN_IMAGE_ATTENTION_CALLS = 60
+# Qwen2.5-VL-7B's 28 layers a Qwen-Image prompt encode runs (to the final
+# norm), each one causal attention on the plain path, as the JAX package
+# runs it, and 7 linears at the prompt's ids
+QWEN_IMAGE_LLM_LAYERS = 28
+QWEN_IMAGE_LLM_LINEARS = 7 * QWEN_IMAGE_LLM_LAYERS
 # UMT5-XXL linears of one Wan prompt encode (q, k, v, o, wi_0, wi_1, wo in
 # each of 24 blocks, over 512 tokens: the 4-bit matmul's wgmma form)
 WAN_T5_LINEARS = 7 * 24
@@ -603,10 +659,20 @@ Q4_WAN_T5_SHAPES = [(512, 4096, 4096), (512, 4096, 10240), (512, 10240, 4096)]
 # synthesized LLM's group 64: the bf16 split-K form and the float32 form
 Q4_Z_IMAGE_LLM_SHAPES = [(55, 2560, 4096), (55, 2560, 1024), (55, 4096, 2560), (55, 2560, 9728),
                          (55, 9728, 2560)]
+# Qwen2.5-VL-7B over a Qwen-Image prompt's 198 byte-level ids (the chat
+# template around a 36-byte prompt): q / o, k / v, gate / up, down at the
+# synthesized LLM's group 64: the bf16 wgmma form and the float32 form; and
+# the q4_0 file DiT's group-32 linears at 1024² under CFG: the image
+# stream's 8192 rows (attention 3072->3072, MLP 3072->12288, 12288->3072),
+# proj_out 3072->64), the text stream's 328 (2 x 164; txt_in 3584->3072)
+Q4_QWEN_LLM_SHAPES = [(198, 3584, 3584), (198, 3584, 512), (198, 3584, 18944), (198, 18944, 3584)]
+Q4_QWEN_DIT_SHAPES = [(8192, 3072, 3072), (8192, 3072, 12288), (8192, 12288, 3072),
+                      (8192, 3072, 64), (328, 3584, 3072), (328, 3072, 12288)]
 Q4_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES] + [(*s, 32) for s in Q4_DIT_SHAPES]
             + [(s, 3072, n, g) for g in (16, 64) for s, n in ((4352, 12288), (1, 18432))]
             + Q4_SD3_CASES + [(m, 4096, 4096, 64) for m in (16, 64, 100)] + [(77, 4096, 4096, 16)]
-            + [(*s, 64) for s in Q4_WAN_T5_SHAPES] + [(*s, 64) for s in Q4_Z_IMAGE_LLM_SHAPES])
+            + [(*s, 64) for s in Q4_WAN_T5_SHAPES] + [(*s, 64) for s in Q4_Z_IMAGE_LLM_SHAPES]
+            + [(*s, 64) for s in Q4_QWEN_LLM_SHAPES] + [(*s, 32) for s in Q4_QWEN_DIT_SHAPES])
 # the float32 form (the default pipeline's T5-XXL): T5's shapes at groups 64,
 # 32 and 16, a 4096-wide T5 linear at M = 1, 9 and 128 (the bf16 forms'
 # rows: GEMV, split-K, wgmma), and a q4_0 DiT linear at 1024² kept at the
@@ -615,7 +681,8 @@ Q4_F32_CASES = ([(*s, g) for g in (64, 32, 16) for s in Q4_T5_SHAPES]
                 + [(m, 4096, 4096, 64) for m in (1, 9, 128)]
                 + [(4352, 3072, 12288, g) for g in (32, 16)] + Q4_SD3_CASES
                 + [(*s, 64) for s in Q4_WAN_T5_SHAPES]
-                + [(*s, 64) for s in Q4_Z_IMAGE_LLM_SHAPES])
+                + [(*s, 64) for s in Q4_Z_IMAGE_LLM_SHAPES]
+                + [(*s, 64) for s in Q4_QWEN_LLM_SHAPES])
 # W8A16's float32 form (the default pipeline under SDTPU_QUANT_MODE=w8a16):
 # a modulation linear (M = 1), the bf16 forms' first mma.sync and wgmma rows,
 # the 1024² request's 4352 tokens, its long-K widths (MLP out, linear2: where
@@ -892,10 +959,27 @@ for _path in ("z_image_cli", "z_image_server"):
     PATH_IDLE[_path] = (*(k for k in QUANT_KERNELS if k not in INT8_KERNELS["w8a8_matmul"]),
                         *Q4_BF16_FORMS, *F32_FORMS, *UNET_FLASH, "flash_attention_d64")
 PATH_KERNELS["z_image_f32"] = ("flash_attention", "flash_attention_f32", "q4_matmul", "q4_matmul_f32")
+# Qwen-Image (a dense DiT, a 4-bit Qwen2.5-VL-7B, the Wan VAE, whose
+# attention is plain float32): flash at D 128, the 4-bit matmul in its wgmma
+# form (the prompts' 150-odd byte-level ids); on the entry paths Qwen2.5-VL
+# dequantized and the DiT a q4_0 file in its blocks: the 4-bit GEMV at the
+# modulation's two rows, wgmma at both streams, ``img_in`` (K 64) in
+# group-32 int8 blocks through ``gq_matmul_ws``
+for _path in ("qwen_image", "qwen_image_img2img"):
+    PATH_KERNELS[_path] = ("flash_attention", "q4_matmul", "q4_matmul_wgmma")
+    PATH_IDLE[_path] = (*OTHER_QUANT, "q4_matmul_gemv", "q4_matmul_splitk", *F32_FORMS, *UNET_FLASH,
+                        "flash_attention_d64", "flash_attention_d512")
+for _path in ("qwen_image_cli", "qwen_image_server", "qwen_image_server_img2img"):
+    PATH_KERNELS[_path] = ("flash_attention", "q4_matmul", "q4_matmul_gemv", "q4_matmul_wgmma",
+                           "gq_matmul_ws")
+    PATH_IDLE[_path] = (*INT8_KERNELS["w8a8_matmul"], "gq_matmul", "gq_zero_matmul", "w8a16_matmul",
+                        "q4_matmul_splitk", *F32_FORMS, *UNET_FLASH, "flash_attention_d64",
+                        "flash_attention_d512")
+PATH_KERNELS["qwen_image_f32"] = PATH_KERNELS["z_image_f32"]
 PATH_IDLE["wan_f32"] = (*OTHER_QUANT, *Q4_BF16_FORMS, *UNET_FLASH, "flash_attention_d64",
                         "flash_attention_d512", "w8a16_matmul_f32", "gq_matmul_f32",
                         "gq_zero_matmul_f32")
-PATH_IDLE["z_image_f32"] = PATH_IDLE["wan_f32"]
+PATH_IDLE["z_image_f32"] = PATH_IDLE["qwen_image_f32"] = PATH_IDLE["wan_f32"]
 # img2img, masked img2img and the hires fix run each family's kernels as its
 # txt2img path does; the encoder's mid-block attention is flash D 512, as the
 # decoder's
@@ -921,6 +1005,8 @@ PATH_IDLE["sd2_f32"] = PATH_IDLE["sdxl_f32"]
 F32_PATHS = {"sd2_f32": (("flash_attention", "flash_attention_f32"),),
              "z_image_f32": (("flash_attention", "flash_attention_f32"),
                              ("q4_matmul", "q4_matmul_f32")),
+             "qwen_image_f32": (("flash_attention", "flash_attention_f32"),
+                                ("q4_matmul", "q4_matmul_f32")),
              "wan_f32": (("flash_attention", "flash_attention_f32"),
                          ("q4_matmul", "q4_matmul_f32")),
              "sd3_f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
@@ -3591,20 +3677,20 @@ Z_IMAGE_W8A8_PER_FORWARD = {"w8a8_matmul_gemv": 2 + 30 + 1, "w8a8_matmul_splitk"
                             "w8a8_matmul_wgmma": 2 * 5 + 30 * 5 + 1}
 
 
-def _check_z_image_launches(path: str, counts: dict, forwards: int, encodes: int, decodes: int,
-                            plain: dict, calls: int = Z_IMAGE_ATTENTION_CALLS, f32: bool = False,
-                            llm_q4: bool = True, w8a8: bool = False) -> dict:
-    """Flash at D 128 (bf16, or float32) launched exactly ``calls`` a DiT
-    forward times the forwards, the VAE's D 512 once a decode, no other
-    flash; the 4-bit matmul ``Z_IMAGE_LLM_LINEARS`` times a prompt encode in
-    the path's form (bf16 split-K at the prompt's rows, or float32), none
-    where Qwen3 was dequantized (``llm_q4`` False: the entry points); with
-    ``w8a8`` the promoted DiT's ``Z_IMAGE_W8A8_PER_FORWARD`` a forward, else
-    no W8A8 launch; on the card no attention in the plain version but the
-    LLM's ``Z_IMAGE_LLM_LAYERS`` a prompt encode."""
+def _check_dit_launches(path: str, counts: dict, plain: dict, forwards: int, calls: int,
+                        encodes: int, llm_layers: int, forms: dict, decodes: int = 0,
+                        f32: bool = False) -> dict:
+    """A DiT path's launches (Z-Image's and Qwen-Image's): flash at D 128
+    (bf16, or float32) exactly ``calls`` a DiT forward times the forwards,
+    and once a decode where the VAE's attention runs through
+    ``ops.attention`` (the FLUX VAE's D 512; the Wan VAE's is plain float32
+    outside it, so ``decodes`` 0), no other flash; each quantized-matmul
+    counter of ``forms`` exactly its count over the path, and the 4-bit and
+    W8A8 totals the sums of their forms there (0 where ``forms`` names
+    none); on the card no attention in the plain version but the LLM's
+    ``llm_layers`` a prompt encode."""
     d128 = calls * forwards
-    q4 = Z_IMAGE_LLM_LINEARS * encodes if llm_q4 else 0
-    if f32:  # every flash launch float32, the VAE's D 512 among them
+    if f32:  # every flash launch float32, a VAE's D 512 among them
         got = {"flash_f32": counts["flash_attention_f32"],
                "flash_bf16": counts["flash_attention"] - counts["flash_attention_f32"]}
         want = {"flash_f32": d128 + decodes, "flash_bf16": 0}
@@ -3614,12 +3700,12 @@ def _check_z_image_launches(path: str, counts: dict, forwards: int, encodes: int
                - sum(counts[k] for k in other),
                "flash_d512": counts["flash_attention_d512"], "flash_other": sum(counts[k] for k in other)}
         want = {"flash_d128": d128, "flash_d512": decodes, "flash_other": 0}
-    got.update(q4_llm=counts["q4_matmul_f32" if f32 else "q4_matmul_splitk"], q4_all=counts["q4_matmul"],
-               plain_attention_on_card_besides_llm=plain["calls"] - Z_IMAGE_LLM_LAYERS * encodes)
-    want.update(q4_llm=q4, q4_all=q4, plain_attention_on_card_besides_llm=0)
-    per = Z_IMAGE_W8A8_PER_FORWARD if w8a8 else dict.fromkeys(Z_IMAGE_W8A8_PER_FORWARD, 0)
-    got.update({n: counts[n] for n in per}, w8a8_all=counts["w8a8_matmul"])
-    want.update({n: c * forwards for n, c in per.items()}, w8a8_all=sum(per.values()) * forwards)
+    got.update({n: counts[n] for n in forms}, q4_all=counts["q4_matmul"],
+               w8a8_all=counts["w8a8_matmul"],
+               plain_attention_on_card_besides_llm=plain["calls"] - llm_layers * encodes)
+    want.update(forms, q4_all=sum(c for n, c in forms.items() if n.startswith("q4_")),
+                w8a8_all=sum(c for n, c in forms.items() if n.startswith("w8a8_")),
+                plain_attention_on_card_besides_llm=0)
     if got != want:
         raise RuntimeError(f"path {path}: launches {got}, not {want} ({forwards} DiT forwards of "
                            f"{calls} attentions, {encodes} prompt encodes, {decodes} decodes)")
@@ -3676,12 +3762,12 @@ def build_z_image_pipeline(card: str, default_dtype: bool = False):
                   "weight_bytes": wb}
 
 
-def z_image_forward_plain_check(pipe, cond) -> dict:
+def dit_forward_plain_check(pipe, cond, label: str) -> dict:
     """One full-width DiT forward of a 1024² latent (B = 1) on the prompt's
     context through the kernels, against the same forward with every
     attention in the plain version (``flash_supported`` refused), held at
     REF_REL_TOL (relative L2: both sides bf16, flash against the plain
-    softmax); both finite."""
+    softmax); both finite.  (Z-Image's and Qwen-Image's.)"""
     import importlib
 
     import torch
@@ -3703,9 +3789,9 @@ def z_image_forward_plain_check(pipe, cond) -> dict:
     ok = bool(torch.isfinite(got).all() and torch.isfinite(want).all() and rel <= REF_REL_TOL)
     out = {"rel_l2": rel, "tol": REF_REL_TOL, "ok": ok, "shape": list(got.shape),
            "context_tokens": cond.shape[1]}
-    print("z_image_forward_plain " + json.dumps(out), flush=True)
+    print(f"{label}_forward_plain " + json.dumps(out), flush=True)
     if not ok:
-        raise RuntimeError(f"the full-width Z-Image forward with flash is {rel:.4g} from the plain one")
+        raise RuntimeError(f"the full-width {label} forward with flash is {rel:.4g} from the plain one")
     return out
 
 
@@ -3716,25 +3802,24 @@ def z_image_forward_plain_check(pipe, cond) -> dict:
 Z_IMAGE_EMBEDDER_W8A8 = {"w8a8_matmul_gemv": 2, "w8a8_matmul_splitk": 1, "w8a8_matmul_wgmma": 1}
 
 
-def z_image_w8a8_forward_check(wrappers, pipe, cond) -> dict:
+def dit_w8a8_forward_check(wrappers, pipe, cond, label: str, want_launches: dict) -> dict:
     """The DiT's weights quantized per row on the card (``quantize_params``,
-    as ``--type q8_0`` does: the promoted file set's W8A8 linears and the
-    embedders besides), then one full-width forward of a 1024² latent (B =
-    1) on the prompt's context through the W8A8 kernels, against the same
-    forward with every quantized linear in its plain version
-    (``plain_quant_linears``): relative L2 exactly 0 (each W8A8 call
-    bit-equal), both finite, the W8A8 forms launched exactly
-    Z_IMAGE_W8A8_PER_FORWARD + Z_IMAGE_EMBEDDER_W8A8 times.  The fault, the
-    plain side with the last K split dropped in the split-K calls (the
-    prompt's rows), must read above the limit."""
+    as ``--type q8_0`` does; weights already quantized in place, as
+    Qwen-Image's are, pass through it as they are), then one
+    full-width forward of a 1024² latent (B = 1) on the context ``cond``
+    through the W8A8 kernels, against the same forward with every quantized
+    linear in its plain version (``plain_quant_linears``): relative L2
+    exactly 0 (each W8A8 call bit-equal), both finite, the W8A8 forms
+    launched exactly ``want_launches`` times.  The fault, the plain side
+    with the last K split dropped in the split-K calls (the context's rows),
+    must read above the limit.  (Z-Image's and Qwen-Image's.)"""
     import torch
 
     from sdtpu_torch.ops import quant
 
     def counts():
-        return {n: getattr(*wrappers[n]) for n in Z_IMAGE_W8A8_PER_FORWARD}
+        return {n: getattr(*wrappers[n]) for n in want_launches}
 
-    want_launches = {n: c + Z_IMAGE_EMBEDDER_W8A8[n] for n, c in Z_IMAGE_W8A8_PER_FORWARD.items()}
     g = torch.Generator(device=DEVICE).manual_seed(29)
     x = torch.randn((1, 128, 128, pipe.latent_channels), generator=g, device=DEVICE,
                     dtype=pipe.compute_dtype)
@@ -3760,9 +3845,9 @@ def z_image_w8a8_forward_check(wrappers, pipe, cond) -> dict:
               and ran == want_launches)
     out = {"rel_l2": rel, "tol": 0.0, "drop_k_split": fault, "w8a8_launches": ran, "ok": ok,
            "shape": list(got.shape), "context_tokens": cond.shape[1]}
-    print("z_image_w8a8_forward_plain " + json.dumps(out), flush=True)
+    print(f"{label}_w8a8_forward_plain " + json.dumps(out), flush=True)
     if not ok:
-        raise RuntimeError(f"the full-width Z-Image forward through W8A8 is {rel:.4g} from the one "
+        raise RuntimeError(f"the full-width {label} forward through W8A8 is {rel:.4g} from the one "
                            f"with plain quantized linears (limit 0; the dropped split reads "
                            f"{fault:.4g}); W8A8 launches {ran}, not {want_launches}")
     return out
@@ -3784,15 +3869,20 @@ def z_image_paths(wrappers, card: str, launches: dict, profile=None):
         with plain_attention_on_card() as plain:
             rep, launches[label] = _windowed(wrappers, label,
                                              lambda: answer(pipe, requests, card, label))
-        info.update(_check_z_image_launches(
-            label, launches[label], *_forwards_and_encodes(requests), len(requests), plain,
-            calls=4 + Z_IMAGE_F32_LAYERS if f32 else Z_IMAGE_ATTENTION_CALLS, f32=f32))
+        forwards, encodes = _forwards_and_encodes(requests)
+        info.update(_check_dit_launches(
+            label, launches[label], plain, forwards,
+            4 + Z_IMAGE_F32_LAYERS if f32 else Z_IMAGE_ATTENTION_CALLS, encodes, Z_IMAGE_LLM_LAYERS,
+            {"q4_matmul_f32" if f32 else "q4_matmul_splitk": Z_IMAGE_LLM_LINEARS * encodes},
+            decodes=len(requests), f32=f32))
         reports += rep
         if not f32:
             with torch.inference_mode():
                 cond = pipe.conditioner.get_learned_condition(Z_IMAGE_REQUEST["prompt"]).c_crossattn
-            extra["forward_plain"] = z_image_forward_plain_check(pipe, cond)
-            extra["w8a8_forward_plain"] = z_image_w8a8_forward_check(wrappers, pipe, cond)
+            extra["forward_plain"] = dit_forward_plain_check(pipe, cond, "z_image")
+            extra["w8a8_forward_plain"] = dit_w8a8_forward_check(
+                wrappers, pipe, cond, "z_image",
+                {n: c + Z_IMAGE_EMBEDDER_W8A8[n] for n, c in Z_IMAGE_W8A8_PER_FORWARD.items()})
             del cond
             if profile:
                 prof[label] = profile_request(pipe, Z_IMAGE_REQUEST, profile, label, card)
@@ -3830,13 +3920,369 @@ def z_image_entry_check(wrappers, card: str) -> tuple:
         return ["--diffusion-model", paths["diffusion_model"], "--llm", paths["llm"], "--vae",
                 paths["vae"]]
 
-    counts_of = (*_forwards_and_encodes([Z_IMAGE_CLI_REQUEST]), 1)
+    # Qwen3 dequantized (no 4-bit call), the DiT promoted onto W8A8
+    forwards, encodes = _forwards_and_encodes([Z_IMAGE_CLI_REQUEST])
+    w8a8 = {n: c * forwards for n, c in Z_IMAGE_W8A8_PER_FORWARD.items()}
     return _file_entry_check(
         wrappers, card, "z_image", lambda tmp: write_z_image_files(tmp, device=DEVICE), file_args,
         Z_IMAGE_CLI_ARGV, Z_IMAGE_SERVER_BODY,
-        lambda path, counts, plain: _check_z_image_launches(path, counts, *counts_of, plain,
-                                                            llm_q4=False, w8a8=True),
+        lambda path, counts, plain: _check_dit_launches(
+            path, counts, plain, forwards, Z_IMAGE_ATTENTION_CALLS, encodes, Z_IMAGE_LLM_LAYERS,
+            w8a8, decodes=1),
         "euler", (1024, 1024), load_check, request=Z_IMAGE_CLI_REQUEST)
+
+
+# Qwen-Image at 1024², as stable-diffusion.cpp's docs run it (euler, CFG
+# 2.5, flow shift 3), its 20 steps cut to 8, with a negative prompt whose
+# context is shorter than the prompt's (147 rows against 164) and is
+# zero-padded to it for the CFG batch of two: warm-up, timed, then a fresh
+# prompt.  The default dtype (float32) answers 512² x 2 on the DiT cut to
+# QWEN_IMAGE_F32_LAYERS blocks (every width full; 60 float32 blocks would
+# be 81.7e9 bytes).  img2img: a 1024² init image drawn from IMG2IMG_SEED, 4
+# steps at QWEN_IMAGE_STRENGTH, then with a mask whose right half
+# regenerates.  img2img runs at strength 0.6 (the last 3 of 4 steps): at
+# 0.75 the reference keeps every step, and the flow schedule's first sigma,
+# 1, leaves nothing of the init image but through a mask.
+QWEN_IMAGE_REQUEST = dict(prompt="a red fox in fresh snow, golden hour",
+                          negative_prompt="blurry, low quality", width=1024, height=1024,
+                          sample_steps=8, cfg_scale=2.5, seed=42, sample_method="euler")
+QWEN_IMAGE_REQUESTS = [QWEN_IMAGE_REQUEST, QWEN_IMAGE_REQUEST,
+                       dict(QWEN_IMAGE_REQUEST, prompt="a lighthouse on a cliff above a stormy sea",
+                            seed=7)]
+QWEN_IMAGE_F32_REQUESTS = [dict(QWEN_IMAGE_REQUEST, width=512, height=512, sample_steps=2)]
+QWEN_IMAGE_F32_LAYERS = 2
+QWEN_IMAGE_STRENGTH = 0.6
+QWEN_IMAGE_IMG2IMG_REQUEST = dict(QWEN_IMAGE_REQUEST, prompt="a harbour at dawn, oil on canvas",
+                                  sample_steps=4, strength=QWEN_IMAGE_STRENGTH, seed=5)
+# the W8A8 forward check's context: the prompt's first 64 rows, so the text
+# stream's linears run the split-K form (9-127 rows) beside the GEMV (the
+# modulation's one row) and the wgmma form (the image's 4096)
+QWEN_IMAGE_W8A8_CONTEXT = 64
+
+
+def qwen_image_linear_rows(name: str, batch: int, lt: int, n_img: int = 4096) -> int:
+    """The rows x has at a Qwen-Image DiT linear named ``name`` in one
+    forward of ``batch`` latents of ``n_img`` patches over ``lt`` context
+    rows: the modulation (``img_mod``, ``txt_mod``, ``norm_out``) and the
+    timestep embedder take one row a latent, the text stream (``txt_in``,
+    ``add_*``, ``to_add_out``, ``txt_mlp``) ``lt``, the image stream (the
+    rest) ``n_img``."""
+    if any(s in name for s in ("img_mod", "txt_mod", "norm_out", "time_text_embed")):
+        return batch
+    if any(s in name for s in ("txt_in", ".add_", "to_add_out", "txt_mlp")):
+        return batch * lt
+    return batch * n_img
+
+
+def qwen_image_file_weight(name: str, shape) -> str:
+    """What a weight of ``tools/qwen_image_file.py``'s DiT is on the card:
+    "q4" (``Q4Tensor``: a q4_0 tensor, K >= ``Q4_MIN_K``), "gq"
+    (``GroupQuantTensor``: q4_0 at a smaller K, ``img_in``'s 64) or "dense"
+    (under 2**16 elements, K not a multiple of 32, a bias or norm, or named
+    "embed" or "norm": the loader keeps those dense, as the JAX loader)."""
+    from sdtpu_torch.ops.quant import Q4_MIN_K
+    from sdtpu_torch.weights import MIN_QUANT_ELEMS
+
+    if (len(shape) != 2 or shape[0] * shape[1] < MIN_QUANT_ELEMS or shape[1] % 32
+            or not name.endswith(".weight") or "embed" in name or "norm" in name):
+        return "dense"
+    return "q4" if shape[1] >= Q4_MIN_K else "gq"
+
+
+def _form(m: int) -> str:
+    """The bf16 form a quantized matmul of ``m`` rows runs."""
+    return "gemv" if m <= 8 else "splitk" if m < 128 else "wgmma"
+
+
+def qwen_image_file_forms(batch: int, lt: int, n_img: int = 4096) -> dict:
+    """Launches of one forward of the q4_0 file DiT, by counter: the 4-bit
+    matmul's GEMV, split-K and wgmma forms at the rows
+    ``qwen_image_linear_rows`` gives, and ``img_in``'s group-dequant call
+    (``gq_matmul_ws`` at 512 rows or more)."""
+    from sdtpu_torch.models import qwen_image as qi_mod
+
+    out = dict.fromkeys(("q4_matmul_gemv", "q4_matmul_splitk", "q4_matmul_wgmma", "gq_matmul",
+                         "gq_matmul_ws"), 0)
+    for name, (shape, _) in qi_mod.param_specs(qi_mod.QWEN_IMAGE_CONFIG).items():
+        kind, m = qwen_image_file_weight(name, shape), qwen_image_linear_rows(name, batch, lt, n_img)
+        if kind == "q4":
+            out[f"q4_matmul_{_form(m)}"] += 1
+        elif kind == "gq":
+            out["gq_matmul_ws" if m >= 512 else "gq_matmul"] += 1
+    return out
+
+
+def qwen_image_w8a8_forms(batch: int, lt: int, n_img: int = 4096) -> dict:
+    """W8A8 launches of one forward of the DiT quantized per row by
+    ``quantize_params`` (every 2-D weight of 2**16 elements or more, the
+    embedders too), by form."""
+    from sdtpu_torch.models import qwen_image as qi_mod
+    from sdtpu_torch.ops.quant import QUANTIZE_MIN_SIZE
+
+    out = dict.fromkeys(("w8a8_matmul_gemv", "w8a8_matmul_splitk", "w8a8_matmul_wgmma"), 0)
+    for name, (shape, _) in qi_mod.param_specs(qi_mod.QWEN_IMAGE_CONFIG).items():
+        if len(shape) == 2 and shape[0] * shape[1] >= QUANTIZE_MIN_SIZE:
+            out[f"w8a8_matmul_{_form(qwen_image_linear_rows(name, batch, lt, n_img))}"] += 1
+    return out
+
+
+def _q4_forms_of(rows) -> dict:
+    """The 4-bit bf16 forms of QWEN_IMAGE_LLM_LINEARS calls at each prompt
+    encode's id count in ``rows``."""
+    out = dict.fromkeys(("q4_matmul_gemv", "q4_matmul_splitk", "q4_matmul_wgmma"), 0)
+    for m in rows:
+        out[f"q4_matmul_{_form(m)}"] += QWEN_IMAGE_LLM_LINEARS
+    return out
+
+
+def qwen_image_encode_rows(requests) -> list:
+    """The ids of each prompt encode of ``requests`` (the chat template
+    around the prompt, then the negative prompt under CFG; byte-level ids):
+    the rows the LLM's linears take."""
+    from sdtpu_torch.models.llm import CHAT_TEMPLATES
+    from sdtpu_torch.tokenizers.qwen2 import Qwen2Tokenizer
+
+    tok, (template, _) = Qwen2Tokenizer.byte_fallback(), CHAT_TEMPLATES["qwen_image"]
+    rows = []
+    for r in requests:
+        prompts = [r["prompt"]] + ([r.get("negative_prompt", "")] if r.get("cfg_scale", 7.0) != 1.0
+                                   else [])
+        rows += [len(tok.encode(template.format(p))) for p in prompts]
+    return rows
+
+
+def build_qwen_image_pipeline(card: str, default_dtype: bool = False):
+    """A full-width Qwen-Image pipeline from the factory's own draw on the
+    card (the DiT and the Wan VAE dense, Qwen2.5-VL-7B 4-bit):
+    ``create_pipeline(SDVersion.QWEN_IMAGE, dtype=torch.bfloat16,
+    qwen_tokenizer=Qwen2Tokenizer.byte_fallback())``, its LLM held to be
+    Qwen2.5-VL-7B; or with ``default_dtype`` no dtype argument (float32,
+    held here) and a dense DiT cut to ``QWEN_IMAGE_F32_LAYERS`` blocks
+    passed as ``params``, so its config is fingerprinted."""
+    import torch
+
+    from sdtpu_torch.config import SDVersion
+    from sdtpu_torch.factory import create_pipeline
+    from sdtpu_torch.models import llm as llm_mod
+    from sdtpu_torch.models import qwen_image as qi_mod
+    from sdtpu_torch.tokenizers.qwen2 import Qwen2Tokenizer
+    from sdtpu_torch.weights import synthesize, weight_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    tok = Qwen2Tokenizer.byte_fallback()
+    if default_dtype:
+        dit_cfg = dataclasses.replace(qi_mod.QWEN_IMAGE_CONFIG, num_layers=QWEN_IMAGE_F32_LAYERS)
+        params = {"diffusion": synthesize(qi_mod.param_specs(dit_cfg), seed=1, device=DEVICE,
+                                          dtype=torch.float32)}
+        pipe = create_pipeline(SDVersion.QWEN_IMAGE, params=params, device=DEVICE, qwen_tokenizer=tok)
+        del params
+        if pipe.compute_dtype != torch.float32:
+            raise RuntimeError(f"create_pipeline's default dtype is {pipe.compute_dtype}, not float32")
+    else:
+        dit_cfg = qi_mod.QWEN_IMAGE_CONFIG
+        pipe = create_pipeline(SDVersion.QWEN_IMAGE, dtype=torch.bfloat16, device=DEVICE, seed=0,
+                               qwen_tokenizer=tok)
+    if pipe.conditioner.cl != llm_mod.QWEN25_VL_7B_CONFIG:
+        raise RuntimeError(f"the LLM is {pipe.conditioner.cl}, not Qwen2.5-VL-7B")
+    got = qi_mod.detect_qwen_image_config(pipe.diffusion_params.keys())
+    if got != dit_cfg:
+        raise RuntimeError(f"the DiT fingerprints as {got}, not {dit_cfg}")
+    label = f"qwen_image dense, {dit_cfg.num_layers} blocks"
+    wb = {"diffusion": weight_bytes(pipe.diffusion_params), "llm": weight_bytes(pipe.conditioner.pl),
+          "vae": weight_bytes(pipe.vae_params)}
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    print(f"pipeline: full-width {label}, Qwen2.5-VL-7B q4_0, {pipe.compute_dtype}, built in "
+          f"{build_s:.2f} s on {card}; weight bytes " + json.dumps(wb) + "; peak "
+          f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+    return pipe, {"diffusion": label, "dtype": str(pipe.compute_dtype), "build_s": build_s,
+                  "weight_bytes": wb, "build_peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def quantize_in_place(params: dict) -> int:
+    """``quantize_params(..., bits=8)`` (the --type q8_0 rule) one weight at a
+    time, each dense weight dropped as its int8 one replaces it, so the
+    dense and the int8 DiT are never both held → the weights quantized."""
+    from sdtpu_torch.ops import quant
+
+    n = 0
+    for name in list(params):
+        q = quant.quantize_params({name: params[name]}, bits=8)[name]
+        if q is not params[name]:
+            params[name] = q
+            n += 1
+    return n
+
+
+def qwen_image_img2img_path(pipe, wrappers, card: str, launches: dict) -> tuple:
+    """Path ``qwen_image_img2img`` on the bf16 pipeline: QWEN_IMAGE_IMG2IMG_REQUEST
+    from a 1024² init image through the Wan VAE's encoder (one frame), then
+    the same with a mask whose right half regenerates; the kept half of the
+    masked request's final latent must be the init image's encode within
+    MASK_KEEP_TOL and the other half must move.  Launches as txt2img, and
+    the steps sampled ``img2img_steps``'s."""
+    import numpy as np
+
+    size = QWEN_IMAGE_IMG2IMG_REQUEST["width"]
+    img, mask = init_image_and_mask(size)
+    requests = [dict(QWEN_IMAGE_IMG2IMG_REQUEST, init_image=img),
+                dict(QWEN_IMAGE_IMG2IMG_REQUEST, init_image=img, mask_image=mask)]
+    results = []
+    with plain_attention_on_card() as plain:
+        rep, launches["qwen_image_img2img"] = _windowed(
+            wrappers, "qwen_image_img2img",
+            lambda: answer(pipe, requests, card, "qwen_image_img2img", results))
+    steps = img2img_steps(QWEN_IMAGE_IMG2IMG_REQUEST["sample_steps"],
+                          QWEN_IMAGE_IMG2IMG_REQUEST["strength"])
+    for r in rep:
+        _check_steps("qwen_image_img2img", r, steps)
+    rows = qwen_image_encode_rows(requests)
+    info = _check_dit_launches("qwen_image_img2img", launches["qwen_image_img2img"], plain,
+                               2 * steps, QWEN_IMAGE_ATTENTION_CALLS, len(rows),
+                               QWEN_IMAGE_LLM_LAYERS, _q4_forms_of(rows))
+    init = pipe.encode_image(img)  # outside the window
+    lat = results[1].latents
+    half = lat.shape[2] // 2
+    info["mask"] = {"kept_max_abs": float(np.abs(lat[:, :, :half] - init[:, :, :half]).max()),
+                    "tol": MASK_KEEP_TOL,
+                    "moved_mean_abs": float(np.abs(lat[:, :, half:] - init[:, :, half:]).mean()),
+                    "moved_min": MASK_MOVED_MIN, "encode_shape": list(init.shape)}
+    print("qwen_image_img2img_mask " + json.dumps(info["mask"]), flush=True)
+    if (info["mask"]["kept_max_abs"] > MASK_KEEP_TOL or info["mask"]["moved_mean_abs"] < MASK_MOVED_MIN
+            or list(init.shape) != [1, size // 8, size // 8, 16]):
+        raise RuntimeError(f"Qwen-Image masked img2img: {info['mask']}")
+    return rep, info
+
+
+def qwen_image_paths(wrappers, card: str, launches: dict, profile=None):
+    """The Qwen-Image paths: ``qwen_image`` (bf16, QWEN_IMAGE_REQUESTS), then
+    the full-width forward against plain attention, ``qwen_image_img2img``,
+    the profiled request and, the DiT quantized per row in place, one
+    forward through W8A8 against plain quantized linears;
+    ``qwen_image_f32`` (the default dtype, QWEN_IMAGE_F32_LAYERS blocks,
+    QWEN_IMAGE_F32_REQUESTS), each in its launch window."""
+    import torch
+
+    pipes, reports, prof, extra = [], [], {}, {}
+    for label, f32, requests in (("qwen_image", False, QWEN_IMAGE_REQUESTS),
+                                 ("qwen_image_f32", True, QWEN_IMAGE_F32_REQUESTS)):
+        pipe, info = build_qwen_image_pipeline(card, default_dtype=f32)
+        pipes.append(info)
+        with plain_attention_on_card() as plain:
+            rep, launches[label] = _windowed(wrappers, label,
+                                             lambda: answer(pipe, requests, card, label))
+        rows = qwen_image_encode_rows(requests)
+        info.update(_check_dit_launches(
+            label, launches[label], plain, _forwards_and_encodes(requests)[0],
+            QWEN_IMAGE_F32_LAYERS if f32 else QWEN_IMAGE_ATTENTION_CALLS, len(rows),
+            QWEN_IMAGE_LLM_LAYERS,
+            {"q4_matmul_f32": QWEN_IMAGE_LLM_LINEARS * len(rows)} if f32 else _q4_forms_of(rows),
+            f32=f32), prompt_encode_ids=rows)
+        reports += rep
+        if not f32:
+            with torch.inference_mode():
+                cond = pipe.conditioner.get_learned_condition(
+                    QWEN_IMAGE_REQUEST["prompt"]).c_crossattn
+            extra["forward_plain"] = dit_forward_plain_check(pipe, cond, "qwen_image")
+            rep, extra["img2img"] = qwen_image_img2img_path(pipe, wrappers, card, launches)
+            reports += rep
+            if profile:
+                prof[label] = profile_request(pipe, QWEN_IMAGE_REQUEST, profile, label, card)
+            extra["quantized_in_place"] = quantize_in_place(pipe.diffusion_params)
+            extra["w8a8_forward_plain"] = dit_w8a8_forward_check(
+                wrappers, pipe, cond[:, :QWEN_IMAGE_W8A8_CONTEXT], "qwen_image",
+                qwen_image_w8a8_forms(1, QWEN_IMAGE_W8A8_CONTEXT))
+            del cond
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return pipes, reports, prof, extra
+
+
+# Phase 11, Qwen-Image on files: ``tools/qwen_image_file.py``'s full-width
+# set (the DiT a q4_0 GGUF kept in its blocks, 11.5e9 bytes; Qwen2.5-VL-7B a
+# q4_0 GGUF with its "gpt2" vocab, dequantized when staged, as the JAX CLI
+# does; the Wan VAE with its encoder), loaded once by each entry point:
+# the CLI answers a 1024² x 4 request at CFG 2.5 with a negative prompt as
+# ``-i`` img2img, the A1111 routes the same as txt2img and then as img2img
+# under another prompt, img2img at QWEN_IMAGE_STRENGTH.
+QWEN_IMAGE_CLI_REQUEST = dict(QWEN_IMAGE_REQUEST, sample_steps=4,
+                              strength=QWEN_IMAGE_STRENGTH)
+QWEN_IMAGE_CLI_ARGV = ["-p", QWEN_IMAGE_REQUEST["prompt"], "-n", QWEN_IMAGE_REQUEST["negative_prompt"],
+                       "-W", "1024", "-H", "1024", "--steps", "4", "--cfg-scale", "2.5",
+                       "--sampling-method", "euler", "-s", "42", "--strength",
+                       str(QWEN_IMAGE_STRENGTH)]
+QWEN_IMAGE_SERVER_BODY = {"prompt": QWEN_IMAGE_REQUEST["prompt"],
+                          "negative_prompt": QWEN_IMAGE_REQUEST["negative_prompt"], "width": 1024,
+                          "height": 1024, "steps": 4, "cfg_scale": 2.5, "seed": 42,
+                          "sampler_name": "euler"}
+QWEN_IMAGE_SERVER_IMG2IMG_BODY = dict(QWEN_IMAGE_SERVER_BODY, prompt="a harbour at dawn, oil on canvas",
+                                      denoising_strength=QWEN_IMAGE_STRENGTH)
+
+
+def qwen_image_entry_check(wrappers, card: str) -> tuple:
+    """Phase 11, Qwen-Image: ``tools/qwen_image_file.py``'s set through
+    ``cli.main --diffusion-model ... --llm ... --vae ... -i init.png`` (path
+    ``qwen_image_cli``: the tokenizer from the GGUF's vocab; its PNG read
+    back in metadata mode) and the A1111 txt2img and img2img routes
+    (``qwen_image_server``, ``qwen_image_server_img2img``)."""
+    import tempfile
+
+    from sdtpu_torch.tools.qwen_image_file import write_qwen_image_files
+    from sdtpu_torch.utils.image import write_image
+
+    def load_check(rep):
+        load = rep["load"]
+        if load["version"] != "qwen_image" or not str(load["llm_tokenizer"]).startswith("gguf:"):
+            raise RuntimeError(f"the CLI loaded {load['version']} (LLM tokenizer "
+                               f"{load['llm_tokenizer']}), not qwen_image with the GGUF's vocab")
+        if rep["timings"].get("encode", 0.0) <= 0.0:
+            raise RuntimeError("the CLI's -i request encoded no init image")
+
+    def file_args(files):
+        paths = files["paths"]
+        return ["--diffusion-model", paths["diffusion_model"], "--llm", paths["llm"], "--vae",
+                paths["vae"]]
+
+    def check(request, forwards):
+        """One request's checks: its CFG batch of two over the longer of its
+        two contexts (the ids less the template's 34)."""
+        rows = qwen_image_encode_rows([request])
+        forms = {n: c * forwards for n, c in qwen_image_file_forms(2, max(rows) - 34).items()}
+        return lambda path, counts, plain: _check_dit_launches(
+            path, counts, plain, forwards, QWEN_IMAGE_ATTENTION_CALLS, len(rows),
+            QWEN_IMAGE_LLM_LAYERS, forms)
+
+    def entry_check(cli, server):
+        """The CLI's (img2img) checks on its path, the server's (txt2img) on its."""
+        return lambda path, *a: (cli if path.endswith("_cli") else server)(path, *a)
+
+    steps = QWEN_IMAGE_CLI_REQUEST["sample_steps"]
+    i2i_steps = img2img_steps(steps, QWEN_IMAGE_STRENGTH)
+    i2i_server = dict(QWEN_IMAGE_CLI_REQUEST, prompt=QWEN_IMAGE_SERVER_IMG2IMG_BODY["prompt"])
+    img, _ = init_image_and_mask(1024)
+    root = ROOT / "build" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    images = Path(tempfile.mkdtemp(prefix="qwen_init_", dir=root))
+    try:
+        init = str(images / "init.png")
+        write_image(init, img)
+        b64 = base64.b64encode(Path(init).read_bytes()).decode("ascii")
+        return _file_entry_check(
+            wrappers, card, "qwen_image",
+            lambda tmp: write_qwen_image_files(tmp, device=DEVICE), file_args,
+            QWEN_IMAGE_CLI_ARGV + ["-i", init], QWEN_IMAGE_SERVER_BODY,
+            entry_check(check(QWEN_IMAGE_CLI_REQUEST, i2i_steps), check(QWEN_IMAGE_CLI_REQUEST, steps)),
+            "euler", (1024, 1024), load_check,
+            request=QWEN_IMAGE_CLI_REQUEST,
+            more_server=[dict(path="qwen_image_server_img2img", route="/sdapi/v1/img2img",
+                              body=QWEN_IMAGE_SERVER_IMG2IMG_BODY,
+                              files=lambda tmp: {"init_images": [b64]},
+                              check=check(i2i_server, i2i_steps), size=(1024, 1024),
+                              sampler="euler")])
+    finally:
+        shutil.rmtree(images, ignore_errors=True)
 
 
 # Phase 10f, img2img, masked img2img and the latent hires fix: an init image
@@ -4417,10 +4863,11 @@ def main() -> int:
     ap.add_argument("--out", help="also write every measured number to this JSON file")
     ap.add_argument("--profile", metavar="TABLE",
                     help="after each main path, profile one more request (1024² for FLUX, "
-                         "SDXL, SD3 and Z-Image, 512² for SD1.5, 768² for SD2.1, the bench's "
+                         "SDXL, SD3, Z-Image and Qwen-Image, 512² for SD1.5, 768² for SD2.1, the bench's "
                          "832x480 x 33-frame clip for Wan) and write the profiler's tables to "
                          "TABLE with .int8 / .w8a16 / .q8_0_gguf / .q4_0 / .f32 / .cli / .sd15 / "
-                         ".sdxl / .sd3 / .wan / .z_image / .sd2 before its suffix")
+                         ".sdxl / .sd3 / .wan / .z_image / .qwen_image / .sd2 before its "
+                         "suffix")
     args = ap.parse_args()
 
     import torch
@@ -4586,6 +5033,12 @@ def main() -> int:
     pipes += zi_pipes
     reports += rep
     prof.update(zi_prof)
+    lap("sd3, wan and z_image paths")
+    qi_pipes, rep, qi_prof, qi_extra = qwen_image_paths(wrappers, card, launches, args.profile)
+    pipes += qi_pipes
+    reports += rep
+    prof.update(qi_prof)
+    lap("qwen_image paths")
     sd2_pipes, rep, sd2_prof = sd2_paths(wrappers, card, launches, args.profile)
     pipes += sd2_pipes
     reports += rep
@@ -4593,7 +5046,7 @@ def main() -> int:
     concat_pipes, rep = concat_unet_paths(wrappers, card, launches)
     pipes += concat_pipes
     reports += rep
-    lap("unet, sd3, wan and z_image paths")
+    lap("sd2, inpainting and pix2pix paths")
 
     entry, launches["cli"], launches["server"], launches["cli_img2img"] = entry_points_check(
         wrappers, card, args.profile)
@@ -4610,7 +5063,10 @@ def main() -> int:
     launches.update(wan_launches)
     entry["z_image"], zi_launches = z_image_entry_check(wrappers, card)
     launches.update(zi_launches)
-    lap("other entry points")
+    lap("sd15, sdxl, sd3, wan and z_image entry points")
+    entry["qwen_image"], qi_launches = qwen_image_entry_check(wrappers, card)
+    launches.update(qi_launches)
+    lap("qwen_image entry points")
     entry["sd2_family"], sd2_launches = sd2_family_entry_check(wrappers, card)
     launches.update(sd2_launches)
     lap("sd2, inpainting and pix2pix entry points")
@@ -4670,7 +5126,7 @@ def main() -> int:
             json.dump({"card": card, "build_s": build_s, "elapsed_s": elapsed, "cases": cases,
                        "reference": ref,
                        "loader": loader, "pipelines": pipes, "requests": reports, "entry": entry,
-                       "wan": wan_extra, "z_image": zi_extra,
+                       "wan": wan_extra, "z_image": zi_extra, "qwen_image": qi_extra,
                        "launches": launches, "kernels": kernels, "profile": prof}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

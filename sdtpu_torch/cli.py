@@ -1,8 +1,9 @@
-"""sd-cli for the PyTorch/CUDA port: FLUX.1, SD1.x, SD2.x, SDXL, SD3 and
-Z-Image txt2img, img2img, masked img2img and the latent hires fix, the
+"""sd-cli for the PyTorch/CUDA port: FLUX.1, SD1.x, SD2.x, SDXL, SD3,
+Z-Image and Qwen-Image txt2img, img2img, masked img2img and the latent
+hires fix, the
 inpainting and instruct-pix2pix UNets, and Wan2.1 T2V txt2vid from
 checkpoint files (this package's copy of ``sdtpu/cli.py``: ``build_parser``,
-``main``, the FLUX, SD1, SD2, SDXL, SD3, Wan and Z-Image parts of
+``main``, the FLUX, SD1, SD2, SDXL, SD3, Wan, Z-Image and Qwen-Image parts of
 ``_load_pipeline`` with its ``--prediction`` override and the LLM
 tokenizer's choice (``sidecar_free_llm_tokenizer``), ``_img_gen`` with ``-i`` / ``--mask`` /
 ``--hires`` / ``-r`` / ``--img-cfg-scale``, the T2V part of ``_vid_gen``,
@@ -28,6 +29,9 @@ tokenizer's choice (``sidecar_free_llm_tokenizer``), ``_img_gen`` with ``-i`` / 
     python -m sdtpu_torch.cli --diffusion-model z_image_turbo-q8_0.gguf \
         --llm Qwen3-4B-q4_0.gguf --vae ae.safetensors -p "a red fox in fresh snow" \
         -W 1024 -H 1024 --steps 8 --cfg-scale 1 --sampling-method euler -o out.png
+    python -m sdtpu_torch.cli --diffusion-model qwen-image-q4_0.gguf \
+        --llm Qwen2.5-VL-7B-q4_0.gguf --vae wan_2.1_vae.safetensors -p "a red fox in fresh snow" \
+        -n blurry -W 1024 -H 1024 --steps 20 --cfg-scale 2.5 --sampling-method euler -o out.png
     python -m sdtpu_torch.cli -m sd15.safetensors -p "a watercolour harbour" -i init.png \
         --mask mask.png --strength 0.6 -W 512 -H 512 --steps 20 -o out.png
     python -m sdtpu_torch.cli -m sd15.safetensors -p "a watercolour harbour" -W 512 -H 512 \
@@ -43,8 +47,11 @@ tokenizer's choice (``sidecar_free_llm_tokenizer``), ``_img_gen`` with ``-i`` / 
 
 The model family is fingerprinted from the files' tensor names, as the JAX
 CLI does; FLUX.1, SD1.x, SD2.x, SDXL (with their inpainting and
-instruct-pix2pix UNets), SD3, Wan2.1 T2V and Z-Image load, any other family
-exits naming it.  Z-Image's Qwen3 text encoder (``--llm``) tokenizes with
+instruct-pix2pix UNets), SD3, Wan2.1 T2V, Z-Image and Qwen-Image load, any
+other family (Mage-Flow and the layered Qwen-Image among them) exits naming
+it; so do ``--qwen-image-layers`` and the ``qwen_image_zero_cond_t`` model
+arg.  Z-Image's Qwen3 and Qwen-Image's Qwen2.5-VL text encoders (``--llm``)
+tokenize with
 ``--llm-tokenizer``'s ``tokenizer.json``, else the vocab embedded in the
 ``--llm`` (or ``-m``) GGUF, else the Qwen byte-level ids without merges
 (``Qwen2Tokenizer.byte_fallback``, with a warning).  ``--prediction`` swaps the denoiser as the JAX CLI does
@@ -548,9 +555,12 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
             continue
         if getattr(args, dest, action.default) != action.default:
             flag = "/".join(action.option_strings)
-            return (f"{flag} is not ported (the port runs FLUX.1, SD1.x, SD2.x, SDXL, SD3 and "
-                    "Z-Image txt2img, img2img, masked img2img and the latent hires fix, the inpainting and "
-                    "instruct-pix2pix UNets, and Wan2.1 txt2vid)")
+            if dest == "model_args" and "qwen_image_zero_cond_t" in args.model_args:
+                return ("--model-args qwen_image_zero_cond_t (Qwen-Image-Edit 2509's t = 0 "
+                        "modulation of reference tokens) is not ported")
+            return (f"{flag} is not ported (the port runs FLUX.1, SD1.x, SD2.x, SDXL, SD3, "
+                    "Z-Image and Qwen-Image txt2img, img2img, masked img2img and the latent hires "
+                    "fix, the inpainting and instruct-pix2pix UNets, and Wan2.1 txt2vid)")
     if args.mode not in MODES:
         return f"mode {args.mode!r} is not ported; the port runs {list(MODES)}"
     if args.mode == "vid_gen" and video_output(args).lower().endswith(VIDEO_CONTAINERS):
@@ -717,7 +727,7 @@ def quantize_dense(d: dict, wtype: str):
 
 
 def _load_pipeline(args, report: Optional[dict] = None):
-    """The files → a FLUX, SD1.x, SD2.x, SDXL, SD3, Wan or Z-Image pipeline (the
+    """The files → a FLUX, SD1.x, SD2.x, SDXL, SD3, Wan, Z-Image or Qwen-Image pipeline (the
     version the files' fingerprint names; ``--prediction``'s denoiser) on
     ``--backend``'s device, with ``--taesd``'s
     decoder attached.  ``report``
@@ -754,7 +764,8 @@ def _load_pipeline(args, report: Optional[dict] = None):
     # SD1.x and SD2.x condition on one CLIP (SD2's OpenCLIP-H loads as
     # clip_l), SDXL on CLIP-L and CLIP-G: a missing T5 is no error there
     encoders = {SDVersion.FLUX: ("clip_l", "t5"), SDVersion.SD3: ("clip_l", "clip_g", "t5"),
-                SDVersion.WAN2: ("t5",), SDVersion.Z_IMAGE: ("llm",)}.get(bundle.version, ("clip_l",))
+                SDVersion.WAN2: ("t5",), SDVersion.Z_IMAGE: ("llm",),
+                SDVersion.QWEN_IMAGE: ("llm",)}.get(bundle.version, ("clip_l",))
     if sd_version_is_sdxl(bundle.version):
         encoders = ("clip_l", "clip_g")
     missing = [m for m in (*encoders, "vae") if not getattr(bundle, m)]
@@ -781,6 +792,9 @@ def _load_pipeline(args, report: Optional[dict] = None):
         print(f"re-quantized {n_row} diffusion weights to per-row int8 (W8A8 path)")
     if n_blocks:
         print(f"keeping {n_blocks} diffusion weights in checkpoint quant blocks")
+    if bundle.vision_tensors:
+        print(f"dropped {bundle.vision_tensors} LLM vision-tower tensors (Qwen-Image-Edit's; not "
+              "ported)")
     n_typed = 0
     if args.wtype:
         params["diffusion"], n_typed = quantize_dense(params["diffusion"], args.wtype)
@@ -811,7 +825,8 @@ def _load_pipeline(args, report: Optional[dict] = None):
             "build_s": time.time() - t0,
             "device": str(device), "dtype": str(dtype).replace("torch.", ""), "tae": bool(tae_raw),
             "w8a8_weights": n_row, "block_weights": n_blocks, "wtype": args.wtype,
-            "typed_weights": n_typed, "t5_tokenizer": t5_tok_source,
+            "typed_weights": n_typed, "vision_weights": bundle.vision_tensors,
+            "t5_tokenizer": t5_tok_source,
             "llm_tokenizer": llm_tok_source}
     print("load " + json.dumps(load))
     if report is not None:

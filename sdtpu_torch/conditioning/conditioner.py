@@ -1,9 +1,10 @@
-"""Prompt → conditioning tensors for FLUX, SD1.x, SD2.x, SDXL, SD3, Wan and
-Z-Image (counterpart of ``sdtpu/conditioning/conditioner.py``:
+"""Prompt → conditioning tensors for FLUX, SD1.x, SD2.x, SDXL, SD3, Wan,
+Z-Image and Qwen-Image (counterpart of ``sdtpu/conditioning/conditioner.py``:
 ``tokenize_with_weights``, ``apply_token_weights``, ``SDCondition``,
 ``SD1Conditioner`` with its SD2 form,
 ``sdxl_size_vector``, ``SDXLConditioner``, ``SD3Conditioner``,
-``FluxConditioner``, ``WanConditioner``, ``ZImageConditioner``).
+``FluxConditioner``, ``WanConditioner``, ``ZImageConditioner``, the text
+path of ``QwenImageConditioner``).
 
 The tokenizers, the webui prompt parser and the encoders are this
 package's own.
@@ -18,7 +19,7 @@ import torch
 
 from sdtpu_torch.conditioning.prompt_parser import parse_prompt_attention
 from sdtpu_torch.models.clip import CLIPTextConfig, clip_text_forward
-from sdtpu_torch.models.llm import LLMConfig, llm_forward
+from sdtpu_torch.models.llm import CHAT_TEMPLATES, LLMConfig, llm_forward
 from sdtpu_torch.models.t5 import T5Config, t5_encoder_forward
 from sdtpu_torch.ops import timestep_embedding
 
@@ -299,3 +300,35 @@ class ZImageConditioner:
         h = llm_forward(self.pl, torch.tensor([ids], dtype=torch.int64, device=self.device),
                         self.cl, output_layer=self.cl.num_layers - 1)
         return SDCondition(c_crossattn=h)
+
+
+class QwenImageConditioner:
+    """Qwen-Image: the prompt in the ``qwen_image`` chat template, tokenized
+    (at most ``max_len`` ids) and run through the whole Qwen2.5-VL text
+    tower; the hidden states after the final norm, the template's first 34
+    ids dropped, are the context.  Without a tokenizer (the small configs:
+    ``create_pipeline`` gives a full-width one the byte-level tokenizer) the
+    ids are 0..47 and 8 are dropped, as the JAX golden was made.  The edit
+    path (``ref_images`` through the Qwen2.5-VL vision tower) is not ported
+    and raises by name."""
+
+    def __init__(self, qwen_tokenizer, llm_params, llm_cfg: LLMConfig, max_len: int = 1024,
+                 device="cuda"):
+        self.tokenizer = qwen_tokenizer
+        self.pl, self.cl = llm_params, llm_cfg
+        self.template, self.drop_idx = CHAT_TEMPLATES["qwen_image"]
+        self.max_len = max_len
+        self.device = torch.device(device)
+
+    def get_learned_condition(self, text: str, clip_skip: int = -1, ref_images=None,
+                              **kw) -> SDCondition:
+        if ref_images:
+            raise NotImplementedError("Qwen-Image-Edit (ref_images through the Qwen2.5-VL vision "
+                                      "tower) is not ported")
+        if self.tokenizer is not None:
+            ids = self.tokenizer.encode(self.template.format(text))[:self.max_len]
+            drop = self.drop_idx
+        else:
+            ids, drop = list(range(48)), 8
+        h = llm_forward(self.pl, torch.tensor([ids], dtype=torch.int64, device=self.device), self.cl)
+        return SDCondition(c_crossattn=h[:, drop:])

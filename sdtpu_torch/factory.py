@@ -26,7 +26,12 @@ given DiT's config comes from ``detect_wan_config``, a given VAE's from its
 shapes.  Z-Image (``_create_z_image_pipeline``): the DiT and the FLUX VAE
 dense, its Qwen3-4B text encoder 4-bit, the class users run it in; a given
 DiT's config comes from ``detect_z_image_config``, a given LLM's from
-``detect_llm_config(arch="qwen3")``.  Every other version raises by name.
+``detect_llm_config(arch="qwen3")``.  Qwen-Image
+(``_create_qwen_image_pipeline``): the joint-stream DiT dense in the
+pipeline's dtype, its Qwen2.5-VL-7B text tower 4-bit, the Wan 2.1 VAE
+(encoder and decoder) dense, run in image mode; given weights are
+fingerprinted (``detect_qwen_image_config``, ``detect_llm_config``,
+``detect_wan_vae_config``).  Every other version raises by name.
 """
 from __future__ import annotations
 
@@ -36,9 +41,9 @@ from typing import Optional
 
 import torch
 
-from sdtpu_torch.conditioning.conditioner import (FluxConditioner, SD1Conditioner,
-                                                  SD3Conditioner, SDXLConditioner, WanConditioner,
-                                                  ZImageConditioner)
+from sdtpu_torch.conditioning.conditioner import (FluxConditioner, QwenImageConditioner,
+                                                  SD1Conditioner, SD3Conditioner, SDXLConditioner,
+                                                  WanConditioner, ZImageConditioner)
 from sdtpu_torch.config import (SDVersion, sd_version_is_inpaint, sd_version_is_sd2,
                                 sd_version_is_sdxl, sd_version_is_unet_edit)
 from sdtpu_torch.diffusion.denoiser import (CompVisDenoiser, CompVisVDenoiser, DiscreteFlowDenoiser,
@@ -48,6 +53,7 @@ from sdtpu_torch.models import clip as clip_mod
 from sdtpu_torch.models import flux as flux_mod
 from sdtpu_torch.models import llm as llm_mod
 from sdtpu_torch.models import mmdit as mmdit_mod
+from sdtpu_torch.models import qwen_image as qi_mod
 from sdtpu_torch.models import t5 as t5_mod
 from sdtpu_torch.models import unet as unet_mod
 from sdtpu_torch.models import vae as vae_mod
@@ -292,6 +298,104 @@ def _create_z_image_pipeline(params: dict, rng_type: str, dtype: torch.dtype, sm
         rng_type=rng_type, latent_channels=dit_cfg.in_channels, compute_dtype=dtype, device=device)
 
 
+def qwen_image_configs(small: bool):
+    """→ (dit, llm, vae) configs; the small set is the JAX factory's small
+    Qwen-Image config (a 2-block DiT of 4 heads of 16 over 4 latent
+    channels, context 48 wide; a 2-layer Qwen2.5-VL 48 wide with a 256-piece
+    vocab; the Wan VAE 8 wide over 4 latent channels).  At full width:
+    Qwen-Image's DiT (60 blocks, 20.4e9 parameters), Qwen2.5-VL-7B (hidden
+    3584 = ``joint_attention_dim``), the Wan 2.1 VAE (the factory
+    fingerprints given weights instead)."""
+    if small:
+        dit_cfg = qi_mod.QwenImageConfig(in_channels=16, out_channels=4, num_layers=2, head_dim=16,
+                                         num_heads=4, joint_attention_dim=48, axes_dim=(4, 6, 6))
+        llm_cfg = llm_mod.LLMConfig(num_layers=2, hidden_size=48, intermediate_size=96,
+                                    num_heads=4, num_kv_heads=2, head_dim=12, vocab_size=256)
+        return dit_cfg, llm_cfg, wan_vae_mod.WanVAEConfig(dim=8, z_dim=4, num_res_blocks=1)
+    return qi_mod.QWEN_IMAGE_CONFIG, llm_mod.QWEN25_VL_7B_CONFIG, wan_vae_mod.WAN21_VAE_CONFIG
+
+
+def _check_fits(specs: dict, dtype: torch.dtype, device, what: str) -> None:
+    """Raise, before drawing, where dense ``specs`` in ``dtype`` exceed the
+    card's free memory (a float32 full-width Qwen-Image DiT is 81.7e9 bytes)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    need = sum(int(torch.Size(s).numel()) for s, _ in specs.values()) * dtype.itemsize
+    free = torch.cuda.mem_get_info(device)[0]
+    if need > free:
+        raise MemoryError(f"{what} in {dtype} is {need / 1e9:.1f} GB; the card has "
+                          f"{free / 1e9:.1f} GB free (pass dtype=torch.bfloat16, or weights cut "
+                          "to fewer blocks)")
+
+
+def _create_qwen_image_pipeline(params: dict, rng_type: str, dtype: torch.dtype, small: bool,
+                                seed: int, qwen_tokenizer, flow_shift: Optional[float],
+                                device) -> DiffusionPipeline:
+    """Qwen-Image: the joint-stream DiT, Qwen2.5-VL (``QwenImageConditioner``),
+    the Wan 2.1 VAE in image mode (a one-frame video: ``z[:, None]`` in,
+    frame 0 out; the latent statistics applied to its 16-channel latent
+    only), the discrete flow denoiser (shift 3 unless ``flow_shift``).  An
+    LLM's ``visual.*`` tensors (the vision tower, Qwen-Image-Edit's, which
+    nothing in the port runs) are dropped.  At full width
+    a missing tokenizer is the Qwen2 byte-level one, with a warning; the
+    small configs keep None (the ids 0..47, as the golden was made)."""
+    dit_cfg, llm_cfg, vae_cfg = qwen_image_configs(small)
+    llm = params.get("llm")
+    if llm:
+        llm = {k: v for k, v in llm.items() if not k.startswith("visual.")}
+    if not small:
+        if params.get("diffusion"):
+            dit_cfg = qi_mod.detect_qwen_image_config(params["diffusion"].keys())
+        if llm:
+            llm_cfg = llm_mod.detect_llm_config(llm.keys(), {k: tuple(v.shape) for k, v in llm.items()})
+        if params.get("vae"):
+            vae_cfg = wan_vae_mod.detect_wan_vae_config(params["vae"])
+    qi_mod.check_supported(dit_cfg)
+    if llm_cfg.hidden_size != dit_cfg.joint_attention_dim:
+        raise ValueError(f"the LLM's hidden size {llm_cfg.hidden_size} is not the DiT's "
+                         f"joint_attention_dim {dit_cfg.joint_attention_dim}")
+    specs = {"diffusion": qi_mod.param_specs(dit_cfg), "llm": llm_mod.param_specs(llm_cfg),
+             "vae": wan_vae_mod.param_specs(vae_cfg, decode_only=False)}
+    if not params.get("diffusion"):
+        _check_fits(specs["diffusion"], dtype, device, "the Qwen-Image DiT")
+    given = {**params, "llm": llm}
+    mods = {name: given.get(name) or synthesize(
+                spec, quant="q4_0" if name == "llm" and not small else None,
+                seed=seed + SEED_OFFSET[name], device=device, dtype=dtype)
+            for name, spec in specs.items()}
+    if qwen_tokenizer is None and not small:
+        warnings.warn("no qwen_tokenizer: using the Qwen2 byte-level vocabulary (valid ids, no "
+                      "multi-byte merges; pass Qwen2Tokenizer.from_tokenizer_json(...) for exact "
+                      "encoding)", stacklevel=3)
+        qwen_tokenizer = Qwen2Tokenizer.byte_fallback()
+    conditioner = QwenImageConditioner(qwen_tokenizer, mods["llm"], llm_cfg, device=device)
+
+    def diffusion_fn(p, x, t, ctx, y, guidance=None):
+        return qi_mod.qwen_image_forward(p, x, t, ctx, cfg=dit_cfg)
+
+    use_stats = vae_cfg.z_dim == 16  # the statistics are the real VAE's
+
+    def vae_decode_fn(p, z):
+        zv = z[:, None]
+        if use_stats:
+            zv = wan_vae_mod.diffusion_to_vae_latents(zv)
+        return wan_vae_mod.wan_vae_decode(p, zv, vae_cfg)[:, 0]
+
+    def vae_encode_fn(p, x, noise=None):
+        zv = wan_vae_mod.wan_vae_encode(p, x[:, None], vae_cfg)
+        if use_stats:
+            zv = wan_vae_mod.vae_to_diffusion_latents(zv)
+        return zv[:, 0]
+
+    return DiffusionPipeline(
+        version=SDVersion.QWEN_IMAGE, diffusion_params=mods["diffusion"], diffusion_fn=diffusion_fn,
+        conditioner=conditioner, vae_params=mods["vae"], vae_decode_fn=vae_decode_fn,
+        vae_encode_fn=vae_encode_fn,
+        denoiser=DiscreteFlowDenoiser(shift=3.0 if flow_shift is None else flow_shift),
+        rng_type=rng_type, latent_channels=dit_cfg.out_channels, compute_dtype=dtype, device=device)
+
+
 def detect_t5_config(p: dict) -> t5_mod.T5Config:
     """A T5 / UMT5 encoder's config from its params' shapes (the JAX
     factory's ``_detect_t5_config``)."""
@@ -397,19 +501,26 @@ def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] 
                     device="cuda", qwen_tokenizer=None) -> DiffusionPipeline:
     """params: dict with keys 'diffusion', 'clip_l' (SD2's OpenCLIP-H too),
     't5' (FLUX, SD3 and Wan's UMT5), 'clip_g' (SDXL and SD3), 'llm'
-    (Z-Image's Qwen3), 'vae'; a missing module gets random weights drawn on
-    ``device`` (dense for the small configs and for the UNet families at
-    full width, the bench's memory classes for FLUX, SD3 and Wan at full
-    width, Z-Image's LLM 4-bit).  v_prediction: the UNet families'
-    v-prediction denoiser (SD2.x-v); flow_shift: SD3's, Wan's and Z-Image's
-    flow shift (None: 3.0, 5.0 and 3.0); the other ported families take
-    neither, and ignore them, as the JAX factory does.  qwen_tokenizer:
-    Z-Image's (None: ``Qwen2Tokenizer.byte_fallback()`` with a warning at
-    full width, the ids 0..23 whatever the prompt with ``small``)."""
+    (Z-Image's Qwen3, Qwen-Image's Qwen2.5-VL), 'vae'; a missing module gets
+    random weights drawn on ``device`` (dense for the small configs and for
+    the UNet families at full width, the bench's memory classes for FLUX,
+    SD3 and Wan at full width, Z-Image's and Qwen-Image's LLM 4-bit; a
+    Qwen-Image DiT that would not fit the card's free memory raises
+    ``MemoryError`` before it is drawn).  v_prediction: the UNet families'
+    v-prediction denoiser (SD2.x-v); flow_shift: SD3's, Wan's, Z-Image's and
+    Qwen-Image's flow shift (None: 3.0, 5.0, 3.0 and 3.0); the other ported
+    families take neither, and ignore them, as the JAX factory does.
+    qwen_tokenizer: Z-Image's and Qwen-Image's (None:
+    ``Qwen2Tokenizer.byte_fallback()`` with a warning at full width, with
+    ``small`` the ids 0..23 (Z-Image) or 0..47 (Qwen-Image) whatever the
+    prompt)."""
     if version not in PORTED_VERSIONS:
         raise NotImplementedError(f"{version} is not ported yet; the port runs "
                                   f"{[v.name for v in PORTED_VERSIONS]}")
     params = params or {}
+    if version == SDVersion.QWEN_IMAGE:
+        return _create_qwen_image_pipeline(params, rng_type, dtype, small, seed, qwen_tokenizer,
+                                           flow_shift, device)
     if version == SDVersion.Z_IMAGE:
         return _create_z_image_pipeline(params, rng_type, dtype, small, seed, qwen_tokenizer,
                                         flow_shift, device)

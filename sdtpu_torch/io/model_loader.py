@@ -36,8 +36,16 @@ A Z-Image DiT (``cap_embedder``, under its original or diffusers Lumina-2
 names) comes as ``--diffusion-model``, its FLUX VAE as ``--vae`` and its
 Qwen3 text encoder as ``--llm`` (``text_encoders.llm.``: HF names, or
 llama.cpp GGUF names mapped to HF ones; a vision tower is refused).
-Any family but FLUX, those in ``UNET_VERSIONS``, SD3, Wan2.1 T2V and
-Z-Image raises ``NotImplementedError`` naming it (the tiny UNets, SDXS and
+A Qwen-Image DiT (``transformer_blocks.N.img_mod.1``) comes as
+``--diffusion-model``, its Wan 2.1 VAE (encoder included) as ``--vae`` and
+its Qwen2.5-VL text encoder as ``--llm`` (HF or llama.cpp GGUF names, the
+q / k / v biases included); the LLM file's vision tower (``model.visual.``,
+``visual.``, GGUF ``v.`` / ``mm.``) is counted in
+``ModelBundle.vision_tensors`` and dropped for Qwen-Image (nothing in the
+port runs it), and refused for any other family.  Mage-Flow (``img_in`` 128 wide) and the layered Qwen-Image
+(``addition_t_embedding``) fingerprint as themselves and are refused.
+Any family but FLUX, those in ``UNET_VERSIONS``, SD3, Wan2.1 T2V, Z-Image
+and Qwen-Image raises ``NotImplementedError`` naming it (the tiny UNets, SDXS and
 SDXL's SSD-1B too, an SD3 transformer under diffusers names, Wan2.2 I2V and
 TI2V, a Wan VACE or I2V DiT, and a Wan DiT or VAE under diffusers names).
 """
@@ -67,6 +75,7 @@ class ModelBundle:
     vae: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
     llm: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
     extra: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    vision_tensors: int = 0  # an LLM file's vision tower, dropped (Qwen-Image-Edit's)
 
 
 def read_checkpoint_file(path: str, keep_quant: bool = False) -> Dict[str, np.ndarray]:
@@ -239,7 +248,7 @@ UNET_VERSIONS = (SDVersion.SD1, SDVersion.SD1_INPAINT, SDVersion.SD1_PIX2PIX, SD
 # the families the port runs (``load_model_bundle`` and ``create_pipeline``
 # refuse every other by name)
 PORTED_VERSIONS = (SDVersion.FLUX, *UNET_VERSIONS, SDVersion.SD3, SDVersion.WAN2,
-                   SDVersion.Z_IMAGE)
+                   SDVersion.Z_IMAGE, SDVersion.QWEN_IMAGE)
 
 
 def _unet_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
@@ -315,12 +324,21 @@ def _wan_version(names, shapes: Dict[str, Tuple[int, ...]]) -> Optional[SDVersio
 
 def detect_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
     """The JAX package's fingerprint (``detect_version``) of a Z-Image DiT
-    (``cap_embedder``), an MMDiT (SD3: ``joint_blocks``), a double-block DiT (its ``double_blocks`` branch), a
+    (``cap_embedder``), a Qwen-Image one (``transformer_blocks.0.img_mod.1``:
+    Mage-Flow where ``img_in`` takes 128 features, the layered variant with
+    ``addition_t_embedding``), an MMDiT (SD3: ``joint_blocks``), a double-block DiT (its ``double_blocks`` branch), a
     Wan DiT (its Wan branch) or a UNet (its UNet branch); UNKNOWN for
     anything else."""
     names = set(names)
     if any("cap_embedder.0.weight" in n for n in names):
         return SDVersion.Z_IMAGE
+    if any("transformer_blocks.0.img_mod.1.weight" in n for n in names):
+        img_in = next((n for n in names if n.endswith("img_in.weight")), None)
+        if img_in is not None and shapes.get(img_in, (0, 0))[-1] == 128:
+            return SDVersion.MAGE_FLOW
+        if any("addition_t_embedding" in n for n in names):
+            return SDVersion.QWEN_IMAGE_LAYERED
+        return SDVersion.QWEN_IMAGE
     if any(n.startswith((DIFFUSION_PREFIX + "joint_blocks", "joint_blocks")) for n in names):
         return SDVersion.SD3
     if not any(n.startswith((DIFFUSION_PREFIX + "double_blocks", "double_blocks")) for n in names):
@@ -554,6 +572,7 @@ def split_modules(tensors: Dict[str, np.ndarray]) -> ModelBundle:
     version = detect_version(canon.keys(), {k: tuple(v.shape) for k, v in canon.items()})
     mods: Dict[str, Dict[str, np.ndarray]] = {"diffusion": {}, "clip_l": {}, "clip_g": {}, "t5": {},
                                               "vae": {}, "llm": {}, "extra": {}}
+    vision = 0
     for name, arr in canon.items():
         for mod, prefix in MODULE_PREFIXES:
             if name.startswith(prefix):
@@ -562,8 +581,11 @@ def split_modules(tensors: Dict[str, np.ndarray]) -> ModelBundle:
                     local = convert_gguf_t5_name(local)  # llama.cpp GGUF T5 export
                 if mod == "llm":
                     if local.startswith(("model.visual.", "visual.", "v.", "mm.")):
-                        raise NotImplementedError(f"{local}: an LLM vision tower is not ported; "
-                                                  "the port runs the LLM's text tower")
+                        if version != SDVersion.QWEN_IMAGE:
+                            raise NotImplementedError(f"{local}: an LLM vision tower is not "
+                                                      "ported; the port runs the LLM's text tower")
+                        vision += 1  # Qwen-Image-Edit's: dropped, nothing runs it
+                        break
                     if local.startswith(("blk.", "token_embd.", "output_norm.", "attn_sinks.")):
                         local = convert_gguf_llm_name(local)  # llama.cpp GGUF LLM export
                 if prefix in ("conditioner.embedders.1.model.", "cond_stage_model.model."):
@@ -582,7 +604,7 @@ def split_modules(tensors: Dict[str, np.ndarray]) -> ModelBundle:
     tp = mods["clip_g"].get("text_projection.weight")
     if tp is not None:
         mods["clip_g"]["text_projection.weight"] = np.ascontiguousarray(np.asarray(tp).T)
-    return ModelBundle(version=version, **mods)
+    return ModelBundle(version=version, vision_tensors=vision, **mods)
 
 
 def load_model_bundle(model_path: Optional[str] = None, diffusion_model_path: Optional[str] = None,

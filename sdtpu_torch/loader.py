@@ -11,18 +11,21 @@ row onto the W8A8 path unless ``promote_q8=False``, which keeps them as
 group-32 ``GroupQuantTensor``s; every other quantized type keeps its blocks
 (``Q4Tensor`` for q4_0 / q3_k-class blocks with K >= 512, ``GroupQuantTensor``
 otherwise); dense tensors are cast to ``dtype``.  ``module_to_device`` stages
-a text encoder or the VAE, each tensor dequantized (a quantized GGUF's
-``HostQuant``) or widened on the host and cast on its way to the device,
-one at a time, so a module's whole float32 dict is never held on the host.
+a text encoder or the VAE tensor by tensor: a quantized GGUF's
+``HostQuant`` moves to the device in its blocks and is dequantized there
+(``host_quant_values``: the host's float32 values, bit for bit), any other
+tensor is widened on the host and cast on its way, one at a time, so a
+module's whole float32 dict is never held on the host.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from sdtpu_torch.io.gguf import _parallel_map
+from sdtpu_torch.io.gguf import HostQuant, _parallel_map
 from sdtpu_torch.io.model_loader import load_model_bundle
-from sdtpu_torch.ops.quant import GroupQuantTensor, Q4Tensor, QuantTensor, host_params_to_device
+from sdtpu_torch.ops.quant import (GroupQuantTensor, Q4Tensor, QuantTensor, host_params_to_device,
+                                   host_quant_values)
 
 
 def diffusion_to_device(d: dict, dtype: torch.dtype = torch.bfloat16, device="cuda",
@@ -44,6 +47,8 @@ def module_to_device(d: dict, dtype: torch.dtype = torch.bfloat16, device="cuda"
     dense ``dtype`` tensors on ``device``, staged tensor by tensor."""
     def stage_one(item):
         name, v = item
+        if isinstance(v, HostQuant):
+            return name, host_quant_values(v, device).to(dtype)
         a = np.asarray(v, dtype=np.float32)
         return name, torch.from_numpy(a if a.flags.writeable else a.copy()).to(device, dtype)
 

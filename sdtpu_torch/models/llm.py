@@ -10,7 +10,10 @@ The port runs the text towers of Qwen2.5-VL and Qwen3: GQA attention with
 optional q/k/v biases and per-head q/k RMS norms, NEOX RoPE, a SwiGLU MLP,
 a causal mask plus an optional padding mask, and the hidden state after a
 chosen layer (``output_layer``, or several concatenated:
-``output_layers``).  The attention is causal and takes the plain path
+``output_layers``), by default the state after the final norm.  The
+``qwen_image`` chat template (``CHAT_TEMPLATES``) and its 34-id drop are
+Qwen-Image's; the JAX package's other templates are not ported.  The
+attention is causal and takes the plain path
 (``flash=False``), as the JAX package runs it; the linears may be
 ``Q4Tensor``s (a q4_0 text encoder).
 
@@ -241,3 +244,16 @@ def llm_forward(p, input_ids: torch.Tensor, cfg: LLMConfig = QWEN25_VL_7B_CONFIG
             picked.append(h)
         return torch.cat(picked, dim=-1)
     return h
+
+
+# chat templates (the JAX package's ``CHAT_TEMPLATES``, Qwen-Image's alone):
+# name → (template, ids of its system prefix dropped from the states)
+CHAT_TEMPLATES = {
+    "qwen_image": (
+        "<|im_start|>system\nDescribe the image by detailing the color, shape, "
+        "size, texture, quantity, text, spatial relationships of the objects and "
+        "background:<|im_end|>\n<|im_start|>user\n{}<|im_end|>\n"
+        "<|im_start|>assistant\n",
+        34,
+    ),
+}

@@ -1,18 +1,21 @@
-"""Wan 2.1 3-D causal video VAE, the decode half (counterpart of
-``sdtpu/models/wan_vae.py``: 8× spatial, 4× temporal, 16 latent channels).
+"""Wan 2.1 3-D causal video VAE (counterpart of ``sdtpu/models/wan_vae.py``:
+8× spatial, 4× temporal, 16 latent channels; ``wan_vae_decode``,
+``wan_vae_encode``, ``init_wan_vae_params``' layout as ``param_specs``).
 
-Params are keyed by the Wan VAE checkpoint names (``conv2``,
-``decoder.conv1``, ``decoder.middle.{0,1,2}``, ``decoder.upsamples.N``
-with ``residual.{0,2,3,6}``, ``shortcut``, ``resample.1``, ``time_conv``,
-``decoder.head.{0,2}``); video tensors are [B, T, H, W, C].  As in the JAX
-package the whole clip runs as one forward: every causal temporal
-convolution is a 3-D convolution with (kt - 1) zero frames in front, and
-the temporal upsample passes frame 0 through and convolves frames 1..T.
-The convolutions are cuDNN's (``F.conv3d`` / ``F.conv2d`` on
-channels-last views), as the reference computes them outside any Pallas
-kernel; the per-frame mid-block attention keeps the reference's plain
-float32 softmax and does not go to flash.  ``wan_vae_encode`` (I2V,
-vid2vid) is not ported.
+Params are keyed by the Wan VAE checkpoint names (``conv1`` / ``conv2``,
+the quant convolutions; ``{encoder,decoder}.conv1``,
+``{encoder,decoder}.middle.{0,1,2}``, ``encoder.downsamples.N`` /
+``decoder.upsamples.N`` with ``residual.{0,2,3,6}``, ``shortcut``,
+``resample.1``, ``time_conv``; ``{encoder,decoder}.head.{0,2}``); video
+tensors are [B, T, H, W, C].  As in the JAX package the whole clip runs as
+one forward: every causal temporal convolution is a 3-D convolution with
+(kt - 1) zero frames in front, and the temporal up- and downsamples pass
+frame 0 through (the downsample's stride-2 convolution over fewer than 3
+frames gives none, as at T = 1, an image).  The convolutions are cuDNN's
+(``F.conv3d`` / ``F.conv2d`` on channels-last views), as the reference
+computes them outside any Pallas kernel; the per-frame mid-block attention
+keeps the reference's plain float32 softmax and does not go to flash.
+Qwen-Image runs the VAE in image mode: one frame, ``z[:, None]``.
 """
 from __future__ import annotations
 
@@ -137,6 +140,25 @@ def _spatial_upsample(p, pre, x):
     return y.reshape(b, t, *y.shape[1:])
 
 
+def _temporal_downsample(p, pre, x):
+    """Frame 0 passes through; a stride-2 convolution (kt 3, no padding)
+    over all frames follows it: 1 + 2m → 1 + m frames (a clip of fewer than
+    3 frames gives only frame 0)."""
+    head = x[:, :1]
+    if x.shape[1] < 3:
+        return head
+    y = causal_conv3d(x, p[f"{pre}.time_conv.weight"], p[f"{pre}.time_conv.bias"], stride=(2, 1, 1),
+                      spatial_pad=0, temporal_pad=0)
+    return torch.cat([head, y], dim=1)
+
+
+def _spatial_downsample(p, pre, x):
+    """One zero row and column at the bottom and right, then a stride-2 3x3
+    convolution on each frame."""
+    return _conv2d_frames(x, p[f"{pre}.resample.1.weight"], p[f"{pre}.resample.1.bias"], stride=2,
+                          padding=((0, 1), (0, 1)))
+
+
 def wan_vae_decode(p, z: torch.Tensor, cfg: WanVAEConfig = WAN21_VAE_CONFIG) -> torch.Tensor:
     """z: [B, Tl, h, w, z_dim] raw VAE latent (``diffusion_to_vae_latents``
     first) → video [B, 1 + 4(Tl - 1), 8h, 8w, 3] in [-1, 1]."""
@@ -161,9 +183,36 @@ def wan_vae_decode(p, z: torch.Tensor, cfg: WanVAEConfig = WAN21_VAE_CONFIG) -> 
     return causal_conv3d(silu(x), p["decoder.head.2.weight"], p["decoder.head.2.bias"])
 
 
-def param_specs(cfg: WanVAEConfig = WAN21_VAE_CONFIG) -> dict:
-    """name → (shape, init) of ``init_wan_vae_params(decode_only=True)``:
-    convolutions normal (std 0.05), biases zero, RMS gains one."""
+def wan_vae_encode(p, x: torch.Tensor, cfg: WanVAEConfig = WAN21_VAE_CONFIG) -> torch.Tensor:
+    """x: [B, T, H, W, 3] video in [-1, 1], T = 1 + 4k → the raw latent's
+    posterior mean [B, 1 + k, H/8, W/8, z_dim] (``vae_to_diffusion_latents``
+    maps it to the diffusion space)."""
+    h = causal_conv3d(x, p["encoder.conv1.weight"], p["encoder.conv1.bias"])
+    n_levels = len(cfg.dim_mult)
+    idx = 0
+    for i in range(n_levels):
+        for _ in range(cfg.num_res_blocks):
+            h = _resblock(p, f"encoder.downsamples.{idx}", h)
+            idx += 1
+        if i != n_levels - 1:
+            pre = f"encoder.downsamples.{idx}"
+            h = _spatial_downsample(p, pre, h)
+            if cfg.temporal_downsample[i]:
+                h = _temporal_downsample(p, pre, h)
+            idx += 1
+    h = _resblock(p, "encoder.middle.0", h)
+    h = _attn_block(p, "encoder.middle.1", h)
+    h = _resblock(p, "encoder.middle.2", h)
+    h = _rms(p, "encoder.head.0", h)
+    h = causal_conv3d(silu(h), p["encoder.head.2.weight"], p["encoder.head.2.bias"])
+    h = causal_conv3d(h, p["conv1.weight"], p["conv1.bias"])  # 1x1x1 quant conv
+    return h[..., :cfg.z_dim]  # the mean; the log-variance is dropped
+
+
+def param_specs(cfg: WanVAEConfig = WAN21_VAE_CONFIG, decode_only: bool = True) -> dict:
+    """name → (shape, init) of ``init_wan_vae_params(decode_only=...)``:
+    convolutions normal (std 0.05), biases zero, RMS gains one; the encoder
+    and ``conv1`` first unless ``decode_only``."""
     specs = {}
 
     def conv3(name, o, i, kt=3, kh=3, kw=3):
@@ -185,15 +234,40 @@ def param_specs(cfg: WanVAEConfig = WAN21_VAE_CONFIG) -> dict:
         if ci != co:
             conv3(f"{pre}.shortcut", co, ci, 1, 1, 1)
 
+    def attn(pre, c):
+        gamma(f"{pre}.norm", c)
+        conv2(f"{pre}.to_qkv", 3 * c, c, 1)
+        conv2(f"{pre}.proj", c, c, 1)
+
     d = cfg.dim
     n_levels = len(cfg.dim_mult)
+    if not decode_only:
+        dims_e = [d] + [d * m for m in cfg.dim_mult]
+        conv3("encoder.conv1", dims_e[0], cfg.input_channels)
+        idx = 0
+        for i in range(n_levels):
+            ci, co = dims_e[i], dims_e[i + 1]
+            for _ in range(cfg.num_res_blocks):
+                res(f"encoder.downsamples.{idx}", ci, co)
+                ci = co
+                idx += 1
+            if i != n_levels - 1:
+                conv2(f"encoder.downsamples.{idx}.resample.1", co, co)
+                if cfg.temporal_downsample[i]:
+                    conv3(f"encoder.downsamples.{idx}.time_conv", co, co, 3, 1, 1)
+                idx += 1
+        top = dims_e[-1]
+        res("encoder.middle.0", top, top)
+        attn("encoder.middle.1", top)
+        res("encoder.middle.2", top, top)
+        gamma("encoder.head.0", top)
+        conv3("encoder.head.2", cfg.z_dim * 2, top)
+        conv3("conv1", cfg.z_dim * 2, cfg.z_dim * 2, 1, 1, 1)
     dims_d = [d * cfg.dim_mult[-1]] + [d * m for m in reversed(cfg.dim_mult)]
     conv3("conv2", cfg.z_dim, cfg.z_dim, 1, 1, 1)
     conv3("decoder.conv1", dims_d[0], cfg.z_dim)
     res("decoder.middle.0", dims_d[0], dims_d[0])
-    gamma("decoder.middle.1.norm", dims_d[0])
-    conv2("decoder.middle.1.to_qkv", 3 * dims_d[0], dims_d[0], 1)
-    conv2("decoder.middle.1.proj", dims_d[0], dims_d[0], 1)
+    attn("decoder.middle.1", dims_d[0])
     res("decoder.middle.2", dims_d[0], dims_d[0])
     idx = 0
     for i in range(n_levels):

@@ -242,6 +242,26 @@ def _host_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _q4_0_elements(h, device) -> torch.Tensor:
+    """q4_0's packed bytes (each 32-element block's byte i holding elements i
+    and i + 16, stored as value + 8) → uint8 [N, K] of value + 8 in element
+    order, reordered on ``device`` after the bytes have moved there."""
+    p = _host_tensor(h.q, device).reshape(-1, 16)
+    return torch.cat([p & 0x0F, p >> 4], dim=1).reshape(h.shape)
+
+
+def host_quant_values(h, device="cuda") -> torch.Tensor:
+    """A ``HostQuant``'s values as float32 on ``device``: q · scale − zero
+    per group, the float32 product and difference of
+    ``HostQuant.dequantize``, computed after the blocks (q4_0's still
+    nibble-packed) have moved to the device."""
+    q = _q4_0_elements(h, device).to(torch.int8) - 8 if h.qbits == 4 else _host_tensor(h.q, device)
+    v = q.reshape(-1, h.group).float() * _host_tensor(h.scale, device).reshape(-1, 1)
+    if h.zero is not None:
+        v = v - _host_tensor(h.zero, device).reshape(-1, 1)
+    return v.reshape(h.shape)
+
+
 def from_host_quant(h, device="cuda"):
     """``sdtpu_torch.io.gguf.HostQuant`` (a checkpoint's own blocks) → ``Q4Tensor``
     or ``GroupQuantTensor`` on ``device``, with the checkpoint's integers and
@@ -249,20 +269,24 @@ def from_host_quant(h, device="cuda"):
 
     As in the JAX package: symmetric blocks whose values fit [−8, 7] (q4_0,
     q3_k) with K >= 512 pack to 4 bits; everything else keeps int8 with its
-    group scales (and zeros for the affine types)."""
+    group scales (and zeros for the affine types).  q4_0's nibbles are
+    reordered on ``device`` (``_q4_0_elements``), never widened on the
+    host."""
     n, k = h.shape
     group = h.group
     if k % group:
         raise ValueError(f"K={k} not a multiple of group={group}")
-    q = h.unpack_q().reshape(n, k)  # element order, whatever ggml's packing was
     scale = h.scale.reshape(n, k // group)
+    kp = _round_up(k, Q4_K_MULTIPLE)
+    scale_p = np.pad(scale, ((0, 0), (0, (kp - k) // group)), constant_values=1.0)
+    if h.qbits == 4 and h.zero is None and group in Q4_GROUPS and k >= Q4_MIN_K:
+        e = torch.nn.functional.pad(_q4_0_elements(h, device), (0, kp - k), value=8)  # + 8: zeros
+        return Q4Tensor(packed=(e[:, 0::2] | (e[:, 1::2] << 4)).contiguous(),
+                        scale=_host_tensor(scale_p, device), k=k, group=group)
+    q = h.unpack_q().reshape(n, k)  # element order, whatever ggml's packing was
     if h.zero is None and group in Q4_GROUPS and k >= Q4_MIN_K and q.min() >= -8 and q.max() <= 7:
-        kp = _round_up(k, Q4_K_MULTIPLE)
-        if kp != k:
-            q = np.pad(q, ((0, 0), (0, kp - k)))
-            scale = np.pad(scale, ((0, 0), (0, (kp - k) // group)), constant_values=1.0)
-        packed = _pack_nibbles(torch.from_numpy(np.ascontiguousarray(q)))
-        return Q4Tensor(packed=packed.to(device), scale=_host_tensor(scale, device), k=k,
+        packed = _pack_nibbles(torch.from_numpy(np.pad(q, ((0, 0), (0, kp - k)))))
+        return Q4Tensor(packed=packed.to(device), scale=_host_tensor(scale_p, device), k=k,
                         group=group)
     zero = None if h.zero is None else _host_tensor(h.zero.reshape(n, k // group), device)
     return GroupQuantTensor(q=_host_tensor(q, device), scale=_host_tensor(scale, device),

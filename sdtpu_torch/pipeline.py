@@ -1,6 +1,6 @@
 """txt2img, img2img, masked img2img and the latent hires fix for FLUX, SD1.x,
-SD2.x, SDXL and SD3 (the UNets' inpainting and instruct-pix2pix variants
-too), and txt2vid for Wan2.1 T2V (counterpart of ``sdtpu/pipeline.py``:
+SD2.x, SDXL, SD3, Z-Image and Qwen-Image (the UNets' inpainting and
+instruct-pix2pix variants too), and txt2vid for Wan2.1 T2V (counterpart of ``sdtpu/pipeline.py``:
 ``DiffusionPipeline.generate`` with its init image, init latent, mask,
 the inpainting and pix2pix UNets' concat latents, their image guidance and
 the pix2pix edit image (``ref_images``),
@@ -307,8 +307,8 @@ class DiffusionPipeline:
         overlap in pixels = the latent units times the scale factor)."""
         if self.vae_encode_fn is None:
             raise NotImplementedError(f"{self.version.value}: the port has no VAE encoder for this "
-                                      "model (img2img is ported for FLUX.1, the UNet families and "
-                                      "SD3)")
+                                      "model (img2img is ported for FLUX.1, the UNet families, SD3, "
+                                      "Z-Image and Qwen-Image)")
         if self._tae is not None:
             raise NotImplementedError("encode_image with a TAESD decoder attached: the TAE params "
                                       "hold no encoder (set_tae(None) restores the full VAE)")

@@ -1,5 +1,5 @@
-"""HTTP server for the PyTorch/CUDA port: FLUX.1, SD1.x, SD2.x, SDXL, SD3 and Z-Image txt2img,
-img2img, masked img2img and the latent hires fix (the UNets' inpainting and
+"""HTTP server for the PyTorch/CUDA port: FLUX.1, SD1.x, SD2.x, SDXL, SD3, Z-Image and
+Qwen-Image txt2img, img2img, masked img2img and the latent hires fix (the UNets' inpainting and
 instruct-pix2pix variants too) behind the reference's three API families
 (this package's copy of ``sdtpu/server.py``: ``Job``, ``JobManager``,
 ``flatten_native_params``, ``extract_extra_args``, ``params_from_json``, the image part
@@ -13,6 +13,8 @@ of ``run_generation``, ``make_handler``, ``serve`` and ``main``).
         --clip_g clip_g.safetensors --t5xxl t5xxl-q8_0.gguf --port 7860
     python -m sdtpu_torch.server --diffusion-model z_image_turbo-q8_0.gguf \\
         --llm Qwen3-4B-q4_0.gguf --vae ae.safetensors --port 7860
+    python -m sdtpu_torch.server --diffusion-model qwen-image-q4_0.gguf \\
+        --llm Qwen2.5-VL-7B-q4_0.gguf --vae wan_2.1_vae.safetensors --port 7860
 
 Routes the port answers:
   native:  POST /sdcpp/v1/img_gen (async job), GET /sdcpp/v1/jobs/<id>,

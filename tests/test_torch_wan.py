@@ -321,6 +321,37 @@ def test_wan_vae_decode_is_causal(vae_params, t):
     assert (a[:, first] - b[:, first]).abs().max() > 1e-4
 
 
+def test_full_vae_specs_match_jax():
+    """The whole Wan VAE, encoder first (``init_wan_vae_params(
+    decode_only=False)``), by name and shape."""
+    want = jparam_specs(jwv.init_wan_vae_params, jwv.WAN21_VAE_CONFIG, 0, decode_only=False)
+    got = twv.param_specs(twv.WAN21_VAE_CONFIG, decode_only=False)
+    assert {k: tuple(v.shape) for k, v in want.items()} == {k: s for k, (s, _) in got.items()}
+    assert any(k.startswith("encoder.") for k in got)
+
+
+@pytest.fixture(scope="module")
+def full_vae_params():
+    jp = _perturbed(jwv.init_wan_vae_params(_j(TVAE), seed=6, decode_only=False), 7)
+    return jp, from_jax_params(jp, device="cpu")
+
+
+_jencode = jax.jit(lambda p, x: jwv.wan_vae_encode(p, x, _j(TVAE)))
+
+
+@pytest.mark.parametrize("t,h,w", [(1, 32, 48), (5, 24, 16)])
+def test_wan_vae_encode_matches_jax(full_vae_params, t, h, w):
+    """The posterior mean of an image (one frame: the temporal downsamples
+    pass it through) and of a 5-frame clip (5 → 3 → 2 frames), rtol = atol
+    = 1e-4 as the decode."""
+    jp, tp = full_vae_params
+    x = np.random.default_rng(t * h).uniform(-1, 1, (1, t, h, w, 3)).astype(np.float32)
+    want = _jencode(jp, jnp.asarray(x))
+    got = twv.wan_vae_encode(tp, torch.from_numpy(x), TVAE)
+    assert got.shape == want.shape == (1, 1 + (t - 1) // 4, h // 8, w // 8, TVAE.z_dim)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
 def test_latent_statistics_round_trip():
     z = _latent(3, 2, 3, 4, c=16)
     for fn_t, fn_j in ((twv.diffusion_to_vae_latents, jwv.diffusion_to_vae_latents),

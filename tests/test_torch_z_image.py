@@ -241,6 +241,24 @@ def test_cfg_over_contexts_of_different_lengths_matches_jax(pipes):
     assert np.abs(got.images.astype(int) - want.images.astype(int)).max() <= 1
 
 
+def test_img2img_matches_jax(jpipe, pipes):
+    """``generate(init_image=...)`` on Z-Image: the init image through the
+    FLUX VAE's encoder (held to the JAX one's), 3 of 4 steps at strength
+    0.6 (the first sampled sigma below 1, so the init latent enters the
+    start), the noise scaled around the init latent; latents at the
+    golden's 5e-4 and images within one uint8 level of the JAX pipeline's."""
+    _, tp = pipes
+    gp = _gp(sample_steps=4, strength=0.6)
+    img = np.random.default_rng(4).integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    np.testing.assert_allclose(tp.encode_image(img), jpipe.encode_image(img), rtol=5e-4, atol=5e-4)
+    want = jpipe.generate(jconfig.GenerationParams(**dataclasses.asdict(gp)), init_image=img)
+    got = tp.generate(gp, init_image=img)
+    np.testing.assert_allclose(got.latents, want.latents, rtol=5e-4, atol=5e-4)
+    assert np.abs(got.images.astype(int) - want.images.astype(int)).max() <= 1
+    assert tp.last_timings["steps"] == jpipe.last_timings["steps"] == 3
+    assert tp.last_timings["encode"] > 0
+
+
 def test_synthesized_small_pipeline_runs():
     """Random weights drawn by the port itself, the default dtype (float32),
     without CFG."""
