@@ -258,6 +258,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      VAE call (a decode, the init image's encode, the masked or edit image's
      encode), nothing else, and no attention in the plain version on the
      card (``_check_unet_family``).
+ 10j. the sampling layer, inside 10b, 10d, 10e and Z-Image's paths on their
+     bf16 pipelines (each request in its own launch window, counted under
+     ``sampling_sd15`` / ``_sd3`` / ``_wan`` / ``_z_image``; one ``sampling``
+     line a request with its forwards, launch check and times beside the
+     card): on SD1.5 the 13 methods the sampling slice ported (512², CFG 7,
+     6 karras steps; each replayed on the CPU in float32 from the card's
+     recorded denoised estimates, the final latent within
+     ``SAMPLING_REPLAY_LIMIT`` relative L2; dpm2 and res_2s two forwards a
+     step but the last), the 11 new eps schedules (4 euler steps) and APG;
+     on SD3.5-Medium skip-layer guidance (layers 7-9, the CLI's window) at
+     1024² x 10 beside the same request without it (37 flash calls a
+     forward, 31 a skip-layer forward); on Wan2.1 SLG on a 9-frame x 2-step
+     clip (60 and 58); on Z-Image-Turbo 1024² x 8 uncached and under each
+     of the five step caches (34 calls a computed forward), the flow
+     schedules and the flow dpm++2s_a.  ``elapsed sampling`` sums the parts.
  11. main path 5, the entry points, on files: a full FLUX.1-dev checkpoint
      set written by ``sdtpu_torch.tools.flux_files`` into a temporary
      directory under ``build/chip_smoke/`` (removed after; the free disk
@@ -1992,14 +2007,16 @@ def reference_check():
     return out
 
 
-def _windowed(wrappers, path, run):
+def _windowed(wrappers, path, run, echo: bool = True):
     """Run one path with every launch count set to 0 first; each kernel the
-    path runs must have launched, and none it must not."""
+    path runs must have launched, and none it must not (``echo``: print the
+    counts)."""
     for fn, attr in wrappers.values():
         setattr(fn, attr, 0)
     out = run()
     counts = {name: getattr(fn, attr) for name, (fn, attr) in wrappers.items()}
-    print(f"launches {path} " + json.dumps(counts), flush=True)
+    if echo:
+        print(f"launches {path} " + json.dumps(counts), flush=True)
     idle = [n for n in PATH_KERNELS[path] if counts[n] == 0]
     stray = [n for n in PATH_IDLE.get(path, ()) if counts[n] != 0]
     stray += [n for n, n32 in F32_PATHS.get(path, ()) if counts[n] != counts[n32]]
@@ -2479,8 +2496,8 @@ TAE_SEED = 5
 
 def unet_calls(request: dict, inpaint: bool = False, edit: bool = False, decode: int = 1) -> tuple:
     """(UNet calls, prompt encodes, VAE calls) of one request: a call a
-    sampled step (the CFG batch of two is one call; heun makes two but on
-    its last step), a third a step under image guidance (``img_cfg_scale``
+    sampled step (the CFG batch of two is one call; heun, dpm2, dpm++2s_a
+    and res_2s make two but on their last step), a third a step under image guidance (``img_cfg_scale``
     set apart from ``cfg_scale`` under CFG, on the concat UNets); an encode
     a prompt and one more for the negative one under CFG; ``decode`` VAE
     calls a decode (0 through TAESD-XL, a tile count under VAE tiling), one
@@ -2490,13 +2507,18 @@ def unet_calls(request: dict, inpaint: bool = False, edit: bool = False, decode:
     init = "init_image" in request
     steps = (img2img_steps(request["sample_steps"], request.get("strength", 0.75)) if init
              else request["sample_steps"])
-    calls = 2 * steps - 1 if request.get("sample_method") == "heun" else steps
+    calls = 2 * steps - 1 if request.get("sample_method") in TWO_FORWARD_METHODS else steps
     cfg = request.get("cfg_scale", 7.0)
     img_cfg = request.get("img_cfg_scale")
     if (inpaint or edit) and cfg != 1.0 and img_cfg is not None and img_cfg != cfg:
         calls *= 2
     vae = decode + init + (inpaint and init) + (edit and (init or "ref_images" in request))
     return calls, 1 + (cfg != 1.0), vae
+
+
+# the methods that make two forwards a step but on the last (on an eps or v
+# schedule; the flow dpm++2s_a makes one on a step from sigma 1 too)
+TWO_FORWARD_METHODS = ("heun", "dpm2", "dpm++2s_a", "res_2s")
 
 
 def _totals(requests, **kind) -> tuple:
@@ -2601,6 +2623,7 @@ def sd15_paths(wrappers, card: str, launches: dict, profile=None):
         if not f32:
             rep, info["hires"] = sd15_hires_path(pipe, wrappers, card, launches)
             reports += rep
+            _sampling_part("sd15", sampling_sd15(pipe, wrappers, card, launches))
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
@@ -3194,15 +3217,16 @@ SD3_T5_LAYERS = 24
 
 
 def _check_sd3_launches(path: str, counts: dict, forwards: int, encodes: int, decodes: int,
-                        plain: dict, mmdit_calls: int, f32: bool = False, t5_q4: bool = True) -> dict:
+                        plain: dict, mmdit_calls: int, f32: bool = False, t5_q4: bool = True,
+                        extra_calls: int = 0) -> dict:
     """Flash at D 64 (bf16, or float32) launched exactly ``mmdit_calls`` a
-    MMDiT forward times the forwards plus ``SD3_CLIP_ATTENTION_CALLS`` a
-    prompt encode; the VAE's D 512 once a decode; the 4-bit matmul
+    MMDiT forward times the forwards plus ``extra_calls`` (skip-layer
+    forwards) plus ``SD3_CLIP_ATTENTION_CALLS`` a prompt encode; the VAE's D 512 once a decode; the 4-bit matmul
     ``SD3_T5_LINEARS`` times a prompt encode, all in the path's form (bf16
     split-K at 77 rows, or float32), none where T5 was dequantized
     (``t5_q4`` False: the entry points); and on the card no attention ran in
     the plain version but T5's ``SD3_T5_LAYERS`` a prompt encode."""
-    d64 = mmdit_calls * forwards + SD3_CLIP_ATTENTION_CALLS * encodes
+    d64 = mmdit_calls * forwards + extra_calls + SD3_CLIP_ATTENTION_CALLS * encodes
     q4 = SD3_T5_LINEARS * encodes if t5_q4 else 0
     if f32:  # every flash launch float32, the VAE's D 512 among them
         got = {"flash_f32": counts["flash_attention_f32"],
@@ -3305,6 +3329,7 @@ def sd3_paths(wrappers, card: str, launches: dict, profile=None):
                 "sd3_img2img", launches["sd3_img2img"], steps,
                 _forwards_and_encodes([SD3_IMG2IMG_REQUEST])[1], 2, plain, calls)
             reports += rep
+            _sampling_part("sd3", sampling_sd3(pipe, wrappers, card, launches))
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
@@ -3374,9 +3399,11 @@ WAN_T5_LAYERS = 24
 
 
 def _check_wan_launches(path: str, counts: dict, forwards: int, encodes: int, plain: dict,
-                        f32: bool = False, t5_q4: bool = True, calls: int = WAN_ATTENTION_CALLS) -> dict:
+                        f32: bool = False, t5_q4: bool = True, calls: int = WAN_ATTENTION_CALLS,
+                        extra_calls: int = 0) -> dict:
     """Flash at D 128 (bf16, or float32) launched exactly ``calls`` a DiT
-    forward times the forwards, and nothing else of flash; the 4-bit matmul
+    forward times the forwards plus ``extra_calls`` (skip-layer forwards),
+    and nothing else of flash; the 4-bit matmul
     ``WAN_T5_LINEARS`` times a prompt encode in the path's form (bf16 wgmma
     at 512 rows, or float32), none where UMT5 was dequantized (``t5_q4``
     False: the CLI); and on the card no attention ran in the plain version
@@ -3388,8 +3415,8 @@ def _check_wan_launches(path: str, counts: dict, forwards: int, encodes: int, pl
            "flash_f32": counts["flash_attention_f32"],
            "q4_t5": counts["q4_matmul_f32" if f32 else "q4_matmul_wgmma"], "q4_all": counts["q4_matmul"],
            "plain_attention_on_card_besides_t5": plain["calls"] - WAN_T5_LAYERS * encodes}
-    want = {"flash_d128": calls * forwards, "flash_other": 0,
-            "flash_f32": calls * forwards if f32 else 0, "q4_t5": q4, "q4_all": q4,
+    want = {"flash_d128": calls * forwards + extra_calls, "flash_other": 0,
+            "flash_f32": calls * forwards + extra_calls if f32 else 0, "q4_t5": q4, "q4_all": q4,
             "plain_attention_on_card_besides_t5": 0}
     if got != want:
         raise RuntimeError(f"path {path}: launches {got}, not {want} ({forwards} DiT forwards of "
@@ -3561,6 +3588,7 @@ def wan_paths(wrappers, card: str, launches: dict, profile=None):
                 cond = pipe.conditioner.get_learned_condition(WAN_REQUEST["prompt"]).c_crossattn
             extra["forward_plain"] = wan_forward_plain_check(pipe, cond)
             del cond
+            _sampling_part("wan", sampling_wan(pipe, wrappers, card, launches))
             if profile:
                 prof[label] = profile_request(pipe, WAN_REQUEST, profile, label, card)
         del pipe, res
@@ -3884,6 +3912,7 @@ def z_image_paths(wrappers, card: str, launches: dict, profile=None):
                 wrappers, pipe, cond, "z_image",
                 {n: c + Z_IMAGE_EMBEDDER_W8A8[n] for n, c in Z_IMAGE_W8A8_PER_FORWARD.items()})
             del cond
+            _sampling_part("z_image", sampling_z_image(pipe, wrappers, card, launches))
             if profile:
                 prof[label] = profile_request(pipe, Z_IMAGE_REQUEST, profile, label, card)
         del pipe
@@ -4821,6 +4850,309 @@ def profile_request(pipe, request: dict, table: str, label: str, card: str) -> d
     return summary
 
 
+# ------------------------------------------------------------------ sampling
+# Phase 10j, the sampling layer on the card, on the bf16 pipelines its
+# families' paths built (each request in its own launch window, counted
+# under ``sampling_<family>``; one ``sampling`` line a request):
+#   - SD1.5 (after ``hires``): each of the 13 methods ported in the sampling
+#     slice once at 512², CFG 7, 6 steps of the karras schedule (eta 1, TCD
+#     0.3), every model call's denoised estimates recorded on the card and
+#     replayed through the same sampler on the CPU in float32 (the final
+#     latent within SAMPLING_REPLAY_LIMIT relative L2 of the card's), and
+#     the UNet forwards (two a step but the last for dpm2 and res_2s) held to
+#     the flash launches; the 11 new eps schedules through 4 euler steps; one
+#     APG request;
+#   - SD3.5-Medium (after ``sd3_img2img``): the bench's 1024² request cut to
+#     SD3_SLG_STEPS, with and without SLG (layers 7, 8, 9, the CLI's window
+#     0.01-0.2): 37 flash calls a forward, 31 a skip-layer forward, one of
+#     those a step inside the window;
+#   - Wan2.1 (after ``wan``'s checks): 9 frames x 2 steps with block 9
+#     skipped at step 0 (60 calls a forward, 58 the skip-layer one);
+#   - Z-Image-Turbo (after ``z_image``'s checks): the 1024² x 8 request
+#     uncached and under each of the five step caches (34 flash calls a
+#     computed forward; the skipped forwards and the wall time beside the
+#     uncached request), the flow schedules at 4 euler steps, and the flow
+#     form of dpm++2s_a.
+SAMPLING_METHODS = ("euler_cfg_pp", "euler_a_cfg_pp", "euler_ge", "dpm2", "dpm++2m_v2", "dpm++2m_sde",
+                    "dpm++2m_sde_bt", "ipndm_v", "ddim_trailing", "tcd", "res_multistep", "res_2s",
+                    "er_sde")
+SAMPLING_EPS_SCHEDULES = ("karras", "exponential", "ays", "gits", "sgm_uniform", "simple", "smoothstep",
+                          "bong_tangent", "kl_optimal", "lcm", "beta")
+SAMPLING_FLOW_SCHEDULES = ("flux", "flux2", "sefi", "ltx2", "logit_normal")
+SAMPLING_SD15_REQUEST = dict(SD15_REQUEST, prompt="a watercolour of a harbour at dawn", sample_steps=6,
+                             schedule="karras", eta=1.0)
+# the final latent of the card's sampler against the same sampler replayed on
+# the CPU in float32 from the card's recorded denoised estimates: only the
+# step arithmetic's rounding (float32 on both sides, the transcendentals'
+# last bits) separates them; a wrong coefficient or a lost step is ~1e-2
+SAMPLING_REPLAY_LIMIT = 1e-4
+SAMPLING_APG_REQUEST = dict(SAMPLING_SD15_REQUEST, sample_method="euler", apg_eta=0.5,
+                            apg_momentum=0.5, apg_norm_threshold=15.0)
+SD3_SLG_STEPS = 10
+SD3_SLG_LAYERS = (7, 8, 9)
+SD3_SLG_REQUEST = dict(SD3_REQUEST, prompt="a lighthouse on a cliff, oil painting",
+                       sample_steps=SD3_SLG_STEPS, slg_scale=2.5, skip_layers=SD3_SLG_LAYERS,
+                       slg_start=0.01, slg_end=0.2)
+WAN_SLG_REQUEST = dict(WAN_REQUEST, sample_steps=2, frames=WAN_CLI_FRAMES, slg_scale=2.0,
+                       skip_layers=(9,), slg_start=0.0, slg_end=0.5)
+# each cache's options at 8 steps (the thresholds raised so that the
+# data-dependent caches skip on random weights; DBCache under the static SCM
+# policy of its mask)
+SAMPLING_CACHES = {"easycache": {"reuse_threshold": 1.0}, "ucache": {"threshold": 1.0},
+                   "taylorseer": {}, "spectrum": {"warmup_steps": 2},
+                   "cache_dit": {"max_warmup_steps": 1, "scm_mask": "1,1,0,0,1,0,1,1",
+                                 "scm_policy_dynamic": False}}
+for _path, _as in (("sampling_sd15", "sd15"), ("sampling_sd3", "sd3"), ("sampling_wan", "wan"),
+                   ("sampling_z_image", "z_image")):
+    PATH_KERNELS[_path], PATH_IDLE[_path] = PATH_KERNELS[_as], PATH_IDLE[_as]
+
+
+@contextlib.contextmanager
+def counted_forwards(pipe):
+    """Count the diffusion forwards of ``pipe`` (a CFG batch is one; a
+    skip-layer forward is counted in ``skip`` too) while the block runs."""
+    import inspect
+
+    box = {"calls": 0, "skip": 0}
+    fn = pipe.diffusion_fn
+
+    def counted(*a, **kw):
+        box["calls"] += 1
+        box["skip"] += bool(kw.get("skip_layers"))
+        return fn(*a, **kw)
+
+    counted.__signature__ = inspect.signature(fn)  # the pipeline reads skip_layers from it
+    pipe.diffusion_fn = counted
+    try:
+        yield box
+    finally:
+        pipe.diffusion_fn = fn
+
+
+@contextlib.contextmanager
+def recorded_sampler():
+    """Record each ``sample`` call of the pipeline: its initial latent, its
+    arguments and every model call's (denoised, uncond) estimates, kept on
+    the card until the loop ends, then copied to the CPU."""
+    import numpy as np
+
+    import sdtpu_torch.pipeline as pipeline_mod
+
+    real, log = pipeline_mod.sample, []
+
+    def spy(model_fn, x, sigmas, **kw):
+        outs = []
+
+        def recorded(xt, sigma, i):
+            den, unc = model_fn(xt, sigma, i)
+            outs.append((den.detach().clone(), unc.detach().clone()))
+            return den, unc
+
+        out = real(recorded, x, sigmas, **kw)
+        log.append({"x": x.float().cpu(), "sigmas": np.asarray(sigmas), "kw": kw,
+                    "outs": [(d.float().cpu(), u.float().cpu()) for d, u in outs],
+                    "out": out.float().cpu()})
+        return out
+
+    pipeline_mod.sample = spy
+    try:
+        yield log
+    finally:
+        pipeline_mod.sample = real
+
+
+def replay_on_cpu(rec: dict) -> float:
+    """The recorded loop again on the CPU in float32, every model call
+    answered by the card's recorded estimates → the relative L2 of the
+    card's final latent from the replay's."""
+    from sdtpu_torch.diffusion.samplers import sample
+
+    outs = iter(rec["outs"])
+    kw = {k: v for k, v in rec["kw"].items() if k != "step_callback"}
+    got = sample(lambda xt, sigma, i: next(outs), rec["x"], rec["sigmas"], **kw)
+    if next(outs, None) is not None:
+        raise RuntimeError("the replay made fewer model calls than the card's loop")
+    return _rel(rec["out"], got)
+
+
+def sampling_request(pipe, wrappers, path: str, request: dict, card: str, check, launches: dict,
+                     replay: bool = False, step_cache=None, cache_options=None) -> dict:
+    """One request in its own launch window (its counts added to
+    ``launches[path]``); ``check(counts, plain, forwards)`` holds the flash
+    launches; ``replay``: the sampler replayed on the CPU.  → its
+    ``sampling`` line."""
+    import numpy as np
+    import torch
+
+    from sdtpu_torch.config import GenerationParams
+
+    kw = dict(request)
+    frames = kw.pop("frames", None)
+    gp = GenerationParams(**kw)
+    pipe._cond_cache.clear()  # every request encodes its prompts
+
+    def run():
+        if frames is not None:
+            return pipe.generate_video(gp, frames=frames)
+        return pipe.generate(gp, step_cache=step_cache, cache_options=cache_options)
+
+    with plain_attention_on_card() as plain, counted_forwards(pipe) as fwd, \
+            recorded_sampler() as log:
+        res, counts = _windowed(wrappers, path, run, echo=False)
+    if not np.isfinite(res.latents).all() or res.latents.std() == 0:
+        raise RuntimeError(f"{path}: latents not finite or constant for {request}")
+    total = launches.setdefault(path, {k: 0 for k in counts})
+    for k, v in counts.items():
+        total[k] += v
+    tm = pipe.last_timings
+    line = {"path": path, "sampler": gp.sample_method, "schedule": gp.schedule, "steps": tm["steps"],
+            "size": [gp.width, gp.height], "cfg_scale": gp.cfg_scale, "eta": gp.eta,
+            "forwards": fwd["calls"], "skip_layer_forwards": fwd["skip"],
+            **({"frames": tm["frames"]} if frames else {}),
+            **({"slg": [gp.slg_scale, list(gp.skip_layers), gp.slg_start, gp.slg_end]}
+               if gp.slg_scale else {}),
+            **({"apg": [gp.apg_eta, gp.apg_momentum, gp.apg_norm_threshold]}
+               if gp.apg_momentum or gp.apg_eta != 1.0 else {}),
+            **({"cache": step_cache, "cache_options": cache_options,
+                "cache_skipped": tm["cache_skipped"]} if step_cache else {}),
+            "launch_check": check(counts, plain, fwd["calls"], fwd["skip"], tm),
+            "timings_s": {k: tm[k] for k in ("cond", "sample", "decode", "total")}, "card": card}
+    if replay:
+        line["replay_rel_l2"] = replay_on_cpu(log[0])
+        line["replay_limit"] = SAMPLING_REPLAY_LIMIT
+        if not line["replay_rel_l2"] <= SAMPLING_REPLAY_LIMIT:
+            raise RuntimeError(f"{path} {gp.sample_method}: the card's sampler is "
+                               f"{line['replay_rel_l2']:.3g} from its CPU replay")
+    print("sampling " + json.dumps(line), flush=True)
+    torch.cuda.empty_cache()
+    return line
+
+
+def _forwards_as(path: str, got: int, want: int) -> None:
+    if got != want:
+        raise RuntimeError(f"{path}: {got} diffusion forwards, not {want}")
+
+
+# the sampling phase's lines and each part's seconds
+SAMPLING = {"lines": [], "seconds": {}}
+
+
+def _sampling_part(family: str, result: tuple) -> None:
+    lines, seconds = result
+    SAMPLING["lines"] += lines
+    SAMPLING["seconds"][family] = seconds
+    print(f"elapsed sampling_{family} {seconds:.1f} s", flush=True)
+
+
+def sampling_sd15(pipe, wrappers, card: str, launches: dict) -> tuple:
+    """SD1.5's part of the sampling phase (above) → (lines, seconds)."""
+    t0 = time.time()
+    path, lines = "sampling_sd15", []
+
+    def unet(request):
+        def check(counts, plain, forwards, skip, tm):
+            want = unet_calls(dict(request, sample_steps=tm["steps"]))
+            _forwards_as(path, forwards, want[0])
+            return _check_unet_family(path, counts, "sd1", want, plain)
+        return check
+
+    for method in SAMPLING_METHODS:
+        req = dict(SAMPLING_SD15_REQUEST, sample_method=method, eta=0.3 if method == "tcd" else 1.0)
+        lines.append(sampling_request(pipe, wrappers, path, req, card, unet(req), launches,
+                                      replay=True))
+    for schedule in SAMPLING_EPS_SCHEDULES:
+        req = dict(SAMPLING_SD15_REQUEST, schedule=schedule, sample_method="euler", sample_steps=4)
+        lines.append(sampling_request(pipe, wrappers, path, req, card, unet(req), launches))
+    lines.append(sampling_request(pipe, wrappers, path, SAMPLING_APG_REQUEST, card,
+                                  unet(SAMPLING_APG_REQUEST), launches))
+    return lines, time.time() - t0
+
+
+def sampling_sd3(pipe, wrappers, card: str, launches: dict) -> tuple:
+    """SD3.5-Medium's request without SLG, then with it (above) → (lines,
+    seconds)."""
+    from sdtpu_torch.diffusion.guidance import slg_active_steps
+
+    t0 = time.time()
+    path, lines = "sampling_sd3", []
+    full = SD3_MMDIT_ATTENTION_CALLS[64]
+    skipped = full - sum(1 + (i < 13) for i in SD3_SLG_LAYERS)  # MMDiT-X's 13 self-attentions
+    for req in (dict(SD3_SLG_REQUEST, slg_scale=0.0), SD3_SLG_REQUEST):
+        i0, i1 = slg_active_steps(SD3_SLG_STEPS, req["slg_start"], req["slg_end"])
+        n_slg = max(i1 - i0, 0) if req["slg_scale"] else 0
+
+        def check(counts, plain, forwards, skip, tm, n_slg=n_slg):
+            _forwards_as(path, (forwards, skip), (SD3_SLG_STEPS + n_slg, n_slg))
+            return {**_check_sd3_launches(path, counts, SD3_SLG_STEPS, 2, 1, plain, full,
+                                          extra_calls=skipped * n_slg),
+                    "calls_a_forward": full, "calls_a_skip_layer_forward": skipped,
+                    "slg_window": [i0, i1]}
+
+        lines.append(sampling_request(pipe, wrappers, path, req, card, check, launches))
+    lines[1]["slg_extra_sample_s"] = lines[1]["timings_s"]["sample"] - lines[0]["timings_s"]["sample"]
+    print("sampling_slg " + json.dumps({"path": path, "extra_sample_s": lines[1]["slg_extra_sample_s"],
+                                        "skip_layer_forwards": lines[1]["skip_layer_forwards"],
+                                        "card": card}), flush=True)
+    return lines, time.time() - t0
+
+
+def sampling_wan(pipe, wrappers, card: str, launches: dict) -> tuple:
+    """Wan2.1's SLG request (above) → (lines, seconds)."""
+    from sdtpu_torch.diffusion.guidance import slg_active_steps
+
+    t0 = time.time()
+    path, req = "sampling_wan", WAN_SLG_REQUEST
+    i0, i1 = slg_active_steps(req["sample_steps"], req["slg_start"], req["slg_end"])
+    skipped = WAN_ATTENTION_CALLS - 2 * len(req["skip_layers"])
+
+    def check(counts, plain, forwards, skip, tm):
+        _forwards_as(path, (forwards, skip), (req["sample_steps"] + i1 - i0, i1 - i0))
+        return {**_check_wan_launches(path, counts, req["sample_steps"], 2, plain,
+                                      extra_calls=skipped * (i1 - i0)),
+                "calls_a_skip_layer_forward": skipped, "slg_window": [i0, i1]}
+
+    line = sampling_request(pipe, wrappers, path, req, card, check, launches)
+    return [line], time.time() - t0
+
+
+def sampling_z_image(pipe, wrappers, card: str, launches: dict) -> tuple:
+    """Z-Image-Turbo's step caches, flow schedules and flow dpm++2s_a
+    (above) → (lines, seconds)."""
+    t0 = time.time()
+    path, lines = "sampling_z_image", []
+
+    def check_dit(want_forwards):
+        def check(counts, plain, forwards, skip, tm):
+            want = want_forwards(tm)
+            _forwards_as(path, forwards, want)
+            return _check_dit_launches(path, counts, plain, want, Z_IMAGE_ATTENTION_CALLS, 1,
+                                       Z_IMAGE_LLM_LAYERS,
+                                       {"q4_matmul_splitk": Z_IMAGE_LLM_LINEARS}, decodes=1)
+        return check
+
+    steps = Z_IMAGE_REQUEST["sample_steps"]
+    base = sampling_request(pipe, wrappers, path, Z_IMAGE_REQUEST, card,
+                            check_dit(lambda tm: steps), launches)
+    lines.append(base)
+    for kind, options in SAMPLING_CACHES.items():
+        line = sampling_request(pipe, wrappers, path, Z_IMAGE_REQUEST, card,
+                                check_dit(lambda tm: steps - tm["cache_skipped"]), launches,
+                                step_cache=kind, cache_options=dict(options))
+        if not line["cache_skipped"]:
+            raise RuntimeError(f"{path}: the {kind} cache skipped no forward")
+        line["uncached_sample_s"] = base["timings_s"]["sample"]
+        lines.append(line)
+    for schedule in SAMPLING_FLOW_SCHEDULES:
+        req = dict(Z_IMAGE_REQUEST, schedule=schedule, sample_steps=4)
+        lines.append(sampling_request(pipe, wrappers, path, req, card,
+                                      check_dit(lambda tm: tm["steps"]), launches))
+    # the flow dpm++2s_a: one forward from sigma 1 and on the last step
+    req = dict(Z_IMAGE_REQUEST, sample_method="dpm++2s_a", sample_steps=4)
+    lines.append(sampling_request(pipe, wrappers, path, req, card,
+                                  check_dit(lambda tm: 2 * tm["steps"] - 2), launches, replay=True))
+    return lines, time.time() - t0
+
+
 def launch_counters() -> dict:
     """Each kernel's launch counter: name → (wrapper, attribute); the D 512
     kernel, the wgmma forms, the GEMVs, the split-K forms, the float32 forms
@@ -5070,6 +5402,9 @@ def main() -> int:
     entry["sd2_family"], sd2_launches = sd2_family_entry_check(wrappers, card)
     launches.update(sd2_launches)
     lap("sd2, inpainting and pix2pix entry points")
+    elapsed["sampling"] = sum(SAMPLING["seconds"].values())
+    print(f"elapsed sampling {elapsed['sampling']:.1f} s (inside the sd15, sd3, wan and z_image "
+          f"paths: {len(SAMPLING['lines'])} requests) on {card}", flush=True)
 
     headline = {"flash_attention": ([1, 24, 4352, 4352, 128], {}),
                 "flash_attention_d512": ([1, 1, 4096, 4096, 512], {}),
@@ -5127,6 +5462,7 @@ def main() -> int:
                        "reference": ref,
                        "loader": loader, "pipelines": pipes, "requests": reports, "entry": entry,
                        "wan": wan_extra, "z_image": zi_extra, "qwen_image": qi_extra,
+                       "sampling": SAMPLING,
                        "launches": launches, "kernels": kernels, "profile": prof}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

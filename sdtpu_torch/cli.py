@@ -55,8 +55,8 @@ tokenize with
 ``--llm-tokenizer``'s ``tokenizer.json``, else the vocab embedded in the
 ``--llm`` (or ``-m``) GGUF, else the Qwen byte-level ids without merges
 (``Qwen2Tokenizer.byte_fallback``, with a warning).  ``--prediction`` swaps the denoiser as the JAX CLI does
-(``eps``, ``v`` for an SD2.x-v checkpoint, ``flow``, ``flux_flow``;
-``edm_v`` and the SeFi / MiniT2I flows exit 2).  On an inpainting UNet
+(``eps``, ``v`` for an SD2.x-v checkpoint, ``edm_v``, ``flow``,
+``flux_flow``; the SeFi / MiniT2I flows exit 2).  On an inpainting UNet
 ``-i`` / ``--mask`` go into the model's input; on a pix2pix UNet ``-r``
 names the edit image (else ``-i``'s) and ``--img-cfg-scale`` its guidance;
 ``-r`` on any other model exits 2.  The parser is the JAX CLI's (the
@@ -71,9 +71,16 @@ WebP, GIF and WebM containers, the default ``output.avi`` among them, need
 Pillow's JPEG / WebP encoders and exit 2) and ``metadata``, and the flags in
 ``RUN_FLAGS``; any other mode or flag set away from its default (e.g.
 ``--embd-dir``: textual-inversion embeddings are not ported), a sampler
-outside ``samplers.PORTED_METHODS``, a schedule other than ``discrete`` /
-``flux`` or a ``<lora:...>`` prompt tag exits with code 2 before anything
-loads, naming it.
+outside ``samplers.PORTED_METHODS`` (SeFi's ``sefi_euler``), a schedule
+outside ``schedule.SCHEDULERS`` or a ``<lora:...>`` prompt tag exits with
+code 2 before anything loads, naming it.  The sampling flags run as in the
+JAX CLI: every schedule, ``--skip-layers`` / ``--slg-*`` (on FLUX, SD3 and
+Wan; a warning elsewhere), ``--apg-*``, ``--extra-sample-args``
+(``guidance_schedule``, ``gamma``, ``noise_scale_start`` / ``_end``),
+``--sampler-rng``, and ``--cache`` / ``--cache-mode`` with
+``--cache-option``, ``--scm-mask`` and ``--scm-policy`` on ``img_gen``
+without ``--hires``; as in the JAX CLI, ``vid_gen`` passes none of the
+guidance flags, ``--extra-sample-args`` or ``--cache`` on.
 
 Device: ``--backend`` as the JAX CLI spells it, one device for every module:
 ``cpu`` or ``cuda0``..``cudaN`` (a per-module split exits 2).  With no
@@ -523,7 +530,10 @@ RUN_FLAGS = frozenset({
     "llm", "llm_tokenizer",
     "prompt", "negative_prompt", "prompt_file", "width", "height",
     "steps", "cfg_scale", "guidance", "seed", "batch_count", "sampling_method", "schedule",
-    "eta", "clip_skip", "rng", "prediction",
+    "eta", "clip_skip", "rng", "sampler_rng", "prediction",
+    # the sampling layer: guidance extensions, sampler args, step caches
+    "slg_scale", "skip_layers", "slg_start", "slg_end", "apg_eta", "apg_momentum", "apg_nt",
+    "extra_sample_args", "cache", "cache_option", "scm_mask", "scm_policy",
     # the inpainting and instruct-pix2pix UNets: the edit image, image guidance
     "ref_image", "img_cfg_scale",
     # img2img, masked img2img, custom sigmas and the latent hires fix
@@ -541,7 +551,7 @@ MODES = ("img_gen", "vid_gen", "metadata")
 DTYPES = ("f32", "bf16")
 # --prediction values → the denoiser the port puts in the pipeline's (the
 # JAX CLI's map, the denoisers the port has)
-PREDICTIONS = ("eps", "v", "flow", "flux_flow")
+PREDICTIONS = ("eps", "v", "edm_v", "flow", "flux_flow")
 
 
 def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Optional[str]:
@@ -589,6 +599,32 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
     if re.search(r"<lora:[^>]*>", args.prompt or ""):
         return "<lora:...> prompt tags: LoRA is not ported"
     return None
+
+
+def parse_kv(spec: str) -> dict:
+    """key=value,... option args: ints, floats, else the text (the JAX CLI's
+    ``_parse_kv``)."""
+    out = {}
+    for part in spec.split(","):
+        if "=" not in part:
+            continue
+        k, v = part.split("=", 1)
+        try:
+            out[k.strip()] = int(v) if v.strip().isdigit() else float(v)
+        except ValueError:
+            out[k.strip()] = v.strip()
+    return out
+
+
+def cache_options(args) -> dict:
+    """--cache-option plus the --scm-mask / --scm-policy shorthands (the JAX
+    CLI's ``_cache_options``)."""
+    opts = parse_kv(args.cache_option)
+    if args.scm_mask:
+        opts["scm_mask"] = args.scm_mask
+    if args.scm_policy:
+        opts["scm_policy_dynamic"] = args.scm_policy != "static"
+    return opts
 
 
 def video_output(args) -> str:
@@ -809,8 +845,11 @@ def _load_pipeline(args, report: Optional[dict] = None):
 
         shift = args.flow_shift if args.flow_shift is not None else 3.0
         pipe.denoiser = {"eps": dn.CompVisDenoiser, "v": dn.CompVisVDenoiser,
+                         "edm_v": dn.EDMVDenoiser,
                          "flow": lambda: dn.DiscreteFlowDenoiser(shift=shift),
                          "flux_flow": dn.FluxFlowDenoiser}[args.prediction]()
+    if args.sampler_rng:
+        pipe.sampler_rng_type = args.sampler_rng
     if args.vae_tiling or args.vae_temporal_tiling:
         pipe.set_vae_tiling(True, args.vae_tile_size, args.vae_tile_overlap,
                             temporal=args.vae_temporal_tiling,
@@ -864,7 +903,11 @@ def _img_gen(args, report: Optional[dict] = None) -> int:
         img_cfg_scale=args.img_cfg_scale, guidance=args.guidance,
         sample_method=args.sampling_method, schedule=args.schedule, seed=args.seed,
         batch_count=args.batch_count, clip_skip=args.clip_skip, eta=args.eta,
-        strength=args.strength, custom_sigmas=args.sigmas)
+        strength=args.strength, slg_scale=args.slg_scale,
+        skip_layers=tuple(int(v) for v in args.skip_layers.split(",") if v.strip()),
+        slg_start=args.slg_start, slg_end=args.slg_end, apg_eta=args.apg_eta,
+        apg_momentum=args.apg_momentum, apg_norm_threshold=args.apg_nt,
+        extra_sample_args=args.extra_sample_args, custom_sigmas=args.sigmas)
     t0 = time.time()
     if args.hires:  # the JAX CLI's: the base request, then the latent upscale pass
         res = pipe.txt2img_hires(
@@ -873,7 +916,8 @@ def _img_gen(args, report: Optional[dict] = None) -> int:
             hires_height=args.hires_height, hires_sigmas=args.hires_sigmas)
     else:
         res = pipe.generate(gp, init_image=init_image, mask_image=mask_image,
-                            ref_images=ref_images, progress_callback=_progress_cb())
+                            ref_images=ref_images, progress_callback=_progress_cb(),
+                            step_cache=args.cache, cache_options=cache_options(args))
     print(f"generated {len(res.images)} image(s) in {time.time() - t0:.2f}s")
     print("timings " + json.dumps(pipe.last_timings))
     paths = []

@@ -1,8 +1,9 @@
 """Denoisers (counterpart of ``sdtpu/diffusion/denoiser.py``): the CompVis
 eps-prediction denoiser on the DDPM table (SD1.x, SD2.x-eps, SDXL), its
-v-prediction form ``CompVisVDenoiser`` (SD2.x-v, e.g. SD2.1-768-v) and the
-flow denoisers of SD3 (``DiscreteFlowDenoiser``) and FLUX.  The EDM and
-SeFi / MiniT2I flow denoisers are not ported.
+v-prediction form ``CompVisVDenoiser`` (SD2.x-v, e.g. SD2.1-768-v), its
+EDM form ``EDMVDenoiser`` (the CLI's ``--prediction edm_v``) and the
+flow denoisers of SD3 (``DiscreteFlowDenoiser``) and FLUX.  The SeFi /
+MiniT2I flow denoisers are not ported.
 
 Tables and scalings are host-side numpy, as in the JAX package; the sampling
 loop consumes them as f32 values.  ``get_scalings_torch`` and
@@ -91,6 +92,33 @@ class CompVisVDenoiser(CompVisDenoiser):
         c_out = -sigma * self.sigma_data / torch.sqrt(sigma ** 2 + sd2)
         c_in = 1.0 / torch.sqrt(sigma ** 2 + sd2)
         return c_skip, c_out, c_in
+
+
+class EDMVDenoiser(CompVisVDenoiser):
+    """EDM-style continuous sigma with v-prediction (e.g. Playground v2.5):
+    sigma in [0.002, 120], t = log(sigma) / 4."""
+
+    prediction = "edm_v"
+
+    def __init__(self, min_sigma: float = 0.002, max_sigma: float = 120.0):
+        super().__init__()
+        self._min_sigma = min_sigma
+        self._max_sigma = max_sigma
+
+    def sigma_min(self) -> float:
+        return self._min_sigma
+
+    def sigma_max(self) -> float:
+        return self._max_sigma
+
+    def t_to_sigma(self, t):
+        return np.exp(np.asarray(t, dtype=np.float32) * 4.0 / TIMESTEPS)
+
+    def sigma_to_t(self, sigma):
+        return 0.25 * np.log(sigma)
+
+    def sigma_to_t_torch(self, sigma):
+        return 0.25 * torch.log(sigma)
 
 
 def time_snr_shift(alpha: float, t):

@@ -548,8 +548,9 @@ def create_pipeline(version: SDVersion = SDVersion.FLUX, params: Optional[dict] 
     conditioner = FluxConditioner(CLIPTokenizer(), t5_tokenizer, mods["clip_l"], clip_l_cfg,
                                   mods["t5"], t5_cfg, t5_seq_len=t5_seq, device=device)
 
-    def diffusion_fn(p, x, t, ctx, y, guidance=None):
-        return flux_mod.flux_forward(p, x, t, ctx, y, guidance=guidance, cfg=dit_cfg)
+    def diffusion_fn(p, x, t, ctx, y, guidance=None, skip_layers=()):
+        return flux_mod.flux_forward(p, x, t, ctx, y, guidance=guidance, cfg=dit_cfg,
+                                     skip_layers=skip_layers)
 
     vae_decode_fn, vae_encode_fn = _vae_fns(vae_cfg)
     return DiffusionPipeline(

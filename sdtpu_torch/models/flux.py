@@ -265,10 +265,13 @@ def flux_head(p, img, vec, dims, cfg: FluxConfig):
 
 def flux_forward(p, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
                  y: Optional[torch.Tensor], guidance: Optional[torch.Tensor] = None,
-                 cfg: FluxConfig = FLUX_DEV_CONFIG) -> torch.Tensor:
+                 cfg: FluxConfig = FLUX_DEV_CONFIG,
+                 skip_layers: Tuple[int, ...] = ()) -> torch.Tensor:
     """x: [B,H,W,C] latent NHWC; timesteps: [B] (sigma in [0,1]); context:
     [B,L,context_in_dim] T5; y: [B,vec_in_dim] CLIP pooled; guidance: [B]
-    distilled guidance.  Returns the velocity [B,H,W,C]."""
+    distilled guidance; ``skip_layers``: the single blocks to skip (the
+    Skip-Layer Guidance forward), block i indexed depth + i as in the JAX
+    package.  Returns the velocity [B,H,W,C]."""
     check_supported(cfg)
     img, txt, vec, rot = flux_prologue(p, x, timesteps, context, y, guidance, cfg)
     for i in range(cfg.depth):
@@ -276,5 +279,6 @@ def flux_forward(p, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Ten
     l_txt = txt.shape[1]
     xx = torch.cat([txt, img], dim=1)
     for i in range(cfg.depth_single):
-        xx = flux_single_block(p, f"single_blocks.{i}", xx, vec, rot, cfg)
+        if i + cfg.depth not in skip_layers:
+            xx = flux_single_block(p, f"single_blocks.{i}", xx, vec, rot, cfg)
     return flux_head(p, xx[:, l_txt:], vec, tuple(x.shape), cfg)

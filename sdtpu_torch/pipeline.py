@@ -33,21 +33,30 @@ CFG); ``free_params_immediately`` (or ``free_conditioner_params()``)
 releases the text encoders' tensors after conditioning, after which only
 cached prompts can be answered.
 
-Samplers: ``sdtpu_torch.diffusion.samplers.PORTED_METHODS``; at ``eta > 0``
-an ancestral sampler's per-step noise (and ``lcm``'s at any ``eta``)
-follows the initial noise in each batch item's ``rng`` stream, as the JAX
-pipeline draws it.  The latent's channels and the schedule come from the
+Samplers: ``sdtpu_torch.diffusion.samplers.PORTED_METHODS`` (all of the JAX
+package's but SeFi's ``sefi_euler``), schedules: all 17 of
+``diffusion.schedule.SCHEDULERS`` (``get_sigmas`` gets the pipeline's
+version and the image's token count).  A noisy method's per-step noise (at
+``eta > 0``, ``lcm``'s at any ``eta``; ``dpm++2m_sde_bt``'s from a
+Brownian tree seeded by two draws) follows the initial noise in each batch
+item's ``rng`` stream, or comes from a fresh stream of
+``sampler_rng_type``, as the JAX pipeline draws it.  The latent's channels and the schedule come from the
 model (FLUX's 16-channel flow latent, SD1's, SD2's and SDXL's 4-channel
 eps or v latent on the DDPM table, SD3's 16-channel latent on the discrete
 flow schedule); SD1 has no pooled vector (``y``), SDXL's is the pooled CLIP-G output with
 the size embeddings of the request's width and height, SD3's the pooled
-CLIP-L and CLIP-G outputs; only FLUX has distilled guidance.  Skip-Layer
-Guidance (``slg_scale`` under CFG) is not ported and raises by name on
-every family; without CFG it is ignored, as the JAX pipeline ignores it.
+CLIP-L and CLIP-G outputs; only FLUX has distilled guidance.  Under CFG:
+Skip-Layer Guidance (``slg_scale``, ``skip_layers``, ``slg_start`` /
+``slg_end``) on the models whose forward takes ``skip_layers`` (FLUX, SD3,
+Wan; elsewhere it warns and is dropped, as in the JAX pipeline), APG
+(``apg_*``, its momentum buffer carried across steps and cache skips) in
+place of the CFG combine, and ``extra_sample_args``'s ``guidance_schedule``
+as a per-step CFG scale.
 ``set_tae`` swaps the final decode for a TAESD decoder.  Of
-``extra_sample_args`` the port runs ``lcm``'s
-``noise_scale_start`` / ``noise_scale_end``; any other key raises by
-name.  ``generate`` takes the JAX pipeline's
+``extra_sample_args`` the port runs ``guidance_schedule``, ``gamma``
+(``euler_ge``) and ``lcm``'s ``noise_scale_start`` / ``noise_scale_end``;
+any other key raises by name.  ``generate(step_cache=...)`` runs a step
+cache (``diffusion/stepcache.py``).  ``generate`` takes the JAX pipeline's
 ``progress_callback(step, steps, x)`` and ``cancel_check()`` (a server
 job's progress and cancellation): both run after each step, and a cancelled
 request decodes the latents it reached.
@@ -66,7 +75,9 @@ ids T5 was fed for the last prompt (all zero without a T5 tokenizer).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
+import warnings
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -75,9 +86,12 @@ import torch.nn.functional as F
 
 from sdtpu_torch.config import (GenerationParams, SDVersion, sd_version_is_inpaint,
                                 sd_version_is_unet_edit)
-from sdtpu_torch.diffusion.guidance import cfg_combine
+from sdtpu_torch.diffusion.brownian import brownian_step_noise
+from sdtpu_torch.diffusion.guidance import (APGParams, apg_combine, cfg_combine,
+                                            parse_guidance_schedule, slg_active_steps)
 from sdtpu_torch.diffusion.samplers import method_needs_noise, sample
 from sdtpu_torch.diffusion.schedule import get_sigmas
+from sdtpu_torch.diffusion.stepcache import make_step_cache
 from sdtpu_torch.models.tiling import tiled_decode, tiled_decode_temporal, tiled_encode
 from sdtpu_torch.rng import create_rng
 
@@ -120,22 +134,26 @@ def _pad_tokens_by_repeat(x: torch.Tensor, target: int) -> torch.Tensor:
 
 
 # the keys of ``extra_sample_args`` the port's samplers read
-SAMPLER_KEYS = ("noise_scale_start", "noise_scale_end")
+SAMPLER_KEYS = ("gamma", "noise_scale_start", "noise_scale_end")
 
 
-def _sampler_extra_args(spec: str) -> Dict[str, float]:
-    """``extra_sample_args`` ("key=value,...") → the sampler keys as floats,
-    as the JAX pipeline parses them; a key the port does not run raises."""
-    out = {}
+def _sampler_extra_args(spec: str):
+    """``extra_sample_args`` ("key=value,...") → (the sampler keys as floats,
+    the ``guidance_schedule`` spec or ""), as the JAX pipeline parses them;
+    a key the port does not run raises."""
+    out, schedule = {}, ""
     for part in (spec or "").split(","):
         if "=" not in part:
             continue
         k, v = (t.strip() for t in part.split("=", 1))
+        if k == "guidance_schedule":
+            schedule = v
+            continue
         if k not in SAMPLER_KEYS:
             raise NotImplementedError(f"extra_sample_args key {k!r} is not ported; "
-                                      f"ported: {list(SAMPLER_KEYS)}")
+                                      f"ported: {[*SAMPLER_KEYS, 'guidance_schedule']}")
         out[k] = float(v)
-    return out
+    return out, schedule
 
 
 def _parse_custom_sigmas(spec: str) -> np.ndarray:
@@ -234,6 +252,9 @@ class DiffusionPipeline:
         self._cond_cache: Dict[tuple, tuple] = {}  # prompt key → (cond, uncond)
         self.free_params_immediately = False
         self._conditioner_freed = False
+        # the sampler noise's RNG kind (the CLI's --sampler-rng); None: the
+        # latent noise's stream goes on
+        self.sampler_rng_type: Optional[str] = None
 
     def free_conditioner_params(self) -> int:
         """Release the text encoders' tensors (``free_params_immediately``):
@@ -353,21 +374,36 @@ class DiffusionPipeline:
     def txt2img(self, gp: GenerationParams) -> GenerationResult:
         return self.generate(gp)
 
-    def _model_fn(self, ctx_c, ctx_u, y_c, y_u, cfg_scale: float, guidance, b: int,
+    def _slg_supported(self) -> bool:
+        """Skip-Layer Guidance needs a diffusion function with a
+        ``skip_layers`` parameter (FLUX, SD3's MMDiT, Wan), as in the JAX
+        pipeline; the others warn and drop it."""
+        return "skip_layers" in inspect.signature(self.diffusion_fn).parameters
+
+    def _model_fn(self, ctx_c, ctx_u, y_c, y_u, cfg_scale, guidance, b: int,
                   denoise_mask: Optional[torch.Tensor] = None,
                   masked_target: Optional[torch.Tensor] = None,
                   c_concat: Optional[torch.Tensor] = None,
                   img_uncond_concat: Optional[torch.Tensor] = None,
-                  img_cfg_scale: Optional[float] = None):
+                  img_cfg_scale: Optional[float] = None, apg: Optional[APGParams] = None,
+                  slg: Optional[tuple] = None):
         """→ model_fn(x, sigma, i) → (denoised, uncond denoised); with a
-        mask, the denoised estimate keeps ``masked_target`` where it is 0.
-        ``c_concat`` ([1, h, w, C]): channels that follow the scaled latent
-        into the model (the inpainting and pix2pix UNets' input); with
-        ``img_cfg_scale`` a third forward (the uncond context, the latent
-        beside ``img_uncond_concat``) gives the image guidance's estimate."""
+        mask, the denoised estimate keeps ``masked_target`` where it is 0.  ``cfg_scale``: a float, or a
+        per-step list (the guidance schedule; the last entry holds past its
+        end).  ``c_concat`` ([1, h, w, C]): channels that follow the scaled
+        latent into the model (the inpainting and pix2pix UNets' input);
+        with ``img_cfg_scale`` a third forward (the uncond context, the latent
+        beside ``img_uncond_concat``) gives the image guidance's estimate.
+        ``apg`` replaces the CFG combine by Adaptive Projected Guidance, its
+        momentum buffer held here from forward to forward (a forward a step
+        cache skips leaves it as it is);
+        ``slg`` = (scale, skip layers, i0, i1): at steps i0 <= i < i1 one
+        more cond-only forward with those layers skipped adds scale · (cond −
+        skipped) to the guided estimate."""
         denoiser = self.denoiser
         has_uncond = ctx_u is not None
         dev = self.device
+        momentum = {"buf": None}
 
         def with_concat(x_core, concat):
             if concat is None:
@@ -375,6 +411,8 @@ class DiffusionPipeline:
             return torch.cat([x_core, concat.to(x_core.dtype).expand(b, -1, -1, -1)], dim=-1)
 
         def model_fn(xt, sigma, i):
+            cfg_s = (cfg_scale[min(i, len(cfg_scale) - 1)] if isinstance(cfg_scale, list)
+                     else cfg_scale)
             c_skip, c_out, c_in = denoiser.get_scalings_torch(sigma)
             t = denoiser.sigma_to_t_torch(sigma)
             x_core = (xt * c_in).to(self.compute_dtype)  # only the latent is scaled
@@ -395,9 +433,18 @@ class DiffusionPipeline:
                                                with_concat(x_core, img_uncond_concat), tt, ctx_u,
                                                y_u, guidance=guidance).float()
                     den_img_u, img_scale = c_skip * xt + c_out * out_iu, img_cfg_scale
-                pred = cfg_combine(den_cond, den_uncond, den_img_u,
-                                   torch.tensor(cfg_scale, dtype=torch.float32, device=dev),
-                                   img_scale)
+                if apg is not None:
+                    pred, momentum["buf"] = apg_combine(
+                        den_cond, den_uncond, den_img_u, float(cfg_s), apg,
+                        momentum_buffer=momentum["buf"], image_guidance_scale=img_scale)
+                else:
+                    pred = cfg_combine(den_cond, den_uncond, den_img_u,
+                                       torch.tensor(cfg_s, dtype=torch.float32, device=dev),
+                                       img_scale)
+                if slg is not None and slg[2] <= i < slg[3]:
+                    out_s = self.diffusion_fn(self.diffusion_params, x_in, tt, ctx_c, y_c,
+                                              guidance=guidance, skip_layers=slg[1]).float()
+                    pred = pred + slg[0] * (den_cond - (c_skip * xt + c_out * out_s))
             else:
                 out = self.diffusion_fn(self.diffusion_params, x_in, tt, ctx_c, y_c,
                                         guidance=guidance).float()
@@ -431,21 +478,26 @@ class DiffusionPipeline:
     def _denoise(self, gp: GenerationParams, shape: tuple, image_seq_len: int,
                  progress_callback: Optional[Callable], cancel_check: Optional[Callable],
                  init_latent: Optional[torch.Tensor] = None, mask_image=None,
-                 concat: tuple = (None, None)):
+                 concat: tuple = (None, None), video: bool = False,
+                 step_cache: Optional[str] = None, cache_options: Optional[dict] = None):
         """Conditioning, then sampling from the initial noise of ``shape``
         (one batch item's latent), scaled around ``init_latent`` where given
         (img2img: the schedule cut by ``gp.strength``; ``mask_image`` keeps
         the init latent where it is 0); ``concat``: the model's extra input
-        channels and their image-guidance form (``_concat_latents``) →
-        (latents on the device, float32; seeds; cond seconds; sample seconds;
-        steps)."""
+        channels and their image-guidance form (``_concat_latents``).  As in
+        the JAX pipeline a ``video`` request runs SLG but neither APG, the
+        guidance schedule nor the sampler keys of ``extra_sample_args``.
+        ``step_cache`` (with ``cache_options``) wraps the model function in
+        that cache (``stepcache.make_step_cache``) → (latents on the device,
+        float32; seeds; cond seconds; sample seconds; steps; the cache's
+        skipped forwards, or None)."""
         dev = self.device
         bc = gp.batch_count
         has_uncond = gp.cfg_scale != 1.0
 
-        extra_args = _sampler_extra_args(gp.extra_sample_args)
-        if gp.slg_scale != 0.0 and has_uncond:
-            raise NotImplementedError("skip-layer guidance (slg_scale) is not ported")
+        extra_args, schedule = _sampler_extra_args(gp.extra_sample_args)
+        if video:
+            extra_args, schedule = {}, ""
         tc0 = time.time()
         cond, uncond = self._conditions(gp, has_uncond)
         self.last_t5_ids = cond.t5_ids
@@ -457,7 +509,7 @@ class DiffusionPipeline:
         y_u = _tile(uncond.c_vector, bc) if uncond is not None else None
 
         sigmas = get_sigmas(self.denoiser, gp.sample_steps, scheduler=gp.schedule,
-                            image_seq_len=image_seq_len)
+                            version=self.version.value, image_seq_len=image_seq_len)
         if gp.custom_sigmas:
             sigmas = _parse_custom_sigmas(gp.custom_sigmas)
         x0 = np.zeros((bc,) + shape, dtype=np.float32)
@@ -485,6 +537,7 @@ class DiffusionPipeline:
         steps = len(sigmas) - 1
 
         # per-batch streams: latent noise, then the sampler's per-step noise
+        # (its own stream where ``sampler_rng_type`` names another kind)
         seeds = [gp.seed + i for i in range(bc)]
         init_noise = np.empty((bc,) + shape, dtype=np.float32)
         need_noise = method_needs_noise(gp.sample_method, gp.eta)
@@ -492,9 +545,14 @@ class DiffusionPipeline:
         for bi, s in enumerate(seeds):
             rng = create_rng(self.rng_type, s)
             init_noise[bi] = rng.randn_shape(shape)
-            if need_noise:
+            srng = rng
+            if self.sampler_rng_type and self.sampler_rng_type != self.rng_type:
+                srng = create_rng(self.sampler_rng_type, s)
+            if need_noise and gp.sample_method == "dpm++2m_sde_bt":
+                step_noise[:, bi] = brownian_step_noise(srng, shape, sigmas)
+            elif need_noise:
                 for si in range(steps):
-                    step_noise[si, bi] = rng.randn_shape(shape)
+                    step_noise[si, bi] = srng.randn_shape(shape)
         x = np.asarray(self.denoiser.noise_scaling(np.float32(sigmas[0]), init_noise, x0),
                        dtype=np.float32)
 
@@ -504,6 +562,25 @@ class DiffusionPipeline:
         if self.free_params_immediately:
             self.free_conditioner_params()
 
+        # the guidance extensions: the SLG step window, APG, the schedule
+        slg = apg = None
+        if gp.slg_scale != 0.0 and has_uncond:
+            if self._slg_supported():
+                i0, i1 = slg_active_steps(steps, gp.slg_start, gp.slg_end)
+                slg = (float(gp.slg_scale), tuple(gp.skip_layers), i0, i1)
+            else:
+                warnings.warn(f"SLG: {self.version.value} has no skip_layers support; ignoring "
+                              "slg_scale")
+        apg_params = APGParams(eta=gp.apg_eta, momentum=gp.apg_momentum,
+                               norm_threshold=gp.apg_norm_threshold,
+                               norm_threshold_smoothing=gp.apg_norm_smoothing)
+        if apg_params.enabled and has_uncond and not video:
+            apg = apg_params
+        cfg = gp.cfg_scale
+        sched = parse_guidance_schedule(schedule)
+        if sched:
+            cfg = [sched[min(i, len(sched) - 1)] for i in range(steps)]
+
         c_concat, img_uncond_concat = concat
         # separate image guidance: under CFG, where the model takes concat
         # channels and img_cfg_scale differs from cfg_scale
@@ -511,9 +588,13 @@ class DiffusionPipeline:
                    and gp.img_cfg_scale is not None
                    and float(gp.img_cfg_scale) != float(gp.cfg_scale) else None)
         ts0 = time.time()
-        model_fn = self._model_fn(ctx_c, ctx_u, y_c, y_u, gp.cfg_scale, guidance, bc,
+        model_fn = self._model_fn(ctx_c, ctx_u, y_c, y_u, cfg, guidance, bc,
                                   denoise_mask, masked_target, c_concat, img_uncond_concat,
-                                  None if img_cfg is None else float(img_cfg))
+                                  None if img_cfg is None else float(img_cfg), apg=apg, slg=slg)
+        cached = None
+        if step_cache is not None:
+            model_fn = cached = make_step_cache(step_cache, model_fn, self.denoiser, steps,
+                                                **(cache_options or {}))
 
         def step_callback(i, xi):
             if cancel_check is not None and cancel_check():
@@ -528,7 +609,8 @@ class DiffusionPipeline:
         latents = self.denoiser.inverse_noise_scaling(
             torch.tensor(sigmas[-1], device=dev), latents).float()
         _sync(dev)
-        return latents, seeds, t_cond, time.time() - ts0, steps
+        return (latents, seeds, t_cond, time.time() - ts0, steps,
+                None if cached is None else cached.steps_skipped)
 
     def _concat_latents(self, gp: GenerationParams, init_image, mask_image, ref_images):
         """The inpainting and instruct-pix2pix UNets' extra input channels, as
@@ -575,7 +657,8 @@ class DiffusionPipeline:
     @torch.inference_mode()
     def generate(self, gp: GenerationParams, init_image=None, mask_image=None, init_latent=None,
                  ref_images=None, progress_callback: Optional[Callable] = None,
-                 cancel_check: Optional[Callable] = None) -> GenerationResult:
+                 cancel_check: Optional[Callable] = None, step_cache: Optional[str] = None,
+                 cache_options: Optional[dict] = None) -> GenerationResult:
         """txt2img, or img2img from ``init_image`` ([H,W,3] uint8 or float in
         [0, 1]) or ``init_latent`` ([1 or B, h, w, zc], scaled) with
         ``gp.strength``, masked by ``mask_image`` ([H,W]: 1 regenerate, 0
@@ -585,7 +668,10 @@ class DiffusionPipeline:
         VAE decode.  ``ref_images``: the pix2pix UNets' edit image (the
         first; any other model raises).  progress_callback(step, steps, x)
         after each step (False stops); cancel_check() before it (True
-        stops)."""
+        stops).  ``step_cache`` (``easycache``, ``ucache``, ``taylorseer``,
+        ``spectrum``, ``dbcache`` / ``cache_dit``) with ``cache_options``
+        (its config's fields) skips forwards; ``last_timings`` then adds
+        ``cache_skipped``."""
         if ref_images is not None and not sd_version_is_unet_edit(self.version):
             raise NotImplementedError(
                 f"generate(ref_images=...) on {self.version.name}: the port takes reference "
@@ -604,9 +690,12 @@ class DiffusionPipeline:
         if encoded or (concat[0] is not None and (init_image is not None or ref_images)):
             _sync(self.device)
             timings["encode"] = time.time() - t0
-        latents, seeds, t_cond, t_sample, steps = self._denoise(
+        latents, seeds, t_cond, t_sample, steps, skipped = self._denoise(
             gp, (lh, lw, self.latent_channels), (lh // 2) * (lw // 2), progress_callback,
-            cancel_check, init_latent=init_latent, mask_image=mask_image, concat=concat)
+            cancel_check, init_latent=init_latent, mask_image=mask_image, concat=concat,
+            step_cache=step_cache, cache_options=cache_options)
+        if skipped is not None:
+            timings["cache_skipped"] = skipped
         t1 = time.time()
         imgs = self.decode(latents).cpu().numpy()
         lat_np = latents.cpu().numpy()
@@ -670,9 +759,9 @@ class DiffusionPipeline:
         ts = self.temporal_scale
         frames = max(1, ((frames - 1) // ts) * ts + 1)
         tl = (frames - 1) // ts + 1
-        latents, seeds, t_cond, t_sample, steps = self._denoise(
+        latents, seeds, t_cond, t_sample, steps, _ = self._denoise(
             gp, (tl, lh, lw, self.latent_channels), tl * (lh // 2) * (lw // 2), progress_callback,
-            None)
+            None, video=True)
         t1 = time.time()
         vid = self.decode(latents).cpu().numpy()
         lat_np = latents.cpu().numpy()

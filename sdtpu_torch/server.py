@@ -35,7 +35,10 @@ names the JAX server also resizes in latent space: ``Lanczos``, ``Nearest``,
 web UI).  A request that asks for what the port does not run (reference
 images on any other model, an ESRGAN ``hr_upscaler``, LoRA, video, a sampler outside
 samplers.PORTED_METHODS, jpeg / webp output, a JPEG or WebP init image)
-answers 400, or fails its job, naming it.  A Wan2.1 model is refused at
+answers 400, or fails its job, naming it.  Every schedule runs, and the
+sample-params keys ``scheduler``, ``eta`` and ``slg_*`` (flat, or the native
+API's ``sample_params.guidance.slg``) pass through as in ``sdtpu/server.py``;
+as there, a request's ``apg_*`` and step-cache fields are not read.  A Wan2.1 model is refused at
 load (the reference's video answer is an animated WebP): the CLI's
 ``-M vid_gen`` runs it.
 
@@ -270,8 +273,6 @@ def _refuse_unported(data: dict, gp: GenerationParams, takes_refs: bool = False)
                          f"ported: {list(PORTED_METHODS)}")
     if gp.schedule not in SCHEDULERS:
         raise ValueError(f"schedule {gp.schedule!r} is not ported; ported: {list(SCHEDULERS)}")
-    if gp.slg_scale != 0.0:
-        raise ValueError("skip-layer guidance (slg_scale) is not ported")
 
 
 def run_generation(pipeline, data: dict, job: Optional[Job] = None):
@@ -377,7 +378,7 @@ def make_handler(manager: JobManager):
             p = self.path.split("?")[0]
             if p == "/sdcpp/v1/capabilities":
                 self._json({"modes": ["img_gen"], "samplers": list(PORTED_METHODS),
-                            "schedulers": list(SCHEDULERS), "version": "sdtpu_torch-0.1"})
+                            "schedulers": sorted(SCHEDULERS), "version": "sdtpu_torch-0.1"})
             elif p.startswith("/sdcpp/v1/jobs/"):
                 job = manager.jobs.get(p.rsplit("/", 1)[-1])
                 if job is None:
@@ -391,7 +392,7 @@ def make_handler(manager: JobManager):
             elif p == "/sdapi/v1/samplers":
                 self._json([{"name": s, "aliases": [s], "options": {}} for s in PORTED_METHODS])
             elif p == "/sdapi/v1/schedulers":
-                self._json([{"name": s, "label": s} for s in SCHEDULERS])
+                self._json([{"name": s, "label": s} for s in sorted(SCHEDULERS)])
             elif p == "/sdapi/v1/sd-models":
                 self._json([{"title": "loaded", "model_name": "loaded"}])
             elif p == "/sdapi/v1/options":

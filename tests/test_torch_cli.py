@@ -100,6 +100,51 @@ def test_cli_images_match_jax_cli(files, small, tmp_path, name, capsys):
     assert set(report["timings"]) == {"cond", "sample", "decode", "total", "steps"}
 
 
+# the sampling slice's flags on the FLUX files: a new schedule with the
+# Brownian-tree SDE sampler (its noise from the request's stream), SLG under
+# CFG on the small DiT's first single block (index depth 2 + 0) over every
+# step, and a step cache (APG and the guidance schedule are held to the JAX
+# pipeline in tests/test_torch_sampling.py)
+SAMPLING_REQUESTS = {
+    "karras_sde_bt": ["--scheduler", "karras", "--sampling-method", "dpm++2m_sde_bt",
+                      "--eta", "1.0", "--steps", "3", "--cfg-scale", "1.0"],
+    "slg": ["--sampling-method", "euler", "--steps", "2", "-n", "blurry", "--cfg-scale", "2.5",
+            "--slg-scale", "2.0", "--skip-layers", "2", "--slg-end", "1.0"],
+    "easycache": ["--sampling-method", "euler", "--steps", "8", "--cfg-scale", "1.0",
+                  "--cache", "easycache", "--cache-option", "reuse_threshold=0.5"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SAMPLING_REQUESTS))
+def test_cli_sampling_flags_match_jax_cli(files, small, tmp_path, name, capsys):
+    """Each through both CLIs on the same files: images within one uint8
+    level, the same ``parameters`` text, and the step cache's skipped
+    forwards the JAX CLI's (its log line)."""
+    import re
+
+    from PIL import Image
+
+    import sdtpu.cli as jcli
+    from sdtpu_torch import cli
+
+    _, paths = files
+    args = _file_args(paths) + ["-p", "a red fox in snow", "-W", "64", "-H", "64",
+                                "-s", "5"] + SAMPLING_REQUESTS[name]
+    report = {}
+    assert cli.main(args + ["--backend", "cpu", "-o", str(tmp_path / "port.png")],
+                    report=report) == 0
+    capsys.readouterr()
+    assert jcli.main(args + ["-o", str(tmp_path / "jax.png")]) == 0
+    a, b = Image.open(report["outputs"][0]), Image.open(str(tmp_path / "jax.png"))
+    assert a.info["parameters"] == b.info["parameters"]
+    assert np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int)).max() <= 1
+    if "--cache" in args:
+        skipped = re.search(r"step cache 'easycache': skipped (\d+)/8", capsys.readouterr().err)
+        assert report["timings"]["cache_skipped"] == int(skipped.group(1)) > 0
+    else:
+        assert "cache_skipped" not in report["timings"]
+
+
 @pytest.mark.parametrize("fmt", ["text", "json"])
 def test_metadata_mode_matches_jax(tmp_path, capsys, monkeypatch, fmt):
     import sdtpu.cli as jcli
@@ -122,14 +167,17 @@ def test_metadata_mode_matches_jax(tmp_path, capsys, monkeypatch, fmt):
 UNPORTED = [
     ["--lora-model-dir", "loras"], ["--hires-upscaler", "RealESRGAN_x4plus"],
     ["--upscale-model", "esrgan.pth"], ["--auto-fit", "8"],
-    ["--sampling-method", "dpm2"], ["--schedule", "karras"], ["--fa"], ["--no-progress"],
+    ["--sampling-method", "sefi_euler"], ["--schedule", "karras_v2"], ["--fa"],
+    ["--no-progress"],
     ["--vae-on-cpu"], ["--control-net", "cn.safetensors"], ["--audio-vae", "audio.gguf"],
     ["--backend", "clip=cpu,diffusion=cuda0"], ["--backend", "tpu0"], ["--dtype", "f16"],
     ["-p", "a <lora:detail:0.8> cat"], ["convert"], ["-M", "vid_gen"],
     ["--embd-dir", "embeddings"],  # textual inversion (SD1's EmbeddingMixin)
     ["--taesd", "taesd.safetensors", "--taesd-preview-only"],  # the port has no preview
     # denoisers the port does not have
-    ["--prediction", "edm_v"], ["--prediction", "sefi_flow"], ["--prediction", "minit2i_flow"],
+    ["--prediction", "sefi_flow"], ["--prediction", "minit2i_flow"],
+    # the Wan2.2 MoE's high-noise phase
+    ["--high-noise-diffusion-model", "hn.safetensors"],
 ]
 
 

@@ -262,7 +262,7 @@ def test_unported_pieces_raise():
     with pytest.raises(NotImplementedError):
         tflux.check_supported(tflux.FluxConfig(is_chroma=True))
     with pytest.raises(ValueError):
-        get_sigmas(FluxFlowDenoiser(), 4, scheduler="karras")
+        get_sigmas(FluxFlowDenoiser(), 4, scheduler="karras_v2")  # no such schedule
 
 
 def test_weight_bytes_counts_group_scales_and_zeros():

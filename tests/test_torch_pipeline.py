@@ -191,22 +191,33 @@ def test_synthesized_small_pipeline_runs():
 
 def test_unported_requests_raise(pipes):
     _, tp = pipes
-    with pytest.raises(NotImplementedError, match="dpm2"):
-        tp.generate(_gp(sample_method="dpm2"))
+    with pytest.raises(NotImplementedError, match="sefi_euler"):
+        tp.generate(_gp(sample_method="sefi_euler"))
     with pytest.raises(NotImplementedError, match="HUNYUAN_VIDEO"):
         create_pipeline(SDVersion.HUNYUAN_VIDEO, small=True, device="cpu")
 
 
 def test_slg_is_refused_under_cfg(pipes):
-    """The JAX FLUX diffusion function takes ``skip_layers``, so the JAX
-    pipeline runs Skip-Layer Guidance under CFG: the port raises by name
-    there, and without CFG ignores it as the JAX pipeline does."""
+    """The FLUX diffusion functions take ``skip_layers``, so both pipelines
+    run Skip-Layer Guidance under CFG (the small DiT's single blocks, indexed
+    depth + i; the window the CLI's 0.01-0.2 stretched to every step):
+    the port matches the JAX pipeline there, and without CFG ignores it as
+    the JAX pipeline does.  (The name is the refusal's this test held
+    before the sampling slice.)"""
     import inspect
 
     jp, tp = pipes
     assert "skip_layers" in inspect.signature(jp.diffusion_fn).parameters
-    with pytest.raises(NotImplementedError, match="slg_scale"):
-        tp.generate(_gp(slg_scale=2.5))
+    assert "skip_layers" in inspect.signature(tp.diffusion_fn).parameters
+    from sdtpu_torch.factory import flux_configs
+
+    dit_cfg = flux_configs(True)[0]
+    assert dit_cfg.depth_single > 1  # skip the first single block
+    slg = _gp(slg_scale=2.5, skip_layers=(dit_cfg.depth,), slg_end=1.0, sample_steps=2)
+    got, want = tp.generate(slg), jp.generate(_jgp(slg))
+    np.testing.assert_allclose(got.latents, want.latents, rtol=5e-4, atol=5e-4)
+    assert np.abs(got.latents - tp.generate(dataclasses.replace(slg, slg_scale=0.0)).latents
+                  ).max() > 1e-3
     no_cfg = _gp(cfg_scale=1.0, sample_steps=2)
     got = tp.generate(dataclasses.replace(no_cfg, slg_scale=2.5))
     want = jp.generate(_jgp(dataclasses.replace(no_cfg, slg_scale=2.5)))

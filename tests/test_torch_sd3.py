@@ -376,8 +376,9 @@ def test_sd3_pipeline_matches_jax(pipes, kw):
 
 def test_flow_shift_matches_jax_and_slg_is_refused(pipes):
     """``create_pipeline(flow_shift=...)`` as the JAX factory's; SLG under CFG
-    raises by name (the JAX pipeline would run it on the MMDiT), and without
-    CFG it is ignored, as the JAX pipeline does."""
+    runs on the MMDiT (held to the JAX pipeline in
+    ``tests/test_torch_sampling.py``) and changes the latents inside its
+    window only, and without CFG it is ignored, as the JAX pipeline does."""
     jp, tp = pipes
     params = {"diffusion": tp.diffusion_params, "clip_l": tp.conditioner.pl,
               "clip_g": tp.conditioner.pg, "t5": tp.conditioner.pt, "vae": tp.vae_params}
@@ -388,8 +389,13 @@ def test_flow_shift_matches_jax_and_slg_is_refused(pipes):
     want, got = jshifted.generate(_jgp(gp)), shifted.generate(gp)
     np.testing.assert_allclose(got.latents, want.latents, rtol=5e-4, atol=5e-4)
     assert _rel(got.latents, tp.generate(gp).latents) > 1e-3
-    with pytest.raises(NotImplementedError, match="slg_scale"):
-        tp.generate(_gp(slg_scale=2.5))
+    base = _gp(sample_method="euler", sample_steps=2)
+    plain = tp.generate(base).latents
+    base = dataclasses.replace(base, skip_layers=(1,))  # the small MMDiT's second joint block
+    window = tp.generate(dataclasses.replace(base, slg_scale=2.5, slg_end=1.0)).latents
+    assert _rel(window, plain) > 1e-3
+    outside = tp.generate(dataclasses.replace(base, slg_scale=2.5, slg_start=0.6)).latents
+    assert np.array_equal(outside, plain)  # its window (1, 0) holds no step
     no_cfg = _gp(sample_method="euler", sample_steps=2, cfg_scale=1.0)
     assert np.array_equal(tp.generate(dataclasses.replace(no_cfg, slg_scale=2.5)).latents,
                           tp.generate(no_cfg).latents)

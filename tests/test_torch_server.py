@@ -106,6 +106,17 @@ SYNC = {
                                           "cfg_scale": 2.0, "sampler_name": "Euler A",
                                           "eta": 1.0, "batch_size": 2}),
     "openai": ("/v1/images/generations", {"prompt": "a lantern " + EXTRA, "size": "64x64"}),
+    # the sampling slice: a new schedule and the Brownian-tree SDE sampler
+    # (its noise from the request's stream); skip-layer guidance under CFG
+    # (the small DiT's first single block, the window stretched to every step)
+    "karras_sde_bt": ("/sdapi/v1/txt2img", {"prompt": "a red fox in snow", "width": 64,
+                                            "height": 64, "steps": 3, "cfg_scale": 1.0, "seed": 6,
+                                            "scheduler": "karras", "eta": 1.0,
+                                            "sampler_name": "dpm++2m_sde_bt"}),
+    "slg": ("/sdapi/v1/txt2img", {"prompt": "a cat", "negative_prompt": "dog", "width": 64,
+                                  "height": 64, "steps": 2, "seed": 4, "cfg_scale": 2.0,
+                                  "sampler_name": "euler", "slg_scale": 2.0, "skip_layers": [2],
+                                  "slg_end": 1.0}),
 }
 
 
@@ -221,7 +232,7 @@ def test_unported_request_fields_fail_by_name(servers):
                        ({"prompt": "x", "sampler_name": "DPM++ 2M"}, "dpm++_2m"),
                        ({"prompt": "x", "enable_hr": True, "hr_upscaler": "R-ESRGAN 4x+"},
                         "ESRGAN"),
-                       ({"prompt": "x", "scheduler": "karras"}, "karras")):
+                       ({"prompt": "x", "sampler_name": "sefi_euler"}, "sefi_euler")):
         code, resp = _call(base, "/sdapi/v1/txt2img", body)
         assert code == 400 and name in resp["error"], resp
     code, resp = _call(base, "/v1/images/generations", {"prompt": "x", "output_format": "jpeg"})
@@ -254,10 +265,16 @@ def test_unported_routes_answer_501(servers, method, path):
 
 
 def test_listings_name_what_the_port_runs(servers):
-    base = servers["port"]
-    ported = ["euler", "euler_a", "heun", "dpm++2s_a", "dpm++2m", "ipndm", "lcm"]
+    """Since the sampling slice: the JAX server's samplers but SeFi's
+    ``sefi_euler``, in its order, and its schedulers, all 17."""
+    base, theirs = servers["port"], servers["jax"]
+    jsamplers = [s["name"] for s in _call(theirs, "/sdapi/v1/samplers")[1]]
+    ported = [m for m in jsamplers if m != "sefi_euler"]
+    assert len(ported) == 20 and len(jsamplers) == 21
     assert [s["name"] for s in _call(base, "/sdapi/v1/samplers")[1]] == ported
-    assert [s["name"] for s in _call(base, "/sdapi/v1/schedulers")[1]] == ["discrete", "flux"]
+    schedulers = [s["name"] for s in _call(base, "/sdapi/v1/schedulers")[1]]
+    assert schedulers == [s["name"] for s in _call(theirs, "/sdapi/v1/schedulers")[1]]
+    assert len(schedulers) == 17
     caps = _call(base, "/sdcpp/v1/capabilities")[1]
     assert caps["modes"] == ["img_gen"] and caps["samplers"] == ported
     assert _call(base, "/v1/models")[1]["data"][0]["id"] == "sdtpu"
