@@ -357,7 +357,33 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (``sd15_inpaint_server_img2img``); the instruct-pix2pix file (8 channels)
      through ``-r`` and ``--img-cfg-scale 1.5`` (``sd15_pix2pix_cli``), each
      512² x 8 steps with the launch checks of 10g.
-Every path of phases 5-11 sets the kernels' launch counts to 0 before it runs
+ 12. LoRA (``sdtpu_torch/models/lora.py``), inside the paths above, with
+     rank-16 kohya LoRAs drawn by ``tools/lora_file.py`` over every linear:
+     on the int8 FLUX.1-dev pipeline (full width and depth) the LoRA is
+     written as a torch ``.ckpt`` and read back through the restricted
+     unpickler, then ``LORA_REQUEST`` (1024² x 4) runs without it
+     (``lora_none``), with ``set_loras(auto)``'s runtime factors
+     (``lora_auto``; ``lora_auto_w8a16`` under SDTPU_QUANT_MODE=w8a16), the
+     DiT cut to 1 + 1 blocks held in bf16 against a float32 forward on the
+     dense merge (REF_REL_TOL; the base without factors and the factors at
+     0.9 above it; read, not held, at 2 + 2) and five linears' factors
+     against float32 x·ΔWᵀ on the same W8A8 product (2 % of the LoRA's
+     contribution; the factors at 0.95 above it), with
+     ``immediately``'s requantized int8 (``lora_immediately``; three
+     weights' integers held to the CPU's) and after ``set_loras([])``
+     (``lora_restored``: latents bit-equal to ``lora_none``'s), W8A8
+     launching as often each time; on the ``q8_0_gguf`` and ``q4_0`` DiTs,
+     cut to 1 + 1 blocks at full width, a merge requantized on its grid
+     (4-bit at group 64, GGUF blocks symmetric; integers held to the CPU's)
+     and one 1024² forward through the kernels against their plain versions
+     (``lora_q8_0_gguf``, ``lora_q4_0``); on the dense SDXL pipeline each
+     mode's ``set_loras`` epoch timed; in phase 11 ``cli.main`` on the SDXL
+     files with ``<lora:sdxl_style:0.8>`` from a ``.ckpt`` over the UNet,
+     CLIP-L and CLIP-G (``sdxl_lora_cli``), and a server on the SD1.5 file
+     with ``--lora-model-dir`` and ``--embd-dir`` answering a ``lora``
+     field and the embedding's trigger word, listing ``/sdapi/v1/loras``
+     and restoring on ``"lora": []`` (``sd15_lora_server``).
+Every path of phases 5-12 sets the kernels' launch counts to 0 before it runs
 and reads them after: each kernel that path runs must have launched.  The
 4-bit kernel's TMA + wgmma form (M >= 128) and its weight-streaming GEMV
 (M <= 8) are counted apart as well, as ``q4_matmul_wgmma`` and
@@ -1030,6 +1056,26 @@ F32_PATHS = {"sd2_f32": (("flash_attention", "flash_attention_f32"),),
              "f32": (("flash_attention", "flash_attention_f32"), ("q4_matmul", "q4_matmul_f32")),
              "f32_w8a16": (("flash_attention", "flash_attention_f32"),
                            ("q4_matmul", "q4_matmul_f32"), ("w8a16_matmul", "w8a16_matmul_f32"))}
+# phase 12, LoRA: the FLUX int8 request without a LoRA, with runtime factors,
+# requantized and restored runs the int8 path's kernels each time (and W8A8
+# as often: ``flux_lora_paths``); the block DiTs' cut forward after a merge
+# its class's forms; the SDXL CLI and the SD1.5 server with a LoRA their
+# family's entry paths' kernels
+LORA_FLUX_PATHS = ("lora_none", "lora_auto", "lora_immediately", "lora_restored")
+for _path in LORA_FLUX_PATHS:
+    PATH_KERNELS[_path], PATH_IDLE[_path] = PATH_KERNELS["int8"], PATH_IDLE["int8"]
+PATH_KERNELS["lora_auto_w8a16"] = PATH_KERNELS["w8a16"]
+PATH_IDLE["lora_auto_w8a16"] = PATH_IDLE["w8a16"]
+PATH_KERNELS["lora_q4_0"] = ("flash_attention", "q4_matmul", "q4_matmul_wgmma", "q4_matmul_gemv")
+PATH_IDLE["lora_q4_0"] = ("w8a8_matmul", "w8a16_matmul", "gq_matmul", "gq_matmul_ws",
+                          "gq_zero_matmul", "q4_matmul_splitk", *F32_FORMS)
+PATH_KERNELS["lora_q8_0_gguf"] = ("flash_attention", "gq_matmul", "gq_matmul_gemv", "gq_matmul_ws")
+PATH_IDLE["lora_q8_0_gguf"] = ("w8a8_matmul", "w8a16_matmul", "q4_matmul", "gq_zero_matmul",
+                               *F32_FORMS)
+PATH_KERNELS["sdxl_lora_cli"] = PATH_KERNELS["sdxl_cli"]
+PATH_IDLE["sdxl_lora_cli"] = PATH_IDLE["sdxl_cli"]
+PATH_KERNELS["sd15_lora_server"] = PATH_KERNELS["sd15_server"]
+PATH_IDLE["sd15_lora_server"] = PATH_IDLE["sd15_server"]
 # The FLUX.1-dev DiT's M = 1 linears per forward: 2 x 19 double-block and 38
 # single-block modulations, the final adaLN and the three embedders' two
 # layers each; one forward a denoise step (under CFG one forward of the
@@ -2688,7 +2734,9 @@ def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, c
     servers of their own, each started with its ``argv`` added to the
     files' and asked its ``body`` on the A1111 txt2img route once, dicts of
     ``path``, ``argv``, ``body``, ``load_check(server_report)``, ``check``,
-    ``size``, ``sampler``."""
+    ``size``, ``sampler`` (and ``after(base, server)`` → more report
+    fields, run once the request is answered).  An ``argv`` may be a
+    function of the files' directory."""
     import io
     import tempfile
 
@@ -2735,15 +2783,17 @@ def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, c
         torch.cuda.empty_cache()
         for more in more_cli:
             path, png, cli_rep = more["path"], tmp / f"{more['path']}.png", {}
+            argv = more["argv"](tmp) if callable(more["argv"]) else more["argv"]
             torch.cuda.reset_peak_memory_stats()
             with plain_attention_on_card() as plain:
                 rc, launches[path] = _windowed(wrappers, path, lambda: cli.main(
-                    args + more["argv"] + ["-o", str(png)], report=cli_rep))
+                    args + argv + ["-o", str(png)], report=cli_rep))
             if rc != 0:
                 raise RuntimeError(f"sdtpu_torch.cli.main ({path}) exited {rc}")
             if "load_check" in more:
                 more["load_check"](cli_rep)
             report[path] = {"load": cli_rep["load"], "timings_s": cli_rep["timings"],
+                            **({"loras": cli_rep["loras"]} if cli_rep.get("loras") else {}),
                             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                             **more["check"](path, launches[path], plain),
                             **_check_png(png.read_bytes(), *more["size"], more["sampler"])}
@@ -2791,7 +2841,8 @@ def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, c
             torch.cuda.empty_cache()
         for more in more_servers:  # a server of its own, started with more["argv"] added
             path = more["path"]
-            with _serving(args + more["argv"]) as (base, httpd, srv_rep):
+            argv = more["argv"](tmp) if callable(more["argv"]) else more["argv"]
+            with _serving(args + argv) as (base, httpd, srv_rep):
                 more["load_check"](srv_rep)
                 torch.cuda.reset_peak_memory_stats()
                 with plain_attention_on_card() as plain:
@@ -2805,6 +2856,8 @@ def _file_entry_check(wrappers, card: str, label: str, write_files, file_args, c
                                 **more["check"](path, launches[path], plain),
                                 **_check_png(base64.b64decode(resp["images"][0]), *more["size"],
                                              more["sampler"])}
+                if "after" in more:
+                    report[path].update(more["after"](base, httpd))
             print(f"entry {path} " + json.dumps(report[path]), flush=True)
             del httpd, srv_rep
             gc.collect()
@@ -2868,17 +2921,83 @@ def _init_and_mask_b64(size: int, timing: dict) -> dict:
             "mask": image_to_base64_png(np.repeat(mask[..., None], 3, axis=-1))}
 
 
+SD15_LORA, SD15_TOKEN = "sd15_style", "sd15token"
+SD15_LORA_BODY = dict(SD15_SERVER_BODY, prompt=f"{SD15_TOKEN} {SD15_REQUEST['prompt']}",
+                      lora=[{"name": SD15_LORA, "multiplier": 0.8}])
+
+
+def sd15_lora_files(tmp) -> list:
+    """A rank-``LORA_RANK`` kohya LoRA over the SD1.5 UNet's linears
+    (safetensors, ``loras/``) and a two-vector embedding for ``SD15_TOKEN``
+    (``embd/``) → the server's arguments naming both directories."""
+    import numpy as np
+
+    from sdtpu_torch.models import unet as unet_mod
+    from sdtpu_torch.tools.lora_file import lora_tensors, write_safetensors
+
+    loras, embd = tmp / "loras", tmp / "embd"
+    loras.mkdir()
+    embd.mkdir()
+    specs = unet_mod.param_specs(unet_mod.SD1_UNET_CONFIG)
+    write_safetensors(str(loras / f"{SD15_LORA}.safetensors"), lora_tensors(
+        {"diffusion": {n: shape for n, (shape, _) in specs.items()}}, rank=LORA_RANK, seed=47))
+    rng = np.random.default_rng(53)
+    write_safetensors(str(embd / f"{SD15_TOKEN}.safetensors"),
+                      {"emb_params": (rng.standard_normal((2, 768)) * 0.02).astype(np.float32)})
+    return ["--lora-model-dir", str(loras), "--embd-dir", str(embd)]
+
+
+def sd15_lora_after(base: str, httpd) -> dict:
+    """After the ``lora`` request: ``/sdapi/v1/loras`` lists the LoRA, the
+    epoch patched every UNet linear, one merged weight is its plain merge on
+    the CPU (bf16 steps apart), and a request with ``"lora": []`` puts the
+    pristine weight back (bit for bit, from its host copy)."""
+    import torch
+
+    from sdtpu_torch.io.model_loader import read_checkpoint_file
+    from sdtpu_torch.models.lora import group_lora_tensors, lora_delta
+
+    pipe = httpd.manager.pipeline
+    code, listing = _http(base, "/sdapi/v1/loras")
+    if code != 200 or [e["name"] for e in listing] != [SD15_LORA]:
+        raise RuntimeError(f"/sdapi/v1/loras: {code} {listing}")
+    tensors = read_checkpoint_file(httpd.manager.lora_dir + f"/{SD15_LORA}.safetensors")
+    groups = len(group_lora_tensors(tensors))
+    fresh = [n for n, v in pipe.diffusion_params.items() if v is not pipe._lora_base.get(n, v)]
+    if len(fresh) != groups:
+        raise RuntimeError(f"the lora field patched {len(fresh)} of {groups} UNet weights")
+    name = next(n for n in sorted(pipe.diffusion_params) if n.endswith("attn1.to_q.weight"))
+    want = (pipe._lora_base[name].cpu().float()
+            + lora_delta(_lora_group(tensors, "lora_unet_", name), 0.8, "cpu")).to(torch.bfloat16)
+    share = _steps_apart(pipe.diffusion_params[name].view(torch.int16), want.view(torch.int16), name)
+    pristine = pipe._lora_base[name]
+    body = dict(SD15_SERVER_BODY, steps=2, lora=[])
+    code, resp = _http(base, "/sdapi/v1/txt2img", body)
+    if code != 200 or pipe._lora_base or not torch.equal(pipe.diffusion_params[name].cpu(),
+                                                         pristine.cpu()):
+        raise RuntimeError(f"a request with lora [] did not restore the weights ({code})")
+    return {"listed": [e["name"] for e in listing], "patched": len(fresh), "steps_apart": share}
+
+
 def sd15_entry_check(wrappers, card: str) -> dict:
     """Phase 11, SD1.5: the full-width single-file checkpoint of
     ``tools/sd15_file.py`` through ``cli.main -m`` (txt2img, then ``--hires``:
     path ``sd15_cli_hires``) and the A1111 routes (txt2img, then img2img
     with a mask: ``sd15_server_img2img``, then ``enable_hr``:
-    ``sd15_server_hires``)."""
+    ``sd15_server_hires``); then a server of its own with
+    ``--lora-model-dir`` and ``--embd-dir`` (``sd15_lora_files``) answers
+    ``SD15_LORA_BODY``, the ``lora`` field and the embedding's trigger word
+    (path ``sd15_lora_server``, held by ``sd15_lora_after``)."""
     from sdtpu_torch.tools.sd15_file import write_sd15_file
 
     def load_check(rep):
         if rep["load"]["version"] != "sd1":
             raise RuntimeError(f"the CLI loaded a {rep['load']['version']} model, not sd1")
+
+    def lora_load_check(rep):
+        load_check(rep)
+        if rep["load"]["embeddings"] != [SD15_TOKEN]:
+            raise RuntimeError(f"--embd-dir loaded {rep['load']['embeddings']}")
 
     hires = unet_check("sd1", sd15_hires_totals(8, 0.7))
     i2i = unet_calls(dict(SD15_REQUEST, init_image=None,
@@ -2897,7 +3016,11 @@ def sd15_entry_check(wrappers, card: str) -> dict:
                           size=(i2i_size, i2i_size), sampler="euler_a"),
                      dict(path="sd15_server_hires", route="/sdapi/v1/txt2img",
                           body=SD15_SERVER_HIRES_BODY, check=hires, size=(1024, 1024),
-                          sampler="euler_a")])
+                          sampler="euler_a")],
+        more_servers=[dict(path="sd15_lora_server", argv=sd15_lora_files, body=SD15_LORA_BODY,
+                           load_check=lora_load_check, after=sd15_lora_after,
+                           check=unet_check("sd1", unet_calls(SD15_REQUEST)), size=(512, 512),
+                           sampler="euler_a")])
 
 
 # SDXL: the JAX bench's request (``bench_sdxl_lcm_taesd``, bench.py:441),
@@ -2972,6 +3095,7 @@ def sdxl_paths(wrappers, card: str, launches: dict, profile=None):
     info["img2img"] = _check_unet_family("sdxl_img2img", launches["sdxl_img2img"], "sdxl",
                                          unet_calls(i2i), plain)
     reports += rep
+    info["lora"] = sdxl_lora_epochs(pipe, card)
     del pipe, tae
     gc.collect()
     torch.cuda.empty_cache()
@@ -3160,13 +3284,40 @@ SDXL_SERVER_BODY = {"prompt": SDXL_REQUEST["prompt"], "width": 1024, "height": 1
                     "cfg_scale": 1.0, "seed": 42, "sampler_name": "lcm"}
 
 
+SDXL_LORA = "sdxl_style"
+
+
+def sdxl_lora_argv(tmp) -> list:
+    """A rank-``LORA_RANK`` kohya LoRA over the SDXL UNet's, CLIP-L's
+    (``lora_te1_``) and CLIP-G's (``lora_te2_``) linears as a torch ZIP
+    ``.ckpt`` in ``loras/`` → the CLI's arguments: the bench's request with
+    ``<lora:sdxl_style:0.8>`` in the prompt."""
+    from sdtpu_torch.models import clip as clip_mod
+    from sdtpu_torch.models import unet as unet_mod
+    from sdtpu_torch.tools.lora_file import lora_tensors, write_ckpt
+
+    loras = tmp / "loras"
+    loras.mkdir()
+    specs = {"diffusion": unet_mod.param_specs(unet_mod.SDXL_UNET_CONFIG),
+             "clip_l": clip_mod.param_specs(clip_mod.CLIP_L_CONFIG),
+             "clip_g": clip_mod.param_specs(clip_mod.CLIP_G_CONFIG)}
+    write_ckpt(str(loras / f"{SDXL_LORA}.ckpt"), lora_tensors(
+        {m: {n: shape for n, (shape, _) in sp.items()} for m, sp in specs.items()},
+        rank=LORA_RANK, seed=59))
+    argv = list(SDXL_CLI_ARGV)
+    argv[1] = f"{SDXL_REQUEST['prompt']} <lora:{SDXL_LORA}:0.8>"
+    return argv + ["--lora-model-dir", str(loras)]
+
+
 def sdxl_entry_check(wrappers, card: str) -> dict:
     """Phase 11, SDXL: the full-width SDXL and TAESD-XL files of
     ``tools/sdxl_file.py`` through ``cli.main -m ... --taesd ...`` (its PNG
     read back in metadata mode), the A1111 route, and both again with
     ``--type q8_0`` (paths ``sdxl_q8_cli`` and ``sdxl_q8_server``: the UNet
     quantized per row at load, its context projections in the W8A8 split-K
-    form)."""
+    form), and the CLI with ``<lora:sdxl_style:0.8>`` from a ``.ckpt``
+    (``sdxl_lora_argv``; path ``sdxl_lora_cli``: every group of the UNet,
+    CLIP-L and CLIP-G applied, merged, flash as often as without it)."""
     from sdtpu_torch.tools.sdxl_file import write_sdxl_files
 
     def load_check(rep):
@@ -3186,13 +3337,22 @@ def sdxl_entry_check(wrappers, card: str) -> dict:
                 **_check_int8_unet(path, counts, totals[0])}
 
     typed = {"size": size, "sampler": "lcm", "check": typed_check}
+
+    def lora_load_check(rep):
+        load_check(rep)
+        (lora,) = rep["loras"]
+        if lora["name"] != SDXL_LORA or lora["applied"] != lora["total"] or lora["total"] < 700:
+            raise RuntimeError(f"<lora:{SDXL_LORA}:0.8>: {lora}")
+
     return _file_entry_check(
         wrappers, card, "sdxl", lambda tmp: write_sdxl_files(tmp, device=DEVICE),
         lambda files: ["-m", files["paths"]["model"], "--taesd", files["paths"]["taesd"]],
         SDXL_CLI_ARGV, SDXL_SERVER_BODY, unet_check("sdxl", totals), "lcm", size, load_check,
         request=SDXL_REQUEST,
         more_cli=[dict(typed, path="sdxl_q8_cli", argv=SDXL_CLI_ARGV + ["--type", "q8_0"],
-                       load_check=lambda rep: typed_load_check(rep["load"]))],
+                       load_check=lambda rep: typed_load_check(rep["load"])),
+                  dict(path="sdxl_lora_cli", argv=sdxl_lora_argv, load_check=lora_load_check,
+                       check=unet_check("sdxl", totals), size=size, sampler="lcm")],
         more_servers=[dict(typed, path="sdxl_q8_server", argv=["--type", "q8_0"],
                            body=SDXL_SERVER_BODY, load_check=lambda rep: typed_load_check(rep["load"]))])
 
@@ -5153,6 +5313,473 @@ def sampling_z_image(pipe, wrappers, card: str, launches: dict) -> tuple:
     return lines, time.time() - t0
 
 
+# ---------------------------------------------------------------------- LoRA
+# Phase 12: LoRA on the paths above, with kohya LoRAs of ``LORA_RANK`` drawn
+# by ``tools/lora_file.py`` over every linear (no published LoRA is used).
+LORA_RANK = 16
+LORA_REQUEST = dict(prompt="a watercolour lighthouse at dawn", width=1024, height=1024,
+                    sample_steps=4, cfg_scale=1.0, guidance=3.5, seed=17)
+LORA_CUT = LORA_BLOCK_CUT = (1, 1)  # the double and single blocks of the merges' forwards
+# the dense-merge forward is also read (not held) at 2 + 2 blocks: there the
+# int8 base alone is already past REF_REL_TOL from its float32 forward
+LORA_DEEPER_CUT = (2, 2)
+LORA_FAULT_MULT = 0.9  # a forward with the factors at this multiplier must miss REF_REL_TOL
+# one linear's runtime factors against float32 ΔW on the same W8A8 product:
+# the error held as a share of the LoRA's contribution, and a multiplier
+# that must miss it
+LORA_LINEAR_TOL, LORA_LINEAR_FAULT_MULT = 0.02, 0.95
+W8A8_COUNTS = ("w8a8_matmul", "w8a8_matmul_gemv", "w8a8_matmul_splitk", "w8a8_matmul_wgmma")
+LORA_STEPS_APART = 1e-3  # the share of requantized integers one step off the CPU's
+LORA = {"seconds": {}}  # what the phase measured, for --out
+
+
+def _lora_part(label: str, t0: float) -> None:
+    LORA["seconds"][label] = time.time() - t0
+    print(f"elapsed lora_{label} {LORA['seconds'][label]:.1f} s", flush=True)
+
+
+def _lora_shapes(params: dict) -> dict:
+    return {k: tuple(v.shape) for k, v in params.items()}
+
+
+def _sync_s(t0: float) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    return time.time() - t0
+
+
+def _steps_apart(got, want, what: str) -> float:
+    """Integers (or bf16 bit patterns) equal or one step apart on at most
+    ``LORA_STEPS_APART`` of the entries → that share."""
+    d = (got.long().cpu() - want.long().cpu()).abs()
+    share = float((d > 0).float().mean())
+    if d.max() > 1 or share > LORA_STEPS_APART:
+        raise RuntimeError(f"{what}: {int(d.max())} steps apart, on {share:.3g} of the entries")
+    return share
+
+
+def _restore_check(pipe, what: str) -> float:
+    """``set_loras([])`` → its seconds; every entry an epoch had replaced is
+    back, bit for bit, as its pristine copy (the base itself, or the host
+    copy of a merged one), and no copy is left."""
+    import torch
+
+    from sdtpu_torch.pipeline import _tensors
+
+    saved = dict(pipe._lora_base)
+    t0 = time.time()
+    pipe.set_loras([])
+    seconds = _sync_s(t0)
+    bad = [k for k, v in saved.items() if type(pipe.diffusion_params[k]) is not type(v)
+           or not all(torch.equal(a.cpu(), b.cpu())
+                      for a, b in zip(_tensors(pipe.diffusion_params[k]), _tensors(v)))]
+    if bad or pipe._lora_base:
+        raise RuntimeError(f"{what}: set_loras([]) left {len(bad)} weights off their pristine copy, "
+                           f"{len(pipe._lora_base)} copies kept")
+    return seconds
+
+
+def _factor_bytes(params: dict) -> int:
+    from sdtpu_torch.ops import quant
+
+    return sum(t.numel() * t.element_size() for v in params.values()
+               if isinstance(v, (quant.QuantLoraTensor, quant.LoraTensor))
+               for t in (v.lora_down, v.lora_up))
+
+
+def _lora_group(tensors: dict, prefix: str, name: str) -> dict:
+    from sdtpu_torch.models.lora import group_lora_tensors
+
+    return group_lora_tensors(tensors)[prefix + name[:-len(".weight")].replace(".", "_")]
+
+
+def _ckpt_round_trip(tensors: dict, name: str) -> tuple:
+    """The LoRA written as a torch ZIP checkpoint and read back through the
+    restricted unpickler (``read_checkpoint_file``): its tensors equal → (the
+    tensors read, the file's bytes and the read's seconds and rate; the
+    read is warm, the file having just been written)."""
+    import numpy as np
+
+    from sdtpu_torch.io.model_loader import read_checkpoint_file
+    from sdtpu_torch.tools.lora_file import write_ckpt
+
+    root = ROOT / "build" / "chip_smoke" / "lora"
+    root.mkdir(parents=True, exist_ok=True)
+    path = root / f"{name}.ckpt"
+    try:
+        write_ckpt(str(path), tensors)
+        nbytes = path.stat().st_size
+        t0 = time.time()
+        read = read_checkpoint_file(str(path))
+        read_s = time.time() - t0
+    finally:
+        path.unlink(missing_ok=True)
+    # (a 0-d alpha reads back as one element, as the JAX package's reader gives it)
+    if list(read) != list(tensors) or not all(
+            read[k].size == v.size and np.array_equal(read[k].reshape(v.shape), v)
+            for k, v in tensors.items()):
+        raise RuntimeError(f"{name}.ckpt read back other tensors than were written")
+    return read, {"ckpt_bytes": nbytes, "ckpt_read_s": read_s,
+                  "ckpt_read_gb_per_s": nbytes / read_s / 1e9, "ckpt_read": "warm"}
+
+
+def _flux_inputs(cfg, dtype, seed: int, size: int = 1024) -> tuple:
+    """One FLUX forward's inputs at ``size``² (FLUX.1-dev's config: 4096
+    image tokens at 1024²): the latent, sigma, T5's 256 tokens, CLIP-L's
+    pooled vector, the distilled guidance."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return (torch.randn((1, size // 8, size // 8, cfg.in_channels // 4), generator=g,
+                        device=DEVICE).to(dtype),
+            torch.tensor([0.7], device=DEVICE),
+            torch.randn((1, 256, cfg.context_in_dim), generator=g, device=DEVICE).to(dtype),
+            torch.randn((1, cfg.vec_in_dim), generator=g, device=DEVICE).to(dtype),
+            torch.tensor([3.5], device=DEVICE))
+
+
+def _flux_cut(params: dict, cut: tuple) -> tuple:
+    """The DiT's params with only its first ``cut`` double and single blocks
+    (the same tensors) → (params, the config at that depth)."""
+    import re
+
+    from sdtpu_torch.models import flux as flux_mod
+
+    def keep(n):
+        m = re.match(r"(double|single)_blocks\.(\d+)\.", n)
+        return m is None or int(m.group(2)) < cut[m.group(1) == "single"]
+
+    cfg = dataclasses.replace(flux_mod.FLUX_DEV_CONFIG, depth=cut[0], depth_single=cut[1])
+    return {n: v for n, v in params.items() if keep(n)}, cfg
+
+
+def _merge_forward(pipe, tensors: dict, cut: tuple) -> dict:
+    """The DiT cut to ``cut`` blocks at full width, with the runtime factors
+    ``set_loras`` attached, through W8A8 in bf16 at 1024² (4096 image and
+    256 text tokens), against the same forward in float32 on the dense
+    merge: each int8 weight dequantized and ΔW (``lora_delta`` of the
+    file's tensors, float32, TF32 off) added, flash in its float32 form →
+    its relative L2 (``rel_l2``); the int8 base alone against its own
+    float32 forward (``base_rel_l2``: the path's error without a LoRA); and
+    two faults against the merge: the base without the factors
+    (``no_factors``) and the factors at ``LORA_FAULT_MULT``."""
+    import torch
+
+    from sdtpu_torch.models import flux as flux_mod
+    from sdtpu_torch.models.lora import build_lookup, group_lora_tensors, lora_delta, resolve_target
+    from sdtpu_torch.ops import quant
+
+    cut_params, cfg = _flux_cut(pipe.diffusion_params, cut)
+    base = {n: pipe._lora_base.get(n, v) for n, v in cut_params.items()}
+    faint = {n: v._replace(lora_up=v.lora_up * LORA_FAULT_MULT)
+             if isinstance(v, quant.QuantLoraTensor) else v for n, v in cut_params.items()}
+    dense = {n: quant.dequantize(v, torch.float32) if isinstance(v, quant.QuantTensor) else v.float()
+             for n, v in base.items()}
+    x, t, ctx, y, gd = _flux_inputs(cfg, torch.bfloat16, 29)
+    with torch.inference_mode():
+        want_base = flux_mod.flux_forward(dense, x.float(), t, ctx.float(), y.float(), gd, cfg=cfg)
+        lookup = build_lookup({"diffusion": list(cut_params)})
+        for key, g in group_lora_tensors(tensors).items():
+            target = resolve_target(key, lookup)
+            if target is not None:
+                dense[target[1]] = dense[target[1]] + lora_delta(g, 1.0, DEVICE)
+        want = flux_mod.flux_forward(dense, x.float(), t, ctx.float(), y.float(), gd, cfg=cfg)
+        del dense
+        got = flux_mod.flux_forward(cut_params, x, t, ctx, y, gd, cfg=cfg)
+        bare = flux_mod.flux_forward(base, x, t, ctx, y, gd, cfg=cfg)
+        weak = flux_mod.flux_forward(faint, x, t, ctx, y, gd, cfg=cfg)
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+    return {"blocks": list(cut), "finite": finite, "rel_l2": _rel(got, want),
+            "base_rel_l2": _rel(bare, want_base), "no_factors": _rel(bare, want),
+            f"mult_{LORA_FAULT_MULT}": _rel(weak, want)}
+
+
+def _factor_linear(pipe, tensors: dict, names) -> dict:
+    """Each named linear alone, with the runtime factors ``set_loras``
+    attached (``ops.basic.linear``: W8A8, then the bf16 factor products),
+    on one bf16 input at the 1024² path's rows (4096 image rows; 4352 for a
+    single block), against the same W8A8 product of its pristine base plus
+    x·ΔWᵀ in float32 (ΔW from the file's tensors by ``lora_delta``) → the
+    error as a share of the LoRA's contribution ‖x·ΔWᵀ‖ (``rel``), and the
+    same with the factors at ``LORA_LINEAR_FAULT_MULT`` (``fault``).  The
+    base product is the same kernel on the same integers in both, so the
+    error is the factors' own; a whole forward cannot show it, since a
+    change that small moves W8A8's int8 activations across rounding
+    edges."""
+    import torch
+
+    from sdtpu_torch.models.lora import lora_delta
+    from sdtpu_torch.ops import basic, quant
+
+    g = torch.Generator(device=DEVICE).manual_seed(37)
+    out = {}
+    with torch.inference_mode():
+        for n in names:
+            w, pristine = pipe.diffusion_params[n], pipe._lora_base[n]
+            rows = 4352 if n.startswith("single_blocks.") else 4096
+            x = torch.randn((rows, w.shape[1]), generator=g, device=DEVICE).to(torch.bfloat16)
+            y0 = quant.quant_matmul(x, pristine).float()
+            want = x.float() @ lora_delta(_lora_group(tensors, "lora_unet_", n), 1.0, DEVICE).T
+            got = basic.linear(x, w).float() - y0
+            weak = basic.linear(x, w._replace(lora_up=w.lora_up * LORA_LINEAR_FAULT_MULT)).float() - y0
+            out[n] = {"rows": rows, "rel": _rel(got, want), "fault": _rel(weak, want),
+                      "finite": bool(torch.isfinite(got).all())}
+    return out
+
+
+def lora_merge_forward_check(pipe, tensors: dict) -> dict:
+    """The runtime factors held two ways.  ``_merge_forward`` at
+    ``LORA_CUT`` blocks: within REF_REL_TOL (the FLUX path's bf16
+    tolerance) of the float32 dense merge, both faults above it; the same
+    read at ``LORA_DEEPER_CUT``, where the int8 base's own distance passes
+    REF_REL_TOL.  ``_factor_linear`` on five linears: within
+    ``LORA_LINEAR_TOL`` of the LoRA's contribution, the fault above it."""
+    held = _merge_forward(pipe, tensors, LORA_CUT)
+    deeper = _merge_forward(pipe, tensors, LORA_DEEPER_CUT)
+    last = max(int(n.split(".")[1]) for n in pipe.diffusion_params if n.startswith("single_blocks."))
+    lin = _factor_linear(pipe, tensors, ("double_blocks.0.img_attn.qkv.weight",
+                                         "double_blocks.0.img_mlp.2.weight",
+                                         "single_blocks.0.linear1.weight",
+                                         f"single_blocks.{last}.linear2.weight",
+                                         "final_layer.linear.weight"))
+    faults = [held["no_factors"], held[f"mult_{LORA_FAULT_MULT}"]]
+    ok_forward = held["finite"] and held["rel_l2"] <= REF_REL_TOL < min(faults)
+    ok_linear = all(r["finite"] and r["rel"] <= LORA_LINEAR_TOL < r["fault"] for r in lin.values())
+    out = {"forward": held, "tol": REF_REL_TOL, "deeper": deeper, "linear": lin,
+           "linear_tol": LORA_LINEAR_TOL, "ok": bool(ok_forward and ok_linear)}
+    print("lora_merge_forward " + json.dumps(out), flush=True)
+    if not ok_forward:
+        raise RuntimeError(f"the runtime-factor forward is {held['rel_l2']:.4g} from the float32 "
+                           f"dense merge (limit {REF_REL_TOL}; the faults {faults})")
+    if not ok_linear:
+        raise RuntimeError(f"a linear's runtime factors miss x·ΔWᵀ (limit {LORA_LINEAR_TOL} of "
+                           f"the contribution, the fault above it): {lin}")
+    return out
+
+
+def _requant_check(pipe, tensors: dict, names) -> dict:
+    """Each named int8 weight that ``immediately`` requantized against its
+    plain version on the CPU: the pristine base dequantized, ΔW added and
+    quantized per row there → the share of integers one step off (the
+    card's float32 sums run in another order), the scales within 1e-6."""
+    import torch
+
+    from sdtpu_torch.models.lora import lora_delta
+    from sdtpu_torch.ops import quant
+
+    out = {}
+    for n in names:
+        pristine, got = pipe._lora_base[n], pipe.diffusion_params[n]
+        dense = quant.dequantize(quant.QuantTensor(pristine.q.cpu(), pristine.scale.cpu()),
+                                 torch.float32)
+        want = quant.quantize_per_channel(dense + lora_delta(_lora_group(tensors, "lora_unet_", n),
+                                                             1.0, "cpu"))
+        srel = float(((got.scale.cpu() - want.scale).abs() / want.scale).max())
+        if not isinstance(got, quant.QuantTensor) or srel > 1e-6:
+            raise RuntimeError(f"{n}: requantized as {type(got).__name__}, scales {srel:.3g} off")
+        out[n] = {"steps_apart": _steps_apart(got.q, want.q, n), "scale_rel": srel}
+    return out
+
+
+def flux_lora_paths(pipe, wrappers, card: str, launches: dict) -> tuple:
+    """Phase 12 on the int8 FLUX.1-dev pipeline (full width and depth, the
+    bench's main path): a rank-``LORA_RANK`` kohya LoRA over every DiT
+    linear, written as a torch ``.ckpt`` and read back; ``LORA_REQUEST``
+    (1024² x 4) without it (``lora_none``), after ``set_loras(auto)``
+    (runtime factors on every int8 base: ``lora_auto``, held by
+    ``lora_merge_forward_check``; ``lora_auto_w8a16`` the same under
+    SDTPU_QUANT_MODE=w8a16), after ``immediately`` (requantized per
+    row: ``lora_immediately``, its integers held to the CPU's) and after
+    ``set_loras([])`` (``lora_restored``: the latents bit-equal to
+    ``lora_none``'s).  W8A8 launches as often in each; each epoch's seconds,
+    the factors' bytes and the requests' times are recorded."""
+    import numpy as np
+
+    from sdtpu_torch.models.lora import group_lora_tensors
+    from sdtpu_torch.ops import quant
+    from sdtpu_torch.tools.lora_file import lora_tensors
+
+    t_part = t0 = time.time()
+    drawn = lora_tensors({"diffusion": _lora_shapes(pipe.diffusion_params)}, rank=LORA_RANK, seed=31)
+    info = {"card": card, "rank": LORA_RANK, "draw_s": time.time() - t0}
+    tensors, ckpt = _ckpt_round_trip(drawn, "flux_style")
+    del drawn
+    info.update(ckpt, groups=len(group_lora_tensors(tensors)), epoch_s={})
+    reports, latents = [], {}
+
+    def run(path):
+        res = []
+        rep, launches[path] = _windowed(wrappers, path, lambda: answer(
+            pipe, [LORA_REQUEST], card, path, res))
+        latents[path] = res[0].latents
+        reports.extend(rep)
+
+    def patched(kind):
+        fresh = [v for n, v in pipe.diffusion_params.items() if v is not pipe._lora_base.get(n, v)]
+        if len(fresh) != info["groups"] or not all(type(v) is kind for v in fresh):
+            raise RuntimeError(f"{len(fresh)} of {info['groups']} weights patched, as "
+                               f"{sorted({type(v).__name__ for v in fresh})}, not {kind.__name__}")
+
+    run("lora_none")
+    t0 = time.time()
+    pipe.set_loras([(tensors, 1.0)], "auto")
+    info["epoch_s"]["auto"] = _sync_s(t0)
+    patched(quant.QuantLoraTensor)  # every DiT linear is int8 here
+    info["factor_bytes"] = _factor_bytes(pipe.diffusion_params)
+    info["merge_forward"] = lora_merge_forward_check(pipe, tensors)
+    run("lora_auto")
+    previous = os.environ.get("SDTPU_QUANT_MODE")
+    os.environ["SDTPU_QUANT_MODE"] = "w8a16"
+    try:  # the same factors beside W8A16
+        run("lora_auto_w8a16")
+    finally:
+        if previous is None:
+            del os.environ["SDTPU_QUANT_MODE"]
+        else:
+            os.environ["SDTPU_QUANT_MODE"] = previous
+    t0 = time.time()
+    pipe.set_loras([(tensors, 1.0)], "immediately")
+    info["epoch_s"]["immediately"] = _sync_s(t0)
+    patched(quant.QuantTensor)
+    last = max(int(n.split(".")[1]) for n in pipe.diffusion_params if n.startswith("single_blocks."))
+    info["requant"] = _requant_check(pipe, tensors, ("double_blocks.0.img_attn.qkv.weight",
+                                                     f"single_blocks.{last}.linear2.weight",
+                                                     "final_layer.linear.weight"))
+    run("lora_immediately")
+    info["epoch_s"]["restore"] = _restore_check(pipe, "flux")
+    run("lora_restored")
+    w8 = {p: [launches[p][k] for k in W8A8_COUNTS] for p in LORA_FLUX_PATHS}
+    if any(c != w8["lora_none"] for c in w8.values()):
+        raise RuntimeError(f"W8A8 launches differ with a LoRA: {w8}")
+    if not np.array_equal(latents["lora_restored"], latents["lora_none"]):
+        raise RuntimeError("the latents after set_loras([]) differ from those with no LoRA")
+
+    def rel(a, b):
+        return float(np.linalg.norm(latents[a] - latents[b]) / np.linalg.norm(latents[b]))
+
+    info["rel_l2"] = {"auto_none": rel("lora_auto", "lora_none"),
+                      "immediately_auto": rel("lora_immediately", "lora_auto")}
+    if not info["rel_l2"]["immediately_auto"] < 0.5 * info["rel_l2"]["auto_none"]:
+        raise RuntimeError(f"the requantized merge is not near the runtime factors: {info['rel_l2']}")
+    info["requests"] = {r["path"]: {"total_s": r["timings_s"]["total"],
+                                    "denoise_steps_per_s": r["denoise_steps_per_s"],
+                                    "peak_mem_bytes": r["peak_mem_bytes"]} for r in reports}
+    info["w8a8_launches"] = dict(zip(W8A8_COUNTS, w8["lora_none"]))
+    print("lora flux " + json.dumps(info), flush=True)
+    LORA["flux"] = info
+    _lora_part("flux", t_part)
+    return reports, info
+
+
+def block_lora_check(pipe, wrappers, card: str, label: str, launches: dict) -> dict:
+    """Phase 12 on the ``q4_0`` or ``q8_0_gguf`` FLUX.1-dev DiT (full width,
+    cut to ``LORA_BLOCK_CUT`` blocks): a rank-``LORA_RANK`` LoRA over its
+    linears merged by ``apply_lora`` (a 4-bit base requantized at group 64,
+    a GGUF-block one symmetric at its group), two weights' integers and
+    scales held to their plain version on the CPU, then one 1024² forward
+    through the 4-bit or group-dequant kernels (path ``lora_<label>``)
+    against the same forward with every quantized linear in its plain
+    version (REF_REL_TOL)."""
+    import torch
+
+    from sdtpu_torch.models import flux as flux_mod
+    from sdtpu_torch.models.lora import apply_lora, lora_delta
+    from sdtpu_torch.ops import quant
+    from sdtpu_torch.tools.lora_file import lora_tensors
+
+    t_part = time.time()
+    cut, cfg = _flux_cut(pipe.diffusion_params, LORA_BLOCK_CUT)
+    tensors = lora_tensors({"diffusion": _lora_shapes(cut)}, rank=LORA_RANK, seed=37)
+    work = dict(cut)
+    t0 = time.time()
+    applied, total = apply_lora({"diffusion": work}, tensors, 1.0, mode="auto")
+    merge_s = _sync_s(t0)
+    if applied != total:
+        raise RuntimeError(f"{label}: {applied} of {total} LoRA groups applied")
+    blocks = [n for n, v in cut.items() if isinstance(v, (quant.Q4Tensor, quant.GroupQuantTensor))]
+    for n in blocks:
+        old, new = cut[n], work[n]
+        group = quant.Q4_GROUP if isinstance(old, quant.Q4Tensor) else old.group
+        if type(new) is not type(old) or new.group != group or getattr(new, "zero", None) is not None:
+            raise RuntimeError(f"{label}/{n}: merged into {type(new).__name__} g{new.group}")
+    checked = {}
+    for n in ("double_blocks.0.img_mlp.0.weight", "single_blocks.0.linear1.weight"):
+        old, new = cut[n], work[n]
+        delta = lora_delta(_lora_group(tensors, "lora_unet_", n), 1.0, "cpu")
+        if isinstance(old, quant.Q4Tensor):
+            host = dataclasses.replace(old, packed=old.packed.cpu(), scale=old.scale.cpu())
+            want = quant.quantize_q4(quant.dequantize_q4(host, torch.float32) + delta)
+            nib = [torch.stack([p & 0xF, p >> 4], -1) for p in (new.packed, want.packed)]
+            share = _steps_apart(nib[0], nib[1], n)
+        else:
+            host = dataclasses.replace(old, q=old.q.cpu(), scale=old.scale.cpu())
+            want = quant.quantize_group(quant.dequantize_group(host, torch.float32) + delta,
+                                        group=old.group)
+            share = _steps_apart(new.q, want.q, n)
+        srel = float(((new.scale.cpu() - want.scale).abs() / want.scale).max())
+        if srel > 1e-6:
+            raise RuntimeError(f"{label}/{n}: the requantized scales are {srel:.3g} off the CPU's")
+        checked[n] = {"steps_apart": share, "scale_rel": srel}
+    x, t, ctx, y, gd = _flux_inputs(cfg, torch.bfloat16, 41)
+    path = f"lora_{label}"
+    with torch.inference_mode():
+        got, launches[path] = _windowed(wrappers, path, lambda: flux_mod.flux_forward(
+            work, x, t, ctx, y, gd, cfg=cfg))
+        with plain_quant_linears():
+            want = flux_mod.flux_forward(work, x, t, ctx, y, gd, cfg=cfg)
+    rel = _rel(got, want)
+    ok = bool(torch.isfinite(got).all() and torch.isfinite(want).all() and rel <= REF_REL_TOL)
+    out = {"card": card, "blocks": list(LORA_BLOCK_CUT), "applied": applied, "merge_s": merge_s,
+           "requantized": len(blocks), "requant": checked, "rel_l2": rel, "tol": REF_REL_TOL,
+           "ok": ok}
+    print(f"lora {label} " + json.dumps(out), flush=True)
+    if not ok:
+        raise RuntimeError(f"{path}: the merged forward is {rel:.4g} from its plain version")
+    LORA[label] = out
+    _lora_part(label, t_part)
+    return out
+
+
+def sdxl_lora_epochs(pipe, card: str) -> dict:
+    """Phase 12 on the dense bf16 SDXL pipeline: a rank-``LORA_RANK`` LoRA
+    over every UNet linear through ``set_loras`` in each mode (``auto`` and
+    ``immediately`` merge, ``at_runtime`` attaches ``LoraTensor`` factors),
+    then ``[]``: each epoch's seconds; one merged weight held to its plain
+    merge on the CPU (bf16 steps); the restore puts the pristine weights
+    back (``_restore_check``)."""
+    import torch
+
+    from sdtpu_torch.models.lora import group_lora_tensors, lora_delta
+    from sdtpu_torch.tools.lora_file import lora_tensors
+
+    t_part = time.time()
+    tensors = lora_tensors({"diffusion": _lora_shapes(pipe.diffusion_params)}, rank=LORA_RANK,
+                           seed=43)
+    groups = len(group_lora_tensors(tensors))
+    name = next(n for n in sorted(pipe.diffusion_params) if n.endswith("attn1.to_q.weight"))
+    out = {"card": card, "groups": groups, "epoch_s": {}}
+    for mode in ("auto", "immediately", "at_runtime"):
+        t0 = time.time()
+        pipe.set_loras([(tensors, 1.0)], mode)
+        out["epoch_s"][mode] = _sync_s(t0)
+        fresh = [n for n, v in pipe.diffusion_params.items() if v is not pipe._lora_base.get(n, v)]
+        if len(fresh) != groups:
+            raise RuntimeError(f"sdxl {mode}: {len(fresh)} of {groups} weights patched")
+        if mode == "at_runtime":
+            out["factor_bytes"] = _factor_bytes(pipe.diffusion_params)
+            continue
+        want = (pipe._lora_base[name].cpu().float()
+                + lora_delta(_lora_group(tensors, "lora_unet_", name), 1.0, "cpu")).to(torch.bfloat16)
+        out[f"{mode}_steps_apart"] = _steps_apart(pipe.diffusion_params[name].view(torch.int16),
+                                                  want.view(torch.int16), name)
+    out["epoch_s"]["restore"] = _restore_check(pipe, "sdxl")
+    print("lora sdxl " + json.dumps(out), flush=True)
+    LORA["sdxl"] = out
+    _lora_part("sdxl", t_part)
+    return out
+
+
 def launch_counters() -> dict:
     """Each kernel's launch counter: name → (wrapper, attribute); the D 512
     kernel, the wgmma forms, the GEMVs, the split-K forms, the float32 forms
@@ -5286,6 +5913,8 @@ def main() -> int:
     reports += rep
     rep, pipes[-1]["img2img"] = flux_img2img_paths(pipe, wrappers, card, launches)
     reports += rep
+    rep, pipes[-1]["lora"] = flux_lora_paths(pipe, wrappers, card, launches)
+    reports += rep
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -5300,6 +5929,7 @@ def main() -> int:
     if args.profile:
         prof["q8_0_gguf"] = profile_request(pipe, GGUF_REQUESTS[-1], args.profile, "q8_0_gguf",
                                             card)
+    pipes[-1]["lora"] = block_lora_check(pipe, wrappers, card, "q8_0_gguf", launches)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -5313,6 +5943,7 @@ def main() -> int:
     _check_m1_linears("q4_0", q4c["q4_matmul_gemv"], q4c["q4_matmul_splitk"], GGUF_REQUESTS)
     if args.profile:
         prof["q4_0"] = profile_request(pipe, GGUF_REQUESTS[-1], args.profile, "q4_0", card)
+    pipes[-1]["lora"] = block_lora_check(pipe, wrappers, card, "q4_0", launches)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -5405,6 +6036,9 @@ def main() -> int:
     elapsed["sampling"] = sum(SAMPLING["seconds"].values())
     print(f"elapsed sampling {elapsed['sampling']:.1f} s (inside the sd15, sd3, wan and z_image "
           f"paths: {len(SAMPLING['lines'])} requests) on {card}", flush=True)
+    elapsed["lora"] = sum(LORA["seconds"].values())
+    print(f"elapsed lora {elapsed['lora']:.1f} s (inside the int8, q8_0_gguf, q4_0 and sdxl paths; "
+          "the sdxl_lora_cli and sd15_lora_server entry paths apart) on " + card, flush=True)
 
     headline = {"flash_attention": ([1, 24, 4352, 4352, 128], {}),
                 "flash_attention_d512": ([1, 1, 4096, 4096, 512], {}),
@@ -5462,7 +6096,7 @@ def main() -> int:
                        "reference": ref,
                        "loader": loader, "pipelines": pipes, "requests": reports, "entry": entry,
                        "wan": wan_extra, "z_image": zi_extra, "qwen_image": qi_extra,
-                       "sampling": SAMPLING,
+                       "sampling": SAMPLING, "lora": LORA,
                        "launches": launches, "kernels": kernels, "profile": prof}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

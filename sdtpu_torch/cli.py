@@ -70,13 +70,20 @@ Wan2.1: one PNG a frame, ``name_0000.png``... for ``-o name.png``; the AVI,
 WebP, GIF and WebM containers, the default ``output.avi`` among them, need
 Pillow's JPEG / WebP encoders and exit 2) and ``metadata``, and the flags in
 ``RUN_FLAGS``; any other mode or flag set away from its default (e.g.
-``--embd-dir``: textual-inversion embeddings are not ported), a sampler
-outside ``samplers.PORTED_METHODS`` (SeFi's ``sefi_euler``), a schedule
-outside ``schedule.SCHEDULERS`` or a ``<lora:...>`` prompt tag exits with
-code 2 before anything loads, naming it.  The sampling flags run as in the
+``--control-net``), a sampler outside ``samplers.PORTED_METHODS`` (SeFi's
+``sefi_euler``) or a schedule outside ``schedule.SCHEDULERS`` exits with
+code 2 before anything loads, naming it.  ``<lora:name:mult>`` prompt tags
+run as in the JAX CLI: ``name`` + ``.safetensors``, ``.ckpt`` or ``.pt``
+from ``--lora-model-dir``, applied by ``--lora-apply-mode`` to the
+pipeline's live diffusion and CLIP weights (``lora NAME: applied a/t
+tensors xM``; a name with no file warns); ``vid_gen`` drops the tags.
+``--embd-dir`` loads every embedding file of the directory under its stem
+as the trigger word (SD1.x and SD2.x).  A model or LoRA file may be a torch
+``.ckpt`` / ``.pt`` (``io.torch_ckpt``'s restricted unpickler).  The sampling flags run as in the
 JAX CLI: every schedule, ``--skip-layers`` / ``--slg-*`` (on FLUX, SD3 and
 Wan; a warning elsewhere), ``--apg-*``, ``--extra-sample-args``
-(``guidance_schedule``, ``gamma``, ``noise_scale_start`` / ``_end``),
+(``guidance_schedule`` and the JAX pipeline's sampler keys; any other key
+is dropped),
 ``--sampler-rng``, and ``--cache`` / ``--cache-mode`` with
 ``--cache-option``, ``--scm-mask`` and ``--scm-policy`` on ``img_gen``
 without ``--hires``; as in the JAX CLI, ``vid_gen`` passes none of the
@@ -107,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import sys
 import time
@@ -541,6 +549,8 @@ RUN_FLAGS = frozenset({
     "hires_width", "hires_height", "hires_steps", "hires_denoising_strength", "hires_sigmas",
     "vae_tiling", "vae_tile_size", "vae_tile_overlap",
     "dtype", "no_promote_q8", "no_keep_quant", "wtype", "backend", "flow_shift",
+    # LoRA (<lora:name:mult> prompt tags) and textual-inversion embeddings
+    "lora_model_dir", "lora_apply_mode", "embd_dir",
     "output", "output_begin_idx", "disable_image_metadata", "verbose",
     # vid_gen mode (Wan2.1 T2V)
     "video_frames", "fps", "vae_temporal_tiling", "extra_tiling_args",
@@ -558,6 +568,7 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
     """Why the port cannot run these arguments (None: it can)."""
     from sdtpu_torch.diffusion.samplers import PORTED_METHODS
     from sdtpu_torch.diffusion.schedule import SCHEDULERS
+    from sdtpu_torch.io.model_loader import image_families
 
     for action in parser._actions:
         dest = action.dest
@@ -568,8 +579,8 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
             if dest == "model_args" and "qwen_image_zero_cond_t" in args.model_args:
                 return ("--model-args qwen_image_zero_cond_t (Qwen-Image-Edit 2509's t = 0 "
                         "modulation of reference tokens) is not ported")
-            return (f"{flag} is not ported (the port runs FLUX.1, SD1.x, SD2.x, SDXL, SD3, "
-                    "Z-Image and Qwen-Image txt2img, img2img, masked img2img and the latent hires "
+            return (f"{flag} is not ported (the port runs {image_families()} txt2img, "
+                    "img2img, masked img2img and the latent hires "
                     "fix, the inpainting and instruct-pix2pix UNets, and Wan2.1 txt2vid)")
     if args.mode not in MODES:
         return f"mode {args.mode!r} is not ported; the port runs {list(MODES)}"
@@ -596,9 +607,80 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
     if spec and not re.fullmatch(r"cpu|cuda\d*", spec["*"]):
         return (f"--backend {args.backend!r} is not ported: the port runs on 'cpu' or "
                 "'cuda0'..'cudaN'")
-    if re.search(r"<lora:[^>]*>", args.prompt or ""):
-        return "<lora:...> prompt tags: LoRA is not ported"
     return None
+
+
+def extract_loras(prompt: str):
+    """``<lora:name:mult>`` tags out of a prompt → (the prompt without them,
+    stripped; [(name, multiplier)]), as the JAX CLI's ``extract_loras``."""
+    loras = []
+
+    def repl(m):
+        loras.append((m.group(1), float(m.group(2) or 1.0)))
+        return ""
+
+    cleaned = re.sub(r"<lora:([^:>]+)(?::([\d.]+))?>", repl, prompt)
+    return cleaned.strip(), loras
+
+
+LORA_EXTENSIONS = (".safetensors", ".ckpt", ".pt")  # the JAX CLI's search order
+EMBEDDING_EXTENSIONS = (".safetensors", ".pt", ".ckpt", ".bin")
+
+
+def apply_prompt_loras(pipe, loras, lora_dir: str, mode: str) -> list:
+    """The JAX CLI's LoRA loop: each (name, multiplier) read from
+    ``lora_dir``/name + the first of ``LORA_EXTENSIONS`` that exists and
+    applied to the pipeline's live diffusion and CLIP weights (the factors
+    of a runtime attachment in its compute dtype); a name with no file
+    warns → [{name, multiplier, applied, total, read_s, apply_s}] of the
+    LoRAs applied."""
+    import torch
+
+    from sdtpu_torch.io.model_loader import read_checkpoint_file
+    from sdtpu_torch.models.lora import apply_lora, lora_modules
+
+    done = []
+    for name, mult in loras:
+        for ext in LORA_EXTENSIONS:
+            path = os.path.join(lora_dir, name + ext)
+            if os.path.exists(path):
+                t0 = time.time()
+                tensors = read_checkpoint_file(path)
+                t1 = time.time()
+                applied, total = apply_lora(lora_modules(pipe), tensors, mult, mode=mode,
+                                            factor_dtype=pipe.compute_dtype)
+                if pipe.device.type == "cuda":
+                    torch.cuda.synchronize(pipe.device)
+                print(f"lora {name}: applied {applied}/{total} tensors x{mult}")
+                done.append({"name": name, "multiplier": mult, "applied": applied, "total": total,
+                             "read_s": t1 - t0, "apply_s": time.time() - t1})
+                break
+        else:
+            print(f"warning: lora {name} not found in {lora_dir}")
+    return done
+
+
+def load_embeddings(pipe, embd_dir: str) -> list:
+    """The JAX CLI's ``--embd-dir`` loop: every embedding file of the
+    directory, in name order, under its stem as the trigger word, where the
+    conditioner takes embeddings (SD1.x and SD2.x); a file that fails warns
+    → the trigger words loaded."""
+    from sdtpu_torch.io.model_loader import read_checkpoint_file
+
+    if not (embd_dir and os.path.isdir(embd_dir) and hasattr(pipe.conditioner, "load_embedding")):
+        return []
+    loaded = []
+    for fn in sorted(os.listdir(embd_dir)):
+        stem, ext = os.path.splitext(fn)
+        if ext.lower() not in EMBEDDING_EXTENSIONS:
+            continue
+        try:
+            pipe.load_embedding(stem, read_checkpoint_file(os.path.join(embd_dir, fn)))
+            print(f"loaded embedding '{stem}'")
+            loaded.append(stem)
+        except Exception as e:  # noqa: BLE001 -- one file's error, as the JAX CLI reports it
+            print(f"warning: embedding {fn}: {e}")
+    return loaded
 
 
 def parse_kv(spec: str) -> dict:
@@ -859,6 +941,7 @@ def _load_pipeline(args, report: Optional[dict] = None):
                                   if (nk := convert_taesd_name(k)) is not None}, dtype, device)
         pipe.set_tae(tae_p, tae_config_for(bundle.version.value, pipe.latent_channels))
         print("TAE attached (decode)")
+    embeddings = load_embeddings(pipe, args.embd_dir)
     sync()
     load = {"version": bundle.version.value, "read_s": t_read, "stage_s": t_stage,
             "build_s": time.time() - t0,
@@ -866,7 +949,7 @@ def _load_pipeline(args, report: Optional[dict] = None):
             "w8a8_weights": n_row, "block_weights": n_blocks, "wtype": args.wtype,
             "typed_weights": n_typed, "vision_weights": bundle.vision_tensors,
             "t5_tokenizer": t5_tok_source,
-            "llm_tokenizer": llm_tok_source}
+            "llm_tokenizer": llm_tok_source, "embeddings": embeddings}
     print("load " + json.dumps(load))
     if report is not None:
         report.update(load=load, pipeline=pipe)
@@ -889,6 +972,7 @@ def _img_gen(args, report: Optional[dict] = None) -> int:
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    prompt, loras = extract_loras(args.prompt)
     pipe = _load_pipeline(args, report)
     if pipe.version == SDVersion.WAN2:
         print("error: img_gen on a Wan2.1 model: run -M vid_gen", file=sys.stderr)
@@ -897,8 +981,9 @@ def _img_gen(args, report: Optional[dict] = None) -> int:
         print(f"error: -r/--ref-image on a {pipe.version.value} model: the port takes reference "
               "images on the instruct-pix2pix UNets only", file=sys.stderr)
         return 2
-    gp = GenerationParams(  # the prompt stripped, as the JAX CLI's ``extract_loras`` leaves it
-        prompt=args.prompt.strip(), negative_prompt=args.negative_prompt, width=args.width,
+    applied = apply_prompt_loras(pipe, loras, args.lora_model_dir, args.lora_apply_mode)
+    gp = GenerationParams(
+        prompt=prompt, negative_prompt=args.negative_prompt, width=args.width,
         height=args.height, sample_steps=args.steps, cfg_scale=args.cfg_scale,
         img_cfg_scale=args.img_cfg_scale, guidance=args.guidance,
         sample_method=args.sampling_method, schedule=args.schedule, seed=args.seed,
@@ -929,7 +1014,7 @@ def _img_gen(args, report: Optional[dict] = None) -> int:
         paths.append(path)
     if report is not None:
         report.update(timings=dict(pipe.last_timings), outputs=paths, seeds=res.seeds,
-                      t5_ids=pipe.last_t5_ids)
+                      t5_ids=pipe.last_t5_ids, loras=applied)
     return 0
 
 
@@ -939,13 +1024,14 @@ def _vid_gen(args, report: Optional[dict] = None) -> int:
     from sdtpu_torch.config import GenerationParams, SDVersion
     from sdtpu_torch.utils.image import write_video_frames
 
+    prompt, _ = extract_loras(args.prompt)  # the JAX CLI drops the tags of a video
     pipe = _load_pipeline(args, report)
     if pipe.version != SDVersion.WAN2:
         print(f"error: vid_gen on a {pipe.version.value} model: the port runs txt2vid on Wan2.1 "
               "T2V", file=sys.stderr)
         return 2
     gp = GenerationParams(  # the JAX CLI's: no batch count, no distilled guidance
-        prompt=args.prompt.strip(), negative_prompt=args.negative_prompt, width=args.width,
+        prompt=prompt, negative_prompt=args.negative_prompt, width=args.width,
         height=args.height, sample_steps=args.steps, cfg_scale=args.cfg_scale,
         sample_method=args.sampling_method, schedule=args.schedule, seed=args.seed,
         clip_skip=args.clip_skip, eta=args.eta)
@@ -991,7 +1077,8 @@ def _metadata(args) -> int:
 def main(argv=None, report: Optional[dict] = None) -> int:
     """Run the CLI; ``report`` (a dict, when given) gets what an img_gen or
     vid_gen run measured: ``load`` (seconds of read / stage / build, the T5 tokenizer's
-    source), ``timings`` (cond / sample / decode / total), ``outputs``, the
+    source, the embeddings loaded), ``timings`` (cond / sample / decode / total), ``loras``
+    (img_gen: ``apply_prompt_loras``'s), ``outputs``, the
     padded ``t5_ids`` T5 was fed for the prompt and the ``pipeline`` that
     answered."""
     parser = build_parser()

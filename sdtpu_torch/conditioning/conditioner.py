@@ -3,7 +3,7 @@ Z-Image and Qwen-Image (counterpart of ``sdtpu/conditioning/conditioner.py``:
 ``tokenize_with_weights``, ``apply_token_weights``, ``SDCondition``,
 ``SD1Conditioner`` with its SD2 form,
 ``sdxl_size_vector``, ``SDXLConditioner``, ``SD3Conditioner``,
-``FluxConditioner``, ``WanConditioner``, ``ZImageConditioner``, the text
+``FluxConditioner``, ``EmbeddingMixin``, ``WanConditioner``, ``ZImageConditioner``, the text
 path of ``QwenImageConditioner``).
 
 The tokenizers, the webui prompt parser and the encoders are this
@@ -12,6 +12,7 @@ package's own.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -106,14 +107,58 @@ class FluxConditioner:
         return SDCondition(c_crossattn=h_t5, c_vector=pooled, t5_ids=list(t5_ids))
 
 
-class SD1Conditioner:
+class EmbeddingMixin:
+    """Textual-inversion embeddings (the JAX package's ``EmbeddingMixin``):
+    each trigger word maps to rows appended to the token-embedding table,
+    and a prompt span is split on trigger words (longest first, any case)
+    before BPE."""
+
+    TABLE = "text_model.embeddings.token_embedding.weight"
+
+    def init_embeddings(self):
+        self._embeddings = {}  # trigger word (lower case) → its token ids
+
+    def load_embedding(self, name: str, vectors):
+        """vectors: [n, hidden], or a file's dict: ``{"emb_params": ...}``,
+        ``{"string_to_param": {"*": ...}}``, else its first tensor."""
+        if isinstance(vectors, dict):
+            if "emb_params" in vectors:
+                vectors = vectors["emb_params"]
+            elif "string_to_param" in vectors:
+                vectors = list(vectors["string_to_param"].values())[0]
+            else:  # a single-tensor file
+                vectors = list(vectors.values())[0]
+        vectors = np.atleast_2d(np.array(vectors, dtype=np.float32))  # a copy: files map read-only
+        table = self.params[self.TABLE]
+        if vectors.shape[1] != table.shape[1]:
+            raise ValueError(f"embedding '{name}' dim {vectors.shape[1]} != {table.shape[1]}")
+        start = table.shape[0]
+        self.params[self.TABLE] = torch.cat([table, torch.from_numpy(vectors).to(table)], dim=0)
+        self._embeddings[name.lower()] = list(range(start, start + vectors.shape[0]))
+
+    def _encode_with_embeddings(self, tokenizer, span: str) -> List[int]:
+        if not self._embeddings:
+            return tokenizer.encode(span)
+        pat = "|".join(re.escape(n) for n in sorted(self._embeddings, key=len, reverse=True))
+        ids: List[int] = []
+        for part in re.split(f"({pat})", span, flags=re.IGNORECASE):
+            if not part:
+                continue
+            if part.lower() in self._embeddings:
+                ids.extend(self._embeddings[part.lower()])
+            else:
+                ids.extend(tokenizer.encode(part))
+        return ids
+
+
+class SD1Conditioner(EmbeddingMixin):
     """SD1.x / SD2.x: one text encoder (CLIP-L, or SD2's OpenCLIP-H with
     ``is_sd2``); the prompt's 77-token chunks (padded with CLIP's EOS id,
     SD2's with id 0) are embedded in one batched call, weighted per chunk
     and concatenated.  ``clip_skip`` <= 0 means 1 (the final layer after the
     final layer norm), on SD2 2 (the penultimate layer, no final norm).
-    Textual-inversion embeddings (the JAX package's ``EmbeddingMixin``) are
-    not ported yet."""
+    Textual-inversion embeddings (``EmbeddingMixin``) add their trigger
+    words."""
 
     def __init__(self, tokenizer, clip_params, clip_cfg: CLIPTextConfig, is_sd2: bool = False,
                  device="cuda"):
@@ -123,11 +168,14 @@ class SD1Conditioner:
         self.is_sd2 = is_sd2
         self.pad_token_id = 0 if is_sd2 else tokenizer.eos_token_id
         self.device = torch.device(device)
+        self.init_embeddings()
 
     def get_learned_condition(self, text: str, clip_skip: int = -1, **kw) -> SDCondition:
         if clip_skip <= 0:
             clip_skip = 2 if self.is_sd2 else 1
-        tokens, weights = tokenize_with_weights(self.tokenizer, text, self.pad_token_id)
+        tokens, weights = tokenize_with_weights(
+            self.tokenizer, text, self.pad_token_id,
+            encode=lambda span: self._encode_with_embeddings(self.tokenizer, span))
         n_chunks = len(tokens) // CHUNK_LEN
         ids = torch.from_numpy(tokens.reshape(n_chunks, CHUNK_LEN).astype(np.int64)).to(self.device)
         w = torch.from_numpy(weights.reshape(n_chunks, CHUNK_LEN)).to(self.device)

@@ -5,7 +5,9 @@ parts of ``sdtpu.io.model_loader``:
 ``read_checkpoint_file``, with the parts of ``sdtpu/io/detect.py`` and
 ``sdtpu/io/name_conversion.py`` they use).
 
-Read N GGUF or safetensors files under their per-file prefixes (a full
+Read N GGUF, safetensors or torch ``.ckpt`` / ``.pt`` files (the last
+through ``io.torch_ckpt``'s restricted unpickler) under their per-file
+prefixes (a full
 checkpoint, the diffusion model, CLIP-L, T5-XXL, the VAE), convert
 diffusers FLUX names to the internal double/single-block names (split
 q/k/v merged back into the fused weights), canonicalize diffusers VAE
@@ -61,6 +63,7 @@ import numpy as np
 from sdtpu_torch.config import SDVersion
 from sdtpu_torch.io.gguf import load_gguf
 from sdtpu_torch.io.safetensors import load_safetensors
+from sdtpu_torch.io.torch_ckpt import load_torch_checkpoint
 
 DIFFUSION_PREFIX = "model.diffusion_model."
 
@@ -79,14 +82,19 @@ class ModelBundle:
 
 
 def read_checkpoint_file(path: str, keep_quant: bool = False) -> Dict[str, np.ndarray]:
-    """A .gguf or .safetensors (or HF index.json) file → {name: array}; with
-    ``keep_quant``, quantized 2-D GGUF tensors come back as ``HostQuant``."""
+    """A .gguf, .safetensors (or HF index.json) or torch .ckpt / .pt / .pth /
+    .bin file → {name: array}; with ``keep_quant``, quantized 2-D GGUF
+    tensors come back as ``HostQuant``.  Torch files go through the
+    restricted unpickler of ``io.torch_ckpt``."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".safetensors" or path.endswith(".index.json"):
         return load_safetensors(path)
     if ext == ".gguf":
         return load_gguf(path, keep_quant=keep_quant)
-    raise NotImplementedError(f"{path}: the port reads GGUF and safetensors checkpoints")
+    if ext in (".ckpt", ".pt", ".pth", ".bin"):
+        return load_torch_checkpoint(path)
+    raise NotImplementedError(f"{path}: the port reads GGUF, safetensors and torch "
+                              ".ckpt / .pt / .pth / .bin checkpoints")
 
 
 def _merge_fused_markers(tensors: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -249,6 +257,21 @@ UNET_VERSIONS = (SDVersion.SD1, SDVersion.SD1_INPAINT, SDVersion.SD1_PIX2PIX, SD
 # refuse every other by name)
 PORTED_VERSIONS = (SDVersion.FLUX, *UNET_VERSIONS, SDVersion.SD3, SDVersion.WAN2,
                    SDVersion.Z_IMAGE, SDVersion.QWEN_IMAGE)
+# the family each ported version belongs to, as messages name it
+FAMILY_NAMES = {SDVersion.FLUX: "FLUX.1", SDVersion.SD1: "SD1.x", SDVersion.SD1_INPAINT: "SD1.x",
+                SDVersion.SD1_PIX2PIX: "SD1.x", SDVersion.SD2: "SD2.x",
+                SDVersion.SD2_INPAINT: "SD2.x", SDVersion.SDXL: "SDXL",
+                SDVersion.SDXL_INPAINT: "SDXL", SDVersion.SDXL_PIX2PIX: "SDXL",
+                SDVersion.SD3: "SD3", SDVersion.WAN2: "Wan2.1", SDVersion.Z_IMAGE: "Z-Image",
+                SDVersion.QWEN_IMAGE: "Qwen-Image"}
+
+
+def image_families() -> str:
+    """The image families of ``PORTED_VERSIONS`` (all but Wan2.1's video), in
+    its order: "FLUX.1, SD1.x, ... and Qwen-Image", as messages name them."""
+    names = list(dict.fromkeys(FAMILY_NAMES[v] for v in PORTED_VERSIONS
+                               if v is not SDVersion.WAN2))
+    return ", ".join(names[:-1]) + " and " + names[-1]
 
 
 def _unet_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:

@@ -16,21 +16,36 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .quant import (GroupQuantTensor, Q4Tensor, QuantTensor, group_quant_matmul, q4_matmul,
-                    quant_matmul)
+from .quant import (GroupQuantTensor, LoraTensor, Q4Tensor, QuantLoraTensor, QuantTensor,
+                    group_quant_matmul, q4_matmul, quant_matmul)
+
+
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return t if t.dtype == dtype else t.to(dtype)
 
 
 def linear(x: torch.Tensor, weight, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: [..., in], weight: [out, in] (dense, int8 QuantTensor, packed 4-bit
-    Q4Tensor, or GGUF-block GroupQuantTensor) → [..., out]."""
+    Q4Tensor, GGUF-block GroupQuantTensor, or a LoraTensor / QuantLoraTensor
+    with runtime LoRA factors) → [..., out].
+
+    Runtime factors go in the JAX package's order: the base product (W8A8 or
+    W8A16 for a QuantLoraTensor), then h = x·downᵀ in x's dtype, then
+    y + (h·upᵀ) cast to y's dtype, then the bias.  The factors are attached
+    in the compute dtype, so they are cast here only where x has another."""
     if isinstance(weight, Q4Tensor):
         y = q4_matmul(x, weight)
     elif isinstance(weight, GroupQuantTensor):
         y = group_quant_matmul(x, weight)
-    elif isinstance(weight, QuantTensor):
+    elif isinstance(weight, (QuantTensor, QuantLoraTensor)):
         y = quant_matmul(x, weight)
+    elif isinstance(weight, LoraTensor):
+        y = F.linear(x, _as(weight.w, x.dtype))
     else:
-        y = F.linear(x, weight.to(x.dtype))
+        y = F.linear(x, _as(weight, x.dtype))
+    if isinstance(weight, (LoraTensor, QuantLoraTensor)):
+        h = torch.matmul(x, _as(weight.lora_down, x.dtype).T)
+        y = y + _as(torch.matmul(h, _as(weight.lora_up, x.dtype).T), y.dtype)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y

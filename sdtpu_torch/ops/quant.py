@@ -3,7 +3,8 @@
 Three memory classes, as on the TPU:
 
 * ``QuantTensor`` -- per-row int8 weight [out, in] with f32 scales [out]
-  (the q8_0 class).  ``quant_matmul`` runs it as W8A8 (dynamic per-token
+  (the q8_0 class; ``QuantLoraTensor`` adds runtime LoRA factors to it,
+  ``LoraTensor`` to a dense weight).  ``quant_matmul`` runs it as W8A8 (dynamic per-token
   int8 activations, int32 accumulation, f32 epilogue; ``quant_matmul_w8a8``)
   by default, or as W8A16 (``w8a16_matmul``: bf16 or float32 activations,
   the int8 weight widened in the tile, the row scale in the epilogue) when
@@ -79,6 +80,47 @@ class QuantTensor(NamedTuple):
     @property
     def shape(self):
         return tuple(self.q.shape)
+
+
+class QuantLoraTensor(NamedTuple):
+    """Per-row int8 weight with runtime LoRA factors (``sdtpu.ops.quant.
+    QuantLoraTensor``): the int8 base stays as it is and ``linear`` adds
+    (x · downᵀ) · upᵀ to its product.  down: [r, in], up: [out, r] (the ranks
+    of stacked LoRAs concatenated, the multiplier folded into up), in the
+    dtype they were attached in (``models.lora.apply_lora``'s
+    ``factor_dtype``).  ``quant_matmul`` takes it as it takes a
+    ``QuantTensor``."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    lora_down: torch.Tensor
+    lora_up: torch.Tensor
+
+    @property
+    def shape(self):
+        return tuple(self.q.shape)
+
+
+class LoraTensor(NamedTuple):
+    """Dense weight with runtime LoRA factors (``sdtpu.ops.quant.LoraTensor``,
+    ``--lora-apply-mode at_runtime`` on an unquantized base): w stays as it
+    is; down [r, in] and up [out, r] as in ``QuantLoraTensor``."""
+
+    w: torch.Tensor
+    lora_down: torch.Tensor
+    lora_up: torch.Tensor
+
+    @property
+    def shape(self):
+        return tuple(self.w.shape)
+
+    @property
+    def dtype(self):
+        return self.w.dtype
+
+    @property
+    def ndim(self):
+        return self.w.ndim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -464,9 +506,10 @@ w8a16_matmul.launches_wgmma = w8a16_matmul.launches_f32 = 0
 
 
 def quant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
-    """x [..., K] × per-row int8 weight → [..., N].  ``SDTPU_QUANT_MODE``,
-    read at each call as in the JAX package: ``w8a8`` (the default) runs
-    W8A8, any other value W8A16."""
+    """x [..., K] × per-row int8 weight (a ``QuantTensor``, or the base of a
+    ``QuantLoraTensor``) → [..., N].  ``SDTPU_QUANT_MODE``, read at each
+    call as in the JAX package: ``w8a8`` (the default) runs W8A8, any other
+    value W8A16."""
     if os.environ.get("SDTPU_QUANT_MODE", "w8a8") == "w8a8":
         return quant_matmul_w8a8(x, qt)
     return w8a16_matmul(x, qt)

@@ -53,9 +53,13 @@ Wan; elsewhere it warns and is dropped, as in the JAX pipeline), APG
 place of the CFG combine, and ``extra_sample_args``'s ``guidance_schedule``
 as a per-step CFG scale.
 ``set_tae`` swaps the final decode for a TAESD decoder.  Of
-``extra_sample_args`` the port runs ``guidance_schedule``, ``gamma``
-(``euler_ge``) and ``lcm``'s ``noise_scale_start`` / ``noise_scale_end``;
-any other key raises by name.  ``generate(step_cache=...)`` runs a step
+``extra_sample_args`` the samplers take the JAX pipeline's keys
+(``SAMPLER_KEYS``: ``gamma`` for ``euler_ge``, ``lcm``'s
+``noise_scale_start`` / ``noise_scale_end``, ``noise_clip_std``, which no
+method reads) beside ``guidance_schedule``; any other key is dropped.
+``set_loras`` sets the LoRA adapters of the diffusion weights (an epoch:
+re-derived from the pristine weights on every call), ``load_embedding`` a
+textual-inversion embedding on SD1.x / SD2.x.  ``generate(step_cache=...)`` runs a step
 cache (``diffusion/stepcache.py``).  ``generate`` takes the JAX pipeline's
 ``progress_callback(step, steps, x)`` and ``cancel_check()`` (a server
 job's progress and cancellation): both run after each step, and a cancelled
@@ -76,6 +80,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import sys
 import time
 import warnings
 from typing import Callable, Dict, Optional
@@ -133,14 +138,18 @@ def _pad_tokens_by_repeat(x: torch.Tensor, target: int) -> torch.Tensor:
     return torch.cat([x, pad], dim=1)
 
 
-# the keys of ``extra_sample_args`` the port's samplers read
-SAMPLER_KEYS = ("gamma", "noise_scale_start", "noise_scale_end")
+# the keys of ``extra_sample_args`` the samplers take (the JAX pipeline's
+# ``_SAMPLER_KEYS``): ``gamma`` (euler_ge), ``noise_scale_start`` / ``_end``
+# (lcm) and SeFi's ``alpha`` / ``delta_t`` / ``sem_channels`` are read by
+# their methods, ``noise_clip_std`` by none
+SAMPLER_KEYS = ("gamma", "alpha", "delta_t", "noise_scale_start", "noise_scale_end",
+                "noise_clip_std", "sem_channels")
 
 
 def _sampler_extra_args(spec: str):
-    """``extra_sample_args`` ("key=value,...") → (the sampler keys as floats,
-    the ``guidance_schedule`` spec or ""), as the JAX pipeline parses them;
-    a key the port does not run raises."""
+    """``extra_sample_args`` ("key=value,...") → (the ``SAMPLER_KEYS`` among
+    them as floats, the ``guidance_schedule`` spec or ""), as the JAX
+    pipeline parses them: any other key is dropped."""
     out, schedule = {}, ""
     for part in (spec or "").split(","):
         if "=" not in part:
@@ -148,11 +157,8 @@ def _sampler_extra_args(spec: str):
         k, v = (t.strip() for t in part.split("=", 1))
         if k == "guidance_schedule":
             schedule = v
-            continue
-        if k not in SAMPLER_KEYS:
-            raise NotImplementedError(f"extra_sample_args key {k!r} is not ported; "
-                                      f"ported: {[*SAMPLER_KEYS, 'guidance_schedule']}")
-        out[k] = float(v)
+        elif k in SAMPLER_KEYS:
+            out[k] = float(v)
     return out, schedule
 
 
@@ -198,6 +204,30 @@ def _tensors(value) -> list:
     if dataclasses.is_dataclass(value) and not isinstance(value, type):
         return [t for f in dataclasses.fields(value) for t in _tensors(getattr(value, f.name))]
     return []
+
+
+def _on(weight, device: torch.device) -> bool:
+    return all(t.device.type == device.type for t in _tensors(weight))
+
+
+def _moved(weight, device: torch.device):
+    """A weight (a tensor, or a quantized or LoRA weight's dataclass or
+    named tuple) on ``device``: itself where it is there already.  The copy
+    is asynchronous (to the host: into pinned memory), so synchronize
+    before the host reads it."""
+    if _on(weight, device):
+        return weight
+
+    def to(t):
+        return t.to(device, non_blocking=True)
+
+    if isinstance(weight, torch.Tensor):
+        return to(weight)
+    if dataclasses.is_dataclass(weight):
+        return dataclasses.replace(weight, **{
+            f.name: to(getattr(weight, f.name)) for f in dataclasses.fields(weight)
+            if isinstance(getattr(weight, f.name), torch.Tensor)})
+    return type(weight)(*(to(t) if isinstance(t, torch.Tensor) else t for t in weight))
 
 
 COND_CACHE_SIZE = 16  # prompt → conditions entries kept, the oldest dropped first
@@ -252,6 +282,7 @@ class DiffusionPipeline:
         self._cond_cache: Dict[tuple, tuple] = {}  # prompt key → (cond, uncond)
         self.free_params_immediately = False
         self._conditioner_freed = False
+        self._lora_base: dict = {}  # the pristine diffusion entries a LoRA epoch replaced
         # the sampler noise's RNG kind (the CLI's --sampler-rng); None: the
         # latent noise's stream goes on
         self.sampler_rng_type: Optional[str] = None
@@ -274,6 +305,60 @@ class DiffusionPipeline:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         return freed
+
+    def set_loras(self, loras, mode: str = "auto") -> None:
+        """Set the active LoRA set (``sdtpu.pipeline.DiffusionPipeline.
+        set_loras``'s epochs): every call applies ``loras``, a list of
+        (LoRA file tensors, multiplier), to the pristine diffusion weights,
+        so a set does not accumulate over calls and ``[]`` restores the
+        weights bit for bit.  ``mode``: ``--lora-apply-mode`` (``auto``,
+        ``immediately``, ``at_runtime``; ``models.lora.apply_lora``).
+
+        Every weight class takes it: a dense weight is merged in float32 and
+        kept in its dtype, a per-row int8 one gets runtime factors in the
+        compute dtype (or is requantized under ``immediately``), a 4-bit or
+        GGUF-block one is requantized on its grid.  Only the entries an
+        epoch replaced are kept as the pristine copy (a patched entry is a
+        new object, nothing is changed in place): where runtime factors
+        ride on the base, the base itself, which adds no bytes; where a
+        merge replaced it, a copy in host memory, as the JAX pipeline keeps
+        its snapshot, so a merged DiT does not hold two copies on the card
+        (it is uploaded again for the next epoch)."""
+        from sdtpu_torch.models.lora import apply_lora
+
+        params, host = self.diffusion_params, torch.device("cpu")
+        pristine = {**params, **{k: _moved(v, self.device) for k, v in self._lora_base.items()}}
+        work = dict(pristine)
+        patched = 0
+        for tensors, mult in loras:
+            applied, _ = apply_lora({"diffusion": work}, tensors, mult, mode=mode,
+                                    factor_dtype=self.compute_dtype)
+            patched += applied
+        base = {}
+        for k, v in work.items():
+            if v is pristine[k]:
+                continue
+            shared = {id(t) for t in _tensors(v)}
+            if all(id(t) in shared for t in _tensors(pristine[k])):  # factors on the base
+                base[k] = pristine[k]
+            elif k in self._lora_base and _on(self._lora_base[k], host):
+                base[k] = self._lora_base[k]
+            else:
+                base[k] = _moved(pristine[k], host)
+        _sync(self.device)  # the host copies are whole before their device entries go
+        self._lora_base = base
+        params.update(work)
+        print(f"LoRA epoch: {len(loras)} adapter(s), {patched} tensors patched", file=sys.stderr)
+
+    def load_embedding(self, name: str, vectors) -> None:
+        """Add a textual-inversion embedding to the conditioner (SD1.x and
+        SD2.x: ``SD1Conditioner.load_embedding``) and empty the prompt cache:
+        the new rows change how prompts tokenize."""
+        if not hasattr(self.conditioner, "load_embedding"):
+            raise NotImplementedError(f"{self.version.value}: textual-inversion embeddings run on "
+                                      "SD1.x and SD2.x, as in the JAX package")
+        self.conditioner.load_embedding(name, vectors)
+        self._cond_cache.clear()
 
     def set_vae_tiling(self, enabled: bool = True, tile_size: int = 64, overlap: int = 8,
                        temporal: bool = False, extra_tiling_args: str = "") -> None:
@@ -327,9 +412,10 @@ class DiffusionPipeline:
         (the posterior mean; tiled under ``set_vae_tiling``, tile and
         overlap in pixels = the latent units times the scale factor)."""
         if self.vae_encode_fn is None:
+            from sdtpu_torch.io.model_loader import image_families
+
             raise NotImplementedError(f"{self.version.value}: the port has no VAE encoder for this "
-                                      "model (img2img is ported for FLUX.1, the UNet families, SD3, "
-                                      "Z-Image and Qwen-Image)")
+                                      f"model (img2img is ported for {image_families()})")
         if self._tae is not None:
             raise NotImplementedError("encode_image with a TAESD decoder attached: the TAE params "
                                       "hold no encoder (set_tae(None) restores the full VAE)")

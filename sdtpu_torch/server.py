@@ -20,7 +20,7 @@ Routes the port answers:
   native:  POST /sdcpp/v1/img_gen (async job), GET /sdcpp/v1/jobs/<id>,
            POST /sdcpp/v1/jobs/<id>/cancel, GET /sdcpp/v1/capabilities
   A1111:   POST /sdapi/v1/txt2img, POST /sdapi/v1/img2img, GET/POST /sdapi/v1/options,
-           GET /sdapi/v1/{samplers,schedulers,sd-models,progress}
+           GET /sdapi/v1/{samplers,schedulers,sd-models,progress,loras}
   OpenAI:  POST /v1/images/generations, GET /v1/models
 img2img takes ``init_images`` (or ``init_image``) and ``mask`` as base64 PNGs
 (the mask's channel 0; 1 regenerate, 0 keep; on an inpainting UNet both go
@@ -31,9 +31,14 @@ UNet ``extra_images`` (base64 PNGs) names the edit image;
 (``hr_scale``, ``hr_resize_x`` / ``hr_resize_y``, ``hr_steps``,
 ``denoising_strength``) with a latent ``hr_upscaler`` (``Latent*``, or the
 names the JAX server also resizes in latent space: ``Lanczos``, ``Nearest``,
-``None``).  Every other route answers 501 with a JSON error naming it (no
+``None``).  The request field ``lora`` ([{"name", "multiplier"}]) sets the
+pipeline's LoRA set from ``--lora-model-dir`` (``set_loras``: re-derived
+from the pristine weights, ``[]`` restores them; a request without it keeps
+the set; a name with no file fails the request), and ``GET
+/sdapi/v1/loras`` lists that directory; ``--embd-dir`` loads SD1.x / SD2.x
+embeddings as the CLI does.  Every other route answers 501 with a JSON error naming it (no
 web UI).  A request that asks for what the port does not run (reference
-images on any other model, an ESRGAN ``hr_upscaler``, LoRA, video, a sampler outside
+images on any other model, an ESRGAN ``hr_upscaler``, video, a sampler outside
 samplers.PORTED_METHODS, jpeg / webp output, a JPEG or WebP init image)
 answers 400, or fails its job, naming it.  Every schedule runs, and the
 sample-params keys ``scheduler``, ``eta`` and ``slg_*`` (flat, or the native
@@ -50,6 +55,7 @@ server takes the CLI's files (``--taesd`` too), ``--backend`` and dtype rule.
 from __future__ import annotations
 
 import json
+import os
 import re
 import sys
 import threading
@@ -64,7 +70,9 @@ from sdtpu_torch.diffusion.schedule import SCHEDULERS
 
 # request fields of what the port does not run, and what each names
 UNPORTED_FIELDS = {"extra_images": "reference images", "video_frames": "video",
-                   "frames": "video", "lora": "LoRA"}
+                   "frames": "video"}
+# the files a lora dir lists and a ``lora`` name resolves to (the JAX server's)
+MODEL_EXTENSIONS = (".safetensors", ".ckpt", ".pt", ".pth", ".gguf")
 # hr_upscaler names the JAX server resizes in latent space (any other names
 # an ESRGAN model)
 LATENT_UPSCALERS = ("latent", "lanczos", "nearest", "none")
@@ -90,8 +98,10 @@ class Job:
 class JobManager:
     """Async worker queue: one worker thread runs the queued jobs in order."""
 
-    def __init__(self, pipeline):
+    def __init__(self, pipeline, lora_dir: str = "", lora_mode: str = "auto"):
         self.pipeline = pipeline
+        self.lora_dir = lora_dir  # --lora-model-dir: the request field ``lora`` reads it
+        self.lora_mode = lora_mode  # --lora-apply-mode: how ``set_loras`` applies it
         self.jobs: Dict[str, Job] = {}
         self.queue = []
         self.lock = threading.Lock()
@@ -101,6 +111,14 @@ class JobManager:
         self._closed = False
         self.worker = threading.Thread(target=self._run, daemon=True)
         self.worker.start()
+
+    def list_model_files(self, directory: str) -> list:
+        """The stems of a directory's checkpoint files, in name order (the
+        JAX server's lora-dir listing)."""
+        if not directory or not os.path.isdir(directory):
+            return []
+        return [os.path.splitext(fn)[0] for fn in sorted(os.listdir(directory))
+                if fn.lower().endswith(MODEL_EXTENSIONS)]
 
     def submit(self, params: dict) -> Job:
         job = Job(params)
@@ -143,7 +161,8 @@ class JobManager:
                     if job.cancel_requested.is_set():
                         job.status = "cancelled"
                         continue
-                    job.images = run_generation(self.pipeline, job.params, job=job)
+                    job.images = run_generation(self.pipeline, job.params, job=job,
+                                                lora_dir=self.lora_dir, lora_mode=self.lora_mode)
                     job.status = (
                         "cancelled" if job.cancel_requested.is_set() else "completed"
                     )
@@ -255,15 +274,60 @@ def params_from_json(data: dict) -> GenerationParams:
     )
 
 
+def _resolve_model_file(directory: str, name: str) -> Optional[str]:
+    """``name`` as it is or with one of ``MODEL_EXTENSIONS`` in ``directory``
+    → its path, or None.  The name comes from a request: one with a path
+    separator or ``..`` (a file outside ``directory``) raises ValueError."""
+    if os.path.basename(name) != name or name in (".", ".."):
+        raise ValueError(f"lora {name!r}: a file name in the lora dir, without a path")
+    if not directory:
+        return None
+    for ext in ("", *MODEL_EXTENSIONS):
+        path = os.path.join(directory, name + ext)
+        if os.path.isfile(path):
+            return path
+    return None
+
+
+def apply_structured_loras(pipeline, data: dict, lora_dir: str, mode: str = "auto") -> None:
+    """The request field ``lora`` (a list of {name, multiplier}; servers take
+    LoRA as a field, not as prompt tags): each name resolved in
+    ``lora_dir`` and the set applied by ``pipeline.set_loras`` in ``mode``
+    (``--lora-apply-mode``), which
+    re-derives the weights from the pristine base (``[]`` restores it).  A
+    request without the field leaves the set as it is; a name with no file
+    raises, naming it."""
+    spec = data.get("lora")
+    if spec is None:
+        return
+    from sdtpu_torch.io.model_loader import read_checkpoint_file
+
+    loras = []
+    for item in spec:
+        name = item.get("name", "")
+        mult = float(item.get("multiplier", item.get("strength", 1.0)))
+        path = _resolve_model_file(lora_dir, name)
+        if path is None:
+            raise ValueError(f"lora {name!r} not found in lora dir")
+        loras.append((read_checkpoint_file(path), mult))
+    pipeline.set_loras(loras, mode)
+
+
+def _families() -> str:
+    from sdtpu_torch.io.model_loader import image_families
+
+    return image_families()  # the server refuses Wan at load
+
+
 def _refuse_unported(data: dict, gp: GenerationParams, takes_refs: bool = False) -> None:
     """Raise ValueError naming the first field the port does not run;
     ``takes_refs``: the pipeline takes ``extra_images`` (a pix2pix UNet)."""
     for field, what in UNPORTED_FIELDS.items():
         if data.get(field) and not (takes_refs and field == "extra_images"):
             raise ValueError(f"request field {field!r}: {what} is not ported "
-                             "(the port runs FLUX.1, SD1.x, SD2.x, SDXL and SD3 txt2img, "
-                             "img2img, masked img2img and the latent hires fix, and reference "
-                             "images on the instruct-pix2pix UNets)")
+                             f"(the port serves {_families()} txt2img, img2img, masked img2img "
+                             "and the latent hires fix, and reference images on the "
+                             "instruct-pix2pix UNets)")
     hr_name = str(data.get("hr_upscaler", "Latent"))
     if data.get("enable_hr") and not hr_name.lower().startswith(LATENT_UPSCALERS):
         raise ValueError(f"hr_upscaler {hr_name!r}: ESRGAN upscalers are not ported; the port "
@@ -275,10 +339,12 @@ def _refuse_unported(data: dict, gp: GenerationParams, takes_refs: bool = False)
         raise ValueError(f"schedule {gp.schedule!r} is not ported; ported: {list(SCHEDULERS)}")
 
 
-def run_generation(pipeline, data: dict, job: Optional[Job] = None):
+def run_generation(pipeline, data: dict, job: Optional[Job] = None, lora_dir: str = "",
+                   lora_mode: str = "auto"):
     """One txt2img, img2img or hires request → base64 PNGs with the webui
-    parameters text.  Runs on the pipeline's device whatever thread calls
-    it."""
+    parameters text, its ``lora`` field applied first
+    (``apply_structured_loras`` from ``lora_dir`` in ``lora_mode``).  Runs on the pipeline's
+    device whatever thread calls it."""
     import contextlib
 
     import torch
@@ -294,6 +360,7 @@ def run_generation(pipeline, data: dict, job: Optional[Job] = None):
     if out_fmt != "png":
         raise ValueError(f"output_format {out_fmt!r} needs Pillow, which the port does not use; "
                          "the port encodes png")
+    apply_structured_loras(pipeline, data, lora_dir, lora_mode)
     init_image = mask_image = None
     init_b64 = data.get("init_images") or data.get("init_image")
     if isinstance(init_b64, list):
@@ -345,8 +412,8 @@ def make_handler(manager: JobManager):
             self.wfile.write(body)
 
         def _not_ported(self, method: str, p: str):
-            self._json({"error": f"{method} {p} is not ported (the port serves FLUX.1, "
-                                  "SD1.x, SD2.x, SDXL and SD3 txt2img and img2img)"}, 501)
+            self._json({"error": f"{method} {p} is not ported (the port serves "
+                                  f"{_families()} txt2img and img2img)"}, 501)
 
         def _read_json(self) -> Optional[dict]:
             """→ parsed body, or None after replying 400 to a bad payload."""
@@ -368,7 +435,8 @@ def make_handler(manager: JobManager):
             try:
                 data = extract_extra_args(data)
                 with manager.ctx_mutex:
-                    return run_generation(manager.pipeline, data)
+                    return run_generation(manager.pipeline, data, lora_dir=manager.lora_dir,
+                                          lora_mode=manager.lora_mode)
             except ValueError as e:
                 self._json({"error": str(e)}, 400)
                 return None
@@ -395,6 +463,9 @@ def make_handler(manager: JobManager):
                 self._json([{"name": s, "label": s} for s in sorted(SCHEDULERS)])
             elif p == "/sdapi/v1/sd-models":
                 self._json([{"title": "loaded", "model_name": "loaded"}])
+            elif p == "/sdapi/v1/loras":
+                self._json([{"name": n, "alias": n, "path": n}
+                            for n in manager.list_model_files(manager.lora_dir)])
             elif p == "/sdapi/v1/options":
                 self._json(dict(manager.options))
             elif p == "/sdapi/v1/progress":
@@ -458,18 +529,21 @@ def make_handler(manager: JobManager):
     return Handler
 
 
-def make_server(pipeline, host: str = "127.0.0.1", port: int = 7860) -> ThreadingHTTPServer:
+def make_server(pipeline, host: str = "127.0.0.1", port: int = 7860, lora_dir: str = "",
+                lora_mode: str = "auto") -> ThreadingHTTPServer:
     """→ the HTTP server, bound and not yet serving, its JobManager as
-    ``.manager``."""
-    manager = JobManager(pipeline)
+    ``.manager``; ``lora_dir``: where the ``lora`` field's names are
+    found, ``lora_mode``: how they are applied."""
+    manager = JobManager(pipeline, lora_dir=lora_dir, lora_mode=lora_mode)
     server = ThreadingHTTPServer((host, port), make_handler(manager))
     server.manager = manager
     return server
 
 
-def serve(pipeline, host: str = "127.0.0.1", port: int = 7860, ready=None) -> None:
+def serve(pipeline, host: str = "127.0.0.1", port: int = 7860, ready=None,
+          lora_dir: str = "", lora_mode: str = "auto") -> None:
     """Serve until ``shutdown()``; ``ready(server)`` runs once it is bound."""
-    server = make_server(pipeline, host, port)
+    server = make_server(pipeline, host, port, lora_dir=lora_dir, lora_mode=lora_mode)
     print(f"sdtpu_torch server listening on http://{host}:{server.server_address[1]}",
           flush=True)
     if ready is not None:
@@ -510,7 +584,8 @@ def main(argv=None, report: Optional[dict] = None, ready=None) -> int:
               "an animated WebP) is not ported; run python -m sdtpu_torch.cli -M vid_gen",
               file=sys.stderr)
         return 2
-    serve(pipe, args.host, args.port, ready=ready)
+    serve(pipe, args.host, args.port, ready=ready, lora_dir=args.lora_model_dir,
+          lora_mode=args.lora_apply_mode)
     return 0
 
 

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from sdtpu_torch.ops.quant import (Q4_GROUP, Q4_GROUPS, Q4_K_MULTIPLE, GroupQuantTensor,
-                                   Q4Tensor, QuantTensor)
+                                   LoraTensor, Q4Tensor, QuantLoraTensor, QuantTensor)
 
 WEIGHT_STD = 0.02
 # rms of uniform int8 in [-127, 127) is ~73.3; of centered nibbles ~4.6
@@ -73,8 +73,8 @@ def repack_q4(packed, scale, k: int, block_k: int, group: int, device="cuda") ->
 
 def from_jax_params(params: dict, device="cuda", dtype: Optional[torch.dtype] = None) -> dict:
     """Checkpoint-named JAX-package params → this package's.  Float leaves
-    are cast to ``dtype`` when given; quantized leaves keep their integers
-    and float32 scales."""
+    (runtime LoRA factors too) are cast to ``dtype`` when given; quantized
+    leaves keep their integers and float32 scales."""
     out = {}
     for name, v in params.items():
         kind = type(v).__name__
@@ -89,6 +89,15 @@ def from_jax_params(params: dict, device="cuda", dtype: Optional[torch.dtype] = 
                 q=_transposed(v.q, device), scale=_transposed(v.scale, device, f32),
                 zero=None if v.zero is None else _transposed(v.zero, device, f32),
                 k=v.k, group=v.group)
+        elif kind == "QuantLoraTensor":
+            out[name] = QuantLoraTensor(q=_to_torch(v.q, device),
+                                        scale=_to_torch(v.scale, device, torch.float32),
+                                        lora_down=_to_torch(v.lora_down, device, dtype),
+                                        lora_up=_to_torch(v.lora_up, device, dtype))
+        elif kind == "LoraTensor":
+            out[name] = LoraTensor(w=_to_torch(v.w, device, dtype),
+                                   lora_down=_to_torch(v.lora_down, device, dtype),
+                                   lora_up=_to_torch(v.lora_up, device, dtype))
         else:
             out[name] = _to_torch(v, device, dtype)
     return out

@@ -165,14 +165,13 @@ def test_metadata_mode_matches_jax(tmp_path, capsys, monkeypatch, fmt):
 
 
 UNPORTED = [
-    ["--lora-model-dir", "loras"], ["--hires-upscaler", "RealESRGAN_x4plus"],
+    ["--hires-upscaler", "RealESRGAN_x4plus"],
     ["--upscale-model", "esrgan.pth"], ["--auto-fit", "8"],
     ["--sampling-method", "sefi_euler"], ["--schedule", "karras_v2"], ["--fa"],
     ["--no-progress"],
     ["--vae-on-cpu"], ["--control-net", "cn.safetensors"], ["--audio-vae", "audio.gguf"],
     ["--backend", "clip=cpu,diffusion=cuda0"], ["--backend", "tpu0"], ["--dtype", "f16"],
-    ["-p", "a <lora:detail:0.8> cat"], ["convert"], ["-M", "vid_gen"],
-    ["--embd-dir", "embeddings"],  # textual inversion (SD1's EmbeddingMixin)
+    ["convert"], ["-M", "vid_gen"],
     ["--taesd", "taesd.safetensors", "--taesd-preview-only"],  # the port has no preview
     # denoisers the port does not have
     ["--prediction", "sefi_flow"], ["--prediction", "minit2i_flow"],
@@ -190,7 +189,6 @@ def test_unported_arguments_exit_2(tmp_path, capsys, extra):
     err = capsys.readouterr().err
     assert "not ported" in err
     named = [a for a in extra if a.startswith("-") and a not in ("-p", "-M")]
-    named += ["LoRA"] if "<lora:" in " ".join(extra) else []
     named += [a for a in extra if a in ("convert", "vid_gen")]
     assert any(n in err for n in named), err
 

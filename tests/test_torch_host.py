@@ -4,11 +4,13 @@
 CLIP tokenizer, prompt parser, GGUF and safetensors readers, the FLUX model
 loader).  Each copy is held to its original here: the noise streams and the
 written GGUF bytes are identical, tokens, parsed prompts, loaded blocks and
-bundles are equal.  The port's entry points default to the card, and its
+bundles are equal, torch checkpoints read alike and run no pickled code.
+The port's entry points default to the card, and its
 ``SDVersion`` is a class of its own.
 """
 import dataclasses
 import inspect
+import io
 import os
 import sys
 
@@ -203,6 +205,76 @@ def test_load_gguf_keep_quant_matches(tmp_path, out_type):
         tf.close()
         jf.close()
     assert sum(type(v).__name__ == "HostQuant" for v in got.values()) >= 3
+
+
+# ------------------------------------------------------ torch checkpoints
+
+
+def _torch_tensors():
+    import torch
+
+    g = torch.Generator().manual_seed(0)
+    return {"a.weight": torch.randn(6, 5, generator=g), "b.half": torch.randn(7, generator=g).half(),
+            "c.bf16": torch.randn(3, 4, generator=g).bfloat16(),
+            "d.transposed": torch.randn(4, 3, generator=g).t(), "e.int": torch.arange(6),
+            "f.view": torch.randn(10, generator=g)[2:7], "g.double": torch.randn(2, 2).double()}
+
+
+@pytest.mark.parametrize("wrap", ["state_dict", "bare"])
+@pytest.mark.parametrize("fmt", ["zip", "legacy"])
+def test_torch_checkpoint_reader_matches(tmp_path, fmt, wrap):
+    """``io.torch_ckpt`` against ``sdtpu.io.torch_ckpt`` on torch's ZIP and
+    legacy files (float16 / bf16 / float64 widened to float32, strided
+    views, integers; a ``state_dict`` wrapper unwrapped), and both against
+    the tensors saved; ``read_checkpoint_file`` takes .ckpt / .pt / .pth /
+    .bin."""
+    import torch
+
+    import sdtpu.io.torch_ckpt as jckpt
+    from sdtpu_torch.io import torch_ckpt as tckpt
+    from sdtpu_torch.io.model_loader import read_checkpoint_file
+
+    tensors = _torch_tensors()
+    path = str(tmp_path / "m.ckpt")
+    torch.save({"state_dict": tensors, "epoch": 3} if wrap == "state_dict" else tensors, path,
+               _use_new_zipfile_serialization=fmt == "zip")
+    got, want = tckpt.load_torch_checkpoint(path), jckpt.load_torch_checkpoint(path)
+    assert list(got) == list(want) == list(tensors)
+    for name, t in tensors.items():
+        assert got[name].dtype == want[name].dtype
+        np.testing.assert_array_equal(got[name], want[name])
+        np.testing.assert_array_equal(got[name], t.float().numpy() if t.is_floating_point()
+                                      else t.numpy())
+    for ext in (".pt", ".pth", ".bin"):
+        os.replace(path, path := str(tmp_path / ("m" + ext)))
+        assert list(read_checkpoint_file(path)) == list(tensors)
+
+
+@pytest.mark.parametrize("fmt", ["zip", "legacy"])
+def test_torch_checkpoint_reader_runs_no_pickle_code(tmp_path, fmt):
+    """A file that pickles a call beside its tensors (here ``open(path, "w")``,
+    which would leave a file behind): the restricted unpickler resolves no
+    global outside its allow-list, so nothing runs and only the tensors come
+    back."""
+    import torch
+
+    from sdtpu_torch.io import torch_ckpt as tckpt
+
+    marker = tmp_path / "ran"
+
+    class Call:
+        def __reduce__(self):
+            return open, (str(marker), "w")
+
+    path = str(tmp_path / "evil.pt")
+    torch.save({"w": torch.ones(2, 3), "callback": Call()}, path,
+               _use_new_zipfile_serialization=fmt == "zip")
+    got = tckpt.load_torch_checkpoint(path)
+    assert not marker.exists()
+    assert list(got) == ["w"] and got["w"].tolist() == [[1.0] * 3] * 2
+    unpickler = tckpt._SafeUnpickler(io.BytesIO(b""))
+    for module, name in (("builtins", "open"), ("os", "system"), ("builtins", "eval")):
+        assert isinstance(unpickler.find_class(module, name), tckpt._Inert)
 
 
 # ------------------------------------------------------- FLUX model loader

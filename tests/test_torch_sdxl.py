@@ -436,11 +436,13 @@ def test_set_tae_none_restores_the_vae(pipes):
     with pytest.raises(NotImplementedError, match="preview"):
         tp.set_tae({}, ttae.TAESD_XL_CONFIG, preview_only=True)
     # the guidance schedule runs since the sampling slice (held to the JAX
-    # pipeline in tests/test_torch_sampling.py); SeFi's keys do not
+    # pipeline in tests/test_torch_sampling.py); SeFi's keys pass as the
+    # JAX pipeline passes them, and no method the port runs reads them
     assert np.isfinite(tp.generate(_gp(extra_sample_args="guidance_schedule=7.5x2",
                                        sample_method="euler", sample_steps=2)).latents).all()
-    with pytest.raises(NotImplementedError, match="delta_t"):
-        tp.generate(_gp(extra_sample_args="delta_t=0.2"))
+    np.testing.assert_array_equal(tp.generate(_gp(extra_sample_args="delta_t=0.2",
+                                                  sample_method="euler", sample_steps=2)).latents,
+                                  got.latents)
 
 
 def test_synthesized_small_sdxl_pipeline_runs():

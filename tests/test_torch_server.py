@@ -52,15 +52,26 @@ def _serve(httpd):
 
 
 @pytest.fixture(scope="module")
-def servers():
+def servers(tmp_path_factory):
+    from sdtpu_torch.tools.lora_file import lora_tensors, write_ckpt, write_safetensors
+
     jp = jax_create_pipeline(jconfig.SDVersion.FLUX, small=True, seed=0)
     params = {"diffusion": from_jax_params(jp.diffusion_params, device="cpu"),
               "clip_l": from_jax_params(jp.conditioner.pl, device="cpu"),
               "t5": from_jax_params(jp.conditioner.pt, device="cpu"),
               "vae": from_jax_params(jp.vae_params, device="cpu")}
     tp = create_pipeline(SDVersion.FLUX, params=params, small=True, device="cpu")
-    ours = server.make_server(tp, "127.0.0.1", 0)
-    theirs = ThreadingHTTPServer(("127.0.0.1", 0), jserver.make_handler(jserver.JobManager(jp)))
+    # a lora dir: a kohya LoRA over the small DiT's linears as .safetensors,
+    # a second as a torch .ckpt, and a file of no checkpoint format
+    lora_dir = tmp_path_factory.mktemp("loras")
+    shapes = {"diffusion": {k: v.shape for k, v in jp.diffusion_params.items()}}
+    write_safetensors(str(lora_dir / "flux_style.safetensors"),
+                      lora_tensors(shapes, rank=4, seed=2, std=0.08))
+    write_ckpt(str(lora_dir / "flux_detail.ckpt"), lora_tensors(shapes, rank=2, seed=3, std=0.08))
+    (lora_dir / "notes.txt").write_text("not a LoRA")
+    ours = server.make_server(tp, "127.0.0.1", 0, lora_dir=str(lora_dir))
+    theirs = ThreadingHTTPServer(("127.0.0.1", 0), jserver.make_handler(
+        jserver.JobManager(jp, lora_dir=str(lora_dir))))
     yield {"port": _serve(ours), "jax": _serve(theirs), "manager": ours.manager}
     for httpd in (ours, theirs):
         httpd.shutdown()
@@ -239,7 +250,7 @@ def test_unported_request_fields_fail_by_name(servers):
     assert code == 400 and "Pillow" in resp["error"]
     code, resp = _call(base, "/sdcpp/v1/img_gen", {"prompt": "x", "lora": [{"name": "a"}]})
     job, _ = _wait(base, resp["id"])
-    assert job["status"] == "failed" and "LoRA" in job["error"]
+    assert job["status"] == "failed" and "'a' not found in lora dir" in job["error"]
 
 
 def test_video_frames_are_refused_by_name(servers):
@@ -249,19 +260,89 @@ def test_video_frames_are_refused_by_name(servers):
     base = servers["port"]
     code, resp = _call(base, "/sdapi/v1/txt2img", {"prompt": "x", "video_frames": 33})
     assert code == 400 and "video" in resp["error"], resp
+    # the families come from PORTED_VERSIONS (Wan, which the server refuses
+    # at load, left out)
+    assert ("FLUX.1, SD1.x, SD2.x, SDXL, SD3, Z-Image and Qwen-Image" in resp["error"]
+            and "Wan" not in resp["error"])
     code, resp = _call(base, "/sdcpp/v1/img_gen", {"prompt": "x", "video_frames": 33})
     job, _ = _wait(base, resp["id"])
     assert job["status"] == "failed" and "video" in job["error"]
 
 
-@pytest.mark.parametrize("method,path", [("GET", "/"), ("GET", "/sdapi/v1/loras"),
+@pytest.mark.parametrize("method,path", [("GET", "/"),
                                          ("GET", "/sdapi/v1/upscalers"), ("GET", "/nope"),
                                          ("POST", "/sdapi/v1/extra-single-image"),
                                          ("POST", "/v1/images/edits"),
                                          ("POST", "/sdcpp/v1/vid_gen")])
 def test_unported_routes_answer_501(servers, method, path):
+    from sdtpu_torch.io.model_loader import image_families
+
     code, resp = _call(servers["port"], path, {} if method == "POST" else None)
     assert code == 501 and path in resp["error"] and "not ported" in resp["error"]
+    assert image_families() in resp["error"]
+    assert "Z-Image" in resp["error"] and "Qwen-Image" in resp["error"]
+
+
+def test_lora_field_and_listing_match_jax(servers):
+    """``GET /sdapi/v1/loras`` lists the lora dir's checkpoint files as the
+    JAX server does; a request's ``lora`` field (a .safetensors and a .ckpt,
+    stacked) gives the JAX server's image; a request without the field keeps
+    the set, ``[]`` restores the base (the no-LoRA image again)."""
+    base, theirs = servers["port"], servers["jax"]
+    code, listing = _call(base, "/sdapi/v1/loras")
+    assert code == 200 and listing == _call(theirs, "/sdapi/v1/loras")[1]
+    assert [e["name"] for e in listing] == ["flux_detail", "flux_style"]
+    req = {"prompt": "a red fox in snow", "width": 64, "height": 64, "steps": 2,
+           "cfg_scale": 1.0, "seed": 3, "sampler_name": "euler"}
+    plain = _call(base, "/sdapi/v1/txt2img", req)[1]["images"]
+    loras = [{"name": "flux_style", "multiplier": 0.7}, {"name": "flux_detail.ckpt"}]
+    try:
+        for body in ({**req, "lora": loras}, req):  # the set stays without the field
+            code, ours = _call(base, "/sdapi/v1/txt2img", body)
+            jcode, want = _call(theirs, "/sdapi/v1/txt2img", body)
+            assert code == jcode == 200, (ours, want)
+            _same_images(ours["images"], want["images"])
+            assert ours["images"] != plain
+    finally:
+        for b in (base, theirs):
+            assert _call(b, "/sdapi/v1/txt2img", {**req, "lora": []})[0] == 200
+    assert _call(base, "/sdapi/v1/txt2img", req)[1]["images"] == plain
+
+
+@pytest.mark.parametrize("name", ["../loras/flux_style", "/etc/hosts", "sub/flux_style", ".."])
+def test_lora_names_with_a_path_are_refused(servers, name):
+    """The ``lora`` field's names come from the network: one that carries a
+    path (a file outside the lora dir) is a 400 naming it, before any file
+    is read or the LoRA set changes."""
+    req = {"prompt": "a fox", "width": 64, "height": 64, "steps": 1, "cfg_scale": 1.0,
+           "lora": [{"name": name}]}
+    code, resp = _call(servers["port"], "/sdapi/v1/txt2img", req)
+    assert code == 400 and repr(name) in resp["error"] and "without a path" in resp["error"]
+
+
+def test_lora_apply_mode_reaches_set_loras(servers, monkeypatch):
+    """``--lora-apply-mode`` goes from ``server.main`` to the JobManager, and
+    the ``lora`` field is applied in that mode: ``at_runtime`` attaches
+    factors to the small FLUX DiT's dense weights where ``auto`` merges."""
+    from sdtpu_torch import cli
+    from sdtpu_torch.ops.quant import LoraTensor
+
+    seen = {}
+    monkeypatch.setattr(cli, "_load_pipeline", lambda args, report: servers["manager"].pipeline)
+    monkeypatch.setattr(server, "serve", lambda pipe, host, port, **kw: seen.update(kw))
+    assert server.main(["--lora-apply-mode", "at_runtime", "--lora-model-dir", "d"]) == 0
+    assert seen["lora_mode"] == "at_runtime" and seen["lora_dir"] == "d"
+    manager = servers["manager"]
+    req = {"prompt": "a fox", "width": 64, "height": 64, "steps": 1, "cfg_scale": 1.0,
+           "lora": [{"name": "flux_style"}]}
+    monkeypatch.setattr(manager, "lora_mode", "at_runtime")
+    try:
+        assert _call(servers["port"], "/sdapi/v1/txt2img", req)[0] == 200
+        kinds = {type(v) for v in manager.pipeline.diffusion_params.values()}
+        assert LoraTensor in kinds
+    finally:
+        assert _call(servers["port"], "/sdapi/v1/txt2img", {**req, "lora": []})[0] == 200
+    assert LoraTensor not in {type(v) for v in manager.pipeline.diffusion_params.values()}
 
 
 def test_listings_name_what_the_port_runs(servers):
