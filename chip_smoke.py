@@ -383,7 +383,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      with ``--lora-model-dir`` and ``--embd-dir`` answering a ``lora``
      field and the embedding's trigger word, listing ``/sdapi/v1/loras``
      and restoring on ``"lora": []`` (``sd15_lora_server``).
-Every path of phases 5-12 sets the kernels' launch counts to 0 before it runs
+ 13. the tiny UNets, ControlNet and diffusers names (after phase 11's
+     entry points): SDXS-0.9 at full width, random dense weights on the
+     card, one 512² step at CFG 1 (path ``sdxs09``), 4 at CFG 7 (the CFG
+     batch, ``sdxs09_cfg``) and one step in the default float32
+     (``sdxs09_f32``); SD1 tiny, SD2 tiny and SDXS-512-DS at 512² x 4, CFG
+     7 (``sd1_tiny``, ``sd2_tiny``, ``sdxs512``); flash held to each UNet's
+     calls (TINY_ATTENTION_CALLS: SDXS-0.9's one head of 320 six times a
+     forward, in ``flash_attention_d320``); flash's D 320 cases in phase 3
+     (bf16 with its faults: the second warpgroup's last output block
+     dropped, the scores over the first warpgroup's half, a key tile
+     dropped and the split combine unscaled; float32 with the one-pass TF32
+     fault and the unscaled combine).  Then ControlNet with a canny hint at
+     strength 0.9: SD1.5's bench request (512² x 20 euler_a, CFG 7; path
+     ``sd15_controlnet``) and SDXL at 1024² x 4, CFG 1, the full VAE
+     (``sdxl_controlnet``), the ControlNet drawn on the card with its taps
+     non-zero; flash held to the UNet's and the ControlNet's calls
+     (CONTROLNET_ATTENTION_CALLS) a step; one controlled forward each held
+     to the same forward with plain attention (REF_REL_TOL; the forward
+     without the ControlNet above it).  Then files under diffusers names
+     (the SD1.5 UNet, the SD1.5 ControlNet, SD3.5-Medium's MMDiT cut to
+     SD3_FILE_DEPTH blocks, the Wan 2.1 VAE with its encoder), each loaded
+     to the same tensors as the same module under its original names, and
+     ``cli.main --diffusion-model <diffusers UNet> --clip_l --vae
+     --control-net <diffusers ControlNet> --control-image --canny`` at 512²
+     x 4 (``sd15_controlnet_cli``).
+Every path of phases 5-13 sets the kernels' launch counts to 0 before it runs
 and reads them after: each kernel that path runs must have launched.  The
 4-bit kernel's TMA + wgmma form (M >= 128) and its weight-streaming GEMV
 (M <= 8) are counted apart as well, as ``q4_matmul_wgmma`` and
@@ -457,6 +482,8 @@ KERNEL_INFO = {
     "flash_attention_d40": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "flash_attention_d80": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "flash_attention_d160": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
+    # SDXS-0.9's one head of 320, bf16 and float32 forms (counted together)
+    "flash_attention_d320": (FLASH_SRC, "sdtpu/ops/flash_attention.py:51"),
     "w8a8_matmul": (W8A8_SRC, "sdtpu/ops/quant.py:416"),
     "w8a8_matmul_gemv": (W8A8_SRC, "sdtpu/ops/quant.py:416"),
     "q4_matmul": (Q4_SRC, "sdtpu/ops/quant.py:845"),
@@ -577,6 +604,16 @@ FLASH_CASES.append((*SD3_VAE_FLASH_SHAPE, "bf16", None))
 # split merged without its rescale would outweigh the limit.
 SD2_VAE_FLASH_SHAPE = (1, 1, 9216, 9216, 512)
 FLASH_CASES += [(*SD2_VAE_FLASH_SHAPE, dt, "neg_scores") for dt in ("bf16", "f32")]
+# SDXS-0.9 at 512² (its 320-channel level as one head of 320 over the 64 x
+# 64 = 4096 latent tokens): the self-attention at CFG 1 (B = 1; 64 Q tiles,
+# so the keys split) and under CFG (B = 2), the cross-attention over
+# OpenCLIP-H's 77 under CFG, a ragged case (Lq off the 64-row Q tile, Lk off
+# the 32-key tile) and a biased one, in bf16 and in float32.
+D320_FLASH_SHAPES = [(1, 1, 4096, 4096, 320, None), (2, 1, 4096, 4096, 320, None),
+                     (2, 1, 4096, 77, 320, None), (1, 1, 1000, 300, 320, None),
+                     (1, 2, 300, 200, 320, "random")]
+FLASH_CASES += [(b, h, lq, lk, d, dt, bias) for dt in ("bf16", "f32")
+                for b, h, lq, lk, d, bias in D320_FLASH_SHAPES]
 # Wan2.1-T2V-1.3B at 832x480 over 33 frames (9 latent frames) under CFG
 # (B = 2, 12 heads of 128): the self-attention over 9 x 30 x 52 = 14040
 # tokens (109 x 128 + 88: ragged on the last query and key tile) and the
@@ -799,8 +836,14 @@ FLASH_TOL = {"bf16": 2e-2, "f32": 2e-5}
 #     the zero keys past it left unmasked (``unmasked_pad_keys``).  At bf16
 #     D 64 (CLIP's, the SDXL UNet's) the kernel's last 128-key tile dropped
 #     (``drop_key_tile``, where the keys span more than one) and the zero
-#     keys past Lk left unmasked (where Lk is off the 128-key tile).
-FLASH_FAULTS = ("drop_key_tile", "combine_unscaled", "padded_scale", "unmasked_pad_keys")
+#     keys past Lk left unmasked (where Lk is off the 128-key tile).  At bf16
+#     D 320 (the wide-head kernel, its head dim split between two
+#     warpgroups) the second warpgroup's last output block, columns
+#     256-319, dropped (``drop_out_block``), the scores contracted over the
+#     first warpgroup's 160 columns alone (``half_scores``), and the D 512
+#     faults at this shape's key splits.
+FLASH_FAULTS = ("drop_key_tile", "combine_unscaled", "padded_scale", "unmasked_pad_keys",
+                "drop_out_block", "half_scores")
 Q4_REL_TOL = 2.0 ** -6
 GQ_REL_TOL = {"bf16": 2.0 ** -6, "f32": 1e-5}
 #   library yardsticks (``_weight_int4pack_mm``, ``_weight_int8pack_mm``): they
@@ -1076,6 +1119,40 @@ PATH_KERNELS["sdxl_lora_cli"] = PATH_KERNELS["sdxl_cli"]
 PATH_IDLE["sdxl_lora_cli"] = PATH_IDLE["sdxl_cli"]
 PATH_KERNELS["sd15_lora_server"] = PATH_KERNELS["sd15_server"]
 PATH_IDLE["sd15_lora_server"] = PATH_IDLE["sd15_server"]
+# phase 13, the tiny UNets and SDXS (dense, bf16; SDXS-0.9 also in the
+# default float32): flash at their UNet's head dims (SD1 tiny D 40 / 80 /
+# 160, SDXS-512-DS D 80 / 160 with no attention at its first level, SD2
+# tiny D 64, SDXS-0.9 D 320 at its first level and D 64 below), their text
+# encoder's D 64 and the VAE's D 512; then ControlNet on SD1.5 and SDXL
+# (their UNets' forms, the ControlNet's run at the same head dims) and the
+# SD1.5 CLI on diffusers-named files
+D320 = "flash_attention_d320"
+TINY_PATHS = {"sd1_tiny": ("flash_attention", *UNET_FLASH, "flash_attention_d64", "flash_attention_d512"),
+              "sdxs512": ("flash_attention", "flash_attention_d80", "flash_attention_d160",
+                          "flash_attention_d64", "flash_attention_d512"),
+              "sd2_tiny": ("flash_attention", "flash_attention_d64", "flash_attention_d512"),
+              "sdxs09": ("flash_attention", D320, "flash_attention_d64", "flash_attention_d512")}
+TINY_PATHS["sdxs09_cfg"] = TINY_PATHS["sdxs09"]
+TINY_PATHS["sd15_controlnet"] = TINY_PATHS["sd15_controlnet_cli"] = TINY_PATHS["sd1_tiny"]
+TINY_PATHS["sdxl_controlnet"] = TINY_PATHS["sd2_tiny"]
+for _path, _kernels in TINY_PATHS.items():
+    PATH_KERNELS[_path] = _kernels
+    PATH_IDLE[_path] = (*QUANT_KERNELS, *F32_FORMS, *(k for k in (*UNET_FLASH, D320) if k not in _kernels))
+PATH_KERNELS["sdxs09_f32"] = ("flash_attention", "flash_attention_f32", D320)
+PATH_IDLE["sdxs09_f32"] = (*QUANT_KERNELS, *UNET_FLASH, "flash_attention_d64", "flash_attention_d512",
+                           "q4_matmul_f32", "w8a16_matmul_f32", "gq_matmul_f32", "gq_zero_matmul_f32")
+F32_PATHS["sdxs09_f32"] = (("flash_attention", "flash_attention_f32"),)
+# head dim -> attention calls of one full-width tiny UNet forward: a self-
+# and a cross-attention in each of its transformers, one a level on the way
+# down and two on the way up, no middle block (SDXS-512-DS has none at its
+# first level; SDXS-0.9 runs its first level's 5 x 64 as one head of 320)
+TINY_ATTENTION_CALLS = {"SD1_TINY_UNET": {40: 6, 80: 6, 160: 6}, "SDXS_512_DS": {80: 6, 160: 6},
+                        "SD2_TINY_UNET": {64: 18}, "SDXS_09": {320: 6, 64: 12}}
+# head dim -> attention calls of one full-width ControlNet forward (the
+# UNet's encoder and middle block): SD1.5's two transformers at each of
+# three levels and the middle one; SDXL's 2 x 2 blocks at 640 channels, 2 x
+# 10 at 1280 and the middle block's 10, all at D 64
+CONTROLNET_ATTENTION_CALLS = {"SD1": {40: 4, 80: 4, 160: 6}, "SDXL": {64: 68}}
 # The FLUX.1-dev DiT's M = 1 linears per forward: 2 x 19 double-block and 38
 # single-block modulations, the final adaLN and the three embedders' two
 # layers each; one forward a denoise step (under CFG one forward of the
@@ -1130,6 +1207,28 @@ SD15_F32_REQUESTS = [dict(SD15_REQUEST, sample_steps=4)]
 SD15_HIRES_REQUEST = dict(SD15_REQUEST, prompt="a lighthouse at night, long exposure",
                           sample_steps=8)
 SD15_HIRES = dict(hires_scale=2.0, hires_strength=0.7)
+# Phase 13: SDXS-0.9 as it runs, one step at CFG 1 (and in the default
+# float32), then 4 steps at CFG 7 (the CFG batch of two); SD1 tiny, SD2
+# tiny and SDXS-512-DS at 4 steps, CFG 7; ControlNet with a canny hint at
+# strength 0.9 on SD1.5 (the bench request: 512² x 20 euler_a, CFG 7) and
+# on SDXL (1024² x 4 euler, CFG 1); the CLI on the diffusers-named SD1.5
+# files at 512² x 4
+SDXS09_REQUEST = dict(prompt="a photograph of an astronaut riding a horse", negative_prompt="",
+                      width=512, height=512, sample_steps=1, cfg_scale=1.0, seed=42,
+                      sample_method="euler", schedule="discrete")
+SDXS09_CFG_REQUEST = dict(SDXS09_REQUEST, sample_steps=4, cfg_scale=7.0, negative_prompt="blurry")
+TINY_REQUEST = dict(SDXS09_CFG_REQUEST, negative_prompt="")
+CONTROL_STRENGTH = 0.9
+SD15_CN_REQUEST = dict(SD15_REQUEST, prompt="a lighthouse on a cliff, oil painting")
+SDXL_CN_REQUEST = dict(prompt="a lighthouse on a cliff, oil painting", negative_prompt="",
+                       width=1024, height=1024, sample_steps=4, cfg_scale=1.0, seed=42,
+                       sample_method="euler", schedule="discrete")
+SD15_CN_CLI_REQUEST = dict(SD15_CN_REQUEST, sample_steps=4)
+SD15_CN_CLI_ARGV = ["-p", SD15_CN_REQUEST["prompt"], "-W", "512", "-H", "512", "--steps", "4",
+                    "--cfg-scale", "7.0", "-s", "42", "--control-strength", str(CONTROL_STRENGTH)]
+CONTROLNET_SEED = 7
+# the MMDiT's depth in the diffusers-named SD3 file (its names repeat a block)
+SD3_FILE_DEPTH = 2
 
 
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
@@ -1416,6 +1515,23 @@ def _d512_faults(q, k, v, mask, want) -> dict:
     return out
 
 
+def _d320_faults(q, k, v, mask, want) -> dict:
+    """max |error| against ``want`` of the bf16 D 320 kernel's faults
+    (FLASH_FAULTS), in plain PyTorch on the case's inputs: the second
+    warpgroup's last output block dropped (columns 256-319 zero), the scores
+    over the first warpgroup's 160 columns alone, and ``_d512_faults`` (the
+    same 32-key tiles and key splits)."""
+    from sdtpu_torch.ops.flash_attention import plain_attention
+
+    out = _d512_faults(q, k, v, mask, want)
+    dropped = plain_attention(q, k, v, mask=mask)
+    dropped[..., 256:] = 0
+    out["drop_out_block"] = (dropped.float() - want.float()).abs().max().item()
+    half = plain_attention(q[..., :160], k[..., :160], v, mask=mask, scale=q.shape[-1] ** -0.5)
+    out["half_scores"] = (half.float() - want.float()).abs().max().item()
+    return out
+
+
 def _padded_faults(q, k, v, mask, want) -> dict:
     """max |error| against ``want`` of the padded bf16 kernel's two faults
     (FLASH_FAULTS), in plain PyTorch on the case's inputs."""
@@ -1593,6 +1709,10 @@ def check_flash(results):
             name = f"flash_attention_d{d}"
             faults = (_one_pass_tf32_fault(q, k, v, mask, want) if dt == "f32"
                       else _padded_faults(q, k, v, mask, want))
+        elif d == 320:
+            name = D320
+            faults = (_one_pass_tf32_fault(q, k, v, mask, want) if dt == "f32"
+                      else _d320_faults(q, k, v, mask, want))
         elif dt == "f32":
             name, faults = "flash_attention_f32", _one_pass_tf32_fault(q, k, v, mask, want)
         elif d == 64:
@@ -1622,6 +1742,8 @@ def check_flash(results):
         # too; and at Wan's shapes, whose request time this case predicts
         if ms < 0.1 or (b, h, lq, lk, d, dt, bias) in WAN_FLASH_CASES:
             extra.update(device_ms=device_ms_sum(kernel, it), library_device_ms=device_ms_sum(library, it))
+        if d == 320:  # past SDPA's flash backend: the kernels name the backend it took
+            extra["library_kernels"] = sorted({n[:90] for n, _ in device_kernels(library, 2)})
         _record(results, dict(kernel=name, shape=[b, h, lq, lk, d], dtype=dt,
                             bias=bias, splits=splits, max_abs_err=err, tol=tol, **extra,
                             ok=bool(err <= tol and caught and torch.isfinite(got).all()),
@@ -2536,6 +2658,17 @@ UNET_FAMILY_FLASH = {
     "sdxl": ({"flash_attention_d64": SDXL_UNET_ATTENTION_CALLS[64]},
              {"flash_attention_d64": SDXL_CLIP_ATTENTION_CALLS}),
 }
+# the tiny UNets (SD1.x's or SD2.x's text encoder) and the UNets with their
+# ControlNet run in each UNet call (the same batch)
+for _version, _calls in TINY_ATTENTION_CALLS.items():
+    UNET_FAMILY_FLASH[_version.lower()] = (
+        {f"flash_attention_d{d}": n for d, n in _calls.items()},
+        UNET_FAMILY_FLASH["sd2" if 64 in _calls else "sd1"][1])
+for _version, _family in (("SD1", "sd1"), ("SDXL", "sdxl")):
+    _unet, _text = UNET_FAMILY_FLASH[_family]
+    _cn = {f"flash_attention_d{d}": n for d, n in CONTROLNET_ATTENTION_CALLS[_version].items()}
+    UNET_FAMILY_FLASH[f"{_family}_controlnet"] = (
+        {k: _unet.get(k, 0) + _cn.get(k, 0) for k in {**_unet, **_cn}}, _text)
 # TAESD-XL's seed (the JAX bench's, bench.py:470)
 TAE_SEED = 5
 
@@ -2580,15 +2713,15 @@ def _check_unet_family(path: str, counts: dict, family: str, totals: tuple, plai
     attention ran in the plain version on the card."""
     calls, encodes, vae = totals
     unet, text = UNET_FAMILY_FLASH[family]
-    want = {k: 0 for k in (*UNET_FLASH, "flash_attention_d64")}
+    want = {k: 0 for k in (*UNET_FLASH, D320, "flash_attention_d64")}
     for k, n in unet.items():
         want[k] += n * calls
     for k, n in text.items():
         want[k] += n * encodes
     want["flash_attention_d512"] = vae
     total = sum(want.values())
-    if f32:  # d40 / d80 / d160 count both dtypes
-        want = {**{k: v for k, v in want.items() if k in UNET_FLASH}, "flash_attention_d64": 0,
+    if f32:  # d40 / d80 / d160 / d320 count both dtypes
+        want = {**{k: v for k, v in want.items() if k in (*UNET_FLASH, D320)}, "flash_attention_d64": 0,
                 "flash_attention_d512": 0, "flash_attention_f32": total}
     else:
         want["flash_attention_f32"] = 0
@@ -4927,11 +5060,12 @@ def answer(pipe, requests, card: str, label: str, results: list = None):
     for kw in requests:
         kw = dict(kw)
         images = {k: kw.pop(k) for k in ("init_image", "mask_image", "ref_images") if k in kw}
+        control = {k: kw.pop(k) for k in ("control_image", "control_strength") if k in kw}
         gp = GenerationParams(**{"sample_method": "euler", **kw})
         pipe._cond_cache.clear()  # every request encodes its prompts
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_stats()
-        res = pipe.generate(gp, **images)
+        res = pipe.generate(gp, **images, **control)
         if results is not None:
             results.append(res)
         after = torch.cuda.memory_stats()
@@ -4949,6 +5083,7 @@ def answer(pipe, requests, card: str, label: str, results: list = None):
                "cfg_scale": gp.cfg_scale, "sampler": gp.sample_method, "steps": tm["steps"],
                "seed": gp.seed, **({"strength": gp.strength, "masked": "mask_image" in images}
                                    if images else {}),
+               **({"control_strength": control.get("control_strength", 0.9)} if control else {}),
                "timings_s": {k: tm[k] for k in ("encode", "cond", "sample", "decode", "total")
                              if k in tm},
                "denoise_steps_per_s": tm["steps"] / tm["sample"], "peak_mem_bytes": peak,
@@ -5780,6 +5915,247 @@ def sdxl_lora_epochs(pipe, card: str) -> dict:
     return out
 
 
+def hint_image(size: int):
+    """A [size, size, 3] uint8 picture with edges (a disc and two bars over
+    faint noise), the control image ``canny`` turns into the hint."""
+    import numpy as np
+
+    rng = np.random.default_rng(IMG2IMG_SEED)
+    yy, xx = np.mgrid[:size, :size]
+    img = (rng.random((size, size, 3)) * 40).astype(np.uint8)
+    img[(yy - size / 2) ** 2 + (xx - size / 3) ** 2 < (size / 5) ** 2] = (220, 180, 40)
+    img[size // 6:size // 4, :] = (20, 200, 240)
+    img[:, 3 * size // 4:4 * size // 5] = (240, 60, 60)
+    return img
+
+
+def tiny_unet_paths(wrappers, card: str, launches: dict):
+    """Phase 13a: the tiny UNets at full width, random dense weights on the
+    card: SDXS-0.9 (paths ``sdxs09``: SDXS09_REQUEST, ``sdxs09_cfg``:
+    SDXS09_CFG_REQUEST, and ``sdxs09_f32``: SDXS09_REQUEST in the default
+    float32), SD1 tiny (``sd1_tiny``), SD2 tiny (``sd2_tiny``) and
+    SDXS-512-DS (``sdxs512``) at TINY_REQUEST, each in its launch window,
+    flash held to ``_check_unet_family`` (TINY_ATTENTION_CALLS: SDXS-0.9's
+    D 320 six times a forward)."""
+    import torch
+
+    runs = [("SDXS_09", False, [("sdxs09", [SDXS09_REQUEST]), ("sdxs09_cfg", [SDXS09_CFG_REQUEST])]),
+            ("SDXS_09", True, [("sdxs09_f32", [SDXS09_REQUEST])]),
+            ("SD1_TINY_UNET", False, [("sd1_tiny", [TINY_REQUEST])]),
+            ("SD2_TINY_UNET", False, [("sd2_tiny", [TINY_REQUEST])]),
+            ("SDXS_512_DS", False, [("sdxs512", [TINY_REQUEST])])]
+    pipes, reports = [], []
+    for version, f32, paths in runs:
+        pipe, info = build_unet_pipeline(card, version, default_dtype=f32)
+        pipes.append(info)
+        for label, requests in paths:
+            with plain_attention_on_card() as plain:
+                rep, launches[label] = _windowed(wrappers, label,
+                                                 lambda: answer(pipe, requests, card, label))
+            info[label] = _check_unet_family(label, launches[label], version.lower(),
+                                             _totals(requests), plain, f32=f32)
+            reports += rep
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return pipes, reports
+
+
+def controlled_forward_plain_check(pipe, hint, label: str) -> dict:
+    """One full-width controlled UNet forward at the request's shapes (CFG 1:
+    a batch of one, the latent of the hint's size, a 77-token context; SDXL
+    with its vector): the ControlNet's residuals and the UNet through the
+    kernels, against the same forward with every attention in the plain
+    version on the card (bf16 both: REF_REL_TOL).  The fault, the plain side
+    without the ControlNet's residuals, must read above the limit."""
+    import torch
+
+    from sdtpu_torch.models import unet as unet_mod
+    from sdtpu_torch.ops.flash_attention import plain_attention
+
+    g = torch.Generator(device=DEVICE).manual_seed(29)
+    dt = pipe.compute_dtype
+    h, w = hint.shape[:2]
+    x = torch.randn((1, h // 8, w // 8, 4), generator=g, device=DEVICE, dtype=dt)
+    t = torch.tensor([499.0], device=DEVICE)
+    cn = pipe.controlnet_params
+    ctx_w = next(v.shape[1] for k, v in cn.items() if k.endswith("attn2.to_k.weight"))
+    ctx = torch.randn((1, 77, ctx_w), generator=g, device=DEVICE, dtype=dt)
+    y = (torch.randn((1, cn["label_emb.0.0.weight"].shape[1]), generator=g, device=DEVICE, dtype=dt)
+         if "label_emb.0.0.weight" in cn else None)
+    hint_t = torch.from_numpy(hint.astype("float32") / 255.0)[None].to(DEVICE, dt)
+
+    def forward(controlled: bool):
+        controls = pipe.controlnet_fn(cn, x, hint_t, t, ctx, y) if controlled else None
+        return pipe.diffusion_fn(pipe.diffusion_params, x, t, ctx, y, controls=controls,
+                                 control_strength=CONTROL_STRENGTH)
+
+    with torch.inference_mode():
+        got = forward(True)
+        kernel_attention = unet_mod.attention
+        unet_mod.attention = lambda q, k, v, mask=None: plain_attention(q, k, v, mask=mask)
+        try:
+            want = forward(True)
+            fault = _rel(forward(False), want)
+        finally:
+            unet_mod.attention = kernel_attention
+    rel = _rel(got, want)
+    ok = bool(torch.isfinite(got).all() and torch.isfinite(want).all() and rel <= REF_REL_TOL < fault)
+    out = {"rel_l2": rel, "tol": REF_REL_TOL, "no_controls": fault, "ok": ok, "shape": list(got.shape)}
+    print(f"{label}_forward_plain " + json.dumps(out), flush=True)
+    if not ok:
+        raise RuntimeError(f"path {label}: the controlled UNet forward is {rel:.4g} from the one with "
+                           f"plain attention (limit {REF_REL_TOL}; without the ControlNet it reads "
+                           f"{fault:.4g})")
+    return out
+
+
+def controlnet_paths(wrappers, card: str, launches: dict):
+    """Phase 13b: ControlNet on SD1.5 (path ``sd15_controlnet``,
+    SD15_CN_REQUEST) and on SDXL (``sdxl_controlnet``, SDXL_CN_REQUEST) at
+    full width, the UNet and the ControlNet (``tools/controlnet_file.py``'s
+    specs: its taps drawn non-zero) random dense on the card, the hint the
+    canny edges of ``hint_image``; flash held to ``_check_unet_family``
+    (the UNet's and the ControlNet's calls a step), then one controlled
+    forward against plain attention (``controlled_forward_plain_check``)."""
+    import torch
+
+    from sdtpu_torch.config import SDVersion
+    from sdtpu_torch.diffusion.preprocessing import canny
+    from sdtpu_torch.factory import unet_config_for
+    from sdtpu_torch.tools.controlnet_file import file_specs
+    from sdtpu_torch.weights import synthesize, weight_bytes
+
+    pipes, reports = [], []
+    for label, version, family, request in (("sd15_controlnet", "SD1", "sd1_controlnet", SD15_CN_REQUEST),
+                                            ("sdxl_controlnet", "SDXL", "sdxl_controlnet", SDXL_CN_REQUEST)):
+        pipe, info = build_unet_pipeline(card, version)
+        cn = synthesize(file_specs(unet_config_for(getattr(SDVersion, version))), seed=CONTROLNET_SEED,
+                        device=DEVICE, dtype=pipe.compute_dtype)
+        pipe.set_controlnet(cn)
+        info["weight_bytes"]["controlnet"] = weight_bytes(cn)
+        pipes.append(info)
+        t0 = time.time()
+        hint = canny(hint_image(request["width"]))
+        info["canny_s"] = time.time() - t0
+        requests = [dict(request, control_image=hint, control_strength=CONTROL_STRENGTH)]
+        with plain_attention_on_card() as plain:
+            rep, launches[label] = _windowed(wrappers, label, lambda: answer(pipe, requests, card, label))
+        info[label] = _check_unet_family(label, launches[label], family, _totals(requests), plain)
+        info["forward_plain"] = controlled_forward_plain_check(pipe, hint, label)
+        reports += rep
+        del pipe, cn
+        gc.collect()
+        torch.cuda.empty_cache()
+    return pipes, reports
+
+
+def _same_tensors(label: str, a: dict, b: dict) -> int:
+    """Two loaded module dicts hold the same names and, bit for bit, the
+    same values → the tensor count."""
+    import numpy as np
+
+    if sorted(a) != sorted(b):
+        raise RuntimeError(f"{label}: the diffusers file loads {len(a)} names, the original "
+                           f"{len(b)}; {sorted(set(a) ^ set(b))[:5]} differ")
+    bad = [k for k in a if not np.array_equal(np.asarray(a[k]), np.asarray(b[k]))]
+    if bad:
+        raise RuntimeError(f"{label}: {len(bad)} tensors differ between the namings, e.g. {bad[:3]}")
+    return len(a)
+
+
+def diffusers_entry_check(wrappers, card: str) -> tuple:
+    """Phase 13c, files under diffusers names, written under the build
+    directory (deleted after): the SD1.5 UNet (``tools/sd15_file.py``), the
+    SD1.5 ControlNet (``tools/controlnet_file.py``), SD3.5-Medium's MMDiT cut
+    to SD3_FILE_DEPTH blocks (``tools/sd3_file.py``) and the Wan 2.1 VAE with
+    its encoder (``tools/wan_file.py``, beside a Wan DiT cut to two
+    blocks), each also under its original names from the same seed: each
+    diffusers file loads (``load_model_bundle`` / ``load_controlnet``) to
+    the original's tensors, bit for bit.  Then ``cli.main`` answers
+    SD15_CN_CLI_ARGV with ``--diffusion-model`` the diffusers UNet,
+    ``--clip_l`` / ``--vae`` files, ``--control-net`` the diffusers
+    ControlNet, ``--control-image`` a PNG of ``hint_image`` and ``--canny``
+    (path ``sd15_controlnet_cli``, held to ``_check_unet_family``)."""
+    import tempfile
+
+    import torch
+
+    from sdtpu_torch import cli
+    from sdtpu_torch.io.model_loader import load_controlnet, load_model_bundle
+    from sdtpu_torch.models import clip as clip_mod
+    from sdtpu_torch.models import vae as vae_mod
+    from sdtpu_torch.tools import controlnet_file, sd3_file, sd15_file, wan_file
+    from sdtpu_torch.tools.flux_files import _Draw, write_safetensors
+    from sdtpu_torch.utils.image import write_image
+
+    root = ROOT / "build" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="diffusers_files_", dir=root))
+    report, launches = {"card": card}, {}
+    try:
+        t0 = time.time()
+        files = {"sd15_unet": sd15_file.write_unet_files(tmp, device=DEVICE),
+                 "controlnet": controlnet_file.write_controlnet_files(tmp, device=DEVICE),
+                 "sd3_mmdit": sd3_file.write_mmdit_files(tmp, device=DEVICE, depth=SD3_FILE_DEPTH),
+                 "wan_vae": wan_file.write_vae_files(tmp, device=DEVICE)}
+        clip_path, vae_path = tmp / "clip_l.safetensors", tmp / "sd_vae.safetensors"
+        write_safetensors(clip_path, clip_mod.param_specs(clip_mod.CLIP_L_CONFIG), _Draw(1, DEVICE),
+                          torch.float16)
+        write_safetensors(vae_path, vae_mod.vae_specs(vae_mod.SD_VAE_CONFIG), _Draw(2, DEVICE),
+                          torch.float16)
+        report["write_s"] = time.time() - t0
+        report["files"] = {k: {"bytes": v["bytes"], "tensors": v["tensors"]} for k, v in files.items()}
+        t0 = time.time()
+        loads = {}
+        for key, module, kw in (("sd15_unet", "diffusion", lambda p: dict(diffusion_model_path=p)),
+                                ("sd3_mmdit", "diffusion", lambda p: dict(diffusion_model_path=p)),
+                                ("wan_vae", "vae", lambda p: dict(
+                                    diffusion_model_path=files["wan_vae"]["paths"]["dit"], vae_path=p))):
+            paths = files[key]["paths"]
+            got = load_model_bundle(**kw(paths["diffusers"]))
+            want = load_model_bundle(**kw(paths["original"]))
+            if got.version != want.version:
+                raise RuntimeError(f"{key}: the diffusers file fingerprints as {got.version.value}, "
+                                   f"the original as {want.version.value}")
+            loads[key] = {"version": got.version.value,
+                          "tensors": _same_tensors(key, getattr(got, module), getattr(want, module))}
+            del got, want
+        cn_paths = files["controlnet"]["paths"]
+        loads["controlnet"] = {"tensors": _same_tensors("controlnet", load_controlnet(cn_paths["diffusers"]),
+                                                        load_controlnet(cn_paths["original"]))}
+        report["load_s"] = time.time() - t0
+        report["loads"] = loads
+        print(f"entry diffusers files on {card}: " + json.dumps(report), flush=True)
+        hint_path, png, cli_rep = tmp / "control.png", tmp / "sd15_controlnet_cli.png", {}
+        write_image(str(hint_path), hint_image(512))
+        argv = ["--diffusion-model", files["sd15_unet"]["paths"]["diffusers"], "--clip_l", str(clip_path),
+                "--vae", str(vae_path), "--control-net", cn_paths["diffusers"], "--control-image",
+                str(hint_path), "--canny", *SD15_CN_CLI_ARGV, "-o", str(png)]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with plain_attention_on_card() as plain:
+            rc, launches["sd15_controlnet_cli"] = _windowed(
+                wrappers, "sd15_controlnet_cli", lambda: cli.main(argv, report=cli_rep))
+        wall_s = time.time() - t0
+        if rc != 0 or cli_rep["load"]["version"] != "sd1":
+            raise RuntimeError(f"sdtpu_torch.cli.main on the diffusers files exited {rc}")
+        if cli_rep["pipeline"].controlnet_params is None:
+            raise RuntimeError("the CLI answered without its ControlNet")
+        report["cli"] = {"load": cli_rep["load"], "wall_s": wall_s, "timings_s": cli_rep["timings"],
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                         **_check_unet_family("sd15_controlnet_cli", launches["sd15_controlnet_cli"],
+                                              "sd1_controlnet", unet_calls(SD15_CN_CLI_REQUEST), plain),
+                         **_check_png(png.read_bytes(), 512, 512, "euler_a")}
+        print("entry sd15_controlnet cli " + json.dumps(report["cli"]), flush=True)
+        del cli_rep
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return report, launches
+
+
 def launch_counters() -> dict:
     """Each kernel's launch counter: name → (wrapper, attribute); the D 512
     kernel, the wgmma forms, the GEMVs, the split-K forms, the float32 forms
@@ -5792,6 +6168,7 @@ def launch_counters() -> dict:
                 "flash_attention_d40": (flash_attention.flash_attention, "launches_d40"),
                 "flash_attention_d80": (flash_attention.flash_attention, "launches_d80"),
                 "flash_attention_d160": (flash_attention.flash_attention, "launches_d160"),
+                D320: (flash_attention.flash_attention, "launches_d320"),
                 "w8a8_matmul_gemv": (quant.quant_matmul_w8a8, "launches_gemv"),
                 "w8a8_matmul_splitk": (quant.quant_matmul_w8a8, "launches_splitk"),
                 "w8a8_matmul_wgmma": (quant.quant_matmul_w8a8, "launches_wgmma"),
@@ -6033,6 +6410,17 @@ def main() -> int:
     entry["sd2_family"], sd2_launches = sd2_family_entry_check(wrappers, card)
     launches.update(sd2_launches)
     lap("sd2, inpainting and pix2pix entry points")
+    tiny_pipes, rep = tiny_unet_paths(wrappers, card, launches)
+    pipes += tiny_pipes
+    reports += rep
+    lap("tiny unet paths")
+    cn_pipes, rep = controlnet_paths(wrappers, card, launches)
+    pipes += cn_pipes
+    reports += rep
+    lap("controlnet paths")
+    entry["diffusers"], diffusers_launches = diffusers_entry_check(wrappers, card)
+    launches.update(diffusers_launches)
+    lap("diffusers-named files")
     elapsed["sampling"] = sum(SAMPLING["seconds"].values())
     print(f"elapsed sampling {elapsed['sampling']:.1f} s (inside the sd15, sd3, wan and z_image "
           f"paths: {len(SAMPLING['lines'])} requests) on {card}", flush=True)
@@ -6047,6 +6435,7 @@ def main() -> int:
                 "flash_attention_d40": ([2, 8, 4096, 4096, 40], {"dtype": "bf16"}),
                 "flash_attention_d80": ([2, 8, 1024, 1024, 80], {"dtype": "bf16"}),
                 "flash_attention_d160": ([2, 8, 256, 256, 160], {"dtype": "bf16"}),
+                D320: ([1, 1, 4096, 4096, 320], {"dtype": "bf16"}),
                 "w8a8_matmul": ([4352, 3072, 12288], {"dtype": "bf16"}),
                 "w8a8_matmul_gemv": ([1, 3072, 18432], {}),
                 "q4_matmul": ([256, 4096, 10240], {"group": 64, "dtype": "bf16"}),
@@ -6085,7 +6474,7 @@ def main() -> int:
         # the device clock's reading and the K splits, where the case has them
         kernels[-1].update({key: head[key] for key in ("device_ms", "library_device_ms", "splits")
                             if head.get(key)})
-        if name in (*UNET_FLASH, "flash_attention_d64"):  # the float32 form at the same shape
+        if name in (*UNET_FLASH, D320, "flash_attention_d64"):  # the float32 form at the same shape
             f32 = next(c for c in cases if c["kernel"] in (name, "flash_attention_f32")
                        and c["shape"] == shape and c["dtype"] == "f32")
             kernels[-1].update({f"f32_{k}": f32[k] for k in ("ms", "plain_ms", "bound_ms",

@@ -544,6 +544,8 @@ RUN_FLAGS = frozenset({
     "extra_sample_args", "cache", "cache_option", "scm_mask", "scm_policy",
     # the inpainting and instruct-pix2pix UNets: the edit image, image guidance
     "ref_image", "img_cfg_scale",
+    # ControlNet on the SD1.x, SD2.x and SDXL UNets, with its canny hint
+    "control_net", "control_image", "control_strength", "canny",
     # img2img, masked img2img, custom sigmas and the latent hires fix
     "init_img", "mask", "strength", "sigmas", "hires", "hires_upscaler", "hires_scale",
     "hires_width", "hires_height", "hires_steps", "hires_denoising_strength", "hires_sigmas",
@@ -581,13 +583,23 @@ def unported(args, parser: argparse.ArgumentParser, run_flags=RUN_FLAGS) -> Opti
                         "modulation of reference tokens) is not ported")
             return (f"{flag} is not ported (the port runs {image_families()} txt2img, "
                     "img2img, masked img2img and the latent hires "
-                    "fix, the inpainting and instruct-pix2pix UNets, and Wan2.1 txt2vid)")
+                    "fix, the inpainting and instruct-pix2pix UNets, ControlNet, and Wan2.1 "
+                    "txt2vid)")
     if args.mode not in MODES:
         return f"mode {args.mode!r} is not ported; the port runs {list(MODES)}"
     if args.mode == "vid_gen" and video_output(args).lower().endswith(VIDEO_CONTAINERS):
         return (f"vid_gen -o {video_output(args)}: the {'/'.join(VIDEO_CONTAINERS)} writers need "
                 "Pillow's JPEG / WebP encoders, which are not ported; name a .png to write one PNG "
                 "a frame")
+    if bool(args.control_net) != bool(args.control_image):
+        given = "--control-net" if args.control_net else "--control-image"
+        return (f"{given} alone is not ported (the JAX CLI ignores it): a ControlNet runs with "
+                "--control-net and --control-image together")
+    if args.canny and not args.control_image:
+        return "--canny without --control-image is not ported: it preprocesses the control image"
+    if args.control_net and (args.hires or args.mode == "vid_gen"):
+        return (f"--control-net with {'--hires' if args.hires else 'vid_gen'} is not ported: the "
+                "port runs a ControlNet in img_gen without the hires pass")
     if args.hires_upscaler.lower() != "latent":
         return (f"--hires-upscaler {args.hires_upscaler!r}: ESRGAN upscalers are not ported; the "
                 "port runs the Latent upscaler")
@@ -961,7 +973,7 @@ def _img_gen(args, report: Optional[dict] = None) -> int:
     from sdtpu_torch.utils.image import (build_parameters_text, read_png, resolve_output_path,
                                          write_image)
 
-    init_image = mask_image = ref_images = None
+    init_image = mask_image = ref_images = control_image = None
     try:  # read before the (long) load, so a file the port cannot read fails first
         if args.init_img:
             init_image, _ = read_png(args.init_img)
@@ -969,6 +981,17 @@ def _img_gen(args, report: Optional[dict] = None) -> int:
             mask_image = read_png(args.mask)[0][..., 0]
         if args.ref_image:
             ref_images = [read_png(p)[0][..., :3] for p in args.ref_image]
+        if args.control_image:
+            control_image = read_png(args.control_image)[0][..., :3]
+            if control_image.shape[:2] != (args.height, args.width):
+                raise ValueError(f"{args.control_image}: {control_image.shape[1]}x"
+                                 f"{control_image.shape[0]}, the request {args.width}x{args.height}: "
+                                 "the port does not resize control images (the JAX CLI resizes "
+                                 "with Pillow's Lanczos)")
+            if args.canny:
+                from sdtpu_torch.diffusion.preprocessing import canny
+
+                control_image = canny(control_image)
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -981,6 +1004,17 @@ def _img_gen(args, report: Optional[dict] = None) -> int:
         print(f"error: -r/--ref-image on a {pipe.version.value} model: the port takes reference "
               "images on the instruct-pix2pix UNets only", file=sys.stderr)
         return 2
+    if args.control_net:
+        if pipe.controlnet_fn is None:
+            print(f"error: --control-net on a {pipe.version.value} model: the port runs ControlNet "
+                  "on the SD1.x, SD2.x and SDXL UNets", file=sys.stderr)
+            return 2
+        from sdtpu_torch.io.model_loader import load_controlnet
+        from sdtpu_torch.loader import module_to_device
+
+        pipe.set_controlnet(module_to_device(load_controlnet(args.control_net), pipe.compute_dtype,
+                                             pipe.device))
+        print("ControlNet attached")
     applied = apply_prompt_loras(pipe, loras, args.lora_model_dir, args.lora_apply_mode)
     gp = GenerationParams(
         prompt=prompt, negative_prompt=args.negative_prompt, width=args.width,
@@ -1002,7 +1036,8 @@ def _img_gen(args, report: Optional[dict] = None) -> int:
     else:
         res = pipe.generate(gp, init_image=init_image, mask_image=mask_image,
                             ref_images=ref_images, progress_callback=_progress_cb(),
-                            step_cache=args.cache, cache_options=cache_options(args))
+                            step_cache=args.cache, cache_options=cache_options(args),
+                            control_image=control_image, control_strength=args.control_strength)
     print(f"generated {len(res.images)} image(s) in {time.time() - t0:.2f}s")
     print("timings " + json.dumps(pipe.last_timings))
     paths = []

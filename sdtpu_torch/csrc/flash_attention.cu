@@ -82,7 +82,7 @@
 // polynomial; slower) and a four-stage ring (no change).
 //
 // bf16, D = 512 (the VAE mid-block, one head over a 64 x 64 latent tile,
-// Lq = Lk = 4096): `flash_d512_kernel`, replacing the same four TPU kernels
+// Lq = Lk = 4096): `flash_wide_kernel<512>`, replacing the same four TPU kernels
 // at that head dim.  What bounds it: 4 * 4096^2 * 512 = 34.4 GFLOP per
 // tile, 0.0347 ms at 989 TFLOP/s (NVIDIA H100 SXM data sheet, 700 W),
 // against 0.0050 ms of bytes -- compute bound, so both products go to
@@ -105,9 +105,29 @@
 // `flash_combine_kernel` merges them.  Ragged edges, the last-tile
 // mask, the bias template and the exp2 units are as in the D 64/128 kernel.
 //
-// float32, D = 40, 64, 80, 128, 160 and 512 (the default float32 pipeline:
-// FLUX joint attention at D 128, the SD1.5 UNet at D 40, 80 and 160,
-// CLIP-L's causal attention at D 64, the VAE mid-block at D 512):
+// bf16, D = 320 (SDXS-0.9's 320-channel level as one head: the self-
+// attention [B, 1, 4096, 4096, 320] and the cross-attention over
+// OpenCLIP-H's 77 tokens at 512^2): the same kernel, `flash_wide_kernel<D>`
+// with the head dim as its template parameter.  A 64 x 320 f32 accumulator
+// would be 160 registers a thread in one warpgroup, so the two consumer
+// warpgroups split the head dim as at 512.  320 columns are five 64-column
+// atoms of the 128-byte swizzle, so the head dim is padded to 384 in shared
+// memory only (six column blocks, as D 80 / 160 pad to 128 / 192): the
+// output halves are 192 columns (P V as wgmma m64n192k16, register A), but
+// the scores' contraction splits at 160, inside the third block -- a k16
+// step is 32 bytes of a swizzle row, so a descriptor may start there -- and
+// each warpgroup runs ten k16 steps, no zero columns.  The sixth block is
+// never loaded: only the accumulator's columns 320-383 read it, and they
+// are never stored.  So the products are 320 + 384 columns, 1.1x the work
+// of D, where the 64-byte swizzle's m64n160 halves would need a second
+// descriptor layout for one head dim.  What bounds it: [1, 1, 4096, 4096,
+// 320] is 21.5 GFLOP, 0.0217 ms at 989 TFLOP/s, against 0.0031 ms of bytes.
+// Its 64 Q tiles are under half of 132 SMs, so the keys split as at 512.
+//
+// float32, D = 40, 64, 80, 128, 160, 320 and 512 (the default float32
+// pipeline: FLUX joint attention at D 128, the SD1.5 UNet at D 40, 80 and
+// 160, SDXS-0.9's wide head at D 320, CLIP-L's causal attention at D 64,
+// the VAE mid-block at D 512):
 // `flash_f32_kernel<D, kBias>`.  The reference runs float32 at
 // Precision.HIGHEST (sdtpu/ops/flash_attention.py:68), so one TF32 pass
 // (about three decimal digits) is not enough.  What bounds it: 4 * L^2 * D
@@ -123,8 +143,8 @@
 // form recomputed them for each 64-wide output slice).  K, V and the bias
 // tile are staged by cp.async into a two-stage ring, the next tile's copies
 // in flight under this tile's math.  Each warp owns 16 query rows; at D 64
-// and 128 all of D (BQ = 128 rows, 32-key tiles), at D 512 a quarter of it
-// (BQ = 32, 16-key tiles; D 160 takes 16-key tiles too, for shared
+// and 128 all of D (BQ = 128 rows, 32-key tiles), at D 320 and 512 a
+// quarter of it (BQ = 32, 16-key tiles; D 160 takes 16-key tiles too, for shared
 // memory; D 40 contracts Q K^T over 48 columns, the 8 past D zeros in shared
 // memory): the four quarters' partial scores are summed
 // through shared memory in one order, so each warp runs the same softmax,
@@ -674,36 +694,49 @@ flash_d40_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   }
 }
 
-// ----------------------------------------------- bf16 D 512: TMA + wgmma
+// ------------------------------------ bf16 D 320 and 512: TMA + wgmma
 
 constexpr int kXQ = 64;        // query rows per block: one wgmma M tile, shared by both consumers
 constexpr int kXK = 32;        // keys per K/V tile
 constexpr int kXStages = 2;    // K and V ring depth
-constexpr int kXD = 512;       // head dim
-constexpr int kXHalf = kXD / 2;               // head-dim columns per consumer warpgroup
+constexpr int kXD = 512;       // the VAE's head dim
 constexpr int kXQBlock = kXQ * kColBytes;     // one 64-column block of the Q tile: 8 KB
 constexpr int kXKVBlock = kXK * kColBytes;    // one 64-column block of a K or V tile: 4 KB
-constexpr int kXKVBytes = (kXD / 64) * kXKVBlock;  // one K or V tile: 32 KB
 constexpr int kXSwapFloats = (kXK / 2) * 128;      // one warpgroup's partial S, 16 floats a thread
-constexpr int kXSmem = 1024 + (kXD / 64) * kXQBlock + 2 * kXStages * kXKVBytes +
-                       2 * 2 * kXSwapFloats * 4 + (1 + 4 * kXStages) * 8;
-static_assert(kXSmem <= 232448, "D 512 flash: shared memory over the 227 KB a block may use");
 constexpr int kXMaxSplits = 16;
 
+// The wide-head form's layout at head dim D (320 or 512): D padded to an
+// even count of 64-column blocks (DP: 384, 512) in shared memory, so each
+// warpgroup's output half is whole blocks; each consumer
+// warpgroup contracts Q K^T over D / 2 columns and owns DP / 2 output
+// columns.  Only the ceil(D / 64) blocks that hold data are loaded.
+template <int D>
+struct Wide {
+  static_assert(D == 320 || D == kXD, "the wide-head kernel takes head dims 320 and 512");
+  static constexpr int DP = (D + 127) / 128 * 128, CB = DP / 64, CBL = (D + 63) / 64;
+  static constexpr int kHalf = DP / 2;           // output columns per consumer warpgroup
+  static constexpr int kKS = D / 32;             // k16 steps of a warpgroup's partial Q K^T
+  static constexpr int kKVBytes = CB * kXKVBlock;  // one K or V tile
+  static constexpr int kSmem = 1024 + CB * kXQBlock + 2 * kXStages * kKVBytes + 2 * 2 * kXSwapFloats * 4 +
+                               (1 + 4 * kXStages) * 8;
+  static_assert(kSmem <= 232448, "wide-head flash: shared memory over the 227 KB a block may use");
+};
+
 // A block owns a 64-row Q tile of one batch*head and the key tiles
-// [t_begin, t_end) of its split (blockIdx.z).  Warpgroup 0 owns head-dim
-// columns 0-255 and warpgroup 1 columns 256-511, both for the partial
-// scores and for the output.  With one split the block writes the
-// normalised bf16 output; with several it writes its f32 accumulator and
-// its running max / sum for the combine kernel.
-template <bool kBias>
+// [t_begin, t_end) of its split (blockIdx.z).  Warpgroup w contracts the
+// partial scores over head-dim columns [w D / 2, (w + 1) D / 2) and owns
+// the output columns [w DP / 2, (w + 1) DP / 2).  With one split the block
+// writes the normalised bf16 output; with several it writes its f32
+// accumulator and its running max / sum for the combine kernel.
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kWThreads, 1)
-flash_d512_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+flash_wide_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap, const float* __restrict__ bias,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ part_o,
                   float* __restrict__ part_ml, int lq, int lk, int tiles_per_split,
                   float scale_log2) {
-  constexpr int CB = kXD / 64;  // column blocks per row
+  using W = Wide<D>;
+  constexpr int CB = W::CB, CBL = W::CBL, kHalf = W::kHalf, kXKVBytes = W::kKVBytes;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t q_base = (raw + 1023) & ~1023u;  // swizzle atoms: 1 KB aligned
@@ -742,19 +775,19 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
     // own, so the next K tile streams in while this tile's P V runs
     setmaxnreg_dec<40>();
     if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, CB * kXQBlock);
-      for (int cb = 0; cb < CB; ++cb) tma_load_3d(q_base + cb * kXQBlock, &qmap, q_full, cb * 64, q0, bh);
+      mbar_expect_tx(q_full, CBL * kXQBlock);
+      for (int cb = 0; cb < CBL; ++cb) tma_load_3d(q_base + cb * kXQBlock, &qmap, q_full, cb * 64, q0, bh);
       for (int i = 0; i < count; ++i) {
         const int s = i % kXStages;
         const uint32_t free_par = ((i / kXStages) & 1) ^ 1;
         const int key0 = (t_begin + i) * kXK;
         mbar_wait(k_empty(s), free_par);
-        mbar_expect_tx(k_full(s), kXKVBytes);
-        for (int cb = 0; cb < CB; ++cb)
+        mbar_expect_tx(k_full(s), CBL * kXKVBlock);
+        for (int cb = 0; cb < CBL; ++cb)
           tma_load_3d(k_base + s * kXKVBytes + cb * kXKVBlock, &kmap, k_full(s), cb * 64, key0, bh);
         mbar_wait(v_empty(s), free_par);
-        mbar_expect_tx(v_full(s), kXKVBytes);
-        for (int cb = 0; cb < CB; ++cb)
+        mbar_expect_tx(v_full(s), CBL * kXKVBlock);
+        for (int cb = 0; cb < CBL; ++cb)
           tma_load_3d(v_base + s * kXKVBytes + cb * kXKVBlock, &vmap, v_full(s), cb * 64, key0, bh);
       }
     }
@@ -765,10 +798,10 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
     const int wtid = threadIdx.x & 127;
     const int row_w = warp * 16 + g;  // this thread's rows in the tile: row_w, row_w + 8
 
-    // acc[4j + e]: row row_w (+8 for e >= 2), column wg * 256 + 8j + 2tq (+1 for odd e)
-    float acc[kXHalf / 2];
+    // acc[4j + e]: row row_w (+8 for e >= 2), column wg * kHalf + 8j + 2tq (+1 for odd e)
+    float acc[kHalf / 2];
 #pragma unroll
-    for (int i = 0; i < kXHalf / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kHalf / 2; ++i) acc[i] = 0.f;
     float m_run[2] = {kNegBig, kNegBig};
     float l_run[2] = {0.f, 0.f};
     mbar_wait(q_full, 0);
@@ -778,15 +811,18 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
       const uint32_t par = (i / kXStages) & 1;
       const int kt = (t_begin + i) * kXK;
 
-      // this warpgroup's half of S = Q K^T: 64 rows x 32 keys over its 256
-      // head-dim columns, as sc[4j + e] like acc
+      // this warpgroup's half of S = Q K^T: 64 rows x 32 keys over its D / 2
+      // head-dim columns (a k16 step is 32 bytes of a 128-byte swizzle row,
+      // so a half may start inside a column block: D 320's second at 160),
+      // as sc[4j + e] like acc
       float sc[kXK / 2];
       mbar_wait(k_full(s), par);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kXHalf / 16; ++kk) {
-        const int cb = wg * (kXHalf / 64) + kk / 4;
-        const uint32_t off = (kk % 4) * 32;
+      for (int kk = 0; kk < W::kKS; ++kk) {
+        const int col = wg * (D / 2) + 16 * kk;
+        const int cb = col / 64;
+        const uint32_t off = (col % 64) / 16 * 32;
         wgmma_m64n32k16_bf16_ss(sc, smem_desc_sw128(q_base + cb * kXQBlock + off, 16, 1024),
                                 smem_desc_sw128(k_base + s * kXKVBytes + cb * kXKVBlock + off, 16, 1024),
                                 kk > 0);
@@ -863,18 +899,25 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
         l_run[h] = l_run[h] * alpha[h] + rsum[h];
       }
 #pragma unroll
-      for (int r = 0; r < kXHalf / 2; ++r) acc[r] *= alpha[(r >> 1) & 1];
+      for (int r = 0; r < kHalf / 2; ++r) acc[r] *= alpha[(r >> 1) & 1];
 
-      // O += P V over this warpgroup's 256 columns: B = the V tile's four
-      // column blocks, read MN-major (head dim contiguous), `lbo` apart
+      // O += P V over this warpgroup's kHalf columns: B = the V tile's
+      // kHalf / 64 column blocks, read MN-major (head dim contiguous), `lbo`
+      // apart.  At D 320 the last block (columns 320-383) is never loaded:
+      // whatever it holds reaches only accumulator columns that are never
+      // stored, since a column of P V reads only that column of V.
       mbar_wait(v_full(s), par);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < kXK / 16; ++kc) {
         const uint64_t dv = smem_desc_sw128(
-            v_base + s * kXKVBytes + wg * (kXHalf / 64) * kXKVBlock + kc * 16 * kColBytes, kXKVBlock, 1024);
-        wgmma_m64n256k16_bf16_rs<1>(acc, pa[kc], dv, 1);
+            v_base + s * kXKVBytes + wg * (kHalf / 64) * kXKVBlock + kc * 16 * kColBytes, kXKVBlock, 1024);
+        if constexpr (kHalf == 256) {
+          wgmma_m64n256k16_bf16_rs<1>(acc, pa[kc], dv, 1);
+        } else {
+          wgmma_m64n192k16_bf16_rs<1>(acc, pa[kc], dv, 1);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -883,24 +926,27 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
     }
 
     const size_t bh_rows = static_cast<size_t>(bh) * lq;
-    const int col0 = wg * kXHalf + 2 * tq;
+    const int col0 = wg * kHalf + 2 * tq;
+    const int jn = min(kHalf, D - wg * kHalf) / 8;  // this warpgroup's stored column groups
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int qrow = q0 + row_w + 8 * h;
       if (qrow >= lq) continue;
       if (part_o == nullptr) {
         const float inv = 1.f / l_run[h];
-        __nv_bfloat16* orow = o + (bh_rows + qrow) * kXD;
+        __nv_bfloat16* orow = o + (bh_rows + qrow) * D;
 #pragma unroll
-        for (int j = 0; j < kXHalf / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(orow + col0 + j * 8) =
+        for (int j = 0; j < kHalf / 8; ++j)
+          if (j < jn)
+            *reinterpret_cast<__nv_bfloat162*>(orow + col0 + j * 8) =
               __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
       } else {
         const size_t prow = static_cast<size_t>(blockIdx.z) * gridDim.y * lq + bh_rows + qrow;
-        float* orow = part_o + prow * kXD;
+        float* orow = part_o + prow * D;
 #pragma unroll
-        for (int j = 0; j < kXHalf / 8; ++j)
-          *reinterpret_cast<float2*>(orow + col0 + j * 8) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        for (int j = 0; j < kHalf / 8; ++j)
+          if (j < jn)
+            *reinterpret_cast<float2*>(orow + col0 + j * 8) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
         if (wg == 0 && tq == 0) {
           part_ml[2 * prow] = m_run[h];
           part_ml[2 * prow + 1] = l_run[h];
@@ -1008,6 +1054,12 @@ template <>
 struct F32Cfg<160> {
   static constexpr int RG = 8, DS = 1, BK = 16;
   static constexpr bool kPresplit = true;
+};
+// SDXS-0.9's one head of 320: a quarter of the head dim a warp, as at 512
+template <>
+struct F32Cfg<320> {
+  static constexpr int RG = 2, DS = 4, BK = 16;
+  static constexpr bool kPresplit = false;
 };
 template <>
 struct F32Cfg<512> {
@@ -1358,30 +1410,37 @@ cudaError_t bf16_maps(CUtensorMap (&maps)[3], const void* q, const void* k, cons
   return cudaSuccess;
 }
 
-template <bool kBias>
-cudaError_t launch_d512(const void* q, const void* k, const void* v, const float* bias, void* o,
+template <int D, bool kBias>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const float* bias, void* o,
                         void* workspace, int bh, int lq, int lk, float scale_log2,
                         cudaStream_t stream) {
   const int splits = key_splits(bh, lq, lk, kXQ, kXK);
   if (splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
   CUtensorMap maps[3];
-  cudaError_t err = bf16_maps<kXD>(maps, q, k, v, bh, lq, lk, kXQ, kXK);
+  cudaError_t err = bf16_maps<D>(maps, q, k, v, bh, lq, lk, kXQ, kXK);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_d512_kernel<kBias>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kXSmem);
+  auto kernel = flash_wide_kernel<D, kBias>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Wide<D>::kSmem);
   if (err != cudaSuccess) return err;
   const int ntiles = ceil_div(lk, kXK);
   float* part_o = splits > 1 ? static_cast<float*>(workspace) : nullptr;
-  float* part_ml = splits > 1 ? part_o + static_cast<size_t>(splits) * bh * lq * kXD : nullptr;
+  float* part_ml = splits > 1 ? part_o + static_cast<size_t>(splits) * bh * lq * D : nullptr;
   dim3 grid(ceil_div(lq, kXQ), bh, splits);
-  kernel<<<grid, kWThreads, kXSmem, stream>>>(maps[0], maps[1], maps[2], bias,
-                                              static_cast<__nv_bfloat16*>(o), part_o, part_ml, lq,
-                                              lk, ceil_div(ntiles, splits), scale_log2);
+  kernel<<<grid, kWThreads, Wide<D>::kSmem, stream>>>(maps[0], maps[1], maps[2], bias,
+                                                      static_cast<__nv_bfloat16*>(o), part_o, part_ml, lq,
+                                                      lk, ceil_div(ntiles, splits), scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  flash_combine_kernel<__nv_bfloat16, kXD><<<bh * lq, kXD / 4, 0, stream>>>(
+  flash_combine_kernel<__nv_bfloat16, D><<<bh * lq, D / 4, 0, stream>>>(
       part_o, part_ml, static_cast<__nv_bfloat16*>(o), bh * lq, splits);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_wide_bias(const void* q, const void* k, const void* v, const float* bias, void* o,
+                             void* workspace, int bh, int lq, int lk, float scale_log2, cudaStream_t s) {
+  if (bias != nullptr) return launch_wide<D, true>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
+  return launch_wide<D, false>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
 }
 
 // One launch of a bf16 D 40-160 kernel: a block per `q_rows` query rows of
@@ -1441,7 +1500,7 @@ cudaError_t launch_bf16_wgmma(const void* q, const void* k, const void* v, const
 template <int D>
 int f32_splits(int bh, int lq, int lk) {
   using L = F32Smem<D, false>;  // BQ and BK do not depend on the bias
-  if (D == kXD) return key_splits(bh, lq, lk, L::BQ, L::BK);
+  if (D == 320 || D == kXD) return key_splits(bh, lq, lk, L::BQ, L::BK);
   if (D == 160 && static_cast<long long>(ceil_div(lq, L::BQ)) * bh < sm_count())
     return key_splits(bh, lq, lk, L::BQ, L::BK);
   return 1;
@@ -1484,12 +1543,13 @@ cudaError_t launch_f32_bias(const void* q, const void* k, const void* v, const f
 }  // namespace sdtpu
 
 // The key splits a call runs (1 where the keys are not split): bf16 at D
-// 512, f32 at D 160 and 512 (f32_splits).
+// 320 and 512, f32 at D 160, 320 and 512 (f32_splits).
 extern "C" long long sdtpu_flash_splits(int dtype, int bh, int lq, int lk, int d) {
   using namespace sdtpu;
   if (bh <= 0 || lq <= 0 || lk <= 0) return 1;
-  if (dtype == kBF16 && d == kXD) return key_splits(bh, lq, lk, kXQ, kXK);
+  if (dtype == kBF16 && (d == 320 || d == kXD)) return key_splits(bh, lq, lk, kXQ, kXK);
   if (dtype == kF32 && d == 160) return f32_splits<160>(bh, lq, lk);
+  if (dtype == kF32 && d == 320) return f32_splits<320>(bh, lq, lk);
   if (dtype == kF32 && d == kXD) return f32_splits<kXD>(bh, lq, lk);
   return 1;
 }
@@ -1520,9 +1580,8 @@ extern "C" int sdtpu_flash_attention(int dtype, const void* q, const void* k,
       case 80: return launch_bf16_wgmma<80>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
       case 128: return launch_bf16_wgmma<128>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
       case 160: return launch_bf16_wgmma<160>(q, k, v, bias, o, bh, lq, lk, scale_log2, s);
-      case 512:
-        if (bias != nullptr) return launch_d512<true>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
-        return launch_d512<false>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
+      case 320: return launch_wide_bias<320>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
+      case 512: return launch_wide_bias<512>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
     }
   } else if (dtype == kF32) {
     switch (d) {
@@ -1531,6 +1590,7 @@ extern "C" int sdtpu_flash_attention(int dtype, const void* q, const void* k,
       case 80: return launch_f32_bias<80>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
       case 128: return launch_f32_bias<128>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
       case 160: return launch_f32_bias<160>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
+      case 320: return launch_f32_bias<320>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
       case 512: return launch_f32_bias<512>(q, k, v, bias, o, workspace, bh, lq, lk, scale_log2, s);
     }
   }

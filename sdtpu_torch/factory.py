@@ -1,7 +1,8 @@
 """Pipeline construction (counterpart of ``sdtpu/factory.py``:
 ``create_pipeline`` with ``v_prediction``, ``unet_config_for`` and its
 UNet branch for SD1.x, SD2.x and SDXL with their inpainting and
-instruct-pix2pix stems, ``_create_sd3_pipeline``, the WAN2 branch of
+instruct-pix2pix stems, the tiny UNets and SDXS, and its ``controlnet_fn``,
+``_create_sd3_pipeline``, the WAN2 branch of
 ``_create_wan_pipeline``, ``_create_z_image_pipeline``,
 ``_create_flux_pipeline`` and ``_detect_t5_config``).
 
@@ -50,6 +51,7 @@ from sdtpu_torch.diffusion.denoiser import (CompVisDenoiser, CompVisVDenoiser, D
                                             FluxFlowDenoiser)
 from sdtpu_torch.io.model_loader import PORTED_VERSIONS, UNET_VERSIONS
 from sdtpu_torch.models import clip as clip_mod
+from sdtpu_torch.models import controlnet as controlnet_mod
 from sdtpu_torch.models import flux as flux_mod
 from sdtpu_torch.models import llm as llm_mod
 from sdtpu_torch.models import mmdit as mmdit_mod
@@ -90,8 +92,9 @@ def flux_configs(small: bool):
 
 def unet_config_for(version: SDVersion, small: bool = False) -> unet_mod.UNetConfig:
     """The JAX factory's ``unet_config_for`` for the ported UNet versions:
-    SD1.x, SD2.x and SDXL, their inpainting stems (9 input channels) and
-    the instruct-pix2pix ones (8).  The small config is the small SD1 UNet
+    SD1.x, SD2.x and SDXL, their inpainting stems (9 input channels), the
+    instruct-pix2pix ones (8), and the tiny distills (SD1 / SD2 tiny,
+    SDXS-512-DS, SDXS-0.9 with its one 320-wide head).  The small config is the small SD1 UNet
     (SDXL's with a 96-wide context and a 48 + 6·256 vector) with the
     version's stem."""
     if small:
@@ -110,9 +113,17 @@ def unet_config_for(version: SDVersion, small: bool = False) -> unet_mod.UNetCon
             return dataclasses.replace(unet_mod.SDXL_UNET_CONFIG, in_channels=8)
         return (unet_mod.SDXL_INPAINT_UNET_CONFIG if sd_version_is_inpaint(version)
                 else unet_mod.SDXL_UNET_CONFIG)
+    if version == SDVersion.SD2_TINY_UNET:
+        return unet_mod.SD2_TINY_UNET_CONFIG
+    if version == SDVersion.SDXS_09:
+        return unet_mod.SDXS_09_UNET_CONFIG
     if sd_version_is_sd2(version):
         return (unet_mod.SD2_INPAINT_UNET_CONFIG if sd_version_is_inpaint(version)
                 else unet_mod.SD2_UNET_CONFIG)
+    if version == SDVersion.SD1_TINY_UNET:
+        return unet_mod.SD1_TINY_UNET_CONFIG
+    if version == SDVersion.SDXS_512_DS:
+        return unet_mod.SDXS_512_UNET_CONFIG
     if sd_version_is_unet_edit(version):
         return dataclasses.replace(unet_mod.SD1_UNET_CONFIG, in_channels=8)
     return (unet_mod.SD1_INPAINT_UNET_CONFIG if sd_version_is_inpaint(version)
@@ -446,8 +457,11 @@ def _create_unet_pipeline(version: SDVersion, params: dict, rng_type: str, dtype
                           small: bool, seed: int, v_prediction: bool, device) -> DiffusionPipeline:
     """SD1.x and SD2.x (one text encoder: CLIP-L, or OpenCLIP-H at full width
     on SD2) or SDXL (CLIP-L and CLIP-G, the vector ``y``), with the
-    version's stem (``unet_config_for``); the CompVis denoiser, in its
-    v-prediction form with ``v_prediction``."""
+    version's stem and layout (``unet_config_for``); the CompVis denoiser,
+    in its v-prediction form with ``v_prediction``.  ``controlnet_fn`` runs
+    a ControlNet of the UNet's config (``set_controlnet``; params'
+    'controlnet' attaches one at once, as the JAX factory does); the tiny
+    versions have no middle block to copy, and none."""
     if sd_version_is_sdxl(version):
         unet_cfg, clip_l_cfg, clip_g_cfg, vae_cfg = sdxl_configs(small, version)
     else:
@@ -466,16 +480,24 @@ def _create_unet_pipeline(version: SDVersion, params: dict, rng_type: str, dtype
         conditioner = SD1Conditioner(CLIPTokenizer(), mods["clip_l"], clip_l_cfg,
                                      is_sd2=sd_version_is_sd2(version), device=device)
 
-    def diffusion_fn(p, x, t, ctx, y, guidance=None):
-        return unet_mod.unet_forward(p, x, t, ctx, y=y, cfg=unet_cfg)
+    def diffusion_fn(p, x, t, ctx, y, guidance=None, controls=None, control_strength=1.0):
+        return unet_mod.unet_forward(p, x, t, ctx, y=y, cfg=unet_cfg, controls=controls,
+                                     control_strength=control_strength)
+
+    def controlnet_fn(p, x, hint, t, ctx, y):
+        return controlnet_mod.controlnet_forward(p, x, hint, t, ctx, y=y, cfg=unet_cfg)
 
     vae_decode_fn, vae_encode_fn = _vae_fns(vae_cfg)
-    return DiffusionPipeline(
+    pipe = DiffusionPipeline(
         version=version, diffusion_params=mods["diffusion"], diffusion_fn=diffusion_fn,
         conditioner=conditioner, vae_params=mods["vae"], vae_decode_fn=vae_decode_fn,
         vae_encode_fn=vae_encode_fn,
         denoiser=CompVisVDenoiser() if v_prediction else CompVisDenoiser(), rng_type=rng_type,
-        latent_channels=vae_cfg.z_channels, compute_dtype=dtype, device=device)
+        latent_channels=vae_cfg.z_channels, compute_dtype=dtype, device=device,
+        controlnet_fn=None if unet_config_for(version).tiny_unet else controlnet_fn)
+    if params.get("controlnet") is not None:
+        pipe.set_controlnet(params["controlnet"])
+    return pipe
 
 
 def _vae_fns(vae_cfg: vae_mod.VAEConfig):

@@ -1,17 +1,23 @@
-"""FLUX, SD1.x, SD2.x, SDXL, SD3 and Wan2.1 T2V checkpoint files → per-module
-param dicts (this package's copy of the FLUX, SD1, SD2, SDXL, SD3 and Wan
-parts of ``sdtpu.io.model_loader``:
+"""FLUX, SD1.x, SD2.x, SDXL (and their tiny distills), SD3, Wan2.1 T2V,
+Z-Image and Qwen-Image checkpoint files → per-module param dicts (this
+package's copy of those families' parts of ``sdtpu.io.model_loader``:
 ``load_model_bundle``, ``split_modules``, ``_split_in_proj``,
-``read_checkpoint_file``, with the parts of ``sdtpu/io/detect.py`` and
-``sdtpu/io/name_conversion.py`` they use).
+``read_checkpoint_file``, ``maybe_convert_diffusers_wan_vae``,
+``_resolve_upsample_markers``, ``load_controlnet``, with the parts of
+``sdtpu/io/detect.py`` they use; the name rules live in
+``io.name_conversion``).
 
 Read N GGUF, safetensors or torch ``.ckpt`` / ``.pt`` files (the last
 through ``io.torch_ckpt``'s restricted unpickler) under their per-file
 prefixes (a full
 checkpoint, the diffusion model, CLIP-L, T5-XXL, the VAE), convert
-diffusers FLUX names to the internal double/single-block names (split
-q/k/v merged back into the fused weights), canonicalize diffusers VAE
-names, map llama.cpp GGUF T5 names to HF ones, fingerprint the version and
+diffusers FLUX and SD3 names to the internal double/single-block and
+joint-block names (split q/k/v merged back into the fused weights),
+canonicalize diffusers UNet names (a diffusers folder's
+``UNet2DConditionModel``, its upsamplers placed after the block's
+attention where it has one) and diffusers VAE names, convert a diffusers
+Wan VAE (``AutoencoderKLWan``) to its original names, map llama.cpp GGUF
+T5 names to HF ones, fingerprint the version and
 split the names into the modules' own.  Only the diffusion file keeps its
 GGUF blocks for the device (``keep_quant``); a quantized text-encoder or
 VAE file's 2-D tensors come back as ``HostQuant`` too, but only so each is
@@ -33,7 +39,10 @@ kept, as the JAX loader leaves them.  A Wan2.1 DiT (``blocks.N.cross_attn``,
 ``patch_embedding``) comes as ``--diffusion-model``, its VAE as ``--vae``
 and UMT5-XXL as ``--t5xxl`` (HF or llama.cpp GGUF names, its per-layer
 relative bias included).  The UNet families' inpainting (a 9-channel
-stem) and instruct-pix2pix (8) variants load as SD1.x, SD2.x and SDXL do.
+stem) and instruct-pix2pix (8) variants load as SD1.x, SD2.x and SDXL do;
+the tiny UNets (no middle block: SD1 tiny, SDXS-512-DS, SD2 tiny and
+SDXS-0.9, told apart as the JAX fingerprint does) too.  ``load_controlnet``
+reads a ControlNet file under CompVis or diffusers names.
 A Z-Image DiT (``cap_embedder``, under its original or diffusers Lumina-2
 names) comes as ``--diffusion-model``, its FLUX VAE as ``--vae`` and its
 Qwen3 text encoder as ``--llm`` (``text_encoders.llm.``: HF names, or
@@ -47,21 +56,27 @@ q / k / v biases included); the LLM file's vision tower (``model.visual.``,
 port runs it), and refused for any other family.  Mage-Flow (``img_in`` 128 wide) and the layered Qwen-Image
 (``addition_t_embedding``) fingerprint as themselves and are refused.
 Any family but FLUX, those in ``UNET_VERSIONS``, SD3, Wan2.1 T2V, Z-Image
-and Qwen-Image raises ``NotImplementedError`` naming it (the tiny UNets, SDXS and
-SDXL's SSD-1B too, an SD3 transformer under diffusers names, Wan2.2 I2V and
-TI2V, a Wan VACE or I2V DiT, and a Wan DiT or VAE under diffusers names).
+and Qwen-Image raises ``NotImplementedError`` naming it (SDXL's SSD-1B
+too, which the JAX package fingerprints but cannot run, Wan2.2 I2V and
+TI2V, a Wan VACE or I2V DiT, a Wan DiT under diffusers names, and the
+diffusers DiTs of families the port does not run).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import re
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from sdtpu_torch.config import SDVersion
 from sdtpu_torch.io.gguf import load_gguf
+from sdtpu_torch.io.name_conversion import (  # noqa: F401 (convert_diffusers_vae_name: re-exported)
+    canonicalize_name, convert_diffusers_controlnet_name, convert_diffusers_flux_name,
+    convert_diffusers_lumina2_name, convert_diffusers_sd3_name, convert_diffusers_vae_name,
+    convert_diffusers_wan_vae_name, convert_gguf_llm_name, convert_gguf_t5_name, convert_open_clip_name)
 from sdtpu_torch.io.safetensors import load_safetensors
 from sdtpu_torch.io.torch_ckpt import load_torch_checkpoint
 
@@ -117,142 +132,91 @@ def _merge_fused_markers(tensors: Dict[str, np.ndarray]) -> Dict[str, np.ndarray
     return tensors
 
 
-def convert_diffusers_flux_name(name: str) -> Optional[str]:
-    """diffusers FluxTransformer2DModel → internal double/single_blocks layout."""
-    fixed = {
-        "time_embed.timestep_embedder.linear_1": "time_in.in_layer",
-        "time_embed.timestep_embedder.linear_2": "time_in.out_layer",
-        "time_text_embed.timestep_embedder.linear_1": "time_in.in_layer",
-        "time_text_embed.timestep_embedder.linear_2": "time_in.out_layer",
-        "time_text_embed.text_embedder.linear_1": "vector_in.in_layer",
-        "time_text_embed.text_embedder.linear_2": "vector_in.out_layer",
-        "time_text_embed.guidance_embedder.linear_1": "guidance_in.in_layer",
-        "time_text_embed.guidance_embedder.linear_2": "guidance_in.out_layer",
-        "context_embedder": "txt_in",
-        "x_embedder": "img_in",
-        "proj_out": "final_layer.linear",
-        "norm_out.linear": "final_layer.adaLN_modulation.1",
-    }
-    for src, dst in fixed.items():
-        if name.startswith(src + "."):
-            return dst + name[len(src):]
-    m = re.match(r"transformer_blocks\.(\d+)\.(.*)", name)
-    if m:
-        pre, rest = f"double_blocks.{m.group(1)}", m.group(2)
-        mm = re.match(r"attn\.(to_q|to_k|to_v|add_q_proj|add_k_proj|add_v_proj)\.(weight|bias)$", rest)
-        if mm:
-            which, suff = mm.group(1), mm.group(2)
-            side = "img_attn" if which.startswith("to_") else "txt_attn"
-            part = {"to_q": "", "to_k": ".1", "to_v": ".2",
-                    "add_q_proj": "", "add_k_proj": ".1", "add_v_proj": ".2"}[which]
-            return f"{pre}.{side}.qkv.{suff}{part}"
-        table = {
-            "norm1.linear": f"{pre}.img_mod.lin",
-            "norm1_context.linear": f"{pre}.txt_mod.lin",
-            "ff.net.0.proj": f"{pre}.img_mlp.0",
-            "ff.net.2": f"{pre}.img_mlp.2",
-            "ff_context.net.0.proj": f"{pre}.txt_mlp.0",
-            "ff_context.net.2": f"{pre}.txt_mlp.2",
-            "attn.to_out.0": f"{pre}.img_attn.proj",
-            "attn.to_add_out": f"{pre}.txt_attn.proj",
-        }
-        for src, dst in table.items():
-            if rest.startswith(src + "."):
-                return dst + rest[len(src):]
-        exact = {
-            "attn.norm_q.weight": f"{pre}.img_attn.norm.query_norm.scale",
-            "attn.norm_k.weight": f"{pre}.img_attn.norm.key_norm.scale",
-            "attn.norm_added_q.weight": f"{pre}.txt_attn.norm.query_norm.scale",
-            "attn.norm_added_k.weight": f"{pre}.txt_attn.norm.key_norm.scale",
-        }
-        return exact.get(rest)
-    m = re.match(r"single_transformer_blocks\.(\d+)\.(.*)", name)
-    if m:
-        pre, rest = f"single_blocks.{m.group(1)}", m.group(2)
-        mm = re.match(r"(attn\.to_q|attn\.to_k|attn\.to_v|proj_mlp)\.(weight|bias)$", rest)
-        if mm:
-            part = {"attn.to_q": "", "attn.to_k": ".1",
-                    "attn.to_v": ".2", "proj_mlp": ".3"}[mm.group(1)]
-            return f"{pre}.linear1.{mm.group(2)}{part}"
-        table = {
-            "norm.linear": f"{pre}.modulation.lin",
-            "proj_out": f"{pre}.linear2",
-        }
-        for src, dst in table.items():
-            if rest.startswith(src + "."):
-                return dst + rest[len(src):]
-        exact = {
-            "attn.norm_q.weight": f"{pre}.norm.query_norm.scale",
-            "attn.norm_k.weight": f"{pre}.norm.key_norm.scale",
-        }
-        return exact.get(rest)
-    # Comfy-Org re-exports: RMSNorm tensors already in internal names but
-    # stored as *.weight instead of *.scale
-    m = re.match(r"((?:double_blocks|single_blocks)\.\d+\..*norm)\.weight$", name)
-    if m and ("query_norm" in name or "key_norm" in name):
-        return m.group(1) + ".scale"
-    return None
-
-
-def convert_diffusers_lumina2_name(name: str) -> str:
-    """Lumina-2 / Z-Image diffusers names → internal ones (split q/k/v under
-    merge markers); a name no rule matches comes back as it is."""
-    for src, dst in (("all_x_embedder.2-1.", "x_embedder."),
-                     ("all_final_layer.2-1.", "final_layer.")):
-        if name.startswith(src):
-            name = dst + name[len(src):]
-    m = re.match(r"((?:noise_refiner|context_refiner|layers)\.\d+\.)(.*)", name)
-    if not m:
-        return name
-    pre, rest = m.group(1), m.group(2)
-    mm = re.match(r"attention\.to_([qkv])\.(weight|bias)$", rest)
-    if mm:
-        part = {"q": "", "k": ".1", "v": ".2"}[mm.group(1)]
-        return f"{pre}attention.qkv.{mm.group(2)}{part}"
-    for src, dst in (("attention.norm_q.", "attention.q_norm."),
-                     ("attention.norm_k.", "attention.k_norm."),
-                     ("attention.to_out.0.", "attention.out.")):
-        if rest.startswith(src):
-            return pre + dst + rest[len(src):]
-    return name
-
-
 def convert_diffusers_diffusion_names(tensors: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """A diffusers-format FLUX or Lumina-2 / Z-Image DiT → internal names
-    (Z-Image's own names pass through the Lumina-2 rules unchanged); other
-    diffusers DiT families raise, internal names pass through."""
+    """A diffusers-format FLUX, SD3 or Lumina-2 / Z-Image DiT → internal
+    names (Z-Image's own names pass through the Lumina-2 rules unchanged),
+    dispatched as the JAX loader does; a diffusers Wan transformer and the
+    diffusers DiTs of families the port does not run raise, internal names
+    (and a diffusers UNet's, which ``canonicalize_name`` maps) pass
+    through."""
     def has_prefix(p):
         return any(k.startswith(p) for k in tensors)
 
     if has_prefix("condition_embedder."):
         raise NotImplementedError("a diffusers Wan transformer (WanTransformer3DModel names): the "
                                   "port loads Wan under its original names (blocks.N.self_attn)")
-    if has_prefix("pos_embed.proj.") and not has_prefix("single_transformer_blocks."):
-        raise NotImplementedError("a diffusers SD3 transformer (SD3Transformer2DModel names): "
-                                  "the port loads SD3 under its single-file names (joint_blocks)")
     if (any("img_attn_qkv" in k or "img_mod.linear." in k for k in tensors)
-            or has_prefix("pos_embed.proj.") or has_prefix("time_mod_proj.")
-            or has_prefix("text_fusion.")):
-        raise NotImplementedError("a diffusers DiT other than FLUX and Z-Image: the port loads "
-                                  "FLUX and Z-Image")
-    if has_prefix("all_x_embedder.2-1.") or has_prefix("noise_refiner."):
-        return _merge_fused_markers({convert_diffusers_lumina2_name(k): v
-                                     for k, v in tensors.items()})
-    if not (has_prefix("single_transformer_blocks.")
-            or (has_prefix("transformer_blocks.") and has_prefix("context_embedder."))):
+            or has_prefix("time_mod_proj.") or has_prefix("text_fusion.")):
+        raise NotImplementedError("a diffusers DiT other than FLUX, SD3 and Z-Image: the port "
+                                  "loads those three under diffusers names")
+    conv = None
+    if has_prefix("single_transformer_blocks."):
+        conv = convert_diffusers_flux_name
+    elif has_prefix("pos_embed.proj."):
+        conv = convert_diffusers_sd3_name
+    elif has_prefix("transformer_blocks.") and has_prefix("context_embedder."):
+        conv = convert_diffusers_flux_name
+    elif has_prefix("all_x_embedder.2-1.") or has_prefix("noise_refiner."):
+        conv = convert_diffusers_lumina2_name
+    if conv is None:
         return tensors
     out: Dict[str, np.ndarray] = {}
     for k, v in tensors.items():
-        nk = convert_diffusers_flux_name(k)
+        nk = conv(k)
         out[nk if nk is not None else k] = v
     return _merge_fused_markers(out)
 
 
+def maybe_convert_diffusers_wan_vae(tensors: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A diffusers AutoencoderKLWan (flat ``encoder.down_blocks.0..10``) →
+    the Wan VAE's original names; any other VAE passes through.  The
+    layout is told by the encoder's down blocks holding no ``resnets`` (an
+    SD VAE's do).  The JAX loader looks for ``resnets`` anywhere in the
+    encoder, which also finds the Wan encoder's own middle block
+    (``encoder.mid_block.resnets.N``), so it never converts such a file."""
+    if any(k.startswith("encoder.down_blocks.4.") for k in tensors) and not any(
+            k.startswith("encoder.down_blocks.") and ".resnets." in k for k in tensors):
+        return {convert_diffusers_wan_vae_name(k): v for k, v in tensors.items()}
+    return tensors
+
+
+def _resolve_upsample_markers(diffusion: Dict[str, np.ndarray]) -> None:
+    """diffusers UNet upsamplers land at ``.__up__.``; the CompVis sub-index
+    is 1 where the output block has no attention, else 2."""
+    for name in [n for n in diffusion if ".__up__." in n]:
+        arr = diffusion.pop(name)
+        blk = name.split(".__up__.")[0]  # e.g. output_blocks.2
+        has_attn = any(k.startswith(blk + ".1.transformer_blocks") for k in diffusion)
+        diffusion[name.replace(".__up__.", f".{2 if has_attn else 1}.")] = arr
+
+
+def load_controlnet(path: str) -> Dict[str, np.ndarray]:
+    """A ControlNet file (CompVis ``control_model.*`` names, their bare
+    form, or diffusers ControlNetModel names) → the module-local dict
+    ``models.controlnet`` reads, as the JAX ``load_controlnet`` builds it.
+    A tensor no rule maps is dropped with a warning, as there."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in read_checkpoint_file(path).items():
+        if k.startswith("control_model."):
+            out[k[len("control_model."):]] = v
+        elif k.startswith(("input_blocks.", "zero_convs.", "middle_block", "input_hint_block.",
+                           "time_embed.", "label_emb.")):
+            out[k] = v
+        else:
+            cv = convert_diffusers_controlnet_name(k)
+            if cv is not None:
+                out[cv] = v
+            else:
+                warnings.warn(f"controlnet: unmapped tensor {k}")
+    return out
+
+
 # the UNet versions the port runs: SD1.x, SD2.x and SDXL, their inpainting
-# and instruct-pix2pix stems
+# and instruct-pix2pix stems, and the tiny distills (SD1 / SD2 tiny, SDXS)
 UNET_VERSIONS = (SDVersion.SD1, SDVersion.SD1_INPAINT, SDVersion.SD1_PIX2PIX, SDVersion.SD2,
                  SDVersion.SD2_INPAINT, SDVersion.SDXL, SDVersion.SDXL_INPAINT,
-                 SDVersion.SDXL_PIX2PIX)
+                 SDVersion.SDXL_PIX2PIX, SDVersion.SD1_TINY_UNET, SDVersion.SDXS_512_DS,
+                 SDVersion.SD2_TINY_UNET, SDVersion.SDXS_09)
 # the families the port runs (``load_model_bundle`` and ``create_pipeline``
 # refuse every other by name)
 PORTED_VERSIONS = (SDVersion.FLUX, *UNET_VERSIONS, SDVersion.SD3, SDVersion.WAN2,
@@ -262,6 +226,8 @@ FAMILY_NAMES = {SDVersion.FLUX: "FLUX.1", SDVersion.SD1: "SD1.x", SDVersion.SD1_
                 SDVersion.SD1_PIX2PIX: "SD1.x", SDVersion.SD2: "SD2.x",
                 SDVersion.SD2_INPAINT: "SD2.x", SDVersion.SDXL: "SDXL",
                 SDVersion.SDXL_INPAINT: "SDXL", SDVersion.SDXL_PIX2PIX: "SDXL",
+                SDVersion.SD1_TINY_UNET: "SD1.x", SDVersion.SDXS_512_DS: "SD1.x",
+                SDVersion.SD2_TINY_UNET: "SD2.x", SDVersion.SDXS_09: "SD2.x",
                 SDVersion.SD3: "SD3", SDVersion.WAN2: "Wan2.1", SDVersion.Z_IMAGE: "Z-Image",
                 SDVersion.QWEN_IMAGE: "Qwen-Image"}
 
@@ -397,176 +363,7 @@ def detect_version(names, shapes: Dict[str, Tuple[int, ...]]) -> SDVersion:
     return SDVersion.FLUX
 
 
-# ------------------------------------------------------------ name canon
-
-def convert_diffusers_vae_name(name: str, num_levels: int = 4) -> Optional[str]:
-    """diffusers AutoencoderKL names → CompVis ``first_stage_model`` names."""
-    vae_res = {
-        "norm1": "norm1", "conv1": "conv1", "norm2": "norm2", "conv2": "conv2",
-        "conv_shortcut": "nin_shortcut",
-    }
-
-    def res_inner(rest):
-        for k, v in vae_res.items():
-            if rest.startswith(k + "."):
-                return v + rest[len(k):]
-        return rest
-
-    attn_map = {
-        "group_norm": "norm", "to_q": "q", "to_k": "k", "to_v": "v", "to_out.0": "proj_out",
-        # older diffusers naming
-        "query": "q", "key": "k", "value": "v", "proj_attn": "proj_out",
-    }
-
-    def attn_inner(rest):
-        for k, v in sorted(attn_map.items(), key=lambda kv: -len(kv[0])):
-            if rest.startswith(k + "."):
-                return v + rest[len(k):]
-        return rest
-
-    for enc in ("encoder", "decoder"):
-        if not name.startswith(enc + "."):
-            continue
-        sub = name[len(enc) + 1:]
-        if sub.startswith("conv_in.") or sub.startswith("conv_out."):
-            return f"{enc}.{sub}"
-        if sub.startswith("conv_norm_out."):
-            return f"{enc}.norm_out.{sub[len('conv_norm_out.'):]}"
-        m = re.match(r"mid_block\.resnets\.(\d)\.(.*)", sub)
-        if m:
-            return f"{enc}.mid.block_{int(m.group(1)) + 1}.{res_inner(m.group(2))}"
-        m = re.match(r"mid_block\.attentions\.0\.(.*)", sub)
-        if m:
-            return f"{enc}.mid.attn_1.{attn_inner(m.group(1))}"
-        m = re.match(r"down_blocks\.(\d+)\.resnets\.(\d+)\.(.*)", sub)
-        if m:
-            return f"encoder.down.{m.group(1)}.block.{m.group(2)}.{res_inner(m.group(3))}"
-        m = re.match(r"down_blocks\.(\d+)\.downsamplers\.0\.conv\.(.*)", sub)
-        if m:
-            return f"encoder.down.{m.group(1)}.downsample.conv.{m.group(2)}"
-        m = re.match(r"up_blocks\.(\d+)\.resnets\.(\d+)\.(.*)", sub)
-        if m:
-            i = num_levels - 1 - int(m.group(1))
-            return f"decoder.up.{i}.block.{m.group(2)}.{res_inner(m.group(3))}"
-        m = re.match(r"up_blocks\.(\d+)\.upsamplers\.0\.conv\.(.*)", sub)
-        if m:
-            i = num_levels - 1 - int(m.group(1))
-            return f"decoder.up.{i}.upsample.conv.{m.group(2)}"
-        return None
-    if name.startswith("quant_conv.") or name.startswith("post_quant_conv."):
-        return name
-    return None
-
-
-# the wrapper prefixes ``canonicalize_name`` leaves as they are
-_CANON_PREFIXES = ("model.diffusion_model.", "first_stage_model.", "cond_stage_model.transformer.",
-                   "cond_stage_model.model.", "conditioner.embedders.0.transformer.",
-                   "conditioner.embedders.1.model.")
-
-
-def canonicalize_name(name: str) -> str:
-    """A full checkpoint key → its internal name: known wrapper prefixes
-    pass through, diffusers VAE names go under ``first_stage_model.``.
-    (The JAX package also maps diffusers UNet names here; the port loads no
-    UNet, and such a name stays as it is, so the file is refused as not
-    FLUX.)"""
-    if name.startswith(_CANON_PREFIXES):
-        return name
-    cv = convert_diffusers_vae_name(name)
-    if cv is not None:
-        return "first_stage_model." + cv
-    return name
-
-
-def _replace_name_map(name: str, pairs) -> str:
-    """First-substring-occurrence replacement per pair, applied in order."""
-    for src, dst in pairs:
-        idx = name.find(src)
-        if idx >= 0:
-            name = name[:idx] + dst + name[idx + len(src):]
-    return name
-
-
-_GGUF_T5_MAP = (
-    ("enc.", "encoder."),
-    ("blk.", "block."),
-    ("output_norm.", "final_layer_norm."),
-    ("attn_q.", "layer.0.SelfAttention.q."),
-    ("attn_k.", "layer.0.SelfAttention.k."),
-    ("attn_v.", "layer.0.SelfAttention.v."),
-    ("attn_o.", "layer.0.SelfAttention.o."),
-    ("attn_norm.", "layer.0.layer_norm."),
-    ("ffn_norm.", "layer.1.layer_norm."),
-    ("ffn_up.", "layer.1.DenseReluDense.wi_1."),
-    ("ffn_down.", "layer.1.DenseReluDense.wo."),
-    ("ffn_gate.", "layer.1.DenseReluDense.wi_0."),
-    ("attn_rel_b.", "layer.0.SelfAttention.relative_attention_bias."),
-    ("token_embd.", "shared."),
-)
-
-
-def convert_gguf_t5_name(name: str) -> str:
-    """llama.cpp GGUF T5 names → HF T5EncoderModel names."""
-    return _replace_name_map(name, _GGUF_T5_MAP)
-
-
-# the Qwen2.5-VL and Qwen3 text towers' names (what llm.check_supported
-# refuses has none here)
-_GGUF_LLM_MAP = (
-    ("token_embd.", "model.embed_tokens."),
-    ("blk.", "model.layers."),
-    ("attn_q.", "self_attn.q_proj."),
-    ("attn_k.", "self_attn.k_proj."),
-    ("attn_v.", "self_attn.v_proj."),
-    ("attn_q_norm.", "self_attn.q_norm."),
-    ("attn_k_norm.", "self_attn.k_norm."),
-    ("attn_output.", "self_attn.o_proj."),
-    ("attn_norm.", "input_layernorm."),
-    ("ffn_down.", "mlp.down_proj."),
-    ("ffn_gate.", "mlp.gate_proj."),
-    ("ffn_up.", "mlp.up_proj."),
-    ("ffn_norm.", "post_attention_layernorm."),
-    ("output_norm.", "model.norm."),
-)
-
-
-def convert_gguf_llm_name(name: str) -> str:
-    """llama.cpp GGUF decoder-LLM names → HF names."""
-    return _replace_name_map(name, _GGUF_LLM_MAP)
-
-
 # ------------------------------------------------------------ bundle
-
-def convert_open_clip_name(name: str) -> Optional[str]:
-    """OpenCLIP text-tower names (SD2's ``cond_stage_model.model.*``, SDXL's
-    ``conditioner.embedders.1.model.*``) → HF CLIPText names; the fused ``in_proj`` comes back under an
-    ``__inproj__`` marker that ``_split_in_proj`` splits."""
-    if name.startswith("transformer."):
-        name = name[len("transformer."):]
-    if name == "token_embedding.weight":
-        return "text_model.embeddings.token_embedding.weight"
-    if name == "positional_embedding":
-        return "text_model.embeddings.position_embedding.weight"
-    if name.startswith("ln_final."):
-        return "text_model.final_layer_norm." + name[len("ln_final."):]
-    if name == "text_projection":
-        return "text_projection.weight"  # split_modules transposes it
-    m = re.match(r"resblocks\.(\d+)\.(.*)", name)
-    if m:
-        pre = f"text_model.encoder.layers.{m.group(1)}"
-        table = {
-            "ln_1.weight": f"{pre}.layer_norm1.weight", "ln_1.bias": f"{pre}.layer_norm1.bias",
-            "ln_2.weight": f"{pre}.layer_norm2.weight", "ln_2.bias": f"{pre}.layer_norm2.bias",
-            "mlp.c_fc.weight": f"{pre}.mlp.fc1.weight", "mlp.c_fc.bias": f"{pre}.mlp.fc1.bias",
-            "mlp.c_proj.weight": f"{pre}.mlp.fc2.weight", "mlp.c_proj.bias": f"{pre}.mlp.fc2.bias",
-            "attn.out_proj.weight": f"{pre}.self_attn.out_proj.weight",
-            "attn.out_proj.bias": f"{pre}.self_attn.out_proj.bias",
-            "attn.in_proj_weight": f"{pre}.self_attn.__inproj__.weight",
-            "attn.in_proj_bias": f"{pre}.self_attn.__inproj__.bias",
-        }
-        return table.get(m.group(2))
-    return None
-
 
 def _split_in_proj(params: Dict[str, np.ndarray]) -> None:
     """OpenCLIP's fused q/k/v (``__inproj__``) → separate q/k/v projections."""
@@ -621,6 +418,7 @@ def split_modules(tensors: Dict[str, np.ndarray]) -> ModelBundle:
             mods["extra"][name] = arr
     for tower in ("clip_l", "clip_g"):
         _split_in_proj(mods[tower])
+    _resolve_upsample_markers(mods["diffusion"])
     # OpenCLIP's projection is [width, proj], applied as x @ W (the JAX
     # loader transposes CLIP-G's, whichever file it came from; SD2's square
     # one stays as it is, unused by the 23-layer text tower)
@@ -654,10 +452,8 @@ def load_model_bundle(model_path: Optional[str] = None, diffusion_model_path: Op
         sub = read_checkpoint_file(path, keep_quant=keep_quant or not diffusion)
         if diffusion:
             sub = convert_diffusers_diffusion_names(sub)
-        elif path == vae_path and any(k.startswith("encoder.down_blocks.4.") for k in sub) and not any(
-                ".resnets." in k and k.startswith("encoder.") for k in sub):
-            raise NotImplementedError(f"{path}: a diffusers Wan VAE (AutoencoderKLWan names); the "
-                                      "port loads the Wan VAE under its original names")
+        elif path == vae_path:
+            sub = maybe_convert_diffusers_wan_vae(sub)
         for k, v in sub.items():
             kk = canonicalize_name(k)
             if not kk.startswith(prefix):

@@ -1,7 +1,7 @@
-"""SD1.x, SD2.x and SDXL UNets (counterpart of the SD1, SD2 and SDXL subset of
-``sdtpu/models/unet.py``), with the inpainting (9 input channels: the
-latent, the mask and the masked image's latent) and instruct-pix2pix (8:
-the latent and the edit image's latent) stems.
+"""SD1.x, SD2.x and SDXL UNets and their tiny distills (counterpart of
+``sdtpu/models/unet.py`` but its video variant), with the inpainting (9
+input channels: the latent, the mask and the masked image's latent) and
+instruct-pix2pix (8: the latent and the edit image's latent) stems.
 
 Params are a flat dict keyed by CompVis checkpoint names
 (``input_blocks.N.M.…``, ``middle_block.…``, ``output_blocks.…``,
@@ -9,7 +9,8 @@ Params are a flat dict keyed by CompVis checkpoint names
 linears run as cuDNN / ``torch.matmul`` calls, as the JAX package leaves
 them to XLA; attention goes through ``ops.attention`` (the flash kernel on
 the card: SD1.x's 8 heads over 320, 640 and 1280 channels, so D 40, 80 and
-160; SD2's and SDXL's 64-channel heads, so D 64).
+160; SD2's and SDXL's 64-channel heads, so D 64; SDXS-0.9's one head over
+320 channels, so D 320).
 
 Structure (CompVis openaimodel semantics):
   time_embed: Linear→SiLU→Linear on the sinusoidal timestep embedding
@@ -21,10 +22,13 @@ Structure (CompVis openaimodel semantics):
   out: GroupNorm→SiLU→conv
 SD2's and SDXL's transformers project in and out with linears on the tokens
 (``use_linear_in_transformer``) and take their head count from 64-channel
-heads (``num_head_channels``).  The tiny (no middle block) and video (SVD)
-variants are not ported yet, and the config has none of their fields: the
-loader and ``create_pipeline`` refuse those families by name.  ControlNet
-residuals, IP-Adapter and AnimateDiff are not ported.
+heads (``num_head_channels``).  The tiny UNets (SD1 / SD2 tiny, SDXS) run
+one resblock a level over three levels with no middle block, and keep the
+CompVis block numbering with holes.  ``unet_forward`` adds a ControlNet's
+residuals (``controls``) to the skips and the middle.  The video (SVD)
+variant is not ported, and the config has none of its fields: the loader
+and ``create_pipeline`` refuse that family by name.  IP-Adapter and
+AnimateDiff are not ported.
 """
 from __future__ import annotations
 
@@ -51,6 +55,12 @@ class UNetConfig:
     num_head_channels: Optional[int] = None
     use_linear_in_transformer: bool = False
     adm_in_channels: Optional[int] = None  # SDXL conditioning vector
+    # distilled tiny UNets (SD-Turbo tiny / SDXS): one resblock per level, 3
+    # levels, no middle block, and the CompVis block numbering kept with
+    # holes (input_blocks 1, 4, 7; upsamples at shifted output indices)
+    tiny_unet: bool = False
+    # SDXS-0.9: the 320-wide attention runs as 1 head x 320 instead of 5 x 64
+    sdxs09_wide_head: bool = False
 
 
 SD1_UNET_CONFIG = UNetConfig()
@@ -70,11 +80,22 @@ SDXL_UNET_CONFIG = UNetConfig(
     adm_in_channels=2816,
 )
 SDXL_INPAINT_UNET_CONFIG = dataclasses.replace(SDXL_UNET_CONFIG, in_channels=9)
+SD1_TINY_UNET_CONFIG = dataclasses.replace(
+    SD1_UNET_CONFIG, num_res_blocks=1, channel_mult=(1, 2, 4), transformer_depth=(1, 1, 1), tiny_unet=True,
+)
+SDXS_512_UNET_CONFIG = dataclasses.replace(SD1_TINY_UNET_CONFIG, attention_resolutions=(2, 4))
+SD2_TINY_UNET_CONFIG = dataclasses.replace(
+    SD2_UNET_CONFIG, num_res_blocks=1, channel_mult=(1, 2, 4), transformer_depth=(1, 1, 1), tiny_unet=True,
+)
+SDXS_09_UNET_CONFIG = dataclasses.replace(SD2_TINY_UNET_CONFIG, sdxs09_wide_head=True)
 
 
 def _heads_for(cfg: UNetConfig, ch: int) -> int:
     if cfg.num_head_channels is not None:
-        return ch // cfg.num_head_channels
+        n = ch // cfg.num_head_channels
+        if cfg.sdxs09_wide_head and n == 5:
+            return 1  # SDXS-0.9: 5 x 64 runs as 1 x 320
+        return n
     return cfg.num_heads or 8
 
 
@@ -155,8 +176,11 @@ def upsample(p, pre: str, x: torch.Tensor) -> torch.Tensor:
 
 def _block_layout(cfg: UNetConfig):
     """Static layout of (input_blocks, output_blocks) with CompVis block
-    indices.  inputs: [(idx, [kinds])]; outputs: [(idx, [kinds], up)] where
-    up is None or (up_idx, up_sub) naming the UpSample conv position."""
+    indices, which the tiny UNets keep with holes (the index advances an
+    extra step a level and before each upsample, so their checkpoints name
+    blocks as their full parents do).  inputs: [(idx, [kinds])]; outputs:
+    [(idx, [kinds], up)] where up is None or (up_idx, up_sub) naming the
+    UpSample conv position."""
     inputs = [(0, ["conv"])]
     ds = 1
     idx = 0
@@ -167,6 +191,8 @@ def _block_layout(cfg: UNetConfig):
             if ds in cfg.attention_resolutions and cfg.transformer_depth[level] > 0:
                 blk.append(("attn", cfg.transformer_depth[level]))
             inputs.append((idx, blk))
+            if cfg.tiny_unet:
+                idx += 1
         if level != len(cfg.channel_mult) - 1:
             idx += 1
             inputs.append((idx, ["down"]))
@@ -180,21 +206,31 @@ def _block_layout(cfg: UNetConfig):
             if ds in cfg.attention_resolutions and cfg.transformer_depth[level] > 0:
                 blk.append(("attn", cfg.transformer_depth[level]))
                 up_sub += 1
+            entry_idx = obi
             up = None
             if level != 0 and i == cfg.num_res_blocks:
+                if cfg.tiny_unet:
+                    obi += 1
+                    if obi == 2:
+                        up_sub = 1
                 up = (obi, up_sub)
                 ds //= 2
-            outputs.append((obi, blk, up))
+            outputs.append((entry_idx, blk, up))
             obi += 1
     return inputs, outputs
 
 
 def unet_forward(p, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
-                 y: Optional[torch.Tensor] = None, cfg: UNetConfig = SD1_UNET_CONFIG) -> torch.Tensor:
+                 y: Optional[torch.Tensor] = None, cfg: UNetConfig = SD1_UNET_CONFIG,
+                 controls=None, control_strength: float = 1.0) -> torch.Tensor:
     """x: [B,H,W,C] latent (NHWC), timesteps: [B], context: [B,L,ctx],
     y: [B, adm_in_channels] (SDXL's vector, added through the label
     embedding) → eps prediction [B,H,W,out].  A ``y`` given to a config
-    without ``adm_in_channels`` raises."""
+    without ``adm_in_channels`` raises.
+
+    controls: optional (per-input-block residuals, middle residual) from a
+    ControlNet (``models.controlnet.controlnet_forward``), added to the
+    skips and the middle scaled by ``control_strength``."""
     if y is not None and cfg.adm_in_channels is None:
         raise ValueError("y given to a UNet without a label embedding (adm_in_channels is None)")
     t_emb = timestep_embedding(timesteps, cfg.model_channels).to(x.dtype)
@@ -221,10 +257,16 @@ def unet_forward(p, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Ten
                 h = spatial_transformer(p, pre, h, context, cfg, kind[1])
         hs.append(h)
 
-    h = resblock(p, "middle_block.0", h, emb)
-    mid_depth = cfg.transformer_depth[-1] if cfg.transformer_depth[-1] > 0 else 1
-    h = spatial_transformer(p, "middle_block.1", h, context, cfg, mid_depth)
-    h = resblock(p, "middle_block.2", h, emb)
+    if not cfg.tiny_unet:
+        h = resblock(p, "middle_block.0", h, emb)
+        mid_depth = cfg.transformer_depth[-1] if cfg.transformer_depth[-1] > 0 else 1
+        h = spatial_transformer(p, "middle_block.1", h, context, cfg, mid_depth)
+        h = resblock(p, "middle_block.2", h, emb)
+
+    if controls is not None:
+        block_controls, middle_control = controls
+        h = h + middle_control.to(h.dtype) * control_strength
+        hs = [s + c.to(s.dtype) * control_strength for s, c in zip(hs, block_controls)]
 
     for bi, blk, up in outputs:
         h = torch.cat([h, hs.pop()], dim=-1)
@@ -319,9 +361,10 @@ def param_specs(cfg: UNetConfig) -> dict:
         skips.append(cur)
 
     top = cfg.channel_mult[-1] * mc
-    res("middle_block.0", top, top, emb_dim)
-    spatial("middle_block.1", top, cfg.transformer_depth[-1] if cfg.transformer_depth[-1] > 0 else 1)
-    res("middle_block.2", top, top, emb_dim)
+    if not cfg.tiny_unet:
+        res("middle_block.0", top, top, emb_dim)
+        spatial("middle_block.1", top, cfg.transformer_depth[-1] if cfg.transformer_depth[-1] > 0 else 1)
+        res("middle_block.2", top, top, emb_dim)
 
     for oi, (bi, blk, up) in enumerate(layout_out):
         lvl = len(cfg.channel_mult) - 1 - oi // (cfg.num_res_blocks + 1)

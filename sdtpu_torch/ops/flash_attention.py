@@ -21,8 +21,9 @@ import torch
 from . import _build
 
 # 40, 80 and 160: the SD1.5 UNet's 8 heads over 320, 640 and 1280 channels;
-# 64: CLIP-L; 128: the FLUX DiT; 512: the VAE mid-block
-SUPPORTED_HEAD_DIMS = (40, 64, 80, 128, 160, 512)
+# 64: CLIP-L; 128: the FLUX DiT; 320: SDXS-0.9's one head over 320 channels;
+# 512: the VAE mid-block
+SUPPORTED_HEAD_DIMS = (40, 64, 80, 128, 160, 320, 512)
 
 
 def plain_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.Tensor:
@@ -92,7 +93,7 @@ def flash_supported(q, k, v, mask) -> bool:
 @functools.lru_cache(maxsize=1024)
 def _workspace_bytes(code: int, bh: int, lq: int, lk: int, d: int) -> int:
     """f32 scratch a call needs (0 unless the library splits its keys: bf16
-    at D 512, float32 at D 160 and 512), asked once per shape."""
+    at D 320 and 512, float32 at D 160, 320 and 512), asked once per shape."""
     return _build.query("sdtpu_flash_workspace_bytes", code, bh, lq, lk, d)
 
 
@@ -103,8 +104,8 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.
     the kernel (bf16 or f32, D in SUPPORTED_HEAD_DIMS) or raise.  Every launch
     counts in ``launches``; bf16 at D 512 also in ``launches_d512``, bf16 at
     D 64 (CLIP's) in ``launches_d64``, float32 in ``launches_f32``, and
-    either dtype at the UNet's D 40, 80 and 160 in ``launches_d40``,
-    ``launches_d80`` and ``launches_d160``."""
+    either dtype at the UNet's D 40, 80, 160 and 320 in ``launches_d40``,
+    ``launches_d80``, ``launches_d160`` and ``launches_d320``."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if scale is None:
@@ -146,9 +147,11 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None) -> torch.
     flash_attention.launches_d40 += d == 40
     flash_attention.launches_d80 += d == 80
     flash_attention.launches_d160 += d == 160
+    flash_attention.launches_d320 += d == 320
     return out
 
 
 flash_attention.launches = flash_attention.launches_d512 = flash_attention.launches_f32 = 0
 flash_attention.launches_d64 = 0
 flash_attention.launches_d40 = flash_attention.launches_d80 = flash_attention.launches_d160 = 0
+flash_attention.launches_d320 = 0

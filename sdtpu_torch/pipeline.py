@@ -182,6 +182,23 @@ def _to_pm1(image) -> np.ndarray:
     return img * 2.0 - 1.0
 
 
+def _control_hint(image, width: int, height: int) -> np.ndarray:
+    """A control image → the ControlNet's hint [H, W, 3] float32 in [0, 1],
+    as the JAX pipeline prepares it (a maximum over 1.5 means 0-255; a
+    gray image is repeated to three channels).  It must already be the
+    request's size: the port has no resampler (the JAX CLI resizes with
+    Pillow's Lanczos)."""
+    hint = np.asarray(image, dtype=np.float32)
+    if hint.max() > 1.5:
+        hint = hint / 255.0
+    if hint.ndim == 2:
+        hint = np.repeat(hint[..., None], 3, axis=-1)
+    if hint.shape != (height, width, 3):
+        raise ValueError(f"control image {hint.shape[1]}x{hint.shape[0]}: the port takes it at the "
+                         f"request's {width}x{height} (it does not resize control images)")
+    return hint
+
+
 def resize_latents(latents: torch.Tensor, lh: int, lw: int) -> torch.Tensor:
     """[B, h, w, C] → [B, lh, lw, C] float32 on the latents' device: bilinear
     with half-pixel centres, antialiased along a shrinking axis, as
@@ -254,7 +271,7 @@ class DiffusionPipeline:
                  vae_params, vae_decode_fn: Callable, denoiser, rng_type: str = "cuda",
                  latent_channels: int = 4, compute_dtype: torch.dtype = torch.float32,
                  uses_distilled_guidance: bool = False, device="cuda", temporal_scale: int = 1,
-                 vae_encode_fn: Optional[Callable] = None):
+                 vae_encode_fn: Optional[Callable] = None, controlnet_fn: Optional[Callable] = None):
         self.version = version
         self.diffusion_params = diffusion_params
         self.diffusion_fn = diffusion_fn
@@ -262,6 +279,9 @@ class DiffusionPipeline:
         self.vae_params = vae_params
         self.vae_decode_fn = vae_decode_fn
         self.vae_encode_fn = vae_encode_fn  # (params, x, noise=None) → scaled latent
+        # (params, x, hint, t, context, y) → (block controls, middle control)
+        self.controlnet_fn = controlnet_fn
+        self.controlnet_params = None
         self.denoiser = denoiser
         self.rng_type = rng_type
         self.latent_channels = latent_channels
@@ -359,6 +379,14 @@ class DiffusionPipeline:
                                       "SD1.x and SD2.x, as in the JAX package")
         self.conditioner.load_embedding(name, vectors)
         self._cond_cache.clear()
+
+    def set_controlnet(self, params) -> None:
+        """Attach or swap ControlNet weights (``controlnet_fn``'s params);
+        None detaches them."""
+        if params is not None and self.controlnet_fn is None:
+            raise NotImplementedError(f"set_controlnet: {self.version.name} takes no ControlNet "
+                                      "(the port runs it on the SD1.x, SD2.x and SDXL UNets)")
+        self.controlnet_params = params
 
     def set_vae_tiling(self, enabled: bool = True, tile_size: int = 64, overlap: int = 8,
                        temporal: bool = False, extra_tiling_args: str = "") -> None:
@@ -472,7 +500,7 @@ class DiffusionPipeline:
                   c_concat: Optional[torch.Tensor] = None,
                   img_uncond_concat: Optional[torch.Tensor] = None,
                   img_cfg_scale: Optional[float] = None, apg: Optional[APGParams] = None,
-                  slg: Optional[tuple] = None):
+                  slg: Optional[tuple] = None, control: Optional[tuple] = None):
         """→ model_fn(x, sigma, i) → (denoised, uncond denoised); with a
         mask, the denoised estimate keeps ``masked_target`` where it is 0.  ``cfg_scale``: a float, or a
         per-step list (the guidance schedule; the last entry holds past its
@@ -485,7 +513,10 @@ class DiffusionPipeline:
         cache skips leaves it as it is);
         ``slg`` = (scale, skip layers, i0, i1): at steps i0 <= i < i1 one
         more cond-only forward with those layers skipped adds scale · (cond −
-        skipped) to the guided estimate."""
+        skipped) to the guided estimate.  ``control`` = (hint [1, H, W, 3] in
+        [0, 1] on the device, strength): each model call but SLG's runs the
+        ControlNet on the scaled latent without the concat channels, the
+        hint repeated to the call's batch, as the JAX step does."""
         denoiser = self.denoiser
         has_uncond = ctx_u is not None
         dev = self.device
@@ -495,6 +526,17 @@ class DiffusionPipeline:
             if concat is None:
                 return x_core
             return torch.cat([x_core, concat.to(x_core.dtype).expand(b, -1, -1, -1)], dim=-1)
+
+        def call(x_full, x_core_full, tt, ctx, y, guidance):
+            kw = {}
+            if control is not None:
+                hint, strength = control
+                hint = hint.repeat(x_full.shape[0] // hint.shape[0], 1, 1, 1)
+                kw = {"controls": self.controlnet_fn(self.controlnet_params, x_core_full, hint, tt,
+                                                     ctx, y),
+                      "control_strength": strength}
+            return self.diffusion_fn(self.diffusion_params, x_full, tt, ctx, y, guidance=guidance,
+                                     **kw).float()
 
         def model_fn(xt, sigma, i):
             cfg_s = (cfg_scale[min(i, len(cfg_scale) - 1)] if isinstance(cfg_scale, list)
@@ -509,15 +551,13 @@ class DiffusionPipeline:
                 ctx = torch.cat([ctx_c, ctx_u], dim=0)
                 y = torch.cat([y_c, y_u], dim=0) if y_c is not None else None
                 g = torch.cat([guidance, guidance], dim=0) if guidance is not None else None
-                out = self.diffusion_fn(self.diffusion_params, x_both, tt.repeat(2), ctx, y,
-                                        guidance=g).float()
+                out = call(x_both, torch.cat([x_core, x_core], dim=0), tt.repeat(2), ctx, y, g)
                 den_both = c_skip * torch.cat([xt, xt], dim=0) + c_out * out
                 den_cond, den_uncond = den_both[:b], den_both[b:]
                 den_img_u, img_scale = None, 1.0
                 if img_cfg_scale is not None:
-                    out_iu = self.diffusion_fn(self.diffusion_params,
-                                               with_concat(x_core, img_uncond_concat), tt, ctx_u,
-                                               y_u, guidance=guidance).float()
+                    out_iu = call(with_concat(x_core, img_uncond_concat), x_core, tt, ctx_u, y_u,
+                                  guidance)
                     den_img_u, img_scale = c_skip * xt + c_out * out_iu, img_cfg_scale
                 if apg is not None:
                     pred, momentum["buf"] = apg_combine(
@@ -532,8 +572,7 @@ class DiffusionPipeline:
                                               guidance=guidance, skip_layers=slg[1]).float()
                     pred = pred + slg[0] * (den_cond - (c_skip * xt + c_out * out_s))
             else:
-                out = self.diffusion_fn(self.diffusion_params, x_in, tt, ctx_c, y_c,
-                                        guidance=guidance).float()
+                out = call(x_in, x_core, tt, ctx_c, y_c, guidance)
                 pred = c_skip * xt + c_out * out
                 den_uncond = pred
             if denoise_mask is not None:
@@ -565,7 +604,8 @@ class DiffusionPipeline:
                  progress_callback: Optional[Callable], cancel_check: Optional[Callable],
                  init_latent: Optional[torch.Tensor] = None, mask_image=None,
                  concat: tuple = (None, None), video: bool = False,
-                 step_cache: Optional[str] = None, cache_options: Optional[dict] = None):
+                 step_cache: Optional[str] = None, cache_options: Optional[dict] = None,
+                 control: Optional[tuple] = None):
         """Conditioning, then sampling from the initial noise of ``shape``
         (one batch item's latent), scaled around ``init_latent`` where given
         (img2img: the schedule cut by ``gp.strength``; ``mask_image`` keeps
@@ -574,7 +614,9 @@ class DiffusionPipeline:
         the JAX pipeline a ``video`` request runs SLG but neither APG, the
         guidance schedule nor the sampler keys of ``extra_sample_args``.
         ``step_cache`` (with ``cache_options``) wraps the model function in
-        that cache (``stepcache.make_step_cache``) → (latents on the device,
+        that cache (``stepcache.make_step_cache``); ``control`` (see
+        ``_model_fn``) runs the ControlNet in each model call → (latents on
+        the device,
         float32; seeds; cond seconds; sample seconds; steps; the cache's
         skipped forwards, or None)."""
         dev = self.device
@@ -676,7 +718,8 @@ class DiffusionPipeline:
         ts0 = time.time()
         model_fn = self._model_fn(ctx_c, ctx_u, y_c, y_u, cfg, guidance, bc,
                                   denoise_mask, masked_target, c_concat, img_uncond_concat,
-                                  None if img_cfg is None else float(img_cfg), apg=apg, slg=slg)
+                                  None if img_cfg is None else float(img_cfg), apg=apg, slg=slg,
+                                  control=control)
         cached = None
         if step_cache is not None:
             model_fn = cached = make_step_cache(step_cache, model_fn, self.denoiser, steps,
@@ -744,7 +787,8 @@ class DiffusionPipeline:
     def generate(self, gp: GenerationParams, init_image=None, mask_image=None, init_latent=None,
                  ref_images=None, progress_callback: Optional[Callable] = None,
                  cancel_check: Optional[Callable] = None, step_cache: Optional[str] = None,
-                 cache_options: Optional[dict] = None) -> GenerationResult:
+                 cache_options: Optional[dict] = None, control_image=None,
+                 control_strength: float = 0.9) -> GenerationResult:
         """txt2img, or img2img from ``init_image`` ([H,W,3] uint8 or float in
         [0, 1]) or ``init_latent`` ([1 or B, h, w, zc], scaled) with
         ``gp.strength``, masked by ``mask_image`` ([H,W]: 1 regenerate, 0
@@ -757,7 +801,10 @@ class DiffusionPipeline:
         stops).  ``step_cache`` (``easycache``, ``ucache``, ``taylorseer``,
         ``spectrum``, ``dbcache`` / ``cache_dit``) with ``cache_options``
         (its config's fields) skips forwards; ``last_timings`` then adds
-        ``cache_skipped``."""
+        ``cache_skipped``.  ``control_image`` ([H,W,3] or [H,W], uint8 or
+        float in [0, 1], the request's size) guides each step through the
+        ControlNet of ``set_controlnet`` at ``control_strength``; without
+        one attached it raises (the JAX pipeline ignores it)."""
         if ref_images is not None and not sd_version_is_unet_edit(self.version):
             raise NotImplementedError(
                 f"generate(ref_images=...) on {self.version.name}: the port takes reference "
@@ -773,13 +820,20 @@ class DiffusionPipeline:
         concat = self._concat_latents(gp, init_image, mask_image, ref_images)
         if sd_version_is_inpaint(self.version):
             mask_image = None  # the inpainting UNet takes the mask in its input: no blend
+        control = None
+        if control_image is not None:
+            if self.controlnet_params is None:
+                raise ValueError("generate(control_image=...): no ControlNet attached (set_controlnet; "
+                                 "the JAX pipeline ignores the image then)")
+            hint = torch.from_numpy(_control_hint(control_image, gp.width, gp.height))[None]
+            control = (hint.to(self.device, self.compute_dtype), float(control_strength))
         if encoded or (concat[0] is not None and (init_image is not None or ref_images)):
             _sync(self.device)
             timings["encode"] = time.time() - t0
         latents, seeds, t_cond, t_sample, steps, skipped = self._denoise(
             gp, (lh, lw, self.latent_channels), (lh // 2) * (lw // 2), progress_callback,
             cancel_check, init_latent=init_latent, mask_image=mask_image, concat=concat,
-            step_cache=step_cache, cache_options=cache_options)
+            step_cache=step_cache, cache_options=cache_options, control=control)
         if skipped is not None:
             timings["cache_skipped"] = skipped
         t1 = time.time()

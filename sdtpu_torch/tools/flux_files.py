@@ -144,16 +144,24 @@ def _gguf_from_specs(path: Path, specs: dict, draw: _Draw, min_elems: int, metad
                            metadata=metadata)
 
 
-def write_safetensors(path: Path, specs: dict, draw: _Draw, dtype=torch.float32) -> int:
+def write_safetensors(path: Path, specs: dict, draw: _Draw, dtype=torch.float32,
+                      names: Optional[Dict[str, list]] = None) -> int:
     """A safetensors file of ``specs`` drawn by ``draw`` in ``dtype``, tensor
-    by tensor → bytes written."""
+    by tensor → bytes written.  ``names`` (name → the names it is written
+    under) renames each tensor, cut in as many equal parts along dim 0 as it
+    has names (a fused q / k / v written apart): the values drawn do not
+    depend on it."""
     name = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16"}[dtype]
     size = torch.tensor([], dtype=dtype).element_size()
+    names = names or {n: [n] for n in specs}
     header, offset = {}, 0
     for n, (shape, _) in specs.items():
-        nbytes = int(np.prod(shape)) * size
-        header[n] = {"dtype": name, "shape": list(shape), "data_offsets": [offset, offset + nbytes]}
-        offset += nbytes
+        parts = names[n]
+        part_shape = [shape[0] // len(parts), *shape[1:]]
+        for pn in parts:
+            nbytes = int(np.prod(part_shape)) * size
+            header[pn] = {"dtype": name, "shape": part_shape, "data_offsets": [offset, offset + nbytes]}
+            offset += nbytes
     hjson = json.dumps(header, separators=(",", ":")).encode()
     hjson += b" " * ((8 - len(hjson) % 8) % 8)
     with open(path, "wb") as f:

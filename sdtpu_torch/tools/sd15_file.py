@@ -17,6 +17,11 @@ zero biases):
 Both packages' loaders fingerprint it as SD1 (a 4-channel UNet stem, a
 768-wide cross-attention context, a middle block, no label embedding), as
 SD1_INPAINT with 9 input channels and as SD1_PIX2PIX with 8.
+
+``write_unet_files(out_dir)`` writes the UNet alone twice (a
+``--diffusion-model`` file): under its CompVis names and under a diffusers
+folder's ``UNet2DConditionModel`` names, both drawn from ``SEED`` first, so
+they hold the single file's UNet, value for value.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ import torch
 from sdtpu_torch.models import clip as clip_mod
 from sdtpu_torch.models import unet as unet_mod
 from sdtpu_torch.models import vae as vae_mod
+from sdtpu_torch.io.name_conversion import convert_diffusers_unet_name
+from sdtpu_torch.tools.diffusers_names import unet_name, write_pair
 from sdtpu_torch.tools.flux_files import _Draw, write_safetensors
 
 PREFIXES = {"diffusion": "model.diffusion_model.", "clip_l": "cond_stage_model.transformer.",
@@ -73,6 +80,15 @@ def write_sd15_file(path, device="cuda", in_channels: int = 4) -> dict:
     "bytes", "write_s", "tensors"}.  Raises before writing where the disk
     has too little free space."""
     return write_single_file(path, file_specs(in_channels), device, "SD1.5 file")
+
+
+def write_unet_files(out_dir, device="cuda", cfg=None, stem: str = "sd15_unet") -> dict:
+    """The SD1.x UNet (``cfg``, by default ``SD1_UNET_CONFIG``) under CompVis
+    and under diffusers names (``diffusers_names.write_pair``) → its
+    paths, bytes and tensor counts."""
+    specs = unet_mod.param_specs(cfg or unet_mod.SD1_UNET_CONFIG)
+    return write_pair(out_dir, stem, specs, unet_name, convert_diffusers_unet_name, device,
+                      dtype=DTYPE, seed=SEED)
 
 
 if __name__ == "__main__":

@@ -20,6 +20,11 @@ zero biases):
     under llama.cpp names, its synthetic 32128-piece vocab embedded).
 Both packages' loaders fingerprint the first as SD3 (``joint_blocks``) and
 the MMDiT config as SD3.5-Medium's.
+
+``write_mmdit_files(out_dir, depth)`` writes the MMDiT alone (a
+``--diffusion-model`` file), cut to ``depth`` joint blocks, under its
+original names and under ``SD3Transformer2DModel``'s (q, k and v apart),
+drawn from one seed.
 """
 from __future__ import annotations
 
@@ -95,6 +100,18 @@ def write_sd3_files(out_dir, device="cuda", min_quant_elems: int = MIN_QUANT_ELE
         out["bytes"][key] = n
         out["tensors"][key] = len(sp)
     return out
+
+
+def write_mmdit_files(out_dir, device="cuda", depth: int = 2, cfg=None,
+                      stem: str = "sd3.5_medium_mmdit") -> dict:
+    """The MMDiT (``cfg``, by default SD3.5-Medium's, cut to ``depth`` joint
+    blocks) under its original and its diffusers names."""
+    from sdtpu_torch.io.name_conversion import convert_diffusers_sd3_name
+    from sdtpu_torch.tools.diffusers_names import sd3_name, write_pair
+
+    cfg = dataclasses.replace(cfg or mmdit_mod.SD35_MEDIUM_CONFIG, depth=depth)
+    return write_pair(out_dir, stem, mmdit_mod.param_specs(cfg), sd3_name,
+                      convert_diffusers_sd3_name, device, dtype=DTYPE, seed=SEED)
 
 
 if __name__ == "__main__":

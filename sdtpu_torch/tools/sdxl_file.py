@@ -21,6 +21,9 @@ source is ever held; values are drawn on the device from fixed seeds, std
     port's own).
 Both packages' loaders fingerprint the first as SDXL (a label embedding, a
 second text encoder, a 10-deep middle block).
+
+``write_unet_files(out_dir)`` writes the SDXL UNet alone under CompVis
+and under diffusers names, drawn from one seed (the same values).
 """
 from __future__ import annotations
 
@@ -111,6 +114,17 @@ def write_sdxl_files(out_dir, device="cuda") -> dict:
         nbytes[key] = write_safetensors(Path(paths[key]), sp, _Draw(seed, device), DTYPE)
     return {"paths": paths, "bytes": nbytes, "write_s": time.time() - t0,
             "tensors": {k: len(sp) for k, (sp, _) in files.items()}}
+
+
+def write_unet_files(out_dir, device="cuda", cfg=None, stem: str = "sdxl_unet") -> dict:
+    """The SDXL UNet (``cfg``, by default ``SDXL_UNET_CONFIG``) under CompVis
+    and under diffusers names (``diffusers_names.write_pair``)."""
+    from sdtpu_torch.io.name_conversion import convert_diffusers_unet_name
+    from sdtpu_torch.tools.diffusers_names import unet_name, write_pair
+
+    specs = unet_mod.param_specs(cfg or unet_mod.SDXL_UNET_CONFIG)
+    return write_pair(out_dir, stem, specs, unet_name, convert_diffusers_unet_name, device,
+                      dtype=DTYPE, seed=SEED)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,11 @@ biases):
       T5-XXL, with a synthetic unigram vocab of UMT5's 256384 pieces.
 Both packages' loaders fingerprint the first as Wan2 and its config as
 Wan2.1-T2V-1.3B's.
+
+``write_vae_files(out_dir)`` writes the whole Wan 2.1 VAE (encoder
+included) under its original names and under ``AutoencoderKLWan``'s, drawn
+from one seed, and a DiT cut to ``dit_blocks`` blocks beside them, so the
+loader has a Wan model to fingerprint.
 """
 from __future__ import annotations
 
@@ -81,6 +86,27 @@ def write_wan_files(out_dir, device="cuda", min_quant_elems: int = MIN_QUANT_ELE
         out["paths"][key] = str(path)
         out["bytes"][key] = n
         out["tensors"][key] = len(sp)
+    return out
+
+
+def write_vae_files(out_dir, device="cuda", cfg=None, dit_cfg=None, dit_blocks: int = 2,
+                    stem: str = "wan_2.1_vae") -> dict:
+    """The Wan VAE (``cfg``, by default ``WAN21_VAE_CONFIG``, encoder
+    included) under its original and its diffusers names, and the DiT
+    (``dit_cfg``, by default Wan2.1-T2V-1.3B's) cut to ``dit_blocks``
+    blocks as ``paths["dit"]``."""
+    import dataclasses
+
+    from sdtpu_torch.io.name_conversion import convert_diffusers_wan_vae_name
+    from sdtpu_torch.tools.diffusers_names import wan_vae_name, write_pair
+
+    specs = wan_vae_mod.param_specs(cfg or wan_vae_mod.WAN21_VAE_CONFIG, decode_only=False)
+    out = write_pair(out_dir, stem, specs, wan_vae_name, convert_diffusers_wan_vae_name, device,
+                     dtype=DTYPE, seed=SEED)
+    dit = dataclasses.replace(dit_cfg or wan_mod.WAN21_T2V_1_3B_CONFIG, num_layers=dit_blocks)
+    path = Path(out_dir) / "wan_dit_cut.safetensors"
+    out["bytes"]["dit"] = write_safetensors(path, wan_mod.param_specs(dit), _Draw(SEED, device), DTYPE)
+    out["paths"]["dit"] = str(path)
     return out
 
 

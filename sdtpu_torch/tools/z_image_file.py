@@ -34,7 +34,7 @@ from pathlib import Path
 import torch
 
 from sdtpu_torch.io import gguf
-from sdtpu_torch.io.model_loader import _GGUF_LLM_MAP, _replace_name_map
+from sdtpu_torch.io.name_conversion import _GGUF_LLM_MAP, _replace_name_map
 from sdtpu_torch.models import llm as llm_mod
 from sdtpu_torch.models import z_image as zi_mod
 from sdtpu_torch.tokenizers.bpe import bytes_to_unicode

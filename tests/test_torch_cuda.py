@@ -397,7 +397,11 @@ def test_w8a8_wgmma_kernel_bit_equal(cuda, m, k, n):
     # D 512: the VAE tile (keys split in two, then combined); Lk under one
     # 32-key tile; one Q tile with four one-tile splits, the last of 4 keys
     ((1, 1), 4096, 4096, 512, False), ((1, 1), 130, 20, 512, False), ((1, 1), 64, 100, 512, True),
-    ((1, 2), 300, 200, 512, True), ((3, 2), 257, 1000, 512, True), ((2, 3), 1030, 77, 512, False)])
+    ((1, 2), 300, 200, 512, True), ((3, 2), 257, 1000, 512, True), ((2, 3), 1030, 77, 512, False),
+    # D 320 (SDXS-0.9's wide head): the self-attention (two key splits), the
+    # cross-attention over 77 keys at B 2, ragged and biased
+    ((1, 1), 4096, 4096, 320, False), ((2, 1), 4096, 77, 320, False), ((1, 1), 130, 20, 320, False),
+    ((1, 2), 300, 200, 320, True), ((3, 2), 257, 1000, 320, True)])
 def test_flash_wgmma_kernel_ragged_edges(cuda, bh, lq, lk, d, bias):
     """bf16 takes the TMA + wgmma kernels: Lq and Lk off the tiles (TMA's
     zero fill, the last key tile masked), with and without the dense bias;
@@ -997,7 +1001,8 @@ def test_f32_full_width_linears_match_plain(cuda, kind, m, k, n):
     ((1, 24), 200, 300, 128), ((2, 3), 129, 127, 128), ((1, 24), 1280, 1000, 128),
     ((2, 12), 77, 77, 64), ((1, 4), 150, 129, 64), ((3, 2), 257, 385, 64),
     ((1, 1), 4096, 4096, 512), ((1, 1), 130, 20, 512), ((1, 1), 64, 100, 512),
-    ((1, 2), 300, 200, 512), ((3, 2), 257, 1000, 512), ((2, 3), 1030, 77, 512)])
+    ((1, 2), 300, 200, 512), ((3, 2), 257, 1000, 512), ((2, 3), 1030, 77, 512),
+    ((1, 1), 4096, 4096, 320), ((2, 1), 4096, 77, 320), ((1, 2), 300, 200, 320), ((3, 2), 257, 1000, 320)])
 def test_flash_f32_kernel_ragged_edges(cuda, bias, bh, lq, lk, d):
     """float32 takes the 3xTF32 kernel: the bf16 ragged-edge shapes with and
     without the dense bias (at D 512 the keys split where the grid is small),

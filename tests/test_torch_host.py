@@ -393,12 +393,19 @@ def test_diffusers_names_round_trip(small_dit):
 ])
 def test_load_model_bundle_refuses_other_families(tmp_path, tensors, family):
     """The port loads FLUX, the SD1.x / SD2.x / SDXL UNets (their inpainting
-    and pix2pix stems too), SD3 and Wan2.1 T2V; another UNet family (the
-    tiny UNets, SDXL's SSD-1B) is refused by name."""
+    and pix2pix stems and their tiny distills too), SD3 and Wan2.1 T2V:
+    the tiny UNets, refused before the port had them, load with the JAX
+    loader's version; SDXL's SSD-1B, which the JAX factory cannot run
+    (it hands SSD-1B the 10-deep SDXL config), is refused by name."""
     path = str(tmp_path / "unet.safetensors")
     save_safetensors(path, tensors)
-    with pytest.raises(NotImplementedError, match=f"a {family}"):
-        load_model_bundle(diffusion_model_path=path, keep_quant=True)
+    if family == "sdxl_ssd1b":
+        with pytest.raises(NotImplementedError, match=f"a {family}"):
+            load_model_bundle(diffusion_model_path=path, keep_quant=True)
+        return
+    got = load_model_bundle(diffusion_model_path=path, keep_quant=True)
+    assert got.version.value == family
+    assert jax_load_model_bundle(diffusion_model_path=path).version.value == family
 
 
 # --------------------------------------------------------- card by default

@@ -468,8 +468,10 @@ def test_sd3_split_modules_matches_jax(jpipe, tmp_path):
 
 def test_sd3_diffusers_names_are_refused(tmp_path):
     """An SD3 transformer under diffusers names (``pos_embed.proj``,
-    ``transformer_blocks``) is refused by name: the port loads SD3 under its
-    single-file names."""
+    ``transformer_blocks``), refused by name before the port had the SD3
+    converter, now loads as the JAX loader loads it: joint-block names, q
+    kept as the fused weight's first part where k and v are missing."""
+    from sdtpu.io.model_loader import load_model_bundle as jload
     from sdtpu.io.safetensors import save_safetensors
     from sdtpu_torch.io.model_loader import load_model_bundle
 
@@ -477,5 +479,7 @@ def test_sd3_diffusers_names_are_refused(tmp_path):
     save_safetensors(path, {"pos_embed.proj.weight": np.zeros((8, 4, 2, 2), np.float32),
                             "transformer_blocks.0.attn.to_q.weight": np.zeros((8, 8), np.float32),
                             "context_embedder.weight": np.zeros((8, 16), np.float32)})
-    with pytest.raises(NotImplementedError, match="diffusers SD3"):
-        load_model_bundle(diffusion_model_path=path)
+    got, want = load_model_bundle(diffusion_model_path=path), jload(diffusion_model_path=path)
+    assert got.version.value == want.version.value == "sd3"
+    assert sorted(got.diffusion) == sorted(want.diffusion) == [
+        "context_embedder.weight", "joint_blocks.0.x_block.attn.qkv.weight", "x_embedder.proj.weight"]

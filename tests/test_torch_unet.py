@@ -28,6 +28,7 @@ from sdtpu_torch.config import SDVersion
 from sdtpu_torch.diffusion import denoiser as tden
 from sdtpu_torch.diffusion import samplers as tsamplers
 from sdtpu_torch.diffusion.schedule import get_sigmas
+from sdtpu_torch import factory as tfactory
 from sdtpu_torch.factory import create_pipeline, sd1_configs
 from sdtpu_torch.models import unet as tu
 from sdtpu_torch.models import vae as tvae
@@ -121,9 +122,16 @@ def test_attention_calls_count_the_forward(monkeypatch):
 
 
 def test_unported_unet_variants_raise_by_name():
-    for version in (SDVersion.SD2_TINY_UNET, SDVersion.SD1_TINY_UNET, SDVersion.SVD):
-        with pytest.raises(NotImplementedError, match=version.name):
-            create_pipeline(version, small=True, device="cpu")
+    """SVD stays refused by name; the tiny UNets, refused before the port
+    had them, build (small: the JAX factory's small SD1 UNet) and take
+    their full configs from ``unet_config_for`` as the JAX factory does."""
+    with pytest.raises(NotImplementedError, match=SDVersion.SVD.name):
+        create_pipeline(SDVersion.SVD, small=True, device="cpu")
+    for version in (SDVersion.SD2_TINY_UNET, SDVersion.SD1_TINY_UNET):
+        assert create_pipeline(version, small=True, device="cpu").version == version
+        full = tfactory.unet_config_for(version)
+        assert full.tiny_unet and ju.UNetConfig(**dataclasses.asdict(full)) == unet_config_for(
+            getattr(jconfig.SDVersion, version.name))
     with pytest.raises(ValueError, match="label embedding"):
         tu.unet_forward({}, torch.zeros((1, 8, 8, 4)), torch.zeros(1), torch.zeros((1, 77, 64)),
                         y=torch.zeros((1, 8)), cfg=TSMALL)
